@@ -1,0 +1,28 @@
+"""Architecture configs the port serves (port of ``repro.configs``).
+
+``get_config(arch_id)`` returns the full-size ModelConfig;
+``get_smoke_config(arch_id)`` the reduced same-family config for CPU tests.
+Only the dense family is ported so far.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_IDS = ("internlm2_1_8b",)
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"arch {arch_id!r} is not ported yet (ported: {ARCH_IDS})")
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).SMOKE_CONFIG

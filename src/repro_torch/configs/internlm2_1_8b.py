@@ -1,0 +1,23 @@
+"""internlm2-1.8b [dense] — GQA kv=8. [arXiv:2403.17297; hf]"""
+
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=92544,
+    act="swiglu",
+)
+
+SMOKE_CONFIG = dataclasses.replace(
+    CONFIG, num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=256,
+)

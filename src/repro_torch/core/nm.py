@@ -1,0 +1,109 @@
+"""N:M structured sparsity: pruning, compression, metadata packing.
+
+The port's copy of ``repro.core.nm``; the formats are byte-identical.
+
+Weights are stored ``(K, O)`` with the contraction dimension first
+(``y = x @ w``).  Within every block of ``m`` consecutive K-rows each
+output channel keeps at most ``n`` nonzeros.
+
+- ``values``: ``(K*n/m, O)``, the kept entries, block-major along K.
+- ``meta``: ``(K*n/m, O)`` uint8 in ``[0, m)``, each kept value's
+  in-block position.  Kept indices are strictly increasing within a
+  block: a stable descending sort by magnitude picks the top ``n``
+  (ties keep the lower index), then the picked indices are sorted.
+- ``pack_meta`` packs four consecutive ``K_c`` rows into one byte, two
+  bits each, low bits first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+__all__ = [
+    "NMCompressed",
+    "nm_mask",
+    "prune_nm",
+    "compress_nm",
+    "decompress",
+    "pack_meta",
+    "unpack_meta",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class NMCompressed:
+    """Compressed N:M matrix (values + in-block indices)."""
+
+    values: torch.Tensor   # (K_c, O)
+    meta: torch.Tensor     # (K_c, O) uint8, entries in [0, m)
+    n: int
+    m: int
+
+
+def _block_view(w: torch.Tensor, m: int) -> torch.Tensor:
+    k, o = w.shape
+    if k % m:
+        raise ValueError(f"K={k} not divisible by m={m}")
+    return w.reshape(k // m, m, o)
+
+
+def _order(blocks: torch.Tensor) -> torch.Tensor:
+    """In-block slot order by descending magnitude, ties by index."""
+    return torch.sort(-blocks.abs(), dim=1, stable=True).indices
+
+
+def nm_mask(w: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Boolean keep-mask: magnitude top-n per m-block, per column."""
+    order = _order(_block_view(w, m))
+    ranks = torch.argsort(order, dim=1, stable=True)
+    return (ranks < n).reshape(w.shape)
+
+
+def prune_nm(w: torch.Tensor, n: int, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Magnitude-prune ``w`` to N:M along K. Returns (pruned, mask)."""
+    mask = nm_mask(w, n, m)
+    return w * mask.to(w.dtype), mask
+
+
+def compress_nm(w: torch.Tensor, n: int, m: int) -> NMCompressed:
+    """Compress an N:M sparse ``(K, O)`` matrix (keeps the top-n by
+    magnitude per block when ``w`` is not already N:M)."""
+    blocks = _block_view(w, m)
+    keep = torch.sort(_order(blocks)[:, :n, :], dim=1).values   # (B, n, O)
+    vals = torch.gather(blocks, 1, keep)
+    kc = blocks.shape[0] * n
+    return NMCompressed(values=vals.reshape(kc, w.shape[1]),
+                        meta=keep.reshape(kc, w.shape[1]).to(torch.uint8),
+                        n=n, m=m)
+
+
+def decompress(values: torch.Tensor, meta: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Expand ``(K_c, O)`` values/meta to the dense ``(K_eff, O)`` matrix:
+    each kept value lands in its in-block slot, every other slot is 0."""
+    kc, o = values.shape
+    b = kc // n
+    idx = meta.reshape(b, n, o).long()
+    dense = torch.zeros((b, m, o), dtype=values.dtype, device=values.device)
+    dense.scatter_(1, idx, values.reshape(b, n, o))
+    return dense.reshape(b * m, o)
+
+
+def pack_meta(meta: torch.Tensor) -> torch.Tensor:
+    """Pack 2-bit indices four per byte along axis 0 (low bits first)."""
+    kc, o = meta.shape
+    if kc % 4:
+        raise ValueError(f"K_c={kc} not divisible by 4 for packing")
+    m4 = meta.reshape(kc // 4, 4, o).to(torch.int32)
+    shifts = (torch.arange(4, dtype=torch.int32, device=meta.device) * 2)[None, :, None]
+    return (m4 << shifts).sum(dim=1).to(torch.uint8)
+
+
+def unpack_meta(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_meta`: (K_c/4, O) uint8 -> (K_c, O) uint8."""
+    kp, o = packed.shape
+    p = packed.to(torch.int32)[:, None, :]
+    shifts = (torch.arange(4, dtype=torch.int32, device=packed.device) * 2)[None, :, None]
+    return ((p >> shifts) & 3).reshape(kp * 4, o).to(torch.uint8)

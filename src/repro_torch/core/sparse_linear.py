@@ -1,0 +1,147 @@
+"""SparseLinear: the N:M sparse projection, dense and compressed layouts.
+
+The port's copy of ``repro.core.sparse_linear`` for the two serving
+layouts of this slice:
+
+  dense        {"w": (K, O)}                          y = x @ w
+  compressed   {"values": (K*n/4, O),                 y = x @ dec(values, meta)
+                "meta_packed": (K*n/16, O) uint8}
+
+Both route through the dispatch engine (``kernels.dispatch``): a CUDA
+kernel where the plan allows, the torch reference formulation otherwise.
+The masked (SR-STE), gather and rowwise layouts, and quantization, wait
+for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+from . import nm
+
+__all__ = [
+    "SparsityConfig",
+    "init_linear",
+    "apply_linear",
+    "apply_gate_up",
+    "convert_layout",
+    "map_linear_leaves",
+    "is_linear_leaf",
+    "gather_hint",
+    "COLUMN_PARALLEL",
+    "ROW_PARALLEL",
+]
+
+COLUMN_PARALLEL = {"wq", "wk", "wv", "w_in", "w_gate", "wz", "wx", "wdt"}
+ROW_PARALLEL = {"wo", "w_out"}
+
+
+def gather_hint(names: Sequence[str]) -> Optional[str]:
+    """Use-site parallelism hint ("col" | "row" | None) for a param path
+    (reported by the dispatch report; the port has no mesh yet)."""
+    names = tuple(names)
+    if "experts" in names:
+        return None
+    for nm_ in reversed(names):
+        if nm_ in COLUMN_PARALLEL:
+            return "col"
+        if nm_ in ROW_PARALLEL:
+            return "row"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class SparsityConfig:
+    """Sparsity spec for one (family of) projection(s)."""
+
+    n: int = 4
+    m: int = 4
+    mode: str = "dense"          # dense | masked | compressed | gather | rowwise
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.mode != "dense" and self.n < self.m
+
+
+def _compressed(w: torch.Tensor, cfg: SparsityConfig) -> Dict[str, torch.Tensor]:
+    pruned, _ = nm.prune_nm(w, cfg.n, cfg.m)
+    c = nm.compress_nm(pruned, cfg.n, cfg.m)
+    return {"values": c.values, "meta_packed": nm.pack_meta(c.meta)}
+
+
+def init_linear(gen: torch.Generator, k: int, o: int, cfg: SparsityConfig,
+                dtype=torch.bfloat16, scale: Optional[float] = None,
+                device=None) -> Dict[str, Any]:
+    """Random parameters for one linear, in the layout ``cfg.mode`` asks
+    for.  ``gen`` must live on ``device`` (a CUDA generator for CUDA)."""
+    if scale is None:
+        scale = k ** -0.5
+    w = (torch.randn((k, o), generator=gen, dtype=torch.float32, device=device)
+         * scale).to(dtype)
+    if cfg.mode == "dense" or not cfg.is_sparse:
+        return {"w": w}
+    if cfg.mode == "compressed":
+        return _compressed(w, cfg)
+    raise NotImplementedError(f"{cfg.mode!r} layouts are not ported yet")
+
+
+def apply_linear(params: Dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
+                 epilogue=None) -> torch.Tensor:
+    """``y = epilogue(x @ W)`` with the layout's lowering.
+    x: (..., K) -> (..., O)."""
+    from ..kernels.dispatch import sparse_matmul   # local: avoid cycle
+    return sparse_matmul(x, params, cfg, epilogue=epilogue)
+
+
+def apply_gate_up(params_g: Dict[str, Any], params_u: Dict[str, Any],
+                  x: torch.Tensor, cfg: SparsityConfig, epilogue=None) -> torch.Tensor:
+    """``silu(x @ Wg) * (x @ Wu)`` as one engine dispatch."""
+    from ..kernels.dispatch import gate_up_matmul   # local: avoid cycle
+    if epilogue is not None and (epilogue.spec.act != "silu_mul"
+                                 or epilogue.spec.bias):
+        raise ValueError(f"apply_gate_up epilogue must sit on the silu_mul "
+                         f"lattice point, got {epilogue.spec.point!r}")
+    return gate_up_matmul(x, params_g, params_u, cfg, epilogue=epilogue)
+
+
+def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
+                   target_mode: str = "compressed") -> Dict[str, Any]:
+    """Offline conversion: dense weights -> serving layout.  Leaves already
+    in a serving layout pass through; stacked ``(..., K, O)`` dense leaves
+    convert per trailing matrix."""
+    if "w" not in params:
+        return params
+    w = params["w"]
+    if not cfg.is_sparse or target_mode == "dense":
+        return {"w": w}
+    if target_mode != "compressed":
+        raise NotImplementedError(f"{target_mode!r} layouts are not ported yet")
+    if w.ndim > 2:
+        lead = w.shape[:-2]
+        mats = [_compressed(m_, cfg) for m_ in w.reshape((-1,) + w.shape[-2:])]
+        return {k: torch.stack([m_[k] for m_ in mats]).reshape(lead + mats[0][k].shape)
+                for k in mats[0]}
+    return _compressed(w, cfg)
+
+
+def is_linear_leaf(tree: Any) -> bool:
+    """One flat SparseLinear layout dict (dense ``{"w"}`` or compressed):
+    the structural test every tree walk shares."""
+    return isinstance(tree, dict) and ("meta_packed" in tree or set(tree) == {"w"})
+
+
+def map_linear_leaves(tree, fn: Callable[[Dict[str, Any]], Dict[str, Any]]):
+    """Rebuild a params tree with ``fn`` applied to every SparseLinear
+    leaf dict (port of ``repro.core.quantize.map_linear_leaves``)."""
+    if isinstance(tree, dict):
+        if is_linear_leaf(tree):
+            return fn(tree)
+        return {k: map_linear_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_linear_leaves(v, fn) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(map_linear_leaves(v, fn) for v in tree)
+    return tree

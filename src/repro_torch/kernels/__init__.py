@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels and the dispatch engine that routes every
+linear layer to them (port of ``repro.kernels``).
+
+``KERNELS`` names each wrapper; every wrapper counts the launches of its
+kernel in a plain integer attribute, ``.launches``.
+"""
+
+from .nm_spmm import kernel as _nm_spmm
+from .tile_gemm import kernel as _tile_gemm
+
+KERNELS = {
+    "tile_gemm": _tile_gemm.tile_gemm,
+    "tile_gemm_dual": _tile_gemm.tile_gemm_dual,
+    "nm_spmm": _nm_spmm.nm_spmm,
+    "nm_spmm_dual": _nm_spmm.nm_spmm_dual,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

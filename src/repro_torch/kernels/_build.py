@@ -1,0 +1,182 @@
+"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
+so ``nvcc`` builds them in seconds.  Each library is built at first use,
+from the checkout's own sources, into ``build/repro_torch/`` at the root
+of the checkout, named by a hash of its source and flags: an edited
+source builds anew, an unchanged one is loaded as it is.  Nothing here
+runs at import time; the CPU tests import every module without a
+compiler present.
+
+Pointers and the stream cross as ``ctypes.c_void_p`` (a plain
+``c_int`` would cut a 64-bit pointer); every entry point returns
+``cudaGetLastError()`` after its launch, and :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+__all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("gemm.cu",)
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of each library's entry points (all return a cudaError_t)
+_SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    "gemm.cu": {
+        "vg_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "vg_tile_gemm_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "vg_nm_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "vg_nm_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+}
+
+#: compiler output (ptxas register / shared-memory report) per source
+BUILD_LOG: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch`` at the root of the checkout (src/../build)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "build from source at first use")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = _CSRC / name
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Build every missing library, one nvcc per source, all started
+    together.  Returns the seconds each build took (0.0 when the library
+    was already built).  Raises with the compiler's output on failure."""
+    pending = {name: _target(name) for name in SOURCES
+               if not _target(name).exists()}
+    seconds = {name: 0.0 for name in SOURCES}
+    if not pending:
+        return seconds
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in pending.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / name)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name} failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def library(name: str = "gemm.cu") -> ctypes.CDLL:
+    """The loaded library for one source, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out = _target(name)
+            if not out.exists():
+                build_all()
+            lib = ctypes.CDLL(str(out))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.vg_error_string.argtypes = [ctypes.c_int]
+            lib.vg_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(code: int, kernel: str, lib: ctypes.CDLL) -> None:
+    """Raise when a launch returned a CUDA error (refused launches never
+    run, and a later synchronize would not report them)."""
+    if code != 0:
+        msg = lib.vg_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({code})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a raw pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --- the kernels' tiling contract (gemm.cu: BK, BN and the two BM values)
+BLOCK_K = 64
+BLOCK_O = 64
+BLOCK_ROWS = (16, 64)
+
+
+def block_rows(b: int) -> int:
+    """Row tile for a batch of ``b`` rows: 16 for decode-sized batches, 64
+    above (the ragged edge is masked in the kernel either way)."""
+    return BLOCK_ROWS[0] if b <= BLOCK_ROWS[0] else BLOCK_ROWS[1]
+
+
+def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor,
+                   block_b: int) -> None:
+    """Everything a launch needs that the C side cannot see: one CUDA
+    device, bf16 activations, contiguous 16-byte-aligned operands, a
+    known row tile.  Shapes are checked by each wrapper."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: operands must be CUDA or CPU tensors, "
+                         f"got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{kernel}: the kernel takes bfloat16 activations, "
+                         f"got {x.dtype}")
+    for t in (x, *others):
+        if t.device != x.device:
+            raise ValueError(f"{kernel}: operands on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: operands must be 16-byte aligned")
+    if block_b not in BLOCK_ROWS:
+        raise ValueError(f"{kernel}: block_b must be one of {BLOCK_ROWS}, "
+                         f"got {block_b}")
+
+
+def check_tiles(kernel: str, k: int, o: int) -> None:
+    if k % BLOCK_K or o % BLOCK_O:
+        raise ValueError(f"{kernel}: K={k} and O={o} must be multiples of "
+                         f"{BLOCK_K} and {BLOCK_O}")

@@ -1,0 +1,459 @@
+"""Unified sparse-GEMM dispatch engine, single-device slice.
+
+The port's counterpart of ``repro.kernels.dispatch``: models and the
+serving engine call :func:`sparse_matmul` and :func:`gate_up_matmul`, and
+one planning function, :func:`plan`, decides per (mode, shape, N:M,
+dtype, backend) whether the product runs on a hand-written CUDA kernel
+(``tile_gemm`` for dense 4:4, ``nm_spmm`` for compressed N:4, and their
+fused gate-up forms) or on the plain torch reference formulation.
+
+What the slice leaves out, each still planned by the JAX package only:
+shard_map placement, the int8/fp8 classes, the gather and rowwise
+layouts, activation sparsity, requantize epilogues and autotuning.
+Blocks are always fitted (``ReasonCode.BLOCKS_FITTED``).
+
+The torch tier is the reference: it is what runs under autograd (the
+kernels carry no backward), on CPU tensors by default, and when a shape
+or dtype fails a kernel's tiling contract (bf16 only, K and O multiples
+of 64).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..core import nm
+from ..core.sparse_linear import gather_hint, is_linear_leaf
+from . import _build, reasons, registry
+from . import epilogue as epilib
+from .epilogue import Epilogue
+from .reasons import ReasonCode
+from .registry import KernelEntry, dtype_name
+
+__all__ = [
+    "DispatchConfig",
+    "DispatchDecision",
+    "GemmProblem",
+    "use_dispatch",
+    "plan",
+    "plan_for",
+    "describe",
+    "sparse_matmul",
+    "gate_up_matmul",
+    "input_features",
+    "iter_linear_items",
+    "dispatch_report",
+    "TORCH_REFERENCE",
+    "ReasonCode",
+]
+
+#: kernel name of a decision that runs the torch reference tier
+TORCH_REFERENCE = "torch-reference"
+
+Blocks = Tuple[int, int, int]  # (block_b, block_ke, block_o)
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Engine-wide knobs; override per call or through ``use_dispatch``."""
+
+    backend: str = "auto"          # auto | cuda | torch
+
+
+_DEFAULT = DispatchConfig()
+
+
+@contextlib.contextmanager
+def use_dispatch(**overrides):
+    """Temporarily override the engine defaults (tests, serving flags)."""
+    global _DEFAULT
+    prev = _DEFAULT
+    _DEFAULT = dataclasses.replace(prev, **overrides)
+    try:
+        yield _DEFAULT
+    finally:
+        _DEFAULT = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmProblem:
+    """ONE value object describing a GEMM the engine may plan.
+
+    ``device`` is where the operands live: with ``backend="auto"`` it
+    picks the tier (``cuda`` for CUDA tensors, ``torch`` otherwise).
+    ``epilogue`` is the canonical lattice point string
+    (``EpilogueSpec.point``); ``dual`` marks a fused gate-up pair."""
+
+    mode: str
+    b: int
+    ke: int
+    o: int
+    n: int = 4
+    m: int = 4
+    dtype: Any = torch.float32
+    differentiating: bool = False
+    epilogue: Optional[str] = None
+    dual: bool = False
+    device: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchDecision:
+    """What the engine chose for one problem, and why."""
+
+    mode: str
+    backend: str
+    kernel: str                    # registry entry name or TORCH_REFERENCE
+    blocks: Optional[Blocks]
+    reason: str
+    blocks_source: str = "none"    # none | fitted
+    dtype: Optional[str] = None
+    epilogue: Optional[str] = None
+    epilogue_fused: bool = False
+    reason_code: Optional[ReasonCode] = None
+    epilogue_reason: Optional[ReasonCode] = None
+
+    @property
+    def uses_kernel(self) -> bool:
+        return self.kernel != TORCH_REFERENCE
+
+
+def describe(d: DispatchDecision) -> str:
+    epi = ""
+    if d.epilogue is not None:
+        ann = (reasons.epilogue_annotation(d.epilogue_reason)
+               if d.epilogue_reason is not None else "torch")
+        epi = f" epilogue={d.epilogue}[{ann}]"
+    if not d.uses_kernel:
+        return f"{d.mode}: {TORCH_REFERENCE} ({d.reason}){epi}"
+    bb, bke, bo = d.blocks
+    return (f"{d.mode}: {d.kernel}[{d.backend}] blocks=(b={bb},ke={bke},o={bo})"
+            f" dtype={d.dtype}{epi} ({d.reason})")
+
+
+# ---------------------------------------------------------------------------
+# torch reference formulations (the always-available fallback tier)
+# ---------------------------------------------------------------------------
+
+def _torch_dense(x2, params, cfg):
+    return x2 @ params["w"].to(x2.dtype)
+
+
+def _torch_compressed(x2, params, cfg):
+    meta = nm.unpack_meta(params["meta_packed"])
+    w = nm.decompress(params["values"], meta, cfg.n, cfg.m)
+    return x2 @ w.to(x2.dtype)
+
+
+_TORCH_IMPL = {"dense": _torch_dense, "compressed": _torch_compressed}
+
+
+# ---------------------------------------------------------------------------
+# Kernel adapters + registry entries
+# ---------------------------------------------------------------------------
+
+def _fit(b, ke, o, dtype) -> Optional[Blocks]:
+    """The kernels' tiling contract: bf16, K and O multiples of 64; the
+    row tile covers any batch (the ragged edge is masked in-kernel)."""
+    if dtype_name(dtype) != "bfloat16":
+        return None
+    if ke % _build.BLOCK_K or o % _build.BLOCK_O:
+        return None
+    return (_build.block_rows(b), _build.BLOCK_K, _build.BLOCK_O)
+
+
+def _fit_tile_gemm(b, ke, o, n, m, dtype):
+    return _fit(b, ke, o, dtype)
+
+
+def _fit_nm_spmm(b, ke, o, n, m, dtype):
+    if m != 4 or n not in (1, 2, 4):
+        return None   # the kernel fixes M=4 (the paper's detailed design)
+    return _fit(b, ke, o, dtype)
+
+
+def _epi_kwargs(epi: Optional[Epilogue]) -> Dict[str, Any]:
+    if epi is None or epi.spec.is_identity:
+        return {}
+    return {"epilogue": epi.spec, "bias": epi.bias}
+
+
+def _run_tile_gemm(x2, params, cfg, blocks, epilogue=None):
+    from .tile_gemm.kernel import tile_gemm
+    return tile_gemm(x2, params["w"].to(x2.dtype), block_b=blocks[0],
+                     **_epi_kwargs(epilogue))
+
+
+def _run_tile_gemm_dual(x2, pg, pu, cfg, blocks):
+    from .tile_gemm.kernel import tile_gemm_dual
+    return tile_gemm_dual(x2, pg["w"].to(x2.dtype), pu["w"].to(x2.dtype),
+                          block_b=blocks[0])
+
+
+def _run_nm_spmm(x2, params, cfg, blocks, epilogue=None):
+    from .nm_spmm.kernel import nm_spmm
+    return nm_spmm(x2, params["values"].to(x2.dtype), params["meta_packed"],
+                   cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
+
+
+def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks):
+    from .nm_spmm.kernel import nm_spmm_dual
+    return nm_spmm_dual(x2, pg["values"].to(x2.dtype), pg["meta_packed"],
+                        pu["values"].to(x2.dtype), pu["meta_packed"], cfg.n,
+                        block_b=blocks[0])
+
+
+registry.register(KernelEntry(
+    name="tile_gemm", mode="dense", fit_blocks=_fit_tile_gemm,
+    run=_run_tile_gemm, run_dual=_run_tile_gemm_dual))
+registry.register(KernelEntry(
+    name="nm_spmm", mode="compressed", fit_blocks=_fit_nm_spmm,
+    run=_run_nm_spmm, run_dual=_run_nm_spmm_dual))
+
+
+# ---------------------------------------------------------------------------
+# Planning + execution
+# ---------------------------------------------------------------------------
+
+def _mode_of(params: Dict[str, Any], cfg) -> str:
+    if "w" in params:
+        return "masked" if (cfg.mode == "masked" and cfg.is_sparse) else "dense"
+    if "meta_packed" in params:
+        return "compressed"
+    raise ValueError(f"unrecognized linear params: {list(params)}")
+
+
+def _problem_dims(mode: str, params: Dict[str, Any], ke: int) -> Tuple[int, int]:
+    """(ke, o): the contraction length the kernel sees and out features."""
+    if mode in ("dense", "masked"):
+        return tuple(params["w"].shape)
+    return ke, params["values"].shape[1]
+
+
+def input_features(params: Dict[str, Any], cfg) -> int:
+    """Expected trailing dim of ``x`` for these params (K_eff)."""
+    if _mode_of(params, cfg) in ("dense", "masked"):
+        return params["w"].shape[0]
+    return params["values"].shape[0] * cfg.m // cfg.n
+
+
+def _under_autodiff(*tensors: torch.Tensor) -> bool:
+    """The counterpart of the JAX package's JVP-tracer check: autograd is
+    recording and some operand requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _leaf_tensors(params: Dict[str, Any]) -> List[torch.Tensor]:
+    return [v for v in params.values() if isinstance(v, torch.Tensor)]
+
+
+def plan(problem: GemmProblem, *,
+         dispatch: Optional[DispatchConfig] = None) -> DispatchDecision:
+    """Pure decision function: what would the engine run for this problem?"""
+    p = problem
+    dcfg = dispatch or _DEFAULT
+    backend = registry.resolve_backend(dcfg.backend, p.device)
+    dt_name = dtype_name(p.dtype)
+
+    def _fallback(code, **ctx):
+        return DispatchDecision(
+            p.mode, registry.REFERENCE_BACKEND, TORCH_REFERENCE, None,
+            reasons.render(code, **ctx), dtype=dt_name, epilogue=p.epilogue,
+            reason_code=code,
+            epilogue_reason=(ReasonCode.EPILOGUE_JNP_TIER
+                             if p.epilogue is not None else None))
+
+    if p.mode == "masked":
+        return _fallback(ReasonCode.SRSTE_TRAINING)
+    if backend == registry.REFERENCE_BACKEND:
+        return _fallback(ReasonCode.BACKEND_JNP)
+    if p.differentiating:
+        return _fallback(ReasonCode.AUTODIFF)
+    if p.b == 0:
+        return _fallback(ReasonCode.EMPTY_BATCH)
+    sel = registry.select(p.mode, b=p.b, ke=p.ke, o=p.o, n=p.n, m=p.m,
+                          dtype=p.dtype, backend=backend)
+    if sel is None:
+        return _fallback(ReasonCode.NO_KERNEL_FITS, where="", b=p.b, ke=p.ke,
+                         o=p.o, n=p.n, m=p.m, dtype=dt_name)
+    entry, blocks = sel
+    epi_code = None
+    if p.epilogue is not None:
+        epi_code = (ReasonCode.EPILOGUE_NO_DUAL_KERNEL
+                    if p.dual and entry.run_dual is None
+                    else ReasonCode.EPILOGUE_FUSED)
+    return DispatchDecision(
+        p.mode, backend, entry.name, blocks,
+        reasons.render(ReasonCode.BLOCKS_FITTED), blocks_source="fitted",
+        dtype=dt_name, epilogue=p.epilogue,
+        epilogue_fused=epi_code is ReasonCode.EPILOGUE_FUSED,
+        reason_code=ReasonCode.BLOCKS_FITTED, epilogue_reason=epi_code)
+
+
+def plan_for(params: Dict[str, Any], x_shape: Sequence[int], cfg, dtype=torch.float32,
+             dispatch: Optional[DispatchConfig] = None) -> DispatchDecision:
+    """Planning convenience for launchers and reports: no execution."""
+    mode = _mode_of(params, cfg)
+    b = math.prod(x_shape[:-1]) if len(x_shape) > 1 else 1
+    ke, o = _problem_dims(mode, params, x_shape[-1])
+    device = _leaf_tensors(params)[0].device
+    return plan(GemmProblem(mode, b=b, ke=ke, o=o, n=cfg.n, m=cfg.m,
+                            dtype=dtype, device=device),
+                dispatch=dispatch)
+
+
+def _entry_by_name(mode: str, name: str) -> KernelEntry:
+    for e in registry.entries(mode):
+        if e.name == name:
+            return e
+    raise KeyError(f"kernel {name!r} not registered for mode {mode!r}")
+
+
+def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
+                  dispatch: Optional[DispatchConfig] = None,
+                  epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+    """``y = epilogue(x @ W)`` for a dense or compressed SparseLinear
+    layout, via the dispatch engine.  ``x``: (..., K_eff) -> (..., O).
+
+    On a kernel decision the epilogue is applied in the kernel's flush;
+    the torch tier applies :func:`epilogue.apply_reference` after the
+    product."""
+    dcfg = dispatch or _DEFAULT
+    mode = _mode_of(params, cfg)
+    if epilogue is not None and epilogue.spec.is_identity:
+        epilogue = None
+    if epilogue is not None and epilogue.spec.act == "silu_mul":
+        raise ValueError("silu_mul is the dual gate-up lattice point — "
+                         "route it through gate_up_matmul")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    ke, o = _problem_dims(mode, params, x2.shape[-1])
+    decision = plan(GemmProblem(
+        mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=x2.dtype,
+        differentiating=_under_autodiff(x2, *_leaf_tensors(params)),
+        epilogue=epilogue.spec.point if epilogue is not None else None,
+        device=x2.device), dispatch=dcfg)
+    if not decision.uses_kernel:
+        if mode not in _TORCH_IMPL:
+            raise NotImplementedError(f"{mode!r} layouts are not ported yet")
+        y2 = epilib.apply_reference(_TORCH_IMPL[mode](x2, params, cfg), epilogue)
+        return y2.reshape(*lead, o)
+    entry = _entry_by_name(mode, decision.kernel)
+    y2 = entry.run(x2.contiguous(), params, cfg, decision.blocks,
+                   epilogue=epilogue if decision.epilogue_fused else None)
+    return y2.reshape(*lead, o)
+
+
+def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
+                   params_u: Dict[str, Any], cfg, *,
+                   dispatch: Optional[DispatchConfig] = None,
+                   epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+    """``silu(x @ Wg) * (x @ Wu)`` as ONE engine call.
+
+    When both leaves share mode and shape and the plan lands on a kernel,
+    one dual launch reads each activation tile once and applies silu*mul
+    to the two fp32 accumulators.  Otherwise the torch tier runs two
+    GEMMs and applies silu*mul to their results (rounded to the
+    activation dtype first, as the JAX package's jnp tier does)."""
+    dcfg = dispatch or _DEFAULT
+    if epilogue is None:
+        epilogue = epilib.make(act="silu_mul")
+    if epilogue.spec.act != "silu_mul" or epilogue.spec.bias or epilogue.spec.requant:
+        raise ValueError(f"gate_up_matmul epilogue must sit on the silu_mul "
+                         f"lattice point, got {epilogue.spec.point!r}")
+    mode_g, mode_u = _mode_of(params_g, cfg), _mode_of(params_u, cfg)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    ke, o = _problem_dims(mode_g, params_g, x2.shape[-1])
+    pair_ok = (mode_g == mode_u and mode_g in _TORCH_IMPL
+               and _problem_dims(mode_u, params_u, x2.shape[-1]) == (ke, o))
+    if pair_ok:
+        decision = plan(GemmProblem(
+            mode_g, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=x2.dtype,
+            differentiating=_under_autodiff(
+                x2, *_leaf_tensors(params_g), *_leaf_tensors(params_u)),
+            epilogue=epilogue.spec.point, dual=True, device=x2.device),
+            dispatch=dcfg)
+        if decision.epilogue_fused:
+            entry = _entry_by_name(mode_g, decision.kernel)
+            y2 = entry.run_dual(x2.contiguous(), params_g, params_u, cfg,
+                                decision.blocks)
+            return y2.reshape(*lead, o)
+    y_g = sparse_matmul(x2, params_g, cfg, dispatch=dcfg)
+    y_u = sparse_matmul(x2, params_u, cfg, dispatch=dcfg)
+    h = F.silu(y_g.float()) * y_u.float()
+    return h.to(y_g.dtype).reshape(*lead, o)
+
+
+# ---------------------------------------------------------------------------
+# Reports
+# ---------------------------------------------------------------------------
+
+def iter_linear_items(tree, _names=()):
+    """Yield ``(names, leaf)`` for every SparseLinear param dict in a
+    params tree; ``names`` is the key path (list items as ``[i]``)."""
+    if isinstance(tree, dict):
+        if is_linear_leaf(tree):
+            yield _names, tree
+            return
+        for k, v in tree.items():
+            yield from iter_linear_items(v, _names + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from iter_linear_items(v, _names + (f"[{i}]",))
+
+
+def _leaf_dtype(leaf: Dict[str, Any]) -> torch.dtype:
+    return leaf.get("values", leaf.get("w")).dtype
+
+
+def dispatch_report(params_tree, batches, cfg,
+                    dispatch: Optional[DispatchConfig] = None) -> List[str]:
+    """Distinct (shape -> engine decision) plan lines for a params tree,
+    at each leading batch width the serving path runs (decode slots and
+    the prefill chunk), followed by the fused gate-up pairs."""
+    if isinstance(batches, int):
+        batches = (batches,)
+    dcfg = dispatch or _DEFAULT
+    seen, dual_seen = {}, {}
+    for batch in batches:
+        pairs = {}
+        for names, leaf in iter_linear_items(params_tree):
+            ke = input_features(leaf, cfg)
+            hint = gather_hint(names)
+            d = plan_for(leaf, (batch, ke), cfg, dtype=_leaf_dtype(leaf),
+                         dispatch=dcfg)
+            o = leaf["w"].shape[-1] if "w" in leaf else leaf["values"].shape[-1]
+            seen.setdefault((batch, d.mode, cfg.n, ke, o, str(hint)), d)
+            if names and names[-1] in ("w_gate", "w_in"):
+                pairs.setdefault(tuple(names[:-1]), {})[names[-1]] = (names, leaf)
+        for found in pairs.values():
+            if "w_gate" not in found or "w_in" not in found:
+                continue
+            gnames, gleaf = found["w_gate"]
+            _, uleaf = found["w_in"]
+            mode = _mode_of(gleaf, cfg)
+            ke = input_features(gleaf, cfg)
+            _, o = _problem_dims(mode, gleaf, ke)
+            if _mode_of(uleaf, cfg) != mode or _problem_dims(mode, uleaf, ke) != (ke, o):
+                continue
+            d = plan(GemmProblem(mode, b=batch, ke=ke, o=o, n=cfg.n, m=cfg.m,
+                                 dtype=_leaf_dtype(gleaf), epilogue="silu_mul",
+                                 dual=True, device=_leaf_tensors(gleaf)[0].device),
+                     dispatch=dcfg)
+            dual_seen.setdefault(
+                (batch, mode, cfg.n, ke, o, str(gather_hint(gnames))), d)
+    lines = []
+    for (batch, _, n, ke, o, hint), d in sorted(seen.items()):
+        lines.append(f"  [{hint if hint != 'None' else 'rep'}] {n}:{cfg.m} "
+                     f"global (B={batch}, K={ke}, O={o}) {describe(d)}")
+    for (batch, _, n, ke, o, hint), d in sorted(dual_seen.items()):
+        lines.append(f"  [gate-up {hint if hint != 'None' else 'rep'}] {n}:{cfg.m} "
+                     f"global (B={batch}, K={ke}, O={o}) {describe(d)}")
+    return lines

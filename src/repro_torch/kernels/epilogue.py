@@ -1,0 +1,133 @@
+"""Epilogue lattice: what one kernel launch may fuse after its GEMM flush.
+
+The port's copy of ``repro.kernels.epilogue`` for the float classes:
+
+    (+ bias) -> (silu | gelu | silu*mul)
+
+applied to the fp32 accumulator before the single cast and store.
+``gelu`` is the tanh approximation, as ``jax.nn.gelu`` defaults to
+(``torch.nn.functional.gelu`` defaults to erf, so it is called with
+``approximate="tanh"``).  The requantize point of the JAX lattice belongs
+to the quantized classes, which are not ported yet: a spec asking for it
+is accepted by :class:`EpilogueSpec` (its ``point`` string stays the
+JAX package's) but every kernel and reference here refuses it.
+
+:func:`flush_tile` is the formulation the CUDA flush implements and the
+kernels' plain versions call; :func:`apply_reference` is the unfused
+torch-tier path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["EpilogueSpec", "Epilogue", "make", "flush_tile", "apply_reference",
+           "ACTIVATIONS"]
+
+ACTIVATIONS = ("silu", "gelu", "silu_mul")
+
+
+@dataclasses.dataclass(frozen=True)
+class EpilogueSpec:
+    """One static point of the epilogue lattice (hashable)."""
+
+    act: Optional[str] = None
+    bias: bool = False
+    requant: Optional[str] = None
+
+    def __post_init__(self):
+        if self.act is not None and self.act not in ACTIVATIONS:
+            raise ValueError(f"unknown epilogue activation {self.act!r} "
+                             f"(expected one of {ACTIVATIONS})")
+
+    @property
+    def point(self) -> str:
+        parts = []
+        if self.bias:
+            parts.append("bias")
+        if self.act:
+            parts.append(self.act)
+        if self.requant:
+            parts.append(f"requant:{self.requant}")
+        return "+".join(parts) or "none"
+
+    @property
+    def is_identity(self) -> bool:
+        return not (self.bias or self.act or self.requant)
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """An :class:`EpilogueSpec` plus its runtime operands."""
+
+    spec: EpilogueSpec
+    bias: Optional[torch.Tensor] = None
+    requant_scale: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.spec.bias != (self.bias is not None):
+            raise ValueError("Epilogue bias operand must match spec.bias")
+        if (self.spec.requant is not None) != (self.requant_scale is not None):
+            raise ValueError("Epilogue requant_scale operand must match spec.requant")
+
+
+def make(act: Optional[str] = None, bias: Optional[torch.Tensor] = None,
+         requant: Optional[str] = None, requant_scale=None) -> Epilogue:
+    """Convenience constructor: operands in, spec derived."""
+    return Epilogue(EpilogueSpec(act=act, bias=bias is not None, requant=requant),
+                    bias=bias, requant_scale=requant_scale)
+
+
+def _refuse_requant(spec: EpilogueSpec) -> None:
+    if spec.requant is not None:
+        raise NotImplementedError(
+            f"epilogue {spec.point!r}: requantize belongs to the quantized "
+            f"classes, which repro_torch does not port yet")
+
+
+def _act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+    if name is None:
+        return y
+    if name == "silu":
+        return F.silu(y)
+    if name == "gelu":
+        return F.gelu(y, approximate="tanh")
+    raise ValueError(f"activation {name!r} needs the dual-tile flush")
+
+
+def flush_tile(acc32: torch.Tensor, spec: EpilogueSpec, out_dtype: torch.dtype,
+               bias: Optional[torch.Tensor] = None,
+               acc2_32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply one lattice point to an fp32 accumulator, then cast once.
+
+    Order: + bias -> silu | gelu; or ``silu(acc) * acc2`` for the dual
+    (gate-up) point.  ``bias`` is an ``(O,)`` vector."""
+    _refuse_requant(spec)
+    y = acc32
+    if spec.bias:
+        y = y + bias.float()
+    if spec.act == "silu_mul":
+        y = F.silu(y) * acc2_32
+    else:
+        y = _act(y, spec.act)
+    return y.to(out_dtype)
+
+
+def apply_reference(y: torch.Tensor, epi: Optional[Epilogue]) -> torch.Tensor:
+    """The unfused torch formulation of one epilogue: ops in fp32, cast
+    back to ``y``'s dtype."""
+    if epi is None or epi.spec.is_identity:
+        return y
+    spec = epi.spec
+    _refuse_requant(spec)
+    if spec.act == "silu_mul":
+        raise ValueError("silu_mul is a dual-GEMM epilogue; apply it via "
+                         "the gate-up dispatcher, not apply_reference")
+    y32 = y.float()
+    if spec.bias:
+        y32 = y32 + epi.bias.float()
+    return _act(y32, spec.act).to(y.dtype)

@@ -1,0 +1,107 @@
+"""N:4 structured-sparse GEMM on Hopper: ``nm_spmm`` and the fused gate-up
+``nm_spmm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``).
+
+``Y (B, O) = X (B, K_eff) @ dec(values (K_c, O), meta_packed (K_c/4, O))``
+with ``K_eff = K_c * 4 / n``.  The kernel expands each values tile into
+the dense weight tile in shared memory; the dense weight never exists in
+device memory, so weight traffic is n/4 of dense plus 2 bits per kept
+value.
+
+Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125) and
+``::nm_spmm_dual`` (:437).  CUDA tensors launch the kernel or raise; CPU
+tensors take the plain version from ``ref.py``.  Launch counts live in
+``.launches`` on each wrapper.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..epilogue import EpilogueSpec
+from ..tile_gemm.kernel import ACT_CODES, check_single_epilogue
+from .ref import nm_spmm_dual_ref, nm_spmm_ref
+
+__all__ = ["nm_spmm", "nm_spmm_dual"]
+
+_N = (1, 2, 4)
+
+
+def _check_compressed(kernel: str, ke: int, values: torch.Tensor,
+                      meta_packed: torch.Tensor, n: int) -> int:
+    if n not in _N:
+        raise ValueError(f"{kernel}: n must be one of {_N} (M=4), got {n}")
+    kc, o = values.shape
+    if ke * n != kc * 4:
+        raise ValueError(f"{kernel}: K_eff={ke} with n={n} needs K_c={ke * n // 4}, "
+                         f"values are {tuple(values.shape)}")
+    if tuple(meta_packed.shape) != (kc // 4, o) or meta_packed.dtype != torch.uint8:
+        raise ValueError(f"{kernel}: meta_packed must be uint8 ({kc // 4}, {o}), got "
+                         f"{meta_packed.dtype} {tuple(meta_packed.shape)}")
+    return o
+
+
+def _check_cuda(kernel: str, x, values_list, metas, bb, ke, o, extra=()):
+    _build.check_operands(kernel, x, *values_list, *metas, *extra, block_b=bb)
+    if any(v.dtype != x.dtype for v in values_list):
+        raise ValueError(f"{kernel}: values must share x's dtype")
+    _build.check_tiles(kernel, ke, o)
+
+
+def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+            n: int, *, epilogue: Optional[EpilogueSpec] = None,
+            bias: Optional[torch.Tensor] = None,
+            block_b: Optional[int] = None) -> torch.Tensor:
+    """``epilogue(X @ dec(values, meta_packed))`` in X's dtype, M = 4."""
+    epi = epilogue or EpilogueSpec()
+    b, ke = x.shape
+    o = _check_compressed("nm_spmm", ke, values, meta_packed, n)
+    check_single_epilogue("nm_spmm", epi, bias, o)
+    if x.device.type == "cpu":
+        return nm_spmm_ref(x, values, meta_packed, n, epilogue=epi, bias=bias)
+    bb = block_b or _build.block_rows(b)
+    bias32 = None if bias is None else bias.float().contiguous()
+    _check_cuda("nm_spmm", x, (values,), (meta_packed,), bb, ke, o,
+                () if bias32 is None else (bias32,))
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_nm_spmm(x.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
+                            None if bias32 is None else bias32.data_ptr(),
+                            y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], bb,
+                            _build.stream_of(x))
+    nm_spmm.launches += 1
+    _build.check(rc, "nm_spmm", lib)
+    return y
+
+
+nm_spmm.launches = 0
+
+
+def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
+                 values_u: torch.Tensor, meta_u: torch.Tensor, n: int, *,
+                 block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused gate-up over two compressed weights sharing one X read:
+    ``silu(X @ dec(g)) * (X @ dec(u))``."""
+    b, ke = x.shape
+    o = _check_compressed("nm_spmm_dual", ke, values_g, meta_g, n)
+    if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:
+        raise ValueError("nm_spmm_dual: gate and up layouts must match")
+    if x.device.type == "cpu":
+        return nm_spmm_dual_ref(x, values_g, meta_g, values_u, meta_u, n)
+    bb = block_b or _build.block_rows(b)
+    _check_cuda("nm_spmm_dual", x, (values_g, values_u), (meta_g, meta_u), bb, ke, o)
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_nm_spmm_dual(x.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(),
+                                 values_u.data_ptr(), meta_u.data_ptr(), y.data_ptr(),
+                                 b, ke, o, n, bb, _build.stream_of(x))
+    nm_spmm_dual.launches += 1
+    _build.check(rc, "nm_spmm_dual", lib)
+    return y
+
+
+nm_spmm_dual.launches = 0

@@ -1,0 +1,123 @@
+"""Kernel registry: the dispatch table behind the unified sparse-GEMM engine.
+
+The port's copy of ``repro.kernels.registry``.  Every kernel registers a
+:class:`KernelEntry` saying which execution mode it implements, which
+backends run it, and, through ``fit_blocks``, which (shape, N:M, dtype)
+problems it can tile.  ``select`` returns the first fitting entry, or
+``None``: use the torch reference formulation.
+
+Backends
+--------
+``cuda``   the hand-written Hopper kernels.  Handed CPU tensors, their
+           wrappers run the kernels' plain versions, the counterpart of
+           the JAX package's ``interpret`` backend.
+``torch``  no kernel at all: the plain torch reference tier (the JAX
+           package's ``jnp``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from .reasons import dtype_name
+
+__all__ = [
+    "KernelEntry",
+    "register",
+    "entries",
+    "select",
+    "detect_backend",
+    "resolve_backend",
+    "largest_fitting_block",
+    "dtype_name",
+    "KERNEL_BACKENDS",
+    "REFERENCE_BACKEND",
+]
+
+Blocks = Tuple[int, int, int]  # (block_b, block_ke, block_o)
+
+KERNEL_BACKENDS = ("cuda",)
+REFERENCE_BACKEND = "torch"
+_ENV_BACKEND = "REPRO_KERNEL_BACKEND"
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    """One kernel the engine can dispatch to.
+
+    ``fit_blocks(b, ke, o, n, m, dtype) -> Blocks | None``;
+    ``run(x2d, params, cfg, blocks, epilogue=None)`` executes it;
+    ``run_dual(x2d, params_g, params_u, cfg, blocks)`` is the fused
+    gate-up variant (entries without one decline dual plans).
+    """
+
+    name: str
+    mode: str                      # dense | compressed
+    fit_blocks: Callable[..., Optional[Blocks]]
+    run: Callable[..., torch.Tensor]
+    backends: Tuple[str, ...] = KERNEL_BACKENDS
+    run_dual: Optional[Callable[..., torch.Tensor]] = None
+
+
+_REGISTRY: Dict[str, List[KernelEntry]] = {}
+
+
+def register(entry: KernelEntry) -> KernelEntry:
+    """Add a kernel to the dispatch table (idempotent per name)."""
+    lst = _REGISTRY.setdefault(entry.mode, [])
+    lst[:] = [e for e in lst if e.name != entry.name]
+    lst.append(entry)
+    return entry
+
+
+def entries(mode: Optional[str] = None) -> List[KernelEntry]:
+    if mode is None:
+        return [e for lst in _REGISTRY.values() for e in lst]
+    return list(_REGISTRY.get(mode, []))
+
+
+def select(mode: str, *, b: int, ke: int, o: int, n: int, m: int, dtype,
+           backend: str) -> Optional[Tuple[KernelEntry, Blocks]]:
+    """The first registered kernel whose constraints fit, with its
+    blocks, or ``None`` (the caller falls back to the torch reference)."""
+    if backend not in KERNEL_BACKENDS:
+        return None
+    for entry in _REGISTRY.get(mode, []):
+        if backend not in entry.backends:
+            continue
+        blocks = entry.fit_blocks(b, ke, o, n, m, dtype)
+        if blocks is not None:
+            return entry, blocks
+    return None
+
+
+def detect_backend(device=None) -> str:
+    """``cuda`` when the operands live on a CUDA device, else ``torch``;
+    ``REPRO_KERNEL_BACKEND=cuda|torch`` overrides."""
+    env = os.environ.get(_ENV_BACKEND, "").strip().lower()
+    if env in KERNEL_BACKENDS + (REFERENCE_BACKEND,):
+        return env
+    if device is not None and torch.device(device).type == "cuda":
+        return "cuda"
+    return REFERENCE_BACKEND
+
+
+def resolve_backend(requested: str = "auto", device=None) -> str:
+    """Map a user/config backend string to a concrete backend."""
+    if requested in KERNEL_BACKENDS + (REFERENCE_BACKEND,):
+        return requested
+    if requested != "auto":
+        raise ValueError(f"unknown kernel backend {requested!r}")
+    return detect_backend(device)
+
+
+def largest_fitting_block(dim: int, cap: int, multiple_of: int = 1) -> Optional[int]:
+    """Largest divisor of ``dim`` that is <= cap and % multiple_of == 0."""
+    for c in range(min(cap, dim), 0, -1):
+        if dim % c == 0 and c % multiple_of == 0:
+            return c
+    return None

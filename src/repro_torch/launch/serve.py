@@ -1,0 +1,103 @@
+"""Serving launcher: thin adapter over ``repro_torch.serving`` (port of
+``repro.launch.serve``).
+
+    python -m repro_torch.launch.serve --arch internlm2_1_8b [--smoke] \
+        [--sparsity 2:4 --mode dense|compressed] \
+        [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
+        [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
+        [--block-len 8] [--kv-blocks N] [--admission reserve|optimistic] \
+        [--prefill-chunk 8] [--rate 1.0] [--seed 0]
+
+It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
+weights from a seeded ``torch.Generator`` on the device, runs
+:func:`repro_torch.serving.prepare`, and hands the result to
+:class:`repro_torch.serving.Engine` over a seeded Poisson trace.  It runs
+on the CUDA device unless ``--device cpu`` is given, and fails when no
+CUDA device is present.  The report lines are the JAX launcher's.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--sparsity", default=None)
+    ap.add_argument("--mode", default="compressed", choices=["dense", "compressed"])
+    ap.add_argument("--kernel-backend", default="auto", choices=["auto", "cuda", "torch"],
+                    help="dispatch-engine backend override")
+    ap.add_argument("--device", default=None,
+                    help="serving device (default: cuda; 'cpu' runs the kernels' "
+                         "plain versions or the torch tier)")
+    ap.add_argument("--batch", type=int, default=4, help="decode slots")
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--block-len", type=int, default=8, help="tokens per KV block")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="total KV block budget (default: every slot at --max-len)")
+    ap.add_argument("--admission", default="reserve", choices=["reserve", "optimistic"])
+    ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=1.0,
+                    help="Poisson arrival rate (requests per scheduler iteration)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch import serving
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_params
+
+    sparsity = tuple(map(int, args.sparsity.split(":"))) if args.sparsity else None
+    spec = serving.ServingSpec(
+        layout=args.mode, sparsity=sparsity, backend=args.kernel_backend,
+        slots=args.batch, max_len=args.max_len, block_len=args.block_len,
+        kv_blocks=args.kv_blocks, admission=args.admission,
+        prefill_chunk=args.prefill_chunk)
+    device = serving.resolve_device(args.device)
+    base = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = spec.apply_to(base)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with torch.inference_mode():
+        params = init_params(gen, cfg, device=device)
+        prepared = serving.prepare(params, spec, cfg=cfg, device=device)
+    del params
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(prepared.params))
+    sp_str = f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense"
+    print(f"serving {cfg.name}: {nbytes / 1e6:.1f} MB weights ({sp_str}/{spec.layout}) "
+          f"on {device}")
+    print("dispatch engine plan:")
+    for line in prepared.dispatch_report():
+        print(line)
+    engine = serving.Engine(prepared)
+    print(f"paged KV: {engine.num_blocks} block(s) x {spec.block_len} tokens, "
+          f"{engine.kv_bytes() / 1e6:.1f} MB pools, admission={spec.admission}")
+    trace = serving.make_poisson_trace(
+        seed=args.seed, num_requests=args.requests, rate=args.rate,
+        new_mix=((args.new_tokens, 1.0),), vocab_size=cfg.vocab_size)
+    report = engine.run(trace)
+    print(f"served {report.describe()}")
+    per_req = ", ".join(f"r{s.rid}:{s.tokens_per_s:.1f}" for s in report.stats[:8])
+    print(f"per-request tokens/s: {per_req}{' ...' if len(report.stats) > 8 else ''}")
+    print(f"completed-request throughput: {report.completed_per_call:.3f} "
+          f"requests/model-call, {report.completed / report.wall_s:.2f} requests/s")
+    return report
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,52 @@
+"""Model configuration for the dense decoder family (port of
+``repro.models.config``).
+
+Field names, defaults and meanings are the JAX package's, for the fields
+the dense family reads; ``torch_dtype`` replaces ``jnp_dtype``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.sparse_linear import SparsityConfig
+
+__all__ = ["ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense (the only family ported so far)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    act: str = "swiglu"         # swiglu | gelu
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    # --- sparsity (the paper's feature) ---
+    sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
+    # --- numerics ---
+    dtype: str = "bfloat16"
+    attn_p_bf16: bool = False   # store attention probs bf16 (perf knob)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def attn_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def with_sparsity(self, sp: SparsityConfig) -> "ModelConfig":
+        return dataclasses.replace(self, sparsity=sp)

@@ -1,0 +1,75 @@
+"""Shared layers: RMSNorm, RoPE, embeddings, the N:M-sparsifiable MLP
+(port of ``repro.models.layers``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..core.sparse_linear import (SparsityConfig, apply_gate_up, apply_linear,
+                                  init_linear)
+from ..kernels import epilogue as epilib
+
+Params = Dict[str, Any]
+
+_RMS_EPS = 1e-6
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + 1e-6) * (1 + gamma)`` in fp32, cast back
+    (gamma is initialised to zeros, hence the ``1 +``)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + _RMS_EPS)) * (1.0 + gamma.float())).to(x.dtype)
+
+
+def init_rms_norm(d: int, device=None) -> Params:
+    return {"gamma": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., T, H, D); positions broadcastable to (..., T).  Split
+    halves (not interleaved), rotated in fp32, cast back."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)
+    angles = positions[..., None].float() * freqs             # (..., T, D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., T, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, sp: SparsityConfig,
+             dtype, device=None) -> Params:
+    p = {"w_in": init_linear(gen, d, ff, sp, dtype, device=device)}
+    if act == "swiglu":
+        p["w_gate"] = init_linear(gen, d, ff, sp, dtype, device=device)
+    p["w_out"] = init_linear(gen, ff, d, sp, dtype, scale=ff ** -0.5, device=device)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, act: str, sp: SparsityConfig) -> torch.Tensor:
+    if act == "swiglu":
+        # gate and up contract the same activation tile: one dual dispatch
+        h = apply_gate_up(p["w_gate"], p["w_in"], x, sp,
+                          epilogue=epilib.make(act="silu_mul"))
+    else:
+        h = apply_linear(p["w_in"], x, sp, epilogue=epilib.make(act="gelu"))
+    return apply_linear(p["w_out"], h, sp).to(x.dtype)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
+                   device=None) -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
+            * d ** -0.5).to(dtype)
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]

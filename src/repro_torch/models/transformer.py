@@ -1,0 +1,102 @@
+"""The dense decoder stack (port of the serving parts of
+``repro.models.transformer``).
+
+Parameter layout.  The JAX package stacks each layout slot's layers
+under ``params["stages"][s]["slot{j}"]`` with leading ``(count, repeat)``
+dims and scans over them.  The port runs eagerly and keeps one dict per
+layer instead, in execution order (super-block ``i``, then slot ``j``,
+then repeat ``r``)::
+
+    {"embed": (V, d), "unembed": (d, V), "final_norm": {"gamma": (d,)},
+     "layers": [{"norm1", "mixer": {wq, wk, wv, wo}, "norm2",
+                 "ffn": {w_in, w_gate, w_out}}, ...]}
+
+``repro_torch.interop.params_from_numpy`` maps a JAX tree onto it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from .attention import init_attention
+from .config import ModelConfig
+from .layers import apply_mlp, init_embedding, init_mlp, init_rms_norm, rms_norm
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    mixer: str            # attn
+    ffn: str              # mlp
+    repeat: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    count: int
+    slots: Tuple[Slot, ...]
+
+
+def build_layout(cfg: ModelConfig) -> Tuple[Stage, ...]:
+    """Stage/slot layout; the port serves the dense family only."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return (Stage(cfg.num_layers, (Slot("attn", "mlp"),)),)
+
+
+def layer_slots(cfg: ModelConfig) -> List[Slot]:
+    """The slot of every layer, in execution order."""
+    return [slot for st in build_layout(cfg) for _ in range(st.count)
+            for slot in st.slots for _ in range(slot.repeat)]
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    return {
+        "norm1": init_rms_norm(cfg.d_model, device),
+        "mixer": init_attention(gen, cfg, device),
+        "norm2": init_rms_norm(cfg.d_model, device),
+        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.sparsity,
+                        cfg.torch_dtype, device),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    """Random weights from ``gen`` (which must live on ``device``), made
+    directly in the layout ``cfg.sparsity`` names.  The numbers differ
+    from ``jax.random``'s; parity tests carry the JAX package's params
+    across with ``interop.params_from_numpy``."""
+    dt = cfg.torch_dtype
+    params: Params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
+                                           device).T.contiguous()
+    params["final_norm"] = init_rms_norm(cfg.d_model, device)
+    params["layers"] = [_init_layer(gen, cfg, device) for _ in layer_slots(cfg)]
+    return params
+
+
+MixerFn = Callable[[Slot, Params, Dict[str, torch.Tensor], torch.Tensor],
+                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def cached_stack(params: Params, caches: List[Dict[str, torch.Tensor]],
+                 x: torch.Tensor, cfg: ModelConfig, mixer_fn: MixerFn
+                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """Cache-threading stack walker: per layer ``rms_norm -> mixer ->
+    residual -> rms_norm -> MLP -> residual``, then the final norm and the
+    unembed (a plain matmul, as in the JAX package)."""
+    new_caches = []
+    for slot, lp, lc in zip(layer_slots(cfg), params["layers"], caches):
+        h = rms_norm(x, lp["norm1"]["gamma"])
+        o, c = mixer_fn(slot, lp, lc, h)
+        x = x + o
+        h = rms_norm(x, lp["norm2"]["gamma"])
+        x = x + apply_mlp(lp["ffn"], h, cfg.act, cfg.sparsity)
+        new_caches.append(c)
+    x = rms_norm(x, params["final_norm"]["gamma"])
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ unembed.to(x.dtype), new_caches

@@ -1,0 +1,210 @@
+"""The port's four kernels against the JAX package's Pallas kernels.
+
+On this CPU-only machine each wrapper, handed CPU tensors, runs its plain
+version (fp32 accumulation, epilogue in fp32, one cast); that is held to
+the JAX kernel executed in interpret mode on the same numpy inputs.
+Tolerances, scaled by max |reference| as in tests/test_kernels.py:
+fp32 <= 2e-6 (summation order only); bf16 inputs <= 1e-2 (one bf16
+rounding of the output, in different places in the two frameworks).
+
+The ``cuda`` tests hold each CUDA kernel against its plain version on
+the card and skip without one.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import nm as tnm
+from repro_torch.kernels import _build
+from repro_torch.kernels.epilogue import EpilogueSpec
+from repro_torch.kernels.nm_spmm.kernel import nm_spmm, nm_spmm_dual
+from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_ref, nm_spmm_ref
+from repro_torch.kernels.tile_gemm.kernel import tile_gemm, tile_gemm_dual
+from repro_torch.kernels.tile_gemm.ref import tile_gemm_dual_ref, tile_gemm_ref
+from torch_parity import (assert_scaled_close, cuda_device, from_np,  # noqa: F401
+                          jnp_dtype)
+
+TOL = {"float32": 2e-6, "bfloat16": 1e-2}
+
+
+@pytest.fixture
+def ref():
+    """The JAX package's kernels.  Imported per test, so that the
+    ``cuda`` tests of this file also run where JAX is not installed."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.core import nm
+    from repro.kernels import epilogue
+    from repro.kernels.nm_spmm.kernel import nm_spmm, nm_spmm_dual
+    from repro.kernels.tile_gemm.kernel import tile_gemm, tile_gemm_dual
+    return types.SimpleNamespace(jnp=jnp, nm=nm, epilogue=epilogue, nm_spmm=nm_spmm,
+                                 nm_spmm_dual=nm_spmm_dual, tile_gemm=tile_gemm,
+                                 tile_gemm_dual=tile_gemm_dual)
+B, K, O = 8, 128, 128
+EPILOGUES = [(None, False), (None, True), ("silu", False), ("gelu", True)]
+
+
+def _inputs(seed, shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) * (s[0] ** -0.5 if i else 1.0)
+            for i, s in enumerate(shapes)]
+
+
+def _compressed(ref, w: np.ndarray, n: int):
+    """(values, meta_packed) numpy, from the JAX package's compressor."""
+    pruned, _ = ref.nm.prune_nm(ref.jnp.asarray(w), n, 4)
+    c = ref.nm.compress_nm(pruned, n, 4)
+    return np.array(c.values), np.array(ref.nm.pack_meta(c.meta))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,bias", EPILOGUES)
+def test_tile_gemm_plain_matches_pallas(ref, dtype, act, bias):
+    x, w = _inputs(0, [(B, K), (K, O)])
+    b = np.random.default_rng(1).standard_normal(O).astype(np.float32) if bias else None
+    jd = jnp_dtype(dtype)
+    want = ref.tile_gemm(ref.jnp.asarray(x).astype(jd), ref.jnp.asarray(w).astype(jd),
+                       out_dtype=jd, interpret=True,
+                       epilogue=ref.epilogue.EpilogueSpec(act=act, bias=bias),
+                       bias=None if b is None else ref.jnp.asarray(b))
+    got = tile_gemm(from_np(x, dtype), from_np(w, dtype),
+                    epilogue=EpilogueSpec(act=act, bias=bias),
+                    bias=None if b is None else torch.from_numpy(b))
+    assert got.dtype == getattr(torch, dtype)
+    assert_scaled_close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_gemm_dual_plain_matches_pallas(ref, dtype):
+    x, wg, wu = _inputs(2, [(B, K), (K, O), (K, O)])
+    jd = jnp_dtype(dtype)
+    want = ref.tile_gemm_dual(*(ref.jnp.asarray(a).astype(jd) for a in (x, wg, wu)),
+                            out_dtype=jd, interpret=True)
+    got = tile_gemm_dual(*(from_np(a, dtype) for a in (x, wg, wu)))
+    assert_scaled_close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,bias", EPILOGUES)
+def test_nm_spmm_plain_matches_pallas(ref, n, dtype, act, bias):
+    x, w = _inputs(3, [(B, K), (K, O)])
+    jd = jnp_dtype(dtype)
+    vals, pm = _compressed(ref, w, n)
+    b = np.random.default_rng(4).standard_normal(O).astype(np.float32) if bias else None
+    want = ref.nm_spmm(ref.jnp.asarray(x).astype(jd), ref.jnp.asarray(vals).astype(jd),
+                     ref.jnp.asarray(pm), n, out_dtype=jd, interpret=True,
+                     epilogue=ref.epilogue.EpilogueSpec(act=act, bias=bias),
+                     bias=None if b is None else ref.jnp.asarray(b))
+    got = nm_spmm(from_np(x, dtype), from_np(vals, dtype), torch.from_numpy(pm), n,
+                  epilogue=EpilogueSpec(act=act, bias=bias),
+                  bias=None if b is None else torch.from_numpy(b))
+    assert_scaled_close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nm_spmm_dual_plain_matches_pallas(ref, n, dtype):
+    x, wg, wu = _inputs(5, [(B, K), (K, O), (K, O)])
+    jd = jnp_dtype(dtype)
+    vg, mg = _compressed(ref, wg, n)
+    vu, mu = _compressed(ref, wu, n)
+    want = ref.nm_spmm_dual(ref.jnp.asarray(x).astype(jd), ref.jnp.asarray(vg).astype(jd),
+                          ref.jnp.asarray(mg), ref.jnp.asarray(vu).astype(jd), ref.jnp.asarray(mu),
+                          n, out_dtype=jd, interpret=True)
+    got = nm_spmm_dual(from_np(x, dtype), from_np(vg, dtype), torch.from_numpy(mg),
+                       from_np(vu, dtype), torch.from_numpy(mu), n)
+    assert_scaled_close(got, want, TOL[dtype])
+
+
+def test_cpu_tensors_take_the_plain_version_and_never_count():
+    kernels.reset_launch_counts()
+    x, w = (torch.from_numpy(a) for a in _inputs(6, [(B, K), (K, O)]))
+    c = tnm.compress_nm(tnm.prune_nm(w, 2, 4)[0], 2, 4)
+    pm = tnm.pack_meta(c.meta)
+    assert torch.equal(tile_gemm(x, w), tile_gemm_ref(x, w))
+    assert torch.equal(tile_gemm_dual(x, w, w), tile_gemm_dual_ref(x, w, w))
+    assert torch.equal(nm_spmm(x, c.values, pm, 2), nm_spmm_ref(x, c.values, pm, 2))
+    assert torch.equal(nm_spmm_dual(x, c.values, pm, c.values, pm, 2),
+                       nm_spmm_dual_ref(x, c.values, pm, c.values, pm, 2))
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x, w = torch.zeros(4, 64), torch.zeros(64, 64)
+    with pytest.raises(ValueError, match="lattice point"):
+        tile_gemm(x, w, epilogue=EpilogueSpec(act="silu_mul"))
+    with pytest.raises(ValueError, match="bias"):
+        tile_gemm(x, w, epilogue=EpilogueSpec(bias=True))
+    with pytest.raises(ValueError, match="n must be"):
+        nm_spmm(x, torch.zeros(48, 64), torch.zeros(12, 64, dtype=torch.uint8), 3)
+    with pytest.raises(ValueError, match="K_c"):
+        nm_spmm(x, torch.zeros(16, 64), torch.zeros(4, 64, dtype=torch.uint8), 2)
+    # what only a launch checks: device, tiles, row tile
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        _build.check_operands("tile_gemm", torch.zeros(4, 64, device="meta"),
+                              block_b=16)
+    with pytest.raises(ValueError, match="multiples"):
+        _build.check_tiles("tile_gemm", 100, 64)
+    assert _build.block_rows(8) == 16 and _build.block_rows(17) == 64
+
+
+# ----------------------------------------------------------- on the card
+CUDA_SHAPES = [(8, 2048, 2048), (37, 2048, 1024), (64, 8192, 2048)]
+
+
+def _cuda_inputs(dev, b, k, o):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b, k, generator=g, device=dev).bfloat16()
+    w = (torch.randn(k, o, generator=g, device=dev) * k ** -0.5).bfloat16()
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", CUDA_SHAPES)
+@pytest.mark.parametrize("act,bias", EPILOGUES)
+def test_tile_gemm_kernel_matches_plain_on_card(cuda_device, b, k, o, act, bias):
+    x, w = _cuda_inputs(cuda_device, b, k, o)
+    bv = torch.randn(o, device=cuda_device) if bias else None
+    spec = EpilogueSpec(act=act, bias=bias)
+    before = tile_gemm.launches
+    got = tile_gemm(x, w, epilogue=spec, bias=bv)
+    torch.cuda.synchronize()
+    assert tile_gemm.launches == before + 1
+    assert_scaled_close(got, tile_gemm_ref(x, w, epilogue=spec, bias=bv), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", CUDA_SHAPES)
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_nm_spmm_kernel_matches_plain_on_card(cuda_device, b, k, o, n):
+    x, w = _cuda_inputs(cuda_device, b, k, o)
+    pruned, _ = tnm.prune_nm(w, n, 4)
+    c = tnm.compress_nm(pruned, n, 4)
+    pm = tnm.pack_meta(c.meta)
+    got = nm_spmm(x, c.values, pm, n)
+    torch.cuda.synchronize()
+    assert_scaled_close(got, nm_spmm_ref(x, c.values, pm, n), 1e-2)
+    assert_scaled_close(got, x.float() @ pruned.float(), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("n", [None, 1, 2])
+def test_dual_kernels_match_plain_on_card(cuda_device, b, n):
+    x, wg = _cuda_inputs(cuda_device, b, 2048, 8192)
+    wu = torch.flip(wg, dims=[1]).contiguous()
+    if n is None:
+        got, want = tile_gemm_dual(x, wg, wu), tile_gemm_dual_ref(x, wg, wu)
+    else:
+        cg = tnm.compress_nm(tnm.prune_nm(wg, n, 4)[0], n, 4)
+        cu = tnm.compress_nm(tnm.prune_nm(wu, n, 4)[0], n, 4)
+        args = (cg.values, tnm.pack_meta(cg.meta), cu.values, tnm.pack_meta(cu.meta), n)
+        got, want = nm_spmm_dual(x, *args), nm_spmm_dual_ref(x, *args)
+    torch.cuda.synchronize()
+    assert_scaled_close(got, want, 1e-2)
