@@ -15,17 +15,32 @@ Phases, each of which fails the run on a miss:
              (CUDA-graph replays between CUDA events, weights rotated
              through > 100 MB so L2 is cold as in a real decode step) and
              the bandwidth bound.
+   int8    — tile_gemm_int8, nm_spmm_int8 (n in {1, 2}) and the int8
+             duals, on int8 weights quantized per channel and bf16
+             activations quantized per row, at the same shapes: the raw
+             int32 accumulator and the scaled bf16 output of the single
+             kernels must be BITWISE the plain versions' (the int32
+             accumulator is exact and the flush repeats the same fp32
+             ops), the duals within 1e-2 of max|plain| (silu's exp).
+             Timed the same way; the library column is torch._int_mm
+             (cuBLASLt int8 -> int32, no scales) on the same operands,
+             N:M weights decompressed, B = 8 padded to 32 rows (it takes
+             more than 16).
 3. serving — full-width internlm2-1.8b (24 layers, random bf16 weights
              from a seeded torch.Generator on the card) served by the
-             port's Engine in the dense, 2:4 and 1:4 layouts: 16
-             requests, prompts of 128-256 tokens, 32 new tokens, 8 slots,
-             prefill chunks of 64, max_len 512.  Every linear site must
-             plan a cuda kernel and every kernel of the layout must
-             launch (counts are zeroed just before each run and read just
-             after).
+             port's Engine in the dense, 2:4 and 1:4 layouts, float and
+             int8 (w8a8): 16 requests, prompts of 128-256 tokens, 32 new
+             tokens, 8 slots, prefill chunks of 64, max_len 512.  Every
+             linear site must plan a cuda kernel (an int8 one for the
+             int8 layouts) and every kernel of the layout must launch
+             (counts are zeroed just before each run and read just
+             after); no float kernel may launch in an int8 run.
 4. tiers   — one prefill chunk + one decode step under the cuda and the
              torch backends on the same params; logits must agree to
-             3e-2 of max|torch| (bf16 rounding differs between tiers).
+             3e-2 of max|torch| (bf16 rounding differs between tiers) for
+             the float layouts, and to INT8_TIER_TOL for the int8 ones
+             (the cuda tier is w8a8, the torch tier dequantizes the
+             weights only and contracts bf16 activations).
 
 It then prints the kernels JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -47,14 +62,25 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core peak
 TOL = 1e-2                       # kernel vs plain, scaled by max|plain|
 TIER_TOL = 3e-2                  # cuda tier vs torch tier logits, scaled
-SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
+# w8a8 cuda tier vs the weight-only torch tier (bf16 activations): the
+# activation codes add one int8 rounding per site; 0.056 at most was
+# measured on an H100 over 24 layers, so 0.1 leaves room without hiding
+# a wrong kernel (a wrong product gives errors of order 1)
+INT8_TIER_TOL = 0.1
+SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
+           "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu"}
 REPLACES = {
     "tile_gemm": "src/repro/kernels/tile_gemm/kernel.py:82",
     "tile_gemm_dual": "src/repro/kernels/tile_gemm/kernel.py:382",
     "nm_spmm": "src/repro/kernels/nm_spmm/kernel.py:125",
     "nm_spmm_dual": "src/repro/kernels/nm_spmm/kernel.py:437",
+    "tile_gemm_int8": "src/repro/kernels/tile_gemm/kernel.py:448",
+    "tile_gemm_dual_int8": "src/repro/kernels/tile_gemm/kernel.py:382",
+    "nm_spmm_int8": "src/repro/kernels/nm_spmm/kernel.py:506",
+    "nm_spmm_dual_int8": "src/repro/kernels/nm_spmm/kernel.py:437",
 }
 
 
@@ -102,13 +128,37 @@ def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(128e6 / nbytes))
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple:
+def bound_ms(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --------------------------------------------------------------- phase 2
+def recorder(rows, card_line):
+    """``record(...)``: one JSON row per (kernel, shape), failing the run
+    when the kernel is off its plain version by more than TOL of
+    max|plain|, or, with ``exact``, not bitwise equal to it."""
+    def record(kernel, b, k, o, n, got, want, t_k, t_p, t_l, nbytes, flops,
+               peak=BF16_FLOPS, exact=False):
+        e = scaled_err(got, want)
+        bmsv, by = bound_ms(nbytes, flops, peak)
+        row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "scaled_err": e, "kernel_ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+               "bound_ms": bmsv, "bound_by": by, "card": card_line}
+        if exact:
+            row["bitwise"] = bool(torch.equal(got, want))
+        rows.append(row)
+        log(json.dumps(row))
+        if exact and not row["bitwise"]:
+            fail(f"{kernel} B={b} K={k} O={o} n={n}: not bitwise equal to its "
+                 f"plain version (max abs error {row['max_abs_err']:.3e})")
+        if not (e <= TOL):
+            fail(f"{kernel} B={b} K={k} O={o} n={n}: error {e:.3e} > {TOL}")
+    return record
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -132,17 +182,7 @@ def kernel_phase(cfg, gen, card_line: str):
     singles = [(d, cfg.attn_dim), (d, cfg.kv_dim), (ff, d)]
     rows = []
 
-    def record(kernel, b, k, o, n, got, want, t_k, t_p, t_l, nbytes, flops):
-        e = scaled_err(got, want)
-        bmsv, by = bound_ms(nbytes, flops)
-        row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n,
-               "max_abs_err": (got.float() - want.float()).abs().max().item(),
-               "scaled_err": e, "kernel_ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-               "bound_ms": bmsv, "bound_by": by, "card": card_line}
-        rows.append(row)
-        log(json.dumps(row))
-        if not (e <= TOL):
-            fail(f"{kernel} B={b} K={k} O={o} n={n}: error {e:.3e} > {TOL}")
+    record = recorder(rows, card_line)
 
     def rand(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
@@ -226,18 +266,165 @@ def kernel_phase(cfg, gen, card_line: str):
     return rows
 
 
+def int_mm_padded(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The library yardstick of the int8 kernels: torch._int_mm (cuBLASLt
+    int8 x int8 -> int32), whose A must have more than 16 rows: decode
+    batches are zero-padded to 32 rows."""
+    if x_q.shape[0] <= 16:
+        x_q = torch.cat([x_q, x_q.new_zeros((32 - x_q.shape[0], x_q.shape[1]))])
+    return torch._int_mm(x_q, w_q)
+
+
+def int_mm_layout():
+    """The layout of B that torch._int_mm takes on this build: row-major,
+    else column-major (cuBLASLt's own int8 layout); checked against the
+    exact product."""
+    a = torch.randint(-127, 128, (32, 64), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device="cuda")
+    want = (a.double() @ b.double()).to(torch.int32)
+    for name, lay in (("row-major", lambda t: t.contiguous()),
+                      ("column-major", lambda t: t.t().contiguous().t())):
+        try:
+            ok = torch.equal(torch._int_mm(a, lay(b)), want)
+        except RuntimeError as e:
+            log(f"torch._int_mm with a {name} B: {str(e).splitlines()[0]}")
+            continue
+        if ok:
+            return name, lay
+    fail("torch._int_mm takes neither layout of B")
+
+
+def int8_kernel_phase(cfg, gen, card_line, rows):
+    from repro_torch.core import nm
+    from repro_torch.core.quantize import quantize_linear, quantize_rows
+    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_dual_int8, nm_spmm_int8
+    from repro_torch.kernels.nm_spmm.ref import (dense_weight, nm_spmm_dual_int8_ref,
+                                                 nm_spmm_int8_ref)
+    from repro_torch.kernels.tile_gemm.kernel import tile_gemm_dual_int8, tile_gemm_int8
+    from repro_torch.kernels.tile_gemm.ref import (tile_gemm_dual_int8_ref,
+                                                   tile_gemm_int8_ref)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    d, ff = cfg.d_model, cfg.d_ff
+    record = recorder(rows, card_line)
+    lay_name, lay = int_mm_layout()
+    log(f"library yardstick: torch._int_mm with a {lay_name} B")
+
+    def leaf(k, o, n):
+        """One int8 weight as serving prepares it, with its (1, O) scale
+        and the dense int8 matrix the library call contracts."""
+        w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+        if n == 4:
+            lf = quantize_linear({"w": w})
+            dense = lf["w"]
+        else:
+            c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
+            lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)})
+            dense = dense_weight(lf["values"], lf["meta_packed"], n)
+        return {**lf, "ws": lf["scale"].reshape(1, -1), "dense": lay(dense)}
+
+    def single(n, ref=False):
+        """(x_q, x_scale, leaf) -> the scaled bf16 output; x_scale None: raw."""
+        if n == 4:
+            f = tile_gemm_int8_ref if ref else tile_gemm_int8
+            return lambda xq, xs, lf: f(xq, lf["w"], xs, None if xs is None else lf["ws"],
+                                        out_dtype=bf16)
+        f = nm_spmm_int8_ref if ref else nm_spmm_int8
+        return lambda xq, xs, lf: f(xq, lf["values"], lf["meta_packed"], xs,
+                                    None if xs is None else lf["ws"], n, out_dtype=bf16)
+
+    def dual(n, ref=False):
+        if n == 4:
+            f = tile_gemm_dual_int8_ref if ref else tile_gemm_dual_int8
+            return lambda xq, xs, g, u: f(xq, g["w"], u["w"], xs, g["ws"], u["ws"],
+                                          out_dtype=bf16)
+        f = nm_spmm_dual_int8_ref if ref else nm_spmm_dual_int8
+        return lambda xq, xs, g, u: f(xq, g["values"], g["meta_packed"], u["values"],
+                                      u["meta_packed"], n, xs, g["ws"], u["ws"],
+                                      out_dtype=bf16)
+
+    def wbytes(k, o, n):
+        kc = k * n // 4
+        return kc * o + (kc * o // 4 if n < 4 else 0) + 4 * o   # values + meta + scale
+
+    names = {4: ("tile_gemm_int8", "tile_gemm_dual_int8"),
+             2: ("nm_spmm_int8", "nm_spmm_dual_int8"),
+             1: ("nm_spmm_int8", "nm_spmm_dual_int8")}
+    for b in (8, 64):
+        for n in (4, 2, 1):
+            for k, o in ((d, cfg.attn_dim), (d, cfg.kv_dim), (ff, d)):
+                xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16))
+                lfs = [leaf(k, o, n) for _ in range(copies_for(wbytes(k, o, n)))]
+                run, ref = single(n), single(n, ref=True)
+                raw, raw_ref = run(xq, None, lfs[0]), ref(xq, None, lfs[0])
+                torch.cuda.synchronize()
+                if raw.dtype != torch.int32 or not torch.equal(raw, raw_ref):
+                    fail(f"{names[n][0]} B={b} K={k} O={o} n={n}: raw int32 accumulator "
+                         f"not bitwise equal to its plain version")
+                ops = [(xq, xs, lf) for lf in lfs]
+                lib_ops = [(xq, lf["dense"]) for lf in lfs]
+                kc = k * n // 4
+                record(names[n][0], b, k, o, n, run(*ops[0]), ref(*ops[0]),
+                       time_ms(run, ops), time_ms(ref, ops), time_ms(int_mm_padded, lib_ops),
+                       b * k + 4 * b + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o,
+                       peak=INT8_OPS, exact=True)
+            # the gate-up pair at (d, ff)
+            k, o = d, ff
+            xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16))
+            pairs = [(leaf(k, o, n), leaf(k, o, n))
+                     for _ in range(copies_for(2 * wbytes(k, o, n)))]
+            run, ref = dual(n), dual(n, ref=True)
+            ops = [(xq, xs, g, u) for g, u in pairs]
+            cats = [(xq, lay(torch.cat([g["dense"], u["dense"]], dim=1)))
+                    for g, u in pairs[:2]]
+            kc = k * n // 4
+            record(names[n][1], b, k, o, n, run(*ops[0]), ref(*ops[0]),
+                   time_ms(run, ops), time_ms(ref, ops), time_ms(int_mm_padded, cats),
+                   b * k + 4 * b + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o,
+                   peak=INT8_OPS)
+            del pairs, ops, cats
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def quantize_pass(width: int, rows: int = 8) -> dict:
+    """What the activation quantize pass (plain torch, ``quantize_rows``,
+    run once per int8 linear site and step) costs on the card: kernel
+    launches and device ms of one call at decode width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.quantize import quantize_rows
+
+    x = torch.randn((rows, width), device="cuda").bfloat16()
+    quantize_rows(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quantize_rows(x)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return {"launches_per_call": sum(e.count for e in kern),
+            "device_ms_per_call": sum(e.self_device_time_total for e in kern) / 1e3,
+            "kernels": sorted({e.key[:60] for e in kern})}
+
+
 # --------------------------------------------------------------- phase 3
-LAYOUTS = (("dense", None), ("compressed", (2, 4)), ("compressed", (1, 4)))
-LAYOUT_KERNELS = {"dense": ("tile_gemm", "tile_gemm_dual"),
-                  "compressed": ("nm_spmm", "nm_spmm_dual")}
+LAYOUTS = (("dense", None, None), ("compressed", (2, 4), None),
+           ("compressed", (1, 4), None), ("dense", None, "int8"),
+           ("compressed", (2, 4), "int8"), ("compressed", (1, 4), "int8"))
+LAYOUT_KERNELS = {("dense", None): ("tile_gemm", "tile_gemm_dual"),
+                  ("compressed", None): ("nm_spmm", "nm_spmm_dual"),
+                  ("dense", "int8"): ("tile_gemm_int8", "tile_gemm_dual_int8"),
+                  ("compressed", "int8"): ("nm_spmm_int8", "nm_spmm_dual_int8")}
 
 
-def serve_layout(base_cfg, layout, sparsity):
+def serve_layout(base_cfg, layout, sparsity, qdtype):
     from repro_torch import kernels, serving
     from repro_torch.models import init_params
 
-    tag = f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense"
-    spec = serving.ServingSpec(layout=layout, sparsity=sparsity, slots=8,
+    tag = (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense") + \
+        (f"/{qdtype}" if qdtype else "")
+    spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype, slots=8,
                                max_len=512, block_len=8, prefill_chunk=64)
     cfg = spec.apply_to(base_cfg)
     t0 = time.perf_counter()
@@ -253,9 +440,10 @@ def serve_layout(base_cfg, layout, sparsity):
     log(f"[{tag}] dispatch engine plan:")
     for line in report:
         log(line)
-    off = [line for line in report if "[cuda]" not in line]
+    want = "_int8[cuda]" if qdtype else "[cuda]"
+    off = [line for line in report if want not in line]
     if off:
-        fail(f"[{tag}] {len(off)} linear site(s) off the cuda kernels: {off[0]}")
+        fail(f"[{tag}] {len(off)} linear site(s) off the {want} kernels: {off[0]}")
 
     engine = serving.Engine(prepared)
     warm = serving.make_poisson_trace(seed=1, num_requests=2, vocab_size=cfg.vocab_size,
@@ -271,9 +459,13 @@ def serve_layout(base_cfg, layout, sparsity):
     counts = kernels.launch_counts()
     log(f"[{tag}] served {rep.describe()}")
     log(f"[{tag}] launches: {json.dumps(counts)}")
-    for name in LAYOUT_KERNELS[layout]:
+    for name in LAYOUT_KERNELS[layout, qdtype]:
         if counts[name] == 0:
             fail(f"[{tag}] kernel {name} never launched on the main path")
+    strays = {name: c for name, c in counts.items()
+              if c and name not in LAYOUT_KERNELS[layout, qdtype]}
+    if strays:
+        fail(f"[{tag}] kernels of another class launched: {strays}")
     if rep.completed != len(trace):
         fail(f"[{tag}] {rep.completed}/{len(trace)} requests completed")
     for s in rep.stats:
@@ -286,7 +478,7 @@ def serve_layout(base_cfg, layout, sparsity):
               "launches": counts}
     log(json.dumps(result))
     result["decode_profile"] = profile_decode(prepared, cfg, spec, tag)
-    tiers = tier_check(prepared, cfg, spec, tag)
+    tiers = tier_check(prepared, cfg, spec, tag, INT8_TIER_TOL if qdtype else TIER_TOL)
     return result, tiers
 
 
@@ -328,6 +520,7 @@ def profile_decode(prepared, cfg, spec, tag, steps: int = 3):
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     res = {"layout": tag, "step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+           "launches_per_step": sum(e.count for e in kern) / steps,
            "top_kernels": [{"name": e.key[:90], "ms_per_step":
                             e.self_device_time_total / 1e3 / steps,
                             "calls_per_step": e.count / steps} for e in top]}
@@ -341,7 +534,7 @@ def profile_decode(prepared, cfg, spec, tag, steps: int = 3):
 
 
 # --------------------------------------------------------------- phase 4
-def tier_check(prepared, cfg, spec, tag):
+def tier_check(prepared, cfg, spec, tag, tol):
     from repro_torch.kernels import dispatch
     from repro_torch.models import (init_paged_caches, paged_decode_step,
                                     paged_prefill_chunk)
@@ -373,10 +566,11 @@ def tier_check(prepared, cfg, spec, tag):
     e_p, e_d = scaled_err(pc, pt), scaled_err(dc, dt)
     agree = (torch.cat([pc, dc]).argmax(-1) == torch.cat([pt, dt]).argmax(-1))
     res = {"layout": tag, "prefill_scaled_err": e_p, "decode_scaled_err": e_d,
-           "greedy_agreement": agree.float().mean().item(), "positions": agree.numel()}
+           "tolerance": tol, "greedy_agreement": agree.float().mean().item(),
+           "positions": agree.numel()}
     log(json.dumps(res))
-    if not (e_p <= TIER_TOL and e_d <= TIER_TOL):
-        fail(f"[{tag}] cuda vs torch tier logits differ: {e_p:.3e} / {e_d:.3e}")
+    if not (e_p <= tol and e_d <= tol):
+        fail(f"[{tag}] cuda vs torch tier logits differ: {e_p:.3e} / {e_d:.3e} > {tol}")
     return res
 
 
@@ -421,12 +615,15 @@ def main():
     card_line = card()
     t0 = time.perf_counter()
     rows = kernel_phase(cfg, gen, card_line)
+    int8_kernel_phase(cfg, gen, card_line, rows)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
+    log(f"activation quantize pass (one call, B=8, K={cfg.d_model}): "
+        f"{json.dumps(quantize_pass(cfg.d_model))}")
 
     served, tiers, launches = [], [], {}
-    for layout, sparsity in LAYOUTS:
+    for layout, sparsity, qdtype in LAYOUTS:
         t0 = time.perf_counter()
-        res, tier = serve_layout(cfg, layout, sparsity)
+        res, tier = serve_layout(cfg, layout, sparsity, qdtype)
         served.append(res)
         tiers.append(tier)
         for name, cnt in res["launches"].items():
@@ -438,10 +635,15 @@ def main():
     singles = [(d, cfg.attn_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.attn_dim, d), (ff, d)]
     entries = []
     for name, n, shapes in (("tile_gemm", 4, singles), ("tile_gemm_dual", 4, [(d, ff)]),
-                            ("nm_spmm", 2, singles), ("nm_spmm_dual", 2, [(d, ff)])):
+                            ("nm_spmm", 2, singles), ("nm_spmm_dual", 2, [(d, ff)]),
+                            ("tile_gemm_int8", 4, singles),
+                            ("tile_gemm_dual_int8", 4, [(d, ff)]),
+                            ("nm_spmm_int8", 2, singles),
+                            ("nm_spmm_dual_int8", 2, [(d, ff)])):
         tot = layer_decode(rows, name, n, 8, shapes)
         entries.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": SOURCES["int8" if name.endswith("_int8") else "float"],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["kernel_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],

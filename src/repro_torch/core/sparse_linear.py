@@ -9,8 +9,10 @@ layouts of this slice:
 
 Both route through the dispatch engine (``kernels.dispatch``): a CUDA
 kernel where the plan allows, the torch reference formulation otherwise.
-The masked (SR-STE), gather and rowwise layouts, and quantization, wait
-for later slices.
+Either layout may be quantized (``convert_layout(..., quantize="int8")``,
+see ``core.quantize``): its value leaf holds the narrow dtype and a
+``"scale"`` leaf rides beside it.  The masked (SR-STE), gather and
+rowwise layouts wait for later slices.
 """
 
 from __future__ import annotations
@@ -108,29 +110,51 @@ def apply_gate_up(params_g: Dict[str, Any], params_u: Dict[str, Any],
 
 
 def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
-                   target_mode: str = "compressed") -> Dict[str, Any]:
+                   target_mode: str = "compressed",
+                   quantize: Optional[str] = None) -> Dict[str, Any]:
     """Offline conversion: dense weights -> serving layout.  Leaves already
     in a serving layout pass through; stacked ``(..., K, O)`` dense leaves
-    convert per trailing matrix."""
-    if "w" not in params:
-        return params
+    convert per trailing matrix.
+
+    ``quantize="int8"`` (or ``"fp8"``) then quantizes the layout's float
+    operand per output channel (``core.quantize.quantize_linear``), after
+    pruning and compression, so the scales are those of the kept values."""
+    qdtype = None
+    if quantize is not None:
+        from .quantize import canonical_qdtype
+        qdtype = canonical_qdtype(quantize)   # raises on unknown targets
+
+    def _q(layout: Dict[str, Any]) -> Dict[str, Any]:
+        if qdtype is None:
+            return layout
+        from .quantize import quantize_linear
+        return quantize_linear(layout, qdtype)
+
+    if "w" not in params or "scale" in params:
+        return _q(params)
     w = params["w"]
     if not cfg.is_sparse or target_mode == "dense":
-        return {"w": w}
+        return _q({"w": w})
     if target_mode != "compressed":
         raise NotImplementedError(f"{target_mode!r} layouts are not ported yet")
     if w.ndim > 2:
         lead = w.shape[:-2]
         mats = [_compressed(m_, cfg) for m_ in w.reshape((-1,) + w.shape[-2:])]
-        return {k: torch.stack([m_[k] for m_ in mats]).reshape(lead + mats[0][k].shape)
-                for k in mats[0]}
-    return _compressed(w, cfg)
+        return _q({k: torch.stack([m_[k] for m_ in mats]).reshape(lead + mats[0][k].shape)
+                   for k in mats[0]})
+    return _q(_compressed(w, cfg))
+
+
+# keys a linear layout may carry beside its structural ones
+_AUX_KEYS = {"scale", "act_scale"}
 
 
 def is_linear_leaf(tree: Any) -> bool:
-    """One flat SparseLinear layout dict (dense ``{"w"}`` or compressed):
-    the structural test every tree walk shares."""
-    return isinstance(tree, dict) and ("meta_packed" in tree or set(tree) == {"w"})
+    """One flat SparseLinear layout dict (dense ``{"w"}`` or compressed,
+    either possibly with its quantization scales): the structural test
+    every tree walk shares."""
+    return isinstance(tree, dict) and (
+        "meta_packed" in tree or set(tree) - _AUX_KEYS == {"w"})
 
 
 def map_linear_leaves(tree, fn: Callable[[Dict[str, Any]], Dict[str, Any]]):

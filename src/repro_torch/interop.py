@@ -11,6 +11,8 @@ only.
   ``torch.bfloat16`` through ``Tensor.view`` (bit-exact, as the JAX
   package's checkpoint store does it).  Integer arrays (``meta_packed``
   uint8, indices) keep their dtype.
+- Leaves that are already tensors (a loaded conversion artifact) pass
+  through.
 - A full model tree ``{"embed", "unembed", "final_norm", "stages"}``
   is unstacked: ``stages[s]["slot{j}"]`` leaves carry leading
   ``(count, repeat)`` dims, and the port's ``params["layers"]`` lists
@@ -31,6 +33,8 @@ __all__ = ["tensor_from_numpy", "params_from_numpy"]
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """One numpy array (or scalar) -> tensor, bf16 bit-exact."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(device)
     a = np.array(a)    # a writable, contiguous copy (JAX hands out read-only views)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -60,17 +64,17 @@ def _first_leaf(tree):
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
-    """The JAX package's param tree (numpy leaves) -> the port's."""
+    """The JAX package's param tree (numpy or tensor leaves) -> the port's."""
     if not (isinstance(tree, dict) and "stages" in tree):
         return _convert(tree, device)
     out = {k: _convert(v, device) for k, v in tree.items() if k != "stages"}
     layers = []
     for stage in tree["stages"]:
         slots = [stage[f"slot{j}"] for j in range(len(stage))]
-        count = np.shape(_first_leaf(slots[0]))[0]
+        count = _first_leaf(slots[0]).shape[0]
         for i in range(count):
             for slot in slots:
-                for r in range(np.shape(_first_leaf(slot))[1]):
+                for r in range(_first_leaf(slot).shape[1]):
                     layers.append(_convert(_index(slot, i, r), device))
     out["layers"] = layers
     return out

@@ -13,6 +13,10 @@ KERNELS = {
     "tile_gemm_dual": _tile_gemm.tile_gemm_dual,
     "nm_spmm": _nm_spmm.nm_spmm,
     "nm_spmm_dual": _nm_spmm.nm_spmm_dual,
+    "tile_gemm_int8": _tile_gemm.tile_gemm_int8,
+    "tile_gemm_dual_int8": _tile_gemm.tile_gemm_dual_int8,
+    "nm_spmm_int8": _nm_spmm.nm_spmm_int8,
+    "nm_spmm_dual_int8": _nm_spmm.nm_spmm_dual_int8,
 }
 
 

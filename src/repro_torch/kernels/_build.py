@@ -3,8 +3,9 @@
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
 so ``nvcc`` builds them in seconds.  Each library is built at first use,
 from the checkout's own sources, into ``build/repro_torch/`` at the root
-of the checkout, named by a hash of its source and flags: an edited
-source builds anew, an unchanged one is loaded as it is.  Nothing here
+of the checkout, named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags: an edited source builds anew, an
+unchanged one is loaded as it is.  Nothing here
 runs at import time; the CPU tests import every module without a
 compiler present.
 
@@ -28,10 +29,11 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG"]
+__all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG",
+           "out_kind"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm.cu",)
+SOURCES = ("gemm.cu", "gemm_int8.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +45,12 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         "vg_nm_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "vg_nm_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "gemm_int8.cu": {
+        "vg_tile_gemm_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_dual_int8": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "vg_nm_spmm_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_dual_int8": (_P,) * 9 + (_I,) * 6 + (_P,),
     },
 }
 
@@ -74,6 +82,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = _CSRC / name
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -154,15 +164,16 @@ def block_rows(b: int) -> int:
 
 
 def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor,
-                   block_b: int) -> None:
+                   block_b: int, x_dtype: torch.dtype = torch.bfloat16) -> None:
     """Everything a launch needs that the C side cannot see: one CUDA
-    device, bf16 activations, contiguous 16-byte-aligned operands, a
-    known row tile.  Shapes are checked by each wrapper."""
+    device, activations of ``x_dtype`` (bf16, or int8 for the quantized
+    kernels), contiguous 16-byte-aligned operands, a known row tile.
+    Shapes and the other operands' dtypes are checked by each wrapper."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: operands must be CUDA or CPU tensors, "
                          f"got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{kernel}: the kernel takes bfloat16 activations, "
+    if x.dtype != x_dtype:
+        raise ValueError(f"{kernel}: the kernel takes {x_dtype} activations, "
                          f"got {x.dtype}")
     for t in (x, *others):
         if t.device != x.device:
@@ -180,3 +191,19 @@ def check_tiles(kernel: str, k: int, o: int) -> None:
     if k % BLOCK_K or o % BLOCK_O:
         raise ValueError(f"{kernel}: K={k} and O={o} must be multiples of "
                          f"{BLOCK_K} and {BLOCK_O}")
+
+
+# the int8 kernels' out_kind argument (gemm_int8.cu): what the flush stores
+_OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1}
+OUT_RAW = 2
+
+
+def out_kind(kernel: str, out_dtype: torch.dtype, raw: bool) -> int:
+    """The int8 kernels store bf16 or fp32 scaled outputs, or the raw
+    int32 accumulator (raw mode)."""
+    if raw:
+        return OUT_RAW
+    if out_dtype not in _OUT_KINDS:
+        raise ValueError(f"{kernel}: the kernel stores bfloat16 or float32, "
+                         f"not {out_dtype}")
+    return _OUT_KINDS[out_dtype]

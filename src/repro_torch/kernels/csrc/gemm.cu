@@ -48,6 +48,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flush.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -59,17 +61,8 @@ constexpr int XLD = BK + 8;     // bf16 pitch of the X tile (breaks bank conflic
 constexpr int WLD = BN + 8;     // bf16 pitch of a weight tile
 constexpr int CLD = BN + 4;     // fp32 pitch of an accumulator tile at the flush
 
-enum { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2 };
-
 __device__ __forceinline__ uint32_t word_of(const uint4& a, int i) {
   return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  // jax.nn.gelu's default (approximate=True) formulation
-  return 0.5f * v * (1.0f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
 }
 
 // X tile: BM rows x BK columns, one 16-byte chunk (8 bf16) per thread per
@@ -256,8 +249,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
       v = silu(v) * cs_u[r * CLD + c];
     } else {
       if (bias != nullptr) v += bias[n0 + c];
-      if (act == ACT_SILU) v = silu(v);
-      else if (act == ACT_GELU) v = gelu_tanh(v);
+      v = apply_act(v, act);
     }
     y[(size_t)row * o + n0 + c] = __float2bfloat16_rn(v);
   }

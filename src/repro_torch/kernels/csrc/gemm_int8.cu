@@ -1,0 +1,382 @@
+// Hand-written Hopper (sm_90a) int8 kernels for the repro_torch quantized
+// execution class (w8a8): tile_gemm_int8, tile_gemm_dual_int8,
+// nm_spmm_int8 and nm_spmm_dual_int8.
+//
+// Replaces (JAX package, Pallas on the TPU):
+//   tile_gemm_int8       repro/kernels/tile_gemm/kernel.py::tile_gemm_int8
+//                        (_tile_gemm_quantized, _gemm_q_raw_kernel, _gemm_kernel)
+//   tile_gemm_dual_int8  repro/kernels/tile_gemm/kernel.py::tile_gemm_dual,
+//                        quantized branch (_gemm_dual_kernel with quant=True)
+//   nm_spmm_int8         repro/kernels/nm_spmm/kernel.py::nm_spmm_int8
+//                        (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel)
+//   nm_spmm_dual_int8    repro/kernels/nm_spmm/kernel.py::nm_spmm_dual,
+//                        quantized branch (_spmm_dual_kernel with quant=True)
+//
+// ONE templated body serves all four, as in gemm.cu: the template takes the
+// weight loader (dense int8, or N:4 int8 values + 2-bit packed meta) and
+// single or dual (gate-up, two weights against one X tile).
+//
+// What it computes.  A block of 128 threads (4 warps) owns a BM x 64 tile of
+// Y (BM = 16 for decode-sized batches, 64 for prefill chunks) and loops over
+// K in steps of 64 inside the block, with the next step's tiles in flight
+// into registers while the tensor cores contract the current one: wmma
+// int8 x int8 -> int32 16x16x16 fragments, so the accumulator is exact.
+// The flush runs in the JAX kernels' order: t = float(acc) * xs[row] *
+// ws[col] (left to right, fp32), then + bias -> silu | gelu, or for a dual
+// silu(t_g) * t_u, then one cast (bf16 or fp32) and a store masked to the
+// rows < B.  With no scales (raw mode) it stores the int32 accumulator
+// itself.  The multiplies and the bias add use the _rn intrinsics so that
+// nvcc cannot contract them into an FMA: the scaled output of the identity
+// and bias points is then bitwise the plain version's.
+//
+// Shared-memory layout.  wmma loads need 32-byte aligned tile pointers, and
+// a 16-wide int8 K or N slice is only 16 bytes, so the X tile is stored as
+// four K-slices [4][BM][32 B] and each weight tile as four N-slices (one per
+// warp) [4][64][32 B]: every fragment pointer is a multiple of 32 bytes and
+// every pitch (32 B) a multiple of 16, as wmma asks for 8-bit types.
+//
+// N:M weights.  The loader reads the values tile (64*n/4 rows of int8) and
+// the packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
+// low bits first) and expands them into the dense 64 x 64 int8 tile in
+// shared memory: w[(r/n)*4 + idx(r), o] = values[r, o].  The dense weight
+// never exists in device memory.
+//
+// What bounds it on an H100.  At decode (B = 8) every weight byte is read
+// once for 2 int8 operations per row of X, far below the ridge (~590 int8
+// operations per byte), so the weight bytes over 3.35 TB/s bound it: w_out
+// (K=8192, O=2048) moves 16.8 MB of int8 (5.0 us) and 10.5 MB at 2:4
+// (values 8.4 MB + meta 2.1 MB).  What the design does about it: int8
+// halves the bf16 weight bytes, the N:M loader moves n/4 of them plus 2
+// bits per kept value and expands on chip, and loads are 16-byte (dense)
+// or 8-byte (N:M) vector loads along O.  As in gemm.cu the launch is O/64
+// blocks with a serial K loop: split-K, TMA rings and wgmma are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include "flush.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BK = 64;          // K step (int8 columns of X, dense rows of W)
+constexpr int BN = 64;          // output columns per block
+constexpr int NTHREADS = 128;   // 4 warps, each owning 16 output columns
+constexpr int SP = 32;          // byte pitch of a 16-wide int8 slice row
+constexpr int CLD = BN + 4;     // int32 pitch of an accumulator tile at the flush
+
+// out_kind of the C interface
+enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_I32 = 2 };
+
+// X tile: BM rows x 64 int8 = four 16-byte chunks per row.  Thread t loads
+// chunk t%4 of row t/4 (+32 i); rows at or beyond B read as zero.  Chunk c
+// lands in K-slice c.
+template <int BM>
+struct XLoader {
+  static constexpr int NI = (BM * 4 + NTHREADS - 1) / NTHREADS;
+  const int8_t* x;
+  int b, k;
+  uint4 r[NI];
+
+  __device__ __forceinline__ void load(int k0, int m0, int tid) {
+    const int c = k0 + (tid & 3) * 16;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid >> 2) + 32 * i;
+      const int row = m0 + rl;
+      r[i] = (rl < BM && row < b) ? *reinterpret_cast<const uint4*>(x + (size_t)row * k + c)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __device__ __forceinline__ void store(int8_t* xs, int tid) const {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid >> 2) + 32 * i;
+      if (rl < BM) *reinterpret_cast<uint4*>(xs + ((tid & 3) * BM + rl) * SP) = r[i];
+    }
+  }
+};
+
+// Dense (K, O) int8 weight: a 64 x 64 tile is 256 16-byte chunks, 2 per
+// thread; chunk t%4 of a row lands in N-slice t%4.
+struct DenseLoader {
+  const int8_t* w;
+  const uint8_t* unused_meta;
+  int o;
+  uint4 r[2];
+
+  __device__ __forceinline__ void load(int k0, int n0, int tid) {
+    const int c = n0 + (tid & 3) * 16;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + (tid >> 2) + 32 * i;
+      r[i] = *reinterpret_cast<const uint4*>(w + (size_t)row * o + c);
+    }
+  }
+  __device__ __forceinline__ void store(int8_t* ws, int tid) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = (tid >> 2) + 32 * i;
+      *reinterpret_cast<uint4*>(ws + ((tid & 3) * BK + row) * SP) = r[i];
+    }
+  }
+};
+
+// Compressed N:4 int8 weight: values (K*N/4, O) int8, meta (K*N/16, O) uint8.
+// Thread t expands M-block g = t/8 (4 dense rows) for the 8 columns
+// 8*(t%8)..+7: it holds the block's N value words (8 bytes each) and their
+// meta bytes (8 bytes each).
+template <int N>
+struct NMLoader {
+  const int8_t* v;
+  const uint8_t* meta;
+  int o;
+  uint2 rv[N];
+  uint2 rm[N];
+
+  __device__ __forceinline__ void load(int k0, int n0, int tid) {
+    const int c = n0 + (tid & 7) * 8;
+    const int r0 = (k0 / 4 + (tid >> 3)) * N;   // first compressed row of block g
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      const int r = r0 + s;
+      rv[s] = *reinterpret_cast<const uint2*>(v + (size_t)r * o + c);
+      rm[s] = *reinterpret_cast<const uint2*>(meta + (size_t)(r >> 2) * o + c);
+    }
+  }
+  // The on-chip M:1 mux: slot p of the block receives the kept value whose
+  // 2-bit index is p, else 0.  k0 is a multiple of 64, so the global
+  // compressed row's position inside its meta byte is (g*N + s) % 4.
+  __device__ __forceinline__ void store(int8_t* ws, int tid) const {
+    const int g = tid >> 3;
+    const int c8 = tid & 7;                       // 8-column group of the tile
+    int8_t* dst = ws + (c8 >> 1) * BK * SP + (c8 & 1) * 8;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t out[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int s = 0; s < N; ++s) {
+          const int sh = 2 * ((g * N + s) & 3);
+          const uint32_t vw = q == 0 ? rv[s].x : rv[s].y;
+          const uint32_t mw = q == 0 ? rm[s].x : rm[s].y;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (((mw >> (8 * j + sh)) & 3u) == (uint32_t)p) word |= vw & (0xffu << (8 * j));
+          }
+        }
+        out[q] = word;
+      }
+      *reinterpret_cast<uint2*>(dst + (g * 4 + p) * SP) = make_uint2(out[0], out[1]);
+    }
+  }
+};
+
+__device__ __forceinline__ float dequant(int acc, float xs, float ws) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
+}
+
+template <int BM, bool DUAL, class WL>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_int8_kernel(const int8_t* __restrict__ x,
+                 const int8_t* __restrict__ wg, const uint8_t* __restrict__ mg,
+                 const int8_t* __restrict__ wu, const uint8_t* __restrict__ mu,
+                 const float* __restrict__ xs, const float* __restrict__ wsg,
+                 const float* __restrict__ wsu, const float* __restrict__ bias,
+                 void* __restrict__ y, int b, int k, int o, int act, int out_kind) {
+  constexpr int MF = BM / 16;
+  constexpr int NW = DUAL ? 2 : 1;
+  constexpr int LOAD_BYTES = 4 * BM * SP + NW * 4 * BK * SP;
+  constexpr int FLUSH_BYTES = NW * BM * CLD * 4;
+  constexpr int SMEM = LOAD_BYTES > FLUSH_BYTES ? LOAD_BYTES : FLUSH_BYTES;
+  // the staging tiles and, after the K loop, the int32 flush tiles alias
+  __shared__ __align__(128) unsigned char smem[SMEM];
+  int8_t* xt = reinterpret_cast<int8_t*>(smem);
+  int8_t* wt_g = xt + 4 * BM * SP;
+  int8_t* wt_u = wt_g + 4 * BK * SP;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+
+  XLoader<BM> xl{x, b, k};
+  WL lg{wg, mg, o};
+  WL lu{wu, mu, o};
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc_g[MF];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc_u[DUAL ? MF : 1];
+#pragma unroll
+  for (int i = 0; i < MF; ++i) {
+    wmma::fill_fragment(acc_g[i], 0);
+    if constexpr (DUAL) wmma::fill_fragment(acc_u[i], 0);
+  }
+
+  xl.load(0, m0, tid);
+  lg.load(0, n0, tid);
+  if constexpr (DUAL) lu.load(0, n0, tid);
+  for (int k0 = 0; k0 < k; k0 += BK) {
+    xl.store(xt, tid);
+    lg.store(wt_g, tid);
+    if constexpr (DUAL) lu.store(wt_u, tid);
+    __syncthreads();
+    if (k0 + BK < k) {   // next step's tiles travel while this one computes
+      xl.load(k0 + BK, m0, tid);
+      lg.load(k0 + BK, n0, tid);
+      if constexpr (DUAL) lu.load(k0 + BK, n0, tid);
+    }
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> bg, bu;
+      wmma::load_matrix_sync(bg, reinterpret_cast<const signed char*>(
+                                     wt_g + (warp * BK + ks * 16) * SP), SP);
+      if constexpr (DUAL)
+        wmma::load_matrix_sync(bu, reinterpret_cast<const signed char*>(
+                                       wt_u + (warp * BK + ks * 16) * SP), SP);
+#pragma unroll
+      for (int i = 0; i < MF; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
+        wmma::load_matrix_sync(a, reinterpret_cast<const signed char*>(
+                                      xt + (ks * BM + i * 16) * SP), SP);
+        wmma::mma_sync(acc_g[i], a, bg, acc_g[i]);
+        if constexpr (DUAL) wmma::mma_sync(acc_u[i], a, bu, acc_u[i]);
+      }
+    }
+    __syncthreads();
+  }
+
+  int* cs_g = reinterpret_cast<int*>(smem);
+  int* cs_u = cs_g + BM * CLD;
+#pragma unroll
+  for (int i = 0; i < MF; ++i) {
+    wmma::store_matrix_sync(cs_g + i * 16 * CLD + warp * 16, acc_g[i], CLD, wmma::mem_row_major);
+    if constexpr (DUAL)
+      wmma::store_matrix_sync(cs_u + i * 16 * CLD + warp * 16, acc_u[i], CLD, wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  for (int e = tid; e < BM * BN; e += NTHREADS) {
+    const int r = e / BN;
+    const int c = e % BN;
+    const int row = m0 + r;
+    if (row >= b) continue;
+    const size_t at = (size_t)row * o + n0 + c;
+    const int ag = cs_g[r * CLD + c];
+    if (out_kind == OUT_I32) {   // raw: the exact accumulator
+      static_cast<int*>(y)[at] = ag;
+      continue;
+    }
+    const float xr = xs[row];
+    float v = dequant(ag, xr, wsg[n0 + c]);
+    if constexpr (DUAL) {
+      v = silu(v) * dequant(cs_u[r * CLD + c], xr, wsu[n0 + c]);
+    } else {
+      if (bias != nullptr) v = __fadd_rn(v, bias[n0 + c]);
+      v = apply_act(v, act);
+    }
+    if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+  }
+}
+
+template <int BM, bool DUAL, class WL>
+int launch(const void* x, const void* wg, const void* mg, const void* wu, const void* mu,
+           const void* xs, const void* wsg, const void* wsu, const void* bias, void* y,
+           int b, int k, int o, int act, int out_kind, void* stream) {
+  const dim3 grid(o / BN, (b + BM - 1) / BM);
+  gemm_int8_kernel<BM, DUAL, WL><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wg),
+      static_cast<const uint8_t*>(mg), static_cast<const int8_t*>(wu),
+      static_cast<const uint8_t*>(mu), static_cast<const float*>(xs),
+      static_cast<const float*>(wsg), static_cast<const float*>(wsu),
+      static_cast<const float*>(bias), y, b, k, o, act, out_kind);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DUAL, class WL>
+int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void* wu,
+              const void* mu, const void* xs, const void* wsg, const void* wsu,
+              const void* bias, void* y, int b, int k, int o, int act, int out_kind,
+              void* stream) {
+  if (b <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 || act > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // raw mode takes no scales and no epilogue; scaled mode needs its scales
+  const bool raw = out_kind == OUT_I32;
+  if (raw != (xs == nullptr) || raw != (wsg == nullptr) || (DUAL && raw != (wsu == nullptr)) ||
+      (raw && (act != ACT_NONE || bias != nullptr)) || out_kind < 0 || out_kind > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bm == 16)
+    return launch<16, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, y, b, k, o, act,
+                                out_kind, stream);
+  if (bm == 64)
+    return launch<64, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, y, b, k, o, act,
+                                out_kind, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool DUAL>
+int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
+              const void* mu, const void* xs, const void* wsg, const void* wsu,
+              const void* bias, void* y, int b, int k, int o, int act, int out_kind,
+              void* stream) {
+  if (n == 1)
+    return launch_bm<DUAL, NMLoader<1>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, y, b, k, o,
+                                        act, out_kind, stream);
+  if (n == 2)
+    return launch_bm<DUAL, NMLoader<2>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, y, b, k, o,
+                                        act, out_kind, stream);
+  if (n == 4)
+    return launch_bm<DUAL, NMLoader<4>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, y, b, k, o,
+                                        act, out_kind, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes).  Every function launches on the
+// given stream, allocates nothing, and returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for arguments the kernels do not take).
+// out_kind: 0 bf16, 1 fp32 (scaled, xs/ws given), 2 int32 (raw, no scales).
+extern "C" {
+
+int vg_tile_gemm_int8(const void* x, const void* w, const void* xs, const void* ws,
+                      const void* bias, void* y, int b, int k, int o, int act, int out_kind,
+                      int bm, void* stream) {
+  return launch_bm<false, DenseLoader>(bm, x, w, nullptr, nullptr, nullptr, xs, ws, nullptr,
+                                       bias, y, b, k, o, act, out_kind, stream);
+}
+
+int vg_tile_gemm_dual_int8(const void* x, const void* wg, const void* wu, const void* xs,
+                           const void* wsg, const void* wsu, void* y, int b, int k, int o,
+                           int out_kind, int bm, void* stream) {
+  if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bm<true, DenseLoader>(bm, x, wg, nullptr, wu, nullptr, xs, wsg, wsu, nullptr,
+                                      y, b, k, o, ACT_NONE, out_kind, stream);
+}
+
+int vg_nm_spmm_int8(const void* x, const void* values, const void* meta, const void* xs,
+                    const void* ws, const void* bias, void* y, int b, int k, int o, int n,
+                    int act, int out_kind, int bm, void* stream) {
+  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, xs, ws, nullptr, bias, y,
+                          b, k, o, act, out_kind, stream);
+}
+
+int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g,
+                         const void* values_u, const void* meta_u, const void* xs,
+                         const void* wsg, const void* wsu, void* y, int b, int k, int o, int n,
+                         int out_kind, int bm, void* stream) {
+  if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, xs, wsg, wsu, nullptr,
+                         y, b, k, o, ACT_NONE, out_kind, stream);
+}
+
+const char* vg_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -7,21 +7,30 @@ dtype, backend) whether the product runs on a hand-written CUDA kernel
 (``tile_gemm`` for dense 4:4, ``nm_spmm`` for compressed N:4, and their
 fused gate-up forms) or on the plain torch reference formulation.
 
+Quantized leaves (a ``"scale"`` beside int8 values, ``core.quantize``)
+plan on their storage dtype, never on the activations': the int8 class
+runs ``tile_gemm_int8`` / ``nm_spmm_int8`` (and their gate-up duals),
+which quantize the activations per row here (``quantize_rows``, plain
+torch, as the JAX package's is jnp) and dequantize once at the flush;
+the torch tier dequantizes the weight and contracts float activations.
+
 What the slice leaves out, each still planned by the JAX package only:
-shard_map placement, the int8/fp8 classes, the gather and rowwise
-layouts, activation sparsity, requantize epilogues and autotuning.
-Blocks are always fitted (``ReasonCode.BLOCKS_FITTED``).
+shard_map placement, the fp8 class (its leaves run on the torch tier
+only; a kernel backend refuses them), static activation scales, the
+gather and rowwise layouts, activation sparsity, requantize epilogues
+and autotuning.  Blocks are always fitted (``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
-or dtype fails a kernel's tiling contract (bf16 only, K and O multiples
-of 64).
+or dtype fails a kernel's tiling contract (bf16 activations or int8
+leaves, K and O multiples of 64).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import nm
+from ..core import quantize as quant
 from ..core.sparse_linear import gather_hint, is_linear_leaf
 from . import _build, reasons, registry
 from . import epilogue as epilib
@@ -118,6 +128,7 @@ class DispatchDecision:
     epilogue_fused: bool = False
     reason_code: Optional[ReasonCode] = None
     epilogue_reason: Optional[ReasonCode] = None
+    act_scales: Optional[str] = None   # quantized kernels: "dynamic"
 
     @property
     def uses_kernel(self) -> bool:
@@ -133,21 +144,30 @@ def describe(d: DispatchDecision) -> str:
     if not d.uses_kernel:
         return f"{d.mode}: {TORCH_REFERENCE} ({d.reason}){epi}"
     bb, bke, bo = d.blocks
+    acts = f" act-scales={d.act_scales}" if d.act_scales is not None else ""
     return (f"{d.mode}: {d.kernel}[{d.backend}] blocks=(b={bb},ke={bke},o={bo})"
-            f" dtype={d.dtype}{epi} ({d.reason})")
+            f" dtype={d.dtype}{epi}{acts} ({d.reason})")
 
 
 # ---------------------------------------------------------------------------
 # torch reference formulations (the always-available fallback tier)
 # ---------------------------------------------------------------------------
 
+def _deq(params, w):
+    """The float operand the kernel-free tier contracts against: a
+    quantized leaf's values dequantized with its per-channel scale."""
+    if quant.SCALE_KEY in params:
+        return quant.dequantize(w, params[quant.SCALE_KEY])
+    return w
+
+
 def _torch_dense(x2, params, cfg):
-    return x2 @ params["w"].to(x2.dtype)
+    return x2 @ _deq(params, params["w"]).to(x2.dtype)
 
 
 def _torch_compressed(x2, params, cfg):
     meta = nm.unpack_meta(params["meta_packed"])
-    w = nm.decompress(params["values"], meta, cfg.n, cfg.m)
+    w = nm.decompress(_deq(params, params["values"]), meta, cfg.n, cfg.m)
     return x2 @ w.to(x2.dtype)
 
 
@@ -158,24 +178,26 @@ _TORCH_IMPL = {"dense": _torch_dense, "compressed": _torch_compressed}
 # Kernel adapters + registry entries
 # ---------------------------------------------------------------------------
 
-def _fit(b, ke, o, dtype) -> Optional[Blocks]:
-    """The kernels' tiling contract: bf16, K and O multiples of 64; the
-    row tile covers any batch (the ragged edge is masked in-kernel)."""
-    if dtype_name(dtype) != "bfloat16":
+def _fit(b, ke, o, dtype, storage) -> Optional[Blocks]:
+    """The kernels' tiling contract: the planned dtype is the kernel's own
+    (bf16 activations for the float kernels, int8 leaves for the int8
+    ones), K and O multiples of 64; the row tile covers any batch (the
+    ragged edge is masked in-kernel)."""
+    if dtype_name(dtype) != dtype_name(storage):
         return None
     if ke % _build.BLOCK_K or o % _build.BLOCK_O:
         return None
     return (_build.block_rows(b), _build.BLOCK_K, _build.BLOCK_O)
 
 
-def _fit_tile_gemm(b, ke, o, n, m, dtype):
-    return _fit(b, ke, o, dtype)
+def _fit_tile_gemm(b, ke, o, n, m, dtype, storage=torch.bfloat16):
+    return _fit(b, ke, o, dtype, storage)
 
 
-def _fit_nm_spmm(b, ke, o, n, m, dtype):
+def _fit_nm_spmm(b, ke, o, n, m, dtype, storage=torch.bfloat16):
     if m != 4 or n not in (1, 2, 4):
         return None   # the kernel fixes M=4 (the paper's detailed design)
-    return _fit(b, ke, o, dtype)
+    return _fit(b, ke, o, dtype, storage)
 
 
 def _epi_kwargs(epi: Optional[Epilogue]) -> Dict[str, Any]:
@@ -215,6 +237,70 @@ registry.register(KernelEntry(
 registry.register(KernelEntry(
     name="nm_spmm", mode="compressed", fit_blocks=_fit_nm_spmm,
     run=_run_nm_spmm, run_dual=_run_nm_spmm_dual))
+
+
+# --- the int8 class (w8a8): int8 leaves x per-row int8 activations into
+# an exact int32 accumulator, dequantized once at the flush.  The fits
+# accept only int8 storage, so float problems never land here and float
+# entries never see an int8 leaf.
+
+def _refuse_static(x2, *leaves) -> None:
+    """Static activation scales (an ``act_scale`` leaf, or activations
+    already narrow from a fused requantize) are the next slice."""
+    if quant.is_quantized_dtype(x2.dtype) or any(
+            quant.has_static_scales(p) for p in leaves):
+        raise NotImplementedError(
+            "static scales are not ported yet: repro_torch quantizes "
+            "activations dynamically per row (no act_scale leaves, float "
+            "activations)")
+
+
+def _w_scale(params):
+    return params[quant.SCALE_KEY].reshape(1, -1)
+
+
+# Each adapter quantizes its activations with the dynamic per-row absmax
+# pass (quantize_rows).  No row padding: the kernels mask the ragged edge.
+
+def _run_tile_gemm_int8(x2, params, cfg, blocks, epilogue=None):
+    from .tile_gemm.kernel import tile_gemm_int8
+    xq, xs = quant.quantize_rows(x2, torch.int8)
+    return tile_gemm_int8(xq, params["w"], xs, _w_scale(params), out_dtype=x2.dtype,
+                          block_b=blocks[0], **_epi_kwargs(epilogue))
+
+
+def _run_tile_gemm_dual_int8(x2, pg, pu, cfg, blocks):
+    from .tile_gemm.kernel import tile_gemm_dual_int8
+    # one x read, one quantize pass: the activations are shared
+    xq, xs = quant.quantize_rows(x2, torch.int8)
+    return tile_gemm_dual_int8(xq, pg["w"], pu["w"], xs, _w_scale(pg), _w_scale(pu),
+                               out_dtype=x2.dtype, block_b=blocks[0])
+
+
+def _run_nm_spmm_int8(x2, params, cfg, blocks, epilogue=None):
+    from .nm_spmm.kernel import nm_spmm_int8
+    xq, xs = quant.quantize_rows(x2, torch.int8)
+    return nm_spmm_int8(xq, params["values"], params["meta_packed"], xs, _w_scale(params),
+                        cfg.n, out_dtype=x2.dtype, block_b=blocks[0],
+                        **_epi_kwargs(epilogue))
+
+
+def _run_nm_spmm_dual_int8(x2, pg, pu, cfg, blocks):
+    from .nm_spmm.kernel import nm_spmm_dual_int8
+    xq, xs = quant.quantize_rows(x2, torch.int8)
+    return nm_spmm_dual_int8(xq, pg["values"], pg["meta_packed"], pu["values"],
+                             pu["meta_packed"], cfg.n, xs, _w_scale(pg), _w_scale(pu),
+                             out_dtype=x2.dtype, block_b=blocks[0])
+
+
+registry.register(KernelEntry(
+    name="tile_gemm_int8", mode="dense",
+    fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.int8),
+    run=_run_tile_gemm_int8, run_dual=_run_tile_gemm_dual_int8, quantized=True))
+registry.register(KernelEntry(
+    name="nm_spmm_int8", mode="compressed",
+    fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.int8),
+    run=_run_nm_spmm_int8, run_dual=_run_nm_spmm_dual_int8, quantized=True))
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +359,10 @@ def plan(problem: GemmProblem, *,
         return _fallback(ReasonCode.SRSTE_TRAINING)
     if backend == registry.REFERENCE_BACKEND:
         return _fallback(ReasonCode.BACKEND_JNP)
+    if p.dtype == torch.float8_e4m3fn:
+        raise NotImplementedError(
+            "the fp8 execution class is not ported yet: its leaves run on "
+            "the torch tier only (backend='torch')")
     if p.differentiating:
         return _fallback(ReasonCode.AUTODIFF)
     if p.b == 0:
@@ -293,18 +383,20 @@ def plan(problem: GemmProblem, *,
         reasons.render(ReasonCode.BLOCKS_FITTED), blocks_source="fitted",
         dtype=dt_name, epilogue=p.epilogue,
         epilogue_fused=epi_code is ReasonCode.EPILOGUE_FUSED,
-        reason_code=ReasonCode.BLOCKS_FITTED, epilogue_reason=epi_code)
+        reason_code=ReasonCode.BLOCKS_FITTED, epilogue_reason=epi_code,
+        act_scales="dynamic" if entry.quantized else None)
 
 
 def plan_for(params: Dict[str, Any], x_shape: Sequence[int], cfg, dtype=torch.float32,
              dispatch: Optional[DispatchConfig] = None) -> DispatchDecision:
-    """Planning convenience for launchers and reports: no execution."""
+    """Planning convenience for launchers and reports: no execution.  A
+    quantized leaf plans on its storage dtype, whatever ``dtype`` says."""
     mode = _mode_of(params, cfg)
     b = math.prod(x_shape[:-1]) if len(x_shape) > 1 else 1
     ke, o = _problem_dims(mode, params, x_shape[-1])
     device = _leaf_tensors(params)[0].device
     return plan(GemmProblem(mode, b=b, ke=ke, o=o, n=cfg.n, m=cfg.m,
-                            dtype=dtype, device=device),
+                            dtype=quant.quant_dtype(params) or dtype, device=device),
                 dispatch=dispatch)
 
 
@@ -333,9 +425,13 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
                          "route it through gate_up_matmul")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    _refuse_static(x2, params)
     ke, o = _problem_dims(mode, params, x2.shape[-1])
+    # the dtype axis of the plan: a quantized leaf's storage dtype (the
+    # weight operand selects the kernel), else the activations'
     decision = plan(GemmProblem(
-        mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=x2.dtype,
+        mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m,
+        dtype=quant.quant_dtype(params) or x2.dtype,
         differentiating=_under_autodiff(x2, *_leaf_tensors(params)),
         epilogue=epilogue.spec.point if epilogue is not None else None,
         device=x2.device), dispatch=dcfg)
@@ -356,9 +452,10 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                    epilogue: Optional[Epilogue] = None) -> torch.Tensor:
     """``silu(x @ Wg) * (x @ Wu)`` as ONE engine call.
 
-    When both leaves share mode and shape and the plan lands on a kernel,
-    one dual launch reads each activation tile once and applies silu*mul
-    to the two fp32 accumulators.  Otherwise the torch tier runs two
+    When both leaves share mode, shape and storage dtype and the plan
+    lands on a kernel, one dual launch reads each activation tile once
+    (int8: quantizes it once) and applies silu*mul to the two
+    accumulators in fp32.  Otherwise the torch tier runs two
     GEMMs and applies silu*mul to their results (rounded to the
     activation dtype first, as the JAX package's jnp tier does)."""
     dcfg = dispatch or _DEFAULT
@@ -370,12 +467,15 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
     mode_g, mode_u = _mode_of(params_g, cfg), _mode_of(params_u, cfg)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    _refuse_static(x2, params_g, params_u)
     ke, o = _problem_dims(mode_g, params_g, x2.shape[-1])
+    qdt = quant.quant_dtype(params_g)
     pair_ok = (mode_g == mode_u and mode_g in _TORCH_IMPL
-               and _problem_dims(mode_u, params_u, x2.shape[-1]) == (ke, o))
+               and _problem_dims(mode_u, params_u, x2.shape[-1]) == (ke, o)
+               and quant.quant_dtype(params_u) == qdt)
     if pair_ok:
         decision = plan(GemmProblem(
-            mode_g, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=x2.dtype,
+            mode_g, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=qdt or x2.dtype,
             differentiating=_under_autodiff(
                 x2, *_leaf_tensors(params_g), *_leaf_tensors(params_u)),
             epilogue=epilogue.spec.point, dual=True, device=x2.device),
@@ -441,7 +541,8 @@ def dispatch_report(params_tree, batches, cfg,
             mode = _mode_of(gleaf, cfg)
             ke = input_features(gleaf, cfg)
             _, o = _problem_dims(mode, gleaf, ke)
-            if _mode_of(uleaf, cfg) != mode or _problem_dims(mode, uleaf, ke) != (ke, o):
+            if (_mode_of(uleaf, cfg) != mode or _problem_dims(mode, uleaf, ke) != (ke, o)
+                    or _leaf_dtype(uleaf) != _leaf_dtype(gleaf)):
                 continue
             d = plan(GemmProblem(mode, b=batch, ke=ke, o=o, n=cfg.n, m=cfg.m,
                                  dtype=_leaf_dtype(gleaf), epilogue="silu_mul",

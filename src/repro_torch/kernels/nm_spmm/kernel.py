@@ -1,5 +1,7 @@
 """N:4 structured-sparse GEMM on Hopper: ``nm_spmm`` and the fused gate-up
-``nm_spmm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``).
+``nm_spmm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``), and their int8
+twins ``nm_spmm_int8`` and ``nm_spmm_dual_int8``
+(``kernels/csrc/gemm_int8.cu``).
 
 ``Y (B, O) = X (B, K_eff) @ dec(values (K_c, O), meta_packed (K_c/4, O))``
 with ``K_eff = K_c * 4 / n``.  The kernel expands each values tile into
@@ -7,8 +9,9 @@ the dense weight tile in shared memory; the dense weight never exists in
 device memory, so weight traffic is n/4 of dense plus 2 bits per kept
 value.
 
-Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125) and
-``::nm_spmm_dual`` (:437).  CUDA tensors launch the kernel or raise; CPU
+Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
+``::nm_spmm_dual`` (:437, float and int8 branches) and
+``::nm_spmm_int8`` (:506).  CUDA tensors launch the kernel or raise; CPU
 tensors take the plain version from ``ref.py``.  Launch counts live in
 ``.launches`` on each wrapper.
 """
@@ -21,10 +24,10 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import ACT_CODES, check_single_epilogue
-from .ref import nm_spmm_dual_ref, nm_spmm_ref
+from ..tile_gemm.kernel import ACT_CODES, _ptr, check_scales, check_single_epilogue
+from .ref import nm_spmm_dual_int8_ref, nm_spmm_dual_ref, nm_spmm_int8_ref, nm_spmm_ref
 
-__all__ = ["nm_spmm", "nm_spmm_dual"]
+__all__ = ["nm_spmm", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_dual_int8"]
 
 _N = (1, 2, 4)
 
@@ -80,11 +83,106 @@ def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
 nm_spmm.launches = 0
 
 
+def _check_int8(kernel: str, *tensors: torch.Tensor) -> None:
+    if any(t.dtype != torch.int8 for t in tensors):
+        raise ValueError(f"{kernel}: activations and values must be int8, got "
+                         f"{[str(t.dtype) for t in tensors]}")
+
+
+def nm_spmm_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+                 x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
+                 n: int, *, epilogue: Optional[EpilogueSpec] = None,
+                 bias: Optional[torch.Tensor] = None,
+                 out_dtype: torch.dtype = torch.float32,
+                 block_b: Optional[int] = None) -> torch.Tensor:
+    """``epilogue(float(Xq @ dec(values, meta)) * x_scale * w_scale)``: int8
+    values expanded on chip, contracted into an exact int32 accumulator,
+    dequantized once at the flush.  With no scales it returns the raw
+    int32 accumulator."""
+    epi = epilogue or EpilogueSpec()
+    b, ke = x_q.shape
+    o = _check_compressed("nm_spmm_int8", ke, values, meta_packed, n)
+    raw = check_scales("nm_spmm_int8", b, o, x_scale, w_scale)
+    if raw and not epi.is_identity:
+        raise ValueError("nm_spmm_int8: the raw accumulator takes no epilogue")
+    check_single_epilogue("nm_spmm_int8", epi, bias, o)
+    _check_int8("nm_spmm_int8", x_q, values)
+    if x_q.device.type == "cpu":
+        return nm_spmm_int8_ref(x_q, values, meta_packed, x_scale, w_scale, n,
+                                epilogue=epi, bias=bias, out_dtype=out_dtype)
+    bb = block_b or _build.block_rows(b)
+    kind = _build.out_kind("nm_spmm_int8", out_dtype, raw)
+    bias32 = None if bias is None else bias.float().contiguous()
+    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    _build.check_operands("nm_spmm_int8", x_q, values, meta_packed, *extra, block_b=bb,
+                          x_dtype=torch.int8)
+    _build.check_tiles("nm_spmm_int8", ke, o)
+    y = torch.empty((b, o), dtype=torch.int32 if raw else out_dtype, device=x_q.device)
+    lib = _build.library("gemm_int8.cu")
+    with torch.cuda.device(x_q.device):
+        rc = lib.vg_nm_spmm_int8(
+            x_q.data_ptr(), values.data_ptr(), meta_packed.data_ptr(), _ptr(x_scale),
+            _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act],
+            kind, bb, _build.stream_of(x_q))
+    nm_spmm_int8.launches += 1
+    _build.check(rc, "nm_spmm_int8", lib)
+    return y
+
+
+nm_spmm_int8.launches = 0
+
+
+def nm_spmm_dual_int8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
+                      values_u: torch.Tensor, meta_u: torch.Tensor, n: int,
+                      x_scale: torch.Tensor, wg_scale: torch.Tensor, wu_scale: torch.Tensor,
+                      *, out_dtype: torch.dtype = torch.float32,
+                      block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused int8 gate-up over two compressed weights sharing one X read:
+    ``silu(deq(Xq @ dec(g))) * deq(Xq @ dec(u))``."""
+    b, ke = x_q.shape
+    o = _check_compressed("nm_spmm_dual_int8", ke, values_g, meta_g, n)
+    if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:
+        raise ValueError("nm_spmm_dual_int8: gate and up layouts must match")
+    if check_scales("nm_spmm_dual_int8", b, o, x_scale, wg_scale, wu_scale):
+        raise ValueError("nm_spmm_dual_int8: the dual kernel needs its three scales")
+    _check_int8("nm_spmm_dual_int8", x_q, values_g, values_u)
+    if x_q.device.type == "cpu":
+        return nm_spmm_dual_int8_ref(x_q, values_g, meta_g, values_u, meta_u, n, x_scale,
+                                     wg_scale, wu_scale, out_dtype=out_dtype)
+    bb = block_b or _build.block_rows(b)
+    kind = _build.out_kind("nm_spmm_dual_int8", out_dtype, False)
+    _build.check_operands("nm_spmm_dual_int8", x_q, values_g, meta_g, values_u, meta_u,
+                          x_scale, wg_scale, wu_scale, block_b=bb, x_dtype=torch.int8)
+    _build.check_tiles("nm_spmm_dual_int8", ke, o)
+    y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    lib = _build.library("gemm_int8.cu")
+    with torch.cuda.device(x_q.device):
+        rc = lib.vg_nm_spmm_dual_int8(
+            x_q.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(), values_u.data_ptr(),
+            meta_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
+            y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
+    nm_spmm_dual_int8.launches += 1
+    _build.check(rc, "nm_spmm_dual_int8", lib)
+    return y
+
+
+nm_spmm_dual_int8.launches = 0
+
+
 def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
-                 values_u: torch.Tensor, meta_u: torch.Tensor, n: int, *,
+                 values_u: torch.Tensor, meta_u: torch.Tensor, n: int,
+                 x_scale: Optional[torch.Tensor] = None,
+                 wg_scale: Optional[torch.Tensor] = None,
+                 wu_scale: Optional[torch.Tensor] = None, *,
+                 out_dtype: torch.dtype = torch.float32,
                  block_b: Optional[int] = None) -> torch.Tensor:
     """Fused gate-up over two compressed weights sharing one X read:
-    ``silu(X @ dec(g)) * (X @ dec(u))``."""
+    ``silu(X @ dec(g)) * (X @ dec(u))`` in X's dtype.  Given the three
+    scales, the int8 branch: :func:`nm_spmm_dual_int8` (``out_dtype`` is
+    that branch's output dtype)."""
+    if x_scale is not None or wg_scale is not None or wu_scale is not None:
+        return nm_spmm_dual_int8(x, values_g, meta_g, values_u, meta_u, n, x_scale,
+                                 wg_scale, wu_scale, out_dtype=out_dtype, block_b=block_b)
     b, ke = x.shape
     o = _check_compressed("nm_spmm_dual", ke, values_g, meta_g, n)
     if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:

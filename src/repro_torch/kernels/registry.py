@@ -53,6 +53,9 @@ class KernelEntry:
     ``run(x2d, params, cfg, blocks, epilogue=None)`` executes it;
     ``run_dual(x2d, params_g, params_u, cfg, blocks)`` is the fused
     gate-up variant (entries without one decline dual plans).
+    ``quantized`` entries take quantized leaves (their ``fit_blocks``
+    accepts only their storage dtype) and quantize the activations
+    themselves.
     """
 
     name: str
@@ -61,6 +64,7 @@ class KernelEntry:
     run: Callable[..., torch.Tensor]
     backends: Tuple[str, ...] = KERNEL_BACKENDS
     run_dual: Optional[Callable[..., torch.Tensor]] = None
+    quantized: bool = False
 
 
 _REGISTRY: Dict[str, List[KernelEntry]] = {}

@@ -1,7 +1,14 @@
 """Plain PyTorch versions of the tile_gemm kernels, in the kernels' own
 formulation: fp32 accumulation, the epilogue in fp32, one cast to the
 activation dtype.  (The torch dispatch tier's gate-up rounds g and u to
-the activation dtype before silu*mul; the dual kernel does not.)"""
+the activation dtype before silu*mul; the dual kernel does not.)
+
+The int8 versions contract int8 x int8 exactly: in float64, where every
+partial sum (|acc| <= 127^2 * K < 2^53) is an integer, then cast to
+int32.  ``torch.matmul`` takes no integer tensors on CUDA, so the card
+and the CPU share this formulation.  The flush then runs the JAX
+kernels' order: ``float(acc) * x_scale * w_scale`` left to right in
+fp32, the epilogue, one cast."""
 
 from __future__ import annotations
 
@@ -26,3 +33,36 @@ def tile_gemm_dual_ref(x: torch.Tensor, w_g: torch.Tensor,
     xf = x.float()
     return flush_tile(xf @ w_g.float(), _SILU_MUL, x.dtype,
                       acc2_32=xf @ w_u.float())
+
+
+def int8_accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 accumulator of ``x_q (B, K) @ w_q (K, O)``, int8."""
+    return (x_q.double() @ w_q.double()).to(torch.int32)
+
+
+def dequant_acc(acc: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """``float(acc) * x_scale (B, 1) * w_scale (1, O)``, left to right."""
+    return acc.float() * x_scale * w_scale
+
+
+def tile_gemm_int8_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                       x_scale: Optional[torch.Tensor] = None,
+                       w_scale: Optional[torch.Tensor] = None, *,
+                       epilogue: Optional[EpilogueSpec] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    acc = int8_accumulate(x_q, w_q)
+    if x_scale is None:
+        return acc
+    return flush_tile(dequant_acc(acc, x_scale, w_scale), epilogue or EpilogueSpec(),
+                      out_dtype, bias=bias)
+
+
+def tile_gemm_dual_int8_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
+                            x_scale: torch.Tensor, wg_scale: torch.Tensor,
+                            wu_scale: torch.Tensor, *,
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return flush_tile(dequant_acc(int8_accumulate(x_q, w_g), x_scale, wg_scale),
+                      _SILU_MUL, out_dtype,
+                      acc2_32=dequant_acc(int8_accumulate(x_q, w_u), x_scale, wu_scale))

@@ -2,18 +2,24 @@
 ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch internlm2_1_8b [--smoke] \
-        [--sparsity 2:4 --mode dense|compressed] \
+        [--sparsity 2:4 --mode dense|compressed] [--quantize int8] \
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
         [--block-len 8] [--kv-blocks N] [--admission reserve|optimistic] \
         [--prefill-chunk 8] [--rate 1.0] [--seed 0]
+    python -m repro_torch.launch.serve --artifact DIR [--kernel-backend ...]
 
 It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
 weights from a seeded ``torch.Generator`` on the device, runs
-:func:`repro_torch.serving.prepare`, and hands the result to
-:class:`repro_torch.serving.Engine` over a seeded Poisson trace.  It runs
-on the CUDA device unless ``--device cpu`` is given, and fails when no
-CUDA device is present.  The report lines are the JAX launcher's.
+:func:`repro_torch.serving.prepare` (``--quantize int8`` quantizes every
+linear per output channel), and hands the result to
+:class:`repro_torch.serving.Engine` over a seeded Poisson trace.  With
+``--artifact`` it serves a converted checkpoint (``python -m
+repro.launch.convert``) instead: the manifest supplies the config and the
+spec, so the layout and quantize flags are ignored and only the backend
+overrides.  It runs on the CUDA device unless ``--device cpu`` is given,
+and fails when no CUDA device is present.  The report lines are the JAX
+launcher's.
 """
 
 from __future__ import annotations
@@ -23,10 +29,18 @@ import argparse
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--artifact", default=None, metavar="ARTIFACT_DIR",
+                    help="serve a converted checkpoint artifact instead of random "
+                         "init; its manifest supplies the config and ServingSpec "
+                         "(layout/quantize flags are ignored, --kernel-backend "
+                         "still overrides)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--sparsity", default=None)
     ap.add_argument("--mode", default="compressed", choices=["dense", "compressed"])
+    ap.add_argument("--quantize", default=None, choices=["int8"],
+                    help="quantize every linear's values to int8 with per-channel "
+                         "scales (w8a8: activations are quantized per row)")
     ap.add_argument("--kernel-backend", default="auto", choices=["auto", "cuda", "torch"],
                     help="dispatch-engine backend override")
     ap.add_argument("--device", default=None,
@@ -45,6 +59,8 @@ def main(argv=None):
                     help="Poisson arrival rate (requests per scheduler iteration)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if not args.arch and not args.artifact:
+        ap.error("need --arch (random init) or --artifact (converted checkpoint)")
 
     import torch
 
@@ -52,24 +68,34 @@ def main(argv=None):
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import init_params
 
-    sparsity = tuple(map(int, args.sparsity.split(":"))) if args.sparsity else None
-    spec = serving.ServingSpec(
-        layout=args.mode, sparsity=sparsity, backend=args.kernel_backend,
-        slots=args.batch, max_len=args.max_len, block_len=args.block_len,
-        kv_blocks=args.kv_blocks, admission=args.admission,
-        prefill_chunk=args.prefill_chunk)
     device = serving.resolve_device(args.device)
-    base = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = spec.apply_to(base)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    with torch.inference_mode():
-        params = init_params(gen, cfg, device=device)
-        prepared = serving.prepare(params, spec, cfg=cfg, device=device)
-    del params
+    if args.artifact:
+        backend = args.kernel_backend if args.kernel_backend != "auto" else None
+        with torch.inference_mode():
+            prepared = serving.prepare_from_artifact(args.artifact, backend=backend,
+                                                     device=device)
+        spec, cfg = prepared.spec, prepared.cfg
+        print(f"artifact {args.artifact}: config {cfg.name}, spec "
+              f"{spec.layout}/{spec.sparsity}/{spec.qdtype}")
+    else:
+        sparsity = tuple(map(int, args.sparsity.split(":"))) if args.sparsity else None
+        spec = serving.ServingSpec(
+            layout=args.mode, sparsity=sparsity, qdtype=args.quantize,
+            backend=args.kernel_backend, slots=args.batch, max_len=args.max_len,
+            block_len=args.block_len, kv_blocks=args.kv_blocks,
+            admission=args.admission, prefill_chunk=args.prefill_chunk)
+        base = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        cfg = spec.apply_to(base)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        with torch.inference_mode():
+            params = init_params(gen, cfg, device=device)
+            prepared = serving.prepare(params, spec, cfg=cfg, device=device)
+        del params
     nbytes = sum(t.numel() * t.element_size() for t in _tensors(prepared.params))
-    sp_str = f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense"
-    print(f"serving {cfg.name}: {nbytes / 1e6:.1f} MB weights ({sp_str}/{spec.layout}) "
-          f"on {device}")
+    sp_str = f"{spec.sparsity[0]}:{spec.sparsity[1]}" if spec.sparsity else "dense"
+    q_str = f"/{spec.qdtype}" if spec.qdtype else ""
+    print(f"serving {cfg.name}: {nbytes / 1e6:.1f} MB weights "
+          f"({sp_str}/{spec.layout}{q_str}) on {device}")
     print("dispatch engine plan:")
     for line in prepared.dispatch_report():
         print(line)

@@ -17,7 +17,8 @@ report = serving.Engine(prepared).run(serving.make_poisson_trace(seed=0))
 
 from .engine import Engine, RequestStats, ServingReport, percentile
 from .scheduler import PagedScheduler, Request
-from .spec import Prepared, ServingSpec, prepare, resolve_device
+from .spec import (Prepared, ServingSpec, config_from_manifest, prepare,
+                   prepare_from_artifact, resolve_device, spec_from_manifest)
 from .traffic import make_poisson_trace
 
 __all__ = [
@@ -28,8 +29,11 @@ __all__ = [
     "RequestStats",
     "ServingReport",
     "ServingSpec",
+    "config_from_manifest",
     "make_poisson_trace",
     "percentile",
     "prepare",
+    "prepare_from_artifact",
     "resolve_device",
+    "spec_from_manifest",
 ]

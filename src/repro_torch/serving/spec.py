@@ -1,16 +1,21 @@
 """``ServingSpec`` + ``prepare``: the one offline-prep entry point (port of
-``repro.serving.spec`` for the float dense and compressed layouts).
+``repro.serving.spec`` for the dense and compressed layouts, float or
+int8).
 
 ```python
 prepared = repro_torch.serving.prepare(params, ServingSpec(layout="compressed",
-                                                           sparsity=(2, 4)))
+                                                           sparsity=(2, 4),
+                                                           qdtype="int8"))
 ```
 
-moves the params to the device and converts every linear leaf to the
-spec's layout.  Serving runs on the card: ``device=None`` means
-``"cuda"``, and without a CUDA device ``prepare`` raises rather than
-drop to the CPU; tests pass ``device="cpu"``.  Quantization, static
-scales and mesh placement are not ported yet.
+moves the params to the device, converts every linear leaf to the spec's
+layout, then quantizes it (``qdtype``).  :func:`prepare_from_artifact`
+stands a model up from a conversion artifact instead.  Serving runs on
+the card: ``device=None`` means ``"cuda"``, and without a CUDA device
+``prepare`` raises rather than drop to the CPU; tests pass
+``device="cpu"``.  The fp8 class, static activation scales, KV-cache
+quantization, mesh placement and autotuning are not ported yet: a spec
+or a manifest asking for one raises.
 """
 
 from __future__ import annotations
@@ -18,15 +23,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 _LAYOUTS = ("dense", "compressed")
 _ADMISSION = ("reserve", "optimistic")
 _BACKENDS = ("auto", "cuda", "torch")
+_QDTYPES = (None, "int8")
 
-__all__ = ["ServingSpec", "Prepared", "prepare", "resolve_device"]
+__all__ = ["ServingSpec", "Prepared", "prepare", "prepare_from_artifact",
+           "resolve_device", "config_from_manifest", "spec_from_manifest"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,14 +51,16 @@ class ServingSpec:
     """Frozen description of how a model serves.
 
     Offline-prep axes: ``layout`` (``dense | compressed``), ``sparsity``
-    (``(n, m)`` or None for dense 4:4), ``backend`` (dispatch engine:
-    ``auto | cuda | torch``).  Engine axes: ``slots``, ``max_len``,
-    ``block_len``, ``kv_blocks``, ``admission``, ``prefill_chunk``, as in
-    the JAX package.
+    (``(n, m)`` or None for dense 4:4), ``qdtype`` (weight quantization:
+    ``"int8"`` or None; ``"fp8"`` is not ported yet), ``backend``
+    (dispatch engine: ``auto | cuda | torch``).  Engine axes: ``slots``,
+    ``max_len``, ``block_len``, ``kv_blocks``, ``admission``,
+    ``prefill_chunk``, as in the JAX package.
     """
 
     layout: str = "dense"
     sparsity: Optional[Tuple[int, int]] = None
+    qdtype: Optional[str] = None
     backend: str = "auto"
     slots: int = 4
     max_len: int = 64
@@ -67,6 +76,11 @@ class ServingSpec:
             raise ValueError(f"admission {self.admission!r} not in {_ADMISSION}")
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
+        if self.qdtype not in _QDTYPES:
+            from ..core.quantize import canonical_qdtype
+            canonical_qdtype(self.qdtype)      # raises on unknown targets
+            raise NotImplementedError(
+                f"qdtype {self.qdtype!r} is not ported yet (ported: int8)")
         if self.sparsity is not None:
             n, m = self.sparsity
             if not (0 < n <= m):
@@ -138,10 +152,14 @@ def _to_device(tree, device: torch.device):
 
 def prepare(params, spec: ServingSpec, *, cfg=None, device=None) -> Prepared:
     """Prepare a params tree for serving under ``spec``: move it to the
-    device (CUDA unless ``device`` says otherwise), then convert every
-    dense linear leaf to ``spec.layout``
-    (:func:`repro_torch.core.sparse_linear.convert_layout`); leaves
-    already in a serving layout pass through.
+    device (CUDA unless ``device`` says otherwise), then, per linear leaf,
+
+    1. **layout conversion**: a dense ``{"w"}`` leaf becomes
+       ``spec.layout`` (:func:`repro_torch.core.sparse_linear.convert_layout`);
+       leaves already in a serving layout pass through;
+    2. **weight quantization**: ``spec.qdtype`` quantizes the layout's
+       float operand with per-channel scales (idempotent, so an
+       artifact's int8 leaves pass through).
 
     ``params`` may be a full model tree (pass ``cfg``) or a bare layout
     leaf / small tree with ``cfg=None``."""
@@ -150,7 +168,68 @@ def prepare(params, spec: ServingSpec, *, cfg=None, device=None) -> Prepared:
 
     dev = resolve_device(device)
     sp_cfg = cfg.sparsity if cfg is not None else spec.sparsity_config
-    params = map_linear_leaves(_to_device(params, dev),
-                               lambda leaf: convert_layout(leaf, sp_cfg, spec.layout))
+    params = map_linear_leaves(
+        _to_device(params, dev),
+        lambda leaf: convert_layout(leaf, sp_cfg, spec.layout, quantize=spec.qdtype))
     return Prepared(params=params, spec=spec, device=dev, cfg=cfg, sp_cfg=sp_cfg,
                     dispatch=kdispatch.DispatchConfig(backend=spec.backend))
+
+
+# manifest spec keys of the JAX package that the port does not have yet,
+# with the only value it accepts for each (the JAX default)
+_UNPORTED_SPEC_KEYS = {"static_scales": False, "kv_qdtype": None, "mesh": None,
+                       "autotune": False}
+
+
+def config_from_manifest(manifest: Dict[str, Any]):
+    """The model config an artifact (or audit) manifest names: its
+    ``config`` block's arch, smoke flag and field overrides (the JAX
+    package's ``analysis.budget.config_from_manifest``)."""
+    from ..configs import get_config, get_smoke_config
+
+    mc = manifest["config"]
+    cfg = get_smoke_config(mc["arch"]) if mc.get("smoke", True) else get_config(mc["arch"])
+    if mc.get("overrides"):
+        cfg = dataclasses.replace(cfg, **mc["overrides"])
+    return cfg
+
+
+def spec_from_manifest(manifest: Dict[str, Any]) -> ServingSpec:
+    """The :class:`ServingSpec` of a manifest's ``spec`` block.  Keys the
+    port has no axis for yet are accepted at their defaults and refused
+    otherwise."""
+    d = dict(manifest["spec"])
+    for key, default in _UNPORTED_SPEC_KEYS.items():
+        value = d.pop(key, default)
+        if value != default:
+            raise NotImplementedError(
+                f"manifest spec {key}={value!r} is not ported yet "
+                f"(repro_torch serves only {key}={default!r})")
+    if d.get("sparsity") is not None:
+        d["sparsity"] = tuple(d["sparsity"])
+    return ServingSpec(**d)
+
+
+def prepare_from_artifact(path, *, backend: Optional[str] = None,
+                          device=None) -> Prepared:
+    """Load a conversion artifact (``python -m repro.launch.convert``)
+    and stand it up for serving.
+
+    The manifest is the recipe: the model config rebuilds from its
+    ``config`` block, the :class:`ServingSpec` from its ``spec`` block,
+    and the params come back already pruned, compressed and quantized,
+    so :func:`prepare` runs as an idempotent pass.  The artifact's
+    stacked ``stages`` tree is unstacked into the port's per-layer list
+    (:func:`repro_torch.interop.params_from_numpy`).  ``backend``
+    overrides the spec's dispatch backend; ``device`` is as for
+    :func:`prepare`."""
+    from ..checkpoint import load_artifact
+    from ..interop import params_from_numpy
+
+    params, manifest = load_artifact(path)
+    cfg = config_from_manifest(manifest)
+    spec = spec_from_manifest(manifest)
+    if backend is not None:
+        spec = dataclasses.replace(spec, backend=backend)
+    cfg = spec.apply_to(cfg)
+    return prepare(params_from_numpy(params), spec, cfg=cfg, device=device)

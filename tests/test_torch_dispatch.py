@@ -8,6 +8,11 @@ covers.  Backends map ``interpret`` -> ``cuda`` (kernels; CPU tensors run
 their plain versions) and ``jnp`` -> ``torch``.  Where the port's Hopper
 tiling contract differs from the TPU kernels' (bf16 only; K and O
 multiples of 64) the port declines with NO_KERNEL_FITS, pinned below.
+
+Quantized (int8) leaves plan on their storage dtype in both packages:
+the same int8 entries (``tile_gemm_int8``, ``nm_spmm_int8``), the same
+``act-scales=dynamic`` annotation, and the torch tier dequantizes the
+weight exactly as the jnp tier's ``_deq`` does.
 """
 
 import re
@@ -33,7 +38,8 @@ from torch_parity import assert_scaled_close, jnp_dtype, port_params
 
 BACKENDS = {"interpret": "cuda", "jnp": "torch"}
 NAMES = {jd.JNP_REFERENCE: td.TORCH_REFERENCE, "tile_gemm": "tile_gemm",
-         "nm_spmm": "nm_spmm"}
+         "nm_spmm": "nm_spmm", "tile_gemm_int8": "tile_gemm_int8",
+         "nm_spmm_int8": "nm_spmm_int8"}
 
 # (mode, b, ke, o, n, dtype, extra GemmProblem fields, JAX backend)
 PLAN_CASES = [
@@ -53,6 +59,17 @@ PLAN_CASES = [
     ("compressed", 64, 256, 128, 1, "bfloat16",
      {"epilogue": "silu_mul", "dual": True}, "interpret"),
     ("dense", 16, 128, 64, 4, "float32", {"epilogue": "silu"}, "jnp"),
+    # the int8 class: planned on the leaf's storage dtype
+    ("dense", 8, 128, 64, 4, "int8", {}, "interpret"),
+    ("compressed", 8, 128, 64, 2, "int8", {}, "interpret"),
+    ("compressed", 37, 256, 128, 1, "int8", {}, "interpret"),
+    ("dense", 64, 2048, 2048, 4, "int8", {"epilogue": "bias+gelu"}, "interpret"),
+    ("compressed", 8, 128, 128, 2, "int8", {"epilogue": "silu_mul", "dual": True},
+     "interpret"),
+    ("dense", 8, 128, 128, 4, "int8", {"epilogue": "silu_mul", "dual": True},
+     "interpret"),
+    ("compressed", 8, 128, 64, 2, "int8", {}, "jnp"),
+    ("dense", 8, 128, 64, 4, "int8", {"differentiating": True}, "interpret"),
 ]
 
 
@@ -86,6 +103,7 @@ def test_plan_matches_reference(case):
     assert got.epilogue_fused == want.epilogue_fused
     assert got.blocks_source == want.blocks_source
     assert got.dtype == want.dtype
+    assert got.act_scales == want.act_scales
     if got.uses_kernel:
         assert got.backend == BACKENDS[want.backend]
         # same report line up to the backend name and the (Hopper) blocks
@@ -220,3 +238,101 @@ def test_dispatch_report_walks_the_same_sites():
     assert [site.match(g).group(1) for g in got] == \
         [site.match(w).group(1) for w in want]
     assert all("torch-reference (backend=torch)" in g for g in got)
+
+
+# ------------------------------------------------------------ int8 class
+def _q_linear(mode, n, k, o, seed=0):
+    """A JAX int8 leaf (convert_layout(..., quantize="int8")) and its port."""
+    from repro.core.sparse_linear import convert_layout as j_convert
+    jcfg, jp, tcfg, _ = _linear("dense", 4, k, o, "float32", seed)
+    jcfg = JSp(n=n, m=4, mode=mode)
+    jq = j_convert(jp, jcfg, mode, quantize="int8")
+    return jcfg, jq, TSp(n=n, m=4, mode=mode), port_params(jq)
+
+
+def test_float_entries_never_see_an_int8_leaf():
+    for mode, n in (("dense", 4), ("compressed", 2)):
+        sel = treg.select(mode, b=8, ke=128, o=64, n=n, m=4, dtype=torch.int8,
+                          backend="cuda")
+        assert sel is not None and sel[0].name.endswith("_int8") and sel[0].quantized
+        sel = treg.select(mode, b=8, ke=128, o=64, n=n, m=4, dtype=torch.bfloat16,
+                          backend="cuda")
+        assert not sel[0].quantized
+
+
+@pytest.mark.parametrize("mode,n", [("dense", 4), ("compressed", 2), ("compressed", 1)])
+def test_int8_torch_tier_dequantizes_like_the_jnp_tier(mode, n):
+    """The reference tiers: dequantized weight, float activations."""
+    jcfg, jq, tcfg, tq = _q_linear(mode, n, 128, 64)
+    assert tq[("w" if mode == "dense" else "values")].dtype == torch.int8
+    x = np.random.default_rng(3).standard_normal((2, 3, 128)).astype(np.float32)
+    with jd.use_dispatch(backend="jnp"):
+        want = j_apply_linear(jq, jnp.asarray(x), jcfg)
+    with td.use_dispatch(backend="torch"):
+        got = apply_linear(tq, torch.from_numpy(x), tcfg)
+    assert_scaled_close(got, want, 1e-5)
+    key = "w" if mode == "dense" else "values"
+    np.testing.assert_array_equal(td._deq(tq, tq[key]).numpy(),
+                                  np.asarray(jd._deq(jq, jq[key])))
+
+
+@pytest.mark.parametrize("mode,n", [("dense", 4), ("compressed", 2), ("compressed", 1)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-6), ("bfloat16", 1e-2)])
+def test_int8_kernel_path_matches_interpret(mode, n, dtype, tol):
+    """w8a8 through the engine: quantize the rows, the int8 kernel (plain
+    version on CPU tensors) against the JAX Pallas int8 kernel."""
+    jcfg, jq, tcfg, tq = _q_linear(mode, n, 256, 128)
+    x = np.random.default_rng(4).standard_normal((5, 256)).astype(np.float32)
+    with jd.use_dispatch(backend="interpret"):
+        want = j_apply_linear(jq, jnp.asarray(x).astype(jnp_dtype(dtype)), jcfg)
+    with td.use_dispatch(backend="cuda"):
+        got = apply_linear(tq, torch.from_numpy(x).to(getattr(torch, dtype)), tcfg)
+    assert got.dtype == getattr(torch, dtype)
+    assert_scaled_close(got, want, tol)
+
+
+@pytest.mark.parametrize("mode,n", [("dense", 4), ("compressed", 2)])
+def test_int8_gate_up_runs_one_dual_launch(mode, n, monkeypatch):
+    from repro.core.sparse_linear import apply_gate_up as j_apply_gate_up
+    import repro_torch.kernels.nm_spmm.kernel as nm_kernel
+    import repro_torch.kernels.tile_gemm.kernel as tg_kernel
+
+    jcfg, jg, tcfg, tg = _q_linear(mode, n, 128, 128, seed=0)
+    _, ju, _, tu = _q_linear(mode, n, 128, 128, seed=1)
+    x = np.random.default_rng(5).standard_normal((8, 128)).astype(np.float32)
+    with jd.use_dispatch(backend="interpret"):
+        want = j_apply_gate_up(jg, ju, jnp.asarray(x), jcfg)
+    mod, name = ((tg_kernel, "tile_gemm_dual_int8") if mode == "dense"
+                 else (nm_kernel, "nm_spmm_dual_int8"))
+    calls, real = [], getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    with td.use_dispatch(backend="cuda"):
+        got = apply_gate_up(tg, tu, torch.from_numpy(x), tcfg)
+    assert calls == [1]
+    assert_scaled_close(got, want, 2e-6)
+
+
+def test_int8_refusals():
+    """What the slice does not port raises instead of running quietly."""
+    _, _, tcfg, tq = _q_linear("compressed", 2, 128, 64)
+    x = torch.randn(4, 128)
+    with pytest.raises(NotImplementedError, match="static scales"):
+        apply_linear({**tq, "act_scale": torch.tensor(0.1)}, x, tcfg)
+    with pytest.raises(NotImplementedError, match="static scales"):
+        apply_linear(tq, x.to(torch.int8), tcfg)
+    fp8 = {**tq, "values": tq["values"].float().to(torch.float8_e4m3fn)}
+    with td.use_dispatch(backend="cuda"), pytest.raises(NotImplementedError, match="fp8"):
+        apply_linear(fp8, x, tcfg)
+    with td.use_dispatch(backend="torch"):      # the torch tier dequantizes fp8
+        assert apply_linear(fp8, x, tcfg).shape == (4, 64)
+
+
+def test_int8_dispatch_report_prints_the_storage_dtype():
+    from repro_torch.core.quantize import quantize_tree
+    _, _, tcfg, tp = _linear("compressed", 2, 128, 128, "bfloat16")
+    _, _, _, tu = _linear("compressed", 2, 128, 128, "bfloat16", seed=1)
+    tree = quantize_tree({"ffn": {"w_gate": tp, "w_in": tu}}, "int8")
+    lines = td.dispatch_report(tree, (8,), tcfg, dispatch=td.DispatchConfig(backend="cuda"))
+    assert len(lines) == 2 and all("nm_spmm_int8[cuda]" in ln and "dtype=int8" in ln
+                                   and "act-scales=dynamic" in ln for ln in lines)
+    assert "gate-up" in lines[-1] and "silu_mul[fused]" in lines[-1]

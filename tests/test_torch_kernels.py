@@ -1,4 +1,4 @@
-"""The port's four kernels against the JAX package's Pallas kernels.
+"""The port's kernels against the JAX package's Pallas kernels.
 
 On this CPU-only machine each wrapper, handed CPU tensors, runs its plain
 version (fp32 accumulation, epilogue in fp32, one cast); that is held to
@@ -7,8 +7,15 @@ Tolerances, scaled by max |reference| as in tests/test_kernels.py:
 fp32 <= 2e-6 (summation order only); bf16 inputs <= 1e-2 (one bf16
 rounding of the output, in different places in the two frameworks).
 
+The int8 kernels: raw int32 accumulators bitwise equal to the Pallas
+interpret kernels; scaled outputs within 2e-6 (fp32) / 1e-2 (bf16) —
+in practice bitwise too, since the flush repeats the same fp32 ops.
+
 The ``cuda`` tests hold each CUDA kernel against its plain version on
-the card and skip without one.
+the card and skip without one: int8 raw and scaled single-GEMM outputs
+bitwise (the accumulator is exact, the flush the same fp32 ops), the
+int8 duals within 1e-2 (silu's exp differs between the kernel and
+torch).
 """
 
 import types
@@ -21,10 +28,15 @@ from repro_torch import kernels
 from repro_torch.core import nm as tnm
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import EpilogueSpec
-from repro_torch.kernels.nm_spmm.kernel import nm_spmm, nm_spmm_dual
-from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_ref, nm_spmm_ref
-from repro_torch.kernels.tile_gemm.kernel import tile_gemm, tile_gemm_dual
-from repro_torch.kernels.tile_gemm.ref import tile_gemm_dual_ref, tile_gemm_ref
+from repro_torch.core.quantize import quantize_linear, quantize_per_channel, quantize_rows
+from repro_torch.kernels.nm_spmm.kernel import (nm_spmm, nm_spmm_dual, nm_spmm_dual_int8,
+                                                nm_spmm_int8)
+from repro_torch.kernels.nm_spmm.ref import (nm_spmm_dual_int8_ref, nm_spmm_dual_ref,
+                                             nm_spmm_int8_ref, nm_spmm_ref)
+from repro_torch.kernels.tile_gemm.kernel import (tile_gemm, tile_gemm_dual,
+                                                  tile_gemm_dual_int8, tile_gemm_int8)
+from repro_torch.kernels.tile_gemm.ref import (tile_gemm_dual_int8_ref, tile_gemm_dual_ref,
+                                               tile_gemm_int8_ref, tile_gemm_ref)
 from torch_parity import (assert_scaled_close, cuda_device, from_np,  # noqa: F401
                           jnp_dtype)
 
@@ -122,6 +134,111 @@ def test_nm_spmm_dual_plain_matches_pallas(ref, n, dtype):
     assert_scaled_close(got, want, TOL[dtype])
 
 
+# ------------------------------------------------------------ int8 class
+def _q_inputs(seed, b, k, o, n=4, pairs=1):
+    """Quantized operands as numpy: x_q (B, K) int8 + x_scale (B, 1), and
+    per weight either w_q (K, O) (n=4) or (values, meta) at n:4, plus its
+    (1, O) scale.  Weights are pruned and compressed before quantizing,
+    as ``convert_layout(..., quantize="int8")`` does."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    x[-1] = 0.0                       # an idle slot: the floored scale
+    xq, xs = quantize_rows(torch.from_numpy(x))
+    ws = []
+    for _ in range(pairs):
+        w = torch.from_numpy(rng.standard_normal((k, o)).astype(np.float32) * k ** -0.5)
+        if n == 4:
+            leaf = quantize_linear({"w": w})
+            ws.append((leaf["w"].numpy(), None, leaf["scale"].reshape(1, -1).numpy()))
+        else:
+            c = tnm.compress_nm(tnm.prune_nm(w, n, 4)[0], n, 4)
+            leaf = quantize_linear({"values": c.values, "meta_packed": tnm.pack_meta(c.meta)})
+            ws.append((leaf["values"].numpy(), leaf["meta_packed"].numpy(),
+                       leaf["scale"].reshape(1, -1).numpy()))
+    return xq.numpy(), xs.numpy(), ws
+
+
+def _j(ref, *arrays):
+    return [None if a is None else ref.jnp.asarray(a) for a in arrays]
+
+
+def _t(*arrays):
+    return [None if a is None else torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("n", [4, 2, 1])
+def test_int8_raw_accumulator_bitwise_equals_pallas(ref, n):
+    from repro.kernels.nm_spmm.kernel import nm_spmm_int8 as j_nm
+    from repro.kernels.tile_gemm.kernel import tile_gemm_int8 as j_tile
+    xq, _, [(w, meta, _)] = _q_inputs(7, B, K, O, n)
+    if n == 4:
+        want = j_tile(*_j(ref, xq, w), interpret=True)
+        got = tile_gemm_int8(*_t(xq, w))
+    else:
+        want = j_nm(*_j(ref, xq, w, meta), None, None, n, interpret=True)
+        got = nm_spmm_int8(*_t(xq, w, meta), None, None, n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [4, 2, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,bias", EPILOGUES)
+def test_int8_scaled_plain_matches_pallas(ref, n, dtype, act, bias):
+    from repro.kernels.nm_spmm.kernel import nm_spmm_int8 as j_nm
+    from repro.kernels.tile_gemm.kernel import tile_gemm_int8 as j_tile
+    xq, xs, [(w, meta, ws)] = _q_inputs(8, B, K, O, n)
+    bv = np.random.default_rng(9).standard_normal(O).astype(np.float32) if bias else None
+    jd, td = jnp_dtype(dtype), getattr(torch, dtype)
+    jkw = dict(out_dtype=jd, interpret=True, bias=None if bv is None else ref.jnp.asarray(bv),
+               epilogue=ref.epilogue.EpilogueSpec(act=act, bias=bias))
+    tkw = dict(out_dtype=td, bias=None if bv is None else torch.from_numpy(bv),
+               epilogue=EpilogueSpec(act=act, bias=bias))
+    if n == 4:
+        want = j_tile(*_j(ref, xq, w, xs, ws), **jkw)
+        got = tile_gemm_int8(*_t(xq, w, xs, ws), **tkw)
+    else:
+        want = j_nm(*_j(ref, xq, w, meta, xs, ws), n, **jkw)
+        got = nm_spmm_int8(*_t(xq, w, meta, xs, ws), n, **tkw)
+    assert got.dtype == td
+    assert_scaled_close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [4, 2, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_dual_plain_matches_pallas(ref, n, dtype):
+    xq, xs, [(wg, mg, sg), (wu, mu, su)] = _q_inputs(10, B, K, O, n, pairs=2)
+    jd, td = jnp_dtype(dtype), getattr(torch, dtype)
+    if n == 4:
+        want = ref.tile_gemm_dual(*_j(ref, xq, wg, wu, xs, sg, su), acc_dtype=ref.jnp.int32,
+                                  out_dtype=jd, interpret=True)
+        got = tile_gemm_dual(*_t(xq, wg, wu, xs, sg, su), out_dtype=td)
+    else:
+        want = ref.nm_spmm_dual(*_j(ref, xq, wg, mg, wu, mu), n, *_j(ref, xs, sg, su),
+                                acc_dtype=ref.jnp.int32, out_dtype=jd, interpret=True)
+        got = nm_spmm_dual(*_t(xq, wg, mg, wu, mu), n, *_t(xs, sg, su), out_dtype=td)
+    assert got.dtype == td
+    assert_scaled_close(got, want, TOL[dtype])
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take():
+    xq, xs, [(w, _, ws)] = _q_inputs(11, B, K, O)
+    xq, xs, w, ws = _t(xq, xs, w, ws)
+    with pytest.raises(ValueError, match="every scale"):
+        tile_gemm_int8(xq, w, xs, None)
+    with pytest.raises(ValueError, match="no epilogue"):
+        tile_gemm_int8(xq, w, epilogue=EpilogueSpec(act="silu"))
+    with pytest.raises(ValueError, match="scales must be"):
+        tile_gemm_int8(xq, w, xs.reshape(1, -1), ws)
+    with pytest.raises(ValueError, match="int8"):
+        tile_gemm_int8(xq.float(), w, xs, ws)
+    with pytest.raises(ValueError, match="three scales"):
+        tile_gemm_dual_int8(xq, w, w, None, None, None)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        _build.out_kind("tile_gemm_int8", torch.float16, False)
+    assert _build.out_kind("tile_gemm_int8", torch.float16, True) == _build.OUT_RAW
+
+
 def test_cpu_tensors_take_the_plain_version_and_never_count():
     kernels.reset_launch_counts()
     x, w = (torch.from_numpy(a) for a in _inputs(6, [(B, K), (K, O)]))
@@ -132,6 +249,11 @@ def test_cpu_tensors_take_the_plain_version_and_never_count():
     assert torch.equal(nm_spmm(x, c.values, pm, 2), nm_spmm_ref(x, c.values, pm, 2))
     assert torch.equal(nm_spmm_dual(x, c.values, pm, c.values, pm, 2),
                        nm_spmm_dual_ref(x, c.values, pm, c.values, pm, 2))
+    xq, xs, [(wq, _, ws)] = _q_inputs(12, B, K, O)
+    xq, xs, wq, ws = _t(xq, xs, wq, ws)
+    assert torch.equal(tile_gemm_int8(xq, wq, xs, ws), tile_gemm_int8_ref(xq, wq, xs, ws))
+    assert torch.equal(tile_gemm_dual_int8(xq, wq, wq, xs, ws, ws),
+                       tile_gemm_dual_int8_ref(xq, wq, wq, xs, ws, ws))
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
 
 
@@ -208,3 +330,89 @@ def test_dual_kernels_match_plain_on_card(cuda_device, b, n):
         got, want = nm_spmm_dual(x, *args), nm_spmm_dual_ref(x, *args)
     torch.cuda.synchronize()
     assert_scaled_close(got, want, 1e-2)
+
+
+def _cuda_int8(dev, b, k, o, n=4, seed=0):
+    """Quantized CUDA operands: (x_q, x_scale) and the leaf of one weight
+    (dense ``w`` or compressed ``values``/``meta_packed``, with ``scale``)."""
+    x, w = _cuda_inputs(dev, b, k, o)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    w = (torch.randn(k, o, generator=g, device=dev) * k ** -0.5) if seed else w.float()
+    if n == 4:
+        leaf = quantize_linear({"w": w})
+    else:
+        c = tnm.compress_nm(tnm.prune_nm(w, n, 4)[0], n, 4)
+        leaf = quantize_linear({"values": c.values, "meta_packed": tnm.pack_meta(c.meta)})
+    x[-1] = 0                                    # an idle slot
+    xq, xs = quantize_rows(x)
+    return xq, xs, leaf
+
+
+def _single_int8(leaf, n, xq, xs, ws, ref_=False, **kw):
+    if n == 4:
+        fn = tile_gemm_int8_ref if ref_ else tile_gemm_int8
+        return fn(xq, leaf["w"], xs, ws, **kw)
+    fn = nm_spmm_int8_ref if ref_ else nm_spmm_int8
+    return fn(xq, leaf["values"], leaf["meta_packed"], xs, ws, n, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", CUDA_SHAPES)
+@pytest.mark.parametrize("n", [4, 2, 1])
+def test_int8_kernels_bitwise_equal_plain_on_card(cuda_device, b, k, o, n):
+    xq, xs, leaf = _cuda_int8(cuda_device, b, k, o, n)
+    ws = leaf["scale"].reshape(1, -1)
+    name = "tile_gemm_int8" if n == 4 else "nm_spmm_int8"
+    before = kernels.KERNELS[name].launches
+    raw = _single_int8(leaf, n, xq, None, None)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS[name].launches == before + 1
+    assert torch.equal(raw, _single_int8(leaf, n, xq, None, None, ref_=True))
+    bias = torch.randn(o, device=cuda_device)
+    for dt in (torch.bfloat16, torch.float32):
+        for kw in ({}, {"epilogue": EpilogueSpec(bias=True), "bias": bias}):
+            got = _single_int8(leaf, n, xq, xs, ws, out_dtype=dt, **kw)
+            want = _single_int8(leaf, n, xq, xs, ws, ref_=True, out_dtype=dt, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and torch.equal(got, want), (dt, kw)
+    spec = EpilogueSpec(act="gelu", bias=True)
+    got = _single_int8(leaf, n, xq, xs, ws, out_dtype=torch.bfloat16, epilogue=spec,
+                       bias=bias)
+    want = _single_int8(leaf, n, xq, xs, ws, ref_=True, out_dtype=torch.bfloat16,
+                        epilogue=spec, bias=bias)
+    assert_scaled_close(got, want, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("n", [4, 2, 1])
+def test_int8_dual_kernels_match_plain_on_card(cuda_device, b, n):
+    xq, xs, lg = _cuda_int8(cuda_device, b, 2048, 8192, n)
+    _, _, lu = _cuda_int8(cuda_device, b, 2048, 8192, n, seed=3)
+    sg, su = lg["scale"].reshape(1, -1), lu["scale"].reshape(1, -1)
+    if n == 4:
+        args = (xq, lg["w"], lu["w"], xs, sg, su)
+        got, want = tile_gemm_dual_int8(*args), tile_gemm_dual_int8_ref(*args)
+    else:
+        args = (xq, lg["values"], lg["meta_packed"], lu["values"], lu["meta_packed"], n,
+                xs, sg, su)
+        got, want = nm_spmm_dual_int8(*args), nm_spmm_dual_int8_ref(*args)
+    torch.cuda.synchronize()
+    assert_scaled_close(got, want, 1e-2)
+    got = (tile_gemm_dual if n == 4 else nm_spmm_dual)(*args, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert_scaled_close(got, want, 1e-2)
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_raise_on_bad_cuda_operands(cuda_device):
+    xq, xs, leaf = _cuda_int8(cuda_device, 8, 256, 128)
+    ws = leaf["scale"].reshape(1, -1)
+    with pytest.raises(ValueError, match="int8"):
+        tile_gemm_int8(xq.float(), leaf["w"], xs, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_gemm_int8(xq, leaf["w"].t().contiguous().t(), xs, ws)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tile_gemm_int8(xq, leaf["w"], xs, ws, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="multiples"):
+        tile_gemm_int8(xq[:, :96].contiguous(), leaf["w"][:96].contiguous(), xs, ws)

@@ -12,6 +12,20 @@ slot idle.  The logits of every call are compared:
   version, on CPU tensors) vs JAX ``interpret`` (the Pallas kernels),
   bf16 config: <= 3e-2 scaled (bf16 roundings of every activation, in
   different places in the two frameworks, compounded over the stack).
+
+w8a8 (int8 weights, activations quantized per row at every site): the
+port's ``cuda`` tier (the int8 kernels' plain versions, on CPU tensors)
+against the JAX ``interpret`` tier (the int8 Pallas kernels), on the
+smoke config widened to head_dim 32 and d_model 128 so that every site
+plans an int8 kernel in both packages (the TPU int8 kernels tile 1:4
+only at K multiples of 128):
+
+- fp32 config <= 2e-3 scaled: the accumulators are exact and the flush
+  is the same fp32 ops, so the logits agree to ~3e-7 until a 1-ulp
+  upstream difference (rope, softmax) flips one int8 activation code at
+  a rounding boundary, which moves its products by x_scale * |w|; one
+  such flip shows as 1.2e-3 (2:4, the third prefill chunk);
+- bf16 config <= 3e-2 scaled, as for the float bf16 tiers.
 """
 
 import dataclasses
@@ -22,11 +36,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro import serving as jserving
 from repro.configs import get_smoke_config
 from repro.core import SparsityConfig as JSp
 from repro.kernels import dispatch as jd
 from repro.models import init_params
 from repro.models import paged as jpaged
+from repro_torch import kernels
 from repro_torch.kernels import dispatch as td
 from repro_torch.models import paged as tpaged
 from torch_parity import assert_scaled_close, port_config, port_params
@@ -104,6 +120,46 @@ def test_paged_logits_match_reference(layout, jax_backend, port_backend, dtype, 
                    tpaged.init_paged_caches(tcfg, nb, BLOCK_LEN),
                    lambda a: torch.from_numpy(np.array(a)))
     assert len(got) == len(want) == 5   # 3 prefill chunks + 2 decode steps
+    for g, w in zip(got, want):
+        assert_scaled_close(g, w, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_w8a8_logits_match_the_int8_pallas_kernels(layout, dtype, tol, monkeypatch):
+    sp = LAYOUTS[layout]
+    jcfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), dtype=dtype,
+                               head_dim=32, d_model=128, sparsity=sp,
+                               name=f"w8a8-{layout}-{dtype}")
+    spec = jserving.ServingSpec(layout=sp.mode, qdtype="int8",
+                                sparsity=None if sp.n == 4 else (sp.n, 4))
+    jq = jserving.prepare(_jit_init(jax.random.PRNGKey(0), jcfg), spec, cfg=jcfg).params
+    tcfg, tq = port_config(jcfg), port_params(jq)
+    with jd.use_dispatch(backend="interpret"):
+        assert not [ln for ln in jd.dispatch_report(jq, (2, CHUNK), jcfg.sparsity)[:-1]
+                    if "_int8[interpret]" not in ln]
+    lines = td.dispatch_report(tq, (2, CHUNK), tcfg.sparsity,
+                               dispatch=td.DispatchConfig(backend="cuda"))
+    assert lines and all("_int8[cuda]" in ln for ln in lines)
+    # the int8 wrappers run (their plain versions, on CPU tensors)
+    calls = []
+    for name in ("tile_gemm_int8", "tile_gemm_dual_int8", "nm_spmm_int8",
+                 "nm_spmm_dual_int8"):
+        mod = kernels._tile_gemm if name.startswith("tile") else kernels._nm_spmm
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    nb = 2 * WIDTH + 1
+    with jd.use_dispatch(backend="interpret"):
+        want = _run("jax", jpaged, jq, jcfg,
+                    jpaged.init_paged_caches(jcfg, nb, BLOCK_LEN, 2), jnp.asarray)
+    with td.use_dispatch(backend="cuda"), torch.inference_mode():
+        got = _run("torch", tpaged, tq, tcfg,
+                   tpaged.init_paged_caches(tcfg, nb, BLOCK_LEN),
+                   lambda a: torch.from_numpy(np.array(a)))
+    kind = "tile_gemm" if layout == "dense" else "nm_spmm"
+    assert {f"{kind}_int8", f"{kind}_dual_int8"} == set(calls)
+    assert len(got) == len(want) == 5
     for g, w in zip(got, want):
         assert_scaled_close(g, w, tol)
 

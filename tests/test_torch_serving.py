@@ -117,6 +117,45 @@ def test_engine_token_streams_equal_reference(layout, sparsity, spec_kw):
         assert trep.evictions > 0          # the budget really forced preemption
 
 
+@pytest.mark.parametrize("layout,sparsity", [("dense", None), ("compressed", (2, 4)),
+                                             ("compressed", (1, 4))])
+def test_prepare_quantizes_like_the_reference(layout, sparsity):
+    """Step 2 of prepare: every linear leaf bitwise the JAX package's."""
+    jspec = jserving.ServingSpec(layout=layout, sparsity=sparsity, qdtype="int8")
+    jcfg = jspec.apply_to(get_smoke_config("internlm2_1_8b"))
+    jp = init_params(jax.random.PRNGKey(0), jcfg)
+    want = port_params(jserving.prepare(jp, jspec, cfg=jcfg).params)
+    got = tserving.prepare(port_params(jp), tserving.ServingSpec(
+        layout=layout, sparsity=sparsity, qdtype="int8"), cfg=port_config(jcfg),
+        device="cpu").params
+    pairs = list(zip(_flat(got), _flat(want)))
+    assert pairs and len(_flat(got)) == len(_flat(want))
+    for (kg, g), (kw, w) in pairs:
+        assert kg == kw and g.dtype == w.dtype, (kg, kw)
+        assert torch.equal(g.view(torch.uint8) if g.element_size() == 1 else g,
+                           w.view(torch.uint8) if w.element_size() == 1 else w), kg
+    assert sum(g.dtype == torch.int8 for _, g in _flat(got)) == 7 * jcfg.num_layers
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _flat(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def test_int8_engine_runs_through_the_int8_kernels_on_cpu():
+    """The cuda backend on CPU tensors: every fitting site plans an int8
+    kernel and the engine serves the trace (the wrappers run their plain
+    versions)."""
+    from repro_torch.launch import serve
+    rep = serve.main(["--arch", "internlm2_1_8b", "--smoke", "--sparsity", "2:4",
+                      "--quantize", "int8", "--device", "cpu", "--kernel-backend", "cuda",
+                      "--requests", "2", "--new-tokens", "2"])
+    assert rep.completed == 2 and all(len(s.tokens) == 2 for s in rep.stats)
+
+
 def test_traffic_is_the_reference_trace():
     for seed in (0, 3):
         j = jserving.make_poisson_trace(seed=seed, num_requests=16, vocab_size=256)
@@ -131,7 +170,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.serving, repro_torch.models, repro_torch.configs\n"
         "import repro_torch.kernels.dispatch, repro_torch.kernels._build\n"
         "import repro_torch.kernels.tile_gemm.kernel, repro_torch.kernels.nm_spmm.kernel\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "import repro_torch.core.quantize, repro_torch.checkpoint.store\n"
+        "import repro_torch.kernels.tile_gemm.ref, repro_torch.kernels.nm_spmm.ref\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -171,6 +213,11 @@ def test_prepare_converts_dense_leaves_like_the_reference():
 def test_servingspec_validation():
     with pytest.raises(ValueError):
         tserving.ServingSpec(layout="gather")       # not ported yet
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tserving.ServingSpec(qdtype="fp8")
+    with pytest.raises(ValueError, match="unknown quantize target"):
+        tserving.ServingSpec(qdtype="int4")
+    assert tserving.ServingSpec(qdtype="int8").qdtype == "int8"
     with pytest.raises(ValueError):
         tserving.ServingSpec(backend="interpret")
     with pytest.raises(ValueError):

@@ -30,7 +30,8 @@ def assert_scaled_close(got, want, tol: float) -> float:
 
 def jnp_dtype(name: str):
     import jax.numpy as jnp
-    return {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[name]
+    return {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8,
+            "float8_e4m3fn": jnp.float8_e4m3fn}[name]
 
 
 def from_np(a: np.ndarray, dtype: str) -> torch.Tensor:
