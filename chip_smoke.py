@@ -17,7 +17,9 @@ Phases, each of which fails the run on a miss:
              the bandwidth bound.
    int8    — tile_gemm_int8, nm_spmm_int8 (n in {1, 2}) and the int8
              duals, on int8 weights quantized per channel and bf16
-             activations quantized per row, at the same shapes: the raw
+             activations quantized per row, at the same (K, O) and B in
+             {8, 64, 256} (256: the calibration forward's 8 x 32 rows,
+             several row blocks per launch): the raw
              int32 accumulator and the scaled bf16 output of the single
              kernels must be BITWISE the plain versions' (the int32
              accumulator is exact and the flush repeats the same fp32
@@ -26,15 +28,39 @@ Phases, each of which fails the run on a miss:
              (cuBLASLt int8 -> int32, no scales) on the same operands,
              N:M weights decompressed, B = 8 padded to 32 rows (it takes
              more than 16).
+   requant — the requantizing int8 duals (tile_gemm_dual_int8_requant,
+             nm_spmm_dual_int8_requant, n in {1, 2}) at the gate-up
+             shape, B in {8, 64, 256}, against a calibrated-like scale: int8
+             codes equal to the plain version's except |delta| <= 1 on at
+             most REQUANT_SHARE of them (the kernel's silu may differ by
+             an ulp, which moves a code sitting on a rounding boundary).
+   attn    — flash_attention against its plain version at the
+             calibration forward's shape (8 x 32 tokens) and at prefill
+             shapes (T = 512, 2048), 16 query heads over 8 KV heads, head
+             dim 128, bf16, each output row within ATTN_TOL of its own
+             max|plain| (a late row averages ~T keys and is ~20x smaller
+             than row 0, so one limit scaled by the whole output's max
+             would not see a fault confined to far rows); the library
+             column is F.scaled_dot_product_attention (enable_gqa).
 3. serving — full-width internlm2-1.8b (24 layers, random bf16 weights
              from a seeded torch.Generator on the card) served by the
-             port's Engine in the dense, 2:4 and 1:4 layouts, float and
-             int8 (w8a8): 16 requests, prompts of 128-256 tokens, 32 new
-             tokens, 8 slots, prefill chunks of 64, max_len 512.  Every
-             linear site must plan a cuda kernel (an int8 one for the
-             int8 layouts) and every kernel of the layout must launch
-             (counts are zeroed just before each run and read just
-             after); no float kernel may launch in an int8 run.
+             port's Engine in the dense, 2:4 and 1:4 layouts, float,
+             int8 (w8a8) and int8 with static activation scales: 16
+             requests, prompts of 128-256 tokens, 32 new tokens, 8 slots,
+             prefill chunks of 64, max_len 512.  Every linear site must
+             plan a cuda kernel (an int8 one with act-scales=static for
+             the static layouts) and every kernel of the layout must
+             launch (counts are zeroed just before each run and read
+             just after); no kernel of another class may launch.  The
+             static runs calibrate in prepare (one forward over 8 x 32
+             seeded tokens, counted as its own run: flash_attention must
+             launch there, once per layer) and calibrate the same params
+             and tokens again on the torch tier (plain versions and
+             chunked attention, on the card): every leaf's act_scale
+             within CALIB_TOL of the torch tier's.  Then a decode step is
+             instrumented: no per-row quantize pass, every wq/wk/wv/wo
+             and gate-up site quantizing against its static scale, every
+             w_out fed the int8 rows its gate-up dual requantized.
 4. tiers   — one prefill chunk + one decode step under the cuda and the
              torch backends on the same params; logits must agree to
              3e-2 of max|torch| (bf16 rounding differs between tiers) for
@@ -70,9 +96,27 @@ TIER_TOL = 3e-2                  # cuda tier vs torch tier logits, scaled
 # measured on an H100 over 24 layers, so 0.1 leaves room without hiding
 # a wrong kernel (a wrong product gives errors of order 1)
 INT8_TIER_TOL = 0.1
+# static scales quantize every row against one per-tensor step fixed at
+# calibration (absmax over 8 x 32 tokens / 127), coarser than a row's own:
+# more rounding error than the dynamic path (0.071-0.118 measured on an
+# H100 over 24 layers), still far below a wrong product's order-1 errors
+STATIC_TIER_TOL = 0.15
+REQUANT_SHARE = 1e-3             # requantized duals: share of codes off by one
+ATTN_TOL = 2e-2                  # flash_attention vs plain, per row, scaled (bf16)
+# static act_scale of the cuda tier (w8a8 kernels, flash_attention) against
+# the torch tier's (weights dequantized, bf16 activations, chunked
+# attention), relative: the tiers' activations differ by the int8
+# rounding of every site's input, as their logits do (INT8_TIER_TOL); a
+# wrong kernel or site mapping moves a scale by far more
+CALIB_TOL = 0.1
 SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
-           "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu"}
+           "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
+           "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:79",
+    # the int8 dual with the requant:int8 flush (epilogue.py:143, :162)
+    "tile_gemm_dual_int8_requant": "src/repro/kernels/tile_gemm/kernel.py:382",
+    "nm_spmm_dual_int8_requant": "src/repro/kernels/nm_spmm/kernel.py:437",
     "tile_gemm": "src/repro/kernels/tile_gemm/kernel.py:82",
     "tile_gemm_dual": "src/repro/kernels/tile_gemm/kernel.py:382",
     "nm_spmm": "src/repro/kernels/nm_spmm/kernel.py:125",
@@ -96,6 +140,12 @@ def log(msg: str) -> None:
 def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / (want.abs().max() + 1e-6)).item()
+
+
+def row_scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of a row (last dim) over that row's own max|want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().amax(-1) / (want.abs().amax(-1) + 1e-6)).max().item()
 
 
 def time_ms(fn, operands, calls: int = 24, replays: int = 5) -> float:
@@ -297,10 +347,13 @@ def int_mm_layout():
 def int8_kernel_phase(cfg, gen, card_line, rows):
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
-    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_dual_int8, nm_spmm_int8
+    from repro_torch.kernels.nm_spmm.kernel import (nm_spmm_dual_int8,
+                                                    nm_spmm_dual_int8_requant, nm_spmm_int8)
     from repro_torch.kernels.nm_spmm.ref import (dense_weight, nm_spmm_dual_int8_ref,
                                                  nm_spmm_int8_ref)
-    from repro_torch.kernels.tile_gemm.kernel import tile_gemm_dual_int8, tile_gemm_int8
+    from repro_torch.kernels.tile_gemm.kernel import (tile_gemm_dual_int8,
+                                                      tile_gemm_dual_int8_requant,
+                                                      tile_gemm_int8)
     from repro_torch.kernels.tile_gemm.ref import (tile_gemm_dual_int8_ref,
                                                    tile_gemm_int8_ref)
 
@@ -343,14 +396,39 @@ def int8_kernel_phase(cfg, gen, card_line, rows):
                                       u["meta_packed"], n, xs, g["ws"], u["ws"],
                                       out_dtype=bf16)
 
+    def ref_fp32(n):
+        """The dual's plain version in fp32 (what w_out would calibrate on)."""
+        if n == 4:
+            return lambda xq, xs, g, u: tile_gemm_dual_int8_ref(xq, g["w"], u["w"], xs,
+                                                                g["ws"], u["ws"])
+        return lambda xq, xs, g, u: nm_spmm_dual_int8_ref(
+            xq, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
+            g["ws"], u["ws"])
+
+    def requant(n, ref=False):
+        """The requantizing dual: (x_q, x_scale, g, u, rq) -> int8 codes."""
+        if n == 4:
+            if ref:
+                return lambda xq, xs, g, u, rq: tile_gemm_dual_int8_ref(
+                    xq, g["w"], u["w"], xs, g["ws"], u["ws"], requant_scale=rq)
+            return lambda xq, xs, g, u, rq: tile_gemm_dual_int8_requant(
+                xq, g["w"], u["w"], xs, g["ws"], u["ws"], rq)
+        if ref:
+            return lambda xq, xs, g, u, rq: nm_spmm_dual_int8_ref(
+                xq, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
+                g["ws"], u["ws"], requant_scale=rq)
+        return lambda xq, xs, g, u, rq: nm_spmm_dual_int8_requant(
+            xq, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
+            g["ws"], u["ws"], rq)
+
     def wbytes(k, o, n):
         kc = k * n // 4
         return kc * o + (kc * o // 4 if n < 4 else 0) + 4 * o   # values + meta + scale
 
-    names = {4: ("tile_gemm_int8", "tile_gemm_dual_int8"),
-             2: ("nm_spmm_int8", "nm_spmm_dual_int8"),
-             1: ("nm_spmm_int8", "nm_spmm_dual_int8")}
-    for b in (8, 64):
+    names = {4: ("tile_gemm_int8", "tile_gemm_dual_int8", "tile_gemm_dual_int8_requant"),
+             2: ("nm_spmm_int8", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant"),
+             1: ("nm_spmm_int8", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant")}
+    for b in (8, 64, 256):
         for n in (4, 2, 1):
             for k, o in ((d, cfg.attn_dim), (d, cfg.kv_dim), (ff, d)):
                 xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16))
@@ -382,8 +460,77 @@ def int8_kernel_phase(cfg, gen, card_line, rows):
                    time_ms(run, ops), time_ms(ref, ops), time_ms(int_mm_padded, cats),
                    b * k + 4 * b + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o,
                    peak=INT8_OPS)
-            del pairs, ops, cats
+            # the same pair with the requant:int8 flush, against the scale a
+            # calibration on these rows would give w_out: absmax / 127
+            rq = ref_fp32(n)(*ops[0]).abs().amax() / 127
+            run_q, ref_q = requant(n), requant(n, ref=True)
+            ops_q = [op + (rq,) for op in ops]
+            got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
+            torch.cuda.synchronize()
+            if got.dtype != torch.int8 or want.dtype != torch.int8:
+                fail(f"{names[n][2]} B={b}: codes of {got.dtype} / {want.dtype}, not int8")
+            delta = (got.int() - want.int()).abs()
+            share = (delta == 1).float().mean().item()
+            if delta.max().item() > 1 or share > REQUANT_SHARE:
+                fail(f"{names[n][2]} B={b} n={n}: codes off by up to {delta.max().item()} "
+                     f"on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
+            record(names[n][2], b, k, o, n, got, want, time_ms(run_q, ops_q),
+                   time_ms(ref_q, ops_q), time_ms(int_mm_padded, cats),
+                   b * k + 4 * b + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o,
+                   peak=INT8_OPS)
+            rows[-1]["off_by_one_share"] = share
+            del pairs, ops, ops_q, cats
         torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+ATTN_SHAPES = ((8, 32), (1, 512), (1, 2048))    # (B, T): calibration, then prefill
+
+
+def attention_phase(cfg, gen, card_line, rows):
+    """flash_attention against its plain version, timed beside it and
+    beside F.scaled_dot_product_attention on the same (GQA) inputs.  q, k
+    and v are views of (B, T, H, D) projections, as the model passes them.
+    Bound: q, k, v and o moved once; 4 * D flops per (query, key) pair at
+    or below the diagonal (the pairs this causal run computes)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    for b, t in ATTN_SHAPES:
+        nbytes = 2 * b * t * d * (2 * hq + 2 * hkv)
+        flops = 4 * d * hq * b * t * (t + 1) // 2
+        ops = [tuple(torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
+                     .transpose(1, 2) for h in (hq, hkv, hkv))
+               for _ in range(copies_for(nbytes))]
+        before = flash_attention.launches
+        got = flash_attention(*ops[0])
+        torch.cuda.synchronize()
+        if flash_attention.launches != before + 1:
+            fail("flash_attention: the wrapper did not count its launch")
+        want = flash_attention_ref(*ops[0])
+        if got.shape != want.shape or not torch.isfinite(got.float()).all():
+            fail(f"flash_attention B={b} T={t}: shape {tuple(got.shape)} or non-finite")
+        e = row_scaled_err(got, want)
+        bmsv, by = bound_ms(nbytes, flops)
+        row = {"kernel": "flash_attention", "B": b, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "scaled_err": scaled_err(got, want), "row_scaled_err": e,
+               "kernel_ms": time_ms(flash_attention, ops),
+               "plain_ms": time_ms(flash_attention_ref, ops), "library_ms": time_ms(sdpa, ops),
+               "bound_ms": bmsv, "bound_by": by, "card": card_line}
+        rows.append(row)
+        log(json.dumps(row))
+        if not (e <= ATTN_TOL):
+            fail(f"flash_attention B={b} T={t}: a row's error {e:.3e} > {ATTN_TOL} of "
+                 f"its own max")
+        del ops
     torch.cuda.synchronize()
 
 
@@ -409,41 +556,101 @@ def quantize_pass(width: int, rows: int = 8) -> dict:
 
 
 # --------------------------------------------------------------- phase 3
-LAYOUTS = (("dense", None, None), ("compressed", (2, 4), None),
-           ("compressed", (1, 4), None), ("dense", None, "int8"),
-           ("compressed", (2, 4), "int8"), ("compressed", (1, 4), "int8"))
-LAYOUT_KERNELS = {("dense", None): ("tile_gemm", "tile_gemm_dual"),
-                  ("compressed", None): ("nm_spmm", "nm_spmm_dual"),
-                  ("dense", "int8"): ("tile_gemm_int8", "tile_gemm_dual_int8"),
-                  ("compressed", "int8"): ("nm_spmm_int8", "nm_spmm_dual_int8")}
+LAYOUTS = tuple((layout, sparsity, qdtype, static)
+                for qdtype, static in ((None, False), ("int8", False), ("int8", True))
+                for layout, sparsity in (("dense", None), ("compressed", (2, 4)),
+                                         ("compressed", (1, 4))))
+# the kernels each class runs while serving (decode and prefill)
+LAYOUT_KERNELS = {("dense", None, False): ("tile_gemm", "tile_gemm_dual"),
+                  ("compressed", None, False): ("nm_spmm", "nm_spmm_dual"),
+                  ("dense", "int8", False): ("tile_gemm_int8", "tile_gemm_dual_int8"),
+                  ("compressed", "int8", False): ("nm_spmm_int8", "nm_spmm_dual_int8"),
+                  ("dense", "int8", True): ("tile_gemm_int8", "tile_gemm_dual_int8_requant"),
+                  ("compressed", "int8", True): ("nm_spmm_int8",
+                                                 "nm_spmm_dual_int8_requant")}
+# ... and those the static runs' calibration forward runs (dynamic scales)
+CALIB_KERNELS = {"dense": ("tile_gemm_int8", "tile_gemm_dual_int8", "flash_attention"),
+                 "compressed": ("nm_spmm_int8", "nm_spmm_dual_int8", "flash_attention")}
+CALIB_TOKENS = 32                # per slot: (slots, min(max_len, 32)), as the launcher
 
 
-def serve_layout(base_cfg, layout, sparsity, qdtype):
+def check_launches(tag, counts, expected):
+    """Every expected kernel launched; no other kernel did."""
+    for name in expected:
+        if counts[name] == 0:
+            fail(f"[{tag}] kernel {name} never launched on the main path")
+    strays = {name: c for name, c in counts.items() if c and name not in expected}
+    if strays:
+        fail(f"[{tag}] kernels of another class launched: {strays}")
+
+
+def count_leaves(tree, key) -> int:
+    if isinstance(tree, dict):
+        return int(key in tree and "scale" in tree) + sum(
+            count_leaves(v, key) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_leaves(v, key) for v in tree)
+    return 0
+
+
+def serve_layout(base_cfg, layout, sparsity, qdtype, static):
     from repro_torch import kernels, serving
     from repro_torch.models import init_params
 
     tag = (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense") + \
-        (f"/{qdtype}" if qdtype else "")
-    spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype, slots=8,
-                               max_len=512, block_len=8, prefill_chunk=64)
+        (f"/{qdtype}" if qdtype else "") + ("/static" if static else "")
+    spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype,
+                               static_scales=static, slots=8, max_len=512, block_len=8,
+                               prefill_chunk=64)
     cfg = spec.apply_to(base_cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    calib_tokens = None
+    if static:
+        calib_tokens = torch.randint(
+            1, cfg.vocab_size, (spec.slots, min(spec.max_len, CALIB_TOKENS)),
+            generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
     with torch.inference_mode():
         params = init_params(gen, cfg, device="cuda")
-        prepared = serving.prepare(params, spec, cfg=cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        prepared = serving.prepare(params, spec, cfg=cfg, calib_tokens=calib_tokens)
+        torch.cuda.synchronize()
+        calib_counts = kernels.launch_counts()
+        calib_check = None
+        if static:
+            calib_check = calibration_tiers(params, spec, cfg, calib_tokens, prepared, tag)
     del params
-    torch.cuda.synchronize()
     log(f"[{tag}] init + prepare {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    calib = None
+    if static:
+        log(f"[{tag}] calibration launches: {json.dumps(calib_counts)}")
+        check_launches(f"{tag} calibration", calib_counts, CALIB_KERNELS[layout])
+        if calib_counts["flash_attention"] != cfg.num_layers:
+            fail(f"[{tag}] flash_attention launched {calib_counts['flash_attention']} "
+                 f"times in calibration, not once per layer ({cfg.num_layers})")
+        # the JAX package's unit: one site per stacked leaf (7 for the
+        # dense family), each of the 24 layers' 7 leaves carrying its scale
+        leaves = count_leaves(prepared.params, "act_scale")
+        quantized = count_leaves(prepared.params, "scale")
+        calib = {"calibrated_sites": prepared.calibrated_sites, "leaves_with_act_scale":
+                 leaves, "quantized_leaves": quantized, "launches": calib_counts,
+                 "torch_tier": calib_check}
+        if prepared.calibrated_sites != 7 or leaves != quantized or leaves != 7 * cfg.num_layers:
+            fail(f"[{tag}] calibration: {json.dumps(calib)}")
+    elif any(calib_counts.values()):
+        fail(f"[{tag}] prepare launched kernels without calibrating: {calib_counts}")
     report = prepared.dispatch_report()
     log(f"[{tag}] dispatch engine plan:")
     for line in report:
         log(line)
     want = "_int8[cuda]" if qdtype else "[cuda]"
-    off = [line for line in report if want not in line]
+    off = [line for line in report if want not in line
+           or (static and "act-scales=static" not in line)]
     if off:
-        fail(f"[{tag}] {len(off)} linear site(s) off the {want} kernels: {off[0]}")
+        fail(f"[{tag}] {len(off)} linear site(s) off the {want} kernels"
+             f"{' with static scales' if static else ''}: {off[0]}")
 
     engine = serving.Engine(prepared)
     warm = serving.make_poisson_trace(seed=1, num_requests=2, vocab_size=cfg.vocab_size,
@@ -459,13 +666,7 @@ def serve_layout(base_cfg, layout, sparsity, qdtype):
     counts = kernels.launch_counts()
     log(f"[{tag}] served {rep.describe()}")
     log(f"[{tag}] launches: {json.dumps(counts)}")
-    for name in LAYOUT_KERNELS[layout, qdtype]:
-        if counts[name] == 0:
-            fail(f"[{tag}] kernel {name} never launched on the main path")
-    strays = {name: c for name, c in counts.items()
-              if c and name not in LAYOUT_KERNELS[layout, qdtype]}
-    if strays:
-        fail(f"[{tag}] kernels of another class launched: {strays}")
+    check_launches(tag, counts, LAYOUT_KERNELS[layout, qdtype, static])
     if rep.completed != len(trace):
         fail(f"[{tag}] {rep.completed}/{len(trace)} requests completed")
     for s in rep.stats:
@@ -476,16 +677,107 @@ def serve_layout(base_cfg, layout, sparsity, qdtype):
               "wall_s": rep.wall_s, "model_calls": rep.model_calls,
               "prefill_chunks": rep.prefill_chunks, "decode_calls": rep.decode_calls,
               "launches": counts}
+    if calib is not None:
+        result["calibration"] = calib
     log(json.dumps(result))
-    result["decode_profile"] = profile_decode(prepared, cfg, spec, tag)
-    tiers = tier_check(prepared, cfg, spec, tag, INT8_TIER_TOL if qdtype else TIER_TOL)
+    result["decode_profile"] = profile_decode(prepared, cfg, spec, tag, static)
+    tol = (STATIC_TIER_TOL if static else INT8_TIER_TOL) if qdtype else TIER_TOL
+    tiers = tier_check(prepared, cfg, spec, tag, tol)
     return result, tiers
 
 
-def profile_decode(prepared, cfg, spec, tag, steps: int = 3):
+def calibration_tiers(params, spec, cfg, calib_tokens, prepared, tag) -> dict:
+    """Calibrate ``params`` on the same tokens again, on the torch tier (on
+    the card: plain versions, no kernel launches) and hold every leaf's
+    act_scale from the cuda tier against it, within CALIB_TOL relative."""
+    import dataclasses
+
+    from repro_torch import kernels, serving
+    from repro_torch.kernels.dispatch import iter_linear_items
+
+    kernels.reset_launch_counts()
+    ref = serving.prepare(params, dataclasses.replace(spec, backend="torch"), cfg=cfg,
+                          calib_tokens=calib_tokens)
+    torch.cuda.synchronize()
+    if any(kernels.launch_counts().values()) or ref.calibrated_sites != prepared.calibrated_sites:
+        fail(f"[{tag}] torch-tier calibration: {ref.calibrated_sites} sites, launches "
+             f"{kernels.launch_counts()}")
+    got = dict(iter_linear_items(prepared.params))
+    want = dict(iter_linear_items(ref.params))
+    if got.keys() != want.keys():
+        fail(f"[{tag}] the tiers' prepared trees differ in their linear leaves")
+    sites = {}
+    for names, leaf in want.items():
+        a, b = got[names].get("act_scale"), leaf.get("act_scale")
+        if a is None or b is None:
+            fail(f"[{tag}] {'/'.join(names)}: act_scale {a} (cuda) / {b} (torch)")
+        rel = abs(a.item() - b.item()) / b.item()
+        site = "/".join(n for n in names if not n.startswith("["))
+        prev = sites.get(site, {"leaves": 0, "max_rel": 0.0})
+        sites[site] = {"leaves": prev["leaves"] + 1, "max_rel": max(prev["max_rel"], rel),
+                       "cuda": a.item(), "torch": b.item()}
+    res = {"max_rel": max(v["max_rel"] for v in sites.values()), "tolerance": CALIB_TOL,
+           "sites": sites}
+    log(f"[{tag}] act_scale, cuda vs torch tier: {json.dumps(res)}")
+    if not res["max_rel"] <= CALIB_TOL:
+        fail(f"[{tag}] a static act_scale is {res['max_rel']:.3e} off the torch tier's "
+             f"(> {CALIB_TOL})")
+    return res
+
+
+class CallCounter:
+    """Counts calls to module-level functions while active, by name, and
+    the dtype and width of the activations each ``sparse_matmul`` gets."""
+
+    def __init__(self, targets):
+        self.targets, self.calls, self.fed = targets, {}, []
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.targets]
+        for mod, name, real in self.saved:
+            def wrapped(*a, _real=real, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                if _name == "sparse_matmul":
+                    self.fed.append((a[0].dtype, a[0].shape[-1]))
+                return _real(*a, **k)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def check_static_sites(cfg, tag, step) -> dict:
+    """One decode step on static scales: no per-row quantize pass; wq, wk,
+    wv, wo and the gate-up pair (one shared quantize) quantize against
+    their static scales; every w_out contracts int8 rows as they came out
+    of the gate-up dual's requantizing flush.  24 x 6 = 144 sites."""
+    from repro_torch.core import quantize
+    from repro_torch.kernels import dispatch
+
+    with CallCounter([(quantize, "quantize_rows"), (quantize, "quantize_rows_static"),
+                      (dispatch, "sparse_matmul")]) as cc:
+        step()
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    narrow = [k for dt, k in cc.fed if dt == torch.int8]
+    res = {"dynamic_quantize_calls": cc.calls.get("quantize_rows", 0),
+           "static_quantize_calls": cc.calls.get("quantize_rows_static", 0),
+           "w_out_fed_int8": len(narrow),
+           "static_sites": cc.calls.get("quantize_rows_static", 0) + len(narrow)}
+    log(f"[{tag}] static sites of one decode step: {json.dumps(res)}")
+    if (res["dynamic_quantize_calls"] or res["static_quantize_calls"] != 5 * layers
+            or len(narrow) != layers or set(narrow) != {cfg.d_ff}):
+        fail(f"[{tag}] decode step not on static scales throughout: {json.dumps(res)}")
+    return res
+
+
+def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3):
     """Where a decode step's time goes: ``steps`` batched decode steps (all
     slots active at position 255) under torch.profiler; device time by
-    kernel, and the device's busy share of the steps' wall time."""
+    kernel, and the device's busy share of the steps' wall time.  With
+    ``static``, the warm-up step is instrumented (``check_static_sites``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import init_paged_caches, paged_decode_step
@@ -502,9 +794,12 @@ def profile_decode(prepared, cfg, spec, tag, steps: int = 3):
         return paged_decode_step(prepared.params, caches, tokens, positions, table,
                                  active, cfg, spec.block_len)
 
+    sites = None
     with torch.inference_mode(), prepared.activate():
         step()
         torch.cuda.synchronize()
+        if static:
+            sites = check_static_sites(cfg, tag, step)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -529,6 +824,8 @@ def profile_decode(prepared, cfg, spec, tag, steps: int = 3):
         {"name": e.key[:60], "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
          "calls_per_step": e.count / steps}
         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]]
+    if sites is not None:
+        res["static_sites"] = sites
     log(json.dumps(res))
     return res
 
@@ -580,7 +877,7 @@ def layer_decode(rows, kernel, n, b, shapes):
     tot = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     used = []
     for k, o in shapes:
-        r = next(r for r in rows if (r["kernel"], r["B"], r["K"], r["O"], r["n"])
+        r = next(r for r in rows if (r["kernel"], r["B"], r.get("K"), r.get("O"), r.get("n"))
                  == (kernel, b, k, o, n))
         for key in tot:
             tot[key] += r[key]
@@ -617,17 +914,24 @@ def main():
     rows = kernel_phase(cfg, gen, card_line)
     int8_kernel_phase(cfg, gen, card_line, rows)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    attention_phase(cfg, gen, card_line, rows)
+    log(f"attention phase {time.perf_counter() - t0:.1f}s")
     log(f"activation quantize pass (one call, B=8, K={cfg.d_model}): "
         f"{json.dumps(quantize_pass(cfg.d_model))}")
 
     served, tiers, launches = [], [], {}
-    for layout, sparsity, qdtype in LAYOUTS:
+    for layout, sparsity, qdtype, static in LAYOUTS:
         t0 = time.perf_counter()
-        res, tier = serve_layout(cfg, layout, sparsity, qdtype)
+        res, tier = serve_layout(cfg, layout, sparsity, qdtype, static)
         served.append(res)
         tiers.append(tier)
-        for name, cnt in res["launches"].items():
-            launches[name] = launches.get(name, 0) + cnt
+        # a static run's main path is its calibration forward and its serving
+        run_counts = [res["launches"]] + ([res["calibration"]["launches"]]
+                                          if "calibration" in res else [])
+        for counts in run_counts:
+            for name, cnt in counts.items():
+                launches[name] = launches.get(name, 0) + cnt
         torch.cuda.empty_cache()
         log(f"[{res['layout']}] phase {time.perf_counter() - t0:.1f}s")
 
@@ -639,17 +943,33 @@ def main():
                             ("tile_gemm_int8", 4, singles),
                             ("tile_gemm_dual_int8", 4, [(d, ff)]),
                             ("nm_spmm_int8", 2, singles),
-                            ("nm_spmm_dual_int8", 2, [(d, ff)])):
+                            ("nm_spmm_dual_int8", 2, [(d, ff)]),
+                            ("tile_gemm_dual_int8_requant", 4, [(d, ff)]),
+                            ("nm_spmm_dual_int8_requant", 2, [(d, ff)])):
         tot = layer_decode(rows, name, n, 8, shapes)
-        entries.append({
+        entry = {
             "name": name, "route": "cuda",
-            "source": SOURCES["int8" if name.endswith("_int8") else "float"],
+            "source": SOURCES["float" if name in ("tile_gemm", "tile_gemm_dual", "nm_spmm",
+                                                  "nm_spmm_dual") else "int8"],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["kernel_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
             "measured_as": f"one layer's decode launches at B=8 ({len(shapes)} "
-                           f"shape(s)){', n=2 (2:4)' if n == 2 else ''}"})
+                           f"shape(s)){', n=2 (2:4)' if n == 2 else ''}"}
+        if name.endswith("_requant"):
+            entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
+                                            if r["kernel"] == name)
+        entries.append(entry)
+    # flash_attention at the calibration forward's shape (one layer's launch)
+    r = next(r for r in rows if r["kernel"] == "flash_attention")
+    entries.append({
+        "name": "flash_attention", "route": "cuda", "source": SOURCES["attention"],
+        "replaces": REPLACES["flash_attention"], "launches": launches["flash_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "measured_as": f"one layer's calibration launch: B={r['B']}, T={r['T']}, "
+                       f"{r['Hq']} query / {r['Hkv']} KV heads, D={r['D']}"})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(card())

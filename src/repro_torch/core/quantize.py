@@ -17,18 +17,24 @@ leaf's dtype names the execution class (:func:`quant_dtype`).
 Every formulation follows the JAX package operation for operation
 (divide by the floored scale, never multiply by a reciprocal; clip
 before the cast; int8 rounds half to even), so the int8 codes are
-bitwise equal to the reference's.  Static activation scales
-(``act_scale`` leaves, ``quantize_rows_static``, calibration) are not
-ported yet.
+bitwise equal to the reference's.
+
+Static activation scales: :func:`_calibrate_activation_scales` runs one
+representative forward while the dispatch engine reports each tagged
+site's activation absmax (:func:`record_calibration`), then attaches a
+scalar ``act_scale = absmax / qmax`` to every observed leaf; decode
+quantizes against it (:func:`quantize_rows_static`) instead of running
+the per-row absmax pass.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
-from .sparse_linear import map_linear_leaves
+from .sparse_linear import is_linear_leaf, map_linear_leaves
 
 __all__ = [
     "SCALE_KEY",
@@ -43,12 +49,17 @@ __all__ = [
     "quantize_per_channel",
     "dequantize",
     "quantize_rows",
+    "quantize_rows_static",
     "quantize_linear",
     "quantize_tree",
+    "calibration_active",
+    "record_calibration",
 ]
 
 SCALE_KEY = "scale"
 ACT_SCALE_KEY = "act_scale"
+# the per-site tag a leaf carries only while it is being calibrated
+_CALIB_KEY = "calib_id"
 
 # the quantized execution classes and their symmetric dynamic range:
 # int8 keeps [-127, 127] (-128 unused); fp8 e4m3fn saturates at +-448
@@ -154,6 +165,22 @@ def quantize_rows(x: torch.Tensor, dtype=torch.int8
     return _cast_quantized(x32 / scale, dt), scale
 
 
+def quantize_rows_static(x: torch.Tensor, act_scale: torch.Tensor, dtype=torch.int8
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static-scale quantization of activations (the decode fast path).
+
+    ``act_scale`` is the scalar calibrated scale of the consuming leaf; no
+    per-row reduction runs.  Values beyond the calibrated range saturate
+    at +-qmax.  Returns ``(x_q, x_scale)`` with ``x_scale`` the scalar
+    broadcast to the ``(B, 1)`` layout the kernels take.  The scale stays
+    on the device: nothing here synchronises with the host."""
+    dt = canonical_qdtype(dtype)
+    x32 = x.float()
+    scale = torch.clamp_min(act_scale.float().reshape(()), _TINY)
+    xs = scale.reshape(1, 1).expand(x.shape[0], 1).contiguous()
+    return _cast_quantized(x32 / scale, dt), xs
+
+
 def quantize_linear(params: Dict[str, Any], dtype=torch.int8) -> Dict[str, Any]:
     """Quantize one dense ``{"w"}`` or compressed ``{"values",
     "meta_packed"}`` leaf: its float operand per output channel, metadata
@@ -174,3 +201,126 @@ def quantize_tree(tree, dtype=torch.int8):
     ``_quantize_tree``."""
     dt = canonical_qdtype(dtype)
     return map_linear_leaves(tree, lambda leaf: quantize_linear(leaf, dt))
+
+
+# ---------------------------------------------------------------------------
+# static activation-scale calibration
+# ---------------------------------------------------------------------------
+#
+# Each quantized leaf is tagged with a site number (``calib_id``) for one
+# calibration forward; ``dispatch.sparse_matmul`` / ``gate_up_matmul``
+# report the absmax of the activations each tagged site contracts.  The
+# port runs eagerly, so the store is updated in place on the device (a
+# running ``torch.maximum`` per site) and read back with ONE host sync at
+# the end.
+#
+# A site is the JAX package's unit: one stacked leaf of one layout slot.
+# There, ``wq`` of every layer of a slot is a single leaf, so every layer
+# gets the same scale, the max over all of them.  The port keeps one dict
+# per layer, so the tag is the leaf's path with the layer index replaced
+# by the layer's slot (``layer_keys``), and the layers of a slot fold into
+# one site.
+
+_ACTIVE_STORE: list = [None]
+
+
+def calibration_active() -> bool:
+    return _ACTIVE_STORE[0] is not None
+
+
+@contextlib.contextmanager
+def _calibrating(store: Dict[int, torch.Tensor]):
+    # one process-global slot: a second concurrent calibration would fold
+    # its absmaxes into this store, so it fails loudly instead
+    if _ACTIVE_STORE[0] is not None:
+        raise RuntimeError("a calibration is already active in this process: "
+                           "calibration passes cannot run concurrently")
+    _ACTIVE_STORE[0] = store
+    try:
+        yield store
+    finally:
+        _ACTIVE_STORE[0] = None
+
+
+def record_calibration(calib_id: int, x: torch.Tensor) -> None:
+    """Fold ``absmax(x)`` into the running max of one tagged site (the
+    engine hook).  No-op without an active calibration."""
+    store = _ACTIVE_STORE[0]
+    if store is None:
+        return
+    absmax = x.float().abs().amax()
+    prev = store.get(calib_id)
+    store[calib_id] = absmax if prev is None else torch.maximum(prev, absmax)
+
+
+def _map_with_path(tree, fn, path=()):
+    if isinstance(tree, dict):
+        if is_linear_leaf(tree):
+            return fn(path, tree)
+        return {k: _map_with_path(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(v, fn, path + (i,)) for i, v in enumerate(tree))
+    return tree
+
+
+def _site_key(path: tuple, layer_keys: Optional[Sequence[Hashable]]) -> tuple:
+    """A leaf's calibration site: its path, with the index into
+    ``params["layers"]`` replaced by that layer's slot key."""
+    if layer_keys is not None and len(path) > 1 and path[0] == "layers":
+        return ("layers", ("slot", layer_keys[path[1]])) + path[2:]
+    return path
+
+
+def _calibrate_activation_scales(
+    params,
+    batch_fn: Callable[[Any], Any],
+    layer_keys: Optional[Sequence[Hashable]] = None,
+) -> Tuple[Any, int]:
+    """Attach static activation scales to every quantized linear leaf.
+
+    ``params`` is a serving tree whose linears are already quantized;
+    ``batch_fn`` runs one representative forward over the calibration
+    batch given a params tree (e.g. ``lambda p: forward(p, cfg,
+    tokens=batch)``) while the engine records, per site, the max
+    |activation| it contracts.  ``layer_keys[i]`` names the slot of
+    ``params["layers"][i]`` (``models.transformer.layer_site_keys``), so
+    that the layers of one slot share a site as the JAX package's
+    stacked leaves do.
+
+    Returns ``(params_with_scales, n_calibrated)``: every leaf of an
+    observed site gains a scalar float32 ``act_scale = absmax / qmax``
+    (``qmax`` of the leaf's own storage dtype), computed as the JAX
+    package does, in Python floats from the float32 absmax and rounded
+    once to float32; leaves of sites the batch never exercised keep the
+    dynamic per-row path."""
+    sites: Dict[tuple, int] = {}
+
+    def _tag(path, leaf):
+        if not is_quantized(leaf):
+            return leaf
+        key = _site_key(path, layer_keys)
+        return {**leaf, _CALIB_KEY: sites.setdefault(key, len(sites))}
+
+    tagged = _map_with_path(params, _tag)
+    store: Dict[int, torch.Tensor] = {}
+    with _calibrating(store), torch.inference_mode():
+        batch_fn(tagged)
+    ids = sorted(store)
+    # the one host sync of the calibration
+    absmax = (torch.stack([store[i].float().reshape(()) for i in ids]).cpu().tolist()
+              if ids else [])
+    observed = dict(zip(ids, absmax))
+
+    def _attach(path, leaf):
+        if not is_quantized(leaf):
+            return leaf
+        site = sites[_site_key(path, layer_keys)]
+        if site not in observed:
+            return leaf          # never exercised: stays dynamic
+        dt = quant_dtype(leaf) or torch.int8
+        scale = max(observed[site], 0.0) / QUANT_DTYPES[dt]
+        dev = leaf["w" if "w" in leaf else "values"].device
+        return {**leaf, ACT_SCALE_KEY: torch.tensor(scale, dtype=torch.float32,
+                                                    device=dev)}
+
+    return _map_with_path(params, _attach), len(observed)

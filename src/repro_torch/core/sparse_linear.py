@@ -145,8 +145,9 @@ def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
     return _q(_compressed(w, cfg))
 
 
-# keys a linear layout may carry beside its structural ones
-_AUX_KEYS = {"scale", "act_scale"}
+# keys a linear layout may carry beside its structural ones (``calib_id``
+# only while a calibration forward runs)
+_AUX_KEYS = {"scale", "act_scale", "calib_id"}
 
 
 def is_linear_leaf(tree: Any) -> bool:

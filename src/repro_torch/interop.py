@@ -17,8 +17,12 @@ only.
   is unstacked: ``stages[s]["slot{j}"]`` leaves carry leading
   ``(count, repeat)`` dims, and the port's ``params["layers"]`` lists
   one dict per layer in the JAX scan order, super-block ``i``, then
-  slot ``j``, then repeat ``r``: ``layers[k] = slot_j[i, r]``.  Any
+  slot ``j``, then repeat ``r``: ``layers[k] = slot_j[i, r]``.  A
+  stacked leaf's calibrated ``act_scale`` (one value per stacked layer,
+  all equal) becomes each layer's own 0-dim scalar the same way.  Any
   other tree (a single linear leaf, a bare dict) converts leaf by leaf.
+- ``calib_id`` leaves (the JAX package's calibration tags) are dropped:
+  they exist only while a calibration forward runs.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .core.quantize import _CALIB_KEY
 
 __all__ = ["tensor_from_numpy", "params_from_numpy"]
 
@@ -45,7 +51,7 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
 
 def _convert(tree, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items() if k != _CALIB_KEY}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, device) for v in tree)
     return tensor_from_numpy(tree, device)
@@ -53,7 +59,7 @@ def _convert(tree, device):
 
 def _index(tree, i: int, r: int):
     if isinstance(tree, dict):
-        return {k: _index(v, i, r) for k, v in tree.items()}
+        return {k: _index(v, i, r) for k, v in tree.items() if k != _CALIB_KEY}
     return tree[i, r]
 
 

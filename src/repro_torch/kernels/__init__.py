@@ -5,6 +5,7 @@ linear layer to them (port of ``repro.kernels``).
 kernel in a plain integer attribute, ``.launches``.
 """
 
+from .flash_attention import kernel as _flash_attention
 from .nm_spmm import kernel as _nm_spmm
 from .tile_gemm import kernel as _tile_gemm
 
@@ -17,6 +18,9 @@ KERNELS = {
     "tile_gemm_dual_int8": _tile_gemm.tile_gemm_dual_int8,
     "nm_spmm_int8": _nm_spmm.nm_spmm_int8,
     "nm_spmm_dual_int8": _nm_spmm.nm_spmm_dual_int8,
+    "tile_gemm_dual_int8_requant": _tile_gemm.tile_gemm_dual_int8_requant,
+    "nm_spmm_dual_int8_requant": _nm_spmm.nm_spmm_dual_int8_requant,
+    "flash_attention": _flash_attention.flash_attention,
 }
 
 

@@ -33,11 +33,11 @@ __all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG
            "out_kind"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm.cu", "gemm_int8.cu")
+SOURCES = ("gemm.cu", "gemm_int8.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of each library's entry points (all return a cudaError_t)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm.cu": {
@@ -48,9 +48,12 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "gemm_int8.cu": {
         "vg_tile_gemm_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
-        "vg_tile_gemm_dual_int8": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_dual_int8": (_P,) * 9 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
+    },
+    "flash_attention.cu": {
+        "vg_flash_attention": (_P,) * 4 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     },
 }
 
@@ -196,11 +199,13 @@ def check_tiles(kernel: str, k: int, o: int) -> None:
 # the int8 kernels' out_kind argument (gemm_int8.cu): what the flush stores
 _OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1}
 OUT_RAW = 2
+OUT_REQUANT = 3
 
 
 def out_kind(kernel: str, out_dtype: torch.dtype, raw: bool) -> int:
     """The int8 kernels store bf16 or fp32 scaled outputs, or the raw
-    int32 accumulator (raw mode)."""
+    int32 accumulator (raw mode); the requantizing duals pass
+    ``OUT_REQUANT`` themselves."""
     if raw:
         return OUT_RAW
     if out_dtype not in _OUT_KINDS:

@@ -29,6 +29,14 @@
 // nvcc cannot contract them into an FMA: the scaled output of the identity
 // and bias points is then bitwise the plain version's.
 //
+// Requantize (the duals only; K0's requant:int8 lattice point, epilogue.py
+// flush_tile / requant_rows).  When the next linear quantizes against a
+// calibrated static scale, the dual's flush emits its rows already in int8
+// against that scale: q = clip(y / rq, +-127) rounded half to even
+// (__fdiv_rn, __float2int_rn), so the codes are the plain version's on the
+// same fp32 y, and the per-row quantize pass of the consumer disappears.
+// rq is read from device memory (no host sync per site).
+//
 // Shared-memory layout.  wmma loads need 32-byte aligned tile pointers, and
 // a 16-wide int8 K or N slice is only 16 bytes, so the X tile is stored as
 // four K-slices [4][BM][32 B] and each weight tile as four N-slices (one per
@@ -69,7 +77,7 @@ constexpr int SP = 32;          // byte pitch of a 16-wide int8 slice row
 constexpr int CLD = BN + 4;     // int32 pitch of an accumulator tile at the flush
 
 // out_kind of the C interface
-enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_I32 = 2 };
+enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_I32 = 2, OUT_I8 = 3 };
 
 // X tile: BM rows x 64 int8 = four 16-byte chunks per row.  Thread t loads
 // chunk t%4 of row t/4 (+32 i); rows at or beyond B read as zero.  Chunk c
@@ -181,6 +189,12 @@ __device__ __forceinline__ float dequant(int acc, float xs, float ws) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
 }
 
+// requant_rows for int8: clip(y / scale, -127, 127), round half to even
+__device__ __forceinline__ int8_t requant_int8(float y, float scale) {
+  const float q = fminf(fmaxf(__fdiv_rn(y, scale), -127.f), 127.f);
+  return static_cast<int8_t>(__float2int_rn(q));
+}
+
 template <int BM, bool DUAL, class WL>
 __global__ void __launch_bounds__(NTHREADS)
 gemm_int8_kernel(const int8_t* __restrict__ x,
@@ -188,7 +202,8 @@ gemm_int8_kernel(const int8_t* __restrict__ x,
                  const int8_t* __restrict__ wu, const uint8_t* __restrict__ mu,
                  const float* __restrict__ xs, const float* __restrict__ wsg,
                  const float* __restrict__ wsu, const float* __restrict__ bias,
-                 void* __restrict__ y, int b, int k, int o, int act, int out_kind) {
+                 const float* __restrict__ rq, void* __restrict__ y, int b, int k, int o,
+                 int act, int out_kind) {
   constexpr int MF = BM / 16;
   constexpr int NW = DUAL ? 2 : 1;
   constexpr int LOAD_BYTES = 4 * BM * SP + NW * 4 * BK * SP;
@@ -260,6 +275,7 @@ gemm_int8_kernel(const int8_t* __restrict__ x,
   }
   __syncthreads();
 
+  const float rq_scale = out_kind == OUT_I8 ? *rq : 0.f;
   for (int e = tid; e < BM * BN; e += NTHREADS) {
     const int r = e / BN;
     const int c = e % BN;
@@ -279,42 +295,47 @@ gemm_int8_kernel(const int8_t* __restrict__ x,
       if (bias != nullptr) v = __fadd_rn(v, bias[n0 + c]);
       v = apply_act(v, act);
     }
-    if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+    if (out_kind == OUT_I8) static_cast<int8_t*>(y)[at] = requant_int8(v, rq_scale);
+    else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
     else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
   }
 }
 
 template <int BM, bool DUAL, class WL>
 int launch(const void* x, const void* wg, const void* mg, const void* wu, const void* mu,
-           const void* xs, const void* wsg, const void* wsu, const void* bias, void* y,
-           int b, int k, int o, int act, int out_kind, void* stream) {
+           const void* xs, const void* wsg, const void* wsu, const void* bias, const void* rq,
+           void* y, int b, int k, int o, int act, int out_kind, void* stream) {
   const dim3 grid(o / BN, (b + BM - 1) / BM);
   gemm_int8_kernel<BM, DUAL, WL><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(wg),
       static_cast<const uint8_t*>(mg), static_cast<const int8_t*>(wu),
       static_cast<const uint8_t*>(mu), static_cast<const float*>(xs),
       static_cast<const float*>(wsg), static_cast<const float*>(wsu),
-      static_cast<const float*>(bias), y, b, k, o, act, out_kind);
+      static_cast<const float*>(bias), static_cast<const float*>(rq), y, b, k, o, act,
+      out_kind);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool DUAL, class WL>
 int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void* wu,
               const void* mu, const void* xs, const void* wsg, const void* wsu,
-              const void* bias, void* y, int b, int k, int o, int act, int out_kind,
-              void* stream) {
+              const void* bias, const void* rq, void* y, int b, int k, int o, int act,
+              int out_kind, void* stream) {
   if (b <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   // raw mode takes no scales and no epilogue; scaled mode needs its scales
   const bool raw = out_kind == OUT_I32;
   if (raw != (xs == nullptr) || raw != (wsg == nullptr) || (DUAL && raw != (wsu == nullptr)) ||
-      (raw && (act != ACT_NONE || bias != nullptr)) || out_kind < 0 || out_kind > 2)
+      (raw && (act != ACT_NONE || bias != nullptr)) || out_kind < 0 || out_kind > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the requantized store: duals only, and only with the consumer's scale
+  if ((out_kind == OUT_I8) != (rq != nullptr) || (out_kind == OUT_I8 && !DUAL))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
-    return launch<16, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, y, b, k, o, act,
+    return launch<16, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b, k, o, act,
                                 out_kind, stream);
   if (bm == 64)
-    return launch<64, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, y, b, k, o, act,
+    return launch<64, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b, k, o, act,
                                 out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -322,17 +343,17 @@ int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void*
 template <bool DUAL>
 int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
               const void* mu, const void* xs, const void* wsg, const void* wsu,
-              const void* bias, void* y, int b, int k, int o, int act, int out_kind,
-              void* stream) {
+              const void* bias, const void* rq, void* y, int b, int k, int o, int act,
+              int out_kind, void* stream) {
   if (n == 1)
-    return launch_bm<DUAL, NMLoader<1>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, y, b, k, o,
-                                        act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<1>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                        k, o, act, out_kind, stream);
   if (n == 2)
-    return launch_bm<DUAL, NMLoader<2>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, y, b, k, o,
-                                        act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<2>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                        k, o, act, out_kind, stream);
   if (n == 4)
-    return launch_bm<DUAL, NMLoader<4>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, y, b, k, o,
-                                        act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<4>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                        k, o, act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -341,38 +362,39 @@ int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, cons
 // Plain C interface (loaded with ctypes).  Every function launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for arguments the kernels do not take).
-// out_kind: 0 bf16, 1 fp32 (scaled, xs/ws given), 2 int32 (raw, no scales).
+// out_kind: 0 bf16, 1 fp32 (scaled, xs/ws given), 2 int32 (raw, no scales),
+// 3 int8 requantized against *rq (duals only).
 extern "C" {
 
 int vg_tile_gemm_int8(const void* x, const void* w, const void* xs, const void* ws,
                       const void* bias, void* y, int b, int k, int o, int act, int out_kind,
                       int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, w, nullptr, nullptr, nullptr, xs, ws, nullptr,
-                                       bias, y, b, k, o, act, out_kind, stream);
+                                       bias, nullptr, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_tile_gemm_dual_int8(const void* x, const void* wg, const void* wu, const void* xs,
-                           const void* wsg, const void* wsu, void* y, int b, int k, int o,
-                           int out_kind, int bm, void* stream) {
+                           const void* wsg, const void* wsu, const void* rq, void* y, int b,
+                           int k, int o, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bm<true, DenseLoader>(bm, x, wg, nullptr, wu, nullptr, xs, wsg, wsu, nullptr,
-                                      y, b, k, o, ACT_NONE, out_kind, stream);
+                                      rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
 int vg_nm_spmm_int8(const void* x, const void* values, const void* meta, const void* xs,
                     const void* ws, const void* bias, void* y, int b, int k, int o, int n,
                     int act, int out_kind, int bm, void* stream) {
-  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, xs, ws, nullptr, bias, y,
-                          b, k, o, act, out_kind, stream);
+  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, xs, ws, nullptr, bias,
+                          nullptr, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g,
                          const void* values_u, const void* meta_u, const void* xs,
-                         const void* wsg, const void* wsu, void* y, int b, int k, int o, int n,
-                         int out_kind, int bm, void* stream) {
+                         const void* wsg, const void* wsu, const void* rq, void* y, int b,
+                         int k, int o, int n, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
   return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, xs, wsg, wsu, nullptr,
-                         y, b, k, o, ACT_NONE, out_kind, stream);
+                         rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
 const char* vg_error_string(int code) {

@@ -10,15 +10,20 @@ fused gate-up forms) or on the plain torch reference formulation.
 Quantized leaves (a ``"scale"`` beside int8 values, ``core.quantize``)
 plan on their storage dtype, never on the activations': the int8 class
 runs ``tile_gemm_int8`` / ``nm_spmm_int8`` (and their gate-up duals),
-which quantize the activations per row here (``quantize_rows``, plain
-torch, as the JAX package's is jnp) and dequantize once at the flush;
-the torch tier dequantizes the weight and contracts float activations.
+which quantize the activations here (plain torch, as the JAX package's
+is jnp): per row (``quantize_rows``), or against the leaf's calibrated
+static scale (``quantize_rows_static``) when it carries an
+``act_scale``; rows that arrive already int8, requantized by the
+producing dual's flush (:func:`requant_decision`), are contracted as
+they are.  The torch tier dequantizes the weight and contracts float
+activations.  :func:`attention` routes full-sequence attention to the
+``flash_attention`` kernel the same way.
 
 What the slice leaves out, each still planned by the JAX package only:
 shard_map placement, the fp8 class (its leaves run on the torch tier
-only; a kernel backend refuses them), static activation scales, the
-gather and rowwise layouts, activation sparsity, requantize epilogues
-and autotuning.  Blocks are always fitted (``ReasonCode.BLOCKS_FITTED``).
+only; a kernel backend refuses them), the gather and rowwise layouts,
+activation sparsity, the single-GEMM requantize and autotuning.  Blocks
+are always fitted (``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
@@ -56,6 +61,9 @@ __all__ = [
     "describe",
     "sparse_matmul",
     "gate_up_matmul",
+    "attention",
+    "requant_decision",
+    "requant_plan",
     "input_features",
     "iter_linear_items",
     "dispatch_report",
@@ -98,7 +106,9 @@ class GemmProblem:
     ``device`` is where the operands live: with ``backend="auto"`` it
     picks the tier (``cuda`` for CUDA tensors, ``torch`` otherwise).
     ``epilogue`` is the canonical lattice point string
-    (``EpilogueSpec.point``); ``dual`` marks a fused gate-up pair."""
+    (``EpilogueSpec.point``); ``dual`` marks a fused gate-up pair.
+    ``static_scales`` records whether the use site carries a calibrated
+    activation scale; it only annotates the decision."""
 
     mode: str
     b: int
@@ -111,6 +121,7 @@ class GemmProblem:
     epilogue: Optional[str] = None
     dual: bool = False
     device: Any = None
+    static_scales: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +139,7 @@ class DispatchDecision:
     epilogue_fused: bool = False
     reason_code: Optional[ReasonCode] = None
     epilogue_reason: Optional[ReasonCode] = None
-    act_scales: Optional[str] = None   # quantized kernels: "dynamic"
+    act_scales: Optional[str] = None   # quantized kernels: dynamic | static
 
     @property
     def uses_kernel(self) -> bool:
@@ -206,25 +217,25 @@ def _epi_kwargs(epi: Optional[Epilogue]) -> Dict[str, Any]:
     return {"epilogue": epi.spec, "bias": epi.bias}
 
 
-def _run_tile_gemm(x2, params, cfg, blocks, epilogue=None):
+def _run_tile_gemm(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
     from .tile_gemm.kernel import tile_gemm
     return tile_gemm(x2, params["w"].to(x2.dtype), block_b=blocks[0],
                      **_epi_kwargs(epilogue))
 
 
-def _run_tile_gemm_dual(x2, pg, pu, cfg, blocks):
+def _run_tile_gemm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
     from .tile_gemm.kernel import tile_gemm_dual
     return tile_gemm_dual(x2, pg["w"].to(x2.dtype), pu["w"].to(x2.dtype),
                           block_b=blocks[0])
 
 
-def _run_nm_spmm(x2, params, cfg, blocks, epilogue=None):
+def _run_nm_spmm(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
     from .nm_spmm.kernel import nm_spmm
     return nm_spmm(x2, params["values"].to(x2.dtype), params["meta_packed"],
                    cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
 
 
-def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks):
+def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
     from .nm_spmm.kernel import nm_spmm_dual
     return nm_spmm_dual(x2, pg["values"].to(x2.dtype), pg["meta_packed"],
                         pu["values"].to(x2.dtype), pu["meta_packed"], cfg.n,
@@ -239,58 +250,74 @@ registry.register(KernelEntry(
     run=_run_nm_spmm, run_dual=_run_nm_spmm_dual))
 
 
-# --- the int8 class (w8a8): int8 leaves x per-row int8 activations into
-# an exact int32 accumulator, dequantized once at the flush.  The fits
-# accept only int8 storage, so float problems never land here and float
-# entries never see an int8 leaf.
+# --- the int8 class (w8a8): int8 leaves x int8 activations into an exact
+# int32 accumulator, dequantized once at the flush.  The fits accept only
+# int8 storage, so float problems never land here and float entries never
+# see an int8 leaf.
 
-def _refuse_static(x2, *leaves) -> None:
-    """Static activation scales (an ``act_scale`` leaf, or activations
-    already narrow from a fused requantize) are the next slice."""
-    if quant.is_quantized_dtype(x2.dtype) or any(
-            quant.has_static_scales(p) for p in leaves):
-        raise NotImplementedError(
-            "static scales are not ported yet: repro_torch quantizes "
-            "activations dynamically per row (no act_scale leaves, float "
-            "activations)")
+def _quantize_acts(x2, params, dtype):
+    """Narrow activations + (B, 1) scales: static (calibrated) when the
+    leaf carries an ``act_scale``, else the dynamic per-row absmax pass.
+
+    Activations that arrive ALREADY narrow were requantized by the
+    producing kernel's fused epilogue against THIS leaf's static scale:
+    they are used as they are, with the (B, 1) row scales rebuilt from
+    that scalar (the quantize pass disappears)."""
+    if x2.dtype == dtype:
+        if quant.ACT_SCALE_KEY not in params:
+            raise ValueError("pre-quantized activations need a calibrated act_scale "
+                             "on the consuming leaf (the fused requant quantized "
+                             "against it)")
+        s = params[quant.ACT_SCALE_KEY].float().reshape(1, 1)
+        return x2, s.expand(x2.shape[0], 1).contiguous()
+    if quant.ACT_SCALE_KEY in params:
+        return quant.quantize_rows_static(x2, params[quant.ACT_SCALE_KEY], dtype)
+    return quant.quantize_rows(x2, dtype)
 
 
 def _w_scale(params):
     return params[quant.SCALE_KEY].reshape(1, -1)
 
 
-# Each adapter quantizes its activations with the dynamic per-row absmax
-# pass (quantize_rows).  No row padding: the kernels mask the ragged edge.
+# No row padding in the adapters: the kernels mask the ragged edge.
 
-def _run_tile_gemm_int8(x2, params, cfg, blocks, epilogue=None):
+def _run_tile_gemm_int8(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
     from .tile_gemm.kernel import tile_gemm_int8
-    xq, xs = quant.quantize_rows(x2, torch.int8)
-    return tile_gemm_int8(xq, params["w"], xs, _w_scale(params), out_dtype=x2.dtype,
+    xq, xs = _quantize_acts(x2, params, torch.int8)
+    return tile_gemm_int8(xq, params["w"], xs, _w_scale(params), out_dtype=out_dtype,
                           block_b=blocks[0], **_epi_kwargs(epilogue))
 
 
-def _run_tile_gemm_dual_int8(x2, pg, pu, cfg, blocks):
-    from .tile_gemm.kernel import tile_gemm_dual_int8
-    # one x read, one quantize pass: the activations are shared
-    xq, xs = quant.quantize_rows(x2, torch.int8)
+def _run_tile_gemm_dual_int8(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
+    from .tile_gemm.kernel import tile_gemm_dual_int8, tile_gemm_dual_int8_requant
+    # one x read, one quantize pass: the activations are shared, and the
+    # gate leaf's static scale (both sites calibrate on the same rows)
+    # quantizes them
+    xq, xs = _quantize_acts(x2, pg, torch.int8)
+    if epilogue is not None and epilogue.spec.requant is not None:
+        return tile_gemm_dual_int8_requant(xq, pg["w"], pu["w"], xs, _w_scale(pg),
+                                           _w_scale(pu), epilogue.requant_scale,
+                                           block_b=blocks[0])
     return tile_gemm_dual_int8(xq, pg["w"], pu["w"], xs, _w_scale(pg), _w_scale(pu),
-                               out_dtype=x2.dtype, block_b=blocks[0])
+                               out_dtype=out_dtype, block_b=blocks[0])
 
 
-def _run_nm_spmm_int8(x2, params, cfg, blocks, epilogue=None):
+def _run_nm_spmm_int8(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
     from .nm_spmm.kernel import nm_spmm_int8
-    xq, xs = quant.quantize_rows(x2, torch.int8)
+    xq, xs = _quantize_acts(x2, params, torch.int8)
     return nm_spmm_int8(xq, params["values"], params["meta_packed"], xs, _w_scale(params),
-                        cfg.n, out_dtype=x2.dtype, block_b=blocks[0],
+                        cfg.n, out_dtype=out_dtype, block_b=blocks[0],
                         **_epi_kwargs(epilogue))
 
 
-def _run_nm_spmm_dual_int8(x2, pg, pu, cfg, blocks):
-    from .nm_spmm.kernel import nm_spmm_dual_int8
-    xq, xs = quant.quantize_rows(x2, torch.int8)
-    return nm_spmm_dual_int8(xq, pg["values"], pg["meta_packed"], pu["values"],
-                             pu["meta_packed"], cfg.n, xs, _w_scale(pg), _w_scale(pu),
-                             out_dtype=x2.dtype, block_b=blocks[0])
+def _run_nm_spmm_dual_int8(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm.kernel import nm_spmm_dual_int8, nm_spmm_dual_int8_requant
+    xq, xs = _quantize_acts(x2, pg, torch.int8)
+    args = (xq, pg["values"], pg["meta_packed"], pu["values"], pu["meta_packed"], cfg.n,
+            xs, _w_scale(pg), _w_scale(pu))
+    if epilogue is not None and epilogue.spec.requant is not None:
+        return nm_spmm_dual_int8_requant(*args, epilogue.requant_scale, block_b=blocks[0])
+    return nm_spmm_dual_int8(*args, out_dtype=out_dtype, block_b=blocks[0])
 
 
 registry.register(KernelEntry(
@@ -301,6 +328,28 @@ registry.register(KernelEntry(
     name="nm_spmm_int8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.int8),
     run=_run_nm_spmm_int8, run_dual=_run_nm_spmm_dual_int8, quantized=True))
+
+
+# --- flash attention: mode "attention", dims mapped as (b, ke, o) =
+# (T_q, T_k, head_dim), blocks = (query rows, keys, head_dim) of one
+# kernel step.  The Hopper kernel's own contract, not the TPU blocks of
+# the JAX package's _fit_flash: bf16, head_dim 64 or 128, any T (the
+# ragged edge is masked in the kernel).
+
+def _fit_flash(b, ke, o, n, m, dtype):
+    from .flash_attention.kernel import HEAD_DIMS
+    if dtype_name(dtype) != "bfloat16" or o not in HEAD_DIMS:
+        return None
+    return (64, 64, o)
+
+
+def _run_flash(x2, params, cfg, blocks, epilogue=None):
+    from .flash_attention.kernel import flash_attention
+    return flash_attention(params["q"], params["k"], params["v"])
+
+
+registry.register(KernelEntry(
+    name="flash_attention", mode="attention", fit_blocks=_fit_flash, run=_run_flash))
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +433,8 @@ def plan(problem: GemmProblem, *,
         dtype=dt_name, epilogue=p.epilogue,
         epilogue_fused=epi_code is ReasonCode.EPILOGUE_FUSED,
         reason_code=ReasonCode.BLOCKS_FITTED, epilogue_reason=epi_code,
-        act_scales="dynamic" if entry.quantized else None)
+        act_scales=(("static" if p.static_scales else "dynamic")
+                    if entry.quantized else None))
 
 
 def plan_for(params: Dict[str, Any], x_shape: Sequence[int], cfg, dtype=torch.float32,
@@ -396,7 +446,8 @@ def plan_for(params: Dict[str, Any], x_shape: Sequence[int], cfg, dtype=torch.fl
     ke, o = _problem_dims(mode, params, x_shape[-1])
     device = _leaf_tensors(params)[0].device
     return plan(GemmProblem(mode, b=b, ke=ke, o=o, n=cfg.n, m=cfg.m,
-                            dtype=quant.quant_dtype(params) or dtype, device=device),
+                            dtype=quant.quant_dtype(params) or dtype, device=device,
+                            static_scales=quant.has_static_scales(params)),
                 dispatch=dispatch)
 
 
@@ -415,7 +466,10 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
 
     On a kernel decision the epilogue is applied in the kernel's flush;
     the torch tier applies :func:`epilogue.apply_reference` after the
-    product."""
+    product.  ``x`` may arrive already quantized (the int8 rows a fused
+    requantize emitted against this leaf's ``act_scale``): a kernel
+    contracts them as they are and returns fp32; the torch tier first
+    dequantizes them with that scale."""
     dcfg = dispatch or _DEFAULT
     mode = _mode_of(params, cfg)
     if epilogue is not None and epilogue.spec.is_identity:
@@ -425,16 +479,27 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
                          "route it through gate_up_matmul")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    _refuse_static(x2, params)
     ke, o = _problem_dims(mode, params, x2.shape[-1])
     # the dtype axis of the plan: a quantized leaf's storage dtype (the
     # weight operand selects the kernel), else the activations'
+    exec_dtype = quant.quant_dtype(params) or x2.dtype
+    pre_q = quant.is_quantized_dtype(x2.dtype)
+    if pre_q and x2.dtype != exec_dtype:
+        raise ValueError(f"pre-quantized activations ({dtype_name(x2.dtype)}) do not "
+                         f"match this leaf's storage dtype ({dtype_name(exec_dtype)})")
+    # static-scale calibration: report this site's activation absmax (no-op
+    # outside a calibration)
+    if quant.calibration_active() and quant._CALIB_KEY in params and not pre_q:
+        quant.record_calibration(params[quant._CALIB_KEY], x2)
     decision = plan(GemmProblem(
-        mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m,
-        dtype=quant.quant_dtype(params) or x2.dtype,
+        mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=exec_dtype,
         differentiating=_under_autodiff(x2, *_leaf_tensors(params)),
         epilogue=epilogue.spec.point if epilogue is not None else None,
-        device=x2.device), dispatch=dcfg)
+        device=x2.device, static_scales=quant.has_static_scales(params)), dispatch=dcfg)
+    if pre_q and not decision.uses_kernel:
+        # the reference tier contracts float activations: undo the upstream
+        # fused requantize with the leaf's own static scale
+        x2 = x2.float() * params[quant.ACT_SCALE_KEY].float().reshape(())
     if not decision.uses_kernel:
         if mode not in _TORCH_IMPL:
             raise NotImplementedError(f"{mode!r} layouts are not ported yet")
@@ -442,7 +507,8 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
         return y2.reshape(*lead, o)
     entry = _entry_by_name(mode, decision.kernel)
     y2 = entry.run(x2.contiguous(), params, cfg, decision.blocks,
-                   epilogue=epilogue if decision.epilogue_fused else None)
+                   epilogue=epilogue if decision.epilogue_fused else None,
+                   out_dtype=torch.float32 if pre_q else x2.dtype)
     return y2.reshape(*lead, o)
 
 
@@ -452,43 +518,129 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                    epilogue: Optional[Epilogue] = None) -> torch.Tensor:
     """``silu(x @ Wg) * (x @ Wu)`` as ONE engine call.
 
-    When both leaves share mode, shape and storage dtype and the plan
-    lands on a kernel, one dual launch reads each activation tile once
-    (int8: quantizes it once) and applies silu*mul to the two
-    accumulators in fp32.  Otherwise the torch tier runs two
-    GEMMs and applies silu*mul to their results (rounded to the
-    activation dtype first, as the JAX package's jnp tier does)."""
+    ``epilogue`` must sit on the ``silu_mul`` lattice point, optionally
+    extended with ``requant:<dtype>`` from :func:`requant_plan` on the
+    next linear.  When both leaves share mode, shape, storage dtype and
+    static-scale presence and the plan lands on a kernel, one dual launch
+    reads each activation tile once (int8: quantizes it once), applies
+    silu*mul to the two accumulators in fp32 and, with the requant point,
+    emits the int8 rows the next linear contracts.  Otherwise the torch
+    tier runs two GEMMs and applies silu*mul to their results (rounded to
+    the activation dtype first, as the JAX package's jnp tier does), and
+    never the requant: the consumer's own static quantize gives the same
+    codes from the float rows."""
     dcfg = dispatch or _DEFAULT
     if epilogue is None:
         epilogue = epilib.make(act="silu_mul")
-    if epilogue.spec.act != "silu_mul" or epilogue.spec.bias or epilogue.spec.requant:
+    if epilogue.spec.act != "silu_mul" or epilogue.spec.bias:
         raise ValueError(f"gate_up_matmul epilogue must sit on the silu_mul "
-                         f"lattice point, got {epilogue.spec.point!r}")
+                         f"lattice point (optionally +requant), got "
+                         f"{epilogue.spec.point!r}")
     mode_g, mode_u = _mode_of(params_g, cfg), _mode_of(params_u, cfg)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    _refuse_static(x2, params_g, params_u)
     ke, o = _problem_dims(mode_g, params_g, x2.shape[-1])
+    # both sites see the same activations: record each calibration tag here
+    if quant.calibration_active():
+        for p in (params_g, params_u):
+            if quant._CALIB_KEY in p:
+                quant.record_calibration(p[quant._CALIB_KEY], x2)
     qdt = quant.quant_dtype(params_g)
     pair_ok = (mode_g == mode_u and mode_g in _TORCH_IMPL
                and _problem_dims(mode_u, params_u, x2.shape[-1]) == (ke, o)
-               and quant.quant_dtype(params_u) == qdt)
+               and quant.quant_dtype(params_u) == qdt
+               and quant.has_static_scales(params_u) == quant.has_static_scales(params_g))
     if pair_ok:
         decision = plan(GemmProblem(
             mode_g, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=qdt or x2.dtype,
             differentiating=_under_autodiff(
                 x2, *_leaf_tensors(params_g), *_leaf_tensors(params_u)),
-            epilogue=epilogue.spec.point, dual=True, device=x2.device),
+            epilogue=epilogue.spec.point, dual=True, device=x2.device,
+            static_scales=quant.has_static_scales(params_g)),
             dispatch=dcfg)
         if decision.epilogue_fused:
             entry = _entry_by_name(mode_g, decision.kernel)
+            pre_q = quant.is_quantized_dtype(x2.dtype)
             y2 = entry.run_dual(x2.contiguous(), params_g, params_u, cfg,
-                                decision.blocks)
+                                decision.blocks, epilogue=epilogue,
+                                out_dtype=torch.float32 if pre_q else x2.dtype)
             return y2.reshape(*lead, o)
     y_g = sparse_matmul(x2, params_g, cfg, dispatch=dcfg)
     y_u = sparse_matmul(x2, params_u, cfg, dispatch=dcfg)
     h = F.silu(y_g.float()) * y_u.float()
     return h.to(y_g.dtype).reshape(*lead, o)
+
+
+def requant_decision(consumer_params: Dict[str, Any], batch_shape: Sequence[int], cfg,
+                     dispatch: Optional[DispatchConfig] = None
+                     ) -> Tuple[Optional[Tuple[str, torch.Tensor]], ReasonCode]:
+    """Should the PRODUCER of these activations fuse a requantize, and if
+    not, the :class:`ReasonCode` saying why.
+
+    A producing kernel may end its epilogue with ``requant:<dtype>``,
+    emitting the narrow rows the next quantized linear contracts as they
+    are, exactly when the CONSUMER leaf (a) quantizes against a
+    calibrated static ``act_scale`` (the fused cast must hit the scale
+    the consumer's own quantize would use) and (b) runs a kernel itself
+    (the torch tier wants float rows).  ``batch_shape`` is the leading
+    shape of the activations the producer will emit.  Returns
+    ``((dtype_name, scalar_scale), code)`` on a fused plan, ``(None,
+    code)`` on a decline; producer and consumer both derive the decision
+    from this one function, so they cannot disagree."""
+    qdt = quant.quant_dtype(consumer_params)
+    if qdt is None:
+        return None, ReasonCode.REQUANT_NO_QUANT
+    if not quant.has_static_scales(consumer_params):
+        return None, ReasonCode.REQUANT_DYNAMIC_SCALES
+    try:
+        ke = input_features(consumer_params, cfg)
+        d = plan_for(consumer_params, tuple(batch_shape) + (ke,), cfg, dtype=qdt,
+                     dispatch=dispatch)
+    except ValueError:   # an unrecognized layout: no requant
+        return None, ReasonCode.REQUANT_LAYOUT
+    if not d.uses_kernel:
+        return None, ReasonCode.REQUANT_CONSUMER_FALLBACK
+    s = consumer_params[quant.ACT_SCALE_KEY].float().reshape(())
+    return (dtype_name(qdt), s), ReasonCode.REQUANT_FUSED
+
+
+def requant_plan(consumer_params: Dict[str, Any], batch_shape: Sequence[int], cfg,
+                 dispatch: Optional[DispatchConfig] = None
+                 ) -> Optional[Tuple[str, torch.Tensor]]:
+    """:func:`requant_decision` minus the reason code: the execution paths
+    (``layers.apply_mlp``) only need the operands."""
+    result, _ = requant_decision(consumer_params, batch_shape, cfg, dispatch=dispatch)
+    return result
+
+
+def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
+              p_bf16: bool = False, dispatch: Optional[DispatchConfig] = None) -> torch.Tensor:
+    """Full-sequence causal attention via the dispatch engine.
+
+    qg (B, Hkv, G, Tq, D) grouped queries; k, v (B, Tk, Hkv, D) ->
+    (B, Hkv, G, Tq, D).  On a kernel backend the registry's
+    ``flash_attention`` entry runs (self-attention shapes only: Tq == Tk,
+    no query offset); the chunked online-softmax formulation
+    (``models.attention.chunked_attention``) is the reference and the
+    fallback: under autograd, on the torch tier, or when a shape or
+    dtype fails the kernel's contract."""
+    from ..models.attention import chunked_attention   # local: avoid a cycle
+
+    dcfg = dispatch or _DEFAULT
+    b, hkv, grp, tq, d = qg.shape
+    tk = k.shape[1]
+    decision = plan(GemmProblem("attention", b=tq, ke=tk, o=d, n=4, m=4, dtype=qg.dtype,
+                                differentiating=_under_autodiff(qg, k, v),
+                                device=qg.device), dispatch=dcfg)
+    if not decision.uses_kernel or tq != tk or q_offset != 0:
+        return chunked_attention(qg, k, v, q_offset, p_bf16)
+    entry = _entry_by_name("attention", decision.kernel)
+    # (B, Hkv, G, T, D) -> (B, Hq, T, D) and (B, T, Hkv, D) -> (B, Hkv, T, D):
+    # views, no copies; the kernel maps query head h to KV head h // G
+    out = entry.run(None, {"q": qg.reshape(b, hkv * grp, tq, d), "k": k.transpose(1, 2),
+                           "v": v.transpose(1, 2)},
+                    None, decision.blocks)
+    return out.reshape(b, hkv, grp, tq, d)
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +698,8 @@ def dispatch_report(params_tree, batches, cfg,
                 continue
             d = plan(GemmProblem(mode, b=batch, ke=ke, o=o, n=cfg.n, m=cfg.m,
                                  dtype=_leaf_dtype(gleaf), epilogue="silu_mul",
-                                 dual=True, device=_leaf_tensors(gleaf)[0].device),
+                                 dual=True, device=_leaf_tensors(gleaf)[0].device,
+                                 static_scales=quant.has_static_scales(gleaf)),
                      dispatch=dcfg)
             dual_seen.setdefault(
                 (batch, mode, cfg.n, ke, o, str(gather_hint(gnames))), d)

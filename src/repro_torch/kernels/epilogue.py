@@ -1,20 +1,21 @@
 """Epilogue lattice: what one kernel launch may fuse after its GEMM flush.
 
-The port's copy of ``repro.kernels.epilogue`` for the float classes:
+The port's copy of ``repro.kernels.epilogue``:
 
-    (+ bias) -> (silu | gelu | silu*mul)
+    (+ bias) -> (silu | gelu | silu*mul) -> (requant:<dtype>)
 
 applied to the fp32 accumulator before the single cast and store.
 ``gelu`` is the tanh approximation, as ``jax.nn.gelu`` defaults to
 (``torch.nn.functional.gelu`` defaults to erf, so it is called with
-``approximate="tanh"``).  The requantize point of the JAX lattice belongs
-to the quantized classes, which are not ported yet: a spec asking for it
-is accepted by :class:`EpilogueSpec` (its ``point`` string stays the
-JAX package's) but every kernel and reference here refuses it.
+``approximate="tanh"``).  ``requant:<dtype>`` quantizes the result
+against the CONSUMER's calibrated static activation scale
+(:func:`requant_rows`), so the next quantized linear contracts the
+narrow rows directly; among the kernels only the int8 gate-up duals
+fuse it so far.
 
 :func:`flush_tile` is the formulation the CUDA flush implements and the
 kernels' plain versions call; :func:`apply_reference` is the unfused
-torch-tier path.
+torch-tier path, which skips the requantize by default.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["EpilogueSpec", "Epilogue", "make", "flush_tile", "apply_reference",
-           "ACTIVATIONS"]
+           "requant_rows", "ACTIVATIONS"]
 
 ACTIVATIONS = ("silu", "gelu", "silu_mul")
 
@@ -82,13 +83,6 @@ def make(act: Optional[str] = None, bias: Optional[torch.Tensor] = None,
                     bias=bias, requant_scale=requant_scale)
 
 
-def _refuse_requant(spec: EpilogueSpec) -> None:
-    if spec.requant is not None:
-        raise NotImplementedError(
-            f"epilogue {spec.point!r}: requantize belongs to the quantized "
-            f"classes, which repro_torch does not port yet")
-
-
 def _act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     if name is None:
         return y
@@ -99,14 +93,32 @@ def _act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     raise ValueError(f"activation {name!r} needs the dual-tile flush")
 
 
+def requant_rows(y32: torch.Tensor, scale: torch.Tensor, dtype_name: str) -> torch.Tensor:
+    """Static-scale requantization of an fp32 tile: ``clip(y32 / scale,
+    +-qmax)``, then int8 rounds half to even, then the cast.  The same
+    clip-before-cast contract as ``quantize.quantize_rows_static``, so
+    the fused and the unfused requantize give the same codes on the same
+    fp32 input.  ``scale`` is a scalar tensor (it stays on the device)."""
+    from ..core.quantize import QUANT_DTYPES, canonical_qdtype
+
+    dt = canonical_qdtype(dtype_name)
+    lim = QUANT_DTYPES[dt]
+    q = torch.clamp(y32 / scale.float().reshape(()), -lim, lim)
+    if dt == torch.int8:
+        q = torch.round(q)
+    return q.to(dt)
+
+
 def flush_tile(acc32: torch.Tensor, spec: EpilogueSpec, out_dtype: torch.dtype,
                bias: Optional[torch.Tensor] = None,
-               acc2_32: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply one lattice point to an fp32 accumulator, then cast once.
+               acc2_32: Optional[torch.Tensor] = None,
+               rq_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply one lattice point to an fp32 accumulator, then store once.
 
-    Order: + bias -> silu | gelu; or ``silu(acc) * acc2`` for the dual
-    (gate-up) point.  ``bias`` is an ``(O,)`` vector."""
-    _refuse_requant(spec)
+    Order: + bias -> silu | gelu, or ``silu(acc) * acc2`` for the dual
+    (gate-up) point -> requantize against ``rq_scale`` when the spec
+    asks for it (the result is then of the narrow dtype), else the cast
+    to ``out_dtype``.  ``bias`` is an ``(O,)`` vector."""
     y = acc32
     if spec.bias:
         y = y + bias.float()
@@ -114,20 +126,28 @@ def flush_tile(acc32: torch.Tensor, spec: EpilogueSpec, out_dtype: torch.dtype,
         y = F.silu(y) * acc2_32
     else:
         y = _act(y, spec.act)
+    if spec.requant is not None:
+        return requant_rows(y, rq_scale, spec.requant)
     return y.to(out_dtype)
 
 
-def apply_reference(y: torch.Tensor, epi: Optional[Epilogue]) -> torch.Tensor:
+def apply_reference(y: torch.Tensor, epi: Optional[Epilogue],
+                    requantize: bool = False) -> torch.Tensor:
     """The unfused torch formulation of one epilogue: ops in fp32, cast
-    back to ``y``'s dtype."""
+    back to ``y``'s dtype.  The requantize step is skipped unless
+    ``requantize``: the unfused contract emits the float activation and
+    lets the consumer's own static-scale quantize produce the same
+    narrow operands."""
     if epi is None or epi.spec.is_identity:
         return y
     spec = epi.spec
-    _refuse_requant(spec)
     if spec.act == "silu_mul":
         raise ValueError("silu_mul is a dual-GEMM epilogue; apply it via "
                          "the gate-up dispatcher, not apply_reference")
     y32 = y.float()
     if spec.bias:
         y32 = y32 + epi.bias.float()
-    return _act(y32, spec.act).to(y.dtype)
+    y32 = _act(y32, spec.act)
+    if spec.requant is not None and requantize:
+        return requant_rows(y32, epi.requant_scale, spec.requant)
+    return y32.to(y.dtype)

@@ -1,7 +1,9 @@
 """N:4 structured-sparse GEMM on Hopper: ``nm_spmm`` and the fused gate-up
 ``nm_spmm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``), and their int8
 twins ``nm_spmm_int8`` and ``nm_spmm_dual_int8``
-(``kernels/csrc/gemm_int8.cu``).
+(``kernels/csrc/gemm_int8.cu``), and ``nm_spmm_dual_int8_requant``, the
+int8 dual whose flush requantizes to int8 against the next linear's
+static activation scale.
 
 ``Y (B, O) = X (B, K_eff) @ dec(values (K_c, O), meta_packed (K_c/4, O))``
 with ``K_eff = K_c * 4 / n``.  The kernel expands each values tile into
@@ -10,8 +12,9 @@ device memory, so weight traffic is n/4 of dense plus 2 bits per kept
 value.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
-``::nm_spmm_dual`` (:437, float and int8 branches) and
-``::nm_spmm_int8`` (:506).  CUDA tensors launch the kernel or raise; CPU
+``::nm_spmm_dual`` (:437, float and int8 branches, the int8 one with
+the ``requant:int8`` flush of ``repro/kernels/epilogue.py::flush_tile``)
+and ``::nm_spmm_int8`` (:506).  CUDA tensors launch the kernel or raise; CPU
 tensors take the plain version from ``ref.py``.  Launch counts live in
 ``.launches`` on each wrapper.
 """
@@ -24,10 +27,12 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import ACT_CODES, _ptr, check_scales, check_single_epilogue
+from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_requant_scale, check_scales,
+                                check_single_epilogue)
 from .ref import nm_spmm_dual_int8_ref, nm_spmm_dual_ref, nm_spmm_int8_ref, nm_spmm_ref
 
-__all__ = ["nm_spmm", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_dual_int8"]
+__all__ = ["nm_spmm", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_dual_int8",
+           "nm_spmm_dual_int8_requant"]
 
 _N = (1, 2, 4)
 
@@ -132,6 +137,45 @@ def nm_spmm_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Ten
 nm_spmm_int8.launches = 0
 
 
+def _nm_spmm_dual_int8(wrapper, x_q, values_g, meta_g, values_u, meta_u, n, x_scale,
+                       wg_scale, wu_scale, out_dtype, block_b, requant_scale):
+    """The shared body of the two int8 N:M duals: checks, the plain
+    version on CPU tensors, else one launch counted on ``wrapper`` (int8
+    output when ``requant_scale`` is given)."""
+    kernel = wrapper.__name__
+    b, ke = x_q.shape
+    o = _check_compressed(kernel, ke, values_g, meta_g, n)
+    if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:
+        raise ValueError(f"{kernel}: gate and up layouts must match")
+    if check_scales(kernel, b, o, x_scale, wg_scale, wu_scale):
+        raise ValueError(f"{kernel}: the dual kernel needs its three scales")
+    _check_int8(kernel, x_q, values_g, values_u)
+    if requant_scale is not None:
+        check_requant_scale(kernel, requant_scale)
+    if x_q.device.type == "cpu":
+        return nm_spmm_dual_int8_ref(x_q, values_g, meta_g, values_u, meta_u, n, x_scale,
+                                     wg_scale, wu_scale, out_dtype=out_dtype,
+                                     requant_scale=requant_scale)
+    bb = block_b or _build.block_rows(b)
+    if requant_scale is None:
+        kind, rq = _build.out_kind(kernel, out_dtype, False), ()
+    else:
+        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), torch.int8
+    _build.check_operands(kernel, x_q, values_g, meta_g, values_u, meta_u, x_scale,
+                          wg_scale, wu_scale, *rq, block_b=bb, x_dtype=torch.int8)
+    _build.check_tiles(kernel, ke, o)
+    y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    lib = _build.library("gemm_int8.cu")
+    with torch.cuda.device(x_q.device):
+        rc = lib.vg_nm_spmm_dual_int8(
+            x_q.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(), values_u.data_ptr(),
+            meta_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
+            _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y
+
+
 def nm_spmm_dual_int8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
                       values_u: torch.Tensor, meta_u: torch.Tensor, n: int,
                       x_scale: torch.Tensor, wg_scale: torch.Tensor, wu_scale: torch.Tensor,
@@ -139,34 +183,28 @@ def nm_spmm_dual_int8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.T
                       block_b: Optional[int] = None) -> torch.Tensor:
     """Fused int8 gate-up over two compressed weights sharing one X read:
     ``silu(deq(Xq @ dec(g))) * deq(Xq @ dec(u))``."""
-    b, ke = x_q.shape
-    o = _check_compressed("nm_spmm_dual_int8", ke, values_g, meta_g, n)
-    if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:
-        raise ValueError("nm_spmm_dual_int8: gate and up layouts must match")
-    if check_scales("nm_spmm_dual_int8", b, o, x_scale, wg_scale, wu_scale):
-        raise ValueError("nm_spmm_dual_int8: the dual kernel needs its three scales")
-    _check_int8("nm_spmm_dual_int8", x_q, values_g, values_u)
-    if x_q.device.type == "cpu":
-        return nm_spmm_dual_int8_ref(x_q, values_g, meta_g, values_u, meta_u, n, x_scale,
-                                     wg_scale, wu_scale, out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
-    kind = _build.out_kind("nm_spmm_dual_int8", out_dtype, False)
-    _build.check_operands("nm_spmm_dual_int8", x_q, values_g, meta_g, values_u, meta_u,
-                          x_scale, wg_scale, wu_scale, block_b=bb, x_dtype=torch.int8)
-    _build.check_tiles("nm_spmm_dual_int8", ke, o)
-    y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    lib = _build.library("gemm_int8.cu")
-    with torch.cuda.device(x_q.device):
-        rc = lib.vg_nm_spmm_dual_int8(
-            x_q.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(), values_u.data_ptr(),
-            meta_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
-            y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
-    nm_spmm_dual_int8.launches += 1
-    _build.check(rc, "nm_spmm_dual_int8", lib)
-    return y
+    return _nm_spmm_dual_int8(nm_spmm_dual_int8, x_q, values_g, meta_g, values_u, meta_u,
+                              n, x_scale, wg_scale, wu_scale, out_dtype, block_b, None)
 
 
 nm_spmm_dual_int8.launches = 0
+
+
+def nm_spmm_dual_int8_requant(x_q: torch.Tensor, values_g: torch.Tensor,
+                              meta_g: torch.Tensor, values_u: torch.Tensor,
+                              meta_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                              wg_scale: torch.Tensor, wu_scale: torch.Tensor,
+                              requant_scale: torch.Tensor, *,
+                              block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_dual_int8` whose flush then requantizes to int8
+    against the consuming linear's static scale (a one-element float32
+    tensor on the device)."""
+    return _nm_spmm_dual_int8(nm_spmm_dual_int8_requant, x_q, values_g, meta_g, values_u,
+                              meta_u, n, x_scale, wg_scale, wu_scale, torch.int8, block_b,
+                              requant_scale)
+
+
+nm_spmm_dual_int8_requant.launches = 0
 
 
 def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,

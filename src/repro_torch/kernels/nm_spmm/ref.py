@@ -47,7 +47,9 @@ def nm_spmm_dual_int8_ref(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: tor
                           values_u: torch.Tensor, meta_u: torch.Tensor, n: int,
                           x_scale: torch.Tensor, wg_scale: torch.Tensor,
                           wu_scale: torch.Tensor, *,
-                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          out_dtype: torch.dtype = torch.float32,
+                          requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     return tile_gemm_dual_int8_ref(x_q, dense_weight(values_g, meta_g, n),
                                    dense_weight(values_u, meta_u, n), x_scale, wg_scale,
-                                   wu_scale, out_dtype=out_dtype)
+                                   wu_scale, out_dtype=out_dtype,
+                                   requant_scale=requant_scale)

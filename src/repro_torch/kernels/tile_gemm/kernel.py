@@ -1,11 +1,14 @@
 """Dense tile GEMM on Hopper: ``tile_gemm`` and the fused gate-up
 ``tile_gemm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``), and their
 int8 twins ``tile_gemm_int8`` and ``tile_gemm_dual_int8``
-(``kernels/csrc/gemm_int8.cu``).
+(``kernels/csrc/gemm_int8.cu``), and ``tile_gemm_dual_int8_requant``,
+the int8 dual whose flush requantizes its output to int8 against the
+next linear's static activation scale.
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
-``::tile_gemm_dual`` (:382, float and int8 branches) and
-``::tile_gemm_int8`` (:448).  On CUDA tensors each wrapper launches its
+``::tile_gemm_dual`` (:382, float and int8 branches, the int8 one with
+the ``requant:int8`` flush of ``repro/kernels/epilogue.py::flush_tile``)
+and ``::tile_gemm_int8`` (:448).  On CUDA tensors each wrapper launches its
 kernel or raises; on CPU tensors it returns the plain version from
 ``ref.py`` (the counterpart of the JAX package's interpret mode).  Each
 wrapper counts its launches in a plain integer attribute, ``.launches``.
@@ -23,7 +26,7 @@ from .ref import (tile_gemm_dual_int8_ref, tile_gemm_dual_ref, tile_gemm_int8_re
                   tile_gemm_ref)
 
 __all__ = ["tile_gemm", "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_dual_int8",
-           "ACT_CODES"]
+           "tile_gemm_dual_int8_requant", "ACT_CODES"]
 
 #: epilogue activation -> the C interface's act argument
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
@@ -31,9 +34,13 @@ ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
 
 def check_single_epilogue(kernel: str, epi: EpilogueSpec,
                           bias: Optional[torch.Tensor], o: int) -> None:
-    if epi.requant is not None or epi.act == "silu_mul":
+    if epi.requant is not None:
+        raise NotImplementedError(f"{kernel}: epilogue {epi.point!r}: the single-GEMM "
+                                  f"requantize is not ported yet (only the int8 duals "
+                                  f"fuse it)")
+    if epi.act == "silu_mul":
         raise ValueError(f"{kernel}: epilogue {epi.point!r} is not a "
-                         f"single-GEMM float lattice point")
+                         f"single-GEMM lattice point")
     if epi.bias != (bias is not None):
         raise ValueError(f"{kernel}: bias operand must match the epilogue spec")
     if bias is not None and bias.numel() != o:
@@ -145,6 +152,54 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def check_requant_scale(kernel: str, rq: torch.Tensor) -> None:
+    """The requantizing duals' scale operand: the consumer's static
+    activation scale, one float32 value (it stays on the device)."""
+    if rq.numel() != 1 or rq.dtype != torch.float32:
+        raise ValueError(f"{kernel}: requant_scale must be one float32 value, got "
+                         f"{rq.dtype} {tuple(rq.shape)}")
+
+
+def _tile_gemm_dual_int8(wrapper, x_q, w_g, w_u, x_scale, wg_scale, wu_scale, out_dtype,
+                         block_b, requant_scale):
+    """The shared body of the two int8 dense duals: checks, the plain
+    version on CPU tensors, else one launch counted on ``wrapper`` (int8
+    output when ``requant_scale`` is given)."""
+    kernel = wrapper.__name__
+    b, k = x_q.shape
+    k2, o = w_g.shape
+    if k != k2 or w_u.shape != w_g.shape:
+        raise ValueError(f"{kernel}: x {tuple(x_q.shape)}, w_g "
+                         f"{tuple(w_g.shape)}, w_u {tuple(w_u.shape)}")
+    if check_scales(kernel, b, o, x_scale, wg_scale, wu_scale):
+        raise ValueError(f"{kernel}: the dual kernel needs its three scales")
+    if any(t.dtype != torch.int8 for t in (x_q, w_g, w_u)):
+        raise ValueError(f"{kernel}: operands must be int8")
+    if requant_scale is not None:
+        check_requant_scale(kernel, requant_scale)
+    if x_q.device.type == "cpu":
+        return tile_gemm_dual_int8_ref(x_q, w_g, w_u, x_scale, wg_scale, wu_scale,
+                                       out_dtype=out_dtype, requant_scale=requant_scale)
+    bb = block_b or _build.block_rows(b)
+    if requant_scale is None:
+        kind, rq = _build.out_kind(kernel, out_dtype, False), ()
+    else:
+        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), torch.int8
+    _build.check_operands(kernel, x_q, w_g, w_u, x_scale, wg_scale, wu_scale, *rq,
+                          block_b=bb, x_dtype=torch.int8)
+    _build.check_tiles(kernel, k, o)
+    y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    lib = _build.library("gemm_int8.cu")
+    with torch.cuda.device(x_q.device):
+        rc = lib.vg_tile_gemm_dual_int8(
+            x_q.data_ptr(), w_g.data_ptr(), w_u.data_ptr(), x_scale.data_ptr(),
+            wg_scale.data_ptr(), wu_scale.data_ptr(), _ptr(requant_scale), y.data_ptr(),
+            b, k, o, kind, bb, _build.stream_of(x_q))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y
+
+
 def tile_gemm_dual_int8(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
                         x_scale: torch.Tensor, wg_scale: torch.Tensor,
                         wu_scale: torch.Tensor, *, out_dtype: torch.dtype = torch.float32,
@@ -152,36 +207,26 @@ def tile_gemm_dual_int8(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
     """Fused int8 gate-up: ``silu(deq(Xq @ Wg)) * deq(Xq @ Wu)`` from one
     read of each X tile, two int32 accumulators, each dequantized with
     ``x_scale * w*_scale`` at the flush, silu*mul in fp32, one cast."""
-    b, k = x_q.shape
-    k2, o = w_g.shape
-    if k != k2 or w_u.shape != w_g.shape:
-        raise ValueError(f"tile_gemm_dual_int8: x {tuple(x_q.shape)}, w_g "
-                         f"{tuple(w_g.shape)}, w_u {tuple(w_u.shape)}")
-    if check_scales("tile_gemm_dual_int8", b, o, x_scale, wg_scale, wu_scale):
-        raise ValueError("tile_gemm_dual_int8: the dual kernel needs its three scales")
-    if any(t.dtype != torch.int8 for t in (x_q, w_g, w_u)):
-        raise ValueError("tile_gemm_dual_int8: operands must be int8")
-    if x_q.device.type == "cpu":
-        return tile_gemm_dual_int8_ref(x_q, w_g, w_u, x_scale, wg_scale, wu_scale,
-                                       out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
-    kind = _build.out_kind("tile_gemm_dual_int8", out_dtype, False)
-    _build.check_operands("tile_gemm_dual_int8", x_q, w_g, w_u, x_scale, wg_scale,
-                          wu_scale, block_b=bb, x_dtype=torch.int8)
-    _build.check_tiles("tile_gemm_dual_int8", k, o)
-    y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    lib = _build.library("gemm_int8.cu")
-    with torch.cuda.device(x_q.device):
-        rc = lib.vg_tile_gemm_dual_int8(
-            x_q.data_ptr(), w_g.data_ptr(), w_u.data_ptr(), x_scale.data_ptr(),
-            wg_scale.data_ptr(), wu_scale.data_ptr(), y.data_ptr(), b, k, o, kind, bb,
-            _build.stream_of(x_q))
-    tile_gemm_dual_int8.launches += 1
-    _build.check(rc, "tile_gemm_dual_int8", lib)
-    return y
+    return _tile_gemm_dual_int8(tile_gemm_dual_int8, x_q, w_g, w_u, x_scale, wg_scale,
+                                wu_scale, out_dtype, block_b, None)
 
 
 tile_gemm_dual_int8.launches = 0
+
+
+def tile_gemm_dual_int8_requant(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
+                                x_scale: torch.Tensor, wg_scale: torch.Tensor,
+                                wu_scale: torch.Tensor, requant_scale: torch.Tensor, *,
+                                block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_dual_int8` whose flush then requantizes:
+    ``int8(round(clip(silu(g) * u / requant_scale, +-127)))`` against the
+    consuming linear's static scale (a one-element float32 tensor on the
+    device), so the consumer contracts the rows as they are."""
+    return _tile_gemm_dual_int8(tile_gemm_dual_int8_requant, x_q, w_g, w_u, x_scale,
+                                wg_scale, wu_scale, torch.int8, block_b, requant_scale)
+
+
+tile_gemm_dual_int8_requant.launches = 0
 
 
 def tile_gemm_dual(x: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,

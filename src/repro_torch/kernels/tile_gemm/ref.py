@@ -19,6 +19,7 @@ import torch
 from ..epilogue import EpilogueSpec, flush_tile
 
 _SILU_MUL = EpilogueSpec(act="silu_mul")
+_SILU_MUL_RQ = EpilogueSpec(act="silu_mul", requant="int8")
 
 
 def tile_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,
@@ -62,7 +63,11 @@ def tile_gemm_int8_ref(x_q: torch.Tensor, w_q: torch.Tensor,
 def tile_gemm_dual_int8_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
                             x_scale: torch.Tensor, wg_scale: torch.Tensor,
                             wu_scale: torch.Tensor, *,
-                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                            out_dtype: torch.dtype = torch.float32,
+                            requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """With ``requant_scale`` the flush ends in the ``requant:int8``
+    lattice point and the result is int8."""
     return flush_tile(dequant_acc(int8_accumulate(x_q, w_g), x_scale, wg_scale),
-                      _SILU_MUL, out_dtype,
-                      acc2_32=dequant_acc(int8_accumulate(x_q, w_u), x_scale, wu_scale))
+                      _SILU_MUL if requant_scale is None else _SILU_MUL_RQ, out_dtype,
+                      acc2_32=dequant_acc(int8_accumulate(x_q, w_u), x_scale, wu_scale),
+                      rq_scale=requant_scale)

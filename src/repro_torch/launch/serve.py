@@ -2,7 +2,7 @@
 ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch internlm2_1_8b [--smoke] \
-        [--sparsity 2:4 --mode dense|compressed] [--quantize int8] \
+        [--sparsity 2:4 --mode dense|compressed] [--quantize int8 [--static-scales]] \
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
         [--block-len 8] [--kv-blocks N] [--admission reserve|optimistic] \
@@ -12,7 +12,9 @@
 It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
 weights from a seeded ``torch.Generator`` on the device, runs
 :func:`repro_torch.serving.prepare` (``--quantize int8`` quantizes every
-linear per output channel), and hands the result to
+linear per output channel; ``--static-scales`` then calibrates one
+activation scale per linear site on a seeded batch of ``(batch,
+min(max_len, 32))`` tokens), and hands the result to
 :class:`repro_torch.serving.Engine` over a seeded Poisson trace.  With
 ``--artifact`` it serves a converted checkpoint (``python -m
 repro.launch.convert``) instead: the manifest supplies the config and the
@@ -41,6 +43,9 @@ def main(argv=None):
     ap.add_argument("--quantize", default=None, choices=["int8"],
                     help="quantize every linear's values to int8 with per-channel "
                          "scales (w8a8: activations are quantized per row)")
+    ap.add_argument("--static-scales", action="store_true",
+                    help="with --quantize: calibrate static activation scales on one "
+                         "batch so decode skips the per-row absmax pass")
     ap.add_argument("--kernel-backend", default="auto", choices=["auto", "cuda", "torch"],
                     help="dispatch-engine backend override")
     ap.add_argument("--device", default=None,
@@ -59,6 +64,8 @@ def main(argv=None):
                     help="Poisson arrival rate (requests per scheduler iteration)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.static_scales and not args.quantize:
+        ap.error("--static-scales requires --quantize int8")
     if not args.arch and not args.artifact:
         ap.error("need --arch (random init) or --artifact (converted checkpoint)")
 
@@ -81,16 +88,27 @@ def main(argv=None):
         sparsity = tuple(map(int, args.sparsity.split(":"))) if args.sparsity else None
         spec = serving.ServingSpec(
             layout=args.mode, sparsity=sparsity, qdtype=args.quantize,
-            backend=args.kernel_backend, slots=args.batch, max_len=args.max_len,
+            static_scales=args.static_scales, backend=args.kernel_backend,
+            slots=args.batch, max_len=args.max_len,
             block_len=args.block_len, kv_blocks=args.kv_blocks,
             admission=args.admission, prefill_chunk=args.prefill_chunk)
         base = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
         cfg = spec.apply_to(base)
         gen = torch.Generator(device=device).manual_seed(args.seed)
+        calib_tokens = None
+        if args.static_scales:
+            calib_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+            calib_tokens = torch.randint(1, cfg.vocab_size,
+                                         (args.batch, min(args.max_len, 32)),
+                                         generator=calib_gen, device=device)
         with torch.inference_mode():
             params = init_params(gen, cfg, device=device)
-            prepared = serving.prepare(params, spec, cfg=cfg, device=device)
+            prepared = serving.prepare(params, spec, cfg=cfg, calib_tokens=calib_tokens,
+                                       device=device)
         del params
+    if prepared.calibrated_sites:
+        print(f"static activation scales calibrated for {prepared.calibrated_sites} "
+              f"linear site(s) — decode skips the per-row absmax pass")
     nbytes = sum(t.numel() * t.element_size() for t in _tensors(prepared.params))
     sp_str = f"{spec.sparsity[0]}:{spec.sparsity[1]}" if spec.sparsity else "dense"
     q_str = f"/{spec.qdtype}" if spec.qdtype else ""

@@ -12,6 +12,13 @@ then repeat ``r``)::
                  "ffn": {w_in, w_gate, w_out}}, ...]}
 
 ``repro_torch.interop.params_from_numpy`` maps a JAX tree onto it.
+:func:`layer_site_keys` names each layer's (stage, slot), the unit the
+JAX package's stacked leaves share (calibration folds over it).
+
+:func:`forward` is the full-sequence forward (logits for every position;
+serving prepare runs it to calibrate static activation scales);
+:func:`cached_stack` walks the same per-layer body with a cache-threading
+mixer for the paged serving path.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from .attention import init_attention
+from .attention import attention_block, init_attention
 from .config import ModelConfig
-from .layers import apply_mlp, init_embedding, init_mlp, init_rms_norm, rms_norm
+from .layers import (apply_mlp, embed, init_embedding, init_mlp, init_rms_norm,
+                     rms_norm)
 
 Params = Dict[str, Any]
 
@@ -52,6 +60,13 @@ def layer_slots(cfg: ModelConfig) -> List[Slot]:
     """The slot of every layer, in execution order."""
     return [slot for st in build_layout(cfg) for _ in range(st.count)
             for slot in st.slots for _ in range(slot.repeat)]
+
+
+def layer_site_keys(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """``(stage, slot)`` of every layer, in execution order: the layers
+    one stacked leaf of the JAX package holds share a key."""
+    return [(s, j) for s, st in enumerate(build_layout(cfg)) for _ in range(st.count)
+            for j, slot in enumerate(st.slots) for _ in range(slot.repeat)]
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -83,20 +98,43 @@ MixerFn = Callable[[Slot, Params, Dict[str, torch.Tensor], torch.Tensor],
                    Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
+def _layer(lp: Params, x: torch.Tensor, cfg: ModelConfig, mixer):
+    """One layer's body (the JAX package's ``_apply_slot`` for the dense
+    family): ``rms_norm -> mixer -> residual -> rms_norm -> MLP ->
+    residual``.  ``mixer(lp, h) -> (out, aux)``; returns ``(x, aux)``."""
+    h = rms_norm(x, lp["norm1"]["gamma"])
+    o, aux = mixer(lp, h)
+    x = x + o
+    h = rms_norm(x, lp["norm2"]["gamma"])
+    return x + apply_mlp(lp["ffn"], h, cfg.act, cfg.sparsity), aux
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm, then the unembed (a plain matmul, as in the JAX package)."""
+    x = rms_norm(x, params["final_norm"]["gamma"])
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ unembed.to(x.dtype)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, T, V), token frontend only.
+    Attention runs through the dispatch engine (``flash_attention`` on
+    the cuda backend)."""
+    x = embed(params["embed"], tokens)
+    for lp in params["layers"]:
+        x, _ = _layer(lp, x, cfg, lambda lp_, h: (
+            attention_block(lp_["mixer"], h, cfg), None))
+    return _logits(params, x, cfg)
+
+
 def cached_stack(params: Params, caches: List[Dict[str, torch.Tensor]],
                  x: torch.Tensor, cfg: ModelConfig, mixer_fn: MixerFn
                  ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """Cache-threading stack walker: per layer ``rms_norm -> mixer ->
-    residual -> rms_norm -> MLP -> residual``, then the final norm and the
-    unembed (a plain matmul, as in the JAX package)."""
+    """Cache-threading stack walker: the per-layer body of :func:`forward`
+    with ``mixer_fn`` as the attention, then the final norm and the
+    unembed."""
     new_caches = []
     for slot, lp, lc in zip(layer_slots(cfg), params["layers"], caches):
-        h = rms_norm(x, lp["norm1"]["gamma"])
-        o, c = mixer_fn(slot, lp, lc, h)
-        x = x + o
-        h = rms_norm(x, lp["norm2"]["gamma"])
-        x = x + apply_mlp(lp["ffn"], h, cfg.act, cfg.sparsity)
+        x, c = _layer(lp, x, cfg, lambda lp_, h, slot=slot, lc=lc: mixer_fn(slot, lp_, lc, h))
         new_caches.append(c)
-    x = rms_norm(x, params["final_norm"]["gamma"])
-    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ unembed.to(x.dtype), new_caches
+    return _logits(params, x, cfg), new_caches

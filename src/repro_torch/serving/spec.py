@@ -9,13 +9,14 @@ prepared = repro_torch.serving.prepare(params, ServingSpec(layout="compressed",
 ```
 
 moves the params to the device, converts every linear leaf to the spec's
-layout, then quantizes it (``qdtype``).  :func:`prepare_from_artifact`
-stands a model up from a conversion artifact instead.  Serving runs on
-the card: ``device=None`` means ``"cuda"``, and without a CUDA device
-``prepare`` raises rather than drop to the CPU; tests pass
-``device="cpu"``.  The fp8 class, static activation scales, KV-cache
-quantization, mesh placement and autotuning are not ported yet: a spec
-or a manifest asking for one raises.
+layout, quantizes it (``qdtype``), and with ``static_scales`` calibrates
+one activation scale per linear site on a representative batch
+(``calib_tokens``).  :func:`prepare_from_artifact` stands a model up from
+a conversion artifact instead.  Serving runs on the card:
+``device=None`` means ``"cuda"``, and without a CUDA device ``prepare``
+raises rather than drop to the CPU; tests pass ``device="cpu"``.  The
+fp8 class, KV-cache quantization, mesh placement and autotuning are not
+ported yet: a spec or a manifest asking for one raises.
 """
 
 from __future__ import annotations
@@ -52,15 +53,17 @@ class ServingSpec:
 
     Offline-prep axes: ``layout`` (``dense | compressed``), ``sparsity``
     (``(n, m)`` or None for dense 4:4), ``qdtype`` (weight quantization:
-    ``"int8"`` or None; ``"fp8"`` is not ported yet), ``backend``
-    (dispatch engine: ``auto | cuda | torch``).  Engine axes: ``slots``,
-    ``max_len``, ``block_len``, ``kv_blocks``, ``admission``,
-    ``prefill_chunk``, as in the JAX package.
+    ``"int8"`` or None; ``"fp8"`` is not ported yet), ``static_scales``
+    (calibrate static activation scales at prepare time; needs
+    ``qdtype``), ``backend`` (dispatch engine: ``auto | cuda | torch``).
+    Engine axes: ``slots``, ``max_len``, ``block_len``, ``kv_blocks``,
+    ``admission``, ``prefill_chunk``, as in the JAX package.
     """
 
     layout: str = "dense"
     sparsity: Optional[Tuple[int, int]] = None
     qdtype: Optional[str] = None
+    static_scales: bool = False
     backend: str = "auto"
     slots: int = 4
     max_len: int = 64
@@ -81,6 +84,8 @@ class ServingSpec:
             canonical_qdtype(self.qdtype)      # raises on unknown targets
             raise NotImplementedError(
                 f"qdtype {self.qdtype!r} is not ported yet (ported: int8)")
+        if self.static_scales and self.qdtype is None:
+            raise ValueError("static_scales requires qdtype ('int8')")
         if self.sparsity is not None:
             n, m = self.sparsity
             if not (0 < n <= m):
@@ -121,6 +126,7 @@ class Prepared:
     cfg: Any = None               # ModelConfig, when preparing a full model
     sp_cfg: Any = None            # SparsityConfig actually in effect
     dispatch: Any = None          # kernels.dispatch.DispatchConfig
+    calibrated_sites: int = 0     # static act scales: sites calibrated
 
     @contextlib.contextmanager
     def activate(self):
@@ -150,19 +156,27 @@ def _to_device(tree, device: torch.device):
     return tree
 
 
-def prepare(params, spec: ServingSpec, *, cfg=None, device=None) -> Prepared:
+def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
+            device=None) -> Prepared:
     """Prepare a params tree for serving under ``spec``: move it to the
-    device (CUDA unless ``device`` says otherwise), then, per linear leaf,
+    device (CUDA unless ``device`` says otherwise), then
 
     1. **layout conversion**: a dense ``{"w"}`` leaf becomes
        ``spec.layout`` (:func:`repro_torch.core.sparse_linear.convert_layout`);
        leaves already in a serving layout pass through;
     2. **weight quantization**: ``spec.qdtype`` quantizes the layout's
        float operand with per-channel scales (idempotent, so an
-       artifact's int8 leaves pass through).
+       artifact's int8 leaves pass through);
+    3. **activation-scale calibration**: ``spec.static_scales`` runs one
+       :func:`repro_torch.models.forward` over ``calib_tokens`` (needs
+       ``cfg``) under the spec's backend and attaches a static
+       ``act_scale`` to every quantized leaf, so decode skips the per-row
+       absmax pass.  A tree whose quantized leaves all carry one already
+       (a calibrated artifact) is counted, not calibrated again.
 
     ``params`` may be a full model tree (pass ``cfg``) or a bare layout
     leaf / small tree with ``cfg=None``."""
+    from ..core.quantize import has_static_scales, is_quantized, quant_dtype
     from ..core.sparse_linear import convert_layout, map_linear_leaves
     from ..kernels import dispatch as kdispatch
 
@@ -171,14 +185,59 @@ def prepare(params, spec: ServingSpec, *, cfg=None, device=None) -> Prepared:
     params = map_linear_leaves(
         _to_device(params, dev),
         lambda leaf: convert_layout(leaf, sp_cfg, spec.layout, quantize=spec.qdtype))
+    dcfg = kdispatch.DispatchConfig(backend=spec.backend)
+
+    calibrated = 0
+    if spec.static_scales:
+        leaves = []
+        map_linear_leaves(params, lambda leaf: leaves.append(leaf) or leaf)
+        quantized = [leaf for leaf in leaves if is_quantized(leaf)]
+        if any(quant_dtype(leaf) != torch.int8 for leaf in quantized):
+            raise NotImplementedError("static scales over fp8 leaves: the fp8 class is "
+                                      "not ported yet (ported: int8)")
+        if quantized and all(has_static_scales(leaf) for leaf in quantized):
+            calibrated = _count_sites(params, cfg)
+        else:
+            if cfg is None or calib_tokens is None:
+                raise ValueError("static_scales needs cfg= and calib_tokens= at prepare() "
+                                 "time (one representative prefill batch)")
+            from ..core.quantize import _calibrate_activation_scales
+            from ..models import forward, layer_site_keys
+            tokens = calib_tokens.to(dev)
+
+            def batch_fn(p):
+                with kdispatch.use_dispatch(backend=spec.backend):
+                    return forward(p, cfg, tokens)
+
+            params, calibrated = _calibrate_activation_scales(
+                params, batch_fn, layer_keys=layer_site_keys(cfg))
     return Prepared(params=params, spec=spec, device=dev, cfg=cfg, sp_cfg=sp_cfg,
-                    dispatch=kdispatch.DispatchConfig(backend=spec.backend))
+                    dispatch=dcfg, calibrated_sites=calibrated)
+
+
+def _count_sites(params, cfg) -> int:
+    """Calibrated sites of a tree that carries its ``act_scale`` leaves (an
+    artifact's): the JAX package's unit, one per (slot, leaf path)."""
+    from ..core.quantize import _map_with_path, _site_key, has_static_scales
+
+    keys = set()
+    layer_keys = None
+    if cfg is not None:
+        from ..models import layer_site_keys
+        layer_keys = layer_site_keys(cfg)
+
+    def _seen(path, leaf):
+        if has_static_scales(leaf):
+            keys.add(_site_key(path, layer_keys))
+        return leaf
+
+    _map_with_path(params, _seen)
+    return len(keys)
 
 
 # manifest spec keys of the JAX package that the port does not have yet,
 # with the only value it accepts for each (the JAX default)
-_UNPORTED_SPEC_KEYS = {"static_scales": False, "kv_qdtype": None, "mesh": None,
-                       "autotune": False}
+_UNPORTED_SPEC_KEYS = {"kv_qdtype": None, "mesh": None, "autotune": False}
 
 
 def config_from_manifest(manifest: Dict[str, Any]):
@@ -218,7 +277,9 @@ def prepare_from_artifact(path, *, backend: Optional[str] = None,
     The manifest is the recipe: the model config rebuilds from its
     ``config`` block, the :class:`ServingSpec` from its ``spec`` block,
     and the params come back already pruned, compressed and quantized,
-    so :func:`prepare` runs as an idempotent pass.  The artifact's
+    so :func:`prepare` runs as an idempotent pass (artifact-borne
+    ``act_scale`` leaves satisfy ``static_scales`` without calibration
+    data).  The artifact's
     stacked ``stages`` tree is unstacked into the port's per-layer list
     (:func:`repro_torch.interop.params_from_numpy`).  ``backend``
     overrides the spec's dispatch backend; ``device`` is as for

@@ -313,13 +313,24 @@ def test_int8_gate_up_runs_one_dual_launch(mode, n, monkeypatch):
 
 
 def test_int8_refusals():
-    """What the slice does not port raises instead of running quietly."""
-    _, _, tcfg, tq = _q_linear("compressed", 2, 128, 64)
-    x = torch.randn(4, 128)
-    with pytest.raises(NotImplementedError, match="static scales"):
-        apply_linear({**tq, "act_scale": torch.tensor(0.1)}, x, tcfg)
-    with pytest.raises(NotImplementedError, match="static scales"):
-        apply_linear(tq, x.to(torch.int8), tcfg)
+    """What the slice does not port raises instead of running quietly; what
+    it does (an act_scale leaf; int8 rows requantized against it) runs,
+    on the kernel tier as the JAX package's does."""
+    jcfg, jq, tcfg, tq = _q_linear("compressed", 2, 128, 64)
+    x = np.random.default_rng(7).standard_normal((4, 128)).astype(np.float32)
+    s = np.float32(0.1)
+    with jd.use_dispatch(backend="interpret"):
+        want = j_apply_linear({**jq, "act_scale": jnp.asarray(s)}, jnp.asarray(x), jcfg)
+    with td.use_dispatch(backend="cuda"):
+        got = apply_linear({**tq, "act_scale": torch.tensor(s)}, torch.from_numpy(x), tcfg)
+        assert_scaled_close(got, want, 2e-6)
+        xq = torch.clamp(torch.round(torch.from_numpy(x) / s), -127, 127).to(torch.int8)
+        narrow = apply_linear({**tq, "act_scale": torch.tensor(s)}, xq, tcfg)
+        assert narrow.dtype == torch.float32
+        assert torch.equal(narrow, got.float())
+        with pytest.raises(ValueError, match="act_scale"):
+            apply_linear(tq, xq, tcfg)
+    x = torch.from_numpy(x)
     fp8 = {**tq, "values": tq["values"].float().to(torch.float8_e4m3fn)}
     with td.use_dispatch(backend="cuda"), pytest.raises(NotImplementedError, match="fp8"):
         apply_linear(fp8, x, tcfg)

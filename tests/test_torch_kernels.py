@@ -15,7 +15,10 @@ The ``cuda`` tests hold each CUDA kernel against its plain version on
 the card and skip without one: int8 raw and scaled single-GEMM outputs
 bitwise (the accumulator is exact, the flush the same fp32 ops), the
 int8 duals within 1e-2 (silu's exp differs between the kernel and
-torch).
+torch); the requantizing int8 duals to equal codes except |delta| <= 1
+on at most 0.1% of the elements (that ulp of silu can move a code whose
+y / scale sits on a rounding boundary); flash_attention within 2e-2
+scaled in bf16 (p rounded to bf16, sums in another order).
 """
 
 import types
@@ -28,6 +31,8 @@ from repro_torch import kernels
 from repro_torch.core import nm as tnm
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import EpilogueSpec
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.core.quantize import quantize_linear, quantize_per_channel, quantize_rows
 from repro_torch.kernels.nm_spmm.kernel import (nm_spmm, nm_spmm_dual, nm_spmm_dual_int8,
                                                 nm_spmm_int8)
@@ -416,3 +421,62 @@ def test_int8_wrappers_raise_on_bad_cuda_operands(cuda_device):
         tile_gemm_int8(xq, leaf["w"], xs, ws, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="multiples"):
         tile_gemm_int8(xq[:, :96].contiguous(), leaf["w"][:96].contiguous(), xs, ws)
+
+
+def _requant_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Share of codes off by one; fails on any larger difference."""
+    assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1
+    return float((d == 1).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("n", [4, 2, 1])
+def test_requant_dual_kernels_match_plain_on_card(cuda_device, b, n):
+    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_dual_int8_requant
+    from repro_torch.kernels.tile_gemm.kernel import tile_gemm_dual_int8_requant
+
+    xq, xs, lg = _cuda_int8(cuda_device, b, 2048, 8192, n)
+    _, _, lu = _cuda_int8(cuda_device, b, 2048, 8192, n, seed=3)
+    sg, su = lg["scale"].reshape(1, -1), lu["scale"].reshape(1, -1)
+    if n == 4:
+        args = (xq, lg["w"], lu["w"], xs, sg, su)
+        fn, ref_ = tile_gemm_dual_int8_requant, tile_gemm_dual_int8_ref
+    else:
+        args = (xq, lg["values"], lg["meta_packed"], lu["values"], lu["meta_packed"], n,
+                xs, sg, su)
+        fn, ref_ = nm_spmm_dual_int8_requant, nm_spmm_dual_int8_ref
+    # a scale that saturates a share of the codes, as a calibrated one may
+    rq = ref_(*args).abs().amax() / 200
+    before = fn.launches
+    got = fn(*args, rq)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert _requant_share(got, ref_(*args, requant_scale=rq)) <= 1e-3
+    with pytest.raises(ValueError, match="requant_scale"):
+        fn(*args, rq.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,t,d", [(8, 16, 8, 32, 128), (1, 16, 8, 200, 128),
+                                          (2, 4, 2, 128, 64), (1, 16, 8, 512, 128)])
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv, t, d):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # views of (B, T, H, D) projections, as the model passes them
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=cuda_device).bfloat16()
+               .transpose(1, 2) for h in (hq, hkv, hkv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (b, hq, t, d) and got.dtype == torch.bfloat16
+    want = flash_attention_ref(q, k, v)
+    assert_scaled_close(got, want, 2e-2)
+    # and each row against its own size: a late row averages ~T keys and is
+    # far smaller than row 0, which sets the whole output's max
+    row_err = (got.float() - want.float()).abs().amax(-1) / want.float().abs().amax(-1)
+    assert row_err.max().item() <= 2e-2
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q.float(), k, v)
