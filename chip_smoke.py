@@ -34,6 +34,16 @@ Phases, each of which fails the run on a miss:
              codes equal to the plain version's except |delta| <= 1 on at
              most REQUANT_SHARE of them (the kernel's silu may differ by
              an ulp, which moves a code sitting on a rounding boundary).
+   fp8     — tile_gemm_fp8, nm_spmm_fp8 (n in {1, 2}), their duals and the
+             requantizing fp8 duals, on e4m3 weights quantized per channel
+             and bf16 activations quantized per row to e4m3, at the int8
+             phase's shapes and B: the raw fp32 accumulator, the scaled
+             bf16 outputs and the duals within 1e-2 of max|plain| (the
+             sums run in another order; every e4m3 product is exact in
+             fp32), the requantized e4m3 codes equal except one e4m3 step
+             on at most REQUANT_SHARE of them.  The library column is
+             torch._scaled_mm (cuBLASLt fp8, row-wise scales, bf16 out, B
+             padded to 16, W column-major, made outside the timed region).
    attn    — flash_attention against its plain version at the
              calibration forward's shape (8 x 32 tokens) and at prefill
              shapes (T = 512, 2048), 16 query heads over 8 KV heads, head
@@ -45,11 +55,12 @@ Phases, each of which fails the run on a miss:
 3. serving — full-width internlm2-1.8b (24 layers, random bf16 weights
              from a seeded torch.Generator on the card) served by the
              port's Engine in the dense, 2:4 and 1:4 layouts, float,
-             int8 (w8a8) and int8 with static activation scales: 16
+             int8 (w8a8), int8 with static activation scales, fp8 (e4m3
+             weights and activations) and fp8 with static scales: 16
              requests, prompts of 128-256 tokens, 32 new tokens, 8 slots,
              prefill chunks of 64, max_len 512.  Every linear site must
-             plan a cuda kernel (an int8 one with act-scales=static for
-             the static layouts) and every kernel of the layout must
+             plan a cuda kernel (one of its class, with act-scales=static
+             for the static layouts) and every kernel of the layout must
              launch (counts are zeroed just before each run and read
              just after); no kernel of another class may launch.  The
              static runs calibrate in prepare (one forward over 8 x 32
@@ -60,12 +71,13 @@ Phases, each of which fails the run on a miss:
              within CALIB_TOL of the torch tier's.  Then a decode step is
              instrumented: no per-row quantize pass, every wq/wk/wv/wo
              and gate-up site quantizing against its static scale, every
-             w_out fed the int8 rows its gate-up dual requantized.
+             w_out fed the int8 / e4m3 rows its gate-up dual requantized.
 4. tiers   — one prefill chunk + one decode step under the cuda and the
              torch backends on the same params; logits must agree to
              3e-2 of max|torch| (bf16 rounding differs between tiers) for
-             the float layouts, and to INT8_TIER_TOL for the int8 ones
-             (the cuda tier is w8a8, the torch tier dequantizes the
+             the float layouts, to INT8_TIER_TOL / STATIC_TIER_TOL for the
+             int8 ones and FP8_TIER_TOL for the fp8 ones (the cuda tier
+             quantizes the activations, the torch tier dequantizes the
              weights only and contracts bf16 activations).
 
 It then prints the kernels JSON line, the card's name and power limit,
@@ -89,6 +101,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core peak
+FP8_OPS = 1979e12                # H100 SXM dense fp8 tensor-core peak
 TOL = 1e-2                       # kernel vs plain, scaled by max|plain|
 TIER_TOL = 3e-2                  # cuda tier vs torch tier logits, scaled
 # w8a8 cuda tier vs the weight-only torch tier (bf16 activations): the
@@ -101,6 +114,16 @@ INT8_TIER_TOL = 0.1
 # more rounding error than the dynamic path (0.071-0.118 measured on an
 # H100 over 24 layers), still far below a wrong product's order-1 errors
 STATIC_TIER_TOL = 0.15
+# fp8 cuda tier (e4m3 activations at every site) vs the weight-only torch
+# tier: an e4m3 code carries ~2^-4 relative rounding per activation, where
+# int8's per-row step is ~1/127 of the row's max.  A CPU run at the smoke
+# config (2 layers) measured 0.061-0.086 dynamic and 0.035-0.116 static
+# (int8 there: 0.018-0.039 / 0.036-0.099, which became 0.035-0.056 /
+# 0.064-0.118 on an H100 over 24 layers, up to 1.9x), so up to ~0.21 is
+# expected here; the JAX package bounds one fp8 linear at 5e-2 of its
+# dequantize reference.  Fixed before the first chip run; a wrong product
+# gives errors of order 1.
+FP8_TIER_TOL = 0.3
 REQUANT_SHARE = 1e-3             # requantized duals: share of codes off by one
 ATTN_TOL = 2e-2                  # flash_attention vs plain, per row, scaled (bf16)
 # static act_scale of the cuda tier (w8a8 kernels, flash_attention) against
@@ -111,6 +134,7 @@ ATTN_TOL = 2e-2                  # flash_attention vs plain, per row, scaled (bf
 CALIB_TOL = 0.1
 SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
+           "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:79",
@@ -125,6 +149,13 @@ REPLACES = {
     "tile_gemm_dual_int8": "src/repro/kernels/tile_gemm/kernel.py:382",
     "nm_spmm_int8": "src/repro/kernels/nm_spmm/kernel.py:506",
     "nm_spmm_dual_int8": "src/repro/kernels/nm_spmm/kernel.py:437",
+    "tile_gemm_fp8": "src/repro/kernels/tile_gemm/kernel.py:482",
+    "tile_gemm_dual_fp8": "src/repro/kernels/tile_gemm/kernel.py:382",
+    "nm_spmm_fp8": "src/repro/kernels/nm_spmm/kernel.py:543",
+    "nm_spmm_dual_fp8": "src/repro/kernels/nm_spmm/kernel.py:437",
+    # the fp8 dual with the requant:float8_e4m3fn flush (epilogue.py:143, :162)
+    "tile_gemm_dual_fp8_requant": "src/repro/kernels/tile_gemm/kernel.py:382",
+    "nm_spmm_dual_fp8_requant": "src/repro/kernels/nm_spmm/kernel.py:437",
 }
 
 
@@ -187,16 +218,17 @@ def bound_ms(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> tuple:
 # --------------------------------------------------------------- phase 2
 def recorder(rows, card_line):
     """``record(...)``: one JSON row per (kernel, shape), failing the run
-    when the kernel is off its plain version by more than TOL of
-    max|plain|, or, with ``exact``, not bitwise equal to it."""
+    when the kernel is off its plain version by more than ``tol`` of
+    max|plain|, or, with ``exact``, not bitwise equal to it (``tol=None``:
+    the caller has gated the result itself)."""
     def record(kernel, b, k, o, n, got, want, t_k, t_p, t_l, nbytes, flops,
-               peak=BF16_FLOPS, exact=False):
+               peak=BF16_FLOPS, exact=False, tol=TOL, **extra):
         e = scaled_err(got, want)
         bmsv, by = bound_ms(nbytes, flops, peak)
         row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
                "scaled_err": e, "kernel_ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-               "bound_ms": bmsv, "bound_by": by, "card": card_line}
+               "bound_ms": bmsv, "bound_by": by, "card": card_line, **extra}
         if exact:
             row["bitwise"] = bool(torch.equal(got, want))
         rows.append(row)
@@ -204,8 +236,8 @@ def recorder(rows, card_line):
         if exact and not row["bitwise"]:
             fail(f"{kernel} B={b} K={k} O={o} n={n}: not bitwise equal to its "
                  f"plain version (max abs error {row['max_abs_err']:.3e})")
-        if not (e <= TOL):
-            fail(f"{kernel} B={b} K={k} O={o} n={n}: error {e:.3e} > {TOL}")
+        if tol is not None and not (e <= tol):
+            fail(f"{kernel} B={b} K={k} O={o} n={n}: error {e:.3e} > {tol}")
     return record
 
 
@@ -344,142 +376,195 @@ def int_mm_layout():
     fail("torch._int_mm takes neither layout of B")
 
 
-def int8_kernel_phase(cfg, gen, card_line, rows):
+FP8 = torch.float8_e4m3fn
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 tensor's byte view (cat, pad and transpose copies run on
+    bytes: no float8 kernel is needed for them)."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def column_major(t: torch.Tensor) -> torch.Tensor:
+    return as_bytes(t).t().contiguous().t().view(t.dtype)
+
+
+def pad_rows(t: torch.Tensor, rows: int, value: float = 0.0) -> torch.Tensor:
+    """``t`` with rows appended up to ``rows`` (zeros; ``value`` for scales)."""
+    pad = rows - t.shape[0]
+    if pad <= 0:
+        return t
+    extra = torch.full((pad,) + tuple(t.shape[1:]), value, dtype=as_bytes(t).dtype,
+                       device=t.device)
+    return torch.cat([as_bytes(t), extra]).view(t.dtype)
+
+
+def scaled_mm(x_q, w_cm, x_scale, w_scale):
+    """The library yardstick of the fp8 kernels: torch._scaled_mm (cuBLASLt
+    e4m3 x e4m3, row-wise scales, bf16 out).  Its A needs a multiple of 16
+    rows and its B column-major: both are made outside the timed region."""
+    return torch._scaled_mm(x_q, w_cm, scale_a=x_scale, scale_b=w_scale,
+                            out_dtype=torch.bfloat16)
+
+
+def e4m3_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|difference| of two e4m3 tensors in steps of the format (codes of
+    one sign are ordered by their low 7 bits; +0 and -0 are both 0)."""
+    def ordinal(t):
+        b = t.view(torch.uint8).int()
+        return torch.where(b >= 128, -(b - 128), b)
+    return (ordinal(got) - ordinal(want)).abs()
+
+
+def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
+    """The int8 or the fp8 kernels against their plain versions, timed
+    beside them and beside the class's library call."""
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
-    from repro_torch.kernels.nm_spmm.kernel import (nm_spmm_dual_int8,
-                                                    nm_spmm_dual_int8_requant, nm_spmm_int8)
-    from repro_torch.kernels.nm_spmm.ref import (dense_weight, nm_spmm_dual_int8_ref,
-                                                 nm_spmm_int8_ref)
-    from repro_torch.kernels.tile_gemm.kernel import (tile_gemm_dual_int8,
-                                                      tile_gemm_dual_int8_requant,
-                                                      tile_gemm_int8)
-    from repro_torch.kernels.tile_gemm.ref import (tile_gemm_dual_int8_ref,
-                                                   tile_gemm_int8_ref)
+    from repro_torch.kernels.nm_spmm import kernel as nk
+    from repro_torch.kernels.nm_spmm import ref as nr
+    from repro_torch.kernels.nm_spmm.ref import dense_weight
+    from repro_torch.kernels.tile_gemm import kernel as tk
+    from repro_torch.kernels.tile_gemm import ref as tr
 
     dev, bf16 = "cuda", torch.bfloat16
+    fp8 = qdtype == FP8
+    sfx = "fp8" if fp8 else "int8"
+    qmax = 448.0 if fp8 else 127.0
     d, ff = cfg.d_model, cfg.d_ff
     record = recorder(rows, card_line)
-    lay_name, lay = int_mm_layout()
-    log(f"library yardstick: torch._int_mm with a {lay_name} B")
+    if fp8:
+        lay = column_major
+        log("library yardstick: torch._scaled_mm, row-wise scales, B padded to 16 rows")
+    else:
+        lay_name, lay = int_mm_layout()
+        log(f"library yardstick: torch._int_mm with a {lay_name} B")
 
     def leaf(k, o, n):
-        """One int8 weight as serving prepares it, with its (1, O) scale
-        and the dense int8 matrix the library call contracts."""
+        """One quantized weight as serving prepares it, with its (1, O)
+        scale and the dense matrix the library call contracts."""
         w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
         if n == 4:
-            lf = quantize_linear({"w": w})
+            lf = quantize_linear({"w": w}, qdtype)
             dense = lf["w"]
         else:
             c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
-            lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)})
+            lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)},
+                                 qdtype)
             dense = dense_weight(lf["values"], lf["meta_packed"], n)
         return {**lf, "ws": lf["scale"].reshape(1, -1), "dense": lay(dense)}
 
     def single(n, ref=False):
         """(x_q, x_scale, leaf) -> the scaled bf16 output; x_scale None: raw."""
         if n == 4:
-            f = tile_gemm_int8_ref if ref else tile_gemm_int8
+            f = getattr(tr if ref else tk, f"tile_gemm_{sfx}{'_ref' if ref else ''}")
             return lambda xq, xs, lf: f(xq, lf["w"], xs, None if xs is None else lf["ws"],
                                         out_dtype=bf16)
-        f = nm_spmm_int8_ref if ref else nm_spmm_int8
+        f = getattr(nr if ref else nk, f"nm_spmm_{sfx}{'_ref' if ref else ''}")
         return lambda xq, xs, lf: f(xq, lf["values"], lf["meta_packed"], xs,
                                     None if xs is None else lf["ws"], n, out_dtype=bf16)
 
-    def dual(n, ref=False):
+    def dual(n, ref=False, requant=False, out_dtype=bf16):
+        """(x_q, x_scale, g, u[, rq]) -> the dual's output: bf16, or with
+        ``requant`` the narrow codes against rq."""
+        tail = "_requant" if requant and not ref else ""
         if n == 4:
-            f = tile_gemm_dual_int8_ref if ref else tile_gemm_dual_int8
-            return lambda xq, xs, g, u: f(xq, g["w"], u["w"], xs, g["ws"], u["ws"],
-                                          out_dtype=bf16)
-        f = nm_spmm_dual_int8_ref if ref else nm_spmm_dual_int8
-        return lambda xq, xs, g, u: f(xq, g["values"], g["meta_packed"], u["values"],
-                                      u["meta_packed"], n, xs, g["ws"], u["ws"],
-                                      out_dtype=bf16)
+            f = getattr(tr if ref else tk, f"tile_gemm_dual_{sfx}{tail}{'_ref' if ref else ''}")
+            lead = lambda xq, g, u: (xq, g["w"], u["w"])   # noqa: E731
+        else:
+            f = getattr(nr if ref else nk, f"nm_spmm_dual_{sfx}{tail}{'_ref' if ref else ''}")
+            lead = lambda xq, g, u: (xq, g["values"], g["meta_packed"], u["values"],  # noqa: E731
+                                     u["meta_packed"], n)
+        if requant and ref:
+            return lambda xq, xs, g, u, rq: f(*lead(xq, g, u), xs, g["ws"], u["ws"],
+                                              requant_scale=rq)
+        if requant:
+            return lambda xq, xs, g, u, rq: f(*lead(xq, g, u), xs, g["ws"], u["ws"], rq)
+        return lambda xq, xs, g, u: f(*lead(xq, g, u), xs, g["ws"], u["ws"],
+                                      out_dtype=out_dtype)
 
-    def ref_fp32(n):
-        """The dual's plain version in fp32 (what w_out would calibrate on)."""
-        if n == 4:
-            return lambda xq, xs, g, u: tile_gemm_dual_int8_ref(xq, g["w"], u["w"], xs,
-                                                                g["ws"], u["ws"])
-        return lambda xq, xs, g, u: nm_spmm_dual_int8_ref(
-            xq, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
-            g["ws"], u["ws"])
-
-    def requant(n, ref=False):
-        """The requantizing dual: (x_q, x_scale, g, u, rq) -> int8 codes."""
-        if n == 4:
-            if ref:
-                return lambda xq, xs, g, u, rq: tile_gemm_dual_int8_ref(
-                    xq, g["w"], u["w"], xs, g["ws"], u["ws"], requant_scale=rq)
-            return lambda xq, xs, g, u, rq: tile_gemm_dual_int8_requant(
-                xq, g["w"], u["w"], xs, g["ws"], u["ws"], rq)
-        if ref:
-            return lambda xq, xs, g, u, rq: nm_spmm_dual_int8_ref(
-                xq, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
-                g["ws"], u["ws"], requant_scale=rq)
-        return lambda xq, xs, g, u, rq: nm_spmm_dual_int8_requant(
-            xq, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
-            g["ws"], u["ws"], rq)
+    def library(xq, xs, lfs, cat=False):
+        """The library call's operands: one weight each (or the gate-up
+        pair's two, side by side)."""
+        def dense(lf):
+            if not cat:
+                return lf["dense"]
+            g, u = lf
+            return lay(torch.cat([as_bytes(g["dense"]), as_bytes(u["dense"])], dim=1)
+                       .view(qdtype))
+        if not fp8:
+            return int_mm_padded, [(xq, dense(lf)) for lf in lfs]
+        xq16, xs16 = pad_rows(xq, -(-xq.shape[0] // 16) * 16), \
+            pad_rows(xs, -(-xs.shape[0] // 16) * 16, 1.0)
+        return scaled_mm, [(xq16, dense(lf), xs16,
+                            torch.cat([lf[0]["ws"], lf[1]["ws"]], 1) if cat else lf["ws"])
+                           for lf in lfs]
 
     def wbytes(k, o, n):
         kc = k * n // 4
         return kc * o + (kc * o // 4 if n < 4 else 0) + 4 * o   # values + meta + scale
 
-    names = {4: ("tile_gemm_int8", "tile_gemm_dual_int8", "tile_gemm_dual_int8_requant"),
-             2: ("nm_spmm_int8", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant"),
-             1: ("nm_spmm_int8", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant")}
+    names = {4: (f"tile_gemm_{sfx}", f"tile_gemm_dual_{sfx}", f"tile_gemm_dual_{sfx}_requant"),
+             2: (f"nm_spmm_{sfx}", f"nm_spmm_dual_{sfx}", f"nm_spmm_dual_{sfx}_requant"),
+             1: (f"nm_spmm_{sfx}", f"nm_spmm_dual_{sfx}", f"nm_spmm_dual_{sfx}_requant")}
     for b in (8, 64, 256):
         for n in (4, 2, 1):
             for k, o in ((d, cfg.attn_dim), (d, cfg.kv_dim), (ff, d)):
-                xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16))
+                xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16),
+                                       qdtype)
                 lfs = [leaf(k, o, n) for _ in range(copies_for(wbytes(k, o, n)))]
                 run, ref = single(n), single(n, ref=True)
                 raw, raw_ref = run(xq, None, lfs[0]), ref(xq, None, lfs[0])
                 torch.cuda.synchronize()
-                if raw.dtype != torch.int32 or not torch.equal(raw, raw_ref):
-                    fail(f"{names[n][0]} B={b} K={k} O={o} n={n}: raw int32 accumulator "
-                         f"not bitwise equal to its plain version")
+                raw_err = scaled_err(raw, raw_ref)
+                # int8: the exact int32 accumulator; fp8: fp32 sums in another order
+                if raw.dtype != raw_ref.dtype or (not fp8 and not torch.equal(raw, raw_ref)) \
+                        or not raw_err <= TOL:
+                    fail(f"{names[n][0]} B={b} K={k} O={o} n={n}: raw accumulator off its "
+                         f"plain version ({raw.dtype}, scaled error {raw_err:.3e})")
                 ops = [(xq, xs, lf) for lf in lfs]
-                lib_ops = [(xq, lf["dense"]) for lf in lfs]
+                lib_fn, lib_ops = library(xq, xs, lfs)
                 kc = k * n // 4
                 record(names[n][0], b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                       time_ms(run, ops), time_ms(ref, ops), time_ms(int_mm_padded, lib_ops),
+                       time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                        b * k + 4 * b + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o,
-                       peak=INT8_OPS, exact=True)
+                       peak=FP8_OPS if fp8 else INT8_OPS, exact=not fp8,
+                       raw_scaled_err=raw_err)
+                del lfs, ops, lib_ops
             # the gate-up pair at (d, ff)
             k, o = d, ff
-            xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16))
+            xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16),
+                                   qdtype)
             pairs = [(leaf(k, o, n), leaf(k, o, n))
                      for _ in range(copies_for(2 * wbytes(k, o, n)))]
             run, ref = dual(n), dual(n, ref=True)
             ops = [(xq, xs, g, u) for g, u in pairs]
-            cats = [(xq, lay(torch.cat([g["dense"], u["dense"]], dim=1)))
-                    for g, u in pairs[:2]]
+            lib_fn, lib_ops = library(xq, xs, pairs[:2], cat=True)
             kc = k * n // 4
             record(names[n][1], b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                   time_ms(run, ops), time_ms(ref, ops), time_ms(int_mm_padded, cats),
+                   time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                    b * k + 4 * b + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o,
-                   peak=INT8_OPS)
-            # the same pair with the requant:int8 flush, against the scale a
-            # calibration on these rows would give w_out: absmax / 127
-            rq = ref_fp32(n)(*ops[0]).abs().amax() / 127
-            run_q, ref_q = requant(n), requant(n, ref=True)
+                   peak=FP8_OPS if fp8 else INT8_OPS)
+            # the same pair with the requant:<dtype> flush, against the scale a
+            # calibration on these rows would give w_out: absmax / qmax
+            rq = dual(n, ref=True, out_dtype=torch.float32)(*ops[0]).abs().amax() / qmax
+            run_q, ref_q = dual(n, requant=True), dual(n, ref=True, requant=True)
             ops_q = [op + (rq,) for op in ops]
             got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
             torch.cuda.synchronize()
-            if got.dtype != torch.int8 or want.dtype != torch.int8:
-                fail(f"{names[n][2]} B={b}: codes of {got.dtype} / {want.dtype}, not int8")
-            delta = (got.int() - want.int()).abs()
+            if got.dtype != qdtype or want.dtype != qdtype:
+                fail(f"{names[n][2]} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
+            delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
             share = (delta == 1).float().mean().item()
             if delta.max().item() > 1 or share > REQUANT_SHARE:
                 fail(f"{names[n][2]} B={b} n={n}: codes off by up to {delta.max().item()} "
-                     f"on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
+                     f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
             record(names[n][2], b, k, o, n, got, want, time_ms(run_q, ops_q),
-                   time_ms(ref_q, ops_q), time_ms(int_mm_padded, cats),
+                   time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
                    b * k + 4 * b + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o,
-                   peak=INT8_OPS)
-            rows[-1]["off_by_one_share"] = share
-            del pairs, ops, ops_q, cats
+                   peak=FP8_OPS if fp8 else INT8_OPS, tol=None if fp8 else TOL,
+                   off_by_one_share=share)
+            del pairs, ops, ops_q, lib_ops
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -534,19 +619,19 @@ def attention_phase(cfg, gen, card_line, rows):
     torch.cuda.synchronize()
 
 
-def quantize_pass(width: int, rows: int = 8) -> dict:
+def quantize_pass(width: int, dtype, rows: int = 8) -> dict:
     """What the activation quantize pass (plain torch, ``quantize_rows``,
-    run once per int8 linear site and step) costs on the card: kernel
-    launches and device ms of one call at decode width."""
+    run once per quantized linear site and step) costs on the card for one
+    class: kernel launches and device ms of one call at decode width."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.quantize import quantize_rows
 
     x = torch.randn((rows, width), device="cuda").bfloat16()
-    quantize_rows(x)
+    quantize_rows(x, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        quantize_rows(x)
+        quantize_rows(x, dtype)
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
@@ -557,7 +642,8 @@ def quantize_pass(width: int, rows: int = 8) -> dict:
 
 # --------------------------------------------------------------- phase 3
 LAYOUTS = tuple((layout, sparsity, qdtype, static)
-                for qdtype, static in ((None, False), ("int8", False), ("int8", True))
+                for qdtype, static in ((None, False), ("int8", False), ("int8", True),
+                                       ("fp8", False), ("fp8", True))
                 for layout, sparsity in (("dense", None), ("compressed", (2, 4)),
                                          ("compressed", (1, 4))))
 # the kernels each class runs while serving (decode and prefill)
@@ -567,10 +653,16 @@ LAYOUT_KERNELS = {("dense", None, False): ("tile_gemm", "tile_gemm_dual"),
                   ("compressed", "int8", False): ("nm_spmm_int8", "nm_spmm_dual_int8"),
                   ("dense", "int8", True): ("tile_gemm_int8", "tile_gemm_dual_int8_requant"),
                   ("compressed", "int8", True): ("nm_spmm_int8",
-                                                 "nm_spmm_dual_int8_requant")}
+                                                 "nm_spmm_dual_int8_requant"),
+                  ("dense", "fp8", False): ("tile_gemm_fp8", "tile_gemm_dual_fp8"),
+                  ("compressed", "fp8", False): ("nm_spmm_fp8", "nm_spmm_dual_fp8"),
+                  ("dense", "fp8", True): ("tile_gemm_fp8", "tile_gemm_dual_fp8_requant"),
+                  ("compressed", "fp8", True): ("nm_spmm_fp8", "nm_spmm_dual_fp8_requant")}
 # ... and those the static runs' calibration forward runs (dynamic scales)
-CALIB_KERNELS = {"dense": ("tile_gemm_int8", "tile_gemm_dual_int8", "flash_attention"),
-                 "compressed": ("nm_spmm_int8", "nm_spmm_dual_int8", "flash_attention")}
+CALIB_KERNELS = {(layout, q): (f"{kind}_{q}", f"{kind}_dual_{q}", "flash_attention")
+                 for layout, kind in (("dense", "tile_gemm"), ("compressed", "nm_spmm"))
+                 for q in ("int8", "fp8")}
+QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 CALIB_TOKENS = 32                # per slot: (slots, min(max_len, 32)), as the launcher
 
 
@@ -626,7 +718,7 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static):
     calib = None
     if static:
         log(f"[{tag}] calibration launches: {json.dumps(calib_counts)}")
-        check_launches(f"{tag} calibration", calib_counts, CALIB_KERNELS[layout])
+        check_launches(f"{tag} calibration", calib_counts, CALIB_KERNELS[layout, qdtype])
         if calib_counts["flash_attention"] != cfg.num_layers:
             fail(f"[{tag}] flash_attention launched {calib_counts['flash_attention']} "
                  f"times in calibration, not once per layer ({cfg.num_layers})")
@@ -645,7 +737,7 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static):
     log(f"[{tag}] dispatch engine plan:")
     for line in report:
         log(line)
-    want = "_int8[cuda]" if qdtype else "[cuda]"
+    want = f"_{qdtype}[cuda]" if qdtype else "[cuda]"
     off = [line for line in report if want not in line
            or (static and "act-scales=static" not in line)]
     if off:
@@ -681,7 +773,8 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static):
         result["calibration"] = calib
     log(json.dumps(result))
     result["decode_profile"] = profile_decode(prepared, cfg, spec, tag, static)
-    tol = (STATIC_TIER_TOL if static else INT8_TIER_TOL) if qdtype else TIER_TOL
+    tol = {None: TIER_TOL, "int8": STATIC_TIER_TOL if static else INT8_TIER_TOL,
+           "fp8": FP8_TIER_TOL}[qdtype]
     tiers = tier_check(prepared, cfg, spec, tag, tol)
     return result, tiers
 
@@ -748,11 +841,12 @@ class CallCounter:
             setattr(mod, name, real)
 
 
-def check_static_sites(cfg, tag, step) -> dict:
+def check_static_sites(cfg, tag, step, narrow_dtype) -> dict:
     """One decode step on static scales: no per-row quantize pass; wq, wk,
     wv, wo and the gate-up pair (one shared quantize) quantize against
-    their static scales; every w_out contracts int8 rows as they came out
-    of the gate-up dual's requantizing flush.  24 x 6 = 144 sites."""
+    their static scales; every w_out contracts the narrow rows (int8 or
+    e4m3) as they came out of the gate-up dual's requantizing flush.
+    24 x 6 = 144 sites."""
     from repro_torch.core import quantize
     from repro_torch.kernels import dispatch
 
@@ -761,10 +855,10 @@ def check_static_sites(cfg, tag, step) -> dict:
         step()
     torch.cuda.synchronize()
     layers = cfg.num_layers
-    narrow = [k for dt, k in cc.fed if dt == torch.int8]
+    narrow = [k for dt, k in cc.fed if dt == narrow_dtype]
     res = {"dynamic_quantize_calls": cc.calls.get("quantize_rows", 0),
            "static_quantize_calls": cc.calls.get("quantize_rows_static", 0),
-           "w_out_fed_int8": len(narrow),
+           "w_out_fed_narrow": len(narrow),
            "static_sites": cc.calls.get("quantize_rows_static", 0) + len(narrow)}
     log(f"[{tag}] static sites of one decode step: {json.dumps(res)}")
     if (res["dynamic_quantize_calls"] or res["static_quantize_calls"] != 5 * layers
@@ -799,7 +893,7 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3):
         step()
         torch.cuda.synchronize()
         if static:
-            sites = check_static_sites(cfg, tag, step)
+            sites = check_static_sites(cfg, tag, step, QDTYPES[spec.qdtype])
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -912,13 +1006,15 @@ def main():
     card_line = card()
     t0 = time.perf_counter()
     rows = kernel_phase(cfg, gen, card_line)
-    int8_kernel_phase(cfg, gen, card_line, rows)
+    quantized_kernel_phase(cfg, gen, card_line, rows, torch.int8)
+    quantized_kernel_phase(cfg, gen, card_line, rows, FP8)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     attention_phase(cfg, gen, card_line, rows)
     log(f"attention phase {time.perf_counter() - t0:.1f}s")
-    log(f"activation quantize pass (one call, B=8, K={cfg.d_model}): "
-        f"{json.dumps(quantize_pass(cfg.d_model))}")
+    for q, dt in QDTYPES.items():
+        log(f"activation quantize pass, {q} (one call, B=8, K={cfg.d_model}): "
+            f"{json.dumps(quantize_pass(cfg.d_model, dt))}")
 
     served, tiers, launches = [], [], {}
     for layout, sparsity, qdtype, static in LAYOUTS:
@@ -938,19 +1034,19 @@ def main():
     d, ff = cfg.d_model, cfg.d_ff
     singles = [(d, cfg.attn_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.attn_dim, d), (ff, d)]
     entries = []
-    for name, n, shapes in (("tile_gemm", 4, singles), ("tile_gemm_dual", 4, [(d, ff)]),
-                            ("nm_spmm", 2, singles), ("nm_spmm_dual", 2, [(d, ff)]),
-                            ("tile_gemm_int8", 4, singles),
-                            ("tile_gemm_dual_int8", 4, [(d, ff)]),
-                            ("nm_spmm_int8", 2, singles),
-                            ("nm_spmm_dual_int8", 2, [(d, ff)]),
-                            ("tile_gemm_dual_int8_requant", 4, [(d, ff)]),
-                            ("nm_spmm_dual_int8_requant", 2, [(d, ff)])):
+    kernel_rows = [("tile_gemm", 4, singles), ("tile_gemm_dual", 4, [(d, ff)]),
+                   ("nm_spmm", 2, singles), ("nm_spmm_dual", 2, [(d, ff)])]
+    for q in ("int8", "fp8"):
+        kernel_rows += [(f"tile_gemm_{q}", 4, singles), (f"tile_gemm_dual_{q}", 4, [(d, ff)]),
+                        (f"nm_spmm_{q}", 2, singles), (f"nm_spmm_dual_{q}", 2, [(d, ff)]),
+                        (f"tile_gemm_dual_{q}_requant", 4, [(d, ff)]),
+                        (f"nm_spmm_dual_{q}_requant", 2, [(d, ff)])]
+    for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
             "name": name, "route": "cuda",
-            "source": SOURCES["float" if name in ("tile_gemm", "tile_gemm_dual", "nm_spmm",
-                                                  "nm_spmm_dual") else "int8"],
+            "source": SOURCES["fp8" if "_fp8" in name else "int8" if "_int8" in name
+                              else "float"],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["kernel_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],

@@ -83,6 +83,9 @@ def compress_nm(w: torch.Tensor, n: int, m: int) -> NMCompressed:
 def decompress(values: torch.Tensor, meta: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """Expand ``(K_c, O)`` values/meta to the dense ``(K_eff, O)`` matrix:
     each kept value lands in its in-block slot, every other slot is 0."""
+    if values.dtype == torch.float8_e4m3fn:
+        # scatter has no float8 kernels: expand the bytes (0x00 is +0.0)
+        return decompress(values.view(torch.uint8), meta, n, m).view(values.dtype)
     kc, o = values.shape
     b = kc // n
     idx = meta.reshape(b, n, o).long()

@@ -3,9 +3,8 @@
 
 - ``int8``: symmetric integers in [-127, 127]; the kernels contract
   int8 x int8 into an exact int32 accumulator.
-- ``fp8`` (``torch.float8_e4m3fn``): floats up to +-448.  Its numerics
-  are ported here (pure torch); its kernels and its serving path are not
-  yet, so the dispatch engine and ``ServingSpec`` refuse it.
+- ``fp8`` (``torch.float8_e4m3fn``): floats up to +-448; the kernels
+  contract e4m3 x e4m3 into an fp32 accumulator.
 
 Weights are quantized offline with per-output-channel symmetric scales,
 ``w ~= q.float() * scale`` with ``scale = max(absmax / qmax, tiny)``;

@@ -9,8 +9,9 @@ only.
 - Float arrays keep their dtype.  bf16 arrives as numpy's ``bfloat16``
   extension dtype and crosses as a ``uint16`` view, becoming
   ``torch.bfloat16`` through ``Tensor.view`` (bit-exact, as the JAX
-  package's checkpoint store does it).  Integer arrays (``meta_packed``
-  uint8, indices) keep their dtype.
+  package's checkpoint store does it); float8_e4m3fn crosses the same way
+  as a ``uint8`` view.  Integer arrays (``meta_packed`` uint8, indices)
+  keep their dtype.
 - Leaves that are already tensors (a loaded conversion artifact) pass
   through.
 - A full model tree ``{"embed", "unembed", "final_norm", "stages"}``
@@ -38,12 +39,14 @@ __all__ = ["tensor_from_numpy", "params_from_numpy"]
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    """One numpy array (or scalar) -> tensor, bf16 bit-exact."""
+    """One numpy array (or scalar) -> tensor, bf16 and fp8 bit-exact."""
     if isinstance(a, torch.Tensor):
         return a if device is None else a.to(device)
     a = np.array(a)    # a writable, contiguous copy (JAX hands out read-only views)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device) if device is not None else t

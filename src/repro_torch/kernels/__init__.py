@@ -20,6 +20,12 @@ KERNELS = {
     "nm_spmm_dual_int8": _nm_spmm.nm_spmm_dual_int8,
     "tile_gemm_dual_int8_requant": _tile_gemm.tile_gemm_dual_int8_requant,
     "nm_spmm_dual_int8_requant": _nm_spmm.nm_spmm_dual_int8_requant,
+    "tile_gemm_fp8": _tile_gemm.tile_gemm_fp8,
+    "tile_gemm_dual_fp8": _tile_gemm.tile_gemm_dual_fp8,
+    "nm_spmm_fp8": _nm_spmm.nm_spmm_fp8,
+    "nm_spmm_dual_fp8": _nm_spmm.nm_spmm_dual_fp8,
+    "tile_gemm_dual_fp8_requant": _tile_gemm.tile_gemm_dual_fp8_requant,
+    "nm_spmm_dual_fp8_requant": _nm_spmm.nm_spmm_dual_fp8_requant,
     "flash_attention": _flash_attention.flash_attention,
 }
 

@@ -30,10 +30,10 @@ from typing import Dict, Tuple
 import torch
 
 __all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG",
-           "out_kind"]
+           "out_kind", "QUANT_CLASSES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm.cu", "gemm_int8.cu", "flash_attention.cu")
+SOURCES = ("gemm.cu", "gemm_int8.cu", "gemm_fp8.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,12 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
+    },
+    "gemm_fp8.cu": {
+        "vg_tile_gemm_fp8": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_dual_fp8": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "vg_nm_spmm_fp8": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
     },
     "flash_attention.cu": {
         "vg_flash_attention": (_P,) * 4 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
@@ -169,9 +175,10 @@ def block_rows(b: int) -> int:
 def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor,
                    block_b: int, x_dtype: torch.dtype = torch.bfloat16) -> None:
     """Everything a launch needs that the C side cannot see: one CUDA
-    device, activations of ``x_dtype`` (bf16, or int8 for the quantized
-    kernels), contiguous 16-byte-aligned operands, a known row tile.
-    Shapes and the other operands' dtypes are checked by each wrapper."""
+    device, activations of ``x_dtype`` (bf16 for the float kernels, the
+    storage dtype, int8 or float8_e4m3fn, for the quantized ones),
+    contiguous 16-byte-aligned operands, a known row tile.  Shapes and the
+    other operands' dtypes are checked by each wrapper."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: operands must be CUDA or CPU tensors, "
                          f"got {x.device}")
@@ -191,21 +198,34 @@ def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor,
 
 
 def check_tiles(kernel: str, k: int, o: int) -> None:
+    """K and O multiples of the kernels' 64 x 64 tile (every class: the
+    bf16 ones, and int8 and e4m3 leaves, one byte per value)."""
     if k % BLOCK_K or o % BLOCK_O:
         raise ValueError(f"{kernel}: K={k} and O={o} must be multiples of "
                          f"{BLOCK_K} and {BLOCK_O}")
 
 
-# the int8 kernels' out_kind argument (gemm_int8.cu): what the flush stores
+#: the quantized classes: storage dtype -> (C source, suffix of its kernels'
+#: names, dtype of the raw accumulator).  int8 sums into an exact int32,
+#: e4m3 into fp32.
+QUANT_CLASSES = {
+    torch.int8: ("gemm_int8.cu", "int8", torch.int32),
+    torch.float8_e4m3fn: ("gemm_fp8.cu", "fp8", torch.float32),
+}
+
+# the quantized kernels' out_kind argument (gemm_int8.cu, gemm_fp8.cu):
+# what the flush stores.  OUT_RAW is the class's raw accumulator (int32 |
+# fp32), OUT_REQUANT its narrow dtype (int8 | e4m3) against the consumer's
+# static scale.
 _OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1}
 OUT_RAW = 2
 OUT_REQUANT = 3
 
 
 def out_kind(kernel: str, out_dtype: torch.dtype, raw: bool) -> int:
-    """The int8 kernels store bf16 or fp32 scaled outputs, or the raw
-    int32 accumulator (raw mode); the requantizing duals pass
-    ``OUT_REQUANT`` themselves."""
+    """The quantized kernels store bf16 or fp32 scaled outputs, or the raw
+    accumulator (raw mode); the requantizing duals pass ``OUT_REQUANT``
+    themselves."""
     if raw:
         return OUT_RAW
     if out_dtype not in _OUT_KINDS:

@@ -1,0 +1,467 @@
+// Hand-written Hopper (sm_90a) fp8 kernels for the repro_torch fp8
+// execution class (e4m3 weights x e4m3 activations, fp32 accumulation):
+// tile_gemm_fp8, tile_gemm_dual_fp8, nm_spmm_fp8 and nm_spmm_dual_fp8,
+// the duals with a requantizing flush.
+//
+// Replaces (JAX package, Pallas on the TPU):
+//   tile_gemm_fp8       repro/kernels/tile_gemm/kernel.py::tile_gemm_fp8
+//                       (_tile_gemm_quantized, _gemm_q_raw_kernel, _gemm_kernel)
+//   tile_gemm_dual_fp8  repro/kernels/tile_gemm/kernel.py::tile_gemm_dual,
+//                       quantized branch with acc_dtype=float32 (_gemm_dual_kernel)
+//   nm_spmm_fp8         repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
+//                       (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel)
+//   nm_spmm_dual_fp8    repro/kernels/nm_spmm/kernel.py::nm_spmm_dual,
+//                       quantized branch with acc_dtype=float32 (_spmm_dual_kernel)
+// and, in the duals' flush, the requant:float8_e4m3fn point of
+// repro/kernels/epilogue.py::flush_tile / requant_rows.
+//
+// ONE templated body serves all four, as in gemm_int8.cu: the template
+// takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
+// meta) and single or dual (gate-up, two weights against one X tile).
+//
+// What it computes.  A block of 128 threads (4 warps) owns a BM x 64 tile
+// of Y (BM = 16 for decode-sized batches, 64 for prefill chunks) and
+// loops over K in steps of 64 inside the block, the next step's tiles in
+// flight into registers while the tensor cores contract the current one.
+// There is no wmma fragment for e4m3, so the product is the card's fp8
+// instruction itself, mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32
+// (sm_89 and later): each warp owns 16 output columns (two n8 tiles) and
+// every m16 row tile.  The products of two e4m3 values are exact in fp32;
+// the tensor cores' own running sum is reported to keep fewer mantissa
+// bits than fp32, so each 64-deep K step (two k32 instructions) starts
+// from zero and is added into a separate fp32 register accumulator
+// (promotion every 64 K): at K = 8192 the tensor cores sum 64 products at
+// a time and the remaining 128 partial sums are plain fp32 adds.
+// The flush runs from the fragments in the JAX kernels' order: t =
+// acc * xs[row] * ws[col] (left to right, fp32, __fmul_rn), then + bias ->
+// silu | gelu, or for a dual silu(t_g) * t_u, then one cast (bf16 or fp32)
+// and a store masked to the rows < B.  With no scales (raw mode) it
+// stores the fp32 accumulator itself.  Only the accumulator's summation
+// order differs from the plain version.
+//
+// Requantize (the duals only; K0's requant:float8_e4m3fn lattice point).
+// When the next linear quantizes against a calibrated static scale, the
+// dual's flush emits its rows already in e4m3 against that scale: q =
+// y / rq (__fdiv_rn), clipped to +-448, then the round-to-nearest-even
+// cast (__nv_cvt_float_to_fp8, satfinite), so the codes are the plain
+// version's on the same fp32 y.  rq is read from device memory (no host
+// sync per site).
+//
+// Operand layouts.  .row.col wants each thread's A bytes consecutive
+// along K (X (B, K) already is) and its B bytes consecutive along K too,
+// but W is (K, O) with O contiguous.  So the weight tile is stored
+// transposed in shared memory, [64 O][64 K bytes]: each thread holds
+// four consecutive K rows of 8 O bytes and writes one 32-bit word (four
+// K bytes) per column, built with __byte_perm.  The N:M expansion writes
+// its four dense rows the same way.  Rows of both tiles are padded to 80
+// bytes, so the fragment loads (8 rows x 4 words per instruction) hit 32
+// distinct banks.  At decode the m16 row tile is half masked (B = 8);
+// the kernel is bound by weight bytes, not by tensor-core rate, so the
+// operands are not swapped.
+//
+// N:M weights.  The loader reads the values tile (64*n/4 rows of e4m3)
+// and the packed meta tile (64*n/16 rows, four 2-bit in-block indices
+// per byte, low bits first) and expands them on chip:
+// w[(r/n)*4 + idx(r), o] = values[r, o].  The dense weight never exists
+// in device memory.  fp8 is one byte like int8, so the loads and the
+// byte mux are gemm_int8.cu's.
+//
+// What bounds it on an H100.  At decode (B = 8) every weight byte is read
+// once for 2 fp8 operations per row of X, far below the ridge (~590 fp8
+// operations per byte at 1979 TFLOP/s over 3.35 TB/s), so the weight
+// bytes over 3.35 TB/s bound it: the same bytes as int8, e.g. 1.27 /
+// 0.80 / 0.41 us at (K, O) = (2048, 2048) dense / 2:4 / 1:4.  What the
+// design does about it: e4m3 halves the bf16 weight bytes, the N:M
+// loader moves n/4 of them plus 2 bits per kept value and expands on
+// chip, loads are 8- and 16-byte vectors.  As in gemm_int8.cu the launch
+// is O/64 blocks with a serial K loop: split-K, TMA rings and wgmma are
+// later work.
+
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flush.cuh"
+
+namespace {
+
+constexpr int BK = 64;          // K step (e4m3 columns of X, dense rows of W)
+constexpr int BN = 64;          // output columns per block
+constexpr int NTHREADS = 128;   // 4 warps, each owning 16 output columns
+constexpr int PITCH = 80;       // bytes per shared row: 64 K bytes + 16 of padding
+constexpr float E4M3_MAX = 448.f;
+
+// out_kind of the C interface
+enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_RAW = 2, OUT_E4M3 = 3 };
+
+// X tile: BM rows x 64 bytes = four 16-byte chunks per row.  Thread t
+// loads chunk t%4 of row t/4 (+32 i); rows at or beyond B read as zero.
+template <int BM>
+struct XLoader {
+  static constexpr int NI = (BM * 4 + NTHREADS - 1) / NTHREADS;
+  const uint8_t* x;
+  int b, k;
+  uint4 r[NI];
+
+  __device__ __forceinline__ void load(int k0, int m0, int tid) {
+    const int c = k0 + (tid & 3) * 16;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid >> 2) + 32 * i;
+      const int row = m0 + rl;
+      r[i] = (rl < BM && row < b) ? *reinterpret_cast<const uint4*>(x + (size_t)row * k + c)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* xs, int tid) const {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid >> 2) + 32 * i;
+      if (rl < BM) *reinterpret_cast<uint4*>(xs + rl * PITCH + (tid & 3) * 16) = r[i];
+    }
+  }
+};
+
+// Byte j of each of four words, as one word (w0's byte lowest).
+__device__ __forceinline__ uint32_t gather_byte(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                uint32_t w3, int j) {
+  const uint32_t sel = j | ((j + 4) << 4);
+  const uint32_t lo = __byte_perm(w0, w1, sel);   // bytes 0, 1 = w0.j, w1.j
+  const uint32_t hi = __byte_perm(w2, w3, sel);   // bytes 0, 1 = w2.j, w3.j
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+// Four consecutive K rows (k_base + p) of 8 O bytes (o_base + c, byte c of
+// rows[p]) -> the transposed tile [O][K]: one 32-bit word per column.
+__device__ __forceinline__ void store_transposed(uint8_t* ws, const uint2 (&rows)[4],
+                                                 int o_base, int k_base) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint32_t word =
+        c < 4 ? gather_byte(rows[0].x, rows[1].x, rows[2].x, rows[3].x, c)
+              : gather_byte(rows[0].y, rows[1].y, rows[2].y, rows[3].y, c - 4);
+    *reinterpret_cast<uint32_t*>(ws + (o_base + c) * PITCH + k_base) = word;
+  }
+}
+
+// Dense (K, O) e4m3 weight: thread t loads K rows 4*(t/8)..+3 of the 8
+// columns 8*(t%8)..+7 (8-byte loads; a warp reads 64 contiguous bytes of
+// each of its rows).
+struct DenseLoader {
+  const uint8_t* w;
+  const uint8_t* unused_meta;
+  int o;
+  uint2 r[4];
+
+  __device__ __forceinline__ void load(int k0, int n0, int tid) {
+    const int row = k0 + 4 * (tid >> 3);
+    const int c = n0 + 8 * (tid & 7);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      r[p] = *reinterpret_cast<const uint2*>(w + (size_t)(row + p) * o + c);
+  }
+  __device__ __forceinline__ void store(uint8_t* ws, int tid) const {
+    store_transposed(ws, r, 8 * (tid & 7), 4 * (tid >> 3));
+  }
+};
+
+// Compressed N:4 e4m3 weight: values (K*N/4, O), meta (K*N/16, O) uint8.
+// Thread t expands M-block g = t/8 (dense rows 4g..4g+3 of the tile) for
+// the 8 columns 8*(t%8)..+7: it holds the block's N value words and their
+// meta bytes (8 bytes each).
+template <int N>
+struct NMLoader {
+  const uint8_t* v;
+  const uint8_t* meta;
+  int o;
+  uint2 rv[N];
+  uint2 rm[N];
+
+  __device__ __forceinline__ void load(int k0, int n0, int tid) {
+    const int c = n0 + (tid & 7) * 8;
+    const int r0 = (k0 / 4 + (tid >> 3)) * N;   // first compressed row of block g
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      const int r = r0 + s;
+      rv[s] = *reinterpret_cast<const uint2*>(v + (size_t)r * o + c);
+      rm[s] = *reinterpret_cast<const uint2*>(meta + (size_t)(r >> 2) * o + c);
+    }
+  }
+  // The on-chip M:1 mux: slot p of the block receives the kept value whose
+  // 2-bit index is p, else 0 (+0.0 in e4m3).  k0 is a multiple of 64, so
+  // the global compressed row's position inside its meta byte is
+  // (g*N + s) % 4.
+  __device__ __forceinline__ void store(uint8_t* ws, int tid) const {
+    const int g = tid >> 3;
+    uint2 rows[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t out[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int s = 0; s < N; ++s) {
+          const int sh = 2 * ((g * N + s) & 3);
+          const uint32_t vw = q == 0 ? rv[s].x : rv[s].y;
+          const uint32_t mw = q == 0 ? rm[s].x : rm[s].y;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (((mw >> (8 * j + sh)) & 3u) == (uint32_t)p) word |= vw & (0xffu << (8 * j));
+          }
+        }
+        out[q] = word;
+      }
+      rows[p] = make_uint2(out[0], out[1]);
+    }
+    store_transposed(ws, rows, 8 * (tid & 7), 4 * g);
+  }
+};
+
+// d += A (16 x 32, row) * B (32 x 8, col), e4m3 in, fp32 out.  Fragments
+// (lane = 4 * grp + tig): a0 = A[grp][4tig..+3], a1 = A[grp+8][..],
+// a2 = A[grp][16+4tig..+3], a3 = A[grp+8][16+..]; b0 = B[4tig..+3][grp],
+// b1 = B[16+4tig..+3][grp]; d0, d1 = D[grp][2tig, +1], d2, d3 = D[grp+8][..].
+__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float dequant(float acc, float xs, float ws) {
+  return __fmul_rn(__fmul_rn(acc, xs), ws);
+}
+
+// requant_rows for e4m3: clip(y / scale, -448, 448), then the RNE cast
+__device__ __forceinline__ uint8_t requant_e4m3(float y, float scale) {
+  const float q = fminf(fmaxf(__fdiv_rn(y, scale), -E4M3_MAX), E4M3_MAX);
+  return static_cast<uint8_t>(__nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3));
+}
+
+template <int BM, bool DUAL, class WL>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_fp8_kernel(const uint8_t* __restrict__ x,
+                const uint8_t* __restrict__ wg, const uint8_t* __restrict__ mg,
+                const uint8_t* __restrict__ wu, const uint8_t* __restrict__ mu,
+                const float* __restrict__ xs, const float* __restrict__ wsg,
+                const float* __restrict__ wsu, const float* __restrict__ bias,
+                const float* __restrict__ rq, void* __restrict__ y, int b, int k, int o,
+                int act, int out_kind) {
+  constexpr int MF = BM / 16;     // m16 row tiles
+  constexpr int NF = 2;           // n8 column tiles per warp
+  constexpr int NW = DUAL ? 2 : 1;
+  __shared__ __align__(16) uint8_t xt[BM * PITCH];
+  __shared__ __align__(16) uint8_t wt[NW][BN * PITCH];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int grp = (tid & 31) >> 2;
+  const int tig = tid & 3;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+
+  XLoader<BM> xl{x, b, k};
+  WL lg{wg, mg, o};
+  WL lu{wu, mu, o};
+
+  float acc[NW][MF][NF][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[w][i][j][e] = 0.f;
+
+  xl.load(0, m0, tid);
+  lg.load(0, n0, tid);
+  if constexpr (DUAL) lu.load(0, n0, tid);
+  for (int k0 = 0; k0 < k; k0 += BK) {
+    xl.store(xt, tid);
+    lg.store(wt[0], tid);
+    if constexpr (DUAL) lu.store(wt[1], tid);
+    __syncthreads();
+    if (k0 + BK < k) {   // next step's tiles travel while this one computes
+      xl.load(k0 + BK, m0, tid);
+      lg.load(k0 + BK, n0, tid);
+      if constexpr (DUAL) lu.load(k0 + BK, n0, tid);
+    }
+    // this warp's B fragments: 16 columns, both k32 halves of the step
+    uint32_t bf[NW][NF][2][2];
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint8_t* p = wt[w] + (warp * 16 + j * 8 + grp) * PITCH + ks * 32 + tig * 4;
+          bf[w][j][ks][0] = lds32(p);
+          bf[w][j][ks][1] = lds32(p + 16);
+        }
+#pragma unroll
+    for (int i = 0; i < MF; ++i) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const uint8_t* p = xt + (i * 16 + grp) * PITCH + ks * 32 + tig * 4;
+        af[ks][0] = lds32(p);
+        af[ks][1] = lds32(p + 8 * PITCH);
+        af[ks][2] = lds32(p + 16);
+        af[ks][3] = lds32(p + 8 * PITCH + 16);
+      }
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          // the 64-deep partial sum on the tensor cores, promoted into fp32
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_e4m3(part, af[0], bf[w][j][0][0], bf[w][j][0][1]);
+          mma_e4m3(part, af[1], bf[w][j][1][0], bf[w][j][1][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[w][i][j][e] = __fadd_rn(acc[w][i][j][e], part[e]);
+        }
+    }
+    __syncthreads();
+  }
+
+  const float rq_scale = out_kind == OUT_E4M3 ? *rq : 0.f;
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + i * 16 + grp + (e >> 1) * 8;
+        if (row >= b) continue;
+        const int col = n0 + warp * 16 + j * 8 + tig * 2 + (e & 1);
+        const size_t at = (size_t)row * o + col;
+        const float ag = acc[0][i][j][e];
+        if (out_kind == OUT_RAW) {   // raw: the fp32 accumulator
+          static_cast<float*>(y)[at] = ag;
+          continue;
+        }
+        const float xr = xs[row];
+        float v = dequant(ag, xr, wsg[col]);
+        if constexpr (DUAL) {
+          v = silu(v) * dequant(acc[NW - 1][i][j][e], xr, wsu[col]);
+        } else {
+          if (bias != nullptr) v = __fadd_rn(v, bias[col]);
+          v = apply_act(v, act);
+        }
+        if (out_kind == OUT_E4M3) static_cast<uint8_t*>(y)[at] = requant_e4m3(v, rq_scale);
+        else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+        else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+      }
+}
+
+template <int BM, bool DUAL, class WL>
+int launch(const void* x, const void* wg, const void* mg, const void* wu, const void* mu,
+           const void* xs, const void* wsg, const void* wsu, const void* bias, const void* rq,
+           void* y, int b, int k, int o, int act, int out_kind, void* stream) {
+  const dim3 grid(o / BN, (b + BM - 1) / BM);
+  gemm_fp8_kernel<BM, DUAL, WL><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wg),
+      static_cast<const uint8_t*>(mg), static_cast<const uint8_t*>(wu),
+      static_cast<const uint8_t*>(mu), static_cast<const float*>(xs),
+      static_cast<const float*>(wsg), static_cast<const float*>(wsu),
+      static_cast<const float*>(bias), static_cast<const float*>(rq), y, b, k, o, act,
+      out_kind);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DUAL, class WL>
+int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void* wu,
+              const void* mu, const void* xs, const void* wsg, const void* wsu,
+              const void* bias, const void* rq, void* y, int b, int k, int o, int act,
+              int out_kind, void* stream) {
+  if (b <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 || act > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // raw mode takes no scales and no epilogue; scaled mode needs its scales
+  const bool raw = out_kind == OUT_RAW;
+  if (raw != (xs == nullptr) || raw != (wsg == nullptr) || (DUAL && raw != (wsu == nullptr)) ||
+      (raw && (act != ACT_NONE || bias != nullptr)) || out_kind < 0 || out_kind > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the requantized store: duals only, and only with the consumer's scale
+  if ((out_kind == OUT_E4M3) != (rq != nullptr) || (out_kind == OUT_E4M3 && !DUAL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bm == 16)
+    return launch<16, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b, k, o, act,
+                                out_kind, stream);
+  if (bm == 64)
+    return launch<64, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b, k, o, act,
+                                out_kind, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool DUAL>
+int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
+              const void* mu, const void* xs, const void* wsg, const void* wsu,
+              const void* bias, const void* rq, void* y, int b, int k, int o, int act,
+              int out_kind, void* stream) {
+  if (n == 1)
+    return launch_bm<DUAL, NMLoader<1>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                        k, o, act, out_kind, stream);
+  if (n == 2)
+    return launch_bm<DUAL, NMLoader<2>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                        k, o, act, out_kind, stream);
+  if (n == 4)
+    return launch_bm<DUAL, NMLoader<4>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                        k, o, act, out_kind, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes), the signatures of gemm_int8.cu's.
+// Every function launches on the given stream, allocates nothing, and
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernels do not take).  out_kind: 0 bf16, 1 fp32 (scaled,
+// xs/ws given), 2 fp32 raw accumulator (no scales), 3 e4m3 requantized
+// against *rq (duals only).
+extern "C" {
+
+int vg_tile_gemm_fp8(const void* x, const void* w, const void* xs, const void* ws,
+                     const void* bias, void* y, int b, int k, int o, int act, int out_kind,
+                     int bm, void* stream) {
+  return launch_bm<false, DenseLoader>(bm, x, w, nullptr, nullptr, nullptr, xs, ws, nullptr,
+                                       bias, nullptr, y, b, k, o, act, out_kind, stream);
+}
+
+int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const void* xs,
+                          const void* wsg, const void* wsu, const void* rq, void* y, int b,
+                          int k, int o, int out_kind, int bm, void* stream) {
+  if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bm<true, DenseLoader>(bm, x, wg, nullptr, wu, nullptr, xs, wsg, wsu, nullptr,
+                                      rq, y, b, k, o, ACT_NONE, out_kind, stream);
+}
+
+int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const void* xs,
+                   const void* ws, const void* bias, void* y, int b, int k, int o, int n,
+                   int act, int out_kind, int bm, void* stream) {
+  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, xs, ws, nullptr, bias,
+                          nullptr, y, b, k, o, act, out_kind, stream);
+}
+
+int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
+                        const void* values_u, const void* meta_u, const void* xs,
+                        const void* wsg, const void* wsu, const void* rq, void* y, int b,
+                        int k, int o, int n, int out_kind, int bm, void* stream) {
+  if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, xs, wsg, wsu, nullptr,
+                         rq, y, b, k, o, ACT_NONE, out_kind, stream);
+}
+
+const char* vg_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -7,28 +7,30 @@ dtype, backend) whether the product runs on a hand-written CUDA kernel
 (``tile_gemm`` for dense 4:4, ``nm_spmm`` for compressed N:4, and their
 fused gate-up forms) or on the plain torch reference formulation.
 
-Quantized leaves (a ``"scale"`` beside int8 values, ``core.quantize``)
-plan on their storage dtype, never on the activations': the int8 class
-runs ``tile_gemm_int8`` / ``nm_spmm_int8`` (and their gate-up duals),
-which quantize the activations here (plain torch, as the JAX package's
-is jnp): per row (``quantize_rows``), or against the leaf's calibrated
-static scale (``quantize_rows_static``) when it carries an
-``act_scale``; rows that arrive already int8, requantized by the
+Quantized leaves (a ``"scale"`` beside int8 or float8_e4m3fn values,
+``core.quantize``) plan on their storage dtype, never on the
+activations': the int8 class runs ``tile_gemm_int8`` / ``nm_spmm_int8``
+and the fp8 class ``tile_gemm_fp8`` / ``nm_spmm_fp8`` (each with its
+gate-up duals; the fp8 entries only on a CUDA device of compute
+capability 8.9 or later, ``registry.supports_fp8``).  Both quantize the
+activations here into the leaf's own dtype (plain torch, as the JAX
+package's is jnp): per row (``quantize_rows``), or against the leaf's
+calibrated static scale (``quantize_rows_static``) when it carries an
+``act_scale``; rows that arrive already narrow, requantized by the
 producing dual's flush (:func:`requant_decision`), are contracted as
 they are.  The torch tier dequantizes the weight and contracts float
 activations.  :func:`attention` routes full-sequence attention to the
 ``flash_attention`` kernel the same way.
 
 What the slice leaves out, each still planned by the JAX package only:
-shard_map placement, the fp8 class (its leaves run on the torch tier
-only; a kernel backend refuses them), the gather and rowwise layouts,
-activation sparsity, the single-GEMM requantize and autotuning.  Blocks
-are always fitted (``ReasonCode.BLOCKS_FITTED``).
+shard_map placement, the gather and rowwise layouts, activation
+sparsity, the single-GEMM requantize and autotuning.  Blocks are always
+fitted (``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
-or dtype fails a kernel's tiling contract (bf16 activations or int8
-leaves, K and O multiples of 64).
+or dtype fails a kernel's tiling contract (bf16 activations, or int8 or
+float8_e4m3fn leaves; K and O multiples of 64).
 """
 
 from __future__ import annotations
@@ -191,9 +193,10 @@ _TORCH_IMPL = {"dense": _torch_dense, "compressed": _torch_compressed}
 
 def _fit(b, ke, o, dtype, storage) -> Optional[Blocks]:
     """The kernels' tiling contract: the planned dtype is the kernel's own
-    (bf16 activations for the float kernels, int8 leaves for the int8
-    ones), K and O multiples of 64; the row tile covers any batch (the
-    ragged edge is masked in-kernel)."""
+    ``storage`` (bf16 activations for the float kernels; the leaf's int8
+    or float8_e4m3fn values, with activations quantized to the same dtype,
+    for the quantized ones), K and O multiples of 64; the row tile covers
+    any batch (the ragged edge is masked in-kernel)."""
     if dtype_name(dtype) != dtype_name(storage):
         return None
     if ke % _build.BLOCK_K or o % _build.BLOCK_O:
@@ -250,14 +253,18 @@ registry.register(KernelEntry(
     run=_run_nm_spmm, run_dual=_run_nm_spmm_dual))
 
 
-# --- the int8 class (w8a8): int8 leaves x int8 activations into an exact
-# int32 accumulator, dequantized once at the flush.  The fits accept only
-# int8 storage, so float problems never land here and float entries never
-# see an int8 leaf.
+# --- the quantized classes: int8 (w8a8) and fp8 (e4m3 weights and
+# activations).  Narrow leaves x narrow activations into the class's
+# accumulator (exact int32 | fp32), dequantized once at the flush.  The
+# fits accept only their own storage dtype, so float problems never land
+# here, float entries never see a narrow leaf and the two classes never
+# collide.
 
 def _quantize_acts(x2, params, dtype):
     """Narrow activations + (B, 1) scales: static (calibrated) when the
     leaf carries an ``act_scale``, else the dynamic per-row absmax pass.
+    ``dtype`` is the leaf's storage dtype (int8 | float8_e4m3fn):
+    activations quantize to the class the weights live in.
 
     Activations that arrive ALREADY narrow were requantized by the
     producing kernel's fused epilogue against THIS leaf's static scale:
@@ -279,55 +286,83 @@ def _w_scale(params):
     return params[quant.SCALE_KEY].reshape(1, -1)
 
 
+def _q_kernel(module, base: str, qdt, requant: bool = False):
+    """The wrapper of one quantized kernel for the leaf's storage dtype,
+    looked up at call time (``tile_gemm_dual_fp8_requant`` ...)."""
+    _, suffix, _ = _build.QUANT_CLASSES[qdt]
+    return getattr(module, f"{base}_{suffix}{'_requant' if requant else ''}")
+
+
+def _requant(epilogue) -> bool:
+    return epilogue is not None and epilogue.spec.requant is not None
+
+
 # No row padding in the adapters: the kernels mask the ragged edge.
 
-def _run_tile_gemm_int8(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
-    from .tile_gemm.kernel import tile_gemm_int8
-    xq, xs = _quantize_acts(x2, params, torch.int8)
-    return tile_gemm_int8(xq, params["w"], xs, _w_scale(params), out_dtype=out_dtype,
-                          block_b=blocks[0], **_epi_kwargs(epilogue))
+def _run_tile_gemm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+    from .tile_gemm import kernel as tk
+    qdt = params["w"].dtype
+    xq, xs = _quantize_acts(x2, params, qdt)
+    return _q_kernel(tk, "tile_gemm", qdt)(xq, params["w"], xs, _w_scale(params),
+                                           out_dtype=out_dtype, block_b=blocks[0],
+                                           **_epi_kwargs(epilogue))
 
 
-def _run_tile_gemm_dual_int8(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
-    from .tile_gemm.kernel import tile_gemm_dual_int8, tile_gemm_dual_int8_requant
+def _run_tile_gemm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
+    from .tile_gemm import kernel as tk
     # one x read, one quantize pass: the activations are shared, and the
     # gate leaf's static scale (both sites calibrate on the same rows)
     # quantizes them
-    xq, xs = _quantize_acts(x2, pg, torch.int8)
-    if epilogue is not None and epilogue.spec.requant is not None:
-        return tile_gemm_dual_int8_requant(xq, pg["w"], pu["w"], xs, _w_scale(pg),
-                                           _w_scale(pu), epilogue.requant_scale,
-                                           block_b=blocks[0])
-    return tile_gemm_dual_int8(xq, pg["w"], pu["w"], xs, _w_scale(pg), _w_scale(pu),
-                               out_dtype=out_dtype, block_b=blocks[0])
+    qdt = pg["w"].dtype
+    xq, xs = _quantize_acts(x2, pg, qdt)
+    args = (xq, pg["w"], pu["w"], xs, _w_scale(pg), _w_scale(pu))
+    if _requant(epilogue):
+        return _q_kernel(tk, "tile_gemm_dual", qdt, requant=True)(
+            *args, epilogue.requant_scale, block_b=blocks[0])
+    return _q_kernel(tk, "tile_gemm_dual", qdt)(*args, out_dtype=out_dtype,
+                                                block_b=blocks[0])
 
 
-def _run_nm_spmm_int8(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
-    from .nm_spmm.kernel import nm_spmm_int8
-    xq, xs = _quantize_acts(x2, params, torch.int8)
-    return nm_spmm_int8(xq, params["values"], params["meta_packed"], xs, _w_scale(params),
-                        cfg.n, out_dtype=out_dtype, block_b=blocks[0],
-                        **_epi_kwargs(epilogue))
+def _run_nm_spmm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm import kernel as nk
+    qdt = params["values"].dtype
+    xq, xs = _quantize_acts(x2, params, qdt)
+    return _q_kernel(nk, "nm_spmm", qdt)(xq, params["values"], params["meta_packed"], xs,
+                                         _w_scale(params), cfg.n, out_dtype=out_dtype,
+                                         block_b=blocks[0], **_epi_kwargs(epilogue))
 
 
-def _run_nm_spmm_dual_int8(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
-    from .nm_spmm.kernel import nm_spmm_dual_int8, nm_spmm_dual_int8_requant
-    xq, xs = _quantize_acts(x2, pg, torch.int8)
+def _run_nm_spmm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm import kernel as nk
+    qdt = pg["values"].dtype
+    xq, xs = _quantize_acts(x2, pg, qdt)
     args = (xq, pg["values"], pg["meta_packed"], pu["values"], pu["meta_packed"], cfg.n,
             xs, _w_scale(pg), _w_scale(pu))
-    if epilogue is not None and epilogue.spec.requant is not None:
-        return nm_spmm_dual_int8_requant(*args, epilogue.requant_scale, block_b=blocks[0])
-    return nm_spmm_dual_int8(*args, out_dtype=out_dtype, block_b=blocks[0])
+    if _requant(epilogue):
+        return _q_kernel(nk, "nm_spmm_dual", qdt, requant=True)(
+            *args, epilogue.requant_scale, block_b=blocks[0])
+    return _q_kernel(nk, "nm_spmm_dual", qdt)(*args, out_dtype=out_dtype,
+                                              block_b=blocks[0])
 
 
 registry.register(KernelEntry(
     name="tile_gemm_int8", mode="dense",
     fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.int8),
-    run=_run_tile_gemm_int8, run_dual=_run_tile_gemm_dual_int8, quantized=True))
+    run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True))
 registry.register(KernelEntry(
     name="nm_spmm_int8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.int8),
-    run=_run_nm_spmm_int8, run_dual=_run_nm_spmm_dual_int8, quantized=True))
+    run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True))
+registry.register(KernelEntry(
+    name="tile_gemm_fp8", mode="dense",
+    fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.float8_e4m3fn),
+    run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True,
+    supported=registry.supports_fp8))
+registry.register(KernelEntry(
+    name="nm_spmm_fp8", mode="compressed",
+    fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.float8_e4m3fn),
+    run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True,
+    supported=registry.supports_fp8))
 
 
 # --- flash attention: mode "attention", dims mapped as (b, ke, o) =
@@ -408,16 +443,12 @@ def plan(problem: GemmProblem, *,
         return _fallback(ReasonCode.SRSTE_TRAINING)
     if backend == registry.REFERENCE_BACKEND:
         return _fallback(ReasonCode.BACKEND_JNP)
-    if p.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError(
-            "the fp8 execution class is not ported yet: its leaves run on "
-            "the torch tier only (backend='torch')")
     if p.differentiating:
         return _fallback(ReasonCode.AUTODIFF)
     if p.b == 0:
         return _fallback(ReasonCode.EMPTY_BATCH)
     sel = registry.select(p.mode, b=p.b, ke=p.ke, o=p.o, n=p.n, m=p.m,
-                          dtype=p.dtype, backend=backend)
+                          dtype=p.dtype, backend=backend, device=p.device)
     if sel is None:
         return _fallback(ReasonCode.NO_KERNEL_FITS, where="", b=p.b, ke=p.ke,
                          o=p.o, n=p.n, m=p.m, dtype=dt_name)
@@ -466,8 +497,8 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
 
     On a kernel decision the epilogue is applied in the kernel's flush;
     the torch tier applies :func:`epilogue.apply_reference` after the
-    product.  ``x`` may arrive already quantized (the int8 rows a fused
-    requantize emitted against this leaf's ``act_scale``): a kernel
+    product.  ``x`` may arrive already quantized (the int8 or e4m3 rows a
+    fused requantize emitted against this leaf's ``act_scale``): a kernel
     contracts them as they are and returns fp32; the torch tier first
     dequantizes them with that scale."""
     dcfg = dispatch or _DEFAULT
@@ -522,9 +553,9 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
     extended with ``requant:<dtype>`` from :func:`requant_plan` on the
     next linear.  When both leaves share mode, shape, storage dtype and
     static-scale presence and the plan lands on a kernel, one dual launch
-    reads each activation tile once (int8: quantizes it once), applies
+    reads each activation tile once (quantized: quantizes it once), applies
     silu*mul to the two accumulators in fp32 and, with the requant point,
-    emits the int8 rows the next linear contracts.  Otherwise the torch
+    emits the narrow rows the next linear contracts.  Otherwise the torch
     tier runs two GEMMs and applies silu*mul to their results (rounded to
     the activation dtype first, as the JAX package's jnp tier does), and
     never the requant: the consumer's own static quantize gives the same

@@ -10,8 +10,9 @@ applied to the fp32 accumulator before the single cast and store.
 ``approximate="tanh"``).  ``requant:<dtype>`` quantizes the result
 against the CONSUMER's calibrated static activation scale
 (:func:`requant_rows`), so the next quantized linear contracts the
-narrow rows directly; among the kernels only the int8 gate-up duals
-fuse it so far.
+narrow rows directly; among the kernels the quantized gate-up duals
+fuse it (``requant:int8`` and ``requant:float8_e4m3fn``); the single-GEMM
+requantize is not ported yet.
 
 :func:`flush_tile` is the formulation the CUDA flush implements and the
 kernels' plain versions call; :func:`apply_reference` is the unfused
@@ -95,7 +96,9 @@ def _act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
 
 def requant_rows(y32: torch.Tensor, scale: torch.Tensor, dtype_name: str) -> torch.Tensor:
     """Static-scale requantization of an fp32 tile: ``clip(y32 / scale,
-    +-qmax)``, then int8 rounds half to even, then the cast.  The same
+    +-qmax)``, then int8 rounds half to even, then the cast (for
+    float8_e4m3fn: no rounding step, the cast itself rounds to nearest
+    even after the clip to +-448, so nothing saturates to NaN).  The same
     clip-before-cast contract as ``quantize.quantize_rows_static``, so
     the fused and the unfused requantize give the same codes on the same
     fp32 input.  ``scale`` is a scalar tensor (it stays on the device)."""

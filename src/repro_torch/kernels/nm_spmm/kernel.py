@@ -1,9 +1,11 @@
 """N:4 structured-sparse GEMM on Hopper: ``nm_spmm`` and the fused gate-up
-``nm_spmm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``), and their int8
+``nm_spmm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``); their int8
 twins ``nm_spmm_int8`` and ``nm_spmm_dual_int8``
-(``kernels/csrc/gemm_int8.cu``), and ``nm_spmm_dual_int8_requant``, the
-int8 dual whose flush requantizes to int8 against the next linear's
-static activation scale.
+(``kernels/csrc/gemm_int8.cu``) and fp8 (e4m3) twins ``nm_spmm_fp8`` and
+``nm_spmm_dual_fp8`` (``kernels/csrc/gemm_fp8.cu``); and
+``nm_spmm_dual_int8_requant`` / ``nm_spmm_dual_fp8_requant``, the
+quantized duals whose flush requantizes to the class's narrow dtype
+against the next linear's static activation scale.
 
 ``Y (B, O) = X (B, K_eff) @ dec(values (K_c, O), meta_packed (K_c/4, O))``
 with ``K_eff = K_c * 4 / n``.  The kernel expands each values tile into
@@ -12,9 +14,10 @@ device memory, so weight traffic is n/4 of dense plus 2 bits per kept
 value.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
-``::nm_spmm_dual`` (:437, float and int8 branches, the int8 one with
-the ``requant:int8`` flush of ``repro/kernels/epilogue.py::flush_tile``)
-and ``::nm_spmm_int8`` (:506).  CUDA tensors launch the kernel or raise; CPU
+``::nm_spmm_dual`` (:437, float, int8 and fp8 branches, the quantized
+ones with the ``requant:<dtype>`` flush of
+``repro/kernels/epilogue.py::flush_tile``), ``::nm_spmm_int8`` (:506)
+and ``::nm_spmm_fp8`` (:543).  CUDA tensors launch the kernel or raise; CPU
 tensors take the plain version from ``ref.py``.  Launch counts live in
 ``.launches`` on each wrapper.
 """
@@ -29,10 +32,13 @@ from .. import _build
 from ..epilogue import EpilogueSpec
 from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_requant_scale, check_scales,
                                 check_single_epilogue)
-from .ref import nm_spmm_dual_int8_ref, nm_spmm_dual_ref, nm_spmm_int8_ref, nm_spmm_ref
+from ..reasons import dtype_name
+from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref, nm_spmm_quantized_ref,
+                  nm_spmm_ref)
 
 __all__ = ["nm_spmm", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_dual_int8",
-           "nm_spmm_dual_int8_requant"]
+           "nm_spmm_dual_int8_requant", "nm_spmm_fp8", "nm_spmm_dual_fp8",
+           "nm_spmm_dual_fp8_requant"]
 
 _N = (1, 2, 4)
 
@@ -88,10 +94,46 @@ def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
 nm_spmm.launches = 0
 
 
-def _check_int8(kernel: str, *tensors: torch.Tensor) -> None:
-    if any(t.dtype != torch.int8 for t in tensors):
-        raise ValueError(f"{kernel}: activations and values must be int8, got "
-                         f"{[str(t.dtype) for t in tensors]}")
+def _check_storage(kernel: str, storage: torch.dtype, *tensors: torch.Tensor) -> None:
+    if any(t.dtype != storage for t in tensors):
+        raise ValueError(f"{kernel}: activations and values must be "
+                         f"{dtype_name(storage)}, got {[str(t.dtype) for t in tensors]}")
+
+
+def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_scale, n,
+                       epilogue, bias, out_dtype, block_b):
+    """The shared body of the int8 and fp8 N:M single GEMMs: checks, the
+    plain version on CPU tensors, else one launch counted on ``wrapper``."""
+    kernel = wrapper.__name__
+    source, _, raw_dtype = _build.QUANT_CLASSES[storage]
+    epi = epilogue or EpilogueSpec()
+    b, ke = x_q.shape
+    o = _check_compressed(kernel, ke, values, meta_packed, n)
+    raw = check_scales(kernel, b, o, x_scale, w_scale)
+    if raw and not epi.is_identity:
+        raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
+    check_single_epilogue(kernel, epi, bias, o)
+    _check_storage(kernel, storage, x_q, values)
+    if x_q.device.type == "cpu":
+        return nm_spmm_quantized_ref(x_q, values, meta_packed, x_scale, w_scale, n,
+                                     epilogue=epi, bias=bias, out_dtype=out_dtype)
+    bb = block_b or _build.block_rows(b)
+    kind = _build.out_kind(kernel, out_dtype, raw)
+    bias32 = None if bias is None else bias.float().contiguous()
+    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    _build.check_operands(kernel, x_q, values, meta_packed, *extra, block_b=bb,
+                          x_dtype=storage)
+    _build.check_tiles(kernel, ke, o)
+    y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
+    lib = _build.library(source)
+    with torch.cuda.device(x_q.device):
+        rc = getattr(lib, f"vg_{kernel}")(
+            x_q.data_ptr(), values.data_ptr(), meta_packed.data_ptr(), _ptr(x_scale),
+            _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act],
+            kind, bb, _build.stream_of(x_q))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y
 
 
 def nm_spmm_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
@@ -104,70 +146,62 @@ def nm_spmm_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Ten
     values expanded on chip, contracted into an exact int32 accumulator,
     dequantized once at the flush.  With no scales it returns the raw
     int32 accumulator."""
-    epi = epilogue or EpilogueSpec()
-    b, ke = x_q.shape
-    o = _check_compressed("nm_spmm_int8", ke, values, meta_packed, n)
-    raw = check_scales("nm_spmm_int8", b, o, x_scale, w_scale)
-    if raw and not epi.is_identity:
-        raise ValueError("nm_spmm_int8: the raw accumulator takes no epilogue")
-    check_single_epilogue("nm_spmm_int8", epi, bias, o)
-    _check_int8("nm_spmm_int8", x_q, values)
-    if x_q.device.type == "cpu":
-        return nm_spmm_int8_ref(x_q, values, meta_packed, x_scale, w_scale, n,
-                                epilogue=epi, bias=bias, out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
-    kind = _build.out_kind("nm_spmm_int8", out_dtype, raw)
-    bias32 = None if bias is None else bias.float().contiguous()
-    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
-    _build.check_operands("nm_spmm_int8", x_q, values, meta_packed, *extra, block_b=bb,
-                          x_dtype=torch.int8)
-    _build.check_tiles("nm_spmm_int8", ke, o)
-    y = torch.empty((b, o), dtype=torch.int32 if raw else out_dtype, device=x_q.device)
-    lib = _build.library("gemm_int8.cu")
-    with torch.cuda.device(x_q.device):
-        rc = lib.vg_nm_spmm_int8(
-            x_q.data_ptr(), values.data_ptr(), meta_packed.data_ptr(), _ptr(x_scale),
-            _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act],
-            kind, bb, _build.stream_of(x_q))
-    nm_spmm_int8.launches += 1
-    _build.check(rc, "nm_spmm_int8", lib)
-    return y
+    return _nm_spmm_quantized(nm_spmm_int8, torch.int8, x_q, values, meta_packed, x_scale,
+                              w_scale, n, epilogue, bias, out_dtype, block_b)
 
 
 nm_spmm_int8.launches = 0
 
 
-def _nm_spmm_dual_int8(wrapper, x_q, values_g, meta_g, values_u, meta_u, n, x_scale,
-                       wg_scale, wu_scale, out_dtype, block_b, requant_scale):
-    """The shared body of the two int8 N:M duals: checks, the plain
-    version on CPU tensors, else one launch counted on ``wrapper`` (int8
-    output when ``requant_scale`` is given)."""
+def nm_spmm_fp8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+                x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
+                n: int, *, epilogue: Optional[EpilogueSpec] = None,
+                bias: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32,
+                block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_int8`'s contract over float8_e4m3fn activations and
+    values: an fp32 accumulator, dequantized once at the flush; with no
+    scales the raw fp32 accumulator."""
+    return _nm_spmm_quantized(nm_spmm_fp8, torch.float8_e4m3fn, x_q, values, meta_packed,
+                              x_scale, w_scale, n, epilogue, bias, out_dtype, block_b)
+
+
+nm_spmm_fp8.launches = 0
+
+
+def _nm_spmm_dual_quantized(wrapper, storage, x_q, values_g, meta_g, values_u, meta_u, n,
+                            x_scale, wg_scale, wu_scale, out_dtype, block_b, requant_scale):
+    """The shared body of the quantized N:M duals (int8 and fp8, each with
+    and without the requantizing flush): checks, the plain version on CPU
+    tensors, else one launch counted on ``wrapper`` (output of the class's
+    narrow dtype when ``requant_scale`` is given)."""
     kernel = wrapper.__name__
+    source, suffix, _ = _build.QUANT_CLASSES[storage]
     b, ke = x_q.shape
     o = _check_compressed(kernel, ke, values_g, meta_g, n)
     if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:
         raise ValueError(f"{kernel}: gate and up layouts must match")
     if check_scales(kernel, b, o, x_scale, wg_scale, wu_scale):
         raise ValueError(f"{kernel}: the dual kernel needs its three scales")
-    _check_int8(kernel, x_q, values_g, values_u)
+    _check_storage(kernel, storage, x_q, values_g, values_u)
     if requant_scale is not None:
         check_requant_scale(kernel, requant_scale)
     if x_q.device.type == "cpu":
-        return nm_spmm_dual_int8_ref(x_q, values_g, meta_g, values_u, meta_u, n, x_scale,
-                                     wg_scale, wu_scale, out_dtype=out_dtype,
-                                     requant_scale=requant_scale)
+        return nm_spmm_dual_quantized_ref(x_q, values_g, meta_g, values_u, meta_u, n,
+                                          x_scale, wg_scale, wu_scale, out_dtype=out_dtype,
+                                          requant_scale=requant_scale)
     bb = block_b or _build.block_rows(b)
     if requant_scale is None:
         kind, rq = _build.out_kind(kernel, out_dtype, False), ()
     else:
-        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), torch.int8
+        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), storage
     _build.check_operands(kernel, x_q, values_g, meta_g, values_u, meta_u, x_scale,
-                          wg_scale, wu_scale, *rq, block_b=bb, x_dtype=torch.int8)
+                          wg_scale, wu_scale, *rq, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    lib = _build.library("gemm_int8.cu")
+    lib = _build.library(source)
     with torch.cuda.device(x_q.device):
-        rc = lib.vg_nm_spmm_dual_int8(
+        rc = getattr(lib, f"vg_nm_spmm_dual_{suffix}")(
             x_q.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(), values_u.data_ptr(),
             meta_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
             _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
@@ -183,8 +217,9 @@ def nm_spmm_dual_int8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.T
                       block_b: Optional[int] = None) -> torch.Tensor:
     """Fused int8 gate-up over two compressed weights sharing one X read:
     ``silu(deq(Xq @ dec(g))) * deq(Xq @ dec(u))``."""
-    return _nm_spmm_dual_int8(nm_spmm_dual_int8, x_q, values_g, meta_g, values_u, meta_u,
-                              n, x_scale, wg_scale, wu_scale, out_dtype, block_b, None)
+    return _nm_spmm_dual_quantized(nm_spmm_dual_int8, torch.int8, x_q, values_g, meta_g,
+                                   values_u, meta_u, n, x_scale, wg_scale, wu_scale,
+                                   out_dtype, block_b, None)
 
 
 nm_spmm_dual_int8.launches = 0
@@ -199,12 +234,44 @@ def nm_spmm_dual_int8_requant(x_q: torch.Tensor, values_g: torch.Tensor,
     """:func:`nm_spmm_dual_int8` whose flush then requantizes to int8
     against the consuming linear's static scale (a one-element float32
     tensor on the device)."""
-    return _nm_spmm_dual_int8(nm_spmm_dual_int8_requant, x_q, values_g, meta_g, values_u,
-                              meta_u, n, x_scale, wg_scale, wu_scale, torch.int8, block_b,
-                              requant_scale)
+    return _nm_spmm_dual_quantized(nm_spmm_dual_int8_requant, torch.int8, x_q, values_g,
+                                   meta_g, values_u, meta_u, n, x_scale, wg_scale, wu_scale,
+                                   torch.int8, block_b, requant_scale)
 
 
 nm_spmm_dual_int8_requant.launches = 0
+
+
+def nm_spmm_dual_fp8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
+                     values_u: torch.Tensor, meta_u: torch.Tensor, n: int,
+                     x_scale: torch.Tensor, wg_scale: torch.Tensor, wu_scale: torch.Tensor,
+                     *, out_dtype: torch.dtype = torch.float32,
+                     block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused fp8 gate-up over two compressed float8_e4m3fn weights sharing
+    one X read, two fp32 accumulators."""
+    return _nm_spmm_dual_quantized(nm_spmm_dual_fp8, torch.float8_e4m3fn, x_q, values_g,
+                                   meta_g, values_u, meta_u, n, x_scale, wg_scale, wu_scale,
+                                   out_dtype, block_b, None)
+
+
+nm_spmm_dual_fp8.launches = 0
+
+
+def nm_spmm_dual_fp8_requant(x_q: torch.Tensor, values_g: torch.Tensor,
+                             meta_g: torch.Tensor, values_u: torch.Tensor,
+                             meta_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                             wg_scale: torch.Tensor, wu_scale: torch.Tensor,
+                             requant_scale: torch.Tensor, *,
+                             block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_dual_fp8` whose flush then requantizes to e4m3
+    (clip to +-448, round to nearest even) against the consuming linear's
+    static scale."""
+    return _nm_spmm_dual_quantized(nm_spmm_dual_fp8_requant, torch.float8_e4m3fn, x_q,
+                                   values_g, meta_g, values_u, meta_u, n, x_scale, wg_scale,
+                                   wu_scale, torch.float8_e4m3fn, block_b, requant_scale)
+
+
+nm_spmm_dual_fp8_requant.launches = 0
 
 
 def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
@@ -216,11 +283,13 @@ def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
                  block_b: Optional[int] = None) -> torch.Tensor:
     """Fused gate-up over two compressed weights sharing one X read:
     ``silu(X @ dec(g)) * (X @ dec(u))`` in X's dtype.  Given the three
-    scales, the int8 branch: :func:`nm_spmm_dual_int8` (``out_dtype`` is
+    scales, the quantized branch of X's class: :func:`nm_spmm_dual_fp8`
+    for float8_e4m3fn, else :func:`nm_spmm_dual_int8` (``out_dtype`` is
     that branch's output dtype)."""
     if x_scale is not None or wg_scale is not None or wu_scale is not None:
-        return nm_spmm_dual_int8(x, values_g, meta_g, values_u, meta_u, n, x_scale,
-                                 wg_scale, wu_scale, out_dtype=out_dtype, block_b=block_b)
+        fn = nm_spmm_dual_fp8 if x.dtype == torch.float8_e4m3fn else nm_spmm_dual_int8
+        return fn(x, values_g, meta_g, values_u, meta_u, n, x_scale, wg_scale, wu_scale,
+                  out_dtype=out_dtype, block_b=block_b)
     b, ke = x.shape
     o = _check_compressed("nm_spmm_dual", ke, values_g, meta_g, n)
     if values_u.shape != values_g.shape or meta_u.shape != meta_g.shape:

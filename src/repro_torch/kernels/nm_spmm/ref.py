@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the nm_spmm kernels: decompress the N:4
 weight, then the tile_gemm formulation (fp32 accumulation, epilogue in
-fp32, one cast; for int8 values the exact int32 accumulator and the
-quantized flush of ``tile_gemm/ref.py``)."""
+fp32, one cast; for int8 or e4m3 values the quantized accumulator and
+flush of ``tile_gemm/ref.py``).  ``*_int8_ref`` and ``*_fp8_ref`` name the
+same functions."""
 
 from __future__ import annotations
 
@@ -11,8 +12,8 @@ import torch
 
 from ...core import nm
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.ref import (tile_gemm_dual_int8_ref, tile_gemm_dual_ref,
-                             tile_gemm_int8_ref, tile_gemm_ref)
+from ..tile_gemm.ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
+                             tile_gemm_quantized_ref, tile_gemm_ref)
 
 
 def dense_weight(values: torch.Tensor, meta_packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -34,22 +35,29 @@ def nm_spmm_dual_ref(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tens
                               dense_weight(values_u, meta_u, n))
 
 
-def nm_spmm_int8_ref(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
-                     x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
-                     n: int, *, epilogue: Optional[EpilogueSpec] = None,
-                     bias: Optional[torch.Tensor] = None,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return tile_gemm_int8_ref(x_q, dense_weight(values, meta_packed, n), x_scale, w_scale,
-                              epilogue=epilogue, bias=bias, out_dtype=out_dtype)
+def nm_spmm_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
+                          meta_packed: torch.Tensor, x_scale: Optional[torch.Tensor],
+                          w_scale: Optional[torch.Tensor], n: int, *,
+                          epilogue: Optional[EpilogueSpec] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return tile_gemm_quantized_ref(x_q, dense_weight(values, meta_packed, n), x_scale,
+                                   w_scale, epilogue=epilogue, bias=bias,
+                                   out_dtype=out_dtype)
 
 
-def nm_spmm_dual_int8_ref(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
-                          values_u: torch.Tensor, meta_u: torch.Tensor, n: int,
-                          x_scale: torch.Tensor, wg_scale: torch.Tensor,
-                          wu_scale: torch.Tensor, *,
-                          out_dtype: torch.dtype = torch.float32,
-                          requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return tile_gemm_dual_int8_ref(x_q, dense_weight(values_g, meta_g, n),
-                                   dense_weight(values_u, meta_u, n), x_scale, wg_scale,
-                                   wu_scale, out_dtype=out_dtype,
-                                   requant_scale=requant_scale)
+def nm_spmm_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
+                               meta_g: torch.Tensor, values_u: torch.Tensor,
+                               meta_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                               wg_scale: torch.Tensor, wu_scale: torch.Tensor, *,
+                               out_dtype: torch.dtype = torch.float32,
+                               requant_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    return tile_gemm_dual_quantized_ref(x_q, dense_weight(values_g, meta_g, n),
+                                        dense_weight(values_u, meta_u, n), x_scale,
+                                        wg_scale, wu_scale, out_dtype=out_dtype,
+                                        requant_scale=requant_scale)
+
+
+nm_spmm_int8_ref = nm_spmm_fp8_ref = nm_spmm_quantized_ref
+nm_spmm_dual_int8_ref = nm_spmm_dual_fp8_ref = nm_spmm_dual_quantized_ref

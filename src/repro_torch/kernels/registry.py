@@ -13,6 +13,10 @@ Backends
            the JAX package's ``interpret`` backend.
 ``torch``  no kernel at all: the plain torch reference tier (the JAX
            package's ``jnp``).
+
+An entry may carry a ``supported(backend, device)`` predicate for what
+its (shape, dtype) fit cannot see: the fp8 entries run on a CUDA device
+only where its tensor cores contract e4m3 (:func:`supports_fp8`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ __all__ = [
     "detect_backend",
     "resolve_backend",
     "largest_fitting_block",
+    "fp8_native_dot",
+    "supports_fp8",
     "dtype_name",
     "KERNEL_BACKENDS",
     "REFERENCE_BACKEND",
@@ -55,7 +61,8 @@ class KernelEntry:
     gate-up variant (entries without one decline dual plans).
     ``quantized`` entries take quantized leaves (their ``fit_blocks``
     accepts only their storage dtype) and quantize the activations
-    themselves.
+    themselves.  ``supported(backend, device) -> bool``, when set, vetoes
+    the entry on hardware that cannot run it.
     """
 
     name: str
@@ -65,6 +72,7 @@ class KernelEntry:
     backends: Tuple[str, ...] = KERNEL_BACKENDS
     run_dual: Optional[Callable[..., torch.Tensor]] = None
     quantized: bool = False
+    supported: Optional[Callable[[str, Optional[torch.device]], bool]] = None
 
 
 _REGISTRY: Dict[str, List[KernelEntry]] = {}
@@ -85,13 +93,16 @@ def entries(mode: Optional[str] = None) -> List[KernelEntry]:
 
 
 def select(mode: str, *, b: int, ke: int, o: int, n: int, m: int, dtype,
-           backend: str) -> Optional[Tuple[KernelEntry, Blocks]]:
+           backend: str, device=None) -> Optional[Tuple[KernelEntry, Blocks]]:
     """The first registered kernel whose constraints fit, with its
-    blocks, or ``None`` (the caller falls back to the torch reference)."""
+    blocks, or ``None`` (the caller falls back to the torch reference).
+    ``device`` is where the operands live (for ``supported``)."""
     if backend not in KERNEL_BACKENDS:
         return None
     for entry in _REGISTRY.get(mode, []):
         if backend not in entry.backends:
+            continue
+        if entry.supported is not None and not entry.supported(backend, device):
             continue
         blocks = entry.fit_blocks(b, ke, o, n, m, dtype)
         if blocks is not None:
@@ -117,6 +128,34 @@ def resolve_backend(requested: str = "auto", device=None) -> str:
     if requested != "auto":
         raise ValueError(f"unknown kernel backend {requested!r}")
     return detect_backend(device)
+
+
+_ENV_FP8 = "REPRO_FP8_NATIVE"
+
+
+def fp8_native_dot(device=None) -> bool:
+    """Does this CUDA device contract e4m3 x e4m3 on its tensor cores?
+    The fp8 ``mma`` instruction exists from compute capability 8.9 (Ada,
+    Hopper) on.  ``REPRO_FP8_NATIVE=1|0`` overrides the probe (tests)."""
+    env = os.environ.get(_ENV_FP8, "").strip().lower()
+    if env in ("1", "true", "yes"):
+        return True
+    if env in ("0", "false", "no"):
+        return False
+    if not torch.cuda.is_available():
+        return False
+    return torch.cuda.get_device_capability(device) >= (8, 9)
+
+
+def supports_fp8(backend: str, device=None) -> bool:
+    """Can ``backend`` run the ``*_fp8`` entries on operands on ``device``?
+    The one fp8 capability predicate, the fp8 entries' ``supported``
+    (the JAX package's ``supports_fp8``).  CPU operands always can: the
+    wrappers run their plain versions there; a CUDA device needs
+    :func:`fp8_native_dot`."""
+    if backend != "cuda" or device is None or torch.device(device).type != "cuda":
+        return True
+    return fp8_native_dot(device)
 
 
 def largest_fitting_block(dim: int, cap: int, multiple_of: int = 1) -> Optional[int]:

@@ -1,14 +1,17 @@
 """Dense tile GEMM on Hopper: ``tile_gemm`` and the fused gate-up
-``tile_gemm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``), and their
-int8 twins ``tile_gemm_int8`` and ``tile_gemm_dual_int8``
-(``kernels/csrc/gemm_int8.cu``), and ``tile_gemm_dual_int8_requant``,
-the int8 dual whose flush requantizes its output to int8 against the
-next linear's static activation scale.
+``tile_gemm_dual`` (CUDA source: ``kernels/csrc/gemm.cu``); their int8
+twins ``tile_gemm_int8`` and ``tile_gemm_dual_int8``
+(``kernels/csrc/gemm_int8.cu``) and fp8 (e4m3) twins ``tile_gemm_fp8``
+and ``tile_gemm_dual_fp8`` (``kernels/csrc/gemm_fp8.cu``); and
+``tile_gemm_dual_int8_requant`` / ``tile_gemm_dual_fp8_requant``, the
+quantized duals whose flush requantizes their output to the class's
+narrow dtype against the next linear's static activation scale.
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
-``::tile_gemm_dual`` (:382, float and int8 branches, the int8 one with
-the ``requant:int8`` flush of ``repro/kernels/epilogue.py::flush_tile``)
-and ``::tile_gemm_int8`` (:448).  On CUDA tensors each wrapper launches its
+``::tile_gemm_dual`` (:382, float, int8 and fp8 branches, the quantized
+ones with the ``requant:<dtype>`` flush of
+``repro/kernels/epilogue.py::flush_tile``), ``::tile_gemm_int8`` (:448)
+and ``::tile_gemm_fp8`` (:482).  On CUDA tensors each wrapper launches its
 kernel or raises; on CPU tensors it returns the plain version from
 ``ref.py`` (the counterpart of the JAX package's interpret mode).  Each
 wrapper counts its launches in a plain integer attribute, ``.launches``.
@@ -22,11 +25,13 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from .ref import (tile_gemm_dual_int8_ref, tile_gemm_dual_ref, tile_gemm_int8_ref,
-                  tile_gemm_ref)
+from ..reasons import dtype_name
+from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
+                  tile_gemm_quantized_ref, tile_gemm_ref)
 
 __all__ = ["tile_gemm", "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_dual_int8",
-           "tile_gemm_dual_int8_requant", "ACT_CODES"]
+           "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_dual_fp8",
+           "tile_gemm_dual_fp8_requant", "ACT_CODES"]
 
 #: epilogue activation -> the C interface's act argument
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
@@ -36,8 +41,8 @@ def check_single_epilogue(kernel: str, epi: EpilogueSpec,
                           bias: Optional[torch.Tensor], o: int) -> None:
     if epi.requant is not None:
         raise NotImplementedError(f"{kernel}: epilogue {epi.point!r}: the single-GEMM "
-                                  f"requantize is not ported yet (only the int8 duals "
-                                  f"fuse it)")
+                                  f"requantize is not ported yet (only the quantized "
+                                  f"duals fuse it)")
     if epi.act == "silu_mul":
         raise ValueError(f"{kernel}: epilogue {epi.point!r} is not a "
                          f"single-GEMM lattice point")
@@ -84,7 +89,7 @@ tile_gemm.launches = 0
 
 def check_scales(kernel: str, b: int, o: int, x_scale: Optional[torch.Tensor],
                  *w_scales: Optional[torch.Tensor]) -> bool:
-    """The int8 kernels' scale operands: ``x_scale (B, 1)`` and each
+    """The quantized kernels' scale operands: ``x_scale (B, 1)`` and each
     ``w_scale (1, O)``, float32, all given or none (raw mode: returns True)."""
     given = [s is not None for s in (x_scale, *w_scales)]
     if not any(given):
@@ -100,6 +105,45 @@ def check_scales(kernel: str, b: int, o: int, x_scale: Optional[torch.Tensor],
     return False
 
 
+def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue, bias,
+                         out_dtype, block_b):
+    """The shared body of the int8 and fp8 single GEMMs (the JAX package's
+    ``_tile_gemm_quantized``): checks, the plain version on CPU tensors,
+    else one launch of the class's kernel counted on ``wrapper``."""
+    kernel = wrapper.__name__
+    source, _, raw_dtype = _build.QUANT_CLASSES[storage]
+    epi = epilogue or EpilogueSpec()
+    b, k = x_q.shape
+    k2, o = w_q.shape
+    if k != k2:
+        raise ValueError(f"{kernel}: x {tuple(x_q.shape)} vs w {tuple(w_q.shape)}")
+    raw = check_scales(kernel, b, o, x_scale, w_scale)
+    if raw and not epi.is_identity:
+        raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
+    check_single_epilogue(kernel, epi, bias, o)
+    if x_q.dtype != storage or w_q.dtype != storage:
+        raise ValueError(f"{kernel}: operands must be {dtype_name(storage)}, got "
+                         f"{x_q.dtype} and {w_q.dtype}")
+    if x_q.device.type == "cpu":
+        return tile_gemm_quantized_ref(x_q, w_q, x_scale, w_scale, epilogue=epi, bias=bias,
+                                       out_dtype=out_dtype)
+    bb = block_b or _build.block_rows(b)
+    kind = _build.out_kind(kernel, out_dtype, raw)
+    bias32 = None if bias is None else bias.float().contiguous()
+    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
+    _build.check_tiles(kernel, k, o)
+    y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
+    lib = _build.library(source)
+    with torch.cuda.device(x_q.device):
+        rc = getattr(lib, f"vg_{kernel}")(
+            x_q.data_ptr(), w_q.data_ptr(), _ptr(x_scale), _ptr(w_scale), _ptr(bias32),
+            y.data_ptr(), b, k, o, ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y
+
+
 def tile_gemm_int8(x_q: torch.Tensor, w_q: torch.Tensor,
                    x_scale: Optional[torch.Tensor] = None,
                    w_scale: Optional[torch.Tensor] = None, *,
@@ -112,40 +156,28 @@ def tile_gemm_int8(x_q: torch.Tensor, w_q: torch.Tensor,
     once at the flush.  ``x_q (B, K)`` and ``w_q (K, O)`` int8,
     ``x_scale (B, 1)`` and ``w_scale (1, O)`` float32.  With no scales
     it returns the raw int32 accumulator (and takes no epilogue)."""
-    epi = epilogue or EpilogueSpec()
-    b, k = x_q.shape
-    k2, o = w_q.shape
-    if k != k2:
-        raise ValueError(f"tile_gemm_int8: x {tuple(x_q.shape)} vs w {tuple(w_q.shape)}")
-    raw = check_scales("tile_gemm_int8", b, o, x_scale, w_scale)
-    if raw and not epi.is_identity:
-        raise ValueError("tile_gemm_int8: the raw accumulator takes no epilogue")
-    check_single_epilogue("tile_gemm_int8", epi, bias, o)
-    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
-        raise ValueError(f"tile_gemm_int8: operands must be int8, got {x_q.dtype} "
-                         f"and {w_q.dtype}")
-    if x_q.device.type == "cpu":
-        return tile_gemm_int8_ref(x_q, w_q, x_scale, w_scale, epilogue=epi, bias=bias,
-                                  out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
-    kind = _build.out_kind("tile_gemm_int8", out_dtype, raw)
-    bias32 = None if bias is None else bias.float().contiguous()
-    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
-    _build.check_operands("tile_gemm_int8", x_q, w_q, *extra, block_b=bb,
-                          x_dtype=torch.int8)
-    _build.check_tiles("tile_gemm_int8", k, o)
-    y = torch.empty((b, o), dtype=torch.int32 if raw else out_dtype, device=x_q.device)
-    lib = _build.library("gemm_int8.cu")
-    with torch.cuda.device(x_q.device):
-        rc = lib.vg_tile_gemm_int8(
-            x_q.data_ptr(), w_q.data_ptr(), _ptr(x_scale), _ptr(w_scale), _ptr(bias32),
-            y.data_ptr(), b, k, o, ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
-    tile_gemm_int8.launches += 1
-    _build.check(rc, "tile_gemm_int8", lib)
-    return y
+    return _tile_gemm_quantized(tile_gemm_int8, torch.int8, x_q, w_q, x_scale, w_scale,
+                                epilogue, bias, out_dtype, block_b)
 
 
 tile_gemm_int8.launches = 0
+
+
+def tile_gemm_fp8(x_q: torch.Tensor, w_q: torch.Tensor,
+                  x_scale: Optional[torch.Tensor] = None,
+                  w_scale: Optional[torch.Tensor] = None, *,
+                  epilogue: Optional[EpilogueSpec] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.float32,
+                  block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_int8`'s contract over float8_e4m3fn operands: the
+    e4m3 x e4m3 products summed into an fp32 accumulator, dequantized once
+    at the flush.  With no scales it returns the raw fp32 accumulator."""
+    return _tile_gemm_quantized(tile_gemm_fp8, torch.float8_e4m3fn, x_q, w_q, x_scale,
+                                w_scale, epilogue, bias, out_dtype, block_b)
+
+
+tile_gemm_fp8.launches = 0
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -160,12 +192,14 @@ def check_requant_scale(kernel: str, rq: torch.Tensor) -> None:
                          f"{rq.dtype} {tuple(rq.shape)}")
 
 
-def _tile_gemm_dual_int8(wrapper, x_q, w_g, w_u, x_scale, wg_scale, wu_scale, out_dtype,
-                         block_b, requant_scale):
-    """The shared body of the two int8 dense duals: checks, the plain
-    version on CPU tensors, else one launch counted on ``wrapper`` (int8
-    output when ``requant_scale`` is given)."""
+def _tile_gemm_dual_quantized(wrapper, storage, x_q, w_g, w_u, x_scale, wg_scale, wu_scale,
+                              out_dtype, block_b, requant_scale):
+    """The shared body of the quantized dense duals (int8 and fp8, each
+    with and without the requantizing flush): checks, the plain version on
+    CPU tensors, else one launch counted on ``wrapper`` (output of the
+    class's narrow dtype when ``requant_scale`` is given)."""
     kernel = wrapper.__name__
+    source, suffix, _ = _build.QUANT_CLASSES[storage]
     b, k = x_q.shape
     k2, o = w_g.shape
     if k != k2 or w_u.shape != w_g.shape:
@@ -173,25 +207,26 @@ def _tile_gemm_dual_int8(wrapper, x_q, w_g, w_u, x_scale, wg_scale, wu_scale, ou
                          f"{tuple(w_g.shape)}, w_u {tuple(w_u.shape)}")
     if check_scales(kernel, b, o, x_scale, wg_scale, wu_scale):
         raise ValueError(f"{kernel}: the dual kernel needs its three scales")
-    if any(t.dtype != torch.int8 for t in (x_q, w_g, w_u)):
-        raise ValueError(f"{kernel}: operands must be int8")
+    if any(t.dtype != storage for t in (x_q, w_g, w_u)):
+        raise ValueError(f"{kernel}: operands must be {dtype_name(storage)}")
     if requant_scale is not None:
         check_requant_scale(kernel, requant_scale)
     if x_q.device.type == "cpu":
-        return tile_gemm_dual_int8_ref(x_q, w_g, w_u, x_scale, wg_scale, wu_scale,
-                                       out_dtype=out_dtype, requant_scale=requant_scale)
+        return tile_gemm_dual_quantized_ref(x_q, w_g, w_u, x_scale, wg_scale, wu_scale,
+                                            out_dtype=out_dtype,
+                                            requant_scale=requant_scale)
     bb = block_b or _build.block_rows(b)
     if requant_scale is None:
         kind, rq = _build.out_kind(kernel, out_dtype, False), ()
     else:
-        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), torch.int8
+        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), storage
     _build.check_operands(kernel, x_q, w_g, w_u, x_scale, wg_scale, wu_scale, *rq,
-                          block_b=bb, x_dtype=torch.int8)
+                          block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    lib = _build.library("gemm_int8.cu")
+    lib = _build.library(source)
     with torch.cuda.device(x_q.device):
-        rc = lib.vg_tile_gemm_dual_int8(
+        rc = getattr(lib, f"vg_tile_gemm_dual_{suffix}")(
             x_q.data_ptr(), w_g.data_ptr(), w_u.data_ptr(), x_scale.data_ptr(),
             wg_scale.data_ptr(), wu_scale.data_ptr(), _ptr(requant_scale), y.data_ptr(),
             b, k, o, kind, bb, _build.stream_of(x_q))
@@ -207,8 +242,8 @@ def tile_gemm_dual_int8(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
     """Fused int8 gate-up: ``silu(deq(Xq @ Wg)) * deq(Xq @ Wu)`` from one
     read of each X tile, two int32 accumulators, each dequantized with
     ``x_scale * w*_scale`` at the flush, silu*mul in fp32, one cast."""
-    return _tile_gemm_dual_int8(tile_gemm_dual_int8, x_q, w_g, w_u, x_scale, wg_scale,
-                                wu_scale, out_dtype, block_b, None)
+    return _tile_gemm_dual_quantized(tile_gemm_dual_int8, torch.int8, x_q, w_g, w_u,
+                                     x_scale, wg_scale, wu_scale, out_dtype, block_b, None)
 
 
 tile_gemm_dual_int8.launches = 0
@@ -222,11 +257,40 @@ def tile_gemm_dual_int8_requant(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch
     ``int8(round(clip(silu(g) * u / requant_scale, +-127)))`` against the
     consuming linear's static scale (a one-element float32 tensor on the
     device), so the consumer contracts the rows as they are."""
-    return _tile_gemm_dual_int8(tile_gemm_dual_int8_requant, x_q, w_g, w_u, x_scale,
-                                wg_scale, wu_scale, torch.int8, block_b, requant_scale)
+    return _tile_gemm_dual_quantized(tile_gemm_dual_int8_requant, torch.int8, x_q, w_g, w_u,
+                                     x_scale, wg_scale, wu_scale, torch.int8, block_b,
+                                     requant_scale)
 
 
 tile_gemm_dual_int8_requant.launches = 0
+
+
+def tile_gemm_dual_fp8(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
+                       x_scale: torch.Tensor, wg_scale: torch.Tensor,
+                       wu_scale: torch.Tensor, *, out_dtype: torch.dtype = torch.float32,
+                       block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused fp8 gate-up: :func:`tile_gemm_dual_int8` over float8_e4m3fn
+    operands, two fp32 accumulators."""
+    return _tile_gemm_dual_quantized(tile_gemm_dual_fp8, torch.float8_e4m3fn, x_q, w_g, w_u,
+                                     x_scale, wg_scale, wu_scale, out_dtype, block_b, None)
+
+
+tile_gemm_dual_fp8.launches = 0
+
+
+def tile_gemm_dual_fp8_requant(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
+                               x_scale: torch.Tensor, wg_scale: torch.Tensor,
+                               wu_scale: torch.Tensor, requant_scale: torch.Tensor, *,
+                               block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_dual_fp8` whose flush then requantizes:
+    ``e4m3(clip(silu(g) * u / requant_scale, +-448))`` (round to nearest
+    even) against the consuming linear's static scale."""
+    return _tile_gemm_dual_quantized(tile_gemm_dual_fp8_requant, torch.float8_e4m3fn, x_q,
+                                     w_g, w_u, x_scale, wg_scale, wu_scale,
+                                     torch.float8_e4m3fn, block_b, requant_scale)
+
+
+tile_gemm_dual_fp8_requant.launches = 0
 
 
 def tile_gemm_dual(x: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
@@ -237,11 +301,14 @@ def tile_gemm_dual(x: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
                    block_b: Optional[int] = None) -> torch.Tensor:
     """Fused gate-up: ``silu(X @ Wg) * (X @ Wu)`` from one read of each X
     tile, two fp32 accumulators, silu*mul in fp32, one cast to X's dtype.
-    Given the three scales, the int8 branch: :func:`tile_gemm_dual_int8`
-    (``out_dtype`` is that branch's output dtype)."""
+    Given the three scales, the quantized branch of X's class:
+    :func:`tile_gemm_dual_fp8` for float8_e4m3fn, else
+    :func:`tile_gemm_dual_int8` (``out_dtype`` is that branch's output
+    dtype)."""
     if x_scale is not None or wg_scale is not None or wu_scale is not None:
-        return tile_gemm_dual_int8(x, w_g, w_u, x_scale, wg_scale, wu_scale,
-                                   out_dtype=out_dtype, block_b=block_b)
+        fn = tile_gemm_dual_fp8 if x.dtype == torch.float8_e4m3fn else tile_gemm_dual_int8
+        return fn(x, w_g, w_u, x_scale, wg_scale, wu_scale, out_dtype=out_dtype,
+                  block_b=block_b)
     b, k = x.shape
     k2, o = w_g.shape
     if k != k2 or w_u.shape != w_g.shape:

@@ -3,12 +3,17 @@ formulation: fp32 accumulation, the epilogue in fp32, one cast to the
 activation dtype.  (The torch dispatch tier's gate-up rounds g and u to
 the activation dtype before silu*mul; the dual kernel does not.)
 
-The int8 versions contract int8 x int8 exactly: in float64, where every
-partial sum (|acc| <= 127^2 * K < 2^53) is an integer, then cast to
-int32.  ``torch.matmul`` takes no integer tensors on CUDA, so the card
-and the CPU share this formulation.  The flush then runs the JAX
+The quantized versions serve both classes, the accumulator chosen by the
+operands' dtype (:func:`quantized_accumulate`).  int8 x int8 is
+contracted exactly: in float64, where every partial sum (|acc| <= 127^2 *
+K < 2^53) is an integer, then cast to int32 (``torch.matmul`` takes no
+integer tensors on CUDA, so the card and the CPU share this
+formulation).  e4m3 x e4m3 is ``x_q.float() @ w_q.float()`` in fp32:
+every product of two e4m3 values is exact in fp32, so only the sums'
+order can differ from the kernel's.  The flush then runs the JAX
 kernels' order: ``float(acc) * x_scale * w_scale`` left to right in
-fp32, the epilogue, one cast."""
+fp32, the epilogue (the duals' ``requant:<dtype>`` point included), one
+cast.  ``*_int8_ref`` and ``*_fp8_ref`` name the same functions."""
 
 from __future__ import annotations
 
@@ -17,9 +22,9 @@ from typing import Optional
 import torch
 
 from ..epilogue import EpilogueSpec, flush_tile
+from ..reasons import dtype_name
 
 _SILU_MUL = EpilogueSpec(act="silu_mul")
-_SILU_MUL_RQ = EpilogueSpec(act="silu_mul", requant="int8")
 
 
 def tile_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,
@@ -41,33 +46,51 @@ def int8_accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return (x_q.double() @ w_q.double()).to(torch.int32)
 
 
+def quantized_accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The raw accumulator of one quantized class: exact int32 for int8,
+    fp32 for float8_e4m3fn."""
+    if x_q.dtype != w_q.dtype:
+        raise ValueError(f"operands of two classes: {x_q.dtype} and {w_q.dtype}")
+    if x_q.dtype == torch.int8:
+        return int8_accumulate(x_q, w_q)
+    return x_q.float() @ w_q.float()
+
+
 def dequant_acc(acc: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """``float(acc) * x_scale (B, 1) * w_scale (1, O)``, left to right."""
     return acc.float() * x_scale * w_scale
 
 
-def tile_gemm_int8_ref(x_q: torch.Tensor, w_q: torch.Tensor,
-                       x_scale: Optional[torch.Tensor] = None,
-                       w_scale: Optional[torch.Tensor] = None, *,
-                       epilogue: Optional[EpilogueSpec] = None,
-                       bias: Optional[torch.Tensor] = None,
-                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    acc = int8_accumulate(x_q, w_q)
+def tile_gemm_quantized_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                            x_scale: Optional[torch.Tensor] = None,
+                            w_scale: Optional[torch.Tensor] = None, *,
+                            epilogue: Optional[EpilogueSpec] = None,
+                            bias: Optional[torch.Tensor] = None,
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    acc = quantized_accumulate(x_q, w_q)
     if x_scale is None:
         return acc
     return flush_tile(dequant_acc(acc, x_scale, w_scale), epilogue or EpilogueSpec(),
                       out_dtype, bias=bias)
 
 
-def tile_gemm_dual_int8_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
-                            x_scale: torch.Tensor, wg_scale: torch.Tensor,
-                            wu_scale: torch.Tensor, *,
-                            out_dtype: torch.dtype = torch.float32,
-                            requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """With ``requant_scale`` the flush ends in the ``requant:int8``
-    lattice point and the result is int8."""
-    return flush_tile(dequant_acc(int8_accumulate(x_q, w_g), x_scale, wg_scale),
-                      _SILU_MUL if requant_scale is None else _SILU_MUL_RQ, out_dtype,
-                      acc2_32=dequant_acc(int8_accumulate(x_q, w_u), x_scale, wu_scale),
+def tile_gemm_dual_quantized_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
+                                 x_scale: torch.Tensor, wg_scale: torch.Tensor,
+                                 wu_scale: torch.Tensor, *,
+                                 out_dtype: torch.dtype = torch.float32,
+                                 requant_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """With ``requant_scale`` the flush ends in the ``requant:<dtype>``
+    lattice point of the operands' class and the result is of that
+    narrow dtype."""
+    spec = _SILU_MUL if requant_scale is None else EpilogueSpec(
+        act="silu_mul", requant=dtype_name(x_q.dtype))
+    return flush_tile(dequant_acc(quantized_accumulate(x_q, w_g), x_scale, wg_scale),
+                      spec, out_dtype,
+                      acc2_32=dequant_acc(quantized_accumulate(x_q, w_u), x_scale, wu_scale),
                       rq_scale=requant_scale)
+
+
+tile_gemm_int8_ref = tile_gemm_fp8_ref = tile_gemm_quantized_ref
+tile_gemm_dual_int8_ref = tile_gemm_dual_fp8_ref = tile_gemm_dual_quantized_ref

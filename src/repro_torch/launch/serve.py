@@ -2,7 +2,7 @@
 ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch internlm2_1_8b [--smoke] \
-        [--sparsity 2:4 --mode dense|compressed] [--quantize int8 [--static-scales]] \
+        [--sparsity 2:4 --mode dense|compressed] [--quantize int8|fp8 [--static-scales]] \
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
         [--block-len 8] [--kv-blocks N] [--admission reserve|optimistic] \
@@ -11,8 +11,10 @@
 
 It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
 weights from a seeded ``torch.Generator`` on the device, runs
-:func:`repro_torch.serving.prepare` (``--quantize int8`` quantizes every
-linear per output channel; ``--static-scales`` then calibrates one
+:func:`repro_torch.serving.prepare` (``--quantize int8|fp8`` quantizes
+every linear per output channel, to int8 or float8_e4m3fn, and the cuda
+tier runs that class's kernels, w8a8 or e4m3 x e4m3; ``--static-scales``
+then calibrates one
 activation scale per linear site on a seeded batch of ``(batch,
 min(max_len, 32))`` tokens), and hands the result to
 :class:`repro_torch.serving.Engine` over a seeded Poisson trace.  With
@@ -40,9 +42,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--sparsity", default=None)
     ap.add_argument("--mode", default="compressed", choices=["dense", "compressed"])
-    ap.add_argument("--quantize", default=None, choices=["int8"],
-                    help="quantize every linear's values to int8 with per-channel "
-                         "scales (w8a8: activations are quantized per row)")
+    ap.add_argument("--quantize", default=None, choices=["int8", "fp8"],
+                    help="quantize every linear's values to int8 or fp8 (e4m3) with "
+                         "per-channel scales; activations are quantized to the same "
+                         "dtype per row (or against static scales)")
     ap.add_argument("--static-scales", action="store_true",
                     help="with --quantize: calibrate static activation scales on one "
                          "batch so decode skips the per-row absmax pass")
@@ -65,7 +68,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.static_scales and not args.quantize:
-        ap.error("--static-scales requires --quantize int8")
+        ap.error("--static-scales requires --quantize int8|fp8")
     if not args.arch and not args.artifact:
         ap.error("need --arch (random init) or --artifact (converted checkpoint)")
 

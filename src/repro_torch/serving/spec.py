@@ -1,6 +1,6 @@
 """``ServingSpec`` + ``prepare``: the one offline-prep entry point (port of
-``repro.serving.spec`` for the dense and compressed layouts, float or
-int8).
+``repro.serving.spec`` for the dense and compressed layouts, float, int8
+or fp8).
 
 ```python
 prepared = repro_torch.serving.prepare(params, ServingSpec(layout="compressed",
@@ -14,9 +14,9 @@ one activation scale per linear site on a representative batch
 (``calib_tokens``).  :func:`prepare_from_artifact` stands a model up from
 a conversion artifact instead.  Serving runs on the card:
 ``device=None`` means ``"cuda"``, and without a CUDA device ``prepare``
-raises rather than drop to the CPU; tests pass ``device="cpu"``.  The
-fp8 class, KV-cache quantization, mesh placement and autotuning are not
-ported yet: a spec or a manifest asking for one raises.
+raises rather than drop to the CPU; tests pass ``device="cpu"``.
+KV-cache quantization, mesh placement and autotuning are not ported yet:
+a spec or a manifest asking for one raises.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import torch
 _LAYOUTS = ("dense", "compressed")
 _ADMISSION = ("reserve", "optimistic")
 _BACKENDS = ("auto", "cuda", "torch")
-_QDTYPES = (None, "int8")
 
 __all__ = ["ServingSpec", "Prepared", "prepare", "prepare_from_artifact",
            "resolve_device", "config_from_manifest", "spec_from_manifest"]
@@ -53,9 +52,11 @@ class ServingSpec:
 
     Offline-prep axes: ``layout`` (``dense | compressed``), ``sparsity``
     (``(n, m)`` or None for dense 4:4), ``qdtype`` (weight quantization:
-    ``"int8"`` or None; ``"fp8"`` is not ported yet), ``static_scales``
-    (calibrate static activation scales at prepare time; needs
-    ``qdtype``), ``backend`` (dispatch engine: ``auto | cuda | torch``).
+    ``"int8"``, ``"fp8"`` (float8_e4m3fn) or None; the cuda tier runs the
+    class's kernels, int8 or e4m3 activations quantized per row or against
+    static scales), ``static_scales`` (calibrate static activation scales
+    at prepare time; needs ``qdtype``), ``backend`` (dispatch engine:
+    ``auto | cuda | torch``).
     Engine axes: ``slots``, ``max_len``, ``block_len``, ``kv_blocks``,
     ``admission``, ``prefill_chunk``, as in the JAX package.
     """
@@ -79,13 +80,11 @@ class ServingSpec:
             raise ValueError(f"admission {self.admission!r} not in {_ADMISSION}")
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
-        if self.qdtype not in _QDTYPES:
+        if self.qdtype is not None:
             from ..core.quantize import canonical_qdtype
             canonical_qdtype(self.qdtype)      # raises on unknown targets
-            raise NotImplementedError(
-                f"qdtype {self.qdtype!r} is not ported yet (ported: int8)")
         if self.static_scales and self.qdtype is None:
-            raise ValueError("static_scales requires qdtype ('int8')")
+            raise ValueError("static_scales requires qdtype ('int8' | 'fp8')")
         if self.sparsity is not None:
             n, m = self.sparsity
             if not (0 < n <= m):
@@ -176,7 +175,7 @@ def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
 
     ``params`` may be a full model tree (pass ``cfg``) or a bare layout
     leaf / small tree with ``cfg=None``."""
-    from ..core.quantize import has_static_scales, is_quantized, quant_dtype
+    from ..core.quantize import has_static_scales, is_quantized
     from ..core.sparse_linear import convert_layout, map_linear_leaves
     from ..kernels import dispatch as kdispatch
 
@@ -192,9 +191,6 @@ def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
         leaves = []
         map_linear_leaves(params, lambda leaf: leaves.append(leaf) or leaf)
         quantized = [leaf for leaf in leaves if is_quantized(leaf)]
-        if any(quant_dtype(leaf) != torch.int8 for leaf in quantized):
-            raise NotImplementedError("static scales over fp8 leaves: the fp8 class is "
-                                      "not ported yet (ported: int8)")
         if quantized and all(has_static_scales(leaf) for leaf in quantized):
             calibrated = _count_sites(params, cfg)
         else:

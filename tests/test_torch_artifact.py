@@ -5,7 +5,8 @@ artifact of the committed ``tests/fixtures/hf_tiny`` checkpoint into a
 tmp dir, as ``tests/test_checkpoint_golden.py`` does.  Then:
 
 - the port's ``load_artifact`` returns the same tree, tensor for tensor
-  bitwise (bf16 and fp8 decoded through integer views, no ml_dtypes);
+  bitwise (bf16 and fp8 decoded through integer views, no ml_dtypes),
+  and ``prepare_from_artifact`` takes the fp8 artifact;
 - its loader raises ``ArtifactError`` on a flipped byte, a missing or a
   stray tensor, and a missing or unknown version;
 - ``prepare_from_artifact`` + ``Engine`` on the CPU torch tier
@@ -90,8 +91,11 @@ def test_fp8_storage_decodes_through_a_byte_view(tmp_path):
     for k in fp8:
         assert got[k].view(torch.uint8).numpy().tobytes() == \
             np.asarray(want[k]).view(np.uint8).tobytes()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserving.prepare_from_artifact(art, device="cpu")
+    # the fp8 class is served (tests/test_torch_fp8.py holds its tokens)
+    prepared = tserving.prepare_from_artifact(art, device="cpu")
+    assert prepared.spec.qdtype == "fp8"
+    leaves = [t for _, t in _leaves(prepared.params) if t.dtype == torch.float8_e4m3fn]
+    assert len(leaves) == len(fp8) * prepared.cfg.num_layers   # one per stacked layer
 
 
 def _rewrite(src, dst, *, arrays=None, manifest=None):

@@ -314,8 +314,8 @@ def test_int8_gate_up_runs_one_dual_launch(mode, n, monkeypatch):
 
 def test_int8_refusals():
     """What the slice does not port raises instead of running quietly; what
-    it does (an act_scale leaf; int8 rows requantized against it) runs,
-    on the kernel tier as the JAX package's does."""
+    it does (an act_scale leaf; int8 rows requantized against it; an fp8
+    leaf) runs, on the kernel tier as the JAX package's does."""
     jcfg, jq, tcfg, tq = _q_linear("compressed", 2, 128, 64)
     x = np.random.default_rng(7).standard_normal((4, 128)).astype(np.float32)
     s = np.float32(0.1)
@@ -330,10 +330,19 @@ def test_int8_refusals():
         assert torch.equal(narrow, got.float())
         with pytest.raises(ValueError, match="act_scale"):
             apply_linear(tq, xq, tcfg)
-    x = torch.from_numpy(x)
+    # an fp8 leaf plans the fp8 class with the JAX package's reason codes
+    jfp8 = {**jq, "values": jq["values"].astype(jnp.float32).astype(jnp.float8_e4m3fn)}
     fp8 = {**tq, "values": tq["values"].float().to(torch.float8_e4m3fn)}
-    with td.use_dispatch(backend="cuda"), pytest.raises(NotImplementedError, match="fp8"):
-        apply_linear(fp8, x, tcfg)
+    jdec = jd.plan_for(jfp8, (4, 128), jcfg, dtype=jnp.float8_e4m3fn,
+                       dispatch=jd.DispatchConfig(backend="interpret"))
+    tdec = td.plan_for(fp8, (4, 128), tcfg, dispatch=td.DispatchConfig(backend="cuda"))
+    assert tdec.kernel == jdec.kernel == "nm_spmm_fp8"
+    assert tdec.reason_code.value == jdec.reason_code.value
+    assert tdec.dtype == jdec.dtype == "float8_e4m3fn"
+    assert tdec.act_scales == jdec.act_scales == "dynamic"
+    x = torch.from_numpy(x)
+    with td.use_dispatch(backend="cuda"):      # the fp8 plain versions, on CPU tensors
+        assert apply_linear(fp8, x, tcfg).shape == (4, 64)
     with td.use_dispatch(backend="torch"):      # the torch tier dequantizes fp8
         assert apply_linear(fp8, x, tcfg).shape == (4, 64)
 

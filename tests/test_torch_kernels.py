@@ -18,7 +18,12 @@ int8 duals within 1e-2 (silu's exp differs between the kernel and
 torch); the requantizing int8 duals to equal codes except |delta| <= 1
 on at most 0.1% of the elements (that ulp of silu can move a code whose
 y / scale sits on a rounding boundary); flash_attention within 2e-2
-scaled in bf16 (p rounded to bf16, sums in another order).
+scaled in bf16 (p rounded to bf16, sums in another order).  The fp8
+kernels: raw fp32 accumulators, scaled outputs and duals within 1e-2
+(the sums run in another order), and the requantizing fp8 duals to
+equal e4m3 codes except one step on at most 0.1% of them.  Their CPU
+parity with the JAX package's Pallas fp8 kernels is in
+``tests/test_torch_fp8.py``.
 """
 
 import types
@@ -480,3 +485,124 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv, t
     assert row_err.max().item() <= 2e-2
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(q.float(), k, v)
+
+
+# ------------------------------------------------------ fp8 on the card
+FP8 = torch.float8_e4m3fn
+
+
+def _cuda_fp8(dev, b, k, o, n=4, seed=0):
+    """e4m3 CUDA operands: (x_q, x_scale) and the leaf of one weight."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, k, generator=g, device=dev).bfloat16()
+    w = torch.randn(k, o, generator=g, device=dev) * k ** -0.5
+    if n == 4:
+        leaf = quantize_linear({"w": w}, FP8)
+    else:
+        c = tnm.compress_nm(tnm.prune_nm(w, n, 4)[0], n, 4)
+        leaf = quantize_linear({"values": c.values, "meta_packed": tnm.pack_meta(c.meta)},
+                               FP8)
+    x[-1] = 0                                    # an idle slot
+    xq, xs = quantize_rows(x, FP8)
+    return xq, xs, leaf
+
+
+def _single_fp8(leaf, n, xq, xs, ws, ref_=False, **kw):
+    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_fp8
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_fp8_ref
+    from repro_torch.kernels.tile_gemm.kernel import tile_gemm_fp8
+    from repro_torch.kernels.tile_gemm.ref import tile_gemm_fp8_ref
+    if n == 4:
+        return (tile_gemm_fp8_ref if ref_ else tile_gemm_fp8)(xq, leaf["w"], xs, ws, **kw)
+    return (nm_spmm_fp8_ref if ref_ else nm_spmm_fp8)(xq, leaf["values"], leaf["meta_packed"],
+                                                      xs, ws, n, **kw)
+
+
+def _fp8_step_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Share of e4m3 codes one step off (adjacent magnitudes of one sign:
+    the byte's low 7 bits differ by 1); fails on any larger difference."""
+    assert got.dtype == want.dtype == FP8 and got.shape == want.shape
+    def ordinal(t):
+        b = t.view(torch.uint8).int()
+        return torch.where(b >= 128, -(b - 128), b)
+    d = (ordinal(got) - ordinal(want)).abs()
+    assert int(d.max()) <= 1
+    return float((d == 1).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", CUDA_SHAPES)
+@pytest.mark.parametrize("n", [4, 2, 1])
+def test_fp8_kernels_match_plain_on_card(cuda_device, b, k, o, n):
+    """Raw fp32 accumulator and scaled outputs within 1e-2 of max|plain|
+    (the sums run in another order; every product of two e4m3 is exact)."""
+    xq, xs, leaf = _cuda_fp8(cuda_device, b, k, o, n)
+    ws = leaf["scale"].reshape(1, -1)
+    name = "tile_gemm_fp8" if n == 4 else "nm_spmm_fp8"
+    before = kernels.KERNELS[name].launches
+    raw = _single_fp8(leaf, n, xq, None, None)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS[name].launches == before + 1
+    assert raw.dtype == torch.float32
+    assert_scaled_close(raw, _single_fp8(leaf, n, xq, None, None, ref_=True), 1e-2)
+    bias = torch.randn(o, device=cuda_device)
+    for dt in (torch.bfloat16, torch.float32):
+        for kw in ({}, {"epilogue": EpilogueSpec(act="gelu", bias=True), "bias": bias}):
+            got = _single_fp8(leaf, n, xq, xs, ws, out_dtype=dt, **kw)
+            want = _single_fp8(leaf, n, xq, xs, ws, ref_=True, out_dtype=dt, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dt
+            assert_scaled_close(got, want, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64, 256])
+@pytest.mark.parametrize("n", [4, 2, 1])
+def test_fp8_dual_kernels_match_plain_on_card(cuda_device, b, n):
+    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_dual_fp8, nm_spmm_dual_fp8_requant
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_fp8_ref
+    from repro_torch.kernels.tile_gemm.kernel import (tile_gemm_dual_fp8,
+                                                      tile_gemm_dual_fp8_requant)
+    from repro_torch.kernels.tile_gemm.ref import tile_gemm_dual_fp8_ref
+
+    xq, xs, lg = _cuda_fp8(cuda_device, b, 2048, 8192, n)
+    _, _, lu = _cuda_fp8(cuda_device, b, 2048, 8192, n, seed=3)
+    sg, su = lg["scale"].reshape(1, -1), lu["scale"].reshape(1, -1)
+    if n == 4:
+        args = (xq, lg["w"], lu["w"], xs, sg, su)
+        fn, fn_rq, ref_ = tile_gemm_dual_fp8, tile_gemm_dual_fp8_requant, tile_gemm_dual_fp8_ref
+    else:
+        args = (xq, lg["values"], lg["meta_packed"], lu["values"], lu["meta_packed"], n,
+                xs, sg, su)
+        fn, fn_rq, ref_ = nm_spmm_dual_fp8, nm_spmm_dual_fp8_requant, nm_spmm_dual_fp8_ref
+    want = ref_(*args)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert_scaled_close(got, want, 1e-2)
+    got = (tile_gemm_dual if n == 4 else nm_spmm_dual)(*args, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert_scaled_close(got, want, 1e-2)
+    # the requantizing flush, against a scale that saturates a share of the codes
+    rq = want.abs().amax() / 600
+    before = fn_rq.launches
+    codes = fn_rq(*args, rq)
+    torch.cuda.synchronize()
+    assert fn_rq.launches == before + 1
+    assert _fp8_step_share(codes, ref_(*args, requant_scale=rq)) <= 1e-3
+    with pytest.raises(ValueError, match="requant_scale"):
+        fn_rq(*args, rq.double())
+
+
+@pytest.mark.cuda
+def test_fp8_wrappers_raise_on_bad_cuda_operands(cuda_device):
+    from repro_torch.kernels.tile_gemm.kernel import tile_gemm_fp8
+    xq, xs, leaf = _cuda_fp8(cuda_device, 8, 256, 128)
+    ws = leaf["scale"].reshape(1, -1)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        tile_gemm_fp8(xq.view(torch.int8), leaf["w"], xs, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_gemm_fp8(xq, leaf["w"].t().contiguous().t(), xs, ws)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tile_gemm_fp8(xq, leaf["w"], xs, ws, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="multiples"):
+        tile_gemm_fp8(xq[:, :96].contiguous(), leaf["w"][:96].contiguous(), xs, ws)

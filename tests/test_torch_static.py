@@ -238,17 +238,44 @@ def test_narrow_rows_are_contracted_as_they_are():
 
 
 def test_static_scales_refuse_fp8_leaves_and_need_calibration_data():
-    """The fp8 class is not ported: static scales over its leaves raise as
-    ``ServingSpec(qdtype="fp8")`` does; int8 leaves without scales need
+    """Static scales over fp8 leaves are the fp8 class's own: an fp8 site
+    calibrates to absmax / 448 (the leaf's own qmax), an int8 site in the
+    same tree to absmax / 127, both as the JAX package's calibration
+    gives them (tests/test_fp8.py); int8 leaves without scales still need
     ``cfg`` and ``calib_tokens``."""
+    w = np.random.default_rng(4).standard_normal((128, 64)).astype(np.float32) * 128 ** -0.5
+    x0 = np.random.default_rng(5).standard_normal((4, 128)).astype(np.float32)
+    jcfg = JSp(n=2, m=4, mode="compressed")
+    from repro.core.sparse_linear import convert_layout as j_convert
+    jtree = {name: {"w_in": j_convert({"w": jnp.asarray(w)}, jcfg, "compressed", quantize=qd)}
+             for name, qd in (("i8", "int8"), ("f8", "fp8"))}
+    ttree = port_params(jtree)
+    tcfg = TSp(n=2, m=4, mode="compressed")
+
+    def jbatch(p):
+        with jd.use_dispatch(backend="jnp"):
+            return sum(j_apply(p[k]["w_in"], jnp.asarray(x0), jcfg) for k in ("i8", "f8"))
+
+    def tbatch(p):
+        with td.use_dispatch(backend="torch"):
+            return sum(td.sparse_matmul(torch.from_numpy(x0), p[k]["w_in"], tcfg)
+                       for k in ("i8", "f8"))
+
+    from repro.core import apply_linear as j_apply
+    jcal, jn = jquant._calibrate_activation_scales(jtree, jbatch)
+    tcal, tn = tquant._calibrate_activation_scales(ttree, tbatch)
+    assert tn == jn == 2
+    absmax = float(np.abs(x0).max())
+    for key, qmax in (("i8", 127.0), ("f8", 448.0)):
+        t = float(tcal[key]["w_in"]["act_scale"])
+        assert t == float(jcal[key]["w_in"]["act_scale"])
+        assert abs(t - absmax / qmax) <= 1e-6 * t
+    d = td.plan_for(tcal["f8"]["w_in"], (4, 128), tcfg, dispatch=td.DispatchConfig(backend="cuda"))
+    assert d.kernel == "nm_spmm_fp8" and d.act_scales == "static"
+    assert tserving.ServingSpec(qdtype="fp8", static_scales=True).static_scales
     _, _, _, tq = _q_leaf(128, 64, 2, 4)
-    fp8 = {**tq, "values": tq["values"].float().to(torch.float8_e4m3fn)}
     spec = tserving.ServingSpec(layout="compressed", sparsity=(2, 4), qdtype="int8",
                                 static_scales=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserving.prepare(fp8, spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserving.ServingSpec(qdtype="fp8", static_scales=True)
     with pytest.raises(ValueError, match="calib_tokens"):
         tserving.prepare(tq, spec, device="cpu")
     with pytest.raises(ValueError, match="requires qdtype"):
