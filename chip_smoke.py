@@ -44,6 +44,17 @@ Phases, each of which fails the run on a miss:
              on at most REQUANT_SHARE of them.  The library column is
              torch._scaled_mm (cuBLASLt fp8, row-wise scales, bf16 out, B
              padded to 16, W column-major, made outside the timed region).
+   gather  — the lane-aligned gather kernels (K8 nm_spmm_gather_bk, K9
+             nm_spmm_gather_dual_bk) in bf16, int8 and fp8, with the
+             quantized duals' requantizing flush, at the same (K, O), n in
+             {1, 2}, B in {8, 64, 256}, on weights voted by
+             convert_layout(..., "gather"): bf16 and fp8 within 1e-2 of
+             max|plain|, int8 raw accumulators and scaled singles BITWISE
+             (the flush multiplies ws before xs, as the plain version),
+             int8 duals within 1e-2, requantized codes as above.  The
+             library column is torch.matmul / torch._int_mm /
+             torch._scaled_mm on the PRE-GATHERED X (the gather runs
+             outside the timed region; the duals: two calls, gate and up).
    attn    — flash_attention against its plain version at the
              calibration forward's shape (8 x 32 tokens) and at prefill
              shapes (T = 512, 2048), 16 query heads over 8 KV heads, head
@@ -52,14 +63,17 @@ Phases, each of which fails the run on a miss:
              than row 0, so one limit scaled by the whole output's max
              would not see a fault confined to far rows); the library
              column is F.scaled_dot_product_attention (enable_gqa).
-3. serving — full-width internlm2-1.8b (24 layers, random bf16 weights
-             from a seeded torch.Generator on the card) served by the
-             port's Engine in the dense, 2:4 and 1:4 layouts, float,
-             int8 (w8a8), int8 with static activation scales, fp8 (e4m3
-             weights and activations) and fp8 with static scales: 16
+3. serving — full-width internlm2-1.8b (random bf16 weights from a
+             seeded torch.Generator on the card) served by the port's
+             Engine in the gather layout at 2:4 and 1:4 (24 layers) and
+             the dense, 2:4 and 1:4 compressed layouts (cut to 8 layers
+             to stay within the time limit; each run prints its depth),
+             each float, int8 (w8a8), int8 with static activation
+             scales, fp8 (e4m3 weights and activations) and fp8 with
+             static scales (25 runs): 16
              requests, prompts of 128-256 tokens, 32 new tokens, 8 slots,
              prefill chunks of 64, max_len 512.  Every linear site must
-             plan a cuda kernel (one of its class, with act-scales=static
+             plan a cuda kernel (one of its layout and class, with act-scales=static
              for the static layouts) and every kernel of the layout must
              launch (counts are zeroed just before each run and read
              just after); no kernel of another class may launch.  The
@@ -156,6 +170,12 @@ REPLACES = {
     # the fp8 dual with the requant:float8_e4m3fn flush (epilogue.py:143, :162)
     "tile_gemm_dual_fp8_requant": "src/repro/kernels/tile_gemm/kernel.py:382",
     "nm_spmm_dual_fp8_requant": "src/repro/kernels/nm_spmm/kernel.py:437",
+    # the lane-aligned gather pair (bk layout), each class; the quantized
+    # duals' requant flush is epilogue.py:143, :162 inside :566
+    **{f"nm_spmm_gather_bk{q}": "src/repro/kernels/nm_spmm_gather/kernel.py:324"
+       for q in ("", "_int8", "_fp8")},
+    **{f"nm_spmm_gather_dual_bk{q}": "src/repro/kernels/nm_spmm_gather/kernel.py:566"
+       for q in ("", "_int8", "_fp8", "_int8_requant", "_fp8_requant")},
 }
 
 
@@ -569,6 +589,159 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
     torch.cuda.synchronize()
 
 
+def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
+    """K8 / K9, the lane-aligned gather kernels of one class (bf16 for
+    ``qdtype=None``, int8, e4m3), against their plain versions at the
+    projection shapes, n in {1, 2}, B in {8, 64, 256}, weights voted from
+    random dense ones by ``convert_layout(..., "gather")``.  Timed beside
+    the plain version and the class's library call on the PRE-GATHERED X
+    (the gather runs outside the timed region: no library GEMM gathers):
+    torch.matmul, torch._int_mm, torch._scaled_mm; for the duals the two
+    library calls (gate, up) on their own gathered X.  Bound: values +
+    index (+ scales) + x (B, K_eff) + output bytes over 3.35 TB/s."""
+    from repro_torch.core.quantize import quantize_rows
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+
+    dev, bf16 = "cuda", torch.bfloat16
+    fp8, int8 = qdtype == FP8, qdtype == torch.int8
+    sfx = "_fp8" if fp8 else "_int8" if int8 else ""
+    esz = 2 if qdtype is None else 1
+    peak = BF16_FLOPS if qdtype is None else FP8_OPS if fp8 else INT8_OPS
+    qmax = 448.0 if fp8 else 127.0
+    d, ff = cfg.d_model, cfg.d_ff
+    record = recorder(rows, card_line)
+    lay = column_major if fp8 else int_mm_layout()[1] if int8 else None
+
+    def leaf(k, o, n):
+        w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+        lf = convert_layout({"w": w if qdtype else w.to(bf16)},
+                            SparsityConfig(n=n, m=4, mode="gather"), "gather",
+                            quantize=qdtype)
+        if qdtype is not None:
+            lf["ws"] = lf["scale"].reshape(1, -1)
+            lf["lib"] = lay(lf["values"])
+        return lf
+
+    def wbytes(k, o, n):      # values + index (+ scale)
+        kc = k * n // 4
+        return esz * kc * o + 4 * kc + (4 * o if qdtype is not None else 0)
+
+    def single(n, ref=False):
+        if qdtype is None:
+            f = gr.nm_spmm_gather_ref if ref else gk.nm_spmm_gather_bk
+            return lambda x, xs, lf: f(x, lf["values"], lf["gather_idx"], n)
+        f = gr.nm_spmm_gather_quantized_ref if ref else getattr(gk, f"nm_spmm_gather_bk{sfx}")
+        return lambda x, xs, lf: f(x, lf["values"], lf["gather_idx"], xs,
+                                   None if xs is None else lf["ws"], n, out_dtype=bf16)
+
+    def dual(n, ref=False, requant=False):
+        if qdtype is None:
+            f = gr.nm_spmm_gather_dual_ref if ref else gk.nm_spmm_gather_dual_bk
+            return lambda x, xs, g, u: f(x, g["values"], g["gather_idx"], u["values"],
+                                         u["gather_idx"], n)
+        if ref:
+            f = gr.nm_spmm_gather_dual_quantized_ref
+        else:
+            f = getattr(gk, f"nm_spmm_gather_dual_bk{sfx}{'_requant' if requant else ''}")
+
+        def run(x, xs, g, u, rq=None):
+            args = (x, g["values"], g["gather_idx"], u["values"], u["gather_idx"], n, xs,
+                    g["ws"], u["ws"])
+            if requant:
+                return f(*args, requant_scale=rq) if ref else f(*args, rq)
+            return f(*args, out_dtype=bf16)
+        return run
+
+    def lib_single(x, xs, lf, n):
+        """The library call and its operands on the pre-gathered X."""
+        xg = gr.gather_columns(x, lf["gather_idx"], n)
+        if qdtype is None:
+            return torch.matmul, (xg, lf["values"])
+        if int8:
+            return int_mm_padded, (xg, lf["lib"])
+        rows16 = -(-xg.shape[0] // 16) * 16
+        return scaled_mm, (pad_rows(xg, rows16), lf["lib"], pad_rows(xs, rows16, 1.0),
+                           lf["ws"])
+
+    def library(x, xs, lfs, n):
+        fn, _ = lib_single(x, xs, lfs[0], n)
+        return fn, [lib_single(x, xs, lf, n)[1] for lf in lfs]
+
+    def library_pair(x, xs, pairs, n):
+        """Gate and up: two library calls, each on its own gathered X."""
+        fn, _ = lib_single(x, xs, pairs[0][0], n)
+        ops = [lib_single(x, xs, g, n)[1] + lib_single(x, xs, u, n)[1] for g, u in pairs]
+        half = len(ops[0]) // 2
+        return (lambda *a: (fn(*a[:half]), fn(*a[half:]))), ops
+
+    for b in (8, 64, 256):
+        for n in (2, 1):
+            for k, o in ((d, cfg.attn_dim), (d, cfg.kv_dim), (ff, d)):
+                x = torch.randn((b, k), generator=gen, device=dev).to(bf16)
+                x, xs = (x, None) if qdtype is None else quantize_rows(x, qdtype)
+                lfs = [leaf(k, o, n) for _ in range(copies_for(wbytes(k, o, n)))]
+                run, ref = single(n), single(n, ref=True)
+                if qdtype is not None:
+                    raw, raw_ref = run(x, None, lfs[0]), ref(x, None, lfs[0])
+                    torch.cuda.synchronize()
+                    raw_err = scaled_err(raw, raw_ref)
+                    if raw.dtype != raw_ref.dtype or (int8 and not torch.equal(raw, raw_ref)) \
+                            or not raw_err <= TOL:
+                        fail(f"nm_spmm_gather_bk{sfx} B={b} K={k} O={o} n={n}: raw "
+                             f"accumulator off its plain version (scaled error {raw_err:.3e})")
+                ops = [(x, xs, lf) for lf in lfs]
+                lib_fn, lib_ops = library(x, xs, lfs, n)
+                kc = k * n // 4
+                xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
+                record(f"nm_spmm_gather_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
+                       time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+                       xbytes + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o, peak=peak,
+                       exact=int8, library="pre-gathered X")
+                del lfs, ops, lib_ops
+            # the gate-up pair at (d, ff), two index streams
+            k, o = d, ff
+            x = torch.randn((b, k), generator=gen, device=dev).to(bf16)
+            x, xs = (x, None) if qdtype is None else quantize_rows(x, qdtype)
+            pairs = [(leaf(k, o, n), leaf(k, o, n))
+                     for _ in range(copies_for(2 * wbytes(k, o, n)))]
+            run, ref = dual(n), dual(n, ref=True)
+            ops = [(x, xs, g, u) for g, u in pairs]
+            lib_fn, lib_ops = library_pair(x, xs, pairs, n)
+            kc = k * n // 4
+            xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
+            record(f"nm_spmm_gather_dual_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
+                   time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+                   xbytes + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o, peak=peak,
+                   library="two calls (gate, up) on pre-gathered X")
+            if qdtype is not None:
+                # the requant:<dtype> flush, against the scale a calibration on
+                # these rows would give w_out: absmax / qmax
+                rq = dual(n, ref=True)(*ops[0]).float().abs().amax() / qmax
+                run_q, ref_q = dual(n, requant=True), dual(n, ref=True, requant=True)
+                ops_q = [op + (rq,) for op in ops]
+                got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
+                torch.cuda.synchronize()
+                name = f"nm_spmm_gather_dual_bk{sfx}_requant"
+                if got.dtype != qdtype or want.dtype != qdtype:
+                    fail(f"{name} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
+                delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
+                share = (delta == 1).float().mean().item()
+                if delta.max().item() > 1 or share > REQUANT_SHARE:
+                    fail(f"{name} B={b} n={n}: codes off by up to {delta.max().item()} "
+                         f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
+                record(name, b, k, o, n, got, want, time_ms(run_q, ops_q),
+                       time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
+                       xbytes + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o, peak=peak,
+                       tol=None if fp8 else TOL, off_by_one_share=share,
+                       library="two calls (gate, up) on pre-gathered X")
+                del ops_q
+            del pairs, ops, lib_ops
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 ATTN_SHAPES = ((8, 32), (1, 512), (1, 2048))    # (B, T): calibration, then prefill
 
 
@@ -641,27 +814,32 @@ def quantize_pass(width: int, dtype, rows: int = 8) -> dict:
 
 
 # --------------------------------------------------------------- phase 3
-LAYOUTS = tuple((layout, sparsity, qdtype, static)
-                for qdtype, static in ((None, False), ("int8", False), ("int8", True),
-                                       ("fp8", False), ("fp8", True))
-                for layout, sparsity in (("dense", None), ("compressed", (2, 4)),
-                                         ("compressed", (1, 4))))
+CLASSES = ((None, False), ("int8", False), ("int8", True), ("fp8", False), ("fp8", True))
+# (layout, sparsity, qdtype, static, depth): the gather slice's ten runs at
+# the model's full 24 layers, the earlier slices' fifteen cut to 8 (full
+# width; their kernels are held at full width in the kernel phases)
+LAYOUTS = tuple((layout, sparsity, qdtype, static, depth)
+                for qdtype, static in CLASSES
+                for layout, sparsity, depth in (("dense", None, 8), ("compressed", (2, 4), 8),
+                                                ("compressed", (1, 4), 8),
+                                                ("gather", (2, 4), None), ("gather", (1, 4), None)))
+KINDS = {"dense": "tile_gemm", "compressed": "nm_spmm", "gather": "nm_spmm_gather"}
 # the kernels each class runs while serving (decode and prefill)
 LAYOUT_KERNELS = {("dense", None, False): ("tile_gemm", "tile_gemm_dual"),
                   ("compressed", None, False): ("nm_spmm", "nm_spmm_dual"),
-                  ("dense", "int8", False): ("tile_gemm_int8", "tile_gemm_dual_int8"),
-                  ("compressed", "int8", False): ("nm_spmm_int8", "nm_spmm_dual_int8"),
-                  ("dense", "int8", True): ("tile_gemm_int8", "tile_gemm_dual_int8_requant"),
-                  ("compressed", "int8", True): ("nm_spmm_int8",
-                                                 "nm_spmm_dual_int8_requant"),
-                  ("dense", "fp8", False): ("tile_gemm_fp8", "tile_gemm_dual_fp8"),
-                  ("compressed", "fp8", False): ("nm_spmm_fp8", "nm_spmm_dual_fp8"),
-                  ("dense", "fp8", True): ("tile_gemm_fp8", "tile_gemm_dual_fp8_requant"),
-                  ("compressed", "fp8", True): ("nm_spmm_fp8", "nm_spmm_dual_fp8_requant")}
+                  ("gather", None, False): ("nm_spmm_gather_bk", "nm_spmm_gather_dual_bk")}
+for _q in ("int8", "fp8"):
+    LAYOUT_KERNELS.update({
+        ("dense", _q, False): (f"tile_gemm_{_q}", f"tile_gemm_dual_{_q}"),
+        ("compressed", _q, False): (f"nm_spmm_{_q}", f"nm_spmm_dual_{_q}"),
+        ("gather", _q, False): (f"nm_spmm_gather_bk_{_q}", f"nm_spmm_gather_dual_bk_{_q}"),
+        ("dense", _q, True): (f"tile_gemm_{_q}", f"tile_gemm_dual_{_q}_requant"),
+        ("compressed", _q, True): (f"nm_spmm_{_q}", f"nm_spmm_dual_{_q}_requant"),
+        ("gather", _q, True): (f"nm_spmm_gather_bk_{_q}",
+                               f"nm_spmm_gather_dual_bk_{_q}_requant")})
 # ... and those the static runs' calibration forward runs (dynamic scales)
-CALIB_KERNELS = {(layout, q): (f"{kind}_{q}", f"{kind}_dual_{q}", "flash_attention")
-                 for layout, kind in (("dense", "tile_gemm"), ("compressed", "nm_spmm"))
-                 for q in ("int8", "fp8")}
+CALIB_KERNELS = {(layout, q): LAYOUT_KERNELS[layout, q, False] + ("flash_attention",)
+                 for layout in KINDS for q in ("int8", "fp8")}
 QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 CALIB_TOKENS = 32                # per slot: (slots, min(max_len, 32)), as the launcher
 
@@ -685,16 +863,20 @@ def count_leaves(tree, key) -> int:
     return 0
 
 
-def serve_layout(base_cfg, layout, sparsity, qdtype, static):
+def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None):
+    import dataclasses
+
     from repro_torch import kernels, serving
     from repro_torch.models import init_params
 
-    tag = (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense") + \
+    tag = ("gather-" if layout == "gather" else "") + \
+        (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense") + \
         (f"/{qdtype}" if qdtype else "") + ("/static" if static else "")
     spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype,
                                static_scales=static, slots=8, max_len=512, block_len=8,
                                prefill_chunk=64)
-    cfg = spec.apply_to(base_cfg)
+    cfg = spec.apply_to(dataclasses.replace(base_cfg, num_layers=depth or base_cfg.num_layers))
+    log(f"[{tag}] depth: {cfg.num_layers} layers (d_model {cfg.d_model}, d_ff {cfg.d_ff})")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     calib_tokens = None
@@ -737,7 +919,7 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static):
     log(f"[{tag}] dispatch engine plan:")
     for line in report:
         log(line)
-    want = f"_{qdtype}[cuda]" if qdtype else "[cuda]"
+    want = f"{KINDS[layout]}{'_' + qdtype if qdtype else ''}[cuda]"
     off = [line for line in report if want not in line
            or (static and "act-scales=static" not in line)]
     if off:
@@ -764,7 +946,7 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static):
     for s in rep.stats:
         if len(s.tokens) != 32 or not all(0 <= t < cfg.vocab_size for t in s.tokens):
             fail(f"[{tag}] request {s.rid} produced {s.tokens}")
-    result = {"layout": tag, "tokens_per_s": rep.tokens_per_s,
+    result = {"layout": tag, "num_layers": cfg.num_layers, "tokens_per_s": rep.tokens_per_s,
               "p50_latency_s": rep.p50_latency_s, "p99_latency_s": rep.p99_latency_s,
               "wall_s": rep.wall_s, "model_calls": rep.model_calls,
               "prefill_chunks": rep.prefill_chunks, "decode_calls": rep.decode_calls,
@@ -1010,6 +1192,10 @@ def main():
     quantized_kernel_phase(cfg, gen, card_line, rows, FP8)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    for qdtype in (None, torch.int8, FP8):
+        gather_kernel_phase(cfg, gen, card_line, rows, qdtype)
+    log(f"gather kernel phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     attention_phase(cfg, gen, card_line, rows)
     log(f"attention phase {time.perf_counter() - t0:.1f}s")
     for q, dt in QDTYPES.items():
@@ -1017,9 +1203,9 @@ def main():
             f"{json.dumps(quantize_pass(cfg.d_model, dt))}")
 
     served, tiers, launches = [], [], {}
-    for layout, sparsity, qdtype, static in LAYOUTS:
+    for layout, sparsity, qdtype, static, depth in LAYOUTS:
         t0 = time.perf_counter()
-        res, tier = serve_layout(cfg, layout, sparsity, qdtype, static)
+        res, tier = serve_layout(cfg, layout, sparsity, qdtype, static, depth)
         served.append(res)
         tiers.append(tier)
         # a static run's main path is its calibration forward and its serving
@@ -1041,6 +1227,11 @@ def main():
                         (f"nm_spmm_{q}", 2, singles), (f"nm_spmm_dual_{q}", 2, [(d, ff)]),
                         (f"tile_gemm_dual_{q}_requant", 4, [(d, ff)]),
                         (f"nm_spmm_dual_{q}_requant", 2, [(d, ff)])]
+    kernel_rows += [("nm_spmm_gather_bk", 2, singles), ("nm_spmm_gather_dual_bk", 2, [(d, ff)])]
+    for q in ("int8", "fp8"):
+        kernel_rows += [(f"nm_spmm_gather_bk_{q}", 2, singles),
+                        (f"nm_spmm_gather_dual_bk_{q}", 2, [(d, ff)]),
+                        (f"nm_spmm_gather_dual_bk_{q}_requant", 2, [(d, ff)])]
     for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
@@ -1052,7 +1243,9 @@ def main():
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
             "measured_as": f"one layer's decode launches at B=8 ({len(shapes)} "
-                           f"shape(s)){', n=2 (2:4)' if n == 2 else ''}"}
+                           f"shape(s)){', n=2 (2:4)' if n == 2 else ''}"
+                           f"{'; library on the pre-gathered X' if 'gather' in name else ''}"
+                           f"{', two calls (gate, up)' if 'gather_dual' in name else ''}"}
         if name.endswith("_requant"):
             entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
                                             if r["kernel"] == name)

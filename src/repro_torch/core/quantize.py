@@ -181,9 +181,10 @@ def quantize_rows_static(x: torch.Tensor, act_scale: torch.Tensor, dtype=torch.i
 
 
 def quantize_linear(params: Dict[str, Any], dtype=torch.int8) -> Dict[str, Any]:
-    """Quantize one dense ``{"w"}`` or compressed ``{"values",
-    "meta_packed"}`` leaf: its float operand per output channel, metadata
-    unchanged.  Idempotent: a quantized leaf is returned as it is."""
+    """Quantize one dense ``{"w"}``, compressed ``{"values",
+    "meta_packed"}`` or gather ``{"values", "gather_idx"}`` leaf: its float
+    operand per output channel, metadata and indices unchanged.
+    Idempotent: a quantized leaf is returned as it is."""
     if is_quantized(params):
         return params
     key = "w" if "w" in params else "values"

@@ -1,18 +1,24 @@
-"""SparseLinear: the N:M sparse projection, dense and compressed layouts.
+"""SparseLinear: the N:M sparse projection, dense, compressed and gather
+layouts.
 
-The port's copy of ``repro.core.sparse_linear`` for the two serving
-layouts of this slice:
+The port's copy of ``repro.core.sparse_linear`` for the serving layouts
+ported so far:
 
   dense        {"w": (K, O)}                          y = x @ w
   compressed   {"values": (K*n/4, O),                 y = x @ dec(values, meta)
                 "meta_packed": (K*n/16, O) uint8}
+  gather       {"values": (K*n/4, O),                 y = gather(x, idx) @ values
+                "gather_idx": (K*n/4,) int32}
 
-Both route through the dispatch engine (``kernels.dispatch``): a CUDA
-kernel where the plan allows, the torch reference formulation otherwise.
-Either layout may be quantized (``convert_layout(..., quantize="int8")``,
-see ``core.quantize``): its value leaf holds the narrow dtype and a
-``"scale"`` leaf rides beside it.  The masked (SR-STE), gather and
-rowwise layouts wait for later slices.
+The gather layout is lane-aligned N:M: every output channel shares one
+in-block index per compressed row, so the activation's kept columns are
+gathered once and the product contracts over K*n/4 (n/4 of the dense
+FLOPs).  All route through the dispatch engine (``kernels.dispatch``): a
+CUDA kernel where the plan allows, the torch reference formulation
+otherwise.  Any layout may be quantized (``convert_layout(...,
+quantize="int8")``, see ``core.quantize``): its value leaf holds the
+narrow dtype and a ``"scale"`` leaf rides beside it.  The masked (SR-STE)
+and rowwise layouts wait for later slices.
 """
 
 from __future__ import annotations
@@ -74,13 +80,34 @@ def _compressed(w: torch.Tensor, cfg: SparsityConfig) -> Dict[str, torch.Tensor]
     return {"values": c.values, "meta_packed": nm.pack_meta(c.meta)}
 
 
+def _gathered(w: torch.Tensor, cfg: SparsityConfig) -> Dict[str, torch.Tensor]:
+    """Lane-aligned conversion of one (K, O) matrix: each M-block keeps the
+    n in-block rows with the largest |w| summed over all O channels (sums
+    in ``w``'s dtype; stable sort, so equal blocks keep the lower rows),
+    kept set ascending, as the JAX package's ``convert_layout``."""
+    k, o = w.shape
+    blocks = w.abs().reshape(k // cfg.m, cfg.m, o).sum(dim=-1)          # (K/m, m)
+    order = torch.argsort(-blocks, dim=1, stable=True)[:, :cfg.n]
+    idx = torch.sort(order, dim=1).values.reshape(-1).to(torch.int32)   # (K_c,)
+    blk = torch.arange(idx.shape[0], device=w.device) // cfg.n * cfg.m
+    return {"values": w[blk + idx.long()], "gather_idx": idx}
+
+
 def init_linear(gen: torch.Generator, k: int, o: int, cfg: SparsityConfig,
                 dtype=torch.bfloat16, scale: Optional[float] = None,
                 device=None) -> Dict[str, Any]:
     """Random parameters for one linear, in the layout ``cfg.mode`` asks
-    for.  ``gen`` must live on ``device`` (a CUDA generator for CUDA)."""
+    for.  ``gen`` must live on ``device`` (a CUDA generator for CUDA).  The
+    gather layout draws its (K_c, O) values directly, beside the JAX
+    package's deterministic spread of kept indices."""
     if scale is None:
         scale = k ** -0.5
+    if cfg.mode == "gather" and cfg.is_sparse:
+        kc = k * cfg.n // cfg.m
+        base = torch.arange(kc, dtype=torch.int32, device=device) % cfg.m
+        idx = torch.sort(base.reshape(-1, cfg.n), dim=1).values.reshape(kc)
+        vals = torch.randn((kc, o), generator=gen, dtype=torch.float32, device=device) * scale
+        return {"values": vals.to(dtype), "gather_idx": idx}
     w = (torch.randn((k, o), generator=gen, dtype=torch.float32, device=device)
          * scale).to(dtype)
     if cfg.mode == "dense" or not cfg.is_sparse:
@@ -112,9 +139,9 @@ def apply_gate_up(params_g: Dict[str, Any], params_u: Dict[str, Any],
 def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
                    target_mode: str = "compressed",
                    quantize: Optional[str] = None) -> Dict[str, Any]:
-    """Offline conversion: dense weights -> serving layout.  Leaves already
-    in a serving layout pass through; stacked ``(..., K, O)`` dense leaves
-    convert per trailing matrix.
+    """Offline conversion: dense weights -> serving layout (``compressed``
+    or ``gather``).  Leaves already in a serving layout pass through;
+    stacked ``(..., K, O)`` dense leaves convert per trailing matrix.
 
     ``quantize="int8"`` (or ``"fp8"``) then quantizes the layout's float
     operand per output channel (``core.quantize.quantize_linear``), after
@@ -135,14 +162,15 @@ def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
     w = params["w"]
     if not cfg.is_sparse or target_mode == "dense":
         return _q({"w": w})
-    if target_mode != "compressed":
+    convert = {"compressed": _compressed, "gather": _gathered}.get(target_mode)
+    if convert is None:
         raise NotImplementedError(f"{target_mode!r} layouts are not ported yet")
     if w.ndim > 2:
         lead = w.shape[:-2]
-        mats = [_compressed(m_, cfg) for m_ in w.reshape((-1,) + w.shape[-2:])]
+        mats = [convert(m_, cfg) for m_ in w.reshape((-1,) + w.shape[-2:])]
         return _q({k: torch.stack([m_[k] for m_ in mats]).reshape(lead + mats[0][k].shape)
                    for k in mats[0]})
-    return _q(_compressed(w, cfg))
+    return _q(convert(w, cfg))
 
 
 # keys a linear layout may carry beside its structural ones (``calib_id``
@@ -151,11 +179,11 @@ _AUX_KEYS = {"scale", "act_scale", "calib_id"}
 
 
 def is_linear_leaf(tree: Any) -> bool:
-    """One flat SparseLinear layout dict (dense ``{"w"}`` or compressed,
-    either possibly with its quantization scales): the structural test
-    every tree walk shares."""
+    """One flat SparseLinear layout dict (dense ``{"w"}``, compressed or
+    gather, each possibly with its quantization scales): the structural
+    test every tree walk shares."""
     return isinstance(tree, dict) and (
-        "meta_packed" in tree or set(tree) - _AUX_KEYS == {"w"})
+        "meta_packed" in tree or "gather_idx" in tree or set(tree) - _AUX_KEYS == {"w"})
 
 
 def map_linear_leaves(tree, fn: Callable[[Dict[str, Any]], Dict[str, Any]]):

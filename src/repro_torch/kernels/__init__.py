@@ -7,6 +7,7 @@ kernel in a plain integer attribute, ``.launches``.
 
 from .flash_attention import kernel as _flash_attention
 from .nm_spmm import kernel as _nm_spmm
+from .nm_spmm_gather import kernel as _nm_spmm_gather
 from .tile_gemm import kernel as _tile_gemm
 
 KERNELS = {
@@ -27,6 +28,7 @@ KERNELS = {
     "tile_gemm_dual_fp8_requant": _tile_gemm.tile_gemm_dual_fp8_requant,
     "nm_spmm_dual_fp8_requant": _nm_spmm.nm_spmm_dual_fp8_requant,
     "flash_attention": _flash_attention.flash_attention,
+    **{name: getattr(_nm_spmm_gather, name) for name in _nm_spmm_gather.__all__},
 }
 
 

@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the repro_torch dense and N:M
-// sparse GEMMs: tile_gemm, tile_gemm_dual, nm_spmm and nm_spmm_dual.
+// sparse GEMMs: tile_gemm, tile_gemm_dual, nm_spmm, nm_spmm_dual, and the
+// lane-aligned gather pair nm_spmm_gather_bk and nm_spmm_gather_dual_bk.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm       repro/kernels/tile_gemm/kernel.py::tile_gemm      (_gemm_kernel)
@@ -7,10 +8,15 @@
 //   nm_spmm         repro/kernels/nm_spmm/kernel.py::nm_spmm          (_spmm_accumulate,
 //                   _unpack_meta_tile, _decompress_tile)
 //   nm_spmm_dual    repro/kernels/nm_spmm/kernel.py::nm_spmm_dual     (_spmm_dual_kernel)
+//   nm_spmm_gather_bk       repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk
+//                           (_gather_bk_kernel, _gather_step, _gather_contract)
+//   nm_spmm_gather_dual_bk  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_dual_bk
+//                           (_gather_dual_kernel)
 //
-// ONE templated kernel body serves all four: the template takes the weight
-// loader (DenseLoader, or NMLoader<n> for values + 2-bit packed meta) and
-// single or dual (gate-up, two weights against one X tile).
+// ONE templated kernel body serves all six: the template takes the weight
+// loader (DenseLoader, or NMLoader<n> for values + 2-bit packed meta), the
+// X loader (contiguous, or gathered through the lane-aligned index) and
+// single or dual (gate-up, two weights against one X read).
 //
 // What it computes.  A block of 128 threads (4 warps) owns a BM x 64 tile
 // of Y (BM = 16 for decode-sized batches, 64 for prefill chunks), keeps
@@ -30,18 +36,30 @@
 // shared memory: w[(r/n)*4 + idx(r), o] = values[r, o].  The dense weight
 // never exists in device memory.
 //
+// Lane-aligned gather (nm_spmm_gather).  All O channels share one in-block
+// index per compressed row, so the kernel contracts over K_c = K*n/4
+// instead of expanding the weight: the weight tile is a plain dense tile
+// of values (K_c, O), and the X tile's column j at K step k0 is X column
+// ((k0 + j) / n) * 4 + idx[k0 + j] -- the TPU kernel's sublane
+// compare-and-select and its VMEM transposes become 16-byte loads of the
+// step's X span and a select in registers.  n/4 of the dense weight bytes, n/4 of the FLOPs and n/4 as many
+// serial K steps.  The dual gathers X twice (gate and up keep their own
+// index streams) into two X tiles.
+//
 // What bounds it on an H100.  At decode (B = slots = 8) every weight byte
 // is read once for 16 flops per bf16 pair, far below the ~295 flop/byte
 // ridge, so the weight bytes over 3.35 TB/s bound it: w_out at K=8192,
 // O=2048 moves 33.6 MB dense (10.0 us) and 18.9 MB at 2:4 (values 16.8 MB
-// + meta 2.1 MB, 5.6 us).  Prefill chunks (B <= 64) are still
-// bandwidth-bound.  What the design does about it: the N:M loader moves
-// n/4 of the dense weight bytes plus 2 bits per kept value and expands on
-// chip, weight loads are 16-byte vector loads along O (coalesced rows),
-// and the register prefetch of the next K step overlaps the loads with
-// the tensor-core work.  Launch width is O/64 blocks, too few to keep the
-// card's memory system busy at decode for O <= 2048: split-K, TMA rings,
-// wgmma and sparse tensor cores (mma.sp) are later work.
+// + meta 2.1 MB, 5.6 us), 16.8 MB in the gather layout (values + 8 KB of
+// index).  Prefill chunks (B <= 64) are still bandwidth-bound.  What the
+// design does about it: the N:M loader moves n/4 of the dense weight
+// bytes plus 2 bits per kept value and expands on chip, the gather loader
+// moves n/4 of them and no expansion, weight loads are 16-byte vector
+// loads along O (coalesced rows), and the register prefetch of the next
+// K step overlaps the loads with the tensor-core work.  Launch width is
+// O/64 blocks, too few to keep the card's memory system busy at decode
+// for O <= 2048: split-K, TMA rings, wgmma and sparse tensor cores
+// (mma.sp) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,11 +84,13 @@ __device__ __forceinline__ uint32_t word_of(const uint4& a, int i) {
 }
 
 // X tile: BM rows x BK columns, one 16-byte chunk (8 bf16) per thread per
-// 16 rows; rows at or beyond B read as zero.
+// 16 rows; rows at or beyond B read as zero.  ke is X's row stride.
 template <int BM>
 struct XLoader {
+  static constexpr bool kGather = false;
   const __nv_bfloat16* x;
-  int b, k;
+  const int* unused_idx[2];
+  int b, ke;
   uint4 r[BM / 16];
 
   __device__ __forceinline__ void load(int k0, int m0, int tid) {
@@ -78,7 +98,7 @@ struct XLoader {
 #pragma unroll
     for (int i = 0; i < BM / 16; ++i) {
       const int row = m0 + (tid >> 3) + 16 * i;
-      r[i] = row < b ? *reinterpret_cast<const uint4*>(x + (size_t)row * k + c)
+      r[i] = row < b ? *reinterpret_cast<const uint4*>(x + (size_t)row * ke + c)
                      : make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -89,6 +109,102 @@ struct XLoader {
       *reinterpret_cast<uint4*>(xs + row * XLD + (tid & 7) * 8) = r[i];
     }
   }
+};
+
+// The 2N (bf16) or 4N (one-byte types) indices of a chunk's M-blocks, as
+// 8- or 16-byte vector loads (idx is 16-byte aligned, every chunk's first
+// index a multiple of 2N).
+template <int C>
+__device__ __forceinline__ void load_indices(int (&d)[C], const int* p) {
+  if constexpr (C == 2) {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const int4 v = reinterpret_cast<const int4*>(p)[q];
+      d[4 * q] = v.x;
+      d[4 * q + 1] = v.y;
+      d[4 * q + 2] = v.z;
+      d[4 * q + 3] = v.w;
+    }
+  }
+}
+
+// Candidate i of an M-block of four bf16 held in two words; an index
+// outside [0, 4) selects +0, as the TPU kernel's compare-and-select does.
+__device__ __forceinline__ uint32_t pick16(uint32_t lo, uint32_t hi, int i) {
+  return static_cast<unsigned>(i) < 4u ? ((i < 2 ? lo : hi) >> (16 * (i & 1))) & 0xffffu : 0u;
+}
+
+// Gathered X tile (nm_spmm_gather, M = 4): column j of the tile at K step
+// k0 is compressed row c = k0 + j, which reads X column (c / N) * 4 +
+// idx[c] of the K_eff = ke columns.  The step's kept columns lie in a
+// span of 64 * 4 / N X columns; each thread loads whole 16-byte chunks of
+// it (two M-blocks, 8 candidates) with one vector load, and the 2N
+// indices of those blocks (of both streams for a dual: gate and up share
+// the span), and selects the kept values only at the store: nothing in
+// load() waits on a load, so the weight loads issued after it never
+// stall.  NTHREADS is a multiple of the chunks per row, so a thread keeps
+// one chunk column (and its indices) for all its rows.
+template <int BM, int N, bool TWO>
+struct GatherXLoader {
+  static constexpr bool kGather = true;
+  static constexpr int CPR = 32 / N;                    // chunks per row per step
+  static constexpr int NI = BM * CPR / NTHREADS;        // chunks per thread
+  const __nv_bfloat16* x;
+  const int* idx[2];   // gate (and, for a dual, up): one index stream each
+  int b, ke;
+  uint4 r[NI];
+  int iv[TWO ? 2 : 1][2 * N];
+
+  __device__ __forceinline__ void load(int k0, int m0, int tid) {
+    const int ch = tid % CPR;
+    load_indices(iv[0], idx[0] + k0 + 2 * N * ch);
+    if constexpr (TWO) load_indices(iv[1], idx[1] + k0 + 2 * N * ch);
+    const int c = (k0 / N) * 4 + 8 * ch;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int row = m0 + (tid + NTHREADS * i) / CPR;
+      r[i] = row < b ? *reinterpret_cast<const uint4*>(x + (size_t)row * ke + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // the kept values of index STREAM (0: gate, 1: up) into the X tile xs
+  template <int STREAM = 0>
+  __device__ __forceinline__ void store(__nv_bfloat16* xs, int tid) const {
+    const int ch = tid % CPR;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid + NTHREADS * i) / CPR;
+      uint32_t out[N];
+#pragma unroll
+      for (int q = 0; q < N; ++q) out[q] = 0u;
+#pragma unroll
+      for (int blk = 0; blk < 2; ++blk) {
+        const uint32_t lo = word_of(r[i], 2 * blk), hi = word_of(r[i], 2 * blk + 1);
+#pragma unroll
+        for (int s = 0; s < N; ++s) {
+          const int p = blk * N + s;
+          out[p / 2] |= pick16(lo, hi, iv[STREAM][p]) << (16 * (p % 2));
+        }
+      }
+      uint32_t* dst = reinterpret_cast<uint32_t*>(xs + rl * XLD + 2 * N * ch);
+#pragma unroll
+      for (int q = 0; q < N; ++q) dst[q] = out[q];
+    }
+  }
+};
+
+// The X-loader template argument of the kernel: contiguous rows, or the
+// lane-aligned gather at N:4.
+struct Contiguous {
+  template <int BM, bool DUAL> using Loader = XLoader<BM>;
+};
+template <int N>
+struct Gathered {
+  template <int BM, bool DUAL> using Loader = GatherXLoader<BM, N, DUAL>;
 };
 
 // Dense (K, O) weight: a 64 x 64 tile is 512 16-byte chunks, 4 per thread.
@@ -165,22 +281,27 @@ struct NMLoader {
   }
 };
 
-template <int BM, bool DUAL, class WL>
+template <int BM, bool DUAL, class WL, class XS>
 __global__ void __launch_bounds__(NTHREADS)
-gemm_kernel(const __nv_bfloat16* __restrict__ x,
+gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
+            const int* __restrict__ iu,
             const __nv_bfloat16* __restrict__ wg, const uint8_t* __restrict__ mg,
             const __nv_bfloat16* __restrict__ wu, const uint8_t* __restrict__ mu,
             const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-            int b, int k, int o, int act) {
+            int b, int ke, int k, int o, int act) {
+  using XL = typename XS::template Loader<BM, DUAL>;
+  // a gathered dual selects X through two index streams: two X tiles
+  constexpr int NX = (DUAL && XL::kGather) ? 2 : 1;
   constexpr int MF = BM / 16;
   constexpr int NW = DUAL ? 2 : 1;
-  constexpr int LOAD_BYTES = (BM * XLD + NW * BK * WLD) * 2;
+  constexpr int LOAD_BYTES = (NX * BM * XLD + NW * BK * WLD) * 2;
   constexpr int FLUSH_BYTES = NW * BM * CLD * 4;
   constexpr int SMEM = LOAD_BYTES > FLUSH_BYTES ? LOAD_BYTES : FLUSH_BYTES;
   // the staging tiles and, after the K loop, the fp32 flush tiles alias
   __shared__ __align__(128) unsigned char smem[SMEM];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws_g = xs + BM * XLD;
+  __nv_bfloat16* xs_g = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* xs_u = xs_g + (NX - 1) * BM * XLD;
+  __nv_bfloat16* ws_g = xs_g + NX * BM * XLD;
   __nv_bfloat16* ws_u = ws_g + BK * WLD;
 
   const int tid = threadIdx.x;
@@ -188,7 +309,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
 
-  XLoader<BM> xl{x, b, k};
+  XL xl{x, {ig, iu}, b, ke};
   WL lg{wg, mg, o};
   WL lu{wu, mu, o};
 
@@ -204,7 +325,8 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
   lg.load(0, n0, tid);
   if constexpr (DUAL) lu.load(0, n0, tid);
   for (int k0 = 0; k0 < k; k0 += BK) {
-    xl.store(xs, tid);
+    xl.store(xs_g, tid);
+    if constexpr (NX == 2) xl.template store<1>(xs_u, tid);
     lg.store(ws_g, tid);
     if constexpr (DUAL) lu.store(ws_u, tid);
     __syncthreads();
@@ -221,9 +343,15 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < MF; ++i) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, xs + i * 16 * XLD + kk, XLD);
+        wmma::load_matrix_sync(a, xs_g + i * 16 * XLD + kk, XLD);
         wmma::mma_sync(acc_g[i], a, bg, acc_g[i]);
-        if constexpr (DUAL) wmma::mma_sync(acc_u[i], a, bu, acc_u[i]);
+        if constexpr (NX == 2) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a_u;
+          wmma::load_matrix_sync(a_u, xs_u + i * 16 * XLD + kk, XLD);
+          wmma::mma_sync(acc_u[i], a_u, bu, acc_u[i]);
+        } else if constexpr (DUAL) {
+          wmma::mma_sync(acc_u[i], a, bu, acc_u[i]);
+        }
       }
     }
     __syncthreads();
@@ -255,26 +383,35 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int BM, bool DUAL, class WL>
-int launch(const void* x, const void* wg, const void* mg, const void* wu, const void* mu,
-           const void* bias, void* y, int b, int k, int o, int act, void* stream) {
+template <int BM, bool DUAL, class WL, class XS>
+int launch(const void* x, const void* ig, const void* iu, const void* wg, const void* mg,
+           const void* wu, const void* mu, const void* bias, void* y, int b, int ke, int k,
+           int o, int act, void* stream) {
   const dim3 grid(o / BN, (b + BM - 1) / BM);
-  gemm_kernel<BM, DUAL, WL><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wg),
+  gemm_kernel<BM, DUAL, WL, XS><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(ig),
+      static_cast<const int*>(iu), static_cast<const __nv_bfloat16*>(wg),
       static_cast<const uint8_t*>(mg), static_cast<const __nv_bfloat16*>(wu),
       static_cast<const uint8_t*>(mu), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(y), b, k, o, act);
+      static_cast<__nv_bfloat16*>(y), b, ke, k, o, act);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DUAL, class WL>
-int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void* wu,
-              const void* mu, const void* bias, void* y, int b, int k, int o, int act,
-              void* stream) {
-  if (b <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 || act > 2)
+// ke: X's row stride (K_eff); k: the contraction the weight rows run over
+// (K_eff, or K_c for the gather loaders)
+template <bool DUAL, class WL, class XS = Contiguous>
+int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void* wg,
+              const void* mg, const void* wu, const void* mu, const void* bias, void* y,
+              int b, int ke, int k, int o, int act, void* stream) {
+  if (b <= 0 || ke <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 ||
+      act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bm == 16) return launch<16, DUAL, WL>(x, wg, mg, wu, mu, bias, y, b, k, o, act, stream);
-  if (bm == 64) return launch<64, DUAL, WL>(x, wg, mg, wu, mu, bias, y, b, k, o, act, stream);
+  if (bm == 16)
+    return launch<16, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, bias, y, b, ke, k, o, act,
+                                    stream);
+  if (bm == 64)
+    return launch<64, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, bias, y, b, ke, k, o, act,
+                                    stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -282,9 +419,35 @@ template <bool DUAL>
 int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
               const void* mu, const void* bias, void* y, int b, int k, int o, int act,
               void* stream) {
-  if (n == 1) return launch_bm<DUAL, NMLoader<1>>(bm, x, vg, mg, vu, mu, bias, y, b, k, o, act, stream);
-  if (n == 2) return launch_bm<DUAL, NMLoader<2>>(bm, x, vg, mg, vu, mu, bias, y, b, k, o, act, stream);
-  if (n == 4) return launch_bm<DUAL, NMLoader<4>>(bm, x, vg, mg, vu, mu, bias, y, b, k, o, act, stream);
+  if (n == 1)
+    return launch_bm<DUAL, NMLoader<1>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, bias, y, b,
+                                        k, k, o, act, stream);
+  if (n == 2)
+    return launch_bm<DUAL, NMLoader<2>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, bias, y, b,
+                                        k, k, o, act, stream);
+  if (n == 4)
+    return launch_bm<DUAL, NMLoader<4>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, bias, y, b,
+                                        k, k, o, act, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the lane-aligned gather: X (B, ke) gathered to K_c = ke * n / 4 columns,
+// contracted against the dense values tile (K_c, O)
+template <bool DUAL>
+int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
+                  const void* vu, const void* iu, const void* bias, void* y, int b, int ke,
+                  int o, int act, void* stream) {
+  if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  if (n == 1)
+    return launch_bm<DUAL, DenseLoader, Gathered<1>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
+                                                     bias, y, b, ke, kc, o, act, stream);
+  if (n == 2)
+    return launch_bm<DUAL, DenseLoader, Gathered<2>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
+                                                     bias, y, b, ke, kc, o, act, stream);
+  if (n == 4)
+    return launch_bm<DUAL, DenseLoader, Gathered<4>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
+                                                     bias, y, b, ke, kc, o, act, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -297,14 +460,14 @@ extern "C" {
 
 int vg_tile_gemm(const void* x, const void* w, const void* bias, void* y, int b, int k,
                  int o, int act, int bm, void* stream) {
-  return launch_bm<false, DenseLoader>(bm, x, w, nullptr, nullptr, nullptr, bias, y, b, k, o,
-                                       act, stream);
+  return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
+                                       bias, y, b, k, k, o, act, stream);
 }
 
 int vg_tile_gemm_dual(const void* x, const void* wg, const void* wu, void* y, int b, int k,
                       int o, int bm, void* stream) {
-  return launch_bm<true, DenseLoader>(bm, x, wg, nullptr, wu, nullptr, nullptr, y, b, k, o,
-                                      ACT_NONE, stream);
+  return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
+                                      nullptr, y, b, k, k, o, ACT_NONE, stream);
 }
 
 int vg_nm_spmm(const void* x, const void* values, const void* meta, const void* bias, void* y,
@@ -318,6 +481,20 @@ int vg_nm_spmm_dual(const void* x, const void* values_g, const void* meta_g,
                     int n, int bm, void* stream) {
   return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, y, b, k, o,
                          ACT_NONE, stream);
+}
+
+// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
+int vg_nm_spmm_gather_bk(const void* x, const void* values, const void* idx, const void* bias,
+                         void* y, int b, int k, int o, int n, int act, int bm, void* stream) {
+  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, bias, y, b, k, o, act,
+                              stream);
+}
+
+int vg_nm_spmm_gather_dual_bk(const void* x, const void* values_g, const void* idx_g,
+                              const void* values_u, const void* idx_u, void* y, int b, int k,
+                              int o, int n, int bm, void* stream) {
+  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, y, b, k, o,
+                             ACT_NONE, stream);
 }
 
 const char* vg_error_string(int code) {

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) fp8 kernels for the repro_torch fp8
 // execution class (e4m3 weights x e4m3 activations, fp32 accumulation):
-// tile_gemm_fp8, tile_gemm_dual_fp8, nm_spmm_fp8 and nm_spmm_dual_fp8,
-// the duals with a requantizing flush.
+// tile_gemm_fp8, tile_gemm_dual_fp8, nm_spmm_fp8, nm_spmm_dual_fp8 and the
+// lane-aligned gather pair nm_spmm_gather_bk_fp8 and
+// nm_spmm_gather_dual_bk_fp8, the duals with a requantizing flush.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm_fp8       repro/kernels/tile_gemm/kernel.py::tile_gemm_fp8
@@ -12,12 +13,18 @@
 //                       (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel)
 //   nm_spmm_dual_fp8    repro/kernels/nm_spmm/kernel.py::nm_spmm_dual,
 //                       quantized branch with acc_dtype=float32 (_spmm_dual_kernel)
+//   nm_spmm_gather_bk_fp8       repro/kernels/nm_spmm_gather/kernel.py::
+//                               nm_spmm_gather_bk, fp8 (_gather_bk_kernel)
+//   nm_spmm_gather_dual_bk_fp8  repro/kernels/nm_spmm_gather/kernel.py::
+//                               nm_spmm_gather_dual_bk, fp8 (_gather_dual_kernel)
 // and, in the duals' flush, the requant:float8_e4m3fn point of
 // repro/kernels/epilogue.py::flush_tile / requant_rows.
 //
-// ONE templated body serves all four, as in gemm_int8.cu: the template
+// ONE templated body serves all six, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
-// meta) and single or dual (gate-up, two weights against one X tile).
+// meta), the X loader (contiguous, or gathered through the lane-aligned
+// index, see gemm.cu) and single or dual (gate-up, two weights against
+// one X read).
 //
 // What it computes.  A block of 128 threads (4 warps) owns a BM x 64 tile
 // of Y (BM = 16 for decode-sized batches, 64 for prefill chunks) and
@@ -33,7 +40,8 @@
 // (promotion every 64 K): at K = 8192 the tensor cores sum 64 products at
 // a time and the remaining 128 partial sums are plain fp32 adds.
 // The flush runs from the fragments in the JAX kernels' order: t =
-// acc * xs[row] * ws[col] (left to right, fp32, __fmul_rn), then + bias ->
+// acc * xs[row] * ws[col] (left to right, fp32, __fmul_rn; the gather
+// kernels multiply ws before xs, nm_spmm_gather/kernel.py:315-317), then + bias ->
 // silu | gelu, or for a dual silu(t_g) * t_u, then one cast (bf16 or fp32)
 // and a store masked to the rows < B.  With no scales (raw mode) it
 // stores the fp32 accumulator itself.  Only the accumulator's summation
@@ -58,6 +66,12 @@
 // distinct banks.  At decode the m16 row tile is half masked (B = 8);
 // the kernel is bound by weight bytes, not by tensor-core rate, so the
 // operands are not swapped.
+//
+// Gathered activations.  The rows are quantized to e4m3 over their full
+// K_eff row before the launch; the gather loader selects the kept
+// columns' bytes from 16-byte chunks of the step's X span into the same
+// [BM][80 B] X tile the hand-loaded A fragments read, so the mma path is
+// unchanged.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows of e4m3)
 // and the packed meta tile (64*n/16 rows, four 2-bit in-block indices
@@ -97,11 +111,14 @@ enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_RAW = 2, OUT_E4M3 = 3 };
 
 // X tile: BM rows x 64 bytes = four 16-byte chunks per row.  Thread t
 // loads chunk t%4 of row t/4 (+32 i); rows at or beyond B read as zero.
+// ke is X's row stride.
 template <int BM>
 struct XLoader {
+  static constexpr bool kGather = false;
   static constexpr int NI = (BM * 4 + NTHREADS - 1) / NTHREADS;
   const uint8_t* x;
-  int b, k;
+  const int* unused_idx[2];
+  int b, ke;
   uint4 r[NI];
 
   __device__ __forceinline__ void load(int k0, int m0, int tid) {
@@ -110,7 +127,7 @@ struct XLoader {
     for (int i = 0; i < NI; ++i) {
       const int rl = (tid >> 2) + 32 * i;
       const int row = m0 + rl;
-      r[i] = (rl < BM && row < b) ? *reinterpret_cast<const uint4*>(x + (size_t)row * k + c)
+      r[i] = (rl < BM && row < b) ? *reinterpret_cast<const uint4*>(x + (size_t)row * ke + c)
                                   : make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -121,6 +138,91 @@ struct XLoader {
       if (rl < BM) *reinterpret_cast<uint4*>(xs + rl * PITCH + (tid & 3) * 16) = r[i];
     }
   }
+};
+
+// The 4N indices of a chunk's four M-blocks, as 16-byte vector loads.
+template <int C>
+__device__ __forceinline__ void load_indices(int (&d)[C], const int* p) {
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    const int4 v = reinterpret_cast<const int4*>(p)[q];
+    d[4 * q] = v.x;
+    d[4 * q + 1] = v.y;
+    d[4 * q + 2] = v.z;
+    d[4 * q + 3] = v.w;
+  }
+}
+
+// Candidate i of an M-block of four bytes held in one word; an index
+// outside [0, 4) selects 0, as the TPU kernel's compare-and-select does.
+__device__ __forceinline__ uint32_t pick8(uint32_t w, int i) {
+  return static_cast<unsigned>(i) < 4u ? (w >> (8 * i)) & 0xffu : 0u;
+}
+
+// Gathered X tile (nm_spmm_gather, M = 4; see gemm.cu): column j of the
+// tile at K step k0 is compressed row c = k0 + j, which reads X column
+// (c / N) * 4 + idx[c].  Each thread loads whole 16-byte chunks of the
+// step's 64 * 4 / N-byte X span (four M-blocks) with one vector load, and
+// the 4N indices of those blocks (of both streams for a dual, TWO), and
+// selects the kept bytes only at the store (4N of them, N words), so
+// nothing in load() waits on a load.
+template <int BM, int N, bool TWO>
+struct GatherXLoader {
+  static constexpr bool kGather = true;
+  static constexpr int CPR = 16 / N;                                 // chunks per row per step
+  static constexpr int NI = (BM * CPR + NTHREADS - 1) / NTHREADS;    // chunks per thread
+  const uint8_t* x;
+  const int* idx[2];   // gate (and, for a dual, up): one index stream each
+  int b, ke;
+  uint4 r[NI];
+  int iv[TWO ? 2 : 1][4 * N];
+
+  __device__ __forceinline__ void load(int k0, int m0, int tid) {
+    const int ch = tid % CPR;   // NTHREADS % CPR == 0: one chunk column per thread
+    load_indices(iv[0], idx[0] + k0 + 4 * N * ch);
+    if constexpr (TWO) load_indices(iv[1], idx[1] + k0 + 4 * N * ch);
+    const int c = (k0 / N) * 4 + 16 * ch;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid + NTHREADS * i) / CPR;
+      const int row = m0 + rl;
+      r[i] = (rl < BM && row < b) ? *reinterpret_cast<const uint4*>(x + (size_t)row * ke + c)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // the kept bytes of index STREAM (0: gate, 1: up) into the X tile xs
+  template <int STREAM = 0>
+  __device__ __forceinline__ void store(uint8_t* xs, int tid) const {
+    const int ch = tid % CPR;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int rl = (tid + NTHREADS * i) / CPR;
+      if (rl >= BM) continue;
+      const uint32_t w[4] = {r[i].x, r[i].y, r[i].z, r[i].w};
+      uint32_t out[N];
+#pragma unroll
+      for (int q = 0; q < N; ++q) out[q] = 0u;
+#pragma unroll
+      for (int blk = 0; blk < 4; ++blk)
+#pragma unroll
+        for (int s = 0; s < N; ++s) {
+          const int p = blk * N + s;
+          out[p / 4] |= pick8(w[blk], iv[STREAM][p]) << (8 * (p % 4));
+        }
+      uint32_t* dst = reinterpret_cast<uint32_t*>(xs + rl * PITCH + 4 * N * ch);
+#pragma unroll
+      for (int q = 0; q < N; ++q) dst[q] = out[q];
+    }
+  }
+};
+
+// The X-loader template argument of the kernel (as in gemm.cu).
+struct Contiguous {
+  template <int BM, bool DUAL> using Loader = XLoader<BM>;
+};
+template <int N>
+struct Gathered {
+  template <int BM, bool DUAL> using Loader = GatherXLoader<BM, N, DUAL>;
 };
 
 // Byte j of each of four words, as one word (w0's byte lowest).
@@ -240,25 +342,36 @@ __device__ __forceinline__ float dequant(float acc, float xs, float ws) {
   return __fmul_rn(__fmul_rn(acc, xs), ws);
 }
 
+// the gather kernels' order: ws before xs (nm_spmm_gather/kernel.py:315-317)
+template <bool WS_FIRST>
+__device__ __forceinline__ float dequant_in_order(float acc, float xs, float ws) {
+  if constexpr (WS_FIRST) return __fmul_rn(__fmul_rn(acc, ws), xs);
+  return dequant(acc, xs, ws);
+}
+
 // requant_rows for e4m3: clip(y / scale, -448, 448), then the RNE cast
 __device__ __forceinline__ uint8_t requant_e4m3(float y, float scale) {
   const float q = fminf(fmaxf(__fdiv_rn(y, scale), -E4M3_MAX), E4M3_MAX);
   return static_cast<uint8_t>(__nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3));
 }
 
-template <int BM, bool DUAL, class WL>
+template <int BM, bool DUAL, class WL, class XS>
 __global__ void __launch_bounds__(NTHREADS)
-gemm_fp8_kernel(const uint8_t* __restrict__ x,
+gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
+                const int* __restrict__ iu,
                 const uint8_t* __restrict__ wg, const uint8_t* __restrict__ mg,
                 const uint8_t* __restrict__ wu, const uint8_t* __restrict__ mu,
                 const float* __restrict__ xs, const float* __restrict__ wsg,
                 const float* __restrict__ wsu, const float* __restrict__ bias,
-                const float* __restrict__ rq, void* __restrict__ y, int b, int k, int o,
-                int act, int out_kind) {
+                const float* __restrict__ rq, void* __restrict__ y, int b, int ke, int k,
+                int o, int act, int out_kind) {
+  using XL = typename XS::template Loader<BM, DUAL>;
+  // a gathered dual selects X through two index streams: two X tiles
+  constexpr int NX = (DUAL && XL::kGather) ? 2 : 1;
   constexpr int MF = BM / 16;     // m16 row tiles
   constexpr int NF = 2;           // n8 column tiles per warp
   constexpr int NW = DUAL ? 2 : 1;
-  __shared__ __align__(16) uint8_t xt[BM * PITCH];
+  __shared__ __align__(16) uint8_t xt[NX][BM * PITCH];
   __shared__ __align__(16) uint8_t wt[NW][BN * PITCH];
 
   const int tid = threadIdx.x;
@@ -268,7 +381,7 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x,
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
 
-  XLoader<BM> xl{x, b, k};
+  XL xl{x, {ig, iu}, b, ke};
   WL lg{wg, mg, o};
   WL lu{wu, mu, o};
 
@@ -286,7 +399,8 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x,
   lg.load(0, n0, tid);
   if constexpr (DUAL) lu.load(0, n0, tid);
   for (int k0 = 0; k0 < k; k0 += BK) {
-    xl.store(xt, tid);
+    xl.store(xt[0], tid);
+    if constexpr (NX == 2) xl.template store<1>(xt[NX - 1], tid);
     lg.store(wt[0], tid);
     if constexpr (DUAL) lu.store(wt[1], tid);
     __syncthreads();
@@ -309,23 +423,27 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x,
         }
 #pragma unroll
     for (int i = 0; i < MF; ++i) {
-      uint32_t af[2][4];
+      // the A fragments of each X tile (gate and, gathered dual, up)
+      uint32_t af[NX][2][4];
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const uint8_t* p = xt + (i * 16 + grp) * PITCH + ks * 32 + tig * 4;
-        af[ks][0] = lds32(p);
-        af[ks][1] = lds32(p + 8 * PITCH);
-        af[ks][2] = lds32(p + 16);
-        af[ks][3] = lds32(p + 8 * PITCH + 16);
-      }
+      for (int t = 0; t < NX; ++t)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint8_t* p = xt[t] + (i * 16 + grp) * PITCH + ks * 32 + tig * 4;
+          af[t][ks][0] = lds32(p);
+          af[t][ks][1] = lds32(p + 8 * PITCH);
+          af[t][ks][2] = lds32(p + 16);
+          af[t][ks][3] = lds32(p + 8 * PITCH + 16);
+        }
 #pragma unroll
       for (int w = 0; w < NW; ++w)
 #pragma unroll
         for (int j = 0; j < NF; ++j) {
           // the 64-deep partial sum on the tensor cores, promoted into fp32
+          const int t = NX == 2 ? w : 0;
           float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_e4m3(part, af[0], bf[w][j][0][0], bf[w][j][0][1]);
-          mma_e4m3(part, af[1], bf[w][j][1][0], bf[w][j][1][1]);
+          mma_e4m3(part, af[t][0], bf[w][j][0][0], bf[w][j][0][1]);
+          mma_e4m3(part, af[t][1], bf[w][j][1][0], bf[w][j][1][1]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[w][i][j][e] = __fadd_rn(acc[w][i][j][e], part[e]);
         }
@@ -350,9 +468,9 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x,
           continue;
         }
         const float xr = xs[row];
-        float v = dequant(ag, xr, wsg[col]);
+        float v = dequant_in_order<XL::kGather>(ag, xr, wsg[col]);
         if constexpr (DUAL) {
-          v = silu(v) * dequant(acc[NW - 1][i][j][e], xr, wsu[col]);
+          v = silu(v) * dequant_in_order<XL::kGather>(acc[NW - 1][i][j][e], xr, wsu[col]);
         } else {
           if (bias != nullptr) v = __fadd_rn(v, bias[col]);
           v = apply_act(v, act);
@@ -363,27 +481,31 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x,
       }
 }
 
-template <int BM, bool DUAL, class WL>
-int launch(const void* x, const void* wg, const void* mg, const void* wu, const void* mu,
-           const void* xs, const void* wsg, const void* wsu, const void* bias, const void* rq,
-           void* y, int b, int k, int o, int act, int out_kind, void* stream) {
+template <int BM, bool DUAL, class WL, class XS>
+int launch(const void* x, const void* ig, const void* iu, const void* wg, const void* mg,
+           const void* wu, const void* mu, const void* xs, const void* wsg, const void* wsu,
+           const void* bias, const void* rq, void* y, int b, int ke, int k, int o, int act,
+           int out_kind, void* stream) {
   const dim3 grid(o / BN, (b + BM - 1) / BM);
-  gemm_fp8_kernel<BM, DUAL, WL><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wg),
-      static_cast<const uint8_t*>(mg), static_cast<const uint8_t*>(wu),
-      static_cast<const uint8_t*>(mu), static_cast<const float*>(xs),
-      static_cast<const float*>(wsg), static_cast<const float*>(wsu),
-      static_cast<const float*>(bias), static_cast<const float*>(rq), y, b, k, o, act,
-      out_kind);
+  gemm_fp8_kernel<BM, DUAL, WL, XS><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int*>(ig), static_cast<const int*>(iu),
+      static_cast<const uint8_t*>(wg), static_cast<const uint8_t*>(mg),
+      static_cast<const uint8_t*>(wu), static_cast<const uint8_t*>(mu),
+      static_cast<const float*>(xs), static_cast<const float*>(wsg),
+      static_cast<const float*>(wsu), static_cast<const float*>(bias),
+      static_cast<const float*>(rq), y, b, ke, k, o, act, out_kind);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DUAL, class WL>
-int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void* wu,
-              const void* mu, const void* xs, const void* wsg, const void* wsu,
-              const void* bias, const void* rq, void* y, int b, int k, int o, int act,
-              int out_kind, void* stream) {
-  if (b <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 || act > 2)
+// ke: X's row stride (K_eff); k: the contraction the weight rows run over
+// (K_eff, or K_c for the gather loaders)
+template <bool DUAL, class WL, class XS = Contiguous>
+int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void* wg,
+              const void* mg, const void* wu, const void* mu, const void* xs,
+              const void* wsg, const void* wsu, const void* bias, const void* rq, void* y,
+              int b, int ke, int k, int o, int act, int out_kind, void* stream) {
+  if (b <= 0 || ke <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 ||
+      act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   // raw mode takes no scales and no epilogue; scaled mode needs its scales
   const bool raw = out_kind == OUT_RAW;
@@ -394,11 +516,11 @@ int launch_bm(int bm, const void* x, const void* wg, const void* mg, const void*
   if ((out_kind == OUT_E4M3) != (rq != nullptr) || (out_kind == OUT_E4M3 && !DUAL))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
-    return launch<16, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b, k, o, act,
-                                out_kind, stream);
+    return launch<16, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                    ke, k, o, act, out_kind, stream);
   if (bm == 64)
-    return launch<64, DUAL, WL>(x, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b, k, o, act,
-                                out_kind, stream);
+    return launch<64, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b,
+                                    ke, k, o, act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -408,14 +530,38 @@ int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, cons
               const void* bias, const void* rq, void* y, int b, int k, int o, int act,
               int out_kind, void* stream) {
   if (n == 1)
-    return launch_bm<DUAL, NMLoader<1>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
-                                        k, o, act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<1>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, xs, wsg, wsu,
+                                        bias, rq, y, b, k, k, o, act, out_kind, stream);
   if (n == 2)
-    return launch_bm<DUAL, NMLoader<2>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
-                                        k, o, act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<2>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, xs, wsg, wsu,
+                                        bias, rq, y, b, k, k, o, act, out_kind, stream);
   if (n == 4)
-    return launch_bm<DUAL, NMLoader<4>>(bm, x, vg, mg, vu, mu, xs, wsg, wsu, bias, rq, y, b,
-                                        k, o, act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<4>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, xs, wsg, wsu,
+                                        bias, rq, y, b, k, k, o, act, out_kind, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the lane-aligned gather: X (B, ke) gathered to K_c = ke * n / 4 columns,
+// contracted against the dense values tile (K_c, O)
+template <bool DUAL>
+int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
+                  const void* vu, const void* iu, const void* xs, const void* wsg,
+                  const void* wsu, const void* bias, const void* rq, void* y, int b, int ke,
+                  int o, int act, int out_kind, void* stream) {
+  if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  if (n == 1)
+    return launch_bm<DUAL, DenseLoader, Gathered<1>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
+                                                     xs, wsg, wsu, bias, rq, y, b, ke, kc, o,
+                                                     act, out_kind, stream);
+  if (n == 2)
+    return launch_bm<DUAL, DenseLoader, Gathered<2>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
+                                                     xs, wsg, wsu, bias, rq, y, b, ke, kc, o,
+                                                     act, out_kind, stream);
+  if (n == 4)
+    return launch_bm<DUAL, DenseLoader, Gathered<4>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
+                                                     xs, wsg, wsu, bias, rq, y, b, ke, kc, o,
+                                                     act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -432,16 +578,18 @@ extern "C" {
 int vg_tile_gemm_fp8(const void* x, const void* w, const void* xs, const void* ws,
                      const void* bias, void* y, int b, int k, int o, int act, int out_kind,
                      int bm, void* stream) {
-  return launch_bm<false, DenseLoader>(bm, x, w, nullptr, nullptr, nullptr, xs, ws, nullptr,
-                                       bias, nullptr, y, b, k, o, act, out_kind, stream);
+  return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
+                                       xs, ws, nullptr, bias, nullptr, y, b, k, k, o, act,
+                                       out_kind, stream);
 }
 
 int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const void* xs,
                           const void* wsg, const void* wsu, const void* rq, void* y, int b,
                           int k, int o, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bm<true, DenseLoader>(bm, x, wg, nullptr, wu, nullptr, xs, wsg, wsu, nullptr,
-                                      rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr, xs,
+                                      wsg, wsu, nullptr, rq, y, b, k, k, o, ACT_NONE, out_kind,
+                                      stream);
 }
 
 int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const void* xs,
@@ -458,6 +606,25 @@ int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
   return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, xs, wsg, wsu, nullptr,
                          rq, y, b, k, o, ACT_NONE, out_kind, stream);
+}
+
+// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
+int vg_nm_spmm_gather_bk_fp8(const void* x, const void* values, const void* idx,
+                             const void* xs, const void* ws, const void* bias, void* y, int b,
+                             int k, int o, int n, int act, int out_kind, int bm,
+                             void* stream) {
+  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, xs, ws, nullptr, bias,
+                              nullptr, y, b, k, o, act, out_kind, stream);
+}
+
+int vg_nm_spmm_gather_dual_bk_fp8(const void* x, const void* values_g, const void* idx_g,
+                                  const void* values_u, const void* idx_u, const void* xs,
+                                  const void* wsg, const void* wsu, const void* rq, void* y,
+                                  int b, int k, int o, int n, int out_kind, int bm,
+                                  void* stream) {
+  if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, xs, wsg, wsu, nullptr,
+                             rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
 const char* vg_error_string(int code) {

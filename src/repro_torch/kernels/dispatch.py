@@ -4,15 +4,17 @@ The port's counterpart of ``repro.kernels.dispatch``: models and the
 serving engine call :func:`sparse_matmul` and :func:`gate_up_matmul`, and
 one planning function, :func:`plan`, decides per (mode, shape, N:M,
 dtype, backend) whether the product runs on a hand-written CUDA kernel
-(``tile_gemm`` for dense 4:4, ``nm_spmm`` for compressed N:4, and their
-fused gate-up forms) or on the plain torch reference formulation.
+(``tile_gemm`` for dense 4:4, ``nm_spmm`` for compressed N:4,
+``nm_spmm_gather`` for the lane-aligned gather layout, and their fused
+gate-up forms) or on the plain torch reference formulation.
 
 Quantized leaves (a ``"scale"`` beside int8 or float8_e4m3fn values,
 ``core.quantize``) plan on their storage dtype, never on the
 activations': the int8 class runs ``tile_gemm_int8`` / ``nm_spmm_int8``
-and the fp8 class ``tile_gemm_fp8`` / ``nm_spmm_fp8`` (each with its
-gate-up duals; the fp8 entries only on a CUDA device of compute
-capability 8.9 or later, ``registry.supports_fp8``).  Both quantize the
+/ ``nm_spmm_gather_int8`` and the fp8 class ``tile_gemm_fp8`` /
+``nm_spmm_fp8`` / ``nm_spmm_gather_fp8`` (each with its gate-up duals;
+the fp8 entries only on a CUDA device of compute capability 8.9 or
+later, ``registry.supports_fp8``).  Both quantize the
 activations here into the leaf's own dtype (plain torch, as the JAX
 package's is jnp): per row (``quantize_rows``), or against the leaf's
 calibrated static scale (``quantize_rows_static``) when it carries an
@@ -23,14 +25,15 @@ activations.  :func:`attention` routes full-sequence attention to the
 ``flash_attention`` kernel the same way.
 
 What the slice leaves out, each still planned by the JAX package only:
-shard_map placement, the gather and rowwise layouts, activation
-sparsity, the single-GEMM requantize and autotuning.  Blocks are always
+shard_map placement, the rowwise layout, activation sparsity, the
+single-GEMM requantize and autotuning.  Blocks are always
 fitted (``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
 or dtype fails a kernel's tiling contract (bf16 activations, or int8 or
-float8_e4m3fn leaves; K and O multiples of 64).
+float8_e4m3fn leaves; K and O multiples of 64, for the gather layout
+K_c = K * n / 4 and O).
 """
 
 from __future__ import annotations
@@ -184,24 +187,33 @@ def _torch_compressed(x2, params, cfg):
     return x2 @ w.to(x2.dtype)
 
 
-_TORCH_IMPL = {"dense": _torch_dense, "compressed": _torch_compressed}
+def _torch_gather(x2, params, cfg):
+    from .nm_spmm_gather.ref import gather_columns
+    x_g = gather_columns(x2, params["gather_idx"], cfg.n, cfg.m)
+    return x_g @ _deq(params, params["values"]).to(x2.dtype)
+
+
+_TORCH_IMPL = {"dense": _torch_dense, "compressed": _torch_compressed,
+               "gather": _torch_gather}
 
 
 # ---------------------------------------------------------------------------
 # Kernel adapters + registry entries
 # ---------------------------------------------------------------------------
 
-def _fit(b, ke, o, dtype, storage) -> Optional[Blocks]:
+def _fit(b, k, o, dtype, storage, ke_step=_build.BLOCK_K) -> Optional[Blocks]:
     """The kernels' tiling contract: the planned dtype is the kernel's own
     ``storage`` (bf16 activations for the float kernels; the leaf's int8
     or float8_e4m3fn values, with activations quantized to the same dtype,
-    for the quantized ones), K and O multiples of 64; the row tile covers
-    any batch (the ragged edge is masked in-kernel)."""
+    for the quantized ones), the contraction ``k`` the weight rows run over
+    and O multiples of 64; the row tile covers any batch (the ragged edge
+    is masked in-kernel).  ``ke_step``: the activation columns one K step
+    spans (64, or 256 / n for the gather kernels' 64 compressed rows)."""
     if dtype_name(dtype) != dtype_name(storage):
         return None
-    if ke % _build.BLOCK_K or o % _build.BLOCK_O:
+    if k % _build.BLOCK_K or o % _build.BLOCK_O:
         return None
-    return (_build.block_rows(b), _build.BLOCK_K, _build.BLOCK_O)
+    return (_build.block_rows(b), ke_step, _build.BLOCK_O)
 
 
 def _fit_tile_gemm(b, ke, o, n, m, dtype, storage=torch.bfloat16):
@@ -212,6 +224,13 @@ def _fit_nm_spmm(b, ke, o, n, m, dtype, storage=torch.bfloat16):
     if m != 4 or n not in (1, 2, 4):
         return None   # the kernel fixes M=4 (the paper's detailed design)
     return _fit(b, ke, o, dtype, storage)
+
+
+def _fit_nm_gather(b, ke, o, n, m, dtype, storage=torch.bfloat16):
+    # the kernels contract K_c = ke * n / 4 compressed rows, 64 per step
+    if m != 4 or n not in (1, 2, 4) or ke * n % 4:
+        return None
+    return _fit(b, ke * n // 4, o, dtype, storage, ke_step=_build.BLOCK_K * 4 // n)
 
 
 def _epi_kwargs(epi: Optional[Epilogue]) -> Dict[str, Any]:
@@ -245,12 +264,28 @@ def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
                         block_b=blocks[0])
 
 
+def _run_nm_gather(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm_gather.kernel import nm_spmm_gather_bk
+    return nm_spmm_gather_bk(x2, params["values"].to(x2.dtype), params["gather_idx"],
+                             cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
+
+
+def _run_nm_gather_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm_gather.kernel import nm_spmm_gather_dual_bk
+    return nm_spmm_gather_dual_bk(x2, pg["values"].to(x2.dtype), pg["gather_idx"],
+                                  pu["values"].to(x2.dtype), pu["gather_idx"], cfg.n,
+                                  block_b=blocks[0])
+
+
 registry.register(KernelEntry(
     name="tile_gemm", mode="dense", fit_blocks=_fit_tile_gemm,
     run=_run_tile_gemm, run_dual=_run_tile_gemm_dual))
 registry.register(KernelEntry(
     name="nm_spmm", mode="compressed", fit_blocks=_fit_nm_spmm,
     run=_run_nm_spmm, run_dual=_run_nm_spmm_dual))
+registry.register(KernelEntry(
+    name="nm_spmm_gather", mode="gather", fit_blocks=_fit_nm_gather,
+    run=_run_nm_gather, run_dual=_run_nm_gather_dual))
 
 
 # --- the quantized classes: int8 (w8a8) and fp8 (e4m3 weights and
@@ -345,6 +380,29 @@ def _run_nm_spmm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
                                               block_b=blocks[0])
 
 
+def _run_nm_gather_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm_gather import kernel as gk
+    # the rows quantize over their full K_eff width; the kernel gathers codes
+    qdt = params["values"].dtype
+    xq, xs = _quantize_acts(x2, params, qdt)
+    return _q_kernel(gk, "nm_spmm_gather_bk", qdt)(
+        xq, params["values"], params["gather_idx"], xs, _w_scale(params), cfg.n,
+        out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+
+
+def _run_nm_gather_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
+    from .nm_spmm_gather import kernel as gk
+    qdt = pg["values"].dtype
+    xq, xs = _quantize_acts(x2, pg, qdt)
+    args = (xq, pg["values"], pg["gather_idx"], pu["values"], pu["gather_idx"], cfg.n, xs,
+            _w_scale(pg), _w_scale(pu))
+    if _requant(epilogue):
+        return _q_kernel(gk, "nm_spmm_gather_dual_bk", qdt, requant=True)(
+            *args, epilogue.requant_scale, block_b=blocks[0])
+    return _q_kernel(gk, "nm_spmm_gather_dual_bk", qdt)(*args, out_dtype=out_dtype,
+                                                        block_b=blocks[0])
+
+
 registry.register(KernelEntry(
     name="tile_gemm_int8", mode="dense",
     fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.int8),
@@ -362,6 +420,15 @@ registry.register(KernelEntry(
     name="nm_spmm_fp8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.float8_e4m3fn),
     run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True,
+    supported=registry.supports_fp8))
+registry.register(KernelEntry(
+    name="nm_spmm_gather_int8", mode="gather",
+    fit_blocks=functools.partial(_fit_nm_gather, storage=torch.int8),
+    run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True))
+registry.register(KernelEntry(
+    name="nm_spmm_gather_fp8", mode="gather",
+    fit_blocks=functools.partial(_fit_nm_gather, storage=torch.float8_e4m3fn),
+    run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True,
     supported=registry.supports_fp8))
 
 
@@ -396,11 +463,14 @@ def _mode_of(params: Dict[str, Any], cfg) -> str:
         return "masked" if (cfg.mode == "masked" and cfg.is_sparse) else "dense"
     if "meta_packed" in params:
         return "compressed"
+    if "gather_idx" in params:
+        return "gather"
     raise ValueError(f"unrecognized linear params: {list(params)}")
 
 
 def _problem_dims(mode: str, params: Dict[str, Any], ke: int) -> Tuple[int, int]:
-    """(ke, o): the contraction length the kernel sees and out features."""
+    """(ke, o): the activation width the plan sees (K_eff; compressed and
+    gather contract over x's trailing dim) and the out features."""
     if mode in ("dense", "masked"):
         return tuple(params["w"].shape)
     return ke, params["values"].shape[1]
@@ -492,8 +562,8 @@ def _entry_by_name(mode: str, name: str) -> KernelEntry:
 def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
                   dispatch: Optional[DispatchConfig] = None,
                   epilogue: Optional[Epilogue] = None) -> torch.Tensor:
-    """``y = epilogue(x @ W)`` for a dense or compressed SparseLinear
-    layout, via the dispatch engine.  ``x``: (..., K_eff) -> (..., O).
+    """``y = epilogue(x @ W)`` for a dense, compressed or gather
+    SparseLinear layout, via the dispatch engine.  ``x``: (..., K_eff) -> (..., O).
 
     On a kernel decision the epilogue is applied in the kernel's flush;
     the torch tier applies :func:`epilogue.apply_reference` after the

@@ -1,0 +1,313 @@
+"""Lane-aligned N:4 GEMM on Hopper, in the natural (B, K) layout:
+``nm_spmm_gather_bk`` and the fused gate-up ``nm_spmm_gather_dual_bk``
+(CUDA source: ``kernels/csrc/gemm.cu``); their int8 twins
+``nm_spmm_gather_bk_int8`` and ``nm_spmm_gather_dual_bk_int8``
+(``kernels/csrc/gemm_int8.cu``) and fp8 (e4m3) twins
+``nm_spmm_gather_bk_fp8`` and ``nm_spmm_gather_dual_bk_fp8``
+(``kernels/csrc/gemm_fp8.cu``); and ``nm_spmm_gather_dual_bk_int8_requant``
+/ ``nm_spmm_gather_dual_bk_fp8_requant``, the quantized duals whose flush
+requantizes to the class's narrow dtype against the next linear's static
+activation scale.
+
+``Y (B, O) = gather(X (B, K_eff), idx) (B, K_c) @ values (K_c, O)`` with
+``K_c = K_eff * n / 4``: every output channel shares one in-block index
+per compressed row (``idx (K_c,)`` int32), so the kernel loads X's kept
+columns, ``(c // n) * 4 + idx[c]``, straight into its X tile and
+contracts a plain dense values tile: n/4 of the dense weight bytes and
+FLOPs, no on-chip expansion.  The duals gather X twice, once through
+each weight's own index stream, from one activation read.
+
+Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
+(:324, float and scaled-quantized, with the epilogue) and
+``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8, the quantized
+ones with the ``requant:<dtype>`` flush of
+``repro/kernels/epilogue.py::flush_tile``).  The quantized flush keeps
+the gather kernels' order, ``acc * w_scale * x_scale``.  CUDA tensors
+launch the kernel or raise; CPU tensors take the plain version from
+``ref.py``.  Launch counts live in ``.launches`` on each wrapper.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..epilogue import EpilogueSpec
+from ..reasons import dtype_name
+from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_requant_scale, check_scales,
+                                check_single_epilogue)
+from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
+                  nm_spmm_gather_quantized_ref, nm_spmm_gather_ref)
+
+__all__ = ["nm_spmm_gather_bk", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
+           "nm_spmm_gather_dual_bk_int8", "nm_spmm_gather_dual_bk_int8_requant",
+           "nm_spmm_gather_bk_fp8", "nm_spmm_gather_dual_bk_fp8",
+           "nm_spmm_gather_dual_bk_fp8_requant"]
+
+_N = (1, 2, 4)
+
+
+def _check_gather(kernel: str, ke: int, values: torch.Tensor, idx: torch.Tensor,
+                  n: int) -> int:
+    """K_c = K_eff * n / 4 values rows and one int32 index per row."""
+    if n not in _N:
+        raise ValueError(f"{kernel}: n must be one of {_N} (M=4), got {n}")
+    kc, o = values.shape
+    if ke * n != kc * 4:
+        raise ValueError(f"{kernel}: K_eff={ke} with n={n} needs K_c={ke * n // 4}, "
+                         f"values are {tuple(values.shape)}")
+    if tuple(idx.shape) != (kc,) or idx.dtype != torch.int32:
+        raise ValueError(f"{kernel}: idx must be int32 ({kc},), got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    return o
+
+
+def _check_pair(kernel: str, values_g, idx_g, values_u, idx_u) -> None:
+    if values_u.shape != values_g.shape or idx_u.shape != idx_g.shape \
+            or idx_u.dtype != idx_g.dtype:
+        raise ValueError(f"{kernel}: gate and up layouts must match")
+
+
+def nm_spmm_gather_bk(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, n: int, *,
+                      epilogue: Optional[EpilogueSpec] = None,
+                      bias: Optional[torch.Tensor] = None,
+                      block_b: Optional[int] = None) -> torch.Tensor:
+    """``epilogue(gather(X, idx) @ values)`` in X's dtype, M = 4."""
+    epi = epilogue or EpilogueSpec()
+    b, ke = x.shape
+    o = _check_gather("nm_spmm_gather_bk", ke, values, idx, n)
+    check_single_epilogue("nm_spmm_gather_bk", epi, bias, o)
+    if x.device.type == "cpu":
+        return nm_spmm_gather_ref(x, values, idx, n, epilogue=epi, bias=bias)
+    bb = block_b or _build.block_rows(b)
+    bias32 = None if bias is None else bias.float().contiguous()
+    _build.check_operands("nm_spmm_gather_bk", x, values, idx,
+                          *(() if bias32 is None else (bias32,)), block_b=bb)
+    if values.dtype != x.dtype:
+        raise ValueError("nm_spmm_gather_bk: values must share x's dtype")
+    _build.check_tiles("nm_spmm_gather_bk", values.shape[0], o)
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_nm_spmm_gather_bk(x.data_ptr(), values.data_ptr(), idx.data_ptr(),
+                                      _ptr(bias32), y.data_ptr(), b, ke, o, n,
+                                      ACT_CODES[epi.act], bb, _build.stream_of(x))
+    nm_spmm_gather_bk.launches += 1
+    _build.check(rc, "nm_spmm_gather_bk", lib)
+    return y
+
+
+nm_spmm_gather_bk.launches = 0
+
+
+def nm_spmm_gather_dual_bk(x: torch.Tensor, values_g: torch.Tensor, idx_g: torch.Tensor,
+                           values_u: torch.Tensor, idx_u: torch.Tensor, n: int, *,
+                           block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused gate-up over two gather weights sharing one X read:
+    ``silu(gather(X, idx_g) @ values_g) * (gather(X, idx_u) @ values_u)``
+    in X's dtype."""
+    b, ke = x.shape
+    o = _check_gather("nm_spmm_gather_dual_bk", ke, values_g, idx_g, n)
+    _check_pair("nm_spmm_gather_dual_bk", values_g, idx_g, values_u, idx_u)
+    if x.device.type == "cpu":
+        return nm_spmm_gather_dual_ref(x, values_g, idx_g, values_u, idx_u, n)
+    bb = block_b or _build.block_rows(b)
+    _build.check_operands("nm_spmm_gather_dual_bk", x, values_g, idx_g, values_u, idx_u,
+                          block_b=bb)
+    if values_g.dtype != x.dtype or values_u.dtype != x.dtype:
+        raise ValueError("nm_spmm_gather_dual_bk: values must share x's dtype")
+    _build.check_tiles("nm_spmm_gather_dual_bk", values_g.shape[0], o)
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_nm_spmm_gather_dual_bk(x.data_ptr(), values_g.data_ptr(), idx_g.data_ptr(),
+                                           values_u.data_ptr(), idx_u.data_ptr(),
+                                           y.data_ptr(), b, ke, o, n, bb, _build.stream_of(x))
+    nm_spmm_gather_dual_bk.launches += 1
+    _build.check(rc, "nm_spmm_gather_dual_bk", lib)
+    return y
+
+
+nm_spmm_gather_dual_bk.launches = 0
+
+
+def _check_storage(kernel: str, storage: torch.dtype, *tensors: torch.Tensor) -> None:
+    if any(t.dtype != storage for t in tensors):
+        raise ValueError(f"{kernel}: activations and values must be "
+                         f"{dtype_name(storage)}, got {[str(t.dtype) for t in tensors]}")
+
+
+def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, epilogue,
+                      bias, out_dtype, block_b):
+    """The shared body of the int8 and fp8 gather single GEMMs: checks, the
+    plain version on CPU tensors, else one launch counted on ``wrapper``."""
+    kernel = wrapper.__name__
+    source, _, raw_dtype = _build.QUANT_CLASSES[storage]
+    epi = epilogue or EpilogueSpec()
+    b, ke = x_q.shape
+    o = _check_gather(kernel, ke, values, idx, n)
+    raw = check_scales(kernel, b, o, x_scale, w_scale)
+    if raw and not epi.is_identity:
+        raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
+    check_single_epilogue(kernel, epi, bias, o)
+    _check_storage(kernel, storage, x_q, values)
+    if x_q.device.type == "cpu":
+        return nm_spmm_gather_quantized_ref(x_q, values, idx, x_scale, w_scale, n,
+                                            epilogue=epi, bias=bias, out_dtype=out_dtype)
+    bb = block_b or _build.block_rows(b)
+    kind = _build.out_kind(kernel, out_dtype, raw)
+    bias32 = None if bias is None else bias.float().contiguous()
+    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    _build.check_operands(kernel, x_q, values, idx, *extra, block_b=bb, x_dtype=storage)
+    _build.check_tiles(kernel, values.shape[0], o)
+    y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
+    lib = _build.library(source)
+    with torch.cuda.device(x_q.device):
+        rc = getattr(lib, f"vg_{kernel}")(
+            x_q.data_ptr(), values.data_ptr(), idx.data_ptr(), _ptr(x_scale), _ptr(w_scale),
+            _ptr(bias32), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], kind, bb,
+            _build.stream_of(x_q))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y
+
+
+def nm_spmm_gather_bk_int8(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                           x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
+                           n: int, *, epilogue: Optional[EpilogueSpec] = None,
+                           bias: Optional[torch.Tensor] = None,
+                           out_dtype: torch.dtype = torch.float32,
+                           block_b: Optional[int] = None) -> torch.Tensor:
+    """``epilogue(float(gather(Xq, idx) @ values) * w_scale * x_scale)``:
+    the int8 codes of the kept columns gathered on chip, contracted into
+    an exact int32 accumulator, dequantized once at the flush.  With no
+    scales it returns the raw int32 accumulator."""
+    return _gather_quantized(nm_spmm_gather_bk_int8, torch.int8, x_q, values, idx, x_scale,
+                             w_scale, n, epilogue, bias, out_dtype, block_b)
+
+
+nm_spmm_gather_bk_int8.launches = 0
+
+
+def nm_spmm_gather_bk_fp8(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                          x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
+                          n: int, *, epilogue: Optional[EpilogueSpec] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          out_dtype: torch.dtype = torch.float32,
+                          block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_bk_int8`'s contract over float8_e4m3fn
+    activations and values: an fp32 accumulator, dequantized once at the
+    flush; with no scales the raw fp32 accumulator."""
+    return _gather_quantized(nm_spmm_gather_bk_fp8, torch.float8_e4m3fn, x_q, values, idx,
+                             x_scale, w_scale, n, epilogue, bias, out_dtype, block_b)
+
+
+nm_spmm_gather_bk_fp8.launches = 0
+
+
+def _gather_dual_quantized(wrapper, storage, x_q, values_g, idx_g, values_u, idx_u, n,
+                           x_scale, wg_scale, wu_scale, out_dtype, block_b, requant_scale):
+    """The shared body of the quantized gather duals (int8 and fp8, each
+    with and without the requantizing flush): checks, the plain version on
+    CPU tensors, else one launch counted on ``wrapper`` (output of the
+    class's narrow dtype when ``requant_scale`` is given)."""
+    kernel = wrapper.__name__
+    source, suffix, _ = _build.QUANT_CLASSES[storage]
+    b, ke = x_q.shape
+    o = _check_gather(kernel, ke, values_g, idx_g, n)
+    _check_pair(kernel, values_g, idx_g, values_u, idx_u)
+    if check_scales(kernel, b, o, x_scale, wg_scale, wu_scale):
+        raise ValueError(f"{kernel}: the dual kernel needs its three scales")
+    _check_storage(kernel, storage, x_q, values_g, values_u)
+    if requant_scale is not None:
+        check_requant_scale(kernel, requant_scale)
+    if x_q.device.type == "cpu":
+        return nm_spmm_gather_dual_quantized_ref(
+            x_q, values_g, idx_g, values_u, idx_u, n, x_scale, wg_scale, wu_scale,
+            out_dtype=out_dtype, requant_scale=requant_scale)
+    bb = block_b or _build.block_rows(b)
+    if requant_scale is None:
+        kind, rq = _build.out_kind(kernel, out_dtype, False), ()
+    else:
+        kind, rq, out_dtype = _build.OUT_REQUANT, (requant_scale,), storage
+    _build.check_operands(kernel, x_q, values_g, idx_g, values_u, idx_u, x_scale, wg_scale,
+                          wu_scale, *rq, block_b=bb, x_dtype=storage)
+    _build.check_tiles(kernel, values_g.shape[0], o)
+    y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    lib = _build.library(source)
+    with torch.cuda.device(x_q.device):
+        rc = getattr(lib, f"vg_nm_spmm_gather_dual_bk_{suffix}")(
+            x_q.data_ptr(), values_g.data_ptr(), idx_g.data_ptr(), values_u.data_ptr(),
+            idx_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
+            _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y
+
+
+def nm_spmm_gather_dual_bk_int8(x_q: torch.Tensor, values_g: torch.Tensor,
+                                idx_g: torch.Tensor, values_u: torch.Tensor,
+                                idx_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                                wg_scale: torch.Tensor, wu_scale: torch.Tensor, *,
+                                out_dtype: torch.dtype = torch.float32,
+                                block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused int8 gate-up over two gather weights sharing one X read:
+    ``silu(deq(gather(Xq, idx_g) @ g)) * deq(gather(Xq, idx_u) @ u)``."""
+    return _gather_dual_quantized(nm_spmm_gather_dual_bk_int8, torch.int8, x_q, values_g,
+                                  idx_g, values_u, idx_u, n, x_scale, wg_scale, wu_scale,
+                                  out_dtype, block_b, None)
+
+
+nm_spmm_gather_dual_bk_int8.launches = 0
+
+
+def nm_spmm_gather_dual_bk_int8_requant(x_q: torch.Tensor, values_g: torch.Tensor,
+                                        idx_g: torch.Tensor, values_u: torch.Tensor,
+                                        idx_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                                        wg_scale: torch.Tensor, wu_scale: torch.Tensor,
+                                        requant_scale: torch.Tensor, *,
+                                        block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_dual_bk_int8` whose flush then requantizes to
+    int8 against the consuming linear's static scale (a one-element
+    float32 tensor on the device)."""
+    return _gather_dual_quantized(nm_spmm_gather_dual_bk_int8_requant, torch.int8, x_q,
+                                  values_g, idx_g, values_u, idx_u, n, x_scale, wg_scale,
+                                  wu_scale, torch.int8, block_b, requant_scale)
+
+
+nm_spmm_gather_dual_bk_int8_requant.launches = 0
+
+
+def nm_spmm_gather_dual_bk_fp8(x_q: torch.Tensor, values_g: torch.Tensor,
+                               idx_g: torch.Tensor, values_u: torch.Tensor,
+                               idx_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                               wg_scale: torch.Tensor, wu_scale: torch.Tensor, *,
+                               out_dtype: torch.dtype = torch.float32,
+                               block_b: Optional[int] = None) -> torch.Tensor:
+    """Fused fp8 gate-up over two float8_e4m3fn gather weights sharing one
+    X read, two fp32 accumulators."""
+    return _gather_dual_quantized(nm_spmm_gather_dual_bk_fp8, torch.float8_e4m3fn, x_q,
+                                  values_g, idx_g, values_u, idx_u, n, x_scale, wg_scale,
+                                  wu_scale, out_dtype, block_b, None)
+
+
+nm_spmm_gather_dual_bk_fp8.launches = 0
+
+
+def nm_spmm_gather_dual_bk_fp8_requant(x_q: torch.Tensor, values_g: torch.Tensor,
+                                       idx_g: torch.Tensor, values_u: torch.Tensor,
+                                       idx_u: torch.Tensor, n: int, x_scale: torch.Tensor,
+                                       wg_scale: torch.Tensor, wu_scale: torch.Tensor,
+                                       requant_scale: torch.Tensor, *,
+                                       block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_dual_bk_fp8` whose flush then requantizes to
+    e4m3 (clip to +-448, round to nearest even) against the consuming
+    linear's static scale."""
+    return _gather_dual_quantized(nm_spmm_gather_dual_bk_fp8_requant, torch.float8_e4m3fn,
+                                  x_q, values_g, idx_g, values_u, idx_u, n, x_scale, wg_scale,
+                                  wu_scale, torch.float8_e4m3fn, block_b, requant_scale)
+
+
+nm_spmm_gather_dual_bk_fp8_requant.launches = 0

@@ -66,7 +66,7 @@ class KernelEntry:
     """
 
     name: str
-    mode: str                      # dense | compressed
+    mode: str                      # dense | compressed | gather | attention
     fit_blocks: Callable[..., Optional[Blocks]]
     run: Callable[..., torch.Tensor]
     backends: Tuple[str, ...] = KERNEL_BACKENDS

@@ -2,7 +2,7 @@
 ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch internlm2_1_8b [--smoke] \
-        [--sparsity 2:4 --mode dense|compressed] [--quantize int8|fp8 [--static-scales]] \
+        [--sparsity 2:4 --mode dense|compressed|gather] [--quantize int8|fp8 [--static-scales]] \
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
         [--block-len 8] [--kv-blocks N] [--admission reserve|optimistic] \
@@ -41,7 +41,7 @@ def main(argv=None):
                          "still overrides)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--sparsity", default=None)
-    ap.add_argument("--mode", default="compressed", choices=["dense", "compressed"])
+    ap.add_argument("--mode", default="compressed", choices=["dense", "compressed", "gather"])
     ap.add_argument("--quantize", default=None, choices=["int8", "fp8"],
                     help="quantize every linear's values to int8 or fp8 (e4m3) with "
                          "per-channel scales; activations are quantized to the same "

@@ -1,9 +1,9 @@
 """``ServingSpec`` + ``prepare``: the one offline-prep entry point (port of
-``repro.serving.spec`` for the dense and compressed layouts, float, int8
-or fp8).
+``repro.serving.spec`` for the dense, compressed and gather layouts,
+float, int8 or fp8).
 
 ```python
-prepared = repro_torch.serving.prepare(params, ServingSpec(layout="compressed",
+prepared = repro_torch.serving.prepare(params, ServingSpec(layout="gather",
                                                            sparsity=(2, 4),
                                                            qdtype="int8"))
 ```
@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-_LAYOUTS = ("dense", "compressed")
+_LAYOUTS = ("dense", "compressed", "gather")
 _ADMISSION = ("reserve", "optimistic")
 _BACKENDS = ("auto", "cuda", "torch")
 
@@ -50,7 +50,7 @@ def resolve_device(device=None) -> torch.device:
 class ServingSpec:
     """Frozen description of how a model serves.
 
-    Offline-prep axes: ``layout`` (``dense | compressed``), ``sparsity``
+    Offline-prep axes: ``layout`` (``dense | compressed | gather``), ``sparsity``
     (``(n, m)`` or None for dense 4:4), ``qdtype`` (weight quantization:
     ``"int8"``, ``"fp8"`` (float8_e4m3fn) or None; the cuda tier runs the
     class's kernels, int8 or e4m3 activations quantized per row or against

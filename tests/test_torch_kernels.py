@@ -23,7 +23,11 @@ kernels: raw fp32 accumulators, scaled outputs and duals within 1e-2
 (the sums run in another order), and the requantizing fp8 duals to
 equal e4m3 codes except one step on at most 0.1% of them.  Their CPU
 parity with the JAX package's Pallas fp8 kernels is in
-``tests/test_torch_fp8.py``.
+``tests/test_torch_fp8.py``.  The lane-aligned gather kernels
+(bf16, int8, fp8, duals and requantizing duals) are held to their plain
+versions on the card under the same limits, with the int8 scaled
+outputs at the identity and bias points bitwise; their CPU parity with
+the Pallas gather kernels is in ``tests/test_torch_gather.py``.
 """
 
 import types
@@ -606,3 +610,111 @@ def test_fp8_wrappers_raise_on_bad_cuda_operands(cuda_device):
         tile_gemm_fp8(xq, leaf["w"], xs, ws, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="multiples"):
         tile_gemm_fp8(xq[:, :96].contiguous(), leaf["w"][:96].contiguous(), xs, ws)
+
+
+# -------------------------------------------- lane-aligned gather on the card
+def _cuda_gather(dev, b, k, o, n, qdtype=None, seed=0):
+    """Gather operands on the card: x (bf16), its quantized rows when
+    ``qdtype`` is given, and one gather leaf voted from a random weight."""
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, k, generator=g, device=dev).bfloat16()
+    w = torch.randn(k, o, generator=g, device=dev) * k ** -0.5
+    x[-1] = 0                                    # an idle slot
+    leaf = convert_layout({"w": w if qdtype else w.bfloat16()},
+                          SparsityConfig(n=n, m=4, mode="gather"), "gather", quantize=qdtype)
+    if qdtype is None:
+        return x, None, leaf
+    return quantize_rows(x, leaf["values"].dtype) + (leaf,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", CUDA_SHAPES)
+@pytest.mark.parametrize("n", [1, 2])
+def test_gather_kernels_match_plain_on_card(cuda_device, b, k, o, n):
+    from repro_torch.kernels.nm_spmm_gather.kernel import (nm_spmm_gather_bk,
+                                                           nm_spmm_gather_dual_bk)
+    from repro_torch.kernels.nm_spmm_gather.ref import (nm_spmm_gather_dual_ref,
+                                                        nm_spmm_gather_ref)
+    x, _, leaf = _cuda_gather(cuda_device, b, k, o, n)
+    v, idx = leaf["values"], leaf["gather_idx"]
+    bias = torch.randn(o, device=cuda_device)
+    for spec, bv in ((EpilogueSpec(), None), (EpilogueSpec(act="gelu", bias=True), bias)):
+        before = nm_spmm_gather_bk.launches
+        got = nm_spmm_gather_bk(x, v, idx, n, epilogue=spec, bias=bv)
+        torch.cuda.synchronize()
+        assert nm_spmm_gather_bk.launches == before + 1
+        assert_scaled_close(got, nm_spmm_gather_ref(x, v, idx, n, epilogue=spec, bias=bv),
+                            1e-2)
+    _, _, up = _cuda_gather(cuda_device, b, k, o, n, seed=1)
+    args = (x, v, idx, up["values"], up["gather_idx"], n)
+    got = nm_spmm_gather_dual_bk(*args)
+    torch.cuda.synchronize()
+    assert_scaled_close(got, nm_spmm_gather_dual_ref(*args), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", CUDA_SHAPES)
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quantized_gather_kernels_match_plain_on_card(cuda_device, b, k, o, n, qdtype):
+    """int8: raw int32 accumulator and scaled outputs at the identity and
+    bias points bitwise (the flush runs ws before xs, as the plain
+    version); fp8 within 1e-2.  Duals within 1e-2; requantized codes
+    equal but one step on at most 0.1% of them."""
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+    xq, xs, leaf = _cuda_gather(cuda_device, b, k, o, n, qdtype)
+    v, idx, ws = leaf["values"], leaf["gather_idx"], leaf["scale"].reshape(1, -1)
+    single = getattr(gk, f"nm_spmm_gather_bk_{qdtype}")
+    before = single.launches
+    raw = single(xq, v, idx, None, None, n)
+    torch.cuda.synchronize()
+    assert single.launches == before + 1
+    raw_ref = gr.nm_spmm_gather_quantized_ref(xq, v, idx, None, None, n)
+    if qdtype == "int8":
+        assert torch.equal(raw, raw_ref)
+    else:
+        assert_scaled_close(raw, raw_ref, 1e-2)
+    bias = torch.randn(o, device=cuda_device)
+    for dt in (torch.bfloat16, torch.float32):
+        for kw in ({}, {"epilogue": EpilogueSpec(bias=True), "bias": bias},
+                   {"epilogue": EpilogueSpec(act="silu", bias=True), "bias": bias}):
+            got = single(xq, v, idx, xs, ws, n, out_dtype=dt, **kw)
+            want = gr.nm_spmm_gather_quantized_ref(xq, v, idx, xs, ws, n, out_dtype=dt, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dt
+            if qdtype == "int8" and kw.get("epilogue", EpilogueSpec()).act is None:
+                assert torch.equal(got, want), (dt, kw)
+            else:
+                assert_scaled_close(got, want, 1e-2)
+    _, _, up = _cuda_gather(cuda_device, b, k, o, n, qdtype, seed=1)
+    args = (xq, v, idx, up["values"], up["gather_idx"], n, xs, ws,
+            up["scale"].reshape(1, -1))
+    want = gr.nm_spmm_gather_dual_quantized_ref(*args)
+    got = getattr(gk, f"nm_spmm_gather_dual_bk_{qdtype}")(*args)
+    torch.cuda.synchronize()
+    assert_scaled_close(got, want, 1e-2)
+    rq = want.abs().amax() / (200 if qdtype == "int8" else 600)
+    fn_rq = getattr(gk, f"nm_spmm_gather_dual_bk_{qdtype}_requant")
+    before = fn_rq.launches
+    codes = fn_rq(*args, rq)
+    torch.cuda.synchronize()
+    assert fn_rq.launches == before + 1
+    ref_codes = gr.nm_spmm_gather_dual_quantized_ref(*args, requant_scale=rq)
+    share = (_requant_share(codes, ref_codes) if qdtype == "int8"
+             else _fp8_step_share(codes, ref_codes))
+    assert share <= 1e-3
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_raise_on_bad_cuda_operands(cuda_device):
+    from repro_torch.kernels.nm_spmm_gather.kernel import nm_spmm_gather_bk
+    x, _, leaf = _cuda_gather(cuda_device, 8, 256, 128, 2)
+    with pytest.raises(ValueError, match="multiples"):    # K_c = 48
+        nm_spmm_gather_bk(x[:, :96].contiguous(), leaf["values"][:48].contiguous(),
+                          leaf["gather_idx"][:48].contiguous(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        nm_spmm_gather_bk(x, leaf["values"].t().contiguous().t(), leaf["gather_idx"], 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        nm_spmm_gather_bk(x.float(), leaf["values"], leaf["gather_idx"], 2)

@@ -1,6 +1,7 @@
 """The port's paged model path against ``repro.models.paged``.
 
-On internlm2's smoke config, in the dense, 2:4 and 1:4 layouts, with the
+On internlm2's smoke config, in the dense, 2:4 and 1:4 layouts and the
+gather layout at 2:4 and 1:4, with the
 JAX package's params carried across by ``interop.params_from_numpy``:
 two requests are prefilled in chunks (one request per call, as the
 engine does), then two batched decode steps run, the second with one
@@ -48,7 +49,10 @@ from repro_torch.models import paged as tpaged
 from torch_parity import assert_scaled_close, port_config, port_params
 
 LAYOUTS = {"dense": JSp(mode="dense"), "2:4": JSp(n=2, m=4, mode="compressed"),
-           "1:4": JSp(n=1, m=4, mode="compressed")}
+           "1:4": JSp(n=1, m=4, mode="compressed"),
+           "gather-2:4": JSp(n=2, m=4, mode="gather"),
+           "gather-1:4": JSp(n=1, m=4, mode="gather")}
+W8A8_LAYOUTS = ("dense", "2:4", "1:4")   # the gather layout's: test_torch_gather_model.py
 TIERS = [("jnp", "torch", "float32", 1e-4), ("jnp", "torch", "bfloat16", 3e-2),
          ("interpret", "cuda", "bfloat16", 3e-2)]
 BLOCK_LEN, WIDTH = 8, 4
@@ -125,7 +129,7 @@ def test_paged_logits_match_reference(layout, jax_backend, port_backend, dtype, 
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 3e-2)])
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("layout", W8A8_LAYOUTS)
 def test_w8a8_logits_match_the_int8_pallas_kernels(layout, dtype, tol, monkeypatch):
     sp = LAYOUTS[layout]
     jcfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), dtype=dtype,

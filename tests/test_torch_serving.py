@@ -4,7 +4,7 @@
   and free lists are bitwise equal to the JAX package's under a seeded
   script of operations, for both admission policies.
 - ``Engine``: fp32 greedy token streams equal the JAX Engine's on
-  ``make_poisson_trace(seed=0)``, dense and 2:4, and the run's counters
+  ``make_poisson_trace(seed=0)``, dense, 2:4 and gather 2:4, and the run's counters
   (model calls, prefill chunks, evictions, peak blocks) agree; also
   under optimistic admission with a budget small enough to evict.
 - The port imports neither ``jax`` nor ``repro``; its entry points run on
@@ -104,6 +104,7 @@ def _counters(rep):
 @pytest.mark.parametrize("layout,sparsity,spec_kw", [
     ("dense", None, {}),
     ("compressed", (2, 4), {}),
+    ("gather", (2, 4), {}),
     ("dense", None, {"admission": "optimistic", "kv_blocks": 5}),
 ])
 def test_engine_token_streams_equal_reference(layout, sparsity, spec_kw):
@@ -172,6 +173,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.tile_gemm.kernel, repro_torch.kernels.nm_spmm.kernel\n"
         "import repro_torch.core.quantize, repro_torch.checkpoint.store\n"
         "import repro_torch.kernels.tile_gemm.ref, repro_torch.kernels.nm_spmm.ref\n"
+        "import repro_torch.kernels.nm_spmm_gather.kernel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
@@ -212,7 +214,8 @@ def test_prepare_converts_dense_leaves_like_the_reference():
 
 def test_servingspec_validation():
     with pytest.raises(ValueError):
-        tserving.ServingSpec(layout="gather")       # not ported yet
+        tserving.ServingSpec(layout="rowwise")      # not ported yet
+    assert tserving.ServingSpec(layout="gather", sparsity=(1, 4)).layout == "gather"
     assert tserving.ServingSpec(qdtype="fp8", static_scales=True).qdtype == "fp8"
     with pytest.raises(ValueError, match="unknown quantize target"):
         tserving.ServingSpec(qdtype="int4")
