@@ -2,7 +2,7 @@
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family config for CPU tests.
-Only the dense family is ported so far.
+The dense and MoE families are ported so far.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ("internlm2_1_8b",)
+ARCH_IDS = ("internlm2_1_8b", "qwen3_moe_235b_a22b", "dbrx_132b")
 
 
 def _module(arch_id: str):

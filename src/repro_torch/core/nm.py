@@ -50,16 +50,22 @@ def _block_view(w: torch.Tensor, m: int) -> torch.Tensor:
     return w.reshape(k // m, m, o)
 
 
-def _order(blocks: torch.Tensor) -> torch.Tensor:
-    """In-block slot order by descending magnitude, ties by index."""
-    return torch.sort(-blocks.abs(), dim=1, stable=True).indices
+def _ranks(blocks: torch.Tensor) -> torch.Tensor:
+    """Each slot's place in its block's order by descending magnitude,
+    ties by index (a stable sort's): the slots that beat it, counted with
+    m comparisons (a sort along a short middle axis is slow on a card)."""
+    mag = blocks.abs()
+    ranks = torch.zeros(blocks.shape, dtype=torch.uint8, device=blocks.device)
+    slot = torch.arange(blocks.shape[1], device=blocks.device)[None, :, None]
+    for j in range(blocks.shape[1]):
+        other = mag[:, j:j + 1]
+        ranks += (other > mag) | ((other == mag) & (slot > j))
+    return ranks
 
 
 def nm_mask(w: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """Boolean keep-mask: magnitude top-n per m-block, per column."""
-    order = _order(_block_view(w, m))
-    ranks = torch.argsort(order, dim=1, stable=True)
-    return (ranks < n).reshape(w.shape)
+    return (_ranks(_block_view(w, m)) < n).reshape(w.shape)
 
 
 def prune_nm(w: torch.Tensor, n: int, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,7 +78,13 @@ def compress_nm(w: torch.Tensor, n: int, m: int) -> NMCompressed:
     """Compress an N:M sparse ``(K, O)`` matrix (keeps the top-n by
     magnitude per block when ``w`` is not already N:M)."""
     blocks = _block_view(w, m)
-    keep = torch.sort(_order(blocks)[:, :n, :], dim=1).values   # (B, n, O)
+    kept = _ranks(blocks) < n                                    # (B, m, O)
+    # the kept slots in ascending order: slot i goes to place cumsum - 1;
+    # the dropped ones to a spare place n, cut off after the scatter
+    place = torch.where(kept, kept.cumsum(dim=1) - 1, n)
+    slots = torch.arange(m, device=w.device)[None, :, None].expand(blocks.shape)
+    keep = torch.zeros((blocks.shape[0], n + 1, blocks.shape[2]), dtype=torch.long,
+                       device=w.device).scatter_(1, place, slots)[:, :n]   # (B, n, O)
     vals = torch.gather(blocks, 1, keep)
     kc = blocks.shape[0] * n
     return NMCompressed(values=vals.reshape(kc, w.shape[1]),

@@ -75,9 +75,15 @@ class SparsityConfig:
 
 
 def _compressed(w: torch.Tensor, cfg: SparsityConfig) -> Dict[str, torch.Tensor]:
-    pruned, _ = nm.prune_nm(w, cfg.n, cfg.m)
+    """(..., K, O) -> values (..., K*n/m, O) and meta_packed (..., K*n/(4m),
+    O).  A stack of matrices converts as one (E*K, O) matrix: its M-blocks
+    and its packed meta rows never straddle two matrices, so each slice is
+    the conversion of its own matrix."""
+    lead, (k, o) = w.shape[:-2], w.shape[-2:]
+    pruned, _ = nm.prune_nm(w.reshape(-1, o), cfg.n, cfg.m)
     c = nm.compress_nm(pruned, cfg.n, cfg.m)
-    return {"values": c.values, "meta_packed": nm.pack_meta(c.meta)}
+    return {"values": c.values.reshape(lead + (k * cfg.n // cfg.m, o)),
+            "meta_packed": nm.pack_meta(c.meta).reshape(lead + (-1, o))}
 
 
 def _gathered(w: torch.Tensor, cfg: SparsityConfig) -> Dict[str, torch.Tensor]:
@@ -118,22 +124,30 @@ def init_linear(gen: torch.Generator, k: int, o: int, cfg: SparsityConfig,
 
 
 def apply_linear(params: Dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
-                 epilogue=None) -> torch.Tensor:
+                 epilogue=None, activation=None, local: bool = False) -> torch.Tensor:
     """``y = epilogue(x @ W)`` with the layout's lowering.
-    x: (..., K) -> (..., O)."""
+    x: (..., K) -> (..., O).  ``activation`` (a
+    ``kernels.actsparse.ActivationSpec``) opts into the activation-sparsity
+    class: ``x`` is masked on every route and a kernel skips its dead
+    tiles; ``local`` marks a call inside a sharded body (no effect until
+    the port shards)."""
     from ..kernels.dispatch import sparse_matmul   # local: avoid cycle
-    return sparse_matmul(x, params, cfg, epilogue=epilogue)
+    return sparse_matmul(x, params, cfg, epilogue=epilogue, activation=activation,
+                         local=local)
 
 
 def apply_gate_up(params_g: Dict[str, Any], params_u: Dict[str, Any],
-                  x: torch.Tensor, cfg: SparsityConfig, epilogue=None) -> torch.Tensor:
-    """``silu(x @ Wg) * (x @ Wu)`` as one engine dispatch."""
+                  x: torch.Tensor, cfg: SparsityConfig, epilogue=None, activation=None,
+                  local: bool = False) -> torch.Tensor:
+    """``silu(x @ Wg) * (x @ Wu)`` as one engine dispatch (``activation``
+    and ``local`` as for :func:`apply_linear`)."""
     from ..kernels.dispatch import gate_up_matmul   # local: avoid cycle
     if epilogue is not None and (epilogue.spec.act != "silu_mul"
                                  or epilogue.spec.bias):
         raise ValueError(f"apply_gate_up epilogue must sit on the silu_mul "
                          f"lattice point, got {epilogue.spec.point!r}")
-    return gate_up_matmul(x, params_g, params_u, cfg, epilogue=epilogue)
+    return gate_up_matmul(x, params_g, params_u, cfg, epilogue=epilogue,
+                          activation=activation, local=local)
 
 
 def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
@@ -165,7 +179,7 @@ def convert_layout(params: Dict[str, Any], cfg: SparsityConfig,
     convert = {"compressed": _compressed, "gather": _gathered}.get(target_mode)
     if convert is None:
         raise NotImplementedError(f"{target_mode!r} layouts are not ported yet")
-    if w.ndim > 2:
+    if w.ndim > 2 and target_mode == "gather":   # the vote sums per matrix
         lead = w.shape[:-2]
         mats = [convert(m_, cfg) for m_ in w.reshape((-1,) + w.shape[-2:])]
         return _q({k: torch.stack([m_[k] for m_ in mats]).reshape(lead + mats[0][k].shape)

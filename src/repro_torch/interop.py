@@ -20,8 +20,11 @@ only.
   one dict per layer in the JAX scan order, super-block ``i``, then
   slot ``j``, then repeat ``r``: ``layers[k] = slot_j[i, r]``.  A
   stacked leaf's calibrated ``act_scale`` (one value per stacked layer,
-  all equal) becomes each layer's own 0-dim scalar the same way.  Any
-  other tree (a single linear leaf, a bare dict) converts leaf by leaf.
+  all equal) becomes each layer's own 0-dim scalar the same way.  An MoE
+  layer's ``ffn`` keeps its fp32 ``router`` (d, E) and its expert stacks,
+  whose leaves keep their leading E dim (a calibrated stack's
+  ``act_scale`` becomes an (E,) vector, all equal).  Any other tree (a
+  single linear leaf, a bare dict) converts leaf by leaf.
 - ``calib_id`` leaves (the JAX package's calibration tags) are dropped:
   they exist only while a calibration forward runs.
 """

@@ -28,6 +28,10 @@ KERNELS = {
     "tile_gemm_dual_fp8_requant": _tile_gemm.tile_gemm_dual_fp8_requant,
     "nm_spmm_dual_fp8_requant": _nm_spmm.nm_spmm_dual_fp8_requant,
     "flash_attention": _flash_attention.flash_attention,
+    **{name: getattr(_tile_gemm, name) for name in
+       ("tile_gemm_masked", "tile_gemm_masked_int8", "tile_gemm_masked_fp8")},
+    **{name: getattr(_nm_spmm, name) for name in
+       ("nm_spmm_masked", "nm_spmm_masked_int8", "nm_spmm_masked_fp8")},
     **{name: getattr(_nm_spmm_gather, name) for name in _nm_spmm_gather.__all__},
 }
 

@@ -42,6 +42,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm.cu": {
         "vg_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "vg_tile_gemm_masked": (_P,) * 5 + (_I,) * 5 + (_P,),
+        "vg_nm_spmm_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         "vg_nm_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "vg_nm_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -55,6 +58,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_masked_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_masked_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
     },
     "gemm_fp8.cu": {
         "vg_tile_gemm_fp8": (_P,) * 6 + (_I,) * 6 + (_P,),
@@ -63,6 +69,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_fp8": (_P,) * 7 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_masked_fp8": (_P,) * 7 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_masked_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
     },
     "flash_attention.cu": {
         "vg_flash_attention": (_P,) * 4 + (_I,) * 5 + (_L,) * 12 + (_F, _P),

@@ -1,6 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the repro_torch dense and N:M
-// sparse GEMMs: tile_gemm, tile_gemm_dual, nm_spmm, nm_spmm_dual, and the
-// lane-aligned gather pair nm_spmm_gather_bk and nm_spmm_gather_dual_bk.
+// sparse GEMMs: tile_gemm, tile_gemm_dual, nm_spmm, nm_spmm_dual, the
+// lane-aligned gather pair nm_spmm_gather_bk and nm_spmm_gather_dual_bk,
+// and the activation-sparsity (K10) variants of the three single GEMMs,
+// tile_gemm_masked, nm_spmm_masked and nm_spmm_gather_bk_masked.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm       repro/kernels/tile_gemm/kernel.py::tile_gemm      (_gemm_kernel)
@@ -12,11 +14,28 @@
 //                           (_gather_bk_kernel, _gather_step, _gather_contract)
 //   nm_spmm_gather_dual_bk  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_dual_bk
 //                           (_gather_dual_kernel)
+//   tile_gemm_masked        repro/kernels/tile_gemm/kernel.py::tile_gemm_masked
+//                           (_gemm_masked_kernel)
+//   nm_spmm_masked          repro/kernels/nm_spmm/kernel.py::nm_spmm_masked
+//                           (_spmm_masked_kernel)
+//   nm_spmm_gather_bk_masked  repro/kernels/nm_spmm_gather/kernel.py::
+//                             nm_spmm_gather_bk_masked (_gather_bk_masked_kernel)
 //
-// ONE templated kernel body serves all six: the template takes the weight
+// ONE templated kernel body serves all nine: the template takes the weight
 // loader (DenseLoader, or NMLoader<n> for values + 2-bit packed meta), the
-// X loader (contiguous, or gathered through the lane-aligned index) and
-// single or dual (gate-up, two weights against one X read).
+// X loader (contiguous, or gathered through the lane-aligned index),
+// single or dual (gate-up, two weights against one X read), and MASKED.
+//
+// Activation sparsity (MASKED, single GEMMs).  The masked X of a MoE
+// expert's w_out holds whole zero (row block, K step) tiles; kmask
+// (block_maps over X at this kernel's blocks: BM rows, 64 weight rows per
+// step) marks the live ones.  The block zero-fills its accumulators
+// unconditionally and walks only its row block's live steps (kmask.cuh):
+// a dead step is neither loaded, nor prefetched as the next step, nor
+// multiplied.  A dead tile of X contributes exact zeros to the fp32 sum,
+// so the output is bitwise the unmasked kernel's on the same X, and a row
+// block with no live step still flushes (bias and activation of a zero
+// accumulator).  Bound: the live tiles' weight bytes.
 //
 // What it computes.  A block of 128 threads (4 warps) owns a BM x 64 tile
 // of Y (BM = 16 for decode-sized batches, 64 for prefill chunks), keeps
@@ -67,6 +86,7 @@
 #include <stdint.h>
 
 #include "flush.cuh"
+#include "kmask.cuh"
 
 using namespace nvcuda;
 
@@ -281,14 +301,14 @@ struct NMLoader {
   }
 };
 
-template <int BM, bool DUAL, class WL, class XS>
+template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
 gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
             const int* __restrict__ iu,
             const __nv_bfloat16* __restrict__ wg, const uint8_t* __restrict__ mg,
             const __nv_bfloat16* __restrict__ wu, const uint8_t* __restrict__ mu,
-            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-            int b, int ke, int k, int o, int act) {
+            const int* __restrict__ kmask, const float* __restrict__ bias,
+            __nv_bfloat16* __restrict__ y, int b, int ke, int k, int o, int act) {
   using XL = typename XS::template Loader<BM, DUAL>;
   // a gathered dual selects X through two index streams: two X tiles
   constexpr int NX = (DUAL && XL::kGather) ? 2 : 1;
@@ -299,6 +319,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
   constexpr int SMEM = LOAD_BYTES > FLUSH_BYTES ? LOAD_BYTES : FLUSH_BYTES;
   // the staging tiles and, after the K loop, the fp32 flush tiles alias
   __shared__ __align__(128) unsigned char smem[SMEM];
+  __shared__ LiveSteps<NTHREADS> live;   // MASKED only
   __nv_bfloat16* xs_g = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* xs_u = xs_g + (NX - 1) * BM * XLD;
   __nv_bfloat16* ws_g = xs_g + NX * BM * XLD;
@@ -321,19 +342,31 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
     if constexpr (DUAL) wmma::fill_fragment(acc_u[i], 0.0f);
   }
 
-  xl.load(0, m0, tid);
-  lg.load(0, n0, tid);
-  if constexpr (DUAL) lu.load(0, n0, tid);
-  for (int k0 = 0; k0 < k; k0 += BK) {
+  // K steps: all of them, or (MASKED) the live steps of this row block
+  const int nk = k / BK;
+  int s = 0;
+  if constexpr (MASKED) {
+    live.load(kmask, blockIdx.y, nk, tid);
+    __syncthreads();
+    s = live.next(0, nk);
+  }
+  if (s < nk) {
+    xl.load(s * BK, m0, tid);
+    lg.load(s * BK, n0, tid);
+    if constexpr (DUAL) lu.load(s * BK, n0, tid);
+  }
+  while (s < nk) {
     xl.store(xs_g, tid);
     if constexpr (NX == 2) xl.template store<1>(xs_u, tid);
     lg.store(ws_g, tid);
     if constexpr (DUAL) lu.store(ws_u, tid);
     __syncthreads();
-    if (k0 + BK < k) {   // next step's tiles travel while this one computes
-      xl.load(k0 + BK, m0, tid);
-      lg.load(k0 + BK, n0, tid);
-      if constexpr (DUAL) lu.load(k0 + BK, n0, tid);
+    int sn = s + 1;
+    if constexpr (MASKED) sn = live.next(sn, nk);
+    if (sn < nk) {   // next step's tiles travel while this one computes
+      xl.load(sn * BK, m0, tid);
+      lg.load(sn * BK, n0, tid);
+      if constexpr (DUAL) lu.load(sn * BK, n0, tid);
     }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -355,6 +388,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
       }
     }
     __syncthreads();
+    s = sn;
   }
 
   float* cs_g = reinterpret_cast<float*>(smem);
@@ -383,71 +417,77 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
   }
 }
 
-template <int BM, bool DUAL, class WL, class XS>
+template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 int launch(const void* x, const void* ig, const void* iu, const void* wg, const void* mg,
-           const void* wu, const void* mu, const void* bias, void* y, int b, int ke, int k,
-           int o, int act, void* stream) {
+           const void* wu, const void* mu, const void* kmask, const void* bias, void* y,
+           int b, int ke, int k, int o, int act, void* stream) {
   const dim3 grid(o / BN, (b + BM - 1) / BM);
-  gemm_kernel<BM, DUAL, WL, XS><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(ig),
-      static_cast<const int*>(iu), static_cast<const __nv_bfloat16*>(wg),
-      static_cast<const uint8_t*>(mg), static_cast<const __nv_bfloat16*>(wu),
-      static_cast<const uint8_t*>(mu), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(y), b, ke, k, o, act);
+  gemm_kernel<BM, DUAL, WL, XS, MASKED>
+      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(ig),
+          static_cast<const int*>(iu), static_cast<const __nv_bfloat16*>(wg),
+          static_cast<const uint8_t*>(mg), static_cast<const __nv_bfloat16*>(wu),
+          static_cast<const uint8_t*>(mu), static_cast<const int*>(kmask),
+          static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), b, ke, k, o, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ke: X's row stride (K_eff); k: the contraction the weight rows run over
-// (K_eff, or K_c for the gather loaders)
-template <bool DUAL, class WL, class XS = Contiguous>
+// (K_eff, or K_c for the gather loaders).  MASKED: single GEMMs only, with
+// the (ceil(b / bm), k / 64) kmask of block_maps.
+template <bool DUAL, class WL, class XS = Contiguous, bool MASKED = false>
 int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void* wg,
-              const void* mg, const void* wu, const void* mu, const void* bias, void* y,
-              int b, int ke, int k, int o, int act, void* stream) {
+              const void* mg, const void* wu, const void* mu, const void* kmask,
+              const void* bias, void* y, int b, int ke, int k, int o, int act,
+              void* stream) {
+  static_assert(!(MASKED && DUAL), "the masked kernels are single GEMMs");
   if (b <= 0 || ke <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 ||
       act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (MASKED != (kmask != nullptr) || (MASKED && k / BK > MAX_K_STEPS))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
-    return launch<16, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, bias, y, b, ke, k, o, act,
-                                    stream);
+    return launch<16, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, bias, y, b, ke,
+                                            k, o, act, stream);
   if (bm == 64)
-    return launch<64, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, bias, y, b, ke, k, o, act,
-                                    stream);
+    return launch<64, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, bias, y, b, ke,
+                                            k, o, act, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool DUAL>
+template <bool DUAL, bool MASKED = false>
 int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
-              const void* mu, const void* bias, void* y, int b, int k, int o, int act,
-              void* stream) {
+              const void* mu, const void* kmask, const void* bias, void* y, int b, int k,
+              int o, int act, void* stream) {
   if (n == 1)
-    return launch_bm<DUAL, NMLoader<1>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, bias, y, b,
-                                        k, k, o, act, stream);
+    return launch_bm<DUAL, NMLoader<1>, Contiguous, MASKED>(
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream);
   if (n == 2)
-    return launch_bm<DUAL, NMLoader<2>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, bias, y, b,
-                                        k, k, o, act, stream);
+    return launch_bm<DUAL, NMLoader<2>, Contiguous, MASKED>(
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream);
   if (n == 4)
-    return launch_bm<DUAL, NMLoader<4>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, bias, y, b,
-                                        k, k, o, act, stream);
+    return launch_bm<DUAL, NMLoader<4>, Contiguous, MASKED>(
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the lane-aligned gather: X (B, ke) gathered to K_c = ke * n / 4 columns,
 // contracted against the dense values tile (K_c, O)
-template <bool DUAL>
+template <bool DUAL, bool MASKED = false>
 int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
-                  const void* vu, const void* iu, const void* bias, void* y, int b, int ke,
-                  int o, int act, void* stream) {
+                  const void* vu, const void* iu, const void* kmask, const void* bias, void* y,
+                  int b, int ke, int o, int act, void* stream) {
   if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
   if (n == 1)
-    return launch_bm<DUAL, DenseLoader, Gathered<1>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
-                                                     bias, y, b, ke, kc, o, act, stream);
+    return launch_bm<DUAL, DenseLoader, Gathered<1>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream);
   if (n == 2)
-    return launch_bm<DUAL, DenseLoader, Gathered<2>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
-                                                     bias, y, b, ke, kc, o, act, stream);
+    return launch_bm<DUAL, DenseLoader, Gathered<2>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream);
   if (n == 4)
-    return launch_bm<DUAL, DenseLoader, Gathered<4>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
-                                                     bias, y, b, ke, kc, o, act, stream);
+    return launch_bm<DUAL, DenseLoader, Gathered<4>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -456,45 +496,68 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // Plain C interface (loaded with ctypes).  Every function launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() after
 // the launch (cudaErrorInvalidValue for arguments the kernels do not take).
+// The *_masked functions take the (ceil(b / bm), K steps) int32 kmask of
+// block_maps (K steps of 64 weight rows: K / 64, or K_c / 64 for gather).
 extern "C" {
 
 int vg_tile_gemm(const void* x, const void* w, const void* bias, void* y, int b, int k,
                  int o, int act, int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
-                                       bias, y, b, k, k, o, act, stream);
+                                       nullptr, bias, y, b, k, k, o, act, stream);
+}
+
+int vg_tile_gemm_masked(const void* x, const void* w, const void* kmask, const void* bias,
+                        void* y, int b, int k, int o, int act, int bm, void* stream) {
+  return launch_bm<false, DenseLoader, Contiguous, true>(bm, x, nullptr, nullptr, w, nullptr,
+                                                         nullptr, nullptr, kmask, bias, y, b,
+                                                         k, k, o, act, stream);
 }
 
 int vg_tile_gemm_dual(const void* x, const void* wg, const void* wu, void* y, int b, int k,
                       int o, int bm, void* stream) {
   return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
-                                      nullptr, y, b, k, k, o, ACT_NONE, stream);
+                                      nullptr, nullptr, y, b, k, k, o, ACT_NONE, stream);
 }
 
 int vg_nm_spmm(const void* x, const void* values, const void* meta, const void* bias, void* y,
                int b, int k, int o, int n, int act, int bm, void* stream) {
-  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, bias, y, b, k, o, act,
-                          stream);
+  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, bias, y, b, k, o,
+                          act, stream);
+}
+
+int vg_nm_spmm_masked(const void* x, const void* values, const void* meta, const void* kmask,
+                      const void* bias, void* y, int b, int k, int o, int n, int act, int bm,
+                      void* stream) {
+  return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, bias, y, b, k,
+                                o, act, stream);
 }
 
 int vg_nm_spmm_dual(const void* x, const void* values_g, const void* meta_g,
                     const void* values_u, const void* meta_u, void* y, int b, int k, int o,
                     int n, int bm, void* stream) {
-  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, y, b, k, o,
-                         ACT_NONE, stream);
+  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, nullptr, y, b,
+                         k, o, ACT_NONE, stream);
 }
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
 int vg_nm_spmm_gather_bk(const void* x, const void* values, const void* idx, const void* bias,
                          void* y, int b, int k, int o, int n, int act, int bm, void* stream) {
-  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, bias, y, b, k, o, act,
-                              stream);
+  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, bias, y, b, k,
+                              o, act, stream);
+}
+
+int vg_nm_spmm_gather_bk_masked(const void* x, const void* values, const void* idx,
+                                const void* kmask, const void* bias, void* y, int b, int k,
+                                int o, int n, int act, int bm, void* stream) {
+  return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, bias, y, b,
+                                    k, o, act, stream);
 }
 
 int vg_nm_spmm_gather_dual_bk(const void* x, const void* values_g, const void* idx_g,
                               const void* values_u, const void* idx_u, void* y, int b, int k,
                               int o, int n, int bm, void* stream) {
-  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, y, b, k, o,
-                             ACT_NONE, stream);
+  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, nullptr, y, b,
+                             k, o, ACT_NONE, stream);
 }
 
 const char* vg_error_string(int code) {

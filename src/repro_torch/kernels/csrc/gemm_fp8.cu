@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) fp8 kernels for the repro_torch fp8
 // execution class (e4m3 weights x e4m3 activations, fp32 accumulation):
-// tile_gemm_fp8, tile_gemm_dual_fp8, nm_spmm_fp8, nm_spmm_dual_fp8 and the
+// tile_gemm_fp8, tile_gemm_dual_fp8, nm_spmm_fp8, nm_spmm_dual_fp8, the
 // lane-aligned gather pair nm_spmm_gather_bk_fp8 and
-// nm_spmm_gather_dual_bk_fp8, the duals with a requantizing flush.
+// nm_spmm_gather_dual_bk_fp8, the duals with a requantizing flush, and the
+// activation-sparsity (K10) variants of the three singles,
+// tile_gemm_masked_fp8, nm_spmm_masked_fp8, nm_spmm_gather_bk_masked_fp8.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm_fp8       repro/kernels/tile_gemm/kernel.py::tile_gemm_fp8
@@ -17,14 +19,20 @@
 //                               nm_spmm_gather_bk, fp8 (_gather_bk_kernel)
 //   nm_spmm_gather_dual_bk_fp8  repro/kernels/nm_spmm_gather/kernel.py::
 //                               nm_spmm_gather_dual_bk, fp8 (_gather_dual_kernel)
+//   tile_gemm_masked_fp8, nm_spmm_masked_fp8, nm_spmm_gather_bk_masked_fp8
+//        repro/kernels/{tile_gemm,nm_spmm,nm_spmm_gather}/kernel.py::
+//        tile_gemm_masked, nm_spmm_masked, nm_spmm_gather_bk_masked, scaled-
+//        quantized with acc_dtype=float32 (the *_masked_kernel bodies)
 // and, in the duals' flush, the requant:float8_e4m3fn point of
 // repro/kernels/epilogue.py::flush_tile / requant_rows.
 //
-// ONE templated body serves all six, as in gemm_int8.cu: the template
+// ONE templated body serves all nine, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
 // meta), the X loader (contiguous, or gathered through the lane-aligned
-// index, see gemm.cu) and single or dual (gate-up, two weights against
-// one X read).
+// index, see gemm.cu), single or dual (gate-up, two weights against one X
+// read), and MASKED: the activation-sparsity block skip of gemm.cu
+// (kmask.cuh).  A dead 64-deep step's partial sum would be +0, so
+// skipping it leaves the fp32 accumulator bitwise as it was.
 //
 // What it computes.  A block of 128 threads (4 warps) owns a BM x 64 tile
 // of Y (BM = 16 for decode-sized batches, 64 for prefill chunks) and
@@ -97,6 +105,7 @@
 #include <stdint.h>
 
 #include "flush.cuh"
+#include "kmask.cuh"
 
 namespace {
 
@@ -355,13 +364,13 @@ __device__ __forceinline__ uint8_t requant_e4m3(float y, float scale) {
   return static_cast<uint8_t>(__nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3));
 }
 
-template <int BM, bool DUAL, class WL, class XS>
+template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
 gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
                 const int* __restrict__ iu,
                 const uint8_t* __restrict__ wg, const uint8_t* __restrict__ mg,
                 const uint8_t* __restrict__ wu, const uint8_t* __restrict__ mu,
-                const float* __restrict__ xs, const float* __restrict__ wsg,
+                const int* __restrict__ kmask, const float* __restrict__ xs, const float* __restrict__ wsg,
                 const float* __restrict__ wsu, const float* __restrict__ bias,
                 const float* __restrict__ rq, void* __restrict__ y, int b, int ke, int k,
                 int o, int act, int out_kind) {
@@ -373,6 +382,7 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
   constexpr int NW = DUAL ? 2 : 1;
   __shared__ __align__(16) uint8_t xt[NX][BM * PITCH];
   __shared__ __align__(16) uint8_t wt[NW][BN * PITCH];
+  __shared__ LiveSteps<NTHREADS> live;   // MASKED only
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -395,19 +405,32 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[w][i][j][e] = 0.f;
 
-  xl.load(0, m0, tid);
-  lg.load(0, n0, tid);
-  if constexpr (DUAL) lu.load(0, n0, tid);
-  for (int k0 = 0; k0 < k; k0 += BK) {
+  // K steps: all of them, or (MASKED) the live steps of this row block
+  // (kmask.cuh; see gemm.cu)
+  const int nk = k / BK;
+  int s = 0;
+  if constexpr (MASKED) {
+    live.load(kmask, blockIdx.y, nk, tid);
+    __syncthreads();
+    s = live.next(0, nk);
+  }
+  if (s < nk) {
+    xl.load(s * BK, m0, tid);
+    lg.load(s * BK, n0, tid);
+    if constexpr (DUAL) lu.load(s * BK, n0, tid);
+  }
+  while (s < nk) {
     xl.store(xt[0], tid);
     if constexpr (NX == 2) xl.template store<1>(xt[NX - 1], tid);
     lg.store(wt[0], tid);
     if constexpr (DUAL) lu.store(wt[1], tid);
     __syncthreads();
-    if (k0 + BK < k) {   // next step's tiles travel while this one computes
-      xl.load(k0 + BK, m0, tid);
-      lg.load(k0 + BK, n0, tid);
-      if constexpr (DUAL) lu.load(k0 + BK, n0, tid);
+    int sn = s + 1;
+    if constexpr (MASKED) sn = live.next(sn, nk);
+    if (sn < nk) {   // next step's tiles travel while this one computes
+      xl.load(sn * BK, m0, tid);
+      lg.load(sn * BK, n0, tid);
+      if constexpr (DUAL) lu.load(sn * BK, n0, tid);
     }
     // this warp's B fragments: 16 columns, both k32 halves of the step
     uint32_t bf[NW][NF][2][2];
@@ -449,6 +472,7 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
         }
     }
     __syncthreads();
+    s = sn;
   }
 
   const float rq_scale = out_kind == OUT_E4M3 ? *rq : 0.f;
@@ -481,31 +505,38 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
       }
 }
 
-template <int BM, bool DUAL, class WL, class XS>
+template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 int launch(const void* x, const void* ig, const void* iu, const void* wg, const void* mg,
-           const void* wu, const void* mu, const void* xs, const void* wsg, const void* wsu,
-           const void* bias, const void* rq, void* y, int b, int ke, int k, int o, int act,
-           int out_kind, void* stream) {
+           const void* wu, const void* mu, const void* kmask, const void* xs, const void* wsg,
+           const void* wsu, const void* bias, const void* rq, void* y, int b, int ke, int k,
+           int o, int act, int out_kind, void* stream) {
   const dim3 grid(o / BN, (b + BM - 1) / BM);
-  gemm_fp8_kernel<BM, DUAL, WL, XS><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const int*>(ig), static_cast<const int*>(iu),
-      static_cast<const uint8_t*>(wg), static_cast<const uint8_t*>(mg),
-      static_cast<const uint8_t*>(wu), static_cast<const uint8_t*>(mu),
-      static_cast<const float*>(xs), static_cast<const float*>(wsg),
-      static_cast<const float*>(wsu), static_cast<const float*>(bias),
-      static_cast<const float*>(rq), y, b, ke, k, o, act, out_kind);
+  gemm_fp8_kernel<BM, DUAL, WL, XS, MASKED>
+      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(x), static_cast<const int*>(ig),
+          static_cast<const int*>(iu), static_cast<const uint8_t*>(wg),
+          static_cast<const uint8_t*>(mg), static_cast<const uint8_t*>(wu),
+          static_cast<const uint8_t*>(mu), static_cast<const int*>(kmask),
+          static_cast<const float*>(xs), static_cast<const float*>(wsg),
+          static_cast<const float*>(wsu), static_cast<const float*>(bias),
+          static_cast<const float*>(rq), y, b, ke, k, o, act, out_kind);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ke: X's row stride (K_eff); k: the contraction the weight rows run over
-// (K_eff, or K_c for the gather loaders)
-template <bool DUAL, class WL, class XS = Contiguous>
+// (K_eff, or K_c for the gather loaders).  MASKED: single GEMMs only, with
+// the (ceil(b / bm), k / 64) kmask of block_maps.
+template <bool DUAL, class WL, class XS = Contiguous, bool MASKED = false>
 int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void* wg,
-              const void* mg, const void* wu, const void* mu, const void* xs,
-              const void* wsg, const void* wsu, const void* bias, const void* rq, void* y,
-              int b, int ke, int k, int o, int act, int out_kind, void* stream) {
+              const void* mg, const void* wu, const void* mu, const void* kmask,
+              const void* xs, const void* wsg, const void* wsu, const void* bias,
+              const void* rq, void* y, int b, int ke, int k, int o, int act, int out_kind,
+              void* stream) {
+  static_assert(!(MASKED && DUAL), "the masked kernels are single GEMMs");
   if (b <= 0 || ke <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 ||
       act > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (MASKED != (kmask != nullptr) || (MASKED && k / BK > MAX_K_STEPS))
     return static_cast<int>(cudaErrorInvalidValue);
   // raw mode takes no scales and no epilogue; scaled mode needs its scales
   const bool raw = out_kind == OUT_RAW;
@@ -516,52 +547,55 @@ int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void*
   if ((out_kind == OUT_E4M3) != (rq != nullptr) || (out_kind == OUT_E4M3 && !DUAL))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
-    return launch<16, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b,
-                                    ke, k, o, act, out_kind, stream);
+    return launch<16, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, xs, wsg, wsu,
+                                            bias, rq, y, b, ke, k, o, act, out_kind, stream);
   if (bm == 64)
-    return launch<64, DUAL, WL, XS>(x, ig, iu, wg, mg, wu, mu, xs, wsg, wsu, bias, rq, y, b,
-                                    ke, k, o, act, out_kind, stream);
+    return launch<64, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, xs, wsg, wsu,
+                                            bias, rq, y, b, ke, k, o, act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool DUAL>
+template <bool DUAL, bool MASKED = false>
 int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
-              const void* mu, const void* xs, const void* wsg, const void* wsu,
-              const void* bias, const void* rq, void* y, int b, int k, int o, int act,
-              int out_kind, void* stream) {
+              const void* mu, const void* kmask, const void* xs, const void* wsg,
+              const void* wsu, const void* bias, const void* rq, void* y, int b, int k, int o,
+              int act, int out_kind, void* stream) {
   if (n == 1)
-    return launch_bm<DUAL, NMLoader<1>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, xs, wsg, wsu,
-                                        bias, rq, y, b, k, k, o, act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<1>, Contiguous, MASKED>(
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, xs, wsg, wsu, bias, rq, y, b, k, k, o,
+        act, out_kind, stream);
   if (n == 2)
-    return launch_bm<DUAL, NMLoader<2>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, xs, wsg, wsu,
-                                        bias, rq, y, b, k, k, o, act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<2>, Contiguous, MASKED>(
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, xs, wsg, wsu, bias, rq, y, b, k, k, o,
+        act, out_kind, stream);
   if (n == 4)
-    return launch_bm<DUAL, NMLoader<4>>(bm, x, nullptr, nullptr, vg, mg, vu, mu, xs, wsg, wsu,
-                                        bias, rq, y, b, k, k, o, act, out_kind, stream);
+    return launch_bm<DUAL, NMLoader<4>, Contiguous, MASKED>(
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, xs, wsg, wsu, bias, rq, y, b, k, k, o,
+        act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the lane-aligned gather: X (B, ke) gathered to K_c = ke * n / 4 columns,
 // contracted against the dense values tile (K_c, O)
-template <bool DUAL>
+template <bool DUAL, bool MASKED = false>
 int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
-                  const void* vu, const void* iu, const void* xs, const void* wsg,
-                  const void* wsu, const void* bias, const void* rq, void* y, int b, int ke,
-                  int o, int act, int out_kind, void* stream) {
+                  const void* vu, const void* iu, const void* kmask, const void* xs,
+                  const void* wsg, const void* wsu, const void* bias, const void* rq, void* y,
+                  int b, int ke, int o, int act, int out_kind, void* stream) {
   if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
   if (n == 1)
-    return launch_bm<DUAL, DenseLoader, Gathered<1>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
-                                                     xs, wsg, wsu, bias, rq, y, b, ke, kc, o,
-                                                     act, out_kind, stream);
+    return launch_bm<DUAL, DenseLoader, Gathered<1>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
+        o, act, out_kind, stream);
   if (n == 2)
-    return launch_bm<DUAL, DenseLoader, Gathered<2>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
-                                                     xs, wsg, wsu, bias, rq, y, b, ke, kc, o,
-                                                     act, out_kind, stream);
+    return launch_bm<DUAL, DenseLoader, Gathered<2>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
+        o, act, out_kind, stream);
   if (n == 4)
-    return launch_bm<DUAL, DenseLoader, Gathered<4>>(bm, x, ig, iu, vg, nullptr, vu, nullptr,
-                                                     xs, wsg, wsu, bias, rq, y, b, ke, kc, o,
-                                                     act, out_kind, stream);
+    return launch_bm<DUAL, DenseLoader, Gathered<4>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
+        o, act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -572,31 +606,48 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernels do not take).  out_kind: 0 bf16, 1 fp32 (scaled,
 // xs/ws given), 2 fp32 raw accumulator (no scales), 3 e4m3 requantized
-// against *rq (duals only).
+// against *rq (duals only).  The *_masked functions take the (ceil(b / bm),
+// K steps) int32 kmask of block_maps (K / 64, or K_c / 64 for gather).
 extern "C" {
 
 int vg_tile_gemm_fp8(const void* x, const void* w, const void* xs, const void* ws,
                      const void* bias, void* y, int b, int k, int o, int act, int out_kind,
                      int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
-                                       xs, ws, nullptr, bias, nullptr, y, b, k, k, o, act,
-                                       out_kind, stream);
+                                       nullptr, xs, ws, nullptr, bias, nullptr, y, b, k, k, o,
+                                       act, out_kind, stream);
+}
+
+int vg_tile_gemm_masked_fp8(const void* x, const void* w, const void* kmask, const void* xs,
+                            const void* ws, const void* bias, void* y, int b, int k, int o,
+                            int act, int out_kind, int bm, void* stream) {
+  return launch_bm<false, DenseLoader, Contiguous, true>(
+      bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
+      nullptr, y, b, k, k, o, act, out_kind, stream);
 }
 
 int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const void* xs,
                           const void* wsg, const void* wsu, const void* rq, void* y, int b,
                           int k, int o, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr, xs,
-                                      wsg, wsu, nullptr, rq, y, b, k, k, o, ACT_NONE, out_kind,
-                                      stream);
+  return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
+                                      nullptr, xs, wsg, wsu, nullptr, rq, y, b, k, k, o,
+                                      ACT_NONE, out_kind, stream);
 }
 
 int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const void* xs,
                    const void* ws, const void* bias, void* y, int b, int k, int o, int n,
                    int act, int out_kind, int bm, void* stream) {
-  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, xs, ws, nullptr, bias,
-                          nullptr, y, b, k, o, act, out_kind, stream);
+  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
+                          bias, nullptr, y, b, k, o, act, out_kind, stream);
+}
+
+int vg_nm_spmm_masked_fp8(const void* x, const void* values, const void* meta,
+                          const void* kmask, const void* xs, const void* ws, const void* bias,
+                          void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
+                          void* stream) {
+  return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
+                                nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
@@ -604,8 +655,8 @@ int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
                         const void* wsg, const void* wsu, const void* rq, void* y, int b,
                         int k, int o, int n, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, xs, wsg, wsu, nullptr,
-                         rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, xs, wsg, wsu,
+                         nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
@@ -613,8 +664,16 @@ int vg_nm_spmm_gather_bk_fp8(const void* x, const void* values, const void* idx,
                              const void* xs, const void* ws, const void* bias, void* y, int b,
                              int k, int o, int n, int act, int out_kind, int bm,
                              void* stream) {
-  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, xs, ws, nullptr, bias,
-                              nullptr, y, b, k, o, act, out_kind, stream);
+  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
+                              nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+}
+
+int vg_nm_spmm_gather_bk_masked_fp8(const void* x, const void* values, const void* idx,
+                                    const void* kmask, const void* xs, const void* ws,
+                                    const void* bias, void* y, int b, int k, int o, int n,
+                                    int act, int out_kind, int bm, void* stream) {
+  return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
+                                    nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_gather_dual_bk_fp8(const void* x, const void* values_g, const void* idx_g,
@@ -623,8 +682,8 @@ int vg_nm_spmm_gather_dual_bk_fp8(const void* x, const void* values_g, const voi
                                   int b, int k, int o, int n, int out_kind, int bm,
                                   void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, xs, wsg, wsu, nullptr,
-                             rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, xs, wsg, wsu,
+                             nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
 const char* vg_error_string(int code) {

@@ -24,10 +24,17 @@ they are.  The torch tier dequantizes the weight and contracts float
 activations.  :func:`attention` routes full-sequence attention to the
 ``flash_attention`` kernel the same way.
 
+Activation sparsity (``activation=`` an ``actsparse.ActivationSpec``):
+the mask pass runs on every route, and on a single-GEMM kernel decision
+the adapter runs the layout's masked kernel (``tile_gemm_masked``,
+``nm_spmm_masked``, ``nm_spmm_gather_bk_masked`` and their int8 / fp8
+twins) on ``actsparse.block_maps`` at the kernel's own blocks
+(``ReasonCode.ACT_SKIP``); duals and the torch tier contract the masked
+operand (``ACT_MASK_ONLY_DUAL`` / ``ACT_MASK_ONLY_JNP``).
+
 What the slice leaves out, each still planned by the JAX package only:
-shard_map placement, the rowwise layout, activation sparsity, the
-single-GEMM requantize and autotuning.  Blocks are always
-fitted (``ReasonCode.BLOCKS_FITTED``).
+shard_map placement, the rowwise layout, the single-GEMM requantize and
+autotuning.  Blocks are always fitted (``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
@@ -52,6 +59,7 @@ from ..core import quantize as quant
 from ..core.sparse_linear import gather_hint, is_linear_leaf
 from . import _build, reasons, registry
 from . import epilogue as epilib
+from .actsparse import ActivationSpec, apply_mask, block_maps
 from .epilogue import Epilogue
 from .reasons import ReasonCode
 from .registry import KernelEntry, dtype_name
@@ -113,7 +121,8 @@ class GemmProblem:
     ``epilogue`` is the canonical lattice point string
     (``EpilogueSpec.point``); ``dual`` marks a fused gate-up pair.
     ``static_scales`` records whether the use site carries a calibrated
-    activation scale; it only annotates the decision."""
+    activation scale; it only annotates the decision.  ``activation`` is
+    the activation-sparsity point (``ActivationSpec.point``)."""
 
     mode: str
     b: int
@@ -127,6 +136,7 @@ class GemmProblem:
     dual: bool = False
     device: Any = None
     static_scales: bool = False
+    activation: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +155,9 @@ class DispatchDecision:
     reason_code: Optional[ReasonCode] = None
     epilogue_reason: Optional[ReasonCode] = None
     act_scales: Optional[str] = None   # quantized kernels: dynamic | static
+    activation: Optional[str] = None   # activation-sparsity point
+    activation_skip: bool = False      # True: the masked kernel skips dead tiles
+    activation_reason: Optional[ReasonCode] = None   # skip, or why mask-only
 
     @property
     def uses_kernel(self) -> bool:
@@ -157,6 +170,9 @@ def describe(d: DispatchDecision) -> str:
         ann = (reasons.epilogue_annotation(d.epilogue_reason)
                if d.epilogue_reason is not None else "torch")
         epi = f" epilogue={d.epilogue}[{ann}]"
+    if d.activation is not None:
+        epi += (f" activation={d.activation}"
+                f"[{reasons.activation_annotation(d.activation_reason)}]")
     if not d.uses_kernel:
         return f"{d.mode}: {TORCH_REFERENCE} ({d.reason}){epi}"
     bb, bke, bo = d.blocks
@@ -239,10 +255,22 @@ def _epi_kwargs(epi: Optional[Epilogue]) -> Dict[str, Any]:
     return {"epilogue": epi.spec, "bias": epi.bias}
 
 
-def _run_tile_gemm(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
-    from .tile_gemm.kernel import tile_gemm
-    return tile_gemm(x2, params["w"].to(x2.dtype), block_b=blocks[0],
-                     **_epi_kwargs(epilogue))
+def _maps(x2, blocks):
+    """``block_maps`` of the contracted operand at the kernel's blocks
+    (``blocks[1]`` is its K step in activation columns)."""
+    return block_maps(x2, blocks[0], blocks[1])
+
+
+def _run_tile_gemm(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
+                   activation=None):
+    from .tile_gemm.kernel import tile_gemm, tile_gemm_masked
+    w = params["w"].to(x2.dtype)
+    if activation is not None:
+        # x2 is already masked (sparse_matmul's mask pass); the maps only
+        # let the kernel skip the dead tiles
+        return tile_gemm_masked(x2, w, *_maps(x2, blocks), block_b=blocks[0],
+                                **_epi_kwargs(epilogue))
+    return tile_gemm(x2, w, block_b=blocks[0], **_epi_kwargs(epilogue))
 
 
 def _run_tile_gemm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -251,10 +279,15 @@ def _run_tile_gemm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
                           block_b=blocks[0])
 
 
-def _run_nm_spmm(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
-    from .nm_spmm.kernel import nm_spmm
-    return nm_spmm(x2, params["values"].to(x2.dtype), params["meta_packed"],
-                   cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
+def _run_nm_spmm(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
+                 activation=None):
+    from .nm_spmm.kernel import nm_spmm, nm_spmm_masked
+    v = params["values"].to(x2.dtype)
+    if activation is not None:
+        return nm_spmm_masked(x2, v, params["meta_packed"], *_maps(x2, blocks), cfg.n,
+                              block_b=blocks[0], **_epi_kwargs(epilogue))
+    return nm_spmm(x2, v, params["meta_packed"], cfg.n, block_b=blocks[0],
+                   **_epi_kwargs(epilogue))
 
 
 def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -264,10 +297,15 @@ def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
                         block_b=blocks[0])
 
 
-def _run_nm_gather(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
-    from .nm_spmm_gather.kernel import nm_spmm_gather_bk
-    return nm_spmm_gather_bk(x2, params["values"].to(x2.dtype), params["gather_idx"],
-                             cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
+def _run_nm_gather(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
+                   activation=None):
+    from .nm_spmm_gather.kernel import nm_spmm_gather_bk, nm_spmm_gather_bk_masked
+    v = params["values"].to(x2.dtype)
+    if activation is not None:
+        return nm_spmm_gather_bk_masked(x2, v, params["gather_idx"], *_maps(x2, blocks),
+                                        cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
+    return nm_spmm_gather_bk(x2, v, params["gather_idx"], cfg.n, block_b=blocks[0],
+                             **_epi_kwargs(epilogue))
 
 
 def _run_nm_gather_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -279,13 +317,13 @@ def _run_nm_gather_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
 
 registry.register(KernelEntry(
     name="tile_gemm", mode="dense", fit_blocks=_fit_tile_gemm,
-    run=_run_tile_gemm, run_dual=_run_tile_gemm_dual))
+    run=_run_tile_gemm, run_dual=_run_tile_gemm_dual, activation_skip=True))
 registry.register(KernelEntry(
     name="nm_spmm", mode="compressed", fit_blocks=_fit_nm_spmm,
-    run=_run_nm_spmm, run_dual=_run_nm_spmm_dual))
+    run=_run_nm_spmm, run_dual=_run_nm_spmm_dual, activation_skip=True))
 registry.register(KernelEntry(
     name="nm_spmm_gather", mode="gather", fit_blocks=_fit_nm_gather,
-    run=_run_nm_gather, run_dual=_run_nm_gather_dual))
+    run=_run_nm_gather, run_dual=_run_nm_gather_dual, activation_skip=True))
 
 
 # --- the quantized classes: int8 (w8a8) and fp8 (e4m3 weights and
@@ -332,15 +370,20 @@ def _requant(epilogue) -> bool:
     return epilogue is not None and epilogue.spec.requant is not None
 
 
-# No row padding in the adapters: the kernels mask the ragged edge.
+# No row padding in the adapters: the kernels mask the ragged edge.  The
+# masked runs take their maps from the narrow rows the kernel contracts
+# (zeros quantize to code 0, so dead tiles stay dead).
 
-def _run_tile_gemm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+def _run_tile_gemm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
+                     activation=None):
     from .tile_gemm import kernel as tk
     qdt = params["w"].dtype
     xq, xs = _quantize_acts(x2, params, qdt)
-    return _q_kernel(tk, "tile_gemm", qdt)(xq, params["w"], xs, _w_scale(params),
-                                           out_dtype=out_dtype, block_b=blocks[0],
-                                           **_epi_kwargs(epilogue))
+    kw = dict(out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+    if activation is not None:
+        return _q_kernel(tk, "tile_gemm_masked", qdt)(xq, params["w"], *_maps(xq, blocks),
+                                                      xs, _w_scale(params), **kw)
+    return _q_kernel(tk, "tile_gemm", qdt)(xq, params["w"], xs, _w_scale(params), **kw)
 
 
 def _run_tile_gemm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -358,13 +401,18 @@ def _run_tile_gemm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None
                                                 block_b=blocks[0])
 
 
-def _run_nm_spmm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+def _run_nm_spmm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
+                   activation=None):
     from .nm_spmm import kernel as nk
     qdt = params["values"].dtype
     xq, xs = _quantize_acts(x2, params, qdt)
+    kw = dict(out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+    if activation is not None:
+        return _q_kernel(nk, "nm_spmm_masked", qdt)(
+            xq, params["values"], params["meta_packed"], *_maps(xq, blocks), cfg.n, xs,
+            _w_scale(params), **kw)
     return _q_kernel(nk, "nm_spmm", qdt)(xq, params["values"], params["meta_packed"], xs,
-                                         _w_scale(params), cfg.n, out_dtype=out_dtype,
-                                         block_b=blocks[0], **_epi_kwargs(epilogue))
+                                         _w_scale(params), cfg.n, **kw)
 
 
 def _run_nm_spmm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -380,14 +428,19 @@ def _run_nm_spmm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
                                               block_b=blocks[0])
 
 
-def _run_nm_gather_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None):
+def _run_nm_gather_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
+                     activation=None):
     from .nm_spmm_gather import kernel as gk
     # the rows quantize over their full K_eff width; the kernel gathers codes
     qdt = params["values"].dtype
     xq, xs = _quantize_acts(x2, params, qdt)
+    kw = dict(out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+    if activation is not None:
+        return _q_kernel(gk, "nm_spmm_gather_bk_masked", qdt)(
+            xq, params["values"], params["gather_idx"], *_maps(xq, blocks), cfg.n, xs,
+            _w_scale(params), **kw)
     return _q_kernel(gk, "nm_spmm_gather_bk", qdt)(
-        xq, params["values"], params["gather_idx"], xs, _w_scale(params), cfg.n,
-        out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+        xq, params["values"], params["gather_idx"], xs, _w_scale(params), cfg.n, **kw)
 
 
 def _run_nm_gather_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -406,30 +459,33 @@ def _run_nm_gather_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None
 registry.register(KernelEntry(
     name="tile_gemm_int8", mode="dense",
     fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.int8),
-    run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True))
+    run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True,
+    activation_skip=True))
 registry.register(KernelEntry(
     name="nm_spmm_int8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.int8),
-    run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True))
+    run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True,
+    activation_skip=True))
 registry.register(KernelEntry(
     name="tile_gemm_fp8", mode="dense",
     fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.float8_e4m3fn),
     run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True,
-    supported=registry.supports_fp8))
+    activation_skip=True, supported=registry.supports_fp8))
 registry.register(KernelEntry(
     name="nm_spmm_fp8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.float8_e4m3fn),
     run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True,
-    supported=registry.supports_fp8))
+    activation_skip=True, supported=registry.supports_fp8))
 registry.register(KernelEntry(
     name="nm_spmm_gather_int8", mode="gather",
     fit_blocks=functools.partial(_fit_nm_gather, storage=torch.int8),
-    run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True))
+    run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True,
+    activation_skip=True))
 registry.register(KernelEntry(
     name="nm_spmm_gather_fp8", mode="gather",
     fit_blocks=functools.partial(_fit_nm_gather, storage=torch.float8_e4m3fn),
     run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True,
-    supported=registry.supports_fp8))
+    activation_skip=True, supported=registry.supports_fp8))
 
 
 # --- flash attention: mode "attention", dims mapped as (b, ke, o) =
@@ -507,7 +563,10 @@ def plan(problem: GemmProblem, *,
             reasons.render(code, **ctx), dtype=dt_name, epilogue=p.epilogue,
             reason_code=code,
             epilogue_reason=(ReasonCode.EPILOGUE_JNP_TIER
-                             if p.epilogue is not None else None))
+                             if p.epilogue is not None else None),
+            activation=p.activation,
+            activation_reason=(ReasonCode.ACT_MASK_ONLY_JNP
+                               if p.activation is not None else None))
 
     if p.mode == "masked":
         return _fallback(ReasonCode.SRSTE_TRAINING)
@@ -528,6 +587,17 @@ def plan(problem: GemmProblem, *,
         epi_code = (ReasonCode.EPILOGUE_NO_DUAL_KERNEL
                     if p.dual and entry.run_dual is None
                     else ReasonCode.EPILOGUE_FUSED)
+    # the in-kernel dead-tile skip: never on duals (no masked dual
+    # kernels), and only on entries whose adapter carries a masked kernel
+    # (ACT_MASK_ONLY_SHARDED waits for the sharded placement)
+    act_code = None
+    if p.activation is not None:
+        if p.dual:
+            act_code = ReasonCode.ACT_MASK_ONLY_DUAL
+        elif not entry.activation_skip:
+            act_code = ReasonCode.ACT_MASK_ONLY_ENTRY
+        else:
+            act_code = ReasonCode.ACT_SKIP
     return DispatchDecision(
         p.mode, backend, entry.name, blocks,
         reasons.render(ReasonCode.BLOCKS_FITTED), blocks_source="fitted",
@@ -535,7 +605,9 @@ def plan(problem: GemmProblem, *,
         epilogue_fused=epi_code is ReasonCode.EPILOGUE_FUSED,
         reason_code=ReasonCode.BLOCKS_FITTED, epilogue_reason=epi_code,
         act_scales=(("static" if p.static_scales else "dynamic")
-                    if entry.quantized else None))
+                    if entry.quantized else None),
+        activation=p.activation, activation_skip=act_code is ReasonCode.ACT_SKIP,
+        activation_reason=act_code)
 
 
 def plan_for(params: Dict[str, Any], x_shape: Sequence[int], cfg, dtype=torch.float32,
@@ -561,7 +633,9 @@ def _entry_by_name(mode: str, name: str) -> KernelEntry:
 
 def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
                   dispatch: Optional[DispatchConfig] = None,
-                  epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+                  epilogue: Optional[Epilogue] = None,
+                  activation: Optional[ActivationSpec] = None,
+                  local: bool = False) -> torch.Tensor:
     """``y = epilogue(x @ W)`` for a dense, compressed or gather
     SparseLinear layout, via the dispatch engine.  ``x``: (..., K_eff) -> (..., O).
 
@@ -570,9 +644,19 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
     product.  ``x`` may arrive already quantized (the int8 or e4m3 rows a
     fused requantize emitted against this leaf's ``act_scale``): a kernel
     contracts them as they are and returns fp32; the torch tier first
-    dequantizes them with that scale."""
+    dequantizes them with that scale.
+
+    ``activation`` opts the call into the activation-sparsity class: the
+    mask (:func:`actsparse.apply_mask`, the identity for ``"zeros"``) is
+    applied to ``x`` on every route, and on a kernel decision whose entry
+    carries a masked kernel the dead (row block, K step) tiles are also
+    skipped in the kernel, with bitwise the same output.  ``local=True``
+    marks a call that runs inside a sharded body (the JAX package's MoE
+    experts); the port has no mesh yet, so it changes nothing here."""
     dcfg = dispatch or _DEFAULT
     mode = _mode_of(params, cfg)
+    if activation is not None:
+        x = apply_mask(x, activation)
     if epilogue is not None and epilogue.spec.is_identity:
         epilogue = None
     if epilogue is not None and epilogue.spec.act == "silu_mul":
@@ -596,7 +680,8 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
         mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=exec_dtype,
         differentiating=_under_autodiff(x2, *_leaf_tensors(params)),
         epilogue=epilogue.spec.point if epilogue is not None else None,
-        device=x2.device, static_scales=quant.has_static_scales(params)), dispatch=dcfg)
+        device=x2.device, static_scales=quant.has_static_scales(params),
+        activation=activation.point if activation is not None else None), dispatch=dcfg)
     if pre_q and not decision.uses_kernel:
         # the reference tier contracts float activations: undo the upstream
         # fused requantize with the leaf's own static scale
@@ -607,16 +692,20 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
         y2 = epilib.apply_reference(_TORCH_IMPL[mode](x2, params, cfg), epilogue)
         return y2.reshape(*lead, o)
     entry = _entry_by_name(mode, decision.kernel)
+    # the masked kernel runs only where the plan granted the skip
+    act_kw = {"activation": activation} if decision.activation_skip else {}
     y2 = entry.run(x2.contiguous(), params, cfg, decision.blocks,
                    epilogue=epilogue if decision.epilogue_fused else None,
-                   out_dtype=torch.float32 if pre_q else x2.dtype)
+                   out_dtype=torch.float32 if pre_q else x2.dtype, **act_kw)
     return y2.reshape(*lead, o)
 
 
 def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                    params_u: Dict[str, Any], cfg, *,
                    dispatch: Optional[DispatchConfig] = None,
-                   epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+                   epilogue: Optional[Epilogue] = None,
+                   activation: Optional[ActivationSpec] = None,
+                   local: bool = False) -> torch.Tensor:
     """``silu(x @ Wg) * (x @ Wu)`` as ONE engine call.
 
     ``epilogue`` must sit on the ``silu_mul`` lattice point, optionally
@@ -629,7 +718,9 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
     tier runs two GEMMs and applies silu*mul to their results (rounded to
     the activation dtype first, as the JAX package's jnp tier does), and
     never the requant: the consumer's own static quantize gives the same
-    codes from the float rows."""
+    codes from the float rows.  ``activation`` and ``local`` are as for
+    :func:`sparse_matmul`; the dual never skips (``ACT_MASK_ONLY_DUAL``:
+    there are no masked duals), it contracts the masked operand."""
     dcfg = dispatch or _DEFAULT
     if epilogue is None:
         epilogue = epilib.make(act="silu_mul")
@@ -638,6 +729,8 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                          f"lattice point (optionally +requant), got "
                          f"{epilogue.spec.point!r}")
     mode_g, mode_u = _mode_of(params_g, cfg), _mode_of(params_u, cfg)
+    if activation is not None:
+        x = apply_mask(x, activation)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     ke, o = _problem_dims(mode_g, params_g, x2.shape[-1])
@@ -657,7 +750,8 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
             differentiating=_under_autodiff(
                 x2, *_leaf_tensors(params_g), *_leaf_tensors(params_u)),
             epilogue=epilogue.spec.point, dual=True, device=x2.device,
-            static_scales=quant.has_static_scales(params_g)),
+            static_scales=quant.has_static_scales(params_g),
+            activation=activation.point if activation is not None else None),
             dispatch=dcfg)
         if decision.epilogue_fused:
             entry = _entry_by_name(mode_g, decision.kernel)
@@ -666,8 +760,8 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                                 decision.blocks, epilogue=epilogue,
                                 out_dtype=torch.float32 if pre_q else x2.dtype)
             return y2.reshape(*lead, o)
-    y_g = sparse_matmul(x2, params_g, cfg, dispatch=dcfg)
-    y_u = sparse_matmul(x2, params_u, cfg, dispatch=dcfg)
+    y_g = sparse_matmul(x2, params_g, cfg, dispatch=dcfg, activation=activation, local=local)
+    y_u = sparse_matmul(x2, params_u, cfg, dispatch=dcfg, activation=activation, local=local)
     h = F.silu(y_g.float()) * y_u.float()
     return h.to(y_g.dtype).reshape(*lead, o)
 
@@ -748,15 +842,31 @@ def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: i
 # Reports
 # ---------------------------------------------------------------------------
 
+def _first_slice(v, nd: int):
+    """Strip leading stack dims off one leaf (the first slice)."""
+    if not isinstance(v, torch.Tensor) or v.ndim <= nd:
+        return v
+    return v.reshape((-1,) + tuple(v.shape[v.ndim - nd:]))[0]
+
+
 def iter_linear_items(tree, _names=()):
     """Yield ``(names, leaf)`` for every SparseLinear param dict in a
-    params tree; ``names`` is the key path (list items as ``[i]``)."""
+    params tree; ``names`` is the key path (list items as ``[i]``).  A
+    stacked leaf (an MoE layer's experts, ``(E, K, O)``) is yielded as its
+    first slice; linears beside a ``router`` key get an ``experts`` marker
+    in their path, as in the JAX package."""
     if isinstance(tree, dict):
         if is_linear_leaf(tree):
-            yield _names, tree
+            # static activation scales and calibration tags are 0-D per
+            # layer, quantization scales and gather indices 1-D, the rest 2-D
+            yield _names, {k: _first_slice(v, 0 if k in (quant.ACT_SCALE_KEY, quant._CALIB_KEY)
+                                            else 1 if k in ("gather_idx", quant.SCALE_KEY)
+                                            else 2)
+                           for k, v in tree.items()}
             return
+        mark = ("experts",) if "router" in tree else ()
         for k, v in tree.items():
-            yield from iter_linear_items(v, _names + (str(k),))
+            yield from iter_linear_items(v, _names + mark + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from iter_linear_items(v, _names + (f"[{i}]",))

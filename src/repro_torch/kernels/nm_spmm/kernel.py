@@ -5,7 +5,9 @@ twins ``nm_spmm_int8`` and ``nm_spmm_dual_int8``
 ``nm_spmm_dual_fp8`` (``kernels/csrc/gemm_fp8.cu``); and
 ``nm_spmm_dual_int8_requant`` / ``nm_spmm_dual_fp8_requant``, the
 quantized duals whose flush requantizes to the class's narrow dtype
-against the next linear's static activation scale.
+against the next linear's static activation scale.  K10:
+``nm_spmm_masked`` and its int8 and fp8 twins ``nm_spmm_masked_int8`` /
+``nm_spmm_masked_fp8``, with the activation-sparsity block skip.
 
 ``Y (B, O) = X (B, K_eff) @ dec(values (K_c, O), meta_packed (K_c/4, O))``
 with ``K_eff = K_c * 4 / n``.  The kernel expands each values tile into
@@ -17,7 +19,8 @@ Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
 ``::nm_spmm_dual`` (:437, float, int8 and fp8 branches, the quantized
 ones with the ``requant:<dtype>`` flush of
 ``repro/kernels/epilogue.py::flush_tile``), ``::nm_spmm_int8`` (:506)
-and ``::nm_spmm_fp8`` (:543).  CUDA tensors launch the kernel or raise; CPU
+and ``::nm_spmm_fp8`` (:543), and ``::nm_spmm_masked`` (:305, float and
+scaled-quantized).  CUDA tensors launch the kernel or raise; CPU
 tensors take the plain version from ``ref.py``.  Launch counts live in
 ``.launches`` on each wrapper.
 """
@@ -30,15 +33,17 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_requant_scale, check_scales,
-                                check_single_epilogue)
+from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale,
+                                check_scales, check_single_epilogue)
 from ..reasons import dtype_name
-from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref, nm_spmm_quantized_ref,
+from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
+                  nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
                   nm_spmm_ref)
 
 __all__ = ["nm_spmm", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_dual_int8",
            "nm_spmm_dual_int8_requant", "nm_spmm_fp8", "nm_spmm_dual_fp8",
-           "nm_spmm_dual_fp8_requant"]
+           "nm_spmm_dual_fp8_requant", "nm_spmm_masked", "nm_spmm_masked_int8",
+           "nm_spmm_masked_fp8"]
 
 _N = (1, 2, 4)
 
@@ -94,6 +99,43 @@ def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
 nm_spmm.launches = 0
 
 
+def nm_spmm_masked(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+                   kmap: torch.Tensor, kmask: torch.Tensor, n: int, *,
+                   epilogue: Optional[EpilogueSpec] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm` with the activation-sparsity block skip (the
+    sparse-activation x N:M-weight SpGEMM): only the (row block, 64-column
+    K step) tiles ``kmask`` marks live are loaded, expanded and
+    multiplied.  ``kmap`` / ``kmask``: ``actsparse.block_maps`` over the
+    masked X at ``block_b`` rows and 64 columns; the CUDA body ignores
+    ``kmap``.  Bitwise :func:`nm_spmm` on the same masked X."""
+    epi = epilogue or EpilogueSpec()
+    b, ke = x.shape
+    o = _check_compressed("nm_spmm_masked", ke, values, meta_packed, n)
+    check_single_epilogue("nm_spmm_masked", epi, bias, o)
+    bb = block_b or _build.block_rows(b)
+    check_maps("nm_spmm_masked", kmap, kmask, b, ke, bb)
+    if x.device.type == "cpu":
+        return nm_spmm_masked_ref(x, values, meta_packed, kmap, kmask, n, block_b=bb,
+                                  epilogue=epi, bias=bias)
+    bias32 = None if bias is None else bias.float().contiguous()
+    _check_cuda("nm_spmm_masked", x, (values,), (meta_packed,), bb, ke, o,
+                (kmask,) + (() if bias32 is None else (bias32,)))
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_nm_spmm_masked(x.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
+                                   kmask.data_ptr(), _ptr(bias32), y.data_ptr(), b, ke, o, n,
+                                   ACT_CODES[epi.act], bb, _build.stream_of(x))
+    nm_spmm_masked.launches += 1
+    _build.check(rc, "nm_spmm_masked", lib)
+    return y
+
+
+nm_spmm_masked.launches = 0
+
+
 def _check_storage(kernel: str, storage: torch.dtype, *tensors: torch.Tensor) -> None:
     if any(t.dtype != storage for t in tensors):
         raise ValueError(f"{kernel}: activations and values must be "
@@ -101,9 +143,10 @@ def _check_storage(kernel: str, storage: torch.dtype, *tensors: torch.Tensor) ->
 
 
 def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_scale, n,
-                       epilogue, bias, out_dtype, block_b):
-    """The shared body of the int8 and fp8 N:M single GEMMs: checks, the
-    plain version on CPU tensors, else one launch counted on ``wrapper``."""
+                       epilogue, bias, out_dtype, block_b, maps=None):
+    """The shared body of the int8 and fp8 N:M single GEMMs, masked when
+    ``maps = (kmap, kmask)`` is given: checks, the plain version on CPU
+    tensors, else one launch counted on ``wrapper``."""
     kernel = wrapper.__name__
     source, _, raw_dtype = _build.QUANT_CLASSES[storage]
     epi = epilogue or EpilogueSpec()
@@ -114,13 +157,20 @@ def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_sc
         raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
     check_single_epilogue(kernel, epi, bias, o)
     _check_storage(kernel, storage, x_q, values)
+    bb = block_b or _build.block_rows(b)
+    if maps is not None:
+        check_maps(kernel, *maps, b, ke, bb)
     if x_q.device.type == "cpu":
+        if maps is not None:
+            return nm_spmm_masked_quantized_ref(x_q, values, meta_packed, *maps, n, x_scale,
+                                                w_scale, block_b=bb, epilogue=epi, bias=bias,
+                                                out_dtype=out_dtype)
         return nm_spmm_quantized_ref(x_q, values, meta_packed, x_scale, w_scale, n,
                                      epilogue=epi, bias=bias, out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
     kind = _build.out_kind(kernel, out_dtype, raw)
     bias32 = None if bias is None else bias.float().contiguous()
-    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    kmask = () if maps is None else (maps[1],)
+    extra = [t for t in (*kmask, x_scale, w_scale, bias32) if t is not None]
     _build.check_operands(kernel, x_q, values, meta_packed, *extra, block_b=bb,
                           x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
@@ -128,9 +178,9 @@ def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_sc
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel}")(
-            x_q.data_ptr(), values.data_ptr(), meta_packed.data_ptr(), _ptr(x_scale),
-            _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act],
-            kind, bb, _build.stream_of(x_q))
+            x_q.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
+            *(t.data_ptr() for t in kmask), _ptr(x_scale), _ptr(w_scale), _ptr(bias32),
+            y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -167,6 +217,44 @@ def nm_spmm_fp8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tens
 
 
 nm_spmm_fp8.launches = 0
+
+
+def nm_spmm_masked_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+                        kmap: torch.Tensor, kmask: torch.Tensor, n: int,
+                        x_scale: Optional[torch.Tensor] = None,
+                        w_scale: Optional[torch.Tensor] = None, *,
+                        epilogue: Optional[EpilogueSpec] = None,
+                        bias: Optional[torch.Tensor] = None,
+                        out_dtype: torch.dtype = torch.float32,
+                        block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_int8` with the block skip of :func:`nm_spmm_masked`
+    (maps over the int8 rows; the CUDA body ignores ``kmap``).  Bitwise
+    :func:`nm_spmm_int8` on the same rows."""
+    return _nm_spmm_quantized(nm_spmm_masked_int8, torch.int8, x_q, values, meta_packed,
+                              x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
+                              maps=(kmap, kmask))
+
+
+nm_spmm_masked_int8.launches = 0
+
+
+def nm_spmm_masked_fp8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+                       kmap: torch.Tensor, kmask: torch.Tensor, n: int,
+                       x_scale: Optional[torch.Tensor] = None,
+                       w_scale: Optional[torch.Tensor] = None, *,
+                       epilogue: Optional[EpilogueSpec] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       out_dtype: torch.dtype = torch.float32,
+                       block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_fp8` with the block skip of :func:`nm_spmm_masked`
+    (maps over the e4m3 rows; the CUDA body ignores ``kmap``).  Bitwise
+    :func:`nm_spmm_fp8` on the same rows."""
+    return _nm_spmm_quantized(nm_spmm_masked_fp8, torch.float8_e4m3fn, x_q, values,
+                              meta_packed, x_scale, w_scale, n, epilogue, bias, out_dtype,
+                              block_b, maps=(kmap, kmask))
+
+
+nm_spmm_masked_fp8.launches = 0
 
 
 def _nm_spmm_dual_quantized(wrapper, storage, x_q, values_g, meta_g, values_u, meta_u, n,

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the nm_spmm kernels: decompress the N:4
 weight, then the tile_gemm formulation (fp32 accumulation, epilogue in
 fp32, one cast; for int8 or e4m3 values the quantized accumulator and
-flush of ``tile_gemm/ref.py``).  ``*_int8_ref`` and ``*_fp8_ref`` name the
+flush of ``tile_gemm/ref.py``).  The masked versions zero the tiles
+``kmask`` marks dead first (``tile_gemm/ref.py::zero_dead_tiles``).  ``*_int8_ref`` and ``*_fp8_ref`` name the
 same functions."""
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from ...core import nm
 from ..epilogue import EpilogueSpec
 from ..tile_gemm.ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
-                             tile_gemm_quantized_ref, tile_gemm_ref)
+                             tile_gemm_quantized_ref, tile_gemm_ref, zero_dead_tiles)
 
 
 def dense_weight(values: torch.Tensor, meta_packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -61,3 +62,28 @@ def nm_spmm_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
 
 nm_spmm_int8_ref = nm_spmm_fp8_ref = nm_spmm_quantized_ref
 nm_spmm_dual_int8_ref = nm_spmm_dual_fp8_ref = nm_spmm_dual_quantized_ref
+
+
+def nm_spmm_masked_ref(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
+                       kmap: torch.Tensor, kmask: torch.Tensor, n: int, *, block_b: int,
+                       block_k: int = 64, epilogue: Optional[EpilogueSpec] = None,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return nm_spmm_ref(zero_dead_tiles(x, kmask, block_b, block_k), values, meta_packed, n,
+                       epilogue=epilogue, bias=bias)
+
+
+def nm_spmm_masked_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
+                                 meta_packed: torch.Tensor, kmap: torch.Tensor,
+                                 kmask: torch.Tensor, n: int,
+                                 x_scale: Optional[torch.Tensor] = None,
+                                 w_scale: Optional[torch.Tensor] = None, *, block_b: int,
+                                 block_k: int = 64,
+                                 epilogue: Optional[EpilogueSpec] = None,
+                                 bias: Optional[torch.Tensor] = None,
+                                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return nm_spmm_quantized_ref(zero_dead_tiles(x_q, kmask, block_b, block_k), values,
+                                 meta_packed, x_scale, w_scale, n, epilogue=epilogue, bias=bias,
+                                 out_dtype=out_dtype)
+
+
+nm_spmm_masked_int8_ref = nm_spmm_masked_fp8_ref = nm_spmm_masked_quantized_ref

@@ -7,7 +7,9 @@
 (``kernels/csrc/gemm_fp8.cu``); and ``nm_spmm_gather_dual_bk_int8_requant``
 / ``nm_spmm_gather_dual_bk_fp8_requant``, the quantized duals whose flush
 requantizes to the class's narrow dtype against the next linear's static
-activation scale.
+activation scale.  K10: ``nm_spmm_gather_bk_masked`` and its int8 and fp8
+twins, with the activation-sparsity block skip (K steps of 64 compressed
+rows, ``256 / n`` activation columns).
 
 ``Y (B, O) = gather(X (B, K_eff), idx) (B, K_c) @ values (K_c, O)`` with
 ``K_c = K_eff * n / 4``: every output channel shares one in-block index
@@ -21,7 +23,8 @@ Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue) and
 ``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8, the quantized
 ones with the ``requant:<dtype>`` flush of
-``repro/kernels/epilogue.py::flush_tile``).  The quantized flush keeps
+``repro/kernels/epilogue.py::flush_tile``), and
+``::nm_spmm_gather_bk_masked`` (:445).  The quantized flush keeps
 the gather kernels' order, ``acc * w_scale * x_scale``.  CUDA tensors
 launch the kernel or raise; CPU tensors take the plain version from
 ``ref.py``.  Launch counts live in ``.launches`` on each wrapper.
@@ -36,15 +39,17 @@ import torch
 from .. import _build
 from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
-from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_requant_scale, check_scales,
-                                check_single_epilogue)
+from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale,
+                                check_scales, check_single_epilogue)
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
+                  nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref)
 
 __all__ = ["nm_spmm_gather_bk", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_dual_bk_int8", "nm_spmm_gather_dual_bk_int8_requant",
            "nm_spmm_gather_bk_fp8", "nm_spmm_gather_dual_bk_fp8",
-           "nm_spmm_gather_dual_bk_fp8_requant"]
+           "nm_spmm_gather_dual_bk_fp8_requant", "nm_spmm_gather_bk_masked",
+           "nm_spmm_gather_bk_masked_int8", "nm_spmm_gather_bk_masked_fp8"]
 
 _N = (1, 2, 4)
 
@@ -102,6 +107,48 @@ def nm_spmm_gather_bk(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, 
 nm_spmm_gather_bk.launches = 0
 
 
+def nm_spmm_gather_bk_masked(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                             kmap: torch.Tensor, kmask: torch.Tensor, n: int, *,
+                             epilogue: Optional[EpilogueSpec] = None,
+                             bias: Optional[torch.Tensor] = None,
+                             block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_bk` with the activation-sparsity block skip:
+    only the (row block, K step) tiles ``kmask`` marks live are gathered
+    and multiplied, a K step being 64 compressed rows (``256 / n``
+    activation columns).  ``kmap`` / ``kmask``: ``actsparse.block_maps``
+    over the masked X at ``block_b`` rows and ``256 / n`` columns; the
+    CUDA body ignores ``kmap``.  Bitwise :func:`nm_spmm_gather_bk` on the
+    same masked X."""
+    epi = epilogue or EpilogueSpec()
+    b, ke = x.shape
+    o = _check_gather("nm_spmm_gather_bk_masked", ke, values, idx, n)
+    check_single_epilogue("nm_spmm_gather_bk_masked", epi, bias, o)
+    bb = block_b or _build.block_rows(b)
+    check_maps("nm_spmm_gather_bk_masked", kmap, kmask, b, values.shape[0], bb, 256 // n)
+    if x.device.type == "cpu":
+        return nm_spmm_gather_masked_ref(x, values, idx, kmap, kmask, n, block_b=bb,
+                                         epilogue=epi, bias=bias)
+    bias32 = None if bias is None else bias.float().contiguous()
+    _build.check_operands("nm_spmm_gather_bk_masked", x, values, idx, kmask,
+                          *(() if bias32 is None else (bias32,)), block_b=bb)
+    if values.dtype != x.dtype:
+        raise ValueError("nm_spmm_gather_bk_masked: values must share x's dtype")
+    _build.check_tiles("nm_spmm_gather_bk_masked", values.shape[0], o)
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_nm_spmm_gather_bk_masked(x.data_ptr(), values.data_ptr(), idx.data_ptr(),
+                                             kmask.data_ptr(), _ptr(bias32), y.data_ptr(), b,
+                                             ke, o, n, ACT_CODES[epi.act], bb,
+                                             _build.stream_of(x))
+    nm_spmm_gather_bk_masked.launches += 1
+    _build.check(rc, "nm_spmm_gather_bk_masked", lib)
+    return y
+
+
+nm_spmm_gather_bk_masked.launches = 0
+
+
 def nm_spmm_gather_dual_bk(x: torch.Tensor, values_g: torch.Tensor, idx_g: torch.Tensor,
                            values_u: torch.Tensor, idx_u: torch.Tensor, n: int, *,
                            block_b: Optional[int] = None) -> torch.Tensor:
@@ -140,9 +187,10 @@ def _check_storage(kernel: str, storage: torch.dtype, *tensors: torch.Tensor) ->
 
 
 def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, epilogue,
-                      bias, out_dtype, block_b):
-    """The shared body of the int8 and fp8 gather single GEMMs: checks, the
-    plain version on CPU tensors, else one launch counted on ``wrapper``."""
+                      bias, out_dtype, block_b, maps=None):
+    """The shared body of the int8 and fp8 gather single GEMMs, masked when
+    ``maps = (kmap, kmask)`` is given: checks, the plain version on CPU
+    tensors, else one launch counted on ``wrapper``."""
     kernel = wrapper.__name__
     source, _, raw_dtype = _build.QUANT_CLASSES[storage]
     epi = epilogue or EpilogueSpec()
@@ -153,22 +201,29 @@ def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, e
         raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
     check_single_epilogue(kernel, epi, bias, o)
     _check_storage(kernel, storage, x_q, values)
+    bb = block_b or _build.block_rows(b)
+    if maps is not None:
+        check_maps(kernel, *maps, b, values.shape[0], bb, 256 // n)
     if x_q.device.type == "cpu":
+        if maps is not None:
+            return nm_spmm_gather_masked_quantized_ref(x_q, values, idx, *maps, n, x_scale,
+                                                       w_scale, block_b=bb, epilogue=epi,
+                                                       bias=bias, out_dtype=out_dtype)
         return nm_spmm_gather_quantized_ref(x_q, values, idx, x_scale, w_scale, n,
                                             epilogue=epi, bias=bias, out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
     kind = _build.out_kind(kernel, out_dtype, raw)
     bias32 = None if bias is None else bias.float().contiguous()
-    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    kmask = () if maps is None else (maps[1],)
+    extra = [t for t in (*kmask, x_scale, w_scale, bias32) if t is not None]
     _build.check_operands(kernel, x_q, values, idx, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values.shape[0], o)
     y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel}")(
-            x_q.data_ptr(), values.data_ptr(), idx.data_ptr(), _ptr(x_scale), _ptr(w_scale),
-            _ptr(bias32), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], kind, bb,
-            _build.stream_of(x_q))
+            x_q.data_ptr(), values.data_ptr(), idx.data_ptr(), *(t.data_ptr() for t in kmask),
+            _ptr(x_scale), _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, ke, o, n,
+            ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -205,6 +260,46 @@ def nm_spmm_gather_bk_fp8(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Te
 
 
 nm_spmm_gather_bk_fp8.launches = 0
+
+
+def nm_spmm_gather_bk_masked_int8(x_q: torch.Tensor, values: torch.Tensor,
+                                  idx: torch.Tensor, kmap: torch.Tensor, kmask: torch.Tensor,
+                                  n: int, x_scale: Optional[torch.Tensor] = None,
+                                  w_scale: Optional[torch.Tensor] = None, *,
+                                  epilogue: Optional[EpilogueSpec] = None,
+                                  bias: Optional[torch.Tensor] = None,
+                                  out_dtype: torch.dtype = torch.float32,
+                                  block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_bk_int8` with the block skip of
+    :func:`nm_spmm_gather_bk_masked` (maps over the int8 rows; the CUDA
+    body ignores ``kmap``).  Bitwise :func:`nm_spmm_gather_bk_int8` on the
+    same rows."""
+    return _gather_quantized(nm_spmm_gather_bk_masked_int8, torch.int8, x_q, values, idx,
+                             x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
+                             maps=(kmap, kmask))
+
+
+nm_spmm_gather_bk_masked_int8.launches = 0
+
+
+def nm_spmm_gather_bk_masked_fp8(x_q: torch.Tensor, values: torch.Tensor,
+                                 idx: torch.Tensor, kmap: torch.Tensor, kmask: torch.Tensor,
+                                 n: int, x_scale: Optional[torch.Tensor] = None,
+                                 w_scale: Optional[torch.Tensor] = None, *,
+                                 epilogue: Optional[EpilogueSpec] = None,
+                                 bias: Optional[torch.Tensor] = None,
+                                 out_dtype: torch.dtype = torch.float32,
+                                 block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_bk_fp8` with the block skip of
+    :func:`nm_spmm_gather_bk_masked` (maps over the e4m3 rows; the CUDA
+    body ignores ``kmap``).  Bitwise :func:`nm_spmm_gather_bk_fp8` on the
+    same rows."""
+    return _gather_quantized(nm_spmm_gather_bk_masked_fp8, torch.float8_e4m3fn, x_q, values,
+                             idx, x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
+                             maps=(kmap, kmask))
+
+
+nm_spmm_gather_bk_masked_fp8.launches = 0
 
 
 def _gather_dual_quantized(wrapper, storage, x_q, values_g, idx_g, values_u, idx_u, n,

@@ -10,7 +10,9 @@ kernels do (``nm_spmm_gather/kernel.py:315-317``; the tile and N:M
 kernels multiply ``x_scale`` first), so the scaled int8 outputs are
 bitwise the reference's.  Activations are quantized over their full
 K_eff row before the gather (the codes are gathered, not the floats).
-``*_int8_ref`` and ``*_fp8_ref`` name the same functions."""
+``*_int8_ref`` and ``*_fp8_ref`` name the same functions.  The masked
+versions zero the tiles ``kmask`` marks dead first, at the kernels' K
+step of 64 compressed rows, ``256 / n`` activation columns."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from ..epilogue import EpilogueSpec, flush_tile
 from ..reasons import dtype_name
-from ..tile_gemm.ref import quantized_accumulate, tile_gemm_ref
+from ..tile_gemm.ref import quantized_accumulate, tile_gemm_ref, zero_dead_tiles
 
 _SILU_MUL = EpilogueSpec(act="silu_mul")
 
@@ -90,3 +92,30 @@ def nm_spmm_gather_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
 
 nm_spmm_gather_int8_ref = nm_spmm_gather_fp8_ref = nm_spmm_gather_quantized_ref
 nm_spmm_gather_dual_int8_ref = nm_spmm_gather_dual_fp8_ref = nm_spmm_gather_dual_quantized_ref
+
+
+def nm_spmm_gather_masked_ref(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                              kmap: torch.Tensor, kmask: torch.Tensor, n: int, *,
+                              block_b: int, epilogue: Optional[EpilogueSpec] = None,
+                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return nm_spmm_gather_ref(zero_dead_tiles(x, kmask, block_b, 256 // n), values, idx, n,
+                              epilogue=epilogue, bias=bias)
+
+
+def nm_spmm_gather_masked_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
+                                        idx: torch.Tensor, kmap: torch.Tensor,
+                                        kmask: torch.Tensor, n: int,
+                                        x_scale: Optional[torch.Tensor] = None,
+                                        w_scale: Optional[torch.Tensor] = None, *,
+                                        block_b: int,
+                                        epilogue: Optional[EpilogueSpec] = None,
+                                        bias: Optional[torch.Tensor] = None,
+                                        out_dtype: torch.dtype = torch.float32
+                                        ) -> torch.Tensor:
+    return nm_spmm_gather_quantized_ref(zero_dead_tiles(x_q, kmask, block_b, 256 // n), values,
+                                        idx, x_scale, w_scale, n, epilogue=epilogue, bias=bias,
+                                        out_dtype=out_dtype)
+
+
+nm_spmm_gather_masked_int8_ref = nm_spmm_gather_masked_fp8_ref = \
+    nm_spmm_gather_masked_quantized_ref

@@ -13,7 +13,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["ReasonCode", "render", "dtype_name", "epilogue_annotation"]
+__all__ = ["ReasonCode", "render", "dtype_name", "epilogue_annotation",
+           "activation_annotation"]
 
 
 class ReasonCode(str, enum.Enum):
@@ -106,6 +107,16 @@ def render(code: ReasonCode, **ctx: Any) -> str:
 def epilogue_annotation(code) -> str:
     """``describe()``'s bracket suffix for an epilogue decision."""
     return "fused" if ReasonCode(code) is ReasonCode.EPILOGUE_FUSED else "torch"
+
+
+def activation_annotation(code) -> str:
+    """``describe()``'s bracket suffix for an activation decision."""
+    code = ReasonCode(code)
+    if code is ReasonCode.ACT_SKIP:
+        return "skip"
+    if code is ReasonCode.ACT_MASK_ONLY_JNP:
+        return "torch"
+    return "mask-only"
 
 
 _DTYPE_ALIASES = {

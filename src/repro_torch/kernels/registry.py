@@ -62,7 +62,11 @@ class KernelEntry:
     ``quantized`` entries take quantized leaves (their ``fit_blocks``
     accepts only their storage dtype) and quantize the activations
     themselves.  ``supported(backend, device) -> bool``, when set, vetoes
-    the entry on hardware that cannot run it.
+    the entry on hardware that cannot run it.  ``activation_skip`` marks
+    entries whose run adapter carries a masked (block-skip) kernel for the
+    activation-sparsity class: on a single-GEMM kernel decision with an
+    ``activation`` axis the engine passes the adapter the activation spec
+    and it runs the masked kernel on ``actsparse.block_maps``.
     """
 
     name: str
@@ -73,6 +77,7 @@ class KernelEntry:
     run_dual: Optional[Callable[..., torch.Tensor]] = None
     quantized: bool = False
     supported: Optional[Callable[[str, Optional[torch.device]], bool]] = None
+    activation_skip: bool = False
 
 
 _REGISTRY: Dict[str, List[KernelEntry]] = {}

@@ -5,13 +5,17 @@ twins ``tile_gemm_int8`` and ``tile_gemm_dual_int8``
 and ``tile_gemm_dual_fp8`` (``kernels/csrc/gemm_fp8.cu``); and
 ``tile_gemm_dual_int8_requant`` / ``tile_gemm_dual_fp8_requant``, the
 quantized duals whose flush requantizes their output to the class's
-narrow dtype against the next linear's static activation scale.
+narrow dtype against the next linear's static activation scale.  K10:
+``tile_gemm_masked`` and its int8 and fp8 twins, ``tile_gemm_masked_int8``
+and ``tile_gemm_masked_fp8``, the single GEMMs with the activation-sparsity
+block skip (one source each, the same kernel bodies with ``MASKED``).
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
 ``::tile_gemm_dual`` (:382, float, int8 and fp8 branches, the quantized
 ones with the ``requant:<dtype>`` flush of
 ``repro/kernels/epilogue.py::flush_tile``), ``::tile_gemm_int8`` (:448)
-and ``::tile_gemm_fp8`` (:482).  On CUDA tensors each wrapper launches its
+and ``::tile_gemm_fp8`` (:482), and ``::tile_gemm_masked`` (:252, float
+and scaled-quantized).  On CUDA tensors each wrapper launches its
 kernel or raises; on CPU tensors it returns the plain version from
 ``ref.py`` (the counterpart of the JAX package's interpret mode).  Each
 wrapper counts its launches in a plain integer attribute, ``.launches``.
@@ -27,11 +31,13 @@ from .. import _build
 from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
 from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
+                  tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref)
 
 __all__ = ["tile_gemm", "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_dual_fp8",
-           "tile_gemm_dual_fp8_requant", "ACT_CODES"]
+           "tile_gemm_dual_fp8_requant", "tile_gemm_masked", "tile_gemm_masked_int8",
+           "tile_gemm_masked_fp8", "ACT_CODES"]
 
 #: epilogue activation -> the C interface's act argument
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
@@ -87,6 +93,63 @@ def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
 tile_gemm.launches = 0
 
 
+def check_maps(kernel: str, kmap: torch.Tensor, kmask: torch.Tensor, b: int, k: int,
+               block_b: int, step_cols: int = _build.BLOCK_K) -> None:
+    """The masked kernels' skip maps: ``block_maps`` at the kernel's own
+    blocks, ``(ceil(B / block_b), k / 64)`` int32 (``k`` the contraction
+    the weight rows run over; ``step_cols`` the activation columns of one
+    K step).  Maps made at any other block are refused, not re-blocked."""
+    want = (-(-b // block_b), k // _build.BLOCK_K)
+    for name, t in (("kmap", kmap), ("kmask", kmask)):
+        if tuple(t.shape) != want or t.dtype != torch.int32:
+            raise ValueError(
+                f"{kernel}: {name} must be int32 {want}, block_maps at the kernel's blocks "
+                f"({block_b} rows, {step_cols} activation columns per K step); got "
+                f"{t.dtype} {tuple(t.shape)}")
+
+
+def tile_gemm_masked(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
+                     kmask: torch.Tensor, *, epilogue: Optional[EpilogueSpec] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm` with the activation-sparsity block skip: only the
+    (row block, K step) tiles ``kmask`` marks live are loaded and
+    multiplied.  ``kmap`` / ``kmask`` are ``actsparse.block_maps`` over the
+    masked X at ``block_b`` rows (``block_rows(B)`` by default) and 64
+    columns; the CUDA body branches on ``kmask`` alone and ignores
+    ``kmap`` (the TPU kernel's copy re-addressing), which it takes so that
+    the signature stays the JAX package's.  Bitwise :func:`tile_gemm` on
+    the same masked X."""
+    epi = epilogue or EpilogueSpec()
+    b, k = x.shape
+    k2, o = w.shape
+    if k != k2:
+        raise ValueError(f"tile_gemm_masked: x {tuple(x.shape)} vs w {tuple(w.shape)}")
+    check_single_epilogue("tile_gemm_masked", epi, bias, o)
+    bb = block_b or _build.block_rows(b)
+    check_maps("tile_gemm_masked", kmap, kmask, b, k, bb)
+    if x.device.type == "cpu":
+        return tile_gemm_masked_ref(x, w, kmap, kmask, block_b=bb, epilogue=epi, bias=bias)
+    bias32 = None if bias is None else bias.float().contiguous()
+    extra = () if bias32 is None else (bias32,)
+    _build.check_operands("tile_gemm_masked", x, w, kmask, *extra, block_b=bb)
+    if w.dtype != x.dtype:
+        raise ValueError(f"tile_gemm_masked: w is {w.dtype}, x is {x.dtype}")
+    _build.check_tiles("tile_gemm_masked", k, o)
+    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.vg_tile_gemm_masked(x.data_ptr(), w.data_ptr(), kmask.data_ptr(),
+                                     _ptr(bias32), y.data_ptr(), b, k, o, ACT_CODES[epi.act],
+                                     bb, _build.stream_of(x))
+    tile_gemm_masked.launches += 1
+    _build.check(rc, "tile_gemm_masked", lib)
+    return y
+
+
+tile_gemm_masked.launches = 0
+
+
 def check_scales(kernel: str, b: int, o: int, x_scale: Optional[torch.Tensor],
                  *w_scales: Optional[torch.Tensor]) -> bool:
     """The quantized kernels' scale operands: ``x_scale (B, 1)`` and each
@@ -106,10 +169,11 @@ def check_scales(kernel: str, b: int, o: int, x_scale: Optional[torch.Tensor],
 
 
 def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue, bias,
-                         out_dtype, block_b):
+                         out_dtype, block_b, maps=None):
     """The shared body of the int8 and fp8 single GEMMs (the JAX package's
-    ``_tile_gemm_quantized``): checks, the plain version on CPU tensors,
-    else one launch of the class's kernel counted on ``wrapper``."""
+    ``_tile_gemm_quantized``), masked when ``maps = (kmap, kmask)`` is
+    given: checks, the plain version on CPU tensors, else one launch of the
+    class's kernel counted on ``wrapper``."""
     kernel = wrapper.__name__
     source, _, raw_dtype = _build.QUANT_CLASSES[storage]
     epi = epilogue or EpilogueSpec()
@@ -124,21 +188,29 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
     if x_q.dtype != storage or w_q.dtype != storage:
         raise ValueError(f"{kernel}: operands must be {dtype_name(storage)}, got "
                          f"{x_q.dtype} and {w_q.dtype}")
+    bb = block_b or _build.block_rows(b)
+    if maps is not None:
+        check_maps(kernel, *maps, b, k, bb)
     if x_q.device.type == "cpu":
+        if maps is not None:
+            return tile_gemm_masked_quantized_ref(x_q, w_q, *maps, x_scale, w_scale,
+                                                  block_b=bb, epilogue=epi, bias=bias,
+                                                  out_dtype=out_dtype)
         return tile_gemm_quantized_ref(x_q, w_q, x_scale, w_scale, epilogue=epi, bias=bias,
                                        out_dtype=out_dtype)
-    bb = block_b or _build.block_rows(b)
     kind = _build.out_kind(kernel, out_dtype, raw)
     bias32 = None if bias is None else bias.float().contiguous()
-    extra = [t for t in (x_scale, w_scale, bias32) if t is not None]
+    kmask = () if maps is None else (maps[1],)
+    extra = [t for t in (*kmask, x_scale, w_scale, bias32) if t is not None]
     _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
     y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel}")(
-            x_q.data_ptr(), w_q.data_ptr(), _ptr(x_scale), _ptr(w_scale), _ptr(bias32),
-            y.data_ptr(), b, k, o, ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
+            x_q.data_ptr(), w_q.data_ptr(), *(t.data_ptr() for t in kmask), _ptr(x_scale),
+            _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, k, o, ACT_CODES[epi.act], kind, bb,
+            _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -178,6 +250,40 @@ def tile_gemm_fp8(x_q: torch.Tensor, w_q: torch.Tensor,
 
 
 tile_gemm_fp8.launches = 0
+
+
+def tile_gemm_masked_int8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tensor,
+                          kmask: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+                          w_scale: Optional[torch.Tensor] = None, *,
+                          epilogue: Optional[EpilogueSpec] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          out_dtype: torch.dtype = torch.float32,
+                          block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_int8` with the activation-sparsity block skip of
+    :func:`tile_gemm_masked` (maps over the int8 rows; the CUDA body
+    ignores ``kmap``).  Bitwise :func:`tile_gemm_int8` on the same rows."""
+    return _tile_gemm_quantized(tile_gemm_masked_int8, torch.int8, x_q, w_q, x_scale, w_scale,
+                                epilogue, bias, out_dtype, block_b, maps=(kmap, kmask))
+
+
+tile_gemm_masked_int8.launches = 0
+
+
+def tile_gemm_masked_fp8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tensor,
+                         kmask: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+                         w_scale: Optional[torch.Tensor] = None, *,
+                         epilogue: Optional[EpilogueSpec] = None,
+                         bias: Optional[torch.Tensor] = None,
+                         out_dtype: torch.dtype = torch.float32,
+                         block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_fp8` with the activation-sparsity block skip of
+    :func:`tile_gemm_masked` (maps over the e4m3 rows; the CUDA body
+    ignores ``kmap``).  Bitwise :func:`tile_gemm_fp8` on the same rows."""
+    return _tile_gemm_quantized(tile_gemm_masked_fp8, torch.float8_e4m3fn, x_q, w_q, x_scale,
+                                w_scale, epilogue, bias, out_dtype, block_b, maps=(kmap, kmask))
+
+
+tile_gemm_masked_fp8.launches = 0
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -13,7 +13,12 @@ every product of two e4m3 values is exact in fp32, so only the sums'
 order can differ from the kernel's.  The flush then runs the JAX
 kernels' order: ``float(acc) * x_scale * w_scale`` left to right in
 fp32, the epilogue (the duals' ``requant:<dtype>`` point included), one
-cast.  ``*_int8_ref`` and ``*_fp8_ref`` name the same functions."""
+cast.  ``*_int8_ref`` and ``*_fp8_ref`` name the same functions.
+
+The masked versions (K10) contract X with the tiles ``kmask`` marks dead
+zeroed (:func:`zero_dead_tiles`), then run the unmasked version: what the
+kernels compute when they skip those tiles.  ``kmap`` only re-addresses
+copies on the TPU and does not enter the result."""
 
 from __future__ import annotations
 
@@ -94,3 +99,39 @@ def tile_gemm_dual_quantized_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torc
 
 tile_gemm_int8_ref = tile_gemm_fp8_ref = tile_gemm_quantized_ref
 tile_gemm_dual_int8_ref = tile_gemm_dual_fp8_ref = tile_gemm_dual_quantized_ref
+
+
+def zero_dead_tiles(x: torch.Tensor, kmask: torch.Tensor, block_b: int,
+                    block_k: int) -> torch.Tensor:
+    """``x (B, K)`` with every (row block, K step) tile that ``kmask``
+    (``(ceil(B / block_b), K / block_k)``) marks dead set to zero.  One-byte
+    float types are masked through their byte view (+0 is the zero byte)."""
+    b, k = x.shape
+    live = kmask.bool().repeat_interleave(block_b, 0)[:b].repeat_interleave(block_k, 1)
+    if x.element_size() == 1 and x.dtype != torch.int8:
+        return torch.where(live, x.view(torch.uint8), 0).view(x.dtype)
+    return torch.where(live, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def tile_gemm_masked_ref(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
+                         kmask: torch.Tensor, *, block_b: int, block_k: int = 64,
+                         epilogue: Optional[EpilogueSpec] = None,
+                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return tile_gemm_ref(zero_dead_tiles(x, kmask, block_b, block_k), w,
+                         epilogue=epilogue, bias=bias)
+
+
+def tile_gemm_masked_quantized_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                                   kmap: torch.Tensor, kmask: torch.Tensor,
+                                   x_scale: Optional[torch.Tensor] = None,
+                                   w_scale: Optional[torch.Tensor] = None, *,
+                                   block_b: int, block_k: int = 64,
+                                   epilogue: Optional[EpilogueSpec] = None,
+                                   bias: Optional[torch.Tensor] = None,
+                                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return tile_gemm_quantized_ref(zero_dead_tiles(x_q, kmask, block_b, block_k), w_q,
+                                   x_scale, w_scale, epilogue=epilogue, bias=bias,
+                                   out_dtype=out_dtype)
+
+
+tile_gemm_masked_int8_ref = tile_gemm_masked_fp8_ref = tile_gemm_masked_quantized_ref

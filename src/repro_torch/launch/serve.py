@@ -1,7 +1,7 @@
 """Serving launcher: thin adapter over ``repro_torch.serving`` (port of
 ``repro.launch.serve``).
 
-    python -m repro_torch.launch.serve --arch internlm2_1_8b [--smoke] \
+    python -m repro_torch.launch.serve --arch internlm2_1_8b|qwen3_moe_235b_a22b [--smoke] \
         [--sparsity 2:4 --mode dense|compressed|gather] [--quantize int8|fp8 [--static-scales]] \
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \

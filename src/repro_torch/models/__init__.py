@@ -1,15 +1,18 @@
-"""The dense decoder on the serving path (port of ``repro.models``)."""
+"""The dense and MoE decoders on the serving path (port of ``repro.models``)."""
 
 from .config import ModelConfig
+from .moe import apply_moe, init_moe
 from .paged import (init_paged_caches, paged_decode_step, paged_prefill_chunk,
                     reset_slot_state)
 from .transformer import build_layout, cached_stack, forward, init_params, layer_site_keys
 
 __all__ = [
     "ModelConfig",
+    "apply_moe",
     "build_layout",
     "cached_stack",
     "forward",
+    "init_moe",
     "init_params",
     "init_paged_caches",
     "paged_decode_step",

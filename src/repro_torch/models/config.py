@@ -1,8 +1,8 @@
-"""Model configuration for the dense decoder family (port of
+"""Model configuration for the dense and MoE decoder families (port of
 ``repro.models.config``).
 
 Field names, defaults and meanings are the JAX package's, for the fields
-the dense family reads; ``torch_dtype`` replaces ``jnp_dtype``.
+the ported families read; ``torch_dtype`` replaces ``jnp_dtype``.
 """
 
 from __future__ import annotations
@@ -19,14 +19,23 @@ __all__ = ["ModelConfig"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | moe (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
     num_kv_heads: int
-    d_ff: int
+    d_ff: int                   # dense MLP or per-expert FFN width
     vocab_size: int
     head_dim: int = 128
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    moe_capacity_factor: float = 1.25
+    # expert execution: "gather" scatters a capacity of tokens per expert
+    # into a dense tile; "spgemm" keeps the full token set and runs the
+    # expert FFN as a sparse x sparse contraction (routing holes become
+    # activation sparsity the masked kernels skip)
+    moe_expert_path: str = "gather"
     act: str = "swiglu"         # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0

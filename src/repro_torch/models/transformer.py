@@ -1,4 +1,4 @@
-"""The dense decoder stack (port of the serving parts of
+"""The dense and MoE decoder stacks (port of the serving parts of
 ``repro.models.transformer``).
 
 Parameter layout.  The JAX package stacks each layout slot's layers
@@ -10,6 +10,10 @@ then repeat ``r``)::
     {"embed": (V, d), "unembed": (d, V), "final_norm": {"gamma": (d,)},
      "layers": [{"norm1", "mixer": {wq, wk, wv, wo}, "norm2",
                  "ffn": {w_in, w_gate, w_out}}, ...]}
+
+A MoE layer's ``ffn`` is ``{"router": (d, E) fp32, "w_in", "w_gate",
+"w_out"}`` with every expert linear stacked along a leading E dim
+(``models.moe``).
 
 ``repro_torch.interop.params_from_numpy`` maps a JAX tree onto it.
 :func:`layer_site_keys` names each layer's (stage, slot), the unit the
@@ -32,6 +36,7 @@ from .attention import attention_block, init_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, embed, init_embedding, init_mlp, init_rms_norm,
                      rms_norm)
+from .moe import apply_moe, init_moe
 
 Params = Dict[str, Any]
 
@@ -39,7 +44,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class Slot:
     mixer: str            # attn
-    ffn: str              # mlp
+    ffn: str              # mlp | moe
     repeat: int = 1
 
 
@@ -50,10 +55,12 @@ class Stage:
 
 
 def build_layout(cfg: ModelConfig) -> Tuple[Stage, ...]:
-    """Stage/slot layout; the port serves the dense family only."""
-    if cfg.family != "dense":
+    """Stage/slot layout; the port serves the dense and MoE families (an
+    MoE config's FFN slot is ``"moe"``)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return (Stage(cfg.num_layers, (Slot("attn", "mlp"),)),)
+    ffn = "moe" if cfg.num_experts > 0 else "mlp"
+    return (Stage(cfg.num_layers, (Slot("attn", ffn),)),)
 
 
 def layer_slots(cfg: ModelConfig) -> List[Slot]:
@@ -69,13 +76,14 @@ def layer_site_keys(cfg: ModelConfig) -> List[Tuple[int, int]]:
             for j, slot in enumerate(st.slots) for _ in range(slot.repeat)]
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def _init_layer(gen: torch.Generator, slot: Slot, cfg: ModelConfig, device) -> Params:
     return {
         "norm1": init_rms_norm(cfg.d_model, device),
         "mixer": init_attention(gen, cfg, device),
         "norm2": init_rms_norm(cfg.d_model, device),
-        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.sparsity,
-                        cfg.torch_dtype, device),
+        "ffn": (init_moe(gen, cfg, device) if slot.ffn == "moe" else
+                init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.sparsity,
+                         cfg.torch_dtype, device)),
     }
 
 
@@ -90,7 +98,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
         params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
                                            device).T.contiguous()
     params["final_norm"] = init_rms_norm(cfg.d_model, device)
-    params["layers"] = [_init_layer(gen, cfg, device) for _ in layer_slots(cfg)]
+    params["layers"] = [_init_layer(gen, slot, cfg, device) for slot in layer_slots(cfg)]
     return params
 
 
@@ -98,14 +106,17 @@ MixerFn = Callable[[Slot, Params, Dict[str, torch.Tensor], torch.Tensor],
                    Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
-def _layer(lp: Params, x: torch.Tensor, cfg: ModelConfig, mixer):
+def _layer(lp: Params, slot: Slot, x: torch.Tensor, cfg: ModelConfig, mixer):
     """One layer's body (the JAX package's ``_apply_slot`` for the dense
-    family): ``rms_norm -> mixer -> residual -> rms_norm -> MLP ->
-    residual``.  ``mixer(lp, h) -> (out, aux)``; returns ``(x, aux)``."""
+    and MoE families): ``rms_norm -> mixer -> residual -> rms_norm -> MLP
+    or MoE -> residual``.  ``mixer(lp, h) -> (out, aux)``; returns
+    ``(x, aux)``."""
     h = rms_norm(x, lp["norm1"]["gamma"])
     o, aux = mixer(lp, h)
     x = x + o
     h = rms_norm(x, lp["norm2"]["gamma"])
+    if slot.ffn == "moe":
+        return x + apply_moe(lp["ffn"], h, cfg), aux
     return x + apply_mlp(lp["ffn"], h, cfg.act, cfg.sparsity), aux
 
 
@@ -121,8 +132,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Ten
     Attention runs through the dispatch engine (``flash_attention`` on
     the cuda backend)."""
     x = embed(params["embed"], tokens)
-    for lp in params["layers"]:
-        x, _ = _layer(lp, x, cfg, lambda lp_, h: (
+    for slot, lp in zip(layer_slots(cfg), params["layers"]):
+        x, _ = _layer(lp, slot, x, cfg, lambda lp_, h: (
             attention_block(lp_["mixer"], h, cfg), None))
     return _logits(params, x, cfg)
 
@@ -135,6 +146,7 @@ def cached_stack(params: Params, caches: List[Dict[str, torch.Tensor]],
     unembed."""
     new_caches = []
     for slot, lp, lc in zip(layer_slots(cfg), params["layers"], caches):
-        x, c = _layer(lp, x, cfg, lambda lp_, h, slot=slot, lc=lc: mixer_fn(slot, lp_, lc, h))
+        x, c = _layer(lp, slot, x, cfg,
+                      lambda lp_, h, slot=slot, lc=lc: mixer_fn(slot, lp_, lc, h))
         new_caches.append(c)
     return _logits(params, x, cfg), new_caches

@@ -1,6 +1,6 @@
 """``ServingSpec`` + ``prepare``: the one offline-prep entry point (port of
-``repro.serving.spec`` for the dense, compressed and gather layouts,
-float, int8 or fp8).
+``repro.serving.spec`` for the dense and MoE families in the dense,
+compressed and gather layouts, float, int8 or fp8).
 
 ```python
 prepared = repro_torch.serving.prepare(params, ServingSpec(layout="gather",

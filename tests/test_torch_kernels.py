@@ -27,7 +27,12 @@ parity with the JAX package's Pallas fp8 kernels is in
 (bf16, int8, fp8, duals and requantizing duals) are held to their plain
 versions on the card under the same limits, with the int8 scaled
 outputs at the identity and bias points bitwise; their CPU parity with
-the Pallas gather kernels is in ``tests/test_torch_gather.py``.
+the Pallas gather kernels is in ``tests/test_torch_gather.py``.  The
+masked kernels (K10, every class and loader) are held BITWISE to their
+unmasked kernels on the same masked X (ragged B, a fully dead row block
+whose bias still flushes) and to their plain versions under the same
+limits; their CPU parity with the Pallas masked kernels is in
+``tests/test_torch_actsparse.py``.
 """
 
 import types
@@ -718,3 +723,129 @@ def test_gather_wrappers_raise_on_bad_cuda_operands(cuda_device):
         nm_spmm_gather_bk(x, leaf["values"].t().contiguous().t(), leaf["gather_idx"], 2)
     with pytest.raises(ValueError, match="bfloat16"):
         nm_spmm_gather_bk(x.float(), leaf["values"], leaf["gather_idx"], 2)
+
+
+# ------------------------------------------- K10: the masked kernels on the card
+# the MoE expert shapes: w_out (K=1536, O=4096) and (4096, 1536); B = 24 is a
+# ragged row block, B = 100 two row blocks of 64, the second one fully dead
+MASKED_SHAPES = [(8, 1536, 4096), (24, 4096, 1536), (100, 1536, 4096)]
+MASKED_LAYOUTS = [("dense", 4), ("compressed", 2), ("compressed", 1), ("gather", 2),
+                  ("gather", 1)]
+
+
+def _masked_case(dev, b, k, o, layout, n, qdtype, seed=0):
+    """Masked activations (about half the (row block, K step) tiles zeroed,
+    the first step of row block 0 and, for B > 64, all of row block 1), a
+    weight leaf of ``layout``, the kernel's maps, and the masked and
+    unmasked wrappers with their shared operands."""
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.actsparse import block_maps
+    from repro_torch.kernels.nm_spmm import kernel as nk
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.tile_gemm import kernel as tk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bb = _build.block_rows(b)
+    step = 256 // n if layout == "gather" else 64
+    nb, ns = -(-b // bb), k // step
+    live = torch.rand((nb, ns), generator=g, device=dev) < 0.5
+    live[0, 0] = False
+    if nb > 1:
+        live[1] = False
+    tiles = live.repeat_interleave(bb, 0)[:b].repeat_interleave(step, 1)
+    x = torch.randn(b, k, generator=g, device=dev).bfloat16() * tiles
+    w = torch.randn(k, o, generator=g, device=dev) * k ** -0.5
+    mode = "gather" if layout == "gather" else "compressed"
+    leaf = convert_layout({"w": w if qdtype else w.bfloat16()},
+                          SparsityConfig(n=n, m=4, mode=mode), layout if n < 4 else "dense",
+                          quantize=qdtype)
+    xs = None
+    if qdtype is not None:
+        x, xs = quantize_rows(x, leaf["w" if "w" in leaf else "values"].dtype)
+    kmap, kmask = block_maps(x, bb, step)
+    sfx = f"_{qdtype}" if qdtype else ""
+    mod, base, ops = {"dense": (tk, "tile_gemm", (leaf.get("w"),)),
+                      "compressed": (nk, "nm_spmm", (leaf.get("values"),
+                                                     leaf.get("meta_packed"))),
+                      "gather": (gk, "nm_spmm_gather_bk", (leaf.get("values"),
+                                                           leaf.get("gather_idx")))}[layout]
+    masked = getattr(mod, f"{base}_masked{sfx}")
+    plain = getattr(mod, f"{base}{sfx}")
+    return types.SimpleNamespace(x=x, xs=xs, leaf=leaf, ops=ops, n=n, kmap=kmap, kmask=kmask,
+                                 masked=masked, plain=plain, layout=layout, qdtype=qdtype)
+
+
+def _call(case, fn, maps, **kw):
+    """One wrapper call in the JAX argument order: x, weight operands, then
+    masked: kmap, kmask, [n], [x_scale, w_scale]; unmasked: [x_scale,
+    w_scale], [n]."""
+    n = [] if case.layout == "dense" else [case.n]
+    scales = [] if case.qdtype is None else [case.xs, case.leaf["scale"].reshape(1, -1)]
+    if scales:
+        kw.setdefault("out_dtype", torch.bfloat16)
+    tail = [*maps, *n, *scales] if maps else [*scales, *n]
+    return fn(case.x, *case.ops, *tail, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o", MASKED_SHAPES)
+@pytest.mark.parametrize("layout,n", MASKED_LAYOUTS)
+@pytest.mark.parametrize("qdtype", [None, "int8", "fp8"])
+def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n, qdtype):
+    """Each K10 kernel BITWISE its unmasked kernel on the same masked X
+    (dead tiles add exact zeros to the fp32 / int32 accumulator), within
+    its class's tolerance of its plain version (int8 bitwise at the
+    identity and bias points), and a fully dead row block still flushes
+    its bias and activation."""
+    case = _masked_case(cuda_device, b, k, o, layout, n, qdtype)
+    maps = (case.kmap, case.kmask)
+    bias = torch.randn(o, device=cuda_device)
+    for spec, bv in ((EpilogueSpec(), None), (EpilogueSpec(bias=True), bias),
+                     (EpilogueSpec(act="silu", bias=True), bias)):
+        before = case.masked.launches
+        got = _call(case, case.masked, maps, epilogue=spec, bias=bv)
+        torch.cuda.synchronize()
+        assert case.masked.launches == before + 1
+        assert torch.equal(got, _call(case, case.plain, (), epilogue=spec, bias=bv)), spec
+        want = _call(types.SimpleNamespace(**{**vars(case), "x": case.x.cpu(),
+                                              "xs": None if case.xs is None else case.xs.cpu(),
+                                              "ops": tuple(t.cpu() for t in case.ops),
+                                              "leaf": {kk: v.cpu() for kk, v in
+                                                       case.leaf.items()}}),
+                     case.masked, tuple(t.cpu() for t in maps), epilogue=spec,
+                     bias=None if bv is None else bv.cpu())
+        if qdtype == "int8" and spec.act is None:
+            assert torch.equal(got.cpu(), want), spec
+        else:
+            assert_scaled_close(got, want, 1e-2)
+        if b > 64:   # row block 1 is dead: act(0 + bias) on each of its rows
+            dead = torch.zeros((o,), device=cuda_device)
+            if bv is not None:
+                dead = dead + bv
+            if spec.act == "silu":
+                dead = torch.nn.functional.silu(dead)
+            assert_scaled_close(got[64:], dead.expand(b - 64, o).to(got.dtype), 1e-2)
+    if qdtype is not None:   # the raw accumulator too
+        nn = () if layout == "dense" else (n,)
+        got = case.masked(case.x, *case.ops, *maps, *nn)
+        raw = case.plain(case.x, *case.ops, *((None, None) if nn else ()), *nn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, raw)
+
+
+@pytest.mark.cuda
+def test_masked_kernels_skip_by_kmask_alone_on_card(cuda_device):
+    """A live tile that kmask marks dead is skipped: the kernel computes
+    with that tile zeroed (the plain version's definition), and a map made
+    at another block is refused."""
+    from repro_torch.kernels.tile_gemm.kernel import tile_gemm_masked
+    case = _masked_case(cuda_device, 8, 1536, 4096, "dense", 4, None)
+    x = torch.randn_like(case.x)                          # every tile live
+    kmask = case.kmask.clone()
+    got = tile_gemm_masked(x, case.ops[0], case.kmap, kmask)
+    want = tile_gemm(x * kmask.bool().repeat_interleave(64, 1)[:, :1536].repeat(8, 1)
+                     .to(x.dtype), case.ops[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="block_maps at the kernel's blocks"):
+        tile_gemm_masked(x, case.ops[0], case.kmap[:, :12], kmask[:, :12])
