@@ -64,10 +64,22 @@ Phases, each of which fails the run on a miss:
              versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
              bound counting the live tiles only.
+             The quantized ones also run the requant:<dtype> flush (gelu)
+             at ~40% live, bitwise the unmasked *_requant kernel's codes.
+   requant — K0's remainder, the six single GEMMs with the requant:<dtype>
+   singles   flush (tile_gemm / nm_spmm / nm_spmm_gather_bk x int8 / fp8
+             ``*_requant``) at gemma3-1b's gelu w_in shape (K, O) = (1152,
+             6912), dense, compressed 2:4 and 1:4 and gather 2:4, B in {8,
+             64, 256}: codes equal to the plain version's but one code / one
+             e4m3 step on at most REQUANT_SHARE of them (gelu's tanhf may
+             differ by an ulp).  Timed beside the unfused path the port ran
+             before (the same kernel storing bf16, then the static quantize
+             pass) and the library call on the same operands.
    attn    — flash_attention against its plain version at the
              calibration forward's shape (8 x 32 tokens) and at prefill
-             shapes (T = 512, 2048), 16 query heads over 8 KV heads, head
-             dim 128, bf16, each output row within ATTN_TOL of its own
+             shapes (T = 512, 2048), bf16: 16 query heads over 8 KV heads of
+             head dim 128 (internlm2-1.8b), then 4 over 1 of 256 (gemma3-1b),
+             each output row within ATTN_TOL of its own
              max|plain| (a late row averages ~T keys and is ~20x smaller
              than row 0, so one limit scaled by the whole output's max
              would not see a fault confined to far rows); the library
@@ -103,8 +115,23 @@ Phases, each of which fails the run on a miss:
              and gate-up site (every expert's) quantizing against its static
              scale, every w_out fed the int8 / e4m3 rows its gate-up dual
              requantized.
+             Then full-width gemma3-1b, all 26 layers (local/global
+             attention, window 512, a gelu MLP, head_dim 256, tied
+             embeddings), 7 runs: bf16 dense, then static int8 and static
+             fp8 in each of dense, compressed 2:4 and gather 2:4, on the
+             seeded trace with every 4th prompt 576-768 tokens long and
+             max_len 1024 (decode passes the window; the trace is printed):
+             every w_out's requant decision fused, so every w_in launches
+             its layout's ``*_requant`` single and no quantize pass runs
+             before a w_out; 18 calibrated sites; flash_attention (D = 256)
+             26 times per calibration; the decode step profiled at
+             position 600.  Then starcoder2-3b at full width, cut to 2
+             layers, static int8 compressed 2:4 (the gelu MLP, no window,
+             head_dim 128).
 4. tiers   — one prefill chunk + one decode step under the cuda and the
-             torch backends on the same params; logits must agree to
+             torch backends on the same params (gemma3: 9 chunks, the last
+             one's logits compared, and a decode at position 576, past
+             the window); logits must agree to
              3e-2 of max|torch| (bf16 rounding differs between tiers) for
              the float layouts, to INT8_TIER_TOL / STATIC_TIER_TOL for the
              int8 ones and FP8_TIER_TOL for the fp8 ones (the cuda tier
@@ -198,6 +225,17 @@ REPLACES = {
        for q in ("", "_int8", "_fp8")},
     **{f"nm_spmm_gather_dual_bk{q}": "src/repro/kernels/nm_spmm_gather/kernel.py:566"
        for q in ("", "_int8", "_fp8", "_int8_requant", "_fp8_requant")},
+    # K0's remainder: the single quantized GEMMs with the requant:<dtype>
+    # flush (epilogue.py:143, :162 inside _tile_gemm_quantized :133,
+    # _nm_spmm_quantized :187 and nm_spmm_gather_bk)
+    "tile_gemm_int8_requant": "src/repro/kernels/tile_gemm/kernel.py:448",
+    "tile_gemm_fp8_requant": "src/repro/kernels/tile_gemm/kernel.py:482",
+    "nm_spmm_int8_requant": "src/repro/kernels/nm_spmm/kernel.py:506",
+    "nm_spmm_fp8_requant": "src/repro/kernels/nm_spmm/kernel.py:543",
+    **{f"nm_spmm_gather_bk_{q}_requant": "src/repro/kernels/nm_spmm_gather/kernel.py:324"
+       for q in ("int8", "fp8")},
+    # flash_attention at gemma3's head_dim 256 (the same wrapper and source)
+    "flash_attention_d256": "src/repro/kernels/flash_attention/kernel.py:79",
     # K10, the activation-sparsity (block-skip) singles, float and quantized
     **{f"tile_gemm_masked{q}": "src/repro/kernels/tile_gemm/kernel.py:252"
        for q in ("", "_int8", "_fp8")},
@@ -771,6 +809,120 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
     torch.cuda.synchronize()
 
 
+# K0's remainder at gemma3-1b's gelu w_in, (K, O) = (d_model, d_ff): the
+# single GEMMs with the requant:<dtype> flush.  Gather 1:4 contracts K * n /
+# 4 = 288 rows there, not a multiple of the kernels' 64, and is left out.
+REQUANT_LAYOUTS = (("dense", 4), ("compressed", 2), ("compressed", 1), ("gather", 2))
+# (kernel module, wrapper base name) of each layout
+LAYOUT_MODULES = {"dense": ("tile_gemm", "tile_gemm"), "compressed": ("nm_spmm", "nm_spmm"),
+                  "gather": ("nm_spmm_gather", "nm_spmm_gather_bk")}
+
+
+def requant_single_phase(cfg, gen, card_line, rows, qdtype):
+    """The six ``*_requant`` singles of one class (int8 or e4m3) at the
+    gelu w_in shape, B in {8, 64, 256}, act gelu, against the scale a
+    calibration on these rows would give w_out (absmax / qmax): codes equal
+    to the plain version's but one code / one e4m3 step on at most
+    REQUANT_SHARE of them.  Timed beside the plain version, the unfused
+    path the port ran before the single-GEMM requantize (the same kernel
+    storing bf16 rows, then ``quantize_rows_static`` against the same
+    scale) and the class's library call on the same operands
+    (torch._int_mm / torch._scaled_mm on the dense or decompressed weight,
+    the gather's on the pre-gathered X).  Bound: x codes and scales, the
+    weight bytes, the scale and one byte per output."""
+    from repro_torch.core.quantize import quantize_rows, quantize_rows_static
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.epilogue import EpilogueSpec
+    from repro_torch.kernels.nm_spmm.ref import dense_weight
+    from repro_torch.kernels.nm_spmm_gather.ref import gather_columns
+
+    dev, bf16 = "cuda", torch.bfloat16
+    fp8 = qdtype == FP8
+    cls, qmax = ("fp8", 448.0) if fp8 else ("int8", 127.0)
+    lay = column_major if fp8 else int_mm_layout()[1]
+    k, o = cfg.d_model, cfg.d_ff
+    gelu = EpilogueSpec(act="gelu")
+    record = recorder(rows, card_line)
+    for layout, n in REQUANT_LAYOUTS:
+        modname, base = LAYOUT_MODULES[layout]
+        km = importlib.import_module(f"repro_torch.kernels.{modname}.kernel")
+        rm = importlib.import_module(f"repro_torch.kernels.{modname}.ref")
+        fn, single = getattr(km, f"{base}_{cls}_requant"), getattr(km, f"{base}_{cls}")
+        ref = getattr(rm, f"{modname}_{cls}_requant_ref")
+        nn = () if layout == "dense" else (n,)
+        mode = "gather" if layout == "gather" else "compressed"
+
+        def leaf():
+            w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+            lf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode=mode),
+                                layout if n < 4 else "dense", quantize=qdtype)
+            lf["ws"] = lf["scale"].reshape(1, -1)
+            if layout == "dense":
+                lf["ops"], dense = (lf["w"],), lf["w"]
+            elif layout == "compressed":
+                lf["ops"] = (lf["values"], lf["meta_packed"])
+                dense = dense_weight(lf["values"], lf["meta_packed"], n)
+            else:
+                lf["ops"], dense = (lf["values"], lf["gather_idx"]), lf["values"]
+            lf["lib"] = lay(dense)
+            return lf
+
+        kc = k * n // 4
+        wb = kc * o + (kc * o // 4 if layout == "compressed" else
+                       4 * kc if layout == "gather" else 0) + 4 * o
+        lfs = [leaf() for _ in range(copies_for(wb))]
+        name = f"{base}_{cls}_requant"
+        for b in (8, 64, 256):
+            xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16),
+                                   qdtype)
+            y = single(xq, *lfs[0]["ops"], xs, lfs[0]["ws"], *nn, epilogue=gelu)
+            rq = (y.float().abs().amax() / qmax).reshape(())
+
+            def run(xq_, xs_, lf, rq_=rq):
+                return fn(xq_, *lf["ops"], xs_, lf["ws"], *nn, rq_, epilogue=gelu)
+
+            def plain(xq_, xs_, lf, rq_=rq):
+                return ref(xq_, *lf["ops"], xs_, lf["ws"], *nn, rq_, epilogue=gelu)
+
+            def unfused(xq_, xs_, lf, rq_=rq):
+                h = single(xq_, *lf["ops"], xs_, lf["ws"], *nn, epilogue=gelu, out_dtype=bf16)
+                return quantize_rows_static(h, rq_, qdtype)[0]
+
+            before = fn.launches
+            got, want = run(xq, xs, lfs[0]), plain(xq, xs, lfs[0])
+            torch.cuda.synchronize()
+            if fn.launches != before + 1:
+                fail(f"{name}: the wrapper did not count its launch")
+            if got.dtype != qdtype or want.dtype != qdtype:
+                fail(f"{name} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
+            delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
+            share = (delta == 1).float().mean().item()
+            if delta.max().item() > 1 or share > REQUANT_SHARE:
+                fail(f"{name} B={b} n={n}: codes off by up to {delta.max().item()} step(s) "
+                     f"on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
+            ops = [(xq, xs, lf) for lf in lfs]
+            if layout == "gather":
+                xl = [gather_columns(xq, lf["gather_idx"], n) for lf in lfs]
+            else:
+                xl = [xq] * len(lfs)
+            if fp8:
+                r16 = -(-b // 16) * 16
+                lib_fn = scaled_mm
+                lib_ops = [(pad_rows(x_, r16), lf["lib"], pad_rows(xs, r16, 1.0), lf["ws"])
+                           for x_, lf in zip(xl, lfs)]
+            else:
+                lib_fn, lib_ops = int_mm_padded, [(x_, lf["lib"]) for x_, lf in zip(xl, lfs)]
+            record(name, b, k, o, n, got, want, time_ms(run, ops), time_ms(plain, ops),
+                   time_ms(lib_fn, lib_ops), b * k + 4 * b + wb + b * o + 4, 2 * b * kc * o,
+                   peak=FP8_OPS if fp8 else INT8_OPS, tol=None, off_by_one_share=share,
+                   unfused_ms=time_ms(unfused, ops), act="gelu",
+                   library="pre-gathered X" if layout == "gather" else "same operands")
+            del ops, lib_ops, xl
+        del lfs
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 # the qwen3-moe expert shapes of the K10 phase: w_out (K = d_ff, O = d_model)
 # and the gate-up's (d_model, d_ff); live shares of the (row block, K step)
 # tiles: none (launch + flush), about 40%, all (the MASKED flag's overhead)
@@ -794,12 +946,15 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     dense or decompressed weight, the gather's on the pre-gathered X);
     the bound counts the live tiles only: X's live tiles, the weight rows
     of the live steps, the scales, the map and the output, and 2 * rows *
-    64 * O operations per live tile."""
+    64 * O operations per live tile.  The quantized ones also run the
+    requant:<dtype> flush (gelu) at about 40% live, bitwise the unmasked
+    ``*_requant`` kernel's codes on the same rows."""
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
     from repro_torch.kernels import _build
     from repro_torch.kernels.actsparse import block_maps
+    from repro_torch.kernels.epilogue import EpilogueSpec
     from repro_torch.kernels.nm_spmm import kernel as nk
     from repro_torch.kernels.nm_spmm.ref import dense_weight
     from repro_torch.kernels.nm_spmm_gather import kernel as gk
@@ -864,12 +1019,9 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     for layout, n in MASKED_LAYOUTS:
         mod = mods[layout]
         base = MASKED_NAMES[layout]
-        base_plain = {"dense": "tile_gemm", "compressed": "nm_spmm",
-                      "gather": "nm_spmm_gather_bk"}[layout]
+        ref_mod, base_plain = LAYOUT_MODULES[layout]
         masked_fn = getattr(mod, f"{base}{sfx}")
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
-        ref_mod = {"dense": "tile_gemm", "compressed": "nm_spmm",
-                   "gather": "nm_spmm_gather"}[layout]
         ref_fn = getattr(importlib.import_module(f"repro_torch.kernels.{ref_mod}.ref"),
                          f"{ref_mod}_masked{'_quantized' if qdtype else ''}_ref")
         ref_kw = {**({} if layout == "gather" else {"block_k": 64}),
@@ -926,6 +1078,22 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                            exact=int8, live_share=n_live / nk_, unmasked_ms=unmasked_ms,
                            bitwise_unmasked=True, library="same masked X"
                            + (", pre-gathered" if layout == "gather" else ""))
+                    if qdtype is not None and 0 < share < 1:
+                        # the requant:<dtype> flush (gelu) on the masked kernel: the
+                        # codes of the unmasked *_requant kernel on the same rows
+                        rq = (full.float().abs().amax() / (448.0 if fp8 else 127.0)).reshape(())
+                        nn = () if layout == "dense" else (n,)
+                        gelu = EpilogueSpec(act="gelu")
+                        codes = masked_fn(x, *ops_of(layout, lfs[0]), *maps, *nn, xs,
+                                          lfs[0]["ws"], epilogue=gelu, requant_scale=rq)
+                        same = getattr(mod, f"{base_plain}{sfx}_requant")(
+                            x, *ops_of(layout, lfs[0]), xs, lfs[0]["ws"], *nn, rq,
+                            epilogue=gelu)
+                        torch.cuda.synchronize()
+                        if codes.dtype != qdtype or not torch.equal(as_bytes(codes),
+                                                                    as_bytes(same)):
+                            fail(f"{base}{sfx} B={b} K={k} O={o} n={n}: the requantizing "
+                                 f"flush is not bitwise the unmasked requant kernel's")
             del lfs
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -935,11 +1103,13 @@ ATTN_SHAPES = ((8, 32), (1, 512), (1, 2048))    # (B, T): calibration, then pref
 
 
 def attention_phase(cfg, gen, card_line, rows):
-    """flash_attention against its plain version, timed beside it and
-    beside F.scaled_dot_product_attention on the same (GQA) inputs.  q, k
-    and v are views of (B, T, H, D) projections, as the model passes them.
-    Bound: q, k, v and o moved once; 4 * D flops per (query, key) pair at
-    or below the diagonal (the pairs this causal run computes)."""
+    """flash_attention against its plain version at ``cfg``'s heads and
+    head_dim (internlm2-1.8b: 16 over 8 of 128; gemma3-1b: 4 over 1 of
+    256), timed beside it and beside F.scaled_dot_product_attention on the
+    same (GQA) inputs.  q, k and v are views of (B, T, H, D) projections,
+    as the model passes them.  Bound: q, k, v and o moved once; 4 * D
+    flops per (query, key) pair at or below the diagonal (the pairs this
+    causal run computes)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention
@@ -1026,6 +1196,27 @@ MOE_RUNS = (("gather", "dense", None, None, False),) + tuple(
     ("spgemm", layout, sparsity, qdtype, static)
     for qdtype, static in ((None, False), ("int8", True), ("fp8", False))
     for layout, sparsity in (("dense", None), ("compressed", (2, 4)), ("gather", (2, 4))))
+# gemma3-1b at full width and all 26 layers (local/global attention, a gelu
+# MLP, head_dim 256, tied embeddings): bf16 dense, then static int8 and
+# static fp8 in each of dense, compressed 2:4 and gather 2:4.  Gather 1:4 is
+# left out: K * n / 4 = 288 for d_model 1152 is not a multiple of 64, so its
+# q/k/v sites would plan no-kernel-fits.  (layout, sparsity, qdtype, static,
+# depth)
+GEMMA_ARCH = "gemma3_1b"
+GEMMA_RUNS = (("dense", None, None, False, 26),) + tuple(
+    (layout, sparsity, qdtype, True, 26) for qdtype in ("int8", "fp8")
+    for layout, sparsity in (("dense", None), ("compressed", (2, 4)), ("gather", (2, 4))))
+# gemma3's trace: the seeded 16 requests with 4 of them (every 4th) given
+# prompts of 576-768 tokens and max_len 1024, so decode positions pass the
+# 512 window and the paged steps' local band really masks keys; its tier
+# check prefills 9 chunks of 64 and decodes at position 576 (past the
+# window), and its profiled decode step runs at position 600
+LONG_PROMPTS = (576, 640, 704, 768)
+GEMMA_SERVE = dict(max_len=1024, long_prompts=True, tier_chunks=9, profile_pos=600)
+# starcoder2-3b at full width, cut to 2 of its 30 layers: the gelu MLP with
+# no window, at head_dim 128, static int8 compressed 2:4
+STARCODER_ARCH = "starcoder2_3b"
+STARCODER_RUNS = (("compressed", (2, 4), "int8", True, 2),)
 KINDS = {"dense": "tile_gemm", "compressed": "nm_spmm", "gather": "nm_spmm_gather"}
 # the kernels each class runs while serving (decode and prefill)
 LAYOUT_KERNELS = {("dense", None, False): ("tile_gemm", "tile_gemm_dual"),
@@ -1048,11 +1239,18 @@ def masked_kernel(layout, qdtype):
     return f"{MASKED_NAMES[layout]}{'_' + qdtype if qdtype else ''}"
 
 
-def expected_kernels(layout, qdtype, static, moe_path=None, calibration=False):
+def expected_kernels(layout, qdtype, static, moe_path=None, calibration=False,
+                     act="swiglu"):
     """The kernels a run launches: its layout's single and dual (the
     requantizing dual with static scales; dynamic scales and
     flash_attention in a calibration forward), and on the spgemm expert
-    path the masked single every expert's w_out runs."""
+    path the masked single every expert's w_out runs.  A gelu MLP has no
+    dual: its w_in is a single GEMM, with static scales the layout's
+    requantizing single (``*_requant``)."""
+    if act == "gelu":
+        single = LAYOUT_KERNELS[layout, qdtype, False][0]
+        out = (single,) + ((f"{single}_requant",) if static and not calibration else ())
+        return out + (("flash_attention",) if calibration else ())
     single, dual = LAYOUT_KERNELS[layout, qdtype, static and not calibration]
     out = (single, dual) + (("flash_attention",) if calibration else ())
     if moe_path == "spgemm":
@@ -1092,18 +1290,32 @@ def quantized_sites(tree, cfg):
     return len(keys)
 
 
-def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_path=None):
+def long_trace(trace, vocab_size):
+    """``trace`` with every 4th request's prompt replaced by one of
+    LONG_PROMPTS' lengths, seeded tokens."""
+    import dataclasses
+
+    gen = torch.Generator().manual_seed(4)
+    lengths = iter(LONG_PROMPTS)
+    return [dataclasses.replace(r, prompt=tuple(torch.randint(
+        1, vocab_size, (next(lengths),), generator=gen).tolist())) if i % 4 == 3 else r
+        for i, r in enumerate(trace)]
+
+
+def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_path=None,
+                 max_len=512, long_prompts=False, tier_chunks=1, profile_pos=255):
     import dataclasses
 
     from repro_torch import kernels, serving
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, layer_site_keys
 
-    tag = (f"moe-{moe_path}/" if moe_path else "") + \
+    tag = (f"{base_cfg.name}/" if base_cfg.act == "gelu" else "") + \
+        (f"moe-{moe_path}/" if moe_path else "") + \
         ("gather-" if layout == "gather" else "") + \
         (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense") + \
         (f"/{qdtype}" if qdtype else "") + ("/static" if static else "")
     spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype,
-                               static_scales=static, slots=8, max_len=512, block_len=8,
+                               static_scales=static, slots=8, max_len=max_len, block_len=8,
                                prefill_chunk=64)
     # the JAX package's way to pick the expert path: a field of the config
     cfg = spec.apply_to(dataclasses.replace(
@@ -1111,7 +1323,10 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         **({"moe_expert_path": moe_path} if moe_path else {})))
     log(f"[{tag}] depth: {cfg.num_layers} layers (d_model {cfg.d_model}, d_ff {cfg.d_ff}"
         + (f", {cfg.num_experts} experts top-{cfg.top_k}, {moe_path} path" if moe_path else "")
-        + ")")
+        + (f", window {cfg.window} on {cfg.local_global_period - 1} of every "
+           f"{cfg.local_global_period} layers" if cfg.window else "")
+        + f", head_dim {cfg.head_dim}, {cfg.act})")
+    act = cfg.act
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     calib_tokens = None
@@ -1137,7 +1352,8 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
     if static:
         log(f"[{tag}] calibration launches: {json.dumps(calib_counts)}")
         check_launches(f"{tag} calibration", calib_counts,
-                       expected_kernels(layout, qdtype, static, moe_path, calibration=True))
+                       expected_kernels(layout, qdtype, static, moe_path, calibration=True,
+                                        act=act))
         if calib_counts["flash_attention"] != cfg.num_layers:
             fail(f"[{tag}] flash_attention launched {calib_counts['flash_attention']} "
                  f"times in calibration, not once per layer ({cfg.num_layers})")
@@ -1148,10 +1364,14 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         leaves = count_leaves(prepared.params, "act_scale")
         quantized = count_leaves(prepared.params, "scale")
         sites = quantized_sites(prepared.params, cfg)
+        # one site per (stage, slot) key and leaf: gemma3-1b's 3 keys x 6
+        # leaves (no w_gate) = 18
+        want_sites = len(set(layer_site_keys(cfg))) * (7 if act == "swiglu" else 6)
         calib = {"calibrated_sites": prepared.calibrated_sites, "sites_in_tree": sites,
+                 "expected_sites": want_sites,
                  "leaves_with_act_scale": leaves, "quantized_leaves": quantized,
                  "launches": calib_counts, "torch_tier": calib_check}
-        if prepared.calibrated_sites != sites or leaves != quantized:
+        if prepared.calibrated_sites != sites or sites != want_sites or leaves != quantized:
             fail(f"[{tag}] calibration: {json.dumps(calib)}")
     elif any(calib_counts.values()):
         fail(f"[{tag}] prepare launched kernels without calibrating: {calib_counts}")
@@ -1166,6 +1386,7 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         fail(f"[{tag}] {len(off)} linear site(s) off the {want} kernels"
              f"{' with static scales' if static else ''}: {off[0]}")
     moe_plan = moe_plans(prepared, cfg, spec, tag) if moe_path == "spgemm" else None
+    rq_plan = requant_plans(prepared, cfg, spec, tag) if static and act == "gelu" else None
 
     t_plan = time.perf_counter()
     engine = serving.Engine(prepared)
@@ -1177,6 +1398,10 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         prompt_mix=((128, 1.0), (192, 1.0), (256, 1.0)), new_mix=((32, 1.0),))
     if moe_path:
         trace = trace[:MOE_REQUESTS]
+    if long_prompts:
+        trace = long_trace(trace, cfg.vocab_size)
+        log(f"[{tag}] trace: prompt lengths {[len(r.prompt) for r in trace]}, "
+            f"{trace[0].max_new_tokens} new tokens each, max_len {spec.max_len}")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     rep = engine.run(trace)
@@ -1184,13 +1409,14 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
     counts = kernels.launch_counts()
     log(f"[{tag}] served {rep.describe()}")
     log(f"[{tag}] launches: {json.dumps(counts)}")
-    check_launches(tag, counts, expected_kernels(layout, qdtype, static, moe_path))
+    check_launches(tag, counts, expected_kernels(layout, qdtype, static, moe_path, act=act))
     if rep.completed != len(trace):
         fail(f"[{tag}] {rep.completed}/{len(trace)} requests completed")
     for s in rep.stats:
         if len(s.tokens) != 32 or not all(0 <= t < cfg.vocab_size for t in s.tokens):
             fail(f"[{tag}] request {s.rid} produced {s.tokens}")
-    result = {"layout": tag, "num_layers": cfg.num_layers, "tokens_per_s": rep.tokens_per_s,
+    result = {"layout": tag, "arch": cfg.name, "num_layers": cfg.num_layers,
+              "max_len": spec.max_len, "tokens_per_s": rep.tokens_per_s,
               "p50_latency_s": rep.p50_latency_s, "p99_latency_s": rep.p99_latency_s,
               "wall_s": rep.wall_s, "model_calls": rep.model_calls,
               "prefill_chunks": rep.prefill_chunks, "decode_calls": rep.decode_calls,
@@ -1199,17 +1425,20 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         result["calibration"] = calib
     if moe_plan is not None:
         result["moe_plans"] = moe_plan
+    if rq_plan is not None:
+        result["requant_plans"] = rq_plan
     log(json.dumps(result))
     t_serve = time.perf_counter()
     # an MoE decode step is long (hundreds of ms): one profiled step is enough
     result["decode_profile"] = profile_decode(prepared, cfg, spec, tag, static,
                                               steps=1 if moe_path else 3,
                                               moe=moe_path is not None,
-                                              skip=moe_path == "spgemm")
+                                              skip=moe_path == "spgemm", position=profile_pos,
+                                              unfused=static and act == "gelu")
     t_prof = time.perf_counter()
     tol = {None: TIER_TOL, "int8": STATIC_TIER_TOL if static else INT8_TIER_TOL,
            "fp8": FP8_TIER_TOL}[qdtype]
-    tiers = tier_check(prepared, cfg, spec, tag, tol)
+    tiers = tier_check(prepared, cfg, spec, tag, tol, chunks=tier_chunks)
     if moe_path == "spgemm" and qdtype is None and layout == "dense":
         tiers["spgemm_vs_gather"] = expert_path_gap(prepared, cfg, spec, tag)
     log(f"[{tag}] seconds: prepare and checks {t_plan - t0:.1f}, serving "
@@ -1249,6 +1478,25 @@ def moe_plans(prepared, cfg, spec, tag) -> dict:
     res = {k: sorted(v) for k, v in out.items()}
     log(f"[{tag}] expert plans: {json.dumps(res)}")
     return res
+
+
+def requant_plans(prepared, cfg, spec, tag) -> dict:
+    """A gelu MLP on static scales: every layer's w_out decides
+    REQUANT_FUSED at the decode and prefill widths, so its w_in (the
+    producer) plans the requant:<dtype> flush, ``*_requant`` on the card."""
+    from repro_torch.kernels import dispatch
+
+    codes = {}
+    with prepared.activate():
+        for layer in prepared.params["layers"]:
+            for b in (spec.slots, spec.prefill_chunk):
+                _, code = dispatch.requant_decision(layer["ffn"]["w_out"], (b,), cfg.sparsity,
+                                                    dispatch=prepared.dispatch)
+                codes[code.value] = codes.get(code.value, 0) + 1
+    log(f"[{tag}] w_out requant decisions: {json.dumps(codes)}")
+    if set(codes) != {dispatch.ReasonCode.REQUANT_FUSED.value}:
+        fail(f"[{tag}] a gelu w_in does not requantize: {codes}")
+    return codes
 
 
 def calibration_tiers(params, spec, cfg, calib_tokens, prepared, tag) -> dict:
@@ -1365,17 +1613,40 @@ def skipped_tiles(step) -> dict:
             "skipped_share": 1 - live / total if total else None}
 
 
+def device_profile(step, steps: int, activities) -> tuple:
+    """``steps`` calls of ``step`` under torch.profiler: (the profiler, the
+    device-side events, host wall ms per step)."""
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    return prof, kern, wall_ms
+
+
 def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=False,
-                   skip=False):
+                   skip=False, position: int = 255, unfused=False):
     """Where a decode step's time goes: ``steps`` batched decode steps (all
-    slots active at position 255, seeded random tokens) under
+    slots active at ``position``, seeded random tokens) under
     torch.profiler; device time by kernel, and the device's busy share of
     the steps' wall time.  With ``static``, the warm-up step is
     instrumented (``check_static_sites``); with ``skip`` (the spgemm expert
     path) the share of w_out tiles its masked kernels skip is reported
-    (``skipped_tiles``); an ``moe`` step is profiled on the device alone."""
-    from torch.profiler import ProfilerActivity, profile
+    (``skipped_tiles``); an ``moe`` step is profiled on the device alone.
+    With ``unfused`` (a gelu MLP on static scales) the same step is also
+    profiled with the single-GEMM requantize declined
+    (``dispatch.requant_plan`` returning None): every w_in then stores bf16
+    rows and every w_out quantizes them itself, as the port did before;
+    its launches and device time are reported beside the fused step's."""
+    from torch.profiler import ProfilerActivity
 
+    from repro_torch.kernels import dispatch
     from repro_torch.models import init_paged_caches, paged_decode_step
 
     dev = "cuda"
@@ -1384,7 +1655,7 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=F
     table = torch.arange(1, b * w + 1, device=dev).reshape(b, w)
     tokens = torch.randint(1, cfg.vocab_size, (b, 1), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(3))
-    positions = torch.full((b,), 255, device=dev)
+    positions = torch.full((b,), position, device=dev)
     active = torch.ones((b,), dtype=torch.bool, device=dev)
 
     def step():
@@ -1403,20 +1674,21 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=F
         if skip:
             skipped = skipped_tiles(step)
             log(f"[{tag}] w_out tiles of one decode step (B={b}): {json.dumps(skipped)}")
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
+        prof, kern, wall_ms = device_profile(step, steps, activities)
+        if unfused:
+            real = dispatch.requant_plan
+            dispatch.requant_plan = lambda *a, **k: None
+            try:
                 step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA")]
+                _, kern_u, wall_u = device_profile(step, steps, [ProfilerActivity.CUDA])
+            finally:
+                dispatch.requant_plan = real
     # None, not 0, when the profiler recorded no device activity at all
     busy_ms = (sum(e.self_device_time_total for e in kern) / 1e3 / steps
                if kern else None)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    res = {"layout": tag, "step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    res = {"layout": tag, "position": position, "step_wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
            "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
            "launches_per_step": sum(e.count for e in kern) / steps,
            "top_kernels": [{"name": e.key[:90], "ms_per_step":
@@ -1427,6 +1699,13 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=F
         {"name": e.key[:60], "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
          "calls_per_step": e.count / steps}
         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]]
+    if unfused:
+        res["unfused"] = {"launches_per_step": sum(e.count for e in kern_u) / steps,
+                          "device_busy_ms": sum(e.self_device_time_total for e in kern_u)
+                          / 1e3 / steps, "step_wall_ms_device_only_profile": wall_u}
+        log(f"[{tag}] decode step, requant fused vs unfused (w_out quantizing itself): "
+            f"{res['launches_per_step']:.0f} vs {res['unfused']['launches_per_step']:.0f} "
+            f"launches, {busy_ms} vs {res['unfused']['device_busy_ms']} device ms")
     if sites is not None:
         res["static_sites"] = sites
     if skipped is not None:
@@ -1446,12 +1725,13 @@ def kept_experts(weights: torch.Tensor, cap: int) -> torch.Tensor:
     return kept.scatter(0, top_idx[:cap], top_w[:cap] > 0)
 
 
-def chunk_and_step(prepared, cfg, spec, backend):
-    """One prefill chunk of seeded tokens and one decode step under
-    ``backend``: (prefill logits (C, V), decode logits (1, V), routing),
-    where routing is, for an MoE model, each MoE call's (T, E) mask of the
-    experts that take every token (``kept_experts`` of
-    ``models.moe._route``'s weights), in call order."""
+def chunk_and_step(prepared, cfg, spec, backend, chunks: int = 1):
+    """``chunks`` prefill chunks of seeded tokens and one decode step (at
+    position ``chunks * C``) under ``backend``: (the last chunk's logits
+    (C, V), decode logits (1, V), routing), where routing is, for an MoE
+    model, each MoE call's (T, E) mask of the experts that take every
+    token (``kept_experts`` of ``models.moe._route``'s weights), in call
+    order."""
     from repro_torch.kernels import dispatch
     from repro_torch.models import init_paged_caches, moe, paged_decode_step, paged_prefill_chunk
 
@@ -1460,7 +1740,7 @@ def chunk_and_step(prepared, cfg, spec, backend):
     c = spec.prefill_chunk
     # the chunk, then the token the decode step is fed (the same in both
     # tiers, whatever each tier's argmax)
-    tokens = torch.randint(1, cfg.vocab_size, (1, c + 1), generator=gen, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (1, chunks * c + 1), generator=gen, device=dev)
     table = torch.arange(1, spec.table_width + 1, device=dev)[None, :]
     real, routes = moe._route, []
 
@@ -1474,10 +1754,12 @@ def chunk_and_step(prepared, cfg, spec, backend):
         with torch.inference_mode(), dispatch.use_dispatch(backend=backend):
             caches = init_paged_caches(cfg, spec.table_width + 1, spec.block_len,
                                        device=dev)
-            lp, caches = paged_prefill_chunk(prepared.params, caches, tokens[:, :c], 0,
-                                             table, c, cfg, spec.block_len)
-            ld, _ = paged_decode_step(prepared.params, caches, tokens[:, c:],
-                                      torch.tensor([c], device=dev), table,
+            for i in range(chunks):
+                lp, caches = paged_prefill_chunk(prepared.params, caches,
+                                                 tokens[:, i * c:(i + 1) * c], i * c, table, c,
+                                                 cfg, spec.block_len)
+            ld, _ = paged_decode_step(prepared.params, caches, tokens[:, chunks * c:],
+                                      torch.tensor([chunks * c], device=dev), table,
                                       torch.tensor([True], device=dev), cfg,
                                       spec.block_len)
     finally:
@@ -1485,26 +1767,28 @@ def chunk_and_step(prepared, cfg, spec, backend):
     return lp[0].float(), ld[0].float(), routes
 
 
-def tier_check(prepared, cfg, spec, tag, tol):
-    """The cuda tier's logits against the torch tier's.  An MoE tier may
-    route a near-tied token to another expert, or keep it over an expert's
-    capacity where the other tier drops it: the rows (prefill tokens, then
-    the decode token) whose set of experts taking them differs in any layer
-    are counted and left out of the gate."""
+def tier_check(prepared, cfg, spec, tag, tol, chunks: int = 1):
+    """The cuda tier's logits against the torch tier's, over ``chunks``
+    prefill chunks (the last one's logits are compared) and a decode step.
+    An MoE tier may route a near-tied token to another expert, or keep it
+    over an expert's capacity where the other tier drops it: the rows
+    (prefill tokens, then the decode token) whose set of experts taking
+    them differs in any layer are counted and left out of the gate."""
     c = spec.prefill_chunk
-    pc, dc, rc = chunk_and_step(prepared, cfg, spec, "cuda")
-    pt, dt, rt = chunk_and_step(prepared, cfg, spec, "torch")
+    pc, dc, rc = chunk_and_step(prepared, cfg, spec, "cuda", chunks)
+    pt, dt, rt = chunk_and_step(prepared, cfg, spec, "torch", chunks)
     if not (torch.isfinite(pc).all() and torch.isfinite(dc).all()):
         fail(f"[{tag}] non-finite logits on the cuda tier")
     if pc.shape != (c, cfg.vocab_size) or dc.shape != (1, cfg.vocab_size):
         fail(f"[{tag}] logits shapes {tuple(pc.shape)} {tuple(dc.shape)}")
     same = torch.ones(c + 1, dtype=torch.bool, device=pc.device)
-    if rc:   # MoE calls: a prefill chunk's per layer, then the decode step's
-        if len(rc) != len(rt) or len(rc) != 2 * cfg.num_layers:
+    if rc:   # MoE calls: each prefill chunk's per layer, then the decode step's
+        n_l = cfg.num_layers
+        if len(rc) != len(rt) or len(rc) != (chunks + 1) * n_l:
             fail(f"[{tag}] {len(rc)} / {len(rt)} MoE calls in the tiers' runs")
-        for a, b in zip(rc[:cfg.num_layers], rt[:cfg.num_layers]):
+        for a, b in zip(rc[-2 * n_l:-n_l], rt[-2 * n_l:-n_l]):
             same[:c] &= (a == b).all(-1)
-        for a, b in zip(rc[cfg.num_layers:], rt[cfg.num_layers:]):
+        for a, b in zip(rc[-n_l:], rt[-n_l:]):
             same[c:] &= (a == b).all(-1)
     keep_p, keep_d = same[:c], same[c:]
     # None: every row of that call re-routed, nothing left to gate
@@ -1513,7 +1797,8 @@ def tier_check(prepared, cfg, spec, tag, tol):
     agree = (torch.cat([pc, dc]).argmax(-1) == torch.cat([pt, dt]).argmax(-1))
     res = {"layout": tag, "prefill_scaled_err": e_p, "decode_scaled_err": e_d,
            "tolerance": tol, "greedy_agreement": agree.float().mean().item(),
-           "positions": agree.numel()}
+           "positions": agree.numel(), "prefill_positions": [(chunks - 1) * c, chunks * c - 1],
+           "decode_position": chunks * c}
     if rc:
         res["rerouted_row_share"] = 1 - same.float().mean().item()
         res["rows_gated"] = int(same.sum().item())
@@ -1591,8 +1876,14 @@ def main():
     for qdtype in (None, torch.int8, FP8):
         masked_kernel_phase(gen, card_line, rows, qdtype)
     log(f"masked kernel phase {time.perf_counter() - t0:.1f}s")
+    gemma_cfg = get_config(GEMMA_ARCH)
+    t0 = time.perf_counter()
+    for qdtype in (torch.int8, FP8):
+        requant_single_phase(gemma_cfg, gen, card_line, rows, qdtype)
+    log(f"requant single phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     attention_phase(cfg, gen, card_line, rows)
+    attention_phase(gemma_cfg, gen, card_line, rows)
     log(f"attention phase {time.perf_counter() - t0:.1f}s")
     for q, dt in QDTYPES.items():
         log(f"activation quantize pass, {q} (one call, B=8, K={cfg.d_model}): "
@@ -1600,13 +1891,16 @@ def main():
 
     served, tiers, launches = [], [], {}
     moe_cfg = get_config(MOE_ARCH)
-    runs = [(cfg, layout, sparsity, qdtype, static, depth, None)
+    runs = [(cfg, layout, sparsity, qdtype, static, depth, None, {})
             for layout, sparsity, qdtype, static, depth in LAYOUTS]
-    runs += [(moe_cfg, layout, sparsity, qdtype, static, MOE_DEPTH, path)
+    runs += [(moe_cfg, layout, sparsity, qdtype, static, MOE_DEPTH, path, {})
              for path, layout, sparsity, qdtype, static in MOE_RUNS]
-    for base, layout, sparsity, qdtype, static, depth, path in runs:
+    runs += [(gemma_cfg, *run, None, GEMMA_SERVE) for run in GEMMA_RUNS]
+    runs += [(get_config(STARCODER_ARCH), *run, None, {}) for run in STARCODER_RUNS]
+    flash_d256 = 0          # flash_attention launches at head_dim 256 (gemma3's)
+    for base, layout, sparsity, qdtype, static, depth, path, opts in runs:
         t0 = time.perf_counter()
-        res, tier = serve_layout(base, layout, sparsity, qdtype, static, depth, path)
+        res, tier = serve_layout(base, layout, sparsity, qdtype, static, depth, path, **opts)
         served.append(res)
         tiers.append(tier)
         # a static run's main path is its calibration forward and its serving
@@ -1615,6 +1909,8 @@ def main():
         for counts in run_counts:
             for name, cnt in counts.items():
                 launches[name] = launches.get(name, 0) + cnt
+            if base.head_dim == 256:
+                flash_d256 += counts["flash_attention"]
         torch.cuda.empty_cache()
         log(f"[{res['layout']}] phase {time.perf_counter() - t0:.1f}s")
 
@@ -1671,15 +1967,40 @@ def main():
                                f"{', n=2 (2:4)' if n == 2 else ''}, {r['live_share']:.2f} of "
                                f"its K steps live; library on the same masked X"
                                f"{' (pre-gathered)' if layout == 'gather' else ''}"})
-    # flash_attention at the calibration forward's shape (one layer's launch)
-    r = next(r for r in rows if r["kernel"] == "flash_attention")
-    entries.append({
-        "name": "flash_attention", "route": "cuda", "source": SOURCES["attention"],
-        "replaces": REPLACES["flash_attention"], "launches": launches["flash_attention"],
-        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "measured_as": f"one layer's calibration launch: B={r['B']}, T={r['T']}, "
-                       f"{r['Hq']} query / {r['Hkv']} KV heads, D={r['D']}"})
+    # K0's remainder: one gemma3 gelu w_in launch at B=8 (n=2 for N:M)
+    for layout, n in (("dense", 4), ("compressed", 2), ("gather", 2)):
+        for q in ("int8", "fp8"):
+            name = f"{LAYOUT_MODULES[layout][1]}_{q}_requant"
+            r = next(r for r in rows if (r["kernel"], r["B"], r.get("n")) == (name, 8, n))
+            entries.append({
+                "name": name, "route": "cuda", "source": SOURCES[q],
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "unfused_ms": r["unfused_ms"],
+                "off_by_one_share": max(x["off_by_one_share"] for x in rows
+                                        if x["kernel"] == name),
+                "measured_as": f"one gemma3-1b w_in launch at B=8, (K, O) = ({r['K']}, "
+                               f"{r['O']}), gelu + requant{', n=2 (2:4)' if n == 2 else ''}; "
+                               f"unfused_ms: the kernel storing bf16 then the static "
+                               f"quantize pass; library on the {r['library']}"})
+    # flash_attention at the calibration forward's shape (one layer's launch):
+    # internlm2-1.8b's head_dim 128, and gemma3-1b's 256
+    for name, hd, count in (("flash_attention", cfg.head_dim,
+                             launches["flash_attention"] - flash_d256),
+                            ("flash_attention_d256", gemma_cfg.head_dim, flash_d256)):
+        r = next(r for r in rows if r["kernel"] == "flash_attention" and r["D"] == hd
+                 and (r["B"], r["T"]) == ATTN_SHAPES[0])
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCES["attention"],
+            "replaces": REPLACES[name], "launches": count,
+            "max_abs_err": max(x["max_abs_err"] for x in rows
+                               if x["kernel"] == "flash_attention" and x["D"] == hd),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "measured_as": f"one layer's calibration launch: B={r['B']}, T={r['T']}, "
+                           f"{r['Hq']} query / {r['Hkv']} KV heads, D={r['D']}"})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(card())

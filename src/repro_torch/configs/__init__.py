@@ -11,7 +11,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ("internlm2_1_8b", "qwen3_moe_235b_a22b", "dbrx_132b")
+ARCH_IDS = ("internlm2_1_8b", "gemma3_1b", "starcoder2_3b", "mistral_large_123b",
+            "qwen3_moe_235b_a22b", "dbrx_132b")
 
 
 def _module(arch_id: str):

@@ -27,6 +27,10 @@ KERNELS = {
     "nm_spmm_dual_fp8": _nm_spmm.nm_spmm_dual_fp8,
     "tile_gemm_dual_fp8_requant": _tile_gemm.tile_gemm_dual_fp8_requant,
     "nm_spmm_dual_fp8_requant": _nm_spmm.nm_spmm_dual_fp8_requant,
+    **{name: getattr(_tile_gemm, name) for name in
+       ("tile_gemm_int8_requant", "tile_gemm_fp8_requant")},
+    **{name: getattr(_nm_spmm, name) for name in
+       ("nm_spmm_int8_requant", "nm_spmm_fp8_requant")},
     "flash_attention": _flash_attention.flash_attention,
     **{name: getattr(_tile_gemm, name) for name in
        ("tile_gemm_masked", "tile_gemm_masked_int8", "tile_gemm_masked_fp8")},

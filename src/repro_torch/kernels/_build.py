@@ -52,26 +52,26 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_gather_dual_bk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "gemm_int8.cu": {
-        "vg_tile_gemm_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
-        "vg_nm_spmm_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_gather_bk_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
-        "vg_tile_gemm_masked_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_masked_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_tile_gemm_masked_int8": (_P,) * 8 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
     },
     "gemm_fp8.cu": {
-        "vg_tile_gemm_fp8": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_fp8": (_P,) * 7 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual_fp8": (_P,) * 8 + (_I,) * 5 + (_P,),
-        "vg_nm_spmm_fp8": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_gather_bk_fp8": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
-        "vg_tile_gemm_masked_fp8": (_P,) * 7 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_masked_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
     },
     "flash_attention.cu": {
         "vg_flash_attention": (_P,) * 4 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
@@ -239,7 +239,7 @@ OUT_REQUANT = 3
 
 def out_kind(kernel: str, out_dtype: torch.dtype, raw: bool) -> int:
     """The quantized kernels store bf16 or fp32 scaled outputs, or the raw
-    accumulator (raw mode); the requantizing duals pass ``OUT_REQUANT``
+    accumulator (raw mode); the requantizing kernels pass ``OUT_REQUANT``
     themselves."""
     if raw:
         return OUT_RAW

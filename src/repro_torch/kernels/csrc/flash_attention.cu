@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) causal flash attention for repro_torch:
-// online-softmax attention over (B, Hq, T, D) bf16 with grouped KV heads.
+// online-softmax attention over (B, Hq, T, D) bf16 with grouped KV heads,
+// for head_dim D in {64, 128, 256}.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   flash_attention  repro/kernels/flash_attention/kernel.py::flash_attention
@@ -58,7 +59,11 @@ constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
 // Shared-memory layout for head_dim D (byte offsets; every buffer starts on
-// a 128-byte boundary and every wmma tile pointer on a 32-byte one).
+// a 128-byte boundary and every wmma tile pointer on a 32-byte one).  BYTES:
+// 71,680 for D = 64, 112,640 for D = 128 and 194,560 for D = 256 (gemma3's
+// head_dim: Q, K and V at 64 x 264 bf16, the scores at 64 x 68 fp32, P at
+// 64 x 72 bf16, the accumulator at 64 x 260 fp32), all under the 227 KB a
+// block may opt into, so D = 256 runs one block per SM.
 template <int D>
 struct Smem {
   static constexpr int LDH = D + 8;       // bf16 pitch of the Q, K and V tiles
@@ -262,6 +267,9 @@ int vg_flash_attention(const void* q, const void* k, const void* v, void* o, int
   if (d == 64)
     return launch<64>(q, k, v, o, b, hq, hkv, t, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
                       v_st, o_sb, o_sh, o_st, scale, stream);
+  if (d == 256)
+    return launch<256>(q, k, v, o, b, hq, hkv, t, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
+                       v_st, o_sb, o_sh, o_st, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,9 +2,10 @@
 // execution class (e4m3 weights x e4m3 activations, fp32 accumulation):
 // tile_gemm_fp8, tile_gemm_dual_fp8, nm_spmm_fp8, nm_spmm_dual_fp8, the
 // lane-aligned gather pair nm_spmm_gather_bk_fp8 and
-// nm_spmm_gather_dual_bk_fp8, the duals with a requantizing flush, and the
-// activation-sparsity (K10) variants of the three singles,
-// tile_gemm_masked_fp8, nm_spmm_masked_fp8, nm_spmm_gather_bk_masked_fp8.
+// nm_spmm_gather_dual_bk_fp8, and the activation-sparsity (K10) variants of
+// the three singles, tile_gemm_masked_fp8, nm_spmm_masked_fp8,
+// nm_spmm_gather_bk_masked_fp8; every one of them with the requantizing
+// flush (out_kind 3).
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm_fp8       repro/kernels/tile_gemm/kernel.py::tile_gemm_fp8
@@ -55,9 +56,10 @@
 // stores the fp32 accumulator itself.  Only the accumulator's summation
 // order differs from the plain version.
 //
-// Requantize (the duals only; K0's requant:float8_e4m3fn lattice point).
-// When the next linear quantizes against a calibrated static scale, the
-// dual's flush emits its rows already in e4m3 against that scale: q =
+// Requantize (K0's requant:float8_e4m3fn lattice point), in every kernel:
+// the duals, the singles (the gelu MLP's w_in: + bias -> act) and the masked
+// singles.  When the next linear quantizes against a calibrated static
+// scale, the flush emits its rows already in e4m3 against that scale: q =
 // y / rq (__fdiv_rn), clipped to +-448, then the round-to-nearest-even
 // cast (__nv_cvt_float_to_fp8, satfinite), so the codes are the plain
 // version's on the same fp32 y.  rq is read from device memory (no host
@@ -543,9 +545,8 @@ int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void*
   if (raw != (xs == nullptr) || raw != (wsg == nullptr) || (DUAL && raw != (wsu == nullptr)) ||
       (raw && (act != ACT_NONE || bias != nullptr)) || out_kind < 0 || out_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the requantized store: duals only, and only with the consumer's scale
-  if ((out_kind == OUT_E4M3) != (rq != nullptr) || (out_kind == OUT_E4M3 && !DUAL))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // the requantized store needs the consumer's scale, and only it reads one
+  if ((out_kind == OUT_E4M3) != (rq != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
     return launch<16, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, xs, wsg, wsu,
                                             bias, rq, y, b, ke, k, o, act, out_kind, stream);
@@ -606,24 +607,25 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernels do not take).  out_kind: 0 bf16, 1 fp32 (scaled,
 // xs/ws given), 2 fp32 raw accumulator (no scales), 3 e4m3 requantized
-// against *rq (duals only).  The *_masked functions take the (ceil(b / bm),
-// K steps) int32 kmask of block_maps (K / 64, or K_c / 64 for gather).
+// against *rq (rq is given exactly then).  The *_masked functions take the
+// (ceil(b / bm), K steps) int32 kmask of block_maps (K / 64, or K_c / 64 for
+// gather).
 extern "C" {
 
 int vg_tile_gemm_fp8(const void* x, const void* w, const void* xs, const void* ws,
-                     const void* bias, void* y, int b, int k, int o, int act, int out_kind,
-                     int bm, void* stream) {
+                     const void* bias, const void* rq, void* y, int b, int k, int o, int act,
+                     int out_kind, int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
-                                       nullptr, xs, ws, nullptr, bias, nullptr, y, b, k, k, o,
-                                       act, out_kind, stream);
+                                       nullptr, xs, ws, nullptr, bias, rq, y, b, k, k, o, act,
+                                       out_kind, stream);
 }
 
 int vg_tile_gemm_masked_fp8(const void* x, const void* w, const void* kmask, const void* xs,
-                            const void* ws, const void* bias, void* y, int b, int k, int o,
-                            int act, int out_kind, int bm, void* stream) {
+                            const void* ws, const void* bias, const void* rq, void* y, int b,
+                            int k, int o, int act, int out_kind, int bm, void* stream) {
   return launch_bm<false, DenseLoader, Contiguous, true>(
       bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
-      nullptr, y, b, k, k, o, act, out_kind, stream);
+      rq, y, b, k, k, o, act, out_kind, stream);
 }
 
 int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const void* xs,
@@ -636,18 +638,18 @@ int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const v
 }
 
 int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const void* xs,
-                   const void* ws, const void* bias, void* y, int b, int k, int o, int n,
-                   int act, int out_kind, int bm, void* stream) {
+                   const void* ws, const void* bias, const void* rq, void* y, int b, int k,
+                   int o, int n, int act, int out_kind, int bm, void* stream) {
   return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
-                          bias, nullptr, y, b, k, o, act, out_kind, stream);
+                          bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_masked_fp8(const void* x, const void* values, const void* meta,
                           const void* kmask, const void* xs, const void* ws, const void* bias,
-                          void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
-                          void* stream) {
+                          const void* rq, void* y, int b, int k, int o, int n, int act,
+                          int out_kind, int bm, void* stream) {
   return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
-                                nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+                                nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
@@ -661,19 +663,19 @@ int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
 int vg_nm_spmm_gather_bk_fp8(const void* x, const void* values, const void* idx,
-                             const void* xs, const void* ws, const void* bias, void* y, int b,
-                             int k, int o, int n, int act, int out_kind, int bm,
+                             const void* xs, const void* ws, const void* bias, const void* rq,
+                             void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
                              void* stream) {
   return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
-                              nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+                              nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_gather_bk_masked_fp8(const void* x, const void* values, const void* idx,
                                     const void* kmask, const void* xs, const void* ws,
-                                    const void* bias, void* y, int b, int k, int o, int n,
-                                    int act, int out_kind, int bm, void* stream) {
+                                    const void* bias, const void* rq, void* y, int b, int k,
+                                    int o, int n, int act, int out_kind, int bm, void* stream) {
   return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
-                                    nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+                                    nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_gather_dual_bk_fp8(const void* x, const void* values_g, const void* idx_g,

@@ -3,7 +3,8 @@
 // nm_spmm_int8, nm_spmm_dual_int8, the lane-aligned gather pair
 // nm_spmm_gather_bk_int8 and nm_spmm_gather_dual_bk_int8, and the
 // activation-sparsity (K10) variants of the three singles,
-// tile_gemm_masked_int8, nm_spmm_masked_int8, nm_spmm_gather_bk_masked_int8.
+// tile_gemm_masked_int8, nm_spmm_masked_int8, nm_spmm_gather_bk_masked_int8;
+// every one of them with the requantizing flush (out_kind 3).
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm_int8       repro/kernels/tile_gemm/kernel.py::tile_gemm_int8
@@ -46,12 +47,14 @@
 // nvcc cannot contract them into an FMA: the scaled output of the identity
 // and bias points is then bitwise the plain version's.
 //
-// Requantize (the duals only; K0's requant:int8 lattice point, epilogue.py
-// flush_tile / requant_rows).  When the next linear quantizes against a
-// calibrated static scale, the dual's flush emits its rows already in int8
-// against that scale: q = clip(y / rq, +-127) rounded half to even
-// (__fdiv_rn, __float2int_rn), so the codes are the plain version's on the
-// same fp32 y, and the per-row quantize pass of the consumer disappears.
+// Requantize (K0's requant:int8 lattice point, epilogue.py flush_tile /
+// requant_rows), in every kernel: the duals (silu*mul), the singles (the gelu
+// MLP's w_in: + bias -> act) and the masked singles.  When the next linear
+// quantizes against a calibrated static scale, the flush emits its rows
+// already in int8 against that scale: q = clip(y / rq, +-127) rounded half
+// to even (__fdiv_rn, __float2int_rn), so the codes are the plain version's
+// on the same fp32 y, and the consumer's quantize pass disappears.  One
+// 1-byte store per element at the (row, col) offset of the (B, O) output.
 // rq is read from device memory (no host sync per site).
 //
 // Gathered activations.  The activations are quantized per row over their
@@ -484,9 +487,8 @@ int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void*
   if (raw != (xs == nullptr) || raw != (wsg == nullptr) || (DUAL && raw != (wsu == nullptr)) ||
       (raw && (act != ACT_NONE || bias != nullptr)) || out_kind < 0 || out_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the requantized store: duals only, and only with the consumer's scale
-  if ((out_kind == OUT_I8) != (rq != nullptr) || (out_kind == OUT_I8 && !DUAL))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // the requantized store needs the consumer's scale, and only it reads one
+  if ((out_kind == OUT_I8) != (rq != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
     return launch<16, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, xs, wsg, wsu,
                                             bias, rq, y, b, ke, k, o, act, out_kind, stream);
@@ -546,25 +548,26 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // given stream, allocates nothing, and returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for arguments the kernels do not take).
 // out_kind: 0 bf16, 1 fp32 (scaled, xs/ws given), 2 int32 (raw, no scales),
-// 3 int8 requantized against *rq (duals only).  The *_masked functions take
-// the (ceil(b / bm), K steps) int32 kmask of block_maps (K / 64, or K_c / 64
-// for gather).
+// 3 int8 requantized against *rq (rq is given exactly then; every kernel,
+// the singles' act and bias applied first).  The *_masked functions take the
+// (ceil(b / bm), K steps) int32 kmask of block_maps (K / 64, or K_c / 64 for
+// gather).
 extern "C" {
 
 int vg_tile_gemm_int8(const void* x, const void* w, const void* xs, const void* ws,
-                      const void* bias, void* y, int b, int k, int o, int act, int out_kind,
-                      int bm, void* stream) {
+                      const void* bias, const void* rq, void* y, int b, int k, int o, int act,
+                      int out_kind, int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
-                                       nullptr, xs, ws, nullptr, bias, nullptr, y, b, k, k, o,
-                                       act, out_kind, stream);
+                                       nullptr, xs, ws, nullptr, bias, rq, y, b, k, k, o, act,
+                                       out_kind, stream);
 }
 
 int vg_tile_gemm_masked_int8(const void* x, const void* w, const void* kmask, const void* xs,
-                             const void* ws, const void* bias, void* y, int b, int k, int o,
-                             int act, int out_kind, int bm, void* stream) {
+                             const void* ws, const void* bias, const void* rq, void* y, int b,
+                             int k, int o, int act, int out_kind, int bm, void* stream) {
   return launch_bm<false, DenseLoader, Contiguous, true>(
       bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
-      nullptr, y, b, k, k, o, act, out_kind, stream);
+      rq, y, b, k, k, o, act, out_kind, stream);
 }
 
 int vg_tile_gemm_dual_int8(const void* x, const void* wg, const void* wu, const void* xs,
@@ -577,18 +580,18 @@ int vg_tile_gemm_dual_int8(const void* x, const void* wg, const void* wu, const 
 }
 
 int vg_nm_spmm_int8(const void* x, const void* values, const void* meta, const void* xs,
-                    const void* ws, const void* bias, void* y, int b, int k, int o, int n,
-                    int act, int out_kind, int bm, void* stream) {
+                    const void* ws, const void* bias, const void* rq, void* y, int b, int k,
+                    int o, int n, int act, int out_kind, int bm, void* stream) {
   return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
-                          bias, nullptr, y, b, k, o, act, out_kind, stream);
+                          bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_masked_int8(const void* x, const void* values, const void* meta,
                            const void* kmask, const void* xs, const void* ws, const void* bias,
-                           void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
-                           void* stream) {
+                           const void* rq, void* y, int b, int k, int o, int n, int act,
+                           int out_kind, int bm, void* stream) {
   return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
-                                nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+                                nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g,
@@ -602,19 +605,19 @@ int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
 int vg_nm_spmm_gather_bk_int8(const void* x, const void* values, const void* idx,
-                              const void* xs, const void* ws, const void* bias, void* y, int b,
-                              int k, int o, int n, int act, int out_kind, int bm,
+                              const void* xs, const void* ws, const void* bias, const void* rq,
+                              void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
                               void* stream) {
   return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
-                              nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+                              nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_gather_bk_masked_int8(const void* x, const void* values, const void* idx,
                                      const void* kmask, const void* xs, const void* ws,
-                                     const void* bias, void* y, int b, int k, int o, int n,
-                                     int act, int out_kind, int bm, void* stream) {
+                                     const void* bias, const void* rq, void* y, int b, int k,
+                                     int o, int n, int act, int out_kind, int bm, void* stream) {
   return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
-                                    nullptr, bias, nullptr, y, b, k, o, act, out_kind, stream);
+                                    nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
 int vg_nm_spmm_gather_dual_bk_int8(const void* x, const void* values_g, const void* idx_g,

@@ -19,9 +19,10 @@ activations here into the leaf's own dtype (plain torch, as the JAX
 package's is jnp): per row (``quantize_rows``), or against the leaf's
 calibrated static scale (``quantize_rows_static``) when it carries an
 ``act_scale``; rows that arrive already narrow, requantized by the
-producing dual's flush (:func:`requant_decision`), are contracted as
-they are.  The torch tier dequantizes the weight and contracts float
-activations.  :func:`attention` routes full-sequence attention to the
+producing kernel's flush (:func:`requant_decision`: the gate-up dual's,
+or the gelu MLP's single ``w_in``), are contracted as they are.  The
+torch tier dequantizes the weight and contracts float activations.
+:func:`attention` routes full-sequence attention to the
 ``flash_attention`` kernel the same way.
 
 Activation sparsity (``activation=`` an ``actsparse.ActivationSpec``):
@@ -33,8 +34,8 @@ twins) on ``actsparse.block_maps`` at the kernel's own blocks
 operand (``ACT_MASK_ONLY_DUAL`` / ``ACT_MASK_ONLY_JNP``).
 
 What the slice leaves out, each still planned by the JAX package only:
-shard_map placement, the rowwise layout, the single-GEMM requantize and
-autotuning.  Blocks are always fitted (``ReasonCode.BLOCKS_FITTED``).
+shard_map placement, the rowwise layout and autotuning.  Blocks are
+always fitted (``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
@@ -370,6 +371,16 @@ def _requant(epilogue) -> bool:
     return epilogue is not None and epilogue.spec.requant is not None
 
 
+def _q_single_kw(epilogue, out_dtype, blocks) -> Dict[str, Any]:
+    """Keyword arguments of a quantized single kernel (plain, masked or
+    ``*_requant``): a requantizing point passes the consumer's scale and
+    the kernel stores its class's codes, else ``out_dtype`` rows."""
+    kw = dict(block_b=blocks[0], **_epi_kwargs(epilogue))
+    if _requant(epilogue):
+        return dict(kw, requant_scale=epilogue.requant_scale)
+    return dict(kw, out_dtype=out_dtype)
+
+
 # No row padding in the adapters: the kernels mask the ragged edge.  The
 # masked runs take their maps from the narrow rows the kernel contracts
 # (zeros quantize to code 0, so dead tiles stay dead).
@@ -379,11 +390,12 @@ def _run_tile_gemm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
     from .tile_gemm import kernel as tk
     qdt = params["w"].dtype
     xq, xs = _quantize_acts(x2, params, qdt)
-    kw = dict(out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+    kw = _q_single_kw(epilogue, out_dtype, blocks)
     if activation is not None:
         return _q_kernel(tk, "tile_gemm_masked", qdt)(xq, params["w"], *_maps(xq, blocks),
                                                       xs, _w_scale(params), **kw)
-    return _q_kernel(tk, "tile_gemm", qdt)(xq, params["w"], xs, _w_scale(params), **kw)
+    return _q_kernel(tk, "tile_gemm", qdt, requant=_requant(epilogue))(
+        xq, params["w"], xs, _w_scale(params), **kw)
 
 
 def _run_tile_gemm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -406,13 +418,13 @@ def _run_nm_spmm_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
     from .nm_spmm import kernel as nk
     qdt = params["values"].dtype
     xq, xs = _quantize_acts(x2, params, qdt)
-    kw = dict(out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+    kw = _q_single_kw(epilogue, out_dtype, blocks)
     if activation is not None:
         return _q_kernel(nk, "nm_spmm_masked", qdt)(
             xq, params["values"], params["meta_packed"], *_maps(xq, blocks), cfg.n, xs,
             _w_scale(params), **kw)
-    return _q_kernel(nk, "nm_spmm", qdt)(xq, params["values"], params["meta_packed"], xs,
-                                         _w_scale(params), cfg.n, **kw)
+    return _q_kernel(nk, "nm_spmm", qdt, requant=_requant(epilogue))(
+        xq, params["values"], params["meta_packed"], xs, _w_scale(params), cfg.n, **kw)
 
 
 def _run_nm_spmm_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -434,12 +446,12 @@ def _run_nm_gather_q(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
     # the rows quantize over their full K_eff width; the kernel gathers codes
     qdt = params["values"].dtype
     xq, xs = _quantize_acts(x2, params, qdt)
-    kw = dict(out_dtype=out_dtype, block_b=blocks[0], **_epi_kwargs(epilogue))
+    kw = _q_single_kw(epilogue, out_dtype, blocks)
     if activation is not None:
         return _q_kernel(gk, "nm_spmm_gather_bk_masked", qdt)(
             xq, params["values"], params["gather_idx"], *_maps(xq, blocks), cfg.n, xs,
             _w_scale(params), **kw)
-    return _q_kernel(gk, "nm_spmm_gather_bk", qdt)(
+    return _q_kernel(gk, "nm_spmm_gather_bk", qdt, requant=_requant(epilogue))(
         xq, params["values"], params["gather_idx"], xs, _w_scale(params), cfg.n, **kw)
 
 
@@ -491,7 +503,7 @@ registry.register(KernelEntry(
 # --- flash attention: mode "attention", dims mapped as (b, ke, o) =
 # (T_q, T_k, head_dim), blocks = (query rows, keys, head_dim) of one
 # kernel step.  The Hopper kernel's own contract, not the TPU blocks of
-# the JAX package's _fit_flash: bf16, head_dim 64 or 128, any T (the
+# the JAX package's _fit_flash: bf16, head_dim 64, 128 or 256, any T (the
 # ragged edge is masked in the kernel).
 
 def _fit_flash(b, ke, o, n, m, dtype):

@@ -10,9 +10,11 @@ applied to the fp32 accumulator before the single cast and store.
 ``approximate="tanh"``).  ``requant:<dtype>`` quantizes the result
 against the CONSUMER's calibrated static activation scale
 (:func:`requant_rows`), so the next quantized linear contracts the
-narrow rows directly; among the kernels the quantized gate-up duals
-fuse it (``requant:int8`` and ``requant:float8_e4m3fn``); the single-GEMM
-requantize is not ported yet.
+narrow rows directly.  Every quantized kernel fuses it
+(``requant:int8`` and ``requant:float8_e4m3fn``): the gate-up duals after
+silu*mul, the single GEMMs (``*_requant``, and the masked ones) after
+bias and silu | gelu, as the gelu MLP's ``w_in`` needs; the float
+kernels take no requant point.
 
 :func:`flush_tile` is the formulation the CUDA flush implements and the
 kernels' plain versions call; :func:`apply_reference` is the unfused

@@ -19,7 +19,7 @@ from .ref import flash_attention_ref
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
 #: the head_dims the kernel is compiled for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

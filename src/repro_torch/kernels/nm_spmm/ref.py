@@ -14,7 +14,8 @@ import torch
 from ...core import nm
 from ..epilogue import EpilogueSpec
 from ..tile_gemm.ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
-                             tile_gemm_quantized_ref, tile_gemm_ref, zero_dead_tiles)
+                             tile_gemm_quantized_ref, tile_gemm_ref, with_requant,
+                             zero_dead_tiles)
 
 
 def dense_weight(values: torch.Tensor, meta_packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -41,10 +42,22 @@ def nm_spmm_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
                           w_scale: Optional[torch.Tensor], n: int, *,
                           epilogue: Optional[EpilogueSpec] = None,
                           bias: Optional[torch.Tensor] = None,
-                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          out_dtype: torch.dtype = torch.float32,
+                          requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     return tile_gemm_quantized_ref(x_q, dense_weight(values, meta_packed, n), x_scale,
                                    w_scale, epilogue=epilogue, bias=bias,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, requant_scale=requant_scale)
+
+
+def nm_spmm_quantized_requant_ref(x_q: torch.Tensor, values: torch.Tensor,
+                                  meta_packed: torch.Tensor, x_scale: torch.Tensor,
+                                  w_scale: torch.Tensor, n: int, requant_scale: torch.Tensor,
+                                  *, epilogue: Optional[EpilogueSpec] = None,
+                                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The single-GEMM requantize: the codes of the operands' class."""
+    return nm_spmm_quantized_ref(x_q, values, meta_packed, x_scale, w_scale, n,
+                                 epilogue=with_requant(epilogue, x_q.dtype), bias=bias,
+                                 requant_scale=requant_scale)
 
 
 def nm_spmm_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
@@ -61,6 +74,7 @@ def nm_spmm_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
 
 
 nm_spmm_int8_ref = nm_spmm_fp8_ref = nm_spmm_quantized_ref
+nm_spmm_int8_requant_ref = nm_spmm_fp8_requant_ref = nm_spmm_quantized_requant_ref
 nm_spmm_dual_int8_ref = nm_spmm_dual_fp8_ref = nm_spmm_dual_quantized_ref
 
 
@@ -80,10 +94,11 @@ def nm_spmm_masked_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
                                  block_k: int = 64,
                                  epilogue: Optional[EpilogueSpec] = None,
                                  bias: Optional[torch.Tensor] = None,
-                                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                                 out_dtype: torch.dtype = torch.float32,
+                                 requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     return nm_spmm_quantized_ref(zero_dead_tiles(x_q, kmask, block_b, block_k), values,
                                  meta_packed, x_scale, w_scale, n, epilogue=epilogue, bias=bias,
-                                 out_dtype=out_dtype)
+                                 out_dtype=out_dtype, requant_scale=requant_scale)
 
 
 nm_spmm_masked_int8_ref = nm_spmm_masked_fp8_ref = nm_spmm_masked_quantized_ref

@@ -7,9 +7,11 @@
 (``kernels/csrc/gemm_fp8.cu``); and ``nm_spmm_gather_dual_bk_int8_requant``
 / ``nm_spmm_gather_dual_bk_fp8_requant``, the quantized duals whose flush
 requantizes to the class's narrow dtype against the next linear's static
-activation scale.  K10: ``nm_spmm_gather_bk_masked`` and its int8 and fp8
-twins, with the activation-sparsity block skip (K steps of 64 compressed
-rows, ``256 / n`` activation columns).
+activation scale, and the singles with that flush,
+``nm_spmm_gather_bk_int8_requant`` / ``nm_spmm_gather_bk_fp8_requant``.
+K10: ``nm_spmm_gather_bk_masked`` and its int8 and fp8 twins, with the
+activation-sparsity block skip (K steps of 64 compressed rows, ``256 /
+n`` activation columns).
 
 ``Y (B, O) = gather(X (B, K_eff), idx) (B, K_c) @ values (K_c, O)`` with
 ``K_c = K_eff * n / 4``: every output channel shares one in-block index
@@ -20,11 +22,10 @@ FLOPs, no on-chip expansion.  The duals gather X twice, once through
 each weight's own index stream, from one activation read.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
-(:324, float and scaled-quantized, with the epilogue) and
-``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8, the quantized
-ones with the ``requant:<dtype>`` flush of
-``repro/kernels/epilogue.py::flush_tile``), and
-``::nm_spmm_gather_bk_masked`` (:445).  The quantized flush keeps
+(:324, float and scaled-quantized, with the epilogue),
+``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8) and
+``::nm_spmm_gather_bk_masked`` (:445), the quantized ones each with the
+``requant:<dtype>`` flush of ``repro/kernels/epilogue.py::flush_tile``.  The quantized flush keeps
 the gather kernels' order, ``acc * w_scale * x_scale``.  CUDA tensors
 launch the kernel or raise; CPU tensors take the plain version from
 ``ref.py``.  Launch counts live in ``.launches`` on each wrapper.
@@ -40,14 +41,16 @@ from .. import _build
 from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
 from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale,
-                                check_scales, check_single_epilogue)
+                                check_scales, check_single_epilogue, quantized_out,
+                                requant_spec)
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref)
 
 __all__ = ["nm_spmm_gather_bk", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
-           "nm_spmm_gather_dual_bk_int8", "nm_spmm_gather_dual_bk_int8_requant",
-           "nm_spmm_gather_bk_fp8", "nm_spmm_gather_dual_bk_fp8",
+           "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
+           "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
+           "nm_spmm_gather_bk_fp8_requant", "nm_spmm_gather_dual_bk_fp8",
            "nm_spmm_gather_dual_bk_fp8_requant", "nm_spmm_gather_bk_masked",
            "nm_spmm_gather_bk_masked_int8", "nm_spmm_gather_bk_masked_fp8"]
 
@@ -187,19 +190,20 @@ def _check_storage(kernel: str, storage: torch.dtype, *tensors: torch.Tensor) ->
 
 
 def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, epilogue,
-                      bias, out_dtype, block_b, maps=None):
+                      bias, out_dtype, block_b, maps=None, requant_scale=None):
     """The shared body of the int8 and fp8 gather single GEMMs, masked when
-    ``maps = (kmap, kmask)`` is given: checks, the plain version on CPU
+    ``maps = (kmap, kmask)`` is given, requantizing against
+    ``requant_scale`` when given: checks, the plain version on CPU
     tensors, else one launch counted on ``wrapper``."""
     kernel = wrapper.__name__
-    source, _, raw_dtype = _build.QUANT_CLASSES[storage]
-    epi = epilogue or EpilogueSpec()
+    source = _build.QUANT_CLASSES[storage][0]
+    epi = requant_spec(kernel, epilogue, storage, requant_scale)
     b, ke = x_q.shape
     o = _check_gather(kernel, ke, values, idx, n)
     raw = check_scales(kernel, b, o, x_scale, w_scale)
     if raw and not epi.is_identity:
         raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
-    check_single_epilogue(kernel, epi, bias, o)
+    check_single_epilogue(kernel, epi, bias, o, requant_scale)
     _check_storage(kernel, storage, x_q, values)
     bb = block_b or _build.block_rows(b)
     if maps is not None:
@@ -208,22 +212,24 @@ def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, e
         if maps is not None:
             return nm_spmm_gather_masked_quantized_ref(x_q, values, idx, *maps, n, x_scale,
                                                        w_scale, block_b=bb, epilogue=epi,
-                                                       bias=bias, out_dtype=out_dtype)
+                                                       bias=bias, out_dtype=out_dtype,
+                                                       requant_scale=requant_scale)
         return nm_spmm_gather_quantized_ref(x_q, values, idx, x_scale, w_scale, n,
-                                            epilogue=epi, bias=bias, out_dtype=out_dtype)
-    kind = _build.out_kind(kernel, out_dtype, raw)
+                                            epilogue=epi, bias=bias, out_dtype=out_dtype,
+                                            requant_scale=requant_scale)
+    kind, y_dtype = quantized_out(kernel, epi, storage, out_dtype, raw)
     bias32 = None if bias is None else bias.float().contiguous()
     kmask = () if maps is None else (maps[1],)
-    extra = [t for t in (*kmask, x_scale, w_scale, bias32) if t is not None]
+    extra = [t for t in (*kmask, x_scale, w_scale, bias32, requant_scale) if t is not None]
     _build.check_operands(kernel, x_q, values, idx, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values.shape[0], o)
-    y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
+    y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
-        rc = getattr(lib, f"vg_{kernel}")(
+        rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
             x_q.data_ptr(), values.data_ptr(), idx.data_ptr(), *(t.data_ptr() for t in kmask),
-            _ptr(x_scale), _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, ke, o, n,
-            ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
+            _ptr(x_scale), _ptr(w_scale), _ptr(bias32), _ptr(requant_scale), y.data_ptr(), b,
+            ke, o, n, ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -262,6 +268,40 @@ def nm_spmm_gather_bk_fp8(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Te
 nm_spmm_gather_bk_fp8.launches = 0
 
 
+def nm_spmm_gather_bk_int8_requant(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                                   x_scale: torch.Tensor, w_scale: torch.Tensor, n: int,
+                                   requant_scale: torch.Tensor, *,
+                                   epilogue: Optional[EpilogueSpec] = None,
+                                   bias: Optional[torch.Tensor] = None,
+                                   block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_bk_int8` whose flush then requantizes (the
+    single-GEMM ``requant:int8`` point): int8 codes of ``act(acc * w_scale *
+    x_scale + bias) / requant_scale``, rounded half to even and clipped to
+    +-127, against the consuming linear's static scale."""
+    return _gather_quantized(nm_spmm_gather_bk_int8_requant, torch.int8, x_q, values, idx,
+                             x_scale, w_scale, n, epilogue, bias, torch.int8, block_b,
+                             requant_scale=requant_scale)
+
+
+nm_spmm_gather_bk_int8_requant.launches = 0
+
+
+def nm_spmm_gather_bk_fp8_requant(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                                  x_scale: torch.Tensor, w_scale: torch.Tensor, n: int,
+                                  requant_scale: torch.Tensor, *,
+                                  epilogue: Optional[EpilogueSpec] = None,
+                                  bias: Optional[torch.Tensor] = None,
+                                  block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_bk_fp8` whose flush then requantizes: e4m3
+    codes clipped to +-448 (round to nearest even)."""
+    return _gather_quantized(nm_spmm_gather_bk_fp8_requant, torch.float8_e4m3fn, x_q, values,
+                             idx, x_scale, w_scale, n, epilogue, bias, torch.float8_e4m3fn,
+                             block_b, requant_scale=requant_scale)
+
+
+nm_spmm_gather_bk_fp8_requant.launches = 0
+
+
 def nm_spmm_gather_bk_masked_int8(x_q: torch.Tensor, values: torch.Tensor,
                                   idx: torch.Tensor, kmap: torch.Tensor, kmask: torch.Tensor,
                                   n: int, x_scale: Optional[torch.Tensor] = None,
@@ -269,14 +309,17 @@ def nm_spmm_gather_bk_masked_int8(x_q: torch.Tensor, values: torch.Tensor,
                                   epilogue: Optional[EpilogueSpec] = None,
                                   bias: Optional[torch.Tensor] = None,
                                   out_dtype: torch.dtype = torch.float32,
-                                  block_b: Optional[int] = None) -> torch.Tensor:
+                                  block_b: Optional[int] = None,
+                                  requant_scale: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """:func:`nm_spmm_gather_bk_int8` with the block skip of
     :func:`nm_spmm_gather_bk_masked` (maps over the int8 rows; the CUDA
     body ignores ``kmap``).  Bitwise :func:`nm_spmm_gather_bk_int8` on the
-    same rows."""
+    same rows; with ``requant_scale`` the flush requantizes as
+    :func:`nm_spmm_gather_bk_int8_requant`'s."""
     return _gather_quantized(nm_spmm_gather_bk_masked_int8, torch.int8, x_q, values, idx,
                              x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
-                             maps=(kmap, kmask))
+                             maps=(kmap, kmask), requant_scale=requant_scale)
 
 
 nm_spmm_gather_bk_masked_int8.launches = 0
@@ -289,14 +332,17 @@ def nm_spmm_gather_bk_masked_fp8(x_q: torch.Tensor, values: torch.Tensor,
                                  epilogue: Optional[EpilogueSpec] = None,
                                  bias: Optional[torch.Tensor] = None,
                                  out_dtype: torch.dtype = torch.float32,
-                                 block_b: Optional[int] = None) -> torch.Tensor:
+                                 block_b: Optional[int] = None,
+                                 requant_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """:func:`nm_spmm_gather_bk_fp8` with the block skip of
     :func:`nm_spmm_gather_bk_masked` (maps over the e4m3 rows; the CUDA
     body ignores ``kmap``).  Bitwise :func:`nm_spmm_gather_bk_fp8` on the
-    same rows."""
+    same rows; with ``requant_scale`` the flush requantizes as
+    :func:`nm_spmm_gather_bk_fp8_requant`'s."""
     return _gather_quantized(nm_spmm_gather_bk_masked_fp8, torch.float8_e4m3fn, x_q, values,
                              idx, x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
-                             maps=(kmap, kmask))
+                             maps=(kmap, kmask), requant_scale=requant_scale)
 
 
 nm_spmm_gather_bk_masked_fp8.launches = 0

@@ -22,7 +22,8 @@ import torch
 
 from ..epilogue import EpilogueSpec, flush_tile
 from ..reasons import dtype_name
-from ..tile_gemm.ref import quantized_accumulate, tile_gemm_ref, zero_dead_tiles
+from ..tile_gemm.ref import (quantized_accumulate, tile_gemm_ref, with_requant,
+                             zero_dead_tiles)
 
 _SILU_MUL = EpilogueSpec(act="silu_mul")
 
@@ -63,12 +64,25 @@ def nm_spmm_gather_quantized_ref(x_q: torch.Tensor, values: torch.Tensor, idx: t
                                  w_scale: Optional[torch.Tensor], n: int, *,
                                  epilogue: Optional[EpilogueSpec] = None,
                                  bias: Optional[torch.Tensor] = None,
-                                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                                 out_dtype: torch.dtype = torch.float32,
+                                 requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     acc = quantized_accumulate(gather_columns(x_q, idx, n), values)
     if x_scale is None:
         return acc
     return flush_tile(dequant_ws_first(acc, x_scale, w_scale), epilogue or EpilogueSpec(),
-                      out_dtype, bias=bias)
+                      out_dtype, bias=bias, rq_scale=requant_scale)
+
+
+def nm_spmm_gather_quantized_requant_ref(x_q: torch.Tensor, values: torch.Tensor,
+                                         idx: torch.Tensor, x_scale: torch.Tensor,
+                                         w_scale: torch.Tensor, n: int,
+                                         requant_scale: torch.Tensor, *,
+                                         epilogue: Optional[EpilogueSpec] = None,
+                                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The single-GEMM requantize: the codes of the operands' class."""
+    return nm_spmm_gather_quantized_ref(x_q, values, idx, x_scale, w_scale, n,
+                                        epilogue=with_requant(epilogue, x_q.dtype), bias=bias,
+                                        requant_scale=requant_scale)
 
 
 def nm_spmm_gather_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
@@ -91,6 +105,8 @@ def nm_spmm_gather_dual_quantized_ref(x_q: torch.Tensor, values_g: torch.Tensor,
 
 
 nm_spmm_gather_int8_ref = nm_spmm_gather_fp8_ref = nm_spmm_gather_quantized_ref
+nm_spmm_gather_int8_requant_ref = nm_spmm_gather_fp8_requant_ref = \
+    nm_spmm_gather_quantized_requant_ref
 nm_spmm_gather_dual_int8_ref = nm_spmm_gather_dual_fp8_ref = nm_spmm_gather_dual_quantized_ref
 
 
@@ -110,11 +126,12 @@ def nm_spmm_gather_masked_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
                                         block_b: int,
                                         epilogue: Optional[EpilogueSpec] = None,
                                         bias: Optional[torch.Tensor] = None,
-                                        out_dtype: torch.dtype = torch.float32
+                                        out_dtype: torch.dtype = torch.float32,
+                                        requant_scale: Optional[torch.Tensor] = None
                                         ) -> torch.Tensor:
     return nm_spmm_gather_quantized_ref(zero_dead_tiles(x_q, kmask, block_b, 256 // n), values,
                                         idx, x_scale, w_scale, n, epilogue=epilogue, bias=bias,
-                                        out_dtype=out_dtype)
+                                        out_dtype=out_dtype, requant_scale=requant_scale)
 
 
 nm_spmm_gather_masked_int8_ref = nm_spmm_gather_masked_fp8_ref = \

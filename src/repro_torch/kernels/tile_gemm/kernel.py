@@ -5,17 +5,19 @@ twins ``tile_gemm_int8`` and ``tile_gemm_dual_int8``
 and ``tile_gemm_dual_fp8`` (``kernels/csrc/gemm_fp8.cu``); and
 ``tile_gemm_dual_int8_requant`` / ``tile_gemm_dual_fp8_requant``, the
 quantized duals whose flush requantizes their output to the class's
-narrow dtype against the next linear's static activation scale.  K10:
+narrow dtype against the next linear's static activation scale, and
+``tile_gemm_int8_requant`` / ``tile_gemm_fp8_requant``, the single GEMMs
+with that flush (K0's remainder: the gelu MLP's ``w_in``).  K10:
 ``tile_gemm_masked`` and its int8 and fp8 twins, ``tile_gemm_masked_int8``
 and ``tile_gemm_masked_fp8``, the single GEMMs with the activation-sparsity
 block skip (one source each, the same kernel bodies with ``MASKED``).
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
-``::tile_gemm_dual`` (:382, float, int8 and fp8 branches, the quantized
-ones with the ``requant:<dtype>`` flush of
-``repro/kernels/epilogue.py::flush_tile``), ``::tile_gemm_int8`` (:448)
-and ``::tile_gemm_fp8`` (:482), and ``::tile_gemm_masked`` (:252, float
-and scaled-quantized).  On CUDA tensors each wrapper launches its
+``::tile_gemm_dual`` (:382, float, int8 and fp8 branches), ``::tile_gemm_int8``
+(:448) and ``::tile_gemm_fp8`` (:482), and ``::tile_gemm_masked`` (:252,
+float and scaled-quantized), the quantized ones each with the
+``requant:<dtype>`` flush of ``repro/kernels/epilogue.py::flush_tile``
+(:162, ``requant_rows`` :143).  On CUDA tensors each wrapper launches its
 kernel or raises; on CPU tensors it returns the plain version from
 ``ref.py`` (the counterpart of the JAX package's interpret mode).  Each
 wrapper counts its launches in a plain integer attribute, ``.launches``.
@@ -32,26 +34,32 @@ from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
 from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
-                  tile_gemm_quantized_ref, tile_gemm_ref)
+                  tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_dual_int8",
-           "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_dual_fp8",
-           "tile_gemm_dual_fp8_requant", "tile_gemm_masked", "tile_gemm_masked_int8",
-           "tile_gemm_masked_fp8", "ACT_CODES"]
+__all__ = ["tile_gemm", "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant",
+           "tile_gemm_dual_int8", "tile_gemm_dual_int8_requant", "tile_gemm_fp8",
+           "tile_gemm_fp8_requant", "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant",
+           "tile_gemm_masked", "tile_gemm_masked_int8", "tile_gemm_masked_fp8", "ACT_CODES"]
 
 #: epilogue activation -> the C interface's act argument
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
 
 
 def check_single_epilogue(kernel: str, epi: EpilogueSpec,
-                          bias: Optional[torch.Tensor], o: int) -> None:
-    if epi.requant is not None:
-        raise NotImplementedError(f"{kernel}: epilogue {epi.point!r}: the single-GEMM "
-                                  f"requantize is not ported yet (only the quantized "
-                                  f"duals fuse it)")
+                          bias: Optional[torch.Tensor], o: int,
+                          requant_scale: Optional[torch.Tensor] = None) -> None:
+    """A single GEMM's lattice point: ``(+ bias) -> (silu | gelu) ->
+    (requant:<dtype>)``, the requantize with the consumer's scale
+    (:func:`check_requant_scale`) exactly when the point asks for it."""
     if epi.act == "silu_mul":
         raise ValueError(f"{kernel}: epilogue {epi.point!r} is not a "
                          f"single-GEMM lattice point")
+    if (epi.requant is not None) != (requant_scale is not None):
+        raise ValueError(f"{kernel}: epilogue {epi.point!r} takes the consumer's scale "
+                         f"(requant_scale) exactly when it requantizes; the quantized "
+                         f"*_requant and masked kernels requantize")
+    if requant_scale is not None:
+        check_requant_scale(kernel, requant_scale)
     if epi.bias != (bias is not None):
         raise ValueError(f"{kernel}: bias operand must match the epilogue spec")
     if bias is not None and bias.numel() != o:
@@ -168,15 +176,44 @@ def check_scales(kernel: str, b: int, o: int, x_scale: Optional[torch.Tensor],
     return False
 
 
+def requant_spec(kernel: str, epi: Optional[EpilogueSpec], storage: torch.dtype,
+                 requant_scale: Optional[torch.Tensor]) -> EpilogueSpec:
+    """The lattice point a quantized single GEMM runs: ``epi`` as given,
+    or, with ``requant_scale``, ``epi`` extended with the class's own
+    ``requant:<dtype>`` (the kernels store int8 or e4m3 codes of their
+    own class only)."""
+    epi = epi or EpilogueSpec()
+    if requant_scale is None:
+        return epi
+    own = dtype_name(storage)
+    if epi.requant is not None and dtype_name(epi.requant) != own:
+        raise ValueError(f"{kernel}: epilogue {epi.point!r}: a {own} kernel requantizes "
+                         f"to {own} only")
+    return with_requant(epi, storage)
+
+
+def quantized_out(kernel: str, epi: EpilogueSpec, storage: torch.dtype,
+                  out_dtype: torch.dtype, raw: bool) -> tuple:
+    """``(out_kind, dtype of the output)`` of one quantized launch: the
+    class's raw accumulator, its narrow codes (requant), or the scaled
+    bf16 / fp32 rows."""
+    if raw:
+        return _build.OUT_RAW, _build.QUANT_CLASSES[storage][2]
+    if epi.requant is not None:
+        return _build.OUT_REQUANT, storage
+    return _build.out_kind(kernel, out_dtype, False), out_dtype
+
+
 def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue, bias,
-                         out_dtype, block_b, maps=None):
+                         out_dtype, block_b, maps=None, requant_scale=None):
     """The shared body of the int8 and fp8 single GEMMs (the JAX package's
     ``_tile_gemm_quantized``), masked when ``maps = (kmap, kmask)`` is
-    given: checks, the plain version on CPU tensors, else one launch of the
-    class's kernel counted on ``wrapper``."""
+    given, requantizing against ``requant_scale`` when given: checks, the
+    plain version on CPU tensors, else one launch of the class's kernel
+    counted on ``wrapper``."""
     kernel = wrapper.__name__
-    source, _, raw_dtype = _build.QUANT_CLASSES[storage]
-    epi = epilogue or EpilogueSpec()
+    source = _build.QUANT_CLASSES[storage][0]
+    epi = requant_spec(kernel, epilogue, storage, requant_scale)
     b, k = x_q.shape
     k2, o = w_q.shape
     if k != k2:
@@ -184,7 +221,7 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
     raw = check_scales(kernel, b, o, x_scale, w_scale)
     if raw and not epi.is_identity:
         raise ValueError(f"{kernel}: the raw accumulator takes no epilogue")
-    check_single_epilogue(kernel, epi, bias, o)
+    check_single_epilogue(kernel, epi, bias, o, requant_scale)
     if x_q.dtype != storage or w_q.dtype != storage:
         raise ValueError(f"{kernel}: operands must be {dtype_name(storage)}, got "
                          f"{x_q.dtype} and {w_q.dtype}")
@@ -195,22 +232,23 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
         if maps is not None:
             return tile_gemm_masked_quantized_ref(x_q, w_q, *maps, x_scale, w_scale,
                                                   block_b=bb, epilogue=epi, bias=bias,
-                                                  out_dtype=out_dtype)
+                                                  out_dtype=out_dtype,
+                                                  requant_scale=requant_scale)
         return tile_gemm_quantized_ref(x_q, w_q, x_scale, w_scale, epilogue=epi, bias=bias,
-                                       out_dtype=out_dtype)
-    kind = _build.out_kind(kernel, out_dtype, raw)
+                                       out_dtype=out_dtype, requant_scale=requant_scale)
+    kind, y_dtype = quantized_out(kernel, epi, storage, out_dtype, raw)
     bias32 = None if bias is None else bias.float().contiguous()
     kmask = () if maps is None else (maps[1],)
-    extra = [t for t in (*kmask, x_scale, w_scale, bias32) if t is not None]
+    extra = [t for t in (*kmask, x_scale, w_scale, bias32, requant_scale) if t is not None]
     _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
-    y = torch.empty((b, o), dtype=raw_dtype if raw else out_dtype, device=x_q.device)
+    y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
-        rc = getattr(lib, f"vg_{kernel}")(
+        rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
             x_q.data_ptr(), w_q.data_ptr(), *(t.data_ptr() for t in kmask), _ptr(x_scale),
-            _ptr(w_scale), _ptr(bias32), y.data_ptr(), b, k, o, ACT_CODES[epi.act], kind, bb,
-            _build.stream_of(x_q))
+            _ptr(w_scale), _ptr(bias32), _ptr(requant_scale), y.data_ptr(), b, k, o,
+            ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -252,18 +290,59 @@ def tile_gemm_fp8(x_q: torch.Tensor, w_q: torch.Tensor,
 tile_gemm_fp8.launches = 0
 
 
+def tile_gemm_int8_requant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                           w_scale: torch.Tensor, requant_scale: torch.Tensor, *,
+                           epilogue: Optional[EpilogueSpec] = None,
+                           bias: Optional[torch.Tensor] = None,
+                           block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_int8` whose flush then requantizes (K0's
+    ``requant:int8`` point on a single GEMM, the gelu MLP's ``w_in``):
+    ``int8(round(clip(act(deq(Xq @ Wq) + bias) / requant_scale, +-127)))``
+    against the consuming linear's static scale (a one-element float32
+    tensor on the device), so the consumer contracts the rows as they are.
+    ``epilogue`` gives the bias and the activation; its requant point, if
+    named, must be ``int8``."""
+    return _tile_gemm_quantized(tile_gemm_int8_requant, torch.int8, x_q, w_q, x_scale,
+                                w_scale, epilogue, bias, torch.int8, block_b,
+                                requant_scale=requant_scale)
+
+
+tile_gemm_int8_requant.launches = 0
+
+
+def tile_gemm_fp8_requant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                          w_scale: torch.Tensor, requant_scale: torch.Tensor, *,
+                          epilogue: Optional[EpilogueSpec] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_gemm_fp8` whose flush then requantizes:
+    ``e4m3(clip(act(deq(Xq @ Wq) + bias) / requant_scale, +-448))`` (round
+    to nearest even) against the consuming linear's static scale."""
+    return _tile_gemm_quantized(tile_gemm_fp8_requant, torch.float8_e4m3fn, x_q, w_q,
+                                x_scale, w_scale, epilogue, bias, torch.float8_e4m3fn,
+                                block_b, requant_scale=requant_scale)
+
+
+tile_gemm_fp8_requant.launches = 0
+
+
 def tile_gemm_masked_int8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tensor,
                           kmask: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
                           w_scale: Optional[torch.Tensor] = None, *,
                           epilogue: Optional[EpilogueSpec] = None,
                           bias: Optional[torch.Tensor] = None,
                           out_dtype: torch.dtype = torch.float32,
-                          block_b: Optional[int] = None) -> torch.Tensor:
+                          block_b: Optional[int] = None,
+                          requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`tile_gemm_int8` with the activation-sparsity block skip of
     :func:`tile_gemm_masked` (maps over the int8 rows; the CUDA body
-    ignores ``kmap``).  Bitwise :func:`tile_gemm_int8` on the same rows."""
+    ignores ``kmap``).  Bitwise :func:`tile_gemm_int8` on the same rows.
+    With ``requant_scale`` the flush requantizes as
+    :func:`tile_gemm_int8_requant`'s (int8 codes out), as the JAX
+    package's masked kernels take ``requant_scale``."""
     return _tile_gemm_quantized(tile_gemm_masked_int8, torch.int8, x_q, w_q, x_scale, w_scale,
-                                epilogue, bias, out_dtype, block_b, maps=(kmap, kmask))
+                                epilogue, bias, out_dtype, block_b, maps=(kmap, kmask),
+                                requant_scale=requant_scale)
 
 
 tile_gemm_masked_int8.launches = 0
@@ -275,12 +354,15 @@ def tile_gemm_masked_fp8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tenso
                          epilogue: Optional[EpilogueSpec] = None,
                          bias: Optional[torch.Tensor] = None,
                          out_dtype: torch.dtype = torch.float32,
-                         block_b: Optional[int] = None) -> torch.Tensor:
+                         block_b: Optional[int] = None,
+                         requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`tile_gemm_fp8` with the activation-sparsity block skip of
     :func:`tile_gemm_masked` (maps over the e4m3 rows; the CUDA body
-    ignores ``kmap``).  Bitwise :func:`tile_gemm_fp8` on the same rows."""
+    ignores ``kmap``).  Bitwise :func:`tile_gemm_fp8` on the same rows;
+    ``requant_scale`` as for :func:`tile_gemm_masked_int8`."""
     return _tile_gemm_quantized(tile_gemm_masked_fp8, torch.float8_e4m3fn, x_q, w_q, x_scale,
-                                w_scale, epilogue, bias, out_dtype, block_b, maps=(kmap, kmask))
+                                w_scale, epilogue, bias, out_dtype, block_b, maps=(kmap, kmask),
+                                requant_scale=requant_scale)
 
 
 tile_gemm_masked_fp8.launches = 0
@@ -291,7 +373,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def check_requant_scale(kernel: str, rq: torch.Tensor) -> None:
-    """The requantizing duals' scale operand: the consumer's static
+    """The requantizing kernels' scale operand: the consumer's static
     activation scale, one float32 value (it stays on the device)."""
     if rq.numel() != 1 or rq.dtype != torch.float32:
         raise ValueError(f"{kernel}: requant_scale must be one float32 value, got "

@@ -12,8 +12,8 @@ formulation).  e4m3 x e4m3 is ``x_q.float() @ w_q.float()`` in fp32:
 every product of two e4m3 values is exact in fp32, so only the sums'
 order can differ from the kernel's.  The flush then runs the JAX
 kernels' order: ``float(acc) * x_scale * w_scale`` left to right in
-fp32, the epilogue (the duals' ``requant:<dtype>`` point included), one
-cast.  ``*_int8_ref`` and ``*_fp8_ref`` name the same functions.
+fp32, the epilogue (the ``requant:<dtype>`` point included, on the duals
+and the singles), one cast.  ``*_int8_ref`` and ``*_fp8_ref`` name the same functions.
 
 The masked versions (K10) contract X with the tiles ``kmask`` marks dead
 zeroed (:func:`zero_dead_tiles`), then run the unmasked version: what the
@@ -72,12 +72,34 @@ def tile_gemm_quantized_ref(x_q: torch.Tensor, w_q: torch.Tensor,
                             w_scale: Optional[torch.Tensor] = None, *,
                             epilogue: Optional[EpilogueSpec] = None,
                             bias: Optional[torch.Tensor] = None,
-                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                            out_dtype: torch.dtype = torch.float32,
+                            requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """With an ``epilogue`` on a ``requant:<dtype>`` point, ``requant_scale``
+    is the consumer's scale and the result is of that narrow dtype."""
     acc = quantized_accumulate(x_q, w_q)
     if x_scale is None:
         return acc
     return flush_tile(dequant_acc(acc, x_scale, w_scale), epilogue or EpilogueSpec(),
-                      out_dtype, bias=bias)
+                      out_dtype, bias=bias, rq_scale=requant_scale)
+
+
+def with_requant(epilogue: Optional[EpilogueSpec], dtype: torch.dtype) -> EpilogueSpec:
+    """``epilogue`` (bias, act) extended with the ``requant:<dtype>`` point
+    of the operands' class."""
+    epi = epilogue or EpilogueSpec()
+    return EpilogueSpec(act=epi.act, bias=epi.bias, requant=dtype_name(dtype))
+
+
+def tile_gemm_quantized_requant_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                                    x_scale: torch.Tensor, w_scale: torch.Tensor,
+                                    requant_scale: torch.Tensor, *,
+                                    epilogue: Optional[EpilogueSpec] = None,
+                                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The single-GEMM requantize (``tile_gemm_int8_requant`` /
+    ``tile_gemm_fp8_requant``): the codes of the operands' class."""
+    return tile_gemm_quantized_ref(x_q, w_q, x_scale, w_scale,
+                                   epilogue=with_requant(epilogue, x_q.dtype), bias=bias,
+                                   requant_scale=requant_scale)
 
 
 def tile_gemm_dual_quantized_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
@@ -98,6 +120,7 @@ def tile_gemm_dual_quantized_ref(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torc
 
 
 tile_gemm_int8_ref = tile_gemm_fp8_ref = tile_gemm_quantized_ref
+tile_gemm_int8_requant_ref = tile_gemm_fp8_requant_ref = tile_gemm_quantized_requant_ref
 tile_gemm_dual_int8_ref = tile_gemm_dual_fp8_ref = tile_gemm_dual_quantized_ref
 
 
@@ -128,10 +151,12 @@ def tile_gemm_masked_quantized_ref(x_q: torch.Tensor, w_q: torch.Tensor,
                                    block_b: int, block_k: int = 64,
                                    epilogue: Optional[EpilogueSpec] = None,
                                    bias: Optional[torch.Tensor] = None,
-                                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                                   out_dtype: torch.dtype = torch.float32,
+                                   requant_scale: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     return tile_gemm_quantized_ref(zero_dead_tiles(x_q, kmask, block_b, block_k), w_q,
                                    x_scale, w_scale, epilogue=epilogue, bias=bias,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, requant_scale=requant_scale)
 
 
 tile_gemm_masked_int8_ref = tile_gemm_masked_fp8_ref = tile_gemm_masked_quantized_ref

@@ -1,7 +1,7 @@
 """Serving launcher: thin adapter over ``repro_torch.serving`` (port of
 ``repro.launch.serve``).
 
-    python -m repro_torch.launch.serve --arch internlm2_1_8b|qwen3_moe_235b_a22b [--smoke] \
+    python -m repro_torch.launch.serve --arch ARCH [--smoke] \
         [--sparsity 2:4 --mode dense|compressed|gather] [--quantize int8|fp8 [--static-scales]] \
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
@@ -9,7 +9,9 @@
         [--prefill-chunk 8] [--rate 1.0] [--seed 0]
     python -m repro_torch.launch.serve --artifact DIR [--kernel-backend ...]
 
-It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
+``ARCH`` is one of ``repro_torch.configs.ARCH_IDS``: internlm2_1_8b,
+gemma3_1b, starcoder2_3b, mistral_large_123b, qwen3_moe_235b_a22b,
+dbrx_132b.  It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
 weights from a seeded ``torch.Generator`` on the device, runs
 :func:`repro_torch.serving.prepare` (``--quantize int8|fp8`` quantizes
 every linear per output channel, to int8 or float8_e4m3fn, and the cuda

@@ -2,11 +2,13 @@
 attention and the full-sequence attention sub-layer (port of the parts of
 ``repro.models.attention`` the serving path uses: the paged path's
 projections, and ``attention_block`` for ``transformer.forward``, which
-calibration runs).  ``attention_block`` routes through the dispatch
-engine (``kernels.dispatch.attention``): the hand-written
-``flash_attention`` kernel on the cuda backend, :func:`chunked_attention`
-otherwise.  Only global attention is ported (the dense family has no
-local layers)."""
+calibration runs).  ``attention_block`` routes a global layer, or a local
+one whose window covers the sequence, through the dispatch engine
+(``kernels.dispatch.attention``): the hand-written ``flash_attention``
+kernel on the cuda backend, :func:`chunked_attention` otherwise; a local
+layer (gemma3's sliding window) whose window is shorter than the
+sequence runs the banded :func:`local_attention`, plain torch as in the
+JAX package (which has no kernel for it)."""
 
 from __future__ import annotations
 
@@ -87,16 +89,60 @@ def chunked_attention(q, k, v, q_offset: int = 0, p_bf16: bool = False) -> torch
     return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 
-def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+                    p_bf16: bool = False) -> torch.Tensor:
+    """Banded causal attention: position t attends to (t - window, t] (the
+    JAX package's ``local_attention``).  q (B, Hkv, G, T, D); k, v (B, T,
+    Hkv, D) -> (B, Hkv, G, T, D) in fp32.
+
+    Q-chunked: chunk i of ``cq = min(window, T)`` queries scores the
+    ``window + cq`` keys of a left-padded KV that end at its last query,
+    so the cost is O(T * window).  Scores in fp32 from q scaled in its own
+    dtype, masked to the band (and to keys at position >= 0) at
+    ``NEG_INF``, a plain softmax, probabilities fp32 unless ``p_bf16``."""
+    b, hkv, g, t, d = q.shape
+    cq = min(window, t)
+    if t % cq:
+        raise ValueError(f"local attention: T={t} is not a multiple of the query "
+                         f"chunk {cq}")
+    span = window + cq
+    qs = (q * torch.tensor(d ** -0.5, dtype=q.dtype)).float()
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0)).float()
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
+    out = []
+    for i in range(t // cq):
+        ks = kp[:, i * cq:i * cq + span]
+        vs = vp[:, i * cq:i * cq + span]
+        s = torch.einsum("bhgqd,bkhd->bhgqk", qs[:, :, :, i * cq:(i + 1) * cq], ks)
+        q_pos = i * cq + torch.arange(cq, device=q.device)
+        k_pos = i * cq - window + torch.arange(span, device=q.device)
+        delta = q_pos[:, None] - k_pos[None, :]
+        mask = (delta >= 0) & (delta < window) & (k_pos[None, :] >= 0)
+        s = torch.where(mask, s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        if p_bf16:
+            pr = pr.to(vs.dtype)
+        out.append(torch.einsum("bhgqk,bkhd->bhgqd", pr.float(), vs.float()))
+    return torch.cat(out, dim=3)
+
+
+def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, is_global: bool = True,
                     positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full (global, causal) attention sub-layer for a prefill/forward.
-    x: (B, T, d)."""
+    """Causal attention sub-layer for a prefill/forward.  x: (B, T, d).
+    The JAX package's branch: a global layer, or a window that is off or
+    covers the sequence, goes to the dispatch engine (flash_attention on
+    the cuda backend); a local layer with a shorter window to
+    :func:`local_attention`."""
     from ..kernels.dispatch import attention as engine_attention   # local: avoid a cycle
 
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = engine_attention(_grouped(q, cfg), k, v, p_bf16=cfg.attn_p_bf16)
+    if is_global or cfg.window <= 0 or cfg.window >= t:
+        o = engine_attention(_grouped(q, cfg), k, v, p_bf16=cfg.attn_p_bf16)
+    else:
+        o = local_attention(_grouped(q, cfg), k, v, window=cfg.window,
+                            p_bf16=cfg.attn_p_bf16)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, t, cfg.attn_dim).to(x.dtype)
     return apply_linear(p["wo"], o, cfg.sparsity)

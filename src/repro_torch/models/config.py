@@ -2,7 +2,9 @@
 ``repro.models.config``).
 
 Field names, defaults and meanings are the JAX package's, for the fields
-the ported families read; ``torch_dtype`` replaces ``jnp_dtype``.
+the ported families read (the local/global attention pattern of gemma3
+included; ``causal`` waits for the encoder families); ``torch_dtype``
+replaces ``jnp_dtype``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ class ModelConfig:
     # expert FFN as a sparse x sparse contraction (routing holes become
     # activation sparsity the masked kernels skip)
     moe_expert_path: str = "gather"
+    # --- attention pattern ---
+    window: int = 0             # >0: sliding-window size for "local" layers
+    local_global_period: int = 0  # e.g. 6 for gemma3's 5:1 (every 6th global)
     act: str = "swiglu"         # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
@@ -56,6 +61,12 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def layer_is_global(self, i: int) -> bool:
+        """gemma3-style local:global interleave (last of each period global)."""
+        if self.local_global_period <= 0 or self.window <= 0:
+            return True
+        return (i % self.local_global_period) == self.local_global_period - 1
 
     def with_sparsity(self, sp: SparsityConfig) -> "ModelConfig":
         return dataclasses.replace(self, sparsity=sp)

@@ -59,12 +59,11 @@ def apply_mlp(p: Params, x: torch.Tensor, act: str, sp: SparsityConfig) -> torch
     from ..kernels import dispatch
 
     # Will w_out contract narrow (int8 | e4m3) rows against a calibrated
-    # static scale on a kernel?  Then the gate-up dual requantizes in its
-    # flush and w_out takes the narrow rows as they are (one function
-    # decides for both sides, so they cannot disagree).  The single-GEMM
-    # requantize (the gelu MLP) is not ported: its w_out quantizes the
-    # float rows itself, which gives the same codes.
-    rq = dispatch.requant_plan(p["w_out"], x.shape[:-1], sp) if act == "swiglu" else None
+    # static scale on a kernel?  Then the producing kernel requantizes in
+    # its flush (the gate-up dual, or the gelu MLP's single w_in) and w_out
+    # takes the narrow rows as they are (one function decides for both
+    # sides, so they cannot disagree).
+    rq = dispatch.requant_plan(p["w_out"], x.shape[:-1], sp)
     requant, rq_scale = rq if rq is not None else (None, None)
     if act == "swiglu":
         # gate and up contract the same activation tile: one dual dispatch
@@ -72,7 +71,9 @@ def apply_mlp(p: Params, x: torch.Tensor, act: str, sp: SparsityConfig) -> torch
                           epilogue=epilib.make(act="silu_mul", requant=requant,
                                                requant_scale=rq_scale))
     else:
-        h = apply_linear(p["w_in"], x, sp, epilogue=epilib.make(act="gelu"))
+        h = apply_linear(p["w_in"], x, sp,
+                         epilogue=epilib.make(act="gelu", requant=requant,
+                                              requant_scale=rq_scale))
     # rows that arrive narrow come out of w_out in fp32: back to the
     # residual stream's dtype
     return apply_linear(p["w_out"], h, sp).to(x.dtype)

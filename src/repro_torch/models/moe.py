@@ -92,17 +92,19 @@ def _expert_ffn(wp: Params, x: torch.Tensor, cfg: ModelConfig,
     from ..kernels import epilogue as epilib
 
     sp = cfg.sparsity
+    # w_out's static scale lets the producing kernel requantize in its
+    # flush, the dual or the gelu w_in (as in layers.apply_mlp)
+    rq = dispatch.requant_plan(wp["w_out"], x.shape[:-1], sp)
+    requant, rq_scale = rq if rq is not None else (None, None)
     if cfg.act == "swiglu":
-        # w_out's static scale lets the dual requantize in its flush (as in
-        # layers.apply_mlp; the gelu MLP's single-GEMM requant is not ported)
-        rq = dispatch.requant_plan(wp["w_out"], x.shape[:-1], sp)
-        requant, rq_scale = rq if rq is not None else (None, None)
         h = apply_gate_up(wp["w_gate"], wp["w_in"], x, sp,
                           epilogue=epilib.make(act="silu_mul", requant=requant,
                                                requant_scale=rq_scale),
                           activation=activation, local=local)
     else:
-        h = apply_linear(wp["w_in"], x, sp, epilogue=epilib.make(act="gelu"),
+        h = apply_linear(wp["w_in"], x, sp,
+                         epilogue=epilib.make(act="gelu", requant=requant,
+                                              requant_scale=rq_scale),
                          activation=activation, local=local)
     # the FFN is row-wise: rows zeroed on the way in stay zero in h, so the
     # "zeros" class carries through to w_out (whose kernel skips them);

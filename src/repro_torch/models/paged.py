@@ -12,7 +12,8 @@ pool on every step; the functions still return the caches, so callers
 read like the JAX package's functional versions.  The attention itself
 stays plain torch ops (the JAX package has no Pallas kernel here
 either): q is scaled in its own dtype, both einsums accumulate in fp32,
-masked scores are ``NEG_INF``, and the probabilities stay fp32 unless
+masked scores are ``NEG_INF`` (keys after the query, and on a local layer
+keys a window or more behind it), and the probabilities stay fp32 unless
 ``cfg.attn_p_bf16``.
 """
 
@@ -75,9 +76,12 @@ def _scale(cfg: ModelConfig, dtype: torch.dtype) -> float:
 
 def _paged_attention(p: Params, x: torch.Tensor, cache: Cache,
                      positions: torch.Tensor, table: torch.Tensor,
-                     write_mask: torch.Tensor, cfg: ModelConfig, *,
+                     write_mask: torch.Tensor, cfg: ModelConfig, *, is_global: bool,
                      block_len: int) -> Tuple[torch.Tensor, Cache]:
-    """x: (B, T, d); positions, write_mask: (B, T); table: (B, W)."""
+    """x: (B, T, d); positions, write_mask: (B, T); table: (B, W).  A local
+    layer (``is_global`` False, ``cfg.window`` > 0) also masks the keys
+    ``window`` or more positions behind the query (its pool stays
+    full-length, as in the JAX package)."""
     b, t, _ = x.shape
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     # positions past the table only occur on masked (padding) writes
@@ -95,6 +99,8 @@ def _paged_attention(p: Params, x: torch.Tensor, cache: Cache,
                      k.float())
     j = torch.arange(k.shape[1], device=x.device)
     valid = j[None, None, :] <= positions[:, :, None]         # (B, T, L)
+    if not is_global and cfg.window > 0:
+        valid = valid & (positions[:, :, None] - j[None, None, :] < cfg.window)
     s = torch.where(valid[:, None, None], s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
     if cfg.attn_p_bf16:
@@ -119,7 +125,7 @@ def paged_decode_step(params: Params, caches: List[Cache], tokens: torch.Tensor,
 
     def mixer(slot, lp, lc, h):
         return _paged_attention(lp["mixer"], h, lc, pos2, table.long(), wmask,
-                                cfg, block_len=block_len)
+                                cfg, is_global=slot.mixer == "attn", block_len=block_len)
 
     return cached_stack(params, caches, x, cfg, mixer)
 
@@ -140,7 +146,7 @@ def paged_prefill_chunk(params: Params, caches: List[Cache], tokens: torch.Tenso
 
     def mixer(slot, lp, lc, h):
         return _paged_attention(lp["mixer"], h, lc, positions, table.long(), wmask,
-                                cfg, block_len=block_len)
+                                cfg, is_global=slot.mixer == "attn", block_len=block_len)
 
     return cached_stack(params, caches, x, cfg, mixer)
 

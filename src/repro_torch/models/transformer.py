@@ -43,7 +43,7 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class Slot:
-    mixer: str            # attn
+    mixer: str            # attn | attn_local
     ffn: str              # mlp | moe
     repeat: int = 1
 
@@ -56,9 +56,19 @@ class Stage:
 
 def build_layout(cfg: ModelConfig) -> Tuple[Stage, ...]:
     """Stage/slot layout; the port serves the dense and MoE families (an
-    MoE config's FFN slot is ``"moe"``)."""
+    MoE config's FFN slot is ``"moe"``).  A local/global config (gemma3)
+    repeats ``period - 1`` local layers and one global layer per
+    super-block, then the remaining local layers in a stage of their own,
+    as the JAX package lays them out."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.local_global_period > 0 and cfg.window > 0:
+        p = cfg.local_global_period
+        full, rem = divmod(cfg.num_layers, p)
+        stages = [Stage(full, (Slot("attn_local", "mlp", p - 1), Slot("attn", "mlp", 1)))]
+        if rem:
+            stages.append(Stage(1, (Slot("attn_local", "mlp", rem),)))
+        return tuple(stages)
     ffn = "moe" if cfg.num_experts > 0 else "mlp"
     return (Stage(cfg.num_layers, (Slot("attn", ffn),)),)
 
@@ -71,7 +81,9 @@ def layer_slots(cfg: ModelConfig) -> List[Slot]:
 
 def layer_site_keys(cfg: ModelConfig) -> List[Tuple[int, int]]:
     """``(stage, slot)`` of every layer, in execution order: the layers
-    one stacked leaf of the JAX package holds share a key."""
+    one stacked leaf of the JAX package holds share a key (gemma3-1b: three
+    keys, the super-blocks' local and global slots and the remainder's
+    local slot)."""
     return [(s, j) for s, st in enumerate(build_layout(cfg)) for _ in range(st.count)
             for j, slot in enumerate(st.slots) for _ in range(slot.repeat)]
 
@@ -130,11 +142,12 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward -> logits (B, T, V), token frontend only.
     Attention runs through the dispatch engine (``flash_attention`` on
-    the cuda backend)."""
+    the cuda backend), a local layer's through the banded
+    ``local_attention`` when its window is shorter than the sequence."""
     x = embed(params["embed"], tokens)
     for slot, lp in zip(layer_slots(cfg), params["layers"]):
-        x, _ = _layer(lp, slot, x, cfg, lambda lp_, h: (
-            attention_block(lp_["mixer"], h, cfg), None))
+        x, _ = _layer(lp, slot, x, cfg, lambda lp_, h, slot=slot: (
+            attention_block(lp_["mixer"], h, cfg, is_global=slot.mixer == "attn"), None))
     return _logits(params, x, cfg)
 
 

@@ -475,7 +475,9 @@ def test_requant_dual_kernels_match_plain_on_card(cuda_device, b, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,t,d", [(8, 16, 8, 32, 128), (1, 16, 8, 200, 128),
-                                          (2, 4, 2, 128, 64), (1, 16, 8, 512, 128)])
+                                          (2, 4, 2, 128, 64), (1, 16, 8, 512, 128),
+                                          (8, 4, 1, 32, 256), (1, 4, 1, 200, 256),
+                                          (1, 4, 1, 512, 256)])
 def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv, t, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     # views of (B, T, H, D) projections, as the model passes them
@@ -849,3 +851,82 @@ def test_masked_kernels_skip_by_kmask_alone_on_card(cuda_device):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="block_maps at the kernel's blocks"):
         tile_gemm_masked(x, case.ops[0], case.kmap[:, :12], kmask[:, :12])
+
+
+# ------------------------------------- the single-GEMM requantize on the card
+# gemma3-1b's w_in: (K, O) = (d_model, d_ff) = (1152, 6912), gelu (gather
+# 1:4 contracts K * n / 4 = 288 rows, not a multiple of the kernels' 64)
+REQUANT_LAYOUTS = [("dense", 4), ("compressed", 2), ("compressed", 1), ("gather", 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64, 256])
+@pytest.mark.parametrize("layout,n", REQUANT_LAYOUTS)
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, qdtype):
+    """Each ``*_requant`` single (K0's requant point on tile_gemm, nm_spmm
+    and nm_spmm_gather_bk, int8 and e4m3) against its plain version, gelu
+    with and without bias: codes equal except one code / one e4m3 step on
+    at most 0.1% of them (gelu's tanhf may differ by an ulp); the masked
+    kernel with the same flush bitwise the unmasked one on the same rows;
+    the non-requant wrapper refuses the requant point."""
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.actsparse import block_maps
+    from repro_torch.kernels.nm_spmm import kernel as nk
+    from repro_torch.kernels.nm_spmm import ref as nr
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+    from repro_torch.kernels.tile_gemm import kernel as tk
+    from repro_torch.kernels.tile_gemm import ref as tr
+
+    k, o = 1152, 6912
+    g = torch.Generator(device=cuda_device).manual_seed(b + n)
+    x = torch.randn(b, k, generator=g, device=cuda_device).bfloat16()
+    x[-1] = 0                                              # an idle slot
+    w = torch.randn(k, o, generator=g, device=cuda_device) * k ** -0.5
+    mode = "gather" if layout == "gather" else "compressed"
+    leaf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode=mode),
+                          layout if n < 4 else "dense", quantize=qdtype)
+    storage = leaf["w" if "w" in leaf else "values"].dtype
+    xq, xs = quantize_rows(x, storage)
+    ws = leaf["scale"].reshape(1, -1)
+    mod, ref_mod, base, ops = {
+        "dense": (tk, tr, "tile_gemm", (leaf.get("w"),)),
+        "compressed": (nk, nr, "nm_spmm", (leaf.get("values"), leaf.get("meta_packed"))),
+        "gather": (gk, gr, "nm_spmm_gather_bk", (leaf.get("values"), leaf.get("gather_idx")))
+    }[layout]
+    nn = () if layout == "dense" else (n,)
+    fn = getattr(mod, f"{base}_{qdtype}_requant")
+    ref_fn = getattr(ref_mod, {"tile_gemm": "tile_gemm", "nm_spmm": "nm_spmm",
+                               "nm_spmm_gather_bk": "nm_spmm_gather"}[base]
+                     + f"_{qdtype}_requant_ref")
+    bias = torch.randn(o, generator=g, device=cuda_device) * 0.1
+    y32 = getattr(mod, f"{base}_{qdtype}")(xq, *ops, xs, ws, *nn,
+                                           epilogue=EpilogueSpec(act="gelu"))
+    # a scale that saturates a share of the codes, as a calibrated one may
+    rq = (y32.abs().amax() / (100 if qdtype == "int8" else 300)).reshape(())
+    for spec, bv in ((EpilogueSpec(act="gelu"), None),
+                     (EpilogueSpec(act="gelu", bias=True), bias)):
+        before = fn.launches
+        got = fn(xq, *ops, xs, ws, *nn, rq, epilogue=spec, bias=bv)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and got.dtype == storage
+        want = ref_fn(xq, *ops, xs, ws, *nn, rq, epilogue=spec, bias=bv)
+        share = (_requant_share(got, want) if qdtype == "int8" else _fp8_step_share(got, want))
+        assert share <= 1e-3, (spec, share)
+    # the masked kernel with the same flush, on rows with dead tiles
+    bb = _build.block_rows(b)
+    step = 256 // n if layout == "gather" else 64
+    live = torch.rand((-(-b // bb), k // step), generator=g, device=cuda_device) < 0.5
+    tiles = live.repeat_interleave(bb, 0)[:b].repeat_interleave(step, 1)
+    xm, xms = quantize_rows(x * tiles, storage)
+    maps = block_maps(xm, bb, step)
+    masked = getattr(mod, f"{base}_masked_{qdtype}")
+    spec = EpilogueSpec(act="gelu", bias=True)
+    got = masked(xm, *ops, *maps, *nn, xms, ws, epilogue=spec, bias=bias, requant_scale=rq)
+    assert torch.equal(got, fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias))
+    with pytest.raises(ValueError, match="requant_scale"):
+        getattr(mod, f"{base}_{qdtype}")(xq, *ops, xs, ws, *nn,
+                                         epilogue=EpilogueSpec(act="gelu", requant=qdtype))
+    with pytest.raises(ValueError, match="requant_scale"):
+        fn(xq, *ops, xs, ws, *nn, rq.double())

@@ -175,7 +175,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.tile_gemm.ref, repro_torch.kernels.nm_spmm.ref\n"
         "import repro_torch.kernels.nm_spmm_gather.kernel, repro_torch.kernels.actsparse\n"
         "import repro_torch.models.moe, repro_torch.configs.qwen3_moe_235b_a22b\n"
-        "import repro_torch.configs.dbrx_132b\n"
+        "import repro_torch.configs.dbrx_132b, repro_torch.configs.gemma3_1b\n"
+        "import repro_torch.configs.starcoder2_3b, repro_torch.configs.mistral_large_123b\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
