@@ -84,6 +84,12 @@ Phases, each of which fails the run on a miss:
              than row 0, so one limit scaled by the whole output's max
              would not see a fault confined to far rows); the library
              column is F.scaled_dot_product_attention (enable_gqa).
+             Then the encoder and vision-prefix shapes: 16 over 16 heads of
+             80, non-causal (hubert-xlarge), at B x T = 8 x 500 and 2 x
+             1500 (10 s and 30 s clips at 50 frames a second, both ragged),
+             and 32 over 32 heads of 96, causal (phi-3-vision), at 2 x 512
+             and 1 x 2048, under the same row limit; SDPA with is_causal
+             to match.
 3. serving — full-width internlm2-1.8b (random bf16 weights from a
              seeded torch.Generator on the card) served by the port's
              Engine in the dense, 2:4 and 1:4 compressed and 2:4 and 1:4
@@ -128,6 +134,24 @@ Phases, each of which fails the run on a miss:
              position 600.  Then starcoder2-3b at full width, cut to 2
              layers, static int8 compressed 2:4 (the gelu MLP, no window,
              head_dim 128).
+   prefill — the encoder / vision-prefix path through
+             ``models.make_prefill_step`` at full width: hubert-xlarge, all
+             48 layers (non-causal, head_dim 80, gelu), on 8 x 500 seeded
+             frame embeddings, in 5 runs (bf16 dense, bf16 compressed 2:4,
+             bf16 gather 2:4, int8 w8a8 (dynamic) gather 2:4, fp8 dense);
+             phi-3-vision-4.2b, all 32 layers (causal, head_dim 96, swiglu),
+             on 2 x (256 seeded patch embeddings + 256 seeded text
+             tokens), in 2 runs (bf16 dense, bf16 gather 2:4).  Every
+             linear site plans a cuda kernel of its layout and class;
+             flash_attention launches once per layer per forward (48 at
+             hubert's D = 80, 32 at phi-3's D = 96); no kernel of
+             another class launches; the logits are finite, of shape (B,
+             T, V), and within TIER_TOL / INT8_TIER_TOL / FP8_TIER_TOL
+             (scaled) of the torch tier's on the same params (the share of
+             positions whose argmax agrees is printed).  Printed per run:
+             weight GB, forward latency (median of 3, CUDA events), frames
+             or tokens per second, launches per forward and the device's
+             busy share of one profiled forward.
 4. tiers   — one prefill chunk + one decode step under the cuda and the
              torch backends on the same params (gemma3: 9 chunks, the last
              one's logits compared, and a decode at position 576, past
@@ -236,6 +260,10 @@ REPLACES = {
        for q in ("int8", "fp8")},
     # flash_attention at gemma3's head_dim 256 (the same wrapper and source)
     "flash_attention_d256": "src/repro/kernels/flash_attention/kernel.py:79",
+    # its causal=False branch at hubert-xlarge's head_dim 80, and head_dim
+    # 96 (phi-3-vision, causal)
+    "flash_attention_d80_noncausal": "src/repro/kernels/flash_attention/kernel.py:79",
+    "flash_attention_d96": "src/repro/kernels/flash_attention/kernel.py:79",
     # K10, the activation-sparsity (block-skip) singles, float and quantized
     **{f"tile_gemm_masked{q}": "src/repro/kernels/tile_gemm/kernel.py:252"
        for q in ("", "_int8", "_fp8")},
@@ -1100,53 +1128,65 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
 
 
 ATTN_SHAPES = ((8, 32), (1, 512), (1, 2048))    # (B, T): calibration, then prefill
+# hubert-xlarge: 10 s and 30 s clips at 50 frames a second (both ragged);
+# phi-3-vision: its prefill batch (256 patches + 256 tokens), then 2048
+HUBERT_ATTN_SHAPES = ((8, 500), (2, 1500))
+PHI3_ATTN_SHAPES = ((2, 512), (1, 2048))
 
 
-def attention_phase(cfg, gen, card_line, rows):
-    """flash_attention against its plain version at ``cfg``'s heads and
-    head_dim (internlm2-1.8b: 16 over 8 of 128; gemma3-1b: 4 over 1 of
-    256), timed beside it and beside F.scaled_dot_product_attention on the
-    same (GQA) inputs.  q, k and v are views of (B, T, H, D) projections,
-    as the model passes them.  Bound: q, k, v and o moved once; 4 * D
-    flops per (query, key) pair at or below the diagonal (the pairs this
-    causal run computes)."""
+def attention_phase(cfg, gen, card_line, rows, shapes=ATTN_SHAPES):
+    """flash_attention against its plain version at ``cfg``'s heads,
+    head_dim and causal flag (internlm2-1.8b: 16 over 8 of 128; gemma3-1b:
+    4 over 1 of 256; hubert-xlarge: 16 over 16 of 80, non-causal;
+    phi-3-vision: 32 over 32 of 96), timed beside it and beside
+    F.scaled_dot_product_attention on the same (GQA) inputs.  q, k and v
+    are views of (B, T, H, D) projections, as the model passes them.
+    Bound: q, k, v and o moved once; 4 * D flops per (query, key) pair the
+    run scores (causal: at or below the diagonal; not causal: all T^2)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq, hkv, d, causal = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.causal
+
+    def kernel(q, k, v):
+        return flash_attention(q, k, v, causal=causal)
+
+    def plain(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal)
 
     def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
-    for b, t in ATTN_SHAPES:
+    for b, t in shapes:
         nbytes = 2 * b * t * d * (2 * hq + 2 * hkv)
-        flops = 4 * d * hq * b * t * (t + 1) // 2
+        flops = 4 * d * hq * b * (t * (t + 1) // 2 if causal else t * t)
         ops = [tuple(torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
                      .transpose(1, 2) for h in (hq, hkv, hkv))
                for _ in range(copies_for(nbytes))]
         before = flash_attention.launches
-        got = flash_attention(*ops[0])
+        got = kernel(*ops[0])
         torch.cuda.synchronize()
         if flash_attention.launches != before + 1:
             fail("flash_attention: the wrapper did not count its launch")
-        want = flash_attention_ref(*ops[0])
+        want = plain(*ops[0])
         if got.shape != want.shape or not torch.isfinite(got.float()).all():
-            fail(f"flash_attention B={b} T={t}: shape {tuple(got.shape)} or non-finite")
+            fail(f"flash_attention B={b} T={t} D={d}: shape {tuple(got.shape)} or non-finite")
         e = row_scaled_err(got, want)
         bmsv, by = bound_ms(nbytes, flops)
         row = {"kernel": "flash_attention", "B": b, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
+               "causal": causal,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
                "scaled_err": scaled_err(got, want), "row_scaled_err": e,
-               "kernel_ms": time_ms(flash_attention, ops),
-               "plain_ms": time_ms(flash_attention_ref, ops), "library_ms": time_ms(sdpa, ops),
+               "kernel_ms": time_ms(kernel, ops),
+               "plain_ms": time_ms(plain, ops), "library_ms": time_ms(sdpa, ops),
                "bound_ms": bmsv, "bound_by": by, "card": card_line}
         rows.append(row)
         log(json.dumps(row))
         if not (e <= ATTN_TOL):
-            fail(f"flash_attention B={b} T={t}: a row's error {e:.3e} > {ATTN_TOL} of "
-                 f"its own max")
+            fail(f"flash_attention B={b} T={t} D={d} causal={causal}: a row's error "
+                 f"{e:.3e} > {ATTN_TOL} of its own max")
         del ops
     torch.cuda.synchronize()
 
@@ -1217,6 +1257,17 @@ GEMMA_SERVE = dict(max_len=1024, long_prompts=True, tier_chunks=9, profile_pos=6
 # no window, at head_dim 128, static int8 compressed 2:4
 STARCODER_ARCH = "starcoder2_3b"
 STARCODER_RUNS = (("compressed", (2, 4), "int8", True, 2),)
+# the prefill path (models.make_prefill_step) at full width and depth:
+# hubert-xlarge on 8 x 500 frame embeddings (10 s clips at 50 frames a
+# second) and phi-3-vision-4.2b on 2 x (256 patch embeddings + 256 text
+# tokens); (layout, sparsity, qdtype, depth), depth None = the config's
+HUBERT_ARCH, HUBERT_BATCH = "hubert_xlarge", (8, 500)
+HUBERT_RUNS = (("dense", None, None, None), ("compressed", (2, 4), None, None),
+               ("gather", (2, 4), None, None), ("gather", (2, 4), "int8", None),
+               ("dense", None, "fp8", None))
+PHI3_ARCH, PHI3_BATCH = "phi_3_vision_4_2b", (2, 256)   # (B, text tokens)
+PHI3_RUNS = (("dense", None, None, None), ("gather", (2, 4), None, None))
+PREFILL_REPEATS = 3             # forwards timed; the median is reported
 KINDS = {"dense": "tile_gemm", "compressed": "nm_spmm", "gather": "nm_spmm_gather"}
 # the kernels each class runs while serving (decode and prefill)
 LAYOUT_KERNELS = {("dense", None, False): ("tile_gemm", "tile_gemm_dual"),
@@ -1824,6 +1875,294 @@ def expert_path_gap(prepared, cfg, spec, tag) -> dict:
     return res
 
 
+# --------------------------------------------------------------- prefill
+def prefill_batch(cfg, b: int, t: int) -> dict:
+    """One seeded prefill batch on the card: frame embeddings (B, T, d) for
+    the audio encoder, or ``num_patches`` patch embeddings (at the
+    embedding table's scale, d**-0.5) and T text tokens for the
+    vision-prefix decoder."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d, dt = cfg.d_model, cfg.torch_dtype
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.randn((b, t, d), generator=gen, device="cuda").to(dt)}
+    return {"patches": (torch.randn((b, cfg.num_patches, d), generator=gen, device="cuda")
+                        * d ** -0.5).to(dt),
+            "tokens": torch.randint(1, cfg.vocab_size, (b, t), generator=gen, device="cuda")}
+
+
+DUAL_BASES = {"dense": "tile_gemm_dual", "compressed": "nm_spmm_dual",
+              "gather": "nm_spmm_gather_dual_bk"}
+
+
+def prefill_gemm_sites(cfg):
+    """(K, O, site) of each distinct GEMM a prefill layer runs: the q / k /
+    v / o projections and w_out as singles, w_in as the gelu single or the
+    gate-up dual."""
+    d, ff = cfg.d_model, cfg.d_ff
+    singles = dict.fromkeys(((d, cfg.attn_dim), (d, cfg.kv_dim), (cfg.attn_dim, d), (ff, d)))
+    sites = [(k, o, "single") for k, o in singles]
+    return sites + [(d, ff, "gelu" if cfg.act == "gelu" else "dual")]
+
+
+def prefill_kernel_phase(base_cfg, prefill_runs, batch_shape, gen, card_line, rows):
+    """Every GEMM kernel of the prefill runs, at that path's rows (B x T
+    positions, ragged against the 64-row tiles for hubert's 4000) and
+    widths, against its plain version on the same operands: each layout
+    and class a run in ``prefill_runs`` takes, on each site of
+    ``prefill_gemm_sites`` (the gelu w_in with its gelu flush, as the
+    model calls it).  Held at TOL of max|plain|; int8 also holds its raw
+    int32 accumulator bitwise, and its scaled bf16 output bitwise where no
+    gelu flush runs (at the gelu site ``bitwise`` is recorded, not gated:
+    the kernel's tanhf and torch's may round apart).  Timed beside the
+    plain version and the class's library call on the dense or
+    decompressed weight (the gather's on the pre-gathered X; a dual's as
+    two calls, gate and up).  Bound: x (codes and row scales), the weight
+    bytes (values + meta or index + scales) and the bf16 output moved
+    once, 2 * rows * K_eff * O operations per product."""
+    from repro_torch.core.quantize import quantize_rows
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.epilogue import EpilogueSpec
+    from repro_torch.kernels.nm_spmm.ref import dense_weight
+    from repro_torch.kernels.nm_spmm_gather.ref import gather_columns
+
+    dev, bf16 = "cuda", torch.bfloat16
+    b, t_in = batch_shape
+    m = b * (t_in + base_cfg.num_patches)
+    gelu = EpilogueSpec(act="gelu")
+    record = recorder(rows, card_line)
+    for layout, sparsity, qname, _ in prefill_runs:
+        qdtype = QDTYPES.get(qname)
+        fp8, int8 = qdtype == FP8, qdtype == torch.int8
+        n = sparsity[0] if sparsity else 4
+        esz = 1 if qdtype is not None else 2
+        peak = BF16_FLOPS if qdtype is None else FP8_OPS if fp8 else INT8_OPS
+        lay = column_major if fp8 else int_mm_layout()[1] if int8 else None
+        modname, base = LAYOUT_MODULES[layout]
+        km = importlib.import_module(f"repro_torch.kernels.{modname}.kernel")
+        rm = importlib.import_module(f"repro_torch.kernels.{modname}.ref")
+        sfx = f"_{qname}" if qname else ""
+        nn = () if layout == "dense" else (n,)
+        mode = "gather" if layout == "gather" else "compressed"
+
+        def leaf(k, o):
+            w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+            lf = convert_layout({"w": w if qdtype else w.to(bf16)},
+                                SparsityConfig(n=n, m=4, mode=mode),
+                                layout if n < 4 else "dense", quantize=qdtype)
+            if layout == "dense":
+                lf["ops"], dense = (lf["w"],), lf["w"]
+            elif layout == "compressed":
+                lf["ops"] = (lf["values"], lf["meta_packed"])
+                dense = dense_weight(lf["values"], lf["meta_packed"], n)
+            else:
+                lf["ops"], dense = (lf["values"], lf["gather_idx"]), lf["values"]
+            lf["scales"] = () if qdtype is None else (lf["scale"].reshape(1, -1),)
+            lf["lib"] = lay(dense) if lay else dense
+            return lf
+
+        def wbytes(k, o):     # values + meta or index (+ scale)
+            kc = k * n // 4
+            extra = kc * o // 4 if layout == "compressed" else 4 * kc if layout == "gather" else 0
+            return esz * kc * o + extra + (4 * o if qdtype is not None else 0)
+
+        def lib_call(x, xs, lf):
+            """The library call and its operands for one weight."""
+            xl = gather_columns(x, lf["gather_idx"], n) if layout == "gather" else x
+            if qdtype is None:
+                return torch.matmul, (xl, lf["lib"])
+            if int8:
+                return int_mm_padded, (xl, lf["lib"])
+            r16 = -(-m // 16) * 16
+            return scaled_mm, (pad_rows(xl, r16), lf["lib"], pad_rows(xs, r16, 1.0),
+                               lf["scales"][0])
+
+        for k, o, site in prefill_gemm_sites(base_cfg):
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            x, xs = (x, None) if qdtype is None else quantize_rows(x, qdtype)
+            xsc = () if qdtype is None else (xs,)
+            kw = {} if qdtype is None else {"out_dtype": bf16}
+            kc = k * n // 4
+            xbytes = esz * m * k + (4 * m if qdtype is not None else 0)
+            if site == "dual":
+                name = f"{DUAL_BASES[layout]}{sfx}"
+                fn = getattr(km, name)
+                ref = getattr(rm, f"{modname}_dual{sfx}_ref")
+                pairs = [(leaf(k, o), leaf(k, o)) for _ in range(copies_for(2 * wbytes(k, o)))]
+
+                def call(f, x_, g, u):
+                    return f(x_, *g["ops"], *u["ops"], *nn, *xsc, *g["scales"], *u["scales"],
+                             **kw)
+                ops = [(x, g, u) for g, u in pairs]
+                lib_fn = lib_call(x, xs, pairs[0][0])[0]
+                lib_ops = [lib_call(x, xs, g)[1] + lib_call(x, xs, u)[1] for g, u in pairs]
+                half = len(lib_ops[0]) // 2
+                nbytes, flops = xbytes + 2 * wbytes(k, o) + 2 * m * o, 4 * m * kc * o
+                library = "two calls (gate, up)"
+
+                def lib(*a, f=lib_fn, h=half):
+                    return f(*a[:h]), f(*a[h:])
+            else:
+                name = f"{base}{sfx}"
+                fn = getattr(km, name)
+                ref = getattr(rm, f"{modname}{sfx}_ref")
+                epi = {"epilogue": gelu} if site == "gelu" else {}
+                lfs = [leaf(k, o) for _ in range(copies_for(wbytes(k, o)))]
+
+                def call(f, x_, lf, epi=epi):
+                    return f(x_, *lf["ops"], *xsc, *lf["scales"], *nn, **epi, **kw)
+                if qdtype is not None:
+                    # the raw accumulator: int8 exact, e4m3 fp32 sums in another order
+                    lf0 = lfs[0]
+                    raw = fn(x, *lf0["ops"], None, None, *nn)
+                    raw_ref = ref(x, *lf0["ops"], None, None, *nn)
+                    torch.cuda.synchronize()
+                    raw_err = scaled_err(raw, raw_ref)
+                    if raw.dtype != raw_ref.dtype or (int8 and not torch.equal(raw, raw_ref)) \
+                            or not raw_err <= TOL:
+                        fail(f"{name} B={m} K={k} O={o} n={n}: raw accumulator off its "
+                             f"plain version ({raw.dtype}, scaled error {raw_err:.3e})")
+                ops = [(x, lf) for lf in lfs]
+                lib, lib_ops = lib_call(x, xs, lfs[0])[0], [lib_call(x, xs, lf)[1] for lf in lfs]
+                nbytes, flops = xbytes + wbytes(k, o) + 2 * m * o, 2 * m * kc * o
+                library = "pre-gathered X" if layout == "gather" else "same operands"
+
+            def run(*a, f=fn, c=call):
+                return c(f, *a)
+
+            def plain(*a, f=ref, c=call):
+                return c(f, *a)
+            before = fn.launches
+            got = run(*ops[0])
+            torch.cuda.synchronize()
+            if fn.launches != before + 1:
+                fail(f"{name}: the wrapper did not count its launch")
+            want = plain(*ops[0])
+            extra = {"bitwise": bool(torch.equal(got, want))} if int8 and site == "gelu" else {}
+            record(name, m, k, o, n, got, want, time_ms(run, ops, calls=8),
+                   time_ms(plain, ops, calls=8), time_ms(lib, lib_ops, calls=8), nbytes, flops,
+                   peak=peak, exact=int8 and site != "gelu", prefill=base_cfg.name,
+                   site=site, library=library + (", no gelu" if site == "gelu" else ""), **extra)
+            del ops, lib_ops
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def prefill_run(base_cfg, layout, sparsity, qdtype, depth, batch_shape, card_line):
+    """One forward of the prefill path (``models.make_prefill_step``) at
+    full width: prepare (layout conversion, weight quantization; no static
+    scales: the JAX package calibrates only over tokens), the dispatch
+    plan (every linear site on a cuda kernel of its layout and class), one
+    counted forward (counts zeroed just before and read just after: the
+    layout's kernels and flash_attention once per layer, nothing else),
+    the latency (median of PREFILL_REPEATS, CUDA events), one profiled
+    forward (device busy vs wall) and the torch tier's logits on the same
+    params (scaled error, argmax agreement; the torch tier's chunked
+    attention takes the config's causal flag, so a kernel run with the
+    other branch would miss the limit by far: row 0 of a causal run sees
+    one key, of a non-causal run all of them)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels, serving
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import init_params, make_prefill_step
+
+    tag = (f"{base_cfg.name}/" + ("gather-" if layout == "gather" else "")
+           + (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense")
+           + (f"/{qdtype}" if qdtype else ""))
+    spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype)
+    cfg = spec.apply_to(dataclasses.replace(base_cfg,
+                                            num_layers=depth or base_cfg.num_layers))
+    b, t_in = batch_shape
+    seq = t_in + cfg.num_patches
+    log(f"[{tag}] depth: {cfg.num_layers} layers (d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim}, {cfg.act}, "
+        f"{'causal' if cfg.causal else 'non-causal'}, frontend {cfg.frontend}); batch "
+        f"{b} x {seq}" + (f" ({cfg.num_patches} patches + {t_in} tokens)"
+                         if cfg.num_patches else " frames"))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        prepared = serving.prepare(params, spec, cfg=cfg)
+        del params
+        torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    report = prepared.dispatch_report(batches=(b * seq,))
+    log(f"[{tag}] init + prepare {time.perf_counter() - t0:.1f}s, {weights_gb:.2f} GB "
+        f"allocated; dispatch engine plan at {b * seq} rows:")
+    for line in report:
+        log(line)
+    want = f"{KINDS[layout]}{'_' + qdtype if qdtype else ''}[cuda]"
+    off = [line for line in report if want not in line]
+    if off:
+        fail(f"[{tag}] {len(off)} linear site(s) off the {want} kernels: {off[0]}")
+    single, dual = LAYOUT_KERNELS[layout, qdtype, False]
+    expected = (single, "flash_attention") + ((dual,) if cfg.act == "swiglu" else ())
+
+    batch = prefill_batch(cfg, b, t_in)
+    step = make_prefill_step(cfg)
+
+    def forward():
+        return step(prepared.params, batch)
+
+    t1 = time.perf_counter()
+    with torch.inference_mode(), prepared.activate():
+        forward()                                  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        logits = forward()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ms = []
+        for _ in range(PREFILL_REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        _, kern, wall_ms = device_profile(forward, 1,
+                                          [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with torch.inference_mode(), dispatch.use_dispatch(backend="torch"):
+        ref = forward()
+    torch.cuda.synchronize()
+    log(f"[{tag}] launches: {json.dumps({k: c for k, c in counts.items() if c})}")
+    check_launches(tag, counts, expected)
+    if counts["flash_attention"] != cfg.num_layers:
+        fail(f"[{tag}] flash_attention launched {counts['flash_attention']} times, not "
+             f"once per layer ({cfg.num_layers})")
+    if tuple(logits.shape) != (b, seq, cfg.vocab_size) or not torch.isfinite(logits).all():
+        fail(f"[{tag}] logits of shape {tuple(logits.shape)}, finite: "
+             f"{bool(torch.isfinite(logits).all())}")
+    tol = {None: TIER_TOL, "int8": INT8_TIER_TOL, "fp8": FP8_TIER_TOL}[qdtype]
+    err = scaled_err(logits, ref)
+    agree = (logits.float().argmax(-1) == ref.float().argmax(-1)).float().mean().item()
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 if kern else None
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    median = sorted(ms)[len(ms) // 2]
+    unit = "frames" if cfg.frontend == "audio_frames" else "tokens"
+    res = {"run": tag, "arch": cfg.name, "num_layers": cfg.num_layers, "batch": [b, seq],
+           "weights_gb": weights_gb, "forward_ms_median": median, "forward_ms": ms,
+           f"{unit}_per_s": b * seq / (median / 1e3),
+           "kernel_launches_per_forward": sum(counts.values()),
+           "device_launches_per_forward": sum(e.count for e in kern),
+           "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": None if busy_ms is None else busy_ms / wall_ms,
+           "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+           "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                            "calls": e.count} for e in top],
+           "tier_scaled_err": err, "tier_tolerance": tol, "argmax_agreement": agree,
+           "positions": b * seq, "launches": counts, "card": card_line}
+    log(json.dumps(res))
+    log(f"[{tag}] seconds: prepare and plan {t1 - t0:.1f}, forwards, profile and torch "
+        f"tier {time.perf_counter() - t1:.1f}")
+    if not (err <= tol):
+        fail(f"[{tag}] cuda vs torch tier logits differ: {err:.4f} > {tol}")
+    return res
+
+
 # --------------------------------------------------------------- main
 def layer_decode(rows, kernel, n, b, shapes):
     """Sum of one layer's decode-step launches of ``kernel`` at batch b."""
@@ -1884,11 +2223,15 @@ def main():
     t0 = time.perf_counter()
     attention_phase(cfg, gen, card_line, rows)
     attention_phase(gemma_cfg, gen, card_line, rows)
+    hubert_cfg, phi3_cfg = get_config(HUBERT_ARCH), get_config(PHI3_ARCH)
+    attention_phase(hubert_cfg, gen, card_line, rows, HUBERT_ATTN_SHAPES)
+    attention_phase(phi3_cfg, gen, card_line, rows, PHI3_ATTN_SHAPES)
     log(f"attention phase {time.perf_counter() - t0:.1f}s")
     for q, dt in QDTYPES.items():
         log(f"activation quantize pass, {q} (one call, B=8, K={cfg.d_model}): "
             f"{json.dumps(quantize_pass(cfg.d_model, dt))}")
 
+    t_serving = time.perf_counter()
     served, tiers, launches = [], [], {}
     moe_cfg = get_config(MOE_ARCH)
     runs = [(cfg, layout, sparsity, qdtype, static, depth, None, {})
@@ -1897,7 +2240,7 @@ def main():
              for path, layout, sparsity, qdtype, static in MOE_RUNS]
     runs += [(gemma_cfg, *run, None, GEMMA_SERVE) for run in GEMMA_RUNS]
     runs += [(get_config(STARCODER_ARCH), *run, None, {}) for run in STARCODER_RUNS]
-    flash_d256 = 0          # flash_attention launches at head_dim 256 (gemma3's)
+    flash_by_d = {}         # flash_attention launches by head_dim
     for base, layout, sparsity, qdtype, static, depth, path, opts in runs:
         t0 = time.perf_counter()
         res, tier = serve_layout(base, layout, sparsity, qdtype, static, depth, path, **opts)
@@ -1909,10 +2252,31 @@ def main():
         for counts in run_counts:
             for name, cnt in counts.items():
                 launches[name] = launches.get(name, 0) + cnt
-            if base.head_dim == 256:
-                flash_d256 += counts["flash_attention"]
+            flash_by_d[base.head_dim] = (flash_by_d.get(base.head_dim, 0)
+                                         + counts["flash_attention"])
         torch.cuda.empty_cache()
         log(f"[{res['layout']}] phase {time.perf_counter() - t0:.1f}s")
+    log(f"serving phase {time.perf_counter() - t_serving:.1f}s")
+
+    t0 = time.perf_counter()
+    prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
+    prefill_kernel_phase(phi3_cfg, PHI3_RUNS, PHI3_BATCH, gen, card_line, rows)
+    log(f"prefill kernel phase {time.perf_counter() - t0:.1f}s")
+    t_prefill = time.perf_counter()
+    prefill = []
+    runs = [(hubert_cfg, *run, HUBERT_BATCH) for run in HUBERT_RUNS]
+    runs += [(phi3_cfg, *run, PHI3_BATCH) for run in PHI3_RUNS]
+    for base, layout, sparsity, qdtype, depth, batch_shape in runs:
+        t0 = time.perf_counter()
+        res = prefill_run(base, layout, sparsity, qdtype, depth, batch_shape, card_line)
+        prefill.append(res)
+        for name, cnt in res["launches"].items():
+            launches[name] = launches.get(name, 0) + cnt
+        flash_by_d[base.head_dim] = (flash_by_d.get(base.head_dim, 0)
+                                     + res["launches"]["flash_attention"])
+        torch.cuda.empty_cache()
+        log(f"[{res['run']}] phase {time.perf_counter() - t0:.1f}s")
+    log(f"prefill phase {time.perf_counter() - t_prefill:.1f}s")
 
     d, ff = cfg.d_model, cfg.d_ff
     singles = [(d, cfg.attn_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.attn_dim, d), (ff, d)]
@@ -1986,12 +2350,21 @@ def main():
                                f"unfused_ms: the kernel storing bf16 then the static "
                                f"quantize pass; library on the {r['library']}"})
     # flash_attention at the calibration forward's shape (one layer's launch):
-    # internlm2-1.8b's head_dim 128, and gemma3-1b's 256
-    for name, hd, count in (("flash_attention", cfg.head_dim,
-                             launches["flash_attention"] - flash_d256),
-                            ("flash_attention_d256", gemma_cfg.head_dim, flash_d256)):
+    # internlm2-1.8b's head_dim 128, and gemma3-1b's 256; then one layer's
+    # prefill launch: hubert-xlarge's non-causal 80 and phi-3-vision's 96
+    new_d = (gemma_cfg.head_dim, hubert_cfg.head_dim, phi3_cfg.head_dim)
+    for name, hd, count, shape, what in (
+            ("flash_attention", cfg.head_dim,
+             sum(c for d_, c in flash_by_d.items() if d_ not in new_d), ATTN_SHAPES[0],
+             "calibration"),
+            ("flash_attention_d256", gemma_cfg.head_dim, flash_by_d.get(256, 0),
+             ATTN_SHAPES[0], "calibration"),
+            ("flash_attention_d80_noncausal", hubert_cfg.head_dim,
+             flash_by_d.get(hubert_cfg.head_dim, 0), HUBERT_ATTN_SHAPES[0], "prefill"),
+            ("flash_attention_d96", phi3_cfg.head_dim, flash_by_d.get(phi3_cfg.head_dim, 0),
+             PHI3_ATTN_SHAPES[0], "prefill")):
         r = next(r for r in rows if r["kernel"] == "flash_attention" and r["D"] == hd
-                 and (r["B"], r["T"]) == ATTN_SHAPES[0])
+                 and (r["B"], r["T"]) == shape)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES["attention"],
             "replaces": REPLACES[name], "launches": count,
@@ -1999,8 +2372,9 @@ def main():
                                if x["kernel"] == "flash_attention" and x["D"] == hd),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "measured_as": f"one layer's calibration launch: B={r['B']}, T={r['T']}, "
-                           f"{r['Hq']} query / {r['Hkv']} KV heads, D={r['D']}"})
+            "measured_as": f"one layer's {what} launch: B={r['B']}, T={r['T']}, "
+                           f"{r['Hq']} query / {r['Hkv']} KV heads, D={r['D']}, "
+                           f"{'causal' if r['causal'] else 'non-causal'}"})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(card())

@@ -2,7 +2,8 @@
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family config for CPU tests.
-The dense and MoE families are ported so far.
+The dense, MoE, audio (encoder) and vlm (vision-prefix) families are
+ported so far.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = ("internlm2_1_8b", "gemma3_1b", "starcoder2_3b", "mistral_large_123b",
-            "qwen3_moe_235b_a22b", "dbrx_132b")
+            "qwen3_moe_235b_a22b", "dbrx_132b", "hubert_xlarge", "phi_3_vision_4_2b")
 
 
 def _module(arch_id: str):

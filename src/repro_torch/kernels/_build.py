@@ -74,7 +74,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
     },
     "flash_attention.cu": {
-        "vg_flash_attention": (_P,) * 4 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+        "vg_flash_attention": (_P,) * 4 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
     },
 }
 

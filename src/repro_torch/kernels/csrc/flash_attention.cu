@@ -1,6 +1,6 @@
-// Hand-written Hopper (sm_90a) causal flash attention for repro_torch:
-// online-softmax attention over (B, Hq, T, D) bf16 with grouped KV heads,
-// for head_dim D in {64, 128, 256}.
+// Hand-written Hopper (sm_90a) flash attention for repro_torch, causal or
+// not: online-softmax attention over (B, Hq, T, D) bf16 with grouped KV
+// heads, for head_dim D in {64, 80, 96, 128, 256}.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   flash_attention  repro/kernels/flash_attention/kernel.py::flash_attention
@@ -8,11 +8,15 @@
 //                    flash_attention/ops.py)
 //
 // What it computes, as the TPU kernel does: for each query row, over KV
-// blocks in order, s = (q . k) * scale in fp32, the causal mask q_pos >=
-// k_pos (top-left aligned) with masked scores at -1e30, a running max m, a
-// running sum l += sum(exp(s - m_new)) in fp32, and an fp32 accumulator
+// blocks in order, s = (q . k) * scale in fp32, with CAUSAL the mask q_pos
+// >= k_pos (top-left aligned) with masked scores at -1e30, a running max m,
+// a running sum l += sum(exp(s - m_new)) in fp32, and an fp32 accumulator
 // acc = acc * alpha + bf16(p) @ v; at the end o = acc / l (l == 0 read as
-// 1), cast to bf16 once.  KV blocks wholly above the diagonal are skipped.
+// 1), cast to bf16 once.  Causal: KV blocks wholly above the diagonal are
+// skipped.  Not causal (an encoder, the TPU kernel's causal=False branch):
+// every block runs to T; keys at or past T (the zero-filled ragged edge)
+// stay masked in both branches, so a ragged T never lets a zero key into
+// the softmax.
 //
 // Layout.  One block of 128 threads (4 warps) owns 64 query rows of one
 // (batch, query head); warp w owns rows 16w..16w+15.  GQA: the block reads
@@ -32,15 +36,17 @@
 // element-to-row map is opaque); then the warp adds bf16(p) @ V into the
 // accumulator with wmma.
 //
-// What bounds it on an H100.  Causal attention does 4 * D flops per
-// (query, key) pair at or below the diagonal and moves q, k, v and o once:
+// What bounds it on an H100.  Attention does 4 * D flops per (query, key)
+// pair it scores (causal: those at or below the diagonal; not causal: all
+// T^2: hubert-xlarge's 8 x 500 frames, 16 heads of 80, come to 10.2 GFLOP
+// on 41 MB, bytes-bound at 12.2 us) and moves q, k, v and o once:
 // at prefill (T = 2048, D = 128, 16 query heads over 8 KV heads) that is
 // 17.2 GFLOP on 25 MB, above the bf16 ridge (~295 flop/byte), so the
 // tensor-core rate bounds it (17.4 us at 989 TFLOP/s); at the calibration
 // shape (T = 32) the bytes do.  What the design does about it: the S and P tiles never leave
 // the SM (the T x T score matrix is never written to device memory), K and
-// V are read once per 64 query rows, and blocks above the diagonal are
-// skipped.  It is far from that bound: wmma instead of wgmma, no TMA or
+// V are read once per 64 query rows, and causal blocks above the diagonal
+// are skipped.  It is far from that bound: wmma instead of wgmma, no TMA or
 // cp.async pipeline, and the accumulator round-trips through shared memory
 // every KV step.  Making it fast is later work.
 
@@ -59,13 +65,18 @@ constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
 // Shared-memory layout for head_dim D (byte offsets; every buffer starts on
-// a 128-byte boundary and every wmma tile pointer on a 32-byte one).  BYTES:
-// 71,680 for D = 64, 112,640 for D = 128 and 194,560 for D = 256 (gemma3's
-// head_dim: Q, K and V at 64 x 264 bf16, the scores at 64 x 68 fp32, P at
-// 64 x 72 bf16, the accumulator at 64 x 260 fp32), all under the 227 KB a
-// block may opt into, so D = 256 runs one block per SM.
+// a 128-byte boundary and every wmma tile pointer on a 32-byte one: a
+// 16-row step of the bf16 tiles is 32 * (D + 8) bytes and of the fp32
+// accumulator 64 * (D + 4), both multiples of 32 for D a multiple of 16,
+// and a 16-column step is 32 or 64 bytes).  BYTES: 71,680 for D = 64,
+// 81,920 for D = 80 (hubert-xlarge), 92,160 for D = 96 (phi-3-vision), so
+// two blocks fit per SM; 112,640 for D = 128 and 194,560 for D = 256
+// (gemma3's head_dim: Q, K and V at 64 x 264 bf16, the scores at 64 x 68
+// fp32, P at 64 x 72 bf16, the accumulator at 64 x 260 fp32), all under
+// the 227 KB a block may opt into, so D = 256 runs one block per SM.
 template <int D>
 struct Smem {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of the wmma k-step");
   static constexpr int LDH = D + 8;       // bf16 pitch of the Q, K and V tiles
   static constexpr int LDS = BKV + 4;     // fp32 pitch of the score tile
   static constexpr int LDP = BKV + 8;     // bf16 pitch of the probability tile
@@ -80,7 +91,8 @@ struct Smem {
 };
 
 // Rows r0 .. r0+63 of one (T, D) head slice (row stride st elements) into a
-// shared tile of pitch D + 8, 16 bytes per load; rows >= t read as zero.
+// shared tile of pitch D + 8, 16 bytes per load (D / 8 of them a row: 10
+// for D = 80, 12 for D = 96); rows >= t read as zero.
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long st, int r0, int t, int tid) {
@@ -94,7 +106,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -129,14 +141,16 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   for (int e = tid; e < BQ * L::LDO; e += NTHREADS) os[e] = 0.f;
 
   // two lanes per query row: lane pair (2i, 2i+1) owns local row 16w + i,
-  // each lane half of its scores and half of its output columns
+  // each lane half of its scores and half of its D output columns (40 for
+  // D = 80, 48 for D = 96)
   const int rl = warp * 16 + (lane >> 1);
   const int half = lane & 1;
   const int qpos = q0 + rl;
   float m = NEG_INF;
   float l = 0.f;
-  // keys [0, kv_end): blocks past this block's last row are wholly masked
-  const int kv_end = min(t, q0 + BQ);
+  // keys [0, kv_end): causal, blocks past this block's last row are wholly
+  // masked; not causal, every key up to T is scored
+  const int kv_end = CAUSAL ? min(t, q0 + BQ) : t;
 
   for (int k0 = 0; k0 < kv_end; k0 += BKV) {
     __syncthreads();     // the previous step is done with K and V (and Q, O are ready)
@@ -174,7 +188,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     for (int c = 0; c < 32; ++c) {
       const int kpos = k0 + half * 32 + c;
       float s = __fmul_rn(srow[c], scale);
-      if (kpos > qpos || kpos >= t) s = NEG_INF;
+      if ((CAUSAL && kpos > qpos) || kpos >= t) s = NEG_INF;
       sv[c] = s;
       mx = fmaxf(mx, s);
     }
@@ -225,7 +239,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int t,
            long long q_sb, long long q_sh, long long q_st, long long k_sb, long long k_sh,
            long long k_st, long long v_sb, long long v_sh, long long v_st, long long o_sb,
@@ -234,43 +248,61 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+        flash_attention_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
   const dim3 grid((t + BQ - 1) / BQ, hq, b);
-  flash_attention_kernel<D><<<grid, NTHREADS, Smem<D>::BYTES, static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_kernel<D, CAUSAL><<<grid, NTHREADS, Smem<D>::BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), hq, hkv, t, q_sb,
       q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation for head_dim d; cudaErrorInvalidValue for any other d.
+template <bool CAUSAL>
+int launch_d(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
+             int t, int d, long long q_sb, long long q_sh, long long q_st, long long k_sb,
+             long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
+             long long o_sb, long long o_sh, long long o_st, float scale, void* stream) {
+#define VG_FLASH_LAUNCH(DIM)                                                                  \
+  return launch<DIM, CAUSAL>(q, k, v, o, b, hq, hkv, t, q_sb, q_sh, q_st, k_sb, k_sh, k_st,   \
+                             v_sb, v_sh, v_st, o_sb, o_sh, o_st, scale, stream)
+  switch (d) {
+    case 64: VG_FLASH_LAUNCH(64);
+    case 80: VG_FLASH_LAUNCH(80);
+    case 96: VG_FLASH_LAUNCH(96);
+    case 128: VG_FLASH_LAUNCH(128);
+    case 256: VG_FLASH_LAUNCH(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VG_FLASH_LAUNCH
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Launches on the given stream,
 // allocates nothing, and returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).  Strides
-// are in elements; the head_dim of every operand is contiguous.
+// (cudaErrorInvalidValue for arguments the kernel does not take: a head_dim
+// outside {64, 80, 96, 128, 256}, no silent fallback).  causal is 0 or 1.
+// Strides are in elements; the head_dim of every operand is contiguous.
 extern "C" {
 
 int vg_flash_attention(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                       int hkv, int t, int d, long long q_sb, long long q_sh, long long q_st,
-                       long long k_sb, long long k_sh, long long k_st, long long v_sb,
-                       long long v_sh, long long v_st, long long o_sb, long long o_sh,
-                       long long o_st, float scale, void* stream) {
-  if (b <= 0 || t <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535)
+                       int hkv, int t, int d, int causal, long long q_sb, long long q_sh,
+                       long long q_st, long long k_sb, long long k_sh, long long k_st,
+                       long long v_sb, long long v_sh, long long v_st, long long o_sb,
+                       long long o_sh, long long o_st, float scale, void* stream) {
+  if (b <= 0 || t <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535 ||
+      (causal != 0 && causal != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 128)
-    return launch<128>(q, k, v, o, b, hq, hkv, t, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
-                       v_st, o_sb, o_sh, o_st, scale, stream);
-  if (d == 64)
-    return launch<64>(q, k, v, o, b, hq, hkv, t, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
-                      v_st, o_sb, o_sh, o_st, scale, stream);
-  if (d == 256)
-    return launch<256>(q, k, v, o, b, hq, hkv, t, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
-                       v_st, o_sb, o_sh, o_st, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (causal)
+    return launch_d<true>(q, k, v, o, b, hq, hkv, t, d, q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                          v_sb, v_sh, v_st, o_sb, o_sh, o_st, scale, stream);
+  return launch_d<false>(q, k, v, o, b, hq, hkv, t, d, q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                         v_sb, v_sh, v_st, o_sb, o_sh, o_st, scale, stream);
 }
 
 const char* vg_error_string(int code) {

@@ -50,6 +50,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import types
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -503,8 +504,9 @@ registry.register(KernelEntry(
 # --- flash attention: mode "attention", dims mapped as (b, ke, o) =
 # (T_q, T_k, head_dim), blocks = (query rows, keys, head_dim) of one
 # kernel step.  The Hopper kernel's own contract, not the TPU blocks of
-# the JAX package's _fit_flash: bf16, head_dim 64, 128 or 256, any T (the
-# ragged edge is masked in the kernel).
+# the JAX package's _fit_flash: bf16, head_dim in ``HEAD_DIMS`` (64, 80,
+# 96, 128, 256), any T (the ragged edge is masked in the kernel), causal or
+# not (``cfg.causal`` of the run, as the JAX package passes it).
 
 def _fit_flash(b, ke, o, n, m, dtype):
     from .flash_attention.kernel import HEAD_DIMS
@@ -515,7 +517,7 @@ def _fit_flash(b, ke, o, n, m, dtype):
 
 def _run_flash(x2, params, cfg, blocks, epilogue=None):
     from .flash_attention.kernel import flash_attention
-    return flash_attention(params["q"], params["k"], params["v"])
+    return flash_attention(params["q"], params["k"], params["v"], causal=cfg.causal)
 
 
 registry.register(KernelEntry(
@@ -820,9 +822,11 @@ def requant_plan(consumer_params: Dict[str, Any], batch_shape: Sequence[int], cf
     return result
 
 
-def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
-              p_bf16: bool = False, dispatch: Optional[DispatchConfig] = None) -> torch.Tensor:
-    """Full-sequence causal attention via the dispatch engine.
+def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              q_offset: int = 0, p_bf16: bool = False,
+              dispatch: Optional[DispatchConfig] = None) -> torch.Tensor:
+    """Full-sequence attention via the dispatch engine, causal or not
+    (an encoder's ``cfg.causal = False``).
 
     qg (B, Hkv, G, Tq, D) grouped queries; k, v (B, Tk, Hkv, D) ->
     (B, Hkv, G, Tq, D).  On a kernel backend the registry's
@@ -840,13 +844,13 @@ def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: i
                                 differentiating=_under_autodiff(qg, k, v),
                                 device=qg.device), dispatch=dcfg)
     if not decision.uses_kernel or tq != tk or q_offset != 0:
-        return chunked_attention(qg, k, v, q_offset, p_bf16)
+        return chunked_attention(qg, k, v, causal, q_offset, p_bf16)
     entry = _entry_by_name("attention", decision.kernel)
     # (B, Hkv, G, T, D) -> (B, Hq, T, D) and (B, T, Hkv, D) -> (B, Hkv, T, D):
     # views, no copies; the kernel maps query head h to KV head h // G
     out = entry.run(None, {"q": qg.reshape(b, hkv * grp, tq, d), "k": k.transpose(1, 2),
                            "v": v.transpose(1, 2)},
-                    None, decision.blocks)
+                    types.SimpleNamespace(causal=causal), decision.blocks)
     return out.reshape(b, hkv, grp, tq, d)
 
 

@@ -1,1 +1,1 @@
-"""Causal flash attention (port of ``repro.kernels.flash_attention``)."""
+"""Flash attention, causal or not (port of ``repro.kernels.flash_attention``)."""

@@ -1,4 +1,4 @@
-"""Causal flash attention on Hopper (CUDA source:
+"""Flash attention on Hopper, causal or not (CUDA source:
 ``kernels/csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention``
@@ -19,12 +19,14 @@ from .ref import flash_attention_ref
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
 #: the head_dims the kernel is compiled for
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``softmax(q k^T * D**-0.5 + causal mask) v`` per query head (the mask
-    ``q_pos >= k_pos``, aligned top-left).
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """``softmax(q k^T * D**-0.5 [+ causal mask]) v`` per query head (with
+    ``causal`` the mask ``q_pos >= k_pos``, aligned top-left; without it
+    every query scores every key, as an encoder does).
 
     q (B, Hq, T, D); k, v (B, Hkv, T, D) with Hq % Hkv == 0; any strides
     with the head_dim contiguous (the model passes views of its (B, T,
@@ -37,7 +39,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
                          f"v {tuple(v.shape)}")
     hkv = k.shape[1]
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, causal=causal)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} on {x.device}, q on {q.device}")
@@ -53,7 +55,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     with torch.cuda.device(q.device):
         rc = lib.vg_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv, t, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             d ** -0.5, _build.stream_of(q))
     flash_attention.launches += 1
     _build.check(rc, "flash_attention", lib)

@@ -3,8 +3,10 @@ formulation (that of the JAX package's ``_attn_kernel``, not of its
 oracle ``flash_attention/ref.py``, whose causal mask is aligned
 bottom-right and agrees with the kernel only at Tq == Tk):
 
-- s = (q . k) * D**-0.5 in fp32; causal mask ``q_pos >= k_pos`` aligned
-  top-left, masked scores at -1e30;
+- s = (q . k) * D**-0.5 in fp32; with ``causal`` the mask ``q_pos >=
+  k_pos`` aligned top-left, masked scores at -1e30 (without it, the TPU
+  kernel's ``causal=False`` branch, no mask: the keys are the Tk that
+  exist, so a ragged T adds none);
 - an online softmax over KV blocks of ``BLOCK_K`` keys: running max m,
   running sum l of the fp32 p, fp32 accumulator ``acc * alpha +
   p.to(v.dtype) @ v`` (p cast to the value dtype before the PV product);
@@ -21,7 +23,8 @@ NEG_INF = -1e30
 BLOCK_K = 64        # keys per online-softmax step, the kernel's BKV
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
     """q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D), Hq % Hkv == 0 -> (B, Hq, Tq, D)."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -36,8 +39,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     for k0 in range(0, tk, BLOCK_K):
         kj, vj = kf[:, :, k0:k0 + BLOCK_K], vf[:, :, k0:k0 + BLOCK_K]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kj) * scale
-        k_pos = k0 + torch.arange(kj.shape[2], device=q.device)
-        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+        if causal:
+            k_pos = k0 + torch.arange(kj.shape[2], device=q.device)
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)

@@ -1,6 +1,8 @@
-"""The dense and MoE decoders on the serving path (port of ``repro.models``)."""
+"""The dense and MoE decoders on the serving path, and the audio encoder and
+vision-prefix decoder on the prefill path (port of ``repro.models``)."""
 
 from .config import ModelConfig
+from .lm import make_prefill_step
 from .moe import apply_moe, init_moe
 from .paged import (init_paged_caches, paged_decode_step, paged_prefill_chunk,
                     reset_slot_state)
@@ -15,6 +17,7 @@ __all__ = [
     "init_moe",
     "init_params",
     "init_paged_caches",
+    "make_prefill_step",
     "paged_decode_step",
     "paged_prefill_chunk",
     "layer_site_keys",

@@ -2,7 +2,8 @@
 attention and the full-sequence attention sub-layer (port of the parts of
 ``repro.models.attention`` the serving path uses: the paged path's
 projections, and ``attention_block`` for ``transformer.forward``, which
-calibration runs).  ``attention_block`` routes a global layer, or a local
+calibration and ``lm.make_prefill_step`` run; causal, or not for an
+encoder).  ``attention_block`` routes a global layer, or a local
 one whose window covers the sequence, through the dispatch engine
 (``kernels.dispatch.attention``): the hand-written ``flash_attention``
 kernel on the cuda backend, :func:`chunked_attention` otherwise; a local
@@ -54,10 +55,12 @@ def _grouped(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return q.reshape(b, t, cfg.num_kv_heads, g, d).permute(0, 2, 3, 1, 4)
 
 
-def chunked_attention(q, k, v, q_offset: int = 0, p_bf16: bool = False) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks of ``ATTN_CHUNK`` keys
-    in plain torch (the forward of the JAX package's ``_attn_fwd_impl``;
-    the port serves, so it keeps no log-sum-exp for a backward).
+def chunked_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                      p_bf16: bool = False) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``ATTN_CHUNK`` keys in
+    plain torch, causal or not (the forward of the JAX package's
+    ``_attn_fwd_impl``; the port serves, so it keeps no log-sum-exp for a
+    backward).
     q (B, Hkv, G, Tq, D) holds queries at positions ``q_offset + i``; k, v
     (B, Tk, Hkv, D) -> (B, Hkv, G, Tq, D) in q's dtype."""
     b, hkv, g, tq, d = q.shape
@@ -76,8 +79,9 @@ def chunked_attention(q, k, v, q_offset: int = 0, p_bf16: bool = False) -> torch
         kj = k[:, j * chunk:(j + 1) * chunk].transpose(1, 2).float()    # (B,Hkv,C,D)
         vj = v[:, j * chunk:(j + 1) * chunk].transpose(1, 2).float()
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kj)
-        k_pos = j * chunk + torch.arange(chunk, device=q.device)
-        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+        if causal:
+            k_pos = j * chunk + torch.arange(chunk, device=q.device)
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         if p_bf16:
@@ -128,11 +132,12 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
 
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, is_global: bool = True,
                     positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal attention sub-layer for a prefill/forward.  x: (B, T, d).
-    The JAX package's branch: a global layer, or a window that is off or
-    covers the sequence, goes to the dispatch engine (flash_attention on
-    the cuda backend); a local layer with a shorter window to
-    :func:`local_attention`."""
+    """Attention sub-layer for a prefill/forward, causal unless the config
+    is an encoder's (``cfg.causal``).  x: (B, T, d).  The JAX package's
+    branch: a global layer, or a window that is off or covers the
+    sequence, goes to the dispatch engine (flash_attention on the cuda
+    backend); a local layer with a shorter window to
+    :func:`local_attention` (causal, as in the JAX package)."""
     from ..kernels.dispatch import attention as engine_attention   # local: avoid a cycle
 
     b, t, _ = x.shape
@@ -140,7 +145,8 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, is_global: 
         positions = torch.arange(t, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     if is_global or cfg.window <= 0 or cfg.window >= t:
-        o = engine_attention(_grouped(q, cfg), k, v, p_bf16=cfg.attn_p_bf16)
+        o = engine_attention(_grouped(q, cfg), k, v, causal=cfg.causal,
+                             p_bf16=cfg.attn_p_bf16)
     else:
         o = local_attention(_grouped(q, cfg), k, v, window=cfg.window,
                             p_bf16=cfg.attn_p_bf16)

@@ -1,9 +1,9 @@
-"""Model configuration for the dense and MoE decoder families (port of
-``repro.models.config``).
+"""Model configuration for the dense and MoE decoder families, the audio
+encoder and the vision-prefix decoder (port of ``repro.models.config``).
 
 Field names, defaults and meanings are the JAX package's, for the fields
-the ported families read (the local/global attention pattern of gemma3
-included; ``causal`` waits for the encoder families); ``torch_dtype``
+the ported families read (the local/global attention pattern of gemma3,
+``causal`` and the modality ``frontend`` stubs included); ``torch_dtype``
 replaces ``jnp_dtype``.
 """
 
@@ -21,7 +21,7 @@ __all__ = ["ModelConfig"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe (the families ported so far)
+    family: str                 # dense | moe | audio | vlm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -39,11 +39,15 @@ class ModelConfig:
     # activation sparsity the masked kernels skip)
     moe_expert_path: str = "gather"
     # --- attention pattern ---
+    causal: bool = True
     window: int = 0             # >0: sliding-window size for "local" layers
     local_global_period: int = 0  # e.g. 6 for gemma3's 5:1 (every 6th global)
     act: str = "swiglu"         # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    # --- modality frontend (a stub: the caller provides the embeddings) ---
+    frontend: str = "none"      # none | audio_frames | vision_patches
+    num_patches: int = 0        # vlm: image tokens per sample
     # --- sparsity (the paper's feature) ---
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
     # --- numerics ---
@@ -53,6 +57,10 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def is_encoder(self) -> bool:
+        return not self.causal
 
     @property
     def attn_dim(self) -> int:

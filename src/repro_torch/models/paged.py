@@ -33,6 +33,7 @@ Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
 __all__ = [
+    "check_paged",
     "init_paged_caches",
     "paged_decode_step",
     "paged_prefill_chunk",
@@ -40,11 +41,24 @@ __all__ = [
 ]
 
 
+def check_paged(cfg: ModelConfig) -> None:
+    """The paged path embeds token ids and attends causally: it refuses a
+    config that takes embeddings through a frontend (``audio_frames``,
+    ``vision_patches``) or attends both ways.  Those run their prefill
+    forward through ``models.make_prefill_step``."""
+    if cfg.frontend != "none" or not cfg.causal:
+        raise ValueError(
+            f"{cfg.name}: the paged serving path takes token ids and attends causally; "
+            f"frontend {cfg.frontend!r} / causal={cfg.causal} runs through "
+            f"models.make_prefill_step")
+
+
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_len: int,
                       device=None) -> List[Cache]:
     """One ``{"k", "v"}`` pool pair per layer; ``num_blocks`` includes the
     scratch block 0.  (The JAX package's ``batch`` argument sizes SSM
     state, which the dense family has none of.)"""
+    check_paged(cfg)
     shape = (num_blocks, block_len, cfg.num_kv_heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}

@@ -1,4 +1,5 @@
-"""The dense and MoE decoder stacks (port of the serving parts of
+"""The dense and MoE decoder stacks, the audio encoder and the
+vision-prefix decoder (port of the serving and prefill parts of
 ``repro.models.transformer``).
 
 Parameter layout.  The JAX package stacks each layout slot's layers
@@ -13,14 +14,16 @@ then repeat ``r``)::
 
 A MoE layer's ``ffn`` is ``{"router": (d, E) fp32, "w_in", "w_gate",
 "w_out"}`` with every expert linear stacked along a leading E dim
-(``models.moe``).
+(``models.moe``).  An audio encoder (``frontend="audio_frames"``) has a
+``frame_proj`` (d, d) in place of ``embed``.
 
 ``repro_torch.interop.params_from_numpy`` maps a JAX tree onto it.
 :func:`layer_site_keys` names each layer's (stage, slot), the unit the
 JAX package's stacked leaves share (calibration folds over it).
 
 :func:`forward` is the full-sequence forward (logits for every position;
-serving prepare runs it to calibrate static activation scales);
+serving prepare runs it to calibrate static activation scales, and
+``lm.make_prefill_step`` wraps it);
 :func:`cached_stack` walks the same per-layer body with a cache-threading
 mixer for the paged serving path.
 """
@@ -28,7 +31,7 @@ mixer for the paged serving path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,12 +58,13 @@ class Stage:
 
 
 def build_layout(cfg: ModelConfig) -> Tuple[Stage, ...]:
-    """Stage/slot layout; the port serves the dense and MoE families (an
-    MoE config's FFN slot is ``"moe"``).  A local/global config (gemma3)
-    repeats ``period - 1`` local layers and one global layer per
-    super-block, then the remaining local layers in a stage of their own,
-    as the JAX package lays them out."""
-    if cfg.family not in ("dense", "moe"):
+    """Stage/slot layout; the port runs the dense and MoE families (an
+    MoE config's FFN slot is ``"moe"``) and the audio and vlm families,
+    which take the dense layout, as in the JAX package.  A local/global
+    config (gemma3) repeats ``period - 1`` local layers and one global
+    layer per super-block, then the remaining local layers in a stage of
+    their own, as the JAX package lays them out."""
+    if cfg.family not in ("dense", "moe", "audio", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.local_global_period > 0 and cfg.window > 0:
         p = cfg.local_global_period
@@ -105,7 +109,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     from ``jax.random``'s; parity tests carry the JAX package's params
     across with ``interop.params_from_numpy``."""
     dt = cfg.torch_dtype
-    params: Params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, device)}
+    params: Params = {}
+    if cfg.frontend != "audio_frames":
+        params["embed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, device)
+    else:
+        params["frame_proj"] = init_embedding(gen, cfg.d_model, cfg.d_model, dt, device)
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
                                            device).T.contiguous()
@@ -139,12 +147,24 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ unembed.to(x.dtype)
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, T, V), token frontend only.
+def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, T, V), with the JAX package's
+    frontends: ``audio_frames`` projects frame embeddings ``embeds`` (B, T,
+    d) through ``frame_proj`` (a plain matmul), ``vision_patches`` puts
+    the patch embeddings ``embeds`` (B, P, d) in front of the embedded
+    ``tokens`` (B, T - P), and the token frontend embeds ``tokens``.
     Attention runs through the dispatch engine (``flash_attention`` on
-    the cuda backend), a local layer's through the banded
-    ``local_attention`` when its window is shorter than the sequence."""
-    x = embed(params["embed"], tokens)
+    the cuda backend, causal unless ``cfg.causal`` is off), a local
+    layer's through the banded ``local_attention`` when its window is
+    shorter than the sequence."""
+    if cfg.frontend == "audio_frames":
+        x = embeds @ params["frame_proj"].to(embeds.dtype)
+    elif cfg.frontend == "vision_patches":
+        tok_x = embed(params["embed"], tokens)
+        x = torch.cat([embeds.to(tok_x.dtype), tok_x], dim=1)
+    else:
+        x = embed(params["embed"], tokens)
     for slot, lp in zip(layer_slots(cfg), params["layers"]):
         x, _ = _layer(lp, slot, x, cfg, lambda lp_, h, slot=slot: (
             attention_block(lp_["mixer"], h, cfg, is_global=slot.mixer == "attn"), None))

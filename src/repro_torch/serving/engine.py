@@ -102,6 +102,8 @@ class Engine:
     def __init__(self, prepared: Prepared):
         if prepared.cfg is None:
             raise ValueError("Engine needs a full model: prepare(..., cfg=cfg)")
+        from ..models.paged import check_paged
+        check_paged(prepared.cfg)
         self.prepared = prepared
         self.spec = prepared.spec
         self.cfg = prepared.cfg

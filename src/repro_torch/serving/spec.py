@@ -1,6 +1,7 @@
 """``ServingSpec`` + ``prepare``: the one offline-prep entry point (port of
-``repro.serving.spec`` for the dense and MoE families in the dense,
-compressed and gather layouts, float, int8 or fp8).
+``repro.serving.spec`` for the dense and MoE families, and the audio and
+vlm families' prefill, in the dense, compressed and gather layouts,
+float, int8 or fp8).
 
 ```python
 prepared = repro_torch.serving.prepare(params, ServingSpec(layout="gather",
@@ -197,6 +198,11 @@ def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
             if cfg is None or calib_tokens is None:
                 raise ValueError("static_scales needs cfg= and calib_tokens= at prepare() "
                                  "time (one representative prefill batch)")
+            if cfg.frontend != "none":
+                # the JAX package's prepare calibrates over calib_tokens alone
+                raise ValueError(f"static_scales calibrates over calib_tokens; a "
+                                 f"frontend={cfg.frontend!r} model takes embeddings, "
+                                 f"which prepare() has no calibration batch for")
             from ..core.quantize import _calibrate_activation_scales
             from ..models import forward, layer_site_keys
             tokens = calib_tokens.to(dev)

@@ -9,8 +9,10 @@
   blocks of another size, and the output's one bf16 rounding).
 - ``dispatch.attention``'s decisions against ``repro.kernels.dispatch``:
   the same declines (autodiff, the reference tier, Tq != Tk, a query
-  offset), and where the Hopper contract differs (bf16 only, head_dim 64
-  or 128) the port declines with NO_KERNEL_FITS, pinned below.
+  offset), and where the Hopper contract differs (bf16 only, head_dim in
+  ``HEAD_DIMS``: 64, 80, 96, 128, 256) the port declines with
+  NO_KERNEL_FITS, pinned below; non-causal, the same paths, and the
+  kernel's plain version gives the Pallas kernel's output.
 - ``chunked_attention`` and ``transformer.forward`` logits against the
   JAX package's on its jnp tier (the port's torch tier): fp32 <= 1e-4
   scaled, bf16 <= 3e-2, float dense and 2:4.
@@ -36,7 +38,7 @@ from repro.models import init_params
 from repro.models.attention import chunked_attention as j_chunked
 from repro_torch import kernels
 from repro_torch.kernels import dispatch as td
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.reasons import ReasonCode
 from repro_torch.models import forward as t_forward
@@ -93,7 +95,7 @@ def test_chunked_attention_matches_the_reference(dtype, q_offset, tq):
     qg = qg[:, :, :, :tq]
     jdt = jnp_dtype(dtype)
     want = j_chunked(*(jnp.asarray(a).astype(jdt) for a in (qg, k, v)), True, 16, q_offset)
-    got = t_chunked(*(from_np(a, dtype) for a in (qg, k, v)), q_offset)
+    got = t_chunked(*(from_np(a, dtype) for a in (qg, k, v)), q_offset=q_offset)
     assert_scaled_close(got, want, 1e-5 if dtype == "float32" else 2e-2)
 
 
@@ -105,7 +107,9 @@ ATTN_CASES = [
     (1, 2, 2, 64, 64, 64, "bfloat16", 0, True, "interpret"),      # autodiff
     (1, 2, 2, 64, 64, 64, "bfloat16", 0, False, "jnp"),           # reference tier
     (1, 2, 2, 64, 64, 64, "float32", 0, False, "interpret"),      # Hopper: bf16 only
-    (1, 2, 2, 64, 64, 32, "bfloat16", 0, False, "interpret"),     # Hopper: D 64 | 128
+    (1, 2, 2, 64, 64, 32, "bfloat16", 0, False, "interpret"),     # Hopper: D in HEAD_DIMS
+    (1, 2, 2, 40, 40, 80, "bfloat16", 0, False, "interpret"),     # hubert's D, ragged T
+    (1, 2, 2, 64, 64, 96, "bfloat16", 0, False, "interpret"),     # phi-3-vision's D
 ]
 BACKENDS = {"interpret": "cuda", "jnp": "torch"}
 
@@ -113,6 +117,26 @@ BACKENDS = {"interpret": "cuda", "jnp": "torch"}
 @pytest.mark.parametrize("b,hkv,g,tq,tk,d,dtype,q_offset,diff,jb", ATTN_CASES)
 def test_attention_dispatch_declines_like_the_reference(b, hkv, g, tq, tk, d, dtype,
                                                         q_offset, diff, jb, monkeypatch):
+    _dispatch_parity(b, hkv, g, tq, tk, d, dtype, q_offset, diff, jb, True, monkeypatch)
+
+
+# (B, Hkv, G, Tq, Tk, D, dtype, q_offset, differentiating, JAX backend): the
+# encoder's non-causal attention, on the kernel and on the reference tier
+NONCAUSAL_CASES = [
+    (2, 2, 2, 40, 40, 80, "bfloat16", 0, False, "interpret"),     # ragged T, GQA
+    (1, 4, 1, 64, 64, 80, "bfloat16", 0, False, "jnp"),
+]
+
+
+@pytest.mark.parametrize("b,hkv,g,tq,tk,d,dtype,q_offset,diff,jb", NONCAUSAL_CASES)
+def test_noncausal_attention_dispatch_matches_the_reference(b, hkv, g, tq, tk, d, dtype,
+                                                            q_offset, diff, jb, monkeypatch):
+    _dispatch_parity(b, hkv, g, tq, tk, d, dtype, q_offset, diff, jb, False, monkeypatch)
+
+
+def _dispatch_parity(b, hkv, g, tq, tk, d, dtype, q_offset, diff, jb, causal, monkeypatch):
+    """The two engines' plans and paths for one attention call; where the
+    JAX package runs, its output within the bf16 limit of TOLS."""
     import repro.models.attention as jattn
     import repro_torch.models.attention as tattn
 
@@ -122,7 +146,7 @@ def test_attention_dispatch_declines_like_the_reference(b, hkv, g, tq, tk, d, dt
                                   differentiating=diff),
                    dispatch=td.DispatchConfig(backend=BACKENDS[jb]))
     # where the Hopper kernel's contract differs from the TPU kernel's fit
-    hopper = jb == "interpret" and not diff and (dtype != "bfloat16" or d not in (64, 128))
+    hopper = jb == "interpret" and not diff and (dtype != "bfloat16" or d not in HEAD_DIMS)
     if hopper:
         assert jdec.uses_kernel and tdec.reason_code is ReasonCode.NO_KERNEL_FITS
     else:
@@ -137,20 +161,23 @@ def test_attention_dispatch_declines_like_the_reference(b, hkv, g, tq, tk, d, dt
                         lambda *a, **kw: ran["torch"].append(1) or treal(*a, **kw))
     qg, k, v = _grouped_inputs(3, b, hkv, g, tk, d, dtype)
     qg = qg[:, :, :, :tq]
-    if jb == "interpret" and not diff:
+    want = None
+    if not diff:
         with jd.use_dispatch(backend=jb):
-            jd.attention(*(jnp.asarray(a).astype(jnp_dtype(dtype)) for a in (qg, k, v)),
-                         causal=True, chunk=16, q_offset=q_offset)
+            want = jd.attention(*(jnp.asarray(a).astype(jnp_dtype(dtype)) for a in (qg, k, v)),
+                                causal=causal, chunk=16, q_offset=q_offset)
     tq_, tk_, tv_ = (from_np(a, dtype) for a in (qg, k, v))
     if diff:
         tq_.requires_grad_(True)
     with td.use_dispatch(backend=BACKENDS[jb]):
-        out = td.attention(tq_, tk_, tv_, q_offset=q_offset)
+        out = td.attention(tq_, tk_, tv_, causal=causal, q_offset=q_offset)
     assert out.shape == qg.shape
     want_chunked = not tdec.uses_kernel or tq != tk or q_offset != 0
     assert bool(ran["torch"]) == want_chunked
     if jb == "interpret" and not diff and not hopper:
         assert ran["jax"] == ran["torch"]
+    if want is not None:
+        assert_scaled_close(out.detach(), want, TOLS["bfloat16"])
 
 
 LAYOUTS = {"dense": JSp(mode="dense"), "2:4": JSp(n=2, m=4, mode="compressed")}

@@ -18,7 +18,10 @@ int8 duals within 1e-2 (silu's exp differs between the kernel and
 torch); the requantizing int8 duals to equal codes except |delta| <= 1
 on at most 0.1% of the elements (that ulp of silu can move a code whose
 y / scale sits on a rounding boundary); flash_attention within 2e-2
-scaled in bf16 (p rounded to bf16, sums in another order).  The fp8
+scaled in bf16 (p rounded to bf16, sums in another order), each row
+against its own max, causal and not, at head dims 64, 80, 96, 128 and
+256 (the non-causal D = 80 and causal D = 96 cases at ragged T; their
+CPU parity with the Pallas kernel is in ``tests/test_torch_encoder.py``).  The fp8
 kernels: raw fp32 accumulators, scaled outputs and duals within 1e-2
 (the sums run in another order), and the requantizing fp8 duals to
 equal e4m3 codes except one step on at most 0.1% of them.  Their CPU
@@ -474,28 +477,43 @@ def test_requant_dual_kernels_match_plain_on_card(cuda_device, b, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,hq,hkv,t,d", [(8, 16, 8, 32, 128), (1, 16, 8, 200, 128),
-                                          (2, 4, 2, 128, 64), (1, 16, 8, 512, 128),
-                                          (8, 4, 1, 32, 256), (1, 4, 1, 200, 256),
-                                          (1, 4, 1, 512, 256)])
-def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv, t, d):
+@pytest.mark.parametrize("b,hq,hkv,t,d,causal", [
+    (8, 16, 8, 32, 128, True), (1, 16, 8, 200, 128, True), (2, 4, 2, 128, 64, True),
+    (1, 16, 8, 512, 128, True), (8, 4, 1, 32, 256, True), (1, 4, 1, 200, 256, True),
+    (1, 4, 1, 512, 256, True),
+    # hubert-xlarge's non-causal D = 80 and phi-3-vision's causal D = 96,
+    # ragged in T but 512
+    (8, 16, 16, 500, 80, False), (2, 16, 16, 200, 80, False), (2, 4, 2, 100, 96, False),
+    (2, 32, 32, 200, 96, True), (1, 32, 32, 512, 96, True), (1, 4, 2, 100, 80, True),
+    (1, 16, 8, 200, 128, False)])
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv, t, d, causal):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     # views of (B, T, H, D) projections, as the model passes them
     q, k, v = (torch.randn((b, t, h, d), generator=g, device=cuda_device).bfloat16()
                .transpose(1, 2) for h in (hq, hkv, hkv))
     before = flash_attention.launches
-    got = flash_attention(q, k, v)
+    got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.shape == (b, hq, t, d) and got.dtype == torch.bfloat16
-    want = flash_attention_ref(q, k, v)
+    want = flash_attention_ref(q, k, v, causal=causal)
     assert_scaled_close(got, want, 2e-2)
     # and each row against its own size: a late row averages ~T keys and is
     # far smaller than row 0, which sets the whole output's max
     row_err = (got.float() - want.float()).abs().amax(-1) / want.float().abs().amax(-1)
     assert row_err.max().item() <= 2e-2
+    # the other branch is another function: it must not agree
+    other = flash_attention_ref(q, k, v, causal=not causal)
+    assert (got.float() - other.float()).abs().max().item() > 1e-1
     with pytest.raises(ValueError, match="bfloat16"):
-        flash_attention(q.float(), k, v)
+        flash_attention(q.float(), k, v, causal=causal)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_head_dim_outside_the_instantiations(cuda_device):
+    q = torch.zeros((1, 2, 64, 32), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_attention(q, q, q, causal=False)
 
 
 # ------------------------------------------------------ fp8 on the card

@@ -172,7 +172,7 @@ def test_params_from_numpy_keeps_the_expert_stacks():
 def test_build_layout_takes_moe_and_refuses_the_other_families():
     cfg = port_config(_cfg())
     assert [s.ffn for s in ttr.layer_slots(cfg)] == ["moe", "moe"]
-    for family in ("ssm", "hybrid", "audio", "vlm"):
+    for family in ("ssm", "hybrid"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ttr.build_layout(dataclasses.replace(cfg, family=family))
 

@@ -177,6 +177,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.models.moe, repro_torch.configs.qwen3_moe_235b_a22b\n"
         "import repro_torch.configs.dbrx_132b, repro_torch.configs.gemma3_1b\n"
         "import repro_torch.configs.starcoder2_3b, repro_torch.configs.mistral_large_123b\n"
+        "import repro_torch.models.lm, repro_torch.configs.hubert_xlarge\n"
+        "import repro_torch.configs.phi_3_vision_4_2b\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
