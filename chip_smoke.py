@@ -152,6 +152,31 @@ Phases, each of which fails the run on a miss:
              weight GB, forward latency (median of 3, CUDA events), frames
              or tokens per second, launches per forward and the device's
              busy share of one profiled forward.
+   k11     — the K-major gather K11 (nm_spmm_gather bf16 in / fp32 out,
+             nm_spmm_gather_int8 and _fp8, each raw and scaled) at the
+             row-parallel sites' local shapes of a (1, 2) mesh of
+             internlm2-1.8b (wo: K_eff 1024, w_out: 4096; O 2048), n in
+             {2, 1}, B in {32, 256}, x_t (K_eff, B) -> Y_t (O, B), against
+             the plain versions: int8 raw and scaled BITWISE, bf16 and fp8
+             within 1e-2 of max|plain|; timed beside the plain version and
+             the library call on the pre-gathered row-major X.
+   sharded — tensor-parallel serving, ServingSpec(mesh=(1, 2)): two ranks
+             spawned once (rank r on cuda:(r % device_count); gloo when
+             they share the card, NCCL when each has its own), full-width
+             internlm2-1.8b cut to 4 of 24 layers, the trace's first 8
+             requests, in bf16 dense, bf16 gather 2:4, int8 gather 2:4
+             (dynamic and static) and fp8 gather 1:4, then int8 gather 2:4
+             at all 24 layers.  Every site plans its layout's kernel with
+             shard_map; each rank launches exactly (column sites + row
+             sites) x layers x model calls kernels, every row-parallel
+             quantized gather site on K11 (raw partials, all-reduced in
+             int32 / fp32) and no other kernel; the ranks' token streams
+             are equal (the Engine checks); rank 0's prefill / decode
+             logits within the tier tolerance of the same model served
+             unsharded on the card.  Printed per run and rank: tokens/s,
+             p50 / p99, one decode step's wall, device busy / idle and
+             launches (hand-written vs other), collectives per step and
+             their host wall, weights per rank.
 4. tiers   — one prefill chunk + one decode step under the cuda and the
              torch backends on the same params (gemma3: 9 chunks, the last
              one's logits compared, and a decode at position 576, past
@@ -271,6 +296,11 @@ REPLACES = {
        for q in ("", "_int8", "_fp8")},
     **{f"nm_spmm_gather_bk_masked{q}": "src/repro/kernels/nm_spmm_gather/kernel.py:445"
        for q in ("", "_int8", "_fp8")},
+    # K11, the K-major gather (float; int8 and fp8 scaled or raw, the raw
+    # partials of every row-parallel quantized gather site under a mesh)
+    "nm_spmm_gather": "src/repro/kernels/nm_spmm_gather/kernel.py:87",
+    "nm_spmm_gather_int8": "src/repro/kernels/nm_spmm_gather/kernel.py:211",
+    "nm_spmm_gather_fp8": "src/repro/kernels/nm_spmm_gather/kernel.py:243",
 }
 
 
@@ -833,6 +863,122 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                        library="two calls (gate, up) on pre-gathered X")
                 del ops_q
             del pairs, ops, lib_ops
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+# K11, the K-major gather, at the row-parallel sites' local shapes on a (1,
+# 2) mesh of internlm2-1.8b: wo (K_eff = attn_dim / 2) and w_out (d_ff / 2),
+# O = d_model; B = 32 (a decode batch of 8 padded to the raw partials' 32
+# rows) and 256 (prefill chunks)
+K11_BATCHES = (32, 256)
+K11_MESH = 2
+
+
+def kmajor_kernel_phase(cfg, gen, card_line, rows):
+    """K11 (nm_spmm_gather, _int8, _fp8: x_t (K_eff, B) -> Y_t (O, B)) in
+    every form: bf16 in / fp32 out, int8 and e4m3 raw (the accumulator a
+    row-parallel rank all-reduces) and scaled, n in {2, 1}, against the
+    plain versions: int8 raw and scaled BITWISE, bf16 and e4m3 within TOL
+    of max|plain|.  Timed (CUDA-graph replays, cold L2) beside the plain
+    version and the class's library call on the PRE-GATHERED, row-major X
+    (torch.matmul / torch._int_mm / torch._scaled_mm; the gather and the
+    transposes run outside the timed region).  Bound: the kept rows of
+    x_t + values + index (+ scales) + output bytes over 3.35 TB/s.  The
+    two transposes a row site runs around the raw form (the codes in, the
+    accumulator out) are timed apart, the same way."""
+    from repro_torch.core.quantize import quantize_rows
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+
+    dev, bf16 = "cuda", torch.bfloat16
+    record = recorder(rows, card_line)
+    int8_lay = int_mm_layout()[1]
+    d = cfg.d_model
+    shapes = ((cfg.attn_dim // K11_MESH, d), (cfg.d_ff // K11_MESH, d))
+    for qdtype in (None, torch.int8, FP8):
+        fp8, int8 = qdtype == FP8, qdtype == torch.int8
+        sfx = "_fp8" if fp8 else "_int8" if int8 else ""
+        esz = 2 if qdtype is None else 1
+        peak = BF16_FLOPS if qdtype is None else FP8_OPS if fp8 else INT8_OPS
+        fn = getattr(gk, f"nm_spmm_gather{sfx}")
+        for b in K11_BATCHES:
+            for n in (2, 1):
+                for k, o in shapes:
+                    kc = k * n // 4
+                    wbytes = esz * kc * o + 4 * kc + (4 * o if qdtype is not None else 0)
+
+                    def leaf():
+                        w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+                        lf = convert_layout({"w": w if qdtype else w.to(bf16)},
+                                            SparsityConfig(n=n, m=4, mode="gather"), "gather",
+                                            quantize=qdtype)
+                        lf["idx"] = lf["gather_idx"].reshape(-1, 1)
+                        if qdtype is not None:
+                            lf["ws"] = lf["scale"].reshape(-1, 1)
+                            lf["lib_w"] = (column_major(lf["values"]) if fp8
+                                           else int8_lay(lf["values"]))
+                            lf["lib_ws"] = lf["scale"].reshape(1, -1)
+                        return lf
+                    lfs = [leaf() for _ in range(copies_for(wbytes))]
+                    x = torch.randn((b, k), generator=gen, device=dev).to(bf16)
+                    if qdtype is None:
+                        xq, xs = x, None
+                    else:
+                        xq, xs = quantize_rows(x, qdtype)
+                    x_t = as_bytes(xq).t().contiguous().view(xq.dtype)
+                    xs_t = None if xs is None else xs.reshape(1, -1)
+                    # the library's operands: X gathered, row-major (B, K_c)
+                    lib = []
+                    for lf in lfs:
+                        xg = gr.gather_columns(xq, lf["gather_idx"], n)
+                        lib.append((xg, lf["values"]) if qdtype is None else
+                                   (xg, lf["lib_w"]) if int8 else
+                                   (xg, lf["lib_w"], xs, lf["lib_ws"]))
+                    lib_fn = torch.matmul if qdtype is None else int_mm_padded if int8 \
+                        else scaled_mm
+                    forms = (("", False),) if qdtype is None else (("_raw", True), ("", False))
+                    for tag, raw in forms:
+                        if qdtype is None:
+                            run = lambda xt, lf: fn(xt, lf["values"], lf["idx"], n)
+                            ref = lambda xt, lf: gr.nm_spmm_gather_t_ref(
+                                xt, lf["values"], lf["idx"], n)
+                        elif raw:
+                            run = lambda xt, lf: fn(xt, lf["values"], lf["idx"], None, None, n)
+                            ref = lambda xt, lf: gr.nm_spmm_gather_t_quantized_ref(
+                                xt, lf["values"], lf["idx"], None, None, n)
+                        else:
+                            run = lambda xt, lf: fn(xt, lf["values"], lf["idx"], xs_t,
+                                                    lf["ws"], n)
+                            ref = lambda xt, lf: gr.nm_spmm_gather_t_quantized_ref(
+                                xt, lf["values"], lf["idx"], xs_t, lf["ws"], n)
+                        ops = [(x_t, lf) for lf in lfs]
+                        got, want = run(*ops[0]), ref(*ops[0])
+                        torch.cuda.synchronize()
+                        if got.dtype != want.dtype or got.shape != (o, b):
+                            fail(f"nm_spmm_gather{sfx}{tag} B={b} K={k} n={n}: "
+                                 f"{got.dtype} {tuple(got.shape)} vs {want.dtype}")
+                        # the kc kept rows of x_t, values, index, the scales of a
+                        # scaled form, fp32 / int32 out
+                        scales = 4 * (b + o) if qdtype is not None and not raw else 0
+                        nbytes = esz * b * kc + esz * kc * o + 4 * kc + scales + 4 * b * o
+                        record(f"nm_spmm_gather{sfx}{tag}", b, k, o, n, got, want,
+                               time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib),
+                               nbytes, 2 * b * kc * o, peak=peak,
+                               exact=int8, library="pre-gathered, row-major X")
+                        if raw and n == 2:
+                            # the row site's two transposes around K11
+                            # (dispatch._partial_nm_gather_q, _run_sharded):
+                            # the padded codes in, the accumulator out
+                            row = {"kernel": f"nm_spmm_gather{sfx}_transposes", "B": b,
+                                   "K": k, "O": o, "n": n,
+                                   "in_ms": time_ms(lambda t: t.t().contiguous(), [(xq,)]),
+                                   "out_ms": time_ms(lambda t: t.t().contiguous(), [(got,)]),
+                                   "card": card_line}
+                            rows.append(row)
+                            log(json.dumps(row))
+                    del lfs, lib
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -2164,6 +2310,218 @@ def prefill_run(base_cfg, layout, sparsity, qdtype, depth, batch_shape, card_lin
 
 
 # --------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 5
+# tensor-parallel serving over a (1, 2) mesh (ServingSpec.mesh) of full-width
+# internlm2-1.8b, the first 8 requests of the seeded trace: (layout,
+# sparsity, qdtype, static, depth).  Five runs cut to 4 of 24 layers for
+# time, then int8 gather 2:4 at all 24.
+SHARD_MESH = (1, 2)
+SHARD_REQUESTS = 8
+SHARD_RUNS = (("dense", None, None, False, 4), ("gather", (2, 4), None, False, 4),
+              ("gather", (2, 4), "int8", False, 4), ("gather", (2, 4), "int8", True, 4),
+              ("gather", (1, 4), "fp8", False, 4), ("gather", (2, 4), "int8", False, 24))
+# the column-parallel sites of a layer (wq, wk, wv and the gate-up pair's
+# two GEMMs) and its row-parallel ones (wo, w_out)
+COL_SITES = 5
+ROW_SITES = 2
+
+
+def shard_tag(layout, sparsity, qdtype, static, depth):
+    return (f"tp{SHARD_MESH[1]}/" + ("gather-" if layout == "gather" else "")
+            + (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense")
+            + (f"/{qdtype}" if qdtype else "") + ("/static" if static else "")
+            + f"/{depth}L")
+
+
+def sharded_step_profile(prepared, cfg, spec, steps: int = 3) -> dict:
+    """One rank's view of a batched decode step at position 255 (every
+    slot active): host wall, the device's busy share under torch.profiler
+    (this process's kernels only), launches split into the hand-written
+    kernels (their wrappers' counts) and all others, and the model axis's
+    collectives (calls, MB, host wall)."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels
+    from repro_torch.models import init_paged_caches, paged_decode_step
+    from repro_torch.models.pjit_utils import COLLECTIVES, reset_collectives
+
+    dev = prepared.device
+    b, w = spec.slots, spec.table_width
+    with torch.inference_mode(), prepared.activate():
+        caches = init_paged_caches(cfg, b * w + 1, spec.block_len, device=dev)
+        table = torch.arange(1, b * w + 1, device=dev).reshape(b, w)
+        tokens = torch.randint(1, cfg.vocab_size, (b, 1), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(3))
+        positions = torch.full((b,), 255, device=dev)
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+
+        def step():
+            return paged_decode_step(prepared.params, caches, tokens, positions, table,
+                                     active, cfg, spec.block_len)
+
+        step()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        reset_collectives()
+        prof, kern, wall_ms = device_profile(step, steps, [ProfilerActivity.CUDA,
+                                                           ProfilerActivity.CPU])
+        hand = sum(kernels.launch_counts().values()) / steps
+        coll = dict(COLLECTIVES)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps if kern else None
+    launches = sum(e.count for e in kern) / steps
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+            "launches_per_step": launches, "hand_written_launches_per_step": hand,
+            "other_launches_per_step": launches - hand,
+            "collectives_per_step": coll["calls"] / steps,
+            "collective_mb_per_step": coll["bytes"] / steps / 1e6,
+            "collective_host_ms_per_step": coll["seconds"] * 1e3 / steps,
+            "top_kernels": [{"name": e.key[:80], "ms_per_step":
+                             e.self_device_time_total / 1e3 / steps}
+                            for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]]}
+
+
+def shard_rank(rank, world, dev, base_cfg, runs, out_dir):
+    """One rank of the sharded serving phase: every run of ``runs`` in
+    turn, the same work on every rank (the collectives pair up); rank 0
+    also serves each model unsharded for the tier gate.  Writes its
+    results to ``out_dir/rank{r}.json``."""
+    import dataclasses
+
+    from repro_torch import kernels, serving
+    from repro_torch.models import init_params
+    from repro_torch.models.pjit_utils import COLLECTIVES, reset_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = []
+    for layout, sparsity, qdtype, static, depth in runs:
+        tag = shard_tag(layout, sparsity, qdtype, static, depth)
+        t0 = time.perf_counter()
+        spec = serving.ServingSpec(layout=layout, sparsity=sparsity, qdtype=qdtype,
+                                   static_scales=static, mesh=SHARD_MESH, slots=8,
+                                   max_len=512, block_len=8, prefill_chunk=64)
+        cfg = spec.apply_to(dataclasses.replace(base_cfg, num_layers=depth))
+        calib_tokens = None
+        if static:
+            calib_tokens = torch.randint(
+                1, cfg.vocab_size, (spec.slots, min(spec.max_len, CALIB_TOKENS)),
+                generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+        ref = None
+        with torch.inference_mode():
+            params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+            if rank == 0:     # the same model served unsharded, for the tier gate
+                full = serving.prepare(params, dataclasses.replace(spec, mesh=None), cfg=cfg,
+                                       calib_tokens=calib_tokens, device=dev)
+                ref = chunk_and_step(full, cfg, spec, "cuda")[:2]
+                del full
+            prepared = serving.prepare(params, spec, cfg=cfg, calib_tokens=calib_tokens,
+                                       device=dev)
+        del params
+        torch.cuda.synchronize()
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in _tensors(prepared.params)) / 1e9
+        report = prepared.dispatch_report()
+        want = f"{KINDS[layout]}{'_' + qdtype if qdtype else ''}[cuda]"
+        off = [ln for ln in report if want not in ln or "shard_map[" not in ln
+               or (static and "act-scales=static" not in ln)]
+        if off:
+            fail(f"[{tag}] rank {rank}: {len(off)} site(s) off the sharded {want} "
+                 f"kernels: {off[0]}")
+        engine = serving.Engine(prepared)
+        engine.run(serving.make_poisson_trace(seed=1, num_requests=2,
+                                              vocab_size=cfg.vocab_size,
+                                              prompt_mix=((64, 1.0),), new_mix=((2, 1.0),)))
+        trace = serving.make_poisson_trace(
+            seed=0, num_requests=16, rate=1.0, vocab_size=cfg.vocab_size,
+            prompt_mix=((128, 1.0), (192, 1.0), (256, 1.0)),
+            new_mix=((32, 1.0),))[:SHARD_REQUESTS]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        reset_collectives()
+        rep = engine.run(trace)      # raises unless every rank made the same tokens
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        coll = dict(COLLECTIVES)
+        # every row-parallel site on its layout's raw partial (K11 for a
+        # quantized gather) and nothing else; every column site on its
+        # layout's single GEMM
+        single = LAYOUT_KERNELS[layout, qdtype, False][0]
+        k11 = f"nm_spmm_gather_{qdtype}" if layout == "gather" and qdtype else None
+        calls = rep.model_calls * depth
+        want_counts = ({single: COL_SITES * calls, k11: ROW_SITES * calls} if k11
+                       else {single: (COL_SITES + ROW_SITES) * calls})
+        if counts != want_counts:
+            fail(f"[{tag}] rank {rank}: launches {counts}, expected {want_counts} "
+                 f"({rep.model_calls} model calls x {depth} layers)")
+        if rep.completed != len(trace) or any(len(x.tokens) != 32 for x in rep.stats):
+            fail(f"[{tag}] rank {rank}: {rep.completed}/{len(trace)} requests completed")
+        profile = sharded_step_profile(prepared, cfg, spec)
+        with prepared.activate():
+            got = chunk_and_step(prepared, cfg, spec, "cuda")[:2]
+        res = {"run": tag, "rank": rank, "device": str(dev), "num_layers": depth,
+               "weights_gb_per_rank": weights_gb, "launches": counts,
+               "model_calls": rep.model_calls, "decode_profile": profile,
+               "serving_collectives": {"calls": coll["calls"], "mb": coll["bytes"] / 1e6,
+                                       "host_s": coll["seconds"]}}
+        if rank == 0:
+            tol = {None: TIER_TOL, "int8": STATIC_TIER_TOL if static else INT8_TIER_TOL,
+                   "fp8": FP8_TIER_TOL}[qdtype]
+            gaps = [scaled_err(g, r) for g, r in zip(got, ref)]
+            if not all(torch.isfinite(g).all() for g in got):
+                fail(f"[{tag}] non-finite sharded logits")
+            agree = (torch.cat(got).argmax(-1) == torch.cat(ref).argmax(-1)).float().mean()
+            res.update({"tokens_per_s": rep.tokens_per_s, "p50_latency_s": rep.p50_latency_s,
+                        "p99_latency_s": rep.p99_latency_s, "wall_s": rep.wall_s,
+                        "token_streams_equal_across_ranks": True,
+                        "vs_unsharded": {"prefill_scaled_err": gaps[0],
+                                         "decode_scaled_err": gaps[1], "tolerance": tol,
+                                         "greedy_agreement": agree.item()},
+                        "plan": report[:2]})
+            if not max(gaps) <= tol:
+                fail(f"[{tag}] sharded vs unsharded logits: {gaps} > {tol}")
+        res["seconds"] = time.perf_counter() - t0
+        log(json.dumps(res))
+        results.append(res)
+        del prepared, engine
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def sharded_phase(base_cfg, runs=SHARD_RUNS) -> list:
+    """Tensor-parallel serving on SHARD_MESH: the ranks are spawned once for
+    every run (the kernels are already built: they only load them).  Ranks
+    share the cards round-robin (one H100: both on it, gloo); a rank's
+    failure fails the phase.  Returns every rank's results."""
+    import tempfile
+
+    from repro_torch.launch import mesh as tmesh
+
+    world = SHARD_MESH[1]
+    backend = tmesh.backend_for(world)
+    log(f"sharded serving: mesh {SHARD_MESH[0]}x{world} over torch.distributed, backend "
+        f"{backend}; " + ", ".join(f"rank {r} -> {tmesh.rank_device(r)}"
+                                   for r in range(world)))
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            tmesh.spawn_ranks(shard_rank, world, base_cfg, runs, out_dir)
+        except Exception as e:        # a rank raised or exited: the phase failed
+            fail(f"sharded serving: {type(e).__name__}: {str(e)[-2000:]}")
+        return [r for k in range(world)
+                for r in json.load(open(os.path.join(out_dir, f"rank{k}.json")))]
+
+
 def layer_decode(rows, kernel, n, b, shapes):
     """Sum of one layer's decode-step launches of ``kernel`` at batch b."""
     tot = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -2211,6 +2569,10 @@ def main():
     for qdtype in (None, torch.int8, FP8):
         gather_kernel_phase(cfg, gen, card_line, rows, qdtype)
     log(f"gather kernel phase {time.perf_counter() - t0:.1f}s")
+    t_new = time.perf_counter()
+    kmajor_kernel_phase(cfg, gen, card_line, rows)
+    k11_s = time.perf_counter() - t_new
+    log(f"K11 kernel phase {k11_s:.1f}s")
     t0 = time.perf_counter()
     for qdtype in (None, torch.int8, FP8):
         masked_kernel_phase(gen, card_line, rows, qdtype)
@@ -2277,6 +2639,14 @@ def main():
         torch.cuda.empty_cache()
         log(f"[{res['run']}] phase {time.perf_counter() - t0:.1f}s")
     log(f"prefill phase {time.perf_counter() - t_prefill:.1f}s")
+
+    t_shard = time.perf_counter()
+    shard_results = sharded_phase(cfg)
+    for res in shard_results:
+        for name, cnt in res["launches"].items():
+            launches[name] = launches.get(name, 0) + cnt
+    log(f"sharded serving phase {time.perf_counter() - t_shard:.1f}s; the two new phases "
+        f"(K11 kernels, sharded serving) {time.perf_counter() - t_shard + k11_s:.1f}s")
 
     d, ff = cfg.d_model, cfg.d_ff
     singles = [(d, cfg.attn_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.attn_dim, d), (ff, d)]
@@ -2375,6 +2745,32 @@ def main():
             "measured_as": f"one layer's {what} launch: B={r['B']}, T={r['T']}, "
                            f"{r['Hq']} query / {r['Hkv']} KV heads, D={r['D']}, "
                            f"{'causal' if r['causal'] else 'non-causal'}"})
+    # K11 at one layer's two row-parallel sites (wo, w_out) on the (1, 2)
+    # mesh, B = 32 (a decode batch of 8 padded), in the form the path runs:
+    # int8 raw at 2:4, fp8 raw at 1:4 (their sharded runs); the float form
+    # (not on the path: a float row site runs K8 storing fp32) at 2:4
+    k11_shapes = [(cfg.attn_dim // K11_MESH, d), (ff // K11_MESH, d)]
+    for name, n, form in (("nm_spmm_gather", 2, ""), ("nm_spmm_gather_int8", 2, "_raw"),
+                          ("nm_spmm_gather_fp8", 1, "_raw")):
+        tot = layer_decode(rows, name + form, n, 32, k11_shapes)
+        extra = {}
+        if form:
+            tr = [r for r in rows if r["kernel"] == name + "_transposes" and r["B"] == 32]
+            extra["transposes_ms"] = sum(r["in_ms"] + r["out_ms"] for r in tr)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES["fp8" if "_fp8" in name else "int8" if "_int8" in name
+                              else "float"],
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name + form),
+            "ms": tot["kernel_ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": tot["bound_by"], "library_ms": tot["library_ms"], **extra,
+            "measured_as": f"one layer's two row-parallel launches (wo, w_out) at a (1, 2) "
+                           f"mesh's local shapes {k11_shapes}, B=32, n={n} "
+                           f"({'raw accumulator' if form else 'fp32 out'}); library on the "
+                           f"pre-gathered row-major X"
+                           + ("; transposes_ms: the codes in, the accumulator out" if form
+                              else "")})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(card())

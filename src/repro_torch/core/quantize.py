@@ -150,16 +150,20 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[..., None, :]
 
 
-def quantize_rows(x: torch.Tensor, dtype=torch.int8
+def quantize_rows(x: torch.Tensor, dtype=torch.int8, absmax: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row symmetric quantization of activations.
 
     ``x``: ``(B, K)`` float -> ``(x_q (B, K) narrow, x_scale (B, 1) f32)``.
     All-zero rows (idle batch slots) get the floored scale, so the
-    division is safe and they quantize to zero."""
+    division is safe and they quantize to zero.  ``absmax`` (B, 1)
+    overrides the per-row reduction: a row-parallel shard passes the
+    global row absmax (the all-reduced MAX of the shards' local ones), so
+    every shard quantizes against one scale."""
     dt = canonical_qdtype(dtype)
     x32 = x.float()
-    absmax = x32.abs().amax(dim=-1, keepdim=True)                # (B, 1)
+    if absmax is None:
+        absmax = x32.abs().amax(dim=-1, keepdim=True)            # (B, 1)
     scale = torch.clamp_min(absmax / QUANT_DTYPES[dt], _TINY)
     return _cast_quantized(x32 / scale, dt), scale
 

@@ -48,8 +48,9 @@ ROW_PARALLEL = {"wo", "w_out"}
 
 
 def gather_hint(names: Sequence[str]) -> Optional[str]:
-    """Use-site parallelism hint ("col" | "row" | None) for a param path
-    (reported by the dispatch report; the port has no mesh yet)."""
+    """Use-site parallelism hint ("col" | "row" | None) for a param path:
+    the dispatch report's and ``launch.shardings``' view of the hint each
+    model call site passes ``apply_linear``.  MoE expert stacks have none."""
     names = tuple(names)
     if "experts" in names:
         return None
@@ -124,29 +125,36 @@ def init_linear(gen: torch.Generator, k: int, o: int, cfg: SparsityConfig,
 
 
 def apply_linear(params: Dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
-                 epilogue=None, activation=None, local: bool = False) -> torch.Tensor:
+                 gather: Optional[str] = None, epilogue=None, activation=None,
+                 local: bool = False) -> torch.Tensor:
     """``y = epilogue(x @ W)`` with the layout's lowering.
     x: (..., K) -> (..., O).  ``activation`` (a
     ``kernels.actsparse.ActivationSpec``) opts into the activation-sparsity
     class: ``x`` is masked on every route and a kernel skips its dead
-    tiles; ``local`` marks a call inside a sharded body (no effect until
-    the port shards)."""
-    from ..kernels.dispatch import sparse_matmul   # local: avoid cycle
-    return sparse_matmul(x, params, cfg, epilogue=epilogue, activation=activation,
-                         local=local)
+    tiles; ``local`` marks a call inside a sharded body.  ``gather`` is the
+    use site's parallelism hint ("col" | "row" | None): under an installed
+    axis env it becomes the site's ``ShardSpec`` and the engine runs the
+    sharded class (``params`` and ``x`` are then this rank's shard; a
+    "row" site all-reduces its partials, a "col" site's output stays
+    local)."""
+    from ..kernels.dispatch import shard_spec_from_env, sparse_matmul   # local: avoid cycle
+    shard = shard_spec_from_env(gather) if gather is not None and not local else None
+    return sparse_matmul(x, params, cfg, shard=shard, epilogue=epilogue,
+                         activation=activation, local=local)
 
 
 def apply_gate_up(params_g: Dict[str, Any], params_u: Dict[str, Any],
-                  x: torch.Tensor, cfg: SparsityConfig, epilogue=None, activation=None,
-                  local: bool = False) -> torch.Tensor:
-    """``silu(x @ Wg) * (x @ Wu)`` as one engine dispatch (``activation``
-    and ``local`` as for :func:`apply_linear`)."""
-    from ..kernels.dispatch import gate_up_matmul   # local: avoid cycle
+                  x: torch.Tensor, cfg: SparsityConfig, gather: Optional[str] = None,
+                  epilogue=None, activation=None, local: bool = False) -> torch.Tensor:
+    """``silu(x @ Wg) * (x @ Wu)`` as one engine dispatch (``gather``,
+    ``activation`` and ``local`` as for :func:`apply_linear`)."""
+    from ..kernels.dispatch import gate_up_matmul, shard_spec_from_env   # local: avoid cycle
     if epilogue is not None and (epilogue.spec.act != "silu_mul"
                                  or epilogue.spec.bias):
         raise ValueError(f"apply_gate_up epilogue must sit on the silu_mul "
                          f"lattice point, got {epilogue.spec.point!r}")
-    return gate_up_matmul(x, params_g, params_u, cfg, epilogue=epilogue,
+    shard = shard_spec_from_env(gather) if gather is not None and not local else None
+    return gate_up_matmul(x, params_g, params_u, cfg, shard=shard, epilogue=epilogue,
                           activation=activation, local=local)
 
 

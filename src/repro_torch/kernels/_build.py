@@ -41,14 +41,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of each library's entry points (all return a cudaError_t)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm.cu": {
-        "vg_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "vg_tile_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_masked": (_P,) * 5 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "vg_nm_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "vg_nm_spmm": (_P,) * 5 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "vg_nm_spmm_gather_bk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "vg_nm_spmm_gather_bk": (_P,) * 5 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather": (_P,) * 4 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_dual_bk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "gemm_int8.cu": {
@@ -61,6 +62,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_masked_int8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
     },
     "gemm_fp8.cu": {
         "vg_tile_gemm_fp8": (_P,) * 7 + (_I,) * 6 + (_P,),
@@ -72,6 +74,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_fp8": (_P,) * 6 + (_I,) * 6 + (_P,),
     },
     "flash_attention.cu": {
         "vg_flash_attention": (_P,) * 4 + (_I,) * 6 + (_L,) * 12 + (_F, _P),

@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the repro_torch dense and N:M
 // sparse GEMMs: tile_gemm, tile_gemm_dual, nm_spmm, nm_spmm_dual, the
 // lane-aligned gather pair nm_spmm_gather_bk and nm_spmm_gather_dual_bk,
-// and the activation-sparsity (K10) variants of the three single GEMMs,
-// tile_gemm_masked, nm_spmm_masked and nm_spmm_gather_bk_masked.
+// the activation-sparsity (K10) variants of the three single GEMMs,
+// tile_gemm_masked, nm_spmm_masked and nm_spmm_gather_bk_masked, and the
+// K-major gather nm_spmm_gather (K11).
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm       repro/kernels/tile_gemm/kernel.py::tile_gemm      (_gemm_kernel)
@@ -20,11 +21,26 @@
 //                           (_spmm_masked_kernel)
 //   nm_spmm_gather_bk_masked  repro/kernels/nm_spmm_gather/kernel.py::
 //                             nm_spmm_gather_bk_masked (_gather_bk_masked_kernel)
+//   nm_spmm_gather          repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather
+//                           (_gather_kernel, _gather_accumulate)
 //
-// ONE templated kernel body serves all nine: the template takes the weight
+// ONE templated kernel body serves all ten: the template takes the weight
 // loader (DenseLoader, or NMLoader<n> for values + 2-bit packed meta), the
-// X loader (contiguous, or gathered through the lane-aligned index),
-// single or dual (gate-up, two weights against one X read), and MASKED.
+// X loader (contiguous, gathered through the lane-aligned index, or
+// gathered from K-major X), single or dual (gate-up, two weights against
+// one X read), and MASKED.
+//
+// K-major gather (K11, nm_spmm_gather).  Y_t (O, B) = gather(x_t)^T-contract
+// values: X arrives transposed, x_t (K_eff, B) with the batch contiguous,
+// and the output leaves transposed, (O, B), as the TPU kernel's K-major
+// layout has it (the sharded row-parallel path hands it xq.T).  The loader
+// reads, for compressed row c of the step and the block's batch columns,
+// row (c / n) * 4 + idx[c] of x_t: 8 consecutive batch values per 16-byte
+// load, then transposes them into the [BM][XLD] X tile the mma path reads,
+// so the tensor-core loop and the flush are the other kernels'; the flush
+// stores column-wise into (O, B).  Bound: the same values bytes as K8.
+// A simple first form: the index load precedes its X load (no overlap) and
+// the transpose is 2-byte shared stores.
 //
 // Activation sparsity (MASKED, single GEMMs).  The masked X of a MoE
 // expert's w_out holds whole zero (row block, K step) tiles; kmask
@@ -85,6 +101,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flush.cuh"
 #include "kmask.cuh"
 
@@ -108,6 +126,7 @@ __device__ __forceinline__ uint32_t word_of(const uint4& a, int i) {
 template <int BM>
 struct XLoader {
   static constexpr bool kGather = false;
+  static constexpr bool kKMajor = false;
   const __nv_bfloat16* x;
   const int* unused_idx[2];
   int b, ke;
@@ -171,6 +190,7 @@ __device__ __forceinline__ uint32_t pick16(uint32_t lo, uint32_t hi, int i) {
 template <int BM, int N, bool TWO>
 struct GatherXLoader {
   static constexpr bool kGather = true;
+  static constexpr bool kKMajor = false;
   static constexpr int CPR = 32 / N;                    // chunks per row per step
   static constexpr int NI = BM * CPR / NTHREADS;        // chunks per thread
   const __nv_bfloat16* x;
@@ -217,14 +237,60 @@ struct GatherXLoader {
   }
 };
 
-// The X-loader template argument of the kernel: contiguous rows, or the
-// lane-aligned gather at N:4.
+// K-major gathered X tile (K11): x_t is (K_eff, B), b its row stride.  Load
+// q of the step's BK x BM/8 16-byte loads reads compressed row c = k0 + q %
+// BK, batch columns m0 + (q / BK) * 8 .. + 7, from x_t row (c / N) * 4 +
+// idx[c] (an index outside [0, 4) selects zeros, as the TPU kernel's
+// compare-and-select does); the store writes the 8 values down column q %
+// BK of the [BM][XLD] tile.  B is a multiple of 16 (the wrapper checks it),
+// so a load lies wholly inside or outside the batch.
+template <int BM, int N>
+struct KMajorGatherXLoader {
+  static constexpr bool kGather = true;
+  static constexpr bool kKMajor = true;
+  static constexpr int NI = BK * (BM / 8) / NTHREADS;   // loads per thread
+  const __nv_bfloat16* x;
+  const int* idx[2];
+  int b, ke;
+  uint4 r[NI];
+
+  __device__ __forceinline__ void load(int k0, int m0, int tid) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int q = tid + NTHREADS * i;
+      const int c = k0 + q % BK;
+      const int col = m0 + (q / BK) * 8;
+      const int sel = idx[0][c];
+      r[i] = (col < b && static_cast<unsigned>(sel) < 4u)
+                 ? *reinterpret_cast<const uint4*>(x + (size_t)((c / N) * 4 + sel) * b + col)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  template <int STREAM = 0>
+  __device__ __forceinline__ void store(__nv_bfloat16* xs, int tid) const {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int q = tid + NTHREADS * i;
+      const int j = q % BK, r0 = (q / BK) * 8;
+      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&r[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xs[(r0 + e) * XLD + j] = v[e];
+    }
+  }
+};
+
+// The X-loader template argument of the kernel: contiguous rows, the
+// lane-aligned gather at N:4, or that gather from K-major X (single only).
 struct Contiguous {
   template <int BM, bool DUAL> using Loader = XLoader<BM>;
 };
 template <int N>
 struct Gathered {
   template <int BM, bool DUAL> using Loader = GatherXLoader<BM, N, DUAL>;
+};
+template <int N>
+struct GatheredKMajor {
+  template <int BM, bool DUAL> using Loader = KMajorGatherXLoader<BM, N>;
 };
 
 // Dense (K, O) weight: a 64 x 64 tile is 512 16-byte chunks, 4 per thread.
@@ -308,8 +374,9 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
             const __nv_bfloat16* __restrict__ wg, const uint8_t* __restrict__ mg,
             const __nv_bfloat16* __restrict__ wu, const uint8_t* __restrict__ mu,
             const int* __restrict__ kmask, const float* __restrict__ bias,
-            __nv_bfloat16* __restrict__ y, int b, int ke, int k, int o, int act) {
+            void* __restrict__ y, int b, int ke, int k, int o, int act, int out_f32) {
   using XL = typename XS::template Loader<BM, DUAL>;
+  static_assert(!(DUAL && XL::kKMajor), "the K-major gather is a single GEMM");
   // a gathered dual selects X through two index streams: two X tiles
   constexpr int NX = (DUAL && XL::kGather) ? 2 : 1;
   constexpr int MF = BM / 16;
@@ -402,8 +469,9 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
   __syncthreads();
 
   for (int e = tid; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN;
-    const int c = e % BN;
+    // K-major: walk the batch fastest, the (O, B) output's contiguous dim
+    const int r = XL::kKMajor ? e % BM : e / BN;
+    const int c = XL::kKMajor ? e / BM : e % BN;
     const int row = m0 + r;
     if (row >= b) continue;
     float v = cs_g[r * CLD + c];
@@ -413,14 +481,16 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ig,
       if (bias != nullptr) v += bias[n0 + c];
       v = apply_act(v, act);
     }
-    y[(size_t)row * o + n0 + c] = __float2bfloat16_rn(v);
+    const size_t at = XL::kKMajor ? (size_t)(n0 + c) * b + row : (size_t)row * o + n0 + c;
+    if (out_f32) static_cast<float*>(y)[at] = v;
+    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
   }
 }
 
 template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 int launch(const void* x, const void* ig, const void* iu, const void* wg, const void* mg,
            const void* wu, const void* mu, const void* kmask, const void* bias, void* y,
-           int b, int ke, int k, int o, int act, void* stream) {
+           int b, int ke, int k, int o, int act, void* stream, int out_f32) {
   const dim3 grid(o / BN, (b + BM - 1) / BM);
   gemm_kernel<BM, DUAL, WL, XS, MASKED>
       <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -428,66 +498,78 @@ int launch(const void* x, const void* ig, const void* iu, const void* wg, const 
           static_cast<const int*>(iu), static_cast<const __nv_bfloat16*>(wg),
           static_cast<const uint8_t*>(mg), static_cast<const __nv_bfloat16*>(wu),
           static_cast<const uint8_t*>(mu), static_cast<const int*>(kmask),
-          static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), b, ke, k, o, act);
+          static_cast<const float*>(bias), y, b, ke, k, o, act, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ke: X's row stride (K_eff); k: the contraction the weight rows run over
 // (K_eff, or K_c for the gather loaders).  MASKED: single GEMMs only, with
-// the (ceil(b / bm), k / 64) kmask of block_maps.
+// the (ceil(b / bm), k / 64) kmask of block_maps.  out_f32: store fp32
+// (the raw sums a row-parallel shard all-reduces), else bf16.
 template <bool DUAL, class WL, class XS = Contiguous, bool MASKED = false>
 int launch_bm(int bm, const void* x, const void* ig, const void* iu, const void* wg,
               const void* mg, const void* wu, const void* mu, const void* kmask,
               const void* bias, void* y, int b, int ke, int k, int o, int act,
-              void* stream) {
+              void* stream, int out_f32 = 0) {
   static_assert(!(MASKED && DUAL), "the masked kernels are single GEMMs");
   if (b <= 0 || ke <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % BN != 0 || act < 0 ||
-      act > 2)
+      act > 2 || out_f32 < 0 || out_f32 > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (MASKED != (kmask != nullptr) || (MASKED && k / BK > MAX_K_STEPS))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 16)
     return launch<16, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, bias, y, b, ke,
-                                            k, o, act, stream);
+                                            k, o, act, stream, out_f32);
   if (bm == 64)
     return launch<64, DUAL, WL, XS, MASKED>(x, ig, iu, wg, mg, wu, mu, kmask, bias, y, b, ke,
-                                            k, o, act, stream);
+                                            k, o, act, stream, out_f32);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool DUAL, bool MASKED = false>
 int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
               const void* mu, const void* kmask, const void* bias, void* y, int b, int k,
-              int o, int act, void* stream) {
+              int o, int act, void* stream, int out_f32 = 0) {
   if (n == 1)
     return launch_bm<DUAL, NMLoader<1>, Contiguous, MASKED>(
-        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream);
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream,
+        out_f32);
   if (n == 2)
     return launch_bm<DUAL, NMLoader<2>, Contiguous, MASKED>(
-        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream);
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream,
+        out_f32);
   if (n == 4)
     return launch_bm<DUAL, NMLoader<4>, Contiguous, MASKED>(
-        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream);
+        bm, x, nullptr, nullptr, vg, mg, vu, mu, kmask, bias, y, b, k, k, o, act, stream,
+        out_f32);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the lane-aligned gather: X (B, ke) gathered to K_c = ke * n / 4 columns,
-// contracted against the dense values tile (K_c, O)
-template <bool DUAL, bool MASKED = false>
+// contracted against the dense values tile (K_c, O); KMAJOR: X is x_t (ke,
+// B), the output (O, B), b a multiple of 16
+template <bool DUAL, bool MASKED = false, bool KMAJOR = false>
 int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
                   const void* vu, const void* iu, const void* kmask, const void* bias, void* y,
-                  int b, int ke, int o, int act, void* stream) {
-  if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                  int b, int ke, int o, int act, void* stream, int out_f32 = 0) {
+  if (ke <= 0 || (ke * n) % 4 != 0 || (KMAJOR && b % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
   if (n == 1)
-    return launch_bm<DUAL, DenseLoader, Gathered<1>, MASKED>(
-        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream);
+    return launch_bm<DUAL, DenseLoader,
+                     std::conditional_t<KMAJOR, GatheredKMajor<1>, Gathered<1>>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream,
+        out_f32);
   if (n == 2)
-    return launch_bm<DUAL, DenseLoader, Gathered<2>, MASKED>(
-        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream);
+    return launch_bm<DUAL, DenseLoader,
+                     std::conditional_t<KMAJOR, GatheredKMajor<2>, Gathered<2>>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream,
+        out_f32);
   if (n == 4)
-    return launch_bm<DUAL, DenseLoader, Gathered<4>, MASKED>(
-        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream);
+    return launch_bm<DUAL, DenseLoader,
+                     std::conditional_t<KMAJOR, GatheredKMajor<4>, Gathered<4>>, MASKED>(
+        bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, bias, y, b, ke, kc, o, act, stream,
+        out_f32);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -498,12 +580,13 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // the launch (cudaErrorInvalidValue for arguments the kernels do not take).
 // The *_masked functions take the (ceil(b / bm), K steps) int32 kmask of
 // block_maps (K steps of 64 weight rows: K / 64, or K_c / 64 for gather).
+// out_f32 (the three plain singles and K11): 1 stores fp32, 0 bf16.
 extern "C" {
 
 int vg_tile_gemm(const void* x, const void* w, const void* bias, void* y, int b, int k,
-                 int o, int act, int bm, void* stream) {
+                 int o, int act, int out_f32, int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
-                                       nullptr, bias, y, b, k, k, o, act, stream);
+                                       nullptr, bias, y, b, k, k, o, act, stream, out_f32);
 }
 
 int vg_tile_gemm_masked(const void* x, const void* w, const void* kmask, const void* bias,
@@ -520,9 +603,9 @@ int vg_tile_gemm_dual(const void* x, const void* wg, const void* wu, void* y, in
 }
 
 int vg_nm_spmm(const void* x, const void* values, const void* meta, const void* bias, void* y,
-               int b, int k, int o, int n, int act, int bm, void* stream) {
+               int b, int k, int o, int n, int act, int out_f32, int bm, void* stream) {
   return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, bias, y, b, k, o,
-                          act, stream);
+                          act, stream, out_f32);
 }
 
 int vg_nm_spmm_masked(const void* x, const void* values, const void* meta, const void* kmask,
@@ -541,9 +624,17 @@ int vg_nm_spmm_dual(const void* x, const void* values_g, const void* meta_g,
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
 int vg_nm_spmm_gather_bk(const void* x, const void* values, const void* idx, const void* bias,
-                         void* y, int b, int k, int o, int n, int act, int bm, void* stream) {
+                         void* y, int b, int k, int o, int n, int act, int out_f32, int bm,
+                         void* stream) {
   return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, bias, y, b, k,
-                              o, act, stream);
+                              o, act, stream, out_f32);
+}
+
+// K11: x_t (k, b) K-major -> y_t (o, b), b a multiple of 16; no epilogue
+int vg_nm_spmm_gather(const void* x_t, const void* values, const void* idx, void* y_t, int b,
+                      int k, int o, int n, int out_f32, int bm, void* stream) {
+  return launch_gather<false, false, true>(n, bm, x_t, values, idx, nullptr, nullptr, nullptr,
+                                           nullptr, y_t, b, k, o, ACT_NONE, stream, out_f32);
 }
 
 int vg_nm_spmm_gather_bk_masked(const void* x, const void* values, const void* idx,

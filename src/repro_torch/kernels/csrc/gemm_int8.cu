@@ -4,7 +4,8 @@
 // nm_spmm_gather_bk_int8 and nm_spmm_gather_dual_bk_int8, and the
 // activation-sparsity (K10) variants of the three singles,
 // tile_gemm_masked_int8, nm_spmm_masked_int8, nm_spmm_gather_bk_masked_int8;
-// every one of them with the requantizing flush (out_kind 3).
+// every one of them with the requantizing flush (out_kind 3); and the
+// K-major gather nm_spmm_gather_int8 (K11), scaled or raw.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm_int8       repro/kernels/tile_gemm/kernel.py::tile_gemm_int8
@@ -23,11 +24,15 @@
 //        repro/kernels/{tile_gemm,nm_spmm,nm_spmm_gather}/kernel.py::
 //        tile_gemm_masked, nm_spmm_masked, nm_spmm_gather_bk_masked, scaled-
 //        quantized with acc_dtype=int32 (the *_masked_kernel bodies)
+//   nm_spmm_gather_int8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_int8
+//                        (_nm_spmm_gather_quantized, _gather_q_kernel,
+//                        _gather_q_raw_kernel)
 //
-// ONE templated body serves all nine, as in gemm.cu: the template takes the
+// ONE templated body serves all ten, as in gemm.cu: the template takes the
 // weight loader (dense int8, or N:4 int8 values + 2-bit packed meta), the
-// X loader (contiguous, or gathered through the lane-aligned index, see
-// gemm.cu), single or dual (gate-up, two weights against one X read), and
+// X loader (contiguous, gathered through the lane-aligned index, or that
+// gather from K-major X, see gemm.cu), single or dual (gate-up, two
+// weights against one X read), and
 // MASKED: the activation-sparsity block skip of gemm.cu (kmask.cuh), on
 // the int8 codes of the masked rows (zeros quantize to code 0); dead tiles
 // add exact zeros to the int32 accumulator, so the output is bitwise the
@@ -60,7 +65,10 @@
 // Gathered activations.  The activations are quantized per row over their
 // full K_eff row before the launch (dispatch.py's _quantize_acts); the
 // kernel selects the int8 codes of the kept columns from 16-byte chunks
-// of the step's X span.
+// of the step's X span.  K11 (K-major x_t (K_eff, B) -> (O, B)) reads 16
+// batch codes of one kept x_t row per load and transposes them byte by
+// byte into the X tile; its raw int32 accumulator is what the sharded
+// row-parallel path all-reduces before the one dequantize.
 //
 // Shared-memory layout.  wmma loads need 32-byte aligned tile pointers, and
 // a 16-wide int8 K or N slice is only 16 bytes, so the X tile is stored as
@@ -89,6 +97,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flush.cuh"
 #include "kmask.cuh"
 
@@ -111,6 +121,7 @@ enum { OUT_BF16 = 0, OUT_F32 = 1, OUT_I32 = 2, OUT_I8 = 3 };
 template <int BM>
 struct XLoader {
   static constexpr bool kGather = false;
+  static constexpr bool kKMajor = false;
   static constexpr int NI = (BM * 4 + NTHREADS - 1) / NTHREADS;
   const int8_t* x;
   const int* unused_idx[2];
@@ -165,6 +176,7 @@ __device__ __forceinline__ uint32_t pick8(uint32_t w, int i) {
 template <int BM, int N, bool TWO>
 struct GatherXLoader {
   static constexpr bool kGather = true;
+  static constexpr bool kKMajor = false;
   static constexpr int CPR = 16 / N;                                 // chunks per row per step
   static constexpr int NI = (BM * CPR + NTHREADS - 1) / NTHREADS;    // chunks per thread
   const int8_t* x;
@@ -212,6 +224,50 @@ struct GatherXLoader {
   }
 };
 
+// K-major gathered X tile (K11; see gemm.cu): x_t (K_eff, B), b its row
+// stride.  Load q of the step's BK x BM/16 16-byte loads reads compressed
+// row c = k0 + q % BK, batch columns m0 + (q / BK) * 16 .. + 15, from x_t
+// row (c / N) * 4 + idx[c] (an index outside [0, 4) selects zeros); the
+// store writes the 16 codes down column q % BK of the K-sliced tile.  B is
+// a multiple of 16, so a load lies wholly inside or outside the batch.
+template <int BM, int N>
+struct KMajorGatherXLoader {
+  static constexpr bool kGather = true;
+  static constexpr bool kKMajor = true;
+  static constexpr int NL = BK * (BM / 16);                  // loads per step
+  static constexpr int NI = (NL + NTHREADS - 1) / NTHREADS;  // loads per thread
+  const int8_t* x;
+  const int* idx[2];
+  int b, ke;
+  uint4 r[NI];
+
+  __device__ __forceinline__ void load(int k0, int m0, int tid) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int q = tid + NTHREADS * i;
+      const int c = k0 + q % BK;
+      const int col = m0 + (q / BK) * 16;
+      const int sel = q < NL ? idx[0][c] : -1;
+      r[i] = (col < b && static_cast<unsigned>(sel) < 4u)
+                 ? *reinterpret_cast<const uint4*>(x + (size_t)((c / N) * 4 + sel) * b + col)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  template <int STREAM = 0>
+  __device__ __forceinline__ void store(int8_t* xs, int tid) const {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int q = tid + NTHREADS * i;
+      if (q >= NL) continue;
+      const int j = q % BK, r0 = (q / BK) * 16;
+      const int8_t* v = reinterpret_cast<const int8_t*>(&r[i]);
+      int8_t* dst = xs + (j >> 4) * BM * SP + (j & 15);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dst[(r0 + e) * SP] = v[e];
+    }
+  }
+};
+
 // The X-loader template argument of the kernel (as in gemm.cu).
 struct Contiguous {
   template <int BM, bool DUAL> using Loader = XLoader<BM>;
@@ -219,6 +275,10 @@ struct Contiguous {
 template <int N>
 struct Gathered {
   template <int BM, bool DUAL> using Loader = GatherXLoader<BM, N, DUAL>;
+};
+template <int N>
+struct GatheredKMajor {
+  template <int BM, bool DUAL> using Loader = KMajorGatherXLoader<BM, N>;
 };
 
 // Dense (K, O) int8 weight: a 64 x 64 tile is 256 16-byte chunks, 2 per
@@ -326,6 +386,7 @@ gemm_int8_kernel(const int8_t* __restrict__ x, const int* __restrict__ ig,
                  const float* __restrict__ rq, void* __restrict__ y, int b, int ke, int k,
                  int o, int act, int out_kind) {
   using XL = typename XS::template Loader<BM, DUAL>;
+  static_assert(!(DUAL && XL::kKMajor), "the K-major gather is a single GEMM");
   // a gathered dual selects X through two index streams: two X tiles
   constexpr int NX = (DUAL && XL::kGather) ? 2 : 1;
   constexpr int MF = BM / 16;
@@ -425,11 +486,12 @@ gemm_int8_kernel(const int8_t* __restrict__ x, const int* __restrict__ ig,
 
   const float rq_scale = out_kind == OUT_I8 ? *rq : 0.f;
   for (int e = tid; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN;
-    const int c = e % BN;
+    // K-major: walk the batch fastest, the (O, B) output's contiguous dim
+    const int r = XL::kKMajor ? e % BM : e / BN;
+    const int c = XL::kKMajor ? e / BM : e % BN;
     const int row = m0 + r;
     if (row >= b) continue;
-    const size_t at = (size_t)row * o + n0 + c;
+    const size_t at = XL::kKMajor ? (size_t)(n0 + c) * b + row : (size_t)row * o + n0 + c;
     const int ag = cs_g[r * CLD + c];
     if (out_kind == OUT_I32) {   // raw: the exact accumulator
       static_cast<int*>(y)[at] = ag;
@@ -519,24 +581,29 @@ int launch_nm(int n, int bm, const void* x, const void* vg, const void* mg, cons
 }
 
 // the lane-aligned gather: X (B, ke) gathered to K_c = ke * n / 4 columns,
-// contracted against the dense values tile (K_c, O)
-template <bool DUAL, bool MASKED = false>
+// contracted against the dense values tile (K_c, O); KMAJOR: X is x_t (ke,
+// B), the output (O, B), b a multiple of 16
+template <bool DUAL, bool MASKED = false, bool KMAJOR = false>
 int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
                   const void* vu, const void* iu, const void* kmask, const void* xs,
                   const void* wsg, const void* wsu, const void* bias, const void* rq, void* y,
                   int b, int ke, int o, int act, int out_kind, void* stream) {
-  if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ke <= 0 || (ke * n) % 4 != 0 || (KMAJOR && b % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
   if (n == 1)
-    return launch_bm<DUAL, DenseLoader, Gathered<1>, MASKED>(
+    return launch_bm<DUAL, DenseLoader,
+                     std::conditional_t<KMAJOR, GatheredKMajor<1>, Gathered<1>>, MASKED>(
         bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
         o, act, out_kind, stream);
   if (n == 2)
-    return launch_bm<DUAL, DenseLoader, Gathered<2>, MASKED>(
+    return launch_bm<DUAL, DenseLoader,
+                     std::conditional_t<KMAJOR, GatheredKMajor<2>, Gathered<2>>, MASKED>(
         bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
         o, act, out_kind, stream);
   if (n == 4)
-    return launch_bm<DUAL, DenseLoader, Gathered<4>, MASKED>(
+    return launch_bm<DUAL, DenseLoader,
+                     std::conditional_t<KMAJOR, GatheredKMajor<4>, Gathered<4>>, MASKED>(
         bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
         o, act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -628,6 +695,17 @@ int vg_nm_spmm_gather_dual_bk_int8(const void* x, const void* values_g, const vo
   if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
   return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, xs, wsg, wsu,
                              nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+}
+
+// K11: x_t (k, b) K-major -> y_t (o, b), b a multiple of 16; xs (1, b) and
+// ws (o, 1) for out_kind 0 | 1, none for the raw int32 accumulator (2)
+int vg_nm_spmm_gather_int8(const void* x_t, const void* values, const void* idx,
+                           const void* xs, const void* ws, void* y_t, int b, int k, int o,
+                           int n, int out_kind, int bm, void* stream) {
+  if (out_kind == OUT_I8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gather<false, false, true>(n, bm, x_t, values, idx, nullptr, nullptr, nullptr,
+                                           xs, ws, nullptr, nullptr, nullptr, y_t, b, k, o,
+                                           ACT_NONE, out_kind, stream);
 }
 
 const char* vg_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Unified sparse-GEMM dispatch engine, single-device slice.
+"""Unified sparse-GEMM dispatch engine.
 
 The port's counterpart of ``repro.kernels.dispatch``: models and the
 serving engine call :func:`sparse_matmul` and :func:`gate_up_matmul`, and
@@ -33,9 +33,28 @@ twins) on ``actsparse.block_maps`` at the kernel's own blocks
 (``ReasonCode.ACT_SKIP``); duals and the torch tier contract the masked
 operand (``ACT_MASK_ONLY_DUAL`` / ``ACT_MASK_ONLY_JNP``).
 
+Tensor parallelism (the JAX package's ``shard_map`` execution class).
+Under an installed :class:`~repro_torch.models.pjit_utils.AxisEnv` a
+hinted use site (``apply_linear(gather="col" | "row")``) gets a
+:class:`ShardSpec`, and :func:`plan` decides on the GLOBAL problem with
+the reference's words: ``placement="shard_map"``, ``collective="psum"``
+(row-parallel: the contraction is sliced) or ``"none"`` (column-parallel:
+the out features are), ``local_dims`` the problem each rank's kernel
+runs, and the reference's declines (``SHARD_INDIVISIBLE``,
+``META_AXIS_SPLIT``, ``NO_SHARD_SPEC``, ``EPILOGUE_SHARDED``,
+``ACT_MASK_ONLY_SHARDED``).  In torch there is no ``shard_map`` and no
+``psum``: every rank holds its own shard of the weights
+(``launch.shardings``) and the local activations, runs the kernel on
+them, and a row-parallel site all-reduces (SUM over the model axis's
+process group) what the reference psums: the raw int32 / fp32
+accumulators of the quantized entries (K5 / K6 raw, K11 for gather), the
+rows quantized against the all-reduced MAX of the shards' row absmax (or
+the static scale), then one dequantize; fp32 partials for the float
+entries and the torch tier.
+
 What the slice leaves out, each still planned by the JAX package only:
-shard_map placement, the rowwise layout and autotuning.  Blocks are
-always fitted (``ReasonCode.BLOCKS_FITTED``).
+the rowwise layout and autotuning.  Blocks are always fitted
+(``ReasonCode.BLOCKS_FITTED``).
 
 The torch tier is the reference: it is what runs under autograd (the
 kernels carry no backward), on CPU tensors by default, and when a shape
@@ -70,6 +89,8 @@ __all__ = [
     "DispatchConfig",
     "DispatchDecision",
     "GemmProblem",
+    "ShardSpec",
+    "shard_spec_from_env",
     "use_dispatch",
     "plan",
     "plan_for",
@@ -115,6 +136,61 @@ def use_dispatch(**overrides):
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How the model axis slices one (b, ke, o) GEMM at its use site.
+
+    Each field is a mesh axis name (or tuple of names) slicing that dim,
+    or ``None`` for replicated.  ``mesh`` is anything with the mesh's
+    ``.shape`` mapping (the installed ``AxisEnv``), the only part of a mesh
+    a plan reads.  Column-parallel weights slice ``o`` (no collective),
+    row-parallel ones ``ke`` (partial products all-reduced)."""
+
+    mesh: Any
+    batch: Any = None
+    ke: Any = None
+    o: Any = None
+
+    def axis_size(self, axes) -> int:
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    @property
+    def shards(self) -> Tuple[int, int, int]:
+        return (self.axis_size(self.batch), self.axis_size(self.ke),
+                self.axis_size(self.o))
+
+    @property
+    def collective(self) -> str:
+        return "psum" if self.axis_size(self.ke) > 1 else "none"
+
+
+def _axis_env():
+    from ..models.pjit_utils import axis_env   # local: the models import this module
+    return axis_env()
+
+
+def _mesh_active() -> bool:
+    return _axis_env() is not None
+
+
+def shard_spec_from_env(gather: Optional[str] = None) -> Optional[ShardSpec]:
+    """ShardSpec for the installed axis env, or ``None`` without one.
+    ``gather`` is the use-site hint ("col" | "row" | None)."""
+    from ..models.pjit_utils import BATCH_AXIS, MODEL_AXIS
+    env = _axis_env()
+    if env is None:
+        return None
+    if gather == "col":
+        return ShardSpec(mesh=env, batch=BATCH_AXIS, o=MODEL_AXIS)
+    if gather == "row":
+        return ShardSpec(mesh=env, batch=BATCH_AXIS, ke=MODEL_AXIS)
+    return ShardSpec(mesh=env, batch=BATCH_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
 class GemmProblem:
     """ONE value object describing a GEMM the engine may plan.
 
@@ -124,7 +200,9 @@ class GemmProblem:
     (``EpilogueSpec.point``); ``dual`` marks a fused gate-up pair.
     ``static_scales`` records whether the use site carries a calibrated
     activation scale; it only annotates the decision.  ``activation`` is
-    the activation-sparsity point (``ActivationSpec.point``)."""
+    the activation-sparsity point (``ActivationSpec.point``).  ``sharded``:
+    an axis env is installed (and the call is not ``local``); ``shard``:
+    the use site's slicing, the dims above being the GLOBAL problem."""
 
     mode: str
     b: int
@@ -134,6 +212,8 @@ class GemmProblem:
     m: int = 4
     dtype: Any = torch.float32
     differentiating: bool = False
+    sharded: bool = False
+    shard: Optional[ShardSpec] = None
     epilogue: Optional[str] = None
     dual: bool = False
     device: Any = None
@@ -143,7 +223,10 @@ class GemmProblem:
 
 @dataclasses.dataclass(frozen=True)
 class DispatchDecision:
-    """What the engine chose for one problem, and why."""
+    """What the engine chose for one problem, and why.  ``placement`` is
+    "single" or "shard_map" (the reference's word: each rank runs the
+    kernel on its shard, ``local_dims``, and ``collective`` "psum" means
+    an all-reduce SUM of the partials over the model axis)."""
 
     mode: str
     backend: str
@@ -151,6 +234,10 @@ class DispatchDecision:
     blocks: Optional[Blocks]
     reason: str
     blocks_source: str = "none"    # none | fitted
+    placement: str = "single"      # single | shard_map
+    local_dims: Optional[Tuple[int, int, int]] = None   # per-shard (b, ke, o)
+    shards: Optional[Tuple[int, int, int]] = None       # mesh split of (b, ke, o)
+    collective: Optional[str] = None                    # psum | none
     dtype: Optional[str] = None
     epilogue: Optional[str] = None
     epilogue_fused: bool = False
@@ -165,6 +252,10 @@ class DispatchDecision:
     def uses_kernel(self) -> bool:
         return self.kernel != TORCH_REFERENCE
 
+    @property
+    def uses_shard_map(self) -> bool:
+        return self.placement == "shard_map"
+
 
 def describe(d: DispatchDecision) -> str:
     epi = ""
@@ -178,6 +269,10 @@ def describe(d: DispatchDecision) -> str:
     if not d.uses_kernel:
         return f"{d.mode}: {TORCH_REFERENCE} ({d.reason}){epi}"
     bb, bke, bo = d.blocks
+    if d.uses_shard_map:
+        (lb, lke, lo), (sb, ske, so) = d.local_dims, d.shards
+        epi += (f" shard_map[{d.collective}] shards=(b/{sb},ke/{ske},o/{so})"
+                f" local=(b={lb},ke={lke},o={lo})")
     acts = f" act-scales={d.act_scales}" if d.act_scales is not None else ""
     return (f"{d.mode}: {d.kernel}[{d.backend}] blocks=(b={bb},ke={bke},o={bo})"
             f" dtype={d.dtype}{epi}{acts} ({d.reason})")
@@ -272,7 +367,7 @@ def _run_tile_gemm(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
         # let the kernel skip the dead tiles
         return tile_gemm_masked(x2, w, *_maps(x2, blocks), block_b=blocks[0],
                                 **_epi_kwargs(epilogue))
-    return tile_gemm(x2, w, block_b=blocks[0], **_epi_kwargs(epilogue))
+    return tile_gemm(x2, w, block_b=blocks[0], out_dtype=out_dtype, **_epi_kwargs(epilogue))
 
 
 def _run_tile_gemm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -289,7 +384,7 @@ def _run_nm_spmm(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
         return nm_spmm_masked(x2, v, params["meta_packed"], *_maps(x2, blocks), cfg.n,
                               block_b=blocks[0], **_epi_kwargs(epilogue))
     return nm_spmm(x2, v, params["meta_packed"], cfg.n, block_b=blocks[0],
-                   **_epi_kwargs(epilogue))
+                   out_dtype=out_dtype, **_epi_kwargs(epilogue))
 
 
 def _run_nm_spmm_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -307,7 +402,7 @@ def _run_nm_gather(x2, params, cfg, blocks, epilogue=None, out_dtype=None,
         return nm_spmm_gather_bk_masked(x2, v, params["gather_idx"], *_maps(x2, blocks),
                                         cfg.n, block_b=blocks[0], **_epi_kwargs(epilogue))
     return nm_spmm_gather_bk(x2, v, params["gather_idx"], cfg.n, block_b=blocks[0],
-                             **_epi_kwargs(epilogue))
+                             out_dtype=out_dtype, **_epi_kwargs(epilogue))
 
 
 def _run_nm_gather_dual(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None):
@@ -469,35 +564,66 @@ def _run_nm_gather_dual_q(x2, pg, pu, cfg, blocks, epilogue=None, out_dtype=None
                                                         block_b=blocks[0])
 
 
+# --- raw partials (``KernelEntry.run_quantized``): the class's accumulator
+# of rows already quantized and padded, no scales.  A row-parallel shard
+# all-reduces it before the one dequantize.  The gather layout runs K11,
+# the K-major nm_spmm_gather_{int8,fp8}, on xq.t() and hands back y_t.t(),
+# as the JAX package's _partial_nm_gather_q does.
+
+def _partial_tile_gemm_q(xq, params, cfg, blocks):
+    from .tile_gemm import kernel as tk
+    return _q_kernel(tk, "tile_gemm", params["w"].dtype)(xq, params["w"], None, None)
+
+
+def _partial_nm_spmm_q(xq, params, cfg, blocks):
+    from .nm_spmm import kernel as nk
+    return _q_kernel(nk, "nm_spmm", params["values"].dtype)(
+        xq, params["values"], params["meta_packed"], None, None, cfg.n)
+
+
+def _partial_nm_gather_q(xq, params, cfg, blocks):
+    from .nm_spmm_gather import kernel as gk
+    y_t = _q_kernel(gk, "nm_spmm_gather", params["values"].dtype)(
+        xq.t().contiguous(), params["values"], params["gather_idx"].reshape(-1, 1), None,
+        None, cfg.n)
+    return y_t.t()
+
+
 registry.register(KernelEntry(
     name="tile_gemm_int8", mode="dense",
     fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.int8),
     run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True,
+    run_quantized=_partial_tile_gemm_q,
     activation_skip=True))
 registry.register(KernelEntry(
     name="nm_spmm_int8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.int8),
     run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True,
+    run_quantized=_partial_nm_spmm_q,
     activation_skip=True))
 registry.register(KernelEntry(
     name="tile_gemm_fp8", mode="dense",
     fit_blocks=functools.partial(_fit_tile_gemm, storage=torch.float8_e4m3fn),
     run=_run_tile_gemm_q, run_dual=_run_tile_gemm_dual_q, quantized=True,
+    run_quantized=_partial_tile_gemm_q,
     activation_skip=True, supported=registry.supports_fp8))
 registry.register(KernelEntry(
     name="nm_spmm_fp8", mode="compressed",
     fit_blocks=functools.partial(_fit_nm_spmm, storage=torch.float8_e4m3fn),
     run=_run_nm_spmm_q, run_dual=_run_nm_spmm_dual_q, quantized=True,
+    run_quantized=_partial_nm_spmm_q,
     activation_skip=True, supported=registry.supports_fp8))
 registry.register(KernelEntry(
     name="nm_spmm_gather_int8", mode="gather",
     fit_blocks=functools.partial(_fit_nm_gather, storage=torch.int8),
     run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True,
+    run_quantized=_partial_nm_gather_q,
     activation_skip=True))
 registry.register(KernelEntry(
     name="nm_spmm_gather_fp8", mode="gather",
     fit_blocks=functools.partial(_fit_nm_gather, storage=torch.float8_e4m3fn),
     run=_run_nm_gather_q, run_dual=_run_nm_gather_dual_q, quantized=True,
+    run_quantized=_partial_nm_gather_q,
     activation_skip=True, supported=registry.supports_fp8))
 
 
@@ -563,13 +689,35 @@ def _leaf_tensors(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [v for v in params.values() if isinstance(v, torch.Tensor)]
 
 
+def _meta_axis_sliceable(mode: str, ke: int, n: int, m: int, ske: int) -> bool:
+    """Can the contraction be cut into ``ske`` shards without splitting N:M
+    metadata?  compressed: each shard's values rows pack whole meta bytes,
+    ``ke * n % (4 * m * ske) == 0``; gather: shard boundaries fall on
+    M-blocks (local indices stay block-relative), ``ke % (m * ske) == 0``."""
+    if ske <= 1:
+        return True
+    if mode == "compressed":
+        return (ke * n) % (4 * m * ske) == 0
+    if mode == "gather":
+        return ke % (m * ske) == 0
+    return ke % ske == 0
+
+
 def plan(problem: GemmProblem, *,
          dispatch: Optional[DispatchConfig] = None) -> DispatchDecision:
-    """Pure decision function: what would the engine run for this problem?"""
+    """Pure decision function: what would the engine run for this problem?
+
+    With ``problem.shard`` (a hinted site under an axis env) the engine
+    plans the sharded class on the GLOBAL problem: blocks are fitted to
+    the per-rank ``local_dims``, the epilogue is never fused
+    (``EPILOGUE_SHARDED``: it runs after the reduction) and the
+    activation skip never granted (``ACT_MASK_ONLY_SHARDED``).
+    ``sharded`` without a spec falls back (``NO_SHARD_SPEC``)."""
     p = problem
     dcfg = dispatch or _DEFAULT
     backend = registry.resolve_backend(dcfg.backend, p.device)
     dt_name = dtype_name(p.dtype)
+    shard = p.shard
 
     def _fallback(code, **ctx):
         return DispatchDecision(
@@ -588,25 +736,48 @@ def plan(problem: GemmProblem, *,
         return _fallback(ReasonCode.BACKEND_JNP)
     if p.differentiating:
         return _fallback(ReasonCode.AUTODIFF)
+    if shard is not None and all(s == 1 for s in shard.shards):
+        shard = None   # a trivial slicing: the single placement
+    if p.sharded and shard is None:
+        return _fallback(ReasonCode.NO_SHARD_SPEC)
     if p.b == 0:
         return _fallback(ReasonCode.EMPTY_BATCH)
+    shards = (1, 1, 1)
+    placement, local, collective = "single", None, None
+    if shard is not None:
+        shards = shard.shards
+        local = registry.local_dims((p.b, p.ke, p.o), shards)
+        if local is None:
+            return _fallback(ReasonCode.SHARD_INDIVISIBLE, shards=shards, b=p.b, ke=p.ke,
+                             o=p.o)
+        if not _meta_axis_sliceable(p.mode, p.ke, p.n, p.m, shards[1]):
+            return _fallback(ReasonCode.META_AXIS_SPLIT, n=p.n, m=p.m, ke=p.ke,
+                             ske=shards[1])
+        placement, collective = "shard_map", shard.collective
     sel = registry.select(p.mode, b=p.b, ke=p.ke, o=p.o, n=p.n, m=p.m,
-                          dtype=p.dtype, backend=backend, device=p.device)
+                          dtype=p.dtype, backend=backend, device=p.device, shards=shards)
     if sel is None:
-        return _fallback(ReasonCode.NO_KERNEL_FITS, where="", b=p.b, ke=p.ke,
-                         o=p.o, n=p.n, m=p.m, dtype=dt_name)
+        dims = local if shard is not None else (p.b, p.ke, p.o)
+        return _fallback(ReasonCode.NO_KERNEL_FITS,
+                         where="local shard " if shard is not None else "",
+                         b=dims[0], ke=dims[1], o=dims[2], n=p.n, m=p.m, dtype=dt_name)
     entry, blocks = sel
     epi_code = None
     if p.epilogue is not None:
-        epi_code = (ReasonCode.EPILOGUE_NO_DUAL_KERNEL
-                    if p.dual and entry.run_dual is None
-                    else ReasonCode.EPILOGUE_FUSED)
-    # the in-kernel dead-tile skip: never on duals (no masked dual
-    # kernels), and only on entries whose adapter carries a masked kernel
-    # (ACT_MASK_ONLY_SHARDED waits for the sharded placement)
+        if placement != "single":
+            epi_code = ReasonCode.EPILOGUE_SHARDED
+        elif p.dual and entry.run_dual is None:
+            epi_code = ReasonCode.EPILOGUE_NO_DUAL_KERNEL
+        else:
+            epi_code = ReasonCode.EPILOGUE_FUSED
+    # the in-kernel dead-tile skip: single placement only, never on duals
+    # (no masked dual kernels), and only on entries whose adapter carries a
+    # masked kernel
     act_code = None
     if p.activation is not None:
-        if p.dual:
+        if placement != "single":
+            act_code = ReasonCode.ACT_MASK_ONLY_SHARDED
+        elif p.dual:
             act_code = ReasonCode.ACT_MASK_ONLY_DUAL
         elif not entry.activation_skip:
             act_code = ReasonCode.ACT_MASK_ONLY_ENTRY
@@ -615,7 +786,8 @@ def plan(problem: GemmProblem, *,
     return DispatchDecision(
         p.mode, backend, entry.name, blocks,
         reasons.render(ReasonCode.BLOCKS_FITTED), blocks_source="fitted",
-        dtype=dt_name, epilogue=p.epilogue,
+        placement=placement, local_dims=local, shards=shards if shard else None,
+        collective=collective, dtype=dt_name, epilogue=p.epilogue,
         epilogue_fused=epi_code is ReasonCode.EPILOGUE_FUSED,
         reason_code=ReasonCode.BLOCKS_FITTED, epilogue_reason=epi_code,
         act_scales=(("static" if p.static_scales else "dynamic")
@@ -624,16 +796,29 @@ def plan(problem: GemmProblem, *,
         activation_reason=act_code)
 
 
+def _global_dims(ke: int, o: int, shard: Optional[ShardSpec]) -> Tuple[int, int]:
+    """The global (ke, o) of a rank's local ones under ``shard``."""
+    if shard is None:
+        return ke, o
+    _, ske, so = shard.shards
+    return ke * ske, o * so
+
+
 def plan_for(params: Dict[str, Any], x_shape: Sequence[int], cfg, dtype=torch.float32,
-             dispatch: Optional[DispatchConfig] = None) -> DispatchDecision:
+             dispatch: Optional[DispatchConfig] = None,
+             shard: Optional[ShardSpec] = None) -> DispatchDecision:
     """Planning convenience for launchers and reports: no execution.  A
-    quantized leaf plans on its storage dtype, whatever ``dtype`` says."""
+    quantized leaf plans on its storage dtype, whatever ``dtype`` says.
+    Under ``shard``, ``params`` and ``x_shape`` are this rank's (its
+    shard of the leaf, its local activations) and the plan's problem is
+    the global one."""
     mode = _mode_of(params, cfg)
     b = math.prod(x_shape[:-1]) if len(x_shape) > 1 else 1
-    ke, o = _problem_dims(mode, params, x_shape[-1])
+    ke, o = _global_dims(*_problem_dims(mode, params, x_shape[-1]), shard)
     device = _leaf_tensors(params)[0].device
     return plan(GemmProblem(mode, b=b, ke=ke, o=o, n=cfg.n, m=cfg.m,
                             dtype=quant.quant_dtype(params) or dtype, device=device,
+                            sharded=_mesh_active(), shard=shard,
                             static_scales=quant.has_static_scales(params)),
                 dispatch=dispatch)
 
@@ -645,8 +830,63 @@ def _entry_by_name(mode: str, name: str) -> KernelEntry:
     raise KeyError(f"kernel {name!r} not registered for mode {mode!r}")
 
 
+def _pad_rows(xq: torch.Tensor, b_pad: int) -> torch.Tensor:
+    """Zero rows up to ``b_pad`` (they contract to zero and are sliced off)."""
+    pad = b_pad - xq.shape[0]
+    if pad == 0:
+        return xq
+    return torch.cat([xq, torch.zeros((pad, xq.shape[1]), dtype=xq.dtype, device=xq.device)])
+
+
+#: the row quantum of the raw partials (the JAX package's _q_padded_b; K11
+#: needs a multiple of 16)
+Q_ROWS = 32
+
+
+def _q_padded_b(b: int) -> int:
+    return b + (-b) % Q_ROWS
+
+
+def _run_sharded(x2, params, cfg, mode, decision, shard, out_dtype):
+    """One rank's part of a sharded site, what the reference's
+    ``_shard_map_runner`` body computes on its shard.  ``x2`` and
+    ``params`` are this rank's (local rows of the contraction at a row
+    site); a row site all-reduces over the model axis:
+
+    - quantized kernel: rows quantized against the static scale, or
+      against the all-reduced MAX of the shards' row absmax; padded to
+      :data:`Q_ROWS`; the raw accumulator (K5 / K6 raw, K11 for gather)
+      all-reduced in int32 / fp32, then ``acc * xs * ws`` once;
+    - float kernel or the torch tier: fp32 partials all-reduced, one cast.
+    """
+    env = shard.mesh
+    psum = shard.collective == "psum"
+    entry = _entry_by_name(mode, decision.kernel) if decision.uses_kernel else None
+    if psum and entry is not None and entry.run_quantized is not None:
+        qdt = quant.quant_dtype(params)
+        b = x2.shape[0]
+        if quant.ACT_SCALE_KEY in params:
+            xq, xs = quant.quantize_rows_static(x2, params[quant.ACT_SCALE_KEY], qdt)
+        else:
+            absmax = env.all_reduce(x2.float().abs().amax(dim=-1, keepdim=True), "max")
+            xq, xs = quant.quantize_rows(x2, qdt, absmax=absmax)
+        acc = entry.run_quantized(_pad_rows(xq, _q_padded_b(b)), params, cfg,
+                                  decision.blocks).contiguous()
+        env.all_reduce(acc, "sum")
+        return (acc[:b].float() * xs * _w_scale(params)).to(out_dtype)
+    if entry is not None:
+        y = entry.run(x2.contiguous(), params, cfg, decision.blocks,
+                      out_dtype=torch.float32 if psum else out_dtype)
+    else:
+        y = _TORCH_IMPL[mode](x2.float() if psum else x2, params, cfg)
+    if psum:
+        y = env.all_reduce(y.float().contiguous(), "sum")
+    return y.to(out_dtype)
+
+
 def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
                   dispatch: Optional[DispatchConfig] = None,
+                  shard: Optional[ShardSpec] = None,
                   epilogue: Optional[Epilogue] = None,
                   activation: Optional[ActivationSpec] = None,
                   local: bool = False) -> torch.Tensor:
@@ -666,7 +906,13 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
     carries a masked kernel the dead (row block, K step) tiles are also
     skipped in the kernel, with bitwise the same output.  ``local=True``
     marks a call that runs inside a sharded body (the JAX package's MoE
-    experts); the port has no mesh yet, so it changes nothing here."""
+    experts): planning does not consult the axis env.
+
+    ``shard`` (``shard_spec_from_env(hint)`` at a hinted site under an axis
+    env) runs the sharded class: ``x`` and ``params`` are this rank's (its
+    activations, its shard of the leaf), the plan is the global problem's,
+    and the output is this rank's, all-reduced at a row-parallel site
+    (:func:`_run_sharded`); the epilogue then runs unfused."""
     dcfg = dispatch or _DEFAULT
     mode = _mode_of(params, cfg)
     if activation is not None:
@@ -678,7 +924,10 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
                          "route it through gate_up_matmul")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    ke, o = _problem_dims(mode, params, x2.shape[-1])
+    ke_l, o = _problem_dims(mode, params, x2.shape[-1])
+    if local:
+        shard = None
+    ke, o_g = _global_dims(ke_l, o, shard)
     # the dtype axis of the plan: a quantized leaf's storage dtype (the
     # weight operand selects the kernel), else the activations'
     exec_dtype = quant.quant_dtype(params) or x2.dtype
@@ -691,15 +940,23 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
     if quant.calibration_active() and quant._CALIB_KEY in params and not pre_q:
         quant.record_calibration(params[quant._CALIB_KEY], x2)
     decision = plan(GemmProblem(
-        mode, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=exec_dtype,
+        mode, b=x2.shape[0], ke=ke, o=o_g, n=cfg.n, m=cfg.m, dtype=exec_dtype,
         differentiating=_under_autodiff(x2, *_leaf_tensors(params)),
+        sharded=False if local else _mesh_active(), shard=shard,
         epilogue=epilogue.spec.point if epilogue is not None else None,
         device=x2.device, static_scales=quant.has_static_scales(params),
         activation=activation.point if activation is not None else None), dispatch=dcfg)
-    if pre_q and not decision.uses_kernel:
-        # the reference tier contracts float activations: undo the upstream
-        # fused requantize with the leaf's own static scale
+    if pre_q and not (decision.uses_kernel and decision.placement == "single"):
+        # the reference tier and the sharded bodies contract float
+        # activations: undo the upstream fused requantize with the leaf's
+        # own static scale
         x2 = x2.float() * params[quant.ACT_SCALE_KEY].float().reshape(())
+    if shard is not None and any(s > 1 for s in shard.shards):
+        # every rank holds its shard, so a declined plan (the torch tier)
+        # runs sharded too: the same partials, the same reduction
+        y2 = _run_sharded(x2, params, cfg, mode, decision, shard,
+                          torch.float32 if pre_q else x2.dtype)
+        return epilib.apply_reference(y2, epilogue).reshape(*lead, o)
     if not decision.uses_kernel:
         if mode not in _TORCH_IMPL:
             raise NotImplementedError(f"{mode!r} layouts are not ported yet")
@@ -717,6 +974,7 @@ def sparse_matmul(x: torch.Tensor, params: Dict[str, Any], cfg, *,
 def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                    params_u: Dict[str, Any], cfg, *,
                    dispatch: Optional[DispatchConfig] = None,
+                   shard: Optional[ShardSpec] = None,
                    epilogue: Optional[Epilogue] = None,
                    activation: Optional[ActivationSpec] = None,
                    local: bool = False) -> torch.Tensor:
@@ -732,9 +990,13 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
     tier runs two GEMMs and applies silu*mul to their results (rounded to
     the activation dtype first, as the JAX package's jnp tier does), and
     never the requant: the consumer's own static quantize gives the same
-    codes from the float rows.  ``activation`` and ``local`` are as for
-    :func:`sparse_matmul`; the dual never skips (``ACT_MASK_ONLY_DUAL``:
-    there are no masked duals), it contracts the masked operand."""
+    codes from the float rows.  ``activation``, ``local`` and ``shard`` are
+    as for :func:`sparse_matmul`; the dual never skips
+    (``ACT_MASK_ONLY_DUAL``: there are no masked duals), it contracts the
+    masked operand.  Under a column shard the pair plans
+    ``EPILOGUE_SHARDED``: two GEMMs over the rank's column slices of Wg
+    and Wu (the rank's part of the reference's ``[Wg | Wu]`` concat, read
+    once and not copied), and silu*mul after, on the rank."""
     dcfg = dispatch or _DEFAULT
     if epilogue is None:
         epilogue = epilib.make(act="silu_mul")
@@ -748,6 +1010,8 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     ke, o = _problem_dims(mode_g, params_g, x2.shape[-1])
+    if local:
+        shard = None
     # both sites see the same activations: record each calibration tag here
     if quant.calibration_active():
         for p in (params_g, params_u):
@@ -759,10 +1023,12 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                and quant.quant_dtype(params_u) == qdt
                and quant.has_static_scales(params_u) == quant.has_static_scales(params_g))
     if pair_ok:
+        ke_g, o_g = _global_dims(ke, o, shard)
         decision = plan(GemmProblem(
-            mode_g, b=x2.shape[0], ke=ke, o=o, n=cfg.n, m=cfg.m, dtype=qdt or x2.dtype,
+            mode_g, b=x2.shape[0], ke=ke_g, o=o_g, n=cfg.n, m=cfg.m, dtype=qdt or x2.dtype,
             differentiating=_under_autodiff(
                 x2, *_leaf_tensors(params_g), *_leaf_tensors(params_u)),
+            sharded=False if local else _mesh_active(), shard=shard,
             epilogue=epilogue.spec.point, dual=True, device=x2.device,
             static_scales=quant.has_static_scales(params_g),
             activation=activation.point if activation is not None else None),
@@ -774,14 +1040,17 @@ def gate_up_matmul(x: torch.Tensor, params_g: Dict[str, Any],
                                 decision.blocks, epilogue=epilogue,
                                 out_dtype=torch.float32 if pre_q else x2.dtype)
             return y2.reshape(*lead, o)
-    y_g = sparse_matmul(x2, params_g, cfg, dispatch=dcfg, activation=activation, local=local)
-    y_u = sparse_matmul(x2, params_u, cfg, dispatch=dcfg, activation=activation, local=local)
+    y_g = sparse_matmul(x2, params_g, cfg, dispatch=dcfg, shard=shard, activation=activation,
+                        local=local)
+    y_u = sparse_matmul(x2, params_u, cfg, dispatch=dcfg, shard=shard, activation=activation,
+                        local=local)
     h = F.silu(y_g.float()) * y_u.float()
     return h.to(y_g.dtype).reshape(*lead, o)
 
 
 def requant_decision(consumer_params: Dict[str, Any], batch_shape: Sequence[int], cfg,
-                     dispatch: Optional[DispatchConfig] = None
+                     dispatch: Optional[DispatchConfig] = None,
+                     shard: Optional[ShardSpec] = None
                      ) -> Tuple[Optional[Tuple[str, torch.Tensor]], ReasonCode]:
     """Should the PRODUCER of these activations fuse a requantize, and if
     not, the :class:`ReasonCode` saying why.
@@ -790,8 +1059,9 @@ def requant_decision(consumer_params: Dict[str, Any], batch_shape: Sequence[int]
     emitting the narrow rows the next quantized linear contracts as they
     are, exactly when the CONSUMER leaf (a) quantizes against a
     calibrated static ``act_scale`` (the fused cast must hit the scale
-    the consumer's own quantize would use) and (b) runs a kernel itself
-    (the torch tier wants float rows).  ``batch_shape`` is the leading
+    the consumer's own quantize would use) and (b) runs a single-placement
+    kernel itself (the torch tier and the sharded class want float rows;
+    ``shard`` is the consumer's use-site slicing).  ``batch_shape`` is the leading
     shape of the activations the producer will emit.  Returns
     ``((dtype_name, scalar_scale), code)`` on a fused plan, ``(None,
     code)`` on a decline; producer and consumer both derive the decision
@@ -804,21 +1074,23 @@ def requant_decision(consumer_params: Dict[str, Any], batch_shape: Sequence[int]
     try:
         ke = input_features(consumer_params, cfg)
         d = plan_for(consumer_params, tuple(batch_shape) + (ke,), cfg, dtype=qdt,
-                     dispatch=dispatch)
+                     dispatch=dispatch, shard=shard)
     except ValueError:   # an unrecognized layout: no requant
         return None, ReasonCode.REQUANT_LAYOUT
-    if not d.uses_kernel:
+    if not (d.uses_kernel and d.placement == "single"):
         return None, ReasonCode.REQUANT_CONSUMER_FALLBACK
     s = consumer_params[quant.ACT_SCALE_KEY].float().reshape(())
     return (dtype_name(qdt), s), ReasonCode.REQUANT_FUSED
 
 
 def requant_plan(consumer_params: Dict[str, Any], batch_shape: Sequence[int], cfg,
-                 dispatch: Optional[DispatchConfig] = None
+                 dispatch: Optional[DispatchConfig] = None,
+                 shard: Optional[ShardSpec] = None
                  ) -> Optional[Tuple[str, torch.Tensor]]:
     """:func:`requant_decision` minus the reason code: the execution paths
     (``layers.apply_mlp``) only need the operands."""
-    result, _ = requant_decision(consumer_params, batch_shape, cfg, dispatch=dispatch)
+    result, _ = requant_decision(consumer_params, batch_shape, cfg, dispatch=dispatch,
+                                 shard=shard)
     return result
 
 
@@ -833,8 +1105,10 @@ def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
     ``flash_attention`` entry runs (self-attention shapes only: Tq == Tk,
     no query offset); the chunked online-softmax formulation
     (``models.attention.chunked_attention``) is the reference and the
-    fallback: under autograd, on the torch tier, or when a shape or
-    dtype fails the kernel's contract."""
+    fallback: under autograd, on the torch tier, under an axis env
+    (``NO_SHARD_SPEC``, as in the JAX package: sharded attention is
+    head-parallel, each rank attends over its own heads), or when a shape
+    or dtype fails the kernel's contract."""
     from ..models.attention import chunked_attention   # local: avoid a cycle
 
     dcfg = dispatch or _DEFAULT
@@ -842,7 +1116,7 @@ def attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
     tk = k.shape[1]
     decision = plan(GemmProblem("attention", b=tq, ke=tk, o=d, n=4, m=4, dtype=qg.dtype,
                                 differentiating=_under_autodiff(qg, k, v),
-                                device=qg.device), dispatch=dcfg)
+                                sharded=_mesh_active(), device=qg.device), dispatch=dcfg)
     if not decision.uses_kernel or tq != tk or q_offset != 0:
         return chunked_attention(qg, k, v, causal, q_offset, p_bf16)
     entry = _entry_by_name("attention", decision.kernel)
@@ -892,11 +1166,20 @@ def _leaf_dtype(leaf: Dict[str, Any]) -> torch.dtype:
     return leaf.get("values", leaf.get("w")).dtype
 
 
+def leaf_shard_spec(names: Sequence[str]) -> Optional[ShardSpec]:
+    """The use-site ShardSpec of one yielded linear leaf, as
+    ``apply_linear`` builds it: none for an unhinted site."""
+    hint = gather_hint(names)
+    return None if hint is None else shard_spec_from_env(hint)
+
+
 def dispatch_report(params_tree, batches, cfg,
                     dispatch: Optional[DispatchConfig] = None) -> List[str]:
     """Distinct (shape -> engine decision) plan lines for a params tree,
     at each leading batch width the serving path runs (decode slots and
-    the prefill chunk), followed by the fused gate-up pairs."""
+    the prefill chunk), followed by the fused gate-up pairs.  Under an
+    axis env the tree is this rank's shards and each line carries the
+    global and the local problem."""
     if isinstance(batches, int):
         batches = (batches,)
     dcfg = dispatch or _DEFAULT
@@ -904,11 +1187,13 @@ def dispatch_report(params_tree, batches, cfg,
     for batch in batches:
         pairs = {}
         for names, leaf in iter_linear_items(params_tree):
-            ke = input_features(leaf, cfg)
+            shard = leaf_shard_spec(names)
+            ke, o = _global_dims(input_features(leaf, cfg),
+                                 leaf["w"].shape[-1] if "w" in leaf
+                                 else leaf["values"].shape[-1], shard)
             hint = gather_hint(names)
-            d = plan_for(leaf, (batch, ke), cfg, dtype=_leaf_dtype(leaf),
-                         dispatch=dcfg)
-            o = leaf["w"].shape[-1] if "w" in leaf else leaf["values"].shape[-1]
+            d = plan_for(leaf, (batch, input_features(leaf, cfg)), cfg,
+                         dtype=_leaf_dtype(leaf), dispatch=dcfg, shard=shard)
             seen.setdefault((batch, d.mode, cfg.n, ke, o, str(hint)), d)
             if names and names[-1] in ("w_gate", "w_in"):
                 pairs.setdefault(tuple(names[:-1]), {})[names[-1]] = (names, leaf)
@@ -923,8 +1208,11 @@ def dispatch_report(params_tree, batches, cfg,
             if (_mode_of(uleaf, cfg) != mode or _problem_dims(mode, uleaf, ke) != (ke, o)
                     or _leaf_dtype(uleaf) != _leaf_dtype(gleaf)):
                 continue
+            shard = leaf_shard_spec(gnames)
+            ke, o = _global_dims(ke, o, shard)
             d = plan(GemmProblem(mode, b=batch, ke=ke, o=o, n=cfg.n, m=cfg.m,
-                                 dtype=_leaf_dtype(gleaf), epilogue="silu_mul",
+                                 dtype=_leaf_dtype(gleaf), sharded=_mesh_active(),
+                                 shard=shard, epilogue="silu_mul",
                                  dual=True, device=_leaf_tensors(gleaf)[0].device,
                                  static_scales=quant.has_static_scales(gleaf)),
                      dispatch=dcfg)
@@ -932,8 +1220,12 @@ def dispatch_report(params_tree, batches, cfg,
                 (batch, mode, cfg.n, ke, o, str(gather_hint(gnames))), d)
     lines = []
     for (batch, _, n, ke, o, hint), d in sorted(seen.items()):
+        loc = ""
+        if d.uses_shard_map:
+            lb, lke, lo = d.local_dims
+            loc = f" -> local (B={lb}, K={lke}, O={lo})"
         lines.append(f"  [{hint if hint != 'None' else 'rep'}] {n}:{cfg.m} "
-                     f"global (B={batch}, K={ke}, O={o}) {describe(d)}")
+                     f"global (B={batch}, K={ke}, O={o}){loc} {describe(d)}")
     for (batch, _, n, ke, o, hint), d in sorted(dual_seen.items()):
         lines.append(f"  [gate-up {hint if hint != 'None' else 'rep'}] {n}:{cfg.m} "
                      f"global (B={batch}, K={ke}, O={o}) {describe(d)}")

@@ -34,7 +34,7 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale,
+from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale, float_out,
                                 check_scales, check_single_epilogue, quantized_out,
                                 requant_spec)
 from ..reasons import dtype_name
@@ -74,24 +74,28 @@ def _check_cuda(kernel: str, x, values_list, metas, bb, ke, o, extra=()):
 def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
             n: int, *, epilogue: Optional[EpilogueSpec] = None,
             bias: Optional[torch.Tensor] = None,
+            out_dtype: Optional[torch.dtype] = None,
             block_b: Optional[int] = None) -> torch.Tensor:
-    """``epilogue(X @ dec(values, meta_packed))`` in X's dtype, M = 4."""
+    """``epilogue(X @ dec(values, meta_packed))`` in X's dtype (or
+    ``out_dtype=torch.float32``), M = 4."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_compressed("nm_spmm", ke, values, meta_packed, n)
     check_single_epilogue("nm_spmm", epi, bias, o)
+    out_dtype, out_f32 = float_out("nm_spmm", x, out_dtype)
     if x.device.type == "cpu":
-        return nm_spmm_ref(x, values, meta_packed, n, epilogue=epi, bias=bias)
+        return nm_spmm_ref(x, values, meta_packed, n, epilogue=epi, bias=bias,
+                           out_dtype=out_dtype)
     bb = block_b or _build.block_rows(b)
     bias32 = None if bias is None else bias.float().contiguous()
     _check_cuda("nm_spmm", x, (values,), (meta_packed,), bb, ke, o,
                 () if bias32 is None else (bias32,))
-    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, o), dtype=out_dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm(x.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
                             None if bias32 is None else bias32.data_ptr(),
-                            y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], bb,
+                            y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], out_f32, bb,
                             _build.stream_of(x))
     nm_spmm.launches += 1
     _build.check(rc, "nm_spmm", lib)

@@ -25,9 +25,10 @@ def dense_weight(values: torch.Tensor, meta_packed: torch.Tensor, n: int) -> tor
 
 def nm_spmm_ref(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
                 n: int, *, epilogue: Optional[EpilogueSpec] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     return tile_gemm_ref(x, dense_weight(values, meta_packed, n),
-                         epilogue=epilogue, bias=bias)
+                         epilogue=epilogue, bias=bias, out_dtype=out_dtype)
 
 
 def nm_spmm_dual_ref(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,

@@ -11,7 +11,10 @@ activation scale, and the singles with that flush,
 ``nm_spmm_gather_bk_int8_requant`` / ``nm_spmm_gather_bk_fp8_requant``.
 K10: ``nm_spmm_gather_bk_masked`` and its int8 and fp8 twins, with the
 activation-sparsity block skip (K steps of 64 compressed rows, ``256 /
-n`` activation columns).
+n`` activation columns).  K11: ``nm_spmm_gather``, ``nm_spmm_gather_int8``
+and ``nm_spmm_gather_fp8``, the same product in the K-major layout,
+``Y_t (O, B)`` from ``x_t (K_eff, B)``, scaled or (quantized) the raw
+accumulator the sharded row-parallel path all-reduces.
 
 ``Y (B, O) = gather(X (B, K_eff), idx) (B, K_c) @ values (K_c, O)`` with
 ``K_c = K_eff * n / 4``: every output channel shares one in-block index
@@ -23,8 +26,9 @@ each weight's own index stream, from one activation read.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue),
-``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8) and
-``::nm_spmm_gather_bk_masked`` (:445), the quantized ones each with the
+``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8),
+``::nm_spmm_gather_bk_masked`` (:445) and the K-major ``::nm_spmm_gather``
+(:87), ``::nm_spmm_gather_int8`` (:211) and ``::nm_spmm_gather_fp8`` (:243), the quantized ones each with the
 ``requant:<dtype>`` flush of ``repro/kernels/epilogue.py::flush_tile``.  The quantized flush keeps
 the gather kernels' order, ``acc * w_scale * x_scale``.  CUDA tensors
 launch the kernel or raise; CPU tensors take the plain version from
@@ -40,19 +44,21 @@ import torch
 from .. import _build
 from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
-from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale,
+from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale, float_out,
                                 check_scales, check_single_epilogue, quantized_out,
                                 requant_spec)
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
-                  nm_spmm_gather_quantized_ref, nm_spmm_gather_ref)
+                  nm_spmm_gather_quantized_ref, nm_spmm_gather_ref,
+                  nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
 __all__ = ["nm_spmm_gather_bk", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
            "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
            "nm_spmm_gather_bk_fp8_requant", "nm_spmm_gather_dual_bk_fp8",
            "nm_spmm_gather_dual_bk_fp8_requant", "nm_spmm_gather_bk_masked",
-           "nm_spmm_gather_bk_masked_int8", "nm_spmm_gather_bk_masked_fp8"]
+           "nm_spmm_gather_bk_masked_int8", "nm_spmm_gather_bk_masked_fp8",
+           "nm_spmm_gather", "nm_spmm_gather_int8", "nm_spmm_gather_fp8"]
 
 _N = (1, 2, 4)
 
@@ -81,14 +87,18 @@ def _check_pair(kernel: str, values_g, idx_g, values_u, idx_u) -> None:
 def nm_spmm_gather_bk(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, n: int, *,
                       epilogue: Optional[EpilogueSpec] = None,
                       bias: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None,
                       block_b: Optional[int] = None) -> torch.Tensor:
-    """``epilogue(gather(X, idx) @ values)`` in X's dtype, M = 4."""
+    """``epilogue(gather(X, idx) @ values)`` in X's dtype (or
+    ``out_dtype=torch.float32``), M = 4."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_gather("nm_spmm_gather_bk", ke, values, idx, n)
     check_single_epilogue("nm_spmm_gather_bk", epi, bias, o)
+    out_dtype, out_f32 = float_out("nm_spmm_gather_bk", x, out_dtype)
     if x.device.type == "cpu":
-        return nm_spmm_gather_ref(x, values, idx, n, epilogue=epi, bias=bias)
+        return nm_spmm_gather_ref(x, values, idx, n, epilogue=epi, bias=bias,
+                                  out_dtype=out_dtype)
     bb = block_b or _build.block_rows(b)
     bias32 = None if bias is None else bias.float().contiguous()
     _build.check_operands("nm_spmm_gather_bk", x, values, idx,
@@ -96,12 +106,12 @@ def nm_spmm_gather_bk(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, 
     if values.dtype != x.dtype:
         raise ValueError("nm_spmm_gather_bk: values must share x's dtype")
     _build.check_tiles("nm_spmm_gather_bk", values.shape[0], o)
-    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, o), dtype=out_dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm_gather_bk(x.data_ptr(), values.data_ptr(), idx.data_ptr(),
                                       _ptr(bias32), y.data_ptr(), b, ke, o, n,
-                                      ACT_CODES[epi.act], bb, _build.stream_of(x))
+                                      ACT_CODES[epi.act], out_f32, bb, _build.stream_of(x))
     nm_spmm_gather_bk.launches += 1
     _build.check(rc, "nm_spmm_gather_bk", lib)
     return y
@@ -452,3 +462,121 @@ def nm_spmm_gather_dual_bk_fp8_requant(x_q: torch.Tensor, values_g: torch.Tensor
 
 
 nm_spmm_gather_dual_bk_fp8_requant.launches = 0
+
+
+# --- K11: the K-major layout.  x_t (K_eff, B) with the batch contiguous, Y_t
+# (O, B); B a multiple of 16 (16-byte loads of the batch).  The sharded
+# row-parallel path hands the kernel xq.t() and takes y_t.t() back, as the
+# JAX package's _partial_nm_gather_q does.
+
+KMAJOR_B = 16
+
+
+def _check_kmajor(kernel: str, x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                  n: int) -> tuple:
+    """``(idx as (K_c,), O)``: ``idx`` may come as the JAX kernels' (K_c, 1)."""
+    ke, b = x_t.shape
+    if idx.dim() == 2 and idx.shape[1] == 1:
+        idx = idx.reshape(-1)
+    o = _check_gather(kernel, ke, values, idx, n)
+    if b % KMAJOR_B:
+        raise ValueError(f"{kernel}: B={b} must be a multiple of {KMAJOR_B} (pad the batch)")
+    return idx, o
+
+
+def nm_spmm_gather(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, n: int, *,
+                   out_dtype: torch.dtype = torch.float32,
+                   block_b: Optional[int] = None) -> torch.Tensor:
+    """``Y_t (O, B) = gather(x_t, idx)^T-contract values``, fp32 sums stored
+    as ``out_dtype`` (fp32 or x_t's bf16), M = 4.  ``idx``: (K_c,) or (K_c,
+    1) int32 in-block indices."""
+    idx, o = _check_kmajor("nm_spmm_gather", x_t, values, idx, n)
+    ke, b = x_t.shape
+    if x_t.device.type == "cpu":
+        return nm_spmm_gather_t_ref(x_t, values, idx, n, out_dtype=out_dtype)
+    if out_dtype not in (x_t.dtype, torch.float32):
+        raise ValueError(f"nm_spmm_gather: the kernel stores {x_t.dtype} or float32")
+    bb = block_b or _build.block_rows(b)
+    _build.check_operands("nm_spmm_gather", x_t, values, idx, block_b=bb)
+    if values.dtype != x_t.dtype:
+        raise ValueError("nm_spmm_gather: values must share x_t's dtype")
+    _build.check_tiles("nm_spmm_gather", values.shape[0], o)
+    y_t = torch.empty((o, b), dtype=out_dtype, device=x_t.device)
+    lib = _build.library()
+    with torch.cuda.device(x_t.device):
+        rc = lib.vg_nm_spmm_gather(x_t.data_ptr(), values.data_ptr(), idx.data_ptr(),
+                                   y_t.data_ptr(), b, ke, o, n,
+                                   int(out_dtype == torch.float32), bb, _build.stream_of(x_t))
+    nm_spmm_gather.launches += 1
+    _build.check(rc, "nm_spmm_gather", lib)
+    return y_t
+
+
+nm_spmm_gather.launches = 0
+
+
+def _gather_t_quantized(wrapper, storage, x_t, values, idx, x_scale, w_scale, n, out_dtype,
+                        block_b):
+    """The shared body of the int8 and fp8 K-major gathers: checks, the plain
+    version on CPU tensors, else one launch counted on ``wrapper``.  Scales
+    ``x_scale (1, B)`` and ``w_scale (O, 1)``, or neither (the raw
+    accumulator)."""
+    kernel = wrapper.__name__
+    source = _build.QUANT_CLASSES[storage][0]
+    idx, o = _check_kmajor(kernel, x_t, values, idx, n)
+    ke, b = x_t.shape
+    if (x_scale is None) != (w_scale is None):
+        raise ValueError(f"{kernel}: pass both scales or neither")
+    raw = x_scale is None
+    if not raw and (tuple(x_scale.shape) != (1, b) or tuple(w_scale.shape) != (o, 1)
+                    or x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32):
+        raise ValueError(f"{kernel}: scales must be float32 x (1, {b}) and w ({o}, 1), got "
+                         f"{x_scale.dtype} {tuple(x_scale.shape)} and {w_scale.dtype} "
+                         f"{tuple(w_scale.shape)}")
+    _check_storage(kernel, storage, x_t, values)
+    if x_t.device.type == "cpu":
+        return nm_spmm_gather_t_quantized_ref(x_t, values, idx, x_scale, w_scale, n,
+                                              out_dtype=out_dtype)
+    kind = _build.out_kind(kernel, out_dtype, raw)
+    y_dtype = _build.QUANT_CLASSES[storage][2] if raw else out_dtype
+    bb = block_b or _build.block_rows(b)
+    extra = () if raw else (x_scale, w_scale)
+    _build.check_operands(kernel, x_t, values, idx, *extra, block_b=bb, x_dtype=storage)
+    _build.check_tiles(kernel, values.shape[0], o)
+    y_t = torch.empty((o, b), dtype=y_dtype, device=x_t.device)
+    lib = _build.library(source)
+    with torch.cuda.device(x_t.device):
+        rc = getattr(lib, f"vg_{kernel}")(
+            x_t.data_ptr(), values.data_ptr(), idx.data_ptr(), _ptr(x_scale), _ptr(w_scale),
+            y_t.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_t))
+    wrapper.launches += 1
+    _build.check(rc, kernel, lib)
+    return y_t
+
+
+def nm_spmm_gather_int8(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                        x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
+                        n: int, *, out_dtype: torch.dtype = torch.float32,
+                        block_b: Optional[int] = None) -> torch.Tensor:
+    """``Y_t (O, B) = float(gather(x_t, idx)^T-contract values) * w_scale (O,
+    1) * x_scale (1, B)``: int8 codes into an exact int32 accumulator,
+    dequantized once at the flush; with no scales the raw int32 (O, B)
+    accumulator."""
+    return _gather_t_quantized(nm_spmm_gather_int8, torch.int8, x_t, values, idx, x_scale,
+                               w_scale, n, out_dtype, block_b)
+
+
+nm_spmm_gather_int8.launches = 0
+
+
+def nm_spmm_gather_fp8(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                       x_scale: Optional[torch.Tensor], w_scale: Optional[torch.Tensor],
+                       n: int, *, out_dtype: torch.dtype = torch.float32,
+                       block_b: Optional[int] = None) -> torch.Tensor:
+    """:func:`nm_spmm_gather_int8`'s contract over float8_e4m3fn codes: an
+    fp32 accumulator, the raw fp32 (O, B) one with no scales."""
+    return _gather_t_quantized(nm_spmm_gather_fp8, torch.float8_e4m3fn, x_t, values, idx,
+                               x_scale, w_scale, n, out_dtype, block_b)
+
+
+nm_spmm_gather_fp8.launches = 0

@@ -12,7 +12,13 @@ bitwise the reference's.  Activations are quantized over their full
 K_eff row before the gather (the codes are gathered, not the floats).
 ``*_int8_ref`` and ``*_fp8_ref`` name the same functions.  The masked
 versions zero the tiles ``kmask`` marks dead first, at the kernels' K
-step of 64 compressed rows, ``256 / n`` activation columns."""
+step of 64 compressed rows, ``256 / n`` activation columns.
+
+The K-major forms (K11, ``nm_spmm_gather_t*``) take ``x_t (K_eff, B)`` and
+return ``Y_t (O, B)``: the same gather of the kept rows of ``x_t``, the
+same accumulators, dequantized ``acc * w_scale (O, 1) * x_scale (1, B)``
+(the JAX package's ``_gather_q_kernel`` order), or the raw accumulator
+with no scales; the float form casts its fp32 sums to ``out_dtype``."""
 
 from __future__ import annotations
 
@@ -46,8 +52,10 @@ def dequant_ws_first(acc: torch.Tensor, x_scale: torch.Tensor,
 
 def nm_spmm_gather_ref(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, n: int, *,
                        epilogue: Optional[EpilogueSpec] = None,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return tile_gemm_ref(gather_columns(x, idx, n), values, epilogue=epilogue, bias=bias)
+                       bias: Optional[torch.Tensor] = None,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    return tile_gemm_ref(gather_columns(x, idx, n), values, epilogue=epilogue, bias=bias,
+                         out_dtype=out_dtype)
 
 
 def nm_spmm_gather_dual_ref(x: torch.Tensor, values_g: torch.Tensor, idx_g: torch.Tensor,
@@ -136,3 +144,24 @@ def nm_spmm_gather_masked_quantized_ref(x_q: torch.Tensor, values: torch.Tensor,
 
 nm_spmm_gather_masked_int8_ref = nm_spmm_gather_masked_fp8_ref = \
     nm_spmm_gather_masked_quantized_ref
+
+
+def nm_spmm_gather_t_ref(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, n: int,
+                         *, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K11, float: ``Y_t (O, B) = values^T @ gather(x_t)`` in fp32, one cast."""
+    x_g = gather_columns(x_t.t(), idx.reshape(-1), n)                  # (B, K_c)
+    return (x_g.float() @ values.float()).t().to(out_dtype)
+
+
+def nm_spmm_gather_t_quantized_ref(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                                   x_scale: Optional[torch.Tensor],
+                                   w_scale: Optional[torch.Tensor], n: int, *,
+                                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K11, int8 or e4m3: the class's raw (O, B) accumulator with no
+    scales, else ``float(acc) * w_scale (O, 1) * x_scale (1, B)`` in
+    ``out_dtype``."""
+    acc = quantized_accumulate(gather_columns(x_t.t(), idx.reshape(-1), n), values).t()
+    if x_scale is None:
+        return acc
+    return (acc.float() * w_scale * x_scale).to(out_dtype)
+

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ __all__ = [
     "register",
     "entries",
     "select",
+    "local_dims",
     "detect_backend",
     "resolve_backend",
     "largest_fitting_block",
@@ -78,6 +79,7 @@ class KernelEntry:
     quantized: bool = False
     supported: Optional[Callable[[str, Optional[torch.device]], bool]] = None
     activation_skip: bool = False
+    run_quantized: Optional[Callable[..., torch.Tensor]] = None
 
 
 _REGISTRY: Dict[str, List[KernelEntry]] = {}
@@ -97,13 +99,31 @@ def entries(mode: Optional[str] = None) -> List[KernelEntry]:
     return list(_REGISTRY.get(mode, []))
 
 
+def local_dims(dims: Sequence[int], shards: Sequence[int]) -> Optional[Tuple[int, ...]]:
+    """Per-shard problem dims, or ``None`` when a shard count does not
+    evenly divide its dim."""
+    out = []
+    for d, s in zip(dims, shards):
+        if s <= 0 or d % s != 0:
+            return None
+        out.append(d // s)
+    return tuple(out)
+
+
 def select(mode: str, *, b: int, ke: int, o: int, n: int, m: int, dtype,
-           backend: str, device=None) -> Optional[Tuple[KernelEntry, Blocks]]:
+           backend: str, device=None, shards: Tuple[int, int, int] = (1, 1, 1)
+           ) -> Optional[Tuple[KernelEntry, Blocks]]:
     """The first registered kernel whose constraints fit, with its
     blocks, or ``None`` (the caller falls back to the torch reference).
-    ``device`` is where the operands live (for ``supported``)."""
+    ``device`` is where the operands live (for ``supported``).  ``shards``
+    is the mesh's slicing of (b, ke, o): blocks are fitted against the
+    per-shard local problem, the one each rank's kernel runs."""
     if backend not in KERNEL_BACKENDS:
         return None
+    loc = local_dims((b, ke, o), shards)
+    if loc is None:
+        return None
+    b, ke, o = loc
     for entry in _REGISTRY.get(mode, []):
         if backend not in entry.backends:
             continue

@@ -66,19 +66,31 @@ def check_single_epilogue(kernel: str, epi: EpilogueSpec,
         raise ValueError(f"{kernel}: bias must be ({o},), got {tuple(bias.shape)}")
 
 
+def float_out(kernel: str, x: torch.Tensor, out_dtype: Optional[torch.dtype]):
+    """The float kernels store X's dtype (bf16) or fp32: ``(dtype, out_f32
+    flag of the C interface)``."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"{kernel}: the kernel stores {x.dtype} or float32, not {out_dtype}")
+    return out_dtype, int(out_dtype == torch.float32)
+
+
 def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
               epilogue: Optional[EpilogueSpec] = None,
               bias: Optional[torch.Tensor] = None,
+              out_dtype: Optional[torch.dtype] = None,
               block_b: Optional[int] = None) -> torch.Tensor:
-    """``Y (B, O) = epilogue(X (B, K) @ W (K, O))`` in X's dtype."""
+    """``Y (B, O) = epilogue(X (B, K) @ W (K, O))`` in X's dtype, or in
+    ``out_dtype=torch.float32`` (the sums a row-parallel shard all-reduces)."""
     epi = epilogue or EpilogueSpec()
     b, k = x.shape
     k2, o = w.shape
     if k != k2:
         raise ValueError(f"tile_gemm: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     check_single_epilogue("tile_gemm", epi, bias, o)
+    out_dtype, out_f32 = float_out("tile_gemm", x, out_dtype)
     if x.device.type == "cpu":
-        return tile_gemm_ref(x, w, epilogue=epi, bias=bias)
+        return tile_gemm_ref(x, w, epilogue=epi, bias=bias, out_dtype=out_dtype)
     bb = block_b or _build.block_rows(b)
     bias32 = None if bias is None else bias.float().contiguous()
     extra = () if bias32 is None else (bias32,)
@@ -86,12 +98,12 @@ def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
     if w.dtype != x.dtype:
         raise ValueError(f"tile_gemm: w is {w.dtype}, x is {x.dtype}")
     _build.check_tiles("tile_gemm", k, o)
-    y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, o), dtype=out_dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_tile_gemm(x.data_ptr(), w.data_ptr(),
                               None if bias32 is None else bias32.data_ptr(),
-                              y.data_ptr(), b, k, o, ACT_CODES[epi.act], bb,
+                              y.data_ptr(), b, k, o, ACT_CODES[epi.act], out_f32, bb,
                               _build.stream_of(x))
     tile_gemm.launches += 1
     _build.check(rc, "tile_gemm", lib)

@@ -34,9 +34,12 @@ _SILU_MUL = EpilogueSpec(act="silu_mul")
 
 def tile_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,
                   epilogue: Optional[EpilogueSpec] = None,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: Optional[torch.Tensor] = None,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``out_dtype`` (default x's) is the one cast of the flush: fp32
+    keeps the raw sums a row-parallel shard all-reduces."""
     acc = x.float() @ w.float()
-    return flush_tile(acc, epilogue or EpilogueSpec(), x.dtype, bias=bias)
+    return flush_tile(acc, epilogue or EpilogueSpec(), out_dtype or x.dtype, bias=bias)
 
 
 def tile_gemm_dual_ref(x: torch.Tensor, w_g: torch.Tensor,

@@ -6,7 +6,7 @@
         [--kernel-backend auto|cuda|torch] [--device cuda|cpu] \
         [--batch 4] [--max-len 64] [--requests 8] [--new-tokens 8] \
         [--block-len 8] [--kv-blocks N] [--admission reserve|optimistic] \
-        [--prefill-chunk 8] [--rate 1.0] [--seed 0]
+        [--prefill-chunk 8] [--rate 1.0] [--seed 0] [--mesh 1xM]
     python -m repro_torch.launch.serve --artifact DIR [--kernel-backend ...]
 
 ``ARCH`` is one of ``repro_torch.configs.ARCH_IDS``: internlm2_1_8b,
@@ -26,6 +26,13 @@ spec, so the layout and quantize flags are ignored and only the backend
 overrides.  It runs on the CUDA device unless ``--device cpu`` is given,
 and fails when no CUDA device is present.  The report lines are the JAX
 launcher's.
+
+``--mesh 1xM`` serves tensor-parallel over M ranks (``ServingSpec.mesh``;
+a data axis > 1 is refused): the kernels are built once here, then M
+processes are spawned (``launch.mesh.spawn_ranks``: rank r on
+``cuda:(r % device_count)``, NCCL when every rank has its own card, gloo
+when they share one or run on the CPU), each prepares its shard and runs
+the same Engine; rank 0 prints the report.
 """
 
 from __future__ import annotations
@@ -68,32 +75,66 @@ def main(argv=None):
     ap.add_argument("--rate", type=float, default=1.0,
                     help="Poisson arrival rate (requests per scheduler iteration)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="tensor-parallel serving over a (data, model) mesh, e.g. 1x2: "
+                         "M ranks on this host (data must be 1)")
     args = ap.parse_args(argv)
     if args.static_scales and not args.quantize:
         ap.error("--static-scales requires --quantize int8|fp8")
     if not args.arch and not args.artifact:
         ap.error("need --arch (random init) or --artifact (converted checkpoint)")
+    if args.mesh and args.artifact:
+        ap.error("--mesh serves --arch models (an artifact's spec carries its own)")
 
+    from repro_torch import serving
+
+    device = serving.resolve_device(args.device)
+    if not args.mesh:
+        return _serve(args, device)
+    from repro_torch.launch import mesh as tmesh
+
+    _, m = tmesh.parse_mesh(args.mesh)
+    if device.type == "cuda" and args.kernel_backend != "torch":
+        from repro_torch.kernels import _build
+        _build.build_all()          # once, before the ranks: they only load
+    backend = tmesh.backend_for(m, device.type)
+    ranks = ", ".join(f"rank {r} -> {tmesh.rank_device(r, device.type)}" for r in range(m))
+    print(f"mesh 1x{m}: {m} ranks over torch.distributed ({backend}; {ranks})")
+    tmesh.spawn_ranks(_serve_rank, m, args, device_type=device.type)
+    return None
+
+
+def _serve_rank(rank, world, device, args):
+    _serve(args, device, rank=rank)
+
+
+def _serve(args, device, rank: int = 0):
+    """Prepare and serve on ``device``; under ``--mesh`` this is one rank
+    (rank 0 prints)."""
     import torch
 
     from repro_torch import serving
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import init_params
 
-    device = serving.resolve_device(args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh
+        mesh = parse_mesh(args.mesh)
     if args.artifact:
         backend = args.kernel_backend if args.kernel_backend != "auto" else None
         with torch.inference_mode():
             prepared = serving.prepare_from_artifact(args.artifact, backend=backend,
                                                      device=device)
         spec, cfg = prepared.spec, prepared.cfg
-        print(f"artifact {args.artifact}: config {cfg.name}, spec "
-              f"{spec.layout}/{spec.sparsity}/{spec.qdtype}")
+        say(f"artifact {args.artifact}: config {cfg.name}, spec "
+            f"{spec.layout}/{spec.sparsity}/{spec.qdtype}")
     else:
         sparsity = tuple(map(int, args.sparsity.split(":"))) if args.sparsity else None
         spec = serving.ServingSpec(
             layout=args.mode, sparsity=sparsity, qdtype=args.quantize,
-            static_scales=args.static_scales, backend=args.kernel_backend,
+            static_scales=args.static_scales, mesh=mesh, backend=args.kernel_backend,
             slots=args.batch, max_len=args.max_len,
             block_len=args.block_len, kv_blocks=args.kv_blocks,
             admission=args.admission, prefill_chunk=args.prefill_chunk)
@@ -112,28 +153,33 @@ def main(argv=None):
                                        device=device)
         del params
     if prepared.calibrated_sites:
-        print(f"static activation scales calibrated for {prepared.calibrated_sites} "
-              f"linear site(s) — decode skips the per-row absmax pass")
+        say(f"static activation scales calibrated for {prepared.calibrated_sites} "
+            f"linear site(s) — decode skips the per-row absmax pass")
     nbytes = sum(t.numel() * t.element_size() for t in _tensors(prepared.params))
     sp_str = f"{spec.sparsity[0]}:{spec.sparsity[1]}" if spec.sparsity else "dense"
     q_str = f"/{spec.qdtype}" if spec.qdtype else ""
-    print(f"serving {cfg.name}: {nbytes / 1e6:.1f} MB weights "
-          f"({sp_str}/{spec.layout}{q_str}) on {device}")
-    print("dispatch engine plan:")
+    say(f"serving {cfg.name}: {nbytes / 1e6:.1f} MB weights{' per rank' if mesh else ''} "
+        f"({sp_str}/{spec.layout}{q_str}) on {device}")
+    if mesh:
+        say(f"mesh installed: data={mesh[0]} x model={mesh[1]} ({mesh[1]} ranks)")
+    say("dispatch engine plan:")
     for line in prepared.dispatch_report():
-        print(line)
+        say(line)
     engine = serving.Engine(prepared)
-    print(f"paged KV: {engine.num_blocks} block(s) x {spec.block_len} tokens, "
-          f"{engine.kv_bytes() / 1e6:.1f} MB pools, admission={spec.admission}")
+    say(f"paged KV: {engine.num_blocks} block(s) x {spec.block_len} tokens, "
+        f"{engine.kv_bytes() / 1e6:.1f} MB pools{' per rank' if mesh else ''}, "
+        f"admission={spec.admission}")
     trace = serving.make_poisson_trace(
         seed=args.seed, num_requests=args.requests, rate=args.rate,
         new_mix=((args.new_tokens, 1.0),), vocab_size=cfg.vocab_size)
     report = engine.run(trace)
-    print(f"served {report.describe()}")
+    say(f"served {report.describe()}")
     per_req = ", ".join(f"r{s.rid}:{s.tokens_per_s:.1f}" for s in report.stats[:8])
-    print(f"per-request tokens/s: {per_req}{' ...' if len(report.stats) > 8 else ''}")
-    print(f"completed-request throughput: {report.completed_per_call:.3f} "
-          f"requests/model-call, {report.completed / report.wall_s:.2f} requests/s")
+    say(f"per-request tokens/s: {per_req}{' ...' if len(report.stats) > 8 else ''}")
+    say(f"completed-request throughput: {report.completed_per_call:.3f} "
+        f"requests/model-call, {report.completed / report.wall_s:.2f} requests/s")
+    if mesh:
+        say(f"token streams equal on all {mesh[1]} ranks")
     return report
 
 

@@ -38,21 +38,25 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device=None) -> Param
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """Column-parallel q / k / v: under an axis env each rank's projections
+    give its own heads (H / M query, KV / M KV heads), so the head counts
+    come from the widths."""
     b, t, _ = x.shape
     sp = cfg.sparsity
-    q = apply_linear(p["wq"], x, sp).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = apply_linear(p["wk"], x, sp).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = apply_linear(p["wv"], x, sp).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_linear(p["wq"], x, sp, gather="col").reshape(b, t, -1, cfg.head_dim)
+    k = apply_linear(p["wk"], x, sp, gather="col").reshape(b, t, -1, cfg.head_dim)
+    v = apply_linear(p["wv"], x, sp, gather="col").reshape(b, t, -1, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _grouped(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, T, H, D) -> (B, Hkv, G, T, D) without materializing repeats."""
+    """(B, T, H, D) -> (B, Hkv, G, T, D) without materializing repeats (H
+    and Hkv a rank's own under an axis env: G is the config's)."""
     b, t, h, d = q.shape
-    g = h // cfg.num_kv_heads
-    return q.reshape(b, t, cfg.num_kv_heads, g, d).permute(0, 2, 3, 1, 4)
+    g = cfg.num_heads // cfg.num_kv_heads
+    return q.reshape(b, t, h // g, g, d).permute(0, 2, 3, 1, 4)
 
 
 def chunked_attention(q, k, v, causal: bool = True, q_offset: int = 0,
@@ -150,5 +154,5 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, is_global: 
     else:
         o = local_attention(_grouped(q, cfg), k, v, window=cfg.window,
                             p_bf16=cfg.attn_p_bf16)
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, t, cfg.attn_dim).to(x.dtype)
-    return apply_linear(p["wo"], o, cfg.sparsity)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, t, -1).to(x.dtype)
+    return apply_linear(p["wo"], o, cfg.sparsity, gather="row")

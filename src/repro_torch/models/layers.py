@@ -63,20 +63,21 @@ def apply_mlp(p: Params, x: torch.Tensor, act: str, sp: SparsityConfig) -> torch
     # its flush (the gate-up dual, or the gelu MLP's single w_in) and w_out
     # takes the narrow rows as they are (one function decides for both
     # sides, so they cannot disagree).
-    rq = dispatch.requant_plan(p["w_out"], x.shape[:-1], sp)
+    rq = dispatch.requant_plan(p["w_out"], x.shape[:-1], sp,
+                               shard=dispatch.shard_spec_from_env("row"))
     requant, rq_scale = rq if rq is not None else (None, None)
     if act == "swiglu":
         # gate and up contract the same activation tile: one dual dispatch
-        h = apply_gate_up(p["w_gate"], p["w_in"], x, sp,
+        h = apply_gate_up(p["w_gate"], p["w_in"], x, sp, gather="col",
                           epilogue=epilib.make(act="silu_mul", requant=requant,
                                                requant_scale=rq_scale))
     else:
-        h = apply_linear(p["w_in"], x, sp,
+        h = apply_linear(p["w_in"], x, sp, gather="col",
                          epilogue=epilib.make(act="gelu", requant=requant,
                                               requant_scale=rq_scale))
     # rows that arrive narrow come out of w_out in fp32: back to the
     # residual stream's dtype
-    return apply_linear(p["w_out"], h, sp).to(x.dtype)
+    return apply_linear(p["w_out"], h, sp, gather="row").to(x.dtype)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,

@@ -56,10 +56,14 @@ def check_paged(cfg: ModelConfig) -> None:
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_len: int,
                       device=None) -> List[Cache]:
     """One ``{"k", "v"}`` pool pair per layer; ``num_blocks`` includes the
-    scratch block 0.  (The JAX package's ``batch`` argument sizes SSM
-    state, which the dense family has none of.)"""
+    scratch block 0.  Under an axis env the pools hold this rank's KV heads
+    (KV / M).  (The JAX package's ``batch`` argument sizes SSM state,
+    which the dense family has none of.)"""
+    from .pjit_utils import axis_env
     check_paged(cfg)
-    shape = (num_blocks, block_len, cfg.num_kv_heads, cfg.head_dim)
+    env = axis_env()
+    heads = cfg.num_kv_heads // (env.model_size if env is not None else 1)
+    shape = (num_blocks, block_len, heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
             for _ in layer_slots(cfg)]
@@ -102,10 +106,8 @@ def _paged_attention(p: Params, x: torch.Tensor, cache: Cache,
     blk = (positions // block_len).clamp(max=table.shape[1] - 1)
     phys = torch.where(write_mask, torch.gather(table, 1, blk), 0).reshape(b * t)
     off = torch.where(write_mask, positions % block_len, 0).reshape(b * t)
-    cache = _write_kv(cache,
-                      k_new.reshape(b * t, cfg.num_kv_heads, cfg.head_dim),
-                      v_new.reshape(b * t, cfg.num_kv_heads, cfg.head_dim),
-                      phys, off)
+    cache = _write_kv(cache, k_new.reshape(b * t, -1, cfg.head_dim),
+                      v_new.reshape(b * t, -1, cfg.head_dim), phys, off)
 
     k, v = _gather_kv(cache, table)
     qg = _grouped(q, cfg)                                     # (B,Hkv,G,T,D)
@@ -120,8 +122,8 @@ def _paged_attention(p: Params, x: torch.Tensor, cache: Cache,
     if cfg.attn_p_bf16:
         pr = pr.to(v.dtype).float()
     o = torch.einsum("bhgqk,bkhd->bhgqd", pr, v.float())
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, t, cfg.attn_dim).to(x.dtype)
-    return apply_linear(p["wo"], o, cfg.sparsity), cache
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, t, -1).to(x.dtype)
+    return apply_linear(p["wo"], o, cfg.sparsity, gather="row"), cache
 
 
 def paged_decode_step(params: Params, caches: List[Cache], tokens: torch.Tensor,

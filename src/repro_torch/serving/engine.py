@@ -8,6 +8,11 @@ decode-state slot at its own position.  Finished requests retire
 independently and their blocks return to the pool.  The scheduler is the
 JAX package's, line for line; the model calls run eagerly on the
 prepared device under ``torch.inference_mode()``.
+
+Under a mesh (``ServingSpec.mesh = (1, M)``) every rank runs this same
+loop on the same trace (the scheduler is deterministic), each model call
+on its own shard; at the end the ranks check that their token streams
+are equal and raise if not.  Rank 0 is the one that reports.
 """
 
 from __future__ import annotations
@@ -113,14 +118,17 @@ class Engine:
 
     def _fresh_caches(self):
         from ..models.paged import init_paged_caches
-        # +1: physical block 0 is the scratch target for masked writes
-        return init_paged_caches(self.cfg, self.num_blocks + 1, self.spec.block_len,
-                                 device=self.device)
+        # +1: physical block 0 is the scratch target for masked writes; under
+        # the mesh's env the pools hold this rank's KV heads
+        with self.prepared.activate():
+            return init_paged_caches(self.cfg, self.num_blocks + 1, self.spec.block_len,
+                                     device=self.device)
 
     def kv_bytes(self) -> int:
-        """Device bytes of the block pools, from the shapes alone."""
+        """Device bytes of this rank's block pools, from the shapes alone."""
         cfg = self.cfg
-        per_pool = ((self.num_blocks + 1) * self.spec.block_len * cfg.num_kv_heads
+        ranks = self.spec.mesh[1] if self.spec.mesh is not None else 1
+        per_pool = ((self.num_blocks + 1) * self.spec.block_len * cfg.num_kv_heads // ranks
                     * cfg.head_dim * cfg.torch_dtype.itemsize)
         return 2 * per_pool * cfg.num_layers
 
@@ -234,10 +242,37 @@ class Engine:
                 it += 1
                 work += 1
 
+        stats = sorted(stats, key=lambda s_: s_.rid)
+        env = self.prepared.axis_env
+        if env is not None and env.model_size > 1:
+            _check_ranks_agree(stats, env, dev)
         return ServingReport(
-            stats=sorted(stats, key=lambda s_: s_.rid), total=n, completed=len(stats),
+            stats=stats, total=n, completed=len(stats),
             wall_s=time.perf_counter() - t0,
             model_calls=prefill_chunks + decode_calls,
             prefill_chunks=prefill_chunks, decode_calls=decode_calls,
             evictions=sched.evictions, max_blocks_in_use=sched.max_blocks_in_use,
             num_blocks=self.num_blocks)
+
+
+def _check_ranks_agree(stats: List[RequestStats], env, dev) -> None:
+    """Raise unless every rank generated rank 0's token streams: rank 0
+    broadcasts its streams, each rank compares, and the ranks all-reduce
+    (MAX) the mismatch flag, so all of them raise or none does."""
+    import torch.distributed as dist
+
+    mine = torch.tensor([v for s in stats for v in (s.rid, len(s.tokens), *s.tokens)],
+                        dtype=torch.int64, device=dev)
+    size = torch.tensor([mine.numel()], dtype=torch.int64, device=dev)
+    dist.broadcast(size, src=0, group=env.group)
+    theirs = torch.empty(int(size.item()), dtype=torch.int64, device=dev)
+    if env.model_rank == 0:
+        theirs.copy_(mine)
+    dist.broadcast(theirs, src=0, group=env.group)
+    same = theirs.shape == mine.shape and torch.equal(theirs, mine)
+    bad = torch.tensor([int(not same)], dtype=torch.int64, device=dev)
+    dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=env.group)
+    if bad.item():
+        raise RuntimeError(f"the {env.model_size} ranks generated different token streams "
+                           f"(rank {env.model_rank}'s {'match' if same else 'differ from'} "
+                           f"rank 0's)")

@@ -12,12 +12,14 @@ prepared = repro_torch.serving.prepare(params, ServingSpec(layout="gather",
 moves the params to the device, converts every linear leaf to the spec's
 layout, quantizes it (``qdtype``), and with ``static_scales`` calibrates
 one activation scale per linear site on a representative batch
-(``calib_tokens``).  :func:`prepare_from_artifact` stands a model up from
-a conversion artifact instead.  Serving runs on the card:
-``device=None`` means ``"cuda"``, and without a CUDA device ``prepare``
-raises rather than drop to the CPU; tests pass ``device="cpu"``.
-KV-cache quantization, mesh placement and autotuning are not ported yet:
-a spec or a manifest asking for one raises.
+(``calib_tokens``), and with ``mesh=(1, M)`` cuts the tree to this
+rank's tensor-parallel shard (``launch.shardings``; every rank of an
+initialised ``torch.distributed`` group of M calls ``prepare``).
+:func:`prepare_from_artifact` stands a model up from a conversion artifact
+instead.  Serving runs on the card: ``device=None`` means ``"cuda"``, and
+without a CUDA device ``prepare`` raises rather than drop to the CPU;
+tests pass ``device="cpu"``.  KV-cache quantization, a data axis and
+autotuning are not ported yet: a spec or a manifest asking for one raises.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ class ServingSpec:
     class's kernels, int8 or e4m3 activations quantized per row or against
     static scales), ``static_scales`` (calibrate static activation scales
     at prepare time; needs ``qdtype``), ``backend`` (dispatch engine:
-    ``auto | cuda | torch``).
+    ``auto | cuda | torch``), ``mesh`` (``(data, model)``: tensor
+    parallelism over M ranks; ``data`` must be 1).
     Engine axes: ``slots``, ``max_len``, ``block_len``, ``kv_blocks``,
     ``admission``, ``prefill_chunk``, as in the JAX package.
     """
@@ -66,6 +69,7 @@ class ServingSpec:
     sparsity: Optional[Tuple[int, int]] = None
     qdtype: Optional[str] = None
     static_scales: bool = False
+    mesh: Optional[Tuple[int, int]] = None
     backend: str = "auto"
     slots: int = 4
     max_len: int = 64
@@ -86,6 +90,9 @@ class ServingSpec:
             canonical_qdtype(self.qdtype)      # raises on unknown targets
         if self.static_scales and self.qdtype is None:
             raise ValueError("static_scales requires qdtype ('int8' | 'fp8')")
+        if self.mesh is not None:
+            from ..launch.mesh import check_mesh
+            object.__setattr__(self, "mesh", check_mesh(self.mesh))   # refuses data > 1
         if self.sparsity is not None:
             n, m = self.sparsity
             if not (0 < n <= m):
@@ -127,12 +134,15 @@ class Prepared:
     sp_cfg: Any = None            # SparsityConfig actually in effect
     dispatch: Any = None          # kernels.dispatch.DispatchConfig
     calibrated_sites: int = 0     # static act scales: sites calibrated
+    axis_env: Any = None          # models.pjit_utils.AxisEnv (None off-mesh)
 
     @contextlib.contextmanager
     def activate(self):
-        """Install the spec's dispatch backend for a serving loop."""
+        """Install the mesh's axis env (if any) and the spec's dispatch
+        backend for a serving loop."""
         from ..kernels import dispatch as kdispatch
-        with kdispatch.use_dispatch(backend=self.spec.backend):
+        from ..models.pjit_utils import use_axis_env
+        with use_axis_env(self.axis_env), kdispatch.use_dispatch(backend=self.spec.backend):
             yield self
 
     def dispatch_report(self, batches: Optional[Tuple[int, ...]] = None):
@@ -172,7 +182,14 @@ def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
        ``cfg``) under the spec's backend and attaches a static
        ``act_scale`` to every quantized leaf, so decode skips the per-row
        absmax pass.  A tree whose quantized leaves all carry one already
-       (a calibrated artifact) is counted, not calibrated again.
+       (a calibrated artifact) is counted, not calibrated again.  Under a
+       mesh it runs unsharded, as in the JAX package, once on rank 0, and
+       rank 0's scales are broadcast to the other ranks;
+    4. **mesh placement**: ``spec.mesh = (1, M)`` (needs ``cfg``) cuts
+       every hinted linear to this rank's shard
+       (:func:`repro_torch.launch.shardings.shard_params`) and records the
+       axis env that :meth:`Prepared.activate` installs.  ``(1, 1)`` is
+       the single placement: no env, served as ``mesh=None``.
 
     ``params`` may be a full model tree (pass ``cfg``) or a bare layout
     leaf / small tree with ``cfg=None``."""
@@ -182,6 +199,14 @@ def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
 
     dev = resolve_device(device)
     sp_cfg = cfg.sparsity if cfg is not None else spec.sparsity_config
+    env = None
+    if spec.mesh is not None and spec.mesh[1] > 1:   # (1, 1) is the single placement
+        if cfg is None:
+            raise ValueError("mesh placement needs cfg= (the shard rules follow the config)")
+        from ..launch.mesh import make_axis_env
+        from ..launch.shardings import check_config
+        env = make_axis_env(spec.mesh)
+        check_config(cfg, env.model_size)     # refuse before any work
     params = map_linear_leaves(
         _to_device(params, dev),
         lambda leaf: convert_layout(leaf, sp_cfg, spec.layout, quantize=spec.qdtype))
@@ -211,10 +236,43 @@ def prepare(params, spec: ServingSpec, *, cfg=None, calib_tokens=None,
                 with kdispatch.use_dispatch(backend=spec.backend):
                     return forward(p, cfg, tokens)
 
-            params, calibrated = _calibrate_activation_scales(
-                params, batch_fn, layer_keys=layer_site_keys(cfg))
+            if env is None or env.model_rank == 0:
+                params, calibrated = _calibrate_activation_scales(
+                    params, batch_fn, layer_keys=layer_site_keys(cfg))
+            if env is not None and env.model_size > 1:
+                params, calibrated = _broadcast_scales(params, calibrated, env, dev)
+    if env is not None:
+        from ..launch.shardings import shard_params
+        params = shard_params(params, cfg, env)
     return Prepared(params=params, spec=spec, device=dev, cfg=cfg, sp_cfg=sp_cfg,
-                    dispatch=dcfg, calibrated_sites=calibrated)
+                    dispatch=dcfg, calibrated_sites=calibrated, axis_env=env)
+
+
+def _broadcast_scales(params, calibrated: int, env, dev):
+    """Rank 0's static ``act_scale`` leaves (and its site count) onto every
+    rank: one broadcast of a vector with one entry per quantized leaf, in
+    the tree's order (NaN: no scale)."""
+    import torch.distributed as dist
+    from ..core.quantize import ACT_SCALE_KEY, is_quantized
+    from ..core.sparse_linear import map_linear_leaves
+
+    leaves = []
+    map_linear_leaves(params, lambda leaf: leaves.append(leaf) or leaf)
+    quantized = [leaf for leaf in leaves if is_quantized(leaf)]
+    vec = torch.tensor([float(calibrated)] + [
+        leaf[ACT_SCALE_KEY].item() if ACT_SCALE_KEY in leaf else math.nan
+        for leaf in quantized], dtype=torch.float32, device=dev)
+    dist.broadcast(vec, src=0, group=env.group)
+    values = iter(vec[1:].tolist())
+
+    def _attach(leaf):
+        if not is_quantized(leaf):
+            return leaf
+        v = next(values)
+        if math.isnan(v):
+            return leaf
+        return {**leaf, ACT_SCALE_KEY: torch.tensor(v, dtype=torch.float32, device=dev)}
+    return map_linear_leaves(params, _attach), int(vec[0].item())
 
 
 def _count_sites(params, cfg) -> int:
@@ -239,7 +297,7 @@ def _count_sites(params, cfg) -> int:
 
 # manifest spec keys of the JAX package that the port does not have yet,
 # with the only value it accepts for each (the JAX default)
-_UNPORTED_SPEC_KEYS = {"kv_qdtype": None, "mesh": None, "autotune": False}
+_UNPORTED_SPEC_KEYS = {"kv_qdtype": None, "autotune": False}
 
 
 def config_from_manifest(manifest: Dict[str, Any]):
@@ -266,8 +324,9 @@ def spec_from_manifest(manifest: Dict[str, Any]) -> ServingSpec:
             raise NotImplementedError(
                 f"manifest spec {key}={value!r} is not ported yet "
                 f"(repro_torch serves only {key}={default!r})")
-    if d.get("sparsity") is not None:
-        d["sparsity"] = tuple(d["sparsity"])
+    for key in ("sparsity", "mesh"):
+        if d.get(key) is not None:
+            d[key] = tuple(d[key])
     return ServingSpec(**d)
 
 

@@ -148,15 +148,22 @@ def test_loader_raises_on_a_damaged_artifact(artifact, tmp_path, case, match):
 @pytest.mark.parametrize("key,value", [("static_scales", True), ("kv_qdtype", "int8"),
                                        ("mesh", [1, 2]), ("autotune", True)])
 def test_unported_spec_keys_are_refused(artifact, key, value):
-    """kv_qdtype, mesh and autotune are refused away from their defaults;
-    static_scales is ported and becomes the spec's own axis."""
+    """kv_qdtype and autotune are refused away from their defaults;
+    static_scales is ported and becomes the spec's own axis, and so is mesh
+    with a model axis only: [1, 2] is accepted, [2, 1] (a data axis) is
+    refused."""
     m = artifact_manifest(artifact)
     assert tserving.spec_from_manifest(m) == tserving.ServingSpec(
         layout="compressed", sparsity=(2, 4), qdtype="int8")
     m["spec"][key] = value
-    if key == "static_scales":
+    if key in ("static_scales", "mesh"):
         assert tserving.spec_from_manifest(m) == tserving.ServingSpec(
-            layout="compressed", sparsity=(2, 4), qdtype="int8", static_scales=True)
+            layout="compressed", sparsity=(2, 4), qdtype="int8",
+            **{key: tuple(value) if key == "mesh" else value})
+        if key == "mesh":
+            m["spec"]["mesh"] = [2, 1]
+            with pytest.raises(ValueError, match="data axis > 1 is not ported"):
+                tserving.spec_from_manifest(m)
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tserving.spec_from_manifest(m)

@@ -948,3 +948,109 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
                                          epilogue=EpilogueSpec(act="gelu", requant=qdtype))
     with pytest.raises(ValueError, match="requant_scale"):
         fn(xq, *ops, xs, ws, *nn, rq.double())
+
+
+# ------------------------------------------------ K11, the K-major gather
+def _kmajor_leaf(dev, k, o, n, qdtype=None, seed=0):
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(k, o, generator=g, device=dev) * k ** -0.5
+    return convert_layout({"w": w if qdtype else w.bfloat16()},
+                          SparsityConfig(n=n, m=4, mode="gather"), "gather", quantize=qdtype)
+
+
+def test_kmajor_gather_wrappers_refuse_what_the_kernels_do_not_take():
+    from repro_torch.kernels.nm_spmm_gather.kernel import nm_spmm_gather, nm_spmm_gather_int8
+    leaf = _kmajor_leaf("cpu", 256, 64, 2, "int8")
+    xq = torch.zeros(256, 32, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        nm_spmm_gather_int8(xq[:, :24], leaf["values"], leaf["gather_idx"], None, None, 2)
+    with pytest.raises(ValueError, match="both scales"):
+        nm_spmm_gather_int8(xq, leaf["values"], leaf["gather_idx"],
+                            torch.ones(1, 32), None, 2)
+    with pytest.raises(ValueError, match=r"\(1, 32\)"):
+        nm_spmm_gather_int8(xq, leaf["values"], leaf["gather_idx"], torch.ones(32, 1),
+                            leaf["scale"].reshape(-1, 1), 2)
+    with pytest.raises(ValueError, match="int8"):
+        nm_spmm_gather_int8(xq.float(), leaf["values"], leaf["gather_idx"], None, None, 2)
+    with pytest.raises(ValueError, match="K_c"):
+        nm_spmm_gather(torch.zeros(128, 32), leaf["values"].float(), leaf["gather_idx"], 2)
+    # the JAX signature's (K_c, 1) index column is taken as it is
+    raw = nm_spmm_gather_int8(xq, leaf["values"], leaf["gather_idx"].reshape(-1, 1),
+                              None, None, 2)
+    assert raw.dtype == torch.int32 and raw.shape == (64, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("b,k", [(32, 1024), (256, 4096)])
+def test_kmajor_gather_kernels_match_plain_on_card(cuda_device, qdtype, n, b, k):
+    """K11 against its plain version: int8 raw and scaled bitwise, fp8 and
+    bf16 within 1e-2 of max|plain|; x_t K-major, Y_t (O, B)."""
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+    o = 2048
+    leaf = _kmajor_leaf(cuda_device, k, o, n, qdtype)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(b, k, generator=g, device=cuda_device)
+    if qdtype is None:
+        x_t = x.bfloat16().t().contiguous()
+        for out in (torch.float32, torch.bfloat16):
+            before = gk.nm_spmm_gather.launches
+            got = gk.nm_spmm_gather(x_t, leaf["values"], leaf["gather_idx"], n, out_dtype=out)
+            torch.cuda.synchronize()
+            assert gk.nm_spmm_gather.launches == before + 1 and got.dtype == out
+            want = gr.nm_spmm_gather_t_ref(x_t, leaf["values"], leaf["gather_idx"], n,
+                                           out_dtype=out)
+            assert_scaled_close(got, want, 1e-2)
+        return
+    storage = torch.int8 if qdtype == "int8" else torch.float8_e4m3fn
+    fn = getattr(gk, f"nm_spmm_gather_{qdtype}")
+    xq, xs = quantize_rows(x, storage)
+    x_t, xs_t, ws_t = xq.t().contiguous(), xs.reshape(1, -1), leaf["scale"].reshape(-1, 1)
+    before = fn.launches
+    raw = fn(x_t, leaf["values"], leaf["gather_idx"], None, None, n)
+    scaled = fn(x_t, leaf["values"], leaf["gather_idx"], xs_t, ws_t, n)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    raw_want = gr.nm_spmm_gather_t_quantized_ref(x_t, leaf["values"], leaf["gather_idx"],
+                                                 None, None, n)
+    want = gr.nm_spmm_gather_t_quantized_ref(x_t, leaf["values"], leaf["gather_idx"], xs_t,
+                                             ws_t, n)
+    assert raw.dtype == raw_want.dtype and raw.shape == (o, b)
+    if qdtype == "int8":
+        assert torch.equal(raw, raw_want) and torch.equal(scaled, want)
+    else:
+        assert_scaled_close(raw, raw_want, 1e-2)
+        assert_scaled_close(scaled, want, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "compressed", "gather"])
+def test_float_singles_store_fp32_on_card(cuda_device, layout):
+    """The row-parallel float partials: tile_gemm / nm_spmm /
+    nm_spmm_gather_bk with ``out_dtype=torch.float32`` against their plain
+    versions (within 1e-2), and their bf16 store the fp32 one rounded."""
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+    x, w = _cuda_inputs(cuda_device, 32, 2048, 2048)
+    n = 4 if layout == "dense" else 2
+    leaf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode=layout), layout)
+    run, plain = {
+        "dense": (lambda **kw: tile_gemm(x, leaf["w"], **kw),
+                  lambda **kw: tile_gemm_ref(x, leaf["w"], **kw)),
+        "compressed": (lambda **kw: nm_spmm(x, leaf["values"], leaf["meta_packed"], n, **kw),
+                       lambda **kw: nm_spmm_ref(x, leaf["values"], leaf["meta_packed"], n,
+                                                **kw)),
+        "gather": (lambda **kw: gk.nm_spmm_gather_bk(x, leaf["values"], leaf["gather_idx"], n,
+                                                     **kw),
+                   lambda **kw: gr.nm_spmm_gather_ref(x, leaf["values"], leaf["gather_idx"],
+                                                      n, **kw)),
+    }[layout]
+    y32, y16 = run(out_dtype=torch.float32), run()
+    torch.cuda.synchronize()
+    assert y32.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    assert_scaled_close(y32, plain(out_dtype=torch.float32), 1e-2)
+    assert torch.equal(y16, y32.bfloat16())
