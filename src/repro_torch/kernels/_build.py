@@ -33,7 +33,8 @@ __all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG
            "out_kind", "QUANT_CLASSES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm.cu", "gemm_int8.cu", "gemm_fp8.cu", "flash_attention.cu")
+SOURCES = ("gemm.cu", "gemm_int8.cu", "gemm_fp8.cu", "flash_attention.cu",
+           "flash_attention_wmma.cu", "mma_sp_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,7 +47,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "vg_nm_spmm": (_P,) * 5 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm": (_P,) * 5 + (_I,) * 8 + (_P,),
+        "vg_nm_spmm_tiled": (_P,) * 5 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "vg_nm_spmm_gather_bk": (_P,) * 5 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather": (_P,) * 4 + (_I,) * 6 + (_P,),
@@ -78,6 +80,14 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "flash_attention.cu": {
         "vg_flash_attention": (_P,) * 4 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
+        "vg_flash_attention_smem": (_I,),
+    },
+    # the first flash body, kept as the yardstick the current one is timed against
+    "flash_attention_wmma.cu": {
+        "vg_flash_attention_wmma": (_P,) * 4 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
+    },
+    "mma_sp_probe.cu": {
+        "vg_mma_sp_probe": (_P,) * 5,
     },
 }
 

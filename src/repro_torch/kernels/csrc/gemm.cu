@@ -65,6 +65,12 @@
 // + bias -> silu | gelu(tanh); dual: silu(g) * u), casts once to bf16 and
 // stores with the row mask.
 //
+// nm_spmm at n in {1, 2} (the float single) runs its own body on the
+// sparse tensor cores, nm_spmm_sp.cuh (mma.sp, K split across a cluster);
+// vg_nm_spmm_tiled keeps the shared body below for it, the form the port
+// ran first, as a yardstick.  n = 4, the duals and the masked singles stay
+// on the shared body.
+//
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
 // low bits first) and expands them into the dense 64 x 64 bf16 tile in
@@ -93,8 +99,8 @@
 // loads along O (coalesced rows), and the register prefetch of the next
 // K step overlaps the loads with the tensor-core work.  Launch width is
 // O/64 blocks, too few to keep the card's memory system busy at decode
-// for O <= 2048: split-K, TMA rings, wgmma and sparse tensor cores
-// (mma.sp) are later work.
+// for O <= 2048 (nm_spmm's sparse body splits K for that): split-K, TMA
+// rings and wgmma in this body are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,6 +111,7 @@
 
 #include "flush.cuh"
 #include "kmask.cuh"
+#include "nm_spmm_sp.cuh"
 
 using namespace nvcuda;
 
@@ -602,8 +609,24 @@ int vg_tile_gemm_dual(const void* x, const void* wg, const void* wu, void* y, in
                                       nullptr, nullptr, y, b, k, k, o, ACT_NONE, stream);
 }
 
+// n in {1, 2}: the sparse-tensor-core body, K split over `split` blocks of
+// a cluster (a power of two up to min(8, k / 64)); n = 4: the shared body,
+// split 1
 int vg_nm_spmm(const void* x, const void* values, const void* meta, const void* bias, void* y,
-               int b, int k, int o, int n, int act, int out_f32, int bm, void* stream) {
+               int b, int k, int o, int n, int act, int out_f32, int bm, int split,
+               void* stream) {
+  if (n == 1 || n == 2)
+    return sp::launch_nm(n, bm, x, values, meta, bias, y, b, k, o, act, out_f32, split, stream);
+  if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, bias, y, b, k, o,
+                          act, stream, out_f32);
+}
+
+// the shared body at any n: the first form of nm_spmm, timed beside the
+// sparse body (not on any path)
+int vg_nm_spmm_tiled(const void* x, const void* values, const void* meta, const void* bias,
+                     void* y, int b, int k, int o, int n, int act, int out_f32, int bm,
+                     void* stream) {
   return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, bias, y, b, k, o,
                           act, stream, out_f32);
 }

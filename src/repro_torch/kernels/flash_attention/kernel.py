@@ -16,10 +16,24 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "HEAD_DIMS", "tile_config"]
 
 #: the head_dims the kernel is compiled for
 HEAD_DIMS = (64, 80, 96, 128, 256)
+
+
+def tile_config(d: int) -> dict:
+    """The kernel's tiles for head_dim ``d`` (``csrc/flash_attention.cu``,
+    ``Tile<D>``): m16 query tiles a warp (2 at D <= 80, else 1) and so
+    query rows a block of 4 warps, keys per KV step, whether Q's fragments
+    are re-read from shared memory each step (two query tiles a warp, or D
+    = 256, whose 128 fp32 of O a thread fill the registers), and the
+    shared bytes of a block: Q plus two stages of K and V at a bf16 pitch
+    of D + 8."""
+    mq = 2 if d <= 80 else 1
+    bq, bkv = 64 * mq, 32 if d > 128 else 64
+    return {"query_tiles_per_warp": mq, "block_q": bq, "block_kv": bkv,
+            "q_in_smem": d > 128 or mq > 1, "smem_bytes": 2 * (d + 8) * (bq + 4 * bkv)}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -11,10 +11,12 @@ with that flush, ``nm_spmm_int8_requant`` / ``nm_spmm_fp8_requant``.  K10:
 ``nm_spmm_masked_fp8``, with the activation-sparsity block skip.
 
 ``Y (B, O) = X (B, K_eff) @ dec(values (K_c, O), meta_packed (K_c/4, O))``
-with ``K_eff = K_c * 4 / n``.  The kernel expands each values tile into
-the dense weight tile in shared memory; the dense weight never exists in
-device memory, so weight traffic is n/4 of dense plus 2 bits per kept
-value.
+with ``K_eff = K_c * 4 / n``.  The dense weight never exists in device
+memory, so weight traffic is n/4 of dense plus 2 bits per kept value.
+``nm_spmm`` at n in {1, 2} feeds the compressed tile to the sparse tensor
+cores (``csrc/nm_spmm_sp.cuh``; 1:4 as 2:4 with a +0), its K loop split
+across the blocks of a cluster by :func:`split_k`; every other kernel here
+expands each values tile into the dense tile in shared memory.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
 ``::nm_spmm_dual`` (:437, float, int8 and fp8 branches), ``::nm_spmm_int8``
@@ -42,12 +44,38 @@ from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
                   nm_spmm_ref)
 
-__all__ = ["nm_spmm", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_int8_requant",
+__all__ = ["nm_spmm", "split_k", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_int8_requant",
            "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant", "nm_spmm_fp8",
            "nm_spmm_fp8_requant", "nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
            "nm_spmm_masked", "nm_spmm_masked_int8", "nm_spmm_masked_fp8"]
 
 _N = (1, 2, 4)
+#: streaming multiprocessors of the H100 the split is planned for
+SMS = 132
+#: blocks of the sparse body that share an SM (its ring and inbox take
+#: ~34 KB of shared memory at decode, 64 registers a thread)
+BLOCKS_PER_SM = 2
+#: the sparse body's largest cluster (a portable cluster size)
+MAX_SPLIT = 8
+
+
+def split_k(b: int, k: int, o: int, n: int) -> int:
+    """Blocks of one cluster that share the K loop of an output tile in
+    ``nm_spmm``'s sparse body (n in {1, 2}; n = 4 runs the shared body,
+    split 1): the largest power of two up to ``MAX_SPLIT`` and K / 64
+    steps with (O / 64 tiles) x (row tiles) x split <= ``BLOCKS_PER_SM``
+    x ``SMS``, so a decode launch fills the card (internlm2-1.8b at B = 8:
+    q, o and w_out 32 x 8, k and v 16 x 8); 1 once the row tiles fill it
+    (4,000 prefill rows).  Block r takes K steps [r * steps // split,
+    (r + 1) * steps // split)."""
+    if n not in (1, 2):
+        return 1
+    tiles = (o // _build.BLOCK_O) * -(-b // _build.block_rows(b))
+    steps = k // _build.BLOCK_K
+    split = 1
+    while 2 * split <= min(MAX_SPLIT, steps) and 2 * split * tiles <= BLOCKS_PER_SM * SMS:
+        split *= 2
+    return split
 
 
 def _check_compressed(kernel: str, ke: int, values: torch.Tensor,
@@ -96,7 +124,7 @@ def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Tensor,
         rc = lib.vg_nm_spmm(x.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
                             None if bias32 is None else bias32.data_ptr(),
                             y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], out_f32, bb,
-                            _build.stream_of(x))
+                            split_k(b, ke, o, n), _build.stream_of(x))
     nm_spmm.launches += 1
     _build.check(rc, "nm_spmm", lib)
     return y
