@@ -6,9 +6,11 @@ Phases, each of which fails the run on a miss:
 
 1. build   — nvcc builds the port's CUDA kernels from ``src/repro_torch/
              kernels/csrc`` (one nvcc per source, started together).
-   probe   — the operand layout of the sparse tensor-core instruction
+   probe   — the operand layouts of the two sparse tensor-core
+             instructions, bf16 m16n8k32 and e4m3 m16n8k64
              (``kernels/mma_sp_probe.py``, exact small-integer products):
-             it must be the one nm_spmm's sparse body assumes.
+             each must be the one its sparse body (nm_spmm, nm_spmm_fp8)
+             assumes.
 2. kernels — each of tile_gemm, tile_gemm_dual, nm_spmm, nm_spmm_dual
              against its plain PyTorch version at the main path's
              shapes (B in {8, 64}; (K, O) of internlm2-1.8b's projections;
@@ -17,10 +19,11 @@ Phases, each of which fails the run on a miss:
              kernel's, the plain version's and torch.matmul's times
              (CUDA-graph replays between CUDA events, weights rotated
              through > 100 MB so L2 is cold as in a real decode step) and
-             the bandwidth bound; nm_spmm's also with the first body's
-             (``earlier_ms``: gemm.cu's shared body, timed in turns with
-             the sparse-tensor-core body through the same wrapper, see
-             ``earlier_kernels``) and its K split.
+             the bandwidth bound; nm_spmm's and tile_gemm's also with the
+             first body's (``earlier_ms``: gemm.cu's shared body, timed in
+             turns with the current body through the same wrapper, see
+             ``earlier_kernels``), nm_spmm's K split and tile_gemm's plan
+             (body, tile, split).
    int8    — tile_gemm_int8, nm_spmm_int8 (n in {1, 2}) and the int8
              duals, on int8 weights quantized per channel and bf16
              activations quantized per row, at the same (K, O) and B in
@@ -50,6 +53,11 @@ Phases, each of which fails the run on a miss:
              on at most REQUANT_SHARE of them.  The library column is
              torch._scaled_mm (cuBLASLt fp8, row-wise scales, bf16 out, B
              padded to 16, W column-major, made outside the timed region).
+             nm_spmm_fp8 at n in {1, 2} (the body nm_spmm/kernel.py::fp8_plan
+             picks: the sparse one at decode and where the shared body's
+             blocks would not fill half the card) is also timed in turns
+             with gemm_fp8.cu's shared body (``earlier_ms``) and its raw
+             accumulator must be the same bits on a second launch.
    gather  — the lane-aligned gather kernels (K8 nm_spmm_gather_bk, K9
              nm_spmm_gather_dual_bk) in bf16, int8 and fp8, with the
              quantized duals' requantizing flush, at the same (K, O), n in
@@ -66,14 +74,19 @@ Phases, each of which fails the run on a miss:
              MoE expert shapes ((K, O) = (1536, 4096) and (4096, 1536)), B
              in {8, 64}, n in {1, 2}, with 0%, ~40% and 100% of the row
              block's K steps live: BITWISE their unmasked kernels on the
-             same masked X (the bf16 nm_spmm_masked, whose unmasked kernel
-             runs its own sparse-tensor-core body: BITWISE itself with every
-             tile live, within 1e-2 of nm_spmm), within the class's limit of
+             same masked X (tile_gemm_masked, nm_spmm_masked and
+             nm_spmm_masked_fp8 at n in {1, 2}, whose unmasked kernels run
+             their own bodies and sum in another order: BITWISE themselves
+             with every tile live, within 1e-2 of the unmasked kernel),
+             within the class's limit of
              their plain versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
              bound counting the live tiles only.
              The quantized ones also run the requant:<dtype> flush (gelu)
-             at ~40% live, bitwise the unmasked *_requant kernel's codes.
+             at ~40% live, bitwise the unmasked *_requant kernel's codes
+             (nm_spmm_masked_fp8: bitwise its own all-live codes, and one
+             e4m3 step at most off the unmasked kernel's on at most
+             REQUANT_SHARE of them).
    requant — K0's remainder, the six single GEMMs with the requant:<dtype>
    singles   flush (tile_gemm / nm_spmm / nm_spmm_gather_bk x int8 / fp8
              ``*_requant``) at gemma3-1b's gelu w_in shape (K, O) = (1152,
@@ -82,7 +95,8 @@ Phases, each of which fails the run on a miss:
              e4m3 step on at most REQUANT_SHARE of them (gelu's tanhf may
              differ by an ulp).  Timed beside the unfused path the port ran
              before (the same kernel storing bf16, then the static quantize
-             pass) and the library call on the same operands.
+             pass) and the library call on the same operands;
+             nm_spmm_fp8_requant also beside its first body (``earlier_ms``).
    attn    — flash_attention against its plain version at the
              calibration forward's shape (8 x 32 tokens) and at prefill
              shapes (T = 512, 2048), bf16: 16 query heads over 8 KV heads of
@@ -160,9 +174,11 @@ Phases, each of which fails the run on a miss:
              positions whose argmax agrees is printed).  Printed per run:
              weight GB, forward latency (median of 3, CUDA events), frames
              or tokens per second, launches per forward and the device's
-             busy share of one profiled forward; hubert's bf16 2:4 run
-             also the latency and busy share of the same forward on the
-             first flash_attention and nm_spmm bodies (``earlier``).
+             busy share of one profiled forward; hubert's bf16 dense and
+             2:4 runs also the latency and busy share of the same forward on
+             the first flash_attention, tile_gemm and nm_spmm bodies
+             (``earlier``).  tile_gemm's prefill shapes are timed in turns
+             with its first body too.
    k11     — the K-major gather K11 (nm_spmm_gather bf16 in / fp32 out,
              nm_spmm_gather_int8 and _fp8, each raw and scaled) at the
              row-parallel sites' local shapes of a (1, 2) mesh of
@@ -258,6 +274,8 @@ ATTN_TOL = 2e-2                  # flash_attention vs plain, per row, scaled (bf
 CALIB_TOL = 0.1
 SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           "tile_gemm": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
+           "nm_spmm_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
            "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -411,20 +429,32 @@ class _EarlierLib:
 
 @contextlib.contextmanager
 def earlier_kernels():
-    """Inside, the flash_attention and nm_spmm wrappers launch the port's
-    first bodies (``flash_attention_wmma.cu``; gemm.cu's shared body at
-    every n, ``vg_nm_spmm_tiled``) instead of the current ones: the
-    ``earlier_ms`` yardstick, through the same wrappers and checks."""
+    """Inside, the flash_attention, nm_spmm, tile_gemm and nm_spmm_fp8
+    wrappers launch the port's first bodies (``flash_attention_wmma.cu``;
+    the shared bodies of gemm.cu and gemm_fp8.cu at every n and row count,
+    ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
+    at the row block the first form took: 16 up to 16 rows, else 64)
+    instead of the current ones: the ``earlier_ms`` yardstick, through the
+    same wrappers and checks."""
     from repro_torch.kernels import _build
 
     gemm = _build.library("gemm.cu")
+    fp8 = _build.library("gemm_fp8.cu")
     flash = _build.library("flash_attention.cu")
     wmma = _build.library("flash_attention_wmma.cu")
 
     def nm_spmm_tiled(*args):     # the shared body takes no split (args[-2])
         return gemm.vg_nm_spmm_tiled(*args[:-2], args[-1])
+
+    def tile_gemm_tiled(*args):   # (.., bm, bn, split, stream): the plan's tile dropped
+        return gemm.vg_tile_gemm_tiled(*args[:9], 16 if args[9] == 16 else 64, args[-1])
+
+    def nm_spmm_fp8_tiled(*args):   # no plan (body, split: args[-3], args[-2])
+        return fp8.vg_nm_spmm_fp8_tiled(*args[:-3], args[-1])
     saved = dict(_build._libs)
-    _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled)
+    _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
+                                          vg_tile_gemm=tile_gemm_tiled)
+    _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -435,8 +465,9 @@ def earlier_kernels():
 
 
 def in_turns(fn, operands, **kw) -> tuple:
-    """(current, earlier) device ms of ``fn`` (a flash_attention or nm_spmm
-    call), timed earlier, current, current, earlier and averaged per body."""
+    """(current, earlier) device ms of ``fn`` (a flash_attention, nm_spmm,
+    tile_gemm or nm_spmm_fp8 call), timed earlier, current, current,
+    earlier and averaged per body."""
     with earlier_kernels():
         e1 = time_ms(fn, operands, **kw)
     c = time_ms(fn, operands, **kw) + time_ms(fn, operands, **kw)
@@ -457,7 +488,7 @@ def card() -> str:
 def kernel_phase(cfg, gen, card_line: str):
     from repro_torch.core import nm
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm, nm_spmm_dual, split_k
-    from repro_torch.kernels.tile_gemm.kernel import tile_gemm, tile_gemm_dual
+    from repro_torch.kernels.tile_gemm.kernel import plan, tile_gemm, tile_gemm_dual
     from repro_torch.kernels.epilogue import EpilogueSpec
     from repro_torch.kernels.nm_spmm.ref import (dense_weight, nm_spmm_dual_ref,
                                                  nm_spmm_ref)
@@ -480,10 +511,12 @@ def kernel_phase(cfg, gen, card_line: str):
             y = tile_gemm(x, ws[0])
             torch.cuda.synchronize()
             ops = [(x, w) for w in ws]
+            t_now, t_earlier = in_turns(tile_gemm, ops)
             record("tile_gemm", b, k, o, 4, y, tile_gemm_ref(x, ws[0]),
-                   time_ms(tile_gemm, ops), time_ms(tile_gemm_ref, ops),
+                   t_now, time_ms(tile_gemm_ref, ops),
                    time_ms(torch.matmul, ops),
-                   2 * (b * k + k * o + b * o), 2 * b * k * o)
+                   2 * (b * k + k * o + b * o), 2 * b * k * o,
+                   earlier_ms=t_earlier, plan=plan(b, k, o))
             for n in (1, 2):
                 comp = []
                 for i in range(copies_for(k * o * n // 2)):
@@ -731,11 +764,22 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
                 ops = [(xq, xs, lf) for lf in lfs]
                 lib_fn, lib_ops = library(xq, xs, lfs)
                 kc = k * n // 4
+                extra = {}
+                if fp8 and n < 4:     # the sparse body, beside the first one
+                    t_run, extra["earlier_ms"] = in_turns(run, ops)
+                    extra["plan"] = nk.fp8_plan(b, k, o, n)
+                    again = run(xq, None, lfs[0])
+                    torch.cuda.synchronize()
+                    if not torch.equal(raw, again):
+                        fail(f"{names[n][0]} B={b} K={k} O={o} n={n}: the raw accumulator "
+                             f"is not the same bits on a second launch")
+                else:
+                    t_run = time_ms(run, ops)
                 record(names[n][0], b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                       time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+                       t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                        b * k + 4 * b + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o,
                        peak=FP8_OPS if fp8 else INT8_OPS, exact=not fp8,
-                       raw_scaled_err=raw_err)
+                       raw_scaled_err=raw_err, **extra)
                 del lfs, ops, lib_ops
             # the gate-up pair at (d, ff)
             k, o = d, ff
@@ -1147,11 +1191,17 @@ def requant_single_phase(cfg, gen, card_line, rows, qdtype):
                            for x_, lf in zip(xl, lfs)]
             else:
                 lib_fn, lib_ops = int_mm_padded, [(x_, lf["lib"]) for x_, lf in zip(xl, lfs)]
-            record(name, b, k, o, n, got, want, time_ms(run, ops), time_ms(plain, ops),
+            extra = {}
+            if name == "nm_spmm_fp8_requant":    # the sparse body, beside the first one
+                t_run, extra["earlier_ms"] = in_turns(run, ops)
+            else:
+                t_run = time_ms(run, ops)
+            record(name, b, k, o, n, got, want, t_run, time_ms(plain, ops),
                    time_ms(lib_fn, lib_ops), b * k + 4 * b + wb + b * o + 4, 2 * b * kc * o,
                    peak=FP8_OPS if fp8 else INT8_OPS, tol=None, off_by_one_share=share,
                    unfused_ms=time_ms(unfused, ops), act="gelu",
-                   library="pre-gathered X" if layout == "gather" else "same operands")
+                   library="pre-gathered X" if layout == "gather" else "same operands",
+                   **extra)
             del ops, lib_ops, xl
         del lfs
         torch.cuda.empty_cache()
@@ -1257,7 +1307,10 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         ref_mod, base_plain = LAYOUT_MODULES[layout]
         masked_fn = getattr(mod, f"{base}{sfx}")
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
-        own_body = layout == "compressed" and qdtype is None
+        # the bodies that sum in another order than the masked kernel: K1 (bf16
+        # dense), K2 (bf16 compressed) and nm_spmm_fp8 (compressed, n in {1, 2})
+        own_body = (qdtype is None and layout in ("dense", "compressed")) or \
+            (fp8 and layout == "compressed")
         ref_fn = getattr(importlib.import_module(f"repro_torch.kernels.{ref_mod}.ref"),
                          f"{ref_mod}_masked{'_quantized' if qdtype else ''}_ref")
         ref_kw = {**({} if layout == "gather" else {"block_k": 64}),
@@ -1282,8 +1335,8 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                     got = call(masked_fn, layout, n, x, xs, lfs[0], maps)
                     full = call(plain_fn, layout, n, x, xs, lfs[0])
                     if own_body:
-                        # nm_spmm (float, n in {1, 2}) sums in its own order: the
-                        # masked kernel is held to itself with every tile live
+                        # the unmasked kernel sums in its own order: the masked
+                        # kernel is held to itself with every tile live
                         same = call(masked_fn, layout, n, x, xs, lfs[0],
                                     (maps[0], torch.ones_like(maps[1])))
                     torch.cuda.synchronize()
@@ -1332,14 +1385,28 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                         gelu = EpilogueSpec(act="gelu")
                         codes = masked_fn(x, *ops_of(layout, lfs[0]), *maps, *nn, xs,
                                           lfs[0]["ws"], epilogue=gelu, requant_scale=rq)
-                        same = getattr(mod, f"{base_plain}{sfx}_requant")(
+                        unmasked = getattr(mod, f"{base_plain}{sfx}_requant")(
                             x, *ops_of(layout, lfs[0]), xs, lfs[0]["ws"], *nn, rq,
                             epilogue=gelu)
+                        same = masked_fn(x, *ops_of(layout, lfs[0]), maps[0],
+                                         torch.ones_like(maps[1]), *nn, xs, lfs[0]["ws"],
+                                         epilogue=gelu, requant_scale=rq) if own_body \
+                            else unmasked
                         torch.cuda.synchronize()
                         if codes.dtype != qdtype or not torch.equal(as_bytes(codes),
                                                                     as_bytes(same)):
                             fail(f"{base}{sfx} B={b} K={k} O={o} n={n}: the requantizing "
-                                 f"flush is not bitwise the unmasked requant kernel's")
+                                 f"flush is not bitwise the "
+                                 f"{'all-live codes of the masked' if own_body else 'unmasked'}"
+                                 f" requant kernel's")
+                        if own_body:    # the sparse body's codes: one e4m3 step apart at most
+                            delta = e4m3_steps(codes, unmasked)
+                            step_share = (delta == 1).float().mean().item()
+                            if delta.max().item() > 1 or step_share > REQUANT_SHARE:
+                                fail(f"{base}{sfx} B={b} K={k} O={o} n={n}: requantized codes "
+                                     f"off the unmasked kernel's by up to "
+                                     f"{delta.max().item()} step(s) on {step_share:.2e} of "
+                                     f"them (> 1 or > {REQUANT_SHARE})")
             del lfs
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2257,7 +2324,7 @@ def prefill_kernel_phase(base_cfg, prefill_runs, batch_shape, gen, card_line, ro
                 fail(f"{name}: the wrapper did not count its launch")
             want = plain(*ops[0])
             extra = {"bitwise": bool(torch.equal(got, want))} if int8 and site == "gelu" else {}
-            if name == "nm_spmm":     # the redesigned body, beside the first one
+            if name in ("nm_spmm", "tile_gemm"):   # the redesigned bodies, beside the first
                 t_run, extra["earlier_ms"] = in_turns(run, ops, calls=8)
             else:
                 t_run = time_ms(run, ops, calls=8)
@@ -2285,8 +2352,8 @@ def prefill_run(base_cfg, layout, sparsity, qdtype, depth, batch_shape, card_lin
     other branch would miss the limit by far: row 0 of a causal run sees
     one key, of a non-causal run all of them).  With ``earlier``, the
     latency and busy share again with the first flash_attention and
-    nm_spmm bodies swapped in (``earlier_kernels``), after the counts are
-    read, the latencies of the two timed in turns."""
+    nm_spmm / tile_gemm bodies swapped in (``earlier_kernels``), after the
+    counts are read, the latencies of the two timed in turns."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity
@@ -2408,7 +2475,8 @@ def prefill_run(base_cfg, layout, sparsity, qdtype, depth, batch_shape, card_lin
         res["earlier"] = {"forward_ms_median": sorted(e_ms)[len(e_ms) // 2], "forward_ms": e_ms,
                           "profiled_wall_ms": e_wall, "device_busy_ms": e_busy,
                           "device_busy_share": None if e_busy is None else e_busy / e_wall,
-                          "bodies": "flash_attention_wmma.cu, vg_nm_spmm_tiled"}
+                          "bodies": "flash_attention_wmma.cu, vg_nm_spmm_tiled, "
+                                    "vg_tile_gemm_tiled, vg_nm_spmm_fp8_tiled"}
     log(json.dumps(res))
     log(f"[{tag}] seconds: prepare and plan {t1 - t0:.1f}, forwards, profile and torch "
         f"tier {time.perf_counter() - t1:.1f}")
@@ -2748,7 +2816,7 @@ def main():
     for base, layout, sparsity, qdtype, depth, batch_shape in runs:
         t0 = time.perf_counter()
         res = prefill_run(base, layout, sparsity, qdtype, depth, batch_shape, card_line,
-                          earlier=base is hubert_cfg and layout == "compressed"
+                          earlier=base is hubert_cfg and layout in ("dense", "compressed")
                           and qdtype is None)
         prefill.append(res)
         for name, cnt in res["launches"].items():
@@ -2787,7 +2855,8 @@ def main():
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
             "name": name, "route": "cuda",
-            "source": SOURCES["nm_spmm" if name == "nm_spmm" else "fp8" if "_fp8" in name
+            "source": SOURCES[name if name in ("nm_spmm", "tile_gemm", "nm_spmm_fp8")
+                              else "fp8" if "_fp8" in name
                               else "int8" if "_int8" in name else "float"],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["kernel_ms"],
@@ -2801,6 +2870,15 @@ def main():
         if name.endswith("_requant"):
             entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
                                             if r["kernel"] == name)
+        if name == "tile_gemm":
+            # K1's many-row body: hubert-xlarge's three prefill sites, 4000 rows
+            pre = [r for r in rows if r["kernel"] == "tile_gemm"
+                   and r.get("prefill") == hubert_cfg.name]
+            entry["prefill"] = {
+                "measured_as": "hubert-xlarge's (K, O) sites at 4000 rows",
+                "sites": [[r["K"], r["O"]] for r in pre],
+                **{key: [r[key] for r in pre]
+                   for key in ("kernel_ms", "earlier_ms", "library_ms", "bound_ms")}}
         entries.append(entry)
     # the K10 masked kernels: one expert w_out launch at B=8 with about 40%
     # of its K steps live (the bound counts the live tiles only)
@@ -2827,12 +2905,14 @@ def main():
             name = f"{LAYOUT_MODULES[layout][1]}_{q}_requant"
             r = next(r for r in rows if (r["kernel"], r["B"], r.get("n")) == (name, 8, n))
             entries.append({
-                "name": name, "route": "cuda", "source": SOURCES[q],
+                "name": name, "route": "cuda",
+                "source": SOURCES["nm_spmm_fp8" if name == "nm_spmm_fp8_requant" else q],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "unfused_ms": r["unfused_ms"],
+                **({"earlier_ms": r["earlier_ms"]} if "earlier_ms" in r else {}),
                 "off_by_one_share": max(x["off_by_one_share"] for x in rows
                                         if x["kernel"] == name),
                 "measured_as": f"one gemma3-1b w_in launch at B=8, (K, O) = ({r['K']}, "

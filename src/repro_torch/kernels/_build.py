@@ -42,7 +42,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of each library's entry points (all return a cudaError_t)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm.cu": {
-        "vg_tile_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm": (_P,) * 4 + (_I,) * 8 + (_P,),
+        "vg_tile_gemm_tiled": (_P,) * 4 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_masked": (_P,) * 5 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
@@ -69,7 +70,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm_fp8.cu": {
         "vg_tile_gemm_fp8": (_P,) * 7 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual_fp8": (_P,) * 8 + (_I,) * 5 + (_P,),
-        "vg_nm_spmm_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_fp8": (_P,) * 8 + (_I,) * 9 + (_P,),
+        "vg_nm_spmm_fp8_tiled": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
@@ -88,6 +90,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "mma_sp_probe.cu": {
         "vg_mma_sp_probe": (_P,) * 5,
+        "vg_mma_sp_probe_e4m3": (_P,) * 5,
     },
 }
 

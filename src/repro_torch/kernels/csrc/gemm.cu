@@ -67,9 +67,12 @@
 //
 // nm_spmm at n in {1, 2} (the float single) runs its own body on the
 // sparse tensor cores, nm_spmm_sp.cuh (mma.sp, K split across a cluster);
-// vg_nm_spmm_tiled keeps the shared body below for it, the form the port
-// ran first, as a yardstick.  n = 4, the duals and the masked singles stay
-// on the shared body.
+// tile_gemm (K1) runs the same streaming body over the dense weight at few
+// rows and tile_gemm_sm90.cuh's TMA + wgmma body at many, as
+// tile_gemm/kernel.py's planner picks.  vg_nm_spmm_tiled and
+// vg_tile_gemm_tiled keep the shared body below for them, the forms the
+// port ran first, as yardsticks.  nm_spmm at n = 4, the duals, the masked
+// singles and the gather loaders stay on the shared body.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
@@ -99,8 +102,8 @@
 // loads along O (coalesced rows), and the register prefetch of the next
 // K step overlaps the loads with the tensor-core work.  Launch width is
 // O/64 blocks, too few to keep the card's memory system busy at decode
-// for O <= 2048 (nm_spmm's sparse body splits K for that): split-K, TMA
-// rings and wgmma in this body are later work.
+// for O <= 2048 (the streaming body of nm_spmm and tile_gemm splits K for
+// that): split-K, TMA rings and wgmma in this shared body are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,6 +115,7 @@
 #include "flush.cuh"
 #include "kmask.cuh"
 #include "nm_spmm_sp.cuh"
+#include "tile_gemm_sm90.cuh"
 
 using namespace nvcuda;
 
@@ -590,8 +594,24 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // out_f32 (the three plain singles and K11): 1 stores fp32, 0 bf16.
 extern "C" {
 
+// tile_gemm/kernel.py's plan: bm in {16, 64} streams the weight through
+// nm_spmm_sp.cuh's body (N = 4), K split over `split` blocks of a cluster;
+// bm = 128 is tile_gemm_sm90.cuh's wgmma body with `bn` channels a tile
+// (128 | 256), split 1
 int vg_tile_gemm(const void* x, const void* w, const void* bias, void* y, int b, int k,
-                 int o, int act, int out_f32, int bm, void* stream) {
+                 int o, int act, int out_f32, int bm, int bn, int split, void* stream) {
+  if (bm == tg::BM) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return tg::launch_bn(bn, x, w, bias, y, b, k, o, act, out_f32, stream);
+  }
+  if (bn != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return sp::launch_nm(4, bm, x, w, nullptr, bias, y, b, k, o, act, out_f32, split, stream);
+}
+
+// the shared body: the first form of tile_gemm, timed beside the current
+// bodies (not on any path)
+int vg_tile_gemm_tiled(const void* x, const void* w, const void* bias, void* y, int b, int k,
+                       int o, int act, int out_f32, int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
                                        nullptr, bias, y, b, k, k, o, act, stream, out_f32);
 }

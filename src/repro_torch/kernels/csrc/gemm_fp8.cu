@@ -31,6 +31,12 @@
 // and, in the duals' flush, the requant:float8_e4m3fn point of
 // repro/kernels/epilogue.py::flush_tile / requant_rows.
 //
+// nm_spmm_fp8 at n in {1, 2} runs its own body on the sparse tensor
+// cores, nm_spmm_sp_fp8.cuh (mma.sp m16n8k64 e4m3, K split across a
+// cluster), flushed by SingleFlush below in the same order as this file's
+// body; vg_nm_spmm_fp8_tiled keeps the shared body for it, the form the
+// port ran first, as a yardstick.
+//
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
 // meta), the X loader (contiguous, gathered through the lane-aligned
@@ -102,8 +108,8 @@
 // design does about it: e4m3 halves the bf16 weight bytes, the N:M
 // loader moves n/4 of them plus 2 bits per kept value and expands on
 // chip, loads are 8- and 16-byte vectors.  As in gemm_int8.cu the launch
-// is O/64 blocks with a serial K loop: split-K, TMA rings and wgmma are
-// later work.
+// is O/64 blocks with a serial K loop (the sparse body splits K): split-K,
+// TMA rings and wgmma in this shared body are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -114,8 +120,11 @@
 
 #include "flush.cuh"
 #include "kmask.cuh"
+#include "nm_spmm_sp_fp8.cuh"
 
 namespace {
+
+using spf8::gather_byte;
 
 constexpr int BK = 64;          // K step (e4m3 columns of X, dense rows of W)
 constexpr int BN = 64;          // output columns per block
@@ -291,15 +300,6 @@ struct GatheredKMajor {
   template <int BM, bool DUAL> using Loader = KMajorGatherXLoader<BM, N>;
 };
 
-// Byte j of each of four words, as one word (w0's byte lowest).
-__device__ __forceinline__ uint32_t gather_byte(uint32_t w0, uint32_t w1, uint32_t w2,
-                                                uint32_t w3, int j) {
-  const uint32_t sel = j | ((j + 4) << 4);
-  const uint32_t lo = __byte_perm(w0, w1, sel);   // bytes 0, 1 = w0.j, w1.j
-  const uint32_t hi = __byte_perm(w2, w3, sel);   // bytes 0, 1 = w2.j, w3.j
-  return __byte_perm(lo, hi, 0x5410);
-}
-
 // Four consecutive K rows (k_base + p) of 8 O bytes (o_base + c, byte c of
 // rows[p]) -> the transposed tile [O][K]: one 32-bit word per column.
 __device__ __forceinline__ void store_transposed(uint8_t* ws, const uint2 (&rows)[4],
@@ -420,6 +420,32 @@ __device__ __forceinline__ uint8_t requant_e4m3(float y, float scale) {
   const float q = fminf(fmaxf(__fdiv_rn(y, scale), -E4M3_MAX), E4M3_MAX);
   return static_cast<uint8_t>(__nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3));
 }
+
+// The flush of a single GEMM from its summed fp32 accumulator, in the
+// order of gemm_fp8_kernel's (the sparse body, nm_spmm_sp_fp8.cuh, calls it
+// once per output after its split-K sum).
+struct SingleFlush {
+  const float* xs;
+  const float* ws;
+  const float* bias;
+  const float* rq;
+  void* y;
+  int o, act, out_kind;
+
+  __device__ __forceinline__ void operator()(int row, int col, float acc) const {
+    const size_t at = (size_t)row * o + col;
+    if (out_kind == OUT_RAW) {   // raw: the fp32 accumulator
+      static_cast<float*>(y)[at] = acc;
+      return;
+    }
+    float v = dequant(acc, xs[row], ws[col]);
+    if (bias != nullptr) v = __fadd_rn(v, bias[col]);
+    v = apply_act(v, act);
+    if (out_kind == OUT_E4M3) static_cast<uint8_t*>(y)[at] = requant_e4m3(v, *rq);
+    else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+  }
+};
 
 template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
@@ -699,9 +725,37 @@ int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const v
                                       ACT_NONE, out_kind, stream);
 }
 
+// nm_spmm/kernel.py::fp8_plan's body: 1, the sparse-tensor-core body
+// (nm_spmm_sp_fp8.cuh, n in {1, 2}), K split over `split` blocks of a
+// cluster (a power of two up to min(8, k / 64)); 0, the shared body at any
+// n, split 1
 int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const void* xs,
                    const void* ws, const void* bias, const void* rq, void* y, int b, int k,
-                   int o, int n, int act, int out_kind, int bm, void* stream) {
+                   int o, int n, int act, int out_kind, int bm, int body, int split,
+                   void* stream) {
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
+                            bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool raw = out_kind == OUT_RAW;
+  if (act < 0 || act > 2 || out_kind < 0 || out_kind > 3 || raw != (xs == nullptr) ||
+      raw != (ws == nullptr) || (raw && (act != ACT_NONE || bias != nullptr)) ||
+      (out_kind == OUT_E4M3) != (rq != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SingleFlush flush{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                          static_cast<const float*>(bias), static_cast<const float*>(rq), y, o,
+                          act, out_kind};
+  return spf8::launch_nm(n, bm, x, values, meta, flush, b, k, o, split, stream);
+}
+
+// the shared body at any n: the first form of nm_spmm_fp8, timed beside the
+// current bodies (not on any path: vg_nm_spmm_fp8 reaches the same body
+// through its plan)
+int vg_nm_spmm_fp8_tiled(const void* x, const void* values, const void* meta, const void* xs,
+                         const void* ws, const void* bias, const void* rq, void* y, int b,
+                         int k, int o, int n, int act, int out_kind, int bm, void* stream) {
   return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
                           bias, rq, y, b, k, o, act, out_kind, stream);
 }

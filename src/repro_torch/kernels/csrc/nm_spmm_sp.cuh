@@ -1,10 +1,15 @@
-// nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2}
-// (included by gemm.cu, whose vg_nm_spmm launches it; every other GEMM of
-// gemm.cu keeps the shared gemm_kernel body).
+// nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2};
+// and the same streaming body over a dense weight (N = 4): K1's few-row
+// tile_gemm.  Included by gemm.cu, whose vg_nm_spmm and vg_tile_gemm
+// launch it; every other GEMM of gemm.cu keeps the shared gemm_kernel
+// body, and tile_gemm's many-row body is tile_gemm_sm90.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
-//   nm_spmm  repro/kernels/nm_spmm/kernel.py::nm_spmm (_spmm_accumulate,
-//            _unpack_meta_tile, _decompress_tile), float, n in {1, 2}
+//   nm_spmm    repro/kernels/nm_spmm/kernel.py::nm_spmm (_spmm_accumulate,
+//              _unpack_meta_tile, _decompress_tile), float, n in {1, 2}
+//   tile_gemm  repro/kernels/tile_gemm/kernel.py::tile_gemm (_gemm_kernel),
+//              at the row counts that cannot fill the card (decode, the
+//              engine's prefill chunks; the planner in tile_gemm/kernel.py)
 //
 // Y (B, O) = X (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16, O)).
 // The TPU kernel decompresses each tile with a compare-and-select and
@@ -13,7 +18,8 @@
 // 2:4 sparse along K, held compressed with a 2-bit index per kept value,
 // which is VEGETA's sparse tile engine on this card.  The weight is A (16
 // output channels x 32 K per instruction), X is B (K x 8 batch rows), so
-// a decode batch of 8 fills the instruction's N = 8 exactly.
+// a decode batch of 8 fills the instruction's N = 8 exactly.  The dense
+// weight (N = 4) is A of mma.sync.m16n8k16 the same way: two per 32 K.
 //
 // Operand layout (pinned on the card by kernels/mma_sp_probe.py, see its
 // docstring).  A comes from the values tile (K_c rows x 64 channels in
@@ -36,38 +42,39 @@
 // through a cp.async ring of values, meta and X tiles (X rows at or past B
 // zero-filled; n8 tiles wholly past B skipped).  At decode the O / 64 x 1
 // blocks would fill a quarter of the 132 SMs at best, so K is split across
-// the `split` blocks of a thread-block cluster (the wrapper's split_k, up
-// to two blocks an SM: q, o and w_out 32 x 8, k and v 16 x 8 at
-// internlm2-1.8b; 1 when the row tiles fill the card).  Each block writes
-// its fp32 partial of every slice of the tile into the inbox of the
-// slice's owner (distributed shared memory), then one cluster barrier;
-// block r sums its slice over ranks 0, 1, .. in that fixed order from its
-// own shared memory, applies the epilogue once in flush_tile's order (+
-// bias, then silu | gelu) and stores bf16 or fp32 from the same fp32 sum.
-// One launch, no atomics, no workspace: the same inputs give the same bits
-// on every launch.
+// the `split` blocks of a thread-block cluster (the wrapper's split_k /
+// tile_gemm's plan, up to two blocks an SM: q, o and w_out 32 x 8, k and v
+// 16 x 8 at internlm2-1.8b; 1 when the row tiles fill the card), summed in
+// rank order (splitk.cuh): the epilogue runs once in flush_tile's order (+
+// bias, then silu | gelu) and stores bf16 or fp32 from the same fp32 sum,
+// the same bits on every launch.
 //
 // What bounds it on an H100.  At decode every weight byte is read once
 // for 16 flops per bf16 pair: bytes over 3.35 TB/s (w_out at K = 8192, O
-// = 2048, 2:4: 18.9 MB, 5.6 us).  In development runs on the card a
-// variant without the tensor-core work was barely faster and a deeper
-// ring no faster, so what holds a block back is the stream of 128-byte
-// row segments it reads (64 channels of rows 4 KB apart) and the launch's
-// fixed costs (first bytes, the cluster barrier), not compute or bytes in
-// flight; more blocks (two an SM) helped most.  At prefill (4,000 rows)
-// the products are above the ridge and the sparse instruction's rate
-// (twice the dense one per K) bounds it; a 128-channel tile of 8 warps
-// was faster at two of hubert's sites and slower at B = 64 and at decode
-// in a development run, so it was left out.  Not done here: TMA, wgmma's
-// sparse form, a persistent schedule.
+// = 2048, 2:4: 18.9 MB, 5.6 us; dense 33.6 MB, 10.0 us).  In development
+// runs on the card a variant without the tensor-core work was barely
+// faster and a deeper ring no faster, so what holds a block back is the
+// stream of 128-byte row segments it reads (64 channels of rows 4 KB
+// apart) and the launch's fixed costs (first bytes, the cluster barrier),
+// not compute or bytes in flight; more blocks (two an SM) helped most.
+// The dense weight streams four stages of 64 x 64 (8 KB) through each
+// block, two blocks an SM: ~50 KB in flight per SM.  At prefill (4,000
+// rows) the sparse products are above the ridge and the sparse
+// instruction's rate (twice the dense one per K) bounds it; a 128-channel
+// tile of 8 warps was faster at two of hubert's sites and slower at B =
+// 64 and at decode in a development run, so it was left out.  Not done
+// here: TMA, wgmma's sparse form, a persistent schedule.
 
 #pragma once
 
-#include <cooperative_groups.h>
+#include "splitk.cuh"
 
 namespace sp {
 
-namespace cg = cooperative_groups;
+using splitk::cp_async16;
+using splitk::expand_1of4;
+using splitk::ldsm_x4;
+using splitk::ldsm_x4_trans;
 
 constexpr int BO = 64;              // output channels per block (4 warps x 16)
 constexpr int BKS = 64;             // dense K per pipeline stage (two mma K steps)
@@ -75,16 +82,16 @@ constexpr int NT = 128;
 constexpr int VLD = BO + 8;         // bf16 pitch of the values tile (ldmatrix rows on distinct banks)
 constexpr int XLD = BKS + 8;        // bf16 pitch of the X tile
 constexpr int PLD = BO + 4;         // fp32 pitch of the partial tile
-constexpr int MAX_SPLIT = 8;        // a portable cluster size
 
 template <int N, int BM>
 struct Layout {
-  static_assert(N == 1 || N == 2, "the sparse body takes 1:4 and 2:4");
+  static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
   // ring depth: 4 stages at decode (a deeper ring streamed no faster on
-  // the H100); 3 at the 64-row tile, which keep 4 blocks on an SM
-  static constexpr int STAGES = BM == 16 ? 4 : 3;
-  static constexpr int VROWS = BKS * N / 4;      // compressed rows a stage (32 | 16)
-  static constexpr int MROWS = VROWS / 4;        // meta_packed rows a stage (8 | 4)
+  // the H100) and for the dense weight; 3 at the sparse 64-row tile, which
+  // keep 4 blocks on an SM
+  static constexpr int STAGES = (BM == 16 || N == 4) ? 4 : 3;
+  static constexpr int VROWS = BKS * N / 4;      // weight rows a stage (16 | 32 | 64)
+  static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
   static constexpr int V_BYTES = VROWS * VLD * 2;
   static constexpr int M_BYTES = MROWS * BO;
   static constexpr int X_BYTES = BM * XLD * 2;
@@ -93,30 +100,6 @@ struct Layout {
   static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
   static constexpr int INBOX = BM * BO * 4;   // the peers' partial slices (split > 1 only)
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
 
 // D += A (16 x 32, 2:4, compressed) x B (32 x 8), fp32 accumulate
 __device__ __forceinline__ void mma_sp(float (&d)[4], const uint32_t (&a)[4],
@@ -129,14 +112,14 @@ __device__ __forceinline__ void mma_sp(float (&d)[4], const uint32_t (&a)[4],
         "r"(b[3]), "r"(e));
 }
 
-// A 1:4 row's metadata word from its 8 packed 2-bit indices (group j at
-// bits 2j): group j's nibble is the pair (0, i), or (0, 1) for i == 0.
-__device__ __forceinline__ uint32_t expand_1of4(uint32_t x) {
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;          // index j at bits 4j, 4j + 1
-  const uint32_t zero = ~(x | (x >> 1)) & 0x11111111u;
-  return (x | zero) << 2;
+// D += A (16 x 16, dense) x B (16 x 8), fp32 accumulate
+__device__ __forceinline__ void mma_dense(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The kept value v (bf16 bits) of a 1:4 group as its 2:4 pair of slots.
@@ -150,7 +133,6 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                   const uint8_t* __restrict__ meta, const float* __restrict__ bias,
                   void* __restrict__ y, int b, int k, int o, int act, int out_f32, int split) {
   using L = Layout<N, BM>;
-  constexpr int STAGES = L::STAGES;
   constexpr int WN = BM == 16 ? 1 : 2;         // warps along the batch rows
   constexpr int WM = 4 / WN;                   // warps along the channels
   constexpr int MT = BO / (16 * WM);           // m16 channel tiles a warp (1 | 2)
@@ -167,9 +149,8 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const int n0 = blockIdx.x * BO;
   const int m0 = blockIdx.y * BM;
   const int rank = blockIdx.z;                 // the cluster is (1, 1, split): rank = z
-  const int nk = k / BKS;
-  const int s0 = static_cast<int>(static_cast<long long>(rank) * nk / split);
-  const int ns = static_cast<int>(static_cast<long long>(rank + 1) * nk / split) - s0;
+  int s0, ns;
+  splitk::span(rank, split, k / BKS, s0, ns);
   const int rows = min(BM, b - m0);            // live batch rows of this tile
 
   auto load_stage = [&](int st, int s) {
@@ -203,18 +184,8 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
 
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < ns) load_stage(st, s0 + st);
-    cp_async_commit();
-  }
-  for (int i = 0; i < ns; ++i) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();     // step i has landed; every warp is done with step i - 1's stage
-    if (i + STAGES - 1 < ns) load_stage((i + STAGES - 1) % STAGES, s0 + i + STAGES - 1);
-    cp_async_commit();
-
-    const unsigned char* base = smem + (i % STAGES) * L::STAGE;
+  auto compute = [&](int st) {
+    const unsigned char* base = smem + st * L::STAGE;
     const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(base);
     const uint8_t* ms = base + L::V_BYTES;
     const __nv_bfloat16* xs =
@@ -229,43 +200,57 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
-        uint32_t a[4];
-        uint32_t e;
-        if constexpr (N == 2) {
-          // compressed rows 16kk .. + 15 x channels c .. + 15, transposed
-          ldsm_x4_trans(a, vs + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c +
-                               ((lane >> 3) & 1) * 8);
-          // lane 4g (4g + 1) supplies K columns 0-15 (16-31) of channels
-          // c + g and c + g + 8: meta_packed rows 4kk + 2t, + 1 of each
-          const uint8_t* mp = ms + (kk * 4 + 2 * (t & 1)) * BO + c + g;
-          e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
-              static_cast<uint32_t>(mp[8]) << 16 | static_cast<uint32_t>(mp[BO + 8]) << 24;
-        } else {
-          // group t (and t + 4) of channels c + g and c + g + 8: compressed
-          // row 8kk + t (+ 4), its index in meta row 2kk (+ 1) at bits 2t
-          uint32_t mb[2][2];
+        if constexpr (N == 4) {
+          // dense rows 32kk .. + 15 and + 16 .. + 31 x channels c .. + 15, transposed
+          uint32_t a0[4], a1[4];
+          const __nv_bfloat16* p =
+              vs + (kk * 32 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c + ((lane >> 3) & 1) * 8;
+          ldsm_x4_trans(a0, p);
+          ldsm_x4_trans(a1, p + 16 * VLD);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int col = c + g + 8 * r;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              mb[r][h] = ms[(2 * kk + h) * BO + col];
-              const uint32_t val =
-                  reinterpret_cast<const uint16_t*>(vs)[(8 * kk + t + 4 * h) * VLD + col];
-              a[r + 2 * h] = pair_1of4(val, (mb[r][h] >> (2 * t)) & 3u);
+          for (int j = 0; j < NJ; ++j)
+            if (r0 + j * 8 < rows) {
+              mma_dense(acc[mt][j], a0, bf[j][0], bf[j][1]);
+              mma_dense(acc[mt][j], a1, bf[j][2], bf[j][3]);
             }
-          }
-          // lane 4g (4g + 1): groups 0-3 (4-7) of channel c + g, then of c + g + 8
-          e = expand_1of4(mb[0][t & 1] | (mb[1][t & 1] << 8));
-        }
+        } else {
+          uint32_t a[4];
+          uint32_t e;
+          if constexpr (N == 2) {
+            // compressed rows 16kk .. + 15 x channels c .. + 15, transposed
+            ldsm_x4_trans(a, vs + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c +
+                                 ((lane >> 3) & 1) * 8);
+            // lane 4g (4g + 1) supplies K columns 0-15 (16-31) of channels
+            // c + g and c + g + 8: meta_packed rows 4kk + 2t, + 1 of each
+            const uint8_t* mp = ms + (kk * 4 + 2 * (t & 1)) * BO + c + g;
+            e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
+                static_cast<uint32_t>(mp[8]) << 16 | static_cast<uint32_t>(mp[BO + 8]) << 24;
+          } else {
+            // group t (and t + 4) of channels c + g and c + g + 8: compressed
+            // row 8kk + t (+ 4), its index in meta row 2kk (+ 1) at bits 2t
+            uint32_t mb[2][2];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          if (r0 + j * 8 < rows) mma_sp(acc[mt][j], a, bf[j], e);
+            for (int r = 0; r < 2; ++r) {
+              const int col = c + g + 8 * r;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                mb[r][h] = ms[(2 * kk + h) * BO + col];
+                const uint32_t val =
+                    reinterpret_cast<const uint16_t*>(vs)[(8 * kk + t + 4 * h) * VLD + col];
+                a[r + 2 * h] = pair_1of4(val, (mb[r][h] >> (2 * t)) & 3u);
+              }
+            }
+            // lane 4g (4g + 1): groups 0-3 (4-7) of channel c + g, then of c + g + 8
+            e = expand_1of4(mb[0][t & 1] | (mb[1][t & 1] << 8));
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            if (r0 + j * 8 < rows) mma_sp(acc[mt][j], a, bf[j], e);
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();       // the ring is drained: the partial tile may alias it
+  };
+  splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
 
   // partial tile [batch row][channel], fp32
   float* part = reinterpret_cast<float*>(smem);
@@ -282,89 +267,48 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
   __syncthreads();
 
-  // Block q owns elements [q E / split, (q + 1) E / split) of the tile (E =
-  // BM x 64, row-major).  Each block stores its partial of every slice into
-  // the owner's inbox, at [its rank][offset in the slice]; after one
-  // cluster barrier every owner sums its inbox in rank order (the same bits
-  // whichever block sums them) from its own shared memory, so no block
-  // reads a peer's memory and none waits for the others to leave.
-  constexpr int E = BM * BO;
-  float* inbox = reinterpret_cast<float*>(smem + L::RING);
-  if (split > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int slice = E / split;        // split is a power of two up to 8: exact
-    for (int q = tid; q < E; q += NT) {
-      const int owner = q / slice;
-      cluster.map_shared_rank(inbox, owner)[rank * slice + q % slice] =
-          part[(q / BO) * PLD + q % BO];
-    }
-    cluster.sync();
-  }
-  const int slice = E / split;
-  for (int q = rank * slice + tid; q < (rank + 1) * slice; q += NT) {
-    const int r = q / BO, c = q % BO;
-    if (m0 + r >= b) continue;
-    float s = part[r * PLD + c];
-    if (split > 1) {
-      s = inbox[q - rank * slice];
-      for (int z = 1; z < split; ++z) s += inbox[z * slice + q - rank * slice];
-    }
-    if (bias != nullptr) s += bias[n0 + c];
-    s = apply_act(s, act);
-    const size_t at = static_cast<size_t>(m0 + r) * o + n0 + c;
-    if (out_f32) static_cast<float*>(y)[at] = s;
-    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(s);
-  }
+  splitk::finish<BM, BO, PLD, NT>(
+      part, reinterpret_cast<float*>(smem + L::RING), rank, split, rows,
+      [&](int r, int c, float s) {
+        if (bias != nullptr) s += bias[n0 + c];
+        s = apply_act(s, act);
+        const size_t at = static_cast<size_t>(m0 + r) * o + n0 + c;
+        if (out_f32) static_cast<float*>(y)[at] = s;
+        else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(s);
+      });
 }
 
 template <int N, int BM>
-int launch(const void* x, const void* v, const void* meta, const void* bias, void* y, int b,
+int launch(const void* x, const void* v, const void* meta, const float* bias, void* y, int b,
            int k, int o, int act, int out_f32, int split, cudaStream_t stream) {
   using L = Layout<N, BM>;
-  auto kernel = nm_spmm_sp_kernel<N, BM>;
-  static bool opted_in = false;     // above 48 KB a block's shared memory is asked for
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::RING + L::INBOX);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(o / BO, (b + BM - 1) / BM, split);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = L::RING + (split > 1 ? L::INBOX : 0);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const uint8_t*>(meta), static_cast<const float*>(bias), y, b, k, o, act,
-      out_f32, split);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  static bool opted_in = false;
+  return splitk::launch(nm_spmm_sp_kernel<N, BM>, opted_in, dim3(o / BO, (b + BM - 1) / BM),
+                        NT, L::RING, L::INBOX, split, stream,
+                        static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(meta),
+                        bias, y, b, k, o, act, out_f32, split);
 }
 
-// n in {1, 2}, bm in {16, 64}, split a power of two up to min(8, k / 64)
+// n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) weight, meta
+// unused), bm in {16, 64}, split a power of two up to min(8, k / 64)
 inline int launch_nm(int n, int bm, const void* x, const void* v, const void* meta,
                      const void* bias, void* y, int b, int k, int o, int act, int out_f32,
                      int split, void* stream) {
   if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 || act < 0 || act > 2 ||
-      out_f32 < 0 || out_f32 > 1 || split < 1 || split > MAX_SPLIT || (split & (split - 1)) ||
-      split > k / BKS ||
+      out_f32 < 0 || out_f32 > 1 || !splitk::split_ok(split, k / BKS) ||
       (b + bm - 1) / bm > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bf = static_cast<const float*>(bias);
 #define VG_SP_LAUNCH(NN, BB) \
-  return launch<NN, BB>(x, v, meta, bias, y, b, k, o, act, out_f32, split, s)
+  return launch<NN, BB>(x, v, meta, bf, y, b, k, o, act, out_f32, split, s)
   if (n == 2 && bm == 16) VG_SP_LAUNCH(2, 16);
   if (n == 2 && bm == 64) VG_SP_LAUNCH(2, 64);
   if (n == 1 && bm == 16) VG_SP_LAUNCH(1, 16);
   if (n == 1 && bm == 64) VG_SP_LAUNCH(1, 64);
+  if (n == 4 && bm == 16) VG_SP_LAUNCH(4, 16);
+  if (n == 4 && bm == 64) VG_SP_LAUNCH(4, 64);
 #undef VG_SP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,310 @@
+// nm_spmm_fp8 on Hopper's sparse tensor cores: the e4m3 single at n in
+// {1, 2}, every out_kind (bf16, fp32, the raw accumulator, and the
+// requantizing flush of nm_spmm_fp8_requant).  Included by gemm_fp8.cu,
+// whose vg_nm_spmm_fp8 launches it with its flush where
+// nm_spmm/kernel.py::fp8_plan picks it (decode rows, and launches whose
+// shared-body tiles would not fill half the card); n = 4, wider launches,
+// the duals, the masked singles and the int8 twins keep gemm_fp8.cu's /
+// gemm_int8.cu's shared bodies.
+//
+// Replaces (JAX package, Pallas on the TPU):
+//   nm_spmm_fp8  repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
+//                (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel), n in {1, 2}
+//
+// Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
+// O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
+// as it is: mma.sp.sync.aligned.m16n8k64.row.col.f32.e4m3.e4m3.f32 (sm_89
+// and later) takes A 2:4 sparse along K, 16 rows x 64 K held as 32 kept
+// bytes a row with a 2-bit index each.  The weight is A (16 output
+// channels), X is B (64 K x 8 batch rows), so a decode batch of 8 fills
+// the instruction's N = 8.
+//
+// Operand layout (pinned on the card by kernels/mma_sp_probe.py).  A
+// register r of lane 4g + t: channel g + 8 (r & 1), kept bytes 4t .. 4t + 3
+// (+ 16 for r >= 2); B register r: K bytes 4t + 16r .. + 3 of batch row g,
+// which ldmatrix (b16, not transposed) reads from the X tile as it lands.
+// The metadata word differs from the bf16 form's: lane 4g + t holds the
+// nibbles of K groups 8 (t >> 1) .. + 7 of ONE channel, g + 8 (t & 1).  At
+// 2:4 that is four consecutive meta_packed bytes of that channel (two
+// groups a byte, low nibble first), four byte loads; at 1:4 two bytes,
+// spread to 2:4 pairs (expand_1of4).
+//
+// The transpose.  values is (K_c, O) with O contiguous, and the A operand
+// wants each channel's kept bytes consecutive along K; sm_90 has no 8-bit
+// ldmatrix transpose, and a second, transposed copy of the weight would
+// double its memory.  So each warp transposes the part of the landed stage
+// it multiplies (its 16 channels x 32 kept bytes) into a private [channel]
+// [byte] tile with gemm_fp8.cu's __byte_perm transpose (gather_byte:
+// each lane turns a 4 x 4 byte block, four 32-bit loads, into four words)
+// and reads A from it with ldmatrix.  1:4 runs as 2:4 (as in nm_spmm_sp.cuh):
+// the transpose writes each group's kept byte into the slot of its index
+// and a +0 into the other, the pair (0, 1) for index 0, else (0, index);
+// the 1:4 bytes in device memory stay 1:4's.
+//
+// Numerics: the fp8 class's (gemm_fp8.cu).  Every 64-deep instruction
+// starts from zero and is added into a separate fp32 register accumulator
+// (__fadd_rn), so the tensor cores never carry a running sum past 64
+// products.  The K loop is split over the `split` blocks of a cluster
+// (nm_spmm/kernel.py::split_k) and the partials summed in rank order
+// (splitk.cuh); the flush then runs once from the summed fp32 accumulator
+// in the JAX order (the caller's Flush: acc * xs[row] * ws[col] with
+// __fmul_rn, + bias, act, then the store of its out_kind).  The same inputs
+// give the same bits on every launch.
+//
+// What bounds it on an H100.  At decode every kept byte is read once for 2
+// operations per batch row: the bytes over 3.35 TB/s (w_out at K = 8192, O
+// = 2048, 2:4: values 8.4 MB + meta 2.1 MB, about 3.1 us).  What the
+// design does about it: the ring keeps STAGES - 1 steps of values, meta
+// and X in flight per block (6 stages at decode), the split puts two
+// blocks on every SM, and the sparse instruction halves the tensor-core
+// work the first body spent expanding and multiplying zeros.  At 64-row
+// tiles it is slower than the shared body once that body has 64 or more
+// blocks (256 rows, gemma3-1b's w_in at 64 rows, on an H100), for reasons
+// not found yet (a 64-deep stage costs ~1-3 us there): fp8_plan keeps those
+// launches on the shared body.
+
+#pragma once
+
+#include "splitk.cuh"
+
+namespace spf8 {
+
+using splitk::cp_async16;
+using splitk::ldsm_x4;
+
+constexpr int BO = 64;              // output channels per block (4 warps x 16)
+constexpr int BKS = 64;             // dense K per pipeline stage: one k64 instruction
+constexpr int NT = 128;
+constexpr int VLD = BO + 16;        // byte pitch of the values tile (16-byte aligned rows)
+constexpr int XLD = BKS + 16;       // byte pitch of the X tile: ldmatrix rows on distinct banks
+constexpr int TLD = 48;             // byte pitch of a warp's transposed A tile (32 kept + 16)
+constexpr int PLD = BO + 4;         // fp32 pitch of the partial tile
+
+// Byte j of each of four words, as one word (w0's byte lowest).
+__device__ __forceinline__ uint32_t gather_byte(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                uint32_t w3, int j) {
+  const uint32_t sel = j | ((j + 4) << 4);
+  const uint32_t lo = __byte_perm(w0, w1, sel);   // bytes 0, 1 = w0.j, w1.j
+  const uint32_t hi = __byte_perm(w2, w3, sel);   // bytes 0, 1 = w2.j, w3.j
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+template <int N, int BM>
+struct Layout {
+  static_assert(N == 1 || N == 2, "the sparse body takes 1:4 and 2:4");
+  static constexpr int STAGES = BM == 16 ? 6 : 4;
+  static constexpr int WN = BM == 16 ? 1 : 2;    // warps along the batch rows
+  static constexpr int WM = 4 / WN;              // warps along the channels
+  static constexpr int MT = BO / (16 * WM);      // m16 channel tiles a warp (1 | 2)
+  static constexpr int NJ = BM / (8 * WN);       // n8 batch-row tiles a warp (2 | 4)
+  static constexpr int VROWS = BKS * N / 4;      // kept rows a stage (16 | 32)
+  static constexpr int MROWS = VROWS / 4;        // meta_packed rows a stage (4 | 8)
+  static constexpr int V_BYTES = VROWS * VLD;
+  static constexpr int M_BYTES = MROWS * BO;
+  static constexpr int X_BYTES = BM * XLD;
+  static constexpr int STAGE = V_BYTES + M_BYTES + X_BYTES;   // a multiple of 16
+  static constexpr int PART = BM * PLD * 4;                   // the partial tile
+  static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
+  static constexpr int T_WARP = MT * 16 * TLD;                // a warp's transposed A tile
+  static constexpr int T_BYTES = 4 * T_WARP;
+  static constexpr int INBOX = BM * BO * 4;   // the peers' partial slices (split > 1 only)
+};
+
+// D = A (16 x 64, 2:4, compressed) x B (64 x 8) + C, e4m3 in, fp32 out
+__device__ __forceinline__ void mma_sp_e4m3(float (&d)[4], const uint32_t (&a)[4],
+                                            const uint32_t (&b)[4], uint32_t e) {
+  asm volatile(
+      "mma.sp.sync.aligned.m16n8k64.row.col.f32.e4m3.e4m3.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9,%10,%11}, {%0,%1,%2,%3}, %12, 0x0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(b[2]),
+        "r"(b[3]), "r"(e));
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The kept byte v of a 1:4 group as its 2:4 pair of slots (16 bits).
+__device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
+  return i == 0u ? v : v << 8;
+}
+
+template <int N, int BM, class Flush>
+__global__ void __launch_bounds__(NT)
+nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
+                      const uint8_t* __restrict__ meta, Flush flush, int b, int k, int o,
+                      int split) {
+  using L = Layout<N, BM>;
+  constexpr int MT = L::MT, NJ = L::NJ;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ch0 = (warp % L::WM) * MT * 16;    // the warp's first channel in the tile
+  const int r0 = (warp / L::WM) * NJ * 8;      // the warp's first batch row in the tile
+  const int n0 = blockIdx.x * BO;
+  const int m0 = blockIdx.y * BM;
+  const int rank = blockIdx.z;                 // the cluster is (1, 1, split): rank = z
+  int s0, ns;
+  splitk::span(rank, split, k / BKS, s0, ns);
+  const int rows = min(BM, b - m0);            // live batch rows of this tile
+  uint8_t* tw = smem + L::RING + warp * L::T_WARP;   // this warp's transposed A tiles
+
+  auto load_stage = [&](int st, int s) {
+    uint8_t* vs = smem + st * L::STAGE;
+    uint8_t* ms = vs + L::V_BYTES;
+    uint8_t* xs = ms + L::M_BYTES;
+    const int kc0 = s * L::VROWS;
+    if (tid < L::VROWS * 4) {
+      const int r = tid >> 2, col = (tid & 3) * 16;
+      cp_async16(vs + r * VLD + col, v + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+    }
+    if (tid < L::MROWS * 4) {
+      const int r = tid >> 2, col = (tid & 3) * 16;
+      cp_async16(ms + r * BO + col, meta + static_cast<size_t>(s * L::MROWS + r) * o + n0 + col,
+                 16);
+    }
+#pragma unroll
+    for (int c = tid; c < BM * 4; c += NT) {
+      const int r = c >> 2, col = (c & 3) * 16;
+      const bool live = r < rows;
+      cp_async16(xs + r * XLD + col,
+                 x + static_cast<size_t>(live ? m0 + r : 0) * k + s * BKS + col, live ? 16 : 0);
+    }
+  };
+
+  float acc[MT][NJ][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+
+  auto compute = [&](int st) {
+    const uint8_t* vs = smem + st * L::STAGE;
+    const uint8_t* ms = vs + L::V_BYTES;
+    const uint8_t* xs = ms + L::M_BYTES;
+    uint32_t bf[NJ][4];    // X rows r0 + 8j .. + 7 at K bytes 0 .. 63
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
+        ldsm_x4(bf[j], xs + (r0 + j * 8 + (lane & 7)) * XLD + (lane >> 3) * 16);
+    __syncwarp();            // every lane is done reading the previous step's tiles
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
+      uint8_t* ta = tw + mt * 16 * TLD;
+      const int p = lane & 3, q = lane >> 2;
+      if constexpr (N == 2) {
+        // lane (p, q): kept rows 4q .. + 3 x channels c + 4p .. + 3 -> four
+        // channel rows of 4 consecutive kept bytes
+        const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
+        const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
+                       w3 = lds32(src + 3 * VLD);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 4 * q) =
+              gather_byte(w0, w1, w2, w3, j);
+      } else if (q < 4) {
+        // lane (p, q < 4): kept rows 4q .. + 3 (groups 4q .. + 3) x channels
+        // c + 4p .. + 3, their indices in meta row q -> 8 bytes a channel
+        const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
+        const uint32_t w[4] = {lds32(src), lds32(src + VLD), lds32(src + 2 * VLD),
+                               lds32(src + 3 * VLD)};
+        const uint32_t mw = lds32(ms + q * BO + c + 4 * p);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t mb = (mw >> (8 * j)) & 0xffu;
+          uint32_t pr[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            pr[r] = pair8_1of4((w[r] >> (8 * j)) & 0xffu, (mb >> (2 * r)) & 3u);
+          uint32_t* dst = reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 8 * q);
+          dst[0] = pr[0] | pr[1] << 16;
+          dst[1] = pr[2] | pr[3] << 16;
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int c = ch0 + mt * 16;
+      uint32_t a[4];
+      ldsm_x4(a, tw + mt * 16 * TLD + ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD +
+                     (lane >> 4) * 16);
+      // lane 4g + t: groups 8 (t >> 1) .. + 7 of channel c + g + 8 (t & 1)
+      const int ch = c + g + 8 * (t & 1), h = t >> 1;
+      uint32_t e;
+      if constexpr (N == 2) {
+        const uint8_t* mp = ms + 4 * h * BO + ch;
+        e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
+            static_cast<uint32_t>(mp[2 * BO]) << 16 | static_cast<uint32_t>(mp[3 * BO]) << 24;
+      } else {
+        const uint8_t* mp = ms + 2 * h * BO + ch;
+        e = splitk::expand_1of4(static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (r0 + j * 8 < rows) {
+          // the 64-deep partial sum on the tensor cores, promoted into fp32
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_sp_e4m3(part, a, bf[j], e);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][j][i] = __fadd_rn(acc[mt][j][i], part[i]);
+        }
+    }
+  };
+  splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
+
+  // partial tile [batch row][channel], fp32
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int r = r0 + j * 8 + 2 * t;
+      const int c = ch0 + mt * 16 + g;
+      part[r * PLD + c] = acc[mt][j][0];
+      part[(r + 1) * PLD + c] = acc[mt][j][1];
+      part[r * PLD + c + 8] = acc[mt][j][2];
+      part[(r + 1) * PLD + c + 8] = acc[mt][j][3];
+    }
+  __syncthreads();
+
+  splitk::finish<BM, BO, PLD, NT>(part, reinterpret_cast<float*>(smem + L::RING + L::T_BYTES),
+                                  rank, split, rows,
+                                  [&](int r, int c, float s) { flush(m0 + r, n0 + c, s); });
+}
+
+template <int N, int BM, class Flush>
+int launch(const void* x, const void* v, const void* meta, const Flush& flush, int b, int k,
+           int o, int split, cudaStream_t stream) {
+  using L = Layout<N, BM>;
+  static bool opted_in = false;
+  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, Flush>, opted_in,
+                        dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::T_BYTES, L::INBOX,
+                        split, stream, static_cast<const uint8_t*>(x),
+                        static_cast<const uint8_t*>(v), static_cast<const uint8_t*>(meta), flush,
+                        b, k, o, split);
+}
+
+// n in {1, 2}, bm in {16, 64}, split a power of two up to min(8, k / 64);
+// flush(row, col, acc) stores one output from its summed fp32 accumulator
+template <class Flush>
+int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
+              int b, int k, int o, int split, void* stream) {
+  if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 ||
+      !splitk::split_ok(split, k / BKS) || (b + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 2 && bm == 16) return launch<2, 16>(x, v, meta, flush, b, k, o, split, s);
+  if (n == 2 && bm == 64) return launch<2, 64>(x, v, meta, flush, b, k, o, split, s);
+  if (n == 1 && bm == 16) return launch<1, 16>(x, v, meta, flush, b, k, o, split, s);
+  if (n == 1 && bm == 64) return launch<1, 64>(x, v, meta, flush, b, k, o, split, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace spf8

@@ -15,8 +15,11 @@ with ``K_eff = K_c * 4 / n``.  The dense weight never exists in device
 memory, so weight traffic is n/4 of dense plus 2 bits per kept value.
 ``nm_spmm`` at n in {1, 2} feeds the compressed tile to the sparse tensor
 cores (``csrc/nm_spmm_sp.cuh``; 1:4 as 2:4 with a +0), its K loop split
-across the blocks of a cluster by :func:`split_k`; every other kernel here
-expands each values tile into the dense tile in shared memory.
+across the blocks of a cluster by :func:`split_k`; so do ``nm_spmm_fp8``
+and ``nm_spmm_fp8_requant`` at n in {1, 2} (``csrc/nm_spmm_sp_fp8.cuh``,
+the e4m3 m16n8k64 form) where :func:`fp8_plan` picks it; every other
+kernel here expands each values tile into the dense tile in shared
+memory.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
 ``::nm_spmm_dual`` (:437, float, int8 and fp8 branches), ``::nm_spmm_int8``
@@ -36,46 +39,56 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale, float_out,
-                                check_scales, check_single_epilogue, quantized_out,
-                                requant_spec)
+from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, MAX_SPLIT, SMS, _ptr, check_maps,
+                                check_requant_scale, check_scales, check_single_epilogue,
+                                cluster_split, float_out, quantized_out, requant_spec)
 from ..reasons import dtype_name
 from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
                   nm_spmm_ref)
 
-__all__ = ["nm_spmm", "split_k", "nm_spmm_dual", "nm_spmm_int8", "nm_spmm_int8_requant",
-           "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant", "nm_spmm_fp8",
-           "nm_spmm_fp8_requant", "nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
-           "nm_spmm_masked", "nm_spmm_masked_int8", "nm_spmm_masked_fp8"]
+__all__ = ["nm_spmm", "split_k", "fp8_plan", "nm_spmm_dual", "nm_spmm_int8",
+           "nm_spmm_int8_requant", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
+           "nm_spmm_fp8", "nm_spmm_fp8_requant", "nm_spmm_dual_fp8",
+           "nm_spmm_dual_fp8_requant", "nm_spmm_masked", "nm_spmm_masked_int8",
+           "nm_spmm_masked_fp8"]
 
 _N = (1, 2, 4)
-#: streaming multiprocessors of the H100 the split is planned for
-SMS = 132
-#: blocks of the sparse body that share an SM (its ring and inbox take
-#: ~34 KB of shared memory at decode, 64 registers a thread)
-BLOCKS_PER_SM = 2
-#: the sparse body's largest cluster (a portable cluster size)
-MAX_SPLIT = 8
 
 
 def split_k(b: int, k: int, o: int, n: int) -> int:
     """Blocks of one cluster that share the K loop of an output tile in
-    ``nm_spmm``'s sparse body (n in {1, 2}; n = 4 runs the shared body,
-    split 1): the largest power of two up to ``MAX_SPLIT`` and K / 64
-    steps with (O / 64 tiles) x (row tiles) x split <= ``BLOCKS_PER_SM``
-    x ``SMS``, so a decode launch fills the card (internlm2-1.8b at B = 8:
-    q, o and w_out 32 x 8, k and v 16 x 8); 1 once the row tiles fill it
-    (4,000 prefill rows).  Block r takes K steps [r * steps // split,
-    (r + 1) * steps // split)."""
+    the sparse bodies of ``nm_spmm`` and ``nm_spmm_fp8`` (n in {1, 2}; n
+    = 4 runs the shared body, split 1): the largest power of two up to
+    ``MAX_SPLIT`` and K / 64 steps with (O / 64 tiles) x (row tiles) x
+    split <= ``BLOCKS_PER_SM`` x ``SMS``, so a decode launch fills the
+    card (internlm2-1.8b at B = 8: q, o and w_out 32 x 8, k and v 16 x 8);
+    1 once the row tiles fill it (4,000 prefill rows).  Block r takes K
+    steps [r * steps // split, (r + 1) * steps // split)."""
     if n not in (1, 2):
         return 1
     tiles = (o // _build.BLOCK_O) * -(-b // _build.block_rows(b))
-    steps = k // _build.BLOCK_K
-    split = 1
-    while 2 * split <= min(MAX_SPLIT, steps) and 2 * split * tiles <= BLOCKS_PER_SM * SMS:
-        split *= 2
-    return split
+    return cluster_split(tiles, k // _build.BLOCK_K)
+
+
+#: the shared body's launch width (O / 64 tiles x row tiles) from which
+#: nm_spmm_fp8 stays on it above 16 rows: on an H100 the sparse body won
+#: at internlm2-1.8b's 64-row chunks (16-32 tiles) and lost at 256 rows
+#: (64-128 tiles) and at gemma3-1b's 64-row w_in (108 tiles)
+FP8_SHARED_TILES = 64
+
+
+def fp8_plan(b: int, k: int, o: int, n: int) -> dict:
+    """``nm_spmm_fp8``'s body and K split: ``sparse`` (``csrc/
+    nm_spmm_sp_fp8.cuh``, n in {1, 2}) at decode rows (up to 16) and
+    wherever the shared body's O / 64 x row-tile blocks stay under
+    ``FP8_SHARED_TILES``, split by :func:`split_k`; else ``shared``
+    (gemm_fp8.cu's body, the form the port ran first), split 1."""
+    bm = _build.block_rows(b)
+    tiles = (o // _build.BLOCK_O) * -(-b // bm)
+    if n in (1, 2) and (bm == _build.BLOCK_ROWS[0] or tiles < FP8_SHARED_TILES):
+        return {"body": "sparse", "split": split_k(b, k, o, n)}
+    return {"body": "shared", "split": 1}
 
 
 def _check_compressed(kernel: str, ke: int, values: torch.Tensor,
@@ -143,7 +156,9 @@ def nm_spmm_masked(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Ten
     K step) tiles ``kmask`` marks live are loaded, expanded and
     multiplied.  ``kmap`` / ``kmask``: ``actsparse.block_maps`` over the
     masked X at ``block_b`` rows and 64 columns; the CUDA body ignores
-    ``kmap``.  Bitwise :func:`nm_spmm` on the same masked X."""
+    ``kmap``.  Bitwise itself with every tile live on the same masked X;
+    within bf16 rounding of :func:`nm_spmm`, whose sparse body (n in {1,
+    2}) sums in another order (bitwise it at n = 4)."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_compressed("nm_spmm_masked", ke, values, meta_packed, n)
@@ -212,13 +227,19 @@ def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_sc
                           x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
+    # the fp8 single runs the body of its plan (sparse: K split over a
+    # cluster); int8 and the masked kernels keep the shared body (no plan)
+    plan = ()
+    if storage == torch.float8_e4m3fn and maps is None:
+        p = fp8_plan(b, ke, o, n)
+        plan = (int(p["body"] == "sparse"), p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
             x_q.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
             *(t.data_ptr() for t in kmask), _ptr(x_scale), _ptr(w_scale), _ptr(bias32),
             _ptr(requant_scale), y.data_ptr(), b, ke, o, n, ACT_CODES[epi.act], kind, bb,
-            _build.stream_of(x_q))
+            *plan, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -325,8 +346,10 @@ def nm_spmm_masked_fp8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: tor
                        requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`nm_spmm_fp8` with the block skip of :func:`nm_spmm_masked`
     (maps over the e4m3 rows; the CUDA body ignores ``kmap``).  Bitwise
-    :func:`nm_spmm_fp8` on the same rows; with ``requant_scale`` the flush requantizes as
-    :func:`nm_spmm_fp8_requant`'s."""
+    itself with every tile live on the same rows, and :func:`nm_spmm_fp8`
+    at n = 4; at n in {1, 2} within the fp8 class's limit of it (its sparse
+    body sums in another order).  With ``requant_scale`` the flush
+    requantizes as :func:`nm_spmm_fp8_requant`'s."""
     return _nm_spmm_quantized(nm_spmm_masked_fp8, torch.float8_e4m3fn, x_q, values,
                               meta_packed, x_scale, w_scale, n, epilogue, bias, out_dtype,
                               block_b, maps=(kmap, kmask),

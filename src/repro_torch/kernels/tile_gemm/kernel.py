@@ -12,6 +12,14 @@ with that flush (K0's remainder: the gelu MLP's ``w_in``).  K10:
 and ``tile_gemm_masked_fp8``, the single GEMMs with the activation-sparsity
 block skip (one source each, the same kernel bodies with ``MASKED``).
 
+``tile_gemm`` (bf16) runs one of two bodies of its own, chosen by
+:func:`plan` from ``(B, K, O)``: at few rows (decode, the engine's prefill
+chunks) the streaming body of ``csrc/nm_spmm_sp.cuh`` over the dense
+weight, its K loop split over a cluster; from the calibration forward's
+256 rows up the warp-specialised TMA + wgmma body of
+``csrc/tile_gemm_sm90.cuh``.  Every other kernel here runs the shared
+bodies of ``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
 ``::tile_gemm_dual`` (:382, float, int8 and fp8 branches), ``::tile_gemm_int8``
 (:448) and ``::tile_gemm_fp8`` (:482), and ``::tile_gemm_masked`` (:252,
@@ -36,13 +44,74 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant",
-           "tile_gemm_dual_int8", "tile_gemm_dual_int8_requant", "tile_gemm_fp8",
-           "tile_gemm_fp8_requant", "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant",
-           "tile_gemm_masked", "tile_gemm_masked_int8", "tile_gemm_masked_fp8", "ACT_CODES"]
+__all__ = ["tile_gemm", "plan", "cluster_split", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS",
+           "WIDE_MIN_COLS",
+           "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
+           "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
+           "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
+           "tile_gemm_masked_int8", "tile_gemm_masked_fp8", "ACT_CODES"]
 
 #: epilogue activation -> the C interface's act argument
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
+
+#: streaming multiprocessors of the H100 the plans are made for
+SMS = 132
+#: blocks of a streaming body (csrc/nm_spmm_sp.cuh, csrc/nm_spmm_sp_fp8.cuh)
+#: that share an SM (rings and inbox ~34-90 KB of shared memory)
+BLOCKS_PER_SM = 2
+#: the streaming bodies' largest cluster (a portable cluster size)
+MAX_SPLIT = 8
+#: rows of the wgmma body's tile (csrc/tile_gemm_sm90.cuh)
+WGMMA_ROWS = 128
+#: channels of the wgmma body's tile
+WGMMA_COLS = (128, 256)
+#: the fewest rows the wgmma body takes: from the calibration forward's 8 x
+#: 32 up it beat the streaming body at every internlm2-1.8b site on an H100
+#: (one 128 x 128 tile an SM outruns four 64-row streaming blocks)
+WGMMA_MIN_ROWS = 256
+#: the fewest rows and channels for the 128 x 256 tile: on an H100 it beat
+#: 128 x 128 at hubert-xlarge's (1280, 5120) site and phi-3-vision's (8192,
+#: 3072), tied at phi-3's other two (half the tiles: a round less of the
+#: body's fixed cost), and lost at hubert's two O = 1280 sites and at 256
+#: rows (16-32 wide tiles leave most SMs idle)
+WIDE_MIN_ROWS = 1024
+WIDE_MIN_COLS = 3072
+
+
+def cluster_split(tiles: int, steps: int, per_sm: int = BLOCKS_PER_SM) -> int:
+    """Blocks of one cluster that share the K loop (``steps`` 64-deep
+    steps) of an output tile, when the launch has ``tiles`` output tiles:
+    the largest power of two up to ``MAX_SPLIT`` and ``steps`` with tiles
+    x split <= ``per_sm`` x ``SMS``.  Block r takes steps [r * steps //
+    split, (r + 1) * steps // split)."""
+    split = 1
+    while 2 * split <= min(MAX_SPLIT, steps) and 2 * split * tiles <= per_sm * SMS:
+        split *= 2
+    return split
+
+
+def plan(b: int, k: int, o: int) -> dict:
+    """K1's body, tile and split for ``X (b, k) @ W (k, o)``.
+
+    ``wgmma`` (``csrc/tile_gemm_sm90.cuh``), from ``WGMMA_MIN_ROWS`` rows
+    (the calibration forward, hubert-xlarge's 4,000 prefill rows,
+    phi-3-vision's 1,024): a persistent, warp-specialised wgmma GEMM over
+    128-row tiles of 128 channels, or of 256 from ``WIDE_MIN_ROWS`` rows and
+    ``WIDE_MIN_COLS`` channels; split 1.  ``stream`` (``csrc/nm_spmm_sp.cuh`` over the
+    dense weight), below: 64-channel tiles of ``block_rows(b)`` rows (16 at
+    decode, 64 above), the K loop split over a cluster by
+    :func:`cluster_split` so a launch fills the card: two blocks an SM at
+    decode (internlm2-1.8b at B = 8: q, o and w_out 32 x 8 blocks, k and v
+    16 x 8), one at the 64-row tile (its deeper split was slower on an
+    H100).  Returns ``{"body", "rows", "cols", "split"}``; ``rows`` is what
+    the C interface takes as ``bm``."""
+    if b >= WGMMA_MIN_ROWS:
+        cols = WGMMA_COLS[b >= WIDE_MIN_ROWS and o >= WIDE_MIN_COLS]
+        return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": cols, "split": 1}
+    rows = _build.block_rows(b)
+    tiles = (o // _build.BLOCK_O) * -(-b // rows)
+    return {"body": "stream", "rows": rows, "cols": _build.BLOCK_O,
+            "split": cluster_split(tiles, k // _build.BLOCK_K, 2 if rows == 16 else 1)}
 
 
 def check_single_epilogue(kernel: str, epi: EpilogueSpec,
@@ -81,7 +150,9 @@ def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
               out_dtype: Optional[torch.dtype] = None,
               block_b: Optional[int] = None) -> torch.Tensor:
     """``Y (B, O) = epilogue(X (B, K) @ W (K, O))`` in X's dtype, or in
-    ``out_dtype=torch.float32`` (the sums a row-parallel shard all-reduces)."""
+    ``out_dtype=torch.float32`` (the sums a row-parallel shard all-reduces).
+    ``block_b`` is the dispatch plan's row block (checked); the body, its
+    tile and its K split are :func:`plan`'s."""
     epi = epilogue or EpilogueSpec()
     b, k = x.shape
     k2, o = w.shape
@@ -99,12 +170,13 @@ def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"tile_gemm: w is {w.dtype}, x is {x.dtype}")
     _build.check_tiles("tile_gemm", k, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x.device)
+    p = plan(b, k, o)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_tile_gemm(x.data_ptr(), w.data_ptr(),
                               None if bias32 is None else bias32.data_ptr(),
-                              y.data_ptr(), b, k, o, ACT_CODES[epi.act], out_f32, bb,
-                              _build.stream_of(x))
+                              y.data_ptr(), b, k, o, ACT_CODES[epi.act], out_f32, p["rows"],
+                              p["cols"], p["split"], _build.stream_of(x))
     tile_gemm.launches += 1
     _build.check(rc, "tile_gemm", lib)
     return y
@@ -138,8 +210,10 @@ def tile_gemm_masked(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
     masked X at ``block_b`` rows (``block_rows(B)`` by default) and 64
     columns; the CUDA body branches on ``kmask`` alone and ignores
     ``kmap`` (the TPU kernel's copy re-addressing), which it takes so that
-    the signature stays the JAX package's.  Bitwise :func:`tile_gemm` on
-    the same masked X."""
+    the signature stays the JAX package's.  Bitwise itself with every
+    tile live on the same masked X (dead tiles add exact zeros); within
+    bf16 rounding of :func:`tile_gemm`, whose own bodies sum in another
+    order."""
     epi = epilogue or EpilogueSpec()
     b, k = x.shape
     k2, o = w.shape

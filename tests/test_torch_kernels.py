@@ -34,9 +34,11 @@ the Pallas gather kernels is in ``tests/test_torch_gather.py``.  The
 masked kernels (K10, every class and loader) are held BITWISE to their
 unmasked kernels on the same masked X (ragged B, a fully dead row block
 whose bias still flushes) and to their plain versions under the same
-limits; the float compressed one, whose unmasked kernel (nm_spmm at n in
-{1, 2}) runs its own sparse-tensor-core body, BITWISE to itself with every
-tile live and within 1e-2 of nm_spmm; their CPU parity with the Pallas masked kernels is in
+limits; the float dense and compressed ones and the fp8 compressed one
+at n in {1, 2}, whose unmasked kernels (tile_gemm, nm_spmm, nm_spmm_fp8)
+run their own bodies, BITWISE to themselves with every tile live and within
+1e-2 of the unmasked kernel (requantized fp8 codes: one e4m3 step on at
+most 0.1% of them); their CPU parity with the Pallas masked kernels is in
 ``tests/test_torch_actsparse.py``.
 """
 
@@ -821,11 +823,13 @@ def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n
     its bias and activation."""
     case = _masked_case(cuda_device, b, k, o, layout, n, qdtype)
     maps = (case.kmap, case.kmask)
-    # the float compressed single (K2) runs its own sparse-tensor-core body,
-    # whose sums run in another order than the masked kernel's: the masked
-    # kernel is held bitwise to itself with every tile live (the same
-    # invariant: dead tiles add exact zeros), K2 within 1e-2
-    own_body = layout == "compressed" and qdtype is None
+    # the float dense and compressed singles (K1, K2) and the fp8 compressed
+    # single (n in {1, 2}) run their own bodies, whose sums run in another
+    # order than the masked kernel's: the masked kernel is held bitwise to
+    # itself with every tile live (the same invariant: dead tiles add exact
+    # zeros), the unmasked kernel within 1e-2
+    own_body = (qdtype is None and layout in ("dense", "compressed")) or \
+        (qdtype == "fp8" and layout == "compressed")
     bias = torch.randn(o, device=cuda_device)
     for spec, bv in ((EpilogueSpec(), None), (EpilogueSpec(bias=True), bias),
                      (EpilogueSpec(act="silu", bias=True), bias)):
@@ -864,7 +868,12 @@ def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n
         got = case.masked(case.x, *case.ops, *maps, *nn)
         raw = case.plain(case.x, *case.ops, *((None, None) if nn else ()), *nn)
         torch.cuda.synchronize()
-        assert torch.equal(got, raw)
+        if own_body:
+            all_live = (case.kmap, torch.ones_like(case.kmask))
+            assert torch.equal(got, case.masked(case.x, *case.ops, *all_live, *nn))
+            assert_scaled_close(got, raw, 1e-2)
+        else:
+            assert torch.equal(got, raw)
 
 
 @pytest.mark.cuda
@@ -877,10 +886,14 @@ def test_masked_kernels_skip_by_kmask_alone_on_card(cuda_device):
     x = torch.randn_like(case.x)                          # every tile live
     kmask = case.kmask.clone()
     got = tile_gemm_masked(x, case.ops[0], case.kmap, kmask)
-    want = tile_gemm(x * kmask.bool().repeat_interleave(64, 1)[:, :1536].repeat(8, 1)
-                     .to(x.dtype), case.ops[0])
+    zeroed = x * kmask.bool().repeat_interleave(64, 1)[:, :1536].repeat(8, 1).to(x.dtype)
+    # tile_gemm (K1) sums in another order than the masked kernel: the
+    # masked kernel on the zeroed X with every tile live is the bitwise
+    # yardstick, tile_gemm within 1e-2
+    want = tile_gemm_masked(zeroed, case.ops[0], case.kmap, torch.ones_like(kmask))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert_scaled_close(got, tile_gemm(zeroed, case.ops[0]), 1e-2)
     with pytest.raises(ValueError, match="block_maps at the kernel's blocks"):
         tile_gemm_masked(x, case.ops[0], case.kmap[:, :12], kmask[:, :12])
 
@@ -956,7 +969,17 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
     masked = getattr(mod, f"{base}_masked_{qdtype}")
     spec = EpilogueSpec(act="gelu", bias=True)
     got = masked(xm, *ops, *maps, *nn, xms, ws, epilogue=spec, bias=bias, requant_scale=rq)
-    assert torch.equal(got, fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias))
+    unmasked = fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias)
+    if layout == "compressed" and qdtype == "fp8":
+        # nm_spmm_fp8's sparse body sums in another order: the masked kernel's
+        # codes are its all-live codes bitwise, one e4m3 step at most off the
+        # unmasked kernel's on at most 0.1% of them
+        all_live = (maps[0], torch.ones_like(maps[1]))
+        assert torch.equal(got, masked(xm, *ops, *all_live, *nn, xms, ws, epilogue=spec,
+                                       bias=bias, requant_scale=rq))
+        assert _fp8_step_share(got, unmasked) <= 1e-3
+    else:
+        assert torch.equal(got, unmasked)
     with pytest.raises(ValueError, match="requant_scale"):
         getattr(mod, f"{base}_{qdtype}")(xq, *ops, xs, ws, *nn,
                                          epilogue=EpilogueSpec(act="gelu", requant=qdtype))
