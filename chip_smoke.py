@@ -53,11 +53,11 @@ Phases, each of which fails the run on a miss:
              on at most REQUANT_SHARE of them.  The library column is
              torch._scaled_mm (cuBLASLt fp8, row-wise scales, bf16 out, B
              padded to 16, W column-major, made outside the timed region).
-             nm_spmm_fp8 at n in {1, 2} (the body nm_spmm/kernel.py::fp8_plan
-             picks: the sparse one at decode and where the shared body's
-             blocks would not fill half the card) is also timed in turns
-             with gemm_fp8.cu's shared body (``earlier_ms``) and its raw
-             accumulator must be the same bits on a second launch.
+             nm_spmm_fp8 at n in {1, 2} and tile_gemm_fp8 (the bodies
+             nm_spmm/kernel.py::fp8_plan and tile_gemm/kernel.py::fp8_plan
+             pick, printed) are also timed in turns with gemm_fp8.cu's
+             shared body (``earlier_ms``) and their raw accumulators must be
+             the same bits on a second launch.
    gather  — the lane-aligned gather kernels (K8 nm_spmm_gather_bk, K9
              nm_spmm_gather_dual_bk) in bf16, int8 and fp8, with the
              quantized duals' requantizing flush, at the same (K, O), n in
@@ -69,24 +69,27 @@ Phases, each of which fails the run on a miss:
              library column is torch.matmul / torch._int_mm /
              torch._scaled_mm on the PRE-GATHERED X (the gather runs
              outside the timed region; the duals: two calls, gate and up).
+             The bf16 K8 (the body nm_spmm_gather/kernel.py::plan picks,
+             printed) is also timed in turns with gemm.cu's shared body
+             (``earlier_ms``) and must be the same bits on a second launch.
    masked  — the K10 masked kernels (tile_gemm_masked, nm_spmm_masked,
              nm_spmm_gather_bk_masked, each in bf16, int8 and fp8) at the
              MoE expert shapes ((K, O) = (1536, 4096) and (4096, 1536)), B
              in {8, 64}, n in {1, 2}, with 0%, ~40% and 100% of the row
              block's K steps live: BITWISE their unmasked kernels on the
-             same masked X (tile_gemm_masked, nm_spmm_masked and
-             nm_spmm_masked_fp8 at n in {1, 2}, whose unmasked kernels run
-             their own bodies and sum in another order: BITWISE themselves
-             with every tile live, within 1e-2 of the unmasked kernel),
+             same masked X (every bf16 one, tile_gemm_masked_fp8 and
+             nm_spmm_masked_fp8, whose unmasked kernels run their own
+             bodies and sum in another order: BITWISE themselves with
+             every tile live, within 1e-2 of the unmasked kernel),
              within the class's limit of
              their plain versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
              bound counting the live tiles only.
              The quantized ones also run the requant:<dtype> flush (gelu)
              at ~40% live, bitwise the unmasked *_requant kernel's codes
-             (nm_spmm_masked_fp8: bitwise its own all-live codes, and one
-             e4m3 step at most off the unmasked kernel's on at most
-             REQUANT_SHARE of them).
+             (tile_gemm_masked_fp8, nm_spmm_masked_fp8: bitwise their own
+             all-live codes, and one e4m3 step at most off the unmasked
+             kernel's on at most REQUANT_SHARE of them).
    requant — K0's remainder, the six single GEMMs with the requant:<dtype>
    singles   flush (tile_gemm / nm_spmm / nm_spmm_gather_bk x int8 / fp8
              ``*_requant``) at gemma3-1b's gelu w_in shape (K, O) = (1152,
@@ -96,7 +99,8 @@ Phases, each of which fails the run on a miss:
              differ by an ulp).  Timed beside the unfused path the port ran
              before (the same kernel storing bf16, then the static quantize
              pass) and the library call on the same operands;
-             nm_spmm_fp8_requant also beside its first body (``earlier_ms``).
+             nm_spmm_fp8_requant and tile_gemm_fp8_requant also beside their
+             first body (``earlier_ms``).
    attn    — flash_attention against its plain version at the
              calibration forward's shape (8 x 32 tokens) and at prefill
              shapes (T = 512, 2048), bf16: 16 query heads over 8 KV heads of
@@ -177,8 +181,9 @@ Phases, each of which fails the run on a miss:
              busy share of one profiled forward; hubert's bf16 dense and
              2:4 runs also the latency and busy share of the same forward on
              the first flash_attention, tile_gemm and nm_spmm bodies
-             (``earlier``).  tile_gemm's prefill shapes are timed in turns
-             with its first body too.
+             (``earlier``).  The prefill shapes of tile_gemm, nm_spmm,
+             tile_gemm_fp8 and nm_spmm_gather_bk are timed in turns with
+             their first bodies too.
    k11     — the K-major gather K11 (nm_spmm_gather bf16 in / fp32 out,
              nm_spmm_gather_int8 and _fp8, each raw and scaled) at the
              row-parallel sites' local shapes of a (1, 2) mesh of
@@ -276,6 +281,8 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "tile_gemm": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
+           "tile_gemm_fp8": "src/repro_torch/kernels/csrc/tile_gemm_sm90_fp8.cuh",
+           "nm_spmm_gather_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
            "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -429,13 +436,15 @@ class _EarlierLib:
 
 @contextlib.contextmanager
 def earlier_kernels():
-    """Inside, the flash_attention, nm_spmm, tile_gemm and nm_spmm_fp8
-    wrappers launch the port's first bodies (``flash_attention_wmma.cu``;
-    the shared bodies of gemm.cu and gemm_fp8.cu at every n and row count,
-    ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
-    at the row block the first form took: 16 up to 16 rows, else 64)
-    instead of the current ones: the ``earlier_ms`` yardstick, through the
-    same wrappers and checks."""
+    """Inside, the flash_attention, nm_spmm, tile_gemm, nm_spmm_fp8,
+    tile_gemm_fp8 (and _requant) and nm_spmm_gather_bk wrappers launch the
+    port's first bodies (``flash_attention_wmma.cu``; the shared bodies of
+    gemm.cu and gemm_fp8.cu at every n and row count, ``vg_nm_spmm_tiled``,
+    ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
+    ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``, at the row
+    block the first form took: 16 up to 16 rows, else 64) instead of the
+    current ones: the ``earlier_ms`` yardstick, through the same wrappers
+    and checks."""
     from repro_torch.kernels import _build
 
     gemm = _build.library("gemm.cu")
@@ -451,10 +460,19 @@ def earlier_kernels():
 
     def nm_spmm_fp8_tiled(*args):   # no plan (body, split: args[-3], args[-2])
         return fp8.vg_nm_spmm_fp8_tiled(*args[:-3], args[-1])
+
+    def tile_gemm_fp8_tiled(*args):   # (.., bm, body, bn, split, stream): the plan dropped
+        return fp8.vg_tile_gemm_fp8_tiled(*args[:12], 16 if args[12] == 16 else 64, args[-1])
+
+    def nm_spmm_gather_bk_tiled(*args):   # (.., bm, body, bn, split, stream): likewise
+        return gemm.vg_nm_spmm_gather_bk_tiled(*args[:11], 16 if args[11] == 16 else 64,
+                                               args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
-                                          vg_tile_gemm=tile_gemm_tiled)
-    _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled)
+                                          vg_tile_gemm=tile_gemm_tiled,
+                                          vg_nm_spmm_gather_bk=nm_spmm_gather_bk_tiled)
+    _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
+                                              vg_tile_gemm_fp8=tile_gemm_fp8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -765,9 +783,9 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
                 lib_fn, lib_ops = library(xq, xs, lfs)
                 kc = k * n // 4
                 extra = {}
-                if fp8 and n < 4:     # the sparse body, beside the first one
+                if fp8:     # the redesigned bodies, beside the first one
                     t_run, extra["earlier_ms"] = in_turns(run, ops)
-                    extra["plan"] = nk.fp8_plan(b, k, o, n)
+                    extra["plan"] = tk.fp8_plan(b, k, o) if n == 4 else nk.fp8_plan(b, k, o, n)
                     again = run(xq, None, lfs[0])
                     torch.cuda.synchronize()
                     if not torch.equal(raw, again):
@@ -925,10 +943,22 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                 lib_fn, lib_ops = library(x, xs, lfs, n)
                 kc = k * n // 4
                 xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
+                extra = {}
+                if qdtype is None:     # the redesigned bodies, beside the first one
+                    got = run(*ops[0])
+                    again = run(*ops[0])
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        fail(f"nm_spmm_gather_bk B={b} K={k} O={o} n={n}: not the same bits "
+                             f"on a second launch")
+                    t_run, extra["earlier_ms"] = in_turns(run, ops)
+                    extra["plan"] = gk.plan(b, k, o, n)
+                else:
+                    t_run = time_ms(run, ops)
                 record(f"nm_spmm_gather_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                       time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+                       t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                        xbytes + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o, peak=peak,
-                       exact=int8, library="pre-gathered X")
+                       exact=int8, library="pre-gathered X", **extra)
                 del lfs, ops, lib_ops
             # the gate-up pair at (d, ff), two index streams
             k, o = d, ff
@@ -1192,8 +1222,11 @@ def requant_single_phase(cfg, gen, card_line, rows, qdtype):
             else:
                 lib_fn, lib_ops = int_mm_padded, [(x_, lf["lib"]) for x_, lf in zip(xl, lfs)]
             extra = {}
-            if name == "nm_spmm_fp8_requant":    # the sparse body, beside the first one
+            if name in ("nm_spmm_fp8_requant", "tile_gemm_fp8_requant"):
+                # the redesigned bodies, beside the first one
                 t_run, extra["earlier_ms"] = in_turns(run, ops)
+                extra["plan"] = (km.fp8_plan(b, k, o, requant=True) if layout == "dense"
+                                 else km.fp8_plan(b, k, o, n))
             else:
                 t_run = time_ms(run, ops)
             record(name, b, k, o, n, got, want, t_run, time_ms(plain, ops),
@@ -1307,10 +1340,18 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         ref_mod, base_plain = LAYOUT_MODULES[layout]
         masked_fn = getattr(mod, f"{base}{sfx}")
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
-        # the bodies that sum in another order than the masked kernel: K1 (bf16
-        # dense), K2 (bf16 compressed) and nm_spmm_fp8 (compressed, n in {1, 2})
-        own_body = (qdtype is None and layout in ("dense", "compressed")) or \
-            (fp8 and layout == "compressed")
+        def own_body_at(b, k, o, requant=False):
+            """Whether the unmasked kernel sums in another order than the
+            masked one: K1, K2 (bf16), nm_spmm_fp8 (n in {1, 2}), and K8
+            (bf16) and tile_gemm_fp8 where their plans leave the shared body."""
+            if (layout == "compressed" and qdtype in (None, FP8)) or \
+                    (layout == "dense" and qdtype is None):
+                return True
+            if layout == "gather" and qdtype is None:
+                return gk.plan(b, k, o, n)["body"] != "shared"
+            if layout == "dense" and fp8:
+                return tk.fp8_plan(b, k, o, requant=requant)["body"] != "shared"
+            return False
         ref_fn = getattr(importlib.import_module(f"repro_torch.kernels.{ref_mod}.ref"),
                          f"{ref_mod}_masked{'_quantized' if qdtype else ''}_ref")
         ref_kw = {**({} if layout == "gather" else {"block_k": 64}),
@@ -1320,6 +1361,7 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
             lfs = [leaf(layout, k, o, n) for _ in range(copies_for(wbytes(layout, k, o, n)))]
             for b in (8, 64):
                 bb = _build.block_rows(b)
+                own_body = own_body_at(b, k, o)
                 nk_ = k // step
                 x_full = torch.randn((b, k), generator=gen, device=dev).to(bf16)
                 unmasked_ms = plain_ms = library_ms = None
@@ -1388,18 +1430,19 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                         unmasked = getattr(mod, f"{base_plain}{sfx}_requant")(
                             x, *ops_of(layout, lfs[0]), xs, lfs[0]["ws"], *nn, rq,
                             epilogue=gelu)
+                        own_codes = own_body_at(b, k, o, requant=True)
                         same = masked_fn(x, *ops_of(layout, lfs[0]), maps[0],
                                          torch.ones_like(maps[1]), *nn, xs, lfs[0]["ws"],
-                                         epilogue=gelu, requant_scale=rq) if own_body \
+                                         epilogue=gelu, requant_scale=rq) if own_codes \
                             else unmasked
                         torch.cuda.synchronize()
                         if codes.dtype != qdtype or not torch.equal(as_bytes(codes),
                                                                     as_bytes(same)):
                             fail(f"{base}{sfx} B={b} K={k} O={o} n={n}: the requantizing "
                                  f"flush is not bitwise the "
-                                 f"{'all-live codes of the masked' if own_body else 'unmasked'}"
+                                 f"{'all-live codes of the masked' if own_codes else 'unmasked'}"
                                  f" requant kernel's")
-                        if own_body:    # the sparse body's codes: one e4m3 step apart at most
+                        if own_codes:   # its own body's codes: one e4m3 step apart at most
                             delta = e4m3_steps(codes, unmasked)
                             step_share = (delta == 1).float().mean().item()
                             if delta.max().item() > 1 or step_share > REQUANT_SHARE:
@@ -2324,8 +2367,13 @@ def prefill_kernel_phase(base_cfg, prefill_runs, batch_shape, gen, card_line, ro
                 fail(f"{name}: the wrapper did not count its launch")
             want = plain(*ops[0])
             extra = {"bitwise": bool(torch.equal(got, want))} if int8 and site == "gelu" else {}
-            if name in ("nm_spmm", "tile_gemm"):   # the redesigned bodies, beside the first
+            if name in ("nm_spmm", "tile_gemm", "tile_gemm_fp8", "nm_spmm_gather_bk"):
+                # the redesigned bodies, beside the first
                 t_run, extra["earlier_ms"] = in_turns(run, ops, calls=8)
+                if name == "tile_gemm_fp8":
+                    extra["plan"] = km.fp8_plan(m, k, o)
+                elif name == "nm_spmm_gather_bk":
+                    extra["plan"] = km.plan(m, k, o, n)
             else:
                 t_run = time_ms(run, ops, calls=8)
             record(name, m, k, o, n, got, want, t_run,
@@ -2851,11 +2899,16 @@ def main():
                         (f"nm_spmm_gather_dual_bk_{q}", 2, [(d, ff)]),
                         (f"nm_spmm_gather_dual_bk_{q}_requant", 2, [(d, ff)])]
     moe_ff, moe_d = moe_cfg.d_ff, moe_cfg.d_model
+    # the bodies each redesigned kernel's plan picks from (its decode rows
+    # run the first, its prefill rows the last; K8's gather pass is gemm.cu's)
+    bodies = {"tile_gemm": (SOURCES["nm_spmm"], SOURCES["tile_gemm"]),
+              "tile_gemm_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["tile_gemm_fp8"]),
+              "nm_spmm_gather_bk": (SOURCES["nm_spmm"], SOURCES["float"], SOURCES["tile_gemm"])}
     for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
             "name": name, "route": "cuda",
-            "source": SOURCES[name if name in ("nm_spmm", "tile_gemm", "nm_spmm_fp8")
+            "source": SOURCES[name if name in SOURCES
                               else "fp8" if "_fp8" in name
                               else "int8" if "_int8" in name else "float"],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -2870,13 +2923,16 @@ def main():
         if name.endswith("_requant"):
             entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
                                             if r["kernel"] == name)
-        if name == "tile_gemm":
-            # K1's many-row body: hubert-xlarge's three prefill sites, 4000 rows
-            pre = [r for r in rows if r["kernel"] == "tile_gemm"
-                   and r.get("prefill") == hubert_cfg.name]
+        if name in bodies:
+            # the many-row body: hubert-xlarge's prefill sites at 4000 rows (K8:
+            # and phi-3-vision's at 1024)
+            pre = [r for r in rows if r["kernel"] == name and "prefill" in r
+                   and r["site"] != "dual"]
+            entry["bodies"] = bodies[name]
             entry["prefill"] = {
-                "measured_as": "hubert-xlarge's (K, O) sites at 4000 rows",
-                "sites": [[r["K"], r["O"]] for r in pre],
+                "measured_as": "the prefill sites (K, O) at their rows "
+                               "(hubert-xlarge 4000, phi-3-vision 1024)",
+                "sites": [[r["prefill"], r["B"], r["K"], r["O"]] for r in pre],
                 **{key: [r[key] for r in pre]
                    for key in ("kernel_ms", "earlier_ms", "library_ms", "bound_ms")}}
         entries.append(entry)
@@ -2906,7 +2962,8 @@ def main():
             r = next(r for r in rows if (r["kernel"], r["B"], r.get("n")) == (name, 8, n))
             entries.append({
                 "name": name, "route": "cuda",
-                "source": SOURCES["nm_spmm_fp8" if name == "nm_spmm_fp8_requant" else q],
+                "source": SOURCES[{"nm_spmm_fp8_requant": "nm_spmm_fp8",
+                                   "tile_gemm_fp8_requant": "nm_spmm_fp8"}.get(name, q)],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -69,10 +69,15 @@
 // sparse tensor cores, nm_spmm_sp.cuh (mma.sp, K split across a cluster);
 // tile_gemm (K1) runs the same streaming body over the dense weight at few
 // rows and tile_gemm_sm90.cuh's TMA + wgmma body at many, as
-// tile_gemm/kernel.py's planner picks.  vg_nm_spmm_tiled and
-// vg_tile_gemm_tiled keep the shared body below for them, the forms the
-// port ran first, as yardsticks.  nm_spmm at n = 4, the duals, the masked
-// singles and the gather loaders stay on the shared body.
+// tile_gemm/kernel.py's planner picks; nm_spmm_gather_bk (K8) at n in {1,
+// 2} runs those two bodies over its dense values with the X side gathered
+// (the stream selecting each step's X tile; from 256 rows a gather pass in
+// front of the wgmma body, gather_then_k1 below), as
+// nm_spmm_gather/kernel.py::plan picks.  vg_nm_spmm_tiled,
+// vg_tile_gemm_tiled and vg_nm_spmm_gather_bk_tiled keep the shared body
+// below for them, the forms the port ran first, as yardsticks.  nm_spmm at
+// n = 4, the duals, the masked singles, K8 at n = 4 and K11 stay on the
+// shared body.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
@@ -584,6 +589,76 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K8's many-row body (nm_spmm_gather/kernel.py::plan from 256 rows): a
+// gather pass writes the compact X, xg (B, K_c) = gather(X (B, K_eff), idx),
+// then K1's TMA + wgmma body (tile_gemm_sm90.cuh) contracts it with the
+// values as it contracts a dense weight.  Thread u of the pass writes
+// columns 8 (u % (K_c / 8)) .. + 7 of row u / (K_c / 8) as one 16-byte
+// store, from the 16-byte chunks of their M-blocks (2:4: two chunks, 1:4:
+// four) and sp::pick_half's select (an index outside [0, 4) gives +0): X is
+// read once, coalesced, and xg (half of X's bytes at 2:4) goes through L2
+// to the GEMM.  Two fused forms were measured first on an H100 and were
+// slower at every timed shape: the consumers selecting their A fragments in
+// registers from a TMA-loaded span (wgmma with A from registers; the span
+// is twice the gathered bytes at 2:4, and the ring held 3 stages of it),
+// and warps of the producer selecting the A tile into shared memory.
+template <int G>
+__global__ void __launch_bounds__(256)
+gather_columns_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
+                      __nv_bfloat16* __restrict__ xg, int b, int kc) {
+  const int per_row = kc / 8;
+  const long long u = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (u >= static_cast<long long>(b) * per_row) return;
+  const int row = static_cast<int>(u / per_row), j0 = static_cast<int>(u % per_row) * 8;
+  const int4 i0 = __ldg(reinterpret_cast<const int4*>(idx + j0));
+  const int4 i1 = __ldg(reinterpret_cast<const int4*>(idx + j0 + 4));
+  const int e[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+  const uint4* src =
+      reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * (kc / G * 4) + j0 / G * 4);
+  uint32_t w[16 / G];
+#pragma unroll
+  for (int c = 0; c < 4 / G; ++c) {
+    const uint4 v = __ldg(src + c);
+    w[4 * c] = v.x;
+    w[4 * c + 1] = v.y;
+    w[4 * c + 2] = v.z;
+    w[4 * c + 3] = v.w;
+  }
+  uint32_t out[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (G == 2)      // the pair's M-block: words 2q, 2q + 1
+      out[q] = sp::pick_half(w[2 * q], w[2 * q + 1], e[2 * q], 0) |
+               sp::pick_half(w[2 * q], w[2 * q + 1], e[2 * q + 1], 1);
+    else                       // blocks 2q, 2q + 1: words 4q .. + 3
+      out[q] = sp::pick_half(w[4 * q], w[4 * q + 1], e[2 * q], 0) |
+               sp::pick_half(w[4 * q + 2], w[4 * q + 3], e[2 * q + 1], 1);
+  }
+  *reinterpret_cast<uint4*>(xg + static_cast<size_t>(row) * kc + j0) =
+      make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// the pass into the caller's scratch xg, then K1's body with bn channels a tile
+int gather_then_k1(int n, int bn, const void* x, const void* values, const void* idx, void* xg,
+                   const void* bias, void* y, int b, int ke, int o, int act, int out_f32,
+                   void* stream) {
+  const int kc = ke * n / 4;
+  if (b <= 0 || ke <= 0 || o <= 0 || (n != 1 && n != 2) || (ke * n) % 4 != 0 ||
+      kc % BK != 0 || xg == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long units = static_cast<long long>(b) * (kc / 8);
+  const int blocks = static_cast<int>((units + 255) / 256);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int* ix = static_cast<const int*>(idx);
+  __nv_bfloat16* gb = static_cast<__nv_bfloat16*>(xg);
+  if (n == 2) gather_columns_kernel<2><<<blocks, 256, 0, s>>>(xb, ix, gb, b, kc);
+  else gather_columns_kernel<1><<<blocks, 256, 0, s>>>(xb, ix, gb, b, kc);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return tg::launch_bn(bn, xg, values, bias, y, b, kc, o, act, out_f32, stream);
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function launches on the
@@ -665,10 +740,35 @@ int vg_nm_spmm_dual(const void* x, const void* values_g, const void* meta_g,
                          k, o, ACT_NONE, stream);
 }
 
-// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
+// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of
+// values.  nm_spmm_gather/kernel.py::plan's body: 0, the shared body (any n;
+// bm in {16, 64}, bn 64, split 1); 1, the stream over the values with the
+// gathered X (nm_spmm_sp.cuh; n in {1, 2}, bm in {16, 64}, bn 64), K_c
+// split over `split` blocks of a cluster; 2, the gather pass into
+// `scratch` (B, K_c) bf16, then K1's wgmma body over it (n in {1, 2}, bm
+// 128, bn 128 | 256, split 1).  scratch is read only by body 2.
 int vg_nm_spmm_gather_bk(const void* x, const void* values, const void* idx, const void* bias,
                          void* y, int b, int k, int o, int n, int act, int out_f32, int bm,
-                         void* stream) {
+                         int body, int bn, int split, void* scratch, void* stream) {
+  if (body == 0) {
+    if (bn != 64 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, bias, y, b, k,
+                                o, act, stream, out_f32);
+  }
+  if (body == 1 && bn == 64)
+    return sp::launch_gather(n, bm, x, values, idx, bias, y, b, k, o, act, out_f32, split,
+                             stream);
+  if (body == 2 && bm == tg::BM && split == 1)
+    return gather_then_k1(n, bn, x, values, idx, scratch, bias, y, b, k, o, act, out_f32,
+                          stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body at any n: the first form of nm_spmm_gather_bk, timed
+// beside the current bodies (not on any path)
+int vg_nm_spmm_gather_bk_tiled(const void* x, const void* values, const void* idx,
+                               const void* bias, void* y, int b, int k, int o, int n, int act,
+                               int out_f32, int bm, void* stream) {
   return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, bias, y, b, k,
                               o, act, stream, out_f32);
 }

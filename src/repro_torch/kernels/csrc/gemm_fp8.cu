@@ -33,9 +33,14 @@
 //
 // nm_spmm_fp8 at n in {1, 2} runs its own body on the sparse tensor
 // cores, nm_spmm_sp_fp8.cuh (mma.sp m16n8k64 e4m3, K split across a
-// cluster), flushed by SingleFlush below in the same order as this file's
-// body; vg_nm_spmm_fp8_tiled keeps the shared body for it, the form the
-// port ran first, as a yardstick.
+// cluster), and tile_gemm_fp8 (with its requantizing form) runs the two
+// bodies tile_gemm/kernel.py::fp8_plan picks: below 256 rows the same
+// stream over the dense weight (mma.sync m16n8k32, split-K), from 256 rows
+// tile_gemm_sm90_fp8.cuh (TMA + wgmma m64n128k32 e4m3, the weight tile
+// transposed on chip); each flushed by SingleFlush below in the same order
+// as this file's body.  vg_nm_spmm_fp8_tiled and vg_tile_gemm_fp8_tiled
+// keep the shared body for them, the forms the port ran first, as
+// yardsticks; the masked twins stay on it.
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -108,8 +113,8 @@
 // design does about it: e4m3 halves the bf16 weight bytes, the N:M
 // loader moves n/4 of them plus 2 bits per kept value and expands on
 // chip, loads are 8- and 16-byte vectors.  As in gemm_int8.cu the launch
-// is O/64 blocks with a serial K loop (the sparse body splits K): split-K,
-// TMA rings and wgmma in this shared body are later work.
+// is O/64 blocks with a serial K loop (the streaming bodies split K, the
+// wgmma body runs a TMA ring): this shared body keeps none of that.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -121,6 +126,7 @@
 #include "flush.cuh"
 #include "kmask.cuh"
 #include "nm_spmm_sp_fp8.cuh"
+#include "tile_gemm_sm90_fp8.cuh"
 
 namespace {
 
@@ -387,18 +393,11 @@ struct NMLoader {
   }
 };
 
-// d += A (16 x 32, row) * B (32 x 8, col), e4m3 in, fp32 out.  Fragments
-// (lane = 4 * grp + tig): a0 = A[grp][4tig..+3], a1 = A[grp+8][..],
+// d += A (16 x 32, row) * B (32 x 8, col), e4m3 in, fp32 out (spf8::mma_e4m3).
+// Fragments (lane = 4 * grp + tig): a0 = A[grp][4tig..+3], a1 = A[grp+8][..],
 // a2 = A[grp][16+4tig..+3], a3 = A[grp+8][16+..]; b0 = B[4tig..+3][grp],
 // b1 = B[16+4tig..+3][grp]; d0, d1 = D[grp][2tig, +1], d2, d3 = D[grp+8][..].
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using spf8::mma_e4m3;
 
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -422,8 +421,9 @@ __device__ __forceinline__ uint8_t requant_e4m3(float y, float scale) {
 }
 
 // The flush of a single GEMM from its summed fp32 accumulator, in the
-// order of gemm_fp8_kernel's (the sparse body, nm_spmm_sp_fp8.cuh, calls it
-// once per output after its split-K sum).
+// order of gemm_fp8_kernel's (the streaming body, nm_spmm_sp_fp8.cuh, calls
+// it once per output after its split-K sum; the wgmma body,
+// tile_gemm_sm90_fp8.cuh, four consecutive channels at a time).
 struct SingleFlush {
   const float* xs;
   const float* ws;
@@ -444,6 +444,46 @@ struct SingleFlush {
     if (out_kind == OUT_E4M3) static_cast<uint8_t*>(y)[at] = requant_e4m3(v, *rq);
     else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
     else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+  }
+
+  // channels col .. col + 3 of a row (col a multiple of 4): the same
+  // operations per element, vector loads of the scales and bias, one store
+  __device__ __forceinline__ void flush4(int row, int col, float4 acc) const {
+    const size_t at = (size_t)row * o + col;
+    if (out_kind == OUT_RAW) {
+      *reinterpret_cast<float4*>(static_cast<float*>(y) + at) = acc;
+      return;
+    }
+    const float xr = xs[row];
+    const float4 w4 = *reinterpret_cast<const float4*>(ws + col);
+    float v[4] = {dequant(acc.x, xr, w4.x), dequant(acc.y, xr, w4.y), dequant(acc.z, xr, w4.z),
+                  dequant(acc.w, xr, w4.w)};
+    if (bias != nullptr) {
+      const float4 b4 = *reinterpret_cast<const float4*>(bias + col);
+      v[0] = __fadd_rn(v[0], b4.x);
+      v[1] = __fadd_rn(v[1], b4.y);
+      v[2] = __fadd_rn(v[2], b4.z);
+      v[3] = __fadd_rn(v[3], b4.w);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = apply_act(v[e], act);
+    if (out_kind == OUT_E4M3) {
+      const float s = *rq;
+      *reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(y) + at) =
+          static_cast<uint32_t>(requant_e4m3(v[0], s)) |
+          static_cast<uint32_t>(requant_e4m3(v[1], s)) << 8 |
+          static_cast<uint32_t>(requant_e4m3(v[2], s)) << 16 |
+          static_cast<uint32_t>(requant_e4m3(v[3], s)) << 24;
+    } else if (out_kind == OUT_F32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(y) + at) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + at) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    }
   }
 };
 
@@ -590,6 +630,22 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
       }
 }
 
+// The checks of a single GEMM's flush (raw: no scales and no epilogue;
+// scaled: both scales; the requantized store: the consumer's scale, and
+// only it reads one) and the flush itself; false when they fail.
+inline bool single_flush(const void* xs, const void* ws, const void* bias, const void* rq,
+                         void* y, int o, int act, int out_kind, SingleFlush& flush) {
+  const bool raw = out_kind == OUT_RAW;
+  if (act < 0 || act > 2 || out_kind < 0 || out_kind > 3 || raw != (xs == nullptr) ||
+      raw != (ws == nullptr) || (raw && (act != ACT_NONE || bias != nullptr)) ||
+      (out_kind == OUT_E4M3) != (rq != nullptr))
+    return false;
+  flush = SingleFlush{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                      static_cast<const float*>(bias), static_cast<const float*>(rq), y, o, act,
+                      out_kind};
+  return true;
+}
+
 template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 int launch(const void* x, const void* ig, const void* iu, const void* wg, const void* mg,
            const void* wu, const void* mu, const void* kmask, const void* xs, const void* wsg,
@@ -700,9 +756,36 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // gather).
 extern "C" {
 
+// tile_gemm/kernel.py::fp8_plan's body: 0, the shared body (bm in {16,
+// 64}, bn 64, split 1); 1, the stream over the dense weight
+// (nm_spmm_sp_fp8.cuh, N = 4; bm in {16, 64}, bn 64), K split over `split`
+// blocks of a cluster (a power of two up to min(8, k / 64)); 2, the wgmma
+// body (tile_gemm_sm90_fp8.cuh; bm 128, bn 128, split 1)
 int vg_tile_gemm_fp8(const void* x, const void* w, const void* xs, const void* ws,
                      const void* bias, const void* rq, void* y, int b, int k, int o, int act,
-                     int out_kind, int bm, void* stream) {
+                     int out_kind, int bm, int body, int bn, int split, void* stream) {
+  if (body == 0) {
+    if (bn != 64 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
+                                         nullptr, xs, ws, nullptr, bias, rq, y, b, k, k, o, act,
+                                         out_kind, stream);
+  }
+  SingleFlush flush;
+  if (!single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1 && bn == 64)
+    return spf8::launch_nm(4, bm, x, w, nullptr, flush, b, k, o, split, stream);
+  if (body == 2 && bm == tgf8::BM && bn == tgf8::BN && split == 1)
+    return tgf8::launch(x, w, flush, b, k, o, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body: the first form of tile_gemm_fp8, timed beside the
+// current bodies (not on any path: vg_tile_gemm_fp8 reaches the same body
+// through its plan)
+int vg_tile_gemm_fp8_tiled(const void* x, const void* w, const void* xs, const void* ws,
+                           const void* bias, const void* rq, void* y, int b, int k, int o,
+                           int act, int out_kind, int bm, void* stream) {
   return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
                                        nullptr, xs, ws, nullptr, bias, rq, y, b, k, k, o, act,
                                        out_kind, stream);
@@ -738,15 +821,10 @@ int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const vo
     return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
                             bias, rq, y, b, k, o, act, out_kind, stream);
   }
-  if (body != 1 || (n != 1 && n != 2)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool raw = out_kind == OUT_RAW;
-  if (act < 0 || act > 2 || out_kind < 0 || out_kind > 3 || raw != (xs == nullptr) ||
-      raw != (ws == nullptr) || (raw && (act != ACT_NONE || bias != nullptr)) ||
-      (out_kind == OUT_E4M3) != (rq != nullptr))
+  SingleFlush flush;
+  if (body != 1 || (n != 1 && n != 2) ||
+      !single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SingleFlush flush{static_cast<const float*>(xs), static_cast<const float*>(ws),
-                          static_cast<const float*>(bias), static_cast<const float*>(rq), y, o,
-                          act, out_kind};
   return spf8::launch_nm(n, bm, x, values, meta, flush, b, k, o, split, stream);
 }
 

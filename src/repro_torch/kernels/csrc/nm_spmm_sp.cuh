@@ -1,8 +1,10 @@
 // nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2};
 // and the same streaming body over a dense weight (N = 4): K1's few-row
-// tile_gemm.  Included by gemm.cu, whose vg_nm_spmm and vg_tile_gemm
-// launch it; every other GEMM of gemm.cu keeps the shared gemm_kernel
-// body, and tile_gemm's many-row body is tile_gemm_sm90.cuh's.
+// tile_gemm, and, with the X side gathered (G = n in {1, 2}), K8's few-row
+// nm_spmm_gather_bk over its dense values.  Included by gemm.cu, whose
+// vg_nm_spmm, vg_tile_gemm and vg_nm_spmm_gather_bk launch it; every other
+// GEMM of gemm.cu keeps the shared gemm_kernel body, and the many-row
+// bodies of tile_gemm and nm_spmm_gather_bk are tile_gemm_sm90.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   nm_spmm    repro/kernels/nm_spmm/kernel.py::nm_spmm (_spmm_accumulate,
@@ -10,6 +12,9 @@
 //   tile_gemm  repro/kernels/tile_gemm/kernel.py::tile_gemm (_gemm_kernel),
 //              at the row counts that cannot fill the card (decode, the
 //              engine's prefill chunks; the planner in tile_gemm/kernel.py)
+//   nm_spmm_gather_bk  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk
+//              (_gather_bk_kernel), float, n in {1, 2}, at the same row counts
+//              (nm_spmm_gather/kernel.py::plan)
 //
 // Y (B, O) = X (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16, O)).
 // The TPU kernel decompresses each tile with a compare-and-select and
@@ -64,6 +69,17 @@
 // tile of 8 warps was faster at two of hubert's sites and slower at B =
 // 64 and at decode in a development run, so it was left out.  Not done
 // here: TMA, wgmma's sparse form, a persistent schedule.
+//
+// The gathered X (G = n, K8).  values (K_c, O) is a dense weight, so the
+// body is the N = 4 stream over it with only the X side changed: a stage
+// carries the step's 64 indices and the span of 256 / n X columns its
+// compressed rows read (cp.async, rows at or past B zero-filled); after the
+// stage lands, a select pass builds the compact [rows][64] X tile that
+// ldmatrix reads (column c of the step is span column (c / n) * 4 + idx[c];
+// an index outside [0, 4) selects +0, as the TPU kernel's compare-and-
+// select does), one more block barrier, then the same products.  At decode
+// the span is 4-8 KB a step and the select pass ~2 KB.  Bound: values +
+// index + X bytes over 3.35 TB/s, as K1's with n/4 of its weight.
 
 #pragma once
 
@@ -83,23 +99,38 @@ constexpr int VLD = BO + 8;         // bf16 pitch of the values tile (ldmatrix r
 constexpr int XLD = BKS + 8;        // bf16 pitch of the X tile
 constexpr int PLD = BO + 4;         // fp32 pitch of the partial tile
 
-template <int N, int BM>
+template <int N, int BM, int G = 0>
 struct Layout {
   static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
+  static_assert(G == 0 || (N == 4 && (G == 1 || G == 2)),
+                "the gathered X (1:4 | 2:4) streams against dense values");
   // ring depth: 4 stages at decode (a deeper ring streamed no faster on
   // the H100) and for the dense weight; 3 at the sparse 64-row tile, which
-  // keep 4 blocks on an SM
-  static constexpr int STAGES = (BM == 16 || N == 4) ? 4 : 3;
+  // keep 4 blocks on an SM, and at the gathered 64-row tile (its span)
+  static constexpr int STAGES = (BM == 16 || (N == 4 && G == 0)) ? 4 : 3;
   static constexpr int VROWS = BKS * N / 4;      // weight rows a stage (16 | 32 | 64)
   static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
   static constexpr int V_BYTES = VROWS * VLD * 2;
   static constexpr int M_BYTES = MROWS * BO;
-  static constexpr int X_BYTES = BM * XLD * 2;
-  static constexpr int STAGE = V_BYTES + M_BYTES + X_BYTES;   // a multiple of 16
+  static constexpr int I_BYTES = G ? BKS * 4 : 0;            // the step's int32 indices
+  static constexpr int SPAN = G ? 256 / G : BKS;             // X columns a stage
+  static constexpr int SLD = G ? SPAN + 8 : XLD;             // bf16 pitch of the X rows
+  static constexpr int X_BYTES = BM * SLD * 2;
+  static constexpr int STAGE = V_BYTES + M_BYTES + I_BYTES + X_BYTES;   // a multiple of 16
   static constexpr int PART = BM * PLD * 4;                   // the partial tile
   static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
+  static constexpr int COMPACT = G ? BM * XLD * 2 : 0;        // the selected X tile (gather)
   static constexpr int INBOX = BM * BO * 4;   // the peers' partial slices (split > 1 only)
 };
+
+// Candidate e of an M-block of four bf16 held in (lo, hi), into half h of a
+// word; +0 for an index outside [0, 4)
+__device__ __forceinline__ uint32_t pick_half(uint32_t lo, uint32_t hi, int e, int h) {
+  const uint32_t s = 2u * (static_cast<uint32_t>(e) & 3u);
+  const uint32_t sel = h ? ((s << 8) | ((s + 1u) << 12)) : (s | ((s + 1u) << 4));
+  const uint32_t keep = static_cast<unsigned>(e) < 4u ? (h ? 0xffff0000u : 0xffffu) : 0u;
+  return __byte_perm(lo, hi, sel) & keep;
+}
 
 // D += A (16 x 32, 2:4, compressed) x B (32 x 8), fp32 accumulate
 __device__ __forceinline__ void mma_sp(float (&d)[4], const uint32_t (&a)[4],
@@ -127,12 +158,14 @@ __device__ __forceinline__ uint32_t pair_1of4(uint32_t v, uint32_t i) {
   return i == 0u ? v : v << 16;
 }
 
-template <int N, int BM>
+// k: the contraction (K, or K_c for the gathered X, whose `meta` is the
+// int32 index and whose X rows are K_eff = k * 4 / G wide)
+template <int N, int BM, int G = 0>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ v,
                   const uint8_t* __restrict__ meta, const float* __restrict__ bias,
                   void* __restrict__ y, int b, int k, int o, int act, int out_f32, int split) {
-  using L = Layout<N, BM>;
+  using L = Layout<N, BM, G>;
   constexpr int WN = BM == 16 ? 1 : 2;         // warps along the batch rows
   constexpr int WM = 4 / WN;                   // warps along the channels
   constexpr int MT = BO / (16 * WM);           // m16 channel tiles a warp (1 | 2)
@@ -157,7 +190,6 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     unsigned char* base = smem + st * L::STAGE;
     __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(base);
     uint8_t* ms = base + L::V_BYTES;
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES);
     const int kc0 = s * L::VROWS;
 #pragma unroll
     for (int c = tid; c < L::VROWS * 8; c += NT) {
@@ -169,12 +201,31 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       cp_async16(ms + r * BO + col, meta + static_cast<size_t>(s * L::MROWS + r) * o + n0 + col,
                  16);
     }
+    if constexpr (G != 0) {
+      // the step's indices, and the X span they select from (ke = k * 4 / G)
+      int* is = reinterpret_cast<int*>(base + L::V_BYTES + L::M_BYTES);
+      __nv_bfloat16* xsp =
+          reinterpret_cast<__nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES + L::I_BYTES);
+      if (tid < BKS / 4)
+        cp_async16(is + 4 * tid, reinterpret_cast<const int*>(meta) + s * BKS + 4 * tid, 16);
+      constexpr int CPR = L::SPAN / 8;             // 16-byte chunks of a span row
 #pragma unroll
-    for (int c = tid; c < BM * 8; c += NT) {
-      const int r = c >> 3, col = (c & 7) * 8;
-      const bool live = r < rows;
-      cp_async16(xs + r * XLD + col,
-                 x + static_cast<size_t>(live ? m0 + r : 0) * k + s * BKS + col, live ? 16 : 0);
+      for (int c = tid; c < BM * CPR; c += NT) {
+        const int r = c / CPR, col = (c % CPR) * 8;
+        const bool live = r < rows;
+        cp_async16(xsp + r * L::SLD + col,
+                   x + static_cast<size_t>(live ? m0 + r : 0) * (k / G * 4) + s * L::SPAN + col,
+                   live ? 16 : 0);
+      }
+    } else {
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES);
+#pragma unroll
+      for (int c = tid; c < BM * 8; c += NT) {
+        const int r = c >> 3, col = (c & 7) * 8;
+        const bool live = r < rows;
+        cp_async16(xs + r * XLD + col,
+                   x + static_cast<size_t>(live ? m0 + r : 0) * k + s * BKS + col, live ? 16 : 0);
+      }
     }
   };
 
@@ -190,6 +241,37 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     const uint8_t* ms = base + L::V_BYTES;
     const __nv_bfloat16* xs =
         reinterpret_cast<const __nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES);
+    if constexpr (G != 0) {
+      // the select pass: unit u = (row u / 8, compressed columns 8 (u % 8) ..
+      // + 7) of the compact tile, one 16-byte store; column pair (2p, 2p + 1)
+      // reads M-block p (2:4: 8 span bytes) or blocks 2p, 2p + 1 (1:4)
+      const int* is = reinterpret_cast<const int*>(base + L::V_BYTES + L::M_BYTES);
+      const __nv_bfloat16* xsp =
+          reinterpret_cast<const __nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES + L::I_BYTES);
+      __nv_bfloat16* ct = reinterpret_cast<__nv_bfloat16*>(smem + L::RING);
+#pragma unroll
+      for (int u = tid; u < BM * 8; u += NT) {
+        const int r = u >> 3, j0 = (u & 7) * 8;
+        const int4 e0 = *reinterpret_cast<const int4*>(is + j0);
+        const int4 e1 = *reinterpret_cast<const int4*>(is + j0 + 4);
+        const int e[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(xsp + r * L::SLD + j0 / G * 4);
+        uint32_t out[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if constexpr (G == 2) {       // block q of the unit's four: words 2q, 2q + 1
+            out[q] = pick_half(row[2 * q], row[2 * q + 1], e[2 * q], 0) |
+                     pick_half(row[2 * q], row[2 * q + 1], e[2 * q + 1], 1);
+          } else {                      // blocks 2q, 2q + 1: words 4q .. + 3
+            out[q] = pick_half(row[4 * q], row[4 * q + 1], e[2 * q], 0) |
+                     pick_half(row[4 * q + 2], row[4 * q + 3], e[2 * q + 1], 1);
+          }
+        }
+        *reinterpret_cast<uint4*>(ct + r * XLD + j0) = make_uint4(out[0], out[1], out[2], out[3]);
+      }
+      __syncthreads();
+      xs = ct;
+    }
 #pragma unroll
     for (int kk = 0; kk < BKS / 32; ++kk) {
       uint32_t bf[NJ][4];    // X rows r0 + 8j .. + 7 at K 32kk .. + 31
@@ -268,7 +350,7 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   __syncthreads();
 
   splitk::finish<BM, BO, PLD, NT>(
-      part, reinterpret_cast<float*>(smem + L::RING), rank, split, rows,
+      part, reinterpret_cast<float*>(smem + L::RING + L::COMPACT), rank, split, rows,
       [&](int r, int c, float s) {
         if (bias != nullptr) s += bias[n0 + c];
         s = apply_act(s, act);
@@ -278,13 +360,13 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       });
 }
 
-template <int N, int BM>
+template <int N, int BM, int G = 0>
 int launch(const void* x, const void* v, const void* meta, const float* bias, void* y, int b,
            int k, int o, int act, int out_f32, int split, cudaStream_t stream) {
-  using L = Layout<N, BM>;
+  using L = Layout<N, BM, G>;
   static bool opted_in = false;
-  return splitk::launch(nm_spmm_sp_kernel<N, BM>, opted_in, dim3(o / BO, (b + BM - 1) / BM),
-                        NT, L::RING, L::INBOX, split, stream,
+  return splitk::launch(nm_spmm_sp_kernel<N, BM, G>, opted_in, dim3(o / BO, (b + BM - 1) / BM),
+                        NT, L::RING + L::COMPACT, L::INBOX, split, stream,
                         static_cast<const __nv_bfloat16*>(x),
                         static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(meta),
                         bias, y, b, k, o, act, out_f32, split);
@@ -310,6 +392,29 @@ inline int launch_nm(int n, int bm, const void* x, const void* v, const void* me
   if (n == 4 && bm == 16) VG_SP_LAUNCH(4, 16);
   if (n == 4 && bm == 64) VG_SP_LAUNCH(4, 64);
 #undef VG_SP_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K8's few-row body: X (b, ke) gathered at n in {1, 2} through idx (K_c =
+// ke * n / 4 int32) against values (K_c, O) as a dense weight; bm in {16,
+// 64}, split a power of two up to min(8, K_c / 64)
+inline int launch_gather(int n, int bm, const void* x, const void* values, const void* idx,
+                         const void* bias, void* y, int b, int ke, int o, int act, int out_f32,
+                         int split, void* stream) {
+  const int kc = ke * n / 4;
+  if (b <= 0 || ke <= 0 || o <= 0 || (ke * n) % 4 != 0 || kc % BKS != 0 || o % BO != 0 ||
+      act < 0 || act > 2 || out_f32 < 0 || out_f32 > 1 || !splitk::split_ok(split, kc / BKS) ||
+      (b + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bf = static_cast<const float*>(bias);
+#define VG_SP_GATHER(GG, BB) \
+  return launch<4, BB, GG>(x, values, idx, bf, y, b, kc, o, act, out_f32, split, s)
+  if (n == 2 && bm == 16) VG_SP_GATHER(2, 16);
+  if (n == 2 && bm == 64) VG_SP_GATHER(2, 64);
+  if (n == 1 && bm == 16) VG_SP_GATHER(1, 16);
+  if (n == 1 && bm == 64) VG_SP_GATHER(1, 64);
+#undef VG_SP_GATHER
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,15 +1,21 @@
 // nm_spmm_fp8 on Hopper's sparse tensor cores: the e4m3 single at n in
 // {1, 2}, every out_kind (bf16, fp32, the raw accumulator, and the
-// requantizing flush of nm_spmm_fp8_requant).  Included by gemm_fp8.cu,
-// whose vg_nm_spmm_fp8 launches it with its flush where
-// nm_spmm/kernel.py::fp8_plan picks it (decode rows, and launches whose
-// shared-body tiles would not fill half the card); n = 4, wider launches,
-// the duals, the masked singles and the int8 twins keep gemm_fp8.cu's /
-// gemm_int8.cu's shared bodies.
+// requantizing flush of nm_spmm_fp8_requant); and the same streaming body
+// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body.
+// Included by gemm_fp8.cu, whose vg_nm_spmm_fp8 and vg_tile_gemm_fp8
+// launch it with their flush where nm_spmm/kernel.py::fp8_plan and
+// tile_gemm/kernel.py::fp8_plan pick it (decode rows, and launches whose
+// shared-body tiles would not fill half the card); n = 4 of nm_spmm_fp8,
+// wider launches, the duals, the masked singles and the int8 twins keep
+// gemm_fp8.cu's / gemm_int8.cu's shared bodies, and tile_gemm_fp8's
+// many-row body is tile_gemm_sm90_fp8.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
-//   nm_spmm_fp8  repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
-//                (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel), n in {1, 2}
+//   nm_spmm_fp8    repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
+//                  (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel), n in {1, 2}
+//   tile_gemm_fp8  repro/kernels/tile_gemm/kernel.py::tile_gemm_fp8
+//                  (_tile_gemm_quantized, _gemm_q_raw_kernel, _gemm_kernel), below
+//                  the many-row body's rows (tile_gemm/kernel.py::fp8_plan)
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -17,7 +23,9 @@
 // and later) takes A 2:4 sparse along K, 16 rows x 64 K held as 32 kept
 // bytes a row with a 2-bit index each.  The weight is A (16 output
 // channels), X is B (64 K x 8 batch rows), so a decode batch of 8 fills
-// the instruction's N = 8.
+// the instruction's N = 8.  The dense weight (N = 4) is A of
+// mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 the same way: two
+// per 64-deep step, the same B registers (K bytes 0-31, then 32-63).
 //
 // Operand layout (pinned on the card by kernels/mma_sp_probe.py).  A
 // register r of lane 4g + t: channel g + 8 (r & 1), kept bytes 4t .. 4t + 3
@@ -39,12 +47,14 @@
 // and reads A from it with ldmatrix.  1:4 runs as 2:4 (as in nm_spmm_sp.cuh):
 // the transpose writes each group's kept byte into the slot of its index
 // and a +0 into the other, the pair (0, 1) for index 0, else (0, index);
-// the 1:4 bytes in device memory stay 1:4's.
+// the 1:4 bytes in device memory stay 1:4's.  The dense weight's warp
+// tile is its 16 channels x 64 K bytes, two 4 x 4 blocks a lane.
 //
 // Numerics: the fp8 class's (gemm_fp8.cu).  Every 64-deep instruction
 // starts from zero and is added into a separate fp32 register accumulator
 // (__fadd_rn), so the tensor cores never carry a running sum past 64
-// products.  The K loop is split over the `split` blocks of a cluster
+// products (the dense weight: both k32 instructions of a step into one
+// partial from zero, then the add).  The K loop is split over the `split` blocks of a cluster
 // (nm_spmm/kernel.py::split_k) and the partials summed in rank order
 // (splitk.cuh); the flush then runs once from the summed fp32 accumulator
 // in the JAX order (the caller's Flush: acc * xs[row] * ws[col] with
@@ -77,7 +87,6 @@ constexpr int BKS = 64;             // dense K per pipeline stage: one k64 instr
 constexpr int NT = 128;
 constexpr int VLD = BO + 16;        // byte pitch of the values tile (16-byte aligned rows)
 constexpr int XLD = BKS + 16;       // byte pitch of the X tile: ldmatrix rows on distinct banks
-constexpr int TLD = 48;             // byte pitch of a warp's transposed A tile (32 kept + 16)
 constexpr int PLD = BO + 4;         // fp32 pitch of the partial tile
 
 // Byte j of each of four words, as one word (w0's byte lowest).
@@ -91,14 +100,16 @@ __device__ __forceinline__ uint32_t gather_byte(uint32_t w0, uint32_t w1, uint32
 
 template <int N, int BM>
 struct Layout {
-  static_assert(N == 1 || N == 2, "the sparse body takes 1:4 and 2:4");
+  static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
   static constexpr int STAGES = BM == 16 ? 6 : 4;
   static constexpr int WN = BM == 16 ? 1 : 2;    // warps along the batch rows
   static constexpr int WM = 4 / WN;              // warps along the channels
   static constexpr int MT = BO / (16 * WM);      // m16 channel tiles a warp (1 | 2)
   static constexpr int NJ = BM / (8 * WN);       // n8 batch-row tiles a warp (2 | 4)
-  static constexpr int VROWS = BKS * N / 4;      // kept rows a stage (16 | 32)
-  static constexpr int MROWS = VROWS / 4;        // meta_packed rows a stage (4 | 8)
+  static constexpr int VROWS = BKS * N / 4;      // kept rows a stage (16 | 32 | 64)
+  static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
+  // byte pitch of a warp's transposed A tile: 32 kept (64 dense) bytes + 16
+  static constexpr int TLD = N == 4 ? BKS + 16 : 48;
   static constexpr int V_BYTES = VROWS * VLD;
   static constexpr int M_BYTES = MROWS * BO;
   static constexpr int X_BYTES = BM * XLD;
@@ -121,6 +132,18 @@ __device__ __forceinline__ void mma_sp_e4m3(float (&d)[4], const uint32_t (&a)[4
         "r"(b[3]), "r"(e));
 }
 
+// D = A (16 x 32, dense) x B (32 x 8) + C, e4m3 in, fp32 out.  A registers
+// of lane 4g + t: channels g, g + 8 at K bytes 4t .. + 3, then 16 + 4t ..;
+// B registers: K bytes 4t .. + 3 and 16 + 4t .. of batch row g.
+__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -136,7 +159,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
                       const uint8_t* __restrict__ meta, Flush flush, int b, int k, int o,
                       int split) {
   using L = Layout<N, BM>;
-  constexpr int MT = L::MT, NJ = L::NJ;
+  constexpr int MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x;
@@ -159,7 +182,13 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
     uint8_t* ms = vs + L::V_BYTES;
     uint8_t* xs = ms + L::M_BYTES;
     const int kc0 = s * L::VROWS;
-    if (tid < L::VROWS * 4) {
+    if constexpr (N == 4) {
+#pragma unroll
+      for (int c = tid; c < L::VROWS * 4; c += NT) {
+        const int r = c >> 2, col = (c & 3) * 16;
+        cp_async16(vs + r * VLD + col, v + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+      }
+    } else if (tid < L::VROWS * 4) {
       const int r = tid >> 2, col = (tid & 3) * 16;
       cp_async16(vs + r * VLD + col, v + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
     }
@@ -198,7 +227,20 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
       const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
       uint8_t* ta = tw + mt * 16 * TLD;
       const int p = lane & 3, q = lane >> 2;
-      if constexpr (N == 2) {
+      if constexpr (N == 4) {
+        // lane (p, q): dense rows 4q .. + 3 and 32 + 4q .. + 3 x channels c +
+        // 4p .. + 3 -> channel rows of 4 consecutive K bytes
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint8_t* src = vs + (32 * h + 4 * q) * VLD + c + 4 * p;
+          const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
+                         w3 = lds32(src + 3 * VLD);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 32 * h + 4 * q) =
+                gather_byte(w0, w1, w2, w3, j);
+        }
+      } else if constexpr (N == 2) {
         // lane (p, q): kept rows 4q .. + 3 x channels c + 4p .. + 3 -> four
         // channel rows of 4 consecutive kept bytes
         const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
@@ -233,28 +275,45 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
     for (int mt = 0; mt < MT; ++mt) {
       const int c = ch0 + mt * 16;
       uint32_t a[4];
-      ldsm_x4(a, tw + mt * 16 * TLD + ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD +
-                     (lane >> 4) * 16);
-      // lane 4g + t: groups 8 (t >> 1) .. + 7 of channel c + g + 8 (t & 1)
-      const int ch = c + g + 8 * (t & 1), h = t >> 1;
-      uint32_t e;
-      if constexpr (N == 2) {
-        const uint8_t* mp = ms + 4 * h * BO + ch;
-        e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
-            static_cast<uint32_t>(mp[2 * BO]) << 16 | static_cast<uint32_t>(mp[3 * BO]) << 24;
+      const uint8_t* ta = tw + mt * 16 * TLD + ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD +
+                          (lane >> 4) * 16;
+      ldsm_x4(a, ta);
+      if constexpr (N == 4) {
+        uint32_t a1[4];      // K bytes 32 .. 63 of the same 16 channels
+        ldsm_x4(a1, ta + 32);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          if (r0 + j * 8 < rows) {
+            // the 64-deep partial sum (two k32 instructions), promoted into fp32
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_e4m3(part, a, bf[j][0], bf[j][1]);
+            mma_e4m3(part, a1, bf[j][2], bf[j][3]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][j][i] = __fadd_rn(acc[mt][j][i], part[i]);
+          }
       } else {
-        const uint8_t* mp = ms + 2 * h * BO + ch;
-        e = splitk::expand_1of4(static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        if (r0 + j * 8 < rows) {
-          // the 64-deep partial sum on the tensor cores, promoted into fp32
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_sp_e4m3(part, a, bf[j], e);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][j][i] = __fadd_rn(acc[mt][j][i], part[i]);
+        // lane 4g + t: groups 8 (t >> 1) .. + 7 of channel c + g + 8 (t & 1)
+        const int ch = c + g + 8 * (t & 1), h = t >> 1;
+        uint32_t e;
+        if constexpr (N == 2) {
+          const uint8_t* mp = ms + 4 * h * BO + ch;
+          e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
+              static_cast<uint32_t>(mp[2 * BO]) << 16 | static_cast<uint32_t>(mp[3 * BO]) << 24;
+        } else {
+          const uint8_t* mp = ms + 2 * h * BO + ch;
+          e = splitk::expand_1of4(static_cast<uint32_t>(mp[0]) |
+                                  static_cast<uint32_t>(mp[BO]) << 8);
         }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          if (r0 + j * 8 < rows) {
+            // the 64-deep partial sum on the tensor cores, promoted into fp32
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_sp_e4m3(part, a, bf[j], e);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][j][i] = __fadd_rn(acc[mt][j][i], part[i]);
+          }
+      }
     }
   };
   splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
@@ -291,7 +350,8 @@ int launch(const void* x, const void* v, const void* meta, const Flush& flush, i
                         b, k, o, split);
 }
 
-// n in {1, 2}, bm in {16, 64}, split a power of two up to min(8, k / 64);
+// n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) e4m3 weight, meta
+// unused), bm in {16, 64}, split a power of two up to min(8, k / 64);
 // flush(row, col, acc) stores one output from its summed fp32 accumulator
 template <class Flush>
 int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
@@ -304,6 +364,8 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
   if (n == 2 && bm == 64) return launch<2, 64>(x, v, meta, flush, b, k, o, split, s);
   if (n == 1 && bm == 16) return launch<1, 16>(x, v, meta, flush, b, k, o, split, s);
   if (n == 1 && bm == 64) return launch<1, 64>(x, v, meta, flush, b, k, o, split, s);
+  if (n == 4 && bm == 16) return launch<4, 16>(x, v, meta, flush, b, k, o, split, s);
+  if (n == 4 && bm == 64) return launch<4, 64>(x, v, meta, flush, b, k, o, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -39,9 +39,10 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, MAX_SPLIT, SMS, _ptr, check_maps,
-                                check_requant_scale, check_scales, check_single_epilogue,
-                                cluster_split, float_out, quantized_out, requant_spec)
+from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, FP8_SHARED_TILES, MAX_SPLIT, SMS,
+                                _ptr, check_maps, check_requant_scale, check_scales,
+                                check_single_epilogue, cluster_split, float_out, quantized_out,
+                                requant_spec)
 from ..reasons import dtype_name
 from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
@@ -69,13 +70,6 @@ def split_k(b: int, k: int, o: int, n: int) -> int:
         return 1
     tiles = (o // _build.BLOCK_O) * -(-b // _build.block_rows(b))
     return cluster_split(tiles, k // _build.BLOCK_K)
-
-
-#: the shared body's launch width (O / 64 tiles x row tiles) from which
-#: nm_spmm_fp8 stays on it above 16 rows: on an H100 the sparse body won
-#: at internlm2-1.8b's 64-row chunks (16-32 tiles) and lost at 256 rows
-#: (64-128 tiles) and at gemma3-1b's 64-row w_in (108 tiles)
-FP8_SHARED_TILES = 64
 
 
 def fp8_plan(b: int, k: int, o: int, n: int) -> dict:

@@ -24,6 +24,15 @@ contracts a plain dense values tile: n/4 of the dense weight bytes and
 FLOPs, no on-chip expansion.  The duals gather X twice, once through
 each weight's own index stream, from one activation read.
 
+``nm_spmm_gather_bk`` (float) at n in {1, 2} runs the two bodies K1 runs
+over its dense weight, with the X side gathered, chosen by :func:`plan`
+from ``(B, K_eff, O, n)``: at few rows the stream of ``csrc/nm_spmm_sp.cuh``
+(the step's X span by cp.async, a select pass into the X tile, split-K
+over a cluster), from 256 rows a gather pass (``gemm.cu``) writing the
+compact X into a scratch the wrapper allocates, then the TMA + wgmma body
+of ``csrc/tile_gemm_sm90.cuh`` over it.  Every other kernel here runs the
+shared bodies of ``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue),
 ``::nm_spmm_gather_dual_bk`` (:566, float, int8 and fp8),
@@ -44,15 +53,16 @@ import torch
 from .. import _build
 from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
-from ..tile_gemm.kernel import (ACT_CODES, _ptr, check_maps, check_requant_scale, float_out,
-                                check_scales, check_single_epilogue, quantized_out,
-                                requant_spec)
+from ..tile_gemm.kernel import (ACT_CODES, BODY_CODES, WGMMA_MIN_ROWS, _ptr, check_maps,
+                                check_requant_scale, check_scales, check_single_epilogue,
+                                float_out, quantized_out, requant_spec, stream_plan)
+from ..tile_gemm.kernel import plan as tile_plan
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
-__all__ = ["nm_spmm_gather_bk", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
+__all__ = ["nm_spmm_gather_bk", "plan", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
            "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
            "nm_spmm_gather_bk_fp8_requant", "nm_spmm_gather_dual_bk_fp8",
@@ -61,6 +71,27 @@ __all__ = ["nm_spmm_gather_bk", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int
            "nm_spmm_gather", "nm_spmm_gather_int8", "nm_spmm_gather_fp8"]
 
 _N = (1, 2, 4)
+
+def plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_bk``'s (float) body, tile and split for ``gather(X
+    (b, ke), idx) @ values (ke * n / 4, o)``.  n in {1, 2}: ``wgmma`` from
+    ``WGMMA_MIN_ROWS`` rows, a gather pass into a (b, K_c) scratch then K1's
+    wgmma body (``csrc/tile_gemm_sm90.cuh``) with the tile K1's own
+    :func:`~repro_torch.kernels.tile_gemm.kernel.plan` picks for (b, K_c,
+    o); below, ``stream`` (``csrc/nm_spmm_sp.cuh`` over the values with
+    the gathered X): ``tile_gemm.kernel.stream_plan`` over the K_c = ke * n
+    / 4 contraction.  n = 4, and n = 1 at 64-row tiles below 256 rows
+    (where the stream lost to it on an H100 at internlm2-1.8b's sites),
+    keep ``shared`` (gemm.cu's body, the form the port ran first), split 1.
+    Returns ``{"body", "rows", "cols", "split"}``; ``rows`` is what the C
+    interface takes as ``bm``."""
+    rows = _build.block_rows(b)
+    kc = ke * n // 4
+    if n not in (1, 2) or (n == 1 and rows == _build.BLOCK_ROWS[1] and b < WGMMA_MIN_ROWS):
+        return {"body": "shared", "rows": rows, "cols": _build.BLOCK_O, "split": 1}
+    if b >= WGMMA_MIN_ROWS:
+        return tile_plan(b, kc, o)
+    return stream_plan(b, kc, o)
 
 
 def _check_gather(kernel: str, ke: int, values: torch.Tensor, idx: torch.Tensor,
@@ -90,7 +121,9 @@ def nm_spmm_gather_bk(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, 
                       out_dtype: Optional[torch.dtype] = None,
                       block_b: Optional[int] = None) -> torch.Tensor:
     """``epilogue(gather(X, idx) @ values)`` in X's dtype (or
-    ``out_dtype=torch.float32``), M = 4."""
+    ``out_dtype=torch.float32``, the sums a row-parallel shard
+    all-reduces), M = 4.  ``block_b`` is the dispatch plan's row block
+    (checked); the body, its tile and its K split are :func:`plan`'s."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_gather("nm_spmm_gather_bk", ke, values, idx, n)
@@ -107,11 +140,17 @@ def nm_spmm_gather_bk(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, 
         raise ValueError("nm_spmm_gather_bk: values must share x's dtype")
     _build.check_tiles("nm_spmm_gather_bk", values.shape[0], o)
     y = torch.empty((b, o), dtype=out_dtype, device=x.device)
+    p = plan(b, ke, o, n)
+    # the wgmma plan's gather pass writes the compact X here
+    xg = (torch.empty((b, values.shape[0]), dtype=x.dtype, device=x.device)
+          if p["body"] == "wgmma" else None)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm_gather_bk(x.data_ptr(), values.data_ptr(), idx.data_ptr(),
                                       _ptr(bias32), y.data_ptr(), b, ke, o, n,
-                                      ACT_CODES[epi.act], out_f32, bb, _build.stream_of(x))
+                                      ACT_CODES[epi.act], out_f32, p["rows"],
+                                      BODY_CODES[p["body"]], p["cols"], p["split"], _ptr(xg),
+                                      _build.stream_of(x))
     nm_spmm_gather_bk.launches += 1
     _build.check(rc, "nm_spmm_gather_bk", lib)
     return y
@@ -130,8 +169,10 @@ def nm_spmm_gather_bk_masked(x: torch.Tensor, values: torch.Tensor, idx: torch.T
     and multiplied, a K step being 64 compressed rows (``256 / n``
     activation columns).  ``kmap`` / ``kmask``: ``actsparse.block_maps``
     over the masked X at ``block_b`` rows and ``256 / n`` columns; the
-    CUDA body ignores ``kmap``.  Bitwise :func:`nm_spmm_gather_bk` on the
-    same masked X."""
+    CUDA body ignores ``kmap``.  Bitwise itself with every tile live on
+    the same masked X (dead tiles add exact zeros); within bf16 rounding of
+    :func:`nm_spmm_gather_bk`, whose own bodies (n in {1, 2}) sum in
+    another order (bitwise it at n = 4)."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_gather("nm_spmm_gather_bk_masked", ke, values, idx, n)

@@ -17,8 +17,12 @@ block skip (one source each, the same kernel bodies with ``MASKED``).
 chunks) the streaming body of ``csrc/nm_spmm_sp.cuh`` over the dense
 weight, its K loop split over a cluster; from the calibration forward's
 256 rows up the warp-specialised TMA + wgmma body of
-``csrc/tile_gemm_sm90.cuh``.  Every other kernel here runs the shared
-bodies of ``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+``csrc/tile_gemm_sm90.cuh``.  ``tile_gemm_fp8`` and
+``tile_gemm_fp8_requant`` run the e4m3 forms of the same two, chosen by
+:func:`fp8_plan`: ``csrc/nm_spmm_sp_fp8.cuh``'s stream over the dense
+weight and ``csrc/tile_gemm_sm90_fp8.cuh``'s wgmma body, whose weight tile
+is transposed on chip.  Every other kernel here runs the shared bodies of
+``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
 ``::tile_gemm_dual`` (:382, float, int8 and fp8 branches), ``::tile_gemm_int8``
@@ -44,8 +48,9 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "plan", "cluster_split", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS",
-           "WIDE_MIN_COLS",
+__all__ = ["tile_gemm", "plan", "fp8_plan", "cluster_split", "stream_plan", "BODY_CODES",
+           "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS", "FP8_WGMMA_COLS",
+           "FP8_SHARED_TILES",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
            "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
@@ -76,6 +81,17 @@ WGMMA_MIN_ROWS = 256
 #: rows (16-32 wide tiles leave most SMs idle)
 WIDE_MIN_ROWS = 1024
 WIDE_MIN_COLS = 3072
+#: channels of the e4m3 wgmma body's tile (csrc/tile_gemm_sm90_fp8.cuh): its
+#: second, promoting accumulator leaves no registers for 256
+FP8_WGMMA_COLS = 128
+#: the planners' bodies -> the C interface's ``body`` argument
+BODY_CODES = {"shared": 0, "stream": 1, "wgmma": 2}
+#: the shared body's launch width (O / 64 tiles x row tiles) from which the
+#: e4m3 singles stay on it above 16 rows: on an H100 the streaming bodies
+#: (nm_spmm_fp8's sparse one, tile_gemm_fp8's dense one) won at
+#: internlm2-1.8b's 64-row chunks (16-32 tiles) and lost at 256 rows (64-128
+#: tiles) and at gemma3-1b's 64-row w_in (108 tiles)
+FP8_SHARED_TILES = 64
 
 
 def cluster_split(tiles: int, steps: int, per_sm: int = BLOCKS_PER_SM) -> int:
@@ -108,10 +124,40 @@ def plan(b: int, k: int, o: int) -> dict:
     if b >= WGMMA_MIN_ROWS:
         cols = WGMMA_COLS[b >= WIDE_MIN_ROWS and o >= WIDE_MIN_COLS]
         return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": cols, "split": 1}
+    return stream_plan(b, k, o)
+
+
+def stream_plan(b: int, k: int, o: int) -> dict:
+    """A streaming body's tile and split for ``b`` rows against a ``(k,
+    o)`` weight (``k`` the contraction): 64-channel tiles of
+    ``block_rows(b)`` rows, the K loop split over a cluster by
+    :func:`cluster_split`, two blocks an SM at 16 rows, one at 64."""
     rows = _build.block_rows(b)
     tiles = (o // _build.BLOCK_O) * -(-b // rows)
     return {"body": "stream", "rows": rows, "cols": _build.BLOCK_O,
             "split": cluster_split(tiles, k // _build.BLOCK_K, 2 if rows == 16 else 1)}
+
+
+def fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
+    """``tile_gemm_fp8``'s body, tile and split for ``Xq (b, k) @ Wq (k,
+    o)``, as :func:`plan` picks K1's: ``wgmma`` (``csrc/
+    tile_gemm_sm90_fp8.cuh``) from ``WGMMA_MIN_ROWS`` rows, 128 x 128
+    tiles, split 1; below, ``stream`` (``csrc/nm_spmm_sp_fp8.cuh`` over the
+    dense weight) with :func:`stream_plan`'s tile and split, or ``shared``
+    (gemm_fp8.cu's body, the form the port ran first; split 1) where its
+    64-row launch is ``FP8_SHARED_TILES`` tiles wide or more.  ``requant``
+    (``tile_gemm_fp8_requant``, e4m3 codes out) never takes ``wgmma``: its
+    tensor cores' e4m3 sums are ~1e-4 of max|Y| off the plain version's
+    fp32 sums on an H100 (the ``mma.sync`` bodies ~1e-7), which moves
+    codes near zero by more than the one e4m3 step the requant gate
+    allows.  Returns ``{"body", "rows", "cols", "split"}``."""
+    if b >= WGMMA_MIN_ROWS and not requant:
+        return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": FP8_WGMMA_COLS, "split": 1}
+    p = stream_plan(b, k, o)
+    if p["rows"] == _build.BLOCK_ROWS[1] and \
+            (o // _build.BLOCK_O) * -(-b // p["rows"]) >= FP8_SHARED_TILES:
+        return {**p, "body": "shared", "split": 1}
+    return p
 
 
 def check_single_epilogue(kernel: str, epi: EpilogueSpec,
@@ -329,12 +375,18 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
     _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
+    # the fp8 single runs the body of its plan; int8 and the masked kernels
+    # keep the shared body (no plan)
+    plan_args = ()
+    if storage == torch.float8_e4m3fn and maps is None:
+        p = fp8_plan(b, k, o, requant=requant_scale is not None)
+        bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
             x_q.data_ptr(), w_q.data_ptr(), *(t.data_ptr() for t in kmask), _ptr(x_scale),
             _ptr(w_scale), _ptr(bias32), _ptr(requant_scale), y.data_ptr(), b, k, o,
-            ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
+            ACT_CODES[epi.act], kind, bb, *plan_args, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -368,7 +420,9 @@ def tile_gemm_fp8(x_q: torch.Tensor, w_q: torch.Tensor,
                   block_b: Optional[int] = None) -> torch.Tensor:
     """:func:`tile_gemm_int8`'s contract over float8_e4m3fn operands: the
     e4m3 x e4m3 products summed into an fp32 accumulator, dequantized once
-    at the flush.  With no scales it returns the raw fp32 accumulator."""
+    at the flush.  With no scales it returns the raw fp32 accumulator.
+    ``block_b`` is the dispatch plan's row block (checked); the body, its
+    tile and its K split are :func:`fp8_plan`'s."""
     return _tile_gemm_quantized(tile_gemm_fp8, torch.float8_e4m3fn, x_q, w_q, x_scale,
                                 w_scale, epilogue, bias, out_dtype, block_b)
 
@@ -444,8 +498,10 @@ def tile_gemm_masked_fp8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tenso
                          requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`tile_gemm_fp8` with the activation-sparsity block skip of
     :func:`tile_gemm_masked` (maps over the e4m3 rows; the CUDA body
-    ignores ``kmap``).  Bitwise :func:`tile_gemm_fp8` on the same rows;
-    ``requant_scale`` as for :func:`tile_gemm_masked_int8`."""
+    ignores ``kmap``).  Bitwise itself with every tile live on the same
+    rows (dead tiles add exact zeros); within 1e-2 of :func:`tile_gemm_fp8`,
+    whose own bodies sum in another order (requantized codes one e4m3 step
+    apart at most); ``requant_scale`` as for :func:`tile_gemm_masked_int8`."""
     return _tile_gemm_quantized(tile_gemm_masked_fp8, torch.float8_e4m3fn, x_q, w_q, x_scale,
                                 w_scale, epilogue, bias, out_dtype, block_b, maps=(kmap, kmask),
                                 requant_scale=requant_scale)

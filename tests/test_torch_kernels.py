@@ -34,12 +34,12 @@ the Pallas gather kernels is in ``tests/test_torch_gather.py``.  The
 masked kernels (K10, every class and loader) are held BITWISE to their
 unmasked kernels on the same masked X (ragged B, a fully dead row block
 whose bias still flushes) and to their plain versions under the same
-limits; the float dense and compressed ones and the fp8 compressed one
-at n in {1, 2}, whose unmasked kernels (tile_gemm, nm_spmm, nm_spmm_fp8)
-run their own bodies, BITWISE to themselves with every tile live and within
-1e-2 of the unmasked kernel (requantized fp8 codes: one e4m3 step on at
-most 0.1% of them); their CPU parity with the Pallas masked kernels is in
-``tests/test_torch_actsparse.py``.
+limits; the float ones and the fp8 dense and compressed ones (n in {1,
+2}), whose unmasked kernels (tile_gemm, nm_spmm, nm_spmm_gather_bk,
+tile_gemm_fp8, nm_spmm_fp8) run their own bodies, BITWISE to themselves
+with every tile live and within 1e-2 of the unmasked kernel (requantized
+fp8 codes: one e4m3 step on at most 0.1% of them); their CPU parity with
+the Pallas masked kernels is in ``tests/test_torch_actsparse.py``.
 """
 
 import types
@@ -799,6 +799,20 @@ def _masked_case(dev, b, k, o, layout, n, qdtype, seed=0):
                                  masked=masked, plain=plain, layout=layout, qdtype=qdtype)
 
 
+def _own_body(layout, qdtype, b, k, o, n, requant=False):
+    """Whether the unmasked kernel of a masked case runs a body of its own
+    (summing in another order than the shared body the masked one keeps)."""
+    from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
+    from repro_torch.kernels.tile_gemm.kernel import fp8_plan
+    if (layout, qdtype) in (("dense", None), ("compressed", None), ("compressed", "fp8")):
+        return True
+    if (layout, qdtype) == ("gather", None):
+        return gather_plan(b, k, o, n)["body"] != "shared"
+    if (layout, qdtype) == ("dense", "fp8"):
+        return fp8_plan(b, k, o, requant=requant)["body"] != "shared"
+    return False
+
+
 def _call(case, fn, maps, **kw):
     """One wrapper call in the JAX argument order: x, weight operands, then
     masked: kmap, kmask, [n], [x_scale, w_scale]; unmasked: [x_scale,
@@ -823,13 +837,13 @@ def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n
     its bias and activation."""
     case = _masked_case(cuda_device, b, k, o, layout, n, qdtype)
     maps = (case.kmap, case.kmask)
-    # the float dense and compressed singles (K1, K2) and the fp8 compressed
-    # single (n in {1, 2}) run their own bodies, whose sums run in another
-    # order than the masked kernel's: the masked kernel is held bitwise to
-    # itself with every tile live (the same invariant: dead tiles add exact
-    # zeros), the unmasked kernel within 1e-2
-    own_body = (qdtype is None and layout in ("dense", "compressed")) or \
-        (qdtype == "fp8" and layout == "compressed")
+    # the float dense and compressed singles (K1, K2), the fp8 compressed
+    # single (n in {1, 2}) and, where their plans leave the shared body, the
+    # float gather K8 and the fp8 dense single run their own bodies, whose
+    # sums run in another order than the masked kernel's: the masked kernel
+    # is held bitwise to itself with every tile live (the same invariant:
+    # dead tiles add exact zeros), the unmasked kernel within 1e-2
+    own_body = _own_body(layout, qdtype, b, k, o, n)
     bias = torch.randn(o, device=cuda_device)
     for spec, bv in ((EpilogueSpec(), None), (EpilogueSpec(bias=True), bias),
                      (EpilogueSpec(act="silu", bias=True), bias)):
@@ -970,10 +984,10 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
     spec = EpilogueSpec(act="gelu", bias=True)
     got = masked(xm, *ops, *maps, *nn, xms, ws, epilogue=spec, bias=bias, requant_scale=rq)
     unmasked = fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias)
-    if layout == "compressed" and qdtype == "fp8":
-        # nm_spmm_fp8's sparse body sums in another order: the masked kernel's
-        # codes are its all-live codes bitwise, one e4m3 step at most off the
-        # unmasked kernel's on at most 0.1% of them
+    if qdtype == "fp8" and _own_body(layout, qdtype, b, k, o, n, requant=True):
+        # tile_gemm_fp8's and nm_spmm_fp8's own bodies sum in another order:
+        # the masked kernel's codes are its all-live codes bitwise, one e4m3
+        # step at most off the unmasked kernel's on at most 0.1% of them
         all_live = (maps[0], torch.ones_like(maps[1]))
         assert torch.equal(got, masked(xm, *ops, *all_live, *nn, xms, ws, epilogue=spec,
                                        bias=bias, requant_scale=rq))
