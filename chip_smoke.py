@@ -19,11 +19,12 @@ Phases, each of which fails the run on a miss:
              kernel's, the plain version's and torch.matmul's times
              (CUDA-graph replays between CUDA events, weights rotated
              through > 100 MB so L2 is cold as in a real decode step) and
-             the bandwidth bound; nm_spmm's and tile_gemm's also with the
-             first body's (``earlier_ms``: gemm.cu's shared body, timed in
-             turns with the current body through the same wrapper, see
-             ``earlier_kernels``), nm_spmm's K split and tile_gemm's plan
-             (body, tile, split).
+             the bandwidth bound; nm_spmm's, tile_gemm's and tile_gemm_dual's
+             also with the first body's (``earlier_ms``: gemm.cu's shared
+             body, timed in turns with the current body through the same
+             wrapper, see ``earlier_kernels``), nm_spmm's K split and
+             tile_gemm's and tile_gemm_dual's plan (body, tile, split);
+             tile_gemm_dual must give the same bits on a second launch.
    int8    — tile_gemm_int8, nm_spmm_int8 (n in {1, 2}) and the int8
              duals, on int8 weights quantized per channel and bf16
              activations quantized per row, at the same (K, O) and B in
@@ -69,9 +70,17 @@ Phases, each of which fails the run on a miss:
              library column is torch.matmul / torch._int_mm /
              torch._scaled_mm on the PRE-GATHERED X (the gather runs
              outside the timed region; the duals: two calls, gate and up).
-             The bf16 K8 (the body nm_spmm_gather/kernel.py::plan picks,
-             printed) is also timed in turns with gemm.cu's shared body
-             (``earlier_ms``) and must be the same bits on a second launch.
+             The bf16 K8 and K9 (the bodies nm_spmm_gather/kernel.py::plan
+             and ::dual_plan pick, printed) are also timed in turns with
+             gemm.cu's shared body (``earlier_ms``) and must be the same
+             bits on a second launch.
+   sweep   — each body of the two float duals alone (the shared body,
+             the stream at stream_plan's split, the wgmma body), at the
+             64-row launches where the dual plans switch bodies (B in
+             {17, 33, 48, 64, 128}) on the gate-up pairs of internlm2-1.8b,
+             phi-3-vision and qwen3-moe's experts, K9 at n in {2, 1}:
+             each within 1e-2 of max|plain|, one line per shape naming
+             the plan's body beside every body's time.
    masked  — the K10 masked kernels (tile_gemm_masked, nm_spmm_masked,
              nm_spmm_gather_bk_masked, each in bf16, int8 and fp8) at the
              MoE expert shapes ((K, O) = (1536, 4096) and (4096, 1536)), B
@@ -182,8 +191,10 @@ Phases, each of which fails the run on a miss:
              2:4 runs also the latency and busy share of the same forward on
              the first flash_attention, tile_gemm and nm_spmm bodies
              (``earlier``).  The prefill shapes of tile_gemm, nm_spmm,
-             tile_gemm_fp8 and nm_spmm_gather_bk are timed in turns with
-             their first bodies too.
+             tile_gemm_fp8, nm_spmm_gather_bk, tile_gemm_dual and
+             nm_spmm_gather_dual_bk are timed in turns with their first
+             bodies too, each with its plan; the two duals must give the
+             same bits on a second launch.
    k11     — the K-major gather K11 (nm_spmm_gather bf16 in / fp32 out,
              nm_spmm_gather_int8 and _fp8, each raw and scaled) at the
              row-parallel sites' local shapes of a (1, 2) mesh of
@@ -283,6 +294,8 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            "tile_gemm_fp8": "src/repro_torch/kernels/csrc/tile_gemm_sm90_fp8.cuh",
            "nm_spmm_gather_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           "tile_gemm_dual": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
+           "nm_spmm_gather_dual_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
            "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -437,14 +450,16 @@ class _EarlierLib:
 @contextlib.contextmanager
 def earlier_kernels():
     """Inside, the flash_attention, nm_spmm, tile_gemm, nm_spmm_fp8,
-    tile_gemm_fp8 (and _requant) and nm_spmm_gather_bk wrappers launch the
-    port's first bodies (``flash_attention_wmma.cu``; the shared bodies of
-    gemm.cu and gemm_fp8.cu at every n and row count, ``vg_nm_spmm_tiled``,
+    tile_gemm_fp8 (and _requant), nm_spmm_gather_bk, tile_gemm_dual and
+    nm_spmm_gather_dual_bk wrappers launch the port's first bodies
+    (``flash_attention_wmma.cu``; the shared bodies of gemm.cu and
+    gemm_fp8.cu at every n and row count, ``vg_nm_spmm_tiled``,
     ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
-    ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``, at the row
-    block the first form took: 16 up to 16 rows, else 64) instead of the
-    current ones: the ``earlier_ms`` yardstick, through the same wrappers
-    and checks."""
+    ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``,
+    ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``, at the
+    row block the first form took: 16 up to 16 rows, else 64) instead of
+    the current ones: the ``earlier_ms`` yardstick, through the same
+    wrappers and checks."""
     from repro_torch.kernels import _build
 
     gemm = _build.library("gemm.cu")
@@ -467,10 +482,19 @@ def earlier_kernels():
     def nm_spmm_gather_bk_tiled(*args):   # (.., bm, body, bn, split, stream): likewise
         return gemm.vg_nm_spmm_gather_bk_tiled(*args[:11], 16 if args[11] == 16 else 64,
                                                args[-1])
+
+    def tile_gemm_dual_tiled(*args):   # (.., o, bm, body, bn, split, stream): likewise
+        return gemm.vg_tile_gemm_dual_tiled(*args[:7], 16 if args[7] == 16 else 64, args[-1])
+
+    def nm_spmm_gather_dual_bk_tiled(*args):   # (.., n, bm, body, bn, split, scratch, stream)
+        return gemm.vg_nm_spmm_gather_dual_bk_tiled(*args[:10], 16 if args[10] == 16 else 64,
+                                                    args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
                                           vg_tile_gemm=tile_gemm_tiled,
-                                          vg_nm_spmm_gather_bk=nm_spmm_gather_bk_tiled)
+                                          vg_nm_spmm_gather_bk=nm_spmm_gather_bk_tiled,
+                                          vg_tile_gemm_dual=tile_gemm_dual_tiled,
+                                          vg_nm_spmm_gather_dual_bk=nm_spmm_gather_dual_bk_tiled)
     _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
                                               vg_tile_gemm_fp8=tile_gemm_fp8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
@@ -483,9 +507,9 @@ def earlier_kernels():
 
 
 def in_turns(fn, operands, **kw) -> tuple:
-    """(current, earlier) device ms of ``fn`` (a flash_attention, nm_spmm,
-    tile_gemm or nm_spmm_fp8 call), timed earlier, current, current,
-    earlier and averaged per body."""
+    """(current, earlier) device ms of ``fn`` (a call of a wrapper that
+    ``earlier_kernels`` swaps), timed earlier, current, current, earlier
+    and averaged per body."""
     with earlier_kernels():
         e1 = time_ms(fn, operands, **kw)
     c = time_ms(fn, operands, **kw) + time_ms(fn, operands, **kw)
@@ -506,7 +530,7 @@ def card() -> str:
 def kernel_phase(cfg, gen, card_line: str):
     from repro_torch.core import nm
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm, nm_spmm_dual, split_k
-    from repro_torch.kernels.tile_gemm.kernel import plan, tile_gemm, tile_gemm_dual
+    from repro_torch.kernels.tile_gemm.kernel import dual_plan, plan, tile_gemm, tile_gemm_dual
     from repro_torch.kernels.epilogue import EpilogueSpec
     from repro_torch.kernels.nm_spmm.ref import (dense_weight, nm_spmm_dual_ref,
                                                  nm_spmm_ref)
@@ -559,12 +583,17 @@ def kernel_phase(cfg, gen, card_line: str):
                  for _ in range(copies_for(4 * k * o))]
         ops = [(x, g, u) for g, u in pairs]
         y = tile_gemm_dual(*ops[0])
+        again = tile_gemm_dual(*ops[0])
         torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            fail(f"tile_gemm_dual B={b} K={k} O={o}: not the same bits on a second launch")
         cats = [(x, torch.cat([g, u], dim=1)) for g, u in pairs[:2]]
+        t_now, t_earlier = in_turns(tile_gemm_dual, ops)
         record("tile_gemm_dual", b, k, o, 4, y, tile_gemm_dual_ref(*ops[0]),
-               time_ms(tile_gemm_dual, ops), time_ms(tile_gemm_dual_ref, ops),
+               t_now, time_ms(tile_gemm_dual_ref, ops),
                time_ms(torch.matmul, cats),
-               2 * (b * k + 2 * k * o + b * o), 4 * b * k * o)
+               2 * (b * k + 2 * k * o + b * o), 4 * b * k * o,
+               earlier_ms=t_earlier, plan=dual_plan(b, k, o))
         for n in (1, 2):
             comp = []
             for i in range(copies_for(k * o * n)):
@@ -971,10 +1000,22 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
             lib_fn, lib_ops = library_pair(x, xs, pairs, n)
             kc = k * n // 4
             xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
+            extra = {}
+            if qdtype is None:     # the redesigned bodies, beside the first one
+                got = run(*ops[0])
+                again = run(*ops[0])
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"nm_spmm_gather_dual_bk B={b} K={k} O={o} n={n}: not the same "
+                         f"bits on a second launch")
+                t_run, extra["earlier_ms"] = in_turns(run, ops)
+                extra["plan"] = gk.dual_plan(b, k, o, n)
+            else:
+                t_run = time_ms(run, ops)
             record(f"nm_spmm_gather_dual_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                   time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+                   t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                    xbytes + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o, peak=peak,
-                   library="two calls (gate, up) on pre-gathered X")
+                   library="two calls (gate, up) on pre-gathered X", **extra)
             if qdtype is not None:
                 # the requant:<dtype> flush, against the scale a calibration on
                 # these rows would give w_out: absmax / qmax
@@ -998,6 +1039,90 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                        library="two calls (gate, up) on pre-gathered X")
                 del ops_q
             del pairs, ops, lib_ops
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+# the dual plans' boundary: 64-row launches (17-255 rows), where
+# tile_gemm/kernel.py::dual_plan and nm_spmm_gather/kernel.py::dual_plan
+# choose between the three bodies by the stream's K split (and K9 at 1:4 by
+# K_c)
+DUAL_SWEEP_ROWS = (17, 33, 48, 64, 128)
+
+
+def dual_sweep_phase(shapes, gen, card_line):
+    """Each body of the two float duals alone, through the C interface: the
+    shared body (the first form), the stream at ``stream_plan``'s split and
+    the wgmma body, at the gate-up pairs ``shapes`` ((K, O): internlm2-1.8b,
+    phi-3-vision, qwen3-moe's experts), B in DUAL_SWEEP_ROWS, K9 at n in {2,
+    1}.  Every body must be within TOL of max|plain|; one JSON line per
+    shape names the body the plan picks and every body's time (CUDA-graph
+    replays, weights rotated as in the kernel phase)."""
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather.ref import nm_spmm_gather_dual_ref
+    from repro_torch.kernels.tile_gemm.kernel import BODY_CODES, dual_plan, stream_plan
+    from repro_torch.kernels.tile_gemm.ref import tile_gemm_dual_ref
+
+    dev, bf16 = "cuda", torch.bfloat16
+    lib = _build.library()
+
+    def call(name, body, bm, bn, split, n=None):
+        def f(x, *w):
+            b = x.shape[0]
+            o = w[0].shape[1]
+            y = torch.empty((b, o), dtype=bf16, device=dev)
+            ptrs = [t.data_ptr() for t in (x, *w)]
+            if n is None:
+                rc = lib.vg_tile_gemm_dual(*ptrs, y.data_ptr(), b, x.shape[1], o, bm,
+                                           BODY_CODES[body], bn, split, _build.stream_of(x))
+            else:
+                xg = (torch.empty((b, 2 * w[0].shape[0]), dtype=bf16, device=dev)
+                      if body == "wgmma" else None)
+                rc = lib.vg_nm_spmm_gather_dual_bk(*ptrs, y.data_ptr(), b, x.shape[1], o, n, bm,
+                                                   BODY_CODES[body], bn, split,
+                                                   None if xg is None else xg.data_ptr(),
+                                                   _build.stream_of(x))
+            _build.check(rc, name, lib)
+            return y
+        return f
+
+    def sweep(name, weights, plain, plan_of, kc, n=None):
+        k = weights[0][0].shape[0] if n is None else kc * 4 // n
+        o = weights[0][0].shape[1]
+        for b in DUAL_SWEEP_ROWS:
+            x = torch.randn((b, k), generator=gen, device=dev).to(bf16)
+            ops = [(x, *w) for w in weights]
+            want = plain(*ops[0])
+            ms = {}
+            for body, (bm, bn, split) in (("shared", (64, 64, 1)),
+                                          ("stream", (64, 64, stream_plan(b, kc, o)["split"])),
+                                          ("wgmma", (128, 128, 1))):
+                f = call(name, body, bm, bn, split, n)
+                e = scaled_err(f(*ops[0]), want)
+                if not (e <= TOL):
+                    fail(f"{name} {body} body B={b} K={k} O={o} n={n}: error {e:.3e} > {TOL}")
+                ms[body] = time_ms(f, ops)
+            log(json.dumps({"sweep": name, "B": b, "K": k, "O": o, "n": n or 4,
+                            "plan": plan_of(b, k, o)["body"], "ms": ms,
+                            "stream_split": stream_plan(b, kc, o)["split"], "card": card_line}))
+
+    for k, o in shapes:
+        pairs = [tuple((torch.randn((k, o), generator=gen, device=dev) * k ** -0.5).to(bf16)
+                       for _ in range(2)) for _ in range(copies_for(4 * k * o))]
+        sweep("tile_gemm_dual", pairs, tile_gemm_dual_ref, dual_plan, k)
+        for n in (2, 1):
+            kc = k * n // 4
+            leaves = [tuple(convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"),
+                                           "gather") for w in pair) for pair in pairs]
+            weights = [(g["values"], g["gather_idx"], u["values"], u["gather_idx"])
+                       for g, u in leaves]
+            sweep("nm_spmm_gather_dual_bk", weights,
+                  lambda *a, n=n: nm_spmm_gather_dual_ref(*a, n),
+                  lambda b_, k_, o_, n=n: gk.dual_plan(b_, k_, o_, n), kc, n)
+            del leaves, weights
+        del pairs
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -2367,13 +2492,23 @@ def prefill_kernel_phase(base_cfg, prefill_runs, batch_shape, gen, card_line, ro
                 fail(f"{name}: the wrapper did not count its launch")
             want = plain(*ops[0])
             extra = {"bitwise": bool(torch.equal(got, want))} if int8 and site == "gelu" else {}
-            if name in ("nm_spmm", "tile_gemm", "tile_gemm_fp8", "nm_spmm_gather_bk"):
+            if name in ("nm_spmm", "tile_gemm", "tile_gemm_fp8", "nm_spmm_gather_bk",
+                        "tile_gemm_dual", "nm_spmm_gather_dual_bk"):
                 # the redesigned bodies, beside the first
+                if site == "dual":
+                    again = run(*ops[0])
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        fail(f"{name} B={m} K={k} O={o}: not the same bits on a second launch")
                 t_run, extra["earlier_ms"] = in_turns(run, ops, calls=8)
                 if name == "tile_gemm_fp8":
                     extra["plan"] = km.fp8_plan(m, k, o)
                 elif name == "nm_spmm_gather_bk":
                     extra["plan"] = km.plan(m, k, o, n)
+                elif name == "tile_gemm_dual":
+                    extra["plan"] = km.dual_plan(m, k, o)
+                elif name == "nm_spmm_gather_dual_bk":
+                    extra["plan"] = km.dual_plan(m, k, o, n)
             else:
                 t_run = time_ms(run, ops, calls=8)
             record(name, m, k, o, n, got, want, t_run,
@@ -2802,6 +2937,11 @@ def main():
     for qdtype in (None, torch.int8, FP8):
         gather_kernel_phase(cfg, gen, card_line, rows, qdtype)
     log(f"gather kernel phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe_cfg = get_config(MOE_ARCH)
+    dual_sweep_phase([(c.d_model, c.d_ff) for c in (cfg, get_config(PHI3_ARCH), moe_cfg)],
+                     gen, card_line)
+    log(f"dual sweep phase {time.perf_counter() - t0:.1f}s")
     t_new = time.perf_counter()
     kmajor_kernel_phase(cfg, gen, card_line, rows)
     k11_s = time.perf_counter() - t_new
@@ -2828,7 +2968,6 @@ def main():
 
     t_serving = time.perf_counter()
     served, tiers, launches = [], [], {}
-    moe_cfg = get_config(MOE_ARCH)
     runs = [(cfg, layout, sparsity, qdtype, static, depth, None, {})
             for layout, sparsity, qdtype, static, depth in LAYOUTS]
     runs += [(moe_cfg, layout, sparsity, qdtype, static, MOE_DEPTH, path, {})
@@ -2903,7 +3042,10 @@ def main():
     # run the first, its prefill rows the last; K8's gather pass is gemm.cu's)
     bodies = {"tile_gemm": (SOURCES["nm_spmm"], SOURCES["tile_gemm"]),
               "tile_gemm_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["tile_gemm_fp8"]),
-              "nm_spmm_gather_bk": (SOURCES["nm_spmm"], SOURCES["float"], SOURCES["tile_gemm"])}
+              "nm_spmm_gather_bk": (SOURCES["nm_spmm"], SOURCES["float"], SOURCES["tile_gemm"]),
+              "tile_gemm_dual": (SOURCES["nm_spmm"], SOURCES["tile_gemm"]),
+              "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
+                                         SOURCES["tile_gemm"])}
     for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
@@ -2924,10 +3066,9 @@ def main():
             entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
                                             if r["kernel"] == name)
         if name in bodies:
-            # the many-row body: hubert-xlarge's prefill sites at 4000 rows (K8:
-            # and phi-3-vision's at 1024)
-            pre = [r for r in rows if r["kernel"] == name and "prefill" in r
-                   and r["site"] != "dual"]
+            # the many-row body: hubert-xlarge's prefill sites at 4000 rows (K8
+            # and the duals: phi-3-vision's at 1024)
+            pre = [r for r in rows if r["kernel"] == name and "prefill" in r]
             entry["bodies"] = bodies[name]
             entry["prefill"] = {
                 "measured_as": "the prefill sites (K, O) at their rows "

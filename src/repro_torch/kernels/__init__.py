@@ -36,7 +36,9 @@ KERNELS = {
        ("tile_gemm_masked", "tile_gemm_masked_int8", "tile_gemm_masked_fp8")},
     **{name: getattr(_nm_spmm, name) for name in
        ("nm_spmm_masked", "nm_spmm_masked_int8", "nm_spmm_masked_fp8")},
-    **{name: getattr(_nm_spmm_gather, name) for name in _nm_spmm_gather.__all__},
+    # the module's wrappers, not its planners and constants
+    **{name: getattr(_nm_spmm_gather, name) for name in _nm_spmm_gather.__all__
+       if hasattr(getattr(_nm_spmm_gather, name), "launches")},
 }
 
 

@@ -47,14 +47,16 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_masked": (_P,) * 5 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
-        "vg_tile_gemm_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "vg_tile_gemm_dual": (_P,) * 4 + (_I,) * 7 + (_P,),
+        "vg_tile_gemm_dual_tiled": (_P,) * 4 + (_I,) * 4 + (_P,),
         "vg_nm_spmm": (_P,) * 5 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_tiled": (_P,) * 5 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "vg_nm_spmm_gather_bk": (_P,) * 5 + (_I,) * 10 + (_P, _P),
         "vg_nm_spmm_gather_bk_tiled": (_P,) * 5 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather": (_P,) * 4 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_gather_dual_bk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "vg_nm_spmm_gather_dual_bk": (_P,) * 6 + (_I,) * 8 + (_P, _P),
+        "vg_nm_spmm_gather_dual_bk_tiled": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
     "gemm_int8.cu": {
         "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 6 + (_P,),

@@ -73,11 +73,17 @@
 // 2} runs those two bodies over its dense values with the X side gathered
 // (the stream selecting each step's X tile; from 256 rows a gather pass in
 // front of the wgmma body, gather_then_k1 below), as
-// nm_spmm_gather/kernel.py::plan picks.  vg_nm_spmm_tiled,
-// vg_tile_gemm_tiled and vg_nm_spmm_gather_bk_tiled keep the shared body
-// below for them, the forms the port ran first, as yardsticks.  nm_spmm at
-// n = 4, the duals, the masked singles, K8 at n = 4 and K11 stay on the
-// shared body.
+// nm_spmm_gather/kernel.py::plan picks.  The float gate-up duals run the
+// dual forms of those two bodies (both weights' tiles a stage, two
+// accumulators, one silu(g) * u flush), as the dual_plans pick:
+// tile_gemm_dual over its dense weights, nm_spmm_gather_dual_bk (K9) at n
+// in {1, 2} with one X span a step selected twice in the stream and, in
+// front of the wgmma body, one gather pass writing both compact X's
+// (gather_dual_then_wgmma below).  vg_nm_spmm_tiled, vg_tile_gemm_tiled,
+// vg_nm_spmm_gather_bk_tiled, vg_tile_gemm_dual_tiled and
+// vg_nm_spmm_gather_dual_bk_tiled keep the shared body below for them, the
+// forms the port ran first, as yardsticks.  nm_spmm at n = 4, nm_spmm_dual,
+// the masked singles, K8 and K9 at n = 4 and K11 stay on the shared body.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
@@ -602,17 +608,19 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // registers from a TMA-loaded span (wgmma with A from registers; the span
 // is twice the gathered bytes at 2:4, and the ring held 3 stages of it),
 // and warps of the producer selecting the A tile into shared memory.
-template <int G>
+// TWO (K9's pass): the unit's chunks are read once and selected twice,
+// through idx and idx_u, into xg (B, 2 K_c): the gate's compact X in columns
+// [0, K_c), the up's in [K_c, 2 K_c) -- the TPU kernel's promise that X
+// crosses HBM once.
+template <int G, bool TWO = false>
 __global__ void __launch_bounds__(256)
 gather_columns_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
-                      __nv_bfloat16* __restrict__ xg, int b, int kc) {
+                      const int* __restrict__ idx_u, __nv_bfloat16* __restrict__ xg, int b,
+                      int kc) {
   const int per_row = kc / 8;
   const long long u = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
   if (u >= static_cast<long long>(b) * per_row) return;
   const int row = static_cast<int>(u / per_row), j0 = static_cast<int>(u % per_row) * 8;
-  const int4 i0 = __ldg(reinterpret_cast<const int4*>(idx + j0));
-  const int4 i1 = __ldg(reinterpret_cast<const int4*>(idx + j0 + 4));
-  const int e[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
   const uint4* src =
       reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * (kc / G * 4) + j0 / G * 4);
   uint32_t w[16 / G];
@@ -624,39 +632,75 @@ gather_columns_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict
     w[4 * c + 2] = v.z;
     w[4 * c + 3] = v.w;
   }
-  uint32_t out[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if constexpr (G == 2)      // the pair's M-block: words 2q, 2q + 1
-      out[q] = sp::pick_half(w[2 * q], w[2 * q + 1], e[2 * q], 0) |
-               sp::pick_half(w[2 * q], w[2 * q + 1], e[2 * q + 1], 1);
-    else                       // blocks 2q, 2q + 1: words 4q .. + 3
-      out[q] = sp::pick_half(w[4 * q], w[4 * q + 1], e[2 * q], 0) |
-               sp::pick_half(w[4 * q + 2], w[4 * q + 3], e[2 * q + 1], 1);
+  for (int t = 0; t < (TWO ? 2 : 1); ++t) {
+    const int* ix = t ? idx_u : idx;
+    const int4 i0 = __ldg(reinterpret_cast<const int4*>(ix + j0));
+    const int4 i1 = __ldg(reinterpret_cast<const int4*>(ix + j0 + 4));
+    const int e[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+    uint32_t out[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (G == 2)      // the pair's M-block: words 2q, 2q + 1
+        out[q] = sp::pick_half(w[2 * q], w[2 * q + 1], e[2 * q], 0) |
+                 sp::pick_half(w[2 * q], w[2 * q + 1], e[2 * q + 1], 1);
+      else                       // blocks 2q, 2q + 1: words 4q .. + 3
+        out[q] = sp::pick_half(w[4 * q], w[4 * q + 1], e[2 * q], 0) |
+                 sp::pick_half(w[4 * q + 2], w[4 * q + 3], e[2 * q + 1], 1);
+    }
+    *reinterpret_cast<uint4*>(xg + static_cast<size_t>(row) * (TWO ? 2 * kc : kc) + t * kc +
+                              j0) = make_uint4(out[0], out[1], out[2], out[3]);
   }
-  *reinterpret_cast<uint4*>(xg + static_cast<size_t>(row) * kc + j0) =
-      make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// the pass into the caller's scratch xg, then K1's body with bn channels a tile
+// The pass into the caller's scratch xg: one thread a 16-byte unit of each
+// compact X; idx_u == nullptr writes one (B, K_c), else both into (B, 2 K_c)
+int gather_pass(int n, const void* x, const void* idx, const void* idx_u, void* xg, int b,
+                int kc, cudaStream_t s) {
+  const long long units = static_cast<long long>(b) * (kc / 8);
+  const int blocks = static_cast<int>((units + 255) / 256);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int* gi = static_cast<const int*>(idx);
+  const int* ui = static_cast<const int*>(idx_u);
+  __nv_bfloat16* gb = static_cast<__nv_bfloat16*>(xg);
+  if (ui == nullptr) {
+    if (n == 2) gather_columns_kernel<2><<<blocks, 256, 0, s>>>(xb, gi, ui, gb, b, kc);
+    else gather_columns_kernel<1><<<blocks, 256, 0, s>>>(xb, gi, ui, gb, b, kc);
+  } else {
+    if (n == 2) gather_columns_kernel<2, true><<<blocks, 256, 0, s>>>(xb, gi, ui, gb, b, kc);
+    else gather_columns_kernel<1, true><<<blocks, 256, 0, s>>>(xb, gi, ui, gb, b, kc);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n in {1, 2}, K_c = ke * n / 4 a multiple of 64, a scratch given
+bool gather_pass_ok(int n, int b, int ke, int o, const void* xg) {
+  return b > 0 && ke > 0 && o > 0 && (n == 1 || n == 2) && (ke * n) % 4 == 0 &&
+         (ke * n / 4) % BK == 0 && xg != nullptr;
+}
+
+// the pass, then K1's body with bn channels a tile
 int gather_then_k1(int n, int bn, const void* x, const void* values, const void* idx, void* xg,
                    const void* bias, void* y, int b, int ke, int o, int act, int out_f32,
                    void* stream) {
+  if (!gather_pass_ok(n, b, ke, o, xg)) return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
-  if (b <= 0 || ke <= 0 || o <= 0 || (n != 1 && n != 2) || (ke * n) % 4 != 0 ||
-      kc % BK != 0 || xg == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long units = static_cast<long long>(b) * (kc / 8);
-  const int blocks = static_cast<int>((units + 255) / 256);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const int* ix = static_cast<const int*>(idx);
-  __nv_bfloat16* gb = static_cast<__nv_bfloat16*>(xg);
-  if (n == 2) gather_columns_kernel<2><<<blocks, 256, 0, s>>>(xb, ix, gb, b, kc);
-  else gather_columns_kernel<1><<<blocks, 256, 0, s>>>(xb, ix, gb, b, kc);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int e = gather_pass(n, x, idx, nullptr, xg, b, kc, static_cast<cudaStream_t>(stream));
+  if (e != 0) return e;
   return tg::launch_bn(bn, xg, values, bias, y, b, kc, o, act, out_f32, stream);
+}
+
+// K9's many-row body (nm_spmm_gather/kernel.py::dual_plan's wgmma): one pass
+// writes both compact X's into xg (B, 2 K_c), then the dual wgmma body
+// (tile_gemm_sm90.cuh) with two X tiles a stage
+int gather_dual_then_wgmma(int n, const void* x, const void* vg, const void* ig, const void* vu,
+                           const void* iu, void* xg, void* y, int b, int ke, int o,
+                           void* stream) {
+  if (!gather_pass_ok(n, b, ke, o, xg)) return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  const int e = gather_pass(n, x, ig, iu, xg, b, kc, static_cast<cudaStream_t>(stream));
+  if (e != 0) return e;
+  return tg::launch_dual(2, xg, vg, vu, y, b, kc, o, stream);
 }
 
 }  // namespace
@@ -698,8 +742,27 @@ int vg_tile_gemm_masked(const void* x, const void* w, const void* kmask, const v
                                                          k, k, o, act, stream);
 }
 
+// tile_gemm/kernel.py::dual_plan's body: 0, the shared body (bm 16 | 64, bn
+// 64, split 1); 1, the stream over both weights (nm_spmm_sp.cuh; bm 16 | 64,
+// bn 64), K split over `split` blocks of a cluster; 2, the dual wgmma body
+// (tile_gemm_sm90.cuh; bm 128, bn 128, split 1)
 int vg_tile_gemm_dual(const void* x, const void* wg, const void* wu, void* y, int b, int k,
-                      int o, int bm, void* stream) {
+                      int o, int bm, int body, int bn, int split, void* stream) {
+  if (body == 0) {
+    if (bn != 64 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
+                                        nullptr, nullptr, y, b, k, k, o, ACT_NONE, stream);
+  }
+  if (body == 1 && bn == 64) return sp::launch_dual(bm, x, wg, wu, y, b, k, o, split, stream);
+  if (body == 2 && bm == tg::BM && bn == 128 && split == 1)
+    return tg::launch_dual(1, x, wg, wu, y, b, k, o, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body: the first form of tile_gemm_dual, timed beside the
+// current bodies (not on any path)
+int vg_tile_gemm_dual_tiled(const void* x, const void* wg, const void* wu, void* y, int b,
+                            int k, int o, int bm, void* stream) {
   return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
                                       nullptr, nullptr, y, b, k, k, o, ACT_NONE, stream);
 }
@@ -787,9 +850,35 @@ int vg_nm_spmm_gather_bk_masked(const void* x, const void* values, const void* i
                                     k, o, act, stream);
 }
 
+// k is K_eff.  nm_spmm_gather/kernel.py::dual_plan's body: 0, the shared
+// body (any n; bm 16 | 64, bn 64, split 1); 1, the stream over both values
+// with one span a step selected twice (nm_spmm_sp.cuh; n in {1, 2}, bm 16 |
+// 64, bn 64), K_c split over `split` blocks of a cluster; 2, the dual gather
+// pass into `scratch` (B, 2 K_c) bf16, then the dual wgmma body with two X
+// tiles (n in {1, 2}, bm 128, bn 128, split 1).  scratch is read only by body 2.
 int vg_nm_spmm_gather_dual_bk(const void* x, const void* values_g, const void* idx_g,
                               const void* values_u, const void* idx_u, void* y, int b, int k,
-                              int o, int n, int bm, void* stream) {
+                              int o, int n, int bm, int body, int bn, int split, void* scratch,
+                              void* stream) {
+  if (body == 0) {
+    if (bn != 64 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, nullptr, y,
+                               b, k, o, ACT_NONE, stream);
+  }
+  if (body == 1 && bn == 64)
+    return sp::launch_gather_dual(n, bm, x, values_g, idx_g, values_u, idx_u, y, b, k, o, split,
+                                  stream);
+  if (body == 2 && bm == tg::BM && bn == 128 && split == 1)
+    return gather_dual_then_wgmma(n, x, values_g, idx_g, values_u, idx_u, scratch, y, b, k, o,
+                                  stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body at any n: the first form of nm_spmm_gather_dual_bk, timed
+// beside the current bodies (not on any path)
+int vg_nm_spmm_gather_dual_bk_tiled(const void* x, const void* values_g, const void* idx_g,
+                                    const void* values_u, const void* idx_u, void* y, int b,
+                                    int k, int o, int n, int bm, void* stream) {
   return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, nullptr, y, b,
                              k, o, ACT_NONE, stream);
 }

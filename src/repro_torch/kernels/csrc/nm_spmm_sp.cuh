@@ -1,10 +1,13 @@
 // nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2};
 // and the same streaming body over a dense weight (N = 4): K1's few-row
 // tile_gemm, and, with the X side gathered (G = n in {1, 2}), K8's few-row
-// nm_spmm_gather_bk over its dense values.  Included by gemm.cu, whose
-// vg_nm_spmm, vg_tile_gemm and vg_nm_spmm_gather_bk launch it; every other
-// GEMM of gemm.cu keeps the shared gemm_kernel body, and the many-row
-// bodies of tile_gemm and nm_spmm_gather_bk are tile_gemm_sm90.cuh's.
+// nm_spmm_gather_bk over its dense values; in DUAL form (two weights, two
+// accumulators, one silu(g) * u flush) the float gate-up duals' few-row
+// tile_gemm_dual and nm_spmm_gather_dual_bk (K9).  Included by gemm.cu,
+// whose vg_nm_spmm, vg_tile_gemm, vg_nm_spmm_gather_bk, vg_tile_gemm_dual
+// and vg_nm_spmm_gather_dual_bk launch it; every other GEMM of gemm.cu keeps
+// the shared gemm_kernel body, and the many-row bodies of those four are
+// tile_gemm_sm90.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   nm_spmm    repro/kernels/nm_spmm/kernel.py::nm_spmm (_spmm_accumulate,
@@ -15,6 +18,13 @@
 //   nm_spmm_gather_bk  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk
 //              (_gather_bk_kernel), float, n in {1, 2}, at the same row counts
 //              (nm_spmm_gather/kernel.py::plan)
+//   tile_gemm_dual  repro/kernels/tile_gemm/kernel.py::tile_gemm_dual
+//              (_gemm_dual_kernel), float, at the row counts of
+//              tile_gemm/kernel.py::dual_plan's stream (decode; qwen3-moe's
+//              expert chunks)
+//   nm_spmm_gather_dual_bk  repro/kernels/nm_spmm_gather/kernel.py::
+//              nm_spmm_gather_dual_bk (_gather_dual_kernel), float, n in {1,
+//              2}, likewise (nm_spmm_gather/kernel.py::dual_plan)
 //
 // Y (B, O) = X (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16, O)).
 // The TPU kernel decompresses each tile with a compare-and-select and
@@ -80,6 +90,18 @@
 // select does), one more block barrier, then the same products.  At decode
 // the span is 4-8 KB a step and the select pass ~2 KB.  Bound: values +
 // index + X bytes over 3.35 TB/s, as K1's with n/4 of its weight.
+//
+// The gate-up duals (DUAL).  A stage carries the step's tiles of both
+// weights beside ONE X tile (dense) or ONE span (gathered: both index
+// slices ride along, and the select pass reads each unit's span words once
+// and selects them twice, into two compact tiles); each warp keeps two
+// accumulator sets; the split's inbox holds both partials, summed in rank
+// order plane by plane (splitk::finish_planes) before the one flush,
+// silu(g) * u in fp32 and one cast (flush_tile's silu_mul point).  At
+// internlm2-1.8b's gate-up (2048, 8192) at decode that is 128 tiles split 2
+// over a cluster, two blocks an SM (91 KB dense, 106 KB gathered at 2:4
+// each; 1:4's span takes a 3-deep ring to stay at two).  Bound: both
+// weights' bytes (+ indices) + X once, over 3.35 TB/s.
 
 #pragma once
 
@@ -99,28 +121,39 @@ constexpr int VLD = BO + 8;         // bf16 pitch of the values tile (ldmatrix r
 constexpr int XLD = BKS + 8;        // bf16 pitch of the X tile
 constexpr int PLD = BO + 4;         // fp32 pitch of the partial tile
 
-template <int N, int BM, int G = 0>
+// A stage is [values (gate)][values (up)][meta][indices (gate)][indices
+// (up)][X], the up tiles for a DUAL only: the gate-up duals carry both
+// weights' tiles of the step (and both index slices) beside ONE X tile or
+// span.
+template <int N, int BM, int G = 0, bool DUAL = false>
 struct Layout {
   static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
   static_assert(G == 0 || (N == 4 && (G == 1 || G == 2)),
                 "the gathered X (1:4 | 2:4) streams against dense values");
+  static_assert(!DUAL || N == 4, "the gate-up duals stream dense weights or gathered values");
+  static constexpr int NW = DUAL ? 2 : 1;        // weights a stage (gate, up)
   // ring depth: 4 stages at decode (a deeper ring streamed no faster on
   // the H100) and for the dense weight; 3 at the sparse 64-row tile, which
-  // keep 4 blocks on an SM, and at the gathered 64-row tile (its span)
-  static constexpr int STAGES = (BM == 16 || (N == 4 && G == 0)) ? 4 : 3;
+  // keep 4 blocks on an SM, and at the gathered 64-row tile (its span);
+  // 3 for the gathered dual at 1:4 and 16 rows, whose 4 (120 KB) would
+  // leave one block an SM
+  static constexpr int STAGES =
+      (DUAL && G == 1 && BM == 16) ? 3 : (BM == 16 || (N == 4 && G == 0)) ? 4 : 3;
   static constexpr int VROWS = BKS * N / 4;      // weight rows a stage (16 | 32 | 64)
   static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
-  static constexpr int V_BYTES = VROWS * VLD * 2;
+  static constexpr int V_BYTES = VROWS * VLD * 2;             // one weight's tile
   static constexpr int M_BYTES = MROWS * BO;
-  static constexpr int I_BYTES = G ? BKS * 4 : 0;            // the step's int32 indices
+  static constexpr int I_BYTES = G ? BKS * 4 : 0;            // one stream's int32 indices
   static constexpr int SPAN = G ? 256 / G : BKS;             // X columns a stage
   static constexpr int SLD = G ? SPAN + 8 : XLD;             // bf16 pitch of the X rows
   static constexpr int X_BYTES = BM * SLD * 2;
-  static constexpr int STAGE = V_BYTES + M_BYTES + I_BYTES + X_BYTES;   // a multiple of 16
-  static constexpr int PART = BM * PLD * 4;                   // the partial tile
+  static constexpr int I_AT = NW * V_BYTES + M_BYTES;        // the indices in a stage
+  static constexpr int X_AT = I_AT + NW * I_BYTES;           // the X tile (or span)
+  static constexpr int STAGE = X_AT + X_BYTES;                // a multiple of 16
+  static constexpr int PART = NW * BM * PLD * 4;              // the partial tiles
   static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
-  static constexpr int COMPACT = G ? BM * XLD * 2 : 0;        // the selected X tile (gather)
-  static constexpr int INBOX = BM * BO * 4;   // the peers' partial slices (split > 1 only)
+  static constexpr int COMPACT = G ? NW * BM * XLD * 2 : 0;   // the selected X tiles (gather)
+  static constexpr int INBOX = NW * BM * BO * 4;  // the peers' partial slices (split > 1 only)
 };
 
 // Candidate e of an M-block of four bf16 held in (lo, hi), into half h of a
@@ -159,13 +192,17 @@ __device__ __forceinline__ uint32_t pair_1of4(uint32_t v, uint32_t i) {
 }
 
 // k: the contraction (K, or K_c for the gathered X, whose `meta` is the
-// int32 index and whose X rows are K_eff = k * 4 / G wide)
-template <int N, int BM, int G = 0>
+// int32 index and whose X rows are K_eff = k * 4 / G wide).  DUAL: v2 and
+// meta2 are the up weight's (v, meta the gate's), the flush silu(g) * u.
+template <int N, int BM, int G = 0, bool DUAL = false>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ v,
-                  const uint8_t* __restrict__ meta, const float* __restrict__ bias,
+                  const uint8_t* __restrict__ meta, const __nv_bfloat16* __restrict__ v2,
+                  const uint8_t* __restrict__ meta2, const float* __restrict__ bias,
                   void* __restrict__ y, int b, int k, int o, int act, int out_f32, int split) {
-  using L = Layout<N, BM, G>;
+  using L = Layout<N, BM, G, DUAL>;
+  constexpr int NW = L::NW;
+  constexpr int NXT = (DUAL && G != 0) ? 2 : 1;  // X tiles the products read (gathered dual: 2)
   constexpr int WN = BM == 16 ? 1 : 2;         // warps along the batch rows
   constexpr int WM = 4 / WN;                   // warps along the channels
   constexpr int MT = BO / (16 * WM);           // m16 channel tiles a warp (1 | 2)
@@ -188,13 +225,17 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 
   auto load_stage = [&](int st, int s) {
     unsigned char* base = smem + st * L::STAGE;
-    __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(base);
-    uint8_t* ms = base + L::V_BYTES;
+    uint8_t* ms = base + NW * L::V_BYTES;
     const int kc0 = s * L::VROWS;
 #pragma unroll
-    for (int c = tid; c < L::VROWS * 8; c += NT) {
-      const int r = c >> 3, col = (c & 7) * 8;
-      cp_async16(vs + r * VLD + col, v + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+    for (int w = 0; w < NW; ++w) {
+      __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(base + w * L::V_BYTES);
+      const __nv_bfloat16* src = w ? v2 : v;
+#pragma unroll
+      for (int c = tid; c < L::VROWS * 8; c += NT) {
+        const int r = c >> 3, col = (c & 7) * 8;
+        cp_async16(vs + r * VLD + col, src + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+      }
     }
     if (tid < L::MROWS * 4) {
       const int r = tid >> 2, col = (tid & 3) * 16;
@@ -202,12 +243,15 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                  16);
     }
     if constexpr (G != 0) {
-      // the step's indices, and the X span they select from (ke = k * 4 / G)
-      int* is = reinterpret_cast<int*>(base + L::V_BYTES + L::M_BYTES);
-      __nv_bfloat16* xsp =
-          reinterpret_cast<__nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES + L::I_BYTES);
-      if (tid < BKS / 4)
-        cp_async16(is + 4 * tid, reinterpret_cast<const int*>(meta) + s * BKS + 4 * tid, 16);
+      // the step's indices (each weight's), and the X span they select from
+      // (ke = k * 4 / G): one span for both weights of a dual
+      int* is = reinterpret_cast<int*>(base + L::I_AT);
+      __nv_bfloat16* xsp = reinterpret_cast<__nv_bfloat16*>(base + L::X_AT);
+      if (tid < NW * BKS / 4) {
+        const int w = tid / (BKS / 4), q = tid % (BKS / 4);
+        cp_async16(is + w * BKS + 4 * q,
+                   reinterpret_cast<const int*>(w ? meta2 : meta) + s * BKS + 4 * q, 16);
+      }
       constexpr int CPR = L::SPAN / 8;             // 16-byte chunks of a span row
 #pragma unroll
       for (int c = tid; c < BM * CPR; c += NT) {
@@ -218,7 +262,7 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                    live ? 16 : 0);
       }
     } else {
-      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES);
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + L::X_AT);
 #pragma unroll
       for (int c = tid; c < BM * 8; c += NT) {
         const int r = c >> 3, col = (c & 7) * 8;
@@ -229,72 +273,93 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
   };
 
-  float acc[MT][NJ][4];
+  float acc[NW][MT][NJ][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        acc[w][mt][j][0] = acc[w][mt][j][1] = acc[w][mt][j][2] = acc[w][mt][j][3] = 0.f;
 
   auto compute = [&](int st) {
     const unsigned char* base = smem + st * L::STAGE;
     const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(base);
-    const uint8_t* ms = base + L::V_BYTES;
-    const __nv_bfloat16* xs =
-        reinterpret_cast<const __nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES);
+    const uint8_t* ms = base + NW * L::V_BYTES;
+    const __nv_bfloat16* xt[NXT];
+    xt[0] = reinterpret_cast<const __nv_bfloat16*>(base + L::X_AT);
     if constexpr (G != 0) {
       // the select pass: unit u = (row u / 8, compressed columns 8 (u % 8) ..
       // + 7) of the compact tile, one 16-byte store; column pair (2p, 2p + 1)
-      // reads M-block p (2:4: 8 span bytes) or blocks 2p, 2p + 1 (1:4)
-      const int* is = reinterpret_cast<const int*>(base + L::V_BYTES + L::M_BYTES);
-      const __nv_bfloat16* xsp =
-          reinterpret_cast<const __nv_bfloat16*>(base + L::V_BYTES + L::M_BYTES + L::I_BYTES);
+      // reads M-block p (2:4: 8 span bytes) or blocks 2p, 2p + 1 (1:4).  A
+      // dual reads the unit's span words once and selects twice, through
+      // each weight's indices, into two compact tiles.
+      const int* is = reinterpret_cast<const int*>(base + L::I_AT);
+      const __nv_bfloat16* xsp = reinterpret_cast<const __nv_bfloat16*>(base + L::X_AT);
       __nv_bfloat16* ct = reinterpret_cast<__nv_bfloat16*>(smem + L::RING);
 #pragma unroll
       for (int u = tid; u < BM * 8; u += NT) {
         const int r = u >> 3, j0 = (u & 7) * 8;
-        const int4 e0 = *reinterpret_cast<const int4*>(is + j0);
-        const int4 e1 = *reinterpret_cast<const int4*>(is + j0 + 4);
-        const int e[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
         const uint32_t* row = reinterpret_cast<const uint32_t*>(xsp + r * L::SLD + j0 / G * 4);
-        uint32_t out[4];
+        uint32_t wd[16 / G];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if constexpr (G == 2) {       // block q of the unit's four: words 2q, 2q + 1
-            out[q] = pick_half(row[2 * q], row[2 * q + 1], e[2 * q], 0) |
-                     pick_half(row[2 * q], row[2 * q + 1], e[2 * q + 1], 1);
-          } else {                      // blocks 2q, 2q + 1: words 4q .. + 3
-            out[q] = pick_half(row[4 * q], row[4 * q + 1], e[2 * q], 0) |
-                     pick_half(row[4 * q + 2], row[4 * q + 3], e[2 * q + 1], 1);
+        for (int i = 0; i < 16 / G; ++i) wd[i] = row[i];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          const int4 e0 = *reinterpret_cast<const int4*>(is + w * BKS + j0);
+          const int4 e1 = *reinterpret_cast<const int4*>(is + w * BKS + j0 + 4);
+          const int e[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+          uint32_t out[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if constexpr (G == 2) {     // block q of the unit's four: words 2q, 2q + 1
+              out[q] = pick_half(wd[2 * q], wd[2 * q + 1], e[2 * q], 0) |
+                       pick_half(wd[2 * q], wd[2 * q + 1], e[2 * q + 1], 1);
+            } else {                    // blocks 2q, 2q + 1: words 4q .. + 3
+              out[q] = pick_half(wd[4 * q], wd[4 * q + 1], e[2 * q], 0) |
+                       pick_half(wd[4 * q + 2], wd[4 * q + 3], e[2 * q + 1], 1);
+            }
           }
+          *reinterpret_cast<uint4*>(ct + w * BM * XLD + r * XLD + j0) =
+              make_uint4(out[0], out[1], out[2], out[3]);
         }
-        *reinterpret_cast<uint4*>(ct + r * XLD + j0) = make_uint4(out[0], out[1], out[2], out[3]);
       }
       __syncthreads();
-      xs = ct;
+#pragma unroll
+      for (int t = 0; t < NXT; ++t) xt[t] = ct + t * BM * XLD;
     }
 #pragma unroll
     for (int kk = 0; kk < BKS / 32; ++kk) {
-      uint32_t bf[NJ][4];    // X rows r0 + 8j .. + 7 at K 32kk .. + 31
+      uint32_t bf[NXT][NJ][4];    // X rows r0 + 8j .. + 7 at K 32kk .. + 31
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
-          ldsm_x4(bf[j], xs + (r0 + j * 8 + (lane & 7)) * XLD + kk * 32 + (lane >> 3) * 8);
+      for (int t = 0; t < NXT; ++t)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
+            ldsm_x4(bf[t][j],
+                    xt[t] + (r0 + j * 8 + (lane & 7)) * XLD + kk * 32 + (lane >> 3) * 8);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
         if constexpr (N == 4) {
-          // dense rows 32kk .. + 15 and + 16 .. + 31 x channels c .. + 15, transposed
-          uint32_t a0[4], a1[4];
-          const __nv_bfloat16* p =
-              vs + (kk * 32 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c + ((lane >> 3) & 1) * 8;
-          ldsm_x4_trans(a0, p);
-          ldsm_x4_trans(a1, p + 16 * VLD);
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            if (r0 + j * 8 < rows) {
-              mma_dense(acc[mt][j], a0, bf[j][0], bf[j][1]);
-              mma_dense(acc[mt][j], a1, bf[j][2], bf[j][3]);
-            }
+          for (int w = 0; w < NW; ++w) {
+            // dense rows 32kk .. + 15 and + 16 .. + 31 x channels c .. + 15 of
+            // weight w, transposed; a gathered dual's up weight reads its own X
+            uint32_t a0[4], a1[4];
+            const __nv_bfloat16* p = vs + w * (L::V_BYTES / 2) +
+                                     (kk * 32 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c +
+                                     ((lane >> 3) & 1) * 8;
+            ldsm_x4_trans(a0, p);
+            ldsm_x4_trans(a1, p + 16 * VLD);
+            const uint32_t(&bx)[NJ][4] = bf[NXT == 2 ? w : 0];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              if (r0 + j * 8 < rows) {
+                mma_dense(acc[w][mt][j], a0, bx[j][0], bx[j][1]);
+                mma_dense(acc[w][mt][j], a1, bx[j][2], bx[j][3]);
+              }
+          }
         } else {
           uint32_t a[4];
           uint32_t e;
@@ -327,49 +392,60 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
           }
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
-            if (r0 + j * 8 < rows) mma_sp(acc[mt][j], a, bf[j], e);
+            if (r0 + j * 8 < rows) mma_sp(acc[0][mt][j], a, bf[0][j], e);
         }
       }
     }
   };
   splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
 
-  // partial tile [batch row][channel], fp32
+  // partial tiles [weight][batch row][channel], fp32
   float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int r = r0 + j * 8 + 2 * t;
-      const int c = ch0 + mt * 16 + g;
-      part[r * PLD + c] = acc[mt][j][0];
-      part[(r + 1) * PLD + c] = acc[mt][j][1];
-      part[r * PLD + c + 8] = acc[mt][j][2];
-      part[(r + 1) * PLD + c + 8] = acc[mt][j][3];
-    }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float* pw = part + w * BM * PLD;
+        const int r = r0 + j * 8 + 2 * t;
+        const int c = ch0 + mt * 16 + g;
+        pw[r * PLD + c] = acc[w][mt][j][0];
+        pw[(r + 1) * PLD + c] = acc[w][mt][j][1];
+        pw[r * PLD + c + 8] = acc[w][mt][j][2];
+        pw[(r + 1) * PLD + c + 8] = acc[w][mt][j][3];
+      }
   __syncthreads();
 
-  splitk::finish<BM, BO, PLD, NT>(
+  splitk::finish_planes<BM, BO, PLD, NT, NW>(
       part, reinterpret_cast<float*>(smem + L::RING + L::COMPACT), rank, split, rows,
-      [&](int r, int c, float s) {
-        if (bias != nullptr) s += bias[n0 + c];
-        s = apply_act(s, act);
+      [&](int r, int c, const float (&sum)[NW]) {
+        float s = sum[0];
+        if constexpr (DUAL) {
+          s = silu(s) * sum[NW - 1];       // flush_tile's silu_mul point, in fp32
+        } else {
+          if (bias != nullptr) s += bias[n0 + c];
+          s = apply_act(s, act);
+        }
         const size_t at = static_cast<size_t>(m0 + r) * o + n0 + c;
         if (out_f32) static_cast<float*>(y)[at] = s;
         else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(s);
       });
 }
 
-template <int N, int BM, int G = 0>
-int launch(const void* x, const void* v, const void* meta, const float* bias, void* y, int b,
-           int k, int o, int act, int out_f32, int split, cudaStream_t stream) {
-  using L = Layout<N, BM, G>;
+template <int N, int BM, int G = 0, bool DUAL = false>
+int launch(const void* x, const void* v, const void* meta, const void* v2, const void* meta2,
+           const float* bias, void* y, int b, int k, int o, int act, int out_f32, int split,
+           cudaStream_t stream) {
+  using L = Layout<N, BM, G, DUAL>;
   static bool opted_in = false;
-  return splitk::launch(nm_spmm_sp_kernel<N, BM, G>, opted_in, dim3(o / BO, (b + BM - 1) / BM),
-                        NT, L::RING + L::COMPACT, L::INBOX, split, stream,
-                        static_cast<const __nv_bfloat16*>(x),
+  return splitk::launch(nm_spmm_sp_kernel<N, BM, G, DUAL>, opted_in,
+                        dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::COMPACT, L::INBOX,
+                        split, stream, static_cast<const __nv_bfloat16*>(x),
                         static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(meta),
-                        bias, y, b, k, o, act, out_f32, split);
+                        static_cast<const __nv_bfloat16*>(v2),
+                        static_cast<const uint8_t*>(meta2), bias, y, b, k, o, act, out_f32,
+                        split);
 }
 
 // n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) weight, meta
@@ -384,7 +460,7 @@ inline int launch_nm(int n, int bm, const void* x, const void* v, const void* me
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
 #define VG_SP_LAUNCH(NN, BB) \
-  return launch<NN, BB>(x, v, meta, bf, y, b, k, o, act, out_f32, split, s)
+  return launch<NN, BB>(x, v, meta, nullptr, nullptr, bf, y, b, k, o, act, out_f32, split, s)
   if (n == 2 && bm == 16) VG_SP_LAUNCH(2, 16);
   if (n == 2 && bm == 64) VG_SP_LAUNCH(2, 64);
   if (n == 1 && bm == 16) VG_SP_LAUNCH(1, 16);
@@ -409,12 +485,52 @@ inline int launch_gather(int n, int bm, const void* x, const void* values, const
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
 #define VG_SP_GATHER(GG, BB) \
-  return launch<4, BB, GG>(x, values, idx, bf, y, b, kc, o, act, out_f32, split, s)
+  return launch<4, BB, GG>(x, values, idx, nullptr, nullptr, bf, y, b, kc, o, act, out_f32, \
+                           split, s)
   if (n == 2 && bm == 16) VG_SP_GATHER(2, 16);
   if (n == 2 && bm == 64) VG_SP_GATHER(2, 64);
   if (n == 1 && bm == 16) VG_SP_GATHER(1, 16);
   if (n == 1 && bm == 64) VG_SP_GATHER(1, 64);
 #undef VG_SP_GATHER
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float gate-up duals' few-row body: Y (b, o) = silu(X @ Wg) * (X @ Wu),
+// bf16, both (k, o) weights dense (tile_gemm_dual), bm in {16, 64}, split a
+// power of two up to min(8, k / 64)
+inline int launch_dual(int bm, const void* x, const void* wg, const void* wu, void* y, int b,
+                       int k, int o, int split, void* stream) {
+  if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 ||
+      !splitk::split_ok(split, k / BKS) || (b + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 16)
+    return launch<4, 16, 0, true>(x, wg, nullptr, wu, nullptr, nullptr, y, b, k, o, ACT_NONE, 0,
+                                  split, s);
+  if (bm == 64)
+    return launch<4, 64, 0, true>(x, wg, nullptr, wu, nullptr, nullptr, y, b, k, o, ACT_NONE, 0,
+                                  split, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ... and K9's (nm_spmm_gather_dual_bk): X (b, ke) gathered at n in {1, 2}
+// through idx_g and idx_u (K_c = ke * n / 4 int32 each) against values_g and
+// values_u (K_c, O); one span a step, selected twice
+inline int launch_gather_dual(int n, int bm, const void* x, const void* vg, const void* ig,
+                              const void* vu, const void* iu, void* y, int b, int ke, int o,
+                              int split, void* stream) {
+  const int kc = ke * n / 4;
+  if (b <= 0 || ke <= 0 || o <= 0 || (ke * n) % 4 != 0 || kc % BKS != 0 || o % BO != 0 ||
+      !splitk::split_ok(split, kc / BKS) || (b + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VG_SP_GATHER_DUAL(GG, BB) \
+  return launch<4, BB, GG, true>(x, vg, ig, vu, iu, nullptr, y, b, kc, o, ACT_NONE, 0, split, s)
+  if (n == 2 && bm == 16) VG_SP_GATHER_DUAL(2, 16);
+  if (n == 2 && bm == 64) VG_SP_GATHER_DUAL(2, 64);
+  if (n == 1 && bm == 16) VG_SP_GATHER_DUAL(1, 16);
+  if (n == 1 && bm == 64) VG_SP_GATHER_DUAL(1, 64);
+#undef VG_SP_GATHER_DUAL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

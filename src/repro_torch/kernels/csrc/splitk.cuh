@@ -1,8 +1,9 @@
 // The pieces the port's streaming GEMM bodies share (nm_spmm_sp.cuh: the
-// float nm_spmm at n in {1, 2} and K1's few-row tile_gemm; nm_spmm_sp_fp8.cuh:
-// nm_spmm_fp8 at n in {1, 2}): the cp.async ring of weight and X tiles,
-// ldmatrix, the 1:4-as-2:4 metadata spread, and the split of an output
-// tile's K loop over the blocks of a thread-block cluster.
+// float nm_spmm at n in {1, 2}, K1's, K8's and the float gate-up duals'
+// few-row streams; nm_spmm_sp_fp8.cuh: nm_spmm_fp8 at n in {1, 2}): the
+// cp.async ring of weight and X tiles, ldmatrix, the 1:4-as-2:4 metadata
+// spread, and the split of an output tile's K loop over the blocks of a
+// thread-block cluster.
 //
 // Split-K without atomics.  Each block of the cluster writes its fp32
 // partial of every slice of the tile into the inbox of the slice's owner
@@ -84,40 +85,54 @@ __device__ __forceinline__ void run_ring(int s0, int ns, Load&& load, Compute&& 
   __syncthreads();       // the ring is drained: the partial tile may alias it
 }
 
-// The split's end.  part: this block's fp32 partial [BM][PLD] of the BM x
-// BO tile (written and synchronized); inbox: E = BM x BO floats after the
-// ring (split > 1 only).  Block q owns elements [q E / split, (q + 1) E /
-// split) of the tile (row-major); each block stores its partial of every
-// slice into the owner's inbox at [its rank][offset in the slice]; after
-// one cluster barrier every owner sums its inbox in rank order (the same
-// bits whichever block sums them) from its own shared memory, so no block
-// reads a peer's memory and none waits for the others to leave.  Then
-// flush(r, c, sum) for each of its live rows (r < rows).
-template <int BM, int BO, int PLD, int NT, class Flush>
-__device__ __forceinline__ void finish(const float* part, float* inbox, int rank, int split,
-                                       int rows, Flush&& flush) {
+// The split's end.  part: this block's NP fp32 partials (planes p at part
+// + p BM PLD, each [BM][PLD] of the BM x BO tile; written and
+// synchronized; NP = 2 for a gate-up dual, whose flush combines both);
+// inbox: NP x E floats after the ring, E = BM x BO (split > 1 only).  Block
+// q owns elements [q E / split, (q + 1) E / split) of the tile (row-major);
+// each block stores its partials of every slice into the owner's inbox at
+// [its rank][plane][offset in the slice]; after one cluster barrier every
+// owner sums its inbox in rank order, plane by plane (the same bits
+// whichever block sums them), from its own shared memory, so no block reads
+// a peer's memory and none waits for the others to leave.  Then flush(r,
+// c, sums) for each of its live rows (r < rows).
+template <int BM, int BO, int PLD, int NT, int NP, class Flush>
+__device__ __forceinline__ void finish_planes(const float* part, float* inbox, int rank,
+                                              int split, int rows, Flush&& flush) {
   constexpr int E = BM * BO;
   const int tid = threadIdx.x;
   const int slice = E / split;        // split is a power of two up to 8: exact
   if (split > 1) {
     cg::cluster_group cluster = cg::this_cluster();
     for (int q = tid; q < E; q += NT) {
-      const int owner = q / slice;
-      cluster.map_shared_rank(inbox, owner)[rank * slice + q % slice] =
-          part[(q / BO) * PLD + q % BO];
+      float* box = cluster.map_shared_rank(inbox, q / slice) + rank * NP * slice + q % slice;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) box[p * slice] = part[p * BM * PLD + (q / BO) * PLD + q % BO];
     }
     cluster.sync();
   }
   for (int q = rank * slice + tid; q < (rank + 1) * slice; q += NT) {
-    const int r = q / BO, c = q % BO;
+    const int r = q / BO, c = q % BO, at = q - rank * slice;
     if (r >= rows) continue;
-    float s = part[r * PLD + c];
-    if (split > 1) {
-      s = inbox[q - rank * slice];
-      for (int z = 1; z < split; ++z) s += inbox[z * slice + q - rank * slice];
+    float s[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      s[p] = part[p * BM * PLD + r * PLD + c];
+      if (split > 1) {
+        s[p] = inbox[p * slice + at];
+        for (int z = 1; z < split; ++z) s[p] += inbox[(z * NP + p) * slice + at];
+      }
     }
     flush(r, c, s);
   }
+}
+
+// finish_planes with one partial: flush(r, c, sum)
+template <int BM, int BO, int PLD, int NT, class Flush>
+__device__ __forceinline__ void finish(const float* part, float* inbox, int rank, int split,
+                                       int rows, Flush&& flush) {
+  finish_planes<BM, BO, PLD, NT, 1>(part, inbox, rank, split, rows,
+                                    [&](int r, int c, const float (&s)[1]) { flush(r, c, s[0]); });
 }
 
 // A split that the bodies take: a power of two up to min(MAX_SPLIT, nk).

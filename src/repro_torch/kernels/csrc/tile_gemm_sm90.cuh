@@ -5,9 +5,16 @@
 // phi-3-vision's 1,024); the few-row plans run nm_spmm_sp.cuh's streaming
 // body over the dense weight.  K8's many-row plan (nm_spmm_gather_bk from
 // 256 rows) runs it too, over the compact X a gather pass (gemm.cu) writes.
+// In DUAL form it is the float gate-up duals' many-row body (see below).
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   tile_gemm  repro/kernels/tile_gemm/kernel.py::tile_gemm (_gemm_kernel)
+//   tile_gemm_dual  repro/kernels/tile_gemm/kernel.py::tile_gemm_dual
+//              (_gemm_dual_kernel), float, from 256 rows and at 64-row
+//              launches that fill the card (tile_gemm/kernel.py::dual_plan)
+//   nm_spmm_gather_dual_bk  repro/kernels/nm_spmm_gather/kernel.py::
+//              nm_spmm_gather_dual_bk (_gather_dual_kernel), float, n in {1,
+//              2}, likewise, after its gather pass
 //
 // Y (B, O) = epilogue(X (B, K) @ W (K, O)), bf16 in, fp32 sums, bf16 or
 // fp32 out.  A block of three warpgroups owns a persistent walk over the
@@ -54,6 +61,19 @@
 // a pingpong split (each consumer warpgroup owning whole tiles in turn,
 // 5-50% slower).
 //
+// The gate-up duals (DUAL).  An output tile is 128 rows x 128 channels of
+// Y; its stage carries the X tile and both weights' 64 x 128 tiles, from
+// two tensor maps (Wg, Wu): K1's 48 KB stage of its 128 x 256 tile, the
+// halves from two maps, 4 deep.  Each consumer warpgroup keeps acc_g and
+// acc_u (64 registers each, K1's wide tile's 128 under setmaxnreg 232);
+// both have the same fragment layout, so silu(g) * u is formed register by
+// register in fp32 on the way to the epilogue tile, then one cast to bf16:
+// half the stores of K1's wide tile.  K9 (NX = 2) carries its two compact
+// X's as two X tiles a stage (64 KB, 3 deep), both from one map over the
+// gather pass's (B, 2 K_c) scratch.  Bound at phi-3-vision's gate-up
+// (3072, 8192) at 1,024 rows: 103 GFLOP, 104 us at 989 TFLOP/s (K9 at 2:4:
+// half); 8 x 64 = 512 tiles are 3.9 waves on 132 SMs.
+//
 // Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint: the library needs no -lcuda)
 // and passed as __grid_constant__ kernel parameters.
@@ -68,15 +88,21 @@ constexpr int BM = 128;                  // output rows a tile (two consumer war
 constexpr int BK = 64;                   // K a stage: one 128-byte swizzle row of bf16
 constexpr int NTHREADS = 384;            // consumers 0, 1; producer 2
 
-template <int BN, int STAGES_, int EPC_>
+// DUAL: the gate-up form (BN = 128 output channels, the stage carrying both
+// weights' 64 x 128 tiles, gate then up); NX = 2: each weight with its own
+// X tile (K9's two compact X's), else one X tile for both.
+template <int BN, int STAGES_, int EPC_, bool DUAL = false, int NX = 1>
 struct Smem {
   static_assert(BN == 128 || BN == 256, "the tile is 128 x 128 or 128 x 256");
+  static_assert(!DUAL || BN == 128, "a dual's tile is 128 x 128 of each weight");
+  static_assert(NX == 1 || (DUAL && NX == 2), "two X tiles only for a dual");
   static_assert(EPC_ == 32 || EPC_ == 64 || EPC_ == 128, "an epilogue chunk of 32-128 channels");
   static constexpr int STAGES = STAGES_;
   static constexpr int EPC = EPC_;
-  static constexpr int X_BYTES = BM * BK * 2;          // 16 KB
-  static constexpr int W_BYTES = BK * BN * 2;          // 16 | 32 KB
-  static constexpr int STAGE = X_BYTES + W_BYTES;      // a multiple of 1024
+  static constexpr int WN = DUAL ? 2 * BN : BN;        // weight channels a stage
+  static constexpr int X_BYTES = BM * BK * 2;          // 16 KB a tile
+  static constexpr int W_BYTES = BK * WN * 2;          // 16 | 32 KB
+  static constexpr int STAGE = NX * X_BYTES + W_BYTES;  // a multiple of 1024
   // each consumer warpgroup's epilogue tile: 64 rows x EPC fp32 (+ 4 of pad)
   static constexpr int EPLD = EPC + 4;
   static constexpr int EP_BYTES = 64 * EPLD * 4;
@@ -104,12 +130,17 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 }
 #undef TG_R8
 
-template <int BN, int STAGES, int EPC>
+// DUAL: tmw maps the gate weight and tmu the up weight (a single GEMM
+// passes tmw twice); the flush is silu(g) * u (act none, no bias).  NX = 2:
+// tmx maps (b, 2k), the gate's X in columns [0, k), the up's in [k, 2k).
+template <int BN, int STAGES, int EPC, bool DUAL = false, int NX = 1>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
-                       const __grid_constant__ CUtensorMap tmw, const float* __restrict__ bias,
+                       const __grid_constant__ CUtensorMap tmw,
+                       const __grid_constant__ CUtensorMap tmu, const float* __restrict__ bias,
                        void* __restrict__ y, int b, int k, int o, int act, int out_f32) {
-  using S = Smem<BN, STAGES, EPC>;
+  using S = Smem<BN, STAGES, EPC, DUAL, NX>;
+  constexpr int WN = S::WN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;         // the swizzle wants 1024-byte tiles
@@ -138,6 +169,9 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                    : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmw))
                    : "memory");
+      if constexpr (DUAL)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmu))
+                     : "memory");
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -147,10 +181,13 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
           const uint32_t st = ring + stage * S::STAGE;
           mbar_expect_tx(full + 8 * stage, S::STAGE);
           tma_load_2d(st, &tmx, full + 8 * stage, kb * BK, m0);
+          if constexpr (NX == 2)
+            tma_load_2d(st + S::X_BYTES, &tmx, full + 8 * stage, k + kb * BK, m0);
+          // W as WN / 64 boxes of 64 channels: the gate's BN, then (a dual) the up's
 #pragma unroll
-          for (int h = 0; h < BN / 64; ++h)
-            tma_load_2d(st + S::X_BYTES + h * BK * 128, &tmw, full + 8 * stage, n0 + 64 * h,
-                        kb * BK);
+          for (int h = 0; h < WN / 64; ++h)
+            tma_load_2d(st + NX * S::X_BYTES + h * BK * 128, h < BN / 64 ? &tmw : &tmu,
+                        full + 8 * stage, n0 + 64 * (h % (BN / 64)), kb * BK);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1u;
@@ -166,9 +203,9 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
     int it = 0;                                          // the block's stage count
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
-      float acc[BN / 128][64];
+      float acc[WN / 128][64];                           // a dual's: gate, up
 #pragma unroll
-      for (int h = 0; h < BN / 128; ++h)
+      for (int h = 0; h < WN / 128; ++h)
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
       int prev = -1;
@@ -176,15 +213,17 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
         const int stage = it % STAGES;
         mbar_wait(full + 8 * stage, (it / STAGES) & 1);
         const uint32_t xa = ring + stage * S::STAGE + wg * 64 * 128;
-        const uint32_t wa = ring + stage * S::STAGE + S::X_BYTES;
+        const uint32_t wa = ring + stage * S::STAGE + NX * S::X_BYTES;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t da = desc_sw128(xa + kk * 32, 16, 1024);
 #pragma unroll
-          for (int h = 0; h < BN / 128; ++h)
+          for (int h = 0; h < WN / 128; ++h) {
+            // NX = 2: the up product (h = 1) reads the second X tile
+            const uint64_t da = desc_sw128(xa + (NX == 2 ? h : 0) * S::X_BYTES + kk * 32, 16, 1024);
             wgmma_m64n128k16(acc[h], da,
                              desc_sw128(wa + 2 * h * BK * 128 + kk * 16 * 128, BK * 128, 1024));
+          }
         }
         wgmma_commit();
         wgmma_wait<1>();                                 // the previous stage's group is done
@@ -197,8 +236,9 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
       // the epilogue, per EPC channels: the warpgroup's fp32 accumulators go
       // to its shared tile (register 4i + e of (warp, lane) is row 16 warp
       // + lane / 4 (+ 8 for e >= 2), column 8i + 2 (lane % 4) + (e & 1) of
-      // its 128), then each warp stores whole rows: bias, act, one cast,
-      // coalesced
+      // its 128; a dual's two accumulators share that layout, so silu(g) * u
+      // is formed there in fp32, flush_tile's silu_mul point), then each warp
+      // stores whole rows: bias, act, one cast, coalesced
       float* ep = reinterpret_cast<float*>(smem_raw + (empty + STAGES * 8 - raw)) +
                   wg * (S::EP_BYTES / 4);
 #pragma unroll
@@ -209,10 +249,16 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
         for (int i = 0; i < EPC / 8; ++i) {
           const int h = ch * EPC / 128, j = (ch * EPC % 128) / 8 + i;
 #pragma unroll
-          for (int half = 0; half < 2; ++half)
+          for (int half = 0; half < 2; ++half) {
+            float v0 = acc[h][4 * j + 2 * half], v1 = acc[h][4 * j + 2 * half + 1];
+            if constexpr (DUAL) {
+              v0 = silu(v0) * acc[1][4 * j + 2 * half];
+              v1 = silu(v1) * acc[1][4 * j + 2 * half + 1];
+            }
             *reinterpret_cast<float2*>(
                 ep + (warp * 16 + (lane >> 2) + 8 * half) * S::EPLD + 8 * i + 2 * (lane & 3)) =
-                make_float2(acc[h][4 * j + 2 * half], acc[h][4 * j + 2 * half + 1]);
+                make_float2(v0, v1);
+          }
         }
         named_sync(1 + wg, 128);
         for (int q = tid; q < 64 * Q; q += 128) {
@@ -247,11 +293,12 @@ tile_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
   }
 }
 
-template <int BN, int STAGES, int EPC>
-int launch(const void* x, const void* w, const float* bias, void* y, int b, int k, int o,
-           int act, int out_f32, cudaStream_t stream) {
-  using S = Smem<BN, STAGES, EPC>;
-  auto kernel = tile_gemm_wgmma_kernel<BN, STAGES, EPC>;
+// wu: the up weight of a dual (nullptr for a single GEMM); NX = 2: x is (b, 2k)
+template <int BN, int STAGES, int EPC, bool DUAL = false, int NX = 1>
+int launch(const void* x, const void* w, const void* wu, const float* bias, void* y, int b,
+           int k, int o, int act, int out_f32, cudaStream_t stream) {
+  using S = Smem<BN, STAGES, EPC, DUAL, NX>;
+  auto kernel = tile_gemm_wgmma_kernel<BN, STAGES, EPC, DUAL, NX>;
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e =
@@ -259,12 +306,13 @@ int launch(const void* x, const void* w, const float* bias, void* y, int b, int 
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  CUtensorMap tmx, tmw;
-  if (!encode(&tmx, x, b, k, BM) || !encode(&tmw, w, k, o, BK))
+  CUtensorMap tmx, tmw, tmu;
+  if (!encode(&tmx, x, b, NX * k, BM) || !encode(&tmw, w, k, o, BK) ||
+      !encode(&tmu, DUAL ? wu : w, k, o, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = ((b + BM - 1) / BM) * ((o + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();    // one block an SM, persistent
-  kernel<<<grid, NTHREADS, S::BYTES, stream>>>(tmx, tmw, bias, y, b, k, o, act, out_f32);
+  kernel<<<grid, NTHREADS, S::BYTES, stream>>>(tmx, tmw, tmu, bias, y, b, k, o, act, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,8 +326,26 @@ inline int launch_bn(int bn, const void* x, const void* w, const void* bias, voi
   const float* bf = static_cast<const float*>(bias);
   // the stages and epilogue chunks that timed best on an H100 at hubert-
   // xlarge's and phi-3-vision's sites (128: 5 stages, 64 channels; 256: 4, 32)
-  if (bn == 128) return launch<128, 5, 64>(x, w, bf, y, b, k, o, act, out_f32, s);
-  if (bn == 256) return launch<256, 4, 32>(x, w, bf, y, b, k, o, act, out_f32, s);
+  if (bn == 128) return launch<128, 5, 64>(x, w, nullptr, bf, y, b, k, o, act, out_f32, s);
+  if (bn == 256) return launch<256, 4, 32>(x, w, nullptr, bf, y, b, k, o, act, out_f32, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float gate-up duals' many-row body: Y (b, o) = silu(X @ Wg) * (X @
+// Wu), bf16, 128 x 128 output tiles.  nx = 1: X (b, k) against both (k, o)
+// weights (tile_gemm_dual; a 48 KB stage, 4 of them, as K1's 128 x 256
+// tile); nx = 2: X (b, 2k) holds the gate's compact X then the up's (K9
+// after its gather pass; a 64 KB stage, 3 of them).  Both with two 64 x 32
+// fp32 epilogue tiles: a 64-channel one does not fit beside the rings.
+inline int launch_dual(int nx, const void* x, const void* wg, const void* wu, void* y, int b,
+                       int k, int o, void* stream) {
+  if (b <= 0 || k <= 0 || o <= 0 || k % BK != 0 || o % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nx == 1)
+    return launch<128, 4, 32, true, 1>(x, wg, wu, nullptr, y, b, k, o, ACT_NONE, 0, s);
+  if (nx == 2)
+    return launch<128, 3, 32, true, 2>(x, wg, wu, nullptr, y, b, k, o, ACT_NONE, 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

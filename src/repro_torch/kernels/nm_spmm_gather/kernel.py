@@ -30,8 +30,12 @@ from ``(B, K_eff, O, n)``: at few rows the stream of ``csrc/nm_spmm_sp.cuh``
 (the step's X span by cp.async, a select pass into the X tile, split-K
 over a cluster), from 256 rows a gather pass (``gemm.cu``) writing the
 compact X into a scratch the wrapper allocates, then the TMA + wgmma body
-of ``csrc/tile_gemm_sm90.cuh`` over it.  Every other kernel here runs the
-shared bodies of ``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+of ``csrc/tile_gemm_sm90.cuh`` over it.  ``nm_spmm_gather_dual_bk``
+(float) at n in {1, 2} runs the dual forms of those, chosen by
+:func:`dual_plan`: the stream landing one X span a step and selecting it
+twice, and from 256 rows one gather pass writing both compact X's, then
+the dual wgmma body.  Every other kernel here runs the shared bodies of
+``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue),
@@ -56,13 +60,15 @@ from ..reasons import dtype_name
 from ..tile_gemm.kernel import (ACT_CODES, BODY_CODES, WGMMA_MIN_ROWS, _ptr, check_maps,
                                 check_requant_scale, check_scales, check_single_epilogue,
                                 float_out, quantized_out, requant_spec, stream_plan)
+from ..tile_gemm.kernel import dual_plan as tile_dual_plan
 from ..tile_gemm.kernel import plan as tile_plan
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
-__all__ = ["nm_spmm_gather_bk", "plan", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
+__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "DUAL_SHARED_MAX_KC",
+           "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
            "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
            "nm_spmm_gather_bk_fp8_requant", "nm_spmm_gather_dual_bk_fp8",
@@ -71,6 +77,9 @@ __all__ = ["nm_spmm_gather_bk", "plan", "nm_spmm_gather_dual_bk", "nm_spmm_gathe
            "nm_spmm_gather", "nm_spmm_gather_int8", "nm_spmm_gather_fp8"]
 
 _N = (1, 2, 4)
+#: K9 at 1:4 keeps the shared body at 64-row tiles below 64 rows where K_c
+#: is at most this (internlm2-1.8b's gate-up, K_c = 512: eight K steps)
+DUAL_SHARED_MAX_KC = 512
 
 def plan(b: int, ke: int, o: int, n: int) -> dict:
     """``nm_spmm_gather_bk``'s (float) body, tile and split for ``gather(X
@@ -92,6 +101,30 @@ def plan(b: int, ke: int, o: int, n: int) -> dict:
     if b >= WGMMA_MIN_ROWS:
         return tile_plan(b, kc, o)
     return stream_plan(b, kc, o)
+
+
+def dual_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_dual_bk``'s (float) body, tile and split for
+    ``silu(gather(X (b, ke), idx_g) @ values_g) * (gather(X, idx_u) @
+    values_u)``, both values ``(ke * n / 4, o)``.  n in {1, 2}: the body
+    ``tile_gemm.kernel.dual_plan`` picks for ``(b, K_c, o)``: ``wgmma`` (one
+    gather pass writing both compact X's into a (b, 2 K_c) scratch, then
+    the dual wgmma body with two X tiles a stage) or ``stream``
+    (``csrc/nm_spmm_sp.cuh``'s dual form: one X span a step, selected
+    twice), with its tile and split over K_c.  ``shared`` (gemm.cu's body,
+    the form the port ran first; split 1) at n = 4, and at 1:4 where that
+    plan takes ``wgmma`` below 64 rows and K_c is at most
+    ``DUAL_SHARED_MAX_KC``: at internlm2-1.8b's gate-up (K_c = 512) the
+    gather pass and the dual wgmma body lost to the shared body there on
+    an H100, and won at 64 rows and at phi-3-vision's K_c = 768
+    (``chip_smoke.py``'s dual sweep phase; PERF.md §6).  Returns
+    ``{"body", "rows", "cols", "split"}``."""
+    rows, kc = _build.block_rows(b), ke * n // 4
+    p = tile_dual_plan(b, kc, o) if n in (1, 2) else None
+    if p is None or (n == 1 and p["body"] == "wgmma" and b < _build.BLOCK_ROWS[1]
+                     and kc <= DUAL_SHARED_MAX_KC):
+        return {"body": "shared", "rows": rows, "cols": _build.BLOCK_O, "split": 1}
+    return p
 
 
 def _check_gather(kernel: str, ke: int, values: torch.Tensor, idx: torch.Tensor,
@@ -208,7 +241,8 @@ def nm_spmm_gather_dual_bk(x: torch.Tensor, values_g: torch.Tensor, idx_g: torch
                            block_b: Optional[int] = None) -> torch.Tensor:
     """Fused gate-up over two gather weights sharing one X read:
     ``silu(gather(X, idx_g) @ values_g) * (gather(X, idx_u) @ values_u)``
-    in X's dtype."""
+    in X's dtype.  ``block_b`` is the dispatch plan's row block (checked);
+    the body, its tile and its K split are :func:`dual_plan`'s."""
     b, ke = x.shape
     o = _check_gather("nm_spmm_gather_dual_bk", ke, values_g, idx_g, n)
     _check_pair("nm_spmm_gather_dual_bk", values_g, idx_g, values_u, idx_u)
@@ -221,11 +255,17 @@ def nm_spmm_gather_dual_bk(x: torch.Tensor, values_g: torch.Tensor, idx_g: torch
         raise ValueError("nm_spmm_gather_dual_bk: values must share x's dtype")
     _build.check_tiles("nm_spmm_gather_dual_bk", values_g.shape[0], o)
     y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    p = dual_plan(b, ke, o, n)
+    # the wgmma plan's gather pass writes both compact X's here
+    xg = (torch.empty((b, 2 * values_g.shape[0]), dtype=x.dtype, device=x.device)
+          if p["body"] == "wgmma" else None)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm_gather_dual_bk(x.data_ptr(), values_g.data_ptr(), idx_g.data_ptr(),
                                            values_u.data_ptr(), idx_u.data_ptr(),
-                                           y.data_ptr(), b, ke, o, n, bb, _build.stream_of(x))
+                                           y.data_ptr(), b, ke, o, n, p["rows"],
+                                           BODY_CODES[p["body"]], p["cols"], p["split"],
+                                           _ptr(xg), _build.stream_of(x))
     nm_spmm_gather_dual_bk.launches += 1
     _build.check(rc, "nm_spmm_gather_dual_bk", lib)
     return y

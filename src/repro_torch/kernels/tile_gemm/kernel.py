@@ -17,7 +17,9 @@ block skip (one source each, the same kernel bodies with ``MASKED``).
 chunks) the streaming body of ``csrc/nm_spmm_sp.cuh`` over the dense
 weight, its K loop split over a cluster; from the calibration forward's
 256 rows up the warp-specialised TMA + wgmma body of
-``csrc/tile_gemm_sm90.cuh``.  ``tile_gemm_fp8`` and
+``csrc/tile_gemm_sm90.cuh``.  ``tile_gemm_dual`` (bf16) runs the dual
+forms of the same two, chosen by :func:`dual_plan`: both weights' tiles
+in each stage, two accumulators, one silu_mul flush.  ``tile_gemm_fp8`` and
 ``tile_gemm_fp8_requant`` run the e4m3 forms of the same two, chosen by
 :func:`fp8_plan`: ``csrc/nm_spmm_sp_fp8.cuh``'s stream over the dense
 weight and ``csrc/tile_gemm_sm90_fp8.cuh``'s wgmma body, whose weight tile
@@ -48,9 +50,9 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "plan", "fp8_plan", "cluster_split", "stream_plan", "BODY_CODES",
-           "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS", "FP8_WGMMA_COLS",
-           "FP8_SHARED_TILES",
+__all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "cluster_split", "stream_plan",
+           "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS", "FP8_WGMMA_COLS",
+           "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
            "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
@@ -84,6 +86,15 @@ WIDE_MIN_COLS = 3072
 #: channels of the e4m3 wgmma body's tile (csrc/tile_gemm_sm90_fp8.cuh): its
 #: second, promoting accumulator leaves no registers for 256
 FP8_WGMMA_COLS = 128
+#: channels of the dual wgmma body's output tile: each consumer warpgroup
+#: holds a 64 x 128 accumulator of each weight, K1's 128 x 256 tile's registers
+DUAL_WGMMA_COLS = 128
+#: below ``WGMMA_MIN_ROWS`` the dual plans keep a 64-row stream only where
+#: :func:`stream_plan` splits its K loop this many ways or more: on an H100
+#: (``chip_smoke.py``'s dual sweep phase) it beat the dual wgmma body at
+#: qwen3-moe's expert gate-up (4096, 1536) at 17-64 rows (split 4) and lost
+#: to it unsplit at internlm2-1.8b's and phi-3-vision's gate-up
+DUAL_STREAM_MIN_SPLIT = 4
 #: the planners' bodies -> the C interface's ``body`` argument
 BODY_CODES = {"shared": 0, "stream": 1, "wgmma": 2}
 #: the shared body's launch width (O / 64 tiles x row tiles) from which the
@@ -157,6 +168,31 @@ def fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
     if p["rows"] == _build.BLOCK_ROWS[1] and \
             (o // _build.BLOCK_O) * -(-b // p["rows"]) >= FP8_SHARED_TILES:
         return {**p, "body": "shared", "split": 1}
+    return p
+
+
+def dual_plan(b: int, k: int, o: int) -> dict:
+    """``tile_gemm_dual``'s (float) body, tile and split for ``silu(X (b,
+    k) @ Wg) * (X @ Wu)``, both weights ``(k, o)``: ``wgmma`` (``csrc/
+    tile_gemm_sm90.cuh``'s dual form: both weights' tiles in one stage,
+    two accumulators, the silu_mul flush in registers) from
+    ``WGMMA_MIN_ROWS`` rows, and at 64-row tiles (17-255 rows) where
+    :func:`stream_plan` splits K fewer than ``DUAL_STREAM_MIN_SPLIT`` ways;
+    128 x 128 output tiles, split 1.  Else ``stream`` (``csrc/
+    nm_spmm_sp.cuh``'s dual form over both dense weights) with
+    :func:`stream_plan`'s tile and split: every decode launch (16-row
+    tiles; internlm2-1.8b's gate-up at B = 8: 128 tiles, split 2, two
+    blocks an SM).  On an H100 (``chip_smoke.py``'s dual sweep phase,
+    17-128 rows; PERF.md §6) the plan's body was the fastest of the three
+    at every swept shape; at qwen3-moe's expert gate-up at 128 rows the
+    stream's split 2 and the wgmma body come within a few percent of each
+    other, in either order from run to run.  Returns ``{"body", "rows",
+    "cols", "split"}``; ``rows`` is what the C interface takes as
+    ``bm``."""
+    p = stream_plan(b, k, o)
+    if b >= WGMMA_MIN_ROWS or \
+            (p["rows"] == _build.BLOCK_ROWS[1] and p["split"] < DUAL_STREAM_MIN_SPLIT):
+        return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": DUAL_WGMMA_COLS, "split": 1}
     return p
 
 
@@ -631,6 +667,8 @@ def tile_gemm_dual(x: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
                    block_b: Optional[int] = None) -> torch.Tensor:
     """Fused gate-up: ``silu(X @ Wg) * (X @ Wu)`` from one read of each X
     tile, two fp32 accumulators, silu*mul in fp32, one cast to X's dtype.
+    ``block_b`` is the dispatch plan's row block (checked); the body, its
+    tile and its K split are :func:`dual_plan`'s.
     Given the three scales, the quantized branch of X's class:
     :func:`tile_gemm_dual_fp8` for float8_e4m3fn, else
     :func:`tile_gemm_dual_int8` (``out_dtype`` is that branch's output
@@ -652,10 +690,12 @@ def tile_gemm_dual(x: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
         raise ValueError("tile_gemm_dual: weights must share x's dtype")
     _build.check_tiles("tile_gemm_dual", k, o)
     y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    p = dual_plan(b, k, o)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_tile_gemm_dual(x.data_ptr(), w_g.data_ptr(), w_u.data_ptr(),
-                                   y.data_ptr(), b, k, o, bb, _build.stream_of(x))
+                                   y.data_ptr(), b, k, o, p["rows"], BODY_CODES[p["body"]],
+                                   p["cols"], p["split"], _build.stream_of(x))
     tile_gemm_dual.launches += 1
     _build.check(rc, "tile_gemm_dual", lib)
     return y
