@@ -296,6 +296,11 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm_gather_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "tile_gemm_dual": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_gather_dual_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           # the fp8 compressed dual's and K8 fp8's few-row bodies (K8's gather
+           # pass and many-row body: gemm_fp8.cu, tile_gemm_sm90_fp8.cuh)
+           **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
+              for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
+                           "nm_spmm_gather_bk_fp8")},
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
            "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -450,13 +455,15 @@ class _EarlierLib:
 @contextlib.contextmanager
 def earlier_kernels():
     """Inside, the flash_attention, nm_spmm, tile_gemm, nm_spmm_fp8,
-    tile_gemm_fp8 (and _requant), nm_spmm_gather_bk, tile_gemm_dual and
-    nm_spmm_gather_dual_bk wrappers launch the port's first bodies
-    (``flash_attention_wmma.cu``; the shared bodies of gemm.cu and
+    tile_gemm_fp8 (and _requant), nm_spmm_gather_bk, tile_gemm_dual,
+    nm_spmm_gather_dual_bk, nm_spmm_dual_fp8 (and _requant) and
+    nm_spmm_gather_bk_fp8 (and _requant) wrappers launch the port's first
+    bodies (``flash_attention_wmma.cu``; the shared bodies of gemm.cu and
     gemm_fp8.cu at every n and row count, ``vg_nm_spmm_tiled``,
     ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
     ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``,
-    ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``, at the
+    ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``,
+    ``vg_nm_spmm_dual_fp8_tiled``, ``vg_nm_spmm_gather_bk_fp8_tiled``, at the
     row block the first form took: 16 up to 16 rows, else 64) instead of
     the current ones: the ``earlier_ms`` yardstick, through the same
     wrappers and checks."""
@@ -489,6 +496,16 @@ def earlier_kernels():
     def nm_spmm_gather_dual_bk_tiled(*args):   # (.., n, bm, body, bn, split, scratch, stream)
         return gemm.vg_nm_spmm_gather_dual_bk_tiled(*args[:10], 16 if args[10] == 16 else 64,
                                                     args[-1])
+
+    # the fp8 dual's and K8 fp8's plans run 16-row tiles past 16 rows: the
+    # first form's row block is block_rows(b) (b: args[10] / args[8])
+    def nm_spmm_dual_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return fp8.vg_nm_spmm_dual_fp8_tiled(*args[:15], _build.block_rows(args[10]),
+                                             args[-1])
+
+    def nm_spmm_gather_bk_fp8_tiled(*args):   # (.., bm, body, bn, split, scratch, stream)
+        return fp8.vg_nm_spmm_gather_bk_fp8_tiled(*args[:14], _build.block_rows(args[8]),
+                                                  args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
                                           vg_tile_gemm=tile_gemm_tiled,
@@ -496,7 +513,9 @@ def earlier_kernels():
                                           vg_tile_gemm_dual=tile_gemm_dual_tiled,
                                           vg_nm_spmm_gather_dual_bk=nm_spmm_gather_dual_bk_tiled)
     _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
-                                              vg_tile_gemm_fp8=tile_gemm_fp8_tiled)
+                                              vg_tile_gemm_fp8=tile_gemm_fp8_tiled,
+                                              vg_nm_spmm_dual_fp8=nm_spmm_dual_fp8_tiled,
+                                              vg_nm_spmm_gather_bk_fp8=nm_spmm_gather_bk_fp8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -838,10 +857,25 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
             ops = [(xq, xs, g, u) for g, u in pairs]
             lib_fn, lib_ops = library(xq, xs, pairs[:2], cat=True)
             kc = k * n // 4
+            # the fp8 compressed dual's own body (and its requant form), beside
+            # the first one, the same bits on a second launch
+            redesigned = fp8 and n < 4
+
+            def timed(f, ops_, name):
+                if not redesigned:
+                    return time_ms(f, ops_), {}
+                got, again = f(*ops_[0]), f(*ops_[0])
+                torch.cuda.synchronize()
+                if not torch.equal(as_bytes(got), as_bytes(again)):
+                    fail(f"{name} B={b} K={k} O={o} n={n}: not the same bits on a second "
+                         f"launch")
+                t, earlier = in_turns(f, ops_)
+                return t, {"earlier_ms": earlier, "plan": nk.fp8_dual_plan(b, k, o, n)}
+            t_run, extra = timed(run, ops, names[n][1])
             record(names[n][1], b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                   time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+                   t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                    b * k + 4 * b + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o,
-                   peak=FP8_OPS if fp8 else INT8_OPS)
+                   peak=FP8_OPS if fp8 else INT8_OPS, **extra)
             # the same pair with the requant:<dtype> flush, against the scale a
             # calibration on these rows would give w_out: absmax / qmax
             rq = dual(n, ref=True, out_dtype=torch.float32)(*ops[0]).abs().amax() / qmax
@@ -856,11 +890,12 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
             if delta.max().item() > 1 or share > REQUANT_SHARE:
                 fail(f"{names[n][2]} B={b} n={n}: codes off by up to {delta.max().item()} "
                      f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
-            record(names[n][2], b, k, o, n, got, want, time_ms(run_q, ops_q),
+            t_run, extra = timed(run_q, ops_q, names[n][2])
+            record(names[n][2], b, k, o, n, got, want, t_run,
                    time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
                    b * k + 4 * b + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o,
                    peak=FP8_OPS if fp8 else INT8_OPS, tol=None if fp8 else TOL,
-                   off_by_one_share=share)
+                   off_by_one_share=share, **extra)
             del pairs, ops, ops_q, lib_ops
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -973,15 +1008,15 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                 kc = k * n // 4
                 xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
                 extra = {}
-                if qdtype is None:     # the redesigned bodies, beside the first one
+                if not int8:     # the redesigned bodies (bf16, e4m3), beside the first one
                     got = run(*ops[0])
                     again = run(*ops[0])
                     torch.cuda.synchronize()
                     if not torch.equal(got, again):
-                        fail(f"nm_spmm_gather_bk B={b} K={k} O={o} n={n}: not the same bits "
-                             f"on a second launch")
+                        fail(f"nm_spmm_gather_bk{sfx} B={b} K={k} O={o} n={n}: not the same "
+                             f"bits on a second launch")
                     t_run, extra["earlier_ms"] = in_turns(run, ops)
-                    extra["plan"] = gk.plan(b, k, o, n)
+                    extra["plan"] = gk.fp8_plan(b, k, o, n) if fp8 else gk.plan(b, k, o, n)
                 else:
                     t_run = time_ms(run, ops)
                 record(f"nm_spmm_gather_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
@@ -1124,6 +1159,131 @@ def dual_sweep_phase(shapes, gen, card_line):
             del leaves, weights
         del pairs
         torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+# the fp8 plans' boundary: 64-row launches (17-255 rows), where
+# nm_spmm/kernel.py::fp8_dual_plan and nm_spmm_gather/kernel.py::fp8_plan
+# choose between the shared body and their own
+FP8_SWEEP_ROWS = (17, 33, 64, 128)
+
+
+def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
+    """Each body of the two redesigned fp8 kernels alone, through the C
+    interface, at FP8_SWEEP_ROWS, n in {2, 1}: nm_spmm_dual_fp8's shared
+    body and its sparse dual stream over 64-row tiles (cluster_split's
+    split) and over 16-row ones (split at FP8_STREAM16_BLOCKS_PER_SM) at the
+    gate-up pairs of internlm2-1.8b and qwen3-moe's experts; K8 fp8's
+    shared body, its stream over 16-row tiles and the gather pass + wgmma
+    body at internlm2-1.8b's q and w_out.  Every body within TOL of
+    max|plain|; one JSON line per shape names the plan's body and tile rows
+    and every body's time (CUDA-graph replays, weights rotated as in the
+    kernel phase)."""
+    from repro_torch.core import nm
+    from repro_torch.core.quantize import quantize_linear, quantize_rows
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.nm_spmm import kernel as nk
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_quantized_ref
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather.ref import nm_spmm_gather_quantized_ref
+    from repro_torch.kernels.tile_gemm.kernel import (BODY_CODES, FP8_STREAM16_BLOCKS_PER_SM,
+                                                      cluster_split)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    lib = _build.library("gemm_fp8.cu")
+
+    def dual_call(n, body, bm, split):
+        def f(x, xs, g, u):
+            b, k = x.shape
+            o = g["values"].shape[1]
+            y = torch.empty((b, o), dtype=bf16, device=dev)
+            rc = lib.vg_nm_spmm_dual_fp8(
+                x.data_ptr(), g["values"].data_ptr(), g["meta_packed"].data_ptr(),
+                u["values"].data_ptr(), u["meta_packed"].data_ptr(), xs.data_ptr(),
+                g["ws"].data_ptr(), u["ws"].data_ptr(), None, y.data_ptr(), b, k, o, n, 0, bm,
+                body, split, _build.stream_of(x))
+            _build.check(rc, "nm_spmm_dual_fp8", lib)
+            return y
+        return f
+
+    def gather_call(n, body, bm, bn, split):
+        def f(x, xs, lf):
+            b, k = x.shape
+            kc, o = lf["values"].shape
+            y = torch.empty((b, o), dtype=bf16, device=dev)
+            xg = torch.empty((b, kc), dtype=FP8, device=dev) if body == "wgmma" else None
+            rc = lib.vg_nm_spmm_gather_bk_fp8(
+                x.data_ptr(), lf["values"].data_ptr(), lf["gather_idx"].data_ptr(),
+                xs.data_ptr(), lf["ws"].data_ptr(), None, None, y.data_ptr(), b, k, o, n, 0, 0,
+                bm, BODY_CODES[body], bn, split, None if xg is None else xg.data_ptr(),
+                _build.stream_of(x))
+            _build.check(rc, "nm_spmm_gather_bk_fp8", lib)
+            return y
+        return f
+
+    def compressed(k, o, n):
+        w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+        c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
+        lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)}, FP8)
+        return {**lf, "ws": lf["scale"].reshape(1, -1)}
+
+    def gathered(k, o, n):
+        w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+        lf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"), "gather",
+                            quantize=FP8)
+        return {**lf, "ws": lf["scale"].reshape(1, -1)}
+
+    def sweep(name, k, o, n, weights, want_of, bodies, plan_of):
+        for b in FP8_SWEEP_ROWS:
+            x, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16), FP8)
+            ops = [(x, xs, *w) for w in weights]
+            want = want_of(*ops[0])
+            ms = {}
+            for body, f in bodies(b):
+                e = scaled_err(f(*ops[0]), want)
+                if not (e <= TOL):
+                    fail(f"{name} {body} body B={b} K={k} O={o} n={n}: error {e:.3e} > {TOL}")
+                ms[body] = time_ms(f, ops)
+            p = plan_of(b)
+            log(json.dumps({"sweep": name, "B": b, "K": k, "O": o, "n": n,
+                            "plan": f"{p['body']}{p['rows']}", "ms": ms, "card": card_line}))
+
+    for k, o in ((cfg.d_model, cfg.d_ff), (moe_cfg.d_model, moe_cfg.d_ff)):
+        for n in (2, 1):
+            pairs = [(compressed(k, o, n), compressed(k, o, n))
+                     for _ in range(copies_for(2 * (k * n // 4) * o * 5 // 4))]
+
+            def dual_bodies(b, k=k, o=o, n=n):
+                split = cluster_split((o // 64) * -(-b // 64), k // 64)
+                split16 = cluster_split((o // 64) * -(-b // 16), k // 64,
+                                        FP8_STREAM16_BLOCKS_PER_SM)
+                return [("shared64", dual_call(n, 0, 64, 1)),
+                        ("sparse64", dual_call(n, 1, 64, split)),
+                        ("sparse16", dual_call(n, 1, 16, split16))]
+            sweep("nm_spmm_dual_fp8", k, o, n, pairs,
+                  lambda x, xs, g, u, n=n: nm_spmm_dual_quantized_ref(
+                      x, g["values"], g["meta_packed"], u["values"], u["meta_packed"], n, xs,
+                      g["ws"], u["ws"], out_dtype=bf16),
+                  dual_bodies, lambda b, k=k, o=o, n=n: nk.fp8_dual_plan(b, k, o, n))
+            del pairs
+    for k, o in ((cfg.d_model, cfg.attn_dim), (cfg.d_ff, cfg.d_model)):
+        for n in (2, 1):
+            kc = k * n // 4
+            leaves = [(gathered(k, o, n),) for _ in range(copies_for(kc * o + 4 * kc))]
+
+            def gather_bodies(b, kc=kc, o=o, n=n):
+                split16 = cluster_split((o // 64) * -(-b // 16), kc // 64,
+                                        FP8_STREAM16_BLOCKS_PER_SM)
+                return [("shared64", gather_call(n, "shared", 64, 64, 1)),
+                        ("stream16", gather_call(n, "stream", 16, 64, split16)),
+                        ("wgmma128", gather_call(n, "wgmma", 128, 128, 1))]
+            sweep("nm_spmm_gather_bk_fp8", k, o, n, leaves,
+                  lambda x, xs, lf, n=n: nm_spmm_gather_quantized_ref(
+                      x, lf["values"], lf["gather_idx"], xs, lf["ws"], n, out_dtype=bf16),
+                  gather_bodies, lambda b, k=k, o=o, n=n: gk.fp8_plan(b, k, o, n))
+            del leaves
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
 
@@ -1347,11 +1507,13 @@ def requant_single_phase(cfg, gen, card_line, rows, qdtype):
             else:
                 lib_fn, lib_ops = int_mm_padded, [(x_, lf["lib"]) for x_, lf in zip(xl, lfs)]
             extra = {}
-            if name in ("nm_spmm_fp8_requant", "tile_gemm_fp8_requant"):
+            if name in ("nm_spmm_fp8_requant", "tile_gemm_fp8_requant",
+                        "nm_spmm_gather_bk_fp8_requant"):
                 # the redesigned bodies, beside the first one
                 t_run, extra["earlier_ms"] = in_turns(run, ops)
                 extra["plan"] = (km.fp8_plan(b, k, o, requant=True) if layout == "dense"
-                                 else km.fp8_plan(b, k, o, n))
+                                 else km.fp8_plan(b, k, o, n, requant=True)
+                                 if layout == "gather" else km.fp8_plan(b, k, o, n))
             else:
                 t_run = time_ms(run, ops)
             record(name, b, k, o, n, got, want, t_run, time_ms(plain, ops),
@@ -1468,12 +1630,15 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         def own_body_at(b, k, o, requant=False):
             """Whether the unmasked kernel sums in another order than the
             masked one: K1, K2 (bf16), nm_spmm_fp8 (n in {1, 2}), and K8
-            (bf16) and tile_gemm_fp8 where their plans leave the shared body."""
+            (bf16, e4m3) and tile_gemm_fp8 where their plans leave the
+            shared body."""
             if (layout == "compressed" and qdtype in (None, FP8)) or \
                     (layout == "dense" and qdtype is None):
                 return True
             if layout == "gather" and qdtype is None:
                 return gk.plan(b, k, o, n)["body"] != "shared"
+            if layout == "gather" and fp8:
+                return gk.fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
             if layout == "dense" and fp8:
                 return tk.fp8_plan(b, k, o, requant=requant)["body"] != "shared"
             return False
@@ -2942,6 +3107,9 @@ def main():
     dual_sweep_phase([(c.d_model, c.d_ff) for c in (cfg, get_config(PHI3_ARCH), moe_cfg)],
                      gen, card_line)
     log(f"dual sweep phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fp8_sweep_phase(cfg, moe_cfg, gen, card_line)
+    log(f"fp8 sweep phase {time.perf_counter() - t0:.1f}s")
     t_new = time.perf_counter()
     kmajor_kernel_phase(cfg, gen, card_line, rows)
     k11_s = time.perf_counter() - t_new
@@ -3045,7 +3213,11 @@ def main():
               "nm_spmm_gather_bk": (SOURCES["nm_spmm"], SOURCES["float"], SOURCES["tile_gemm"]),
               "tile_gemm_dual": (SOURCES["nm_spmm"], SOURCES["tile_gemm"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
-                                         SOURCES["tile_gemm"])}
+                                         SOURCES["tile_gemm"]),
+              "nm_spmm_gather_bk_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"],
+                                        SOURCES["tile_gemm_fp8"]),
+              **{name: (SOURCES["nm_spmm_fp8"], SOURCES["fp8"])
+                 for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant")}}
     for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
@@ -3065,11 +3237,12 @@ def main():
         if name.endswith("_requant"):
             entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
                                             if r["kernel"] == name)
+        pre = [r for r in rows if r["kernel"] == name and "prefill" in r]
         if name in bodies:
+            entry["bodies"] = bodies[name]
+        if pre and name in bodies:
             # the many-row body: hubert-xlarge's prefill sites at 4000 rows (K8
             # and the duals: phi-3-vision's at 1024)
-            pre = [r for r in rows if r["kernel"] == name and "prefill" in r]
-            entry["bodies"] = bodies[name]
             entry["prefill"] = {
                 "measured_as": "the prefill sites (K, O) at their rows "
                                "(hubert-xlarge 4000, phi-3-vision 1024)",
@@ -3104,7 +3277,8 @@ def main():
             entries.append({
                 "name": name, "route": "cuda",
                 "source": SOURCES[{"nm_spmm_fp8_requant": "nm_spmm_fp8",
-                                   "tile_gemm_fp8_requant": "nm_spmm_fp8"}.get(name, q)],
+                                   "tile_gemm_fp8_requant": "nm_spmm_fp8",
+                                   "nm_spmm_gather_bk_fp8_requant": "nm_spmm_fp8"}.get(name, q)],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

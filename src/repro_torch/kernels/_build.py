@@ -76,8 +76,10 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_dual_fp8": (_P,) * 8 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_fp8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_fp8_tiled": (_P,) * 8 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_gather_bk_fp8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 8 + (_P,),
+        "vg_nm_spmm_dual_fp8_tiled": (_P,) * 10 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_bk_fp8": (_P,) * 8 + (_I,) * 10 + (_P, _P),
+        "vg_nm_spmm_gather_bk_fp8_tiled": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),

@@ -33,14 +33,21 @@
 //
 // nm_spmm_fp8 at n in {1, 2} runs its own body on the sparse tensor
 // cores, nm_spmm_sp_fp8.cuh (mma.sp m16n8k64 e4m3, K split across a
-// cluster), and tile_gemm_fp8 (with its requantizing form) runs the two
-// bodies tile_gemm/kernel.py::fp8_plan picks: below 256 rows the same
-// stream over the dense weight (mma.sync m16n8k32, split-K), from 256 rows
+// cluster), and so does nm_spmm_dual_fp8 (with its requantizing form) in
+// that header's DUAL form where nm_spmm/kernel.py::fp8_dual_plan picks it;
+// tile_gemm_fp8 (with its requantizing form) runs the two bodies
+// tile_gemm/kernel.py::fp8_plan picks: below 256 rows the same stream over
+// the dense weight (mma.sync m16n8k32, split-K), from 256 rows
 // tile_gemm_sm90_fp8.cuh (TMA + wgmma m64n128k32 e4m3, the weight tile
-// transposed on chip); each flushed by SingleFlush below in the same order
-// as this file's body.  vg_nm_spmm_fp8_tiled and vg_tile_gemm_fp8_tiled
-// keep the shared body for them, the forms the port ran first, as
-// yardsticks; the masked twins stay on it.
+// transposed on chip); and nm_spmm_gather_bk_fp8 (with its requantizing
+// form) at n in {1, 2} runs the same two with the X side gathered, as
+// nm_spmm_gather/kernel.py::fp8_plan picks: the stream with a select pass
+// over the step's span, or the gather pass below (gather_then_wgmma) in
+// front of the wgmma body.  Each is flushed by SingleFlushT / DualFlush
+// below in the same order as this file's body.  vg_nm_spmm_fp8_tiled,
+// vg_tile_gemm_fp8_tiled, vg_nm_spmm_dual_fp8_tiled and
+// vg_nm_spmm_gather_bk_fp8_tiled keep the shared body for them, the forms
+// the port ran first, as yardsticks; the masked twins stay on it.
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -420,11 +427,21 @@ __device__ __forceinline__ uint8_t requant_e4m3(float y, float scale) {
   return static_cast<uint8_t>(__nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3));
 }
 
+// One output of out_kind (bf16, fp32, or the e4m3 code against scale) at y[at]
+__device__ __forceinline__ void store_out(void* y, size_t at, float v, int out_kind,
+                                          float scale) {
+  if (out_kind == OUT_E4M3) static_cast<uint8_t*>(y)[at] = requant_e4m3(v, scale);
+  else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+  else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+}
+
 // The flush of a single GEMM from its summed fp32 accumulator, in the
 // order of gemm_fp8_kernel's (the streaming body, nm_spmm_sp_fp8.cuh, calls
 // it once per output after its split-K sum; the wgmma body,
-// tile_gemm_sm90_fp8.cuh, four consecutive channels at a time).
-struct SingleFlush {
+// tile_gemm_sm90_fp8.cuh, four consecutive channels at a time).  WS_FIRST:
+// the gather kernels' acc * ws * xs (K8), else acc * xs * ws.
+template <bool WS_FIRST>
+struct SingleFlushT {
   const float* xs;
   const float* ws;
   const float* bias;
@@ -438,12 +455,10 @@ struct SingleFlush {
       static_cast<float*>(y)[at] = acc;
       return;
     }
-    float v = dequant(acc, xs[row], ws[col]);
+    float v = dequant_in_order<WS_FIRST>(acc, xs[row], ws[col]);
     if (bias != nullptr) v = __fadd_rn(v, bias[col]);
     v = apply_act(v, act);
-    if (out_kind == OUT_E4M3) static_cast<uint8_t*>(y)[at] = requant_e4m3(v, *rq);
-    else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
-    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+    store_out(y, at, v, out_kind, out_kind == OUT_E4M3 ? *rq : 0.f);
   }
 
   // channels col .. col + 3 of a row (col a multiple of 4): the same
@@ -456,8 +471,10 @@ struct SingleFlush {
     }
     const float xr = xs[row];
     const float4 w4 = *reinterpret_cast<const float4*>(ws + col);
-    float v[4] = {dequant(acc.x, xr, w4.x), dequant(acc.y, xr, w4.y), dequant(acc.z, xr, w4.z),
-                  dequant(acc.w, xr, w4.w)};
+    float v[4] = {dequant_in_order<WS_FIRST>(acc.x, xr, w4.x),
+                  dequant_in_order<WS_FIRST>(acc.y, xr, w4.y),
+                  dequant_in_order<WS_FIRST>(acc.z, xr, w4.z),
+                  dequant_in_order<WS_FIRST>(acc.w, xr, w4.w)};
     if (bias != nullptr) {
       const float4 b4 = *reinterpret_cast<const float4*>(bias + col);
       v[0] = __fadd_rn(v[0], b4.x);
@@ -484,6 +501,26 @@ struct SingleFlush {
           make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
                      *reinterpret_cast<const uint32_t*>(&hi));
     }
+  }
+};
+using SingleFlush = SingleFlushT<false>;
+
+// The flush of the compressed gate-up dual (nm_spmm_sp_fp8.cuh's DUAL
+// stream) from both summed fp32 accumulators, in gemm_fp8_kernel's order:
+// t_g = acc_g * xs * wsg, t_u = acc_u * xs * wsu, silu(t_g) * t_u, then
+// bf16, fp32 or the e4m3 code against *rq.
+struct DualFlush {
+  const float* xs;
+  const float* wsg;
+  const float* wsu;
+  const float* rq;
+  void* y;
+  int o, out_kind;
+
+  __device__ __forceinline__ void operator()(int row, int col, const float (&acc)[2]) const {
+    const float xr = xs[row];
+    const float v = silu(dequant(acc[0], xr, wsg[col])) * dequant(acc[1], xr, wsu[col]);
+    store_out(y, (size_t)row * o + col, v, out_kind, out_kind == OUT_E4M3 ? *rq : 0.f);
   }
 };
 
@@ -633,16 +670,30 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
 // The checks of a single GEMM's flush (raw: no scales and no epilogue;
 // scaled: both scales; the requantized store: the consumer's scale, and
 // only it reads one) and the flush itself; false when they fail.
-inline bool single_flush(const void* xs, const void* ws, const void* bias, const void* rq,
-                         void* y, int o, int act, int out_kind, SingleFlush& flush) {
+template <bool WS_FIRST>
+bool single_flush(const void* xs, const void* ws, const void* bias, const void* rq, void* y,
+                  int o, int act, int out_kind, SingleFlushT<WS_FIRST>& flush) {
   const bool raw = out_kind == OUT_RAW;
   if (act < 0 || act > 2 || out_kind < 0 || out_kind > 3 || raw != (xs == nullptr) ||
       raw != (ws == nullptr) || (raw && (act != ACT_NONE || bias != nullptr)) ||
       (out_kind == OUT_E4M3) != (rq != nullptr))
     return false;
-  flush = SingleFlush{static_cast<const float*>(xs), static_cast<const float*>(ws),
-                      static_cast<const float*>(bias), static_cast<const float*>(rq), y, o, act,
-                      out_kind};
+  flush = SingleFlushT<WS_FIRST>{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                                 static_cast<const float*>(bias), static_cast<const float*>(rq),
+                                 y, o, act, out_kind};
+  return true;
+}
+
+// ... and of the dual's (all three scales; bf16, fp32 or the requantized
+// store, which alone reads the consumer's scale)
+inline bool dual_flush(const void* xs, const void* wsg, const void* wsu, const void* rq, void* y,
+                       int o, int out_kind, DualFlush& flush) {
+  if (out_kind < 0 || out_kind > 3 || out_kind == OUT_RAW || xs == nullptr || wsg == nullptr ||
+      wsu == nullptr || (out_kind == OUT_E4M3) != (rq != nullptr))
+    return false;
+  flush = DualFlush{static_cast<const float*>(xs), static_cast<const float*>(wsg),
+                    static_cast<const float*>(wsu), static_cast<const float*>(rq), y, o,
+                    out_kind};
   return true;
 }
 
@@ -742,6 +793,68 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
         bm, x, ig, iu, vg, nullptr, vu, nullptr, kmask, xs, wsg, wsu, bias, rq, y, b, ke, kc,
         o, act, out_kind, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K8 fp8's many-row body (nm_spmm_gather/kernel.py::fp8_plan from 256
+// rows): a gather pass writes the compact e4m3 X, xg (B, K_c) = gather(X
+// (B, K_eff), idx), then tile_gemm_fp8's TMA + wgmma body
+// (tile_gemm_sm90_fp8.cuh) contracts it with the values as it contracts a
+// dense weight, flushed in the gather order.  The byte counterpart of
+// gemm.cu's gather_columns_kernel: thread u writes columns 16 (u % (K_c /
+// 16)) .. + 15 of row u / (K_c / 16) as one 16-byte store from the 16-byte
+// chunks of their M-blocks (2:4: two, 1:4: four) and spf8::select16 (an
+// index outside [0, 4) gives +0): X is read once, coalesced, and xg (half
+// of X's bytes at 2:4) goes through L2 to the GEMM.
+template <int G>
+__global__ void __launch_bounds__(256)
+gather_columns_e4m3_kernel(const uint8_t* __restrict__ x, const int* __restrict__ idx,
+                           uint8_t* __restrict__ xg, int b, int kc) {
+  const int per_row = kc / 16;
+  const long long u = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (u >= static_cast<long long>(b) * per_row) return;
+  const int row = static_cast<int>(u / per_row), j0 = static_cast<int>(u % per_row) * 16;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * (kc / G * 4) + j0 / G * 4);
+  uint32_t wd[16 / G];
+#pragma unroll
+  for (int c = 0; c < 4 / G; ++c) {
+    const uint4 v = __ldg(src + c);
+    wd[4 * c] = v.x;
+    wd[4 * c + 1] = v.y;
+    wd[4 * c + 2] = v.z;
+    wd[4 * c + 3] = v.w;
+  }
+  int e[16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(idx + j0) + c);
+    e[4 * c] = q.x;
+    e[4 * c + 1] = q.y;
+    e[4 * c + 2] = q.z;
+    e[4 * c + 3] = q.w;
+  }
+  *reinterpret_cast<uint4*>(xg + static_cast<size_t>(row) * kc + j0) = spf8::select16<G>(wd, e);
+}
+
+// the pass into the caller's scratch xg (n in {1, 2}, K_c = ke * n / 4 a
+// multiple of 64), then the wgmma body with the ws-first flush
+int gather_then_wgmma(int n, const void* x, const void* values, const void* idx, void* xg,
+                      const SingleFlushT<true>& flush, int b, int ke, int o, void* stream) {
+  if (b <= 0 || ke <= 0 || o <= 0 || (n != 1 && n != 2) || (ke * n) % 4 != 0 ||
+      (ke * n / 4) % BK != 0 || xg == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long units = static_cast<long long>(b) * (kc / 16);
+  const int blocks = static_cast<int>((units + 255) / 256);
+  const uint8_t* xb = static_cast<const uint8_t*>(x);
+  const int* gi = static_cast<const int*>(idx);
+  uint8_t* gb = static_cast<uint8_t*>(xg);
+  if (n == 2) gather_columns_e4m3_kernel<2><<<blocks, 256, 0, s>>>(xb, gi, gb, b, kc);
+  else gather_columns_e4m3_kernel<1><<<blocks, 256, 0, s>>>(xb, gi, gb, b, kc);
+  const int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  return tgf8::launch(xg, values, flush, b, kc, o, stream);
 }
 
 }  // namespace
@@ -846,20 +959,74 @@ int vg_nm_spmm_masked_fp8(const void* x, const void* values, const void* meta,
                                 nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
+// nm_spmm/kernel.py::fp8_dual_plan's body: 1, the sparse dual stream
+// (nm_spmm_sp_fp8.cuh, DUAL; n in {1, 2}, bm in {16, 64}), K split over
+// `split` blocks of a cluster (a power of two up to min(8, k / 64)); 0, the
+// shared body at any n, split 1.  out_kind 0 | 1 | 3 (no raw accumulator).
 int vg_nm_spmm_dual_fp8(const void* x, const void* values_g, const void* meta_g,
                         const void* values_u, const void* meta_u, const void* xs,
                         const void* wsg, const void* wsu, const void* rq, void* y, int b,
-                        int k, int o, int n, int out_kind, int bm, void* stream) {
+                        int k, int o, int n, int out_kind, int bm, int body, int split,
+                        void* stream) {
+  if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, xs, wsg, wsu,
+                           nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  }
+  DualFlush flush;
+  if (body != 1 || (n != 1 && n != 2) || !dual_flush(xs, wsg, wsu, rq, y, o, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_dual(n, bm, x, values_g, meta_g, values_u, meta_u, flush, b, k, o, split,
+                           stream);
+}
+
+// the shared body at any n: the first form of nm_spmm_dual_fp8, timed
+// beside the current bodies (not on any path: vg_nm_spmm_dual_fp8 reaches
+// the same body through its plan)
+int vg_nm_spmm_dual_fp8_tiled(const void* x, const void* values_g, const void* meta_g,
+                              const void* values_u, const void* meta_u, const void* xs,
+                              const void* wsg, const void* wsu, const void* rq, void* y, int b,
+                              int k, int o, int n, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
   return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, xs, wsg, wsu,
                          nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
-// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
+// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of
+// values.  nm_spmm_gather/kernel.py::fp8_plan's body: 0, the shared body
+// (any n; bm in {16, 64}, bn 64, split 1); 1, the e4m3 stream over the
+// values with the gathered X (nm_spmm_sp_fp8.cuh, G = n; n in {1, 2}, bm in
+// {16, 64}, bn 64), K_c split over `split` blocks of a cluster; 2, the
+// e4m3 gather pass into `scratch` (B, K_c) bytes, then tile_gemm_fp8's
+// wgmma body over it (n in {1, 2}, bm 128, bn 128, split 1).  The own
+// bodies flush in the gather order, acc * ws * xs.  scratch is read only by
+// body 2.
 int vg_nm_spmm_gather_bk_fp8(const void* x, const void* values, const void* idx,
                              const void* xs, const void* ws, const void* bias, const void* rq,
                              void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
-                             void* stream) {
+                             int body, int bn, int split, void* scratch, void* stream) {
+  if (body == 0) {
+    if (bn != 64 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
+                                nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  SingleFlushT<true> flush;
+  if (!single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1 && bn == 64)
+    return spf8::launch_gather(n, bm, x, values, idx, flush, b, k, o, split, stream);
+  if (body == 2 && bm == tgf8::BM && bn == tgf8::BN && split == 1)
+    return gather_then_wgmma(n, x, values, idx, scratch, flush, b, k, o, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body at any n: the first form of nm_spmm_gather_bk_fp8, timed
+// beside the current bodies (not on any path)
+int vg_nm_spmm_gather_bk_fp8_tiled(const void* x, const void* values, const void* idx,
+                                   const void* xs, const void* ws, const void* bias,
+                                   const void* rq, void* y, int b, int k, int o, int n, int act,
+                                   int out_kind, int bm, void* stream) {
   return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
                               nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }

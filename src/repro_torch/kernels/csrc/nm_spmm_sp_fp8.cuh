@@ -1,14 +1,19 @@
 // nm_spmm_fp8 on Hopper's sparse tensor cores: the e4m3 single at n in
 // {1, 2}, every out_kind (bf16, fp32, the raw accumulator, and the
-// requantizing flush of nm_spmm_fp8_requant); and the same streaming body
-// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body.
-// Included by gemm_fp8.cu, whose vg_nm_spmm_fp8 and vg_tile_gemm_fp8
-// launch it with their flush where nm_spmm/kernel.py::fp8_plan and
-// tile_gemm/kernel.py::fp8_plan pick it (decode rows, and launches whose
-// shared-body tiles would not fill half the card); n = 4 of nm_spmm_fp8,
-// wider launches, the duals, the masked singles and the int8 twins keep
-// gemm_fp8.cu's / gemm_int8.cu's shared bodies, and tile_gemm_fp8's
-// many-row body is tile_gemm_sm90_fp8.cuh's.
+// requantizing flush of nm_spmm_fp8_requant); in DUAL form (two weights,
+// two accumulators, one silu(g) * u flush) the compressed gate-up
+// nm_spmm_dual_fp8 and its requantizing form; and the same streaming body
+// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body and, with
+// the X side gathered (G = n in {1, 2}), the fp8 lane-aligned gather K8's
+// (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values.
+// Included by gemm_fp8.cu, whose vg_nm_spmm_fp8, vg_tile_gemm_fp8,
+// vg_nm_spmm_dual_fp8 and vg_nm_spmm_gather_bk_fp8 launch it with their
+// flush where nm_spmm/kernel.py::fp8_plan, tile_gemm/kernel.py::fp8_plan,
+// nm_spmm/kernel.py::fp8_dual_plan and nm_spmm_gather/kernel.py::fp8_plan
+// pick it; n = 4 of the compressed kernels, wider launches, the other fp8
+// duals, the masked singles and the int8 twins keep gemm_fp8.cu's /
+// gemm_int8.cu's shared bodies, and the many-row body of tile_gemm_fp8 (and
+// of K8, after gemm_fp8.cu's gather pass) is tile_gemm_sm90_fp8.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   nm_spmm_fp8    repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
@@ -16,6 +21,12 @@
 //   tile_gemm_fp8  repro/kernels/tile_gemm/kernel.py::tile_gemm_fp8
 //                  (_tile_gemm_quantized, _gemm_q_raw_kernel, _gemm_kernel), below
 //                  the many-row body's rows (tile_gemm/kernel.py::fp8_plan)
+//   nm_spmm_dual_fp8  repro/kernels/nm_spmm/kernel.py::nm_spmm_dual, fp8 branch
+//                  (_spmm_dual_kernel), n in {1, 2}, with the requant:float8_e4m3fn
+//                  flush of repro/kernels/epilogue.py::flush_tile in its _requant form
+//   nm_spmm_gather_bk_fp8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk,
+//                  fp8 (_gather_bk_kernel), n in {1, 2}, below the many-row rows
+//                  (nm_spmm_gather/kernel.py::fp8_plan)
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -72,6 +83,37 @@
 // blocks (256 rows, gemma3-1b's w_in at 64 rows, on an H100), for reasons
 // not found yet (a 64-deep stage costs ~1-3 us there): fp8_plan keeps those
 // launches on the shared body.
+//
+// The gate-up dual (DUAL; nm_spmm_dual_fp8 and _requant).  A stage carries
+// the step's values and meta tiles of both weights beside ONE X tile; each
+// warp transposes its 16-channel part of each weight into its own private
+// tile (two a warp), reads the B registers once and issues one mma.sp per
+// weight into two accumulator sets.  The split's inbox holds both
+// partials, summed in rank order plane by plane (splitk::finish_planes)
+// before one flush in gemm_fp8.cu's order (DualFlush): t_g = acc_g * xs *
+// wsg, t_u = acc_u * xs * wsu (__fmul_rn), silu(t_g) * t_u, then bf16,
+// fp32 or the e4m3 codes against *rq.  At internlm2-1.8b's gate-up (2048,
+// 8192) at decode that is 128 tiles split 2 over a cluster, two blocks an
+// SM (~58 KB each at 16 rows, ~88 KB at 64).  Bound: both weights' kept
+// bytes and meta + X once, over 3.35 TB/s.
+//
+// Row tiles.  Past decode rows the plans (fp8_dual_plan, the gather
+// fp8_plan) keep 16-row tiles over several row tiles (up to 2-3 blocks an
+// SM) where the 64-row tile lost to them on an H100: a 64-deep step of the
+// 64-row tile costs about as much as four of the 16-row one, for reasons not
+// found yet (no profiler sees inside a kernel here).
+//
+// The gathered X (G = n, K8 fp8).  values (K_c, O) is a dense e4m3 weight,
+// so the body is the N = 4 stream over it with only the X side changed: a
+// stage carries the step's 64 int32 indices and the span of 256 / n X bytes
+// a row that its compressed columns read (cp.async, rows at or past B
+// zero-filled); after the stage lands, a select pass builds the compact
+// [rows][64 B] X tile that ldmatrix reads for the m16n8k32 B operand
+// (column c of the step is span byte (c / n) * 4 + idx[c], picked with
+// __byte_perm, select16; an index outside [0, 4) selects +0, as the TPU
+// kernel's compare-and-select does), one more block barrier, then the same
+// products.  Its flush is the gather kernels' order, acc * ws * xs
+// (SingleFlushT<true>).  Bound: values + index + X bytes over 3.35 TB/s.
 
 #pragma once
 
@@ -98,9 +140,42 @@ __device__ __forceinline__ uint32_t gather_byte(uint32_t w0, uint32_t w1, uint32
   return __byte_perm(lo, hi, 0x5410);
 }
 
-template <int N, int BM>
+// The kept bytes of 16 compressed columns of one X row (gather, M = 4):
+// column q reads byte e[q] of M-block q / G, held in word wd[q / G] (2:4:
+// 8 words, 1:4: 16); an index outside [0, 4) gives +0.  The stream's select
+// pass and gemm_fp8.cu's gather pass both build their tiles with it.
+template <int G>
+__device__ __forceinline__ uint4 select16(const uint32_t (&wd)[16 / G], const int (&e)[16]) {
+  uint32_t out[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t keep = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      keep |= static_cast<unsigned>(e[4 * w + j]) < 4u ? 0xffu << (8 * j) : 0u;
+    const uint32_t s0 = e[4 * w] & 3, s1 = e[4 * w + 1] & 3, s2 = e[4 * w + 2] & 3,
+                   s3 = e[4 * w + 3] & 3;
+    if constexpr (G == 2) {   // bytes 0, 1 from block 2w, bytes 2, 3 from block 2w + 1
+      out[w] = __byte_perm(wd[2 * w], wd[2 * w + 1],
+                           s0 | s1 << 4 | (4 + s2) << 8 | (4 + s3) << 12) & keep;
+    } else {                  // byte j from block 4w + j
+      const uint32_t lo = __byte_perm(wd[4 * w], wd[4 * w + 1], s0 | (4 + s1) << 4);
+      const uint32_t hi = __byte_perm(wd[4 * w + 2], wd[4 * w + 3], s2 | (4 + s3) << 4);
+      out[w] = __byte_perm(lo, hi, 0x5410) & keep;
+    }
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// A stage is [values (gate)][values (up)][meta (gate)][meta (up)][indices]
+// [X], the up tiles for a DUAL only, the indices for a gathered X only
+// (whose X is the step's span of 256 / G bytes a row).
+template <int N, int BM, int G = 0, bool DUAL = false>
 struct Layout {
   static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
+  static_assert(G == 0 || (N == 4 && (G == 1 || G == 2) && !DUAL),
+                "the gathered X (1:4 | 2:4) streams against one dense values tile");
+  static constexpr int NW = DUAL ? 2 : 1;        // weights a stage (gate, up)
   static constexpr int STAGES = BM == 16 ? 6 : 4;
   static constexpr int WN = BM == 16 ? 1 : 2;    // warps along the batch rows
   static constexpr int WM = 4 / WN;              // warps along the channels
@@ -110,15 +185,22 @@ struct Layout {
   static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
   // byte pitch of a warp's transposed A tile: 32 kept (64 dense) bytes + 16
   static constexpr int TLD = N == 4 ? BKS + 16 : 48;
-  static constexpr int V_BYTES = VROWS * VLD;
-  static constexpr int M_BYTES = MROWS * BO;
-  static constexpr int X_BYTES = BM * XLD;
-  static constexpr int STAGE = V_BYTES + M_BYTES + X_BYTES;   // a multiple of 16
-  static constexpr int PART = BM * PLD * 4;                   // the partial tile
+  static constexpr int V_BYTES = VROWS * VLD;                  // one weight's values tile
+  static constexpr int M_BYTES = MROWS * BO;                   // one weight's meta tile
+  static constexpr int I_BYTES = G ? BKS * 4 : 0;              // the step's int32 indices
+  static constexpr int SPAN = G ? 256 / G : BKS;               // X bytes a row a stage
+  static constexpr int SLD = SPAN + 16;                        // byte pitch of the X rows
+  static constexpr int X_BYTES = BM * SLD;
+  static constexpr int M_AT = NW * V_BYTES;                    // the meta tiles in a stage
+  static constexpr int I_AT = M_AT + NW * M_BYTES;             // the indices
+  static constexpr int X_AT = I_AT + I_BYTES;                  // the X tile (or span)
+  static constexpr int STAGE = X_AT + X_BYTES;                 // a multiple of 16
+  static constexpr int PART = NW * BM * PLD * 4;               // the partial tiles
   static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
-  static constexpr int T_WARP = MT * 16 * TLD;                // a warp's transposed A tile
+  static constexpr int T_WARP = NW * MT * 16 * TLD;            // a warp's transposed A tiles
   static constexpr int T_BYTES = 4 * T_WARP;
-  static constexpr int INBOX = BM * BO * 4;   // the peers' partial slices (split > 1 only)
+  static constexpr int COMPACT = G ? BM * XLD : 0;             // the selected X tile (gather)
+  static constexpr int INBOX = NW * BM * BO * 4;  // the peers' partial slices (split > 1 only)
 };
 
 // D = A (16 x 64, 2:4, compressed) x B (64 x 8) + C, e4m3 in, fp32 out
@@ -153,13 +235,18 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
   return i == 0u ? v : v << 8;
 }
 
-template <int N, int BM, class Flush>
+// k: the contraction (K, or K_c for the gathered X, whose `meta` is the
+// int32 index and whose X rows are K_eff = k * 4 / G bytes wide).  DUAL: v2
+// and meta2 are the up weight's (v, meta the gate's) and flush(row, col,
+// sums) takes both sums; else flush(row, col, sum).
+template <int N, int BM, int G, bool DUAL, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
-                      const uint8_t* __restrict__ meta, Flush flush, int b, int k, int o,
+                      const uint8_t* __restrict__ meta, const uint8_t* __restrict__ v2,
+                      const uint8_t* __restrict__ meta2, Flush flush, int b, int k, int o,
                       int split) {
-  using L = Layout<N, BM>;
-  constexpr int MT = L::MT, NJ = L::NJ, TLD = L::TLD;
+  using L = Layout<N, BM, G, DUAL>;
+  constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x;
@@ -176,178 +263,264 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   splitk::span(rank, split, k / BKS, s0, ns);
   const int rows = min(BM, b - m0);            // live batch rows of this tile
   uint8_t* tw = smem + L::RING + warp * L::T_WARP;   // this warp's transposed A tiles
+  uint8_t* compact = smem + L::RING + L::T_BYTES;    // the selected X tile (gather)
 
   auto load_stage = [&](int st, int s) {
-    uint8_t* vs = smem + st * L::STAGE;
-    uint8_t* ms = vs + L::V_BYTES;
-    uint8_t* xs = ms + L::M_BYTES;
+    uint8_t* base = smem + st * L::STAGE;
     const int kc0 = s * L::VROWS;
-    if constexpr (N == 4) {
 #pragma unroll
-      for (int c = tid; c < L::VROWS * 4; c += NT) {
-        const int r = c >> 2, col = (c & 3) * 16;
-        cp_async16(vs + r * VLD + col, v + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+    for (int w = 0; w < NW; ++w) {
+      uint8_t* vs = base + w * L::V_BYTES;
+      const uint8_t* src = w ? v2 : v;
+      if constexpr (N == 4) {
+#pragma unroll
+        for (int c = tid; c < L::VROWS * 4; c += NT) {
+          const int r = c >> 2, col = (c & 3) * 16;
+          cp_async16(vs + r * VLD + col, src + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+        }
+      } else if (tid < L::VROWS * 4) {
+        const int r = tid >> 2, col = (tid & 3) * 16;
+        cp_async16(vs + r * VLD + col, src + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
       }
-    } else if (tid < L::VROWS * 4) {
-      const int r = tid >> 2, col = (tid & 3) * 16;
-      cp_async16(vs + r * VLD + col, v + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
     }
-    if (tid < L::MROWS * 4) {
-      const int r = tid >> 2, col = (tid & 3) * 16;
-      cp_async16(ms + r * BO + col, meta + static_cast<size_t>(s * L::MROWS + r) * o + n0 + col,
-                 16);
+    if constexpr (N != 4) {
+      if (tid < NW * L::MROWS * 4) {   // both weights' meta rows, one chunk a thread
+        const int w = tid / (L::MROWS * 4), q = tid % (L::MROWS * 4);
+        const int r = q >> 2, col = (q & 3) * 16;
+        cp_async16(base + L::M_AT + w * L::M_BYTES + r * BO + col,
+                   (w ? meta2 : meta) + static_cast<size_t>(s * L::MROWS + r) * o + n0 + col,
+                   16);
+      }
     }
+    uint8_t* xs = base + L::X_AT;
+    if constexpr (G != 0) {
+      // the step's indices, and the X span they select from (ke = k * 4 / G)
+      if (tid < BKS / 4)
+        cp_async16(base + L::I_AT + 16 * tid, reinterpret_cast<const int*>(meta) + s * BKS +
+                                                  4 * tid, 16);
+      constexpr int CPR = L::SPAN / 16;            // 16-byte chunks of a span row
 #pragma unroll
-    for (int c = tid; c < BM * 4; c += NT) {
-      const int r = c >> 2, col = (c & 3) * 16;
-      const bool live = r < rows;
-      cp_async16(xs + r * XLD + col,
-                 x + static_cast<size_t>(live ? m0 + r : 0) * k + s * BKS + col, live ? 16 : 0);
+      for (int c = tid; c < BM * CPR; c += NT) {
+        const int r = c / CPR, col = (c % CPR) * 16;
+        const bool live = r < rows;
+        cp_async16(xs + r * L::SLD + col,
+                   x + static_cast<size_t>(live ? m0 + r : 0) * (k / G * 4) + s * L::SPAN + col,
+                   live ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int c = tid; c < BM * 4; c += NT) {
+        const int r = c >> 2, col = (c & 3) * 16;
+        const bool live = r < rows;
+        cp_async16(xs + r * XLD + col,
+                   x + static_cast<size_t>(live ? m0 + r : 0) * k + s * BKS + col, live ? 16 : 0);
+      }
     }
   };
 
-  float acc[MT][NJ][4];
+  float acc[NW][MT][NJ][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        acc[w][mt][j][0] = acc[w][mt][j][1] = acc[w][mt][j][2] = acc[w][mt][j][3] = 0.f;
 
   auto compute = [&](int st) {
-    const uint8_t* vs = smem + st * L::STAGE;
-    const uint8_t* ms = vs + L::V_BYTES;
-    const uint8_t* xs = ms + L::M_BYTES;
+    const uint8_t* base = smem + st * L::STAGE;
+    const uint8_t* xt = base + L::X_AT;
+    if constexpr (G != 0) {
+      // the select pass: unit u = (row u / 4, compressed columns 16 (u % 4)
+      // .. + 15) of the compact tile, one 16-byte store from the words of
+      // its M-blocks (2:4: 32 span bytes, 1:4: 64)
+      const int* is = reinterpret_cast<const int*>(base + L::I_AT);
+#pragma unroll
+      for (int u = tid; u < BM * 4; u += NT) {
+        const int r = u >> 2, j0 = (u & 3) * 16;
+        const uint4* row = reinterpret_cast<const uint4*>(xt + r * L::SLD + j0 / G * 4);
+        uint32_t wd[16 / G];
+#pragma unroll
+        for (int c = 0; c < 4 / G; ++c) {
+          const uint4 q = row[c];
+          wd[4 * c] = q.x;
+          wd[4 * c + 1] = q.y;
+          wd[4 * c + 2] = q.z;
+          wd[4 * c + 3] = q.w;
+        }
+        int e[16];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int4 q = reinterpret_cast<const int4*>(is + j0)[c];
+          e[4 * c] = q.x;
+          e[4 * c + 1] = q.y;
+          e[4 * c + 2] = q.z;
+          e[4 * c + 3] = q.w;
+        }
+        *reinterpret_cast<uint4*>(compact + r * XLD + j0) = select16<G>(wd, e);
+      }
+      __syncthreads();
+      xt = compact;
+    }
     uint32_t bf[NJ][4];    // X rows r0 + 8j .. + 7 at K bytes 0 .. 63
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
       if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
-        ldsm_x4(bf[j], xs + (r0 + j * 8 + (lane & 7)) * XLD + (lane >> 3) * 16);
+        ldsm_x4(bf[j], xt + (r0 + j * 8 + (lane & 7)) * XLD + (lane >> 3) * 16);
     __syncwarp();            // every lane is done reading the previous step's tiles
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
-      uint8_t* ta = tw + mt * 16 * TLD;
-      const int p = lane & 3, q = lane >> 2;
-      if constexpr (N == 4) {
-        // lane (p, q): dense rows 4q .. + 3 and 32 + 4q .. + 3 x channels c +
-        // 4p .. + 3 -> channel rows of 4 consecutive K bytes
+    for (int w = 0; w < NW; ++w) {
+      const uint8_t* vs = base + w * L::V_BYTES;
+      const uint8_t* ms = base + L::M_AT + w * L::M_BYTES;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint8_t* src = vs + (32 * h + 4 * q) * VLD + c + 4 * p;
+      for (int mt = 0; mt < MT; ++mt) {
+        const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
+        uint8_t* ta = tw + (w * MT + mt) * 16 * TLD;
+        const int p = lane & 3, q = lane >> 2;
+        if constexpr (N == 4) {
+          // lane (p, q): dense rows 4q .. + 3 and 32 + 4q .. + 3 x channels c +
+          // 4p .. + 3 -> channel rows of 4 consecutive K bytes
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint8_t* src = vs + (32 * h + 4 * q) * VLD + c + 4 * p;
+            const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
+                           w3 = lds32(src + 3 * VLD);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 32 * h + 4 * q) =
+                  gather_byte(w0, w1, w2, w3, j);
+          }
+        } else if constexpr (N == 2) {
+          // lane (p, q): kept rows 4q .. + 3 x channels c + 4p .. + 3 -> four
+          // channel rows of 4 consecutive kept bytes
+          const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
           const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
                          w3 = lds32(src + 3 * VLD);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 32 * h + 4 * q) =
+            *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 4 * q) =
                 gather_byte(w0, w1, w2, w3, j);
-        }
-      } else if constexpr (N == 2) {
-        // lane (p, q): kept rows 4q .. + 3 x channels c + 4p .. + 3 -> four
-        // channel rows of 4 consecutive kept bytes
-        const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
-        const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
-                       w3 = lds32(src + 3 * VLD);
+        } else {
+          // lane (p, q): kept rows 4 (q & 3) .. + 3 (groups 4 (q & 3) .. + 3) x
+          // channels c + 4p + 2 (q >> 2) .. + 1, their indices in meta row q &
+          // 3 -> 8 bytes a channel (two channels a lane: all 32 lanes work)
+          const int qq = q & 3, j0 = 2 * (q >> 2);
+          const uint8_t* src = vs + 4 * qq * VLD + c + 4 * p;
+          const uint32_t wv[4] = {lds32(src), lds32(src + VLD), lds32(src + 2 * VLD),
+                                  lds32(src + 3 * VLD)};
+          const uint32_t mw = lds32(ms + qq * BO + c + 4 * p);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 4 * q) =
-              gather_byte(w0, w1, w2, w3, j);
-      } else if (q < 4) {
-        // lane (p, q < 4): kept rows 4q .. + 3 (groups 4q .. + 3) x channels
-        // c + 4p .. + 3, their indices in meta row q -> 8 bytes a channel
-        const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
-        const uint32_t w[4] = {lds32(src), lds32(src + VLD), lds32(src + 2 * VLD),
-                               lds32(src + 3 * VLD)};
-        const uint32_t mw = lds32(ms + q * BO + c + 4 * p);
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = j0 + jj;
+            const uint32_t mb = (mw >> (8 * j)) & 0xffu;
+            uint32_t pr[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t mb = (mw >> (8 * j)) & 0xffu;
-          uint32_t pr[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            pr[r] = pair8_1of4((w[r] >> (8 * j)) & 0xffu, (mb >> (2 * r)) & 3u);
-          uint32_t* dst = reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 8 * q);
-          dst[0] = pr[0] | pr[1] << 16;
-          dst[1] = pr[2] | pr[3] << 16;
+            for (int r = 0; r < 4; ++r)
+              pr[r] = pair8_1of4((wv[r] >> (8 * j)) & 0xffu, (mb >> (2 * r)) & 3u);
+            uint32_t* dst = reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 8 * qq);
+            dst[0] = pr[0] | pr[1] << 16;
+            dst[1] = pr[2] | pr[3] << 16;
+          }
         }
       }
     }
     __syncwarp();
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int c = ch0 + mt * 16;
-      uint32_t a[4];
-      const uint8_t* ta = tw + mt * 16 * TLD + ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD +
-                          (lane >> 4) * 16;
-      ldsm_x4(a, ta);
-      if constexpr (N == 4) {
-        uint32_t a1[4];      // K bytes 32 .. 63 of the same 16 channels
-        ldsm_x4(a1, ta + 32);
+    for (int w = 0; w < NW; ++w) {
+      const uint8_t* ms = base + L::M_AT + w * L::M_BYTES;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          if (r0 + j * 8 < rows) {
-            // the 64-deep partial sum (two k32 instructions), promoted into fp32
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_e4m3(part, a, bf[j][0], bf[j][1]);
-            mma_e4m3(part, a1, bf[j][2], bf[j][3]);
+      for (int mt = 0; mt < MT; ++mt) {
+        const int c = ch0 + mt * 16;
+        uint32_t a[4];
+        const uint8_t* ta = tw + (w * MT + mt) * 16 * TLD +
+                            ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD + (lane >> 4) * 16;
+        ldsm_x4(a, ta);
+        if constexpr (N == 4) {
+          uint32_t a1[4];      // K bytes 32 .. 63 of the same 16 channels
+          ldsm_x4(a1, ta + 32);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][j][i] = __fadd_rn(acc[mt][j][i], part[i]);
-          }
-      } else {
-        // lane 4g + t: groups 8 (t >> 1) .. + 7 of channel c + g + 8 (t & 1)
-        const int ch = c + g + 8 * (t & 1), h = t >> 1;
-        uint32_t e;
-        if constexpr (N == 2) {
-          const uint8_t* mp = ms + 4 * h * BO + ch;
-          e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
-              static_cast<uint32_t>(mp[2 * BO]) << 16 | static_cast<uint32_t>(mp[3 * BO]) << 24;
+          for (int j = 0; j < NJ; ++j)
+            if (r0 + j * 8 < rows) {
+              // the 64-deep partial sum (two k32 instructions), promoted into fp32
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_e4m3(part, a, bf[j][0], bf[j][1]);
+              mma_e4m3(part, a1, bf[j][2], bf[j][3]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
+            }
         } else {
-          const uint8_t* mp = ms + 2 * h * BO + ch;
-          e = splitk::expand_1of4(static_cast<uint32_t>(mp[0]) |
-                                  static_cast<uint32_t>(mp[BO]) << 8);
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          if (r0 + j * 8 < rows) {
-            // the 64-deep partial sum on the tensor cores, promoted into fp32
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_sp_e4m3(part, a, bf[j], e);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][j][i] = __fadd_rn(acc[mt][j][i], part[i]);
+          // lane 4g + t: groups 8 (t >> 1) .. + 7 of channel c + g + 8 (t & 1)
+          const int ch = c + g + 8 * (t & 1), h = t >> 1;
+          uint32_t e;
+          if constexpr (N == 2) {
+            const uint8_t* mp = ms + 4 * h * BO + ch;
+            e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
+                static_cast<uint32_t>(mp[2 * BO]) << 16 | static_cast<uint32_t>(mp[3 * BO]) << 24;
+          } else {
+            const uint8_t* mp = ms + 2 * h * BO + ch;
+            e = splitk::expand_1of4(static_cast<uint32_t>(mp[0]) |
+                                    static_cast<uint32_t>(mp[BO]) << 8);
           }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            if (r0 + j * 8 < rows) {
+              // the 64-deep partial sum on the tensor cores, promoted into fp32
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_sp_e4m3(part, a, bf[j], e);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
+            }
+        }
       }
     }
   };
   splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
 
-  // partial tile [batch row][channel], fp32
+  // partial tiles [weight][batch row][channel], fp32
   float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int r = r0 + j * 8 + 2 * t;
-      const int c = ch0 + mt * 16 + g;
-      part[r * PLD + c] = acc[mt][j][0];
-      part[(r + 1) * PLD + c] = acc[mt][j][1];
-      part[r * PLD + c + 8] = acc[mt][j][2];
-      part[(r + 1) * PLD + c + 8] = acc[mt][j][3];
-    }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float* pw = part + w * BM * PLD;
+        const int r = r0 + j * 8 + 2 * t;
+        const int c = ch0 + mt * 16 + g;
+        pw[r * PLD + c] = acc[w][mt][j][0];
+        pw[(r + 1) * PLD + c] = acc[w][mt][j][1];
+        pw[r * PLD + c + 8] = acc[w][mt][j][2];
+        pw[(r + 1) * PLD + c + 8] = acc[w][mt][j][3];
+      }
   __syncthreads();
 
-  splitk::finish<BM, BO, PLD, NT>(part, reinterpret_cast<float*>(smem + L::RING + L::T_BYTES),
-                                  rank, split, rows,
-                                  [&](int r, int c, float s) { flush(m0 + r, n0 + c, s); });
+  splitk::finish_planes<BM, BO, PLD, NT, NW>(
+      part, reinterpret_cast<float*>(smem + L::RING + L::T_BYTES + L::COMPACT), rank, split,
+      rows, [&](int r, int c, const float (&sum)[NW]) {
+        if constexpr (DUAL) flush(m0 + r, n0 + c, sum);
+        else flush(m0 + r, n0 + c, sum[0]);
+      });
 }
 
-template <int N, int BM, class Flush>
-int launch(const void* x, const void* v, const void* meta, const Flush& flush, int b, int k,
-           int o, int split, cudaStream_t stream) {
-  using L = Layout<N, BM>;
+template <int N, int BM, int G, bool DUAL, class Flush>
+int launch(const void* x, const void* v, const void* meta, const void* v2, const void* meta2,
+           const Flush& flush, int b, int k, int o, int split, cudaStream_t stream) {
+  using L = Layout<N, BM, G, DUAL>;
   static bool opted_in = false;
-  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, Flush>, opted_in,
-                        dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::T_BYTES, L::INBOX,
-                        split, stream, static_cast<const uint8_t*>(x),
-                        static_cast<const uint8_t*>(v), static_cast<const uint8_t*>(meta), flush,
-                        b, k, o, split);
+  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, Flush>, opted_in,
+                        dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::T_BYTES + L::COMPACT,
+                        L::INBOX, split, stream, static_cast<const uint8_t*>(x),
+                        static_cast<const uint8_t*>(v), static_cast<const uint8_t*>(meta),
+                        static_cast<const uint8_t*>(v2), static_cast<const uint8_t*>(meta2),
+                        flush, b, k, o, split);
+}
+
+// The launches the C entries take: b rows in tiles of bm (16 | 64), at most
+// 65535 of them, k the contraction and o multiples of 64, split a power of
+// two up to min(8, k / 64)
+inline bool launch_ok(int b, int k, int o, int bm, int split) {
+  return b > 0 && k > 0 && o > 0 && k % BKS == 0 && o % BO == 0 && (bm == 16 || bm == 64) &&
+         splitk::split_ok(split, k / BKS) && (b + bm - 1) / bm <= 65535;
 }
 
 // n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) e4m3 weight, meta
@@ -356,16 +529,56 @@ int launch(const void* x, const void* v, const void* meta, const Flush& flush, i
 template <class Flush>
 int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
               int b, int k, int o, int split, void* stream) {
-  if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 ||
-      !splitk::split_ok(split, k / BKS) || (b + bm - 1) / bm > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 2 && bm == 16) return launch<2, 16>(x, v, meta, flush, b, k, o, split, s);
-  if (n == 2 && bm == 64) return launch<2, 64>(x, v, meta, flush, b, k, o, split, s);
-  if (n == 1 && bm == 16) return launch<1, 16>(x, v, meta, flush, b, k, o, split, s);
-  if (n == 1 && bm == 64) return launch<1, 64>(x, v, meta, flush, b, k, o, split, s);
-  if (n == 4 && bm == 16) return launch<4, 16>(x, v, meta, flush, b, k, o, split, s);
-  if (n == 4 && bm == 64) return launch<4, 64>(x, v, meta, flush, b, k, o, split, s);
+#define VG_SPF8_LAUNCH(NN, BB) \
+  return launch<NN, BB, 0, false>(x, v, meta, nullptr, nullptr, flush, b, k, o, split, s)
+  if (n == 2 && bm == 16) VG_SPF8_LAUNCH(2, 16);
+  if (n == 2 && bm == 64) VG_SPF8_LAUNCH(2, 64);
+  if (n == 1 && bm == 16) VG_SPF8_LAUNCH(1, 16);
+  if (n == 1 && bm == 64) VG_SPF8_LAUNCH(1, 64);
+  if (n == 4 && bm == 16) VG_SPF8_LAUNCH(4, 16);
+  if (n == 4 && bm == 64) VG_SPF8_LAUNCH(4, 64);
+#undef VG_SPF8_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// nm_spmm_dual_fp8's few-row body: both compressed weights (values_g /
+// meta_g, values_u / meta_u) at n in {1, 2}, bm in {16, 64}; flush(row, col,
+// sums) stores one output from its two summed fp32 accumulators
+template <class Flush>
+int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
+                const void* mu, const Flush& flush, int b, int k, int o, int split,
+                void* stream) {
+  if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VG_SPF8_DUAL(NN, BB) \
+  return launch<NN, BB, 0, true>(x, vg, mg, vu, mu, flush, b, k, o, split, s)
+  if (n == 2 && bm == 16) VG_SPF8_DUAL(2, 16);
+  if (n == 2 && bm == 64) VG_SPF8_DUAL(2, 64);
+  if (n == 1 && bm == 16) VG_SPF8_DUAL(1, 16);
+  if (n == 1 && bm == 64) VG_SPF8_DUAL(1, 64);
+#undef VG_SPF8_DUAL
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K8 fp8's few-row body: X (b, ke) e4m3 gathered at n in {1, 2} through idx
+// (K_c = ke * n / 4 int32) against values (K_c, O) as a dense e4m3 weight;
+// bm in {16, 64}, split a power of two up to min(8, K_c / 64)
+template <class Flush>
+int launch_gather(int n, int bm, const void* x, const void* values, const void* idx,
+                  const Flush& flush, int b, int ke, int o, int split, void* stream) {
+  if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VG_SPF8_GATHER(GG, BB) \
+  return launch<4, BB, GG, false>(x, values, idx, nullptr, nullptr, flush, b, kc, o, split, s)
+  if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16);
+  if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64);
+  if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16);
+  if (n == 1 && bm == 64) VG_SPF8_GATHER(1, 64);
+#undef VG_SPF8_GATHER
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,9 +17,11 @@ memory, so weight traffic is n/4 of dense plus 2 bits per kept value.
 cores (``csrc/nm_spmm_sp.cuh``; 1:4 as 2:4 with a +0), its K loop split
 across the blocks of a cluster by :func:`split_k`; so do ``nm_spmm_fp8``
 and ``nm_spmm_fp8_requant`` at n in {1, 2} (``csrc/nm_spmm_sp_fp8.cuh``,
-the e4m3 m16n8k64 form) where :func:`fp8_plan` picks it; every other
-kernel here expands each values tile into the dense tile in shared
-memory.
+the e4m3 m16n8k64 form) where :func:`fp8_plan` picks it, and
+``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
+dual form (both weights' tiles a stage, two accumulators, one silu(g) * u
+flush) where :func:`fp8_dual_plan` picks it; every other kernel here
+expands each values tile into the dense tile in shared memory.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
 ``::nm_spmm_dual`` (:437, float, int8 and fp8 branches), ``::nm_spmm_int8``
@@ -39,7 +41,8 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, FP8_SHARED_TILES, MAX_SPLIT, SMS,
+from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, DUAL_STREAM_MIN_SPLIT,
+                                FP8_SHARED_TILES, FP8_STREAM16_BLOCKS_PER_SM, MAX_SPLIT, SMS,
                                 _ptr, check_maps, check_requant_scale, check_scales,
                                 check_single_epilogue, cluster_split, float_out, quantized_out,
                                 requant_spec)
@@ -48,13 +51,17 @@ from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
                   nm_spmm_ref)
 
-__all__ = ["nm_spmm", "split_k", "fp8_plan", "nm_spmm_dual", "nm_spmm_int8",
+__all__ = ["nm_spmm", "split_k", "fp8_plan", "fp8_dual_plan", "FP8_DUAL_STREAM16_TILES",
+           "nm_spmm_dual", "nm_spmm_int8",
            "nm_spmm_int8_requant", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
            "nm_spmm_fp8", "nm_spmm_fp8_requant", "nm_spmm_dual_fp8",
            "nm_spmm_dual_fp8_requant", "nm_spmm_masked", "nm_spmm_masked_int8",
            "nm_spmm_masked_fp8"]
 
 _N = (1, 2, 4)
+#: past decode rows the fp8 dual runs its 16-row stream while the launch has
+#: at most this many tiles (two an SM)
+FP8_DUAL_STREAM16_TILES = 2 * SMS
 
 
 def split_k(b: int, k: int, o: int, n: int) -> int:
@@ -83,6 +90,39 @@ def fp8_plan(b: int, k: int, o: int, n: int) -> dict:
     if n in (1, 2) and (bm == _build.BLOCK_ROWS[0] or tiles < FP8_SHARED_TILES):
         return {"body": "sparse", "split": split_k(b, k, o, n)}
     return {"body": "shared", "split": 1}
+
+
+def fp8_dual_plan(b: int, k: int, o: int, n: int) -> dict:
+    """``nm_spmm_dual_fp8``'s (and ``_requant``'s) body, tile and split for
+    ``silu(Xq (b, k) @ dec(g)) * (Xq @ dec(u))``, both compressed weights
+    ``(k * n / 4, o)``.  n in {1, 2}: ``sparse`` (``csrc/
+    nm_spmm_sp_fp8.cuh``'s dual stream: both weights' tiles a stage, two
+    accumulators, one flush) over 64-channel tiles of 16 rows at decode
+    rows (up to 16) and while the launch has at most
+    ``FP8_DUAL_STREAM16_TILES`` of them, the K loop split over a cluster by
+    ``cluster_split`` over K / 64 steps at ``FP8_STREAM16_BLOCKS_PER_SM``
+    blocks an SM (internlm2-1.8b's gate-up at B = 8: 128 tiles, split 2);
+    else over 64-row tiles where that split (two blocks an SM) is
+    ``DUAL_STREAM_MIN_SPLIT`` or more (qwen3-moe's expert gate-up (4096,
+    1536) at 64 rows).  Else ``shared`` (gemm_fp8.cu's body, the form the
+    port ran first), split 1: at n = 4, at internlm2-1.8b's gate-up (2048,
+    8192) from 33 rows and at qwen3-moe's from 256, where on an H100 the
+    dual streams lost to it (2:4 at 64 rows: 85.8 / 79.4 us over 64 / 16-row
+    tiles against 62.0; 1:4 at 33 rows: 53.7 over 16-row tiles against
+    47.4; ``chip_smoke.py``'s fp8 sweep phase and PR 24's development
+    timings, PERF.md §6).  Returns ``{"body", "rows", "cols", "split"}``;
+    ``rows`` is what the C interface takes as ``bm``."""
+    if n in (1, 2):
+        steps = k // _build.BLOCK_K
+        t16 = (o // _build.BLOCK_O) * -(-b // _build.BLOCK_ROWS[0])
+        if b <= _build.BLOCK_ROWS[0] or t16 <= FP8_DUAL_STREAM16_TILES:
+            return {"body": "sparse", "rows": _build.BLOCK_ROWS[0], "cols": _build.BLOCK_O,
+                    "split": cluster_split(t16, steps, FP8_STREAM16_BLOCKS_PER_SM)}
+        split = cluster_split((o // _build.BLOCK_O) * -(-b // _build.BLOCK_ROWS[1]), steps)
+        if split >= DUAL_STREAM_MIN_SPLIT:
+            return {"body": "sparse", "rows": _build.BLOCK_ROWS[1], "cols": _build.BLOCK_O,
+                    "split": split}
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
 
 
 def _check_compressed(kernel: str, ke: int, values: torch.Tensor,
@@ -383,12 +423,19 @@ def _nm_spmm_dual_quantized(wrapper, storage, x_q, values_g, meta_g, values_u, m
                           wg_scale, wu_scale, *rq, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    # the fp8 dual runs the body of its plan (block_b only checked); int8
+    # keeps the shared body (no plan)
+    plan = ()
+    if storage == torch.float8_e4m3fn:
+        p = fp8_dual_plan(b, ke, o, n)
+        bb, plan = p["rows"], (int(p["body"] == "sparse"), p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_nm_spmm_dual_{suffix}")(
             x_q.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(), values_u.data_ptr(),
             meta_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
-            _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
+            _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, *plan,
+            _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -432,7 +479,9 @@ def nm_spmm_dual_fp8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Te
                      *, out_dtype: torch.dtype = torch.float32,
                      block_b: Optional[int] = None) -> torch.Tensor:
     """Fused fp8 gate-up over two compressed float8_e4m3fn weights sharing
-    one X read, two fp32 accumulators."""
+    one X read, two fp32 accumulators.  ``block_b`` is the dispatch plan's
+    row block (checked); the body, its tile and its K split are
+    :func:`fp8_dual_plan`'s."""
     return _nm_spmm_dual_quantized(nm_spmm_dual_fp8, torch.float8_e4m3fn, x_q, values_g,
                                    meta_g, values_u, meta_u, n, x_scale, wg_scale, wu_scale,
                                    out_dtype, block_b, None)

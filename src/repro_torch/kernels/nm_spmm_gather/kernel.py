@@ -34,8 +34,12 @@ of ``csrc/tile_gemm_sm90.cuh`` over it.  ``nm_spmm_gather_dual_bk``
 (float) at n in {1, 2} runs the dual forms of those, chosen by
 :func:`dual_plan`: the stream landing one X span a step and selecting it
 twice, and from 256 rows one gather pass writing both compact X's, then
-the dual wgmma body.  Every other kernel here runs the shared bodies of
-``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+the dual wgmma body.  ``nm_spmm_gather_bk_fp8`` and ``_requant`` at n in
+{1, 2} run the e4m3 forms of K8's two, chosen by :func:`fp8_plan`: the
+e4m3 stream of ``csrc/nm_spmm_sp_fp8.cuh`` with a byte select pass, and an
+e4m3 gather pass (``gemm_fp8.cu``) in front of ``csrc/
+tile_gemm_sm90_fp8.cuh``'s wgmma body.  Every other kernel here runs the
+shared bodies of ``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue),
@@ -57,17 +61,21 @@ import torch
 from .. import _build
 from ..epilogue import EpilogueSpec
 from ..reasons import dtype_name
-from ..tile_gemm.kernel import (ACT_CODES, BODY_CODES, WGMMA_MIN_ROWS, _ptr, check_maps,
-                                check_requant_scale, check_scales, check_single_epilogue,
-                                float_out, quantized_out, requant_spec, stream_plan)
+from ..tile_gemm.kernel import (ACT_CODES, BODY_CODES, FP8_STREAM16_BLOCKS_PER_SM,
+                                FP8_WGMMA_COLS, SMS, WGMMA_MIN_ROWS, WGMMA_ROWS, _ptr,
+                                check_maps, check_requant_scale, check_scales,
+                                check_single_epilogue, cluster_split, float_out,
+                                quantized_out, requant_spec, stream_plan)
 from ..tile_gemm.kernel import dual_plan as tile_dual_plan
+from ..tile_gemm.kernel import fp8_plan as tile_fp8_plan
 from ..tile_gemm.kernel import plan as tile_plan
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
-__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "DUAL_SHARED_MAX_KC",
+__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "DUAL_SHARED_MAX_KC",
+           "FP8_STREAM16_MAX_ROWS",
            "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
            "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
@@ -80,6 +88,9 @@ _N = (1, 2, 4)
 #: K9 at 1:4 keeps the shared body at 64-row tiles below 64 rows where K_c
 #: is at most this (internlm2-1.8b's gate-up, K_c = 512: eight K steps)
 DUAL_SHARED_MAX_KC = 512
+#: K8 fp8 runs its 16-row stream over several row tiles up to this many rows
+#: (four row tiles)
+FP8_STREAM16_MAX_ROWS = 64
 
 def plan(b: int, ke: int, o: int, n: int) -> dict:
     """``nm_spmm_gather_bk``'s (float) body, tile and split for ``gather(X
@@ -125,6 +136,45 @@ def dual_plan(b: int, ke: int, o: int, n: int) -> dict:
                      and kc <= DUAL_SHARED_MAX_KC):
         return {"body": "shared", "rows": rows, "cols": _build.BLOCK_O, "split": 1}
     return p
+
+
+def fp8_plan(b: int, ke: int, o: int, n: int, requant: bool = False) -> dict:
+    """``nm_spmm_gather_bk_fp8``'s (and ``_requant``'s) body, tile and split
+    for ``gather(Xq (b, ke), idx) @ values (ke * n / 4, o)``, e4m3, over the
+    compressed contraction K_c = ke * n / 4.  n in {1, 2}: ``stream``
+    (``csrc/nm_spmm_sp_fp8.cuh`` over the values with a byte select pass
+    over the step's X span) over 64-channel tiles of 16 rows up to
+    ``FP8_STREAM16_MAX_ROWS`` rows while the launch has at most
+    ``FP8_STREAM16_BLOCKS_PER_SM`` x ``SMS`` tiles (always for ``requant``),
+    the K loop split by ``cluster_split`` at that many blocks an SM
+    (internlm2-1.8b's decode sites: split 8); ``wgmma`` (the e4m3 gather pass
+    into a (b, K_c) scratch, then ``csrc/tile_gemm_sm90_fp8.cuh``) above.  On
+    an H100 the 16-row stream beat the wgmma body and the 64-row stream up to
+    64 rows at internlm2-1.8b's q, k / v and at 1:4 (2:4 q at 64 rows: 11.9
+    against 15.1 / 14.7 us), came within 8% at w_out (34.5 against 32.0) and
+    lost past 432 tiles (gemma3-1b's w_in at 64 rows: 17.5 against 13.5);
+    the wgmma body won from 128 rows (PR 24's development timings, PERF.md
+    §6).  ``requant`` (e4m3 codes out) never takes ``wgmma`` (its 128-deep
+    e4m3 sums move codes by more than one step, see
+    ``tile_gemm.kernel.fp8_plan``): above 64 rows it takes
+    ``tile_gemm.kernel.fp8_plan(b, K_c, o, requant=True)``, the 64-row
+    stream, or ``shared`` (gemm_fp8.cu's body, the form the port ran first;
+    split 1) at launches of ``FP8_SHARED_TILES`` tiles or more: gemma3-1b's
+    w_in (1152, 6912) from 65 rows (at 128 rows 22.0 us against the
+    streams' 29.1 / 31.4).  n = 4 keeps ``shared``.  Returns ``{"body",
+    "rows", "cols", "split"}``; ``rows`` is what the C interface takes as
+    ``bm``."""
+    if n not in (1, 2):
+        return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O,
+                "split": 1}
+    kc = ke * n // 4
+    tiles = (o // _build.BLOCK_O) * -(-b // _build.BLOCK_ROWS[0])
+    if b <= FP8_STREAM16_MAX_ROWS and (requant or tiles <= FP8_STREAM16_BLOCKS_PER_SM * SMS):
+        return {"body": "stream", "rows": _build.BLOCK_ROWS[0], "cols": _build.BLOCK_O,
+                "split": cluster_split(tiles, kc // _build.BLOCK_K, FP8_STREAM16_BLOCKS_PER_SM)}
+    if requant:
+        return tile_fp8_plan(b, kc, o, requant=True)
+    return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": FP8_WGMMA_COLS, "split": 1}
 
 
 def _check_gather(kernel: str, ke: int, values: torch.Tensor, idx: torch.Tensor,
@@ -315,12 +365,21 @@ def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, e
     _build.check_operands(kernel, x_q, values, idx, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values.shape[0], o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
+    # the fp8 single runs the body of its plan (block_b only checked; the
+    # wgmma plan's gather pass writes the compact X into a scratch); int8 and
+    # the masked kernels keep the shared body (no plan)
+    plan = ()
+    if storage == torch.float8_e4m3fn and maps is None:
+        p = fp8_plan(b, ke, o, n, requant=requant_scale is not None)
+        xg = (torch.empty((b, values.shape[0]), dtype=storage, device=x_q.device)
+              if p["body"] == "wgmma" else None)
+        bb, plan = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"], _ptr(xg))
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
             x_q.data_ptr(), values.data_ptr(), idx.data_ptr(), *(t.data_ptr() for t in kmask),
             _ptr(x_scale), _ptr(w_scale), _ptr(bias32), _ptr(requant_scale), y.data_ptr(), b,
-            ke, o, n, ACT_CODES[epi.act], kind, bb, _build.stream_of(x_q))
+            ke, o, n, ACT_CODES[epi.act], kind, bb, *plan, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -351,7 +410,9 @@ def nm_spmm_gather_bk_fp8(x_q: torch.Tensor, values: torch.Tensor, idx: torch.Te
                           block_b: Optional[int] = None) -> torch.Tensor:
     """:func:`nm_spmm_gather_bk_int8`'s contract over float8_e4m3fn
     activations and values: an fp32 accumulator, dequantized once at the
-    flush; with no scales the raw fp32 accumulator."""
+    flush; with no scales the raw fp32 accumulator.  ``block_b`` is the
+    dispatch plan's row block (checked); the body, its tile and its K split
+    are :func:`fp8_plan`'s."""
     return _gather_quantized(nm_spmm_gather_bk_fp8, torch.float8_e4m3fn, x_q, values, idx,
                              x_scale, w_scale, n, epilogue, bias, out_dtype, block_b)
 
@@ -428,9 +489,11 @@ def nm_spmm_gather_bk_masked_fp8(x_q: torch.Tensor, values: torch.Tensor,
                                  ) -> torch.Tensor:
     """:func:`nm_spmm_gather_bk_fp8` with the block skip of
     :func:`nm_spmm_gather_bk_masked` (maps over the e4m3 rows; the CUDA
-    body ignores ``kmap``).  Bitwise :func:`nm_spmm_gather_bk_fp8` on the
-    same rows; with ``requant_scale`` the flush requantizes as
-    :func:`nm_spmm_gather_bk_fp8_requant`'s."""
+    body ignores ``kmap``).  Bitwise itself with every tile live on the same
+    rows, and :func:`nm_spmm_gather_bk_fp8` where :func:`fp8_plan` leaves it
+    on the shared body (n = 4); elsewhere within the fp8 class's limit of
+    it (its own bodies sum in another order).  With ``requant_scale`` the
+    flush requantizes as :func:`nm_spmm_gather_bk_fp8_requant`'s."""
     return _gather_quantized(nm_spmm_gather_bk_masked_fp8, torch.float8_e4m3fn, x_q, values,
                              idx, x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
                              maps=(kmap, kmask), requant_scale=requant_scale)

@@ -53,6 +53,7 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
 __all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "cluster_split", "stream_plan",
            "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS", "FP8_WGMMA_COLS",
            "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
+           "FP8_STREAM16_BLOCKS_PER_SM",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
            "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
@@ -95,6 +96,9 @@ DUAL_WGMMA_COLS = 128
 #: qwen3-moe's expert gate-up (4096, 1536) at 17-64 rows (split 4) and lost
 #: to it unsplit at internlm2-1.8b's and phi-3-vision's gate-up
 DUAL_STREAM_MIN_SPLIT = 4
+#: the e4m3 streams' 16-row tiles (csrc/nm_spmm_sp_fp8.cuh: ~57-67 KB a
+#: block) that share an SM when a plan runs them over several row tiles
+FP8_STREAM16_BLOCKS_PER_SM = 3
 #: the planners' bodies -> the C interface's ``body`` argument
 BODY_CODES = {"shared": 0, "stream": 1, "wgmma": 2}
 #: the shared body's launch width (O / 64 tiles x row tiles) from which the

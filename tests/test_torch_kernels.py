@@ -802,12 +802,15 @@ def _masked_case(dev, b, k, o, layout, n, qdtype, seed=0):
 def _own_body(layout, qdtype, b, k, o, n, requant=False):
     """Whether the unmasked kernel of a masked case runs a body of its own
     (summing in another order than the shared body the masked one keeps)."""
+    from repro_torch.kernels.nm_spmm_gather.kernel import fp8_plan as gather_fp8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_plan
     if (layout, qdtype) in (("dense", None), ("compressed", None), ("compressed", "fp8")):
         return True
     if (layout, qdtype) == ("gather", None):
         return gather_plan(b, k, o, n)["body"] != "shared"
+    if (layout, qdtype) == ("gather", "fp8"):
+        return gather_fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
     if (layout, qdtype) == ("dense", "fp8"):
         return fp8_plan(b, k, o, requant=requant)["body"] != "shared"
     return False
@@ -839,7 +842,7 @@ def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n
     maps = (case.kmap, case.kmask)
     # the float dense and compressed singles (K1, K2), the fp8 compressed
     # single (n in {1, 2}) and, where their plans leave the shared body, the
-    # float gather K8 and the fp8 dense single run their own bodies, whose
+    # float and fp8 gather K8 and the fp8 dense single run their own bodies, whose
     # sums run in another order than the masked kernel's: the masked kernel
     # is held bitwise to itself with every tile live (the same invariant:
     # dead tiles add exact zeros), the unmasked kernel within 1e-2
@@ -985,7 +988,7 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
     got = masked(xm, *ops, *maps, *nn, xms, ws, epilogue=spec, bias=bias, requant_scale=rq)
     unmasked = fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias)
     if qdtype == "fp8" and _own_body(layout, qdtype, b, k, o, n, requant=True):
-        # tile_gemm_fp8's and nm_spmm_fp8's own bodies sum in another order:
+        # tile_gemm_fp8's, nm_spmm_fp8's and K8 fp8's own bodies sum in another order:
         # the masked kernel's codes are its all-live codes bitwise, one e4m3
         # step at most off the unmasked kernel's on at most 0.1% of them
         all_live = (maps[0], torch.ones_like(maps[1]))
