@@ -58,7 +58,10 @@ Phases, each of which fails the run on a miss:
              nm_spmm/kernel.py::fp8_plan and tile_gemm/kernel.py::fp8_plan
              pick, printed) are also timed in turns with gemm_fp8.cu's
              shared body (``earlier_ms``) and their raw accumulators must be
-             the same bits on a second launch.
+             the same bits on a second launch; so are both fp8 duals and
+             their requant forms (the bodies nm_spmm/kernel.py::
+             fp8_dual_plan and tile_gemm/kernel.py::fp8_dual_plan pick,
+             printed), on their outputs.
    gather  — the lane-aligned gather kernels (K8 nm_spmm_gather_bk, K9
              nm_spmm_gather_dual_bk) in bf16, int8 and fp8, with the
              quantized duals' requantizing flush, at the same (K, O), n in
@@ -202,7 +205,10 @@ Phases, each of which fails the run on a miss:
              {2, 1}, B in {32, 256}, x_t (K_eff, B) -> Y_t (O, B), against
              the plain versions: int8 raw and scaled BITWISE, bf16 and fp8
              within 1e-2 of max|plain|; timed beside the plain version and
-             the library call on the pre-gathered row-major X.
+             the library call on the pre-gathered row-major X; fp8 (the
+             body nm_spmm_gather/kernel.py::kmajor_fp8_plan picks, printed)
+             also in turns with gemm_fp8.cu's shared body (``earlier_ms``),
+             the same bits on a second launch.
    sharded — tensor-parallel serving, ServingSpec(mesh=(1, 2)): two ranks
              spawned once (rank r on cuda:(r % device_count); gloo when
              they share the card, NCCL when each has its own), full-width
@@ -296,11 +302,13 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm_gather_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "tile_gemm_dual": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_gather_dual_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
-           # the fp8 compressed dual's and K8 fp8's few-row bodies (K8's gather
-           # pass and many-row body: gemm_fp8.cu, tile_gemm_sm90_fp8.cuh)
+           # the fp8 compressed dual's, K8 fp8's, the dense fp8 dual's and K11
+           # fp8's few-row bodies (K8's gather pass: gemm_fp8.cu; the many-row
+           # bodies: tile_gemm_sm90_fp8.cuh)
            **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
               for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
-                           "nm_spmm_gather_bk_fp8")},
+                           "nm_spmm_gather_bk_fp8", "tile_gemm_dual_fp8",
+                           "tile_gemm_dual_fp8_requant", "nm_spmm_gather_fp8")},
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
            "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -456,14 +464,16 @@ class _EarlierLib:
 def earlier_kernels():
     """Inside, the flash_attention, nm_spmm, tile_gemm, nm_spmm_fp8,
     tile_gemm_fp8 (and _requant), nm_spmm_gather_bk, tile_gemm_dual,
-    nm_spmm_gather_dual_bk, nm_spmm_dual_fp8 (and _requant) and
-    nm_spmm_gather_bk_fp8 (and _requant) wrappers launch the port's first
-    bodies (``flash_attention_wmma.cu``; the shared bodies of gemm.cu and
+    nm_spmm_gather_dual_bk, nm_spmm_dual_fp8 (and _requant),
+    nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant)
+    and nm_spmm_gather_fp8 wrappers launch the port's first bodies
+    (``flash_attention_wmma.cu``; the shared bodies of gemm.cu and
     gemm_fp8.cu at every n and row count, ``vg_nm_spmm_tiled``,
     ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
     ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``,
     ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``,
-    ``vg_nm_spmm_dual_fp8_tiled``, ``vg_nm_spmm_gather_bk_fp8_tiled``, at the
+    ``vg_nm_spmm_dual_fp8_tiled``, ``vg_nm_spmm_gather_bk_fp8_tiled``,
+    ``vg_tile_gemm_dual_fp8_tiled``, ``vg_nm_spmm_gather_fp8_tiled``, at the
     row block the first form took: 16 up to 16 rows, else 64) instead of
     the current ones: the ``earlier_ms`` yardstick, through the same
     wrappers and checks."""
@@ -506,6 +516,15 @@ def earlier_kernels():
     def nm_spmm_gather_bk_fp8_tiled(*args):   # (.., bm, body, bn, split, scratch, stream)
         return fp8.vg_nm_spmm_gather_bk_fp8_tiled(*args[:14], _build.block_rows(args[8]),
                                                   args[-1])
+
+    # the dense fp8 dual's and K11 fp8's plans likewise (b: args[8] / args[6])
+    def tile_gemm_dual_fp8_tiled(*args):   # (.., out_kind, bm, body, bn, split, stream)
+        return fp8.vg_tile_gemm_dual_fp8_tiled(*args[:12], _build.block_rows(args[8]),
+                                               args[-1])
+
+    def nm_spmm_gather_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return fp8.vg_nm_spmm_gather_fp8_tiled(*args[:11], _build.block_rows(args[6]),
+                                               args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
                                           vg_tile_gemm=tile_gemm_tiled,
@@ -515,7 +534,9 @@ def earlier_kernels():
     _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
                                               vg_tile_gemm_fp8=tile_gemm_fp8_tiled,
                                               vg_nm_spmm_dual_fp8=nm_spmm_dual_fp8_tiled,
-                                              vg_nm_spmm_gather_bk_fp8=nm_spmm_gather_bk_fp8_tiled)
+                                              vg_nm_spmm_gather_bk_fp8=nm_spmm_gather_bk_fp8_tiled,
+                                              vg_tile_gemm_dual_fp8=tile_gemm_dual_fp8_tiled,
+                                              vg_nm_spmm_gather_fp8=nm_spmm_gather_fp8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -857,12 +878,12 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
             ops = [(xq, xs, g, u) for g, u in pairs]
             lib_fn, lib_ops = library(xq, xs, pairs[:2], cat=True)
             kc = k * n // 4
-            # the fp8 compressed dual's own body (and its requant form), beside
-            # the first one, the same bits on a second launch
-            redesigned = fp8 and n < 4
+            # the fp8 duals' own bodies (and their requant forms: the
+            # compressed dual's and the dense one's), beside the first one, the
+            # same bits on a second launch
 
-            def timed(f, ops_, name):
-                if not redesigned:
+            def timed(f, ops_, name, requant=False):
+                if not fp8:
                     return time_ms(f, ops_), {}
                 got, again = f(*ops_[0]), f(*ops_[0])
                 torch.cuda.synchronize()
@@ -870,7 +891,9 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
                     fail(f"{name} B={b} K={k} O={o} n={n}: not the same bits on a second "
                          f"launch")
                 t, earlier = in_turns(f, ops_)
-                return t, {"earlier_ms": earlier, "plan": nk.fp8_dual_plan(b, k, o, n)}
+                return t, {"earlier_ms": earlier,
+                           "plan": tk.fp8_dual_plan(b, k, o, requant) if n == 4
+                           else nk.fp8_dual_plan(b, k, o, n)}
             t_run, extra = timed(run, ops, names[n][1])
             record(names[n][1], b, k, o, n, run(*ops[0]), ref(*ops[0]),
                    t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
@@ -890,7 +913,7 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
             if delta.max().item() > 1 or share > REQUANT_SHARE:
                 fail(f"{names[n][2]} B={b} n={n}: codes off by up to {delta.max().item()} "
                      f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
-            t_run, extra = timed(run_q, ops_q, names[n][2])
+            t_run, extra = timed(run_q, ops_q, names[n][2], requant=True)
             record(names[n][2], b, k, o, n, got, want, t_run,
                    time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
                    b * k + 4 * b + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o,
@@ -1163,22 +1186,26 @@ def dual_sweep_phase(shapes, gen, card_line):
 
 
 # the fp8 plans' boundary: 64-row launches (17-255 rows), where
-# nm_spmm/kernel.py::fp8_dual_plan and nm_spmm_gather/kernel.py::fp8_plan
-# choose between the shared body and their own
+# nm_spmm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan and
+# tile_gemm/kernel.py::fp8_dual_plan choose between the shared body and
+# their own
 FP8_SWEEP_ROWS = (17, 33, 64, 128)
 
 
 def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
-    """Each body of the two redesigned fp8 kernels alone, through the C
+    """Each body of the redesigned fp8 kernels alone, through the C
     interface, at FP8_SWEEP_ROWS, n in {2, 1}: nm_spmm_dual_fp8's shared
     body and its sparse dual stream over 64-row tiles (cluster_split's
     split) and over 16-row ones (split at FP8_STREAM16_BLOCKS_PER_SM) at the
     gate-up pairs of internlm2-1.8b and qwen3-moe's experts; K8 fp8's
     shared body, its stream over 16-row tiles and the gather pass + wgmma
-    body at internlm2-1.8b's q and w_out.  Every body within TOL of
-    max|plain|; one JSON line per shape names the plan's body and tile rows
-    and every body's time (CUDA-graph replays, weights rotated as in the
-    kernel phase)."""
+    body at internlm2-1.8b's q and w_out; tile_gemm_dual_fp8's shared body,
+    its dense dual stream over 16-row tiles (split at
+    FP8_STREAM16_BLOCKS_PER_SM) and over 64-row ones (cluster_split's)
+    and its dual wgmma body at the same two gate-up pairs.  Every body
+    within TOL of max|plain|; one JSON line per shape names the plan's body
+    and tile rows and every body's time (CUDA-graph replays, weights
+    rotated as in the kernel phase)."""
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
@@ -1187,8 +1214,10 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
     from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_quantized_ref
     from repro_torch.kernels.nm_spmm_gather import kernel as gk
     from repro_torch.kernels.nm_spmm_gather.ref import nm_spmm_gather_quantized_ref
+    from repro_torch.kernels.tile_gemm import kernel as tk
     from repro_torch.kernels.tile_gemm.kernel import (BODY_CODES, FP8_STREAM16_BLOCKS_PER_SM,
                                                       cluster_split)
+    from repro_torch.kernels.tile_gemm.ref import tile_gemm_dual_quantized_ref
 
     dev, bf16 = "cuda", torch.bfloat16
     lib = _build.library("gemm_fp8.cu")
@@ -1204,6 +1233,19 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
                 g["ws"].data_ptr(), u["ws"].data_ptr(), None, y.data_ptr(), b, k, o, n, 0, bm,
                 body, split, _build.stream_of(x))
             _build.check(rc, "nm_spmm_dual_fp8", lib)
+            return y
+        return f
+
+    def dense_dual_call(body, bm, bn, split):
+        def f(x, xs, g, u):
+            b, k = x.shape
+            o = g["w"].shape[1]
+            y = torch.empty((b, o), dtype=bf16, device=dev)
+            rc = lib.vg_tile_gemm_dual_fp8(
+                x.data_ptr(), g["w"].data_ptr(), u["w"].data_ptr(), xs.data_ptr(),
+                g["ws"].data_ptr(), u["ws"].data_ptr(), None, y.data_ptr(), b, k, o, 0, bm,
+                BODY_CODES[body], bn, split, _build.stream_of(x))
+            _build.check(rc, "tile_gemm_dual_fp8", lib)
             return y
         return f
 
@@ -1226,6 +1268,11 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
         w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
         c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
         lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)}, FP8)
+        return {**lf, "ws": lf["scale"].reshape(1, -1)}
+
+    def dense(k, o):
+        lf = quantize_linear({"w": torch.randn((k, o), generator=gen, device=dev) * k ** -0.5},
+                             FP8)
         return {**lf, "ws": lf["scale"].reshape(1, -1)}
 
     def gathered(k, o, n):
@@ -1267,6 +1314,21 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
                       g["ws"], u["ws"], out_dtype=bf16),
                   dual_bodies, lambda b, k=k, o=o, n=n: nk.fp8_dual_plan(b, k, o, n))
             del pairs
+        pairs = [(dense(k, o), dense(k, o)) for _ in range(copies_for(2 * k * o))]
+
+        def dense_dual_bodies(b, k=k, o=o):
+            split = cluster_split((o // 64) * -(-b // 64), k // 64)
+            split16 = cluster_split((o // 64) * -(-b // 16), k // 64,
+                                    FP8_STREAM16_BLOCKS_PER_SM)
+            return [("shared64", dense_dual_call("shared", 64, 64, 1)),
+                    ("stream64", dense_dual_call("stream", 64, 64, split)),
+                    ("stream16", dense_dual_call("stream", 16, 64, split16)),
+                    ("wgmma128", dense_dual_call("wgmma", 128, 64, 1))]
+        sweep("tile_gemm_dual_fp8", k, o, 4, pairs,
+              lambda x, xs, g, u: tile_gemm_dual_quantized_ref(
+                  x, g["w"], u["w"], xs, g["ws"], u["ws"], out_dtype=bf16),
+              dense_dual_bodies, lambda b, k=k, o=o: tk.fp8_dual_plan(b, k, o))
+        del pairs
     for k, o in ((cfg.d_model, cfg.attn_dim), (cfg.d_ff, cfg.d_model)):
         for n in (2, 1):
             kc = k * n // 4
@@ -1383,10 +1445,21 @@ def kmajor_kernel_phase(cfg, gen, card_line, rows):
                         # scaled form, fp32 / int32 out
                         scales = 4 * (b + o) if qdtype is not None and not raw else 0
                         nbytes = esz * b * kc + esz * kc * o + 4 * kc + scales + 4 * b * o
+                        extra = {}
+                        if fp8:     # the redesigned body, beside the first one
+                            again = run(*ops[0])
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, again):
+                                fail(f"nm_spmm_gather_fp8{tag} B={b} K={k} n={n}: not the "
+                                     f"same bits on a second launch")
+                            t_run, extra["earlier_ms"] = in_turns(run, ops)
+                            extra["plan"] = gk.kmajor_fp8_plan(b, k, o, n)
+                        else:
+                            t_run = time_ms(run, ops)
                         record(f"nm_spmm_gather{sfx}{tag}", b, k, o, n, got, want,
-                               time_ms(run, ops), time_ms(ref, ops), time_ms(lib_fn, lib),
+                               t_run, time_ms(ref, ops), time_ms(lib_fn, lib),
                                nbytes, 2 * b * kc * o, peak=peak,
-                               exact=int8, library="pre-gathered, row-major X")
+                               exact=int8, library="pre-gathered, row-major X", **extra)
                         if raw and n == 2:
                             # the row site's two transposes around K11
                             # (dispatch._partial_nm_gather_q, _run_sharded):
@@ -1972,6 +2045,30 @@ def long_trace(trace, vocab_size):
         for i, r in enumerate(trace)]
 
 
+def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
+    """The body, tile and split the plans give the kernels this PR's slice
+    redesigned, where a run launches them: tile_gemm_dual_fp8 (and
+    _requant) on a dense fp8 swiglu model, K11 fp8 (nm_spmm_gather_fp8) on a
+    sharded fp8 gather model's two row-parallel sites (their local K), at
+    each of ``rows``."""
+    from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
+    from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan
+
+    if qdtype != "fp8":
+        return {}
+    if layout == "dense" and mesh == 1 and cfg.act == "swiglu" and not cfg.num_experts:
+        return {name: {f"B={b}": fp8_dual_plan(b, cfg.d_model, cfg.d_ff, requant)
+                       for b in rows}
+                for name, requant in (("tile_gemm_dual_fp8", False),
+                                      ("tile_gemm_dual_fp8_requant", True))}
+    if layout == "gather" and mesh > 1:
+        n = sparsity[0]
+        return {"nm_spmm_gather_fp8": {
+            f"B={b} K={k} O={cfg.d_model}": kmajor_fp8_plan(b, k, cfg.d_model, n)
+            for b in rows for k in (cfg.attn_dim // mesh, cfg.d_ff // mesh)}}
+    return {}
+
+
 def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_path=None,
                  max_len=512, long_prompts=False, tier_chunks=1, profile_pos=255):
     import dataclasses
@@ -2057,6 +2154,11 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
              f"{' with static scales' if static else ''}: {off[0]}")
     moe_plan = moe_plans(prepared, cfg, spec, tag) if moe_path == "spgemm" else None
     rq_plan = requant_plans(prepared, cfg, spec, tag) if static and act == "gelu" else None
+    # decode, a prefill chunk, the calibration forward's rows
+    kernel_plans = redesigned_plans(cfg, layout, sparsity, qdtype,
+                                    (spec.slots, spec.prefill_chunk, spec.slots * CALIB_TOKENS))
+    if kernel_plans:
+        log(f"[{tag}] the redesigned kernels' plans: {json.dumps(kernel_plans)}")
 
     t_plan = time.perf_counter()
     engine = serving.Engine(prepared)
@@ -2097,6 +2199,8 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         result["moe_plans"] = moe_plan
     if rq_plan is not None:
         result["requant_plans"] = rq_plan
+    if kernel_plans:
+        result["kernel_plans"] = kernel_plans
     log(json.dumps(result))
     t_serve = time.perf_counter()
     # an MoE decode step is long (hundreds of ms): one profiled step is enough
@@ -3000,7 +3104,12 @@ def shard_rank(rank, world, dev, base_cfg, runs, out_dir):
                         "vs_unsharded": {"prefill_scaled_err": gaps[0],
                                          "decode_scaled_err": gaps[1], "tolerance": tol,
                                          "greedy_agreement": agree.item()},
-                        "plan": report[:2]})
+                        "plan": report[:2],
+                        # the raw partials' rows: a decode batch of 8 padded to
+                        # 32, a prefill chunk of 64
+                        "kernel_plans": redesigned_plans(cfg, layout, sparsity, qdtype,
+                                                         (32, spec.prefill_chunk),
+                                                         SHARD_MESH[1])})
             if not max(gaps) <= tol:
                 fail(f"[{tag}] sharded vs unsharded logits: {gaps} > {tol}")
         res["seconds"] = time.perf_counter() - t0
@@ -3217,7 +3326,9 @@ def main():
               "nm_spmm_gather_bk_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"],
                                         SOURCES["tile_gemm_fp8"]),
               **{name: (SOURCES["nm_spmm_fp8"], SOURCES["fp8"])
-                 for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant")}}
+                 for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
+                              "tile_gemm_dual_fp8_requant", "nm_spmm_gather_fp8")},
+              "tile_gemm_dual_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["tile_gemm_fp8"])}
     for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)
         entry = {
@@ -3329,10 +3440,13 @@ def main():
         if form:
             tr = [r for r in rows if r["kernel"] == name + "_transposes" and r["B"] == 32]
             extra["transposes_ms"] = sum(r["in_ms"] + r["out_ms"] for r in tr)
+        if "earlier_ms" in tot:
+            extra["earlier_ms"] = tot["earlier_ms"]
+            extra["bodies"] = bodies[name]
         entries.append({
             "name": name, "route": "cuda",
-            "source": SOURCES["fp8" if "_fp8" in name else "int8" if "_int8" in name
-                              else "float"],
+            "source": SOURCES[name if name in SOURCES else "fp8" if "_fp8" in name
+                              else "int8" if "_int8" in name else "float"],
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name + form),
             "ms": tot["kernel_ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],

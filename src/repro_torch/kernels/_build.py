@@ -73,7 +73,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm_fp8.cu": {
         "vg_tile_gemm_fp8": (_P,) * 7 + (_I,) * 9 + (_P,),
         "vg_tile_gemm_fp8_tiled": (_P,) * 7 + (_I,) * 6 + (_P,),
-        "vg_tile_gemm_dual_fp8": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "vg_tile_gemm_dual_fp8": (_P,) * 8 + (_I,) * 8 + (_P,),
+        "vg_tile_gemm_dual_fp8_tiled": (_P,) * 8 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_fp8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_fp8_tiled": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_dual_fp8": (_P,) * 10 + (_I,) * 8 + (_P,),
@@ -84,7 +85,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_gather_fp8": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_fp8": (_P,) * 6 + (_I,) * 8 + (_P,),
+        "vg_nm_spmm_gather_fp8_tiled": (_P,) * 6 + (_I,) * 6 + (_P,),
     },
     "flash_attention.cu": {
         "vg_flash_attention": (_P,) * 4 + (_I,) * 6 + (_L,) * 12 + (_F, _P),

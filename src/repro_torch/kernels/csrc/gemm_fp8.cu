@@ -39,15 +39,20 @@
 // tile_gemm/kernel.py::fp8_plan picks: below 256 rows the same stream over
 // the dense weight (mma.sync m16n8k32, split-K), from 256 rows
 // tile_gemm_sm90_fp8.cuh (TMA + wgmma m64n128k32 e4m3, the weight tile
-// transposed on chip); and nm_spmm_gather_bk_fp8 (with its requantizing
-// form) at n in {1, 2} runs the same two with the X side gathered, as
-// nm_spmm_gather/kernel.py::fp8_plan picks: the stream with a select pass
-// over the step's span, or the gather pass below (gather_then_wgmma) in
-// front of the wgmma body.  Each is flushed by SingleFlushT / DualFlush
-// below in the same order as this file's body.  vg_nm_spmm_fp8_tiled,
-// vg_tile_gemm_fp8_tiled, vg_nm_spmm_dual_fp8_tiled and
-// vg_nm_spmm_gather_bk_fp8_tiled keep the shared body for them, the forms
-// the port ran first, as yardsticks; the masked twins stay on it.
+// transposed on chip); tile_gemm_dual_fp8 (with its requantizing form) the
+// DUAL forms of those two (the wgmma one never for the requantized codes),
+// as tile_gemm/kernel.py::fp8_dual_plan picks; nm_spmm_gather_bk_fp8 (with
+// its requantizing form) at n in {1, 2} runs the same two with the X side
+// gathered, as nm_spmm_gather/kernel.py::fp8_plan picks: the stream with a
+// select pass over the step's span, or the gather pass below
+// (gather_then_wgmma) in front of the wgmma body; and K11 fp8
+// (nm_spmm_gather_fp8) at n in {1, 2} the stream with a K-major X stage, as
+// nm_spmm_gather/kernel.py::kmajor_fp8_plan picks.  Each is flushed by
+// SingleFlushT / DualFlush below in the same order as this file's body.
+// vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled, vg_nm_spmm_dual_fp8_tiled,
+// vg_nm_spmm_gather_bk_fp8_tiled, vg_tile_gemm_dual_fp8_tiled and
+// vg_nm_spmm_gather_fp8_tiled keep the shared body for them, the forms the
+// port ran first, as yardsticks; the masked twins stay on it.
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -439,18 +444,20 @@ __device__ __forceinline__ void store_out(void* y, size_t at, float v, int out_k
 // order of gemm_fp8_kernel's (the streaming body, nm_spmm_sp_fp8.cuh, calls
 // it once per output after its split-K sum; the wgmma body,
 // tile_gemm_sm90_fp8.cuh, four consecutive channels at a time).  WS_FIRST:
-// the gather kernels' acc * ws * xs (K8), else acc * xs * ws.
-template <bool WS_FIRST>
+// the gather kernels' acc * ws * xs (K8, K11), else acc * xs * ws.  KMAJOR:
+// the output is K11's (O, B), row `row` of channel `col` at col * ld + row;
+// else (B, O) at row * ld + col.  ld: the output's row stride, O (or B).
+template <bool WS_FIRST, bool KMAJOR = false>
 struct SingleFlushT {
   const float* xs;
   const float* ws;
   const float* bias;
   const float* rq;
   void* y;
-  int o, act, out_kind;
+  int ld, act, out_kind;
 
   __device__ __forceinline__ void operator()(int row, int col, float acc) const {
-    const size_t at = (size_t)row * o + col;
+    const size_t at = KMAJOR ? (size_t)col * ld + row : (size_t)row * ld + col;
     if (out_kind == OUT_RAW) {   // raw: the fp32 accumulator
       static_cast<float*>(y)[at] = acc;
       return;
@@ -464,7 +471,8 @@ struct SingleFlushT {
   // channels col .. col + 3 of a row (col a multiple of 4): the same
   // operations per element, vector loads of the scales and bias, one store
   __device__ __forceinline__ void flush4(int row, int col, float4 acc) const {
-    const size_t at = (size_t)row * o + col;
+    static_assert(!KMAJOR, "four consecutive channels of a (B, O) row");
+    const size_t at = (size_t)row * ld + col;
     if (out_kind == OUT_RAW) {
       *reinterpret_cast<float4*>(static_cast<float*>(y) + at) = acc;
       return;
@@ -505,10 +513,12 @@ struct SingleFlushT {
 };
 using SingleFlush = SingleFlushT<false>;
 
-// The flush of the compressed gate-up dual (nm_spmm_sp_fp8.cuh's DUAL
-// stream) from both summed fp32 accumulators, in gemm_fp8_kernel's order:
-// t_g = acc_g * xs * wsg, t_u = acc_u * xs * wsu, silu(t_g) * t_u, then
-// bf16, fp32 or the e4m3 code against *rq.
+// The flush of the gate-up duals (nm_spmm_sp_fp8.cuh's DUAL stream, the
+// compressed and the dense; tile_gemm_sm90_fp8.cuh's DUAL body) from both
+// summed fp32 accumulators, in gemm_fp8_kernel's order: t_g = acc_g * xs *
+// wsg, t_u = acc_u * xs * wsu, silu(t_g) * t_u, then bf16, fp32 or the e4m3
+// code against *rq.  The wgmma body forms value() in registers and stores
+// four channels with store4 (bf16 or fp32: it never takes the requant).
 struct DualFlush {
   const float* xs;
   const float* wsg;
@@ -517,10 +527,25 @@ struct DualFlush {
   void* y;
   int o, out_kind;
 
-  __device__ __forceinline__ void operator()(int row, int col, const float (&acc)[2]) const {
+  __device__ __forceinline__ float value(int row, int col, float acc_g, float acc_u) const {
     const float xr = xs[row];
-    const float v = silu(dequant(acc[0], xr, wsg[col])) * dequant(acc[1], xr, wsu[col]);
-    store_out(y, (size_t)row * o + col, v, out_kind, out_kind == OUT_E4M3 ? *rq : 0.f);
+    return silu(dequant(acc_g, xr, wsg[col])) * dequant(acc_u, xr, wsu[col]);
+  }
+  __device__ __forceinline__ void operator()(int row, int col, const float (&acc)[2]) const {
+    store_out(y, (size_t)row * o + col, value(row, col, acc[0], acc[1]), out_kind,
+              out_kind == OUT_E4M3 ? *rq : 0.f);
+  }
+  __device__ __forceinline__ void store4(int row, int col, float4 v) const {
+    const size_t at = (size_t)row * o + col;
+    if (out_kind == OUT_F32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(y) + at) = v;
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + at) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    }
   }
 };
 
@@ -669,18 +694,19 @@ gemm_fp8_kernel(const uint8_t* __restrict__ x, const int* __restrict__ ig,
 
 // The checks of a single GEMM's flush (raw: no scales and no epilogue;
 // scaled: both scales; the requantized store: the consumer's scale, and
-// only it reads one) and the flush itself; false when they fail.
-template <bool WS_FIRST>
+// only it reads one) and the flush itself; false when they fail.  ld: the
+// output's row stride.
+template <bool WS_FIRST, bool KMAJOR>
 bool single_flush(const void* xs, const void* ws, const void* bias, const void* rq, void* y,
-                  int o, int act, int out_kind, SingleFlushT<WS_FIRST>& flush) {
+                  int ld, int act, int out_kind, SingleFlushT<WS_FIRST, KMAJOR>& flush) {
   const bool raw = out_kind == OUT_RAW;
   if (act < 0 || act > 2 || out_kind < 0 || out_kind > 3 || raw != (xs == nullptr) ||
       raw != (ws == nullptr) || (raw && (act != ACT_NONE || bias != nullptr)) ||
       (out_kind == OUT_E4M3) != (rq != nullptr))
     return false;
-  flush = SingleFlushT<WS_FIRST>{static_cast<const float*>(xs), static_cast<const float*>(ws),
-                                 static_cast<const float*>(bias), static_cast<const float*>(rq),
-                                 y, o, act, out_kind};
+  flush = SingleFlushT<WS_FIRST, KMAJOR>{
+      static_cast<const float*>(xs), static_cast<const float*>(ws), static_cast<const float*>(bias),
+      static_cast<const float*>(rq), y, ld, act, out_kind};
   return true;
 }
 
@@ -912,9 +938,40 @@ int vg_tile_gemm_masked_fp8(const void* x, const void* w, const void* kmask, con
       rq, y, b, k, k, o, act, out_kind, stream);
 }
 
+// tile_gemm/kernel.py::fp8_dual_plan's body: 0, the shared body (bm in {16,
+// 64}, bn 64, split 1); 1, the dual stream over both dense weights
+// (nm_spmm_sp_fp8.cuh, DUAL, N = 4; bm in {16, 64}, bn 64), K split over
+// `split` blocks of a cluster (a power of two up to min(8, k / 64)); 2, the
+// dual wgmma body (tile_gemm_sm90_fp8.cuh, DUAL; bm 128, bn 64 channels of
+// each weight, split 1; bf16 or fp32 only).  out_kind 0 | 1 | 3 (no raw
+// accumulator).
 int vg_tile_gemm_dual_fp8(const void* x, const void* wg, const void* wu, const void* xs,
                           const void* wsg, const void* wsu, const void* rq, void* y, int b,
-                          int k, int o, int out_kind, int bm, void* stream) {
+                          int k, int o, int out_kind, int bm, int body, int bn, int split,
+                          void* stream) {
+  if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (bn != 64 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
+                                        nullptr, xs, wsg, wsu, nullptr, rq, y, b, k, k, o,
+                                        ACT_NONE, out_kind, stream);
+  }
+  DualFlush flush;
+  if (!dual_flush(xs, wsg, wsu, rq, y, o, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1 && bn == 64)
+    return spf8::launch_dual(4, bm, x, wg, nullptr, wu, nullptr, flush, b, k, o, split, stream);
+  if (body == 2 && bm == tgf8::BM && bn == tgf8::DUAL_BN && split == 1 && out_kind != OUT_E4M3)
+    return tgf8::launch_dual(x, wg, wu, flush, b, k, o, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body: the first form of tile_gemm_dual_fp8, timed beside the
+// current bodies (not on any path: vg_tile_gemm_dual_fp8 reaches the same
+// body through its plan)
+int vg_tile_gemm_dual_fp8_tiled(const void* x, const void* wg, const void* wu, const void* xs,
+                                const void* wsg, const void* wsu, const void* rq, void* y,
+                                int b, int k, int o, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
                                       nullptr, xs, wsg, wsu, nullptr, rq, y, b, k, k, o,
@@ -1050,10 +1107,33 @@ int vg_nm_spmm_gather_dual_bk_fp8(const void* x, const void* values_g, const voi
 }
 
 // K11: x_t (k, b) K-major -> y_t (o, b), b a multiple of 16; xs (1, b) and
-// ws (o, 1) for out_kind 0 | 1, none for the raw fp32 accumulator (2)
+// ws (o, 1) for out_kind 0 | 1, none for the raw fp32 accumulator (2).
+// nm_spmm_gather/kernel.py::kmajor_fp8_plan's body: 1, the e4m3 stream with
+// the K-major X stage (nm_spmm_sp_fp8.cuh, KM; n in {1, 2}, bm in {16, 64}),
+// K_c split over `split` blocks of a cluster, flushed acc * ws * xs into the
+// (O, B) output; 0, the shared body (any n, split 1)
 int vg_nm_spmm_gather_fp8(const void* x_t, const void* values, const void* idx,
                           const void* xs, const void* ws, void* y_t, int b, int k, int o,
-                          int n, int out_kind, int bm, void* stream) {
+                          int n, int out_kind, int bm, int body, int split, void* stream) {
+  if (out_kind == OUT_E4M3) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false, false, true>(n, bm, x_t, values, idx, nullptr, nullptr,
+                                             nullptr, xs, ws, nullptr, nullptr, nullptr, y_t,
+                                             b, k, o, ACT_NONE, out_kind, stream);
+  }
+  SingleFlushT<true, true> flush;
+  if (body != 1 || (n != 1 && n != 2) ||
+      !single_flush(xs, ws, nullptr, nullptr, y_t, b, ACT_NONE, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_kmajor(n, bm, x_t, values, idx, flush, b, k, o, split, stream);
+}
+
+// the shared body at any n: the first form of nm_spmm_gather_fp8, timed
+// beside the current bodies (not on any path)
+int vg_nm_spmm_gather_fp8_tiled(const void* x_t, const void* values, const void* idx,
+                                const void* xs, const void* ws, void* y_t, int b, int k, int o,
+                                int n, int out_kind, int bm, void* stream) {
   if (out_kind == OUT_E4M3) return static_cast<int>(cudaErrorInvalidValue);
   return launch_gather<false, false, true>(n, bm, x_t, values, idx, nullptr, nullptr, nullptr,
                                            xs, ws, nullptr, nullptr, nullptr, y_t, b, k, o,

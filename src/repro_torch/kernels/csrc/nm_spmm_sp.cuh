@@ -438,8 +438,8 @@ int launch(const void* x, const void* v, const void* meta, const void* v2, const
            const float* bias, void* y, int b, int k, int o, int act, int out_f32, int split,
            cudaStream_t stream) {
   using L = Layout<N, BM, G, DUAL>;
-  static bool opted_in = false;
-  return splitk::launch(nm_spmm_sp_kernel<N, BM, G, DUAL>, opted_in,
+  static int opted = 0;
+  return splitk::launch(nm_spmm_sp_kernel<N, BM, G, DUAL>, opted,
                         dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::COMPACT, L::INBOX,
                         split, stream, static_cast<const __nv_bfloat16*>(x),
                         static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(meta),

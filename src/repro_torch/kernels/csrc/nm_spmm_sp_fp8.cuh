@@ -3,17 +3,22 @@
 // requantizing flush of nm_spmm_fp8_requant); in DUAL form (two weights,
 // two accumulators, one silu(g) * u flush) the compressed gate-up
 // nm_spmm_dual_fp8 and its requantizing form; and the same streaming body
-// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body and, with
+// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body, in DUAL
+// form the dense gate-up tile_gemm_dual_fp8's (and _requant's) and, with
 // the X side gathered (G = n in {1, 2}), the fp8 lane-aligned gather K8's
-// (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values.
-// Included by gemm_fp8.cu, whose vg_nm_spmm_fp8, vg_tile_gemm_fp8,
-// vg_nm_spmm_dual_fp8 and vg_nm_spmm_gather_bk_fp8 launch it with their
+// (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values;
+// with the X side gathered from K-major x_t (KM), K11 fp8's
+// (nm_spmm_gather_fp8).  Included by gemm_fp8.cu, whose vg_nm_spmm_fp8,
+// vg_tile_gemm_fp8, vg_nm_spmm_dual_fp8, vg_tile_gemm_dual_fp8,
+// vg_nm_spmm_gather_bk_fp8 and vg_nm_spmm_gather_fp8 launch it with their
 // flush where nm_spmm/kernel.py::fp8_plan, tile_gemm/kernel.py::fp8_plan,
-// nm_spmm/kernel.py::fp8_dual_plan and nm_spmm_gather/kernel.py::fp8_plan
-// pick it; n = 4 of the compressed kernels, wider launches, the other fp8
-// duals, the masked singles and the int8 twins keep gemm_fp8.cu's /
-// gemm_int8.cu's shared bodies, and the many-row body of tile_gemm_fp8 (and
-// of K8, after gemm_fp8.cu's gather pass) is tile_gemm_sm90_fp8.cuh's.
+// nm_spmm/kernel.py::fp8_dual_plan, tile_gemm/kernel.py::fp8_dual_plan,
+// nm_spmm_gather/kernel.py::fp8_plan and ::kmajor_fp8_plan pick it; n = 4
+// of the compressed and gathered kernels, wider launches, K9 fp8, the
+// masked singles and the int8 twins keep gemm_fp8.cu's / gemm_int8.cu's
+// shared bodies, and the many-row bodies of tile_gemm_fp8 (of K8, after
+// gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
+// tile_gemm_sm90_fp8.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   nm_spmm_fp8    repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
@@ -27,6 +32,13 @@
 //   nm_spmm_gather_bk_fp8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk,
 //                  fp8 (_gather_bk_kernel), n in {1, 2}, below the many-row rows
 //                  (nm_spmm_gather/kernel.py::fp8_plan)
+//   tile_gemm_dual_fp8  repro/kernels/tile_gemm/kernel.py::tile_gemm_dual, fp8 branch
+//                  (_gemm_dual_kernel), with the requant:float8_e4m3fn flush of
+//                  repro/kernels/epilogue.py::flush_tile in its _requant form, where
+//                  tile_gemm/kernel.py::fp8_dual_plan streams
+//   nm_spmm_gather_fp8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_fp8
+//                  (_nm_spmm_gather_quantized, _gather_q_kernel, _gather_q_raw_kernel),
+//                  n in {1, 2}
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -58,8 +70,19 @@
 // and reads A from it with ldmatrix.  1:4 runs as 2:4 (as in nm_spmm_sp.cuh):
 // the transpose writes each group's kept byte into the slot of its index
 // and a +0 into the other, the pair (0, 1) for index 0, else (0, index);
-// the 1:4 bytes in device memory stay 1:4's.  The dense weight's warp
-// tile is its 16 channels x 64 K bytes, two 4 x 4 blocks a lane.
+// the 1:4 bytes in device memory stay 1:4's.  The dense weight (N = 4)
+// needs no private tile: ldmatrix .trans on b16 hands each lane a channel
+// pair at two K rows, so with the eight row addresses of each matrix chosen
+// as K rows {4i, 4i + 1} (and {4i + 2, 4i + 3} for its partner) one
+// __byte_perm makes a lane's A register of channel 2g at K bytes 4t .. 4t +
+// 3, another channel 2g + 1's: two ldmatrix .x4 .trans and eight
+// __byte_perm a warp tile and weight a step, in the mma's own K order, the
+// channels landing permuted (A row g is channel 2g), which the partial
+// store maps back.  The dense values tile is stored unpadded with its
+// 16-byte chunks swizzled by the K row's 4-row block (vslot), so the eight
+// rows of each matrix are read in one pass.  On an H100 it was faster than
+// the per-warp transpose it replaced at every timed shape of the dense
+// single, the dense dual, K8's and K11's streams, with the same bits.
 //
 // Numerics: the fp8 class's (gemm_fp8.cu).  Every 64-deep instruction
 // starts from zero and is added into a separate fp32 register accumulator
@@ -76,9 +99,9 @@
 // operations per batch row: the bytes over 3.35 TB/s (w_out at K = 8192, O
 // = 2048, 2:4: values 8.4 MB + meta 2.1 MB, about 3.1 us).  What the
 // design does about it: the ring keeps STAGES - 1 steps of values, meta
-// and X in flight per block (6 stages at decode), the split puts two
-// blocks on every SM, and the sparse instruction halves the tensor-core
-// work the first body spent expanding and multiplying zeros.  At 64-row
+// and X in flight per block (6 stages at decode), the split puts two or
+// three blocks on every SM, and the sparse instruction halves the
+// tensor-core work the first body spent expanding and multiplying zeros.  At 64-row
 // tiles it is slower than the shared body once that body has 64 or more
 // blocks (256 rows, gemma3-1b's w_in at 64 rows, on an H100), for reasons
 // not found yet (a 64-deep stage costs ~1-3 us there): fp8_plan keeps those
@@ -103,6 +126,30 @@
 // 64-row tile costs about as much as four of the 16-row one, for reasons not
 // found yet (no profiler sees inside a kernel here).
 //
+// The dense gate-up dual (DUAL at N = 4; tile_gemm_dual_fp8 and _requant).
+// Both dense weights' values tiles beside one X tile a stage, each warp's A
+// registers of both read from them, two accumulator sets, the split's
+// planes summed in rank order and flushed by DualFlush, as the compressed
+// dual.  A 16-row block is ~45 KB (a 4-deep ring: 6 stages timed the same
+// at decode and slower at three blocks an SM), three blocks an SM; at
+// internlm2-1.8b's gate-up (2048, 8192) at decode, 128 tiles split 2.
+// Bound: both weights' bytes and X once, over 3.35 TB/s (10.1 us there).
+//
+// The K-major X (KM, K11 fp8: x_t (K_eff, B) -> Y_t (O, B)).  The block's
+// indices for its split span land in shared memory once, before the ring;
+// each stage then loads, with cp.async, the step's 64 selected x_t rows,
+// row (c / G) * 4 + idx[c] for compressed row c, BM batch bytes from column
+// m0 (an index outside [0, 4), or columns at or past B, land as zeros),
+// into 16-byte slots swizzled by the row's 4-row block (kslot): a quarter
+// of the span K8's stream lands at 1:4.  A transpose pass turns the landed
+// [64][BM] tile into the [BM][64] X tile the B operand's ldmatrix reads
+// (4 x 4 byte blocks with gather_byte, a warp's 32 loads on 32 banks, one
+// block barrier); the products are the dense stream's.  The flush is K11's
+// order, acc * ws * xs (SingleFlushT<true, true>), stored at col * B + row
+// with the split's finish in column-major order, so that consecutive
+// threads store consecutive batch rows of a channel.  Bound: the kept x_t
+// rows, values, index and output bytes over 3.35 TB/s.
+//
 // The gathered X (G = n, K8 fp8).  values (K_c, O) is a dense e4m3 weight,
 // so the body is the N = 4 stream over it with only the X side changed: a
 // stage carries the step's 64 int32 indices and the span of 256 / n X bytes
@@ -123,6 +170,7 @@ namespace spf8 {
 
 using splitk::cp_async16;
 using splitk::ldsm_x4;
+using splitk::ldsm_x4_trans;
 
 constexpr int BO = 64;              // output channels per block (4 warps x 16)
 constexpr int BKS = 64;             // dense K per pipeline stage: one k64 instruction
@@ -169,39 +217,71 @@ __device__ __forceinline__ uint4 select16(const uint32_t (&wd)[16 / G], const in
 
 // A stage is [values (gate)][values (up)][meta (gate)][meta (up)][indices]
 // [X], the up tiles for a DUAL only, the indices for a gathered X only
-// (whose X is the step's span of 256 / G bytes a row).
-template <int N, int BM, int G = 0, bool DUAL = false>
+// (whose X is the step's span of 256 / G bytes a row).  KM, the K-major
+// gathered X (K11): no indices a stage (the block's span of them sits
+// after the compact X tile, loaded once), X is the step's 64 selected x_t
+// rows of BM batch bytes, [64][BM] in 16-byte slots (kslot).
+template <int N, int BM, int G = 0, bool DUAL = false, bool KM = false>
 struct Layout {
   static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
   static_assert(G == 0 || (N == 4 && (G == 1 || G == 2) && !DUAL),
                 "the gathered X (1:4 | 2:4) streams against one dense values tile");
+  static_assert(!KM || G != 0, "the K-major X is a gathered X");
   static constexpr int NW = DUAL ? 2 : 1;        // weights a stage (gate, up)
-  static constexpr int STAGES = BM == 16 ? 6 : 4;
+  // the dense weight (N = 4) gives its A operand straight from the landed
+  // tile (ldmatrix .trans + __byte_perm): the tile unpadded, its 16-byte
+  // chunks swizzled (vslot), no private transposed tiles
+  static constexpr int VP = N == 4 ? BO : VLD;   // byte pitch of the values tile
+  // the dense dual's 16-row ring is 4 deep (~45 KB a block; 6 stages timed
+  // the same at decode and slower at three blocks an SM on an H100)
+  static constexpr int STAGES = BM == 16 ? (N == 4 && DUAL ? 4 : 6) : 4;
   static constexpr int WN = BM == 16 ? 1 : 2;    // warps along the batch rows
   static constexpr int WM = 4 / WN;              // warps along the channels
   static constexpr int MT = BO / (16 * WM);      // m16 channel tiles a warp (1 | 2)
   static constexpr int NJ = BM / (8 * WN);       // n8 batch-row tiles a warp (2 | 4)
   static constexpr int VROWS = BKS * N / 4;      // kept rows a stage (16 | 32 | 64)
   static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
-  // byte pitch of a warp's transposed A tile: 32 kept (64 dense) bytes + 16
-  static constexpr int TLD = N == 4 ? BKS + 16 : 48;
-  static constexpr int V_BYTES = VROWS * VLD;                  // one weight's values tile
+  static constexpr int TLD = 48;   // byte pitch of a warp's transposed A tile: 32 kept bytes + 16
+  static constexpr int V_BYTES = VROWS * VP;                   // one weight's values tile
   static constexpr int M_BYTES = MROWS * BO;                   // one weight's meta tile
-  static constexpr int I_BYTES = G ? BKS * 4 : 0;              // the step's int32 indices
+  static constexpr int I_BYTES = G && !KM ? BKS * 4 : 0;       // the step's int32 indices
   static constexpr int SPAN = G ? 256 / G : BKS;               // X bytes a row a stage
   static constexpr int SLD = SPAN + 16;                        // byte pitch of the X rows
-  static constexpr int X_BYTES = BM * SLD;
+  static constexpr int X_BYTES = KM ? BKS * BM : BM * SLD;
   static constexpr int M_AT = NW * V_BYTES;                    // the meta tiles in a stage
   static constexpr int I_AT = M_AT + NW * M_BYTES;             // the indices
   static constexpr int X_AT = I_AT + I_BYTES;                  // the X tile (or span)
   static constexpr int STAGE = X_AT + X_BYTES;                 // a multiple of 16
   static constexpr int PART = NW * BM * PLD * 4;               // the partial tiles
   static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
-  static constexpr int T_WARP = NW * MT * 16 * TLD;            // a warp's transposed A tiles
+  static constexpr int T_WARP = N == 4 ? 0 : NW * MT * 16 * TLD;   // a warp's transposed A tiles
   static constexpr int T_BYTES = 4 * T_WARP;
   static constexpr int COMPACT = G ? BM * XLD : 0;             // the selected X tile (gather)
   static constexpr int INBOX = NW * BM * BO * 4;  // the peers' partial slices (split > 1 only)
+  // the K-major X's indices of a block's span: its most steps (split blocks
+  // over nk steps) x 64 int32
+  __host__ __device__ static constexpr int idx_bytes(int nk, int split) {
+    return KM ? (nk + split - 1) / split * BKS * 4 : 0;
+  }
 };
+
+// The byte offset of chunk j (channels 16 j .. + 15) of K row r in the
+// dense values tile (64 bytes a row): the chunk XORed with r's 4-row
+// block mod 4, so that the eight K rows an ldmatrix matrix reads ({4i, 4i
+// + 1} or {4i + 2, 4i + 3}, i = 0 .. 3) sit in eight distinct 16-byte bank
+// groups.
+__device__ __forceinline__ int vslot(int r, int j) {
+  return r * BO + 16 * (j ^ ((r >> 2) & 3));
+}
+
+// The 16-byte slot of chunk ch (batch bytes 16 ch .. + 15) of compressed row
+// r in the K-major X tile (CPR chunks a row): the slot index's low three
+// bits XORed with r's 4-row block, so that the transpose pass's eight
+// K blocks a warp read eight distinct slots mod 8 (32 distinct banks).
+template <int CPR>
+__device__ __forceinline__ int kslot(int r, int ch) {
+  return (r * CPR + ch) ^ ((r >> 2) & 7);
+}
 
 // D = A (16 x 64, 2:4, compressed) x B (64 x 8) + C, e4m3 in, fp32 out
 __device__ __forceinline__ void mma_sp_e4m3(float (&d)[4], const uint32_t (&a)[4],
@@ -236,16 +316,18 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 }
 
 // k: the contraction (K, or K_c for the gathered X, whose `meta` is the
-// int32 index and whose X rows are K_eff = k * 4 / G bytes wide).  DUAL: v2
-// and meta2 are the up weight's (v, meta the gate's) and flush(row, col,
-// sums) takes both sums; else flush(row, col, sum).
-template <int N, int BM, int G, bool DUAL, class Flush>
+// int32 index and whose X rows are K_eff = k * 4 / G bytes wide; KM: x is
+// x_t (K_eff, b), b a multiple of 16, and flush(row, col, sum) gets the
+// batch row and channel in column-major order).  DUAL: v2 and meta2 are
+// the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
+// sums; else flush(row, col, sum).
+template <int N, int BM, int G, bool DUAL, bool KM, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
                       const uint8_t* __restrict__ meta, const uint8_t* __restrict__ v2,
                       const uint8_t* __restrict__ meta2, Flush flush, int b, int k, int o,
                       int split) {
-  using L = Layout<N, BM, G, DUAL>;
+  using L = Layout<N, BM, G, DUAL, KM>;
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -264,6 +346,8 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   const int rows = min(BM, b - m0);            // live batch rows of this tile
   uint8_t* tw = smem + L::RING + warp * L::T_WARP;   // this warp's transposed A tiles
   uint8_t* compact = smem + L::RING + L::T_BYTES;    // the selected X tile (gather)
+  int* kidx = reinterpret_cast<int*>(compact + L::COMPACT);   // KM: the span's indices
+  float* inbox = reinterpret_cast<float*>(compact + L::COMPACT + L::idx_bytes(k / BKS, split));
 
   auto load_stage = [&](int st, int s) {
     uint8_t* base = smem + st * L::STAGE;
@@ -276,7 +360,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
         for (int c = tid; c < L::VROWS * 4; c += NT) {
           const int r = c >> 2, col = (c & 3) * 16;
-          cp_async16(vs + r * VLD + col, src + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
+          cp_async16(vs + vslot(r, c & 3), src + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
         }
       } else if (tid < L::VROWS * 4) {
         const int r = tid >> 2, col = (tid & 3) * 16;
@@ -293,7 +377,22 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
       }
     }
     uint8_t* xs = base + L::X_AT;
-    if constexpr (G != 0) {
+    if constexpr (KM) {
+      // the step's 64 selected x_t rows, (c / G) * 4 + idx[c] for compressed
+      // row c, BM batch bytes each from column m0 (16-byte chunks; an index
+      // outside [0, 4) and columns at or past b land as zeros)
+      constexpr int CPR = BM / 16;
+      const int* is = kidx + (s - s0) * BKS;
+#pragma unroll
+      for (int c = tid; c < BKS * CPR; c += NT) {
+        const int r = c / CPR, ch = c % CPR;
+        const int e = is[r], col = m0 + 16 * ch, kc = s * BKS + r;
+        const bool live = static_cast<unsigned>(e) < 4u && col < b;
+        cp_async16(xs + 16 * kslot<CPR>(r, ch),
+                   x + (live ? static_cast<size_t>(kc / G * 4 + e) * b + col : 0),
+                   live ? 16 : 0);
+      }
+    } else if constexpr (G != 0) {
       // the step's indices, and the X span they select from (ke = k * 4 / G)
       if (tid < BKS / 4)
         cp_async16(base + L::I_AT + 16 * tid, reinterpret_cast<const int*>(meta) + s * BKS +
@@ -330,7 +429,26 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   auto compute = [&](int st) {
     const uint8_t* base = smem + st * L::STAGE;
     const uint8_t* xt = base + L::X_AT;
-    if constexpr (G != 0) {
+    if constexpr (KM) {
+      // the transpose pass: unit u = (chunk u / 64, K block q = (u / 4) % 16,
+      // word w = u % 4) turns the 4 x 4 byte block (compressed rows 4q .. + 3,
+      // batch bytes 16 chunk + 4w .. + 3) into four batch rows' words of the
+      // compact [BM][XLD] tile
+      constexpr int CPR = BM / 16;
+#pragma unroll
+      for (int u = tid; u < BKS * CPR; u += NT) {
+        const int w = u & 3, q = (u >> 2) & 15, ch = u >> 6;
+        uint32_t wd[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) wd[r] = lds32(xt + 16 * kslot<CPR>(4 * q + r, ch) + 4 * w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(compact + (16 * ch + 4 * w + j) * XLD + 4 * q) =
+              gather_byte(wd[0], wd[1], wd[2], wd[3], j);
+      }
+      __syncthreads();
+      xt = compact;
+    } else if constexpr (G != 0) {
       // the select pass: unit u = (row u / 4, compressed columns 16 (u % 4)
       // .. + 15) of the compact tile, one 16-byte store from the words of
       // its M-blocks (2:4: 32 span bytes, 1:4: 64)
@@ -367,95 +485,112 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
     for (int j = 0; j < NJ; ++j)
       if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
         ldsm_x4(bf[j], xt + (r0 + j * 8 + (lane & 7)) * XLD + (lane >> 3) * 16);
-    __syncwarp();            // every lane is done reading the previous step's tiles
+    if constexpr (N == 4) {
+      // The dense A operand from the landed tile.  ldmatrix .trans on b16
+      // gives lane 4g + t, from a matrix of eight K rows (row i's address
+      // from lane 8m + i), the channel pair 2g, 2g + 1 at rows 2t and 2t +
+      // 1; matrix 0 takes K rows 4i, 4i + 1 (i = 0 .. 3), matrix 1 rows 4i +
+      // 2, 4i + 3, matrices 2, 3 the same 16 rows on.  __byte_perm then
+      // forms channel 2g's K bytes 4t .. 4t + 3 (A row g) and channel 2g +
+      // 1's (A row g + 8): the K order is the mma's own, the channels land
+      // permuted (A row g is channel 2g, row g + 8 channel 2g + 1), which
+      // the partial store maps back.
+      const int m = lane >> 3, i = lane & 7;
+      const int krow = 16 * (m >> 1) + 4 * (i >> 1) + 2 * (m & 1) + (i & 1);
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const uint8_t* vs = base + w * L::V_BYTES;
-      const uint8_t* ms = base + L::M_AT + w * L::M_BYTES;
+      for (int w = 0; w < NW; ++w) {
+        const uint8_t* vs = base + w * L::V_BYTES;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
-        uint8_t* ta = tw + (w * MT + mt) * 16 * TLD;
-        const int p = lane & 3, q = lane >> 2;
-        if constexpr (N == 4) {
-          // lane (p, q): dense rows 4q .. + 3 and 32 + 4q .. + 3 x channels c +
-          // 4p .. + 3 -> channel rows of 4 consecutive K bytes
+        for (int mt = 0; mt < MT; ++mt) {
+          const int jc = (ch0 + mt * 16) >> 4;   // the warp tile's 16-channel chunk
+          uint32_t a[2][4];                      // K bytes 0 .. 31, 32 .. 63
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const uint8_t* src = vs + (32 * h + 4 * q) * VLD + c + 4 * p;
-            const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
-                           w3 = lds32(src + 3 * VLD);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 32 * h + 4 * q) =
-                  gather_byte(w0, w1, w2, w3, j);
+            uint32_t q[4];
+            ldsm_x4_trans(q, vs + vslot(32 * h + krow, jc));
+            a[h][0] = __byte_perm(q[0], q[1], 0x6420);
+            a[h][1] = __byte_perm(q[0], q[1], 0x7531);
+            a[h][2] = __byte_perm(q[2], q[3], 0x6420);
+            a[h][3] = __byte_perm(q[2], q[3], 0x7531);
           }
-        } else if constexpr (N == 2) {
-          // lane (p, q): kept rows 4q .. + 3 x channels c + 4p .. + 3 -> four
-          // channel rows of 4 consecutive kept bytes
-          const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
-          const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
-                         w3 = lds32(src + 3 * VLD);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 4 * q) =
-                gather_byte(w0, w1, w2, w3, j);
-        } else {
-          // lane (p, q): kept rows 4 (q & 3) .. + 3 (groups 4 (q & 3) .. + 3) x
-          // channels c + 4p + 2 (q >> 2) .. + 1, their indices in meta row q &
-          // 3 -> 8 bytes a channel (two channels a lane: all 32 lanes work)
-          const int qq = q & 3, j0 = 2 * (q >> 2);
-          const uint8_t* src = vs + 4 * qq * VLD + c + 4 * p;
-          const uint32_t wv[4] = {lds32(src), lds32(src + VLD), lds32(src + 2 * VLD),
-                                  lds32(src + 3 * VLD)};
-          const uint32_t mw = lds32(ms + qq * BO + c + 4 * p);
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const int j = j0 + jj;
-            const uint32_t mb = (mw >> (8 * j)) & 0xffu;
-            uint32_t pr[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-              pr[r] = pair8_1of4((wv[r] >> (8 * j)) & 0xffu, (mb >> (2 * r)) & 3u);
-            uint32_t* dst = reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 8 * qq);
-            dst[0] = pr[0] | pr[1] << 16;
-            dst[1] = pr[2] | pr[3] << 16;
-          }
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const uint8_t* ms = base + L::M_AT + w * L::M_BYTES;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int c = ch0 + mt * 16;
-        uint32_t a[4];
-        const uint8_t* ta = tw + (w * MT + mt) * 16 * TLD +
-                            ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD + (lane >> 4) * 16;
-        ldsm_x4(a, ta);
-        if constexpr (N == 4) {
-          uint32_t a1[4];      // K bytes 32 .. 63 of the same 16 channels
-          ldsm_x4(a1, ta + 32);
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
             if (r0 + j * 8 < rows) {
               // the 64-deep partial sum (two k32 instructions), promoted into fp32
               float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_e4m3(part, a, bf[j][0], bf[j][1]);
-              mma_e4m3(part, a1, bf[j][2], bf[j][3]);
+              mma_e4m3(part, a[0], bf[j][0], bf[j][1]);
+              mma_e4m3(part, a[1], bf[j][2], bf[j][3]);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
+              for (int e = 0; e < 4; ++e) acc[w][mt][j][e] = __fadd_rn(acc[w][mt][j][e], part[e]);
             }
-        } else {
+        }
+      }
+    } else {
+      // the compressed weight (N = 1, 2): each warp transposes its part of the
+      // landed values tile into its private tile, then mma.sp
+      __syncwarp();            // every lane is done reading the previous step's tiles
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const uint8_t* vs = base + w * L::V_BYTES;
+        const uint8_t* ms = base + L::M_AT + w * L::M_BYTES;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int c = ch0 + mt * 16;    // channels c .. c + 15: A's rows
+          uint8_t* ta = tw + (w * MT + mt) * 16 * TLD;
+          const int p = lane & 3, q = lane >> 2;
+          if constexpr (N == 2) {
+            // lane (p, q): kept rows 4q .. + 3 x channels c + 4p .. + 3 -> four
+            // channel rows of 4 consecutive kept bytes
+            const uint8_t* src = vs + 4 * q * VLD + c + 4 * p;
+            const uint32_t w0 = lds32(src), w1 = lds32(src + VLD), w2 = lds32(src + 2 * VLD),
+                           w3 = lds32(src + 3 * VLD);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              *reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 4 * q) =
+                  gather_byte(w0, w1, w2, w3, j);
+          } else {
+            // lane (p, q): kept rows 4 (q & 3) .. + 3 (groups 4 (q & 3) .. + 3) x
+            // channels c + 4p + 2 (q >> 2) .. + 1, their indices in meta row q &
+            // 3 -> 8 bytes a channel (two channels a lane: all 32 lanes work)
+            const int qq = q & 3, j0 = 2 * (q >> 2);
+            const uint8_t* src = vs + 4 * qq * VLD + c + 4 * p;
+            const uint32_t wv[4] = {lds32(src), lds32(src + VLD), lds32(src + 2 * VLD),
+                                    lds32(src + 3 * VLD)};
+            const uint32_t mw = lds32(ms + qq * BO + c + 4 * p);
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int j = j0 + jj;
+              const uint32_t mb = (mw >> (8 * j)) & 0xffu;
+              uint32_t pr[4];
+#pragma unroll
+              for (int r = 0; r < 4; ++r)
+                pr[r] = pair8_1of4((wv[r] >> (8 * j)) & 0xffu, (mb >> (2 * r)) & 3u);
+              uint32_t* dst = reinterpret_cast<uint32_t*>(ta + (4 * p + j) * TLD + 8 * qq);
+              dst[0] = pr[0] | pr[1] << 16;
+              dst[1] = pr[2] | pr[3] << 16;
+            }
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const uint8_t* ms = base + L::M_AT + w * L::M_BYTES;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int c = ch0 + mt * 16;
+          uint32_t a[4];
+          const uint8_t* ta = tw + (w * MT + mt) * 16 * TLD +
+                              ((lane & 7) + ((lane >> 3) & 1) * 8) * TLD + (lane >> 4) * 16;
+          ldsm_x4(a, ta);
           // lane 4g + t: groups 8 (t >> 1) .. + 7 of channel c + g + 8 (t & 1)
           const int ch = c + g + 8 * (t & 1), h = t >> 1;
           uint32_t e;
           if constexpr (N == 2) {
             const uint8_t* mp = ms + 4 * h * BO + ch;
             e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
-                static_cast<uint32_t>(mp[2 * BO]) << 16 | static_cast<uint32_t>(mp[3 * BO]) << 24;
+                static_cast<uint32_t>(mp[2 * BO]) << 16 |
+                static_cast<uint32_t>(mp[3 * BO]) << 24;
           } else {
             const uint8_t* mp = ms + 2 * h * BO + ch;
             e = splitk::expand_1of4(static_cast<uint32_t>(mp[0]) |
@@ -468,12 +603,21 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
               float part[4] = {0.f, 0.f, 0.f, 0.f};
               mma_sp_e4m3(part, a, bf[j], e);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
+              for (int i = 0; i < 4; ++i)
+                acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
             }
         }
       }
     }
   };
+  if constexpr (KM) {
+    // the span's indices, once, before the ring (the X loads address by them)
+    const int* gi = reinterpret_cast<const int*>(meta) + s0 * BKS;
+    for (int c = tid; c < ns * BKS / 4; c += NT) cp_async16(kidx + 4 * c, gi + 4 * c, 16);
+    splitk::cp_async_commit();
+    splitk::cp_async_wait<0>();
+    __syncthreads();
+  }
   splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
 
   // partial tiles [weight][batch row][channel], fp32
@@ -486,29 +630,30 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
       for (int j = 0; j < NJ; ++j) {
         float* pw = part + w * BM * PLD;
         const int r = r0 + j * 8 + 2 * t;
-        const int c = ch0 + mt * 16 + g;
+        // A row g (g + 8) is channel g (g + 8); the dense A's channel 2g (2g + 1)
+        const int c = ch0 + mt * 16 + (N == 4 ? 2 * g : g), c8 = N == 4 ? 1 : 8;
         pw[r * PLD + c] = acc[w][mt][j][0];
         pw[(r + 1) * PLD + c] = acc[w][mt][j][1];
-        pw[r * PLD + c + 8] = acc[w][mt][j][2];
-        pw[(r + 1) * PLD + c + 8] = acc[w][mt][j][3];
+        pw[r * PLD + c + c8] = acc[w][mt][j][2];
+        pw[(r + 1) * PLD + c + c8] = acc[w][mt][j][3];
       }
   __syncthreads();
 
-  splitk::finish_planes<BM, BO, PLD, NT, NW>(
-      part, reinterpret_cast<float*>(smem + L::RING + L::T_BYTES + L::COMPACT), rank, split,
-      rows, [&](int r, int c, const float (&sum)[NW]) {
+  splitk::finish_planes<BM, BO, PLD, NT, NW, KM>(
+      part, inbox, rank, split, rows, [&](int r, int c, const float (&sum)[NW]) {
         if constexpr (DUAL) flush(m0 + r, n0 + c, sum);
         else flush(m0 + r, n0 + c, sum[0]);
       });
 }
 
-template <int N, int BM, int G, bool DUAL, class Flush>
+template <int N, int BM, int G, bool DUAL, bool KM, class Flush>
 int launch(const void* x, const void* v, const void* meta, const void* v2, const void* meta2,
            const Flush& flush, int b, int k, int o, int split, cudaStream_t stream) {
-  using L = Layout<N, BM, G, DUAL>;
-  static bool opted_in = false;
-  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, Flush>, opted_in,
-                        dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::T_BYTES + L::COMPACT,
+  using L = Layout<N, BM, G, DUAL, KM>;
+  static int opted = 0;
+  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, KM, Flush>, opted,
+                        dim3(o / BO, (b + BM - 1) / BM), NT,
+                        L::RING + L::T_BYTES + L::COMPACT + L::idx_bytes(k / BKS, split),
                         L::INBOX, split, stream, static_cast<const uint8_t*>(x),
                         static_cast<const uint8_t*>(v), static_cast<const uint8_t*>(meta),
                         static_cast<const uint8_t*>(v2), static_cast<const uint8_t*>(meta2),
@@ -532,7 +677,7 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
   if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_LAUNCH(NN, BB) \
-  return launch<NN, BB, 0, false>(x, v, meta, nullptr, nullptr, flush, b, k, o, split, s)
+  return launch<NN, BB, 0, false, false>(x, v, meta, nullptr, nullptr, flush, b, k, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_LAUNCH(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_LAUNCH(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_LAUNCH(1, 16);
@@ -544,8 +689,10 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
 }
 
 // nm_spmm_dual_fp8's few-row body: both compressed weights (values_g /
-// meta_g, values_u / meta_u) at n in {1, 2}, bm in {16, 64}; flush(row, col,
-// sums) stores one output from its two summed fp32 accumulators
+// meta_g, values_u / meta_u) at n in {1, 2}, and tile_gemm_dual_fp8's: both
+// dense (K, O) e4m3 weights at n = 4 (meta unused); bm in {16, 64};
+// flush(row, col, sums) stores one output from its two summed fp32
+// accumulators
 template <class Flush>
 int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
                 const void* mu, const Flush& flush, int b, int k, int o, int split,
@@ -553,11 +700,13 @@ int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, co
   if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_DUAL(NN, BB) \
-  return launch<NN, BB, 0, true>(x, vg, mg, vu, mu, flush, b, k, o, split, s)
+  return launch<NN, BB, 0, true, false>(x, vg, mg, vu, mu, flush, b, k, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_DUAL(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_DUAL(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_DUAL(1, 16);
   if (n == 1 && bm == 64) VG_SPF8_DUAL(1, 64);
+  if (n == 4 && bm == 16) VG_SPF8_DUAL(4, 16);
+  if (n == 4 && bm == 64) VG_SPF8_DUAL(4, 64);
 #undef VG_SPF8_DUAL
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -573,12 +722,36 @@ int launch_gather(int n, int bm, const void* x, const void* values, const void* 
   if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_GATHER(GG, BB) \
-  return launch<4, BB, GG, false>(x, values, idx, nullptr, nullptr, flush, b, kc, o, split, s)
+  return launch<4, BB, GG, false, false>(x, values, idx, nullptr, nullptr, flush, b, kc, o, \
+                                         split, s)
   if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16);
   if (n == 1 && bm == 64) VG_SPF8_GATHER(1, 64);
 #undef VG_SPF8_GATHER
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K11 fp8's body: x_t (ke, b) e4m3, b a multiple of 16, gathered at n in {1,
+// 2} through idx (K_c = ke * n / 4 int32) against values (K_c, O) as a dense
+// e4m3 weight; bm in {16, 64}, split a power of two up to min(8, K_c / 64);
+// flush(row, col, acc) stores the (O, B) output of batch row `row`, channel
+// `col`
+template <class Flush>
+int launch_kmajor(int n, int bm, const void* x_t, const void* values, const void* idx,
+                  const Flush& flush, int b, int ke, int o, int split, void* stream) {
+  if (ke <= 0 || (ke * n) % 4 != 0 || b % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VG_SPF8_KMAJOR(GG, BB) \
+  return launch<4, BB, GG, false, true>(x_t, values, idx, nullptr, nullptr, flush, b, kc, o, \
+                                        split, s)
+  if (n == 2 && bm == 16) VG_SPF8_KMAJOR(2, 16);
+  if (n == 2 && bm == 64) VG_SPF8_KMAJOR(2, 64);
+  if (n == 1 && bm == 16) VG_SPF8_KMAJOR(1, 16);
+  if (n == 1 && bm == 64) VG_SPF8_KMAJOR(1, 64);
+#undef VG_SPF8_KMAJOR
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -89,14 +89,16 @@ __device__ __forceinline__ void run_ring(int s0, int ns, Load&& load, Compute&& 
 // + p BM PLD, each [BM][PLD] of the BM x BO tile; written and
 // synchronized; NP = 2 for a gate-up dual, whose flush combines both);
 // inbox: NP x E floats after the ring, E = BM x BO (split > 1 only).  Block
-// q owns elements [q E / split, (q + 1) E / split) of the tile (row-major);
+// q owns elements [q E / split, (q + 1) E / split) of the tile (row-major,
+// or with COLMAJOR column-major: then consecutive threads flush consecutive
+// rows of one column, the order a (O, B) output is stored in);
 // each block stores its partials of every slice into the owner's inbox at
 // [its rank][plane][offset in the slice]; after one cluster barrier every
 // owner sums its inbox in rank order, plane by plane (the same bits
 // whichever block sums them), from its own shared memory, so no block reads
 // a peer's memory and none waits for the others to leave.  Then flush(r,
 // c, sums) for each of its live rows (r < rows).
-template <int BM, int BO, int PLD, int NT, int NP, class Flush>
+template <int BM, int BO, int PLD, int NT, int NP, bool COLMAJOR = false, class Flush>
 __device__ __forceinline__ void finish_planes(const float* part, float* inbox, int rank,
                                               int split, int rows, Flush&& flush) {
   constexpr int E = BM * BO;
@@ -106,13 +108,15 @@ __device__ __forceinline__ void finish_planes(const float* part, float* inbox, i
     cg::cluster_group cluster = cg::this_cluster();
     for (int q = tid; q < E; q += NT) {
       float* box = cluster.map_shared_rank(inbox, q / slice) + rank * NP * slice + q % slice;
+      const int r = COLMAJOR ? q % BM : q / BO, c = COLMAJOR ? q / BM : q % BO;
 #pragma unroll
-      for (int p = 0; p < NP; ++p) box[p * slice] = part[p * BM * PLD + (q / BO) * PLD + q % BO];
+      for (int p = 0; p < NP; ++p) box[p * slice] = part[p * BM * PLD + r * PLD + c];
     }
     cluster.sync();
   }
   for (int q = rank * slice + tid; q < (rank + 1) * slice; q += NT) {
-    const int r = q / BO, c = q % BO, at = q - rank * slice;
+    const int r = COLMAJOR ? q % BM : q / BO, c = COLMAJOR ? q / BM : q % BO;
+    const int at = q - rank * slice;
     if (r >= rows) continue;
     float s[NP];
 #pragma unroll
@@ -140,17 +144,18 @@ inline bool split_ok(int split, int nk) {
   return split >= 1 && split <= MAX_SPLIT && (split & (split - 1)) == 0 && split <= nk;
 }
 
-// Launch `kernel` on a (1, 1, split) cluster grid.  `opted_in` is the
-// caller's per-kernel flag: above 48 KB a block's shared memory is asked
-// for once, at its largest (ring + inbox).
+// Launch `kernel` on a (1, 1, split) cluster grid.  `opted` is the
+// caller's per-kernel count of the shared-memory bytes a block was allowed
+// so far: above 48 KB a block's shared memory is asked for at its largest
+// (ring + inbox), again only when a launch needs more.
 template <class... Params, class... Args>
-int launch(void (*kernel)(Params...), bool& opted_in, dim3 grid, int threads, int ring_bytes,
+int launch(void (*kernel)(Params...), int& opted, dim3 grid, int threads, int ring_bytes,
            int inbox_bytes, int split, cudaStream_t stream, Args... args) {
-  if (!opted_in) {
+  if (ring_bytes + inbox_bytes > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes + inbox_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
+    opted = ring_bytes + inbox_bytes;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid.x, grid.y, split);

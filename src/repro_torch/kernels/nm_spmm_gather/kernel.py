@@ -38,8 +38,11 @@ the dual wgmma body.  ``nm_spmm_gather_bk_fp8`` and ``_requant`` at n in
 {1, 2} run the e4m3 forms of K8's two, chosen by :func:`fp8_plan`: the
 e4m3 stream of ``csrc/nm_spmm_sp_fp8.cuh`` with a byte select pass, and an
 e4m3 gather pass (``gemm_fp8.cu``) in front of ``csrc/
-tile_gemm_sm90_fp8.cuh``'s wgmma body.  Every other kernel here runs the
-shared bodies of ``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+tile_gemm_sm90_fp8.cuh``'s wgmma body.  ``nm_spmm_gather_fp8`` (K11) at n
+in {1, 2} runs that e4m3 stream with a K-major X stage (the step's selected
+x_t rows, then a byte transpose pass), chosen by :func:`kmajor_fp8_plan`.
+Every other kernel here runs the shared bodies of ``gemm.cu`` /
+``gemm_int8.cu`` / ``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue),
@@ -74,8 +77,9 @@ from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
-__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "DUAL_SHARED_MAX_KC",
-           "FP8_STREAM16_MAX_ROWS",
+__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "kmajor_fp8_plan",
+           "DUAL_SHARED_MAX_KC", "FP8_STREAM16_MAX_ROWS", "KMAJOR_STREAM64_MIN_STEPS",
+           "KMAJOR_STREAM_MAX_ROWS",
            "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
            "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
@@ -91,6 +95,11 @@ DUAL_SHARED_MAX_KC = 512
 #: K8 fp8 runs its 16-row stream over several row tiles up to this many rows
 #: (four row tiles)
 FP8_STREAM16_MAX_ROWS = 64
+#: K11 fp8's 64-row stream takes a launch past the 16-row one's width where
+#: each block of its split walks this many 64-deep steps or more
+KMAJOR_STREAM64_MIN_STEPS = 8
+#: K11 fp8 streams up to this many rows (the shared body above)
+KMAJOR_STREAM_MAX_ROWS = 256
 
 def plan(b: int, ke: int, o: int, n: int) -> dict:
     """``nm_spmm_gather_bk``'s (float) body, tile and split for ``gather(X
@@ -175,6 +184,40 @@ def fp8_plan(b: int, ke: int, o: int, n: int, requant: bool = False) -> dict:
     if requant:
         return tile_fp8_plan(b, kc, o, requant=True)
     return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": FP8_WGMMA_COLS, "split": 1}
+
+
+def kmajor_fp8_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_fp8``'s (K11 fp8) body, tile and split for ``Y_t (o,
+    b) = gather(x_t (ke, b), idx)^T-contract values (ke * n / 4, o)``, e4m3,
+    over the compressed contraction K_c = ke * n / 4.  n in {1, 2} up to
+    ``KMAJOR_STREAM_MAX_ROWS`` rows: ``stream`` (``csrc/nm_spmm_sp_fp8.cuh``
+    over the values with the K-major X stage: the step's selected x_t rows
+    landed by cp.async, a byte transpose pass into the X tile) over
+    64-channel tiles of 16 rows, the K loop split by ``cluster_split`` at
+    ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM (internlm2-1.8b's two
+    row-parallel sites on a (1, 2) mesh at B = 32: 2 x 32 tiles, split 4);
+    past ``FP8_STREAM16_BLOCKS_PER_SM`` x ``SMS`` tiles, over 64-row tiles at
+    ``cluster_split``'s split where each block still walks
+    ``KMAJOR_STREAM64_MIN_STEPS`` steps or more (at B = 256 they beat the
+    16-row tiles at internlm2-1.8b's local w_out, K_c 1,024 / 2,048, and
+    lost to them at wo, K_c 256 / 512; both beat the shared body).
+    ``shared`` (gemm_fp8.cu's body, the form the port ran first; split 1)
+    above ``KMAJOR_STREAM_MAX_ROWS`` rows, where it beat both streams at
+    internlm2-1.8b's two local sites at 1,024 rows, and at n = 4
+    (development timings of each body alone on an H100).  Returns ``{"body", "rows",
+    "cols", "split"}``; ``rows`` is what the C interface takes as ``bm``."""
+    rows16, rows64 = _build.BLOCK_ROWS
+    if n not in (1, 2) or b > KMAJOR_STREAM_MAX_ROWS:
+        return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O,
+                "split": 1}
+    steps = ke * n // 4 // _build.BLOCK_K
+    tiles = (o // _build.BLOCK_O) * -(-b // rows16)
+    split = cluster_split((o // _build.BLOCK_O) * -(-b // rows64), steps)
+    if tiles > FP8_STREAM16_BLOCKS_PER_SM * SMS and \
+            steps // split >= KMAJOR_STREAM64_MIN_STEPS:
+        return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O, "split": split}
+    return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O,
+            "split": cluster_split(tiles, steps, FP8_STREAM16_BLOCKS_PER_SM)}
 
 
 def _check_gather(kernel: str, ke: int, values: torch.Tensor, idx: torch.Tensor,
@@ -688,11 +731,17 @@ def _gather_t_quantized(wrapper, storage, x_t, values, idx, x_scale, w_scale, n,
     _build.check_operands(kernel, x_t, values, idx, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values.shape[0], o)
     y_t = torch.empty((o, b), dtype=y_dtype, device=x_t.device)
+    # the fp8 K11 runs the body of its plan (block_b only checked); int8 keeps
+    # the shared body (no plan)
+    plan = ()
+    if storage == torch.float8_e4m3fn:
+        p = kmajor_fp8_plan(b, ke, o, n)
+        bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_t.device):
         rc = getattr(lib, f"vg_{kernel}")(
             x_t.data_ptr(), values.data_ptr(), idx.data_ptr(), _ptr(x_scale), _ptr(w_scale),
-            y_t.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_t))
+            y_t.data_ptr(), b, ke, o, n, kind, bb, *plan, _build.stream_of(x_t))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y_t
@@ -718,7 +767,10 @@ def nm_spmm_gather_fp8(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tenso
                        n: int, *, out_dtype: torch.dtype = torch.float32,
                        block_b: Optional[int] = None) -> torch.Tensor:
     """:func:`nm_spmm_gather_int8`'s contract over float8_e4m3fn codes: an
-    fp32 accumulator, the raw fp32 (O, B) one with no scales."""
+    fp32 accumulator, the raw fp32 (O, B) one with no scales, flushed
+    ``acc * w_scale * x_scale``.  ``block_b`` is the dispatch plan's row
+    block (checked); the body, its tile and its K split are
+    :func:`kmajor_fp8_plan`'s."""
     return _gather_t_quantized(nm_spmm_gather_fp8, torch.float8_e4m3fn, x_t, values, idx,
                                x_scale, w_scale, n, out_dtype, block_b)
 

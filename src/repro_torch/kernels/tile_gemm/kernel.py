@@ -23,8 +23,11 @@ in each stage, two accumulators, one silu_mul flush.  ``tile_gemm_fp8`` and
 ``tile_gemm_fp8_requant`` run the e4m3 forms of the same two, chosen by
 :func:`fp8_plan`: ``csrc/nm_spmm_sp_fp8.cuh``'s stream over the dense
 weight and ``csrc/tile_gemm_sm90_fp8.cuh``'s wgmma body, whose weight tile
-is transposed on chip.  Every other kernel here runs the shared bodies of
-``gemm.cu`` / ``gemm_int8.cu`` / ``gemm_fp8.cu``.
+is transposed on chip.  ``tile_gemm_dual_fp8`` and
+``tile_gemm_dual_fp8_requant`` run the dual forms of those two, chosen by
+:func:`fp8_dual_plan` (the wgmma one never for the requantized codes).
+Every other kernel here runs the shared bodies of ``gemm.cu`` /
+``gemm_int8.cu`` / ``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
 ``::tile_gemm_dual`` (:382, float, int8 and fp8 branches), ``::tile_gemm_int8``
@@ -50,10 +53,10 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "cluster_split", "stream_plan",
-           "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS", "FP8_WGMMA_COLS",
-           "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
-           "FP8_STREAM16_BLOCKS_PER_SM",
+__all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "fp8_dual_plan", "cluster_split",
+           "stream_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
+           "FP8_WGMMA_COLS", "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
+           "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
            "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
@@ -96,9 +99,13 @@ DUAL_WGMMA_COLS = 128
 #: qwen3-moe's expert gate-up (4096, 1536) at 17-64 rows (split 4) and lost
 #: to it unsplit at internlm2-1.8b's and phi-3-vision's gate-up
 DUAL_STREAM_MIN_SPLIT = 4
-#: the e4m3 streams' 16-row tiles (csrc/nm_spmm_sp_fp8.cuh: ~57-67 KB a
+#: the e4m3 streams' 16-row tiles (csrc/nm_spmm_sp_fp8.cuh: ~45-67 KB a
 #: block) that share an SM when a plan runs them over several row tiles
 FP8_STREAM16_BLOCKS_PER_SM = 3
+#: channels of each weight in the e4m3 dual wgmma body's output tile
+#: (csrc/tile_gemm_sm90_fp8.cuh, DUAL): 128 of each would need 384
+#: registers a consumer thread
+FP8_DUAL_WGMMA_COLS = 64
 #: the planners' bodies -> the C interface's ``body`` argument
 BODY_CODES = {"shared": 0, "stream": 1, "wgmma": 2}
 #: the shared body's launch width (O / 64 tiles x row tiles) from which the
@@ -198,6 +205,44 @@ def dual_plan(b: int, k: int, o: int) -> dict:
             (p["rows"] == _build.BLOCK_ROWS[1] and p["split"] < DUAL_STREAM_MIN_SPLIT):
         return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": DUAL_WGMMA_COLS, "split": 1}
     return p
+
+
+def fp8_dual_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
+    """``tile_gemm_dual_fp8``'s (and ``_requant``'s) body, tile and split for
+    ``silu(Xq (b, k) @ Wg) * (Xq @ Wu)``, both e4m3 weights ``(k, o)``.
+
+    ``stream`` (``csrc/nm_spmm_sp_fp8.cuh``'s dual stream over both dense
+    weights, N = 4) over 64-channel tiles of 16 rows, the K loop split by
+    :func:`cluster_split` at ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM: up
+    to 16 rows (internlm2-1.8b's gate-up at B = 8: 128 tiles, split 2;
+    qwen3-moe's expert gate-up: 24 tiles, split 8), and below
+    ``WGMMA_MIN_ROWS`` where it splits K ``DUAL_STREAM_MIN_SPLIT`` ways or
+    more (qwen3-moe at 17-64 rows).  ``wgmma`` (``csrc/
+    tile_gemm_sm90_fp8.cuh``'s dual form: 128 rows x ``FP8_DUAL_WGMMA_COLS``
+    channels of each weight, split 1) otherwise: internlm2-1.8b from 17
+    rows, where one 128-row tile a channel tile beat both streams and the
+    shared body on an H100, qwen3-moe from 65 (development timings of each body
+    at 8-256 rows; ``chip_smoke.py``'s fp8 sweep phase re-times the bodies
+    at 17-128 rows every run).  ``requant`` (e4m3 codes out) never takes
+    ``wgmma`` (its 128-deep e4m3 sums move codes by more than one step, see
+    :func:`fp8_plan`): where the plan would, it takes the 16-row stream while
+    its launch has at most ``FP8_STREAM16_BLOCKS_PER_SM`` x ``SMS`` tiles,
+    then ``shared`` (gemm_fp8.cu's body, the form the port ran first; split
+    1): internlm2-1.8b's gate-up from 49 rows and qwen3-moe's from 265 (the
+    shared body beat the 16-row stream at internlm2-1.8b from 64 rows, and
+    came close to the 64-row one).  Returns ``{"body", "rows", "cols",
+    "split"}``; ``rows`` is what the C interface takes as ``bm``."""
+    rows16 = _build.BLOCK_ROWS[0]
+    tiles = (o // _build.BLOCK_O) * -(-b // rows16)
+    split = cluster_split(tiles, k // _build.BLOCK_K, FP8_STREAM16_BLOCKS_PER_SM)
+    stream = {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O, "split": split}
+    if b <= rows16 or (b < WGMMA_MIN_ROWS and split >= DUAL_STREAM_MIN_SPLIT):
+        return stream
+    if not requant:
+        return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": FP8_DUAL_WGMMA_COLS, "split": 1}
+    if tiles <= FP8_STREAM16_BLOCKS_PER_SM * SMS:
+        return stream
+    return {"body": "shared", "rows": _build.BLOCK_ROWS[1], "cols": _build.BLOCK_O, "split": 1}
 
 
 def check_single_epilogue(kernel: str, epi: EpilogueSpec,
@@ -594,12 +639,18 @@ def _tile_gemm_dual_quantized(wrapper, storage, x_q, w_g, w_u, x_scale, wg_scale
                           block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    # the fp8 dual runs the body of its plan (block_b only checked); the int8
+    # dual keeps the shared body (no plan)
+    plan_args = ()
+    if storage == torch.float8_e4m3fn:
+        p = fp8_dual_plan(b, k, o, requant=requant_scale is not None)
+        bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_tile_gemm_dual_{suffix}")(
             x_q.data_ptr(), w_g.data_ptr(), w_u.data_ptr(), x_scale.data_ptr(),
             wg_scale.data_ptr(), wu_scale.data_ptr(), _ptr(requant_scale), y.data_ptr(),
-            b, k, o, kind, bb, _build.stream_of(x_q))
+            b, k, o, kind, bb, *plan_args, _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -640,7 +691,9 @@ def tile_gemm_dual_fp8(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
                        wu_scale: torch.Tensor, *, out_dtype: torch.dtype = torch.float32,
                        block_b: Optional[int] = None) -> torch.Tensor:
     """Fused fp8 gate-up: :func:`tile_gemm_dual_int8` over float8_e4m3fn
-    operands, two fp32 accumulators."""
+    operands, two fp32 accumulators.  ``block_b`` is the dispatch plan's row
+    block (checked); the body, its tile and its K split are
+    :func:`fp8_dual_plan`'s."""
     return _tile_gemm_dual_quantized(tile_gemm_dual_fp8, torch.float8_e4m3fn, x_q, w_g, w_u,
                                      x_scale, wg_scale, wu_scale, out_dtype, block_b, None)
 

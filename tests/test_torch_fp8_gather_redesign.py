@@ -133,10 +133,11 @@ def test_split_spans_are_whole_steps_covering_k(k, b):
 
 # -------------------------------------------------- every body fits a block
 def _fp8_stream_smem(bm):
-    """nm_spmm_sp_fp8.cuh at N = 4: ring, the warps' transposed A tiles, inbox."""
-    stages, mt = (6, 1) if bm == 16 else (4, 2)
-    stage = 64 * 80 + bm * 80
-    return max(stages * stage, bm * 68 * 4) + 4 * mt * 16 * 80 + bm * 64 * 4
+    """nm_spmm_sp_fp8.cuh at N = 4: the ring (the unpadded values tile, read
+    by ldmatrix .trans, and the X tile), inbox."""
+    stages = 6 if bm == 16 else 4
+    stage = 64 * 64 + bm * 80
+    return max(stages * stage, bm * 68 * 4) + bm * 64 * 4
 
 
 def _fp8_wgmma_smem():
@@ -176,23 +177,26 @@ def _word(byte_rows: np.ndarray) -> np.ndarray:
 
 
 def _stream_step_operand(w8: np.ndarray, step: int) -> np.ndarray:
-    """The stream body's transposed A tile of one 64-deep step for every
-    16-channel warp tile: lane (p, q) reads dense rows 4q .. + 3 (+ 32) of
-    channels c + 4p .. + 3 as four words and writes gather_byte j to row 4p
-    + j at byte 32h + 4q.  Returns (O, 64) bytes, channel-major."""
-    k0 = 64 * step
+    """The stream body's A operand of one 64-deep step for every 16-channel
+    warp tile: the values tile as cp.async lands it (swizzled 16-byte
+    chunks), each lane's registers by ldmatrix .trans and __byte_perm (A row
+    g = channel 2g, row g + 8 = channel 2g + 1 of the tile), mapped back to
+    channels as the partial store does.  Returns (O, 64) bytes,
+    channel-major."""
+    from test_torch_fp8_kmajor_dual_redesign import _dense_a_fragments, _landed
     o = w8.shape[1]
     out = np.zeros((o, 64), np.uint8)
-    for c in range(0, o, 16):
-        for p in range(4):
-            for q in range(8):
+    for n0 in range(0, o, 64):
+        tile = _landed(w8[64 * step:64 * step + 64, n0:n0 + 64])
+        for jc in range(4):
+            regs = _dense_a_fragments(tile, jc)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
                 for h in range(2):
-                    rows = w8[k0 + 32 * h + 4 * q:k0 + 32 * h + 4 * q + 4, c + 4 * p:c + 4 * p + 4]
-                    words = [_word(rows[r].reshape(4, 1))[0] for r in range(4)]
-                    for j in range(4):
-                        wd = _gather_byte(np.array(words, np.uint32), j)
-                        out[c + 4 * p + j, 32 * h + 4 * q:32 * h + 4 * q + 4] = \
-                            np.frombuffer(np.uint32(wd).tobytes(), np.uint8)
+                    for r, (ch, k0) in enumerate(((2 * g, 4 * t), (2 * g + 1, 4 * t),
+                                                  (2 * g, 16 + 4 * t), (2 * g + 1, 16 + 4 * t))):
+                        out[n0 + 16 * jc + ch, 32 * h + k0:32 * h + k0 + 4] = np.frombuffer(
+                            np.uint32(regs[lane][4 * h + r]).tobytes(), np.uint8)
     return out
 
 
