@@ -19,12 +19,12 @@ Phases, each of which fails the run on a miss:
              kernel's, the plain version's and torch.matmul's times
              (CUDA-graph replays between CUDA events, weights rotated
              through > 100 MB so L2 is cold as in a real decode step) and
-             the bandwidth bound; nm_spmm's, tile_gemm's and tile_gemm_dual's
-             also with the first body's (``earlier_ms``: gemm.cu's shared
-             body, timed in turns with the current body through the same
-             wrapper, see ``earlier_kernels``), nm_spmm's K split and
-             tile_gemm's and tile_gemm_dual's plan (body, tile, split);
-             tile_gemm_dual must give the same bits on a second launch.
+             the bandwidth bound; nm_spmm's, tile_gemm's, tile_gemm_dual's
+             and nm_spmm_dual's also with the first body's (``earlier_ms``:
+             gemm.cu's shared body, timed in turns with the current body
+             through the same wrapper, see ``earlier_kernels``), nm_spmm's
+             K split and the others' plan (body, tile, split); both duals
+             must give the same bits on a second launch.
    int8    — tile_gemm_int8, nm_spmm_int8 (n in {1, 2}) and the int8
              duals, on int8 weights quantized per channel and bf16
              activations quantized per row, at the same (K, O) and B in
@@ -81,18 +81,24 @@ Phases, each of which fails the run on a miss:
              the stream at stream_plan's split, the wgmma body), at the
              64-row launches where the dual plans switch bodies (B in
              {17, 33, 48, 64, 128}) on the gate-up pairs of internlm2-1.8b,
-             phi-3-vision and qwen3-moe's experts, K9 at n in {2, 1}:
-             each within 1e-2 of max|plain|, one line per shape naming
-             the plan's body beside every body's time.
+             phi-3-vision and qwen3-moe's experts, K9 at n in {2, 1}; and
+             the float compressed nm_spmm_dual at n in {2, 1} (the shared
+             body, the stream over 16-row and over 64-row tiles at two
+             blocks an SM, the 64-row one also at one; B also 256): each
+             within 1e-2 of max|plain|, one line per shape naming the
+             plan's body beside every body's time.
    masked  — the K10 masked kernels (tile_gemm_masked, nm_spmm_masked,
              nm_spmm_gather_bk_masked, each in bf16, int8 and fp8) at the
              MoE expert shapes ((K, O) = (1536, 4096) and (4096, 1536)), B
              in {8, 64}, n in {1, 2}, with 0%, ~40% and 100% of the row
              block's K steps live: BITWISE their unmasked kernels on the
-             same masked X (every bf16 one, tile_gemm_masked_fp8 and
-             nm_spmm_masked_fp8, whose unmasked kernels run their own
-             bodies and sum in another order: BITWISE themselves with
-             every tile live, within 1e-2 of the unmasked kernel),
+             same masked X (tile_gemm_masked and nm_spmm_gather_bk_masked
+             in bf16, tile_gemm_masked_fp8 and nm_spmm_masked_fp8, whose
+             unmasked kernels run their own bodies and sum in another
+             order: BITWISE themselves with every tile live, within 1e-2
+             of the unmasked kernel; the bf16 nm_spmm_masked runs K2's
+             stream at K2's split, bitwise K2, and is also timed in turns
+             with its first body, ``earlier_ms``),
              within the class's limit of
              their plain versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
@@ -142,7 +148,11 @@ Phases, each of which fails the run on a miss:
              2:4 x bf16, int8 with static scales, fp8): every spgemm w_out
              plans its layout's masked kernel (ACT_SKIP), every expert
              gate-up ACT_MASK_ONLY_DUAL, and the profiled decode step
-             reports the share of w_out tiles skipped.  All runs: a
+             reports the share of w_out tiles skipped.  The bf16
+             compressed runs print nm_spmm_dual's plans (and on the
+             spgemm path nm_spmm_masked's), and the serving phase ends
+             with the device busy time of the decode steps that run them
+             (internlm2-1.8b 2:4 and 1:4, qwen3-moe spgemm 2:4).  All runs: a
              seeded trace of 16 requests (the MoE runs: its first 8),
              prompts of 128-256 tokens, 32 new tokens, 8 slots, prefill
              chunks of 64, max_len 512.  Every linear site must
@@ -296,6 +306,10 @@ ATTN_TOL = 2e-2                  # flash_attention vs plain, per row, scaled (bf
 CALIB_TOL = 0.1
 SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           # the float compressed dual's and the bf16 masked single's stream
+           # (their shared bodies, gemm.cu, where the plan keeps them)
+           "nm_spmm_dual": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           "nm_spmm_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "tile_gemm": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            "tile_gemm_fp8": "src/repro_torch/kernels/csrc/tile_gemm_sm90_fp8.cuh",
@@ -465,18 +479,19 @@ def earlier_kernels():
     """Inside, the flash_attention, nm_spmm, tile_gemm, nm_spmm_fp8,
     tile_gemm_fp8 (and _requant), nm_spmm_gather_bk, tile_gemm_dual,
     nm_spmm_gather_dual_bk, nm_spmm_dual_fp8 (and _requant),
-    nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant)
-    and nm_spmm_gather_fp8 wrappers launch the port's first bodies
-    (``flash_attention_wmma.cu``; the shared bodies of gemm.cu and
-    gemm_fp8.cu at every n and row count, ``vg_nm_spmm_tiled``,
-    ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
+    nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant),
+    nm_spmm_gather_fp8, nm_spmm_dual (float) and nm_spmm_masked (bf16)
+    wrappers launch the port's first bodies (``flash_attention_wmma.cu``;
+    the shared bodies of gemm.cu and gemm_fp8.cu at every n and row count,
+    ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
     ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``,
     ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``,
     ``vg_nm_spmm_dual_fp8_tiled``, ``vg_nm_spmm_gather_bk_fp8_tiled``,
-    ``vg_tile_gemm_dual_fp8_tiled``, ``vg_nm_spmm_gather_fp8_tiled``, at the
-    row block the first form took: 16 up to 16 rows, else 64) instead of
-    the current ones: the ``earlier_ms`` yardstick, through the same
-    wrappers and checks."""
+    ``vg_tile_gemm_dual_fp8_tiled``, ``vg_nm_spmm_gather_fp8_tiled``,
+    ``vg_nm_spmm_dual_tiled``, ``vg_nm_spmm_masked_tiled``, at the row
+    block the first form took: 16 up to 16 rows, else 64; the masked one at
+    its maps' row block) instead of the current ones: the ``earlier_ms``
+    yardstick, through the same wrappers and checks."""
     from repro_torch.kernels import _build
 
     gemm = _build.library("gemm.cu")
@@ -525,12 +540,22 @@ def earlier_kernels():
     def nm_spmm_gather_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
         return fp8.vg_nm_spmm_gather_fp8_tiled(*args[:11], _build.block_rows(args[6]),
                                                args[-1])
+
+    # the float compressed dual's plan runs 16-row tiles at decode and 64-row
+    # ones past it (b: args[6]); the masked single keeps its maps' row block
+    def nm_spmm_dual_tiled(*args):   # (.., n, bm, body, split, stream)
+        return gemm.vg_nm_spmm_dual_tiled(*args[:10], _build.block_rows(args[6]), args[-1])
+
+    def nm_spmm_masked_tiled(*args):   # (.., act, bm, split, stream): the split dropped
+        return gemm.vg_nm_spmm_masked_tiled(*args[:12], args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
                                           vg_tile_gemm=tile_gemm_tiled,
                                           vg_nm_spmm_gather_bk=nm_spmm_gather_bk_tiled,
                                           vg_tile_gemm_dual=tile_gemm_dual_tiled,
-                                          vg_nm_spmm_gather_dual_bk=nm_spmm_gather_dual_bk_tiled)
+                                          vg_nm_spmm_gather_dual_bk=nm_spmm_gather_dual_bk_tiled,
+                                          vg_nm_spmm_dual=nm_spmm_dual_tiled,
+                                          vg_nm_spmm_masked=nm_spmm_masked_tiled)
     _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
                                               vg_tile_gemm_fp8=tile_gemm_fp8_tiled,
                                               vg_nm_spmm_dual_fp8=nm_spmm_dual_fp8_tiled,
@@ -569,6 +594,7 @@ def card() -> str:
 
 def kernel_phase(cfg, gen, card_line: str):
     from repro_torch.core import nm
+    from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm, nm_spmm_dual, split_k
     from repro_torch.kernels.tile_gemm.kernel import dual_plan, plan, tile_gemm, tile_gemm_dual
     from repro_torch.kernels.epilogue import EpilogueSpec
@@ -644,14 +670,20 @@ def kernel_phase(cfg, gen, card_line: str):
                 comp.append((x, cg.values, nm.pack_meta(cg.meta), cu.values,
                              nm.pack_meta(cu.meta), n))
             y = nm_spmm_dual(*comp[0])
+            again = nm_spmm_dual(*comp[0])
             torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                fail(f"nm_spmm_dual B={b} K={k} O={o} n={n}: not the same bits on a second "
+                     f"launch")
             kc = k * n // 4
             cats = [(x, torch.cat([dense_weight(vg, mg, n_), dense_weight(vu, mu, n_)], 1))
                     for _, vg, mg, vu, mu, n_ in comp[:2]]
+            t_now, t_earlier = in_turns(nm_spmm_dual, comp)
             record("nm_spmm_dual", b, k, o, n, y, nm_spmm_dual_ref(*comp[0]),
-                   time_ms(nm_spmm_dual, comp), time_ms(nm_spmm_dual_ref, comp),
+                   t_now, time_ms(nm_spmm_dual_ref, comp),
                    time_ms(torch.matmul, cats),
-                   2 * (b * k + 2 * kc * o + b * o) + 2 * kc * o // 4, 4 * b * kc * o)
+                   2 * (b * k + 2 * kc * o + b * o) + 2 * kc * o // 4, 4 * b * kc * o,
+                   earlier_ms=t_earlier, plan=nm_dual_plan(b, k, o, n))
 
     # the flush's other lattice points (bias, silu, gelu) at one shape
     k, o = d, cfg.attn_dim
@@ -1106,21 +1138,32 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
 # choose between the three bodies by the stream's K split (and K9 at 1:4 by
 # K_c)
 DUAL_SWEEP_ROWS = (17, 33, 48, 64, 128)
+# nm_spmm/kernel.py::dual_plan's boundary: its 16- and 64-row streams against
+# the shared body, past decode rows and at the calibration forward's 256
+NM_DUAL_SWEEP_ROWS = DUAL_SWEEP_ROWS + (256,)
 
 
 def dual_sweep_phase(shapes, gen, card_line):
-    """Each body of the two float duals alone, through the C interface: the
-    shared body (the first form), the stream at ``stream_plan``'s split and
-    the wgmma body, at the gate-up pairs ``shapes`` ((K, O): internlm2-1.8b,
-    phi-3-vision, qwen3-moe's experts), B in DUAL_SWEEP_ROWS, K9 at n in {2,
-    1}.  Every body must be within TOL of max|plain|; one JSON line per
-    shape names the body the plan picks and every body's time (CUDA-graph
+    """Each body of the three float duals alone, through the C interface:
+    the shared body (the first form), the stream at ``stream_plan``'s split
+    and the wgmma body, at the gate-up pairs ``shapes`` ((K, O):
+    internlm2-1.8b, phi-3-vision, qwen3-moe's experts), B in
+    DUAL_SWEEP_ROWS, K9 at n in {2, 1}; the compressed nm_spmm_dual at n in
+    {2, 1}: the shared body and the stream over 16-row tiles and over
+    64-row ones (split at two blocks an SM, and the 64-row one also at one,
+    K1's), B in NM_DUAL_SWEEP_ROWS.
+    Every body must be within TOL of max|plain|; one JSON line per shape
+    names the body the plan picks and every body's time (CUDA-graph
     replays, weights rotated as in the kernel phase)."""
+    from repro_torch.core import nm
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
     from repro_torch.kernels import _build
+    from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_ref
     from repro_torch.kernels.nm_spmm_gather import kernel as gk
     from repro_torch.kernels.nm_spmm_gather.ref import nm_spmm_gather_dual_ref
-    from repro_torch.kernels.tile_gemm.kernel import BODY_CODES, dual_plan, stream_plan
+    from repro_torch.kernels.tile_gemm.kernel import (BODY_CODES, cluster_split, dual_plan,
+                                                      stream_plan)
     from repro_torch.kernels.tile_gemm.ref import tile_gemm_dual_ref
 
     dev, bf16 = "cuda", torch.bfloat16
@@ -1166,9 +1209,51 @@ def dual_sweep_phase(shapes, gen, card_line):
                             "plan": plan_of(b, k, o)["body"], "ms": ms,
                             "stream_split": stream_plan(b, kc, o)["split"], "card": card_line}))
 
+    def nm_dual_call(body, bm, split):
+        def f(x, vg, mg, vu, mu, n):
+            b, o = x.shape[0], vg.shape[1]
+            y = torch.empty((b, o), dtype=bf16, device=dev)
+            rc = lib.vg_nm_spmm_dual(x.data_ptr(), vg.data_ptr(), mg.data_ptr(), vu.data_ptr(),
+                                     mu.data_ptr(), y.data_ptr(), b, x.shape[1], o, n, bm,
+                                     BODY_CODES[body], split, _build.stream_of(x))
+            _build.check(rc, "nm_spmm_dual", lib)
+            return y
+        return f
+
+    def nm_dual_sweep(weights, k, o, n):
+        steps = k // _build.BLOCK_K
+        for b in NM_DUAL_SWEEP_ROWS:
+            x = torch.randn((b, k), generator=gen, device=dev).to(bf16)
+            ops = [(x, *w, n) for w in weights]
+            want = nm_spmm_dual_ref(*ops[0])
+            ms, splits = {}, {}
+            for tag, body, bm, per_sm in (("shared", "shared", 64, None),
+                                          ("stream16", "stream", 16, 2),
+                                          ("stream64_1", "stream", 64, 1),
+                                          ("stream64", "stream", 64, 2)):
+                split = 1 if per_sm is None else cluster_split(
+                    (o // _build.BLOCK_O) * -(-b // bm), steps, per_sm)
+                f = nm_dual_call(body, bm, split)
+                e = scaled_err(f(*ops[0]), want)
+                if not (e <= TOL):
+                    fail(f"nm_spmm_dual {tag} body B={b} K={k} O={o} n={n}: error {e:.3e} > {TOL}")
+                ms[tag], splits[tag] = time_ms(f, ops), split
+            p = nm_dual_plan(b, k, o, n)
+            log(json.dumps({"sweep": "nm_spmm_dual", "B": b, "K": k, "O": o, "n": n,
+                            "plan": p["body"] + (str(p["rows"]) if p["body"] == "stream" else ""),
+                            "ms": ms, "splits": splits, "card": card_line}))
+
     for k, o in shapes:
         pairs = [tuple((torch.randn((k, o), generator=gen, device=dev) * k ** -0.5).to(bf16)
                        for _ in range(2)) for _ in range(copies_for(4 * k * o))]
+        for n in (2, 1):
+            comp = []
+            for pair in pairs[:copies_for(k * o * n)]:
+                cs = [nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4) for w in pair]
+                comp.append((cs[0].values, nm.pack_meta(cs[0].meta), cs[1].values,
+                             nm.pack_meta(cs[1].meta)))
+            nm_dual_sweep(comp, k, o, n)
+            del comp
         sweep("tile_gemm_dual", pairs, tile_gemm_dual_ref, dual_plan, k)
         for n in (2, 1):
             kc = k * n // 4
@@ -1617,8 +1702,13 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     e4m3), at the MoE expert shapes, B in {8, 64}, n in {1, 2}, with
     LIVE_SHARES of the K steps live in the row block (whole 64-column
     steps, or 256 / n columns for gather, zeroed in X).  Each output must
-    be BITWISE the unmasked kernel's on the same masked X and within the
-    class's limit of the plain version (int8 bitwise).  Timed beside the
+    be BITWISE the unmasked kernel's on the same masked X (where the
+    unmasked kernel runs a body of its own that sums in another order:
+    bitwise the masked kernel with every tile live, and within TOL of the
+    unmasked one) and within the class's limit of the plain version (int8
+    bitwise).  The bf16 nm_spmm_masked runs K2's stream and is held
+    bitwise to K2, and is timed in turns with its first (shared) body
+    (``earlier_ms``).  Timed beside the
     unmasked kernel, the plain version and the class's library call on the
     same masked X (torch.matmul / torch._int_mm / torch._scaled_mm on the
     dense or decompressed weight, the gather's on the pre-gathered X);
@@ -1702,11 +1792,11 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
         def own_body_at(b, k, o, requant=False):
             """Whether the unmasked kernel sums in another order than the
-            masked one: K1, K2 (bf16), nm_spmm_fp8 (n in {1, 2}), and K8
-            (bf16, e4m3) and tile_gemm_fp8 where their plans leave the
-            shared body."""
-            if (layout == "compressed" and qdtype in (None, FP8)) or \
-                    (layout == "dense" and qdtype is None):
+            masked one: K1, nm_spmm_fp8 (n in {1, 2}), and K8 (bf16, e4m3)
+            and tile_gemm_fp8 where their plans leave the shared body.  The
+            bf16 nm_spmm_masked runs K2's stream at K2's split: bitwise
+            K2."""
+            if (layout == "compressed" and fp8) or (layout == "dense" and qdtype is None):
                 return True
             if layout == "gather" and qdtype is None:
                 return gk.plan(b, k, o, n)["body"] != "shared"
@@ -1761,8 +1851,14 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
 
                     want = plain(x, xs, lfs[0])
                     ops = [(x, xs, lf) for lf in lfs]
-                    t_m = time_ms(lambda x_, xs_, lf_, maps=maps: call(
-                        masked_fn, layout, n, x_, xs_, lf_, maps), ops)
+                    extra = {}
+                    masked_call = (lambda x_, xs_, lf_, maps=maps: call(
+                        masked_fn, layout, n, x_, xs_, lf_, maps))
+                    if layout == "compressed" and qdtype is None:
+                        # the redesigned stream, in turns with its first (shared) body
+                        t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
+                    else:
+                        t_m = time_ms(masked_call, ops)
                     if unmasked_ms is None:   # neither depends on the live share
                         unmasked_ms = time_ms(lambda x_, xs_, lf_: call(
                             plain_fn, layout, n, x_, xs_, lf_), ops)
@@ -1781,7 +1877,7 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                            exact=int8, live_share=n_live / nk_, unmasked_ms=unmasked_ms,
                            bitwise_unmasked=not own_body, bitwise_all_live_self=own_body,
                            library="same masked X"
-                           + (", pre-gathered" if layout == "gather" else ""))
+                           + (", pre-gathered" if layout == "gather" else ""), **extra)
                     if qdtype is not None and 0 < share < 1:
                         # the requant:<dtype> flush (gelu) on the masked kernel: the
                         # codes of the unmasked *_requant kernel on the same rows
@@ -2046,14 +2142,29 @@ def long_trace(trace, vocab_size):
 
 
 def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
-    """The body, tile and split the plans give the kernels this PR's slice
-    redesigned, where a run launches them: tile_gemm_dual_fp8 (and
-    _requant) on a dense fp8 swiglu model, K11 fp8 (nm_spmm_gather_fp8) on a
-    sharded fp8 gather model's two row-parallel sites (their local K), at
-    each of ``rows``."""
+    """The body, tile and split the plans give the kernels the last slices
+    redesigned, where a run launches them: the float nm_spmm_dual on a bf16
+    compressed swiglu model (an MoE's expert gate-up) and, on the spgemm
+    expert path, the bf16 nm_spmm_masked of every expert w_out (K2's stream
+    at K2's split); tile_gemm_dual_fp8 (and _requant) on a dense fp8 swiglu
+    model, K11 fp8 (nm_spmm_gather_fp8) on a sharded fp8 gather model's two
+    row-parallel sites (their local K), at each of ``rows``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
+    from repro_torch.kernels.nm_spmm.kernel import split_k
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan
 
+    if qdtype is None and layout == "compressed" and mesh == 1 and cfg.act == "swiglu":
+        n = sparsity[0]
+        out = {"nm_spmm_dual": {f"B={b}": nm_dual_plan(b, cfg.d_model, cfg.d_ff, n)
+                                for b in rows}}
+        if cfg.num_experts and cfg.moe_expert_path == "spgemm":
+            k, o = cfg.d_ff, cfg.d_model
+            out["nm_spmm_masked"] = {
+                f"B={b} K={k} O={o}": {"body": "stream", "rows": _build.block_rows(b),
+                                       "split": split_k(b, k, o, n)} for b in rows[:2]}
+        return out
     if qdtype != "fp8":
         return {}
     if layout == "dense" and mesh == 1 and cfg.act == "swiglu" and not cfg.num_experts:
@@ -3268,6 +3379,11 @@ def main():
         torch.cuda.empty_cache()
         log(f"[{res['layout']}] phase {time.perf_counter() - t0:.1f}s")
     log(f"serving phase {time.perf_counter() - t_serving:.1f}s")
+    # the decode steps that run the float nm_spmm_dual and the bf16 nm_spmm_masked
+    busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
+            if res["layout"] in ("2:4", "1:4", "moe-spgemm/2:4")}
+    log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, qwen3-moe spgemm bf16 "
+        f"2:4): {json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3321,6 +3437,8 @@ def main():
               "tile_gemm_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["tile_gemm_fp8"]),
               "nm_spmm_gather_bk": (SOURCES["nm_spmm"], SOURCES["float"], SOURCES["tile_gemm"]),
               "tile_gemm_dual": (SOURCES["nm_spmm"], SOURCES["tile_gemm"]),
+              "nm_spmm_dual": (SOURCES["nm_spmm"], SOURCES["float"]),
+              "nm_spmm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),
               "nm_spmm_gather_bk_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"],
@@ -3370,12 +3488,14 @@ def main():
             r = next(r for r in rows if (r["kernel"], r["B"], r["K"], r["O"], r["n"])
                      == (name, 8, moe_ff, moe_d, n) and 0 < r["live_share"] < 1)
             entries.append({
-                "name": name, "route": "cuda", "source": SOURCES[q or "float"],
+                "name": name, "route": "cuda", "source": SOURCES.get(name, SOURCES[q or "float"]),
                 "replaces": REPLACES[name], "launches": launches.get(name, 0),
                 "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "unmasked_ms": r["unmasked_ms"],
+                **({"earlier_ms": r["earlier_ms"], "bodies": bodies[name]}
+                   if "earlier_ms" in r else {}),
                 "measured_as": f"one expert w_out launch at B=8, (K, O) = ({moe_ff}, {moe_d})"
                                f"{', n=2 (2:4)' if n == 2 else ''}, {r['live_share']:.2f} of "
                                f"its K steps live; library on the same masked X"

@@ -82,8 +82,12 @@
 // (gather_dual_then_wgmma below).  vg_nm_spmm_tiled, vg_tile_gemm_tiled,
 // vg_nm_spmm_gather_bk_tiled, vg_tile_gemm_dual_tiled and
 // vg_nm_spmm_gather_dual_bk_tiled keep the shared body below for them, the
-// forms the port ran first, as yardsticks.  nm_spmm at n = 4, nm_spmm_dual,
-// the masked singles, K8 and K9 at n = 4 and K11 stay on the shared body.
+// forms the port ran first, as yardsticks.  nm_spmm_dual at n in {1, 2}
+// runs the stream's compressed dual form where nm_spmm/kernel.py::dual_plan
+// picks it, and the bf16 nm_spmm_masked at n in {1, 2} the stream's MASKED
+// form (vg_nm_spmm_dual_tiled and vg_nm_spmm_masked_tiled keep their shared
+// bodies as yardsticks).  nm_spmm and nm_spmm_dual at n = 4, the other
+// masked singles, K8 and K9 at n = 4 and K11 stay on the shared body.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
@@ -724,7 +728,8 @@ int vg_tile_gemm(const void* x, const void* w, const void* bias, void* y, int b,
     return tg::launch_bn(bn, x, w, bias, y, b, k, o, act, out_f32, stream);
   }
   if (bn != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return sp::launch_nm(4, bm, x, w, nullptr, bias, y, b, k, o, act, out_f32, split, stream);
+  return sp::launch_nm(4, bm, x, w, nullptr, nullptr, bias, y, b, k, o, act, out_f32, split,
+                       stream);
 }
 
 // the shared body: the first form of tile_gemm, timed beside the current
@@ -753,7 +758,8 @@ int vg_tile_gemm_dual(const void* x, const void* wg, const void* wu, void* y, in
     return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
                                         nullptr, nullptr, y, b, k, k, o, ACT_NONE, stream);
   }
-  if (body == 1 && bn == 64) return sp::launch_dual(bm, x, wg, wu, y, b, k, o, split, stream);
+  if (body == 1 && bn == 64)
+    return sp::launch_dual(4, bm, x, wg, nullptr, wu, nullptr, y, b, k, o, split, stream);
   if (body == 2 && bm == tg::BM && bn == 128 && split == 1)
     return tg::launch_dual(1, x, wg, wu, y, b, k, o, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -774,7 +780,8 @@ int vg_nm_spmm(const void* x, const void* values, const void* meta, const void* 
                int b, int k, int o, int n, int act, int out_f32, int bm, int split,
                void* stream) {
   if (n == 1 || n == 2)
-    return sp::launch_nm(n, bm, x, values, meta, bias, y, b, k, o, act, out_f32, split, stream);
+    return sp::launch_nm(n, bm, x, values, meta, nullptr, bias, y, b, k, o, act, out_f32, split,
+                         stream);
   if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, bias, y, b, k, o,
                           act, stream, out_f32);
@@ -789,16 +796,51 @@ int vg_nm_spmm_tiled(const void* x, const void* values, const void* meta, const 
                           act, stream, out_f32);
 }
 
+// n in {1, 2}: the sparse-tensor-core body walking the live steps of each
+// block's span, K split over `split` blocks of a cluster (nm_spmm's split:
+// bitwise vg_nm_spmm on the same masked X); n = 4: the shared body, split 1
 int vg_nm_spmm_masked(const void* x, const void* values, const void* meta, const void* kmask,
                       const void* bias, void* y, int b, int k, int o, int n, int act, int bm,
-                      void* stream) {
+                      int split, void* stream) {
+  if (kmask == nullptr || (n != 1 && n != 2 && split != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 1 || n == 2)
+    return sp::launch_nm(n, bm, x, values, meta, kmask, bias, y, b, k, o, act, 0, split, stream);
   return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, bias, y, b, k,
                                 o, act, stream);
 }
 
+// the shared body at any n: the first form of nm_spmm_masked, timed beside
+// the sparse body (not on any path)
+int vg_nm_spmm_masked_tiled(const void* x, const void* values, const void* meta,
+                            const void* kmask, const void* bias, void* y, int b, int k, int o,
+                            int n, int act, int bm, void* stream) {
+  return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, bias, y, b, k,
+                                o, act, stream);
+}
+
+// nm_spmm/kernel.py::dual_plan's body: 0, the shared body (any n; bm 16 |
+// 64, split 1); 1, the compressed dual stream (nm_spmm_sp.cuh; n in {1, 2},
+// bm 16 | 64), K split over `split` blocks of a cluster
 int vg_nm_spmm_dual(const void* x, const void* values_g, const void* meta_g,
                     const void* values_u, const void* meta_u, void* y, int b, int k, int o,
-                    int n, int bm, void* stream) {
+                    int n, int bm, int body, int split, void* stream) {
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, nullptr, y, b,
+                           k, o, ACT_NONE, stream);
+  }
+  if (body == 1 && (n == 1 || n == 2))
+    return sp::launch_dual(n, bm, x, values_g, meta_g, values_u, meta_u, y, b, k, o, split,
+                           stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the shared body at any n: the first form of nm_spmm_dual, timed beside the
+// current bodies (not on any path)
+int vg_nm_spmm_dual_tiled(const void* x, const void* values_g, const void* meta_g,
+                          const void* values_u, const void* meta_u, void* y, int b, int k,
+                          int o, int n, int bm, void* stream) {
   return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, nullptr, y, b,
                          k, o, ACT_NONE, stream);
 }

@@ -1,6 +1,8 @@
 // The activation-sparsity block skip shared by the masked GEMM kernels
 // (K10: tile_gemm_masked, nm_spmm_masked, nm_spmm_gather_bk_masked, in
-// gemm.cu, gemm_int8.cu and gemm_fp8.cu).
+// gemm.cu, gemm_int8.cu and gemm_fp8.cu; bf16 nm_spmm_masked at n in {1, 2}
+// in nm_spmm_sp.cuh's stream, which walks the live steps of its split's
+// span).
 //
 // kmask is block_maps' (row blocks, K steps) int32 map over the masked X:
 // kmask[i][s] != 0 iff row block i holds a nonzero in K step s.  A block
@@ -30,6 +32,17 @@ struct LiveSteps {
       const uint32_t m = __ballot_sync(0xffffffffu, live);
       if (lane == 0) bits[base >> 5] = m;
     }
+  }
+
+  // The live steps in [s, e).
+  __device__ __forceinline__ int count(int s, int e) const {
+    int c = 0;
+    for (; s < e; s = (s | 31) + 1) {
+      uint32_t w = bits[s >> 5] >> (s & 31);
+      if (e - s < 32) w &= (1u << (e - s)) - 1u;
+      c += __popc(w);
+    }
+    return c;
   }
 
   // The first live step at or after s, or nk when none is left.

@@ -1,13 +1,15 @@
-// nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2};
+// nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2},
+// and with the activation-sparsity skip (MASKED) the bf16 nm_spmm_masked;
 // and the same streaming body over a dense weight (N = 4): K1's few-row
 // tile_gemm, and, with the X side gathered (G = n in {1, 2}), K8's few-row
 // nm_spmm_gather_bk over its dense values; in DUAL form (two weights, two
 // accumulators, one silu(g) * u flush) the float gate-up duals' few-row
-// tile_gemm_dual and nm_spmm_gather_dual_bk (K9).  Included by gemm.cu,
-// whose vg_nm_spmm, vg_tile_gemm, vg_nm_spmm_gather_bk, vg_tile_gemm_dual
-// and vg_nm_spmm_gather_dual_bk launch it; every other GEMM of gemm.cu keeps
-// the shared gemm_kernel body, and the many-row bodies of those four are
-// tile_gemm_sm90.cuh's.
+// tile_gemm_dual and nm_spmm_gather_dual_bk (K9), and the compressed
+// nm_spmm_dual at n in {1, 2}.  Included by gemm.cu, whose vg_nm_spmm,
+// vg_nm_spmm_masked, vg_nm_spmm_dual, vg_tile_gemm, vg_nm_spmm_gather_bk,
+// vg_tile_gemm_dual and vg_nm_spmm_gather_dual_bk launch it; every other
+// GEMM of gemm.cu keeps the shared gemm_kernel body, and the many-row
+// bodies of K1, K8 and the dense and gathered duals are tile_gemm_sm90.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   nm_spmm    repro/kernels/nm_spmm/kernel.py::nm_spmm (_spmm_accumulate,
@@ -25,6 +27,11 @@
 //   nm_spmm_gather_dual_bk  repro/kernels/nm_spmm_gather/kernel.py::
 //              nm_spmm_gather_dual_bk (_gather_dual_kernel), float, n in {1,
 //              2}, likewise (nm_spmm_gather/kernel.py::dual_plan)
+//   nm_spmm_dual  repro/kernels/nm_spmm/kernel.py::nm_spmm_dual
+//              (_spmm_dual_kernel), float, n in {1, 2}, where
+//              nm_spmm/kernel.py::dual_plan picks the stream
+//   nm_spmm_masked  repro/kernels/nm_spmm/kernel.py::nm_spmm_masked
+//              (_spmm_masked_kernel), float, n in {1, 2}
 //
 // Y (B, O) = X (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16, O)).
 // The TPU kernel decompresses each tile with a compare-and-select and
@@ -100,11 +107,27 @@
 // silu(g) * u in fp32 and one cast (flush_tile's silu_mul point).  At
 // internlm2-1.8b's gate-up (2048, 8192) at decode that is 128 tiles split 2
 // over a cluster, two blocks an SM (91 KB dense, 106 KB gathered at 2:4
-// each; 1:4's span takes a 3-deep ring to stay at two).  Bound: both
-// weights' bytes (+ indices) + X once, over 3.35 TB/s.
+// each; 1:4's span takes a 3-deep ring to stay at two).  The compressed
+// dual (N in {1, 2}) lands each weight's values and meta tiles beside the
+// one X tile; each warp reads the X registers once and issues one mma.sp a
+// weight, building each weight's A registers and metadata word from its own
+// tiles (57 KB at 2:4 and 16 rows, 89 KB at 64).  Bound: both weights'
+// bytes (+ indices or meta) + X once, over 3.35 TB/s.
+//
+// The masked single (MASKED, nm_spmm_masked).  Each block keeps the span
+// splitk::span gives the unmasked kernel over all K steps and walks only
+// its live steps (kmask.cuh's bitmask of the row block's map row): a dead
+// step is neither loaded, prefetched nor multiplied.  A dead tile of the
+// masked X would add exact zeros, so the partition and the order of the
+// sums are the unmasked kernel's: bitwise nm_spmm on the same masked X at
+// the same split.  A rank with no live step in its span walks none and
+// still stores its zero partial into the owners' inboxes and meets the
+// cluster barrier; a row block with no live step flushes bias and
+// activation of zero.  Bound: the live steps' weight and X bytes.
 
 #pragma once
 
+#include "kmask.cuh"
 #include "splitk.cuh"
 
 namespace sp {
@@ -121,16 +144,15 @@ constexpr int VLD = BO + 8;         // bf16 pitch of the values tile (ldmatrix r
 constexpr int XLD = BKS + 8;        // bf16 pitch of the X tile
 constexpr int PLD = BO + 4;         // fp32 pitch of the partial tile
 
-// A stage is [values (gate)][values (up)][meta][indices (gate)][indices
-// (up)][X], the up tiles for a DUAL only: the gate-up duals carry both
-// weights' tiles of the step (and both index slices) beside ONE X tile or
-// span.
+// A stage is [values (gate)][values (up)][meta (gate)][meta (up)][indices
+// (gate)][indices (up)][X], the up tiles for a DUAL only: the gate-up duals
+// carry both weights' tiles of the step (and both meta tiles or index
+// slices) beside ONE X tile or span.
 template <int N, int BM, int G = 0, bool DUAL = false>
 struct Layout {
   static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
   static_assert(G == 0 || (N == 4 && (G == 1 || G == 2)),
                 "the gathered X (1:4 | 2:4) streams against dense values");
-  static_assert(!DUAL || N == 4, "the gate-up duals stream dense weights or gathered values");
   static constexpr int NW = DUAL ? 2 : 1;        // weights a stage (gate, up)
   // ring depth: 4 stages at decode (a deeper ring streamed no faster on
   // the H100) and for the dense weight; 3 at the sparse 64-row tile, which
@@ -142,12 +164,12 @@ struct Layout {
   static constexpr int VROWS = BKS * N / 4;      // weight rows a stage (16 | 32 | 64)
   static constexpr int MROWS = N == 4 ? 0 : VROWS / 4;   // meta_packed rows a stage (4 | 8)
   static constexpr int V_BYTES = VROWS * VLD * 2;             // one weight's tile
-  static constexpr int M_BYTES = MROWS * BO;
+  static constexpr int M_BYTES = MROWS * BO;                 // one weight's meta tile
   static constexpr int I_BYTES = G ? BKS * 4 : 0;            // one stream's int32 indices
   static constexpr int SPAN = G ? 256 / G : BKS;             // X columns a stage
   static constexpr int SLD = G ? SPAN + 8 : XLD;             // bf16 pitch of the X rows
   static constexpr int X_BYTES = BM * SLD * 2;
-  static constexpr int I_AT = NW * V_BYTES + M_BYTES;        // the indices in a stage
+  static constexpr int I_AT = NW * (V_BYTES + M_BYTES);      // the indices in a stage
   static constexpr int X_AT = I_AT + NW * I_BYTES;           // the X tile (or span)
   static constexpr int STAGE = X_AT + X_BYTES;                // a multiple of 16
   static constexpr int PART = NW * BM * PLD * 4;              // the partial tiles
@@ -194,13 +216,17 @@ __device__ __forceinline__ uint32_t pair_1of4(uint32_t v, uint32_t i) {
 // k: the contraction (K, or K_c for the gathered X, whose `meta` is the
 // int32 index and whose X rows are K_eff = k * 4 / G wide).  DUAL: v2 and
 // meta2 are the up weight's (v, meta the gate's), the flush silu(g) * u.
-template <int N, int BM, int G = 0, bool DUAL = false>
+// MASKED (a single at G = 0): kmask is block_maps' (row blocks, k / 64)
+// map; the block walks the live steps of its span only.
+template <int N, int BM, int G = 0, bool DUAL = false, bool MASKED = false>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ v,
                   const uint8_t* __restrict__ meta, const __nv_bfloat16* __restrict__ v2,
-                  const uint8_t* __restrict__ meta2, const float* __restrict__ bias,
-                  void* __restrict__ y, int b, int k, int o, int act, int out_f32, int split) {
+                  const uint8_t* __restrict__ meta2, const int* __restrict__ kmask,
+                  const float* __restrict__ bias, void* __restrict__ y, int b, int k, int o,
+                  int act, int out_f32, int split) {
   using L = Layout<N, BM, G, DUAL>;
+  static_assert(!MASKED || (G == 0 && !DUAL), "the masked stream is a single, X contiguous");
   constexpr int NW = L::NW;
   constexpr int NXT = (DUAL && G != 0) ? 2 : 1;  // X tiles the products read (gathered dual: 2)
   constexpr int WN = BM == 16 ? 1 : 2;         // warps along the batch rows
@@ -223,6 +249,29 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   splitk::span(rank, split, k / BKS, s0, ns);
   const int rows = min(BM, b - m0);            // live batch rows of this tile
 
+  // The walk: the span's steps, or (MASKED) its live steps only.  The span
+  // is the unmasked kernel's, so the sums keep its partition and order; a
+  // rank whose span holds no live step walks none and still joins the
+  // split's finish below with its zero partial.
+  __shared__ LiveSteps<NT> live;               // MASKED only
+  const int end = s0 + ns;
+  int cursor = s0;                             // MASKED: the walk's next live step
+  if constexpr (MASKED) {
+    live.load(kmask, blockIdx.y, k / BKS, tid);
+    __syncthreads();
+    ns = live.count(s0, end);
+    cursor = live.next(s0, end);
+  }
+  auto at = [&](int i) {
+    if constexpr (MASKED) {
+      const int s = cursor;
+      cursor = live.next(s + 1, end);
+      return s;
+    } else {
+      return s0 + i;
+    }
+  };
+
   auto load_stage = [&](int st, int s) {
     unsigned char* base = smem + st * L::STAGE;
     uint8_t* ms = base + NW * L::V_BYTES;
@@ -237,10 +286,13 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         cp_async16(vs + r * VLD + col, src + static_cast<size_t>(kc0 + r) * o + n0 + col, 16);
       }
     }
-    if (tid < L::MROWS * 4) {
-      const int r = tid >> 2, col = (tid & 3) * 16;
-      cp_async16(ms + r * BO + col, meta + static_cast<size_t>(s * L::MROWS + r) * o + n0 + col,
-                 16);
+    if constexpr (L::MROWS > 0) {
+      if (tid < NW * L::MROWS * 4) {             // each weight's meta rows
+        const int w = tid / (L::MROWS * 4), q = tid % (L::MROWS * 4);
+        const int r = q >> 2, col = (q & 3) * 16;
+        cp_async16(ms + w * L::M_BYTES + r * BO + col,
+                   (w ? meta2 : meta) + static_cast<size_t>(s * L::MROWS + r) * o + n0 + col, 16);
+      }
     }
     if constexpr (G != 0) {
       // the step's indices (each weight's), and the X span they select from
@@ -361,43 +413,50 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
               }
           }
         } else {
-          uint32_t a[4];
-          uint32_t e;
-          if constexpr (N == 2) {
-            // compressed rows 16kk .. + 15 x channels c .. + 15, transposed
-            ldsm_x4_trans(a, vs + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c +
-                                 ((lane >> 3) & 1) * 8);
-            // lane 4g (4g + 1) supplies K columns 0-15 (16-31) of channels
-            // c + g and c + g + 8: meta_packed rows 4kk + 2t, + 1 of each
-            const uint8_t* mp = ms + (kk * 4 + 2 * (t & 1)) * BO + c + g;
-            e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
-                static_cast<uint32_t>(mp[8]) << 16 | static_cast<uint32_t>(mp[BO + 8]) << 24;
-          } else {
-            // group t (and t + 4) of channels c + g and c + g + 8: compressed
-            // row 8kk + t (+ 4), its index in meta row 2kk (+ 1) at bits 2t
-            uint32_t mb[2][2];
 #pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int col = c + g + 8 * r;
+          for (int w = 0; w < NW; ++w) {
+            // weight w's values and meta tiles; both weights of a dual read
+            // the one X tile's registers
+            const __nv_bfloat16* vw = vs + w * (L::V_BYTES / 2);
+            const uint8_t* mw = ms + w * L::M_BYTES;
+            uint32_t a[4];
+            uint32_t e;
+            if constexpr (N == 2) {
+              // compressed rows 16kk .. + 15 x channels c .. + 15, transposed
+              ldsm_x4_trans(a, vw + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * VLD + c +
+                                   ((lane >> 3) & 1) * 8);
+              // lane 4g (4g + 1) supplies K columns 0-15 (16-31) of channels
+              // c + g and c + g + 8: meta_packed rows 4kk + 2t, + 1 of each
+              const uint8_t* mp = mw + (kk * 4 + 2 * (t & 1)) * BO + c + g;
+              e = static_cast<uint32_t>(mp[0]) | static_cast<uint32_t>(mp[BO]) << 8 |
+                  static_cast<uint32_t>(mp[8]) << 16 | static_cast<uint32_t>(mp[BO + 8]) << 24;
+            } else {
+              // group t (and t + 4) of channels c + g and c + g + 8: compressed
+              // row 8kk + t (+ 4), its index in meta row 2kk (+ 1) at bits 2t
+              uint32_t mb[2][2];
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                mb[r][h] = ms[(2 * kk + h) * BO + col];
-                const uint32_t val =
-                    reinterpret_cast<const uint16_t*>(vs)[(8 * kk + t + 4 * h) * VLD + col];
-                a[r + 2 * h] = pair_1of4(val, (mb[r][h] >> (2 * t)) & 3u);
+              for (int r = 0; r < 2; ++r) {
+                const int col = c + g + 8 * r;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  mb[r][h] = mw[(2 * kk + h) * BO + col];
+                  const uint32_t val =
+                      reinterpret_cast<const uint16_t*>(vw)[(8 * kk + t + 4 * h) * VLD + col];
+                  a[r + 2 * h] = pair_1of4(val, (mb[r][h] >> (2 * t)) & 3u);
+                }
               }
+              // lane 4g (4g + 1): groups 0-3 (4-7) of channel c + g, then of c + g + 8
+              e = expand_1of4(mb[0][t & 1] | (mb[1][t & 1] << 8));
             }
-            // lane 4g (4g + 1): groups 0-3 (4-7) of channel c + g, then of c + g + 8
-            e = expand_1of4(mb[0][t & 1] | (mb[1][t & 1] << 8));
-          }
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            if (r0 + j * 8 < rows) mma_sp(acc[0][mt][j], a, bf[0][j], e);
+            for (int j = 0; j < NJ; ++j)
+              if (r0 + j * 8 < rows) mma_sp(acc[w][mt][j], a, bf[0][j], e);
+          }
         }
       }
     }
   };
-  splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
+  splitk::run_ring<L::STAGES>(ns, at, load_stage, compute);
 
   // partial tiles [weight][batch row][channel], fp32
   float* part = reinterpret_cast<float*>(smem);
@@ -433,40 +492,50 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       });
 }
 
-template <int N, int BM, int G = 0, bool DUAL = false>
+template <int N, int BM, int G = 0, bool DUAL = false, bool MASKED = false>
 int launch(const void* x, const void* v, const void* meta, const void* v2, const void* meta2,
-           const float* bias, void* y, int b, int k, int o, int act, int out_f32, int split,
-           cudaStream_t stream) {
+           const void* kmask, const float* bias, void* y, int b, int k, int o, int act,
+           int out_f32, int split, cudaStream_t stream) {
   using L = Layout<N, BM, G, DUAL>;
   static int opted = 0;
-  return splitk::launch(nm_spmm_sp_kernel<N, BM, G, DUAL>, opted,
+  return splitk::launch(nm_spmm_sp_kernel<N, BM, G, DUAL, MASKED>, opted,
                         dim3(o / BO, (b + BM - 1) / BM), NT, L::RING + L::COMPACT, L::INBOX,
                         split, stream, static_cast<const __nv_bfloat16*>(x),
                         static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(meta),
                         static_cast<const __nv_bfloat16*>(v2),
-                        static_cast<const uint8_t*>(meta2), bias, y, b, k, o, act, out_f32,
-                        split);
+                        static_cast<const uint8_t*>(meta2), static_cast<const int*>(kmask), bias,
+                        y, b, k, o, act, out_f32, split);
 }
 
 // n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) weight, meta
-// unused), bm in {16, 64}, split a power of two up to min(8, k / 64)
+// unused), bm in {16, 64}, split a power of two up to min(8, k / 64);
+// kmask: the masked single (nm_spmm_masked, n in {1, 2}) with block_maps'
+// (ceil(b / bm), k / 64) map, else nullptr
 inline int launch_nm(int n, int bm, const void* x, const void* v, const void* meta,
-                     const void* bias, void* y, int b, int k, int o, int act, int out_f32,
-                     int split, void* stream) {
+                     const void* kmask, const void* bias, void* y, int b, int k, int o, int act,
+                     int out_f32, int split, void* stream) {
   if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 || act < 0 || act > 2 ||
       out_f32 < 0 || out_f32 > 1 || !splitk::split_ok(split, k / BKS) ||
-      (b + bm - 1) / bm > 65535)
+      (b + bm - 1) / bm > 65535 || (kmask != nullptr && (n == 4 || k / BKS > MAX_K_STEPS)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
-#define VG_SP_LAUNCH(NN, BB) \
-  return launch<NN, BB>(x, v, meta, nullptr, nullptr, bf, y, b, k, o, act, out_f32, split, s)
-  if (n == 2 && bm == 16) VG_SP_LAUNCH(2, 16);
-  if (n == 2 && bm == 64) VG_SP_LAUNCH(2, 64);
-  if (n == 1 && bm == 16) VG_SP_LAUNCH(1, 16);
-  if (n == 1 && bm == 64) VG_SP_LAUNCH(1, 64);
-  if (n == 4 && bm == 16) VG_SP_LAUNCH(4, 16);
-  if (n == 4 && bm == 64) VG_SP_LAUNCH(4, 64);
+#define VG_SP_LAUNCH(NN, BB, MM)                                                              \
+  return launch<NN, BB, 0, false, MM>(x, v, meta, nullptr, nullptr, kmask, bf, y, b, k, o, act, \
+                                      out_f32, split, s)
+  if (kmask != nullptr) {
+    if (n == 2 && bm == 16) VG_SP_LAUNCH(2, 16, true);
+    if (n == 2 && bm == 64) VG_SP_LAUNCH(2, 64, true);
+    if (n == 1 && bm == 16) VG_SP_LAUNCH(1, 16, true);
+    if (n == 1 && bm == 64) VG_SP_LAUNCH(1, 64, true);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 2 && bm == 16) VG_SP_LAUNCH(2, 16, false);
+  if (n == 2 && bm == 64) VG_SP_LAUNCH(2, 64, false);
+  if (n == 1 && bm == 16) VG_SP_LAUNCH(1, 16, false);
+  if (n == 1 && bm == 64) VG_SP_LAUNCH(1, 64, false);
+  if (n == 4 && bm == 16) VG_SP_LAUNCH(4, 16, false);
+  if (n == 4 && bm == 64) VG_SP_LAUNCH(4, 64, false);
 #undef VG_SP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -485,8 +554,8 @@ inline int launch_gather(int n, int bm, const void* x, const void* values, const
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
 #define VG_SP_GATHER(GG, BB) \
-  return launch<4, BB, GG>(x, values, idx, nullptr, nullptr, bf, y, b, kc, o, act, out_f32, \
-                           split, s)
+  return launch<4, BB, GG>(x, values, idx, nullptr, nullptr, nullptr, bf, y, b, kc, o, act, \
+                           out_f32, split, s)
   if (n == 2 && bm == 16) VG_SP_GATHER(2, 16);
   if (n == 2 && bm == 64) VG_SP_GATHER(2, 64);
   if (n == 1 && bm == 16) VG_SP_GATHER(1, 16);
@@ -496,20 +565,27 @@ inline int launch_gather(int n, int bm, const void* x, const void* values, const
 }
 
 // The float gate-up duals' few-row body: Y (b, o) = silu(X @ Wg) * (X @ Wu),
-// bf16, both (k, o) weights dense (tile_gemm_dual), bm in {16, 64}, split a
-// power of two up to min(8, k / 64)
-inline int launch_dual(int bm, const void* x, const void* wg, const void* wu, void* y, int b,
-                       int k, int o, int split, void* stream) {
+// bf16: n = 4, both (k, o) weights dense (tile_gemm_dual; mg, mu unused);
+// n in {1, 2}, both compressed, values (k n / 4, o) + meta_packed (k n /
+// 16, o) (nm_spmm_dual); bm in {16, 64}, split a power of two up to min(8,
+// k / 64)
+inline int launch_dual(int n, int bm, const void* x, const void* wg, const void* mg,
+                       const void* wu, const void* mu, void* y, int b, int k, int o, int split,
+                       void* stream) {
   if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 ||
       !splitk::split_ok(split, k / BKS) || (b + bm - 1) / bm > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 16)
-    return launch<4, 16, 0, true>(x, wg, nullptr, wu, nullptr, nullptr, y, b, k, o, ACT_NONE, 0,
-                                  split, s);
-  if (bm == 64)
-    return launch<4, 64, 0, true>(x, wg, nullptr, wu, nullptr, nullptr, y, b, k, o, ACT_NONE, 0,
-                                  split, s);
+#define VG_SP_DUAL(NN, BB)                                                                  \
+  return launch<NN, BB, 0, true>(x, wg, mg, wu, mu, nullptr, nullptr, y, b, k, o, ACT_NONE, 0, \
+                                 split, s)
+  if (n == 4 && bm == 16) VG_SP_DUAL(4, 16);
+  if (n == 4 && bm == 64) VG_SP_DUAL(4, 64);
+  if (n == 2 && bm == 16) VG_SP_DUAL(2, 16);
+  if (n == 2 && bm == 64) VG_SP_DUAL(2, 64);
+  if (n == 1 && bm == 16) VG_SP_DUAL(1, 16);
+  if (n == 1 && bm == 64) VG_SP_DUAL(1, 64);
+#undef VG_SP_DUAL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -525,7 +601,8 @@ inline int launch_gather_dual(int n, int bm, const void* x, const void* vg, cons
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SP_GATHER_DUAL(GG, BB) \
-  return launch<4, BB, GG, true>(x, vg, ig, vu, iu, nullptr, y, b, kc, o, ACT_NONE, 0, split, s)
+  return launch<4, BB, GG, true>(x, vg, ig, vu, iu, nullptr, nullptr, y, b, kc, o, ACT_NONE, 0, \
+                                 split, s)
   if (n == 2 && bm == 16) VG_SP_GATHER_DUAL(2, 16);
   if (n == 2 && bm == 64) VG_SP_GATHER_DUAL(2, 64);
   if (n == 1 && bm == 16) VG_SP_GATHER_DUAL(1, 16);

@@ -618,7 +618,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
     splitk::cp_async_wait<0>();
     __syncthreads();
   }
-  splitk::run_ring<L::STAGES>(s0, ns, load_stage, compute);
+  splitk::run_ring<L::STAGES>(ns, [s0](int i) { return s0 + i; }, load_stage, compute);
 
   // partial tiles [weight][batch row][channel], fp32
   float* part = reinterpret_cast<float*>(smem);

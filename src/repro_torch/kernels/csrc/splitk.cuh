@@ -64,20 +64,22 @@ __device__ __forceinline__ void span(int rank, int split, int nk, int& s0, int& 
   ns = static_cast<int>(static_cast<long long>(rank + 1) * nk / split) - s0;
 }
 
-// The ring: load(st, s) issues step s's cp.async copies into stage st;
-// compute(st) contracts stage st.  STAGES - 1 steps travel while one is
-// contracted.  Returns with the ring drained and every warp past it.
-template <int STAGES, class Load, class Compute>
-__device__ __forceinline__ void run_ring(int s0, int ns, Load&& load, Compute&& compute) {
+// The ring over ns steps: at(i) is the K step of the walk's i-th (the
+// span's s0 + i, or a masked walk's i-th live step; called once for each i,
+// in increasing order); load(st, s) issues step s's cp.async copies into
+// stage st; compute(st) contracts stage st.  STAGES - 1 steps travel while
+// one is contracted.  Returns with the ring drained and every warp past it.
+template <int STAGES, class At, class Load, class Compute>
+__device__ __forceinline__ void run_ring(int ns, At&& at, Load&& load, Compute&& compute) {
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < ns) load(st, s0 + st);
+    if (st < ns) load(st, at(st));
     cp_async_commit();
   }
   for (int i = 0; i < ns; ++i) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();     // step i has landed; every warp is done with step i - 1's stage
-    if (i + STAGES - 1 < ns) load((i + STAGES - 1) % STAGES, s0 + i + STAGES - 1);
+    if (i + STAGES - 1 < ns) load((i + STAGES - 1) % STAGES, at(i + STAGES - 1));
     cp_async_commit();
     compute(i % STAGES);
   }

@@ -15,12 +15,16 @@ with ``K_eff = K_c * 4 / n``.  The dense weight never exists in device
 memory, so weight traffic is n/4 of dense plus 2 bits per kept value.
 ``nm_spmm`` at n in {1, 2} feeds the compressed tile to the sparse tensor
 cores (``csrc/nm_spmm_sp.cuh``; 1:4 as 2:4 with a +0), its K loop split
-across the blocks of a cluster by :func:`split_k`; so do ``nm_spmm_fp8``
-and ``nm_spmm_fp8_requant`` at n in {1, 2} (``csrc/nm_spmm_sp_fp8.cuh``,
-the e4m3 m16n8k64 form) where :func:`fp8_plan` picks it, and
+across the blocks of a cluster by :func:`split_k`; so does the bf16
+``nm_spmm_masked`` at n in {1, 2}, walking only the live steps of each
+block's span (the same split: bitwise ``nm_spmm`` on the same masked X),
+and ``nm_spmm_dual`` (float) in that header's dual form (both weights'
+values and meta tiles a stage, two accumulators, one silu(g) * u flush)
+where :func:`dual_plan` picks it; so do ``nm_spmm_fp8`` and
+``nm_spmm_fp8_requant`` at n in {1, 2} (``csrc/nm_spmm_sp_fp8.cuh``, the
+e4m3 m16n8k64 form) where :func:`fp8_plan` picks it, and
 ``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
-dual form (both weights' tiles a stage, two accumulators, one silu(g) * u
-flush) where :func:`fp8_dual_plan` picks it; every other kernel here
+dual form where :func:`fp8_dual_plan` picks it; every other kernel here
 expands each values tile into the dense tile in shared memory.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
@@ -41,17 +45,18 @@ import torch
 
 from .. import _build
 from ..epilogue import EpilogueSpec
-from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, DUAL_STREAM_MIN_SPLIT,
+from ..tile_gemm.kernel import (ACT_CODES, BLOCKS_PER_SM, BODY_CODES, DUAL_STREAM_MIN_SPLIT,
                                 FP8_SHARED_TILES, FP8_STREAM16_BLOCKS_PER_SM, MAX_SPLIT, SMS,
                                 _ptr, check_maps, check_requant_scale, check_scales,
                                 check_single_epilogue, cluster_split, float_out, quantized_out,
-                                requant_spec)
+                                requant_spec, stream_plan)
 from ..reasons import dtype_name
 from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
                   nm_spmm_ref)
 
-__all__ = ["nm_spmm", "split_k", "fp8_plan", "fp8_dual_plan", "FP8_DUAL_STREAM16_TILES",
+__all__ = ["nm_spmm", "split_k", "dual_plan", "fp8_plan", "fp8_dual_plan",
+           "FP8_DUAL_STREAM16_TILES", "DUAL_1OF4_SHARED_MAX_ROWS",
            "nm_spmm_dual", "nm_spmm_int8",
            "nm_spmm_int8_requant", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
            "nm_spmm_fp8", "nm_spmm_fp8_requant", "nm_spmm_dual_fp8",
@@ -62,6 +67,9 @@ _N = (1, 2, 4)
 #: past decode rows the fp8 dual runs its 16-row stream while the launch has
 #: at most this many tiles (two an SM)
 FP8_DUAL_STREAM16_TILES = 2 * SMS
+#: the float compressed dual at 1:4 keeps the shared body up to this many
+#: rows where its 64-row launch cannot split K (see :func:`dual_plan`)
+DUAL_1OF4_SHARED_MAX_ROWS = 255
 
 
 def split_k(b: int, k: int, o: int, n: int) -> int:
@@ -77,6 +85,43 @@ def split_k(b: int, k: int, o: int, n: int) -> int:
         return 1
     tiles = (o // _build.BLOCK_O) * -(-b // _build.block_rows(b))
     return cluster_split(tiles, k // _build.BLOCK_K)
+
+
+def dual_plan(b: int, k: int, o: int, n: int) -> dict:
+    """``nm_spmm_dual``'s (float) body, tile and split for ``silu(X (b, k) @
+    dec(g)) * (X @ dec(u))``, both compressed weights ``(k * n / 4, o)``.
+
+    n in {1, 2}: ``stream`` (``csrc/nm_spmm_sp.cuh``'s compressed dual: both
+    weights' values and meta tiles a stage, two accumulators, one silu(g) *
+    u flush), the K loop split over a cluster by ``cluster_split`` at
+    ``BLOCKS_PER_SM`` blocks an SM: 16-row tiles up to 16 rows
+    (:func:`~repro_torch.kernels.tile_gemm.kernel.stream_plan`'s;
+    internlm2-1.8b's gate-up at B = 8 is 128 tiles, split 2; qwen3-moe's
+    expert gate-up (4096, 1536) 24 tiles, split 8), 64-row tiles above
+    (internlm2-1.8b's 17-64 rows: split 2; qwen3-moe's: split 8).  Else
+    ``shared`` (gemm.cu's body, the form the port ran first), split 1: at n
+    = 4, and at 1:4 up to ``DUAL_1OF4_SHARED_MAX_ROWS`` rows where the
+    64-row launch cannot split K (internlm2-1.8b's and phi-3-vision's
+    gate-up at 65-255 rows).  On an H100 (``chip_smoke.py``'s kernel phase
+    and dual sweep phase, 17-256 rows at those two pairs and qwen3-moe's;
+    PERF.md §6) the stream beat the shared body by 1.10-6.8x at every
+    shape where the plan picks it (internlm2-1.8b 2:4 at B = 8: 18.4
+    against 47.8 µs); 1:4 unsplit lost to it at 128 rows (internlm2 77.0
+    against 62.7 µs, phi-3 113.7 against 91.3; development runs agreed at
+    96 and 192) and won again at 256 (120.7 against 132.2, 177.5 against
+    197.8).  The 64-row tiles at two blocks an SM beat K1's one by up to
+    1.36x (internlm2 2:4 at 64 rows: 28.7 against 36.9) and beat 16-row
+    tiles past 16 rows everywhere but qwen3-moe's 1:4 at 17 rows (19.6
+    against 18.8).  Returns ``{"body", "rows", "cols", "split"}``; ``rows``
+    is what the C interface takes as ``bm``."""
+    if n in (1, 2):
+        if b <= _build.BLOCK_ROWS[0]:
+            return stream_plan(b, k, o)
+        rows = _build.BLOCK_ROWS[1]
+        split = cluster_split((o // _build.BLOCK_O) * -(-b // rows), k // _build.BLOCK_K)
+        if not (n == 1 and split == 1 and b <= DUAL_1OF4_SHARED_MAX_ROWS):
+            return {"body": "stream", "rows": rows, "cols": _build.BLOCK_O, "split": split}
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
 
 
 def fp8_plan(b: int, k: int, o: int, n: int) -> dict:
@@ -187,12 +232,13 @@ def nm_spmm_masked(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Ten
                    block_b: Optional[int] = None) -> torch.Tensor:
     """:func:`nm_spmm` with the activation-sparsity block skip (the
     sparse-activation x N:M-weight SpGEMM): only the (row block, 64-column
-    K step) tiles ``kmask`` marks live are loaded, expanded and
-    multiplied.  ``kmap`` / ``kmask``: ``actsparse.block_maps`` over the
-    masked X at ``block_b`` rows and 64 columns; the CUDA body ignores
-    ``kmap``.  Bitwise itself with every tile live on the same masked X;
-    within bf16 rounding of :func:`nm_spmm`, whose sparse body (n in {1,
-    2}) sums in another order (bitwise it at n = 4)."""
+    K step) tiles ``kmask`` marks live are loaded and multiplied.  ``kmap``
+    / ``kmask``: ``actsparse.block_maps`` over the masked X at ``block_b``
+    rows and 64 columns; the CUDA bodies ignore ``kmap``.  n in {1, 2}: the
+    sparse stream of :func:`nm_spmm` at its split (:func:`split_k`), each
+    block walking the live steps of its span; n = 4: the shared body, which
+    expands each live values tile.  Bitwise :func:`nm_spmm` on the same
+    masked X at the same ``block_b``."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_compressed("nm_spmm_masked", ke, values, meta_packed, n)
@@ -210,7 +256,8 @@ def nm_spmm_masked(x: torch.Tensor, values: torch.Tensor, meta_packed: torch.Ten
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm_masked(x.data_ptr(), values.data_ptr(), meta_packed.data_ptr(),
                                    kmask.data_ptr(), _ptr(bias32), y.data_ptr(), b, ke, o, n,
-                                   ACT_CODES[epi.act], bb, _build.stream_of(x))
+                                   ACT_CODES[epi.act], bb, split_k(b, ke, o, n),
+                                   _build.stream_of(x))
     nm_spmm_masked.launches += 1
     _build.check(rc, "nm_spmm_masked", lib)
     return y
@@ -515,10 +562,12 @@ def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
                  out_dtype: torch.dtype = torch.float32,
                  block_b: Optional[int] = None) -> torch.Tensor:
     """Fused gate-up over two compressed weights sharing one X read:
-    ``silu(X @ dec(g)) * (X @ dec(u))`` in X's dtype.  Given the three
-    scales, the quantized branch of X's class: :func:`nm_spmm_dual_fp8`
-    for float8_e4m3fn, else :func:`nm_spmm_dual_int8` (``out_dtype`` is
-    that branch's output dtype)."""
+    ``silu(X @ dec(g)) * (X @ dec(u))`` in X's dtype.  ``block_b`` is the
+    dispatch plan's row block (checked); the body, its tile and its K split
+    are :func:`dual_plan`'s.  Given the three scales, the quantized branch
+    of X's class: :func:`nm_spmm_dual_fp8` for float8_e4m3fn, else
+    :func:`nm_spmm_dual_int8` (``out_dtype`` is that branch's output
+    dtype)."""
     if x_scale is not None or wg_scale is not None or wu_scale is not None:
         fn = nm_spmm_dual_fp8 if x.dtype == torch.float8_e4m3fn else nm_spmm_dual_int8
         return fn(x, values_g, meta_g, values_u, meta_u, n, x_scale, wg_scale, wu_scale,
@@ -532,11 +581,13 @@ def nm_spmm_dual(x: torch.Tensor, values_g: torch.Tensor, meta_g: torch.Tensor,
     bb = block_b or _build.block_rows(b)
     _check_cuda("nm_spmm_dual", x, (values_g, values_u), (meta_g, meta_u), bb, ke, o)
     y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    p = dual_plan(b, ke, o, n)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm_dual(x.data_ptr(), values_g.data_ptr(), meta_g.data_ptr(),
                                  values_u.data_ptr(), meta_u.data_ptr(), y.data_ptr(),
-                                 b, ke, o, n, bb, _build.stream_of(x))
+                                 b, ke, o, n, p["rows"], BODY_CODES[p["body"]], p["split"],
+                                 _build.stream_of(x))
     nm_spmm_dual.launches += 1
     _build.check(rc, "nm_spmm_dual", lib)
     return y
