@@ -5,7 +5,10 @@
 Phases, each of which fails the run on a miss:
 
 1. build   — nvcc builds the port's CUDA kernels from ``src/repro_torch/
-             kernels/csrc`` (one nvcc per source, started together).
+             kernels/csrc`` (one nvcc per source, started together); no
+             unmasked instantiation of the two streams' kernels may hold
+             static shared memory (ptxas's count; kmask.cuh's bitmask is
+             the masked ones' only).
    probe   — the operand layouts of the two sparse tensor-core
              instructions, bf16 m16n8k32 and e4m3 m16n8k64
              (``kernels/mma_sp_probe.py``, exact small-integer products):
@@ -92,22 +95,24 @@ Phases, each of which fails the run on a miss:
              MoE expert shapes ((K, O) = (1536, 4096) and (4096, 1536)), B
              in {8, 64}, n in {1, 2}, with 0%, ~40% and 100% of the row
              block's K steps live: BITWISE their unmasked kernels on the
-             same masked X (tile_gemm_masked and nm_spmm_gather_bk_masked
-             in bf16, tile_gemm_masked_fp8 and nm_spmm_masked_fp8, whose
-             unmasked kernels run their own bodies and sum in another
-             order: BITWISE themselves with every tile live, within 1e-2
-             of the unmasked kernel; the bf16 nm_spmm_masked runs K2's
-             stream at K2's split, bitwise K2, and is also timed in turns
-             with its first body, ``earlier_ms``),
+             same masked X (where the unmasked kernel runs a body of its
+             own and sums in another order -- K1's wgmma body from 256
+             rows, K8 bf16 and e4m3 and tile_gemm_fp8 where their plans
+             leave the shared body -- BITWISE themselves with every tile
+             live, within 1e-2 of the unmasked kernel; the bf16
+             nm_spmm_masked, nm_spmm_masked_fp8 and the bf16
+             tile_gemm_masked below 256 rows run their twins' streams at
+             their twins' splits, bitwise the twin, and are also timed in
+             turns with their first bodies, ``earlier_ms``),
              within the class's limit of
              their plain versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
              bound counting the live tiles only.
              The quantized ones also run the requant:<dtype> flush (gelu)
              at ~40% live, bitwise the unmasked *_requant kernel's codes
-             (tile_gemm_masked_fp8, nm_spmm_masked_fp8: bitwise their own
-             all-live codes, and one e4m3 step at most off the unmasked
-             kernel's on at most REQUANT_SHARE of them).
+             (tile_gemm_masked_fp8 where tile_gemm_fp8 runs its own body:
+             bitwise its own all-live codes, and one e4m3 step at most
+             off the unmasked kernel's on at most REQUANT_SHARE of them).
    requant — K0's remainder, the six single GEMMs with the requant:<dtype>
    singles   flush (tile_gemm / nm_spmm / nm_spmm_gather_bk x int8 / fp8
              ``*_requant``) at gemma3-1b's gelu w_in shape (K, O) = (1152,
@@ -150,9 +155,14 @@ Phases, each of which fails the run on a miss:
              gate-up ACT_MASK_ONLY_DUAL, and the profiled decode step
              reports the share of w_out tiles skipped.  The bf16
              compressed runs print nm_spmm_dual's plans (and on the
-             spgemm path nm_spmm_masked's), and the serving phase ends
-             with the device busy time of the decode steps that run them
-             (internlm2-1.8b 2:4 and 1:4, qwen3-moe spgemm 2:4).  All runs: a
+             spgemm path nm_spmm_masked's), the spgemm dense bf16 and 2:4
+             fp8 runs tile_gemm_masked's and nm_spmm_masked_fp8's, and the
+             serving phase ends with the device busy time of the decode
+             steps that run them (internlm2-1.8b 2:4 and 1:4, qwen3-moe
+             spgemm bf16 2:4, dense bf16 and 2:4 fp8).  Each decode
+             profile's device trace must hold the launches the wrappers
+             counted in one step, less one a step or 5% (traced once
+             more if not).  All runs: a
              seeded trace of 16 requests (the MoE runs: its first 8),
              prompts of 128-256 tokens, 32 new tokens, 8 slots, prefill
              chunks of 64, max_len 512.  Every linear site must
@@ -264,6 +274,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -310,6 +321,12 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            # (their shared bodies, gemm.cu, where the plan keeps them)
            "nm_spmm_dual": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "nm_spmm_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           # the bf16 tile_gemm_masked's stream below 256 rows (K1's, MASKED;
+           # the shared body, gemm.cu, from 256) and nm_spmm_masked_fp8's
+           # (nm_spmm_fp8's, MASKED; gemm_fp8.cu's shared body where fp8_plan
+           # keeps it)
+           "tile_gemm_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
+           "nm_spmm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            "tile_gemm": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            "tile_gemm_fp8": "src/repro_torch/kernels/csrc/tile_gemm_sm90_fp8.cuh",
@@ -480,17 +497,19 @@ def earlier_kernels():
     tile_gemm_fp8 (and _requant), nm_spmm_gather_bk, tile_gemm_dual,
     nm_spmm_gather_dual_bk, nm_spmm_dual_fp8 (and _requant),
     nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant),
-    nm_spmm_gather_fp8, nm_spmm_dual (float) and nm_spmm_masked (bf16)
-    wrappers launch the port's first bodies (``flash_attention_wmma.cu``;
+    nm_spmm_gather_fp8, nm_spmm_dual (float), nm_spmm_masked (bf16),
+    tile_gemm_masked (bf16) and nm_spmm_masked_fp8 wrappers launch the
+    port's first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu and gemm_fp8.cu at every n and row count,
     ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
     ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``,
     ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``,
     ``vg_nm_spmm_dual_fp8_tiled``, ``vg_nm_spmm_gather_bk_fp8_tiled``,
     ``vg_tile_gemm_dual_fp8_tiled``, ``vg_nm_spmm_gather_fp8_tiled``,
-    ``vg_nm_spmm_dual_tiled``, ``vg_nm_spmm_masked_tiled``, at the row
-    block the first form took: 16 up to 16 rows, else 64; the masked one at
-    its maps' row block) instead of the current ones: the ``earlier_ms``
+    ``vg_nm_spmm_dual_tiled``, ``vg_nm_spmm_masked_tiled``, and
+    ``vg_tile_gemm_masked`` / ``vg_nm_spmm_masked_fp8`` at body 0, split 1,
+    at the row block the first form took: 16 up to 16 rows, else 64; the
+    masked ones at their maps' row block) instead of the current ones: the ``earlier_ms``
     yardstick, through the same wrappers and checks."""
     from repro_torch.kernels import _build
 
@@ -548,6 +567,15 @@ def earlier_kernels():
 
     def nm_spmm_masked_tiled(*args):   # (.., act, bm, split, stream): the split dropped
         return gemm.vg_nm_spmm_masked_tiled(*args[:12], args[-1])
+
+    # the bf16 tile_gemm_masked and nm_spmm_masked_fp8 reach their shared
+    # bodies through their own entries: (.., bm, body, split, stream) with
+    # body 0, split 1, at the maps' row block
+    def tile_gemm_masked_tiled(*args):
+        return gemm.vg_tile_gemm_masked(*args[:-3], 0, 1, args[-1])
+
+    def nm_spmm_masked_fp8_tiled(*args):
+        return fp8.vg_nm_spmm_masked_fp8(*args[:-3], 0, 1, args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
                                           vg_tile_gemm=tile_gemm_tiled,
@@ -555,13 +583,15 @@ def earlier_kernels():
                                           vg_tile_gemm_dual=tile_gemm_dual_tiled,
                                           vg_nm_spmm_gather_dual_bk=nm_spmm_gather_dual_bk_tiled,
                                           vg_nm_spmm_dual=nm_spmm_dual_tiled,
-                                          vg_nm_spmm_masked=nm_spmm_masked_tiled)
+                                          vg_nm_spmm_masked=nm_spmm_masked_tiled,
+                                          vg_tile_gemm_masked=tile_gemm_masked_tiled)
     _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
                                               vg_tile_gemm_fp8=tile_gemm_fp8_tiled,
                                               vg_nm_spmm_dual_fp8=nm_spmm_dual_fp8_tiled,
                                               vg_nm_spmm_gather_bk_fp8=nm_spmm_gather_bk_fp8_tiled,
                                               vg_tile_gemm_dual_fp8=tile_gemm_dual_fp8_tiled,
-                                              vg_nm_spmm_gather_fp8=nm_spmm_gather_fp8_tiled)
+                                              vg_nm_spmm_gather_fp8=nm_spmm_gather_fp8_tiled,
+                                              vg_nm_spmm_masked_fp8=nm_spmm_masked_fp8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -1706,8 +1736,10 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     unmasked kernel runs a body of its own that sums in another order:
     bitwise the masked kernel with every tile live, and within TOL of the
     unmasked one) and within the class's limit of the plain version (int8
-    bitwise).  The bf16 nm_spmm_masked runs K2's stream and is held
-    bitwise to K2, and is timed in turns with its first (shared) body
+    bitwise).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8 and the bf16
+    tile_gemm_masked run their twins' streams at their twins' plans (K2's,
+    nm_spmm_fp8's, K1's below 256 rows) and are held bitwise to the twin,
+    and are timed in turns with their first (shared) bodies
     (``earlier_ms``).  Timed beside the
     unmasked kernel, the plain version and the class's library call on the
     same masked X (torch.matmul / torch._int_mm / torch._scaled_mm on the
@@ -1792,12 +1824,13 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
         def own_body_at(b, k, o, requant=False):
             """Whether the unmasked kernel sums in another order than the
-            masked one: K1, nm_spmm_fp8 (n in {1, 2}), and K8 (bf16, e4m3)
-            and tile_gemm_fp8 where their plans leave the shared body.  The
-            bf16 nm_spmm_masked runs K2's stream at K2's split: bitwise
-            K2."""
-            if (layout == "compressed" and fp8) or (layout == "dense" and qdtype is None):
-                return True
+            masked one: K1 where it runs its wgmma body (from 256 rows), and
+            K8 (bf16, e4m3) and tile_gemm_fp8 where their plans leave the
+            shared body.  The bf16 nm_spmm_masked, nm_spmm_masked_fp8 and the
+            bf16 tile_gemm_masked below 256 rows run their twins' streams at
+            their twins' plans: bitwise the twin."""
+            if layout == "dense" and qdtype is None:
+                return tk.plan(b, k, o)["body"] == "wgmma"
             if layout == "gather" and qdtype is None:
                 return gk.plan(b, k, o, n)["body"] != "shared"
             if layout == "gather" and fp8:
@@ -1854,7 +1887,8 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                     extra = {}
                     masked_call = (lambda x_, xs_, lf_, maps=maps: call(
                         masked_fn, layout, n, x_, xs_, lf_, maps))
-                    if layout == "compressed" and qdtype is None:
+                    if (layout == "compressed" and not int8) or \
+                            (layout == "dense" and qdtype is None):
                         # the redesigned stream, in turns with its first (shared) body
                         t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
                     else:
@@ -2145,22 +2179,34 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     """The body, tile and split the plans give the kernels the last slices
     redesigned, where a run launches them: the float nm_spmm_dual on a bf16
     compressed swiglu model (an MoE's expert gate-up) and, on the spgemm
-    expert path, the bf16 nm_spmm_masked of every expert w_out (K2's stream
-    at K2's split); tile_gemm_dual_fp8 (and _requant) on a dense fp8 swiglu
-    model, K11 fp8 (nm_spmm_gather_fp8) on a sharded fp8 gather model's two
-    row-parallel sites (their local K), at each of ``rows``."""
+    expert path, the masked single of every expert w_out where it runs its
+    twin's stream (bf16 nm_spmm_masked at K2's split, bf16 tile_gemm_masked
+    at K1's plan, nm_spmm_masked_fp8 at nm_spmm_fp8's); tile_gemm_dual_fp8
+    (and _requant) on a dense fp8 swiglu model, K11 fp8
+    (nm_spmm_gather_fp8) on a sharded fp8 gather model's two row-parallel
+    sites (their local K), at each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
+    from repro_torch.kernels.nm_spmm.kernel import fp8_plan as nm_fp8_plan
     from repro_torch.kernels.nm_spmm.kernel import split_k
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
-    from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan
+    from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_plan
 
+    spgemm = bool(cfg.num_experts) and cfg.moe_expert_path == "spgemm" and mesh == 1
+    k, o = cfg.d_ff, cfg.d_model                # an expert's w_out
+    if spgemm and layout == "dense" and qdtype is None:
+        return {"tile_gemm_masked": {f"B={b} K={k} O={o}": masked_plan(b, k, o)
+                                     for b in rows[:2]}}
+    if spgemm and layout == "compressed" and qdtype == "fp8":
+        n = sparsity[0]
+        return {"nm_spmm_masked_fp8": {
+            f"B={b} K={k} O={o}": {**nm_fp8_plan(b, k, o, n), "rows": _build.block_rows(b)}
+            for b in rows[:2]}}
     if qdtype is None and layout == "compressed" and mesh == 1 and cfg.act == "swiglu":
         n = sparsity[0]
         out = {"nm_spmm_dual": {f"B={b}": nm_dual_plan(b, cfg.d_model, cfg.d_ff, n)
                                 for b in rows}}
-        if cfg.num_experts and cfg.moe_expert_path == "spgemm":
-            k, o = cfg.d_ff, cfg.d_model
+        if spgemm:
             out["nm_spmm_masked"] = {
                 f"B={b} K={k} O={o}": {"body": "stream", "rows": _build.block_rows(b),
                                        "split": split_k(b, k, o, n)} for b in rows[:2]}
@@ -2515,12 +2561,56 @@ def device_profile(step, steps: int, activities) -> tuple:
     return prof, kern, wall_ms
 
 
+# the port's GEMM and attention kernels in a device trace, by their
+# __global__ names (a wrapper's gather pass, gather_columns*, is a second
+# kernel of the same call and not matched)
+PORT_KERNEL = re.compile(r"(?:^|[\s:])(?:nm_spmm_sp_kernel|nm_spmm_sp_fp8_kernel|gemm_kernel|"
+                         r"gemm_int8_kernel|gemm_fp8_kernel|tile_gemm_wgmma_kernel|"
+                         r"tile_gemm_fp8_wgmma_kernel|flash_attention_kernel)[<(]")
+
+
+TRACE_DROP = 0.05               # decode traces: share of counted launches missing
+
+
+def counted_step(step) -> int:
+    """One call of ``step``: the launches the port's wrappers counted in it."""
+    from repro_torch import kernels
+
+    before = sum(kernels.launch_counts().values())
+    step()
+    torch.cuda.synchronize()
+    return sum(kernels.launch_counts().values()) - before
+
+
+def checked_profile(step, steps: int, activities, per_step: int, tag: str) -> tuple:
+    """``device_profile``, held to the launch counters: the trace must hold
+    the launches a step of the port's kernels that the wrappers counted
+    over one step, less at most one a step or TRACE_DROP of them, whichever
+    is more (an H100's traces have held 518-519 of a MoE step's 520 and 11
+    of a 12-launch step's 12, a launch or two dropped; a corrupt one held
+    210 of 256 w_out calls).  A trace short of that is taken once more; a
+    second short one fails the phase."""
+    for attempt in (1, 2):
+        prof, kern, wall_ms = device_profile(step, steps, activities)
+        seen = sum(e.count for e in kern if PORT_KERNEL.search(e.key)) / steps
+        if seen < per_step:
+            log(f"[{tag}] the device trace holds {seen:.2f} of the step's {per_step} counted "
+                f"kernel launches")
+        if seen >= per_step - max(1, per_step * TRACE_DROP):
+            return prof, kern, wall_ms
+        if attempt == 1:
+            log(f"[{tag}] tracing again")
+    fail(f"[{tag}] the device trace lost kernel events twice: {seen:.0f} of {per_step} "
+         f"counted launches a step")
+
+
 def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=False,
                    skip=False, position: int = 255, unfused=False):
     """Where a decode step's time goes: ``steps`` batched decode steps (all
     slots active at ``position``, seeded random tokens) under
     torch.profiler; device time by kernel, and the device's busy share of
-    the steps' wall time.  With ``static``, the warm-up step is
+    the steps' wall time, from a trace held to the launch counters
+    (``checked_profile``).  With ``static``, the warm-up step is
     instrumented (``check_static_sites``); with ``skip`` (the spgemm expert
     path) the share of w_out tiles its masked kernels skip is reported
     (``skipped_tiles``); an ``moe`` step is profiled on the device alone.
@@ -2552,20 +2642,20 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=F
     # good time: its profile records the device alone
     activities = [ProfilerActivity.CUDA] + ([] if moe else [ProfilerActivity.CPU])
     with torch.inference_mode(), prepared.activate():
-        step()
-        torch.cuda.synchronize()
+        per_step = counted_step(step)
         if static:
             sites = check_static_sites(cfg, tag, step, QDTYPES[spec.qdtype])
         if skip:
             skipped = skipped_tiles(step)
             log(f"[{tag}] w_out tiles of one decode step (B={b}): {json.dumps(skipped)}")
-        prof, kern, wall_ms = device_profile(step, steps, activities)
+        prof, kern, wall_ms = checked_profile(step, steps, activities, per_step, tag)
         if unfused:
             real = dispatch.requant_plan
             dispatch.requant_plan = lambda *a, **k: None
             try:
-                step()
-                _, kern_u, wall_u = device_profile(step, steps, [ProfilerActivity.CUDA])
+                per_step_u = counted_step(step)
+                _, kern_u, wall_u = checked_profile(step, steps, [ProfilerActivity.CUDA],
+                                                    per_step_u, f"{tag} unfused")
             finally:
                 dispatch.requant_plan = real
     # None, not 0, when the profiler recorded no device activity at all
@@ -3283,6 +3373,30 @@ def layer_decode(rows, kernel, n, b, shapes):
     return tot
 
 
+def stream_static_smem() -> dict:
+    """The static shared memory ptxas gave each instantiation of the two
+    streams' kernels (nm_spmm_sp.cuh's, nm_spmm_sp_fp8.cuh's) in this run's
+    build, by its MASKED flag, the last literal of the template.  kmask.cuh's
+    bitmask is declared only where MASKED, so the unmasked ones hold none."""
+    from repro_torch.kernels import _build
+
+    out = {"masked": set(), "unmasked": set()}
+    for text in _build.BUILD_LOG.values():
+        entry = None
+        for ln in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                entry = m.group(1)
+                continue
+            t = entry and re.search(r"nm_spmm_sp(?:_fp8)?_kernelI((?:L[ib]\d+E)+)", entry)
+            if t and "Used " in ln and "registers" in ln:
+                masked = re.findall(r"L[ib](\d+)E", t.group(1))[-1] == "1"
+                m = re.search(r"(\d+) bytes smem", ln)
+                out["masked" if masked else "unmasked"].add(int(m.group(1)) if m else 0)
+                entry = None
+    return {key: sorted(v) for key, v in out.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's smoke test needs a GPU")
@@ -3302,6 +3416,10 @@ def main():
     for name, text in _build.BUILD_LOG.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         log(f"ptxas {name}: {len(regs)} kernels; " + "; ".join(sorted(set(regs))))
+    smem = stream_static_smem()
+    log(f"the streams' static shared memory, bytes a block: {json.dumps(smem)}")
+    if any(smem["unmasked"]):
+        fail(f"an unmasked stream kernel holds static shared memory: {smem['unmasked']}")
 
     from repro_torch.kernels.mma_sp_probe import probe
     found = probe()
@@ -3379,11 +3497,13 @@ def main():
         torch.cuda.empty_cache()
         log(f"[{res['layout']}] phase {time.perf_counter() - t0:.1f}s")
     log(f"serving phase {time.perf_counter() - t_serving:.1f}s")
-    # the decode steps that run the float nm_spmm_dual and the bf16 nm_spmm_masked
+    # the decode steps that run the float nm_spmm_dual, the bf16 nm_spmm_masked,
+    # the bf16 tile_gemm_masked and nm_spmm_masked_fp8
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
-            if res["layout"] in ("2:4", "1:4", "moe-spgemm/2:4")}
+            if res["layout"] in ("2:4", "1:4", "moe-spgemm/2:4", "moe-spgemm/dense",
+                                 "moe-spgemm/2:4/fp8")}
     log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, qwen3-moe spgemm bf16 "
-        f"2:4): {json.dumps(busy)}")
+        f"2:4, bf16 dense, fp8 2:4): {json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3439,6 +3559,8 @@ def main():
               "tile_gemm_dual": (SOURCES["nm_spmm"], SOURCES["tile_gemm"]),
               "nm_spmm_dual": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
+              "tile_gemm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
+              "nm_spmm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),
               "nm_spmm_gather_bk_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"],

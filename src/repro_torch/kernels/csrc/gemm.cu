@@ -84,10 +84,14 @@
 // vg_nm_spmm_gather_dual_bk_tiled keep the shared body below for them, the
 // forms the port ran first, as yardsticks.  nm_spmm_dual at n in {1, 2}
 // runs the stream's compressed dual form where nm_spmm/kernel.py::dual_plan
-// picks it, and the bf16 nm_spmm_masked at n in {1, 2} the stream's MASKED
-// form (vg_nm_spmm_dual_tiled and vg_nm_spmm_masked_tiled keep their shared
-// bodies as yardsticks).  nm_spmm and nm_spmm_dual at n = 4, the other
-// masked singles, K8 and K9 at n = 4 and K11 stay on the shared body.
+// picks it, the bf16 nm_spmm_masked at n in {1, 2} the stream's MASKED
+// form, and the bf16 tile_gemm_masked below 256 rows K1's stream in MASKED
+// form (vg_nm_spmm_dual_tiled and vg_nm_spmm_masked_tiled keep their
+// shared bodies as yardsticks; vg_tile_gemm_masked reaches its own at
+// body 0, split 1).
+// nm_spmm and nm_spmm_dual at n = 4, nm_spmm_masked at n = 4,
+// tile_gemm_masked from 256 rows, nm_spmm_gather_bk_masked, K8 and K9 at n
+// = 4 and K11 stay on the shared body.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
@@ -740,8 +744,18 @@ int vg_tile_gemm_tiled(const void* x, const void* w, const void* bias, void* y, 
                                        nullptr, bias, y, b, k, k, o, act, stream, out_f32);
 }
 
+// tile_gemm/kernel.py::masked_plan's body: 1, K1's stream over the dense
+// weight (nm_spmm_sp.cuh, N = 4, MASKED; bm 16 | 64) walking the live steps
+// of each block's span, K split over `split` blocks of a cluster (K1's
+// split: bitwise vg_tile_gemm on the same masked X below 256 rows); 0, the
+// shared body (bm 16 | 64), split 1
 int vg_tile_gemm_masked(const void* x, const void* w, const void* kmask, const void* bias,
-                        void* y, int b, int k, int o, int act, int bm, void* stream) {
+                        void* y, int b, int k, int o, int act, int bm, int body, int split,
+                        void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1)
+    return sp::launch_nm(4, bm, x, w, nullptr, kmask, bias, y, b, k, o, act, 0, split, stream);
+  if (body != 0 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bm<false, DenseLoader, Contiguous, true>(bm, x, nullptr, nullptr, w, nullptr,
                                                          nullptr, nullptr, kmask, bias, y, b,
                                                          k, k, o, act, stream);

@@ -49,10 +49,15 @@
 // (nm_spmm_gather_fp8) at n in {1, 2} the stream with a K-major X stage, as
 // nm_spmm_gather/kernel.py::kmajor_fp8_plan picks.  Each is flushed by
 // SingleFlushT / DualFlush below in the same order as this file's body.
-// vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled, vg_nm_spmm_dual_fp8_tiled,
-// vg_nm_spmm_gather_bk_fp8_tiled, vg_tile_gemm_dual_fp8_tiled and
-// vg_nm_spmm_gather_fp8_tiled keep the shared body for them, the forms the
-// port ran first, as yardsticks; the masked twins stay on it.
+// nm_spmm_masked_fp8 at n in {1, 2} runs nm_spmm_fp8's sparse stream in
+// MASKED form (each block walking the live steps of its span) wherever
+// fp8_plan gives nm_spmm_fp8 that stream, and the shared body where it
+// keeps the shared one.  vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled,
+// vg_nm_spmm_dual_fp8_tiled, vg_nm_spmm_gather_bk_fp8_tiled,
+// vg_tile_gemm_dual_fp8_tiled and vg_nm_spmm_gather_fp8_tiled keep the
+// shared body for them, the forms the port ran first, as yardsticks
+// (vg_nm_spmm_masked_fp8 reaches its own at body 0, split 1); the other
+// masked kernels stay on it.
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -913,7 +918,7 @@ int vg_tile_gemm_fp8(const void* x, const void* w, const void* xs, const void* w
   if (!single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
     return static_cast<int>(cudaErrorInvalidValue);
   if (body == 1 && bn == 64)
-    return spf8::launch_nm(4, bm, x, w, nullptr, flush, b, k, o, split, stream);
+    return spf8::launch_nm(4, bm, x, w, nullptr, nullptr, flush, b, k, o, split, stream);
   if (body == 2 && bm == tgf8::BM && bn == tgf8::BN && split == 1)
     return tgf8::launch(x, w, flush, b, k, o, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -995,7 +1000,7 @@ int vg_nm_spmm_fp8(const void* x, const void* values, const void* meta, const vo
   if (body != 1 || (n != 1 && n != 2) ||
       !single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
     return static_cast<int>(cudaErrorInvalidValue);
-  return spf8::launch_nm(n, bm, x, values, meta, flush, b, k, o, split, stream);
+  return spf8::launch_nm(n, bm, x, values, meta, nullptr, flush, b, k, o, split, stream);
 }
 
 // the shared body at any n: the first form of nm_spmm_fp8, timed beside the
@@ -1008,12 +1013,26 @@ int vg_nm_spmm_fp8_tiled(const void* x, const void* values, const void* meta, co
                           bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
+// nm_spmm/kernel.py::fp8_plan's body, as vg_nm_spmm_fp8 takes it: 1, the
+// sparse-tensor-core body (nm_spmm_sp_fp8.cuh, MASKED; n in {1, 2}) walking
+// the live steps of each block's span, K split over `split` blocks of a
+// cluster (nm_spmm_fp8's split: bitwise vg_nm_spmm_fp8 on the same masked
+// X); 0, the shared body at any n, split 1
 int vg_nm_spmm_masked_fp8(const void* x, const void* values, const void* meta,
                           const void* kmask, const void* xs, const void* ws, const void* bias,
                           const void* rq, void* y, int b, int k, int o, int n, int act,
-                          int out_kind, int bm, void* stream) {
-  return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
-                                nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+                          int out_kind, int bm, int body, int split, void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
+                                  nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  SingleFlush flush;
+  if (body != 1 || (n != 1 && n != 2) ||
+      !single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_nm(n, bm, x, values, meta, kmask, flush, b, k, o, split, stream);
 }
 
 // nm_spmm/kernel.py::fp8_dual_plan's body: 1, the sparse dual stream

@@ -1,8 +1,9 @@
 // The activation-sparsity block skip shared by the masked GEMM kernels
 // (K10: tile_gemm_masked, nm_spmm_masked, nm_spmm_gather_bk_masked, in
-// gemm.cu, gemm_int8.cu and gemm_fp8.cu; bf16 nm_spmm_masked at n in {1, 2}
-// in nm_spmm_sp.cuh's stream, which walks the live steps of its split's
-// span).
+// gemm.cu, gemm_int8.cu and gemm_fp8.cu; the bf16 nm_spmm_masked at n in
+// {1, 2} and tile_gemm_masked below 256 rows in nm_spmm_sp.cuh's stream, and
+// nm_spmm_masked_fp8 at n in {1, 2} in nm_spmm_sp_fp8.cuh's, each walking
+// the live steps of its split's span).
 //
 // kmask is block_maps' (row blocks, K steps) int32 map over the masked X:
 // kmask[i][s] != 0 iff row block i holds a nonzero in K step s.  A block
@@ -53,5 +54,54 @@ struct LiveSteps {
       s = (s | 31) + 1;
     }
     return nk;
+  }
+};
+
+// The row block's bitmask for a streaming kernel: with MASKED, row `row` of
+// kmask folded into a LiveSteps in static shared memory, synchronised; else
+// nullptr.  The array is declared only in the masked instantiations, so the
+// unmasked kernels hold no static shared memory for it.  Every thread of the
+// block calls it.
+template <bool MASKED, int NTHREADS>
+__device__ __forceinline__ const LiveSteps<NTHREADS>* block_live(const int* kmask, int row,
+                                                                 int nk, int tid) {
+  if constexpr (MASKED) {
+    __shared__ LiveSteps<NTHREADS> live;
+    live.load(kmask, row, nk, tid);
+    __syncthreads();
+    return &live;
+  } else {
+    return nullptr;
+  }
+}
+
+// A streaming block's walk over its split span [s0, s0 + ns), the step map
+// splitk::run_ring takes: every step, or with MASKED only the live ones of
+// `live` (the row block's bitmask, block_live's).
+// The span stays the unmasked kernel's, so the sums keep its partition and
+// order; a rank whose span holds no live step walks none (steps() == 0)
+// and still joins the split's finish with its zero partial.  at(i) is
+// called once for each i, in increasing order.
+template <bool MASKED, int NTHREADS>
+struct SpanWalk {
+  const LiveSteps<NTHREADS>* live;
+  int s0, end, cursor;
+
+  __device__ __forceinline__ SpanWalk(const LiveSteps<NTHREADS>* l, int first, int ns)
+      : live(l), s0(first), end(first + ns), cursor(first) {
+    if constexpr (MASKED) cursor = live->next(s0, end);
+  }
+  // the steps the walk visits
+  __device__ __forceinline__ int steps() const {
+    if constexpr (MASKED) return live->count(s0, end);
+    return end - s0;
+  }
+  __device__ __forceinline__ int operator()(int i) {
+    if constexpr (MASKED) {
+      const int s = cursor;
+      cursor = live->next(s + 1, end);
+      return s;
+    }
+    return s0 + i;
   }
 };

@@ -1,13 +1,14 @@
 // nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2},
 // and with the activation-sparsity skip (MASKED) the bf16 nm_spmm_masked;
 // and the same streaming body over a dense weight (N = 4): K1's few-row
-// tile_gemm, and, with the X side gathered (G = n in {1, 2}), K8's few-row
+// tile_gemm (with MASKED, the bf16 tile_gemm_masked's), and, with the X side gathered (G = n in {1, 2}), K8's few-row
 // nm_spmm_gather_bk over its dense values; in DUAL form (two weights, two
 // accumulators, one silu(g) * u flush) the float gate-up duals' few-row
 // tile_gemm_dual and nm_spmm_gather_dual_bk (K9), and the compressed
 // nm_spmm_dual at n in {1, 2}.  Included by gemm.cu, whose vg_nm_spmm,
-// vg_nm_spmm_masked, vg_nm_spmm_dual, vg_tile_gemm, vg_nm_spmm_gather_bk,
-// vg_tile_gemm_dual and vg_nm_spmm_gather_dual_bk launch it; every other
+// vg_nm_spmm_masked, vg_nm_spmm_dual, vg_tile_gemm, vg_tile_gemm_masked,
+// vg_nm_spmm_gather_bk, vg_tile_gemm_dual and vg_nm_spmm_gather_dual_bk
+// launch it; every other
 // GEMM of gemm.cu keeps the shared gemm_kernel body, and the many-row
 // bodies of K1, K8 and the dense and gathered duals are tile_gemm_sm90.cuh's.
 //
@@ -32,6 +33,8 @@
 //              nm_spmm/kernel.py::dual_plan picks the stream
 //   nm_spmm_masked  repro/kernels/nm_spmm/kernel.py::nm_spmm_masked
 //              (_spmm_masked_kernel), float, n in {1, 2}
+//   tile_gemm_masked  repro/kernels/tile_gemm/kernel.py::tile_gemm_masked
+//              (_gemm_masked_kernel), bf16, below 256 rows (where K1 streams)
 //
 // Y (B, O) = X (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16, O)).
 // The TPU kernel decompresses each tile with a compare-and-select and
@@ -114,13 +117,14 @@
 // tiles (57 KB at 2:4 and 16 rows, 89 KB at 64).  Bound: both weights'
 // bytes (+ indices or meta) + X once, over 3.35 TB/s.
 //
-// The masked single (MASKED, nm_spmm_masked).  Each block keeps the span
+// The masked single (MASKED: nm_spmm_masked at N in {1, 2},
+// tile_gemm_masked over the dense weight at N = 4).  Each block keeps the span
 // splitk::span gives the unmasked kernel over all K steps and walks only
 // its live steps (kmask.cuh's bitmask of the row block's map row): a dead
 // step is neither loaded, prefetched nor multiplied.  A dead tile of the
 // masked X would add exact zeros, so the partition and the order of the
-// sums are the unmasked kernel's: bitwise nm_spmm on the same masked X at
-// the same split.  A rank with no live step in its span walks none and
+// sums are the unmasked kernel's: bitwise nm_spmm (K1 at N = 4) on the
+// same masked X at the same split.  A rank with no live step in its span walks none and
 // still stores its zero partial into the owners' inboxes and meets the
 // cluster barrier; a row block with no live step flushes bias and
 // activation of zero.  Bound: the live steps' weight and X bytes.
@@ -249,28 +253,10 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   splitk::span(rank, split, k / BKS, s0, ns);
   const int rows = min(BM, b - m0);            // live batch rows of this tile
 
-  // The walk: the span's steps, or (MASKED) its live steps only.  The span
-  // is the unmasked kernel's, so the sums keep its partition and order; a
-  // rank whose span holds no live step walks none and still joins the
-  // split's finish below with its zero partial.
-  __shared__ LiveSteps<NT> live;               // MASKED only
-  const int end = s0 + ns;
-  int cursor = s0;                             // MASKED: the walk's next live step
-  if constexpr (MASKED) {
-    live.load(kmask, blockIdx.y, k / BKS, tid);
-    __syncthreads();
-    ns = live.count(s0, end);
-    cursor = live.next(s0, end);
-  }
-  auto at = [&](int i) {
-    if constexpr (MASKED) {
-      const int s = cursor;
-      cursor = live.next(s + 1, end);
-      return s;
-    } else {
-      return s0 + i;
-    }
-  };
+  // The walk: the span's steps, or (MASKED) its live steps only
+  // (kmask.cuh's block_live and SpanWalk).
+  SpanWalk<MASKED, NT> at(block_live<MASKED, NT>(kmask, blockIdx.y, k / BKS, tid), s0, ns);
+  ns = at.steps();
 
   auto load_stage = [&](int st, int s) {
     unsigned char* base = smem + st * L::STAGE;
@@ -509,14 +495,14 @@ int launch(const void* x, const void* v, const void* meta, const void* v2, const
 
 // n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) weight, meta
 // unused), bm in {16, 64}, split a power of two up to min(8, k / 64);
-// kmask: the masked single (nm_spmm_masked, n in {1, 2}) with block_maps'
-// (ceil(b / bm), k / 64) map, else nullptr
+// kmask: the masked single (nm_spmm_masked at n in {1, 2}, tile_gemm_masked
+// at n = 4) with block_maps' (ceil(b / bm), k / 64) map, else nullptr
 inline int launch_nm(int n, int bm, const void* x, const void* v, const void* meta,
                      const void* kmask, const void* bias, void* y, int b, int k, int o, int act,
                      int out_f32, int split, void* stream) {
   if (b <= 0 || k <= 0 || o <= 0 || k % BKS != 0 || o % BO != 0 || act < 0 || act > 2 ||
       out_f32 < 0 || out_f32 > 1 || !splitk::split_ok(split, k / BKS) ||
-      (b + bm - 1) / bm > 65535 || (kmask != nullptr && (n == 4 || k / BKS > MAX_K_STEPS)))
+      (b + bm - 1) / bm > 65535 || (kmask != nullptr && k / BKS > MAX_K_STEPS))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
@@ -528,6 +514,8 @@ inline int launch_nm(int n, int bm, const void* x, const void* v, const void* me
     if (n == 2 && bm == 64) VG_SP_LAUNCH(2, 64, true);
     if (n == 1 && bm == 16) VG_SP_LAUNCH(1, 16, true);
     if (n == 1 && bm == 64) VG_SP_LAUNCH(1, 64, true);
+    if (n == 4 && bm == 16) VG_SP_LAUNCH(4, 16, true);
+    if (n == 4 && bm == 64) VG_SP_LAUNCH(4, 64, true);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 2 && bm == 16) VG_SP_LAUNCH(2, 16, false);

@@ -1,21 +1,24 @@
 // nm_spmm_fp8 on Hopper's sparse tensor cores: the e4m3 single at n in
 // {1, 2}, every out_kind (bf16, fp32, the raw accumulator, and the
-// requantizing flush of nm_spmm_fp8_requant); in DUAL form (two weights,
-// two accumulators, one silu(g) * u flush) the compressed gate-up
-// nm_spmm_dual_fp8 and its requantizing form; and the same streaming body
+// requantizing flush of nm_spmm_fp8_requant), and with the activation-
+// sparsity skip (MASKED) the same single as nm_spmm_masked_fp8; in DUAL
+// form (two weights, two accumulators, one silu(g) * u flush) the
+// compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
+// same streaming body
 // over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body, in DUAL
 // form the dense gate-up tile_gemm_dual_fp8's (and _requant's) and, with
 // the X side gathered (G = n in {1, 2}), the fp8 lane-aligned gather K8's
 // (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values;
 // with the X side gathered from K-major x_t (KM), K11 fp8's
 // (nm_spmm_gather_fp8).  Included by gemm_fp8.cu, whose vg_nm_spmm_fp8,
-// vg_tile_gemm_fp8, vg_nm_spmm_dual_fp8, vg_tile_gemm_dual_fp8,
-// vg_nm_spmm_gather_bk_fp8 and vg_nm_spmm_gather_fp8 launch it with their
-// flush where nm_spmm/kernel.py::fp8_plan, tile_gemm/kernel.py::fp8_plan,
+// vg_nm_spmm_masked_fp8, vg_tile_gemm_fp8, vg_nm_spmm_dual_fp8,
+// vg_tile_gemm_dual_fp8, vg_nm_spmm_gather_bk_fp8 and vg_nm_spmm_gather_fp8
+// launch it with their flush where nm_spmm/kernel.py::fp8_plan (for both
+// singles), tile_gemm/kernel.py::fp8_plan,
 // nm_spmm/kernel.py::fp8_dual_plan, tile_gemm/kernel.py::fp8_dual_plan,
 // nm_spmm_gather/kernel.py::fp8_plan and ::kmajor_fp8_plan pick it; n = 4
 // of the compressed and gathered kernels, wider launches, K9 fp8, the
-// masked singles and the int8 twins keep gemm_fp8.cu's / gemm_int8.cu's
+// other masked singles and the int8 twins keep gemm_fp8.cu's / gemm_int8.cu's
 // shared bodies, and the many-row bodies of tile_gemm_fp8 (of K8, after
 // gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
 // tile_gemm_sm90_fp8.cuh's.
@@ -39,6 +42,9 @@
 //   nm_spmm_gather_fp8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_fp8
 //                  (_nm_spmm_gather_quantized, _gather_q_kernel, _gather_q_raw_kernel),
 //                  n in {1, 2}
+//   nm_spmm_masked_fp8  repro/kernels/nm_spmm/kernel.py::nm_spmm_masked
+//                  (_spmm_masked_kernel), scaled-quantized fp8, n in {1, 2}, where
+//                  nm_spmm/kernel.py::fp8_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -120,6 +126,19 @@
 // SM (~58 KB each at 16 rows, ~88 KB at 64).  Bound: both weights' kept
 // bytes and meta + X once, over 3.35 TB/s.
 //
+// The masked single (MASKED, nm_spmm_masked_fp8), as nm_spmm_sp.cuh's
+// bf16 one.  The block folds its row block's kmask row into kmask.cuh's
+// bitmask before the ring, keeps the span splitk::span gives the unmasked
+// kernel and walks only its live steps: a dead step is neither loaded,
+// prefetched, transposed nor multiplied.  A dead tile of the masked X
+// would add an exact +0 partial, so the partition and the order of the
+// sums are nm_spmm_fp8's: bitwise nm_spmm_fp8 (and nm_spmm_fp8_requant's
+// codes) on the same masked X at the same split.  A rank with no live step
+// walks none and still stores its zero partial into the owners' inboxes
+// and meets the cluster barrier; a row block with no live step flushes the
+// Flush of a zero sum (bias and activation of zero, or their codes).
+// Bound: the live steps' kept bytes, meta and X bytes.
+//
 // Row tiles.  Past decode rows the plans (fp8_dual_plan, the gather
 // fp8_plan) keep 16-row tiles over several row tiles (up to 2-3 blocks an
 // SM) where the 64-row tile lost to them on an H100: a 64-deep step of the
@@ -164,6 +183,7 @@
 
 #pragma once
 
+#include "kmask.cuh"
 #include "splitk.cuh"
 
 namespace spf8 {
@@ -320,14 +340,18 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // x_t (K_eff, b), b a multiple of 16, and flush(row, col, sum) gets the
 // batch row and channel in column-major order).  DUAL: v2 and meta2 are
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
-// sums; else flush(row, col, sum).
-template <int N, int BM, int G, bool DUAL, bool KM, class Flush>
+// sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
+// kmask is block_maps' (row blocks, k / 64) map; the block walks the live
+// steps of its span only.
+template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
                       const uint8_t* __restrict__ meta, const uint8_t* __restrict__ v2,
-                      const uint8_t* __restrict__ meta2, Flush flush, int b, int k, int o,
-                      int split) {
+                      const uint8_t* __restrict__ meta2, const int* __restrict__ kmask,
+                      Flush flush, int b, int k, int o, int split) {
   using L = Layout<N, BM, G, DUAL, KM>;
+  static_assert(!MASKED || (G == 0 && !DUAL && !KM),
+                "the masked stream is a single, X contiguous");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -348,6 +372,11 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   uint8_t* compact = smem + L::RING + L::T_BYTES;    // the selected X tile (gather)
   int* kidx = reinterpret_cast<int*>(compact + L::COMPACT);   // KM: the span's indices
   float* inbox = reinterpret_cast<float*>(compact + L::COMPACT + L::idx_bytes(k / BKS, split));
+
+  // The walk: the span's steps, or (MASKED) its live steps only
+  // (kmask.cuh's block_live and SpanWalk).
+  SpanWalk<MASKED, NT> at(block_live<MASKED, NT>(kmask, blockIdx.y, k / BKS, tid), s0, ns);
+  ns = at.steps();
 
   auto load_stage = [&](int st, int s) {
     uint8_t* base = smem + st * L::STAGE;
@@ -618,7 +647,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
     splitk::cp_async_wait<0>();
     __syncthreads();
   }
-  splitk::run_ring<L::STAGES>(ns, [s0](int i) { return s0 + i; }, load_stage, compute);
+  splitk::run_ring<L::STAGES>(ns, at, load_stage, compute);
 
   // partial tiles [weight][batch row][channel], fp32
   float* part = reinterpret_cast<float*>(smem);
@@ -646,18 +675,19 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
       });
 }
 
-template <int N, int BM, int G, bool DUAL, bool KM, class Flush>
+template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED = false, class Flush>
 int launch(const void* x, const void* v, const void* meta, const void* v2, const void* meta2,
-           const Flush& flush, int b, int k, int o, int split, cudaStream_t stream) {
+           const void* kmask, const Flush& flush, int b, int k, int o, int split,
+           cudaStream_t stream) {
   using L = Layout<N, BM, G, DUAL, KM>;
   static int opted = 0;
-  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, KM, Flush>, opted,
+  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, KM, MASKED, Flush>, opted,
                         dim3(o / BO, (b + BM - 1) / BM), NT,
                         L::RING + L::T_BYTES + L::COMPACT + L::idx_bytes(k / BKS, split),
                         L::INBOX, split, stream, static_cast<const uint8_t*>(x),
                         static_cast<const uint8_t*>(v), static_cast<const uint8_t*>(meta),
                         static_cast<const uint8_t*>(v2), static_cast<const uint8_t*>(meta2),
-                        flush, b, k, o, split);
+                        static_cast<const int*>(kmask), flush, b, k, o, split);
 }
 
 // The launches the C entries take: b rows in tiles of bm (16 | 64), at most
@@ -670,20 +700,32 @@ inline bool launch_ok(int b, int k, int o, int bm, int split) {
 
 // n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) e4m3 weight, meta
 // unused), bm in {16, 64}, split a power of two up to min(8, k / 64);
-// flush(row, col, acc) stores one output from its summed fp32 accumulator
+// flush(row, col, acc) stores one output from its summed fp32 accumulator;
+// kmask: the masked single (nm_spmm_masked_fp8, n in {1, 2}) with
+// block_maps' (ceil(b / bm), k / 64) map, else nullptr
 template <class Flush>
-int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
-              int b, int k, int o, int split, void* stream) {
-  if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, const void* kmask,
+              const Flush& flush, int b, int k, int o, int split, void* stream) {
+  if (!launch_ok(b, k, o, bm, split) ||
+      (kmask != nullptr && (n == 4 || k / BKS > MAX_K_STEPS)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VG_SPF8_LAUNCH(NN, BB) \
-  return launch<NN, BB, 0, false, false>(x, v, meta, nullptr, nullptr, flush, b, k, o, split, s)
-  if (n == 2 && bm == 16) VG_SPF8_LAUNCH(2, 16);
-  if (n == 2 && bm == 64) VG_SPF8_LAUNCH(2, 64);
-  if (n == 1 && bm == 16) VG_SPF8_LAUNCH(1, 16);
-  if (n == 1 && bm == 64) VG_SPF8_LAUNCH(1, 64);
-  if (n == 4 && bm == 16) VG_SPF8_LAUNCH(4, 16);
-  if (n == 4 && bm == 64) VG_SPF8_LAUNCH(4, 64);
+#define VG_SPF8_LAUNCH(NN, BB, MM)                                                            \
+  return launch<NN, BB, 0, false, false, MM>(x, v, meta, nullptr, nullptr, kmask, flush, b, k, \
+                                             o, split, s)
+  if (kmask != nullptr) {
+    if (n == 2 && bm == 16) VG_SPF8_LAUNCH(2, 16, true);
+    if (n == 2 && bm == 64) VG_SPF8_LAUNCH(2, 64, true);
+    if (n == 1 && bm == 16) VG_SPF8_LAUNCH(1, 16, true);
+    if (n == 1 && bm == 64) VG_SPF8_LAUNCH(1, 64, true);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 2 && bm == 16) VG_SPF8_LAUNCH(2, 16, false);
+  if (n == 2 && bm == 64) VG_SPF8_LAUNCH(2, 64, false);
+  if (n == 1 && bm == 16) VG_SPF8_LAUNCH(1, 16, false);
+  if (n == 1 && bm == 64) VG_SPF8_LAUNCH(1, 64, false);
+  if (n == 4 && bm == 16) VG_SPF8_LAUNCH(4, 16, false);
+  if (n == 4 && bm == 64) VG_SPF8_LAUNCH(4, 64, false);
 #undef VG_SPF8_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -700,7 +742,7 @@ int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, co
   if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_DUAL(NN, BB) \
-  return launch<NN, BB, 0, true, false>(x, vg, mg, vu, mu, flush, b, k, o, split, s)
+  return launch<NN, BB, 0, true, false>(x, vg, mg, vu, mu, nullptr, flush, b, k, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_DUAL(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_DUAL(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_DUAL(1, 16);
@@ -722,8 +764,8 @@ int launch_gather(int n, int bm, const void* x, const void* values, const void* 
   if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_GATHER(GG, BB) \
-  return launch<4, BB, GG, false, false>(x, values, idx, nullptr, nullptr, flush, b, kc, o, \
-                                         split, s)
+  return launch<4, BB, GG, false, false>(x, values, idx, nullptr, nullptr, nullptr, flush, b, \
+                                         kc, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16);
@@ -745,8 +787,8 @@ int launch_kmajor(int n, int bm, const void* x_t, const void* values, const void
   if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_KMAJOR(GG, BB) \
-  return launch<4, BB, GG, false, true>(x_t, values, idx, nullptr, nullptr, flush, b, kc, o, \
-                                        split, s)
+  return launch<4, BB, GG, false, true>(x_t, values, idx, nullptr, nullptr, nullptr, flush, b, \
+                                        kc, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_KMAJOR(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_KMAJOR(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_KMAJOR(1, 16);

@@ -22,8 +22,9 @@ and ``nm_spmm_dual`` (float) in that header's dual form (both weights'
 values and meta tiles a stage, two accumulators, one silu(g) * u flush)
 where :func:`dual_plan` picks it; so do ``nm_spmm_fp8`` and
 ``nm_spmm_fp8_requant`` at n in {1, 2} (``csrc/nm_spmm_sp_fp8.cuh``, the
-e4m3 m16n8k64 form) where :func:`fp8_plan` picks it, and
-``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
+e4m3 m16n8k64 form) where :func:`fp8_plan` picks it, ``nm_spmm_masked_fp8``
+there too, walking the live steps of each block's span (bitwise
+``nm_spmm_fp8`` on the same masked X), and ``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
 dual form where :func:`fp8_dual_plan` picks it; every other kernel here
 expands each values tile into the dense tile in shared memory.
 
@@ -129,7 +130,9 @@ def fp8_plan(b: int, k: int, o: int, n: int) -> dict:
     nm_spmm_sp_fp8.cuh``, n in {1, 2}) at decode rows (up to 16) and
     wherever the shared body's O / 64 x row-tile blocks stay under
     ``FP8_SHARED_TILES``, split by :func:`split_k`; else ``shared``
-    (gemm_fp8.cu's body, the form the port ran first), split 1."""
+    (gemm_fp8.cu's body, the form the port ran first), split 1.
+    ``nm_spmm_masked_fp8`` takes the same plan (its sparse body in
+    ``MASKED`` form)."""
     bm = _build.block_rows(b)
     tiles = (o // _build.BLOCK_O) * -(-b // bm)
     if n in (1, 2) and (bm == _build.BLOCK_ROWS[0] or tiles < FP8_SHARED_TILES):
@@ -308,10 +311,11 @@ def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_sc
                           x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
-    # the fp8 single runs the body of its plan (sparse: K split over a
-    # cluster); int8 and the masked kernels keep the shared body (no plan)
+    # the fp8 single, masked or not, runs the body of its plan (sparse: K
+    # split over a cluster; the masked one walks each span's live steps);
+    # int8 keeps the shared body (no plan)
     plan = ()
-    if storage == torch.float8_e4m3fn and maps is None:
+    if storage == torch.float8_e4m3fn:
         p = fp8_plan(b, ke, o, n)
         plan = (int(p["body"] == "sparse"), p["split"])
     lib = _build.library(source)
@@ -426,11 +430,15 @@ def nm_spmm_masked_fp8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: tor
                        block_b: Optional[int] = None,
                        requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`nm_spmm_fp8` with the block skip of :func:`nm_spmm_masked`
-    (maps over the e4m3 rows; the CUDA body ignores ``kmap``).  Bitwise
-    itself with every tile live on the same rows, and :func:`nm_spmm_fp8`
-    at n = 4; at n in {1, 2} within the fp8 class's limit of it (its sparse
-    body sums in another order).  With ``requant_scale`` the flush
-    requantizes as :func:`nm_spmm_fp8_requant`'s."""
+    (maps over the e4m3 rows at ``block_b`` rows; the CUDA bodies ignore
+    ``kmap``).  The body and split are :func:`fp8_plan`'s, as
+    :func:`nm_spmm_fp8` takes them: where it says ``sparse`` (n in {1, 2},
+    decode rows and launches narrower than ``FP8_SHARED_TILES``) the e4m3
+    sparse stream at :func:`split_k`'s split, each block walking the live
+    steps of its span; else the shared body, split 1.  Either way bitwise
+    :func:`nm_spmm_fp8` on the same masked rows at the same ``block_b``.
+    With ``requant_scale`` the flush requantizes, bitwise
+    :func:`nm_spmm_fp8_requant`'s codes."""
     return _nm_spmm_quantized(nm_spmm_masked_fp8, torch.float8_e4m3fn, x_q, values,
                               meta_packed, x_scale, w_scale, n, epilogue, bias, out_dtype,
                               block_b, maps=(kmap, kmask),

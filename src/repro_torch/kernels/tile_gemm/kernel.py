@@ -10,7 +10,9 @@ narrow dtype against the next linear's static activation scale, and
 with that flush (K0's remainder: the gelu MLP's ``w_in``).  K10:
 ``tile_gemm_masked`` and its int8 and fp8 twins, ``tile_gemm_masked_int8``
 and ``tile_gemm_masked_fp8``, the single GEMMs with the activation-sparsity
-block skip (one source each, the same kernel bodies with ``MASKED``).
+block skip (one source each, the same kernel bodies with ``MASKED``; the
+bf16 one below ``WGMMA_MIN_ROWS`` rows K1's stream in ``MASKED`` form, as
+:func:`masked_plan` picks).
 
 ``tile_gemm`` (bf16) runs one of two bodies of its own, chosen by
 :func:`plan` from ``(B, K, O)``: at few rows (decode, the engine's prefill
@@ -54,7 +56,7 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
 __all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "fp8_dual_plan", "cluster_split",
-           "stream_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
+           "stream_plan", "masked_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
            "FP8_WGMMA_COLS", "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
            "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
@@ -147,6 +149,21 @@ def plan(b: int, k: int, o: int) -> dict:
         cols = WGMMA_COLS[b >= WIDE_MIN_ROWS and o >= WIDE_MIN_COLS]
         return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": cols, "split": 1}
     return stream_plan(b, k, o)
+
+
+def masked_plan(b: int, k: int, o: int) -> dict:
+    """``tile_gemm_masked``'s (bf16) body, tile and split: :func:`plan`'s
+    ``stream`` wherever K1 streams (below ``WGMMA_MIN_ROWS`` rows), the
+    masked form of that stream at its tile and split (each block walks
+    the live steps of its span: bitwise K1 on the same masked X); from
+    ``WGMMA_MIN_ROWS`` rows, where K1 runs its wgmma body, ``shared``
+    (gemm.cu's masked body, the form the port ran first) at
+    ``block_rows(b)`` rows, split 1.  Returns ``{"body", "rows", "cols",
+    "split"}``; ``rows`` is the maps' row block."""
+    p = plan(b, k, o)
+    if p["body"] == "stream":
+        return p
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
 
 
 def stream_plan(b: int, k: int, o: int) -> dict:
@@ -339,12 +356,15 @@ def tile_gemm_masked(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
     (row block, K step) tiles ``kmask`` marks live are loaded and
     multiplied.  ``kmap`` / ``kmask`` are ``actsparse.block_maps`` over the
     masked X at ``block_b`` rows (``block_rows(B)`` by default) and 64
-    columns; the CUDA body branches on ``kmask`` alone and ignores
-    ``kmap`` (the TPU kernel's copy re-addressing), which it takes so that
-    the signature stays the JAX package's.  Bitwise itself with every
-    tile live on the same masked X (dead tiles add exact zeros); within
-    bf16 rounding of :func:`tile_gemm`, whose own bodies sum in another
-    order."""
+    columns; the CUDA bodies branch on ``kmask`` alone and ignore ``kmap``
+    (the TPU kernel's copy re-addressing), which they take so that the
+    signature stays the JAX package's.  The body and split are
+    :func:`masked_plan`'s: below ``WGMMA_MIN_ROWS`` rows K1's stream at K1's
+    split, each block walking the live steps of its span, so bitwise
+    :func:`tile_gemm` on the same masked X (dead tiles add exact zeros);
+    from ``WGMMA_MIN_ROWS`` rows the shared body, bitwise itself with every
+    tile live and within bf16 rounding of :func:`tile_gemm`, whose wgmma
+    body sums in another order."""
     epi = epilogue or EpilogueSpec()
     b, k = x.shape
     k2, o = w.shape
@@ -362,11 +382,13 @@ def tile_gemm_masked(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
         raise ValueError(f"tile_gemm_masked: w is {w.dtype}, x is {x.dtype}")
     _build.check_tiles("tile_gemm_masked", k, o)
     y = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    p = masked_plan(b, k, o)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_tile_gemm_masked(x.data_ptr(), w.data_ptr(), kmask.data_ptr(),
                                      _ptr(bias32), y.data_ptr(), b, k, o, ACT_CODES[epi.act],
-                                     bb, _build.stream_of(x))
+                                     bb, BODY_CODES[p["body"]], p["split"],
+                                     _build.stream_of(x))
     tile_gemm_masked.launches += 1
     _build.check(rc, "tile_gemm_masked", lib)
     return y

@@ -802,12 +802,14 @@ def _masked_case(dev, b, k, o, layout, n, qdtype, seed=0):
 def _own_body(layout, qdtype, b, k, o, n, requant=False):
     """Whether the unmasked kernel of a masked case runs a body of its own
     (summing in another order than the shared body the masked one keeps).
-    The bf16 nm_spmm_masked runs K2's stream at K2's split: never."""
+    The bf16 nm_spmm_masked, nm_spmm_masked_fp8 and, below 256 rows, the
+    bf16 tile_gemm_masked run their twins' streams at their twins' plans:
+    never there; K1 from 256 rows (its wgmma body): yes."""
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_plan as gather_fp8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
-    from repro_torch.kernels.tile_gemm.kernel import fp8_plan
-    if (layout, qdtype) in (("dense", None), ("compressed", "fp8")):
-        return True
+    from repro_torch.kernels.tile_gemm.kernel import fp8_plan, plan
+    if (layout, qdtype) == ("dense", None):
+        return plan(b, k, o)["body"] == "wgmma"
     if (layout, qdtype) == ("gather", None):
         return gather_plan(b, k, o, n)["body"] != "shared"
     if (layout, qdtype) == ("gather", "fp8"):
@@ -841,8 +843,7 @@ def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n
     its bias and activation."""
     case = _masked_case(cuda_device, b, k, o, layout, n, qdtype)
     maps = (case.kmap, case.kmask)
-    # the float dense single (K1), the fp8 compressed single (n in {1, 2})
-    # and, where their plans leave the shared body, the
+    # K1 from 256 rows and, where their plans leave the shared body, the
     # float and fp8 gather K8 and the fp8 dense single run their own bodies, whose
     # sums run in another order than the masked kernel's: the masked kernel
     # is held bitwise to itself with every tile live (the same invariant:
@@ -905,13 +906,12 @@ def test_masked_kernels_skip_by_kmask_alone_on_card(cuda_device):
     kmask = case.kmask.clone()
     got = tile_gemm_masked(x, case.ops[0], case.kmap, kmask)
     zeroed = x * kmask.bool().repeat_interleave(64, 1)[:, :1536].repeat(8, 1).to(x.dtype)
-    # tile_gemm (K1) sums in another order than the masked kernel: the
-    # masked kernel on the zeroed X with every tile live is the bitwise
-    # yardstick, tile_gemm within 1e-2
+    # at 8 rows the masked kernel runs K1's stream at K1's split: bitwise
+    # tile_gemm on the zeroed X, and the masked kernel there with every tile live
     want = tile_gemm_masked(zeroed, case.ops[0], case.kmap, torch.ones_like(kmask))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert_scaled_close(got, tile_gemm(zeroed, case.ops[0]), 1e-2)
+    assert torch.equal(got, tile_gemm(zeroed, case.ops[0]))
     with pytest.raises(ValueError, match="block_maps at the kernel's blocks"):
         tile_gemm_masked(x, case.ops[0], case.kmap[:, :12], kmask[:, :12])
 
@@ -989,7 +989,7 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
     got = masked(xm, *ops, *maps, *nn, xms, ws, epilogue=spec, bias=bias, requant_scale=rq)
     unmasked = fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias)
     if qdtype == "fp8" and _own_body(layout, qdtype, b, k, o, n, requant=True):
-        # tile_gemm_fp8's, nm_spmm_fp8's and K8 fp8's own bodies sum in another order:
+        # tile_gemm_fp8's and K8 fp8's own bodies sum in another order:
         # the masked kernel's codes are its all-live codes bitwise, one e4m3
         # step at most off the unmasked kernel's on at most 0.1% of them
         all_live = (maps[0], torch.ones_like(maps[1]))
