@@ -327,19 +327,24 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            # keeps it)
            "tile_gemm_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "nm_spmm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
+           # the bf16 nm_spmm_gather_bk_masked's stream where K8 streams (K8's,
+           # MASKED; gemm.cu's shared body elsewhere)
+           "nm_spmm_gather_bk_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "tile_gemm": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            "tile_gemm_fp8": "src/repro_torch/kernels/csrc/tile_gemm_sm90_fp8.cuh",
            "nm_spmm_gather_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "tile_gemm_dual": "src/repro_torch/kernels/csrc/tile_gemm_sm90.cuh",
            "nm_spmm_gather_dual_bk": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
-           # the fp8 compressed dual's, K8 fp8's, the dense fp8 dual's and K11
-           # fp8's few-row bodies (K8's gather pass: gemm_fp8.cu; the many-row
-           # bodies: tile_gemm_sm90_fp8.cuh)
+           # the fp8 compressed dual's, K8 fp8's, the dense fp8 dual's, K9 fp8's
+           # and K11 fp8's few-row bodies (K8's gather pass: gemm_fp8.cu; the
+           # many-row bodies: tile_gemm_sm90_fp8.cuh; K9 fp8 past its stream:
+           # gemm_fp8.cu's shared body)
            **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
               for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
                            "nm_spmm_gather_bk_fp8", "tile_gemm_dual_fp8",
-                           "tile_gemm_dual_fp8_requant", "nm_spmm_gather_fp8")},
+                           "tile_gemm_dual_fp8_requant", "nm_spmm_gather_fp8",
+                           "nm_spmm_gather_dual_bk_fp8", "nm_spmm_gather_dual_bk_fp8_requant")},
            "int8": "src/repro_torch/kernels/csrc/gemm_int8.cu",
            "fp8": "src/repro_torch/kernels/csrc/gemm_fp8.cu",
            "attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -498,7 +503,8 @@ def earlier_kernels():
     nm_spmm_gather_dual_bk, nm_spmm_dual_fp8 (and _requant),
     nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant),
     nm_spmm_gather_fp8, nm_spmm_dual (float), nm_spmm_masked (bf16),
-    tile_gemm_masked (bf16) and nm_spmm_masked_fp8 wrappers launch the
+    tile_gemm_masked (bf16), nm_spmm_masked_fp8, nm_spmm_gather_bk_masked
+    (bf16) and nm_spmm_gather_dual_bk_fp8 (and _requant) wrappers launch the
     port's first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu and gemm_fp8.cu at every n and row count,
     ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
@@ -507,10 +513,12 @@ def earlier_kernels():
     ``vg_nm_spmm_dual_fp8_tiled``, ``vg_nm_spmm_gather_bk_fp8_tiled``,
     ``vg_tile_gemm_dual_fp8_tiled``, ``vg_nm_spmm_gather_fp8_tiled``,
     ``vg_nm_spmm_dual_tiled``, ``vg_nm_spmm_masked_tiled``, and
-    ``vg_tile_gemm_masked`` / ``vg_nm_spmm_masked_fp8`` at body 0, split 1,
-    at the row block the first form took: 16 up to 16 rows, else 64; the
-    masked ones at their maps' row block) instead of the current ones: the ``earlier_ms``
-    yardstick, through the same wrappers and checks."""
+    ``vg_tile_gemm_masked`` / ``vg_nm_spmm_masked_fp8`` /
+    ``vg_nm_spmm_gather_bk_masked`` / ``vg_nm_spmm_gather_dual_bk_fp8`` at
+    body 0, split 1, at the row block the first form took: 16 up to 16
+    rows, else 64; the masked ones at their maps' row block) instead of the current
+    ones: the ``earlier_ms`` yardstick, through the same wrappers and
+    checks."""
     from repro_torch.kernels import _build
 
     gemm = _build.library("gemm.cu")
@@ -576,6 +584,15 @@ def earlier_kernels():
 
     def nm_spmm_masked_fp8_tiled(*args):
         return fp8.vg_nm_spmm_masked_fp8(*args[:-3], 0, 1, args[-1])
+
+    def nm_spmm_gather_bk_masked_tiled(*args):
+        return gemm.vg_nm_spmm_gather_bk_masked(*args[:-3], 0, 1, args[-1])
+
+    # K9 fp8 reaches its shared body through its own entry, at the row block
+    # the first form took (its plan runs 16-row tiles past 16 rows; b: args[10])
+    def nm_spmm_gather_dual_bk_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return fp8.vg_nm_spmm_gather_dual_bk_fp8(*args[:15], _build.block_rows(args[10]), 0, 1,
+                                                 args[-1])
     saved = dict(_build._libs)
     _build._libs["gemm.cu"] = _EarlierLib(gemm, vg_nm_spmm=nm_spmm_tiled,
                                           vg_tile_gemm=tile_gemm_tiled,
@@ -584,14 +601,17 @@ def earlier_kernels():
                                           vg_nm_spmm_gather_dual_bk=nm_spmm_gather_dual_bk_tiled,
                                           vg_nm_spmm_dual=nm_spmm_dual_tiled,
                                           vg_nm_spmm_masked=nm_spmm_masked_tiled,
-                                          vg_tile_gemm_masked=tile_gemm_masked_tiled)
+                                          vg_tile_gemm_masked=tile_gemm_masked_tiled,
+                                          vg_nm_spmm_gather_bk_masked=nm_spmm_gather_bk_masked_tiled)
     _build._libs["gemm_fp8.cu"] = _EarlierLib(fp8, vg_nm_spmm_fp8=nm_spmm_fp8_tiled,
                                               vg_tile_gemm_fp8=tile_gemm_fp8_tiled,
                                               vg_nm_spmm_dual_fp8=nm_spmm_dual_fp8_tiled,
                                               vg_nm_spmm_gather_bk_fp8=nm_spmm_gather_bk_fp8_tiled,
                                               vg_tile_gemm_dual_fp8=tile_gemm_dual_fp8_tiled,
                                               vg_nm_spmm_gather_fp8=nm_spmm_gather_fp8_tiled,
-                                              vg_nm_spmm_masked_fp8=nm_spmm_masked_fp8_tiled)
+                                              vg_nm_spmm_masked_fp8=nm_spmm_masked_fp8_tiled,
+                                              vg_nm_spmm_gather_dual_bk_fp8=(
+                                                  nm_spmm_gather_dual_bk_fp8_tiled))
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -994,7 +1014,10 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
     the plain version and the class's library call on the PRE-GATHERED X
     (the gather runs outside the timed region: no library GEMM gathers):
     torch.matmul, torch._int_mm, torch._scaled_mm; for the duals the two
-    library calls (gate, up) on their own gathered X.  Bound: values +
+    library calls (gate, up) on their own gathered X.  The redesigned bodies
+    (bf16 K8 and K9; e4m3 K8, K9 and K9's requantizing form) must give the
+    same bits on a second launch and are timed in turns with their first
+    bodies (``earlier_ms``), their plans beside them.  Bound: values +
     index (+ scales) + x (B, K_eff) + output bytes over 3.35 TB/s."""
     from repro_torch.core.quantize import quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
@@ -1121,15 +1144,15 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
             kc = k * n // 4
             xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
             extra = {}
-            if qdtype is None:     # the redesigned bodies, beside the first one
+            if not int8:     # the redesigned bodies (bf16, e4m3), beside the first one
                 got = run(*ops[0])
                 again = run(*ops[0])
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
-                    fail(f"nm_spmm_gather_dual_bk B={b} K={k} O={o} n={n}: not the same "
+                    fail(f"nm_spmm_gather_dual_bk{sfx} B={b} K={k} O={o} n={n}: not the same "
                          f"bits on a second launch")
                 t_run, extra["earlier_ms"] = in_turns(run, ops)
-                extra["plan"] = gk.dual_plan(b, k, o, n)
+                extra["plan"] = gk.fp8_dual_plan(b, k, o, n) if fp8 else gk.dual_plan(b, k, o, n)
             else:
                 t_run = time_ms(run, ops)
             record(f"nm_spmm_gather_dual_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
@@ -1143,20 +1166,30 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                 run_q, ref_q = dual(n, requant=True), dual(n, ref=True, requant=True)
                 ops_q = [op + (rq,) for op in ops]
                 got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
+                again = run_q(*ops_q[0])
                 torch.cuda.synchronize()
                 name = f"nm_spmm_gather_dual_bk{sfx}_requant"
                 if got.dtype != qdtype or want.dtype != qdtype:
                     fail(f"{name} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
+                if not torch.equal(as_bytes(got), as_bytes(again)):
+                    fail(f"{name} B={b} K={k} O={o} n={n}: not the same codes on a second "
+                         f"launch")
+                extra = {}
+                if fp8:     # the redesigned bodies, beside the first one
+                    t_q, extra["earlier_ms"] = in_turns(run_q, ops_q)
+                    extra["plan"] = gk.fp8_dual_plan(b, k, o, n)
+                else:
+                    t_q = time_ms(run_q, ops_q)
                 delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
                 share = (delta == 1).float().mean().item()
                 if delta.max().item() > 1 or share > REQUANT_SHARE:
                     fail(f"{name} B={b} n={n}: codes off by up to {delta.max().item()} "
                          f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
-                record(name, b, k, o, n, got, want, time_ms(run_q, ops_q),
+                record(name, b, k, o, n, got, want, t_q,
                        time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
                        xbytes + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o, peak=peak,
                        tol=None if fp8 else TOL, off_by_one_share=share,
-                       library="two calls (gate, up) on pre-gathered X")
+                       library="two calls (gate, up) on pre-gathered X", **extra)
                 del ops_q
             del pairs, ops, lib_ops
         torch.cuda.empty_cache()
@@ -1317,7 +1350,11 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
     body at internlm2-1.8b's q and w_out; tile_gemm_dual_fp8's shared body,
     its dense dual stream over 16-row tiles (split at
     FP8_STREAM16_BLOCKS_PER_SM) and over 64-row ones (cluster_split's)
-    and its dual wgmma body at the same two gate-up pairs.  Every body
+    and its dual wgmma body at the same two gate-up pairs; K9 fp8's shared
+    body and its gathered dual stream over 16-row tiles (split at
+    FP8_STREAM16_BLOCKS_PER_SM) at the same two pairs and also at 256 rows,
+    the expert's also at B = 8 (the decode launch of qwen3-moe's spgemm
+    gather path).  Every body
     within TOL of max|plain|; one JSON line per shape names the plan's body
     and tile rows and every body's time (CUDA-graph replays, weights
     rotated as in the kernel phase)."""
@@ -1328,7 +1365,8 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
     from repro_torch.kernels.nm_spmm import kernel as nk
     from repro_torch.kernels.nm_spmm.ref import nm_spmm_dual_quantized_ref
     from repro_torch.kernels.nm_spmm_gather import kernel as gk
-    from repro_torch.kernels.nm_spmm_gather.ref import nm_spmm_gather_quantized_ref
+    from repro_torch.kernels.nm_spmm_gather.ref import (nm_spmm_gather_dual_quantized_ref,
+                                                         nm_spmm_gather_quantized_ref)
     from repro_torch.kernels.tile_gemm import kernel as tk
     from repro_torch.kernels.tile_gemm.kernel import (BODY_CODES, FP8_STREAM16_BLOCKS_PER_SM,
                                                       cluster_split)
@@ -1379,6 +1417,20 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
             return y
         return f
 
+    def gather_dual_call(n, body, bm, split):
+        def f(x, xs, g, u):
+            b, k = x.shape
+            o = g["values"].shape[1]
+            y = torch.empty((b, o), dtype=bf16, device=dev)
+            rc = lib.vg_nm_spmm_gather_dual_bk_fp8(
+                x.data_ptr(), g["values"].data_ptr(), g["gather_idx"].data_ptr(),
+                u["values"].data_ptr(), u["gather_idx"].data_ptr(), xs.data_ptr(),
+                g["ws"].data_ptr(), u["ws"].data_ptr(), None, y.data_ptr(), b, k, o, n, 0, bm,
+                BODY_CODES[body], split, _build.stream_of(x))
+            _build.check(rc, "nm_spmm_gather_dual_bk_fp8", lib)
+            return y
+        return f
+
     def compressed(k, o, n):
         w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
         c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
@@ -1396,8 +1448,8 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
                             quantize=FP8)
         return {**lf, "ws": lf["scale"].reshape(1, -1)}
 
-    def sweep(name, k, o, n, weights, want_of, bodies, plan_of):
-        for b in FP8_SWEEP_ROWS:
+    def sweep(name, k, o, n, weights, want_of, bodies, plan_of, rows=FP8_SWEEP_ROWS):
+        for b in rows:
             x, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16), FP8)
             ops = [(x, xs, *w) for w in weights]
             want = want_of(*ops[0])
@@ -1460,6 +1512,26 @@ def fp8_sweep_phase(cfg, moe_cfg, gen, card_line):
                       x, lf["values"], lf["gather_idx"], xs, lf["ws"], n, out_dtype=bf16),
                   gather_bodies, lambda b, k=k, o=o, n=n: gk.fp8_plan(b, k, o, n))
             del leaves
+    for k, o, rows in ((cfg.d_model, cfg.d_ff, FP8_SWEEP_ROWS + (256,)),
+                       (moe_cfg.d_model, moe_cfg.d_ff, (8,) + FP8_SWEEP_ROWS + (256,))):
+        for n in (2, 1):
+            kc = k * n // 4
+            pairs = [(gathered(k, o, n), gathered(k, o, n))
+                     for _ in range(copies_for(2 * (kc * o + 4 * kc)))]
+
+            def gather_dual_bodies(b, kc=kc, o=o, n=n):
+                split16 = cluster_split((o // 64) * -(-b // 16), kc // 64,
+                                        FP8_STREAM16_BLOCKS_PER_SM)
+                return [(f"shared{_build.block_rows(b)}",
+                         gather_dual_call(n, "shared", _build.block_rows(b), 1)),
+                        ("stream16", gather_dual_call(n, "stream", 16, split16))]
+            sweep("nm_spmm_gather_dual_bk_fp8", k, o, n, pairs,
+                  lambda x, xs, g, u, n=n: nm_spmm_gather_dual_quantized_ref(
+                      x, g["values"], g["gather_idx"], u["values"], u["gather_idx"], n, xs,
+                      g["ws"], u["ws"], out_dtype=bf16),
+                  gather_dual_bodies, lambda b, k=k, o=o, n=n: gk.fp8_dual_plan(b, k, o, n),
+                  rows=rows)
+            del pairs
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -1736,11 +1808,12 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     unmasked kernel runs a body of its own that sums in another order:
     bitwise the masked kernel with every tile live, and within TOL of the
     unmasked one) and within the class's limit of the plain version (int8
-    bitwise).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8 and the bf16
-    tile_gemm_masked run their twins' streams at their twins' plans (K2's,
-    nm_spmm_fp8's, K1's below 256 rows) and are held bitwise to the twin,
-    and are timed in turns with their first (shared) bodies
-    (``earlier_ms``).  Timed beside the
+    bitwise).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
+    tile_gemm_masked and the bf16 nm_spmm_gather_bk_masked run their twins'
+    streams at their twins' plans (K2's, nm_spmm_fp8's, K1's below 256 rows,
+    K8's where it streams) and are held bitwise to the twin, and are timed
+    in turns with their first (shared) bodies (``earlier_ms``).  Timed
+    beside the
     unmasked kernel, the plain version and the class's library call on the
     same masked X (torch.matmul / torch._int_mm / torch._scaled_mm on the
     dense or decompressed weight, the gather's on the pre-gathered X);
@@ -1824,15 +1897,18 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
         def own_body_at(b, k, o, requant=False):
             """Whether the unmasked kernel sums in another order than the
-            masked one: K1 where it runs its wgmma body (from 256 rows), and
-            K8 (bf16, e4m3) and tile_gemm_fp8 where their plans leave the
-            shared body.  The bf16 nm_spmm_masked, nm_spmm_masked_fp8 and the
-            bf16 tile_gemm_masked below 256 rows run their twins' streams at
-            their twins' plans: bitwise the twin."""
+            masked one: K1 where it runs its wgmma body (from 256 rows), the
+            bf16 K8 where its plan's body is not masked_plan's (its wgmma
+            body from 256 rows, its 1:4 stream up to 16 rows), and K8 fp8
+            and tile_gemm_fp8 where their plans leave the shared body.  The
+            bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
+            tile_gemm_masked below 256 rows and the bf16
+            nm_spmm_gather_bk_masked at 2:4 below 256 rows run their twins'
+            streams at their twins' plans: bitwise the twin."""
             if layout == "dense" and qdtype is None:
                 return tk.plan(b, k, o)["body"] == "wgmma"
             if layout == "gather" and qdtype is None:
-                return gk.plan(b, k, o, n)["body"] != "shared"
+                return gk.plan(b, k, o, n)["body"] != gk.masked_plan(b, k, o, n)["body"]
             if layout == "gather" and fp8:
                 return gk.fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
             if layout == "dense" and fp8:
@@ -1888,7 +1964,7 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                     masked_call = (lambda x_, xs_, lf_, maps=maps: call(
                         masked_fn, layout, n, x_, xs_, lf_, maps))
                     if (layout == "compressed" and not int8) or \
-                            (layout == "dense" and qdtype is None):
+                            (layout in ("dense", "gather") and qdtype is None):
                         # the redesigned stream, in turns with its first (shared) body
                         t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
                     else:
@@ -2182,14 +2258,19 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     expert path, the masked single of every expert w_out where it runs its
     twin's stream (bf16 nm_spmm_masked at K2's split, bf16 tile_gemm_masked
     at K1's plan, nm_spmm_masked_fp8 at nm_spmm_fp8's); tile_gemm_dual_fp8
-    (and _requant) on a dense fp8 swiglu model, K11 fp8
-    (nm_spmm_gather_fp8) on a sharded fp8 gather model's two row-parallel
-    sites (their local K), at each of ``rows``."""
+    (and _requant) on a dense fp8 swiglu model, K9 fp8
+    (nm_spmm_gather_dual_bk_fp8 and _requant) on an fp8 gather swiglu model
+    (an MoE's expert gate-up), the bf16 nm_spmm_gather_bk_masked at K8's
+    plan on the spgemm gather path's w_out, K11 fp8 (nm_spmm_gather_fp8) on
+    a sharded fp8 gather model's two row-parallel sites (their local K), at
+    each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
     from repro_torch.kernels.nm_spmm.kernel import fp8_plan as nm_fp8_plan
     from repro_torch.kernels.nm_spmm.kernel import split_k
+    from repro_torch.kernels.nm_spmm_gather.kernel import fp8_dual_plan as gather_fp8_dual_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_plan
 
     spgemm = bool(cfg.num_experts) and cfg.moe_expert_path == "spgemm" and mesh == 1
@@ -2197,6 +2278,17 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     if spgemm and layout == "dense" and qdtype is None:
         return {"tile_gemm_masked": {f"B={b} K={k} O={o}": masked_plan(b, k, o)
                                      for b in rows[:2]}}
+    if spgemm and layout == "gather" and qdtype is None:
+        n = sparsity[0]
+        return {"nm_spmm_gather_bk_masked": {
+            f"B={b} K={k} O={o}": gather_masked_plan(b, k, o, n) for b in rows[:2]}}
+    if layout == "gather" and qdtype == "fp8" and mesh == 1 and cfg.act == "swiglu":
+        n = sparsity[0]
+        # one plan for both forms (bf16 / fp32 and the requantized codes)
+        return {"nm_spmm_gather_dual_bk_fp8": {
+            f"B={b} K={cfg.d_model} O={cfg.d_ff}": gather_fp8_dual_plan(b, cfg.d_model,
+                                                                         cfg.d_ff, n)
+            for b in rows}}
     if spgemm and layout == "compressed" and qdtype == "fp8":
         n = sparsity[0]
         return {"nm_spmm_masked_fp8": {
@@ -3498,12 +3590,14 @@ def main():
         log(f"[{res['layout']}] phase {time.perf_counter() - t0:.1f}s")
     log(f"serving phase {time.perf_counter() - t_serving:.1f}s")
     # the decode steps that run the float nm_spmm_dual, the bf16 nm_spmm_masked,
-    # the bf16 tile_gemm_masked and nm_spmm_masked_fp8
+    # the bf16 tile_gemm_masked, nm_spmm_masked_fp8, the bf16
+    # nm_spmm_gather_bk_masked and K9 fp8
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
             if res["layout"] in ("2:4", "1:4", "moe-spgemm/2:4", "moe-spgemm/dense",
-                                 "moe-spgemm/2:4/fp8")}
+                                 "moe-spgemm/2:4/fp8", "moe-spgemm/gather-2:4",
+                                 "moe-spgemm/gather-2:4/fp8")}
     log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, qwen3-moe spgemm bf16 "
-        f"2:4, bf16 dense, fp8 2:4): {json.dumps(busy)}")
+        f"2:4, bf16 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4): {json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3561,13 +3655,16 @@ def main():
               "nm_spmm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "tile_gemm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
+              "nm_spmm_gather_bk_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),
               "nm_spmm_gather_bk_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"],
                                         SOURCES["tile_gemm_fp8"]),
               **{name: (SOURCES["nm_spmm_fp8"], SOURCES["fp8"])
                  for name in ("nm_spmm_dual_fp8", "nm_spmm_dual_fp8_requant",
-                              "tile_gemm_dual_fp8_requant", "nm_spmm_gather_fp8")},
+                              "tile_gemm_dual_fp8_requant", "nm_spmm_gather_fp8",
+                              "nm_spmm_gather_dual_bk_fp8",
+                              "nm_spmm_gather_dual_bk_fp8_requant")},
               "tile_gemm_dual_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["tile_gemm_fp8"])}
     for name, n, shapes in kernel_rows:
         tot = layer_decode(rows, name, n, 8, shapes)

@@ -47,7 +47,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_masked": (_P,) * 5 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_masked": (_P,) * 6 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_masked_tiled": (_P,) * 6 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_bk_masked": (_P,) * 6 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_dual": (_P,) * 4 + (_I,) * 7 + (_P,),
         "vg_tile_gemm_dual_tiled": (_P,) * 4 + (_I,) * 4 + (_P,),
         "vg_nm_spmm": (_P,) * 5 + (_I,) * 8 + (_P,),
@@ -83,7 +83,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_dual_fp8_tiled": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_fp8": (_P,) * 8 + (_I,) * 10 + (_P, _P),
         "vg_nm_spmm_gather_bk_fp8_tiled": (_P,) * 8 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),

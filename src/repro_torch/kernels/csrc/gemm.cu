@@ -85,13 +85,14 @@
 // forms the port ran first, as yardsticks.  nm_spmm_dual at n in {1, 2}
 // runs the stream's compressed dual form where nm_spmm/kernel.py::dual_plan
 // picks it, the bf16 nm_spmm_masked at n in {1, 2} the stream's MASKED
-// form, and the bf16 tile_gemm_masked below 256 rows K1's stream in MASKED
-// form (vg_nm_spmm_dual_tiled and vg_nm_spmm_masked_tiled keep their
-// shared bodies as yardsticks; vg_tile_gemm_masked reaches its own at
-// body 0, split 1).
-// nm_spmm and nm_spmm_dual at n = 4, nm_spmm_masked at n = 4,
-// tile_gemm_masked from 256 rows, nm_spmm_gather_bk_masked, K8 and K9 at n
-// = 4 and K11 stay on the shared body.
+// form, the bf16 tile_gemm_masked below 256 rows K1's stream in MASKED
+// form, and the bf16 nm_spmm_gather_bk_masked at 2:4 K8's gathered stream
+// in MASKED form wherever K8 streams (vg_nm_spmm_dual_tiled and
+// vg_nm_spmm_masked_tiled keep their shared bodies as yardsticks;
+// vg_tile_gemm_masked and vg_nm_spmm_gather_bk_masked reach theirs at body
+// 0, split 1).  nm_spmm and nm_spmm_dual at n = 4, nm_spmm_masked at n = 4,
+// tile_gemm_masked from 256 rows, nm_spmm_gather_bk_masked where K8 leaves
+// the stream, K8 and K9 at n = 4 and K11 stay on the shared body.
 //
 // N:M weights.  The loader reads the values tile (64*n/4 rows) and the
 // packed meta tile (64*n/16 rows, four 2-bit in-block indices per byte,
@@ -875,8 +876,8 @@ int vg_nm_spmm_gather_bk(const void* x, const void* values, const void* idx, con
                                 o, act, stream, out_f32);
   }
   if (body == 1 && bn == 64)
-    return sp::launch_gather(n, bm, x, values, idx, bias, y, b, k, o, act, out_f32, split,
-                             stream);
+    return sp::launch_gather(n, bm, x, values, idx, nullptr, bias, y, b, k, o, act, out_f32,
+                             split, stream);
   if (body == 2 && bm == tg::BM && split == 1)
     return gather_then_k1(n, bn, x, values, idx, scratch, bias, y, b, k, o, act, out_f32,
                           stream);
@@ -899,9 +900,20 @@ int vg_nm_spmm_gather(const void* x_t, const void* values, const void* idx, void
                                            nullptr, y_t, b, k, o, ACT_NONE, stream, out_f32);
 }
 
+// k is K_eff.  nm_spmm_gather/kernel.py::masked_plan's body: 1, K8's stream
+// over the values with the gathered X (nm_spmm_sp.cuh, G = 2, MASKED; n = 2,
+// bm 16 | 64) walking the live steps of each block's span, K_c split over
+// `split` blocks of a cluster (K8's split: bitwise vg_nm_spmm_gather_bk on
+// the same masked X); 0, the shared body (any n, bm 16 | 64), split 1
 int vg_nm_spmm_gather_bk_masked(const void* x, const void* values, const void* idx,
                                 const void* kmask, const void* bias, void* y, int b, int k,
-                                int o, int n, int act, int bm, void* stream) {
+                                int o, int n, int act, int bm, int body, int split,
+                                void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1)
+    return sp::launch_gather(n, bm, x, values, idx, kmask, bias, y, b, k, o, act, 0, split,
+                             stream);
+  if (body != 0 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, bias, y, b,
                                     k, o, act, stream);
 }

@@ -45,10 +45,13 @@
 // its requantizing form) at n in {1, 2} runs the same two with the X side
 // gathered, as nm_spmm_gather/kernel.py::fp8_plan picks: the stream with a
 // select pass over the step's span, or the gather pass below
-// (gather_then_wgmma) in front of the wgmma body; and K11 fp8
+// (gather_then_wgmma) in front of the wgmma body; nm_spmm_gather_dual_bk_fp8
+// (K9 fp8, with its requantizing form) at n in {1, 2} the stream's gathered
+// DUAL form (one span a step selected twice) where
+// nm_spmm_gather/kernel.py::fp8_dual_plan picks it; and K11 fp8
 // (nm_spmm_gather_fp8) at n in {1, 2} the stream with a K-major X stage, as
 // nm_spmm_gather/kernel.py::kmajor_fp8_plan picks.  Each is flushed by
-// SingleFlushT / DualFlush below in the same order as this file's body.
+// SingleFlushT / DualFlushT below in the same order as this file's body.
 // nm_spmm_masked_fp8 at n in {1, 2} runs nm_spmm_fp8's sparse stream in
 // MASKED form (each block walking the live steps of its span) wherever
 // fp8_plan gives nm_spmm_fp8 that stream, and the shared body where it
@@ -56,8 +59,8 @@
 // vg_nm_spmm_dual_fp8_tiled, vg_nm_spmm_gather_bk_fp8_tiled,
 // vg_tile_gemm_dual_fp8_tiled and vg_nm_spmm_gather_fp8_tiled keep the
 // shared body for them, the forms the port ran first, as yardsticks
-// (vg_nm_spmm_masked_fp8 reaches its own at body 0, split 1); the other
-// masked kernels stay on it.
+// (vg_nm_spmm_masked_fp8 and vg_nm_spmm_gather_dual_bk_fp8 reach theirs at
+// body 0, split 1); the other masked kernels stay on it.
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -519,12 +522,14 @@ struct SingleFlushT {
 using SingleFlush = SingleFlushT<false>;
 
 // The flush of the gate-up duals (nm_spmm_sp_fp8.cuh's DUAL stream, the
-// compressed and the dense; tile_gemm_sm90_fp8.cuh's DUAL body) from both
-// summed fp32 accumulators, in gemm_fp8_kernel's order: t_g = acc_g * xs *
-// wsg, t_u = acc_u * xs * wsu, silu(t_g) * t_u, then bf16, fp32 or the e4m3
-// code against *rq.  The wgmma body forms value() in registers and stores
-// four channels with store4 (bf16 or fp32: it never takes the requant).
-struct DualFlush {
+// compressed, the dense and the gathered; tile_gemm_sm90_fp8.cuh's DUAL
+// body) from both summed fp32 accumulators, in gemm_fp8_kernel's order: t_g
+// = acc_g * xs * wsg, t_u = acc_u * xs * wsu (WS_FIRST, the gather kernels':
+// acc * ws * xs), silu(t_g) * t_u, then bf16, fp32 or the e4m3 code against
+// *rq.  The wgmma body forms value() in registers and stores four channels
+// with store4 (bf16 or fp32: it never takes the requant).
+template <bool WS_FIRST>
+struct DualFlushT {
   const float* xs;
   const float* wsg;
   const float* wsu;
@@ -534,7 +539,8 @@ struct DualFlush {
 
   __device__ __forceinline__ float value(int row, int col, float acc_g, float acc_u) const {
     const float xr = xs[row];
-    return silu(dequant(acc_g, xr, wsg[col])) * dequant(acc_u, xr, wsu[col]);
+    return silu(dequant_in_order<WS_FIRST>(acc_g, xr, wsg[col])) *
+           dequant_in_order<WS_FIRST>(acc_u, xr, wsu[col]);
   }
   __device__ __forceinline__ void operator()(int row, int col, const float (&acc)[2]) const {
     store_out(y, (size_t)row * o + col, value(row, col, acc[0], acc[1]), out_kind,
@@ -553,6 +559,7 @@ struct DualFlush {
     }
   }
 };
+using DualFlush = DualFlushT<false>;
 
 template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
@@ -717,14 +724,15 @@ bool single_flush(const void* xs, const void* ws, const void* bias, const void* 
 
 // ... and of the dual's (all three scales; bf16, fp32 or the requantized
 // store, which alone reads the consumer's scale)
-inline bool dual_flush(const void* xs, const void* wsg, const void* wsu, const void* rq, void* y,
-                       int o, int out_kind, DualFlush& flush) {
+template <bool WS_FIRST>
+bool dual_flush(const void* xs, const void* wsg, const void* wsu, const void* rq, void* y,
+                int o, int out_kind, DualFlushT<WS_FIRST>& flush) {
   if (out_kind < 0 || out_kind > 3 || out_kind == OUT_RAW || xs == nullptr || wsg == nullptr ||
       wsu == nullptr || (out_kind == OUT_E4M3) != (rq != nullptr))
     return false;
-  flush = DualFlush{static_cast<const float*>(xs), static_cast<const float*>(wsg),
-                    static_cast<const float*>(wsu), static_cast<const float*>(rq), y, o,
-                    out_kind};
+  flush = DualFlushT<WS_FIRST>{static_cast<const float*>(xs), static_cast<const float*>(wsg),
+                               static_cast<const float*>(wsu), static_cast<const float*>(rq), y,
+                               o, out_kind};
   return true;
 }
 
@@ -1115,14 +1123,28 @@ int vg_nm_spmm_gather_bk_masked_fp8(const void* x, const void* values, const voi
                                     nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
+// k is K_eff.  nm_spmm_gather/kernel.py::fp8_dual_plan's body: 1, the e4m3
+// stream over both values with one span a step selected twice
+// (nm_spmm_sp_fp8.cuh, G = n, DUAL; n in {1, 2}, bm 16), K_c split over
+// `split` blocks of a cluster, flushed by DualFlushT<true> (the gather
+// order, acc * ws * xs); 0, the shared body (any n; bm 16 | 64, split 1).
+// out_kind 0 | 1 | 3 (no raw accumulator).
 int vg_nm_spmm_gather_dual_bk_fp8(const void* x, const void* values_g, const void* idx_g,
                                   const void* values_u, const void* idx_u, const void* xs,
                                   const void* wsg, const void* wsu, const void* rq, void* y,
-                                  int b, int k, int o, int n, int out_kind, int bm,
-                                  void* stream) {
+                                  int b, int k, int o, int n, int out_kind, int bm, int body,
+                                  int split, void* stream) {
   if (out_kind == OUT_RAW) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, xs, wsg, wsu,
-                             nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, xs, wsg,
+                               wsu, nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  }
+  DualFlushT<true> flush;
+  if (body != 1 || (n != 1 && n != 2) || !dual_flush(xs, wsg, wsu, rq, y, o, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_gather_dual(n, bm, x, values_g, idx_g, values_u, idx_u, flush, b, k, o,
+                                  split, stream);
 }
 
 // K11: x_t (k, b) K-major -> y_t (o, b), b a multiple of 16; xs (1, b) and

@@ -1,14 +1,16 @@
 // nm_spmm on Hopper's sparse tensor cores: the float single at n in {1, 2},
 // and with the activation-sparsity skip (MASKED) the bf16 nm_spmm_masked;
 // and the same streaming body over a dense weight (N = 4): K1's few-row
-// tile_gemm (with MASKED, the bf16 tile_gemm_masked's), and, with the X side gathered (G = n in {1, 2}), K8's few-row
-// nm_spmm_gather_bk over its dense values; in DUAL form (two weights, two
+// tile_gemm (with MASKED, the bf16 tile_gemm_masked's), and, with the X
+// side gathered (G = n in {1, 2}), K8's few-row nm_spmm_gather_bk over its
+// dense values (with MASKED, the bf16 nm_spmm_gather_bk_masked's); in DUAL
+// form (two weights, two
 // accumulators, one silu(g) * u flush) the float gate-up duals' few-row
 // tile_gemm_dual and nm_spmm_gather_dual_bk (K9), and the compressed
 // nm_spmm_dual at n in {1, 2}.  Included by gemm.cu, whose vg_nm_spmm,
 // vg_nm_spmm_masked, vg_nm_spmm_dual, vg_tile_gemm, vg_tile_gemm_masked,
-// vg_nm_spmm_gather_bk, vg_tile_gemm_dual and vg_nm_spmm_gather_dual_bk
-// launch it; every other
+// vg_nm_spmm_gather_bk, vg_nm_spmm_gather_bk_masked, vg_tile_gemm_dual and
+// vg_nm_spmm_gather_dual_bk launch it; every other
 // GEMM of gemm.cu keeps the shared gemm_kernel body, and the many-row
 // bodies of K1, K8 and the dense and gathered duals are tile_gemm_sm90.cuh's.
 //
@@ -35,6 +37,9 @@
 //              (_spmm_masked_kernel), float, n in {1, 2}
 //   tile_gemm_masked  repro/kernels/tile_gemm/kernel.py::tile_gemm_masked
 //              (_gemm_masked_kernel), bf16, below 256 rows (where K1 streams)
+//   nm_spmm_gather_bk_masked  repro/kernels/nm_spmm_gather/kernel.py::
+//              nm_spmm_gather_bk_masked (_gather_bk_masked_kernel), bf16, 2:4,
+//              where K8 streams (nm_spmm_gather/kernel.py::masked_plan)
 //
 // Y (B, O) = X (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16, O)).
 // The TPU kernel decompresses each tile with a compare-and-select and
@@ -118,13 +123,17 @@
 // bytes (+ indices or meta) + X once, over 3.35 TB/s.
 //
 // The masked single (MASKED: nm_spmm_masked at N in {1, 2},
-// tile_gemm_masked over the dense weight at N = 4).  Each block keeps the span
+// tile_gemm_masked over the dense weight at N = 4, nm_spmm_gather_bk_masked
+// over it with the gathered X: a kmask column is one step of 64 compressed
+// rows, the stage's 256 / G span, so a dead step's span is neither loaded
+// nor selected).  Each block keeps the span
 // splitk::span gives the unmasked kernel over all K steps and walks only
 // its live steps (kmask.cuh's bitmask of the row block's map row): a dead
 // step is neither loaded, prefetched nor multiplied.  A dead tile of the
 // masked X would add exact zeros, so the partition and the order of the
 // sums are the unmasked kernel's: bitwise nm_spmm (K1 at N = 4) on the
-// same masked X at the same split.  A rank with no live step in its span walks none and
+// same masked X at the same split (K8 for the gathered X).  A rank with no
+// live step in its span walks none and
 // still stores its zero partial into the owners' inboxes and meets the
 // cluster barrier; a row block with no live step flushes bias and
 // activation of zero.  Bound: the live steps' weight and X bytes.
@@ -220,8 +229,9 @@ __device__ __forceinline__ uint32_t pair_1of4(uint32_t v, uint32_t i) {
 // k: the contraction (K, or K_c for the gathered X, whose `meta` is the
 // int32 index and whose X rows are K_eff = k * 4 / G wide).  DUAL: v2 and
 // meta2 are the up weight's (v, meta the gate's), the flush silu(g) * u.
-// MASKED (a single at G = 0): kmask is block_maps' (row blocks, k / 64)
-// map; the block walks the live steps of its span only.
+// MASKED (a single): kmask is block_maps' (row blocks, k / 64) map (k / 64
+// steps of 64 weight rows: K / 64, or K_c / 64 for the gathered X, each
+// 256 / G X columns); the block walks the live steps of its span only.
 template <int N, int BM, int G = 0, bool DUAL = false, bool MASKED = false>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ v,
@@ -230,7 +240,7 @@ nm_spmm_sp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                   const float* __restrict__ bias, void* __restrict__ y, int b, int k, int o,
                   int act, int out_f32, int split) {
   using L = Layout<N, BM, G, DUAL>;
-  static_assert(!MASKED || (G == 0 && !DUAL), "the masked stream is a single, X contiguous");
+  static_assert(!MASKED || !DUAL, "the masked stream is a single");
   constexpr int NW = L::NW;
   constexpr int NXT = (DUAL && G != 0) ? 2 : 1;  // X tiles the products read (gathered dual: 2)
   constexpr int WN = BM == 16 ? 1 : 2;         // warps along the batch rows
@@ -530,24 +540,33 @@ inline int launch_nm(int n, int bm, const void* x, const void* v, const void* me
 
 // K8's few-row body: X (b, ke) gathered at n in {1, 2} through idx (K_c =
 // ke * n / 4 int32) against values (K_c, O) as a dense weight; bm in {16,
-// 64}, split a power of two up to min(8, K_c / 64)
+// 64}, split a power of two up to min(8, K_c / 64); kmask: the masked
+// single (nm_spmm_gather_bk_masked, bf16 out, n = 2: where
+// nm_spmm_gather/kernel.py::masked_plan streams) with block_maps' (ceil(b /
+// bm), K_c / 64) map, else nullptr
 inline int launch_gather(int n, int bm, const void* x, const void* values, const void* idx,
-                         const void* bias, void* y, int b, int ke, int o, int act, int out_f32,
-                         int split, void* stream) {
+                         const void* kmask, const void* bias, void* y, int b, int ke, int o,
+                         int act, int out_f32, int split, void* stream) {
   const int kc = ke * n / 4;
   if (b <= 0 || ke <= 0 || o <= 0 || (ke * n) % 4 != 0 || kc % BKS != 0 || o % BO != 0 ||
       act < 0 || act > 2 || out_f32 < 0 || out_f32 > 1 || !splitk::split_ok(split, kc / BKS) ||
-      (b + bm - 1) / bm > 65535)
+      (b + bm - 1) / bm > 65535 ||
+      (kmask != nullptr && (n != 2 || out_f32 != 0 || kc / BKS > MAX_K_STEPS)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
-#define VG_SP_GATHER(GG, BB) \
-  return launch<4, BB, GG>(x, values, idx, nullptr, nullptr, nullptr, bf, y, b, kc, o, act, \
-                           out_f32, split, s)
-  if (n == 2 && bm == 16) VG_SP_GATHER(2, 16);
-  if (n == 2 && bm == 64) VG_SP_GATHER(2, 64);
-  if (n == 1 && bm == 16) VG_SP_GATHER(1, 16);
-  if (n == 1 && bm == 64) VG_SP_GATHER(1, 64);
+#define VG_SP_GATHER(GG, BB, MM)                                                               \
+  return launch<4, BB, GG, false, MM>(x, values, idx, nullptr, nullptr, kmask, bf, y, b, kc, o, \
+                                      act, out_f32, split, s)
+  if (kmask != nullptr) {
+    if (n == 2 && bm == 16) VG_SP_GATHER(2, 16, true);
+    if (n == 2 && bm == 64) VG_SP_GATHER(2, 64, true);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 2 && bm == 16) VG_SP_GATHER(2, 16, false);
+  if (n == 2 && bm == 64) VG_SP_GATHER(2, 64, false);
+  if (n == 1 && bm == 16) VG_SP_GATHER(1, 16, false);
+  if (n == 1 && bm == 64) VG_SP_GATHER(1, 64, false);
 #undef VG_SP_GATHER
   return static_cast<int>(cudaErrorInvalidValue);
 }

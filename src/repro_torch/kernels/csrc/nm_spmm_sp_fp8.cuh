@@ -8,17 +8,19 @@
 // over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body, in DUAL
 // form the dense gate-up tile_gemm_dual_fp8's (and _requant's) and, with
 // the X side gathered (G = n in {1, 2}), the fp8 lane-aligned gather K8's
-// (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values;
+// (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values,
+// and in DUAL form K9 fp8's (nm_spmm_gather_dual_bk_fp8 and _requant);
 // with the X side gathered from K-major x_t (KM), K11 fp8's
 // (nm_spmm_gather_fp8).  Included by gemm_fp8.cu, whose vg_nm_spmm_fp8,
 // vg_nm_spmm_masked_fp8, vg_tile_gemm_fp8, vg_nm_spmm_dual_fp8,
-// vg_tile_gemm_dual_fp8, vg_nm_spmm_gather_bk_fp8 and vg_nm_spmm_gather_fp8
-// launch it with their flush where nm_spmm/kernel.py::fp8_plan (for both
-// singles), tile_gemm/kernel.py::fp8_plan,
-// nm_spmm/kernel.py::fp8_dual_plan, tile_gemm/kernel.py::fp8_dual_plan,
-// nm_spmm_gather/kernel.py::fp8_plan and ::kmajor_fp8_plan pick it; n = 4
-// of the compressed and gathered kernels, wider launches, K9 fp8, the
-// other masked singles and the int8 twins keep gemm_fp8.cu's / gemm_int8.cu's
+// vg_tile_gemm_dual_fp8, vg_nm_spmm_gather_bk_fp8,
+// vg_nm_spmm_gather_dual_bk_fp8 and vg_nm_spmm_gather_fp8 launch it with
+// their flush where nm_spmm/kernel.py::fp8_plan (for both singles),
+// tile_gemm/kernel.py::fp8_plan, nm_spmm/kernel.py::fp8_dual_plan,
+// tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
+// ::fp8_dual_plan and ::kmajor_fp8_plan pick it; n = 4 of the compressed
+// and gathered kernels, wider launches, the other masked singles and the
+// int8 twins keep gemm_fp8.cu's / gemm_int8.cu's
 // shared bodies, and the many-row bodies of tile_gemm_fp8 (of K8, after
 // gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
 // tile_gemm_sm90_fp8.cuh's.
@@ -45,6 +47,11 @@
 //   nm_spmm_masked_fp8  repro/kernels/nm_spmm/kernel.py::nm_spmm_masked
 //                  (_spmm_masked_kernel), scaled-quantized fp8, n in {1, 2}, where
 //                  nm_spmm/kernel.py::fp8_plan streams
+//   nm_spmm_gather_dual_bk_fp8  repro/kernels/nm_spmm_gather/kernel.py::
+//                  nm_spmm_gather_dual_bk, fp8 branch (_gather_dual_kernel), n in
+//                  {1, 2}, with the requant:float8_e4m3fn flush of
+//                  repro/kernels/epilogue.py::flush_tile in its _requant form, where
+//                  nm_spmm_gather/kernel.py::fp8_dual_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -180,6 +187,19 @@
 // kernel's compare-and-select does), one more block barrier, then the same
 // products.  Its flush is the gather kernels' order, acc * ws * xs
 // (SingleFlushT<true>).  Bound: values + index + X bytes over 3.35 TB/s.
+//
+// The gathered dual (G = n with DUAL, K9 fp8).  A stage carries both dense
+// e4m3 values tiles, both int32 index slices and ONE span of 256 / G X
+// bytes a row; the select pass reads each unit's span words once and
+// selects them twice (select16 through each weight's indices) into two
+// compact tiles, one more block barrier, then the dense dual's products:
+// each warp's B registers of both tiles, each weight's A registers from its
+// own landed values tile, two accumulator sets, the split's planes summed
+// in rank order, and the flush DualFlushT<true>: the gather kernels' ws-first
+// order on each accumulator, t = acc * ws * xs, then silu(t_g) * t_u and
+// bf16, fp32 or the e4m3 codes.  16-row tiles only (fp8_dual_plan's), a
+// 4-deep ring: ~54 KB a block at 2:4, ~62 KB at 1:4, three blocks an SM.
+// Bound: both weights' bytes and indices + X once, over 3.35 TB/s.
 
 #pragma once
 
@@ -235,25 +255,28 @@ __device__ __forceinline__ uint4 select16(const uint32_t (&wd)[16 / G], const in
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// A stage is [values (gate)][values (up)][meta (gate)][meta (up)][indices]
-// [X], the up tiles for a DUAL only, the indices for a gathered X only
-// (whose X is the step's span of 256 / G bytes a row).  KM, the K-major
+// A stage is [values (gate)][values (up)][meta (gate)][meta (up)][indices
+// (gate)][indices (up)][X], the up tiles for a DUAL only, the indices for a
+// gathered X only (whose X is the step's span of 256 / G bytes a row, one
+// span for both weights of a dual).  KM, the K-major
 // gathered X (K11): no indices a stage (the block's span of them sits
 // after the compact X tile, loaded once), X is the step's 64 selected x_t
 // rows of BM batch bytes, [64][BM] in 16-byte slots (kslot).
 template <int N, int BM, int G = 0, bool DUAL = false, bool KM = false>
 struct Layout {
   static_assert(N == 1 || N == 2 || N == 4, "the streaming body takes 1:4, 2:4 and dense");
-  static_assert(G == 0 || (N == 4 && (G == 1 || G == 2) && !DUAL),
-                "the gathered X (1:4 | 2:4) streams against one dense values tile");
-  static_assert(!KM || G != 0, "the K-major X is a gathered X");
+  static_assert(G == 0 || (N == 4 && (G == 1 || G == 2)),
+                "the gathered X (1:4 | 2:4) streams against dense values tiles");
+  static_assert(!KM || (G != 0 && !DUAL), "the K-major X is a single's gathered X");
   static constexpr int NW = DUAL ? 2 : 1;        // weights a stage (gate, up)
   // the dense weight (N = 4) gives its A operand straight from the landed
   // tile (ldmatrix .trans + __byte_perm): the tile unpadded, its 16-byte
   // chunks swizzled (vslot), no private transposed tiles
   static constexpr int VP = N == 4 ? BO : VLD;   // byte pitch of the values tile
   // the dense dual's 16-row ring is 4 deep (~45 KB a block; 6 stages timed
-  // the same at decode and slower at three blocks an SM on an H100)
+  // the same at decode and slower at three blocks an SM on an H100), and so
+  // is the gathered dual's (~54 KB at 2:4, ~62 KB at 1:4: three blocks an
+  // SM; 6 stages at 1:4 would leave two)
   static constexpr int STAGES = BM == 16 ? (N == 4 && DUAL ? 4 : 6) : 4;
   static constexpr int WN = BM == 16 ? 1 : 2;    // warps along the batch rows
   static constexpr int WM = 4 / WN;              // warps along the channels
@@ -264,7 +287,7 @@ struct Layout {
   static constexpr int TLD = 48;   // byte pitch of a warp's transposed A tile: 32 kept bytes + 16
   static constexpr int V_BYTES = VROWS * VP;                   // one weight's values tile
   static constexpr int M_BYTES = MROWS * BO;                   // one weight's meta tile
-  static constexpr int I_BYTES = G && !KM ? BKS * 4 : 0;       // the step's int32 indices
+  static constexpr int I_BYTES = G && !KM ? NW * BKS * 4 : 0;  // the step's int32 indices
   static constexpr int SPAN = G ? 256 / G : BKS;               // X bytes a row a stage
   static constexpr int SLD = SPAN + 16;                        // byte pitch of the X rows
   static constexpr int X_BYTES = KM ? BKS * BM : BM * SLD;
@@ -276,7 +299,7 @@ struct Layout {
   static constexpr int RING = STAGES * STAGE > PART ? STAGES * STAGE : PART;
   static constexpr int T_WARP = N == 4 ? 0 : NW * MT * 16 * TLD;   // a warp's transposed A tiles
   static constexpr int T_BYTES = 4 * T_WARP;
-  static constexpr int COMPACT = G ? BM * XLD : 0;             // the selected X tile (gather)
+  static constexpr int COMPACT = G ? NW * BM * XLD : 0;        // the selected X tiles (gather)
   static constexpr int INBOX = NW * BM * BO * 4;  // the peers' partial slices (split > 1 only)
   // the K-major X's indices of a block's span: its most steps (split blocks
   // over nk steps) x 64 int32
@@ -422,10 +445,13 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
                    live ? 16 : 0);
       }
     } else if constexpr (G != 0) {
-      // the step's indices, and the X span they select from (ke = k * 4 / G)
-      if (tid < BKS / 4)
-        cp_async16(base + L::I_AT + 16 * tid, reinterpret_cast<const int*>(meta) + s * BKS +
-                                                  4 * tid, 16);
+      // the step's indices (each weight's), and the X span they select from
+      // (ke = k * 4 / G): one span for both weights of a dual
+      if (tid < NW * BKS / 4) {
+        const int w = tid / (BKS / 4), q = tid % (BKS / 4);
+        cp_async16(base + L::I_AT + w * BKS * 4 + 16 * q,
+                   reinterpret_cast<const int*>(w ? meta2 : meta) + s * BKS + 4 * q, 16);
+      }
       constexpr int CPR = L::SPAN / 16;            // 16-byte chunks of a span row
 #pragma unroll
       for (int c = tid; c < BM * CPR; c += NT) {
@@ -455,9 +481,12 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
       for (int j = 0; j < NJ; ++j)
         acc[w][mt][j][0] = acc[w][mt][j][1] = acc[w][mt][j][2] = acc[w][mt][j][3] = 0.f;
 
+  // X tiles the products read: a gathered dual's two compact tiles, else one
+  constexpr int NXT = (DUAL && G != 0) ? 2 : 1;
   auto compute = [&](int st) {
     const uint8_t* base = smem + st * L::STAGE;
-    const uint8_t* xt = base + L::X_AT;
+    const uint8_t* xt[NXT];
+    xt[0] = base + L::X_AT;
     if constexpr (KM) {
       // the transpose pass: unit u = (chunk u / 64, K block q = (u / 4) % 16,
       // word w = u % 4) turns the 4 x 4 byte block (compressed rows 4q .. + 3,
@@ -469,23 +498,26 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
         const int w = u & 3, q = (u >> 2) & 15, ch = u >> 6;
         uint32_t wd[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) wd[r] = lds32(xt + 16 * kslot<CPR>(4 * q + r, ch) + 4 * w);
+        for (int r = 0; r < 4; ++r)
+          wd[r] = lds32(xt[0] + 16 * kslot<CPR>(4 * q + r, ch) + 4 * w);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           *reinterpret_cast<uint32_t*>(compact + (16 * ch + 4 * w + j) * XLD + 4 * q) =
               gather_byte(wd[0], wd[1], wd[2], wd[3], j);
       }
       __syncthreads();
-      xt = compact;
+      xt[0] = compact;
     } else if constexpr (G != 0) {
       // the select pass: unit u = (row u / 4, compressed columns 16 (u % 4)
       // .. + 15) of the compact tile, one 16-byte store from the words of
-      // its M-blocks (2:4: 32 span bytes, 1:4: 64)
+      // its M-blocks (2:4: 32 span bytes, 1:4: 64).  A dual reads the unit's
+      // span words once and selects twice, through each weight's indices,
+      // into two compact tiles.
       const int* is = reinterpret_cast<const int*>(base + L::I_AT);
 #pragma unroll
       for (int u = tid; u < BM * 4; u += NT) {
         const int r = u >> 2, j0 = (u & 3) * 16;
-        const uint4* row = reinterpret_cast<const uint4*>(xt + r * L::SLD + j0 / G * 4);
+        const uint4* row = reinterpret_cast<const uint4*>(xt[0] + r * L::SLD + j0 / G * 4);
         uint32_t wd[16 / G];
 #pragma unroll
         for (int c = 0; c < 4 / G; ++c) {
@@ -495,25 +527,31 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
           wd[4 * c + 2] = q.z;
           wd[4 * c + 3] = q.w;
         }
-        int e[16];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int4 q = reinterpret_cast<const int4*>(is + j0)[c];
-          e[4 * c] = q.x;
-          e[4 * c + 1] = q.y;
-          e[4 * c + 2] = q.z;
-          e[4 * c + 3] = q.w;
+        for (int w = 0; w < NW; ++w) {
+          int e[16];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int4 q = reinterpret_cast<const int4*>(is + w * BKS + j0)[c];
+            e[4 * c] = q.x;
+            e[4 * c + 1] = q.y;
+            e[4 * c + 2] = q.z;
+            e[4 * c + 3] = q.w;
+          }
+          *reinterpret_cast<uint4*>(compact + w * BM * XLD + r * XLD + j0) = select16<G>(wd, e);
         }
-        *reinterpret_cast<uint4*>(compact + r * XLD + j0) = select16<G>(wd, e);
       }
       __syncthreads();
-      xt = compact;
-    }
-    uint32_t bf[NJ][4];    // X rows r0 + 8j .. + 7 at K bytes 0 .. 63
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
-        ldsm_x4(bf[j], xt + (r0 + j * 8 + (lane & 7)) * XLD + (lane >> 3) * 16);
+      for (int ti = 0; ti < NXT; ++ti) xt[ti] = compact + ti * BM * XLD;
+    }
+    uint32_t bf[NXT][NJ][4];    // X rows r0 + 8j .. + 7 at K bytes 0 .. 63, each X tile
+#pragma unroll
+    for (int ti = 0; ti < NXT; ++ti)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (r0 + j * 8 < rows)   // warp-uniform: n8 tiles wholly past B are skipped
+          ldsm_x4(bf[ti][j], xt[ti] + (r0 + j * 8 + (lane & 7)) * XLD + (lane >> 3) * 16);
     if constexpr (N == 4) {
       // The dense A operand from the landed tile.  ldmatrix .trans on b16
       // gives lane 4g + t, from a matrix of eight K rows (row i's address
@@ -529,6 +567,8 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
         const uint8_t* vs = base + w * L::V_BYTES;
+        // a gathered dual's up weight reads its own compact X
+        const uint32_t(&bx)[NJ][4] = bf[NXT == 2 ? w : 0];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const int jc = (ch0 + mt * 16) >> 4;   // the warp tile's 16-channel chunk
@@ -547,8 +587,8 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
             if (r0 + j * 8 < rows) {
               // the 64-deep partial sum (two k32 instructions), promoted into fp32
               float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_e4m3(part, a[0], bf[j][0], bf[j][1]);
-              mma_e4m3(part, a[1], bf[j][2], bf[j][3]);
+              mma_e4m3(part, a[0], bx[j][0], bx[j][1]);
+              mma_e4m3(part, a[1], bx[j][2], bx[j][3]);
 #pragma unroll
               for (int e = 0; e < 4; ++e) acc[w][mt][j][e] = __fadd_rn(acc[w][mt][j][e], part[e]);
             }
@@ -630,7 +670,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
             if (r0 + j * 8 < rows) {
               // the 64-deep partial sum on the tensor cores, promoted into fp32
               float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_sp_e4m3(part, a, bf[j], e);
+              mma_sp_e4m3(part, a, bf[0][j], e);
 #pragma unroll
               for (int i = 0; i < 4; ++i)
                 acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
@@ -771,6 +811,28 @@ int launch_gather(int n, int bm, const void* x, const void* values, const void* 
   if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16);
   if (n == 1 && bm == 64) VG_SPF8_GATHER(1, 64);
 #undef VG_SPF8_GATHER
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K9 fp8's few-row body (nm_spmm_gather_dual_bk_fp8 and _requant): X (b, ke)
+// e4m3 gathered at n in {1, 2} through idx_g and idx_u (K_c = ke * n / 4
+// int32 each) against values_g and values_u (K_c, O) as dense e4m3 weights,
+// one span a step selected twice; bm 16 (nm_spmm_gather/kernel.py::
+// fp8_dual_plan's tile), split a power of two up to min(8, K_c / 64);
+// flush(row, col, sums) stores one output from its two summed fp32
+// accumulators
+template <class Flush>
+int launch_gather_dual(int n, int bm, const void* x, const void* vg, const void* ig,
+                       const void* vu, const void* iu, const Flush& flush, int b, int ke, int o,
+                       int split, void* stream) {
+  if (ke <= 0 || (ke * n) % 4 != 0 || bm != 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = ke * n / 4;
+  if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 2)
+    return launch<4, 16, 2, true, false>(x, vg, ig, vu, iu, nullptr, flush, b, kc, o, split, s);
+  if (n == 1)
+    return launch<4, 16, 1, true, false>(x, vg, ig, vu, iu, nullptr, flush, b, kc, o, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

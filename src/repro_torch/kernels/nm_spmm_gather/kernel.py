@@ -38,7 +38,13 @@ the dual wgmma body.  ``nm_spmm_gather_bk_fp8`` and ``_requant`` at n in
 {1, 2} run the e4m3 forms of K8's two, chosen by :func:`fp8_plan`: the
 e4m3 stream of ``csrc/nm_spmm_sp_fp8.cuh`` with a byte select pass, and an
 e4m3 gather pass (``gemm_fp8.cu``) in front of ``csrc/
-tile_gemm_sm90_fp8.cuh``'s wgmma body.  ``nm_spmm_gather_fp8`` (K11) at n
+tile_gemm_sm90_fp8.cuh``'s wgmma body.  ``nm_spmm_gather_dual_bk_fp8`` and
+``_requant`` (K9 fp8) at n in {1, 2} run that e4m3 stream's dual form (one
+X span a step selected twice, both dense values tiles, two accumulators)
+where :func:`fp8_dual_plan` picks it.  ``nm_spmm_gather_bk_masked`` (bf16)
+at 2:4 runs K8's stream with the activation-sparsity skip (each block
+walking the live steps of its span) wherever K8 streams, as
+:func:`masked_plan` picks.  ``nm_spmm_gather_fp8`` (K11) at n
 in {1, 2} runs that e4m3 stream with a K-major X stage (the step's selected
 x_t rows, then a byte transpose pass), chosen by :func:`kmajor_fp8_plan`.
 Every other kernel here runs the shared bodies of ``gemm.cu`` /
@@ -70,6 +76,7 @@ from ..tile_gemm.kernel import (ACT_CODES, BODY_CODES, FP8_STREAM16_BLOCKS_PER_S
                                 check_single_epilogue, cluster_split, float_out,
                                 quantized_out, requant_spec, stream_plan)
 from ..tile_gemm.kernel import dual_plan as tile_dual_plan
+from ..tile_gemm.kernel import fp8_dual_plan as tile_fp8_dual_plan
 from ..tile_gemm.kernel import fp8_plan as tile_fp8_plan
 from ..tile_gemm.kernel import plan as tile_plan
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
@@ -78,6 +85,7 @@ from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
 __all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "kmajor_fp8_plan",
+           "masked_plan", "fp8_dual_plan",
            "DUAL_SHARED_MAX_KC", "FP8_STREAM16_MAX_ROWS", "KMAJOR_STREAM64_MIN_STEPS",
            "KMAJOR_STREAM_MAX_ROWS",
            "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
@@ -145,6 +153,49 @@ def dual_plan(b: int, ke: int, o: int, n: int) -> dict:
                      and kc <= DUAL_SHARED_MAX_KC):
         return {"body": "shared", "rows": rows, "cols": _build.BLOCK_O, "split": 1}
     return p
+
+
+def masked_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_bk_masked``'s (bf16) body, tile and split: at 2:4,
+    :func:`plan`'s ``stream`` wherever K8 streams (below ``WGMMA_MIN_ROWS``
+    rows), the masked form of that stream at its tile and split (each block
+    walks the live steps of its span: bitwise K8 on the same masked X);
+    elsewhere ``shared`` (gemm.cu's masked body, the form the port ran
+    first) at ``block_rows(b)`` rows, split 1: from ``WGMMA_MIN_ROWS`` rows
+    (K8's wgmma body), at n = 4, and at 1:4, where K8's 16-row stream lost to
+    the shared body at qwen3-moe's expert w_out on an H100, unmasked and
+    masked (PERF.md §6).  Returns ``{"body", "rows", "cols", "split"}``;
+    ``rows`` is the maps' row block."""
+    p = plan(b, ke, o, n)
+    if n == 2 and p["body"] == "stream":
+        return p
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
+
+
+def fp8_dual_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_dual_bk_fp8``'s and ``_requant``'s body, tile and
+    split for ``silu(gather(Xq (b, ke), idx_g) @ values_g) * (gather(Xq,
+    idx_u) @ values_u)``, both e4m3 values ``(ke * n / 4, o)``.  n in {1,
+    2}: ``stream`` (``csrc/nm_spmm_sp_fp8.cuh``'s gathered dual: one X span
+    a step selected twice, both dense values tiles, two accumulators, split-K
+    over a cluster) wherever ``tile_gemm.kernel.fp8_dual_plan(b, K_c, o,
+    requant=True)`` streams the dense e4m3 dual: 16-row tiles at
+    ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM while the launch has at most
+    ``FP8_STREAM16_BLOCKS_PER_SM`` x ``SMS`` tiles (internlm2-1.8b's gate-up
+    up to 48 rows, 128 tiles split 2 at B = 8; qwen3-moe's expert gate-up up
+    to 264 rows, 24 tiles split 8 at B = 8).  On an H100 the stream beat the
+    shared body at every swept shape below that width and tied or lost past
+    it (``chip_smoke.py``'s fp8 sweep phase; PERF.md §6); there is no
+    two-X form of the e4m3 dual wgmma body, so both forms, the bf16 / fp32
+    and the requantized, take this one plan.  Everywhere else ``shared``
+    (gemm_fp8.cu's body, the form the port ran first) at ``block_rows(b)``
+    rows, split 1; n = 4 keeps ``shared``.  Returns ``{"body", "rows",
+    "cols", "split"}``; ``rows`` is what the C interface takes as ``bm``."""
+    if n in (1, 2):
+        p = tile_fp8_dual_plan(b, ke * n // 4, o, requant=True)
+        if p["body"] == "stream":
+            return p
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
 
 
 def fp8_plan(b: int, ke: int, o: int, n: int, requant: bool = False) -> dict:
@@ -295,10 +346,15 @@ def nm_spmm_gather_bk_masked(x: torch.Tensor, values: torch.Tensor, idx: torch.T
     and multiplied, a K step being 64 compressed rows (``256 / n``
     activation columns).  ``kmap`` / ``kmask``: ``actsparse.block_maps``
     over the masked X at ``block_b`` rows and ``256 / n`` columns; the
-    CUDA body ignores ``kmap``.  Bitwise itself with every tile live on
-    the same masked X (dead tiles add exact zeros); within bf16 rounding of
-    :func:`nm_spmm_gather_bk`, whose own bodies (n in {1, 2}) sum in
-    another order (bitwise it at n = 4)."""
+    CUDA bodies ignore ``kmap``.  The body and split are
+    :func:`masked_plan`'s, whose row block must be ``block_b`` (a CUDA
+    launch refuses another): wherever K8 streams, K8's stream at K8's tile
+    and split, each block walking the live steps of its span, so bitwise
+    :func:`nm_spmm_gather_bk` on the same masked X (dead tiles add exact
+    zeros); elsewhere the shared body, bitwise itself with every tile live,
+    and :func:`nm_spmm_gather_bk` where that keeps the shared body too (n =
+    4, n = 1 at 64-row tiles), within bf16 rounding of its own bodies (1:4
+    up to 16 rows, the wgmma body from ``WGMMA_MIN_ROWS`` rows)."""
     epi = epilogue or EpilogueSpec()
     b, ke = x.shape
     o = _check_gather("nm_spmm_gather_bk_masked", ke, values, idx, n)
@@ -314,12 +370,17 @@ def nm_spmm_gather_bk_masked(x: torch.Tensor, values: torch.Tensor, idx: torch.T
     if values.dtype != x.dtype:
         raise ValueError("nm_spmm_gather_bk_masked: values must share x's dtype")
     _build.check_tiles("nm_spmm_gather_bk_masked", values.shape[0], o)
+    p = masked_plan(b, ke, o, n)
+    if bb != p["rows"]:
+        raise ValueError(f"nm_spmm_gather_bk_masked: maps at {bb} rows, the plan's row "
+                         f"block is {p['rows']}")
     y = torch.empty((b, o), dtype=x.dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.vg_nm_spmm_gather_bk_masked(x.data_ptr(), values.data_ptr(), idx.data_ptr(),
                                              kmask.data_ptr(), _ptr(bias32), y.data_ptr(), b,
                                              ke, o, n, ACT_CODES[epi.act], bb,
+                                             BODY_CODES[p["body"]], p["split"],
                                              _build.stream_of(x))
     nm_spmm_gather_bk_masked.launches += 1
     _build.check(rc, "nm_spmm_gather_bk_masked", lib)
@@ -574,12 +635,19 @@ def _gather_dual_quantized(wrapper, storage, x_q, values_g, idx_g, values_u, idx
                           wu_scale, *rq, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values_g.shape[0], o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
+    # the fp8 dual runs the body of its plan (block_b only checked); int8
+    # keeps the shared body (no plan)
+    plan = ()
+    if storage == torch.float8_e4m3fn:
+        p = fp8_dual_plan(b, ke, o, n)
+        bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_nm_spmm_gather_dual_bk_{suffix}")(
             x_q.data_ptr(), values_g.data_ptr(), idx_g.data_ptr(), values_u.data_ptr(),
             idx_u.data_ptr(), x_scale.data_ptr(), wg_scale.data_ptr(), wu_scale.data_ptr(),
-            _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, _build.stream_of(x_q))
+            _ptr(requant_scale), y.data_ptr(), b, ke, o, n, kind, bb, *plan,
+            _build.stream_of(x_q))
     wrapper.launches += 1
     _build.check(rc, kernel, lib)
     return y
@@ -625,7 +693,9 @@ def nm_spmm_gather_dual_bk_fp8(x_q: torch.Tensor, values_g: torch.Tensor,
                                out_dtype: torch.dtype = torch.float32,
                                block_b: Optional[int] = None) -> torch.Tensor:
     """Fused fp8 gate-up over two float8_e4m3fn gather weights sharing one
-    X read, two fp32 accumulators."""
+    X read, two fp32 accumulators, flushed in the gather order (acc * ws *
+    xs).  ``block_b`` is the dispatch plan's row block (checked); the body,
+    its tile and its K split are :func:`fp8_dual_plan`'s."""
     return _gather_dual_quantized(nm_spmm_gather_dual_bk_fp8, torch.float8_e4m3fn, x_q,
                                   values_g, idx_g, values_u, idx_u, n, x_scale, wg_scale,
                                   wu_scale, out_dtype, block_b, None)
@@ -642,7 +712,8 @@ def nm_spmm_gather_dual_bk_fp8_requant(x_q: torch.Tensor, values_g: torch.Tensor
                                        block_b: Optional[int] = None) -> torch.Tensor:
     """:func:`nm_spmm_gather_dual_bk_fp8` whose flush then requantizes to
     e4m3 (clip to +-448, round to nearest even) against the consuming
-    linear's static scale."""
+    linear's static scale; the body, its tile and its K split are
+    :func:`fp8_dual_plan`'s, as :func:`nm_spmm_gather_dual_bk_fp8` takes them."""
     return _gather_dual_quantized(nm_spmm_gather_dual_bk_fp8_requant, torch.float8_e4m3fn,
                                   x_q, values_g, idx_g, values_u, idx_u, n, x_scale, wg_scale,
                                   wu_scale, torch.float8_e4m3fn, block_b, requant_scale)

@@ -802,16 +802,20 @@ def _masked_case(dev, b, k, o, layout, n, qdtype, seed=0):
 def _own_body(layout, qdtype, b, k, o, n, requant=False):
     """Whether the unmasked kernel of a masked case runs a body of its own
     (summing in another order than the shared body the masked one keeps).
-    The bf16 nm_spmm_masked, nm_spmm_masked_fp8 and, below 256 rows, the
-    bf16 tile_gemm_masked run their twins' streams at their twins' plans:
-    never there; K1 from 256 rows (its wgmma body): yes."""
+    The bf16 nm_spmm_masked, nm_spmm_masked_fp8, below 256 rows the bf16
+    tile_gemm_masked and, at 2:4 below 256 rows, the bf16
+    nm_spmm_gather_bk_masked run their twins' streams at their twins' plans:
+    never there; K1 from 256 rows (its wgmma body) and the bf16 K8 where its
+    plan's body is not masked_plan's (wgmma from 256 rows, its 1:4 stream up
+    to 16 rows): yes."""
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_plan as gather_fp8_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_plan, plan
     if (layout, qdtype) == ("dense", None):
         return plan(b, k, o)["body"] == "wgmma"
     if (layout, qdtype) == ("gather", None):
-        return gather_plan(b, k, o, n)["body"] != "shared"
+        return gather_plan(b, k, o, n)["body"] != gather_masked_plan(b, k, o, n)["body"]
     if (layout, qdtype) == ("gather", "fp8"):
         return gather_fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
     if (layout, qdtype) == ("dense", "fp8"):
