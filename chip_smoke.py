@@ -9,11 +9,11 @@ Phases, each of which fails the run on a miss:
              unmasked instantiation of the two streams' kernels may hold
              static shared memory (ptxas's count; kmask.cuh's bitmask is
              the masked ones' only).
-   probe   — the operand layouts of the two sparse tensor-core
-             instructions, bf16 m16n8k32 and e4m3 m16n8k64
+   probe   — the operand layouts of the three sparse tensor-core
+             instructions, bf16 m16n8k32, e4m3 m16n8k64 and s8 m16n8k64
              (``kernels/mma_sp_probe.py``, exact small-integer products):
-             each must be the one its sparse body (nm_spmm, nm_spmm_fp8)
-             assumes.
+             each must be the one its sparse body (nm_spmm, nm_spmm_fp8,
+             nm_spmm_int8) assumes.
 2. kernels — each of tile_gemm, tile_gemm_dual, nm_spmm, nm_spmm_dual
              against its plain PyTorch version at the main path's
              shapes (B in {8, 64}; (K, O) of internlm2-1.8b's projections;
@@ -40,7 +40,10 @@ Phases, each of which fails the run on a miss:
              Timed the same way; the library column is torch._int_mm
              (cuBLASLt int8 -> int32, no scales) on the same operands,
              N:M weights decompressed, B = 8 padded to 32 rows (it takes
-             more than 16).
+             more than 16).  nm_spmm_int8 at n in {1, 2} (the body
+             nm_spmm/kernel.py::int8_plan picks, printed) is also timed in
+             turns with gemm_int8.cu's first body (``earlier_ms``) and its
+             raw accumulator must be the same bits on a second launch.
    requant — the requantizing int8 duals (tile_gemm_dual_int8_requant,
              nm_spmm_dual_int8_requant, n in {1, 2}) at the gate-up
              shape, B in {8, 64, 256}, against a calibrated-like scale: int8
@@ -96,12 +99,13 @@ Phases, each of which fails the run on a miss:
              in {8, 64}, n in {1, 2}, with 0%, ~40% and 100% of the row
              block's K steps live: BITWISE their unmasked kernels on the
              same masked X (where the unmasked kernel runs a body of its
-             own and sums in another order -- K1's wgmma body from 256
-             rows, K8 bf16 and e4m3 and tile_gemm_fp8 where their plans
+             own and sums in another order -- K1's and tile_gemm_fp8's
+             wgmma bodies from 256 rows, K8 bf16 and e4m3 where their plans
              leave the shared body -- BITWISE themselves with every tile
              live, within 1e-2 of the unmasked kernel; the bf16
-             nm_spmm_masked, nm_spmm_masked_fp8 and the bf16
-             tile_gemm_masked below 256 rows run their twins' streams at
+             nm_spmm_masked, nm_spmm_masked_fp8, the bf16
+             tile_gemm_masked below 256 rows and tile_gemm_masked_fp8
+             wherever tile_gemm_fp8 streams run their twins' streams at
              their twins' splits, bitwise the twin, and are also timed in
              turns with their first bodies, ``earlier_ms``),
              within the class's limit of
@@ -110,9 +114,8 @@ Phases, each of which fails the run on a miss:
              bound counting the live tiles only.
              The quantized ones also run the requant:<dtype> flush (gelu)
              at ~40% live, bitwise the unmasked *_requant kernel's codes
-             (tile_gemm_masked_fp8 where tile_gemm_fp8 runs its own body:
-             bitwise its own all-live codes, and one e4m3 step at most
-             off the unmasked kernel's on at most REQUANT_SHARE of them).
+             (tile_gemm_masked_fp8 included: tile_gemm_fp8_requant never
+             takes the wgmma body, so the two share a body at every point).
    requant — K0's remainder, the six single GEMMs with the requant:<dtype>
    singles   flush (tile_gemm / nm_spmm / nm_spmm_gather_bk x int8 / fp8
              ``*_requant``) at gemma3-1b's gelu w_in shape (K, O) = (1152,
@@ -122,8 +125,9 @@ Phases, each of which fails the run on a miss:
              differ by an ulp).  Timed beside the unfused path the port ran
              before (the same kernel storing bf16, then the static quantize
              pass) and the library call on the same operands;
-             nm_spmm_fp8_requant and tile_gemm_fp8_requant also beside their
-             first body (``earlier_ms``).
+             nm_spmm_fp8_requant, tile_gemm_fp8_requant,
+             nm_spmm_gather_bk_fp8_requant and nm_spmm_int8_requant also
+             beside their first body (``earlier_ms``).
    attn    — flash_attention against its plain version at the
              calibration forward's shape (8 x 32 tokens) and at prefill
              shapes (T = 512, 2048), bf16: 16 query heads over 8 KV heads of
@@ -155,11 +159,14 @@ Phases, each of which fails the run on a miss:
              gate-up ACT_MASK_ONLY_DUAL, and the profiled decode step
              reports the share of w_out tiles skipped.  The bf16
              compressed runs print nm_spmm_dual's plans (and on the
-             spgemm path nm_spmm_masked's), the spgemm dense bf16 and 2:4
-             fp8 runs tile_gemm_masked's and nm_spmm_masked_fp8's, and the
-             serving phase ends with the device busy time of the decode
-             steps that run them (internlm2-1.8b 2:4 and 1:4, qwen3-moe
-             spgemm bf16 2:4, dense bf16 and 2:4 fp8).  Each decode
+             spgemm path nm_spmm_masked's), the spgemm dense bf16, dense
+             fp8 and 2:4 fp8 runs tile_gemm_masked's, tile_gemm_masked_fp8's
+             and nm_spmm_masked_fp8's, the int8 compressed runs
+             nm_spmm_int8's (int8_plan per site), and the serving phase
+             ends with the device busy time of the decode steps that run
+             them (internlm2-1.8b 2:4 and 1:4 in bf16 and int8, static int8
+             2:4, qwen3-moe spgemm bf16 2:4, dense bf16, dense fp8 and 2:4
+             fp8, the gather layouts).  Each decode
              profile's device trace must hold the launches the wrappers
              counted in one step, less one a step or 5% (traced once
              more if not).  All runs: a
@@ -327,6 +334,12 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            # keeps it)
            "tile_gemm_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "nm_spmm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
+           # tile_gemm_masked_fp8's (tile_gemm_fp8's dense stream, MASKED) and
+           # nm_spmm_int8's (the s8 form of nm_spmm_fp8's stream; each
+           # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it)
+           "tile_gemm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
+           "nm_spmm_int8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
+           "nm_spmm_int8_requant": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            # the bf16 nm_spmm_gather_bk_masked's stream where K8 streams (K8's,
            # MASKED; gemm.cu's shared body elsewhere)
            "nm_spmm_gather_bk_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
@@ -504,9 +517,11 @@ def earlier_kernels():
     nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant),
     nm_spmm_gather_fp8, nm_spmm_dual (float), nm_spmm_masked (bf16),
     tile_gemm_masked (bf16), nm_spmm_masked_fp8, nm_spmm_gather_bk_masked
-    (bf16) and nm_spmm_gather_dual_bk_fp8 (and _requant) wrappers launch the
+    (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8
+    and nm_spmm_int8 (and _requant) wrappers launch the
     port's first bodies (``flash_attention_wmma.cu``;
-    the shared bodies of gemm.cu and gemm_fp8.cu at every n and row count,
+    the shared bodies of gemm.cu, gemm_int8.cu and gemm_fp8.cu at every n
+    and row count,
     ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
     ``vg_tile_gemm_fp8_tiled``, ``vg_nm_spmm_gather_bk_tiled``,
     ``vg_tile_gemm_dual_tiled``, ``vg_nm_spmm_gather_dual_bk_tiled``,
@@ -514,7 +529,8 @@ def earlier_kernels():
     ``vg_tile_gemm_dual_fp8_tiled``, ``vg_nm_spmm_gather_fp8_tiled``,
     ``vg_nm_spmm_dual_tiled``, ``vg_nm_spmm_masked_tiled``, and
     ``vg_tile_gemm_masked`` / ``vg_nm_spmm_masked_fp8`` /
-    ``vg_nm_spmm_gather_bk_masked`` / ``vg_nm_spmm_gather_dual_bk_fp8`` at
+    ``vg_nm_spmm_gather_bk_masked`` / ``vg_nm_spmm_gather_dual_bk_fp8`` /
+    ``vg_tile_gemm_masked_fp8`` / ``vg_nm_spmm_int8`` at
     body 0, split 1, at the row block the first form took: 16 up to 16
     rows, else 64; the masked ones at their maps' row block) instead of the current
     ones: the ``earlier_ms`` yardstick, through the same wrappers and
@@ -522,6 +538,7 @@ def earlier_kernels():
     from repro_torch.kernels import _build
 
     gemm = _build.library("gemm.cu")
+    int8 = _build.library("gemm_int8.cu")
     fp8 = _build.library("gemm_fp8.cu")
     flash = _build.library("flash_attention.cu")
     wmma = _build.library("flash_attention_wmma.cu")
@@ -588,6 +605,14 @@ def earlier_kernels():
     def nm_spmm_gather_bk_masked_tiled(*args):
         return gemm.vg_nm_spmm_gather_bk_masked(*args[:-3], 0, 1, args[-1])
 
+    # tile_gemm_masked_fp8 and nm_spmm_int8 likewise: (.., bm, body, split,
+    # stream) with body 0, split 1 (nm_spmm_int8's bm is block_rows(b))
+    def tile_gemm_masked_fp8_tiled(*args):
+        return fp8.vg_tile_gemm_masked_fp8(*args[:-3], 0, 1, args[-1])
+
+    def nm_spmm_int8_tiled(*args):
+        return int8.vg_nm_spmm_int8(*args[:-3], 0, 1, args[-1])
+
     # K9 fp8 reaches its shared body through its own entry, at the row block
     # the first form took (its plan runs 16-row tiles past 16 rows; b: args[10])
     def nm_spmm_gather_dual_bk_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
@@ -610,8 +635,10 @@ def earlier_kernels():
                                               vg_tile_gemm_dual_fp8=tile_gemm_dual_fp8_tiled,
                                               vg_nm_spmm_gather_fp8=nm_spmm_gather_fp8_tiled,
                                               vg_nm_spmm_masked_fp8=nm_spmm_masked_fp8_tiled,
+                                              vg_tile_gemm_masked_fp8=tile_gemm_masked_fp8_tiled,
                                               vg_nm_spmm_gather_dual_bk_fp8=(
                                                   nm_spmm_gather_dual_bk_fp8_tiled))
+    _build._libs["gemm_int8.cu"] = _EarlierLib(int8, vg_nm_spmm_int8=nm_spmm_int8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -934,9 +961,10 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
                 lib_fn, lib_ops = library(xq, xs, lfs)
                 kc = k * n // 4
                 extra = {}
-                if fp8:     # the redesigned bodies, beside the first one
+                if fp8 or n < 4:     # the redesigned bodies, beside the first one
                     t_run, extra["earlier_ms"] = in_turns(run, ops)
-                    extra["plan"] = tk.fp8_plan(b, k, o) if n == 4 else nk.fp8_plan(b, k, o, n)
+                    extra["plan"] = (tk.fp8_plan(b, k, o) if n == 4 else
+                                     (nk.fp8_plan if fp8 else nk.int8_plan)(b, k, o, n))
                     again = run(xq, None, lfs[0])
                     torch.cuda.synchronize()
                     if not torch.equal(raw, again):
@@ -1768,12 +1796,13 @@ def requant_single_phase(cfg, gen, card_line, rows, qdtype):
                 lib_fn, lib_ops = int_mm_padded, [(x_, lf["lib"]) for x_, lf in zip(xl, lfs)]
             extra = {}
             if name in ("nm_spmm_fp8_requant", "tile_gemm_fp8_requant",
-                        "nm_spmm_gather_bk_fp8_requant"):
+                        "nm_spmm_gather_bk_fp8_requant", "nm_spmm_int8_requant"):
                 # the redesigned bodies, beside the first one
                 t_run, extra["earlier_ms"] = in_turns(run, ops)
                 extra["plan"] = (km.fp8_plan(b, k, o, requant=True) if layout == "dense"
                                  else km.fp8_plan(b, k, o, n, requant=True)
-                                 if layout == "gather" else km.fp8_plan(b, k, o, n))
+                                 if layout == "gather" else
+                                 (km.fp8_plan if fp8 else km.int8_plan)(b, k, o, n))
             else:
                 t_run = time_ms(run, ops)
             record(name, b, k, o, n, got, want, t_run, time_ms(plain, ops),
@@ -1809,10 +1838,11 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     bitwise the masked kernel with every tile live, and within TOL of the
     unmasked one) and within the class's limit of the plain version (int8
     bitwise).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
-    tile_gemm_masked and the bf16 nm_spmm_gather_bk_masked run their twins'
-    streams at their twins' plans (K2's, nm_spmm_fp8's, K1's below 256 rows,
-    K8's where it streams) and are held bitwise to the twin, and are timed
-    in turns with their first (shared) bodies (``earlier_ms``).  Timed
+    tile_gemm_masked, tile_gemm_masked_fp8 and the bf16
+    nm_spmm_gather_bk_masked run their twins' streams at their twins' plans
+    (K2's, nm_spmm_fp8's, K1's below 256 rows, tile_gemm_fp8's where it
+    streams, K8's where it streams) and are held bitwise to the twin, and are
+    timed in turns with their first (shared) bodies (``earlier_ms``).  Timed
     beside the
     unmasked kernel, the plain version and the class's library call on the
     same masked X (torch.matmul / torch._int_mm / torch._scaled_mm on the
@@ -1897,14 +1927,15 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         plain_fn = getattr(mod, f"{base_plain}{sfx}")
         def own_body_at(b, k, o, requant=False):
             """Whether the unmasked kernel sums in another order than the
-            masked one: K1 where it runs its wgmma body (from 256 rows), the
-            bf16 K8 where its plan's body is not masked_plan's (its wgmma
-            body from 256 rows, its 1:4 stream up to 16 rows), and K8 fp8
-            and tile_gemm_fp8 where their plans leave the shared body.  The
-            bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
-            tile_gemm_masked below 256 rows and the bf16
-            nm_spmm_gather_bk_masked at 2:4 below 256 rows run their twins'
-            streams at their twins' plans: bitwise the twin."""
+            masked one: K1 and tile_gemm_fp8 where they run their wgmma
+            bodies (from 256 rows), the bf16 K8 where its plan's body is not
+            masked_plan's (its wgmma body from 256 rows, its 1:4 stream up
+            to 16 rows), and K8 fp8 where its plan leaves the shared body.
+            The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
+            tile_gemm_masked below 256 rows, tile_gemm_masked_fp8 wherever
+            tile_gemm_fp8 streams and the bf16 nm_spmm_gather_bk_masked at
+            2:4 below 256 rows run their twins' streams at their twins'
+            plans: bitwise the twin."""
             if layout == "dense" and qdtype is None:
                 return tk.plan(b, k, o)["body"] == "wgmma"
             if layout == "gather" and qdtype is None:
@@ -1912,7 +1943,8 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
             if layout == "gather" and fp8:
                 return gk.fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
             if layout == "dense" and fp8:
-                return tk.fp8_plan(b, k, o, requant=requant)["body"] != "shared"
+                return (tk.fp8_plan(b, k, o, requant=requant)["body"]
+                        != tk.masked_fp8_plan(b, k, o, requant=requant)["body"])
             return False
         ref_fn = getattr(importlib.import_module(f"repro_torch.kernels.{ref_mod}.ref"),
                          f"{ref_mod}_masked{'_quantized' if qdtype else ''}_ref")
@@ -1964,7 +1996,8 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                     masked_call = (lambda x_, xs_, lf_, maps=maps: call(
                         masked_fn, layout, n, x_, xs_, lf_, maps))
                     if (layout == "compressed" and not int8) or \
-                            (layout in ("dense", "gather") and qdtype is None):
+                            (layout in ("dense", "gather") and qdtype is None) or \
+                            (layout == "dense" and fp8):
                         # the redesigned stream, in turns with its first (shared) body
                         t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
                     else:
@@ -2262,16 +2295,18 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     (nm_spmm_gather_dual_bk_fp8 and _requant) on an fp8 gather swiglu model
     (an MoE's expert gate-up), the bf16 nm_spmm_gather_bk_masked at K8's
     plan on the spgemm gather path's w_out, K11 fp8 (nm_spmm_gather_fp8) on
-    a sharded fp8 gather model's two row-parallel sites (their local K), at
-    each of ``rows``."""
+    a sharded fp8 gather model's two row-parallel sites (their local K),
+    tile_gemm_masked_fp8 on the spgemm path's dense fp8 w_out, and
+    nm_spmm_int8 (and _requant) at every site an int8 compressed model runs
+    it, at each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
     from repro_torch.kernels.nm_spmm.kernel import fp8_plan as nm_fp8_plan
-    from repro_torch.kernels.nm_spmm.kernel import split_k
+    from repro_torch.kernels.nm_spmm.kernel import int8_plan, split_k
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_dual_plan as gather_fp8_dual_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
-    from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_plan
+    from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_fp8_plan, masked_plan
 
     spgemm = bool(cfg.num_experts) and cfg.moe_expert_path == "spgemm" and mesh == 1
     k, o = cfg.d_ff, cfg.d_model                # an expert's w_out
@@ -2289,6 +2324,21 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
             f"B={b} K={cfg.d_model} O={cfg.d_ff}": gather_fp8_dual_plan(b, cfg.d_model,
                                                                          cfg.d_ff, n)
             for b in rows}}
+    if spgemm and layout == "dense" and qdtype == "fp8":
+        return {"tile_gemm_masked_fp8": {f"B={b} K={k} O={o}": masked_fp8_plan(b, k, o)
+                                         for b in rows[:2]}}
+    if layout == "compressed" and qdtype == "int8" and mesh == 1:
+        # the attention sites, and the MLP's where no expert (masked) runs
+        # it: a gelu MLP's w_in (nm_spmm_int8_requant on static scales) and
+        # every w_out (a swiglu gate-up is the dual)
+        n = sparsity[0]
+        sites = [(cfg.d_model, cfg.attn_dim), (cfg.d_model, cfg.kv_dim),
+                 (cfg.attn_dim, cfg.d_model)]
+        if not cfg.num_experts:
+            sites += [(cfg.d_ff, cfg.d_model)] + \
+                ([(cfg.d_model, cfg.d_ff)] if cfg.act == "gelu" else [])
+        return {"nm_spmm_int8": {f"B={b} K={k} O={o}": int8_plan(b, k, o, n)
+                                 for b in rows for k, o in sites}}
     if spgemm and layout == "compressed" and qdtype == "fp8":
         n = sparsity[0]
         return {"nm_spmm_masked_fp8": {
@@ -3591,13 +3641,15 @@ def main():
     log(f"serving phase {time.perf_counter() - t_serving:.1f}s")
     # the decode steps that run the float nm_spmm_dual, the bf16 nm_spmm_masked,
     # the bf16 tile_gemm_masked, nm_spmm_masked_fp8, the bf16
-    # nm_spmm_gather_bk_masked and K9 fp8
+    # nm_spmm_gather_bk_masked, K9 fp8, tile_gemm_masked_fp8 and nm_spmm_int8
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
-            if res["layout"] in ("2:4", "1:4", "moe-spgemm/2:4", "moe-spgemm/dense",
-                                 "moe-spgemm/2:4/fp8", "moe-spgemm/gather-2:4",
-                                 "moe-spgemm/gather-2:4/fp8")}
-    log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, qwen3-moe spgemm bf16 "
-        f"2:4, bf16 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4): {json.dumps(busy)}")
+            if res["layout"] in ("2:4", "1:4", "2:4/int8", "1:4/int8", "2:4/int8/static",
+                                 "moe-spgemm/2:4", "moe-spgemm/dense",
+                                 "moe-spgemm/dense/fp8", "moe-spgemm/2:4/fp8",
+                                 "moe-spgemm/gather-2:4", "moe-spgemm/gather-2:4/fp8")}
+    log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, int8 2:4 and 1:4, "
+        f"static int8 2:4, qwen3-moe spgemm bf16 2:4, bf16 dense, fp8 dense, fp8 2:4, "
+        f"bf16 gather 2:4, fp8 gather 2:4): {json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3655,6 +3707,9 @@ def main():
               "nm_spmm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "tile_gemm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
+              "tile_gemm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
+              **{name: (SOURCES["nm_spmm_fp8"], SOURCES["int8"])
+                 for name in ("nm_spmm_int8", "nm_spmm_int8_requant")},
               "nm_spmm_gather_bk_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),
@@ -3728,13 +3783,15 @@ def main():
                 "name": name, "route": "cuda",
                 "source": SOURCES[{"nm_spmm_fp8_requant": "nm_spmm_fp8",
                                    "tile_gemm_fp8_requant": "nm_spmm_fp8",
-                                   "nm_spmm_gather_bk_fp8_requant": "nm_spmm_fp8"}.get(name, q)],
+                                   "nm_spmm_gather_bk_fp8_requant": "nm_spmm_fp8",
+                                   "nm_spmm_int8_requant": "nm_spmm_int8"}.get(name, q)],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "unfused_ms": r["unfused_ms"],
                 **({"earlier_ms": r["earlier_ms"]} if "earlier_ms" in r else {}),
+                **({"bodies": bodies[name]} if name in bodies else {}),
                 "off_by_one_share": max(x["off_by_one_share"] for x in rows
                                         if x["kernel"] == name),
                 "measured_as": f"one gemma3-1b w_in launch at B=8, (K, O) = ({r['K']}, "

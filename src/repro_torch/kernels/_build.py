@@ -63,7 +63,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "gemm_int8.cu": {
         "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
-        "vg_nm_spmm_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_gather_bk_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
@@ -84,7 +84,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_gather_bk_fp8": (_P,) * 8 + (_I,) * 10 + (_P, _P),
         "vg_nm_spmm_gather_bk_fp8_tiled": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 8 + (_P,),
-        "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_fp8": (_P,) * 6 + (_I,) * 8 + (_P,),
@@ -101,6 +101,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "mma_sp_probe.cu": {
         "vg_mma_sp_probe": (_P,) * 5,
         "vg_mma_sp_probe_e4m3": (_P,) * 5,
+        "vg_mma_sp_probe_s8": (_P,) * 5,
     },
 }
 

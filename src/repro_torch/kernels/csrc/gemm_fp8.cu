@@ -55,12 +55,15 @@
 // nm_spmm_masked_fp8 at n in {1, 2} runs nm_spmm_fp8's sparse stream in
 // MASKED form (each block walking the live steps of its span) wherever
 // fp8_plan gives nm_spmm_fp8 that stream, and the shared body where it
-// keeps the shared one.  vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled,
+// keeps the shared one; tile_gemm_masked_fp8 the dense stream in MASKED
+// form wherever tile_gemm/kernel.py::fp8_plan gives tile_gemm_fp8 that
+// stream (tile_gemm/kernel.py::masked_fp8_plan), else the shared body.  vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled,
 // vg_nm_spmm_dual_fp8_tiled, vg_nm_spmm_gather_bk_fp8_tiled,
 // vg_tile_gemm_dual_fp8_tiled and vg_nm_spmm_gather_fp8_tiled keep the
 // shared body for them, the forms the port ran first, as yardsticks
-// (vg_nm_spmm_masked_fp8 and vg_nm_spmm_gather_dual_bk_fp8 reach theirs at
-// body 0, split 1); the other masked kernels stay on it.
+// (vg_nm_spmm_masked_fp8, vg_tile_gemm_masked_fp8 and
+// vg_nm_spmm_gather_dual_bk_fp8 reach theirs at body 0, split 1); the other
+// masked kernel stays on it.
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -943,12 +946,26 @@ int vg_tile_gemm_fp8_tiled(const void* x, const void* w, const void* xs, const v
                                        out_kind, stream);
 }
 
+// tile_gemm/kernel.py::masked_fp8_plan's body: 1, tile_gemm_fp8's stream
+// over the dense weight (nm_spmm_sp_fp8.cuh, N = 4, MASKED; bm in {16, 64})
+// walking the live steps of each block's span, K split over `split` blocks
+// of a cluster (tile_gemm_fp8's split: bitwise vg_tile_gemm_fp8's stream on
+// the same masked X); 0, the shared body, split 1
 int vg_tile_gemm_masked_fp8(const void* x, const void* w, const void* kmask, const void* xs,
                             const void* ws, const void* bias, const void* rq, void* y, int b,
-                            int k, int o, int act, int out_kind, int bm, void* stream) {
-  return launch_bm<false, DenseLoader, Contiguous, true>(
-      bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
-      rq, y, b, k, k, o, act, out_kind, stream);
+                            int k, int o, int act, int out_kind, int bm, int body, int split,
+                            void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<false, DenseLoader, Contiguous, true>(
+        bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
+        rq, y, b, k, k, o, act, out_kind, stream);
+  }
+  SingleFlush flush;
+  if (body != 1 || !single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_nm(4, bm, x, w, nullptr, kmask, flush, b, k, o, split, stream);
 }
 
 // tile_gemm/kernel.py::fp8_dual_plan's body: 0, the shared body (bm in {16,

@@ -28,6 +28,14 @@
 //                        (_nm_spmm_gather_quantized, _gather_q_kernel,
 //                        _gather_q_raw_kernel)
 //
+// nm_spmm_int8 (and _requant) at n in {1, 2} runs the s8 form of
+// nm_spmm_sp_fp8.cuh's sparse stream (mma.sp m16n8k64 s8 -> s32, the K loop
+// split over a cluster, int32 partials summed in rank order) wherever
+// nm_spmm/kernel.py::int8_plan picks it, flushed by SingleFlushI8 below in
+// this file's order: the same bits as this body, int32 sums being exact in
+// any order.  vg_nm_spmm_int8 at body 0, split 1 reaches this file's body,
+// the form the port ran first, as its yardstick.
+//
 // ONE templated body serves all ten, as in gemm.cu: the template takes the
 // weight loader (dense int8, or N:4 int8 values + 2-bit packed meta), the
 // X loader (contiguous, gathered through the lane-aligned index, or that
@@ -89,8 +97,9 @@
 // (values 8.4 MB + meta 2.1 MB).  What the design does about it: int8
 // halves the bf16 weight bytes, the N:M loader moves n/4 of them plus 2
 // bits per kept value and expands on chip, and loads are 16-byte (dense)
-// or 8-byte (N:M) vector loads along O.  As in gemm.cu the launch is O/64
-// blocks with a serial K loop: split-K, TMA rings and wgmma are later work.
+// or 8-byte (N:M) vector loads along O.  As in gemm.cu this body's launch is
+// O/64 blocks with a serial K loop; nm_spmm_int8's s8 stream (above) splits
+// K over a cluster, and the other kernels' split-K and wgmma are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +110,7 @@
 
 #include "flush.cuh"
 #include "kmask.cuh"
+#include "nm_spmm_sp_fp8.cuh"
 
 using namespace nvcuda;
 
@@ -375,6 +385,33 @@ __device__ __forceinline__ int8_t requant_int8(float y, float scale) {
   return static_cast<int8_t>(__float2int_rn(q));
 }
 
+// The flush of nm_spmm_int8's s8 stream (nm_spmm_sp_fp8.cuh, S8) from its
+// summed int32 accumulator, in gemm_int8_kernel's order: the raw int32
+// (out_kind 2), or dequant (float(acc) * xs[row] * ws[col], __fmul_rn), +
+// bias (__fadd_rn), act, then bf16, fp32 or the int8 code against *rq.
+struct SingleFlushI8 {
+  const float* xs;
+  const float* ws;
+  const float* bias;
+  const float* rq;
+  void* y;
+  int o, act, out_kind;
+
+  __device__ __forceinline__ void operator()(int row, int col, int acc) const {
+    const size_t at = (size_t)row * o + col;
+    if (out_kind == OUT_I32) {   // raw: the exact accumulator
+      static_cast<int*>(y)[at] = acc;
+      return;
+    }
+    float v = dequant(acc, xs[row], ws[col]);
+    if (bias != nullptr) v = __fadd_rn(v, bias[col]);
+    v = apply_act(v, act);
+    if (out_kind == OUT_I8) static_cast<int8_t*>(y)[at] = requant_int8(v, *rq);
+    else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+  }
+};
+
 template <int BM, bool DUAL, class WL, class XS, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
 gemm_int8_kernel(const int8_t* __restrict__ x, const int* __restrict__ ig,
@@ -646,11 +683,30 @@ int vg_tile_gemm_dual_int8(const void* x, const void* wg, const void* wu, const 
                                       ACT_NONE, out_kind, stream);
 }
 
+// nm_spmm/kernel.py::int8_plan's body: 1, the s8 sparse stream
+// (nm_spmm_sp_fp8.cuh, S8; n in {1, 2}, bm in {16, 64}), K split over
+// `split` blocks of a cluster (a power of two up to min(8, k / 64)); 0,
+// this file's body at any n, split 1
 int vg_nm_spmm_int8(const void* x, const void* values, const void* meta, const void* xs,
                     const void* ws, const void* bias, const void* rq, void* y, int b, int k,
-                    int o, int n, int act, int out_kind, int bm, void* stream) {
-  return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
-                          bias, rq, y, b, k, o, act, out_kind, stream);
+                    int o, int n, int act, int out_kind, int bm, int body, int split,
+                    void* stream) {
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
+                            bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  // raw mode takes no scales and no epilogue; the requantized store, and
+  // only it, the consumer's scale
+  const bool raw = out_kind == OUT_I32;
+  if (body != 1 || (n != 1 && n != 2) || act < 0 || act > 2 || out_kind < 0 || out_kind > 3 ||
+      raw != (xs == nullptr) || raw != (ws == nullptr) ||
+      (raw && (act != ACT_NONE || bias != nullptr)) || (out_kind == OUT_I8) != (rq != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SingleFlushI8 flush{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                            static_cast<const float*>(bias), static_cast<const float*>(rq), y,
+                            o, act, out_kind};
+  return spf8::launch_s8(n, bm, x, values, meta, flush, b, k, o, split, stream);
 }
 
 int vg_nm_spmm_masked_int8(const void* x, const void* values, const void* meta,

@@ -1,26 +1,33 @@
 // nm_spmm_fp8 on Hopper's sparse tensor cores: the e4m3 single at n in
 // {1, 2}, every out_kind (bf16, fp32, the raw accumulator, and the
 // requantizing flush of nm_spmm_fp8_requant), and with the activation-
-// sparsity skip (MASKED) the same single as nm_spmm_masked_fp8; in DUAL
+// sparsity skip (MASKED) the same single as nm_spmm_masked_fp8; in its s8
+// form (the element class S8: the same bytes, an int32 accumulator)
+// nm_spmm_int8 and nm_spmm_int8_requant at n in {1, 2}; in DUAL
 // form (two weights, two accumulators, one silu(g) * u flush) the
 // compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
 // same streaming body
-// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body, in DUAL
+// over a dense e4m3 weight (N = 4): tile_gemm_fp8's few-row body, with
+// MASKED tile_gemm_masked_fp8's, in DUAL
 // form the dense gate-up tile_gemm_dual_fp8's (and _requant's) and, with
 // the X side gathered (G = n in {1, 2}), the fp8 lane-aligned gather K8's
 // (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values,
 // and in DUAL form K9 fp8's (nm_spmm_gather_dual_bk_fp8 and _requant);
 // with the X side gathered from K-major x_t (KM), K11 fp8's
 // (nm_spmm_gather_fp8).  Included by gemm_fp8.cu, whose vg_nm_spmm_fp8,
-// vg_nm_spmm_masked_fp8, vg_tile_gemm_fp8, vg_nm_spmm_dual_fp8,
-// vg_tile_gemm_dual_fp8, vg_nm_spmm_gather_bk_fp8,
+// vg_nm_spmm_masked_fp8, vg_tile_gemm_fp8, vg_tile_gemm_masked_fp8,
+// vg_nm_spmm_dual_fp8, vg_tile_gemm_dual_fp8, vg_nm_spmm_gather_bk_fp8,
 // vg_nm_spmm_gather_dual_bk_fp8 and vg_nm_spmm_gather_fp8 launch it with
 // their flush where nm_spmm/kernel.py::fp8_plan (for both singles),
-// tile_gemm/kernel.py::fp8_plan, nm_spmm/kernel.py::fp8_dual_plan,
+// tile_gemm/kernel.py::fp8_plan, ::masked_fp8_plan,
+// nm_spmm/kernel.py::fp8_dual_plan,
 // tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
-// ::fp8_dual_plan and ::kmajor_fp8_plan pick it; n = 4 of the compressed
+// ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by gemm_int8.cu, whose
+// vg_nm_spmm_int8 launches the s8 form where nm_spmm/kernel.py::int8_plan
+// picks it.  One body serves both 8-bit classes: the header is not
+// copied per class.  n = 4 of the compressed
 // and gathered kernels, wider launches, the other masked singles and the
-// int8 twins keep gemm_fp8.cu's / gemm_int8.cu's
+// other int8 kernels keep gemm_fp8.cu's / gemm_int8.cu's
 // shared bodies, and the many-row bodies of tile_gemm_fp8 (of K8, after
 // gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
 // tile_gemm_sm90_fp8.cuh's.
@@ -52,6 +59,13 @@
 //                  {1, 2}, with the requant:float8_e4m3fn flush of
 //                  repro/kernels/epilogue.py::flush_tile in its _requant form, where
 //                  nm_spmm_gather/kernel.py::fp8_dual_plan streams
+//   tile_gemm_masked_fp8  repro/kernels/tile_gemm/kernel.py::tile_gemm_masked
+//                  (_gemm_masked_kernel), scaled-quantized fp8, where
+//                  tile_gemm/kernel.py::masked_fp8_plan streams
+//   nm_spmm_int8   repro/kernels/nm_spmm/kernel.py::nm_spmm_int8
+//                  (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel), n in
+//                  {1, 2}, with the requant:int8 flush in its _requant form, where
+//                  nm_spmm/kernel.py::int8_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -200,13 +214,45 @@
 // bf16, fp32 or the e4m3 codes.  16-row tiles only (fp8_dual_plan's), a
 // 4-deep ring: ~54 KB a block at 2:4, ~62 KB at 1:4, three blocks an SM.
 // Bound: both weights' bytes and indices + X once, over 3.35 TB/s.
+//
+// The masked dense single (MASKED at N = 4, tile_gemm_masked_fp8).  The
+// walk of the masked compressed single over the dense stream: the row
+// block's bitmask, the span tile_gemm_fp8's split gives the rank, only its
+// live steps loaded and multiplied; a dead step would add an exact +0
+// partial, so bitwise tile_gemm_fp8 (and tile_gemm_fp8_requant's codes) on
+// the same masked X at the same tile and split.  Bound: the live steps'
+// weight rows and X bytes.
+//
+// The s8 form (element class S8: nm_spmm_int8 and _requant, n in {1, 2},
+// the single over a contiguous X).  int8 is one byte like e4m3 and its
+// zero is the byte 0x00 as e4m3's +0 is, so the stage, the per-warp
+// transpose, the 1:4-as-2:4 +0 slots, the metadata word and the operand
+// registers are the e4m3 form's; the instruction is
+// mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32 (its maps pinned by
+// kernels/mma_sp_probe.py), summed in place into int32 registers: integer
+// sums are exact in any order, so no per-64 promotion, and the partial
+// tile, the split's inbox and the rank-order sum hold int32 (splitk's
+// finish on int), never a float.  The flush (gemm_int8.cu's) receives the
+// summed int32: acc raw, or float(acc) * xs * ws, + bias, act, the store.
+// The output is bitwise gemm_int8.cu's first body and the plain version.
 
 #pragma once
+
+#include <type_traits>
 
 #include "kmask.cuh"
 #include "splitk.cuh"
 
 namespace spf8 {
+
+// The stream's 8-bit element classes: e4m3 sums into fp32 (each 64-deep
+// instruction from zero, then promoted), s8 into int32 in place (exact).
+struct E4M3 {
+  using Acc = float;
+};
+struct S8 {
+  using Acc = int;
+};
 
 using splitk::cp_async16;
 using splitk::ldsm_x4;
@@ -337,6 +383,17 @@ __device__ __forceinline__ void mma_sp_e4m3(float (&d)[4], const uint32_t (&a)[4
         "r"(b[3]), "r"(e));
 }
 
+// D = A (16 x 64, 2:4, compressed) x B (64 x 8) + D, s8 in, s32 out (exact)
+__device__ __forceinline__ void mma_sp_s8(int (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[4], uint32_t e) {
+  asm volatile(
+      "mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9,%10,%11}, {%0,%1,%2,%3}, %12, 0x0;\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(b[2]),
+        "r"(b[3]), "r"(e));
+}
+
 // D = A (16 x 32, dense) x B (32 x 8) + C, e4m3 in, fp32 out.  A registers
 // of lane 4g + t: channels g, g + 8 at K bytes 4t .. + 3, then 16 + 4t ..;
 // B registers: K bytes 4t .. + 3 and 16 + 4t .. of batch row g.
@@ -365,16 +422,21 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
 // sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
 // kmask is block_maps' (row blocks, k / 64) map; the block walks the live
-// steps of its span only.
-template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Flush>
+// steps of its span only.  Elem: E4M3, or S8 (a compressed single over a
+// contiguous X; the sums, and what flush receives, are int32).
+template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Elem, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
                       const uint8_t* __restrict__ meta, const uint8_t* __restrict__ v2,
                       const uint8_t* __restrict__ meta2, const int* __restrict__ kmask,
                       Flush flush, int b, int k, int o, int split) {
   using L = Layout<N, BM, G, DUAL, KM>;
+  using Acc = typename Elem::Acc;
+  constexpr bool IS_S8 = std::is_same_v<Elem, S8>;
   static_assert(!MASKED || (G == 0 && !DUAL && !KM),
                 "the masked stream is a single, X contiguous");
+  static_assert(!IS_S8 || ((N == 1 || N == 2) && G == 0 && !DUAL && !KM && !MASKED),
+                "the s8 stream is the compressed single over a contiguous X");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -394,7 +456,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   uint8_t* tw = smem + L::RING + warp * L::T_WARP;   // this warp's transposed A tiles
   uint8_t* compact = smem + L::RING + L::T_BYTES;    // the selected X tile (gather)
   int* kidx = reinterpret_cast<int*>(compact + L::COMPACT);   // KM: the span's indices
-  float* inbox = reinterpret_cast<float*>(compact + L::COMPACT + L::idx_bytes(k / BKS, split));
+  Acc* inbox = reinterpret_cast<Acc*>(compact + L::COMPACT + L::idx_bytes(k / BKS, split));
 
   // The walk: the span's steps, or (MASKED) its live steps only
   // (kmask.cuh's block_live and SpanWalk).
@@ -472,14 +534,14 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
     }
   };
 
-  float acc[NW][MT][NJ][4];
+  Acc acc[NW][MT][NJ][4];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        acc[w][mt][j][0] = acc[w][mt][j][1] = acc[w][mt][j][2] = acc[w][mt][j][3] = 0.f;
+        acc[w][mt][j][0] = acc[w][mt][j][1] = acc[w][mt][j][2] = acc[w][mt][j][3] = Acc(0);
 
   // X tiles the products read: a gathered dual's two compact tiles, else one
   constexpr int NXT = (DUAL && G != 0) ? 2 : 1;
@@ -668,12 +730,16 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
             if (r0 + j * 8 < rows) {
-              // the 64-deep partial sum on the tensor cores, promoted into fp32
-              float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_sp_e4m3(part, a, bf[0][j], e);
+              if constexpr (IS_S8) {
+                mma_sp_s8(acc[w][mt][j], a, bf[0][j], e);   // int32: exact in place
+              } else {
+                // the 64-deep partial sum on the tensor cores, promoted into fp32
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_sp_e4m3(part, a, bf[0][j], e);
 #pragma unroll
-              for (int i = 0; i < 4; ++i)
-                acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
+                for (int i = 0; i < 4; ++i)
+                  acc[w][mt][j][i] = __fadd_rn(acc[w][mt][j][i], part[i]);
+              }
             }
         }
       }
@@ -689,15 +755,15 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   }
   splitk::run_ring<L::STAGES>(ns, at, load_stage, compute);
 
-  // partial tiles [weight][batch row][channel], fp32
-  float* part = reinterpret_cast<float*>(smem);
+  // partial tiles [weight][batch row][channel], fp32 (s8: int32)
+  Acc* part = reinterpret_cast<Acc*>(smem);
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        float* pw = part + w * BM * PLD;
+        Acc* pw = part + w * BM * PLD;
         const int r = r0 + j * 8 + 2 * t;
         // A row g (g + 8) is channel g (g + 8); the dense A's channel 2g (2g + 1)
         const int c = ch0 + mt * 16 + (N == 4 ? 2 * g : g), c8 = N == 4 ? 1 : 8;
@@ -709,19 +775,20 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   __syncthreads();
 
   splitk::finish_planes<BM, BO, PLD, NT, NW, KM>(
-      part, inbox, rank, split, rows, [&](int r, int c, const float (&sum)[NW]) {
+      part, inbox, rank, split, rows, [&](int r, int c, const Acc (&sum)[NW]) {
         if constexpr (DUAL) flush(m0 + r, n0 + c, sum);
         else flush(m0 + r, n0 + c, sum[0]);
       });
 }
 
-template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED = false, class Flush>
+template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED = false, class Elem = E4M3,
+          class Flush>
 int launch(const void* x, const void* v, const void* meta, const void* v2, const void* meta2,
            const void* kmask, const Flush& flush, int b, int k, int o, int split,
            cudaStream_t stream) {
   using L = Layout<N, BM, G, DUAL, KM>;
   static int opted = 0;
-  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, KM, MASKED, Flush>, opted,
+  return splitk::launch(nm_spmm_sp_fp8_kernel<N, BM, G, DUAL, KM, MASKED, Elem, Flush>, opted,
                         dim3(o / BO, (b + BM - 1) / BM), NT,
                         L::RING + L::T_BYTES + L::COMPACT + L::idx_bytes(k / BKS, split),
                         L::INBOX, split, stream, static_cast<const uint8_t*>(x),
@@ -741,13 +808,13 @@ inline bool launch_ok(int b, int k, int o, int bm, int split) {
 // n in {1, 2} (values + meta_packed) or 4 (a dense (K, O) e4m3 weight, meta
 // unused), bm in {16, 64}, split a power of two up to min(8, k / 64);
 // flush(row, col, acc) stores one output from its summed fp32 accumulator;
-// kmask: the masked single (nm_spmm_masked_fp8, n in {1, 2}) with
-// block_maps' (ceil(b / bm), k / 64) map, else nullptr
+// kmask: the masked single (nm_spmm_masked_fp8 at n in {1, 2},
+// tile_gemm_masked_fp8 at n = 4) with block_maps' (ceil(b / bm), k / 64)
+// map, else nullptr
 template <class Flush>
 int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, const void* kmask,
               const Flush& flush, int b, int k, int o, int split, void* stream) {
-  if (!launch_ok(b, k, o, bm, split) ||
-      (kmask != nullptr && (n == 4 || k / BKS > MAX_K_STEPS)))
+  if (!launch_ok(b, k, o, bm, split) || (kmask != nullptr && k / BKS > MAX_K_STEPS))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VG_SPF8_LAUNCH(NN, BB, MM)                                                            \
@@ -758,6 +825,8 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
     if (n == 2 && bm == 64) VG_SPF8_LAUNCH(2, 64, true);
     if (n == 1 && bm == 16) VG_SPF8_LAUNCH(1, 16, true);
     if (n == 1 && bm == 64) VG_SPF8_LAUNCH(1, 64, true);
+    if (n == 4 && bm == 16) VG_SPF8_LAUNCH(4, 16, true);
+    if (n == 4 && bm == 64) VG_SPF8_LAUNCH(4, 64, true);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 2 && bm == 16) VG_SPF8_LAUNCH(2, 16, false);
@@ -767,6 +836,26 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
   if (n == 4 && bm == 16) VG_SPF8_LAUNCH(4, 16, false);
   if (n == 4 && bm == 64) VG_SPF8_LAUNCH(4, 64, false);
 #undef VG_SPF8_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// nm_spmm_int8's body (the s8 form): values + meta_packed int8 at n in {1,
+// 2}, X (b, k) int8, bm in {16, 64}, split a power of two up to min(8, k /
+// 64); flush(row, col, acc) stores one output from its summed int32
+// accumulator
+template <class Flush>
+int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
+              int b, int k, int o, int split, void* stream) {
+  if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VG_SPF8_S8(NN, BB)                                                                  \
+  return launch<NN, BB, 0, false, false, false, S8>(x, v, meta, nullptr, nullptr, nullptr, \
+                                                    flush, b, k, o, split, s)
+  if (n == 2 && bm == 16) VG_SPF8_S8(2, 16);
+  if (n == 2 && bm == 64) VG_SPF8_S8(2, 64);
+  if (n == 1 && bm == 16) VG_SPF8_S8(1, 16);
+  if (n == 1 && bm == 64) VG_SPF8_S8(1, 64);
+#undef VG_SPF8_S8
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,12 +1,12 @@
 // The pieces the port's streaming GEMM bodies share (nm_spmm_sp.cuh: the
 // float nm_spmm at n in {1, 2}, K1's, K8's and the float gate-up duals'
-// few-row streams; nm_spmm_sp_fp8.cuh: nm_spmm_fp8 at n in {1, 2}): the
+// few-row streams; nm_spmm_sp_fp8.cuh: the e4m3 and s8 streams): the
 // cp.async ring of weight and X tiles, ldmatrix, the 1:4-as-2:4 metadata
 // spread, and the split of an output tile's K loop over the blocks of a
 // thread-block cluster.
 //
-// Split-K without atomics.  Each block of the cluster writes its fp32
-// partial of every slice of the tile into the inbox of the slice's owner
+// Split-K without atomics.  Each block of the cluster writes its partial
+// (fp32, or the s8 stream's int32) of every slice of the tile into the inbox of the slice's owner
 // (distributed shared memory), then one cluster barrier; block r sums its
 // slice over ranks 0, 1, .. in that fixed order from its own shared memory
 // and flushes it once.  One launch, no workspace: the same inputs give the
@@ -87,10 +87,11 @@ __device__ __forceinline__ void run_ring(int ns, At&& at, Load&& load, Compute&&
   __syncthreads();       // the ring is drained: the partial tile may alias it
 }
 
-// The split's end.  part: this block's NP fp32 partials (planes p at part
+// The split's end.  part: this block's NP partials of type T (fp32, or
+// int32: then the sums are exact in any order) (planes p at part
 // + p BM PLD, each [BM][PLD] of the BM x BO tile; written and
 // synchronized; NP = 2 for a gate-up dual, whose flush combines both);
-// inbox: NP x E floats after the ring, E = BM x BO (split > 1 only).  Block
+// inbox: NP x E of T after the ring, E = BM x BO (split > 1 only).  Block
 // q owns elements [q E / split, (q + 1) E / split) of the tile (row-major,
 // or with COLMAJOR column-major: then consecutive threads flush consecutive
 // rows of one column, the order a (O, B) output is stored in);
@@ -100,16 +101,17 @@ __device__ __forceinline__ void run_ring(int ns, At&& at, Load&& load, Compute&&
 // whichever block sums them), from its own shared memory, so no block reads
 // a peer's memory and none waits for the others to leave.  Then flush(r,
 // c, sums) for each of its live rows (r < rows).
-template <int BM, int BO, int PLD, int NT, int NP, bool COLMAJOR = false, class Flush>
-__device__ __forceinline__ void finish_planes(const float* part, float* inbox, int rank,
-                                              int split, int rows, Flush&& flush) {
+template <int BM, int BO, int PLD, int NT, int NP, bool COLMAJOR = false, class T,
+          class Flush>
+__device__ __forceinline__ void finish_planes(const T* part, T* inbox, int rank, int split,
+                                              int rows, Flush&& flush) {
   constexpr int E = BM * BO;
   const int tid = threadIdx.x;
   const int slice = E / split;        // split is a power of two up to 8: exact
   if (split > 1) {
     cg::cluster_group cluster = cg::this_cluster();
     for (int q = tid; q < E; q += NT) {
-      float* box = cluster.map_shared_rank(inbox, q / slice) + rank * NP * slice + q % slice;
+      T* box = cluster.map_shared_rank(inbox, q / slice) + rank * NP * slice + q % slice;
       const int r = COLMAJOR ? q % BM : q / BO, c = COLMAJOR ? q / BM : q % BO;
 #pragma unroll
       for (int p = 0; p < NP; ++p) box[p * slice] = part[p * BM * PLD + r * PLD + c];
@@ -120,7 +122,7 @@ __device__ __forceinline__ void finish_planes(const float* part, float* inbox, i
     const int r = COLMAJOR ? q % BM : q / BO, c = COLMAJOR ? q / BM : q % BO;
     const int at = q - rank * slice;
     if (r >= rows) continue;
-    float s[NP];
+    T s[NP];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       s[p] = part[p * BM * PLD + r * PLD + c];
@@ -134,11 +136,11 @@ __device__ __forceinline__ void finish_planes(const float* part, float* inbox, i
 }
 
 // finish_planes with one partial: flush(r, c, sum)
-template <int BM, int BO, int PLD, int NT, class Flush>
-__device__ __forceinline__ void finish(const float* part, float* inbox, int rank, int split,
-                                       int rows, Flush&& flush) {
+template <int BM, int BO, int PLD, int NT, class T, class Flush>
+__device__ __forceinline__ void finish(const T* part, T* inbox, int rank, int split, int rows,
+                                       Flush&& flush) {
   finish_planes<BM, BO, PLD, NT, 1>(part, inbox, rank, split, rows,
-                                    [&](int r, int c, const float (&s)[1]) { flush(r, c, s[0]); });
+                                    [&](int r, int c, const T (&s)[1]) { flush(r, c, s[0]); });
 }
 
 // A split that the bodies take: a power of two up to min(MAX_SPLIT, nk).

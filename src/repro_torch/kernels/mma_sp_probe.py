@@ -3,7 +3,7 @@ the card (CUDA source: ``kernels/csrc/mma_sp_probe.cu``).
 
     python -m repro_torch.kernels.mma_sp_probe      # prints one JSON line
 
-Two instructions, each multiplying a 16-row A that is 2:4 sparse along K
+Three instructions, each multiplying a 16-row A that is 2:4 sparse along K
 (held compressed, with 2-bit indices in 32-bit metadata words) by a dense
 B of 8 columns:
 
@@ -12,12 +12,15 @@ B of 8 columns:
   (``csrc/nm_spmm_sp.cuh``) runs;
 - ``mma.sp.sync.aligned.m16n8k64.row.col.f32.e4m3.e4m3.f32`` (16 x 64 A,
   32 compressed e4m3 bytes a row), which the fp8 sparse body
-  (``csrc/nm_spmm_sp_fp8.cuh``) runs.
+  (``csrc/nm_spmm_sp_fp8.cuh``) runs;
+- ``mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32`` (16 x 64 A, 32
+  compressed int8 bytes a row, int32 out), which the same body's s8 form
+  (``nm_spmm_int8``) runs on the e4m3 form's registers and metadata words.
 
-Both bodies put output channels on A's rows and build the metadata from
+The bodies put output channels on A's rows and build the metadata from
 ``meta_packed`` in registers; they rely on the maps below, which this
 probe checks with exact small-integer products.  With ``P`` elements a
-32-bit word (2 bf16, 4 e4m3) and lane L = 4g + t:
+32-bit word (2 bf16, 4 e4m3 or s8) and lane L = 4g + t:
 
 - A (compressed) register r: row g (r even) or g + 8 (r odd), compressed
   columns P t .. P t + P - 1, plus 4 P for r >= 2 (the dense m16n8k16 /
@@ -31,10 +34,11 @@ probe checks with exact small-integer products.  With ``P`` elements a
   nibbles 0-3 and of row g + 8 in nibbles 4-7.  e4m3 (16 groups a row):
   every lane is read; lane 4g + t holds groups 8 (t >> 1) .. + 7 of row
   g + 8 (t & 1), one row a lane (found by this probe on an H100; the
-  bf16 form's two-rows-a-lane map does not carry over).  At 2:4 a lane's
+  bf16 form's two-rows-a-lane map does not carry over); s8 is assumed to
+  share the e4m3 map, which the probe checks.  At 2:4 a lane's
   word is therefore consecutive ``meta_packed`` bytes of its output
   channels (four 2-bit indices per byte, low bits first): two bytes of
-  each of two channels (bf16), four of one channel (e4m3), so both
+  each of two channels (bf16), four of one channel (e4m3, s8), so the
   sparse bodies read the word from ``meta_packed`` as it is.
 
 The metadata map is also *discovered*: from a word of (0, 1) everywhere,
@@ -61,7 +65,8 @@ __all__ = ["probe", "ASSUMED_META_MAP", "ASSUMED_META_MAP_E4M3", "metadata_words
 ASSUMED_META_MAP: Dict[Tuple[int, int], Tuple[int, int]] = {
     (lane, j): (lane // 4 + 8 * (j // 4), j % 4 + 4 * (lane % 4))
     for lane in range(32) if lane % 4 < 2 for j in range(8)}
-#: the same for the e4m3 (m16n8k64) sparse body: every lane, one row each
+#: the same for the e4m3 and s8 (m16n8k64) sparse bodies: every lane, one
+#: row each
 ASSUMED_META_MAP_E4M3: Dict[Tuple[int, int], Tuple[int, int]] = {
     (lane, j): (lane // 4 + 8 * (lane % 2), 8 * (lane % 4 // 2) + j)
     for lane in range(32) for j in range(8)}
@@ -105,7 +110,8 @@ class _Form:
 
 
 FORMS = (_Form("bf16", "vg_mma_sp_probe", torch.bfloat16, 8, ASSUMED_META_MAP),
-         _Form("e4m3", "vg_mma_sp_probe_e4m3", torch.float8_e4m3fn, 16, ASSUMED_META_MAP_E4M3))
+         _Form("e4m3", "vg_mma_sp_probe_e4m3", torch.float8_e4m3fn, 16, ASSUMED_META_MAP_E4M3),
+         _Form("s8", "vg_mma_sp_probe_s8", torch.int8, 16, ASSUMED_META_MAP_E4M3))
 
 
 def _bits(x: np.ndarray, dtype: torch.dtype) -> np.ndarray:
@@ -182,7 +188,9 @@ class _Card:
             rc = getattr(self.lib, form.entry)(ta.data_ptr(), tb.data_ptr(), te.data_ptr(),
                                                self.d.data_ptr(), _build.stream_of(ta))
         _build.check(rc, f"mma_sp_probe ({form.name})", self.lib)
-        return _d_matrix(self.d.cpu().numpy())
+        # s8 stores its int32 results in the same buffer
+        d = self.d.view(torch.int32) if form.dtype == torch.int8 else self.d
+        return _d_matrix(d.cpu().numpy())
 
 
 def _probe_form(card: _Card, form: _Form, rng) -> dict:
@@ -251,8 +259,8 @@ def _probe_form(card: _Card, form: _Form, rng) -> dict:
 
 
 def probe(device: str = "cuda", seed: int = 0) -> dict:
-    """Run the checks of both instructions on one card; returns what was
-    found (``ok`` True when every map of both is the assumed one)."""
+    """Run the checks of every instruction on one card; returns what was
+    found (``ok`` True when every map of each is the assumed one)."""
     rng = np.random.default_rng(seed)
     card = _Card(device)
     found = {form.name: _probe_form(card, form, rng) for form in FORMS}

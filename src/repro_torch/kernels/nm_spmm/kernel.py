@@ -25,8 +25,10 @@ where :func:`dual_plan` picks it; so do ``nm_spmm_fp8`` and
 e4m3 m16n8k64 form) where :func:`fp8_plan` picks it, ``nm_spmm_masked_fp8``
 there too, walking the live steps of each block's span (bitwise
 ``nm_spmm_fp8`` on the same masked X), and ``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
-dual form where :func:`fp8_dual_plan` picks it; every other kernel here
-expands each values tile into the dense tile in shared memory.
+dual form where :func:`fp8_dual_plan` picks it; ``nm_spmm_int8`` and
+``nm_spmm_int8_requant`` at n in {1, 2} run that header's s8 form (m16n8k64
+s8 -> s32, int32 partials), as :func:`int8_plan` picks; every other
+kernel here expands each values tile into the dense tile in shared memory.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
 ``::nm_spmm_dual`` (:437, float, int8 and fp8 branches), ``::nm_spmm_int8``
@@ -56,7 +58,7 @@ from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_masked_quantized_ref, nm_spmm_masked_ref, nm_spmm_quantized_ref,
                   nm_spmm_ref)
 
-__all__ = ["nm_spmm", "split_k", "dual_plan", "fp8_plan", "fp8_dual_plan",
+__all__ = ["nm_spmm", "split_k", "dual_plan", "fp8_plan", "int8_plan", "fp8_dual_plan",
            "FP8_DUAL_STREAM16_TILES", "DUAL_1OF4_SHARED_MAX_ROWS",
            "nm_spmm_dual", "nm_spmm_int8",
            "nm_spmm_int8_requant", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
@@ -136,6 +138,26 @@ def fp8_plan(b: int, k: int, o: int, n: int) -> dict:
     bm = _build.block_rows(b)
     tiles = (o // _build.BLOCK_O) * -(-b // bm)
     if n in (1, 2) and (bm == _build.BLOCK_ROWS[0] or tiles < FP8_SHARED_TILES):
+        return {"body": "sparse", "split": split_k(b, k, o, n)}
+    return {"body": "shared", "split": 1}
+
+
+def int8_plan(b: int, k: int, o: int, n: int) -> dict:
+    """``nm_spmm_int8``'s (and ``_requant``'s) body and K split: at n in
+    {1, 2} ``sparse`` (the s8 form of ``csrc/nm_spmm_sp_fp8.cuh``'s
+    stream) over ``block_rows(b)``-row tiles, split by :func:`split_k`; at
+    n = 4 ``shared`` (gemm_int8.cu's body, the form the port ran first),
+    split 1.  Unlike :func:`fp8_plan` the stream keeps its 64-row launches
+    however wide: on an H100, 700 W (``chip_smoke.py``'s int8 and requant
+    phases, PERF.md §6) it beat gemm_int8.cu's body at every timed shape,
+    internlm2-1.8b's w_out (8192, 2048) 2:4 at B = 8 / 64 / 256 12.1 / 21.9
+    / 56.0 µs against 136.6 / 131.2 / 128.7, gemma3-1b's gelu w_in (1152,
+    6912) 8.7 / 17.0 / 32.9 against 22.5 / 27.6 / 66.1 (108 tiles at 64
+    rows, where ``fp8_plan`` keeps e4m3 on the shared body); a development
+    sweep on the same card found it faster at 512-4,000 rows too.  The
+    int32 sums are exact in any order, so either body gives the plain
+    version's bits.  ``nm_spmm_masked_int8`` keeps the shared body."""
+    if n in (1, 2):
         return {"body": "sparse", "split": split_k(b, k, o, n)}
     return {"body": "shared", "split": 1}
 
@@ -311,12 +333,13 @@ def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_sc
                           x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
-    # the fp8 single, masked or not, runs the body of its plan (sparse: K
-    # split over a cluster; the masked one walks each span's live steps);
-    # int8 keeps the shared body (no plan)
+    # the fp8 single, masked or not, and the int8 single run the body of
+    # their plans (sparse: K split over a cluster; the masked one walks each
+    # span's live steps); the masked int8 single keeps the shared body (no
+    # plan)
     plan = ()
-    if storage == torch.float8_e4m3fn:
-        p = fp8_plan(b, ke, o, n)
+    if storage == torch.float8_e4m3fn or maps is None:
+        p = (fp8_plan if storage == torch.float8_e4m3fn else int8_plan)(b, ke, o, n)
         plan = (int(p["body"] == "sparse"), p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
@@ -337,9 +360,11 @@ def nm_spmm_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: torch.Ten
                  out_dtype: torch.dtype = torch.float32,
                  block_b: Optional[int] = None) -> torch.Tensor:
     """``epilogue(float(Xq @ dec(values, meta)) * x_scale * w_scale)``: int8
-    values expanded on chip, contracted into an exact int32 accumulator,
-    dequantized once at the flush.  With no scales it returns the raw
-    int32 accumulator."""
+    values contracted into an exact int32 accumulator, dequantized once at
+    the flush.  With no scales it returns the raw int32 accumulator.  The
+    body and split are :func:`int8_plan`'s (the s8 sparse stream at n in
+    {1, 2}, the shared body, which expands each values tile on chip, at n =
+    4); either gives the same bits."""
     return _nm_spmm_quantized(nm_spmm_int8, torch.int8, x_q, values, meta_packed, x_scale,
                               w_scale, n, epilogue, bias, out_dtype, block_b)
 

@@ -12,7 +12,9 @@ with that flush (K0's remainder: the gelu MLP's ``w_in``).  K10:
 and ``tile_gemm_masked_fp8``, the single GEMMs with the activation-sparsity
 block skip (one source each, the same kernel bodies with ``MASKED``; the
 bf16 one below ``WGMMA_MIN_ROWS`` rows K1's stream in ``MASKED`` form, as
-:func:`masked_plan` picks).
+:func:`masked_plan` picks, and the fp8 one ``tile_gemm_fp8``'s e4m3 stream
+in ``MASKED`` form wherever :func:`fp8_plan` streams, as
+:func:`masked_fp8_plan` picks).
 
 ``tile_gemm`` (bf16) runs one of two bodies of its own, chosen by
 :func:`plan` from ``(B, K, O)``: at few rows (decode, the engine's prefill
@@ -29,7 +31,8 @@ is transposed on chip.  ``tile_gemm_dual_fp8`` and
 ``tile_gemm_dual_fp8_requant`` run the dual forms of those two, chosen by
 :func:`fp8_dual_plan` (the wgmma one never for the requantized codes).
 Every other kernel here runs the shared bodies of ``gemm.cu`` /
-``gemm_int8.cu`` / ``gemm_fp8.cu``.
+``gemm_int8.cu`` / ``gemm_fp8.cu`` (the masked ones where their plans
+leave the stream).
 
 Replaces ``repro/kernels/tile_gemm/kernel.py::tile_gemm`` (:82),
 ``::tile_gemm_dual`` (:382, float, int8 and fp8 branches), ``::tile_gemm_int8``
@@ -56,7 +59,7 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
 __all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "fp8_dual_plan", "cluster_split",
-           "stream_plan", "masked_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
+           "stream_plan", "masked_plan", "masked_fp8_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
            "FP8_WGMMA_COLS", "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
            "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
@@ -197,6 +200,22 @@ def fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
             (o // _build.BLOCK_O) * -(-b // p["rows"]) >= FP8_SHARED_TILES:
         return {**p, "body": "shared", "split": 1}
     return p
+
+
+def masked_fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
+    """``tile_gemm_masked_fp8``'s body, tile and split: :func:`fp8_plan`'s
+    ``stream`` (``requant`` as there) wherever ``tile_gemm_fp8`` streams, in
+    ``MASKED`` form at its tile and split (each block walks the live steps
+    of its span: bitwise ``tile_gemm_fp8`` and its requantized codes on the
+    same masked X); else ``shared`` (gemm_fp8.cu's masked body, the form
+    the port ran first) at ``block_rows(b)`` rows, split 1: from
+    ``WGMMA_MIN_ROWS`` rows (``wgmma``) and at 64-row launches of
+    ``FP8_SHARED_TILES`` tiles or more.  Returns ``{"body", "rows", "cols",
+    "split"}``; ``rows`` is the maps' row block."""
+    p = fp8_plan(b, k, o, requant)
+    if p["body"] == "stream":
+        return p
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
 
 
 def dual_plan(b: int, k: int, o: int) -> dict:
@@ -481,13 +500,20 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
     extra = [t for t in (*kmask, x_scale, w_scale, bias32, requant_scale) if t is not None]
     _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
-    y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
-    # the fp8 single runs the body of its plan; int8 and the masked kernels
+    # the fp8 singles run the body of their plans (the masked one at its
+    # maps' row block, which must be the plan's); int8 and its masked kernel
     # keep the shared body (no plan)
     plan_args = ()
     if storage == torch.float8_e4m3fn and maps is None:
         p = fp8_plan(b, k, o, requant=requant_scale is not None)
         bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"])
+    elif storage == torch.float8_e4m3fn:
+        p = masked_fp8_plan(b, k, o, requant=requant_scale is not None)
+        if bb != p["rows"]:
+            raise ValueError(f"{kernel}: maps at {bb} rows, the plan's row block is "
+                             f"{p['rows']}")
+        plan_args = (BODY_CODES[p["body"]], p["split"])
+    y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
@@ -604,11 +630,19 @@ def tile_gemm_masked_fp8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tenso
                          block_b: Optional[int] = None,
                          requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`tile_gemm_fp8` with the activation-sparsity block skip of
-    :func:`tile_gemm_masked` (maps over the e4m3 rows; the CUDA body
-    ignores ``kmap``).  Bitwise itself with every tile live on the same
-    rows (dead tiles add exact zeros); within 1e-2 of :func:`tile_gemm_fp8`,
-    whose own bodies sum in another order (requantized codes one e4m3 step
-    apart at most); ``requant_scale`` as for :func:`tile_gemm_masked_int8`."""
+    :func:`tile_gemm_masked` (maps over the e4m3 rows at ``block_b`` rows;
+    the CUDA bodies ignore ``kmap``).  The body and split are
+    :func:`masked_fp8_plan`'s, whose row block must be ``block_b`` (a CUDA
+    launch refuses another): wherever :func:`tile_gemm_fp8` streams (decode
+    rows, 64-row launches narrower than ``FP8_SHARED_TILES``) its e4m3
+    stream at its tile and split, each block walking the live steps of its
+    span, so bitwise :func:`tile_gemm_fp8` on the same masked rows, and with
+    ``requant_scale`` bitwise :func:`tile_gemm_fp8_requant`'s codes; where
+    :func:`tile_gemm_fp8` keeps the shared body, the same body, bitwise it
+    too; from ``WGMMA_MIN_ROWS`` rows (its wgmma body) the shared body,
+    bitwise itself with every tile live and within 1e-2 of
+    :func:`tile_gemm_fp8`.  ``requant_scale`` as for
+    :func:`tile_gemm_masked_int8`."""
     return _tile_gemm_quantized(tile_gemm_masked_fp8, torch.float8_e4m3fn, x_q, w_q, x_scale,
                                 w_scale, epilogue, bias, out_dtype, block_b, maps=(kmap, kmask),
                                 requant_scale=requant_scale)

@@ -34,14 +34,19 @@ the Pallas gather kernels is in ``tests/test_torch_gather.py``.  The
 masked kernels (K10, every class and loader) are held BITWISE to their
 unmasked kernels on the same masked X (ragged B, a fully dead row block
 whose bias still flushes) and to their plain versions under the same
-limits; the float ones and the fp8 dense and compressed ones (n in {1,
-2}), whose unmasked kernels (tile_gemm, nm_spmm, nm_spmm_gather_bk,
-tile_gemm_fp8, nm_spmm_fp8) run their own bodies, BITWISE to themselves
+limits; where the unmasked kernel runs a body of its own that the masked
+one does not share (tile_gemm and tile_gemm_fp8 from 256 rows, the float
+and fp8 nm_spmm_gather_bk where their plans say so), BITWISE to themselves
 with every tile live and within 1e-2 of the unmasked kernel (requantized
 fp8 codes: one e4m3 step on at most 0.1% of them); their CPU parity with
 the Pallas masked kernels is in ``tests/test_torch_actsparse.py``.
+nm_spmm_int8 (the s8 stream where int8_plan picks it) is held BITWISE to
+its plain version and to its first body, raw, scaled and requantized, and
+tile_gemm_masked_fp8 BITWISE to tile_gemm_fp8 (and tile_gemm_fp8_requant's
+codes) at qwen3-moe's expert shapes below 256 rows.
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -803,15 +808,16 @@ def _own_body(layout, qdtype, b, k, o, n, requant=False):
     """Whether the unmasked kernel of a masked case runs a body of its own
     (summing in another order than the shared body the masked one keeps).
     The bf16 nm_spmm_masked, nm_spmm_masked_fp8, below 256 rows the bf16
-    tile_gemm_masked and, at 2:4 below 256 rows, the bf16
-    nm_spmm_gather_bk_masked run their twins' streams at their twins' plans:
-    never there; K1 from 256 rows (its wgmma body) and the bf16 K8 where its
-    plan's body is not masked_plan's (wgmma from 256 rows, its 1:4 stream up
-    to 16 rows): yes."""
+    tile_gemm_masked, tile_gemm_masked_fp8 wherever tile_gemm_fp8 streams and,
+    at 2:4 below 256 rows, the bf16 nm_spmm_gather_bk_masked run their twins'
+    streams at their twins' plans: never there; K1 from 256 rows (its wgmma
+    body), tile_gemm_fp8 there too, and the bf16 K8 where its plan's body is
+    not masked_plan's (wgmma from 256 rows, its 1:4 stream up to 16 rows):
+    yes."""
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_plan as gather_fp8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
-    from repro_torch.kernels.tile_gemm.kernel import fp8_plan, plan
+    from repro_torch.kernels.tile_gemm.kernel import fp8_plan, masked_fp8_plan, plan
     if (layout, qdtype) == ("dense", None):
         return plan(b, k, o)["body"] == "wgmma"
     if (layout, qdtype) == ("gather", None):
@@ -819,7 +825,8 @@ def _own_body(layout, qdtype, b, k, o, n, requant=False):
     if (layout, qdtype) == ("gather", "fp8"):
         return gather_fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
     if (layout, qdtype) == ("dense", "fp8"):
-        return fp8_plan(b, k, o, requant=requant)["body"] != "shared"
+        return (fp8_plan(b, k, o, requant=requant)["body"]
+                != masked_fp8_plan(b, k, o, requant=requant)["body"])
     return False
 
 
@@ -847,8 +854,8 @@ def test_masked_kernels_bitwise_unmasked_on_card(cuda_device, b, k, o, layout, n
     its bias and activation."""
     case = _masked_case(cuda_device, b, k, o, layout, n, qdtype)
     maps = (case.kmap, case.kmask)
-    # K1 from 256 rows and, where their plans leave the shared body, the
-    # float and fp8 gather K8 and the fp8 dense single run their own bodies, whose
+    # K1 and the fp8 dense single from 256 rows and, where their plans leave
+    # the shared body, the float and fp8 gather K8 run their own bodies, whose
     # sums run in another order than the masked kernel's: the masked kernel
     # is held bitwise to itself with every tile live (the same invariant:
     # dead tiles add exact zeros), the unmasked kernel within 1e-2
@@ -993,7 +1000,7 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
     got = masked(xm, *ops, *maps, *nn, xms, ws, epilogue=spec, bias=bias, requant_scale=rq)
     unmasked = fn(xm, *ops, xms, ws, *nn, rq, epilogue=spec, bias=bias)
     if qdtype == "fp8" and _own_body(layout, qdtype, b, k, o, n, requant=True):
-        # tile_gemm_fp8's and K8 fp8's own bodies sum in another order:
+        # K8 fp8's own bodies sum in another order:
         # the masked kernel's codes are its all-live codes bitwise, one e4m3
         # step at most off the unmasked kernel's on at most 0.1% of them
         all_live = (maps[0], torch.ones_like(maps[1]))
@@ -1007,6 +1014,138 @@ def test_requant_single_kernels_match_plain_on_card(cuda_device, b, layout, n, q
                                          epilogue=EpilogueSpec(act="gelu", requant=qdtype))
     with pytest.raises(ValueError, match="requant_scale"):
         fn(xq, *ops, xs, ws, *nn, rq.double())
+
+
+# ------------------------- the s8 stream of nm_spmm_int8, the masked e4m3 stream
+def _int8_stream_case(dev, b, k, o, n, seed=0):
+    from repro_torch.core import nm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(k, o, generator=g, device=dev) * k ** -0.5
+    c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
+    leaf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)},
+                           torch.int8)
+    x = torch.randn(b, k, generator=g, device=dev).bfloat16()
+    x[-1] = 0
+    xq, xs = quantize_rows(x, torch.int8)
+    return xq, (leaf["values"], leaf["meta_packed"]), xs, leaf["scale"].reshape(1, -1)
+
+
+@contextlib.contextmanager
+def _first_body():
+    """nm_spmm_int8's wrapper on gemm_int8.cu's first body (body 0, split 1)."""
+    lib = _build.library("gemm_int8.cu")
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name != "vg_nm_spmm_int8":
+                return fn
+            return lambda *a: fn(*a[:-3], 0, 1, a[-1])
+    saved = _build._libs["gemm_int8.cu"]
+    _build._libs["gemm_int8.cu"] = _Lib()
+    try:
+        yield
+    finally:
+        _build._libs["gemm_int8.cu"] = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("b,k,o", [(1, 2048, 1024), (8, 8192, 2048), (8, 2048, 2048),
+                                   (33, 2048, 2048), (64, 8192, 2048), (256, 2048, 2048),
+                                   (8, 1152, 6912)])
+def test_nm_spmm_int8_bitwise_plain_and_first_body_on_card(cuda_device, b, k, o, n):
+    """The plan's body (the s8 stream where int8_plan says so) is bitwise the
+    plain version and the first body: the raw int32, bf16 / fp32 with bias
+    and gelu, the requantized codes; the masked int8 single (the shared
+    body) bitwise it on the same rows."""
+    from repro_torch.kernels.actsparse import block_maps
+    from repro_torch.kernels.nm_spmm import kernel as nk
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_int8_ref, nm_spmm_int8_requant_ref
+    xq, ops, xs, ws = _int8_stream_case(cuda_device, b, k, o, n, seed=b + n)
+    bias = torch.randn(o, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                       device=cuda_device)
+    gelu = EpilogueSpec(act="gelu", bias=True)
+    forms = [((None, None), {}),
+             ((xs, ws), {"out_dtype": torch.bfloat16}),
+             ((xs, ws), {"out_dtype": torch.float32, "epilogue": EpilogueSpec(bias=True),
+                         "bias": bias}),
+             ((xs, ws), {"out_dtype": torch.float32, "epilogue": gelu, "bias": bias})]
+    for scales, kw in forms:
+        before = nk.nm_spmm_int8.launches
+        got = nk.nm_spmm_int8(xq, *ops, *scales, n, **kw)
+        with _first_body():
+            first = nk.nm_spmm_int8(xq, *ops, *scales, n, **kw)
+        torch.cuda.synchronize()
+        assert nk.nm_spmm_int8.launches == before + 2
+        assert torch.equal(got, first), kw
+        want = nm_spmm_int8_ref(xq, *ops, *scales, n, **kw)
+        if kw.get("epilogue") is gelu:       # tanhf against torch's tanh
+            assert_scaled_close(got, want, 1e-2)
+        else:
+            assert torch.equal(got, want), kw
+    y = nk.nm_spmm_int8(xq, *ops, xs, ws, n, out_dtype=torch.float32)
+    rq = (y.abs().amax() / 100).reshape(())
+    spec = EpilogueSpec(bias=True)
+    codes = nk.nm_spmm_int8_requant(xq, *ops, xs, ws, n, rq, epilogue=spec, bias=bias)
+    with _first_body():
+        first = nk.nm_spmm_int8_requant(xq, *ops, xs, ws, n, rq, epilogue=spec, bias=bias)
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.int8 and torch.equal(codes, first)
+    assert torch.equal(codes, nm_spmm_int8_requant_ref(xq, *ops, xs, ws, n, rq, epilogue=spec,
+                                                       bias=bias))
+    live = torch.rand(k // 64, generator=torch.Generator(device=cuda_device).manual_seed(4),
+                      device=cuda_device) < 0.4
+    xm = xq * live.repeat_interleave(64).to(torch.int8)
+    maps = block_maps(xm, _build.block_rows(b), 64)
+    masked = nk.nm_spmm_masked_int8(xm, *ops, *maps, n, xs, ws, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(masked, nk.nm_spmm_int8(xm, *ops, xs, ws, n, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.4, 1.0])
+@pytest.mark.parametrize("k,o", [(1536, 4096), (4096, 1536)])
+@pytest.mark.parametrize("b", [1, 8, 64, 100])
+def test_tile_gemm_masked_fp8_bitwise_tile_gemm_fp8_on_card(cuda_device, b, k, o, share):
+    """qwen3-moe's expert shapes: bitwise tile_gemm_fp8 on the same masked
+    rows (raw, bf16, fp32 with bias + silu) and its requantized codes
+    bitwise tile_gemm_fp8_requant's, wherever both share a body (every
+    point below 256 rows); the same bits on a second launch."""
+    from repro_torch.kernels.actsparse import block_maps
+    from repro_torch.kernels.tile_gemm import kernel as tk
+    from repro_torch.kernels.tile_gemm.kernel import fp8_plan as tile_fp8_plan
+    from repro_torch.kernels.tile_gemm.kernel import masked_fp8_plan
+    g = torch.Generator(device=cuda_device).manual_seed(b)
+    leaf = quantize_linear({"w": torch.randn(k, o, generator=g, device=cuda_device)
+                            * k ** -0.5}, FP8)
+    w, ws = leaf["w"], leaf["scale"].reshape(1, -1)
+    live = torch.zeros(k // 64, dtype=torch.bool, device=cuda_device)
+    live[torch.randperm(k // 64, generator=g, device=cuda_device)[:round(share * k // 64)]] = True
+    x = torch.randn(b, k, generator=g, device=cuda_device).bfloat16() * live.repeat_interleave(
+        64).to(torch.bfloat16)
+    xq, xs = quantize_rows(x, FP8)
+    maps = block_maps(xq, _build.block_rows(b), 64)
+    bias = torch.randn(o, generator=g, device=cuda_device)
+    silu = EpilogueSpec(act="silu", bias=True)
+    assert masked_fp8_plan(b, k, o)["body"] == tile_fp8_plan(b, k, o)["body"]
+    for scales, kw in (((None, None), {}), ((xs, ws), {"out_dtype": torch.bfloat16}),
+                       ((xs, ws), {"out_dtype": torch.float32, "epilogue": silu,
+                                   "bias": bias})):
+        got = tk.tile_gemm_masked_fp8(xq, w, *maps, *scales, **kw)
+        again = tk.tile_gemm_masked_fp8(xq, w, *maps, *scales, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.tile_gemm_fp8(xq, w, *scales, **kw)), (share, kw)
+        assert torch.equal(got, again)
+    y = tk.tile_gemm_fp8(xq, w, xs, ws, out_dtype=torch.float32)
+    rq = (y.abs().amax() / 300 + 1e-6).reshape(())
+    gelu = EpilogueSpec(act="gelu", bias=True)
+    codes = tk.tile_gemm_masked_fp8(xq, w, *maps, xs, ws, epilogue=gelu, bias=bias,
+                                    requant_scale=rq)
+    want = tk.tile_gemm_fp8_requant(xq, w, xs, ws, rq, epilogue=gelu, bias=bias)
+    torch.cuda.synchronize()
+    assert codes.dtype == FP8 and torch.equal(codes.view(torch.uint8), want.view(torch.uint8))
+
 
 
 # ------------------------------------------------ K11, the K-major gather
