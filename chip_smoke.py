@@ -335,11 +335,13 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "tile_gemm_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
            "nm_spmm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            # tile_gemm_masked_fp8's (tile_gemm_fp8's dense stream, MASKED) and
-           # nm_spmm_int8's (the s8 form of nm_spmm_fp8's stream; each
+           # the int8 singles' (the s8 forms of nm_spmm_fp8's sparse stream, of
+           # tile_gemm_fp8's dense one and of K8 fp8's gathered one; each
            # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it)
-           "tile_gemm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
-           "nm_spmm_int8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
-           "nm_spmm_int8_requant": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
+           **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
+              for name in ("tile_gemm_masked_fp8", "nm_spmm_int8", "nm_spmm_int8_requant",
+                           "tile_gemm_int8", "tile_gemm_int8_requant",
+                           "nm_spmm_gather_bk_int8", "nm_spmm_gather_bk_int8_requant")},
            # the bf16 nm_spmm_gather_bk_masked's stream where K8 streams (K8's,
            # MASKED; gemm.cu's shared body elsewhere)
            "nm_spmm_gather_bk_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
@@ -517,9 +519,9 @@ def earlier_kernels():
     nm_spmm_gather_bk_fp8 (and _requant), tile_gemm_dual_fp8 (and _requant),
     nm_spmm_gather_fp8, nm_spmm_dual (float), nm_spmm_masked (bf16),
     tile_gemm_masked (bf16), nm_spmm_masked_fp8, nm_spmm_gather_bk_masked
-    (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8
-    and nm_spmm_int8 (and _requant) wrappers launch the
-    port's first bodies (``flash_attention_wmma.cu``;
+    (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8,
+    nm_spmm_int8, tile_gemm_int8 and nm_spmm_gather_bk_int8 (each and
+    _requant) wrappers launch the port's first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu, gemm_int8.cu and gemm_fp8.cu at every n
     and row count,
     ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
@@ -530,9 +532,10 @@ def earlier_kernels():
     ``vg_nm_spmm_dual_tiled``, ``vg_nm_spmm_masked_tiled``, and
     ``vg_tile_gemm_masked`` / ``vg_nm_spmm_masked_fp8`` /
     ``vg_nm_spmm_gather_bk_masked`` / ``vg_nm_spmm_gather_dual_bk_fp8`` /
-    ``vg_tile_gemm_masked_fp8`` / ``vg_nm_spmm_int8`` at
-    body 0, split 1, at the row block the first form took: 16 up to 16
-    rows, else 64; the masked ones at their maps' row block) instead of the current
+    ``vg_tile_gemm_masked_fp8`` / ``vg_nm_spmm_int8`` / ``vg_tile_gemm_int8``
+    / ``vg_nm_spmm_gather_bk_int8`` at body 0, split 1, at the row block the
+    first form took: 16 up to 16 rows, else 64; the masked ones at their
+    maps' row block) instead of the current
     ones: the ``earlier_ms`` yardstick, through the same wrappers and
     checks."""
     from repro_torch.kernels import _build
@@ -613,6 +616,15 @@ def earlier_kernels():
     def nm_spmm_int8_tiled(*args):
         return int8.vg_nm_spmm_int8(*args[:-3], 0, 1, args[-1])
 
+    # tile_gemm_int8 and K8 int8 likewise, at the first form's row block (K8
+    # int8's plan runs 16-row tiles past 16 rows; b: args[7] / args[8])
+    def tile_gemm_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return int8.vg_tile_gemm_int8(*args[:12], _build.block_rows(args[7]), 0, 1, args[-1])
+
+    def nm_spmm_gather_bk_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return int8.vg_nm_spmm_gather_bk_int8(*args[:14], _build.block_rows(args[8]), 0, 1,
+                                              args[-1])
+
     # K9 fp8 reaches its shared body through its own entry, at the row block
     # the first form took (its plan runs 16-row tiles past 16 rows; b: args[10])
     def nm_spmm_gather_dual_bk_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
@@ -638,7 +650,9 @@ def earlier_kernels():
                                               vg_tile_gemm_masked_fp8=tile_gemm_masked_fp8_tiled,
                                               vg_nm_spmm_gather_dual_bk_fp8=(
                                                   nm_spmm_gather_dual_bk_fp8_tiled))
-    _build._libs["gemm_int8.cu"] = _EarlierLib(int8, vg_nm_spmm_int8=nm_spmm_int8_tiled)
+    _build._libs["gemm_int8.cu"] = _EarlierLib(
+        int8, vg_nm_spmm_int8=nm_spmm_int8_tiled, vg_tile_gemm_int8=tile_gemm_int8_tiled,
+        vg_nm_spmm_gather_bk_int8=nm_spmm_gather_bk_int8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -960,18 +974,16 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
                 ops = [(xq, xs, lf) for lf in lfs]
                 lib_fn, lib_ops = library(xq, xs, lfs)
                 kc = k * n // 4
-                extra = {}
-                if fp8 or n < 4:     # the redesigned bodies, beside the first one
-                    t_run, extra["earlier_ms"] = in_turns(run, ops)
-                    extra["plan"] = (tk.fp8_plan(b, k, o) if n == 4 else
-                                     (nk.fp8_plan if fp8 else nk.int8_plan)(b, k, o, n))
-                    again = run(xq, None, lfs[0])
-                    torch.cuda.synchronize()
-                    if not torch.equal(raw, again):
-                        fail(f"{names[n][0]} B={b} K={k} O={o} n={n}: the raw accumulator "
-                             f"is not the same bits on a second launch")
-                else:
-                    t_run = time_ms(run, ops)
+                # the redesigned bodies, beside the first one
+                t_run, earlier = in_turns(run, ops)
+                extra = {"earlier_ms": earlier,
+                         "plan": ((tk.fp8_plan if fp8 else tk.int8_plan)(b, k, o) if n == 4
+                                  else (nk.fp8_plan if fp8 else nk.int8_plan)(b, k, o, n))}
+                again = run(xq, None, lfs[0])
+                torch.cuda.synchronize()
+                if not torch.equal(raw, again):
+                    fail(f"{names[n][0]} B={b} K={k} O={o} n={n}: the raw accumulator "
+                         f"is not the same bits on a second launch")
                 record(names[n][0], b, k, o, n, run(*ops[0]), ref(*ops[0]),
                        t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                        b * k + 4 * b + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o,
@@ -1043,7 +1055,7 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
     (the gather runs outside the timed region: no library GEMM gathers):
     torch.matmul, torch._int_mm, torch._scaled_mm; for the duals the two
     library calls (gate, up) on their own gathered X.  The redesigned bodies
-    (bf16 K8 and K9; e4m3 K8, K9 and K9's requantizing form) must give the
+    (bf16 K8 and K9; e4m3 K8, K9 and K9's requantizing form; int8 K8) must give the
     same bits on a second launch and are timed in turns with their first
     bodies (``earlier_ms``), their plans beside them.  Bound: values +
     index (+ scales) + x (B, K_eff) + output bytes over 3.35 TB/s."""
@@ -1143,18 +1155,17 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                 lib_fn, lib_ops = library(x, xs, lfs, n)
                 kc = k * n // 4
                 xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
-                extra = {}
-                if not int8:     # the redesigned bodies (bf16, e4m3), beside the first one
-                    got = run(*ops[0])
-                    again = run(*ops[0])
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, again):
-                        fail(f"nm_spmm_gather_bk{sfx} B={b} K={k} O={o} n={n}: not the same "
-                             f"bits on a second launch")
-                    t_run, extra["earlier_ms"] = in_turns(run, ops)
-                    extra["plan"] = gk.fp8_plan(b, k, o, n) if fp8 else gk.plan(b, k, o, n)
-                else:
-                    t_run = time_ms(run, ops)
+                # the redesigned bodies (every class), beside the first one
+                got = run(*ops[0])
+                again = run(*ops[0])
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"nm_spmm_gather_bk{sfx} B={b} K={k} O={o} n={n}: not the same "
+                         f"bits on a second launch")
+                t_run, earlier = in_turns(run, ops)
+                extra = {"earlier_ms": earlier,
+                         "plan": (gk.fp8_plan if fp8 else gk.int8_plan if int8
+                                  else gk.plan)(b, k, o, n)}
                 record(f"nm_spmm_gather_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
                        t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                        xbytes + wbytes(k, o, n) + 2 * b * o, 2 * b * kc * o, peak=peak,
@@ -1703,9 +1714,10 @@ LAYOUT_MODULES = {"dense": ("tile_gemm", "tile_gemm"), "compressed": ("nm_spmm",
 def requant_single_phase(cfg, gen, card_line, rows, qdtype):
     """The six ``*_requant`` singles of one class (int8 or e4m3) at the
     gelu w_in shape, B in {8, 64, 256}, act gelu, against the scale a
-    calibration on these rows would give w_out (absmax / qmax): codes equal
-    to the plain version's but one code / one e4m3 step on at most
-    REQUANT_SHARE of them.  Timed beside the plain version, the unfused
+    calibration on these rows would give w_out (absmax / qmax): int8 codes
+    equal to the plain version's, e4m3 codes but one step on at most
+    REQUANT_SHARE of them.  Timed in turns with the first body
+    (``earlier_ms``, the plan printed), beside the plain version, the unfused
     path the port ran before the single-GEMM requantize (the same kernel
     storing bf16 rows, then ``quantize_rows_static`` against the same
     scale) and the class's library call on the same operands
@@ -1782,6 +1794,11 @@ def requant_single_phase(cfg, gen, card_line, rows, qdtype):
             if delta.max().item() > 1 or share > REQUANT_SHARE:
                 fail(f"{name} B={b} n={n}: codes off by up to {delta.max().item()} step(s) "
                      f"on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
+            # the int8 singles' bodies (the s8 streams, the first body) sum
+            # exactly: their codes are the plain version's
+            if not fp8 and delta.max().item() != 0:
+                fail(f"{name} B={b} n={n}: codes off by up to {delta.max().item()} code(s) "
+                     f"on {share:.2e} of the elements (not 0)")
             ops = [(xq, xs, lf) for lf in lfs]
             if layout == "gather":
                 xl = [gather_columns(xq, lf["gather_idx"], n) for lf in lfs]
@@ -1794,17 +1811,12 @@ def requant_single_phase(cfg, gen, card_line, rows, qdtype):
                            for x_, lf in zip(xl, lfs)]
             else:
                 lib_fn, lib_ops = int_mm_padded, [(x_, lf["lib"]) for x_, lf in zip(xl, lfs)]
-            extra = {}
-            if name in ("nm_spmm_fp8_requant", "tile_gemm_fp8_requant",
-                        "nm_spmm_gather_bk_fp8_requant", "nm_spmm_int8_requant"):
-                # the redesigned bodies, beside the first one
-                t_run, extra["earlier_ms"] = in_turns(run, ops)
-                extra["plan"] = (km.fp8_plan(b, k, o, requant=True) if layout == "dense"
-                                 else km.fp8_plan(b, k, o, n, requant=True)
-                                 if layout == "gather" else
-                                 (km.fp8_plan if fp8 else km.int8_plan)(b, k, o, n))
-            else:
-                t_run = time_ms(run, ops)
+            # the redesigned bodies (every one now), beside the first one
+            t_run, earlier = in_turns(run, ops)
+            dims = (b, k, o) if layout == "dense" else (b, k, o, n)
+            plan = (km.fp8_plan(*dims, **({} if layout == "compressed" else {"requant": True}))
+                    if fp8 else km.int8_plan(*dims))
+            extra = {"earlier_ms": earlier, "plan": plan}
             record(name, b, k, o, n, got, want, t_run, time_ms(plain, ops),
                    time_ms(lib_fn, lib_ops), b * k + 4 * b + wb + b * o + 4, 2 * b * kc * o,
                    peak=FP8_OPS if fp8 else INT8_OPS, tol=None, off_by_one_share=share,
@@ -2296,17 +2308,20 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     (an MoE's expert gate-up), the bf16 nm_spmm_gather_bk_masked at K8's
     plan on the spgemm gather path's w_out, K11 fp8 (nm_spmm_gather_fp8) on
     a sharded fp8 gather model's two row-parallel sites (their local K),
-    tile_gemm_masked_fp8 on the spgemm path's dense fp8 w_out, and
-    nm_spmm_int8 (and _requant) at every site an int8 compressed model runs
-    it, at each of ``rows``."""
+    tile_gemm_masked_fp8 on the spgemm path's dense fp8 w_out, and the int8
+    singles, nm_spmm_int8, tile_gemm_int8 and nm_spmm_gather_bk_int8 (and
+    their _requant forms), at every site an int8 compressed, dense or
+    gather model runs them, at each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
     from repro_torch.kernels.nm_spmm.kernel import fp8_plan as nm_fp8_plan
     from repro_torch.kernels.nm_spmm.kernel import int8_plan, split_k
+    from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_int8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_dual_plan as gather_fp8_dual_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_fp8_plan, masked_plan
+    from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_int8_plan
 
     spgemm = bool(cfg.num_experts) and cfg.moe_expert_path == "spgemm" and mesh == 1
     k, o = cfg.d_ff, cfg.d_model                # an expert's w_out
@@ -2327,18 +2342,21 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     if spgemm and layout == "dense" and qdtype == "fp8":
         return {"tile_gemm_masked_fp8": {f"B={b} K={k} O={o}": masked_fp8_plan(b, k, o)
                                          for b in rows[:2]}}
-    if layout == "compressed" and qdtype == "int8" and mesh == 1:
+    if qdtype == "int8" and mesh == 1:
         # the attention sites, and the MLP's where no expert (masked) runs
-        # it: a gelu MLP's w_in (nm_spmm_int8_requant on static scales) and
+        # it: a gelu MLP's w_in (the _requant form on static scales) and
         # every w_out (a swiglu gate-up is the dual)
-        n = sparsity[0]
         sites = [(cfg.d_model, cfg.attn_dim), (cfg.d_model, cfg.kv_dim),
                  (cfg.attn_dim, cfg.d_model)]
         if not cfg.num_experts:
             sites += [(cfg.d_ff, cfg.d_model)] + \
                 ([(cfg.d_model, cfg.d_ff)] if cfg.act == "gelu" else [])
-        return {"nm_spmm_int8": {f"B={b} K={k} O={o}": int8_plan(b, k, o, n)
-                                 for b in rows for k, o in sites}}
+        name, plan_of = {"compressed": ("nm_spmm_int8", lambda b, k, o: int8_plan(
+                             b, k, o, sparsity[0])),
+                         "dense": ("tile_gemm_int8", tile_int8_plan),
+                         "gather": ("nm_spmm_gather_bk_int8", lambda b, k, o: gather_int8_plan(
+                             b, k, o, sparsity[0]))}[layout]
+        return {name: {f"B={b} K={k} O={o}": plan_of(b, k, o) for b in rows for k, o in sites}}
     if spgemm and layout == "compressed" and qdtype == "fp8":
         n = sparsity[0]
         return {"nm_spmm_masked_fp8": {
@@ -3105,7 +3123,7 @@ def prefill_kernel_phase(base_cfg, prefill_runs, batch_shape, gen, card_line, ro
             want = plain(*ops[0])
             extra = {"bitwise": bool(torch.equal(got, want))} if int8 and site == "gelu" else {}
             if name in ("nm_spmm", "tile_gemm", "tile_gemm_fp8", "nm_spmm_gather_bk",
-                        "tile_gemm_dual", "nm_spmm_gather_dual_bk"):
+                        "tile_gemm_dual", "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8"):
                 # the redesigned bodies, beside the first
                 if site == "dual":
                     again = run(*ops[0])
@@ -3117,6 +3135,8 @@ def prefill_kernel_phase(base_cfg, prefill_runs, batch_shape, gen, card_line, ro
                     extra["plan"] = km.fp8_plan(m, k, o)
                 elif name == "nm_spmm_gather_bk":
                     extra["plan"] = km.plan(m, k, o, n)
+                elif name == "nm_spmm_gather_bk_int8":
+                    extra["plan"] = km.int8_plan(m, k, o, n)
                 elif name == "tile_gemm_dual":
                     extra["plan"] = km.dual_plan(m, k, o)
                 elif name == "nm_spmm_gather_dual_bk":
@@ -3641,15 +3661,17 @@ def main():
     log(f"serving phase {time.perf_counter() - t_serving:.1f}s")
     # the decode steps that run the float nm_spmm_dual, the bf16 nm_spmm_masked,
     # the bf16 tile_gemm_masked, nm_spmm_masked_fp8, the bf16
-    # nm_spmm_gather_bk_masked, K9 fp8, tile_gemm_masked_fp8 and nm_spmm_int8
+    # nm_spmm_gather_bk_masked, K9 fp8, tile_gemm_masked_fp8, nm_spmm_int8,
+    # tile_gemm_int8 and nm_spmm_gather_bk_int8
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
             if res["layout"] in ("2:4", "1:4", "2:4/int8", "1:4/int8", "2:4/int8/static",
+                                 "dense/int8", "gather-2:4/int8", "gather-1:4/int8",
                                  "moe-spgemm/2:4", "moe-spgemm/dense",
                                  "moe-spgemm/dense/fp8", "moe-spgemm/2:4/fp8",
                                  "moe-spgemm/gather-2:4", "moe-spgemm/gather-2:4/fp8")}
     log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, int8 2:4 and 1:4, "
-        f"static int8 2:4, qwen3-moe spgemm bf16 2:4, bf16 dense, fp8 dense, fp8 2:4, "
-        f"bf16 gather 2:4, fp8 gather 2:4): {json.dumps(busy)}")
+        f"static int8 2:4, int8 dense, gather 2:4 and 1:4, qwen3-moe spgemm bf16 2:4, bf16 "
+        f"dense, fp8 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4): {json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3709,7 +3731,9 @@ def main():
               "nm_spmm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               "tile_gemm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               **{name: (SOURCES["nm_spmm_fp8"], SOURCES["int8"])
-                 for name in ("nm_spmm_int8", "nm_spmm_int8_requant")},
+                 for name in ("nm_spmm_int8", "nm_spmm_int8_requant", "tile_gemm_int8",
+                              "tile_gemm_int8_requant", "nm_spmm_gather_bk_int8",
+                              "nm_spmm_gather_bk_int8_requant")},
               "nm_spmm_gather_bk_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),
@@ -3783,8 +3807,8 @@ def main():
                 "name": name, "route": "cuda",
                 "source": SOURCES[{"nm_spmm_fp8_requant": "nm_spmm_fp8",
                                    "tile_gemm_fp8_requant": "nm_spmm_fp8",
-                                   "nm_spmm_gather_bk_fp8_requant": "nm_spmm_fp8",
-                                   "nm_spmm_int8_requant": "nm_spmm_int8"}.get(name, q)],
+                                   "nm_spmm_gather_bk_fp8_requant": "nm_spmm_fp8"}.get(
+                                       name, name if name in SOURCES else q)],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -61,11 +61,11 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_gather_dual_bk_tiled": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
     "gemm_int8.cu": {
-        "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
+        "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
-        "vg_nm_spmm_gather_bk_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_masked_int8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
@@ -102,6 +102,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_mma_sp_probe": (_P,) * 5,
         "vg_mma_sp_probe_e4m3": (_P,) * 5,
         "vg_mma_sp_probe_s8": (_P,) * 5,
+        "vg_mma_probe_e4m3": (_P,) * 5,
+        "vg_mma_probe_s8": (_P,) * 5,
     },
 }
 

@@ -31,10 +31,16 @@
 // nm_spmm_int8 (and _requant) at n in {1, 2} runs the s8 form of
 // nm_spmm_sp_fp8.cuh's sparse stream (mma.sp m16n8k64 s8 -> s32, the K loop
 // split over a cluster, int32 partials summed in rank order) wherever
-// nm_spmm/kernel.py::int8_plan picks it, flushed by SingleFlushI8 below in
-// this file's order: the same bits as this body, int32 sums being exact in
-// any order.  vg_nm_spmm_int8 at body 0, split 1 reaches this file's body,
-// the form the port ran first, as its yardstick.
+// nm_spmm/kernel.py::int8_plan picks it; tile_gemm_int8 (and _requant) the
+// s8 form of its dense stream (two mma.sync m16n8k32 s8 -> s32 a step)
+// wherever tile_gemm/kernel.py::int8_plan picks it; and K8 int8
+// (nm_spmm_gather_bk_int8 and _requant) at n in {1, 2} that dense stream
+// with the gathered X (the step's span, select16) wherever
+// nm_spmm_gather/kernel.py::int8_plan picks it.  Each is flushed by
+// SingleFlushI8 below in this file's order (ws first for the gather): the
+// same bits as this body, int32 sums being exact in any order.  Their
+// entries at body 0, split 1 reach this file's body, the form the port ran
+// first, as its yardstick.
 //
 // ONE templated body serves all ten, as in gemm.cu: the template takes the
 // weight loader (dense int8, or N:4 int8 values + 2-bit packed meta), the
@@ -98,8 +104,8 @@
 // halves the bf16 weight bytes, the N:M loader moves n/4 of them plus 2
 // bits per kept value and expands on chip, and loads are 16-byte (dense)
 // or 8-byte (N:M) vector loads along O.  As in gemm.cu this body's launch is
-// O/64 blocks with a serial K loop; nm_spmm_int8's s8 stream (above) splits
-// K over a cluster, and the other kernels' split-K and wgmma are later work.
+// O/64 blocks with a serial K loop; the s8 streams (above) split K over a
+// cluster, and the other kernels' split-K and wgmma are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -385,10 +391,12 @@ __device__ __forceinline__ int8_t requant_int8(float y, float scale) {
   return static_cast<int8_t>(__float2int_rn(q));
 }
 
-// The flush of nm_spmm_int8's s8 stream (nm_spmm_sp_fp8.cuh, S8) from its
-// summed int32 accumulator, in gemm_int8_kernel's order: the raw int32
-// (out_kind 2), or dequant (float(acc) * xs[row] * ws[col], __fmul_rn), +
-// bias (__fadd_rn), act, then bf16, fp32 or the int8 code against *rq.
+// The flush of the s8 stream (nm_spmm_sp_fp8.cuh, S8) from its summed int32
+// accumulator, in gemm_int8_kernel's order: the raw int32 (out_kind 2), or
+// dequant (float(acc) * xs[row] * ws[col], __fmul_rn; WS_FIRST, the gather
+// kernels' order: float(acc) * ws[col] * xs[row]), + bias (__fadd_rn), act,
+// then bf16, fp32 or the int8 code against *rq.
+template <bool WS_FIRST>
 struct SingleFlushI8 {
   const float* xs;
   const float* ws;
@@ -403,7 +411,7 @@ struct SingleFlushI8 {
       static_cast<int*>(y)[at] = acc;
       return;
     }
-    float v = dequant(acc, xs[row], ws[col]);
+    float v = dequant_in_order<WS_FIRST>(acc, xs[row], ws[col]);
     if (bias != nullptr) v = __fadd_rn(v, bias[col]);
     v = apply_act(v, act);
     if (out_kind == OUT_I8) static_cast<int8_t*>(y)[at] = requant_int8(v, *rq);
@@ -646,6 +654,23 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The s8 stream's flush arguments (body 1): raw mode takes no scales and no
+// epilogue; the requantized store, and only it, the consumer's scale.
+bool s8_flush_ok(int act, int out_kind, const void* xs, const void* ws, const void* bias,
+                 const void* rq) {
+  const bool raw = out_kind == OUT_I32;
+  return act >= 0 && act <= 2 && out_kind >= 0 && out_kind <= 3 && raw == (xs == nullptr) &&
+         raw == (ws == nullptr) && (!raw || (act == ACT_NONE && bias == nullptr)) &&
+         (out_kind == OUT_I8) == (rq != nullptr);
+}
+
+template <bool WS_FIRST>
+SingleFlushI8<WS_FIRST> s8_flush(const void* xs, const void* ws, const void* bias,
+                                 const void* rq, void* y, int o, int act, int out_kind) {
+  return {static_cast<const float*>(xs), static_cast<const float*>(ws),
+          static_cast<const float*>(bias), static_cast<const float*>(rq), y, o, act, out_kind};
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function launches on the
@@ -658,12 +683,24 @@ int launch_gather(int n, int bm, const void* x, const void* vg, const void* ig,
 // gather).
 extern "C" {
 
+// tile_gemm/kernel.py::int8_plan's body: 1, the s8 dense stream
+// (nm_spmm_sp_fp8.cuh, S8 at N = 4; bm in {16, 64}), K split over `split`
+// blocks of a cluster (a power of two up to min(8, k / 64)); 0, this file's
+// body, split 1
 int vg_tile_gemm_int8(const void* x, const void* w, const void* xs, const void* ws,
                       const void* bias, const void* rq, void* y, int b, int k, int o, int act,
-                      int out_kind, int bm, void* stream) {
-  return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr,
-                                       nullptr, xs, ws, nullptr, bias, rq, y, b, k, k, o, act,
-                                       out_kind, stream);
+                      int out_kind, int bm, int body, int split, void* stream) {
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<false, DenseLoader>(bm, x, nullptr, nullptr, w, nullptr, nullptr,
+                                         nullptr, nullptr, xs, ws, nullptr, bias, rq, y, b, k,
+                                         k, o, act, out_kind, stream);
+  }
+  if (body != 1 || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_s8(4, bm, x, w, nullptr, s8_flush<false>(xs, ws, bias, rq, y, o, act,
+                                                                out_kind),
+                         b, k, o, split, stream);
 }
 
 int vg_tile_gemm_masked_int8(const void* x, const void* w, const void* kmask, const void* xs,
@@ -696,17 +733,11 @@ int vg_nm_spmm_int8(const void* x, const void* values, const void* meta, const v
     return launch_nm<false>(n, bm, x, values, meta, nullptr, nullptr, nullptr, xs, ws, nullptr,
                             bias, rq, y, b, k, o, act, out_kind, stream);
   }
-  // raw mode takes no scales and no epilogue; the requantized store, and
-  // only it, the consumer's scale
-  const bool raw = out_kind == OUT_I32;
-  if (body != 1 || (n != 1 && n != 2) || act < 0 || act > 2 || out_kind < 0 || out_kind > 3 ||
-      raw != (xs == nullptr) || raw != (ws == nullptr) ||
-      (raw && (act != ACT_NONE || bias != nullptr)) || (out_kind == OUT_I8) != (rq != nullptr))
+  if (body != 1 || (n != 1 && n != 2) || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SingleFlushI8 flush{static_cast<const float*>(xs), static_cast<const float*>(ws),
-                            static_cast<const float*>(bias), static_cast<const float*>(rq), y,
-                            o, act, out_kind};
-  return spf8::launch_s8(n, bm, x, values, meta, flush, b, k, o, split, stream);
+  return spf8::launch_s8(n, bm, x, values, meta,
+                         s8_flush<false>(xs, ws, bias, rq, y, o, act, out_kind), b, k, o, split,
+                         stream);
 }
 
 int vg_nm_spmm_masked_int8(const void* x, const void* values, const void* meta,
@@ -726,13 +757,25 @@ int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g
                          nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
-// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of values
+// k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of
+// values.  nm_spmm_gather/kernel.py::int8_plan's body: 1, the s8 dense
+// stream with the gathered X (nm_spmm_sp_fp8.cuh, S8, G = n in {1, 2}; bm in
+// {16, 64}), K_c split over `split` blocks of a cluster (a power of two up to
+// min(8, K_c / 64)), flushed ws first; 0, this file's body at any n, split 1
 int vg_nm_spmm_gather_bk_int8(const void* x, const void* values, const void* idx,
                               const void* xs, const void* ws, const void* bias, const void* rq,
                               void* y, int b, int k, int o, int n, int act, int out_kind, int bm,
-                              void* stream) {
-  return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
-                              nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+                              int body, int split, void* stream) {
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false>(n, bm, x, values, idx, nullptr, nullptr, nullptr, xs, ws,
+                                nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2) || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_gather<spf8::S8>(n, bm, x, values, idx,
+                                       s8_flush<true>(xs, ws, bias, rq, y, o, act, out_kind), b,
+                                       k, o, split, stream);
 }
 
 int vg_nm_spmm_gather_bk_masked_int8(const void* x, const void* values, const void* idx,

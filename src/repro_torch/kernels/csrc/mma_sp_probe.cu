@@ -1,14 +1,17 @@
-// Probes of Hopper's sparse tensor-core instructions, for the operand
-// layouts the sparse bodies rely on:
+// Probes of Hopper's tensor-core instructions, for the operand layouts the
+// streaming bodies rely on:
 //
 //   mma.sp.sync.aligned.m16n8k32.row.col.f32.bf16.bf16.f32   (nm_spmm_sp.cuh)
 //   mma.sp.sync.aligned.m16n8k64.row.col.f32.e4m3.e4m3.f32   (nm_spmm_sp_fp8.cuh)
 //   mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32       (its s8 form)
+//   mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32      (its dense stream, N = 4)
+//   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32          (that stream's s8 form)
 //
 // One warp loads its operand registers exactly as the host lays them out
-// (4 words of A, 4 of B and one metadata word per lane), runs one
-// instruction with sparsity selector 0, and stores its 4 results per lane
-// (fp32, or s32 for s8).  The host (kernels/mma_sp_probe.py) owns every layout assumption:
+// (4 words of A, 4 of B and one metadata word per lane; the dense forms
+// read 2 words of B and no metadata), runs one instruction (the sparse
+// ones with sparsity selector 0), and stores its 4 results per lane (fp32,
+// or s32 for s8).  The host (kernels/mma_sp_probe.py) owns every layout assumption:
 // it builds the registers from a known 2:4 A and a dense B, and compares
 // the product with the plain one, so the fragment maps of A, B, D and the
 // metadata word are pinned on the card without a rebuild.  Bound: none
@@ -19,7 +22,7 @@
 
 namespace {
 
-enum { BF16 = 0, E4M3 = 1, S8 = 2 };
+enum { BF16 = 0, E4M3 = 1, S8 = 2, DENSE_E4M3 = 3, DENSE_S8 = 4 };
 
 template <int KIND>
 __global__ void mma_sp_probe_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
@@ -28,7 +31,22 @@ __global__ void mma_sp_probe_kernel(const uint32_t* __restrict__ a, const uint32
   float c[4] = {0.f, 0.f, 0.f, 0.f};
   const uint4 av = reinterpret_cast<const uint4*>(a)[lane];
   const uint4 bv = reinterpret_cast<const uint4*>(b)[lane];
-  if constexpr (KIND == S8) {
+  if constexpr (KIND == DENSE_S8) {
+    int ci[4] = {0, 0, 0, 0};
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(ci[0]), "+r"(ci[1]), "+r"(ci[2]), "+r"(ci[3])
+        : "r"(av.x), "r"(av.y), "r"(av.z), "r"(av.w), "r"(bv.x), "r"(bv.y));
+    reinterpret_cast<int4*>(d)[lane] = make_int4(ci[0], ci[1], ci[2], ci[3]);
+    return;
+  } else if constexpr (KIND == DENSE_E4M3) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(av.x), "r"(av.y), "r"(av.z), "r"(av.w), "r"(bv.x), "r"(bv.y));
+  } else if constexpr (KIND == S8) {
     int ci[4] = {0, 0, 0, 0};
     asm volatile(
         "mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
@@ -79,6 +97,15 @@ int vg_mma_sp_probe_e4m3(const void* a, const void* b, const void* e, void* d, v
 
 int vg_mma_sp_probe_s8(const void* a, const void* b, const void* e, void* d, void* stream) {
   return launch<S8>(a, b, e, d, stream);
+}
+
+// the dense m16n8k32 forms: b's words 2, 3 and e unused
+int vg_mma_probe_e4m3(const void* a, const void* b, const void* e, void* d, void* stream) {
+  return launch<DENSE_E4M3>(a, b, e, d, stream);
+}
+
+int vg_mma_probe_s8(const void* a, const void* b, const void* e, void* d, void* stream) {
+  return launch<DENSE_S8>(a, b, e, d, stream);
 }
 
 const char* vg_error_string(int code) {

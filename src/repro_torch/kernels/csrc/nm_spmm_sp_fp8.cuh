@@ -3,7 +3,9 @@
 // requantizing flush of nm_spmm_fp8_requant), and with the activation-
 // sparsity skip (MASKED) the same single as nm_spmm_masked_fp8; in its s8
 // form (the element class S8: the same bytes, an int32 accumulator)
-// nm_spmm_int8 and nm_spmm_int8_requant at n in {1, 2}; in DUAL
+// nm_spmm_int8 and nm_spmm_int8_requant at n in {1, 2}, tile_gemm_int8 and
+// tile_gemm_int8_requant (N = 4), and K8 int8 (nm_spmm_gather_bk_int8 and
+// _requant, G = n in {1, 2}); in DUAL
 // form (two weights, two accumulators, one silu(g) * u flush) the
 // compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
 // same streaming body
@@ -23,8 +25,10 @@
 // nm_spmm/kernel.py::fp8_dual_plan,
 // tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
 // ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by gemm_int8.cu, whose
-// vg_nm_spmm_int8 launches the s8 form where nm_spmm/kernel.py::int8_plan
-// picks it.  One body serves both 8-bit classes: the header is not
+// vg_nm_spmm_int8, vg_tile_gemm_int8 and vg_nm_spmm_gather_bk_int8 launch
+// the s8 form where nm_spmm/kernel.py::int8_plan, tile_gemm/kernel.py::
+// int8_plan and nm_spmm_gather/kernel.py::int8_plan pick it.  One body
+// serves both 8-bit classes: the header is not
 // copied per class.  n = 4 of the compressed
 // and gathered kernels, wider launches, the other masked singles and the
 // other int8 kernels keep gemm_fp8.cu's / gemm_int8.cu's
@@ -66,6 +70,14 @@
 //                  (_nm_spmm_quantized, _spmm_q_raw_kernel, _spmm_kernel), n in
 //                  {1, 2}, with the requant:int8 flush in its _requant form, where
 //                  nm_spmm/kernel.py::int8_plan streams
+//   tile_gemm_int8 repro/kernels/tile_gemm/kernel.py::tile_gemm_int8
+//                  (_tile_gemm_quantized, _gemm_q_raw_kernel, _gemm_kernel), with the
+//                  requant:int8 flush in its _requant form, where
+//                  tile_gemm/kernel.py::int8_plan streams
+//   nm_spmm_gather_bk_int8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk,
+//                  quantized (_gather_bk_kernel), n in {1, 2}, with the requant:int8
+//                  flush in its _requant form, where nm_spmm_gather/kernel.py::
+//                  int8_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -223,18 +235,26 @@
 // the same masked X at the same tile and split.  Bound: the live steps'
 // weight rows and X bytes.
 //
-// The s8 form (element class S8: nm_spmm_int8 and _requant, n in {1, 2},
-// the single over a contiguous X).  int8 is one byte like e4m3 and its
-// zero is the byte 0x00 as e4m3's +0 is, so the stage, the per-warp
-// transpose, the 1:4-as-2:4 +0 slots, the metadata word and the operand
-// registers are the e4m3 form's; the instruction is
-// mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32 (its maps pinned by
-// kernels/mma_sp_probe.py), summed in place into int32 registers: integer
-// sums are exact in any order, so no per-64 promotion, and the partial
-// tile, the split's inbox and the rank-order sum hold int32 (splitk's
-// finish on int), never a float.  The flush (gemm_int8.cu's) receives the
-// summed int32: acc raw, or float(acc) * xs * ws, + bias, act, the store.
-// The output is bitwise gemm_int8.cu's first body and the plain version.
+// The s8 form (element class S8): the singles nm_spmm_int8 and _requant (n
+// in {1, 2}, X contiguous), tile_gemm_int8 and _requant (the dense stream, N
+// = 4, X contiguous) and K8 int8, nm_spmm_gather_bk_int8 and _requant (the
+// dense stream with the gathered X, G = n in {1, 2}).  int8 is one byte like
+// e4m3 and its zero is the byte 0x00 as e4m3's +0 is, so the stage, the
+// per-warp transpose, the 1:4-as-2:4 +0 slots, the metadata word, the dense
+// A operand (ldmatrix .trans + __byte_perm), select16's +0 for an index
+// outside [0, 4) and the operand registers are the e4m3 form's; the
+// instructions are mma.sp.sync.aligned.m16n8k64.row.col.s32.s8.s8.s32 and,
+// for the dense weight, two mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
+// a step (mma_s8; the maps of both pinned by kernels/mma_sp_probe.py),
+// summed in place into int32 registers: integer sums are exact in any
+// order, so no per-64 promotion, and the partial tile, the split's inbox
+// and the rank-order sum hold int32 (splitk's finish on int), never a
+// float.  No sum can overflow: the widest K of any config is mistral-large's
+// d_ff, 28,672, and 28,672 x 127^2 ~ 4.6e8 < 2^31 (the codes are clipped to
+// +-127).  The flush (gemm_int8.cu's SingleFlushI8) receives the summed
+// int32: acc raw, or float(acc) * xs * ws (the gather kernels' ws first),
+// + bias, act, the store.  The output is bitwise gemm_int8.cu's first body
+// and the plain version: raw, scaled and requantized.
 
 #pragma once
 
@@ -406,6 +426,17 @@ __device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// D = A (16 x 32, dense) x B (32 x 8) + D, s8 in, s32 out (exact): the
+// fragment maps of mma_e4m3 (pinned on the card by kernels/mma_sp_probe.py)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -422,8 +453,9 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
 // sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
 // kmask is block_maps' (row blocks, k / 64) map; the block walks the live
-// steps of its span only.  Elem: E4M3, or S8 (a compressed single over a
-// contiguous X; the sums, and what flush receives, are int32).
+// steps of its span only.  Elem: E4M3, or S8 (a single, not MASKED: the
+// compressed one over a contiguous X, or the dense one (N = 4) over a
+// contiguous or gathered X; the sums, and what flush receives, are int32).
 template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Elem, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
@@ -435,8 +467,10 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   constexpr bool IS_S8 = std::is_same_v<Elem, S8>;
   static_assert(!MASKED || (G == 0 && !DUAL && !KM),
                 "the masked stream is a single, X contiguous");
-  static_assert(!IS_S8 || ((N == 1 || N == 2) && G == 0 && !DUAL && !KM && !MASKED),
-                "the s8 stream is the compressed single over a contiguous X");
+  static_assert(!IS_S8 || ((((N == 1 || N == 2) && G == 0) || N == 4) && !DUAL && !KM &&
+                            !MASKED),
+                "the s8 stream is a single: compressed over a contiguous X, or dense over a "
+                "contiguous or gathered X");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -647,12 +681,18 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
             if (r0 + j * 8 < rows) {
-              // the 64-deep partial sum (two k32 instructions), promoted into fp32
-              float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_e4m3(part, a[0], bx[j][0], bx[j][1]);
-              mma_e4m3(part, a[1], bx[j][2], bx[j][3]);
+              if constexpr (IS_S8) {   // int32: exact in place
+                mma_s8(acc[w][mt][j], a[0], bx[j][0], bx[j][1]);
+                mma_s8(acc[w][mt][j], a[1], bx[j][2], bx[j][3]);
+              } else {
+                // the 64-deep partial sum (two k32 instructions), promoted into fp32
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_e4m3(part, a[0], bx[j][0], bx[j][1]);
+                mma_e4m3(part, a[1], bx[j][2], bx[j][3]);
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[w][mt][j][e] = __fadd_rn(acc[w][mt][j][e], part[e]);
+                for (int e = 0; e < 4; ++e)
+                  acc[w][mt][j][e] = __fadd_rn(acc[w][mt][j][e], part[e]);
+              }
             }
         }
       }
@@ -839,10 +879,11 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// nm_spmm_int8's body (the s8 form): values + meta_packed int8 at n in {1,
-// 2}, X (b, k) int8, bm in {16, 64}, split a power of two up to min(8, k /
-// 64); flush(row, col, acc) stores one output from its summed int32
-// accumulator
+// The s8 form over a contiguous X (b, k) int8: nm_spmm_int8's body (values +
+// meta_packed int8 at n in {1, 2}) and tile_gemm_int8's (a dense (K, O) int8
+// weight at n = 4, meta unused); bm in {16, 64}, split a power of two up to
+// min(8, k / 64); flush(row, col, acc) stores one output from its summed
+// int32 accumulator
 template <class Flush>
 int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
               int b, int k, int o, int split, void* stream) {
@@ -855,6 +896,8 @@ int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, con
   if (n == 2 && bm == 64) VG_SPF8_S8(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_S8(1, 16);
   if (n == 1 && bm == 64) VG_SPF8_S8(1, 64);
+  if (n == 4 && bm == 16) VG_SPF8_S8(4, 16);
+  if (n == 4 && bm == 64) VG_SPF8_S8(4, 64);
 #undef VG_SPF8_S8
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -882,19 +925,21 @@ int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K8 fp8's few-row body: X (b, ke) e4m3 gathered at n in {1, 2} through idx
-// (K_c = ke * n / 4 int32) against values (K_c, O) as a dense e4m3 weight;
-// bm in {16, 64}, split a power of two up to min(8, K_c / 64)
-template <class Flush>
+// K8's few-row body, e4m3 (Elem E4M3, K8 fp8) or int8 (S8, K8 int8): X (b,
+// ke) gathered at n in {1, 2} through idx (K_c = ke * n / 4 int32) against
+// values (K_c, O) as a dense weight of the class; bm in {16, 64}, split a
+// power of two up to min(8, K_c / 64); flush(row, col, acc) stores one output
+// from its summed fp32 (s8: int32) accumulator
+template <class Elem = E4M3, class Flush>
 int launch_gather(int n, int bm, const void* x, const void* values, const void* idx,
                   const Flush& flush, int b, int ke, int o, int split, void* stream) {
   if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
   if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VG_SPF8_GATHER(GG, BB) \
-  return launch<4, BB, GG, false, false>(x, values, idx, nullptr, nullptr, nullptr, flush, b, \
-                                         kc, o, split, s)
+#define VG_SPF8_GATHER(GG, BB)                                                              \
+  return launch<4, BB, GG, false, false, false, Elem>(x, values, idx, nullptr, nullptr,    \
+                                                      nullptr, flush, b, kc, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16);

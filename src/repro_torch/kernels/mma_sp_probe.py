@@ -1,9 +1,10 @@
-"""Pin the operand layouts of Hopper's sparse tensor-core instructions on
-the card (CUDA source: ``kernels/csrc/mma_sp_probe.cu``).
+"""Pin the operand layouts of Hopper's tensor-core instructions that the
+streaming bodies run on the card (CUDA source:
+``kernels/csrc/mma_sp_probe.cu``).
 
     python -m repro_torch.kernels.mma_sp_probe      # prints one JSON line
 
-Three instructions, each multiplying a 16-row A that is 2:4 sparse along K
+Three sparse instructions, each multiplying a 16-row A that is 2:4 sparse along K
 (held compressed, with 2-bit indices in 32-bit metadata words) by a dense
 B of 8 columns:
 
@@ -44,7 +45,19 @@ probe checks with exact small-integer products.  With ``P`` elements a
 The metadata map is also *discovered*: from a word of (0, 1) everywhere,
 each lane's nibble j in turn is set to (2, 3) and the product tells which
 (row, group) it moved; the probe reports the map it found beside the one
-assumed.  Everything here that is not the one launch runs on the host.
+assumed.
+
+Two dense instructions, 16 x 32 A by 32 x 8 B, which the dense stream
+(N = 4 in ``csrc/nm_spmm_sp_fp8.cuh``: ``tile_gemm_fp8``, K8 fp8 and, in
+its s8 form, ``tile_gemm_int8`` and K8 int8) issues twice a 64-deep step:
+``mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32`` and
+``mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32``.  Their A registers
+are the compressed A's map above over 32 dense columns, B registers 0 and
+1 the B map (K rows 4 t + 16 r .. + 3 of column g), D the same.  The
+probe builds both forms' registers by those maps from one integer A and
+B and holds each product to the plain one (s8 also at full int8 range),
+so s8's A, B and D maps are pinned as e4m3's.  Everything here that is
+not a launch runs on the host.
 """
 
 from __future__ import annotations
@@ -101,7 +114,8 @@ def expand_1of4(packed16: int) -> int:
 
 
 class _Form:
-    """One instruction: its C entry point, element type and K groups a row."""
+    """One instruction: its C entry point, element type and K groups a row
+    (a dense form: ``meta_map`` None, K = 32)."""
 
     def __init__(self, name: str, entry: str, dtype: torch.dtype, groups: int, meta_map):
         self.name, self.entry, self.dtype, self.groups = name, entry, dtype, groups
@@ -112,6 +126,8 @@ class _Form:
 FORMS = (_Form("bf16", "vg_mma_sp_probe", torch.bfloat16, 8, ASSUMED_META_MAP),
          _Form("e4m3", "vg_mma_sp_probe_e4m3", torch.float8_e4m3fn, 16, ASSUMED_META_MAP_E4M3),
          _Form("s8", "vg_mma_sp_probe_s8", torch.int8, 16, ASSUMED_META_MAP_E4M3))
+DENSE_FORMS = (_Form("dense_e4m3", "vg_mma_probe_e4m3", torch.float8_e4m3fn, 8, None),
+               _Form("dense_s8", "vg_mma_probe_s8", torch.int8, 8, None))
 
 
 def _bits(x: np.ndarray, dtype: torch.dtype) -> np.ndarray:
@@ -258,12 +274,30 @@ def _probe_form(card: _Card, form: _Form, rng) -> dict:
             "random_1of4_ok": random_1of4_ok}
 
 
+def _probe_dense(card: _Card, a: np.ndarray, b: np.ndarray, form: _Form) -> bool:
+    """A (16, 32) and B (32, 8) of integers exact in the form's type,
+    registers by the assumed maps: the product is the plain one."""
+    got = card.run(form, _a_regs(a, form), _b_regs(b, form), np.zeros(32, np.uint32))
+    return bool(np.array_equal(got, a.astype(np.float64) @ b.astype(np.float64)))
+
+
 def probe(device: str = "cuda", seed: int = 0) -> dict:
     """Run the checks of every instruction on one card; returns what was
     found (``ok`` True when every map of each is the assumed one)."""
     rng = np.random.default_rng(seed)
     card = _Card(device)
     found = {form.name: _probe_form(card, form, rng) for form in FORMS}
+    # the dense forms on one A and B of small integers (exact in e4m3), and
+    # s8 at full range (|sums| < 2^19: exact in the fp32 compare)
+    a = rng.integers(-3, 4, (16, 32)).astype(np.float32)
+    b = rng.integers(-3, 4, (32, 8)).astype(np.float32)
+    wide = (rng.integers(-127, 128, (16, 32)).astype(np.float32),
+            rng.integers(-127, 128, (32, 8)).astype(np.float32))
+    for form in DENSE_FORMS:
+        checks = {"product_ok": _probe_dense(card, a, b, form)}
+        if form.dtype == torch.int8:
+            checks["full_range_ok"] = _probe_dense(card, *wide, form)
+        found[form.name] = {"ok": all(checks.values()), **checks}
     return {"ok": all(f["ok"] for f in found.values()), **found,
             "device": torch.cuda.get_device_name(torch.device(device))}
 

@@ -78,13 +78,14 @@ from ..tile_gemm.kernel import (ACT_CODES, BODY_CODES, FP8_STREAM16_BLOCKS_PER_S
 from ..tile_gemm.kernel import dual_plan as tile_dual_plan
 from ..tile_gemm.kernel import fp8_dual_plan as tile_fp8_dual_plan
 from ..tile_gemm.kernel import fp8_plan as tile_fp8_plan
+from ..tile_gemm.kernel import int8_plan as tile_int8_plan
 from ..tile_gemm.kernel import plan as tile_plan
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
                   nm_spmm_gather_quantized_ref, nm_spmm_gather_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
-__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "kmajor_fp8_plan",
+__all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "int8_plan", "kmajor_fp8_plan",
            "masked_plan", "fp8_dual_plan",
            "DUAL_SHARED_MAX_KC", "FP8_STREAM16_MAX_ROWS", "KMAJOR_STREAM64_MIN_STEPS",
            "KMAJOR_STREAM_MAX_ROWS",
@@ -235,6 +236,35 @@ def fp8_plan(b: int, ke: int, o: int, n: int, requant: bool = False) -> dict:
     if requant:
         return tile_fp8_plan(b, kc, o, requant=True)
     return {"body": "wgmma", "rows": WGMMA_ROWS, "cols": FP8_WGMMA_COLS, "split": 1}
+
+
+def int8_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_bk_int8``'s (and ``_requant``'s) body, tile and
+    split for ``gather(Xq (b, ke), idx) @ values (ke * n / 4, o)``, int8,
+    over the compressed contraction K_c = ke * n / 4.  n in {1, 2}:
+    ``stream`` (the s8 form of ``csrc/nm_spmm_sp_fp8.cuh``'s gathered
+    stream: the step's X span, the byte select pass, two ``mma.sync``
+    m16n8k32 s8 -> s32 a step, int32 partials) at every row count, with
+    ``tile_gemm.kernel.int8_plan(b, K_c, o)``'s tile and split: K8 fp8's
+    16-row tiles at ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM up to 16
+    rows, and up to 64 while a block walks at most
+    ``INT8_STREAM16_MAX_STEPS`` steps of its split; 64-row tiles at two
+    blocks an SM above (hubert-xlarge's 4,000 prefill rows).  On an H100,
+    700 W (``tools/int8_body_sweep.py``, PERF.md §6) it beat gemm_int8.cu's
+    first body at every swept 2:4 shape of internlm2-1.8b, gemma3-1b's w_in
+    and hubert-xlarge, 8-4,000 rows (internlm2-1.8b's w_out at 8 / 64 /
+    4,000 rows 9.8 / 18.3 / 512 µs against 44.1 / 66.3 / 732; hubert's
+    (5120, 1280) at 4,000 rows 216 against 290), and at 1:4 up to 1,024
+    rows; at 4,000 rows the 1:4 stream is 0-5% slower than the shared body
+    (internlm2-1.8b's q: 140.6 against 133.4), which no path runs.  n = 4
+    keeps ``shared`` (gemm_int8.cu's body, the form the port ran first) at
+    ``block_rows(b)`` rows, split 1.  The int32 sums are exact in any order:
+    every body gives the plain version's bits.  Returns ``{"body", "rows",
+    "cols", "split"}``; ``rows`` is what the C interface takes as ``bm``."""
+    if n not in (1, 2):
+        return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O,
+                "split": 1}
+    return tile_int8_plan(b, ke * n // 4, o)
 
 
 def kmajor_fp8_plan(b: int, ke: int, o: int, n: int) -> dict:
@@ -469,15 +499,18 @@ def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, e
     _build.check_operands(kernel, x_q, values, idx, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values.shape[0], o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
-    # the fp8 single runs the body of its plan (block_b only checked; the
-    # wgmma plan's gather pass writes the compact X into a scratch); int8 and
-    # the masked kernels keep the shared body (no plan)
+    # the singles run the body of their plans (block_b only checked; the fp8
+    # wgmma plan's gather pass writes the compact X into a scratch); the
+    # masked kernels keep the shared body (no plan)
     plan = ()
     if storage == torch.float8_e4m3fn and maps is None:
         p = fp8_plan(b, ke, o, n, requant=requant_scale is not None)
         xg = (torch.empty((b, values.shape[0]), dtype=storage, device=x_q.device)
               if p["body"] == "wgmma" else None)
         bb, plan = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"], _ptr(xg))
+    elif maps is None:
+        p = int8_plan(b, ke, o, n)
+        bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
@@ -498,7 +531,9 @@ def nm_spmm_gather_bk_int8(x_q: torch.Tensor, values: torch.Tensor, idx: torch.T
     """``epilogue(float(gather(Xq, idx) @ values) * w_scale * x_scale)``:
     the int8 codes of the kept columns gathered on chip, contracted into
     an exact int32 accumulator, dequantized once at the flush.  With no
-    scales it returns the raw int32 accumulator."""
+    scales it returns the raw int32 accumulator.  The body, its tile and
+    its K split are :func:`int8_plan`'s (``block_b`` only checked); every
+    body gives the same bits."""
     return _gather_quantized(nm_spmm_gather_bk_int8, torch.int8, x_q, values, idx, x_scale,
                              w_scale, n, epilogue, bias, out_dtype, block_b)
 

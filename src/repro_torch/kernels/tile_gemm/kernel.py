@@ -58,10 +58,10 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "plan", "fp8_plan", "dual_plan", "fp8_dual_plan", "cluster_split",
+__all__ = ["tile_gemm", "plan", "fp8_plan", "int8_plan", "dual_plan", "fp8_dual_plan", "cluster_split",
            "stream_plan", "masked_plan", "masked_fp8_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
            "FP8_WGMMA_COLS", "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
-           "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS",
+           "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS", "INT8_STREAM16_MAX_STEPS",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
            "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
@@ -111,6 +111,11 @@ FP8_STREAM16_BLOCKS_PER_SM = 3
 #: (csrc/tile_gemm_sm90_fp8.cuh, DUAL): 128 of each would need 384
 #: registers a consumer thread
 FP8_DUAL_WGMMA_COLS = 64
+#: the s8 streams keep 16-row tiles past 16 rows (up to 64) while a block
+#: of their split walks at most this many 64-deep steps: on an H100 they won
+#: at 18 steps (gemma3-1b's w_in) and lost at 32 (internlm2-1.8b's w_out at
+#: 33-64 rows)
+INT8_STREAM16_MAX_STEPS = 24
 #: the planners' bodies -> the C interface's ``body`` argument
 BODY_CODES = {"shared": 0, "stream": 1, "wgmma": 2}
 #: the shared body's launch width (O / 64 tiles x row tiles) from which the
@@ -200,6 +205,37 @@ def fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
             (o // _build.BLOCK_O) * -(-b // p["rows"]) >= FP8_SHARED_TILES:
         return {**p, "body": "shared", "split": 1}
     return p
+
+
+def int8_plan(b: int, k: int, o: int) -> dict:
+    """``tile_gemm_int8``'s (and ``_requant``'s) body, tile and split for
+    ``Xq (b, k) @ Wq (k, o)`` (K8 int8's over its K_c): ``stream`` (the s8
+    form of ``csrc/nm_spmm_sp_fp8.cuh``'s dense stream, two ``mma.sync``
+    m16n8k32 s8 -> s32 a step, int32 partials summed in rank order) at
+    every row count, over 64-channel tiles of 16 rows, the K loop split by
+    :func:`cluster_split` at ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM,
+    up to 16 rows, and up to 64 while a block of that split walks at most
+    ``INT8_STREAM16_MAX_STEPS`` 64-deep steps; else over 64-row tiles split
+    at ``BLOCKS_PER_SM`` blocks an SM.  On an H100, 700 W
+    (``tools/int8_body_sweep.py``, PERF.md §6) it beat gemm_int8.cu's
+    first body at every swept shape, 8-4,000 rows at internlm2-1.8b's sites
+    and gemma3-1b's w_in: w_out (8192, 2048) at 8 / 64 / 256 / 4,000 rows
+    10.8 / 19.3 / 49.3 / 470 µs against 81.0 / 101.1 / 99.5 / 1,352; the
+    16-row tiles won where a block walks few steps (gemma3-1b's w_in at
+    17-64 rows, 18 steps: 10.7-14.1 against the 64-row tiles' 13.1-15.2)
+    and lost where it walks many (w_out at 64 rows, 64 steps: 28.5 against
+    19.3); the 64-row tiles at two blocks an SM beat one (w_out at 256
+    rows 49.3 against 82.0).  The int32 sums are exact in any order, so
+    every body gives the plain version's bits and the requantized codes
+    need no plan of their own.  ``tile_gemm_masked_int8`` keeps the shared
+    body.  Returns ``{"body", "rows", "cols", "split"}``."""
+    rows16, rows64 = _build.BLOCK_ROWS
+    steps, cols = k // _build.BLOCK_K, o // _build.BLOCK_O
+    split = cluster_split(cols * -(-b // rows16), steps, FP8_STREAM16_BLOCKS_PER_SM)
+    if b <= rows16 or (b <= rows64 and steps // split <= INT8_STREAM16_MAX_STEPS):
+        return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O, "split": split}
+    return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O,
+            "split": cluster_split(cols * -(-b // rows64), steps)}
 
 
 def masked_fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
@@ -500,13 +536,16 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
     extra = [t for t in (*kmask, x_scale, w_scale, bias32, requant_scale) if t is not None]
     _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
-    # the fp8 singles run the body of their plans (the masked one at its
-    # maps' row block, which must be the plan's); int8 and its masked kernel
-    # keep the shared body (no plan)
+    # the singles run the body of their plans (the masked fp8 one at its
+    # maps' row block, which must be the plan's); the masked int8 single
+    # keeps the shared body (no plan)
     plan_args = ()
     if storage == torch.float8_e4m3fn and maps is None:
         p = fp8_plan(b, k, o, requant=requant_scale is not None)
         bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"])
+    elif maps is None:
+        p = int8_plan(b, k, o)
+        bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["split"])
     elif storage == torch.float8_e4m3fn:
         p = masked_fp8_plan(b, k, o, requant=requant_scale is not None)
         if bb != p["rows"]:
@@ -536,7 +575,9 @@ def tile_gemm_int8(x_q: torch.Tensor, w_q: torch.Tensor,
     int8 x int8 contracted into an exact int32 accumulator, dequantized
     once at the flush.  ``x_q (B, K)`` and ``w_q (K, O)`` int8,
     ``x_scale (B, 1)`` and ``w_scale (1, O)`` float32.  With no scales
-    it returns the raw int32 accumulator (and takes no epilogue)."""
+    it returns the raw int32 accumulator (and takes no epilogue).  The
+    body, its tile and its K split are :func:`int8_plan`'s (``block_b``
+    only checked); every body gives the same bits."""
     return _tile_gemm_quantized(tile_gemm_int8, torch.int8, x_q, w_q, x_scale, w_scale,
                                 epilogue, bias, out_dtype, block_b)
 

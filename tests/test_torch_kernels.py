@@ -40,8 +40,9 @@ and fp8 nm_spmm_gather_bk where their plans say so), BITWISE to themselves
 with every tile live and within 1e-2 of the unmasked kernel (requantized
 fp8 codes: one e4m3 step on at most 0.1% of them); their CPU parity with
 the Pallas masked kernels is in ``tests/test_torch_actsparse.py``.
-nm_spmm_int8 (the s8 stream where int8_plan picks it) is held BITWISE to
-its plain version and to its first body, raw, scaled and requantized, and
+nm_spmm_int8, tile_gemm_int8 and nm_spmm_gather_bk_int8 (the s8 streams
+where their int8_plans pick them) are held BITWISE to their plain versions
+and to their first bodies, raw, scaled and requantized, and
 tile_gemm_masked_fp8 BITWISE to tile_gemm_fp8 (and tile_gemm_fp8_requant's
 codes) at qwen3-moe's expert shapes below 256 rows.
 """
@@ -1032,13 +1033,15 @@ def _int8_stream_case(dev, b, k, o, n, seed=0):
 
 @contextlib.contextmanager
 def _first_body():
-    """nm_spmm_int8's wrapper on gemm_int8.cu's first body (body 0, split 1)."""
+    """The int8 singles' wrappers (nm_spmm_int8, tile_gemm_int8,
+    nm_spmm_gather_bk_int8, each and _requant) on gemm_int8.cu's first body
+    (body 0, split 1, at the plan's row block)."""
     lib = _build.library("gemm_int8.cu")
 
     class _Lib:
         def __getattr__(self, name):
             fn = getattr(lib, name)
-            if name != "vg_nm_spmm_int8":
+            if name not in ("vg_nm_spmm_int8", "vg_tile_gemm_int8", "vg_nm_spmm_gather_bk_int8"):
                 return fn
             return lambda *a: fn(*a[:-3], 0, 1, a[-1])
     saved = _build._libs["gemm_int8.cu"]
@@ -1101,6 +1104,82 @@ def test_nm_spmm_int8_bitwise_plain_and_first_body_on_card(cuda_device, b, k, o,
     masked = nk.nm_spmm_masked_int8(xm, *ops, *maps, n, xs, ws, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert torch.equal(masked, nk.nm_spmm_int8(xm, *ops, xs, ws, n, out_dtype=torch.bfloat16))
+
+
+def _int8_single(dev, layout, b, k, o, n, seed):
+    """(wrapper, requant wrapper, plain, plain requant, weight operands, xq,
+    xs, ws) of tile_gemm_int8 (layout "dense") or K8 int8 ("gather")."""
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+    from repro_torch.kernels.tile_gemm import kernel as tk
+    from repro_torch.kernels.tile_gemm import ref as tr
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(k, o, generator=g, device=dev) * k ** -0.5
+    x = torch.randn(b, k, generator=g, device=dev).bfloat16()
+    x[-1] = 0
+    xq, xs = quantize_rows(x, torch.int8)
+    if layout == "dense":
+        leaf = quantize_linear({"w": w}, torch.int8)
+        return (tk.tile_gemm_int8, tk.tile_gemm_int8_requant, tr.tile_gemm_int8_ref,
+                tr.tile_gemm_int8_requant_ref, (leaf["w"],), (), xq, xs,
+                leaf["scale"].reshape(1, -1))
+    leaf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"), "gather",
+                          quantize=torch.int8)
+    return (gk.nm_spmm_gather_bk_int8, gk.nm_spmm_gather_bk_int8_requant,
+            gr.nm_spmm_gather_quantized_ref, gr.nm_spmm_gather_int8_requant_ref,
+            (leaf["values"], leaf["gather_idx"]), (n,), xq, xs, leaf["scale"].reshape(1, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64, 256])
+@pytest.mark.parametrize("layout,n,k,o", [("dense", 4, 2048, 1024), ("dense", 4, 8192, 2048),
+                                          ("dense", 4, 1152, 6912), ("gather", 2, 2048, 2048),
+                                          ("gather", 2, 8192, 2048), ("gather", 1, 8192, 2048),
+                                          ("gather", 2, 1152, 6912)])
+def test_int8_dense_and_gather_bitwise_plain_and_first_body_on_card(cuda_device, layout, n,
+                                                                      k, o, b):
+    """tile_gemm_int8 and K8 int8 on their plans' bodies (the s8 dense /
+    gathered streams where int8_plan says so) bitwise the plain version and
+    the first body: the raw int32, bf16 / fp32 with bias and gelu, the
+    requantized codes (both _requant forms); the same bits on a second
+    launch."""
+    fn, fn_q, ref, ref_q, ops, nn, xq, xs, ws = _int8_single(cuda_device, layout, b, k, o, n,
+                                                             seed=b + n + k)
+    bias = torch.randn(o, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                       device=cuda_device)
+    gelu = EpilogueSpec(act="gelu", bias=True)
+    # the plain versions take (x, ops, xs, ws, n) for the gather, (x, w, xs, ws) dense
+    forms = [((None, None), {}),
+             ((xs, ws), {"out_dtype": torch.bfloat16}),
+             ((xs, ws), {"out_dtype": torch.float32, "epilogue": EpilogueSpec(bias=True),
+                         "bias": bias}),
+             ((xs, ws), {"out_dtype": torch.float32, "epilogue": gelu, "bias": bias})]
+    for scales, kw in forms:
+        before = fn.launches
+        got = fn(xq, *ops, *scales, *nn, **kw)
+        again = fn(xq, *ops, *scales, *nn, **kw)
+        with _first_body():
+            first = fn(xq, *ops, *scales, *nn, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 3
+        assert torch.equal(got, again) and torch.equal(got, first), kw
+        want = ref(xq, *ops, *scales, *nn, **kw)
+        if kw.get("epilogue") is gelu:       # tanhf against torch's tanh
+            assert_scaled_close(got, want, 1e-2)
+        else:
+            assert torch.equal(got, want), kw
+    y = fn(xq, *ops, xs, ws, *nn, out_dtype=torch.float32)
+    rq = (y.abs().amax() / 100).reshape(())
+    spec = EpilogueSpec(bias=True)
+    codes = fn_q(xq, *ops, xs, ws, *nn, rq, epilogue=spec, bias=bias)
+    again = fn_q(xq, *ops, xs, ws, *nn, rq, epilogue=spec, bias=bias)
+    with _first_body():
+        first = fn_q(xq, *ops, xs, ws, *nn, rq, epilogue=spec, bias=bias)
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.int8 and torch.equal(codes, first) and torch.equal(codes, again)
+    assert (codes.abs() == 127).any()
+    assert torch.equal(codes, ref_q(xq, *ops, xs, ws, *nn, rq, epilogue=spec, bias=bias))
 
 
 @pytest.mark.cuda

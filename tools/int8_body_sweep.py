@@ -1,0 +1,135 @@
+"""Time every body the int8 dense and gathered singles can run, alone, on
+the card: ``tile_gemm_int8`` (``vg_tile_gemm_int8``) and K8 int8
+(``vg_nm_spmm_gather_bk_int8``) at a grid of row counts and at the sites
+of internlm2-1.8b, gemma3-1b's gelu w_in and hubert-xlarge's prefill.
+
+    python3 tools/int8_body_sweep.py          # one JSON line a shape
+
+Each body is launched through its C entry with an explicit (bm, body,
+split): ``shared`` (gemm_int8.cu's first body at ``block_rows(b)`` rows,
+split 1), ``s16`` / ``s64`` (the s8 stream of csrc/nm_spmm_sp_fp8.cuh over
+16- / 64-row tiles, the K loop split by ``cluster_split`` at the blocks an
+SM in the name: ``s16_3`` three, ``s64_1`` one).  Every body's bf16 output
+must be the shared body's bit for bit (int32 sums are exact in any order).
+Times are ``chip_smoke.time_ms``'s (CUDA-graph replays over enough weight
+copies to leave L2 cold), in ms, beside the bodies the plans
+(``tile_gemm/kernel.py::int8_plan``, ``nm_spmm_gather/kernel.py::
+int8_plan``) pick.  It needs a card and exits non-zero without one.
+"""
+
+import json
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+import chip_smoke  # noqa: E402
+
+TILE_ROWS = (8, 16, 17, 33, 64, 128, 255, 256, 512, 1024, 4000)
+GATHER_ROWS = (8, 17, 33, 48, 64, 65, 128, 256, 1024, 4000)
+
+
+def bodies(b: int, kc: int, o: int) -> dict:
+    """name -> (bm, body, split) of every body at b rows over K (or K_c) = kc."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tile_gemm.kernel import cluster_split
+
+    steps = kc // _build.BLOCK_K
+    tiles = {bm: (o // _build.BLOCK_O) * -(-b // bm) for bm in _build.BLOCK_ROWS}
+    out = {"shared": (_build.block_rows(b), 0, 1)}
+    for bm, per_sm in ((16, 2), (16, 3), (64, 1), (64, 2)):
+        out[f"s{bm}_{per_sm}"] = (bm, 1, cluster_split(tiles[bm], steps, per_sm))
+    return out
+
+
+def sweep_case(kernel, b, k, o, n, gen, lib, plan):
+    """Time each body of one shape; fail unless all give the same bits."""
+    from repro_torch.core.quantize import quantize_linear, quantize_rows
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels import _build
+
+    dev = "cuda"
+    x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs = quantize_rows(x, torch.int8)
+    kc = k * n // 4
+
+    def leaf():
+        w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+        if kernel == "tile_gemm_int8":
+            lf = quantize_linear({"w": w}, torch.int8)
+            return (lf["w"], lf["scale"].reshape(1, -1))
+        lf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"), "gather",
+                            quantize=torch.int8)
+        return (lf["values"], lf["gather_idx"], lf["scale"].reshape(1, -1))
+
+    nbytes = kc * o + 4 * o + (4 * kc if kernel != "tile_gemm_int8" else 0)
+    leaves = [leaf() for _ in range(chip_smoke.copies_for(nbytes))]
+    y = torch.empty((b, o), dtype=torch.bfloat16, device=dev)
+
+    def launch(bm, body, split):
+        def call(*lf):
+            stream = _build.stream_of(xq)   # the current one: a graph captures on its own
+            if kernel == "tile_gemm_int8":
+                w, ws = lf
+                rc = lib.vg_tile_gemm_int8(xq.data_ptr(), w.data_ptr(), xs.data_ptr(),
+                                           ws.data_ptr(), None, None, y.data_ptr(), b, k, o,
+                                           0, 0, bm, body, split, stream)
+            else:
+                v, idx, ws = lf
+                rc = lib.vg_nm_spmm_gather_bk_int8(xq.data_ptr(), v.data_ptr(), idx.data_ptr(),
+                                                   xs.data_ptr(), ws.data_ptr(), None, None,
+                                                   y.data_ptr(), b, k, o, n, 0, 0, bm, body,
+                                                   split, stream)
+            _build.check(rc, kernel, lib)
+        return call
+
+    row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n, "plan": plan, "ms": {},
+           "bodies": bodies(b, kc, o)}
+    first = None
+    for name, (bm, body, split) in row["bodies"].items():
+        call = launch(bm, body, split)
+        call(*leaves[0])
+        torch.cuda.synchronize()
+        got = y.clone()
+        if first is None:
+            first = got
+        elif not torch.equal(got, first):
+            chip_smoke.fail(f"{kernel} B={b} K={k} O={o} n={n}: body {name} is not the shared "
+                            f"body's bits")
+        row["ms"][name] = chip_smoke.time_ms(call, leaves, calls=8 if b >= 1024 else 24)
+    row["fastest"] = min(row["ms"], key=row["ms"].get)
+    chip_smoke.log(json.dumps(row))
+    del leaves
+    torch.cuda.empty_cache()
+
+
+def main():
+    if not torch.cuda.is_available():
+        chip_smoke.fail("no card: the sweep times CUDA kernels")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_plan
+    from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.log(f"int8 body sweep on {chip_smoke.card()}")
+    lib = _build.library("gemm_int8.cu")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    il, gm, hb = (get_config(a) for a in ("internlm2_1_8b", "gemma3_1b", "hubert_xlarge"))
+    il_sites = [(il.d_model, il.attn_dim), (il.d_model, il.kv_dim), (il.d_ff, il.d_model)]
+    for k, o in il_sites + [(gm.d_model, gm.d_ff)]:
+        for b in TILE_ROWS:
+            sweep_case("tile_gemm_int8", b, k, o, 4, gen, lib, tile_plan(b, k, o))
+    hb_sites = [(hb.d_model, hb.attn_dim), (hb.d_ff, hb.d_model), (hb.d_model, hb.d_ff)]
+    for n, sites in ((2, il_sites + [(gm.d_model, gm.d_ff)] + hb_sites), (1, il_sites)):
+        for k, o in sites:
+            for b in GATHER_ROWS:
+                sweep_case("nm_spmm_gather_bk_int8", b, k, o, n, gen, lib,
+                           gather_plan(b, k, o, n))
+
+
+if __name__ == "__main__":
+    main()
