@@ -43,13 +43,21 @@ Phases, each of which fails the run on a miss:
              more than 16).  nm_spmm_int8 at n in {1, 2} (the body
              nm_spmm/kernel.py::int8_plan picks, printed) is also timed in
              turns with gemm_int8.cu's first body (``earlier_ms``) and its
-             raw accumulator must be the same bits on a second launch.
+             raw accumulator must be the same bits on a second launch; so is
+             nm_spmm_dual_int8 at n in {1, 2} (the body nm_spmm/kernel.py::
+             int8_dual_plan picks, printed), whose bf16 output must also be
+             BITWISE its first body's.  The compressed int8 dual and its
+             requant form also run at qwen3-moe's expert gate-up (K, O) =
+             (4096, 1536), 2:4, B in {8, 64}.
    requant — the requantizing int8 duals (tile_gemm_dual_int8_requant,
              nm_spmm_dual_int8_requant, n in {1, 2}) at the gate-up
              shape, B in {8, 64, 256}, against a calibrated-like scale: int8
              codes equal to the plain version's except |delta| <= 1 on at
              most REQUANT_SHARE of them (the kernel's silu may differ by
-             an ulp, which moves a code sitting on a rounding boundary).
+             an ulp, which moves a code sitting on a rounding boundary);
+             nm_spmm_dual_int8_requant's codes BITWISE its first body's
+             (the int32 sums are exact and DualFlushI8 repeats the first
+             body's fp32 operations), timed in turns with it.
    fp8     — tile_gemm_fp8, nm_spmm_fp8 (n in {1, 2}), their duals and the
              requantizing fp8 duals, on e4m3 weights quantized per channel
              and bf16 activations quantized per row to e4m3, at the int8
@@ -162,11 +170,13 @@ Phases, each of which fails the run on a miss:
              spgemm path nm_spmm_masked's), the spgemm dense bf16, dense
              fp8 and 2:4 fp8 runs tile_gemm_masked's, tile_gemm_masked_fp8's
              and nm_spmm_masked_fp8's, the int8 compressed runs
-             nm_spmm_int8's (int8_plan per site), and the serving phase
+             nm_spmm_int8's (int8_plan per site) and nm_spmm_dual_int8's
+             (int8_dual_plan; the spgemm static int8 2:4 run at the expert's
+             gate-up), and the serving phase
              ends with the device busy time of the decode steps that run
              them (internlm2-1.8b 2:4 and 1:4 in bf16 and int8, static int8
              2:4, qwen3-moe spgemm bf16 2:4, dense bf16, dense fp8 and 2:4
-             fp8, the gather layouts).  Each decode
+             fp8, static int8 2:4, the gather layouts).  Each decode
              profile's device trace must hold the launches the wrappers
              counted in one step, less one a step or 5% (traced once
              more if not).  All runs: a
@@ -232,9 +242,10 @@ Phases, each of which fails the run on a miss:
              {2, 1}, B in {32, 256}, x_t (K_eff, B) -> Y_t (O, B), against
              the plain versions: int8 raw and scaled BITWISE, bf16 and fp8
              within 1e-2 of max|plain|; timed beside the plain version and
-             the library call on the pre-gathered row-major X; fp8 (the
-             body nm_spmm_gather/kernel.py::kmajor_fp8_plan picks, printed)
-             also in turns with gemm_fp8.cu's shared body (``earlier_ms``),
+             the library call on the pre-gathered row-major X; int8 and fp8
+             (the bodies nm_spmm_gather/kernel.py::kmajor_int8_plan /
+             ::kmajor_fp8_plan pick, printed) also in turns with
+             gemm_int8.cu's / gemm_fp8.cu's shared body (``earlier_ms``),
              the same bits on a second launch.
    sharded — tensor-parallel serving, ServingSpec(mesh=(1, 2)): two ranks
              spawned once (rank r on cuda:(r % device_count); gloo when
@@ -336,12 +347,16 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            "nm_spmm_masked_fp8": "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh",
            # tile_gemm_masked_fp8's (tile_gemm_fp8's dense stream, MASKED) and
            # the int8 singles' (the s8 forms of nm_spmm_fp8's sparse stream, of
-           # tile_gemm_fp8's dense one and of K8 fp8's gathered one; each
-           # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it)
+           # tile_gemm_fp8's dense one, of K8 fp8's gathered one and of K11
+           # fp8's K-major one), the int8 compressed dual's (the s8 form of the
+           # fp8 dual's stream); each gemm_fp8.cu's / gemm_int8.cu's shared body
+           # where its plan keeps it
            **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
               for name in ("tile_gemm_masked_fp8", "nm_spmm_int8", "nm_spmm_int8_requant",
                            "tile_gemm_int8", "tile_gemm_int8_requant",
-                           "nm_spmm_gather_bk_int8", "nm_spmm_gather_bk_int8_requant")},
+                           "nm_spmm_gather_bk_int8", "nm_spmm_gather_bk_int8_requant",
+                           "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
+                           "nm_spmm_gather_int8")},
            # the bf16 nm_spmm_gather_bk_masked's stream where K8 streams (K8's,
            # MASKED; gemm.cu's shared body elsewhere)
            "nm_spmm_gather_bk_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
@@ -520,8 +535,9 @@ def earlier_kernels():
     nm_spmm_gather_fp8, nm_spmm_dual (float), nm_spmm_masked (bf16),
     tile_gemm_masked (bf16), nm_spmm_masked_fp8, nm_spmm_gather_bk_masked
     (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8,
-    nm_spmm_int8, tile_gemm_int8 and nm_spmm_gather_bk_int8 (each and
-    _requant) wrappers launch the port's first bodies (``flash_attention_wmma.cu``;
+    nm_spmm_int8, tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8
+    (each and _requant) and nm_spmm_gather_int8 wrappers launch the port's
+    first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu, gemm_int8.cu and gemm_fp8.cu at every n
     and row count,
     ``vg_nm_spmm_tiled``, ``vg_tile_gemm_tiled``, ``vg_nm_spmm_fp8_tiled``,
@@ -533,7 +549,8 @@ def earlier_kernels():
     ``vg_tile_gemm_masked`` / ``vg_nm_spmm_masked_fp8`` /
     ``vg_nm_spmm_gather_bk_masked`` / ``vg_nm_spmm_gather_dual_bk_fp8`` /
     ``vg_tile_gemm_masked_fp8`` / ``vg_nm_spmm_int8`` / ``vg_tile_gemm_int8``
-    / ``vg_nm_spmm_gather_bk_int8`` at body 0, split 1, at the row block the
+    / ``vg_nm_spmm_gather_bk_int8`` / ``vg_nm_spmm_dual_int8`` /
+    ``vg_nm_spmm_gather_int8`` at body 0, split 1, at the row block the
     first form took: 16 up to 16 rows, else 64; the masked ones at their
     maps' row block) instead of the current
     ones: the ``earlier_ms`` yardstick, through the same wrappers and
@@ -625,6 +642,16 @@ def earlier_kernels():
         return int8.vg_nm_spmm_gather_bk_int8(*args[:14], _build.block_rows(args[8]), 0, 1,
                                               args[-1])
 
+    # the int8 compressed dual and K11 int8 likewise (their plans run 16-row
+    # tiles past 16 rows; b: args[10] / args[6])
+    def nm_spmm_dual_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return int8.vg_nm_spmm_dual_int8(*args[:15], _build.block_rows(args[10]), 0, 1,
+                                         args[-1])
+
+    def nm_spmm_gather_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return int8.vg_nm_spmm_gather_int8(*args[:11], _build.block_rows(args[6]), 0, 1,
+                                           args[-1])
+
     # K9 fp8 reaches its shared body through its own entry, at the row block
     # the first form took (its plan runs 16-row tiles past 16 rows; b: args[10])
     def nm_spmm_gather_dual_bk_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
@@ -652,7 +679,9 @@ def earlier_kernels():
                                                   nm_spmm_gather_dual_bk_fp8_tiled))
     _build._libs["gemm_int8.cu"] = _EarlierLib(
         int8, vg_nm_spmm_int8=nm_spmm_int8_tiled, vg_tile_gemm_int8=tile_gemm_int8_tiled,
-        vg_nm_spmm_gather_bk_int8=nm_spmm_gather_bk_int8_tiled)
+        vg_nm_spmm_gather_bk_int8=nm_spmm_gather_bk_int8_tiled,
+        vg_nm_spmm_dual_int8=nm_spmm_dual_int8_tiled,
+        vg_nm_spmm_gather_int8=nm_spmm_gather_int8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -865,9 +894,10 @@ def e4m3_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (ordinal(got) - ordinal(want)).abs()
 
 
-def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
+def quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, qdtype):
     """The int8 or the fp8 kernels against their plain versions, timed
-    beside them and beside the class's library call."""
+    beside them and beside the class's library call; int8 also times the
+    compressed int8 dual at ``moe_cfg``'s expert gate-up, B in {8, 64}."""
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
     from repro_torch.kernels.nm_spmm import kernel as nk
@@ -956,6 +986,71 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
     names = {4: (f"tile_gemm_{sfx}", f"tile_gemm_dual_{sfx}", f"tile_gemm_dual_{sfx}_requant"),
              2: (f"nm_spmm_{sfx}", f"nm_spmm_dual_{sfx}", f"nm_spmm_dual_{sfx}_requant"),
              1: (f"nm_spmm_{sfx}", f"nm_spmm_dual_{sfx}", f"nm_spmm_dual_{sfx}_requant")}
+
+    def gate_up(b, n, k, o):
+        """The gate-up pair at (k, o): the dual and its requant form against
+        their plain versions, timed beside them and the library call."""
+        xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16), qdtype)
+        pairs = [(leaf(k, o, n), leaf(k, o, n))
+                 for _ in range(copies_for(2 * wbytes(k, o, n)))]
+        run, ref = dual(n), dual(n, ref=True)
+        ops = [(xq, xs, g, u) for g, u in pairs]
+        lib_fn, lib_ops = library(xq, xs, pairs[:2], cat=True)
+        kc = k * n // 4
+
+        def timed(f, ops_, name, requant=False):
+            """The redesigned duals' own bodies (the fp8 duals and their
+            requant forms, the compressed int8 dual and its requant form) in
+            turns with the first one, the same bits on a second launch; the
+            int8 dual's output (bf16 or codes) also bitwise the first body's."""
+            if not fp8 and n == 4:
+                return time_ms(f, ops_), {}
+            got, again = f(*ops_[0]), f(*ops_[0])
+            torch.cuda.synchronize()
+            if not torch.equal(as_bytes(got), as_bytes(again)):
+                fail(f"{name} B={b} K={k} O={o} n={n}: not the same bits on a second "
+                     f"launch")
+            extra = {}
+            if not fp8:
+                with earlier_kernels():
+                    first = f(*ops_[0])
+                torch.cuda.synchronize()
+                if got.dtype != first.dtype or not torch.equal(got, first):
+                    d = (got.float() - first.float()).abs().max().item()
+                    fail(f"{name} B={b} K={k} O={o} n={n}: not bitwise its first body "
+                         f"(max abs difference {d:.3e})")
+                extra["first_body_bitwise"] = True
+            t, earlier = in_turns(f, ops_)
+            plan = (nk.int8_dual_plan(b, k, o, n) if not fp8
+                    else tk.fp8_dual_plan(b, k, o, requant) if n == 4
+                    else nk.fp8_dual_plan(b, k, o, n))
+            return t, {"earlier_ms": earlier, "plan": plan, **extra}
+        t_run, extra = timed(run, ops, names[n][1])
+        record(names[n][1], b, k, o, n, run(*ops[0]), ref(*ops[0]),
+               t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
+               b * k + 4 * b + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o,
+               peak=FP8_OPS if fp8 else INT8_OPS, **extra)
+        # the same pair with the requant:<dtype> flush, against the scale a
+        # calibration on these rows would give w_out: absmax / qmax
+        rq = dual(n, ref=True, out_dtype=torch.float32)(*ops[0]).abs().amax() / qmax
+        run_q, ref_q = dual(n, requant=True), dual(n, ref=True, requant=True)
+        ops_q = [op + (rq,) for op in ops]
+        got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
+        torch.cuda.synchronize()
+        if got.dtype != qdtype or want.dtype != qdtype:
+            fail(f"{names[n][2]} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
+        delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
+        share = (delta == 1).float().mean().item()
+        if delta.max().item() > 1 or share > REQUANT_SHARE:
+            fail(f"{names[n][2]} B={b} n={n}: codes off by up to {delta.max().item()} "
+                 f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
+        t_run, extra = timed(run_q, ops_q, names[n][2], requant=True)
+        record(names[n][2], b, k, o, n, got, want, t_run,
+               time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
+               b * k + 4 * b + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o,
+               peak=FP8_OPS if fp8 else INT8_OPS, tol=None if fp8 else TOL,
+               off_by_one_share=share, **extra)
+        del pairs, ops, ops_q, lib_ops
     for b in (8, 64, 256):
         for n in (4, 2, 1):
             for k, o in ((d, cfg.attn_dim), (d, cfg.kv_dim), (ff, d)):
@@ -991,57 +1086,12 @@ def quantized_kernel_phase(cfg, gen, card_line, rows, qdtype):
                        raw_scaled_err=raw_err, **extra)
                 del lfs, ops, lib_ops
             # the gate-up pair at (d, ff)
-            k, o = d, ff
-            xq, xs = quantize_rows(torch.randn((b, k), generator=gen, device=dev).to(bf16),
-                                   qdtype)
-            pairs = [(leaf(k, o, n), leaf(k, o, n))
-                     for _ in range(copies_for(2 * wbytes(k, o, n)))]
-            run, ref = dual(n), dual(n, ref=True)
-            ops = [(xq, xs, g, u) for g, u in pairs]
-            lib_fn, lib_ops = library(xq, xs, pairs[:2], cat=True)
-            kc = k * n // 4
-            # the fp8 duals' own bodies (and their requant forms: the
-            # compressed dual's and the dense one's), beside the first one, the
-            # same bits on a second launch
-
-            def timed(f, ops_, name, requant=False):
-                if not fp8:
-                    return time_ms(f, ops_), {}
-                got, again = f(*ops_[0]), f(*ops_[0])
-                torch.cuda.synchronize()
-                if not torch.equal(as_bytes(got), as_bytes(again)):
-                    fail(f"{name} B={b} K={k} O={o} n={n}: not the same bits on a second "
-                         f"launch")
-                t, earlier = in_turns(f, ops_)
-                return t, {"earlier_ms": earlier,
-                           "plan": tk.fp8_dual_plan(b, k, o, requant) if n == 4
-                           else nk.fp8_dual_plan(b, k, o, n)}
-            t_run, extra = timed(run, ops, names[n][1])
-            record(names[n][1], b, k, o, n, run(*ops[0]), ref(*ops[0]),
-                   t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
-                   b * k + 4 * b + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o,
-                   peak=FP8_OPS if fp8 else INT8_OPS, **extra)
-            # the same pair with the requant:<dtype> flush, against the scale a
-            # calibration on these rows would give w_out: absmax / qmax
-            rq = dual(n, ref=True, out_dtype=torch.float32)(*ops[0]).abs().amax() / qmax
-            run_q, ref_q = dual(n, requant=True), dual(n, ref=True, requant=True)
-            ops_q = [op + (rq,) for op in ops]
-            got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
-            torch.cuda.synchronize()
-            if got.dtype != qdtype or want.dtype != qdtype:
-                fail(f"{names[n][2]} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
-            delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
-            share = (delta == 1).float().mean().item()
-            if delta.max().item() > 1 or share > REQUANT_SHARE:
-                fail(f"{names[n][2]} B={b} n={n}: codes off by up to {delta.max().item()} "
-                     f"step(s) on {share:.2e} of the elements (> 1 or > {REQUANT_SHARE})")
-            t_run, extra = timed(run_q, ops_q, names[n][2], requant=True)
-            record(names[n][2], b, k, o, n, got, want, t_run,
-                   time_ms(ref_q, ops_q), time_ms(lib_fn, lib_ops),
-                   b * k + 4 * b + 2 * wbytes(k, o, n) + b * o + 4, 4 * b * kc * o,
-                   peak=FP8_OPS if fp8 else INT8_OPS, tol=None if fp8 else TOL,
-                   off_by_one_share=share, **extra)
-            del pairs, ops, ops_q, lib_ops
+            gate_up(b, n, d, ff)
+        torch.cuda.empty_cache()
+    # int8: the compressed dual at qwen3-moe's expert gate-up (K, O) =
+    # (d_model, d_ff), which the spgemm path launches once an expert and layer
+    for b in (() if fp8 else (8, 64)):
+        gate_up(b, 2, moe_cfg.d_model, moe_cfg.d_ff)
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -1593,8 +1643,11 @@ def kmajor_kernel_phase(cfg, gen, card_line, rows):
     (torch.matmul / torch._int_mm / torch._scaled_mm; the gather and the
     transposes run outside the timed region).  Bound: the kept rows of
     x_t + values + index (+ scales) + output bytes over 3.35 TB/s.  The
-    two transposes a row site runs around the raw form (the codes in, the
-    accumulator out) are timed apart, the same way."""
+    int8 and e4m3 forms (the bodies ``kmajor_int8_plan`` /
+    ``kmajor_fp8_plan`` pick, printed) are also timed in turns with their
+    first bodies (``earlier_ms``) and must give the same bits on a second
+    launch.  The two transposes a row site runs around the raw form (the
+    codes in, the accumulator out) are timed apart, the same way."""
     from repro_torch.core.quantize import quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
     from repro_torch.kernels.nm_spmm_gather import kernel as gk
@@ -1672,14 +1725,15 @@ def kmajor_kernel_phase(cfg, gen, card_line, rows):
                         scales = 4 * (b + o) if qdtype is not None and not raw else 0
                         nbytes = esz * b * kc + esz * kc * o + 4 * kc + scales + 4 * b * o
                         extra = {}
-                        if fp8:     # the redesigned body, beside the first one
+                        if qdtype is not None:   # the redesigned body, beside the first one
                             again = run(*ops[0])
                             torch.cuda.synchronize()
                             if not torch.equal(got, again):
-                                fail(f"nm_spmm_gather_fp8{tag} B={b} K={k} n={n}: not the "
+                                fail(f"nm_spmm_gather{sfx}{tag} B={b} K={k} n={n}: not the "
                                      f"same bits on a second launch")
                             t_run, extra["earlier_ms"] = in_turns(run, ops)
-                            extra["plan"] = gk.kmajor_fp8_plan(b, k, o, n)
+                            extra["plan"] = (gk.kmajor_fp8_plan if fp8
+                                             else gk.kmajor_int8_plan)(b, k, o, n)
                         else:
                             t_run = time_ms(run, ops)
                         record(f"nm_spmm_gather{sfx}{tag}", b, k, o, n, got, want,
@@ -2308,17 +2362,20 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     (an MoE's expert gate-up), the bf16 nm_spmm_gather_bk_masked at K8's
     plan on the spgemm gather path's w_out, K11 fp8 (nm_spmm_gather_fp8) on
     a sharded fp8 gather model's two row-parallel sites (their local K),
-    tile_gemm_masked_fp8 on the spgemm path's dense fp8 w_out, and the int8
+    tile_gemm_masked_fp8 on the spgemm path's dense fp8 w_out, the int8
     singles, nm_spmm_int8, tile_gemm_int8 and nm_spmm_gather_bk_int8 (and
     their _requant forms), at every site an int8 compressed, dense or
-    gather model runs them, at each of ``rows``."""
+    gather model runs them, the int8 compressed dual nm_spmm_dual_int8 (and
+    _requant) on an int8 compressed swiglu model (an MoE's expert gate-up)
+    and K11 int8 (nm_spmm_gather_int8) on a sharded int8 gather model's two
+    row-parallel sites, at each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
     from repro_torch.kernels.nm_spmm.kernel import fp8_plan as nm_fp8_plan
-    from repro_torch.kernels.nm_spmm.kernel import int8_plan, split_k
+    from repro_torch.kernels.nm_spmm.kernel import int8_dual_plan, int8_plan, split_k
     from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_int8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_dual_plan as gather_fp8_dual_plan
-    from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan, kmajor_int8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_fp8_plan, masked_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_int8_plan
@@ -2342,6 +2399,11 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     if spgemm and layout == "dense" and qdtype == "fp8":
         return {"tile_gemm_masked_fp8": {f"B={b} K={k} O={o}": masked_fp8_plan(b, k, o)
                                          for b in rows[:2]}}
+    if qdtype == "int8" and layout == "gather" and mesh > 1:
+        n = sparsity[0]
+        return {"nm_spmm_gather_int8": {
+            f"B={b} K={k} O={cfg.d_model}": kmajor_int8_plan(b, k, cfg.d_model, n)
+            for b in rows for k in (cfg.attn_dim // mesh, cfg.d_ff // mesh)}}
     if qdtype == "int8" and mesh == 1:
         # the attention sites, and the MLP's where no expert (masked) runs
         # it: a gelu MLP's w_in (the _requant form on static scales) and
@@ -2356,7 +2418,14 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
                          "dense": ("tile_gemm_int8", tile_int8_plan),
                          "gather": ("nm_spmm_gather_bk_int8", lambda b, k, o: gather_int8_plan(
                              b, k, o, sparsity[0]))}[layout]
-        return {name: {f"B={b} K={k} O={o}": plan_of(b, k, o) for b in rows for k, o in sites}}
+        out = {name: {f"B={b} K={k} O={o}": plan_of(b, k, o) for b in rows for k, o in sites}}
+        if layout == "compressed" and cfg.act == "swiglu":
+            # the gate-up dual (an MoE's expert gate-up), one plan for both forms
+            out["nm_spmm_dual_int8"] = {
+                f"B={b} K={cfg.d_model} O={cfg.d_ff}": int8_dual_plan(b, cfg.d_model, cfg.d_ff,
+                                                                       sparsity[0])
+                for b in rows}
+        return out
     if spgemm and layout == "compressed" and qdtype == "fp8":
         n = sparsity[0]
         return {"nm_spmm_masked_fp8": {
@@ -3594,16 +3663,16 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     card_line = card()
     t0 = time.perf_counter()
+    moe_cfg = get_config(MOE_ARCH)
     rows = kernel_phase(cfg, gen, card_line)
-    quantized_kernel_phase(cfg, gen, card_line, rows, torch.int8)
-    quantized_kernel_phase(cfg, gen, card_line, rows, FP8)
+    quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, torch.int8)
+    quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, FP8)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     for qdtype in (None, torch.int8, FP8):
         gather_kernel_phase(cfg, gen, card_line, rows, qdtype)
     log(f"gather kernel phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    moe_cfg = get_config(MOE_ARCH)
     dual_sweep_phase([(c.d_model, c.d_ff) for c in (cfg, get_config(PHI3_ARCH), moe_cfg)],
                      gen, card_line)
     log(f"dual sweep phase {time.perf_counter() - t0:.1f}s")
@@ -3662,16 +3731,18 @@ def main():
     # the decode steps that run the float nm_spmm_dual, the bf16 nm_spmm_masked,
     # the bf16 tile_gemm_masked, nm_spmm_masked_fp8, the bf16
     # nm_spmm_gather_bk_masked, K9 fp8, tile_gemm_masked_fp8, nm_spmm_int8,
-    # tile_gemm_int8 and nm_spmm_gather_bk_int8
+    # tile_gemm_int8, nm_spmm_gather_bk_int8 and nm_spmm_dual_int8(_requant)
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
             if res["layout"] in ("2:4", "1:4", "2:4/int8", "1:4/int8", "2:4/int8/static",
                                  "dense/int8", "gather-2:4/int8", "gather-1:4/int8",
                                  "moe-spgemm/2:4", "moe-spgemm/dense",
                                  "moe-spgemm/dense/fp8", "moe-spgemm/2:4/fp8",
-                                 "moe-spgemm/gather-2:4", "moe-spgemm/gather-2:4/fp8")}
+                                 "moe-spgemm/gather-2:4", "moe-spgemm/gather-2:4/fp8",
+                                 "moe-spgemm/2:4/int8/static")}
     log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, int8 2:4 and 1:4, "
         f"static int8 2:4, int8 dense, gather 2:4 and 1:4, qwen3-moe spgemm bf16 2:4, bf16 "
-        f"dense, fp8 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4): {json.dumps(busy)}")
+        f"dense, fp8 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4, static int8 2:4): "
+        f"{json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3733,7 +3804,8 @@ def main():
               **{name: (SOURCES["nm_spmm_fp8"], SOURCES["int8"])
                  for name in ("nm_spmm_int8", "nm_spmm_int8_requant", "tile_gemm_int8",
                               "tile_gemm_int8_requant", "nm_spmm_gather_bk_int8",
-                              "nm_spmm_gather_bk_int8_requant")},
+                              "nm_spmm_gather_bk_int8_requant", "nm_spmm_dual_int8",
+                              "nm_spmm_dual_int8_requant", "nm_spmm_gather_int8")},
               "nm_spmm_gather_bk_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),

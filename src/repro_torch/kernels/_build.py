@@ -35,6 +35,10 @@ __all__ = ["build_all", "library", "check", "stream_of", "build_dir", "BUILD_LOG
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gemm.cu", "gemm_int8.cu", "gemm_fp8.cu", "flash_attention.cu",
            "flash_attention_wmma.cu", "mma_sp_probe.cu")
+#: sources built as several libraries, one nvcc each with ``-DVG_PART=p``,
+#: all started with the others (the build takes as long as its longest
+#: nvcc); each part holds some of the source's entry points
+PARTS = {"gemm_fp8.cu": (0, 1, 2)}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,13 +68,13 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
         "vg_nm_spmm_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
-        "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_gather_bk_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
         "vg_tile_gemm_masked_int8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
-        "vg_nm_spmm_gather_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_int8": (_P,) * 6 + (_I,) * 8 + (_P,),
     },
     "gemm_fp8.cu": {
         "vg_tile_gemm_fp8": (_P,) * 7 + (_I,) * 9 + (_P,),
@@ -132,61 +136,99 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _units(name: str) -> Tuple:
+    """One source's build units: its ``PARTS``, or ``None`` (the whole
+    source in one library)."""
+    return PARTS.get(name, (None,))
+
+
+def _target(name: str, part=None) -> Path:
     src = _CSRC / name
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = _flags(part)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(_CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    return build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    stem = src.stem if part is None else f"{src.stem}.{part}"
+    return build_dir() / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _flags(part=None) -> Tuple[str, ...]:
+    return NVCC_FLAGS if part is None else NVCC_FLAGS + (f"-DVG_PART={part}",)
 
 
 def build_all() -> Dict[str, float]:
-    """Build every missing library, one nvcc per source, all started
-    together.  Returns the seconds each build took (0.0 when the library
-    was already built).  Raises with the compiler's output on failure."""
-    pending = {name: _target(name) for name in SOURCES
-               if not _target(name).exists()}
+    """Build every missing library, one nvcc per source (per part of a
+    source in ``PARTS``), all started together.  Returns the seconds each
+    source's build took (0.0 when its libraries were already built).
+    Raises with the compiler's output on failure."""
+    pending = [(name, part, _target(name, part)) for name in SOURCES
+               for part in _units(name) if not _target(name, part).exists()]
     seconds = {name: 0.0 for name in SOURCES}
     if not pending:
         return seconds
     build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    procs = []
     t0 = time.perf_counter()
-    for name, out in pending.items():
+    for name, part, out in pending:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / name)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [nvcc, *_flags(part), "-o", str(tmp), str(_CSRC / name)]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True),
+                      tmp, out))
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    logs: Dict[str, list] = {}
+    for name, proc, tmp, out in procs:
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = log
+        logs.setdefault(name, []).append(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc {name} failed ({proc.returncode}):\n{log}")
+            failed.append(f"nvcc {out.name} failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    BUILD_LOG.update({name: "".join(parts) for name, parts in logs.items()})
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
 
 
-def library(name: str = "gemm.cu") -> ctypes.CDLL:
-    """The loaded library for one source, built first if needed."""
+class _Parts:
+    """The libraries of one source built in ``PARTS``, as one: each entry
+    point from the part that defines it (every part has
+    ``vg_error_string``)."""
+
+    def __init__(self, libs):
+        self._libs = libs
+
+    def __getattr__(self, fn):
+        for lib in self._libs:
+            try:
+                f = getattr(lib, fn)
+            except AttributeError:
+                continue
+            setattr(self, fn, f)
+            return f
+        raise AttributeError(fn)
+
+
+def library(name: str = "gemm.cu"):
+    """The loaded library for one source (a ``ctypes.CDLL``, or for a
+    source in ``PARTS`` an object that holds its parts' entry points),
+    built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out = _target(name)
-            if not out.exists():
+            outs = [_target(name, part) for part in _units(name)]
+            if not all(out.exists() for out in outs):
                 build_all()
-            lib = ctypes.CDLL(str(out))
+            libs = [ctypes.CDLL(str(out)) for out in outs]
+            lib = libs[0] if len(libs) == 1 else _Parts(libs)
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = list(argtypes)
                 getattr(lib, fn).restype = ctypes.c_int
-            lib.vg_error_string.argtypes = [ctypes.c_int]
-            lib.vg_error_string.restype = ctypes.c_char_p
+            for part in libs:
+                part.vg_error_string.argtypes = [ctypes.c_int]
+                part.vg_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
@@ -200,8 +242,9 @@ def check(code: int, kernel: str, lib: ctypes.CDLL) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a raw pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a raw pointer (read
+    without building a ``torch.cuda.Stream``: a launch's host cost)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # --- the kernels' tiling contract (gemm.cu: BK, BN and the two BM values)

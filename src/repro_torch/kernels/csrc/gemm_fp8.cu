@@ -146,6 +146,17 @@
 
 #include <type_traits>
 
+// Three nvcc processes build this file side by side (_build.py's PARTS):
+// VG_PART 0 compiles the dense entry points (tile_gemm*_fp8), 1 the
+// compressed ones (nm_spmm*_fp8), 2 the gathered ones (nm_spmm_gather*_fp8);
+// each part instantiates only the kernels its entry points launch.  With no
+// VG_PART one library holds them all.
+#ifdef VG_PART
+#define VG_HAS_PART(p) (VG_PART == (p))
+#else
+#define VG_HAS_PART(p) 1
+#endif
+
 #include "flush.cuh"
 #include "kmask.cuh"
 #include "nm_spmm_sp_fp8.cuh"
@@ -878,6 +889,7 @@ gather_columns_e4m3_kernel(const uint8_t* __restrict__ x, const int* __restrict_
   *reinterpret_cast<uint4*>(xg + static_cast<size_t>(row) * kc + j0) = spf8::select16<G>(wd, e);
 }
 
+#if VG_HAS_PART(2)
 // the pass into the caller's scratch xg (n in {1, 2}, K_c = ke * n / 4 a
 // multiple of 64), then the wgmma body with the ws-first flush
 int gather_then_wgmma(int n, const void* x, const void* values, const void* idx, void* xg,
@@ -899,6 +911,8 @@ int gather_then_wgmma(int n, const void* x, const void* values, const void* idx,
   return tgf8::launch(xg, values, flush, b, kc, o, stream);
 }
 
+#endif  // VG_HAS_PART(2)
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes), the signatures of gemm_int8.cu's.
@@ -911,6 +925,7 @@ int gather_then_wgmma(int n, const void* x, const void* values, const void* idx,
 // gather).
 extern "C" {
 
+#if VG_HAS_PART(0)
 // tile_gemm/kernel.py::fp8_plan's body: 0, the shared body (bm in {16,
 // 64}, bn 64, split 1); 1, the stream over the dense weight
 // (nm_spmm_sp_fp8.cuh, N = 4; bm in {16, 64}, bn 64), K split over `split`
@@ -1008,6 +1023,9 @@ int vg_tile_gemm_dual_fp8_tiled(const void* x, const void* wg, const void* wu, c
                                       ACT_NONE, out_kind, stream);
 }
 
+#endif  // VG_HAS_PART(0)
+
+#if VG_HAS_PART(1)
 // nm_spmm/kernel.py::fp8_plan's body: 1, the sparse-tensor-core body
 // (nm_spmm_sp_fp8.cuh, n in {1, 2}), K split over `split` blocks of a
 // cluster (a power of two up to min(8, k / 64)); 0, the shared body at any
@@ -1094,6 +1112,9 @@ int vg_nm_spmm_dual_fp8_tiled(const void* x, const void* values_g, const void* m
                          nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
 }
 
+#endif  // VG_HAS_PART(1)
+
+#if VG_HAS_PART(2)
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of
 // values.  nm_spmm_gather/kernel.py::fp8_plan's body: 0, the shared body
 // (any n; bm in {16, 64}, bn 64, split 1); 1, the e4m3 stream over the
@@ -1197,6 +1218,8 @@ int vg_nm_spmm_gather_fp8_tiled(const void* x_t, const void* values, const void*
                                            xs, ws, nullptr, nullptr, nullptr, y_t, b, k, o,
                                            ACT_NONE, out_kind, stream);
 }
+
+#endif  // VG_HAS_PART(2)
 
 const char* vg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -36,11 +36,17 @@
 // wherever tile_gemm/kernel.py::int8_plan picks it; and K8 int8
 // (nm_spmm_gather_bk_int8 and _requant) at n in {1, 2} that dense stream
 // with the gathered X (the step's span, select16) wherever
-// nm_spmm_gather/kernel.py::int8_plan picks it.  Each is flushed by
-// SingleFlushI8 below in this file's order (ws first for the gather): the
-// same bits as this body, int32 sums being exact in any order.  Their
-// entries at body 0, split 1 reach this file's body, the form the port ran
-// first, as its yardstick.
+// nm_spmm_gather/kernel.py::int8_plan picks it; K11 int8
+// (nm_spmm_gather_int8) at n in {1, 2} that dense stream with the K-major X
+// stage (the step's selected x_t rows, a byte transpose pass, the (O, B)
+// store) wherever nm_spmm_gather/kernel.py::kmajor_int8_plan picks it; and
+// the compressed gate-up dual nm_spmm_dual_int8 (and _requant) at n in {1,
+// 2} the DUAL form of the sparse stream (both weights a stage, two int32
+// accumulator sets) wherever nm_spmm/kernel.py::int8_dual_plan picks it.
+// Each is flushed by SingleFlushI8 / DualFlushI8 below in this file's order
+// (ws first for the gathers): the same bits as this body, int32 sums being
+// exact in any order.  Their entries at body 0, split 1 reach this file's
+// body, the form the port ran first, as its yardstick.
 //
 // ONE templated body serves all ten, as in gemm.cu: the template takes the
 // weight loader (dense int8, or N:4 int8 values + 2-bit packed meta), the
@@ -391,32 +397,60 @@ __device__ __forceinline__ int8_t requant_int8(float y, float scale) {
   return static_cast<int8_t>(__float2int_rn(q));
 }
 
+// One output of out_kind (bf16, fp32, or the int8 code against *rq) at y[at]
+__device__ __forceinline__ void store_out(void* y, size_t at, float v, int out_kind,
+                                          const float* rq) {
+  if (out_kind == OUT_I8) static_cast<int8_t*>(y)[at] = requant_int8(v, *rq);
+  else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
+  else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+}
+
 // The flush of the s8 stream (nm_spmm_sp_fp8.cuh, S8) from its summed int32
 // accumulator, in gemm_int8_kernel's order: the raw int32 (out_kind 2), or
 // dequant (float(acc) * xs[row] * ws[col], __fmul_rn; WS_FIRST, the gather
 // kernels' order: float(acc) * ws[col] * xs[row]), + bias (__fadd_rn), act,
-// then bf16, fp32 or the int8 code against *rq.
-template <bool WS_FIRST>
+// then bf16, fp32 or the int8 code against *rq.  KMAJOR: the output is
+// K11's (O, B), row `row` of channel `col` at col * ld + row; else (B, O) at
+// row * ld + col.  ld: the output's row stride, O (or B).
+template <bool WS_FIRST, bool KMAJOR = false>
 struct SingleFlushI8 {
   const float* xs;
   const float* ws;
   const float* bias;
   const float* rq;
   void* y;
-  int o, act, out_kind;
+  int ld, act, out_kind;
 
   __device__ __forceinline__ void operator()(int row, int col, int acc) const {
-    const size_t at = (size_t)row * o + col;
+    const size_t at = KMAJOR ? (size_t)col * ld + row : (size_t)row * ld + col;
     if (out_kind == OUT_I32) {   // raw: the exact accumulator
       static_cast<int*>(y)[at] = acc;
       return;
     }
     float v = dequant_in_order<WS_FIRST>(acc, xs[row], ws[col]);
     if (bias != nullptr) v = __fadd_rn(v, bias[col]);
-    v = apply_act(v, act);
-    if (out_kind == OUT_I8) static_cast<int8_t*>(y)[at] = requant_int8(v, *rq);
-    else if (out_kind == OUT_F32) static_cast<float*>(y)[at] = v;
-    else static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
+    store_out(y, at, apply_act(v, act), out_kind, rq);
+  }
+};
+
+// The flush of the s8 compressed dual (nm_spmm_sp_fp8.cuh, S8 with DUAL)
+// from both summed int32 accumulators, in gemm_int8_kernel's dual order: t_g
+// = float(acc_g) * xs[row] * wsg[col], t_u likewise with wsu (__fmul_rn),
+// silu(t_g) * t_u, then bf16, fp32 or the int8 code against *rq.
+struct DualFlushI8 {
+  const float* xs;
+  const float* wsg;
+  const float* wsu;
+  const float* rq;
+  void* y;
+  int o, out_kind;
+
+  __device__ __forceinline__ void operator()(int row, int col, const int (&acc)[2]) const {
+    const float xr = xs[row];
+    store_out(y, (size_t)row * o + col,
+              silu(dequant_in_order<false>(acc[0], xr, wsg[col])) *
+                  dequant_in_order<false>(acc[1], xr, wsu[col]),
+              out_kind, rq);
   }
 };
 
@@ -664,11 +698,21 @@ bool s8_flush_ok(int act, int out_kind, const void* xs, const void* ws, const vo
          (out_kind == OUT_I8) == (rq != nullptr);
 }
 
-template <bool WS_FIRST>
-SingleFlushI8<WS_FIRST> s8_flush(const void* xs, const void* ws, const void* bias,
-                                 const void* rq, void* y, int o, int act, int out_kind) {
+// ld: the output's row stride (O; K11's (O, B) output: B)
+template <bool WS_FIRST, bool KMAJOR = false>
+SingleFlushI8<WS_FIRST, KMAJOR> s8_flush(const void* xs, const void* ws, const void* bias,
+                                         const void* rq, void* y, int ld, int act,
+                                         int out_kind) {
   return {static_cast<const float*>(xs), static_cast<const float*>(ws),
-          static_cast<const float*>(bias), static_cast<const float*>(rq), y, o, act, out_kind};
+          static_cast<const float*>(bias), static_cast<const float*>(rq), y, ld, act, out_kind};
+}
+
+// ... and the dual's (all three scales; bf16, fp32 or the requantized store,
+// which alone reads the consumer's scale)
+bool s8_dual_flush_ok(int out_kind, const void* xs, const void* wsg, const void* wsu,
+                      const void* rq) {
+  return out_kind >= 0 && out_kind <= 3 && out_kind != OUT_I32 && xs != nullptr &&
+         wsg != nullptr && wsu != nullptr && (out_kind == OUT_I8) == (rq != nullptr);
 }
 
 }  // namespace
@@ -748,13 +792,29 @@ int vg_nm_spmm_masked_int8(const void* x, const void* values, const void* meta,
                                 nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
+// nm_spmm/kernel.py::int8_dual_plan's body: 1, the s8 sparse dual stream
+// (nm_spmm_sp_fp8.cuh, S8 with DUAL; n in {1, 2}, bm in {16, 64}), K split
+// over `split` blocks of a cluster (a power of two up to min(8, k / 64)),
+// flushed by DualFlushI8; 0, this file's body at any n, split 1.  out_kind
+// 0 | 1 | 3 (no raw accumulator).
 int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g,
                          const void* values_u, const void* meta_u, const void* xs,
                          const void* wsg, const void* wsu, const void* rq, void* y, int b,
-                         int k, int o, int n, int out_kind, int bm, void* stream) {
+                         int k, int o, int n, int out_kind, int bm, int body, int split,
+                         void* stream) {
   if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, xs, wsg, wsu,
-                         nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<true>(n, bm, x, values_g, meta_g, values_u, meta_u, nullptr, xs, wsg,
+                           wsu, nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2) || !s8_dual_flush_ok(out_kind, xs, wsg, wsu, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DualFlushI8 flush{static_cast<const float*>(xs), static_cast<const float*>(wsg),
+                          static_cast<const float*>(wsu), static_cast<const float*>(rq), y, o,
+                          out_kind};
+  return spf8::launch_dual<spf8::S8>(n, bm, x, values_g, meta_g, values_u, meta_u, flush, b, k,
+                                     o, split, stream);
 }
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of
@@ -797,14 +857,29 @@ int vg_nm_spmm_gather_dual_bk_int8(const void* x, const void* values_g, const vo
 }
 
 // K11: x_t (k, b) K-major -> y_t (o, b), b a multiple of 16; xs (1, b) and
-// ws (o, 1) for out_kind 0 | 1, none for the raw int32 accumulator (2)
+// ws (o, 1) for out_kind 0 | 1, none for the raw int32 accumulator (2).
+// nm_spmm_gather/kernel.py::kmajor_int8_plan's body: 1, the s8 dense stream
+// with the K-major X stage (nm_spmm_sp_fp8.cuh, S8 with KM, G = n in {1, 2};
+// bm in {16, 64}), K_c split over `split` blocks of a cluster, flushed
+// float(acc) * ws * xs into the (O, B) output; 0, this file's body at any n,
+// split 1
 int vg_nm_spmm_gather_int8(const void* x_t, const void* values, const void* idx,
                            const void* xs, const void* ws, void* y_t, int b, int k, int o,
-                           int n, int out_kind, int bm, void* stream) {
+                           int n, int out_kind, int bm, int body, int split, void* stream) {
   if (out_kind == OUT_I8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gather<false, false, true>(n, bm, x_t, values, idx, nullptr, nullptr, nullptr,
-                                           xs, ws, nullptr, nullptr, nullptr, y_t, b, k, o,
-                                           ACT_NONE, out_kind, stream);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false, false, true>(n, bm, x_t, values, idx, nullptr, nullptr,
+                                             nullptr, xs, ws, nullptr, nullptr, nullptr, y_t,
+                                             b, k, o, ACT_NONE, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2) ||
+      !s8_flush_ok(ACT_NONE, out_kind, xs, ws, nullptr, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_kmajor<spf8::S8>(
+      n, bm, x_t, values, idx,
+      s8_flush<true, true>(xs, ws, nullptr, nullptr, y_t, b, ACT_NONE, out_kind), b, k, o,
+      split, stream);
 }
 
 const char* vg_error_string(int code) {

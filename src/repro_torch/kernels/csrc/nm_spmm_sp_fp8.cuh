@@ -4,8 +4,10 @@
 // sparsity skip (MASKED) the same single as nm_spmm_masked_fp8; in its s8
 // form (the element class S8: the same bytes, an int32 accumulator)
 // nm_spmm_int8 and nm_spmm_int8_requant at n in {1, 2}, tile_gemm_int8 and
-// tile_gemm_int8_requant (N = 4), and K8 int8 (nm_spmm_gather_bk_int8 and
-// _requant, G = n in {1, 2}); in DUAL
+// tile_gemm_int8_requant (N = 4), K8 int8 (nm_spmm_gather_bk_int8 and
+// _requant, G = n in {1, 2}), in DUAL form the compressed gate-up
+// nm_spmm_dual_int8 and _requant (n in {1, 2}) and with the K-major X K11
+// int8 (nm_spmm_gather_int8); in DUAL
 // form (two weights, two accumulators, one silu(g) * u flush) the
 // compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
 // same streaming body
@@ -25,9 +27,11 @@
 // nm_spmm/kernel.py::fp8_dual_plan,
 // tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
 // ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by gemm_int8.cu, whose
-// vg_nm_spmm_int8, vg_tile_gemm_int8 and vg_nm_spmm_gather_bk_int8 launch
-// the s8 form where nm_spmm/kernel.py::int8_plan, tile_gemm/kernel.py::
-// int8_plan and nm_spmm_gather/kernel.py::int8_plan pick it.  One body
+// vg_nm_spmm_int8, vg_tile_gemm_int8, vg_nm_spmm_gather_bk_int8,
+// vg_nm_spmm_dual_int8 and vg_nm_spmm_gather_int8 launch the s8 form where
+// nm_spmm/kernel.py::int8_plan, tile_gemm/kernel.py::int8_plan,
+// nm_spmm_gather/kernel.py::int8_plan, nm_spmm/kernel.py::int8_dual_plan and
+// nm_spmm_gather/kernel.py::kmajor_int8_plan pick it.  One body
 // serves both 8-bit classes: the header is not
 // copied per class.  n = 4 of the compressed
 // and gathered kernels, wider launches, the other masked singles and the
@@ -78,6 +82,12 @@
 //                  quantized (_gather_bk_kernel), n in {1, 2}, with the requant:int8
 //                  flush in its _requant form, where nm_spmm_gather/kernel.py::
 //                  int8_plan streams
+//   nm_spmm_dual_int8  repro/kernels/nm_spmm/kernel.py::nm_spmm_dual, int8 branch
+//                  (_spmm_dual_kernel), n in {1, 2}, with the requant:int8 flush in
+//                  its _requant form, where nm_spmm/kernel.py::int8_dual_plan streams
+//   nm_spmm_gather_int8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_int8
+//                  (_nm_spmm_gather_quantized, _gather_q_kernel, _gather_q_raw_kernel),
+//                  n in {1, 2}, where nm_spmm_gather/kernel.py::kmajor_int8_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -237,8 +247,12 @@
 //
 // The s8 form (element class S8): the singles nm_spmm_int8 and _requant (n
 // in {1, 2}, X contiguous), tile_gemm_int8 and _requant (the dense stream, N
-// = 4, X contiguous) and K8 int8, nm_spmm_gather_bk_int8 and _requant (the
-// dense stream with the gathered X, G = n in {1, 2}).  int8 is one byte like
+// = 4, X contiguous), K8 int8, nm_spmm_gather_bk_int8 and _requant (the
+// dense stream with the gathered X, G = n in {1, 2}) and K11 int8,
+// nm_spmm_gather_int8 (the dense stream with the K-major X, G = n in {1,
+// 2}); and the compressed gate-up dual nm_spmm_dual_int8 and _requant (DUAL
+// at n in {1, 2}: two int32 accumulator sets, both planes through the
+// split).  int8 is one byte like
 // e4m3 and its zero is the byte 0x00 as e4m3's +0 is, so the stage, the
 // per-warp transpose, the 1:4-as-2:4 +0 slots, the metadata word, the dense
 // A operand (ldmatrix .trans + __byte_perm), select16's +0 for an index
@@ -253,8 +267,10 @@
 // d_ff, 28,672, and 28,672 x 127^2 ~ 4.6e8 < 2^31 (the codes are clipped to
 // +-127).  The flush (gemm_int8.cu's SingleFlushI8) receives the summed
 // int32: acc raw, or float(acc) * xs * ws (the gather kernels' ws first),
-// + bias, act, the store.  The output is bitwise gemm_int8.cu's first body
-// and the plain version: raw, scaled and requantized.
+// + bias, act, the store (K11's at col * B + row into (O, B)); the dual's
+// (DualFlushI8) both sums: t_g = float(acc_g) * xs * wsg, t_u likewise,
+// silu(t_g) * t_u, the store.  The output is bitwise gemm_int8.cu's first
+// body and (the singles) the plain version: raw, scaled and requantized.
 
 #pragma once
 
@@ -453,9 +469,10 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
 // sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
 // kmask is block_maps' (row blocks, k / 64) map; the block walks the live
-// steps of its span only.  Elem: E4M3, or S8 (a single, not MASKED: the
-// compressed one over a contiguous X, or the dense one (N = 4) over a
-// contiguous or gathered X; the sums, and what flush receives, are int32).
+// steps of its span only.  Elem: E4M3, or S8 (not MASKED: the compressed
+// single or DUAL over a contiguous X, or the dense single (N = 4) over a
+// contiguous, gathered or K-major X; the sums, and what flush receives, are
+// int32).
 template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Elem, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
@@ -467,10 +484,9 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   constexpr bool IS_S8 = std::is_same_v<Elem, S8>;
   static_assert(!MASKED || (G == 0 && !DUAL && !KM),
                 "the masked stream is a single, X contiguous");
-  static_assert(!IS_S8 || ((((N == 1 || N == 2) && G == 0) || N == 4) && !DUAL && !KM &&
-                            !MASKED),
-                "the s8 stream is a single: compressed over a contiguous X, or dense over a "
-                "contiguous or gathered X");
+  static_assert(!IS_S8 || (!MASKED && (N == 4 ? !DUAL : G == 0)),
+                "the s8 stream: compressed over a contiguous X (a single or the gate-up "
+                "dual), or a dense single over a contiguous, gathered or K-major X");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -904,23 +920,26 @@ int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, con
 
 // nm_spmm_dual_fp8's few-row body: both compressed weights (values_g /
 // meta_g, values_u / meta_u) at n in {1, 2}, and tile_gemm_dual_fp8's: both
-// dense (K, O) e4m3 weights at n = 4 (meta unused); bm in {16, 64};
-// flush(row, col, sums) stores one output from its two summed fp32
-// accumulators
-template <class Flush>
+// dense (K, O) e4m3 weights at n = 4 (meta unused); with Elem S8,
+// nm_spmm_dual_int8's at n in {1, 2} only; bm in {16, 64}; flush(row, col,
+// sums) stores one output from its two summed fp32 (s8: int32) accumulators
+template <class Elem = E4M3, class Flush>
 int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
                 const void* mu, const Flush& flush, int b, int k, int o, int split,
                 void* stream) {
   if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VG_SPF8_DUAL(NN, BB) \
-  return launch<NN, BB, 0, true, false>(x, vg, mg, vu, mu, nullptr, flush, b, k, o, split, s)
+#define VG_SPF8_DUAL(NN, BB)                                                                 \
+  return launch<NN, BB, 0, true, false, false, Elem>(x, vg, mg, vu, mu, nullptr, flush, b, k, \
+                                                     o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_DUAL(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_DUAL(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_DUAL(1, 16);
   if (n == 1 && bm == 64) VG_SPF8_DUAL(1, 64);
-  if (n == 4 && bm == 16) VG_SPF8_DUAL(4, 16);
-  if (n == 4 && bm == 64) VG_SPF8_DUAL(4, 64);
+  if constexpr (std::is_same_v<Elem, E4M3>) {
+    if (n == 4 && bm == 16) VG_SPF8_DUAL(4, 16);
+    if (n == 4 && bm == 64) VG_SPF8_DUAL(4, 64);
+  }
 #undef VG_SPF8_DUAL
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -970,21 +989,22 @@ int launch_gather_dual(int n, int bm, const void* x, const void* vg, const void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K11 fp8's body: x_t (ke, b) e4m3, b a multiple of 16, gathered at n in {1,
-// 2} through idx (K_c = ke * n / 4 int32) against values (K_c, O) as a dense
-// e4m3 weight; bm in {16, 64}, split a power of two up to min(8, K_c / 64);
-// flush(row, col, acc) stores the (O, B) output of batch row `row`, channel
-// `col`
-template <class Flush>
+// K11's body, e4m3 (Elem E4M3, K11 fp8) or int8 (S8, K11 int8): x_t (ke, b)
+// of the class, b a multiple of 16, gathered at n in {1, 2} through idx (K_c =
+// ke * n / 4 int32) against values (K_c, O) as a dense weight of the class;
+// bm in {16, 64}, split a power of two up to min(8, K_c / 64); flush(row,
+// col, acc) stores the (O, B) output of batch row `row`, channel `col`, from
+// its summed fp32 (s8: int32) accumulator
+template <class Elem = E4M3, class Flush>
 int launch_kmajor(int n, int bm, const void* x_t, const void* values, const void* idx,
                   const Flush& flush, int b, int ke, int o, int split, void* stream) {
   if (ke <= 0 || (ke * n) % 4 != 0 || b % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
   if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VG_SPF8_KMAJOR(GG, BB) \
-  return launch<4, BB, GG, false, true>(x_t, values, idx, nullptr, nullptr, nullptr, flush, b, \
-                                        kc, o, split, s)
+#define VG_SPF8_KMAJOR(GG, BB)                                                              \
+  return launch<4, BB, GG, false, true, false, Elem>(x_t, values, idx, nullptr, nullptr,   \
+                                                     nullptr, flush, b, kc, o, split, s)
   if (n == 2 && bm == 16) VG_SPF8_KMAJOR(2, 16);
   if (n == 2 && bm == 64) VG_SPF8_KMAJOR(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_KMAJOR(1, 16);

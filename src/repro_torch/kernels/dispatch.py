@@ -703,6 +703,25 @@ def _meta_axis_sliceable(mode: str, ke: int, n: int, m: int, ske: int) -> bool:
     return ke % ske == 0
 
 
+#: plans made while :func:`plan_cache` is active, by (problem, config)
+_PLAN_CACHE: Optional[Dict[Tuple[GemmProblem, DispatchConfig], DispatchDecision]] = None
+
+
+@contextlib.contextmanager
+def plan_cache():
+    """Memoize :func:`plan` while active (a serving loop, where the
+    registry, the environment and the mesh stay as they are): a decode step
+    asks the same few questions hundreds of times.  A problem with a
+    ``shard`` (whose mesh is unhashable) is planned anew each time."""
+    global _PLAN_CACHE
+    prev = _PLAN_CACHE
+    _PLAN_CACHE = {} if prev is None else prev
+    try:
+        yield
+    finally:
+        _PLAN_CACHE = prev
+
+
 def plan(problem: GemmProblem, *,
          dispatch: Optional[DispatchConfig] = None) -> DispatchDecision:
     """Pure decision function: what would the engine run for this problem?
@@ -713,8 +732,18 @@ def plan(problem: GemmProblem, *,
     (``EPILOGUE_SHARDED``: it runs after the reduction) and the
     activation skip never granted (``ACT_MASK_ONLY_SHARDED``).
     ``sharded`` without a spec falls back (``NO_SHARD_SPEC``)."""
-    p = problem
     dcfg = dispatch or _DEFAULT
+    cache = _PLAN_CACHE
+    if cache is None or problem.shard is not None:
+        return _plan(problem, dcfg)
+    key = (problem, dcfg)
+    decision = cache.get(key)
+    if decision is None:
+        decision = cache[key] = _plan(problem, dcfg)
+    return decision
+
+
+def _plan(p: GemmProblem, dcfg: DispatchConfig) -> DispatchDecision:
     backend = registry.resolve_backend(dcfg.backend, p.device)
     dt_name = dtype_name(p.dtype)
     shard = p.shard

@@ -27,8 +27,10 @@ there too, walking the live steps of each block's span (bitwise
 ``nm_spmm_fp8`` on the same masked X), and ``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
 dual form where :func:`fp8_dual_plan` picks it; ``nm_spmm_int8`` and
 ``nm_spmm_int8_requant`` at n in {1, 2} run that header's s8 form (m16n8k64
-s8 -> s32, int32 partials), as :func:`int8_plan` picks; every other
-kernel here expands each values tile into the dense tile in shared memory.
+s8 -> s32, int32 partials), as :func:`int8_plan` picks, and
+``nm_spmm_dual_int8`` and ``nm_spmm_dual_int8_requant`` its s8 dual form
+where :func:`int8_dual_plan` picks it; every other kernel here expands
+each values tile into the dense tile in shared memory.
 
 Replaces ``repro/kernels/nm_spmm/kernel.py::nm_spmm`` (:125),
 ``::nm_spmm_dual`` (:437, float, int8 and fp8 branches), ``::nm_spmm_int8``
@@ -59,7 +61,8 @@ from .ref import (nm_spmm_dual_quantized_ref, nm_spmm_dual_ref,
                   nm_spmm_ref)
 
 __all__ = ["nm_spmm", "split_k", "dual_plan", "fp8_plan", "int8_plan", "fp8_dual_plan",
-           "FP8_DUAL_STREAM16_TILES", "DUAL_1OF4_SHARED_MAX_ROWS",
+           "int8_dual_plan",
+           "FP8_DUAL_STREAM16_TILES", "DUAL_1OF4_SHARED_MAX_ROWS", "INT8_DUAL_STREAM16_MAX_ROWS",
            "nm_spmm_dual", "nm_spmm_int8",
            "nm_spmm_int8_requant", "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
            "nm_spmm_fp8", "nm_spmm_fp8_requant", "nm_spmm_dual_fp8",
@@ -70,6 +73,9 @@ _N = (1, 2, 4)
 #: past decode rows the fp8 dual runs its 16-row stream while the launch has
 #: at most this many tiles (two an SM)
 FP8_DUAL_STREAM16_TILES = 2 * SMS
+#: the int8 compressed dual runs its 16-row stream up to this many rows, by
+#: n (2:4 two row tiles, 1:4 three), its 64-row one above
+INT8_DUAL_STREAM16_MAX_ROWS = {1: 48, 2: 32}
 #: the float compressed dual at 1:4 keeps the shared body up to this many
 #: rows where its 64-row launch cannot split K (see :func:`dual_plan`)
 DUAL_1OF4_SHARED_MAX_ROWS = 255
@@ -193,6 +199,49 @@ def fp8_dual_plan(b: int, k: int, o: int, n: int) -> dict:
             return {"body": "sparse", "rows": _build.BLOCK_ROWS[1], "cols": _build.BLOCK_O,
                     "split": split}
     return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
+
+
+def int8_dual_plan(b: int, k: int, o: int, n: int) -> dict:
+    """``nm_spmm_dual_int8``'s (and ``_requant``'s) body, tile and split for
+    ``silu(deq(Xq (b, k) @ dec(g))) * deq(Xq @ dec(u))``, both compressed
+    int8 weights ``(k * n / 4, o)``.  n in {1, 2}: ``sparse`` (the s8 form of
+    ``csrc/nm_spmm_sp_fp8.cuh``'s dual stream: both weights' tiles a stage,
+    ``mma.sp`` m16n8k64 s8 -> s32 into two int32 accumulator sets, both
+    partial planes summed in rank order, gemm_int8.cu's ``DualFlushI8``) at
+    every row count: over 64-channel tiles of 16 rows up to
+    ``INT8_DUAL_STREAM16_MAX_ROWS[n]`` rows (32 at 2:4, 48 at 1:4), split by ``cluster_split`` at
+    ``BLOCKS_PER_SM`` blocks an SM at 2:4 and ``FP8_STREAM16_BLOCKS_PER_SM``
+    at 1:4 (internlm2-1.8b's gate-up (2048, 8192) at B = 8: 128 tiles, split
+    2; qwen3-moe's expert (4096, 1536): 24 tiles, split 8); above, over
+    64-row tiles split at ``BLOCKS_PER_SM``.  On an H100, 700 W
+    (``tools/int8_body_sweep.py``, PERF.md §6) the stream beat gemm_int8.cu's
+    first body at every swept shape, 1-256 rows at both pairs, n in {1, 2}:
+    internlm2-1.8b 2:4 at 8 / 64 / 256 rows 15.8 / 29.3 / 70.2 µs against
+    50.6 / 66.2 / 190.6, qwen3-moe's expert 10.0 / 17.4 / 46.7 against
+    98.1 / 123.2 / 123.1.  Three 16-row blocks an SM lost to two at the
+    expert's 2:4 over 17-32 rows (18.3-21.2 against 14.9 µs, a split of 8
+    against 4) and won at its 1:4 (11.5 against 13.9); the 64-row tiles beat
+    the 16-row ones from 33 rows at 2:4 and from 49 at 1:4, where the
+    16-row ones won over 33-48 rows (internlm2-1.8b 26.4-27.6 against
+    28.1-28.2 µs, the expert 15.5-15.8 against 16.4-16.5) but for one row
+    count no path runs, 65 (internlm2-1.8b 37.7 against 42.1, the expert
+    23.7 against 25.0).  n = 4
+    keeps ``shared`` (gemm_int8.cu's body, the form the port ran first) at
+    ``block_rows(b)`` rows, split 1.  The int32 sums are exact in any order
+    and the flush repeats the first body's fp32 operations: every body gives
+    the same bits, requantized codes included.  Returns ``{"body", "rows",
+    "cols", "split"}``; ``rows`` is what the C interface takes as ``bm``."""
+    if n not in (1, 2):
+        return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O,
+                "split": 1}
+    rows16, rows64 = _build.BLOCK_ROWS
+    steps, cols = k // _build.BLOCK_K, o // _build.BLOCK_O
+    if b <= INT8_DUAL_STREAM16_MAX_ROWS[n]:
+        per_sm = FP8_STREAM16_BLOCKS_PER_SM if n == 1 else BLOCKS_PER_SM
+        return {"body": "sparse", "rows": rows16, "cols": _build.BLOCK_O,
+                "split": cluster_split(cols * -(-b // rows16), steps, per_sm)}
+    return {"body": "sparse", "rows": rows64, "cols": _build.BLOCK_O,
+            "split": cluster_split(cols * -(-b // rows64), steps)}
 
 
 def _check_compressed(kernel: str, ke: int, values: torch.Tensor,
@@ -503,12 +552,9 @@ def _nm_spmm_dual_quantized(wrapper, storage, x_q, values_g, meta_g, values_u, m
                           wg_scale, wu_scale, *rq, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    # the fp8 dual runs the body of its plan (block_b only checked); int8
-    # keeps the shared body (no plan)
-    plan = ()
-    if storage == torch.float8_e4m3fn:
-        p = fp8_dual_plan(b, ke, o, n)
-        bb, plan = p["rows"], (int(p["body"] == "sparse"), p["split"])
+    # both classes run the body of their plans (block_b only checked)
+    p = (fp8_dual_plan if storage == torch.float8_e4m3fn else int8_dual_plan)(b, ke, o, n)
+    bb, plan = p["rows"], (int(p["body"] == "sparse"), p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_nm_spmm_dual_{suffix}")(
@@ -527,7 +573,9 @@ def nm_spmm_dual_int8(x_q: torch.Tensor, values_g: torch.Tensor, meta_g: torch.T
                       *, out_dtype: torch.dtype = torch.float32,
                       block_b: Optional[int] = None) -> torch.Tensor:
     """Fused int8 gate-up over two compressed weights sharing one X read:
-    ``silu(deq(Xq @ dec(g))) * deq(Xq @ dec(u))``."""
+    ``silu(deq(Xq @ dec(g))) * deq(Xq @ dec(u))``.  ``block_b`` is the
+    dispatch plan's row block (checked); the body, its tile and its K split
+    are :func:`int8_dual_plan`'s; every body gives the same bits."""
     return _nm_spmm_dual_quantized(nm_spmm_dual_int8, torch.int8, x_q, values_g, meta_g,
                                    values_u, meta_u, n, x_scale, wg_scale, wu_scale,
                                    out_dtype, block_b, None)

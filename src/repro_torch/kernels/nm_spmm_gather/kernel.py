@@ -46,8 +46,9 @@ at 2:4 runs K8's stream with the activation-sparsity skip (each block
 walking the live steps of its span) wherever K8 streams, as
 :func:`masked_plan` picks.  ``nm_spmm_gather_fp8`` (K11) at n
 in {1, 2} runs that e4m3 stream with a K-major X stage (the step's selected
-x_t rows, then a byte transpose pass), chosen by :func:`kmajor_fp8_plan`.
-Every other kernel here runs the shared bodies of ``gemm.cu`` /
+x_t rows, then a byte transpose pass), chosen by :func:`kmajor_fp8_plan`,
+and ``nm_spmm_gather_int8`` (K11 int8) its s8 form, chosen by
+:func:`kmajor_int8_plan`.  Every other kernel here runs the shared bodies of ``gemm.cu`` /
 ``gemm_int8.cu`` / ``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
@@ -86,8 +87,10 @@ from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_t_quantized_ref, nm_spmm_gather_t_ref)
 
 __all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "int8_plan", "kmajor_fp8_plan",
+           "kmajor_int8_plan",
            "masked_plan", "fp8_dual_plan",
            "DUAL_SHARED_MAX_KC", "FP8_STREAM16_MAX_ROWS", "KMAJOR_STREAM64_MIN_STEPS",
+           "INT8_KMAJOR_STREAM16_MAX_STEPS",
            "KMAJOR_STREAM_MAX_ROWS",
            "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
@@ -107,8 +110,12 @@ FP8_STREAM16_MAX_ROWS = 64
 #: K11 fp8's 64-row stream takes a launch past the 16-row one's width where
 #: each block of its split walks this many 64-deep steps or more
 KMAJOR_STREAM64_MIN_STEPS = 8
-#: K11 fp8 streams up to this many rows (the shared body above)
+#: K11 fp8 streams up to this many rows (the shared body above); K11 int8
+#: runs its 16-row stream up to this many rows
 KMAJOR_STREAM_MAX_ROWS = 256
+#: K11 int8's 16-row stream takes a launch while each block of its split
+#: walks at most this many 64-deep steps (its 64-row stream the others)
+INT8_KMAJOR_STREAM16_MAX_STEPS = 8
 
 def plan(b: int, ke: int, o: int, n: int) -> dict:
     """``nm_spmm_gather_bk``'s (float) body, tile and split for ``gather(X
@@ -299,6 +306,43 @@ def kmajor_fp8_plan(b: int, ke: int, o: int, n: int) -> dict:
         return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O, "split": split}
     return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O,
             "split": cluster_split(tiles, steps, FP8_STREAM16_BLOCKS_PER_SM)}
+
+
+def kmajor_int8_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_int8``'s (K11 int8) body, tile and split for ``Y_t
+    (o, b) = gather(x_t (ke, b), idx)^T-contract values (ke * n / 4, o)``,
+    int8, over the compressed contraction K_c = ke * n / 4.  n in {1, 2}:
+    ``stream`` (the s8 form of ``csrc/nm_spmm_sp_fp8.cuh``'s K-major stream:
+    the step's selected x_t rows landed by cp.async, the byte transpose
+    pass, two ``mma.sync`` m16n8k32 s8 -> s32 a step, int32 partials, the
+    ws-first flush into (O, B)) at every row count: over 64-channel tiles of
+    16 rows, split by ``cluster_split`` at ``FP8_STREAM16_BLOCKS_PER_SM``
+    blocks an SM, up to ``KMAJOR_STREAM_MAX_ROWS`` rows while a block of
+    that split walks at most ``INT8_KMAJOR_STREAM16_MAX_STEPS`` 64-deep
+    steps (internlm2-1.8b's two row-parallel sites on a (1, 2) mesh at B =
+    32: 2 x 32 tiles, split 4); else over 64-row tiles split at
+    ``BLOCKS_PER_SM``.  On an H100, 700 W (``tools/int8_body_sweep.py``,
+    PERF.md §6) the stream beat gemm_int8.cu's first body at every swept
+    shape, 32-1,024 rows at both local sites, n in {1, 2} (wo + w_out 2:4 at
+    B = 32: 5.6 + 9.4 µs against 14.5 + 47.4), and this rule picked the
+    fastest tile at every one of them (or one within 1%): the 16-row tiles
+    lost where a block walks 16 or more steps (w_out 2:4 at 64 / 128 rows:
+    13.4 / 21.1 against 11.4 / 16.1) and won where it walks 8 or fewer (wo
+    2:4 at 256 rows: 9.7 against 10.8).  n = 4 keeps ``shared``
+    (gemm_int8.cu's body, the form the port ran first) at ``block_rows(b)``
+    rows, split 1.  The int32 sums are exact in any order: every body gives
+    the plain version's bits, raw and scaled.  Returns ``{"body", "rows",
+    "cols", "split"}``; ``rows`` is what the C interface takes as ``bm``."""
+    if n not in (1, 2):
+        return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O,
+                "split": 1}
+    rows16, rows64 = _build.BLOCK_ROWS
+    steps, cols = ke * n // 4 // _build.BLOCK_K, o // _build.BLOCK_O
+    split = cluster_split(cols * -(-b // rows16), steps, FP8_STREAM16_BLOCKS_PER_SM)
+    if b <= KMAJOR_STREAM_MAX_ROWS and steps // split <= INT8_KMAJOR_STREAM16_MAX_STEPS:
+        return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O, "split": split}
+    return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O,
+            "split": cluster_split(cols * -(-b // rows64), steps)}
 
 
 def _check_gather(kernel: str, ke: int, values: torch.Tensor, idx: torch.Tensor,
@@ -837,12 +881,9 @@ def _gather_t_quantized(wrapper, storage, x_t, values, idx, x_scale, w_scale, n,
     _build.check_operands(kernel, x_t, values, idx, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values.shape[0], o)
     y_t = torch.empty((o, b), dtype=y_dtype, device=x_t.device)
-    # the fp8 K11 runs the body of its plan (block_b only checked); int8 keeps
-    # the shared body (no plan)
-    plan = ()
-    if storage == torch.float8_e4m3fn:
-        p = kmajor_fp8_plan(b, ke, o, n)
-        bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
+    # both classes run the body of their plans (block_b only checked)
+    p = (kmajor_fp8_plan if storage == torch.float8_e4m3fn else kmajor_int8_plan)(b, ke, o, n)
+    bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_t.device):
         rc = getattr(lib, f"vg_{kernel}")(
@@ -860,7 +901,9 @@ def nm_spmm_gather_int8(x_t: torch.Tensor, values: torch.Tensor, idx: torch.Tens
     """``Y_t (O, B) = float(gather(x_t, idx)^T-contract values) * w_scale (O,
     1) * x_scale (1, B)``: int8 codes into an exact int32 accumulator,
     dequantized once at the flush; with no scales the raw int32 (O, B)
-    accumulator."""
+    accumulator.  The body, its tile and its K split are
+    :func:`kmajor_int8_plan`'s (``block_b`` only checked); every body gives
+    the same bits."""
     return _gather_t_quantized(nm_spmm_gather_int8, torch.int8, x_t, values, idx, x_scale,
                                w_scale, n, out_dtype, block_b)
 

@@ -19,7 +19,7 @@ import torch
 
 from ..core.sparse_linear import apply_linear, init_linear
 from .config import ModelConfig
-from .layers import apply_rope
+from .layers import apply_rope, rope_cos_sin
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -46,8 +46,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.
     q = apply_linear(p["wq"], x, sp, gather="col").reshape(b, t, -1, cfg.head_dim)
     k = apply_linear(p["wk"], x, sp, gather="col").reshape(b, t, -1, cfg.head_dim)
     v = apply_linear(p["wv"], x, sp, gather="col").reshape(b, t, -1, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
+    k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
     return q, k, v
 
 

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -28,19 +28,38 @@ def init_rms_norm(d: int, device=None) -> Params:
     return {"gamma": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
+#: rope_frequencies by (head_dim, theta, device): every layer asks again
+_ROPE_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    key = (head_dim, theta, torch.device(device or "cpu"))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        # a plain tensor (not an inference tensor): usable in and out of
+        # inference mode
+        with torch.inference_mode(False), torch.no_grad():
+            freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                                  device=key[2]) / head_dim))
+        _ROPE_FREQS[key] = freqs
+    return freqs
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., T, H, D); positions broadcastable to (..., T).  Split
-    halves (not interleaved), rotated in fp32, cast back."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, device=x.device)
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rotation of :func:`apply_rope` at ``positions``: ``(cos, sin)``,
+    each (..., T, 1, D/2) fp32, shared by the q and k of one layer."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
     angles = positions[..., None].float() * freqs             # (..., T, D/2)
-    cos = torch.cos(angles)[..., None, :]                     # (..., T, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               cos_sin: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """x: (..., T, H, D); positions broadcastable to (..., T).  Split
+    halves (not interleaved), rotated in fp32, cast back.  ``cos_sin`` is
+    :func:`rope_cos_sin` at these positions, when the caller has it."""
+    cos, sin = cos_sin or rope_cos_sin(positions, x.shape[-1], theta)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

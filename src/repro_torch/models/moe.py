@@ -78,34 +78,45 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     return p
 
 
-def _expert(experts: Params, e: int) -> Params:
-    """Expert ``e``'s slice of the stacked leaves (0-dim leaves, a calibrated
-    scalar ``act_scale`` or a calibration tag, are shared by the stack)."""
-    return {name: {k: v[e] if isinstance(v, torch.Tensor) and v.ndim else v
+def _experts(experts: Params, n: int) -> list:
+    """The first ``n`` experts' slices of the stacked leaves, one dict of
+    views each (0-dim leaves, a calibrated scalar ``act_scale`` or a
+    calibration tag, are shared by the stack)."""
+    cols = {name: {k: v.unbind(0)[:n] if isinstance(v, torch.Tensor) and v.ndim else None
                    for k, v in leaf.items()}
             for name, leaf in experts.items()}
+    return [{name: {k: v if cols[name][k] is None else cols[name][k][e]
+                    for k, v in leaf.items()}
+             for name, leaf in experts.items()}
+            for e in range(n)]
 
 
-def _expert_ffn(wp: Params, x: torch.Tensor, cfg: ModelConfig,
-                activation: ActivationSpec = None, local: bool = False) -> torch.Tensor:
+def _ffn_epilogue(w_out: Params, rows: int, cfg: ModelConfig):
+    """The gate-up's (or the gelu w_in's) epilogue for ``rows`` rows into
+    ``w_out``: its static scale lets the producing kernel requantize in
+    its flush (as in layers.apply_mlp).  One decision serves every expert
+    of a stack: their ``w_out`` leaves share layout, shape and the scalar
+    ``act_scale``."""
     from ..kernels import dispatch
     from ..kernels import epilogue as epilib
 
-    sp = cfg.sparsity
-    # w_out's static scale lets the producing kernel requantize in its
-    # flush, the dual or the gelu w_in (as in layers.apply_mlp)
-    rq = dispatch.requant_plan(wp["w_out"], x.shape[:-1], sp)
+    rq = dispatch.requant_plan(w_out, (rows,), cfg.sparsity)
     requant, rq_scale = rq if rq is not None else (None, None)
+    return epilib.make(act="silu_mul" if cfg.act == "swiglu" else "gelu", requant=requant,
+                       requant_scale=rq_scale)
+
+
+def _expert_ffn(wp: Params, x: torch.Tensor, cfg: ModelConfig, epilogue,
+                activation: ActivationSpec = None, local: bool = False) -> torch.Tensor:
+    """One expert's FFN on x (rows, d); ``epilogue`` is
+    :func:`_ffn_epilogue`'s for these rows."""
+    sp = cfg.sparsity
     if cfg.act == "swiglu":
-        h = apply_gate_up(wp["w_gate"], wp["w_in"], x, sp,
-                          epilogue=epilib.make(act="silu_mul", requant=requant,
-                                               requant_scale=rq_scale),
+        h = apply_gate_up(wp["w_gate"], wp["w_in"], x, sp, epilogue=epilogue,
                           activation=activation, local=local)
     else:
-        h = apply_linear(wp["w_in"], x, sp,
-                         epilogue=epilib.make(act="gelu", requant=requant,
-                                              requant_scale=rq_scale),
-                         activation=activation, local=local)
+        h = apply_linear(wp["w_in"], x, sp, epilogue=epilogue, activation=activation,
+                         local=local)
     # the FFN is row-wise: rows zeroed on the way in stay zero in h, so the
     # "zeros" class carries through to w_out (whose kernel skips them);
     # narrow rows come out of w_out in fp32, back to the token dtype
@@ -143,22 +154,29 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, n_local: int) -> to
     cap = _capacity(b * t, cfg)
     experts = {k: v for k, v in p.items() if k != "router"}
     spgemm = cfg.moe_expert_path == "spgemm"
+    # every expert's capacity selection at once, row e of each (E, ...)
+    # tensor being what expert e alone would select
+    w_t = weights[:, :n_local].T                         # (E, T) combine weights
+    score = torch.where(w_t > 0, w_t, float("-inf"))
+    top_w, top_idx = _top_k(score, cap)                  # (E, cap) capacity winners
+    kept = torch.where(top_w > 0, top_w, 0.0)
+    kept_x = kept[:, :, None].to(xf.dtype)
+    if spgemm:
+        # the winners keep their rows, every other row is zeroed: the
+        # FFN's routing holes become activation sparsity
+        routed = torch.zeros(w_t.shape, dtype=torch.bool, device=w_t.device)
+        routed.scatter_(1, top_idx, kept > 0)
+        routed = routed[:, :, None].to(xf.dtype)
     acc = torch.zeros_like(xf)
-    for e, w_e in enumerate(weights[:, :n_local].T):     # w_e: (T,) combine weights
-        wp = _expert(experts, e)
-        score = torch.where(w_e > 0, w_e, float("-inf"))
-        top_w, top_idx = _top_k(score, cap)              # capacity winners
-        kept = torch.where(top_w > 0, top_w, 0.0)
+    ws = _experts(experts, n_local)
+    epilogue = _ffn_epilogue(ws[0]["w_out"], b * t if spgemm else cap, cfg)
+    for e, wp in enumerate(ws):
         if spgemm:
-            # the winners keep their rows, every other row is zeroed: the
-            # FFN's routing holes become activation sparsity
-            routed = torch.zeros(w_e.shape, dtype=torch.bool, device=w_e.device)
-            routed[top_idx] = kept > 0
-            x_full = xf * routed[:, None].to(xf.dtype)
-            y_e = _expert_ffn(wp, x_full, cfg, activation=ActivationSpec("zeros"))[top_idx]
+            y_e = _expert_ffn(wp, xf * routed[e], cfg, epilogue,
+                              activation=ActivationSpec("zeros"))[top_idx[e]]
         else:
-            y_e = _expert_ffn(wp, xf[top_idx], cfg)      # (cap, d)
-        acc.index_add_(0, top_idx, y_e * kept[:, None].to(y_e.dtype))
+            y_e = _expert_ffn(wp, xf[top_idx[e]], cfg, epilogue)   # (cap, d)
+        acc.index_add_(0, top_idx[e], y_e * kept_x[e])
     return acc.reshape(b, t, d)
 
 

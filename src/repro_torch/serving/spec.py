@@ -139,10 +139,12 @@ class Prepared:
     @contextlib.contextmanager
     def activate(self):
         """Install the mesh's axis env (if any) and the spec's dispatch
-        backend for a serving loop."""
+        backend for a serving loop, whose plans are memoized
+        (``dispatch.plan_cache``)."""
         from ..kernels import dispatch as kdispatch
         from ..models.pjit_utils import use_axis_env
-        with use_axis_env(self.axis_env), kdispatch.use_dispatch(backend=self.spec.backend):
+        with use_axis_env(self.axis_env), kdispatch.use_dispatch(backend=self.spec.backend), \
+                kdispatch.plan_cache():
             yield self
 
     def dispatch_report(self, batches: Optional[Tuple[int, ...]] = None):

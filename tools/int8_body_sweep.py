@@ -1,22 +1,35 @@
-"""Time every body the int8 dense and gathered singles can run, alone, on
-the card: ``tile_gemm_int8`` (``vg_tile_gemm_int8``) and K8 int8
+"""Time every body the redesigned int8 kernels can run, alone, on the card:
+``tile_gemm_int8`` (``vg_tile_gemm_int8``) and K8 int8
 (``vg_nm_spmm_gather_bk_int8``) at a grid of row counts and at the sites
-of internlm2-1.8b, gemma3-1b's gelu w_in and hubert-xlarge's prefill.
+of internlm2-1.8b, gemma3-1b's gelu w_in and hubert-xlarge's prefill; the
+compressed gate-up dual ``nm_spmm_dual_int8`` (``vg_nm_spmm_dual_int8``)
+at internlm2-1.8b's and qwen3-moe's expert gate-up, n in {2, 1}, 1-256
+rows; K11 int8 ``nm_spmm_gather_int8`` (``vg_nm_spmm_gather_int8``, the
+raw int32 (O, B) form a row-parallel site all-reduces) at the local sites
+of internlm2-1.8b on a (1, 2) mesh (wo, w_out), n in {2, 1}, 32-1,024 rows.
 
-    python3 tools/int8_body_sweep.py          # one JSON line a shape
+    python3 tools/int8_body_sweep.py                    # one JSON line a shape
+    python3 tools/int8_body_sweep.py --kernels dual,k11 # some of them
+
+``--kernels`` keeps a call on the card to the kernels whose plans are being
+set (the whole grid takes minutes of chip time, and each kernel's cases
+stand alone).
 
 Each body is launched through its C entry with an explicit (bm, body,
 split): ``shared`` (gemm_int8.cu's first body at ``block_rows(b)`` rows,
 split 1), ``s16`` / ``s64`` (the s8 stream of csrc/nm_spmm_sp_fp8.cuh over
 16- / 64-row tiles, the K loop split by ``cluster_split`` at the blocks an
-SM in the name: ``s16_3`` three, ``s64_1`` one).  Every body's bf16 output
-must be the shared body's bit for bit (int32 sums are exact in any order).
-Times are ``chip_smoke.time_ms``'s (CUDA-graph replays over enough weight
-copies to leave L2 cold), in ms, beside the bodies the plans
-(``tile_gemm/kernel.py::int8_plan``, ``nm_spmm_gather/kernel.py::
-int8_plan``) pick.  It needs a card and exits non-zero without one.
+SM in the name: ``s16_3`` three, ``s64_1`` one).  Every body's output
+(bf16; K11's raw int32) must be the shared body's bit for bit (int32 sums
+are exact in any order).  Times are ``chip_smoke.time_ms``'s (CUDA-graph
+replays over enough weight copies to leave L2 cold), in ms, beside the
+bodies the plans (``tile_gemm/kernel.py::int8_plan``,
+``nm_spmm_gather/kernel.py::int8_plan``, ``nm_spmm/kernel.py::
+int8_dual_plan``, ``nm_spmm_gather/kernel.py::kmajor_int8_plan``) pick.
+It needs a card and exits non-zero without one.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -30,6 +43,9 @@ import chip_smoke  # noqa: E402
 
 TILE_ROWS = (8, 16, 17, 33, 64, 128, 255, 256, 512, 1024, 4000)
 GATHER_ROWS = (8, 17, 33, 48, 64, 65, 128, 256, 1024, 4000)
+DUAL_ROWS = (1, 8, 16, 17, 24, 32, 33, 48, 64, 65, 96, 128, 192, 256)
+K11_ROWS = (32, 64, 128, 256, 512, 1024)   # multiples of 16 (KMAJOR_B)
+K11_MESH = 2
 
 
 def bodies(b: int, kc: int, o: int) -> dict:
@@ -47,6 +63,7 @@ def bodies(b: int, kc: int, o: int) -> dict:
 
 def sweep_case(kernel, b, k, o, n, gen, lib, plan):
     """Time each body of one shape; fail unless all give the same bits."""
+    from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
     from repro_torch.kernels import _build
@@ -55,19 +72,33 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
     x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
     xq, xs = quantize_rows(x, torch.int8)
     kc = k * n // 4
+    if kernel == "nm_spmm_gather_int8":     # K-major: x_t (K_eff, B), xs (1, B)
+        xq, xs = xq.t().contiguous(), xs.reshape(1, -1)
 
     def leaf():
         w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
         if kernel == "tile_gemm_int8":
             lf = quantize_linear({"w": w}, torch.int8)
             return (lf["w"], lf["scale"].reshape(1, -1))
+        if kernel == "nm_spmm_dual_int8":
+            lfs = []
+            for _ in range(2):
+                c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
+                lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)},
+                                     torch.int8)
+                lfs += [lf["values"], lf["meta_packed"], lf["scale"].reshape(1, -1)]
+                w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+            return tuple(lfs)
         lf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"), "gather",
                             quantize=torch.int8)
         return (lf["values"], lf["gather_idx"], lf["scale"].reshape(1, -1))
 
-    nbytes = kc * o + 4 * o + (4 * kc if kernel != "tile_gemm_int8" else 0)
+    nbytes = {"tile_gemm_int8": kc * o + 4 * o,
+              "nm_spmm_dual_int8": 2 * (kc * o * 5 // 4 + 4 * o)}.get(kernel,
+                                                                     kc * o + 4 * o + 4 * kc)
     leaves = [leaf() for _ in range(chip_smoke.copies_for(nbytes))]
-    y = torch.empty((b, o), dtype=torch.bfloat16, device=dev)
+    y = (torch.empty((o, b), dtype=torch.int32, device=dev) if kernel == "nm_spmm_gather_int8"
+         else torch.empty((b, o), dtype=torch.bfloat16, device=dev))
 
     def launch(bm, body, split):
         def call(*lf):
@@ -77,6 +108,17 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
                 rc = lib.vg_tile_gemm_int8(xq.data_ptr(), w.data_ptr(), xs.data_ptr(),
                                            ws.data_ptr(), None, None, y.data_ptr(), b, k, o,
                                            0, 0, bm, body, split, stream)
+            elif kernel == "nm_spmm_dual_int8":
+                vg, mg, sg, vu, mu, su = lf
+                rc = lib.vg_nm_spmm_dual_int8(xq.data_ptr(), vg.data_ptr(), mg.data_ptr(),
+                                              vu.data_ptr(), mu.data_ptr(), xs.data_ptr(),
+                                              sg.data_ptr(), su.data_ptr(), None, y.data_ptr(),
+                                              b, k, o, n, 0, bm, body, split, stream)
+            elif kernel == "nm_spmm_gather_int8":     # the raw int32 (O, B) accumulator
+                v, idx, _ = lf
+                rc = lib.vg_nm_spmm_gather_int8(xq.data_ptr(), v.data_ptr(), idx.data_ptr(),
+                                                None, None, y.data_ptr(), b, k, o, n,
+                                                _build.OUT_RAW, bm, body, split, stream)
             else:
                 v, idx, ws = lf
                 rc = lib.vg_nm_spmm_gather_bk_int8(xq.data_ptr(), v.data_ptr(), idx.data_ptr(),
@@ -87,7 +129,7 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
         return call
 
     row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n, "plan": plan, "ms": {},
-           "bodies": bodies(b, kc, o)}
+           "bodies": bodies(b, k if kernel == "nm_spmm_dual_int8" else kc, o)}
     first = None
     for name, (bm, body, split) in row["bodies"].items():
         call = launch(bm, body, split)
@@ -107,28 +149,50 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="tile,gather,dual,k11",
+                    help="comma-separated: tile (tile_gemm_int8), gather (K8 int8), dual "
+                         "(nm_spmm_dual_int8), k11 (nm_spmm_gather_int8)")
+    which = set(ap.parse_args().kernels.split(","))
     if not torch.cuda.is_available():
         chip_smoke.fail("no card: the sweep times CUDA kernels")
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.nm_spmm.kernel import int8_dual_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_int8_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.log(f"int8 body sweep on {chip_smoke.card()}")
     lib = _build.library("gemm_int8.cu")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    il, gm, hb = (get_config(a) for a in ("internlm2_1_8b", "gemma3_1b", "hubert_xlarge"))
+    il, gm, hb, moe = (get_config(a) for a in ("internlm2_1_8b", "gemma3_1b", "hubert_xlarge",
+                                                "qwen3_moe_235b_a22b"))
     il_sites = [(il.d_model, il.attn_dim), (il.d_model, il.kv_dim), (il.d_ff, il.d_model)]
-    for k, o in il_sites + [(gm.d_model, gm.d_ff)]:
-        for b in TILE_ROWS:
-            sweep_case("tile_gemm_int8", b, k, o, 4, gen, lib, tile_plan(b, k, o))
+    if "tile" in which:
+        for k, o in il_sites + [(gm.d_model, gm.d_ff)]:
+            for b in TILE_ROWS:
+                sweep_case("tile_gemm_int8", b, k, o, 4, gen, lib, tile_plan(b, k, o))
     hb_sites = [(hb.d_model, hb.attn_dim), (hb.d_ff, hb.d_model), (hb.d_model, hb.d_ff)]
-    for n, sites in ((2, il_sites + [(gm.d_model, gm.d_ff)] + hb_sites), (1, il_sites)):
-        for k, o in sites:
-            for b in GATHER_ROWS:
-                sweep_case("nm_spmm_gather_bk_int8", b, k, o, n, gen, lib,
-                           gather_plan(b, k, o, n))
+    if "gather" in which:
+        for n, sites in ((2, il_sites + [(gm.d_model, gm.d_ff)] + hb_sites), (1, il_sites)):
+            for k, o in sites:
+                for b in GATHER_ROWS:
+                    sweep_case("nm_spmm_gather_bk_int8", b, k, o, n, gen, lib,
+                               gather_plan(b, k, o, n))
+    if "dual" in which:
+        for k, o in ((il.d_model, il.d_ff), (moe.d_model, moe.d_ff)):
+            for n in (2, 1):
+                for b in DUAL_ROWS:
+                    sweep_case("nm_spmm_dual_int8", b, k, o, n, gen, lib,
+                               int8_dual_plan(b, k, o, n))
+    if "k11" in which:
+        for k, o in ((il.attn_dim // K11_MESH, il.d_model), (il.d_ff // K11_MESH, il.d_model)):
+            for n in (2, 1):
+                for b in K11_ROWS:
+                    sweep_case("nm_spmm_gather_int8", b, k, o, n, gen, lib,
+                               kmajor_int8_plan(b, k, o, n))
 
 
 if __name__ == "__main__":
