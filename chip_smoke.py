@@ -44,20 +44,22 @@ Phases, each of which fails the run on a miss:
              nm_spmm/kernel.py::int8_plan picks, printed) is also timed in
              turns with gemm_int8.cu's first body (``earlier_ms``) and its
              raw accumulator must be the same bits on a second launch; so is
-             nm_spmm_dual_int8 at n in {1, 2} (the body nm_spmm/kernel.py::
-             int8_dual_plan picks, printed), whose bf16 output must also be
-             BITWISE its first body's.  The compressed int8 dual and its
-             requant form also run at qwen3-moe's expert gate-up (K, O) =
-             (4096, 1536), 2:4, B in {8, 64}.
+             nm_spmm_dual_int8 at n in {1, 2} and tile_gemm_dual_int8 (the
+             bodies nm_spmm/kernel.py::int8_dual_plan and tile_gemm/
+             kernel.py::int8_dual_plan pick, printed), whose bf16 outputs
+             must also be BITWISE their first bodies'.  The dense and the
+             compressed int8 dual and their requant forms also run at
+             qwen3-moe's expert gate-up (K, O) = (4096, 1536), 2:4, B in
+             {8, 64}.
    requant — the requantizing int8 duals (tile_gemm_dual_int8_requant,
              nm_spmm_dual_int8_requant, n in {1, 2}) at the gate-up
              shape, B in {8, 64, 256}, against a calibrated-like scale: int8
              codes equal to the plain version's except |delta| <= 1 on at
              most REQUANT_SHARE of them (the kernel's silu may differ by
              an ulp, which moves a code sitting on a rounding boundary);
-             nm_spmm_dual_int8_requant's codes BITWISE its first body's
-             (the int32 sums are exact and DualFlushI8 repeats the first
-             body's fp32 operations), timed in turns with it.
+             both requant duals' codes BITWISE their first bodies' (the
+             int32 sums are exact and DualFlushI8T repeats the first body's
+             fp32 operations), timed in turns with them.
    fp8     — tile_gemm_fp8, nm_spmm_fp8 (n in {1, 2}), their duals and the
              requantizing fp8 duals, on e4m3 weights quantized per channel
              and bf16 activations quantized per row to e4m3, at the int8
@@ -90,7 +92,10 @@ Phases, each of which fails the run on a miss:
              The bf16 K8 and K9 (the bodies nm_spmm_gather/kernel.py::plan
              and ::dual_plan pick, printed) are also timed in turns with
              gemm.cu's shared body (``earlier_ms``) and must be the same
-             bits on a second launch.
+             bits on a second launch; so must K9 int8 and its requant form
+             (the body nm_spmm_gather/kernel.py::int8_dual_plan picks,
+             printed), timed in turns with gemm_int8.cu's first body, whose
+             bf16 output and codes they must give BITWISE.
    sweep   — each body of the two float duals alone (the shared body,
              the stream at stream_plan's split, the wgmma body), at the
              64-row launches where the dual plans switch bodies (B in
@@ -348,15 +353,17 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            # tile_gemm_masked_fp8's (tile_gemm_fp8's dense stream, MASKED) and
            # the int8 singles' (the s8 forms of nm_spmm_fp8's sparse stream, of
            # tile_gemm_fp8's dense one, of K8 fp8's gathered one and of K11
-           # fp8's K-major one), the int8 compressed dual's (the s8 form of the
-           # fp8 dual's stream); each gemm_fp8.cu's / gemm_int8.cu's shared body
-           # where its plan keeps it
+           # fp8's K-major one), the int8 gate-up duals' (the s8 forms of the
+           # fp8 compressed, dense and gathered DUAL streams); each
+           # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it
            **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
               for name in ("tile_gemm_masked_fp8", "nm_spmm_int8", "nm_spmm_int8_requant",
                            "tile_gemm_int8", "tile_gemm_int8_requant",
                            "nm_spmm_gather_bk_int8", "nm_spmm_gather_bk_int8_requant",
                            "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
-                           "nm_spmm_gather_int8")},
+                           "nm_spmm_gather_int8", "tile_gemm_dual_int8",
+                           "tile_gemm_dual_int8_requant", "nm_spmm_gather_dual_bk_int8",
+                           "nm_spmm_gather_dual_bk_int8_requant")},
            # the bf16 nm_spmm_gather_bk_masked's stream where K8 streams (K8's,
            # MASKED; gemm.cu's shared body elsewhere)
            "nm_spmm_gather_bk_masked": "src/repro_torch/kernels/csrc/nm_spmm_sp.cuh",
@@ -535,8 +542,9 @@ def earlier_kernels():
     nm_spmm_gather_fp8, nm_spmm_dual (float), nm_spmm_masked (bf16),
     tile_gemm_masked (bf16), nm_spmm_masked_fp8, nm_spmm_gather_bk_masked
     (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8,
-    nm_spmm_int8, tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8
-    (each and _requant) and nm_spmm_gather_int8 wrappers launch the port's
+    nm_spmm_int8, tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8,
+    tile_gemm_dual_int8, nm_spmm_gather_dual_bk_int8 (each and _requant) and
+    nm_spmm_gather_int8 wrappers launch the port's
     first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu, gemm_int8.cu and gemm_fp8.cu at every n
     and row count,
@@ -550,7 +558,8 @@ def earlier_kernels():
     ``vg_nm_spmm_gather_bk_masked`` / ``vg_nm_spmm_gather_dual_bk_fp8`` /
     ``vg_tile_gemm_masked_fp8`` / ``vg_nm_spmm_int8`` / ``vg_tile_gemm_int8``
     / ``vg_nm_spmm_gather_bk_int8`` / ``vg_nm_spmm_dual_int8`` /
-    ``vg_nm_spmm_gather_int8`` at body 0, split 1, at the row block the
+    ``vg_nm_spmm_gather_int8`` / ``vg_tile_gemm_dual_int8`` /
+    ``vg_nm_spmm_gather_dual_bk_int8`` at body 0, split 1, at the row block the
     first form took: 16 up to 16 rows, else 64; the masked ones at their
     maps' row block) instead of the current
     ones: the ``earlier_ms`` yardstick, through the same wrappers and
@@ -652,6 +661,15 @@ def earlier_kernels():
         return int8.vg_nm_spmm_gather_int8(*args[:11], _build.block_rows(args[6]), 0, 1,
                                            args[-1])
 
+    # the dense int8 dual and K9 int8 likewise (b: args[8] / args[10])
+    def tile_gemm_dual_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return int8.vg_tile_gemm_dual_int8(*args[:12], _build.block_rows(args[8]), 0, 1,
+                                           args[-1])
+
+    def nm_spmm_gather_dual_bk_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
+        return int8.vg_nm_spmm_gather_dual_bk_int8(*args[:15], _build.block_rows(args[10]), 0,
+                                                   1, args[-1])
+
     # K9 fp8 reaches its shared body through its own entry, at the row block
     # the first form took (its plan runs 16-row tiles past 16 rows; b: args[10])
     def nm_spmm_gather_dual_bk_fp8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
@@ -681,7 +699,9 @@ def earlier_kernels():
         int8, vg_nm_spmm_int8=nm_spmm_int8_tiled, vg_tile_gemm_int8=tile_gemm_int8_tiled,
         vg_nm_spmm_gather_bk_int8=nm_spmm_gather_bk_int8_tiled,
         vg_nm_spmm_dual_int8=nm_spmm_dual_int8_tiled,
-        vg_nm_spmm_gather_int8=nm_spmm_gather_int8_tiled)
+        vg_nm_spmm_gather_int8=nm_spmm_gather_int8_tiled,
+        vg_tile_gemm_dual_int8=tile_gemm_dual_int8_tiled,
+        vg_nm_spmm_gather_dual_bk_int8=nm_spmm_gather_dual_bk_int8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -897,7 +917,8 @@ def e4m3_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 def quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, qdtype):
     """The int8 or the fp8 kernels against their plain versions, timed
     beside them and beside the class's library call; int8 also times the
-    compressed int8 dual at ``moe_cfg``'s expert gate-up, B in {8, 64}."""
+    dense and the compressed int8 dual at ``moe_cfg``'s expert gate-up, B in
+    {8, 64}."""
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
     from repro_torch.kernels.nm_spmm import kernel as nk
@@ -1000,11 +1021,10 @@ def quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, qdtype):
 
         def timed(f, ops_, name, requant=False):
             """The redesigned duals' own bodies (the fp8 duals and their
-            requant forms, the compressed int8 dual and its requant form) in
-            turns with the first one, the same bits on a second launch; the
-            int8 dual's output (bf16 or codes) also bitwise the first body's."""
-            if not fp8 and n == 4:
-                return time_ms(f, ops_), {}
+            requant forms, the compressed and dense int8 duals and their
+            requant forms) in turns with the first one, the same bits on a
+            second launch; an int8 dual's output (bf16 or codes) also bitwise
+            the first body's."""
             got, again = f(*ops_[0]), f(*ops_[0])
             torch.cuda.synchronize()
             if not torch.equal(as_bytes(got), as_bytes(again)):
@@ -1021,8 +1041,8 @@ def quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, qdtype):
                          f"(max abs difference {d:.3e})")
                 extra["first_body_bitwise"] = True
             t, earlier = in_turns(f, ops_)
-            plan = (nk.int8_dual_plan(b, k, o, n) if not fp8
-                    else tk.fp8_dual_plan(b, k, o, requant) if n == 4
+            plan = ((tk.int8_dual_plan(b, k, o) if n == 4 else nk.int8_dual_plan(b, k, o, n))
+                    if not fp8 else tk.fp8_dual_plan(b, k, o, requant) if n == 4
                     else nk.fp8_dual_plan(b, k, o, n))
             return t, {"earlier_ms": earlier, "plan": plan, **extra}
         t_run, extra = timed(run, ops, names[n][1])
@@ -1088,10 +1108,12 @@ def quantized_kernel_phase(cfg, moe_cfg, gen, card_line, rows, qdtype):
             # the gate-up pair at (d, ff)
             gate_up(b, n, d, ff)
         torch.cuda.empty_cache()
-    # int8: the compressed dual at qwen3-moe's expert gate-up (K, O) =
-    # (d_model, d_ff), which the spgemm path launches once an expert and layer
+    # int8: the dense and the compressed dual at qwen3-moe's expert gate-up
+    # (K, O) = (d_model, d_ff), which the spgemm path launches once an expert
+    # and layer
     for b in (() if fp8 else (8, 64)):
-        gate_up(b, 2, moe_cfg.d_model, moe_cfg.d_ff)
+        for n in (4, 2):
+            gate_up(b, n, moe_cfg.d_model, moe_cfg.d_ff)
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -1105,9 +1127,10 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
     (the gather runs outside the timed region: no library GEMM gathers):
     torch.matmul, torch._int_mm, torch._scaled_mm; for the duals the two
     library calls (gate, up) on their own gathered X.  The redesigned bodies
-    (bf16 K8 and K9; e4m3 K8, K9 and K9's requantizing form; int8 K8) must give the
-    same bits on a second launch and are timed in turns with their first
-    bodies (``earlier_ms``), their plans beside them.  Bound: values +
+    (every class's K8 and K9, and the 8-bit K9's requantizing form) must
+    give the same bits on a second launch and are timed in turns with their
+    first bodies (``earlier_ms``), their plans beside them; int8 K9's
+    output (bf16 and codes) must also be its first body's bit for bit.  Bound: values +
     index (+ scales) + x (B, K_eff) + output bytes over 3.35 TB/s."""
     from repro_torch.core.quantize import quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
@@ -1232,18 +1255,32 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
             lib_fn, lib_ops = library_pair(x, xs, pairs, n)
             kc = k * n // 4
             xbytes = esz * b * k + (4 * b if qdtype is not None else 0)
-            extra = {}
-            if not int8:     # the redesigned bodies (bf16, e4m3), beside the first one
-                got = run(*ops[0])
-                again = run(*ops[0])
+            plan = (gk.fp8_dual_plan if fp8 else gk.int8_dual_plan if int8
+                    else gk.dual_plan)(b, k, o, n)
+
+            def timed(f, ops_, name):
+                """The redesigned dual (every class; the requant forms of the
+                8-bit ones) in turns with its first body, the same bits on a
+                second launch; int8's output (bf16 or codes) also bitwise
+                the first body's."""
+                got, again = f(*ops_[0]), f(*ops_[0])
                 torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    fail(f"nm_spmm_gather_dual_bk{sfx} B={b} K={k} O={o} n={n}: not the same "
-                         f"bits on a second launch")
-                t_run, extra["earlier_ms"] = in_turns(run, ops)
-                extra["plan"] = gk.fp8_dual_plan(b, k, o, n) if fp8 else gk.dual_plan(b, k, o, n)
-            else:
-                t_run = time_ms(run, ops)
+                if not torch.equal(as_bytes(got), as_bytes(again)):
+                    fail(f"{name} B={b} K={k} O={o} n={n}: not the same bits on a second "
+                         f"launch")
+                extra = {}
+                if int8:
+                    with earlier_kernels():
+                        first = f(*ops_[0])
+                    torch.cuda.synchronize()
+                    if got.dtype != first.dtype or not torch.equal(got, first):
+                        dd = (got.float() - first.float()).abs().max().item()
+                        fail(f"{name} B={b} K={k} O={o} n={n}: not bitwise its first body "
+                             f"(max abs difference {dd:.3e})")
+                    extra["first_body_bitwise"] = True
+                t, extra["earlier_ms"] = in_turns(f, ops_)
+                return t, {**extra, "plan": plan}
+            t_run, extra = timed(run, ops, f"nm_spmm_gather_dual_bk{sfx}")
             record(f"nm_spmm_gather_dual_bk{sfx}", b, k, o, n, run(*ops[0]), ref(*ops[0]),
                    t_run, time_ms(ref, ops), time_ms(lib_fn, lib_ops),
                    xbytes + 2 * wbytes(k, o, n) + 2 * b * o, 4 * b * kc * o, peak=peak,
@@ -1255,20 +1292,11 @@ def gather_kernel_phase(cfg, gen, card_line, rows, qdtype=None):
                 run_q, ref_q = dual(n, requant=True), dual(n, ref=True, requant=True)
                 ops_q = [op + (rq,) for op in ops]
                 got, want = run_q(*ops_q[0]), ref_q(*ops_q[0])
-                again = run_q(*ops_q[0])
                 torch.cuda.synchronize()
                 name = f"nm_spmm_gather_dual_bk{sfx}_requant"
                 if got.dtype != qdtype or want.dtype != qdtype:
                     fail(f"{name} B={b}: codes of {got.dtype} / {want.dtype}, not {qdtype}")
-                if not torch.equal(as_bytes(got), as_bytes(again)):
-                    fail(f"{name} B={b} K={k} O={o} n={n}: not the same codes on a second "
-                         f"launch")
-                extra = {}
-                if fp8:     # the redesigned bodies, beside the first one
-                    t_q, extra["earlier_ms"] = in_turns(run_q, ops_q)
-                    extra["plan"] = gk.fp8_dual_plan(b, k, o, n)
-                else:
-                    t_q = time_ms(run_q, ops_q)
+                t_q, extra = timed(run_q, ops_q, name)
                 delta = e4m3_steps(got, want) if fp8 else (got.int() - want.int()).abs()
                 share = (delta == 1).float().mean().item()
                 if delta.max().item() > 1 or share > REQUANT_SHARE:
@@ -2365,9 +2393,10 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     tile_gemm_masked_fp8 on the spgemm path's dense fp8 w_out, the int8
     singles, nm_spmm_int8, tile_gemm_int8 and nm_spmm_gather_bk_int8 (and
     their _requant forms), at every site an int8 compressed, dense or
-    gather model runs them, the int8 compressed dual nm_spmm_dual_int8 (and
-    _requant) on an int8 compressed swiglu model (an MoE's expert gate-up)
-    and K11 int8 (nm_spmm_gather_int8) on a sharded int8 gather model's two
+    gather model runs them, the int8 gate-up duals nm_spmm_dual_int8,
+    tile_gemm_dual_int8 and K9 int8 nm_spmm_gather_dual_bk_int8 (and their
+    _requant forms) on an int8 compressed, dense or gather swiglu model (an
+    MoE's expert gate-up) and K11 int8 (nm_spmm_gather_int8) on a sharded int8 gather model's two
     row-parallel sites, at each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
@@ -2375,9 +2404,12 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     from repro_torch.kernels.nm_spmm.kernel import int8_dual_plan, int8_plan, split_k
     from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_int8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_dual_plan as gather_fp8_dual_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import (
+        int8_dual_plan as gather_int8_dual_plan)
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan, kmajor_int8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_fp8_plan, masked_plan
+    from repro_torch.kernels.tile_gemm.kernel import int8_dual_plan as tile_int8_dual_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_int8_plan
 
     spgemm = bool(cfg.num_experts) and cfg.moe_expert_path == "spgemm" and mesh == 1
@@ -2419,12 +2451,17 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
                          "gather": ("nm_spmm_gather_bk_int8", lambda b, k, o: gather_int8_plan(
                              b, k, o, sparsity[0]))}[layout]
         out = {name: {f"B={b} K={k} O={o}": plan_of(b, k, o) for b in rows for k, o in sites}}
-        if layout == "compressed" and cfg.act == "swiglu":
+        if cfg.act == "swiglu":
             # the gate-up dual (an MoE's expert gate-up), one plan for both forms
-            out["nm_spmm_dual_int8"] = {
-                f"B={b} K={cfg.d_model} O={cfg.d_ff}": int8_dual_plan(b, cfg.d_model, cfg.d_ff,
-                                                                       sparsity[0])
-                for b in rows}
+            dual_name, dual_of = {
+                "compressed": ("nm_spmm_dual_int8", lambda b, k, o: int8_dual_plan(
+                    b, k, o, sparsity[0])),
+                "dense": ("tile_gemm_dual_int8", tile_int8_dual_plan),
+                "gather": ("nm_spmm_gather_dual_bk_int8", lambda b, k, o: gather_int8_dual_plan(
+                    b, k, o, sparsity[0]))}[layout]
+            out[dual_name] = {f"B={b} K={cfg.d_model} O={cfg.d_ff}": dual_of(b, cfg.d_model,
+                                                                            cfg.d_ff)
+                              for b in rows}
         return out
     if spgemm and layout == "compressed" and qdtype == "fp8":
         n = sparsity[0]
@@ -3731,18 +3768,20 @@ def main():
     # the decode steps that run the float nm_spmm_dual, the bf16 nm_spmm_masked,
     # the bf16 tile_gemm_masked, nm_spmm_masked_fp8, the bf16
     # nm_spmm_gather_bk_masked, K9 fp8, tile_gemm_masked_fp8, nm_spmm_int8,
-    # tile_gemm_int8, nm_spmm_gather_bk_int8 and nm_spmm_dual_int8(_requant)
+    # tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8(_requant),
+    # tile_gemm_dual_int8(_requant) and K9 int8(_requant)
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
             if res["layout"] in ("2:4", "1:4", "2:4/int8", "1:4/int8", "2:4/int8/static",
                                  "dense/int8", "gather-2:4/int8", "gather-1:4/int8",
                                  "moe-spgemm/2:4", "moe-spgemm/dense",
                                  "moe-spgemm/dense/fp8", "moe-spgemm/2:4/fp8",
                                  "moe-spgemm/gather-2:4", "moe-spgemm/gather-2:4/fp8",
-                                 "moe-spgemm/2:4/int8/static")}
+                                 "moe-spgemm/2:4/int8/static", "moe-spgemm/dense/int8/static",
+                                 "moe-spgemm/gather-2:4/int8/static")}
     log(f"decode step device busy ms (internlm2-1.8b bf16 2:4 and 1:4, int8 2:4 and 1:4, "
         f"static int8 2:4, int8 dense, gather 2:4 and 1:4, qwen3-moe spgemm bf16 2:4, bf16 "
-        f"dense, fp8 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4, static int8 2:4): "
-        f"{json.dumps(busy)}")
+        f"dense, fp8 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4, static int8 2:4, "
+        f"dense and gather 2:4): {json.dumps(busy)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3805,7 +3844,10 @@ def main():
                  for name in ("nm_spmm_int8", "nm_spmm_int8_requant", "tile_gemm_int8",
                               "tile_gemm_int8_requant", "nm_spmm_gather_bk_int8",
                               "nm_spmm_gather_bk_int8_requant", "nm_spmm_dual_int8",
-                              "nm_spmm_dual_int8_requant", "nm_spmm_gather_int8")},
+                              "nm_spmm_dual_int8_requant", "nm_spmm_gather_int8",
+                              "tile_gemm_dual_int8", "tile_gemm_dual_int8_requant",
+                              "nm_spmm_gather_dual_bk_int8",
+                              "nm_spmm_gather_dual_bk_int8_requant")},
               "nm_spmm_gather_bk_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_gather_dual_bk": (SOURCES["nm_spmm"], SOURCES["float"],
                                          SOURCES["tile_gemm"]),

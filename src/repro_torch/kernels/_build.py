@@ -66,11 +66,11 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "gemm_int8.cu": {
         "vg_tile_gemm_int8": (_P,) * 7 + (_I,) * 8 + (_P,),
-        "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "vg_tile_gemm_dual_int8": (_P,) * 8 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_dual_int8": (_P,) * 10 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_gather_bk_int8": (_P,) * 8 + (_I,) * 9 + (_P,),
-        "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 6 + (_P,),
+        "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_masked_int8": (_P,) * 8 + (_I,) * 6 + (_P,),
         "vg_nm_spmm_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
         "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),

@@ -42,11 +42,17 @@
 // store) wherever nm_spmm_gather/kernel.py::kmajor_int8_plan picks it; and
 // the compressed gate-up dual nm_spmm_dual_int8 (and _requant) at n in {1,
 // 2} the DUAL form of the sparse stream (both weights a stage, two int32
-// accumulator sets) wherever nm_spmm/kernel.py::int8_dual_plan picks it.
-// Each is flushed by SingleFlushI8 / DualFlushI8 below in this file's order
-// (ws first for the gathers): the same bits as this body, int32 sums being
-// exact in any order.  Their entries at body 0, split 1 reach this file's
-// body, the form the port ran first, as its yardstick.
+// accumulator sets) wherever nm_spmm/kernel.py::int8_dual_plan picks it; the
+// dense gate-up dual tile_gemm_dual_int8 (and _requant) the DUAL form of the
+// dense stream wherever tile_gemm/kernel.py::int8_dual_plan picks it; and K9
+// int8 (nm_spmm_gather_dual_bk_int8 and _requant) at n in {1, 2} that DUAL
+// form with the gathered X (one span a step, selected twice) wherever
+// nm_spmm_gather/kernel.py::int8_dual_plan picks it.  Each is flushed by
+// SingleFlushI8 / DualFlushI8T below in this file's order (ws first for the
+// gathers): the same bits as this body, int32 sums being exact in any
+// order.  The masked singles keep this file's body.  Their entries at body
+// 0, split 1 reach this file's body, the form the port ran first, as its
+// yardstick.
 //
 // ONE templated body serves all ten, as in gemm.cu: the template takes the
 // weight loader (dense int8, or N:4 int8 values + 2-bit packed meta), the
@@ -433,11 +439,14 @@ struct SingleFlushI8 {
   }
 };
 
-// The flush of the s8 compressed dual (nm_spmm_sp_fp8.cuh, S8 with DUAL)
-// from both summed int32 accumulators, in gemm_int8_kernel's dual order: t_g
-// = float(acc_g) * xs[row] * wsg[col], t_u likewise with wsu (__fmul_rn),
-// silu(t_g) * t_u, then bf16, fp32 or the int8 code against *rq.
-struct DualFlushI8 {
+// The flush of the s8 gate-up duals (nm_spmm_sp_fp8.cuh, S8 with DUAL: the
+// compressed and the dense <false>, the gathered K9 <true>) from both summed
+// int32 accumulators, in gemm_int8_kernel's dual order: t_g = float(acc_g) *
+// xs[row] * wsg[col], t_u likewise with wsu (__fmul_rn; WS_FIRST, the gather
+// kernels' order: float(acc) * ws[col] * xs[row]), silu(t_g) * t_u, then
+// bf16, fp32 or the int8 code against *rq.
+template <bool WS_FIRST>
+struct DualFlushI8T {
   const float* xs;
   const float* wsg;
   const float* wsu;
@@ -448,8 +457,8 @@ struct DualFlushI8 {
   __device__ __forceinline__ void operator()(int row, int col, const int (&acc)[2]) const {
     const float xr = xs[row];
     store_out(y, (size_t)row * o + col,
-              silu(dequant_in_order<false>(acc[0], xr, wsg[col])) *
-                  dequant_in_order<false>(acc[1], xr, wsu[col]),
+              silu(dequant_in_order<WS_FIRST>(acc[0], xr, wsg[col])) *
+                  dequant_in_order<WS_FIRST>(acc[1], xr, wsu[col]),
               out_kind, rq);
   }
 };
@@ -707,12 +716,19 @@ SingleFlushI8<WS_FIRST, KMAJOR> s8_flush(const void* xs, const void* ws, const v
           static_cast<const float*>(bias), static_cast<const float*>(rq), y, ld, act, out_kind};
 }
 
-// ... and the dual's (all three scales; bf16, fp32 or the requantized store,
+// ... and the duals' (all three scales; bf16, fp32 or the requantized store,
 // which alone reads the consumer's scale)
 bool s8_dual_flush_ok(int out_kind, const void* xs, const void* wsg, const void* wsu,
                       const void* rq) {
   return out_kind >= 0 && out_kind <= 3 && out_kind != OUT_I32 && xs != nullptr &&
          wsg != nullptr && wsu != nullptr && (out_kind == OUT_I8) == (rq != nullptr);
+}
+
+template <bool WS_FIRST>
+DualFlushI8T<WS_FIRST> s8_dual_flush(const void* xs, const void* wsg, const void* wsu,
+                                     const void* rq, void* y, int o, int out_kind) {
+  return {static_cast<const float*>(xs), static_cast<const float*>(wsg),
+          static_cast<const float*>(wsu), static_cast<const float*>(rq), y, o, out_kind};
 }
 
 }  // namespace
@@ -755,13 +771,27 @@ int vg_tile_gemm_masked_int8(const void* x, const void* w, const void* kmask, co
       rq, y, b, k, k, o, act, out_kind, stream);
 }
 
+// tile_gemm/kernel.py::int8_dual_plan's body: 1, the s8 dense dual stream
+// (nm_spmm_sp_fp8.cuh, S8 with DUAL at N = 4; bm in {16, 64}), K split over
+// `split` blocks of a cluster (a power of two up to min(8, k / 64)),
+// flushed by DualFlushI8T<false>; 0, this file's body, split 1.  out_kind 0
+// | 1 | 3 (no raw accumulator).
 int vg_tile_gemm_dual_int8(const void* x, const void* wg, const void* wu, const void* xs,
                            const void* wsg, const void* wsu, const void* rq, void* y, int b,
-                           int k, int o, int out_kind, int bm, void* stream) {
+                           int k, int o, int out_kind, int bm, int body, int split,
+                           void* stream) {
   if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
-                                      nullptr, xs, wsg, wsu, nullptr, rq, y, b, k, k, o,
-                                      ACT_NONE, out_kind, stream);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<true, DenseLoader>(bm, x, nullptr, nullptr, wg, nullptr, wu, nullptr,
+                                        nullptr, xs, wsg, wsu, nullptr, rq, y, b, k, k, o,
+                                        ACT_NONE, out_kind, stream);
+  }
+  if (body != 1 || !s8_dual_flush_ok(out_kind, xs, wsg, wsu, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_dual<spf8::S8>(4, bm, x, wg, nullptr, wu, nullptr,
+                                     s8_dual_flush<false>(xs, wsg, wsu, rq, y, o, out_kind), b,
+                                     k, o, split, stream);
 }
 
 // nm_spmm/kernel.py::int8_plan's body: 1, the s8 sparse stream
@@ -795,8 +825,8 @@ int vg_nm_spmm_masked_int8(const void* x, const void* values, const void* meta,
 // nm_spmm/kernel.py::int8_dual_plan's body: 1, the s8 sparse dual stream
 // (nm_spmm_sp_fp8.cuh, S8 with DUAL; n in {1, 2}, bm in {16, 64}), K split
 // over `split` blocks of a cluster (a power of two up to min(8, k / 64)),
-// flushed by DualFlushI8; 0, this file's body at any n, split 1.  out_kind
-// 0 | 1 | 3 (no raw accumulator).
+// flushed by DualFlushI8T<false>; 0, this file's body at any n, split 1.
+// out_kind 0 | 1 | 3 (no raw accumulator).
 int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g,
                          const void* values_u, const void* meta_u, const void* xs,
                          const void* wsg, const void* wsu, const void* rq, void* y, int b,
@@ -810,11 +840,9 @@ int vg_nm_spmm_dual_int8(const void* x, const void* values_g, const void* meta_g
   }
   if (body != 1 || (n != 1 && n != 2) || !s8_dual_flush_ok(out_kind, xs, wsg, wsu, rq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const DualFlushI8 flush{static_cast<const float*>(xs), static_cast<const float*>(wsg),
-                          static_cast<const float*>(wsu), static_cast<const float*>(rq), y, o,
-                          out_kind};
-  return spf8::launch_dual<spf8::S8>(n, bm, x, values_g, meta_g, values_u, meta_u, flush, b, k,
-                                     o, split, stream);
+  return spf8::launch_dual<spf8::S8>(n, bm, x, values_g, meta_g, values_u, meta_u,
+                                     s8_dual_flush<false>(xs, wsg, wsu, rq, y, o, out_kind), b,
+                                     k, o, split, stream);
 }
 
 // k is K_eff (X's width); the kernel contracts K_c = k * n / 4 rows of
@@ -846,14 +874,28 @@ int vg_nm_spmm_gather_bk_masked_int8(const void* x, const void* values, const vo
                                     nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
+// k is K_eff.  nm_spmm_gather/kernel.py::int8_dual_plan's body: 1, the s8
+// gathered dual stream (nm_spmm_sp_fp8.cuh, S8, G = n with DUAL: one span a
+// step selected twice; n in {1, 2}, bm 16), K_c split over `split` blocks of
+// a cluster, flushed by DualFlushI8T<true> (ws first, as this file's body);
+// 0, this file's body at any n, split 1.  out_kind 0 | 1 | 3 (no raw
+// accumulator).
 int vg_nm_spmm_gather_dual_bk_int8(const void* x, const void* values_g, const void* idx_g,
                                    const void* values_u, const void* idx_u, const void* xs,
                                    const void* wsg, const void* wsu, const void* rq, void* y,
-                                   int b, int k, int o, int n, int out_kind, int bm,
-                                   void* stream) {
+                                   int b, int k, int o, int n, int out_kind, int bm, int body,
+                                   int split, void* stream) {
   if (out_kind == OUT_I32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, xs, wsg, wsu,
-                             nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<true>(n, bm, x, values_g, idx_g, values_u, idx_u, nullptr, xs, wsg,
+                               wsu, nullptr, rq, y, b, k, o, ACT_NONE, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2) || !s8_dual_flush_ok(out_kind, xs, wsg, wsu, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_gather_dual<spf8::S8>(
+      n, bm, x, values_g, idx_g, values_u, idx_u,
+      s8_dual_flush<true>(xs, wsg, wsu, rq, y, o, out_kind), b, k, o, split, stream);
 }
 
 // K11: x_t (k, b) K-major -> y_t (o, b), b a multiple of 16; xs (1, b) and

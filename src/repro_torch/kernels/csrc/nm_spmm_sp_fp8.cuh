@@ -6,8 +6,10 @@
 // nm_spmm_int8 and nm_spmm_int8_requant at n in {1, 2}, tile_gemm_int8 and
 // tile_gemm_int8_requant (N = 4), K8 int8 (nm_spmm_gather_bk_int8 and
 // _requant, G = n in {1, 2}), in DUAL form the compressed gate-up
-// nm_spmm_dual_int8 and _requant (n in {1, 2}) and with the K-major X K11
-// int8 (nm_spmm_gather_int8); in DUAL
+// nm_spmm_dual_int8 and _requant (n in {1, 2}), the dense gate-up
+// tile_gemm_dual_int8 and _requant (N = 4) and K9 int8
+// (nm_spmm_gather_dual_bk_int8 and _requant, G = n in {1, 2}), and with the
+// K-major X K11 int8 (nm_spmm_gather_int8); in DUAL
 // form (two weights, two accumulators, one silu(g) * u flush) the
 // compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
 // same streaming body
@@ -28,14 +30,16 @@
 // tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
 // ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by gemm_int8.cu, whose
 // vg_nm_spmm_int8, vg_tile_gemm_int8, vg_nm_spmm_gather_bk_int8,
-// vg_nm_spmm_dual_int8 and vg_nm_spmm_gather_int8 launch the s8 form where
+// vg_nm_spmm_dual_int8, vg_tile_gemm_dual_int8, vg_nm_spmm_gather_dual_bk_int8
+// and vg_nm_spmm_gather_int8 launch the s8 form where
 // nm_spmm/kernel.py::int8_plan, tile_gemm/kernel.py::int8_plan,
-// nm_spmm_gather/kernel.py::int8_plan, nm_spmm/kernel.py::int8_dual_plan and
-// nm_spmm_gather/kernel.py::kmajor_int8_plan pick it.  One body
+// nm_spmm_gather/kernel.py::int8_plan, nm_spmm/kernel.py::int8_dual_plan,
+// tile_gemm/kernel.py::int8_dual_plan, nm_spmm_gather/kernel.py::
+// int8_dual_plan and ::kmajor_int8_plan pick it.  One body
 // serves both 8-bit classes: the header is not
 // copied per class.  n = 4 of the compressed
-// and gathered kernels, wider launches, the other masked singles and the
-// other int8 kernels keep gemm_fp8.cu's / gemm_int8.cu's
+// and gathered kernels, wider launches, the other masked singles (the
+// three masked int8 ones among them) keep gemm_fp8.cu's / gemm_int8.cu's
 // shared bodies, and the many-row bodies of tile_gemm_fp8 (of K8, after
 // gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
 // tile_gemm_sm90_fp8.cuh's.
@@ -88,6 +92,13 @@
 //   nm_spmm_gather_int8  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_int8
 //                  (_nm_spmm_gather_quantized, _gather_q_kernel, _gather_q_raw_kernel),
 //                  n in {1, 2}, where nm_spmm_gather/kernel.py::kmajor_int8_plan streams
+//   tile_gemm_dual_int8  repro/kernels/tile_gemm/kernel.py::tile_gemm_dual, int8 branch
+//                  (_gemm_dual_kernel), with the requant:int8 flush in its _requant
+//                  form, where tile_gemm/kernel.py::int8_dual_plan streams
+//   nm_spmm_gather_dual_bk_int8  repro/kernels/nm_spmm_gather/kernel.py::
+//                  nm_spmm_gather_dual_bk, int8 (_gather_dual_kernel), n in {1, 2}, with
+//                  the requant:int8 flush in its _requant form, where
+//                  nm_spmm_gather/kernel.py::int8_dual_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -250,9 +261,12 @@
 // = 4, X contiguous), K8 int8, nm_spmm_gather_bk_int8 and _requant (the
 // dense stream with the gathered X, G = n in {1, 2}) and K11 int8,
 // nm_spmm_gather_int8 (the dense stream with the K-major X, G = n in {1,
-// 2}); and the compressed gate-up dual nm_spmm_dual_int8 and _requant (DUAL
-// at n in {1, 2}: two int32 accumulator sets, both planes through the
-// split).  int8 is one byte like
+// 2}); and the three gate-up duals, each with its _requant: the compressed
+// nm_spmm_dual_int8 (DUAL at n in {1, 2}), the dense tile_gemm_dual_int8
+// (DUAL at N = 4) and the gathered K9 int8 nm_spmm_gather_dual_bk_int8
+// (DUAL with G = n in {1, 2}, one span selected twice): two int32
+// accumulator sets, both planes through the split.  The masked int8 singles
+// keep gemm_int8.cu's body (S8 takes no MASKED).  int8 is one byte like
 // e4m3 and its zero is the byte 0x00 as e4m3's +0 is, so the stage, the
 // per-warp transpose, the 1:4-as-2:4 +0 slots, the metadata word, the dense
 // A operand (ldmatrix .trans + __byte_perm), select16's +0 for an index
@@ -267,10 +281,11 @@
 // d_ff, 28,672, and 28,672 x 127^2 ~ 4.6e8 < 2^31 (the codes are clipped to
 // +-127).  The flush (gemm_int8.cu's SingleFlushI8) receives the summed
 // int32: acc raw, or float(acc) * xs * ws (the gather kernels' ws first),
-// + bias, act, the store (K11's at col * B + row into (O, B)); the dual's
-// (DualFlushI8) both sums: t_g = float(acc_g) * xs * wsg, t_u likewise,
-// silu(t_g) * t_u, the store.  The output is bitwise gemm_int8.cu's first
-// body and (the singles) the plain version: raw, scaled and requantized.
+// + bias, act, the store (K11's at col * B + row into (O, B)); the duals'
+// (DualFlushI8T) both sums: t_g = float(acc_g) * xs * wsg, t_u likewise
+// (K9's ws first: float(acc) * ws * xs), silu(t_g) * t_u, the store.  The
+// output is bitwise gemm_int8.cu's first body and (the singles) the plain
+// version: raw, scaled and requantized.
 
 #pragma once
 
@@ -358,7 +373,8 @@ struct Layout {
   // the dense dual's 16-row ring is 4 deep (~45 KB a block; 6 stages timed
   // the same at decode and slower at three blocks an SM on an H100), and so
   // is the gathered dual's (~54 KB at 2:4, ~62 KB at 1:4: three blocks an
-  // SM; 6 stages at 1:4 would leave two)
+  // SM; 6 stages at 1:4 would leave two), in both classes (e4m3, s8: the
+  // same bytes)
   static constexpr int STAGES = BM == 16 ? (N == 4 && DUAL ? 4 : 6) : 4;
   static constexpr int WN = BM == 16 ? 1 : 2;    // warps along the batch rows
   static constexpr int WM = 4 / WN;              // warps along the channels
@@ -469,10 +485,8 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
 // sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
 // kmask is block_maps' (row blocks, k / 64) map; the block walks the live
-// steps of its span only.  Elem: E4M3, or S8 (not MASKED: the compressed
-// single or DUAL over a contiguous X, or the dense single (N = 4) over a
-// contiguous, gathered or K-major X; the sums, and what flush receives, are
-// int32).
+// steps of its span only.  Elem: E4M3, or S8 (any form but MASKED; the
+// sums, and what flush receives, are int32).
 template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Elem, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
@@ -484,9 +498,9 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   constexpr bool IS_S8 = std::is_same_v<Elem, S8>;
   static_assert(!MASKED || (G == 0 && !DUAL && !KM),
                 "the masked stream is a single, X contiguous");
-  static_assert(!IS_S8 || (!MASKED && (N == 4 ? !DUAL : G == 0)),
-                "the s8 stream: compressed over a contiguous X (a single or the gate-up "
-                "dual), or a dense single over a contiguous, gathered or K-major X");
+  static_assert(!IS_S8 || !MASKED,
+                "the s8 stream takes no activation-sparsity skip (the masked int8 singles "
+                "keep gemm_int8.cu's body)");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -921,8 +935,9 @@ int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, con
 // nm_spmm_dual_fp8's few-row body: both compressed weights (values_g /
 // meta_g, values_u / meta_u) at n in {1, 2}, and tile_gemm_dual_fp8's: both
 // dense (K, O) e4m3 weights at n = 4 (meta unused); with Elem S8,
-// nm_spmm_dual_int8's at n in {1, 2} only; bm in {16, 64}; flush(row, col,
-// sums) stores one output from its two summed fp32 (s8: int32) accumulators
+// nm_spmm_dual_int8's (n in {1, 2}) and tile_gemm_dual_int8's (n = 4); bm
+// in {16, 64}; flush(row, col, sums) stores one output from its two summed
+// fp32 (s8: int32) accumulators
 template <class Elem = E4M3, class Flush>
 int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, const void* vu,
                 const void* mu, const Flush& flush, int b, int k, int o, int split,
@@ -936,10 +951,8 @@ int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, co
   if (n == 2 && bm == 64) VG_SPF8_DUAL(2, 64);
   if (n == 1 && bm == 16) VG_SPF8_DUAL(1, 16);
   if (n == 1 && bm == 64) VG_SPF8_DUAL(1, 64);
-  if constexpr (std::is_same_v<Elem, E4M3>) {
-    if (n == 4 && bm == 16) VG_SPF8_DUAL(4, 16);
-    if (n == 4 && bm == 64) VG_SPF8_DUAL(4, 64);
-  }
+  if (n == 4 && bm == 16) VG_SPF8_DUAL(4, 16);
+  if (n == 4 && bm == 64) VG_SPF8_DUAL(4, 64);
 #undef VG_SPF8_DUAL
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -967,14 +980,15 @@ int launch_gather(int n, int bm, const void* x, const void* values, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K9 fp8's few-row body (nm_spmm_gather_dual_bk_fp8 and _requant): X (b, ke)
-// e4m3 gathered at n in {1, 2} through idx_g and idx_u (K_c = ke * n / 4
-// int32 each) against values_g and values_u (K_c, O) as dense e4m3 weights,
-// one span a step selected twice; bm 16 (nm_spmm_gather/kernel.py::
-// fp8_dual_plan's tile), split a power of two up to min(8, K_c / 64);
-// flush(row, col, sums) stores one output from its two summed fp32
-// accumulators
-template <class Flush>
+// K9's few-row body, e4m3 (Elem E4M3, nm_spmm_gather_dual_bk_fp8 and
+// _requant) or int8 (S8, nm_spmm_gather_dual_bk_int8 and _requant): X (b,
+// ke) of the class gathered at n in {1, 2} through idx_g and idx_u (K_c = ke
+// * n / 4 int32 each) against values_g and values_u (K_c, O) as dense weights
+// of the class, one span a step selected twice; bm 16 (the plans' tile:
+// nm_spmm_gather/kernel.py::fp8_dual_plan, ::int8_dual_plan), split a power
+// of two up to min(8, K_c / 64); flush(row, col, sums) stores one output
+// from its two summed fp32 (s8: int32) accumulators
+template <class Elem = E4M3, class Flush>
 int launch_gather_dual(int n, int bm, const void* x, const void* vg, const void* ig,
                        const void* vu, const void* iu, const Flush& flush, int b, int ke, int o,
                        int split, void* stream) {
@@ -983,9 +997,11 @@ int launch_gather_dual(int n, int bm, const void* x, const void* vg, const void*
   if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 2)
-    return launch<4, 16, 2, true, false>(x, vg, ig, vu, iu, nullptr, flush, b, kc, o, split, s);
+    return launch<4, 16, 2, true, false, false, Elem>(x, vg, ig, vu, iu, nullptr, flush, b, kc,
+                                                      o, split, s);
   if (n == 1)
-    return launch<4, 16, 1, true, false>(x, vg, ig, vu, iu, nullptr, flush, b, kc, o, split, s);
+    return launch<4, 16, 1, true, false, false, Elem>(x, vg, ig, vu, iu, nullptr, flush, b, kc,
+                                                      o, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

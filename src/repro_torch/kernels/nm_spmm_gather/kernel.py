@@ -48,8 +48,12 @@ walking the live steps of its span) wherever K8 streams, as
 in {1, 2} runs that e4m3 stream with a K-major X stage (the step's selected
 x_t rows, then a byte transpose pass), chosen by :func:`kmajor_fp8_plan`,
 and ``nm_spmm_gather_int8`` (K11 int8) its s8 form, chosen by
-:func:`kmajor_int8_plan`.  Every other kernel here runs the shared bodies of ``gemm.cu`` /
-``gemm_int8.cu`` / ``gemm_fp8.cu``.
+:func:`kmajor_int8_plan`.  The int8 twins run the s8 forms of the e4m3
+streams: ``nm_spmm_gather_bk_int8`` and ``_requant`` K8's, chosen by
+:func:`int8_plan`, and ``nm_spmm_gather_dual_bk_int8`` and ``_requant``
+K9's gathered dual, chosen by :func:`int8_dual_plan`.  Every other kernel
+here runs the shared bodies of ``gemm.cu`` / ``gemm_int8.cu`` /
+``gemm_fp8.cu``.
 
 Replaces ``repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk``
 (:324, float and scaled-quantized, with the epilogue),
@@ -88,7 +92,7 @@ from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
 
 __all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "int8_plan", "kmajor_fp8_plan",
            "kmajor_int8_plan",
-           "masked_plan", "fp8_dual_plan",
+           "masked_plan", "fp8_dual_plan", "int8_dual_plan",
            "DUAL_SHARED_MAX_KC", "FP8_STREAM16_MAX_ROWS", "KMAJOR_STREAM64_MIN_STEPS",
            "INT8_KMAJOR_STREAM16_MAX_STEPS",
            "KMAJOR_STREAM_MAX_ROWS",
@@ -204,6 +208,45 @@ def fp8_dual_plan(b: int, ke: int, o: int, n: int) -> dict:
         if p["body"] == "stream":
             return p
     return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
+
+
+def int8_dual_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_dual_bk_int8``'s and ``_requant``'s body, tile and
+    split for ``silu(deq(gather(Xq (b, ke), idx_g) @ values_g)) *
+    deq(gather(Xq, idx_u) @ values_u)``, both int8 values ``(ke * n / 4,
+    o)``.  n in {1, 2}: ``stream`` (the s8 form of
+    ``csrc/nm_spmm_sp_fp8.cuh``'s gathered dual: one X span a step selected
+    twice, both dense values tiles, two ``mma.sync`` m16n8k32 s8 -> s32 a
+    step a weight into two int32 accumulator sets, split-K over a cluster,
+    gemm_int8.cu's ``DualFlushI8T<true>``, ws first) at every row count,
+    over 64-channel tiles of 16 rows, the K_c loop split by
+    ``cluster_split`` at ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM
+    (internlm2-1.8b's gate-up (2048, 8192) at B = 8: 128 tiles, split 2;
+    qwen3-moe's expert (4096, 1536): 24 tiles, split 8): :func:`fp8_dual_plan`'s
+    tile and split up to its 396 tiles, and past them too, where K9 fp8 takes
+    its shared body.  On an H100, 700 W (``tools/int8_body_sweep.py``,
+    PERF.md §6) the stream beat gemm_int8.cu's first
+    body at every swept shape, 1-256 rows at both pairs, n in {1, 2}, but
+    one no path runs (internlm2-1.8b 1:4 at 192 rows: 46.9 against 43.7
+    µs): internlm2-1.8b 2:4 at 8 / 64 / 256 rows 13.4 / 25.8 / 95.2 against
+    22.2 / 39.4 / 106.9, the expert 2:4 8.7 / 15.0 / 39.2 against 39.9 /
+    70.5 / 70.1.  Three blocks an SM beat two at the expert's 2:4 over 17-32
+    rows (10.1 against 12.6 µs, a split of 8 against 4) and lost at its 1:4
+    (11.1 against 8.9), which no path runs.  There is no 64-row form.  n = 4
+    keeps ``shared`` (gemm_int8.cu's body, the form the port ran first) at
+    ``block_rows(b)`` rows, split 1.  The int32 sums are exact in any order
+    and the flush repeats the first body's fp32 operations: every body
+    gives the same bits, requantized codes included.  Returns ``{"body",
+    "rows", "cols", "split"}``; ``rows`` is what the C interface takes as
+    ``bm``."""
+    if n not in (1, 2):
+        return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O,
+                "split": 1}
+    rows16 = _build.BLOCK_ROWS[0]
+    tiles = (o // _build.BLOCK_O) * -(-b // rows16)
+    return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O,
+            "split": cluster_split(tiles, ke * n // 4 // _build.BLOCK_K,
+                                   FP8_STREAM16_BLOCKS_PER_SM)}
 
 
 def fp8_plan(b: int, ke: int, o: int, n: int, requant: bool = False) -> dict:
@@ -714,12 +757,9 @@ def _gather_dual_quantized(wrapper, storage, x_q, values_g, idx_g, values_u, idx
                           wu_scale, *rq, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, values_g.shape[0], o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    # the fp8 dual runs the body of its plan (block_b only checked); int8
-    # keeps the shared body (no plan)
-    plan = ()
-    if storage == torch.float8_e4m3fn:
-        p = fp8_dual_plan(b, ke, o, n)
-        bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
+    # both classes run the body of their plans (block_b only checked)
+    p = (fp8_dual_plan if storage == torch.float8_e4m3fn else int8_dual_plan)(b, ke, o, n)
+    bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_nm_spmm_gather_dual_bk_{suffix}")(
@@ -739,7 +779,9 @@ def nm_spmm_gather_dual_bk_int8(x_q: torch.Tensor, values_g: torch.Tensor,
                                 out_dtype: torch.dtype = torch.float32,
                                 block_b: Optional[int] = None) -> torch.Tensor:
     """Fused int8 gate-up over two gather weights sharing one X read:
-    ``silu(deq(gather(Xq, idx_g) @ g)) * deq(gather(Xq, idx_u) @ u)``."""
+    ``silu(deq(gather(Xq, idx_g) @ g)) * deq(gather(Xq, idx_u) @ u)``.  The
+    body, its tile and its K split are :func:`int8_dual_plan`'s (``block_b``
+    only checked); every body gives the same bits."""
     return _gather_dual_quantized(nm_spmm_gather_dual_bk_int8, torch.int8, x_q, values_g,
                                   idx_g, values_u, idx_u, n, x_scale, wg_scale, wu_scale,
                                   out_dtype, block_b, None)

@@ -30,6 +30,10 @@ weight and ``csrc/tile_gemm_sm90_fp8.cuh``'s wgmma body, whose weight tile
 is transposed on chip.  ``tile_gemm_dual_fp8`` and
 ``tile_gemm_dual_fp8_requant`` run the dual forms of those two, chosen by
 :func:`fp8_dual_plan` (the wgmma one never for the requantized codes).
+``tile_gemm_int8`` and ``tile_gemm_int8_requant`` run the s8 form of that
+dense stream, chosen by :func:`int8_plan`, and ``tile_gemm_dual_int8`` and
+``tile_gemm_dual_int8_requant`` its s8 dual form, chosen by
+:func:`int8_dual_plan`.
 Every other kernel here runs the shared bodies of ``gemm.cu`` /
 ``gemm_int8.cu`` / ``gemm_fp8.cu`` (the masked ones where their plans
 leave the stream).
@@ -58,10 +62,12 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
                   tile_gemm_masked_quantized_ref, tile_gemm_masked_ref,
                   tile_gemm_quantized_ref, tile_gemm_ref, with_requant)
 
-__all__ = ["tile_gemm", "plan", "fp8_plan", "int8_plan", "dual_plan", "fp8_dual_plan", "cluster_split",
+__all__ = ["tile_gemm", "plan", "fp8_plan", "int8_plan", "dual_plan", "fp8_dual_plan",
+           "int8_dual_plan", "cluster_split",
            "stream_plan", "masked_plan", "masked_fp8_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
            "FP8_WGMMA_COLS", "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
            "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS", "INT8_STREAM16_MAX_STEPS",
+           "INT8_DENSE_DUAL_STREAM16_MAX_ROWS",
            "tile_gemm_dual", "tile_gemm_int8", "tile_gemm_int8_requant", "tile_gemm_dual_int8",
            "tile_gemm_dual_int8_requant", "tile_gemm_fp8", "tile_gemm_fp8_requant",
            "tile_gemm_dual_fp8", "tile_gemm_dual_fp8_requant", "tile_gemm_masked",
@@ -116,6 +122,9 @@ FP8_DUAL_WGMMA_COLS = 64
 #: at 18 steps (gemma3-1b's w_in) and lost at 32 (internlm2-1.8b's w_out at
 #: 33-64 rows)
 INT8_STREAM16_MAX_STEPS = 24
+#: the dense int8 dual runs its 16-row stream up to this many rows (three
+#: row tiles), its 64-row one above
+INT8_DENSE_DUAL_STREAM16_MAX_ROWS = 48
 #: the planners' bodies -> the C interface's ``body`` argument
 BODY_CODES = {"shared": 0, "stream": 1, "wgmma": 2}
 #: the shared body's launch width (O / 64 tiles x row tiles) from which the
@@ -234,6 +243,43 @@ def int8_plan(b: int, k: int, o: int) -> dict:
     split = cluster_split(cols * -(-b // rows16), steps, FP8_STREAM16_BLOCKS_PER_SM)
     if b <= rows16 or (b <= rows64 and steps // split <= INT8_STREAM16_MAX_STEPS):
         return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O, "split": split}
+    return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O,
+            "split": cluster_split(cols * -(-b // rows64), steps)}
+
+
+def int8_dual_plan(b: int, k: int, o: int) -> dict:
+    """``tile_gemm_dual_int8``'s (and ``_requant``'s) body, tile and split
+    for ``silu(deq(Xq (b, k) @ Wg)) * deq(Xq @ Wu)``, both int8 weights
+    ``(k, o)``: ``stream`` (the s8 form of ``csrc/nm_spmm_sp_fp8.cuh``'s
+    dense DUAL stream: both weights' tiles a stage, two ``mma.sync``
+    m16n8k32 s8 -> s32 a step a weight into two int32 accumulator sets, both
+    partial planes summed in rank order, gemm_int8.cu's
+    ``DualFlushI8T<false>``) at every row count: over 64-channel tiles of 16
+    rows up to ``INT8_DENSE_DUAL_STREAM16_MAX_ROWS`` rows, the K loop split
+    by :func:`cluster_split` at ``FP8_STREAM16_BLOCKS_PER_SM`` blocks an SM
+    (internlm2-1.8b's gate-up (2048, 8192) at B = 8: 128 tiles, split 2;
+    qwen3-moe's expert (4096, 1536): 24 tiles, split 8); above, over 64-row
+    tiles split at ``BLOCKS_PER_SM``.  On an H100, 700 W
+    (``tools/int8_body_sweep.py``, PERF.md §6) the stream
+    beat gemm_int8.cu's first body at every swept shape, 1-256 rows at both
+    pairs: internlm2-1.8b at 8 / 64 / 256 rows 18.2 / 26.6 / 56.5 µs against
+    33.6 / 46.4 / 149.8, the expert 9.5 / 16.0 / 40.5 against 61.6 / 81.8 /
+    81.8.  The 16-row tiles beat the 64-row ones over 17-33 rows at
+    internlm2-1.8b (23.0-26.1 against 24.3-26.6 µs) and 17-48 at the expert
+    (11.7-15.1 against 15.8), and lost at internlm2-1.8b's 48 rows (27.5
+    against 26.6) and at 64 at both; three 16-row blocks an SM beat two at
+    the expert over 17-48 rows (11.7 against 14.1 at 17), two 64-row blocks
+    an SM beat one there from 65 rows (23.4 against 36.3).  The int32 sums
+    are exact in any order and the flush repeats the first body's fp32
+    operations: every body gives the same bits, requantized codes included.
+    Returns ``{"body", "rows", "cols", "split"}``; ``rows`` is what the C
+    interface takes as ``bm``."""
+    rows16, rows64 = _build.BLOCK_ROWS
+    steps, cols = k // _build.BLOCK_K, o // _build.BLOCK_O
+    if b <= INT8_DENSE_DUAL_STREAM16_MAX_ROWS:
+        return {"body": "stream", "rows": rows16, "cols": _build.BLOCK_O,
+                "split": cluster_split(cols * -(-b // rows16), steps,
+                                       FP8_STREAM16_BLOCKS_PER_SM)}
     return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O,
             "split": cluster_split(cols * -(-b // rows64), steps)}
 
@@ -736,12 +782,14 @@ def _tile_gemm_dual_quantized(wrapper, storage, x_q, w_g, w_u, x_scale, wg_scale
                           block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
     y = torch.empty((b, o), dtype=out_dtype, device=x_q.device)
-    # the fp8 dual runs the body of its plan (block_b only checked); the int8
-    # dual keeps the shared body (no plan)
-    plan_args = ()
+    # both classes run the body of their plans (block_b only checked); the
+    # int8 entry takes no bn (its bodies' tiles are 64 channels wide)
     if storage == torch.float8_e4m3fn:
         p = fp8_dual_plan(b, k, o, requant=requant_scale is not None)
         bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"])
+    else:
+        p = int8_dual_plan(b, k, o)
+        bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_tile_gemm_dual_{suffix}")(
@@ -759,7 +807,10 @@ def tile_gemm_dual_int8(x_q: torch.Tensor, w_g: torch.Tensor, w_u: torch.Tensor,
                         block_b: Optional[int] = None) -> torch.Tensor:
     """Fused int8 gate-up: ``silu(deq(Xq @ Wg)) * deq(Xq @ Wu)`` from one
     read of each X tile, two int32 accumulators, each dequantized with
-    ``x_scale * w*_scale`` at the flush, silu*mul in fp32, one cast."""
+    ``x_scale * w*_scale`` at the flush, silu*mul in fp32, one cast.
+    ``block_b`` is the dispatch plan's row block (checked); the body, its
+    tile and its K split are :func:`int8_dual_plan`'s; every body gives the
+    same bits."""
     return _tile_gemm_dual_quantized(tile_gemm_dual_int8, torch.int8, x_q, w_g, w_u,
                                      x_scale, wg_scale, wu_scale, out_dtype, block_b, None)
 

@@ -184,7 +184,7 @@ def test_masked_gather_refuses_maps_at_another_row_block(recorded):
 def test_fp8_gather_dual_launches_its_plan(recorded, b, n):
     """vg_nm_spmm_gather_dual_bk_fp8 gets fp8_dual_plan's (out_kind, bm,
     body, split) in bf16, fp32 and the requantized codes; the int8 dual
-    keeps its shared body's (.., kind, bm, stream)."""
+    its own plan's (int8_dual_plan)."""
     for ke, o in (EXPERT["gate_up"], INTERNLM2["gate_up"]):
         kc = ke * n // 4
         xs = torch.empty(b, 1, device="meta")
@@ -199,7 +199,8 @@ def test_fp8_gather_dual_launches_its_plan(recorded, b, n):
                 wrapper(xq, v, idx, v, idx, n, xs, ws, ws)
                 ((name, args),) = recorded.calls
                 assert name == "vg_nm_spmm_gather_dual_bk_int8"
-                assert args[-3:-1] == (1, _build.block_rows(b))    # fp32 out, no plan
+                q = gk.int8_dual_plan(b, ke, o, n)     # fp32 out
+                assert args[-5:-1] == (1, q["rows"], BODY_CODES[q["body"]], q["split"])
                 continue
             nm_spmm_gather_dual_bk_fp8(xq, v, idx, v, idx, n, xs, ws, ws,
                                        out_dtype=torch.bfloat16)

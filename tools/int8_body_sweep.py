@@ -6,10 +6,14 @@ compressed gate-up dual ``nm_spmm_dual_int8`` (``vg_nm_spmm_dual_int8``)
 at internlm2-1.8b's and qwen3-moe's expert gate-up, n in {2, 1}, 1-256
 rows; K11 int8 ``nm_spmm_gather_int8`` (``vg_nm_spmm_gather_int8``, the
 raw int32 (O, B) form a row-parallel site all-reduces) at the local sites
-of internlm2-1.8b on a (1, 2) mesh (wo, w_out), n in {2, 1}, 32-1,024 rows.
+of internlm2-1.8b on a (1, 2) mesh (wo, w_out), n in {2, 1}, 32-1,024 rows;
+the dense gate-up dual ``tile_gemm_dual_int8`` (``vg_tile_gemm_dual_int8``)
+and the gathered gate-up dual K9 int8 ``nm_spmm_gather_dual_bk_int8``
+(``vg_nm_spmm_gather_dual_bk_int8``, n in {2, 1}) at internlm2-1.8b's and
+qwen3-moe's expert gate-up, 1-256 rows.
 
-    python3 tools/int8_body_sweep.py                    # one JSON line a shape
-    python3 tools/int8_body_sweep.py --kernels dual,k11 # some of them
+    python3 tools/int8_body_sweep.py                      # one JSON line a shape
+    python3 tools/int8_body_sweep.py --kernels tdual,gdual # some of them
 
 ``--kernels`` keeps a call on the card to the kernels whose plans are being
 set (the whole grid takes minutes of chip time, and each kernel's cases
@@ -19,13 +23,16 @@ Each body is launched through its C entry with an explicit (bm, body,
 split): ``shared`` (gemm_int8.cu's first body at ``block_rows(b)`` rows,
 split 1), ``s16`` / ``s64`` (the s8 stream of csrc/nm_spmm_sp_fp8.cuh over
 16- / 64-row tiles, the K loop split by ``cluster_split`` at the blocks an
-SM in the name: ``s16_3`` three, ``s64_1`` one).  Every body's output
+SM in the name: ``s16_3`` three, ``s64_1`` one; K9 int8's gathered dual
+has 16-row tiles only).  Every body's output
 (bf16; K11's raw int32) must be the shared body's bit for bit (int32 sums
 are exact in any order).  Times are ``chip_smoke.time_ms``'s (CUDA-graph
 replays over enough weight copies to leave L2 cold), in ms, beside the
 bodies the plans (``tile_gemm/kernel.py::int8_plan``,
 ``nm_spmm_gather/kernel.py::int8_plan``, ``nm_spmm/kernel.py::
-int8_dual_plan``, ``nm_spmm_gather/kernel.py::kmajor_int8_plan``) pick.
+int8_dual_plan``, ``nm_spmm_gather/kernel.py::kmajor_int8_plan``,
+``tile_gemm/kernel.py::int8_dual_plan``, ``nm_spmm_gather/kernel.py::
+int8_dual_plan``) pick.
 It needs a card and exits non-zero without one.
 """
 
@@ -48,8 +55,9 @@ K11_ROWS = (32, 64, 128, 256, 512, 1024)   # multiples of 16 (KMAJOR_B)
 K11_MESH = 2
 
 
-def bodies(b: int, kc: int, o: int) -> dict:
-    """name -> (bm, body, split) of every body at b rows over K (or K_c) = kc."""
+def bodies(b: int, kc: int, o: int, rows64: bool = True) -> dict:
+    """name -> (bm, body, split) of every body at b rows over K (or K_c) =
+    kc; ``rows64``: the stream has 64-row tiles too."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.tile_gemm.kernel import cluster_split
 
@@ -57,7 +65,8 @@ def bodies(b: int, kc: int, o: int) -> dict:
     tiles = {bm: (o // _build.BLOCK_O) * -(-b // bm) for bm in _build.BLOCK_ROWS}
     out = {"shared": (_build.block_rows(b), 0, 1)}
     for bm, per_sm in ((16, 2), (16, 3), (64, 1), (64, 2)):
-        out[f"s{bm}_{per_sm}"] = (bm, 1, cluster_split(tiles[bm], steps, per_sm))
+        if bm == 16 or rows64:
+            out[f"s{bm}_{per_sm}"] = (bm, 1, cluster_split(tiles[bm], steps, per_sm))
     return out
 
 
@@ -80,6 +89,18 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
         if kernel == "tile_gemm_int8":
             lf = quantize_linear({"w": w}, torch.int8)
             return (lf["w"], lf["scale"].reshape(1, -1))
+        if kernel in ("tile_gemm_dual_int8", "nm_spmm_gather_dual_bk_int8"):
+            lfs = []
+            for _ in range(2):    # gate, then up: (w, scale) or (values, idx, scale)
+                if kernel == "tile_gemm_dual_int8":
+                    lf = quantize_linear({"w": w}, torch.int8)
+                    lfs += [lf["w"], lf["scale"].reshape(1, -1)]
+                else:
+                    lf = convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"),
+                                        "gather", quantize=torch.int8)
+                    lfs += [lf["values"], lf["gather_idx"], lf["scale"].reshape(1, -1)]
+                w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+            return tuple(lfs)
         if kernel == "nm_spmm_dual_int8":
             lfs = []
             for _ in range(2):
@@ -94,6 +115,8 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
         return (lf["values"], lf["gather_idx"], lf["scale"].reshape(1, -1))
 
     nbytes = {"tile_gemm_int8": kc * o + 4 * o,
+              "tile_gemm_dual_int8": 2 * (kc * o + 4 * o),
+              "nm_spmm_gather_dual_bk_int8": 2 * (kc * o + 4 * o + 4 * kc),
               "nm_spmm_dual_int8": 2 * (kc * o * 5 // 4 + 4 * o)}.get(kernel,
                                                                      kc * o + 4 * o + 4 * kc)
     leaves = [leaf() for _ in range(chip_smoke.copies_for(nbytes))]
@@ -114,6 +137,18 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
                                               vu.data_ptr(), mu.data_ptr(), xs.data_ptr(),
                                               sg.data_ptr(), su.data_ptr(), None, y.data_ptr(),
                                               b, k, o, n, 0, bm, body, split, stream)
+            elif kernel == "tile_gemm_dual_int8":
+                wg, sg, wu, su = lf
+                rc = lib.vg_tile_gemm_dual_int8(xq.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                                                xs.data_ptr(), sg.data_ptr(), su.data_ptr(),
+                                                None, y.data_ptr(), b, k, o, 0, bm, body, split,
+                                                stream)
+            elif kernel == "nm_spmm_gather_dual_bk_int8":
+                vg, ig, sg, vu, iu, su = lf
+                rc = lib.vg_nm_spmm_gather_dual_bk_int8(
+                    xq.data_ptr(), vg.data_ptr(), ig.data_ptr(), vu.data_ptr(), iu.data_ptr(),
+                    xs.data_ptr(), sg.data_ptr(), su.data_ptr(), None, y.data_ptr(), b, k, o, n,
+                    0, bm, body, split, stream)
             elif kernel == "nm_spmm_gather_int8":     # the raw int32 (O, B) accumulator
                 v, idx, _ = lf
                 rc = lib.vg_nm_spmm_gather_int8(xq.data_ptr(), v.data_ptr(), idx.data_ptr(),
@@ -129,7 +164,8 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
         return call
 
     row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n, "plan": plan, "ms": {},
-           "bodies": bodies(b, k if kernel == "nm_spmm_dual_int8" else kc, o)}
+           "bodies": bodies(b, k if kernel == "nm_spmm_dual_int8" else kc, o,
+                            rows64=kernel != "nm_spmm_gather_dual_bk_int8")}
     first = None
     for name, (bm, body, split) in row["bodies"].items():
         call = launch(bm, body, split)
@@ -150,17 +186,21 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="tile,gather,dual,k11",
+    ap.add_argument("--kernels", default="tile,gather,dual,k11,tdual,gdual",
                     help="comma-separated: tile (tile_gemm_int8), gather (K8 int8), dual "
-                         "(nm_spmm_dual_int8), k11 (nm_spmm_gather_int8)")
+                         "(nm_spmm_dual_int8), k11 (nm_spmm_gather_int8), tdual "
+                         "(tile_gemm_dual_int8), gdual (K9 int8, "
+                         "nm_spmm_gather_dual_bk_int8)")
     which = set(ap.parse_args().kernels.split(","))
     if not torch.cuda.is_available():
         chip_smoke.fail("no card: the sweep times CUDA kernels")
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import int8_dual_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import int8_dual_plan as gdual_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_int8_plan
+    from repro_torch.kernels.tile_gemm.kernel import int8_dual_plan as tdual_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -181,12 +221,23 @@ def main():
                 for b in GATHER_ROWS:
                     sweep_case("nm_spmm_gather_bk_int8", b, k, o, n, gen, lib,
                                gather_plan(b, k, o, n))
+    gate_ups = ((il.d_model, il.d_ff), (moe.d_model, moe.d_ff))
     if "dual" in which:
-        for k, o in ((il.d_model, il.d_ff), (moe.d_model, moe.d_ff)):
+        for k, o in gate_ups:
             for n in (2, 1):
                 for b in DUAL_ROWS:
                     sweep_case("nm_spmm_dual_int8", b, k, o, n, gen, lib,
                                int8_dual_plan(b, k, o, n))
+    if "tdual" in which:
+        for k, o in gate_ups:
+            for b in DUAL_ROWS:
+                sweep_case("tile_gemm_dual_int8", b, k, o, 4, gen, lib, tdual_plan(b, k, o))
+    if "gdual" in which:
+        for k, o in gate_ups:
+            for n in (2, 1):
+                for b in DUAL_ROWS:
+                    sweep_case("nm_spmm_gather_dual_bk_int8", b, k, o, n, gen, lib,
+                               gdual_plan(b, k, o, n))
     if "k11" in which:
         for k, o in ((il.attn_dim // K11_MESH, il.d_model), (il.d_ff // K11_MESH, il.d_model)):
             for n in (2, 1):
