@@ -117,10 +117,13 @@ Phases, each of which fails the run on a miss:
              leave the shared body -- BITWISE themselves with every tile
              live, within 1e-2 of the unmasked kernel; the bf16
              nm_spmm_masked, nm_spmm_masked_fp8, the bf16
-             tile_gemm_masked below 256 rows and tile_gemm_masked_fp8
-             wherever tile_gemm_fp8 streams run their twins' streams at
-             their twins' splits, bitwise the twin, and are also timed in
-             turns with their first bodies, ``earlier_ms``),
+             tile_gemm_masked below 256 rows, tile_gemm_masked_fp8
+             wherever tile_gemm_fp8 streams, nm_spmm_masked_int8 and
+             tile_gemm_masked_int8 run their twins' streams at their
+             twins' splits, bitwise the twin, and are also timed in
+             turns with their first bodies, ``earlier_ms``; the two int8
+             ones also bitwise their first bodies, in bf16, fp32, the
+             raw int32 and the codes, each launch's plan printed),
              within the class's limit of
              their plain versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
@@ -174,7 +177,9 @@ Phases, each of which fails the run on a miss:
              compressed runs print nm_spmm_dual's plans (and on the
              spgemm path nm_spmm_masked's), the spgemm dense bf16, dense
              fp8 and 2:4 fp8 runs tile_gemm_masked's, tile_gemm_masked_fp8's
-             and nm_spmm_masked_fp8's, the int8 compressed runs
+             and nm_spmm_masked_fp8's, the spgemm static int8 2:4 and
+             dense runs nm_spmm_masked_int8's and tile_gemm_masked_int8's,
+             the int8 compressed runs
              nm_spmm_int8's (int8_plan per site) and nm_spmm_dual_int8's
              (int8_dual_plan; the spgemm static int8 2:4 run at the expert's
              gate-up), and the serving phase
@@ -355,9 +360,11 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            # tile_gemm_fp8's dense one, of K8 fp8's gathered one and of K11
            # fp8's K-major one), the int8 gate-up duals' (the s8 forms of the
            # fp8 compressed, dense and gathered DUAL streams); each
-           # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it
+           # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it;
+           # the masked int8 singles' (the s8 sparse and dense streams, MASKED)
            **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
-              for name in ("tile_gemm_masked_fp8", "nm_spmm_int8", "nm_spmm_int8_requant",
+              for name in ("tile_gemm_masked_fp8", "nm_spmm_masked_int8",
+                           "tile_gemm_masked_int8", "nm_spmm_int8", "nm_spmm_int8_requant",
                            "tile_gemm_int8", "tile_gemm_int8_requant",
                            "nm_spmm_gather_bk_int8", "nm_spmm_gather_bk_int8_requant",
                            "nm_spmm_dual_int8", "nm_spmm_dual_int8_requant",
@@ -543,8 +550,9 @@ def earlier_kernels():
     tile_gemm_masked (bf16), nm_spmm_masked_fp8, nm_spmm_gather_bk_masked
     (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8,
     nm_spmm_int8, tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8,
-    tile_gemm_dual_int8, nm_spmm_gather_dual_bk_int8 (each and _requant) and
-    nm_spmm_gather_int8 wrappers launch the port's
+    tile_gemm_dual_int8, nm_spmm_gather_dual_bk_int8 (each and _requant),
+    nm_spmm_gather_int8, nm_spmm_masked_int8 and tile_gemm_masked_int8
+    wrappers launch the port's
     first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu, gemm_int8.cu and gemm_fp8.cu at every n
     and row count,
@@ -559,7 +567,8 @@ def earlier_kernels():
     ``vg_tile_gemm_masked_fp8`` / ``vg_nm_spmm_int8`` / ``vg_tile_gemm_int8``
     / ``vg_nm_spmm_gather_bk_int8`` / ``vg_nm_spmm_dual_int8`` /
     ``vg_nm_spmm_gather_int8`` / ``vg_tile_gemm_dual_int8`` /
-    ``vg_nm_spmm_gather_dual_bk_int8`` at body 0, split 1, at the row block the
+    ``vg_nm_spmm_gather_dual_bk_int8`` / ``vg_nm_spmm_masked_int8`` /
+    ``vg_tile_gemm_masked_int8`` at body 0, split 1, at the row block the
     first form took: 16 up to 16 rows, else 64; the masked ones at their
     maps' row block) instead of the current
     ones: the ``earlier_ms`` yardstick, through the same wrappers and
@@ -642,6 +651,13 @@ def earlier_kernels():
     def nm_spmm_int8_tiled(*args):
         return int8.vg_nm_spmm_int8(*args[:-3], 0, 1, args[-1])
 
+    # the masked int8 singles likewise, at their maps' row block (the plans')
+    def nm_spmm_masked_int8_tiled(*args):
+        return int8.vg_nm_spmm_masked_int8(*args[:-3], 0, 1, args[-1])
+
+    def tile_gemm_masked_int8_tiled(*args):
+        return int8.vg_tile_gemm_masked_int8(*args[:-3], 0, 1, args[-1])
+
     # tile_gemm_int8 and K8 int8 likewise, at the first form's row block (K8
     # int8's plan runs 16-row tiles past 16 rows; b: args[7] / args[8])
     def tile_gemm_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
@@ -701,7 +717,9 @@ def earlier_kernels():
         vg_nm_spmm_dual_int8=nm_spmm_dual_int8_tiled,
         vg_nm_spmm_gather_int8=nm_spmm_gather_int8_tiled,
         vg_tile_gemm_dual_int8=tile_gemm_dual_int8_tiled,
-        vg_nm_spmm_gather_dual_bk_int8=nm_spmm_gather_dual_bk_int8_tiled)
+        vg_nm_spmm_gather_dual_bk_int8=nm_spmm_gather_dual_bk_int8_tiled,
+        vg_nm_spmm_masked_int8=nm_spmm_masked_int8_tiled,
+        vg_tile_gemm_masked_int8=tile_gemm_masked_int8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -1932,12 +1950,15 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     bitwise the masked kernel with every tile live, and within TOL of the
     unmasked one) and within the class's limit of the plain version (int8
     bitwise).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
-    tile_gemm_masked, tile_gemm_masked_fp8 and the bf16
-    nm_spmm_gather_bk_masked run their twins' streams at their twins' plans
-    (K2's, nm_spmm_fp8's, K1's below 256 rows, tile_gemm_fp8's where it
-    streams, K8's where it streams) and are held bitwise to the twin, and are
-    timed in turns with their first (shared) bodies (``earlier_ms``).  Timed
-    beside the
+    tile_gemm_masked, tile_gemm_masked_fp8, the bf16
+    nm_spmm_gather_bk_masked, nm_spmm_masked_int8 and tile_gemm_masked_int8
+    run their twins' streams at their twins' plans (K2's, nm_spmm_fp8's,
+    K1's below 256 rows, tile_gemm_fp8's where it streams, K8's where it
+    streams, nm_spmm_int8's, tile_gemm_int8's at the maps' row block) and
+    are held bitwise to the twin, and are timed in turns with their first
+    (shared) bodies (``earlier_ms``); the two int8 ones are held bitwise to
+    their first bodies too (bf16, fp32, the raw int32, and at ~40% live the
+    codes), each row printing its plan.  Timed beside the
     unmasked kernel, the plain version and the class's library call on the
     same masked X (torch.matmul / torch._int_mm / torch._scaled_mm on the
     dense or decompressed weight, the gather's on the pre-gathered X);
@@ -2013,6 +2034,26 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         rows16 = -(-xl.shape[0] // 16) * 16
         return scaled_mm, (pad_rows(xl, rows16), lf["lib"], pad_rows(xs, rows16, 1.0), lf["ws"])
 
+    def held_to_first_body(x, xs, lf, maps, bb):
+        """A masked int8 single on its s8 stream: bf16, fp32 and the raw
+        int32, each bitwise its first body (``earlier_kernels``), its
+        unmasked twin and its plain version on the same masked rows."""
+        nn = () if layout == "dense" else (n,)
+        w_ops = ops_of(layout, lf)
+        for scales, kw in (((xs, lf["ws"]), {"out_dtype": bf16}),
+                           ((xs, lf["ws"]), {"out_dtype": torch.float32}), ((None, None), {})):
+            got = masked_fn(x, *w_ops, *maps, *nn, *scales, **kw)
+            with earlier_kernels():
+                first = masked_fn(x, *w_ops, *maps, *nn, *scales, **kw)
+            twin = plain_fn(x, *w_ops, *scales, *nn, **kw)
+            want = ref_fn(x, *w_ops, *maps, *nn, *scales, block_b=bb, block_k=64, **kw)
+            torch.cuda.synchronize()
+            for what, other in (("first body", first), ("unmasked twin", twin),
+                                ("plain version", want)):
+                if not torch.equal(got, other):
+                    fail(f"{base}{sfx} B={b} K={k} O={o} n={n} {got.dtype}: not bitwise its "
+                         f"{what} ({scaled_err(got, other):.3e})")
+
     for layout, n in MASKED_LAYOUTS:
         mod = mods[layout]
         base = MASKED_NAMES[layout]
@@ -2027,8 +2068,9 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
             to 16 rows), and K8 fp8 where its plan leaves the shared body.
             The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
             tile_gemm_masked below 256 rows, tile_gemm_masked_fp8 wherever
-            tile_gemm_fp8 streams and the bf16 nm_spmm_gather_bk_masked at
-            2:4 below 256 rows run their twins' streams at their twins'
+            tile_gemm_fp8 streams, the bf16 nm_spmm_gather_bk_masked at 2:4
+            below 256 rows, nm_spmm_masked_int8 (n in {1, 2}) and
+            tile_gemm_masked_int8 run their twins' streams at their twins'
             plans: bitwise the twin."""
             if layout == "dense" and qdtype is None:
                 return tk.plan(b, k, o)["body"] == "wgmma"
@@ -2089,13 +2131,15 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                     extra = {}
                     masked_call = (lambda x_, xs_, lf_, maps=maps: call(
                         masked_fn, layout, n, x_, xs_, lf_, maps))
-                    if (layout == "compressed" and not int8) or \
-                            (layout in ("dense", "gather") and qdtype is None) or \
-                            (layout == "dense" and fp8):
+                    if layout != "gather" or qdtype is None:
                         # the redesigned stream, in turns with its first (shared) body
                         t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
                     else:
                         t_m = time_ms(masked_call, ops)
+                    if int8 and layout != "gather":
+                        extra["plan"] = (tk.masked_int8_plan(b, k, o) if layout == "dense"
+                                         else {**nk.int8_plan(b, k, o, n), "rows": bb})
+                        held_to_first_body(x, xs, lfs[0], maps, bb)
                     if unmasked_ms is None:   # neither depends on the live share
                         unmasked_ms = time_ms(lambda x_, xs_, lf_: call(
                             plain_fn, layout, n, x_, xs_, lf_), ops)
@@ -2131,6 +2175,14 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                                          torch.ones_like(maps[1]), *nn, xs, lfs[0]["ws"],
                                          epilogue=gelu, requant_scale=rq) if own_codes \
                             else unmasked
+                        if int8 and layout != "gather":   # the first body's codes too
+                            with earlier_kernels():
+                                first = masked_fn(x, *ops_of(layout, lfs[0]), *maps, *nn, xs,
+                                                  lfs[0]["ws"], epilogue=gelu, requant_scale=rq)
+                            torch.cuda.synchronize()
+                            if not torch.equal(codes, first):
+                                fail(f"{base}{sfx} B={b} K={k} O={o} n={n}: the requantized "
+                                     f"codes are not bitwise the first body's")
                         torch.cuda.synchronize()
                         if codes.dtype != qdtype or not torch.equal(as_bytes(codes),
                                                                     as_bytes(same)):
@@ -2396,8 +2448,10 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     gather model runs them, the int8 gate-up duals nm_spmm_dual_int8,
     tile_gemm_dual_int8 and K9 int8 nm_spmm_gather_dual_bk_int8 (and their
     _requant forms) on an int8 compressed, dense or gather swiglu model (an
-    MoE's expert gate-up) and K11 int8 (nm_spmm_gather_int8) on a sharded int8 gather model's two
-    row-parallel sites, at each of ``rows``."""
+    MoE's expert gate-up), nm_spmm_masked_int8 and tile_gemm_masked_int8 on
+    the spgemm path's int8 2:4 and dense w_out, and K11 int8
+    (nm_spmm_gather_int8) on a sharded int8 gather model's two row-parallel
+    sites, at each of ``rows``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import dual_plan as nm_dual_plan
     from repro_torch.kernels.nm_spmm.kernel import fp8_plan as nm_fp8_plan
@@ -2408,7 +2462,8 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
         int8_dual_plan as gather_int8_dual_plan)
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan, kmajor_int8_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
-    from repro_torch.kernels.tile_gemm.kernel import fp8_dual_plan, masked_fp8_plan, masked_plan
+    from repro_torch.kernels.tile_gemm.kernel import (fp8_dual_plan, masked_fp8_plan,
+                                                      masked_int8_plan, masked_plan)
     from repro_torch.kernels.tile_gemm.kernel import int8_dual_plan as tile_int8_dual_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_int8_plan
 
@@ -2462,6 +2517,13 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
             out[dual_name] = {f"B={b} K={cfg.d_model} O={cfg.d_ff}": dual_of(b, cfg.d_model,
                                                                             cfg.d_ff)
                               for b in rows}
+        if spgemm and layout == "dense":
+            out["tile_gemm_masked_int8"] = {f"B={b} K={k} O={o}": masked_int8_plan(b, k, o)
+                                            for b in rows[:2]}
+        if spgemm and layout == "compressed":
+            out["nm_spmm_masked_int8"] = {
+                f"B={b} K={k} O={o}": {**int8_plan(b, k, o, sparsity[0]),
+                                       "rows": _build.block_rows(b)} for b in rows[:2]}
         return out
     if spgemm and layout == "compressed" and qdtype == "fp8":
         n = sparsity[0]
@@ -3769,7 +3831,8 @@ def main():
     # the bf16 tile_gemm_masked, nm_spmm_masked_fp8, the bf16
     # nm_spmm_gather_bk_masked, K9 fp8, tile_gemm_masked_fp8, nm_spmm_int8,
     # tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8(_requant),
-    # tile_gemm_dual_int8(_requant) and K9 int8(_requant)
+    # tile_gemm_dual_int8(_requant), K9 int8(_requant), nm_spmm_masked_int8 and
+    # tile_gemm_masked_int8
     busy = {res["layout"]: res["decode_profile"]["device_busy_ms"] for res in served
             if res["layout"] in ("2:4", "1:4", "2:4/int8", "1:4/int8", "2:4/int8/static",
                                  "dense/int8", "gather-2:4/int8", "gather-1:4/int8",
@@ -3841,7 +3904,8 @@ def main():
               "nm_spmm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               "tile_gemm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               **{name: (SOURCES["nm_spmm_fp8"], SOURCES["int8"])
-                 for name in ("nm_spmm_int8", "nm_spmm_int8_requant", "tile_gemm_int8",
+                 for name in ("nm_spmm_masked_int8", "tile_gemm_masked_int8",
+                              "nm_spmm_int8", "nm_spmm_int8_requant", "tile_gemm_int8",
                               "tile_gemm_int8_requant", "nm_spmm_gather_bk_int8",
                               "nm_spmm_gather_bk_int8_requant", "nm_spmm_dual_int8",
                               "nm_spmm_dual_int8_requant", "nm_spmm_gather_int8",

@@ -47,10 +47,14 @@
 // dense stream wherever tile_gemm/kernel.py::int8_dual_plan picks it; and K9
 // int8 (nm_spmm_gather_dual_bk_int8 and _requant) at n in {1, 2} that DUAL
 // form with the gathered X (one span a step, selected twice) wherever
-// nm_spmm_gather/kernel.py::int8_dual_plan picks it.  Each is flushed by
+// nm_spmm_gather/kernel.py::int8_dual_plan picks it; and the masked
+// singles nm_spmm_masked_int8 (at n in {1, 2}) and tile_gemm_masked_int8 the
+// MASKED forms of the sparse and the dense stream (each block walks the
+// live steps of its split's span) wherever nm_spmm/kernel.py::int8_plan and
+// tile_gemm/kernel.py::masked_int8_plan pick them.  Each is flushed by
 // SingleFlushI8 / DualFlushI8T below in this file's order (ws first for the
 // gathers): the same bits as this body, int32 sums being exact in any
-// order.  The masked singles keep this file's body.  Their entries at body
+// order.  The masked gather keeps this file's body.  Their entries at body
 // 0, split 1 reach this file's body, the form the port ran first, as its
 // yardstick.
 //
@@ -758,17 +762,32 @@ int vg_tile_gemm_int8(const void* x, const void* w, const void* xs, const void* 
   }
   if (body != 1 || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
     return static_cast<int>(cudaErrorInvalidValue);
-  return spf8::launch_s8(4, bm, x, w, nullptr, s8_flush<false>(xs, ws, bias, rq, y, o, act,
-                                                                out_kind),
-                         b, k, o, split, stream);
+  return spf8::launch_s8(4, bm, x, w, nullptr, nullptr,
+                         s8_flush<false>(xs, ws, bias, rq, y, o, act, out_kind), b, k, o, split,
+                         stream);
 }
 
+// tile_gemm/kernel.py::masked_int8_plan's body: 1, the s8 dense stream
+// (nm_spmm_sp_fp8.cuh, S8 at N = 4, MASKED; bm in {16, 64}, the maps' row
+// block) walking the live steps of each block's span, K split over `split`
+// blocks of a cluster (bitwise vg_tile_gemm_int8 on the same masked X); 0,
+// this file's body, split 1
 int vg_tile_gemm_masked_int8(const void* x, const void* w, const void* kmask, const void* xs,
                              const void* ws, const void* bias, const void* rq, void* y, int b,
-                             int k, int o, int act, int out_kind, int bm, void* stream) {
-  return launch_bm<false, DenseLoader, Contiguous, true>(
-      bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
-      rq, y, b, k, k, o, act, out_kind, stream);
+                             int k, int o, int act, int out_kind, int bm, int body, int split,
+                             void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bm<false, DenseLoader, Contiguous, true>(
+        bm, x, nullptr, nullptr, w, nullptr, nullptr, nullptr, kmask, xs, ws, nullptr, bias,
+        rq, y, b, k, k, o, act, out_kind, stream);
+  }
+  if (body != 1 || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_s8(4, bm, x, w, nullptr, kmask,
+                         s8_flush<false>(xs, ws, bias, rq, y, o, act, out_kind), b, k, o, split,
+                         stream);
 }
 
 // tile_gemm/kernel.py::int8_dual_plan's body: 1, the s8 dense dual stream
@@ -809,17 +828,31 @@ int vg_nm_spmm_int8(const void* x, const void* values, const void* meta, const v
   }
   if (body != 1 || (n != 1 && n != 2) || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
     return static_cast<int>(cudaErrorInvalidValue);
-  return spf8::launch_s8(n, bm, x, values, meta,
+  return spf8::launch_s8(n, bm, x, values, meta, nullptr,
                          s8_flush<false>(xs, ws, bias, rq, y, o, act, out_kind), b, k, o, split,
                          stream);
 }
 
+// nm_spmm/kernel.py::int8_plan's body, as vg_nm_spmm_int8 takes it: 1, the
+// s8 sparse stream (nm_spmm_sp_fp8.cuh, S8, MASKED; n in {1, 2}, bm in {16,
+// 64}, the maps' row block) walking the live steps of each block's span, K
+// split over `split` blocks of a cluster (bitwise vg_nm_spmm_int8 on the
+// same masked X); 0, this file's body at any n, split 1
 int vg_nm_spmm_masked_int8(const void* x, const void* values, const void* meta,
                            const void* kmask, const void* xs, const void* ws, const void* bias,
                            const void* rq, void* y, int b, int k, int o, int n, int act,
-                           int out_kind, int bm, void* stream) {
-  return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
-                                nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+                           int out_kind, int bm, int body, int split, void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nm<false, true>(n, bm, x, values, meta, nullptr, nullptr, kmask, xs, ws,
+                                  nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2) || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_s8(n, bm, x, values, meta, kmask,
+                         s8_flush<false>(xs, ws, bias, rq, y, o, act, out_kind), b, k, o, split,
+                         stream);
 }
 
 // nm_spmm/kernel.py::int8_dual_plan's body: 1, the s8 sparse dual stream

@@ -9,7 +9,9 @@
 // nm_spmm_dual_int8 and _requant (n in {1, 2}), the dense gate-up
 // tile_gemm_dual_int8 and _requant (N = 4) and K9 int8
 // (nm_spmm_gather_dual_bk_int8 and _requant, G = n in {1, 2}), and with the
-// K-major X K11 int8 (nm_spmm_gather_int8); in DUAL
+// K-major X K11 int8 (nm_spmm_gather_int8), and with MASKED the masked
+// int8 singles nm_spmm_masked_int8 (n in {1, 2}) and tile_gemm_masked_int8
+// (N = 4); in DUAL
 // form (two weights, two accumulators, one silu(g) * u flush) the
 // compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
 // same streaming body
@@ -30,18 +32,18 @@
 // tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
 // ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by gemm_int8.cu, whose
 // vg_nm_spmm_int8, vg_tile_gemm_int8, vg_nm_spmm_gather_bk_int8,
-// vg_nm_spmm_dual_int8, vg_tile_gemm_dual_int8, vg_nm_spmm_gather_dual_bk_int8
-// and vg_nm_spmm_gather_int8 launch the s8 form where
-// nm_spmm/kernel.py::int8_plan, tile_gemm/kernel.py::int8_plan,
+// vg_nm_spmm_dual_int8, vg_tile_gemm_dual_int8, vg_nm_spmm_gather_dual_bk_int8,
+// vg_nm_spmm_gather_int8, vg_nm_spmm_masked_int8 and vg_tile_gemm_masked_int8
+// launch the s8 form where nm_spmm/kernel.py::int8_plan (for both compressed
+// singles), tile_gemm/kernel.py::int8_plan, ::masked_int8_plan,
 // nm_spmm_gather/kernel.py::int8_plan, nm_spmm/kernel.py::int8_dual_plan,
 // tile_gemm/kernel.py::int8_dual_plan, nm_spmm_gather/kernel.py::
 // int8_dual_plan and ::kmajor_int8_plan pick it.  One body
 // serves both 8-bit classes: the header is not
-// copied per class.  n = 4 of the compressed
-// and gathered kernels, wider launches, the other masked singles (the
-// three masked int8 ones among them) keep gemm_fp8.cu's / gemm_int8.cu's
-// shared bodies, and the many-row bodies of tile_gemm_fp8 (of K8, after
-// gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
+// copied per class.  n = 4 of the compressed and gathered kernels, wider
+// launches and the masked gathers (e4m3 and int8) keep gemm_fp8.cu's /
+// gemm_int8.cu's shared bodies, and the many-row bodies of tile_gemm_fp8
+// (of K8, after gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
 // tile_gemm_sm90_fp8.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
@@ -99,6 +101,12 @@
 //                  nm_spmm_gather_dual_bk, int8 (_gather_dual_kernel), n in {1, 2}, with
 //                  the requant:int8 flush in its _requant form, where
 //                  nm_spmm_gather/kernel.py::int8_dual_plan streams
+//   nm_spmm_masked_int8  repro/kernels/nm_spmm/kernel.py::nm_spmm_masked
+//                  (_spmm_masked_kernel), scaled-quantized int8, n in {1, 2}, where
+//                  nm_spmm/kernel.py::int8_plan streams
+//   tile_gemm_masked_int8  repro/kernels/tile_gemm/kernel.py::tile_gemm_masked
+//                  (_gemm_masked_kernel), scaled-quantized int8, where
+//                  tile_gemm/kernel.py::masked_int8_plan streams
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -265,8 +273,15 @@
 // nm_spmm_dual_int8 (DUAL at n in {1, 2}), the dense tile_gemm_dual_int8
 // (DUAL at N = 4) and the gathered K9 int8 nm_spmm_gather_dual_bk_int8
 // (DUAL with G = n in {1, 2}, one span selected twice): two int32
-// accumulator sets, both planes through the split.  The masked int8 singles
-// keep gemm_int8.cu's body (S8 takes no MASKED).  int8 is one byte like
+// accumulator sets, both planes through the split; and with MASKED the
+// masked int8 singles nm_spmm_masked_int8 (n in {1, 2}) and
+// tile_gemm_masked_int8 (N = 4): the e4m3 masked walk unchanged (block_live
+// and SpanWalk do not look at the element class).  A dead step would add an
+// exact int32 zero, so skipping it leaves the sums bitwise the unmasked s8
+// stream's at any tile and split; a rank with no live step still stores its
+// zero int32 partial into the owners' inboxes and meets the cluster
+// barrier, and a row block with no live step flushes SingleFlushI8 of an
+// int32 0 (bias and activation of zero, or their codes).  int8 is one byte like
 // e4m3 and its zero is the byte 0x00 as e4m3's +0 is, so the stage, the
 // per-warp transpose, the 1:4-as-2:4 +0 slots, the metadata word, the dense
 // A operand (ldmatrix .trans + __byte_perm), select16's +0 for an index
@@ -485,8 +500,8 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
 // sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
 // kmask is block_maps' (row blocks, k / 64) map; the block walks the live
-// steps of its span only.  Elem: E4M3, or S8 (any form but MASKED; the
-// sums, and what flush receives, are int32).
+// steps of its span only.  Elem: E4M3, or S8 (every form; the sums, and
+// what flush receives, are int32).
 template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Elem, class Flush>
 __global__ void __launch_bounds__(NT)
 nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ v,
@@ -498,9 +513,6 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   constexpr bool IS_S8 = std::is_same_v<Elem, S8>;
   static_assert(!MASKED || (G == 0 && !DUAL && !KM),
                 "the masked stream is a single, X contiguous");
-  static_assert(!IS_S8 || !MASKED,
-                "the s8 stream takes no activation-sparsity skip (the masked int8 singles "
-                "keep gemm_int8.cu's body)");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -913,21 +925,33 @@ int launch_nm(int n, int bm, const void* x, const void* v, const void* meta, con
 // meta_packed int8 at n in {1, 2}) and tile_gemm_int8's (a dense (K, O) int8
 // weight at n = 4, meta unused); bm in {16, 64}, split a power of two up to
 // min(8, k / 64); flush(row, col, acc) stores one output from its summed
-// int32 accumulator
+// int32 accumulator; kmask: the masked single (nm_spmm_masked_int8 at n in
+// {1, 2}, tile_gemm_masked_int8 at n = 4) with block_maps' (ceil(b / bm),
+// k / 64) map, else nullptr
 template <class Flush>
-int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, const Flush& flush,
-              int b, int k, int o, int split, void* stream) {
-  if (!launch_ok(b, k, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+int launch_s8(int n, int bm, const void* x, const void* v, const void* meta, const void* kmask,
+              const Flush& flush, int b, int k, int o, int split, void* stream) {
+  if (!launch_ok(b, k, o, bm, split) || (kmask != nullptr && k / BKS > MAX_K_STEPS))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VG_SPF8_S8(NN, BB)                                                                  \
-  return launch<NN, BB, 0, false, false, false, S8>(x, v, meta, nullptr, nullptr, nullptr, \
-                                                    flush, b, k, o, split, s)
-  if (n == 2 && bm == 16) VG_SPF8_S8(2, 16);
-  if (n == 2 && bm == 64) VG_SPF8_S8(2, 64);
-  if (n == 1 && bm == 16) VG_SPF8_S8(1, 16);
-  if (n == 1 && bm == 64) VG_SPF8_S8(1, 64);
-  if (n == 4 && bm == 16) VG_SPF8_S8(4, 16);
-  if (n == 4 && bm == 64) VG_SPF8_S8(4, 64);
+#define VG_SPF8_S8(NN, BB, MM)                                                              \
+  return launch<NN, BB, 0, false, false, MM, S8>(x, v, meta, nullptr, nullptr, kmask, flush, \
+                                                 b, k, o, split, s)
+  if (kmask != nullptr) {
+    if (n == 2 && bm == 16) VG_SPF8_S8(2, 16, true);
+    if (n == 2 && bm == 64) VG_SPF8_S8(2, 64, true);
+    if (n == 1 && bm == 16) VG_SPF8_S8(1, 16, true);
+    if (n == 1 && bm == 64) VG_SPF8_S8(1, 64, true);
+    if (n == 4 && bm == 16) VG_SPF8_S8(4, 16, true);
+    if (n == 4 && bm == 64) VG_SPF8_S8(4, 64, true);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 2 && bm == 16) VG_SPF8_S8(2, 16, false);
+  if (n == 2 && bm == 64) VG_SPF8_S8(2, 64, false);
+  if (n == 1 && bm == 16) VG_SPF8_S8(1, 16, false);
+  if (n == 1 && bm == 64) VG_SPF8_S8(1, 64, false);
+  if (n == 4 && bm == 16) VG_SPF8_S8(4, 16, false);
+  if (n == 4 && bm == 64) VG_SPF8_S8(4, 64, false);
 #undef VG_SPF8_S8
   return static_cast<int>(cudaErrorInvalidValue);
 }

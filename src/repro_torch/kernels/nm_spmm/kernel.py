@@ -27,7 +27,9 @@ there too, walking the live steps of each block's span (bitwise
 ``nm_spmm_fp8`` on the same masked X), and ``nm_spmm_dual_fp8`` and ``nm_spmm_dual_fp8_requant`` in that header's
 dual form where :func:`fp8_dual_plan` picks it; ``nm_spmm_int8`` and
 ``nm_spmm_int8_requant`` at n in {1, 2} run that header's s8 form (m16n8k64
-s8 -> s32, int32 partials), as :func:`int8_plan` picks, and
+s8 -> s32, int32 partials), as :func:`int8_plan` picks, ``nm_spmm_masked_int8``
+there too, walking the live steps of each block's span (bitwise
+``nm_spmm_int8`` on the same masked X), and
 ``nm_spmm_dual_int8`` and ``nm_spmm_dual_int8_requant`` its s8 dual form
 where :func:`int8_dual_plan` picks it; every other kernel here expands
 each values tile into the dense tile in shared memory.
@@ -162,7 +164,13 @@ def int8_plan(b: int, k: int, o: int, n: int) -> dict:
     rows, where ``fp8_plan`` keeps e4m3 on the shared body); a development
     sweep on the same card found it faster at 512-4,000 rows too.  The
     int32 sums are exact in any order, so either body gives the plain
-    version's bits.  ``nm_spmm_masked_int8`` keeps the shared body."""
+    version's bits.  ``nm_spmm_masked_int8`` takes the same plan (its
+    sparse body in ``MASKED`` form, over its maps' row block): on the same
+    card (``tools/int8_body_sweep.py --kernels nmask``) it beat the first
+    body at every swept launch with a live step, qwen3-moe's expert w_out
+    (1536, 4096) 2:4 at B = 8 and ~0.4 live 6.91 against 13.37 µs, at 64
+    rows 10.84 against 19.47; a launch with no live step costs it 3.8-4.1 µs
+    at 16 rows against the first body's 2.2-3.2."""
     if n in (1, 2):
         return {"body": "sparse", "split": split_k(b, k, o, n)}
     return {"body": "shared", "split": 1}
@@ -382,14 +390,11 @@ def _nm_spmm_quantized(wrapper, storage, x_q, values, meta_packed, x_scale, w_sc
                           x_dtype=storage)
     _build.check_tiles(kernel, ke, o)
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
-    # the fp8 single, masked or not, and the int8 single run the body of
-    # their plans (sparse: K split over a cluster; the masked one walks each
-    # span's live steps); the masked int8 single keeps the shared body (no
-    # plan)
-    plan = ()
-    if storage == torch.float8_e4m3fn or maps is None:
-        p = (fp8_plan if storage == torch.float8_e4m3fn else int8_plan)(b, ke, o, n)
-        plan = (int(p["body"] == "sparse"), p["split"])
+    # both classes' singles, masked or not, run the body of their plans
+    # (sparse: K split over a cluster; the masked ones walk each span's
+    # live steps over their maps' row block)
+    p = (fp8_plan if storage == torch.float8_e4m3fn else int8_plan)(b, ke, o, n)
+    plan = (int(p["body"] == "sparse"), p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
@@ -482,9 +487,13 @@ def nm_spmm_masked_int8(x_q: torch.Tensor, values: torch.Tensor, meta_packed: to
                         block_b: Optional[int] = None,
                         requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`nm_spmm_int8` with the block skip of :func:`nm_spmm_masked`
-    (maps over the int8 rows; the CUDA body ignores ``kmap``).  Bitwise
-    :func:`nm_spmm_int8` on the same rows; with ``requant_scale`` the flush requantizes as
-    :func:`nm_spmm_int8_requant`'s."""
+    (maps over the int8 rows at ``block_b`` rows; the CUDA bodies ignore
+    ``kmap``).  The body and split are :func:`int8_plan`'s, as
+    :func:`nm_spmm_int8` takes them: at n in {1, 2} the s8 sparse stream at
+    :func:`split_k`'s split, each block walking the live steps of its span;
+    at n = 4 the shared body, split 1.  Either way bitwise
+    :func:`nm_spmm_int8` on the same masked rows; with ``requant_scale`` the
+    flush requantizes, bitwise :func:`nm_spmm_int8_requant`'s codes."""
     return _nm_spmm_quantized(nm_spmm_masked_int8, torch.int8, x_q, values, meta_packed,
                               x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
                               maps=(kmap, kmask),

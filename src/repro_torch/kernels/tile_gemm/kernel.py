@@ -12,9 +12,11 @@ with that flush (K0's remainder: the gelu MLP's ``w_in``).  K10:
 and ``tile_gemm_masked_fp8``, the single GEMMs with the activation-sparsity
 block skip (one source each, the same kernel bodies with ``MASKED``; the
 bf16 one below ``WGMMA_MIN_ROWS`` rows K1's stream in ``MASKED`` form, as
-:func:`masked_plan` picks, and the fp8 one ``tile_gemm_fp8``'s e4m3 stream
+:func:`masked_plan` picks, the fp8 one ``tile_gemm_fp8``'s e4m3 stream
 in ``MASKED`` form wherever :func:`fp8_plan` streams, as
-:func:`masked_fp8_plan` picks).
+:func:`masked_fp8_plan` picks, and the int8 one ``tile_gemm_int8``'s s8
+stream in ``MASKED`` form at its maps' row block, as
+:func:`masked_int8_plan` picks).
 
 ``tile_gemm`` (bf16) runs one of two bodies of its own, chosen by
 :func:`plan` from ``(B, K, O)``: at few rows (decode, the engine's prefill
@@ -64,7 +66,8 @@ from .ref import (tile_gemm_dual_quantized_ref, tile_gemm_dual_ref,
 
 __all__ = ["tile_gemm", "plan", "fp8_plan", "int8_plan", "dual_plan", "fp8_dual_plan",
            "int8_dual_plan", "cluster_split",
-           "stream_plan", "masked_plan", "masked_fp8_plan", "BODY_CODES", "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
+           "stream_plan", "masked_plan", "masked_fp8_plan", "masked_int8_plan", "BODY_CODES",
+           "WGMMA_MIN_ROWS", "WIDE_MIN_ROWS", "WIDE_MIN_COLS",
            "FP8_WGMMA_COLS", "DUAL_WGMMA_COLS", "DUAL_STREAM_MIN_SPLIT", "FP8_SHARED_TILES",
            "FP8_STREAM16_BLOCKS_PER_SM", "FP8_DUAL_WGMMA_COLS", "INT8_STREAM16_MAX_STEPS",
            "INT8_DENSE_DUAL_STREAM16_MAX_ROWS",
@@ -236,8 +239,9 @@ def int8_plan(b: int, k: int, o: int) -> dict:
     19.3); the 64-row tiles at two blocks an SM beat one (w_out at 256
     rows 49.3 against 82.0).  The int32 sums are exact in any order, so
     every body gives the plain version's bits and the requantized codes
-    need no plan of their own.  ``tile_gemm_masked_int8`` keeps the shared
-    body.  Returns ``{"body", "rows", "cols", "split"}``."""
+    need no plan of their own.  ``tile_gemm_masked_int8`` takes this plan
+    where its rows are the maps' row block (:func:`masked_int8_plan`).
+    Returns ``{"body", "rows", "cols", "split"}``."""
     rows16, rows64 = _build.BLOCK_ROWS
     steps, cols = k // _build.BLOCK_K, o // _build.BLOCK_O
     split = cluster_split(cols * -(-b // rows16), steps, FP8_STREAM16_BLOCKS_PER_SM)
@@ -282,6 +286,42 @@ def int8_dual_plan(b: int, k: int, o: int) -> dict:
                                        FP8_STREAM16_BLOCKS_PER_SM)}
     return {"body": "stream", "rows": rows64, "cols": _build.BLOCK_O,
             "split": cluster_split(cols * -(-b // rows64), steps)}
+
+
+def masked_int8_plan(b: int, k: int, o: int) -> dict:
+    """``tile_gemm_masked_int8``'s (and its requantizing form's) body, tile
+    and split: ``stream`` (the s8 form of ``csrc/nm_spmm_sp_fp8.cuh``'s
+    dense stream in ``MASKED`` form: each block walks the live steps of
+    its span) over ``block_rows(b)``-row tiles, the row block of the maps
+    dispatch builds, which the masked stream reads at ``blockIdx.y``.
+    That is :func:`int8_plan`'s plan wherever its rows are
+    ``block_rows(b)`` (up to 16 rows; from 65; at 17-64 where a 16-row
+    block would walk more than ``INT8_STREAM16_MAX_STEPS`` steps); else
+    (17-64 rows over few steps, qwen3-moe's expert w_out at 64 rows: 24
+    steps) the 64-row stream, the K loop split by :func:`cluster_split` at
+    ``BLOCKS_PER_SM`` blocks an SM, as :func:`int8_plan` splits its 64-row
+    tiles.  On an H100, 700 W (``tools/int8_body_sweep.py --kernels
+    tmask``, PERF.md §6) it beat gemm_int8.cu's first body at every swept
+    launch with a live step, 1-256 rows at the expert's w_out and
+    internlm2-1.8b's: the expert at B = 8 and ~0.4 live 6.27 against 10.91
+    µs, at 64 rows 10.53 against 18.98, internlm2-1.8b's at 64 rows 15.37
+    against 63.14; a launch with no live step costs it 3.7-4.1 µs at 16
+    rows and 6.7-8.4 at 64 against the first body's 2.1-3.2 / 4.2-7.6 (the
+    split's finish, PERF.md §7).  16-row tiles would be faster at 17-64
+    rows (8.99 against 10.53 at the expert's 64 rows), but the maps are
+    dispatch's, at ``block_rows(b)`` rows.  The int32 sums are exact in any
+    order, so every tile and split is bitwise ``tile_gemm_int8`` (and
+    ``tile_gemm_int8_requant``'s codes) on the same masked X.  Returns
+    ``{"body", "rows", "cols", "split"}``; ``rows`` is the maps' row
+    block."""
+    p = int8_plan(b, k, o)
+    rows = _build.block_rows(b)
+    if p["rows"] == rows:
+        return p
+    per_sm = FP8_STREAM16_BLOCKS_PER_SM if rows == _build.BLOCK_ROWS[0] else BLOCKS_PER_SM
+    return {"body": "stream", "rows": rows, "cols": _build.BLOCK_O,
+            "split": cluster_split((o // _build.BLOCK_O) * -(-b // rows), k // _build.BLOCK_K,
+                                   per_sm)}
 
 
 def masked_fp8_plan(b: int, k: int, o: int, requant: bool = False) -> dict:
@@ -582,18 +622,17 @@ def _tile_gemm_quantized(wrapper, storage, x_q, w_q, x_scale, w_scale, epilogue,
     extra = [t for t in (*kmask, x_scale, w_scale, bias32, requant_scale) if t is not None]
     _build.check_operands(kernel, x_q, w_q, *extra, block_b=bb, x_dtype=storage)
     _build.check_tiles(kernel, k, o)
-    # the singles run the body of their plans (the masked fp8 one at its
-    # maps' row block, which must be the plan's); the masked int8 single
-    # keeps the shared body (no plan)
-    plan_args = ()
+    # the singles run the body of their plans (the masked ones at their
+    # maps' row block, which must be the plan's)
     if storage == torch.float8_e4m3fn and maps is None:
         p = fp8_plan(b, k, o, requant=requant_scale is not None)
         bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["cols"], p["split"])
     elif maps is None:
         p = int8_plan(b, k, o)
         bb, plan_args = p["rows"], (BODY_CODES[p["body"]], p["split"])
-    elif storage == torch.float8_e4m3fn:
-        p = masked_fp8_plan(b, k, o, requant=requant_scale is not None)
+    else:
+        p = (masked_fp8_plan(b, k, o, requant=requant_scale is not None)
+             if storage == torch.float8_e4m3fn else masked_int8_plan(b, k, o))
         if bb != p["rows"]:
             raise ValueError(f"{kernel}: maps at {bb} rows, the plan's row block is "
                              f"{p['rows']}")
@@ -695,11 +734,15 @@ def tile_gemm_masked_int8(x_q: torch.Tensor, w_q: torch.Tensor, kmap: torch.Tens
                           block_b: Optional[int] = None,
                           requant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`tile_gemm_int8` with the activation-sparsity block skip of
-    :func:`tile_gemm_masked` (maps over the int8 rows; the CUDA body
-    ignores ``kmap``).  Bitwise :func:`tile_gemm_int8` on the same rows.
-    With ``requant_scale`` the flush requantizes as
-    :func:`tile_gemm_int8_requant`'s (int8 codes out), as the JAX
-    package's masked kernels take ``requant_scale``."""
+    :func:`tile_gemm_masked` (maps over the int8 rows at ``block_b`` rows;
+    the CUDA bodies ignore ``kmap``).  The body and split are
+    :func:`masked_int8_plan`'s, whose row block must be ``block_b`` (a
+    CUDA launch refuses another): ``tile_gemm_int8``'s s8 dense stream,
+    each block walking the live steps of its span, bitwise
+    :func:`tile_gemm_int8` on the same masked rows.  With
+    ``requant_scale`` the flush requantizes as
+    :func:`tile_gemm_int8_requant`'s (int8 codes out, bitwise its codes),
+    as the JAX package's masked kernels take ``requant_scale``."""
     return _tile_gemm_quantized(tile_gemm_masked_int8, torch.int8, x_q, w_q, x_scale, w_scale,
                                 epilogue, bias, out_dtype, block_b, maps=(kmap, kmask),
                                 requant_scale=requant_scale)

@@ -10,9 +10,9 @@ On the CPU: ``tile_gemm/kernel.py::int8_plan`` and
 ``nm_spmm_gather/kernel.py::int8_plan`` at internlm2-1.8b's, gemma3-1b's and
 qwen3-moe's shapes, their splits whole 64-steps covering K (K_c); the (bm,
 body, split) each wrapper hands its C entry (a recording stand-in, meta
-tensors) is its plan's, and the masked int8 singles keep the shared body's
-arguments; a block's shared memory fits the blocks an SM the plans assume;
-numpy emulations of the s8 dense stream (the A registers as the dense e4m3
+tensors) is its plan's (the masked dense int8 single's masked_int8_plan's;
+the masked gather keeps the shared body's arguments); a block's shared
+memory fits the blocks an SM the plans assume; numpy emulations of the s8 dense stream (the A registers as the dense e4m3
 stream reads them, exact int32 partials over each rank's span summed in
 rank order, gemm_int8.cu's flush and requantized store) and of the s8
 gathered stream (the select pass, +0 outside [0, 4), the ws-first flush)
@@ -127,8 +127,8 @@ def test_int8_plans_at_the_measured_shapes():
 def test_tile_gemm_int8_launches_its_plan(rec, b):
     """vg_tile_gemm_int8 gets (.., out_kind, bm, body, split, stream) =
     int8_plan's for bf16, fp32, the raw accumulator and the requantized
-    codes; the masked int8 single keeps the shared body's (.., out_kind,
-    bm, stream)."""
+    codes; vg_tile_gemm_masked_int8 gets masked_int8_plan's (.., bm, body,
+    split, stream), bm the maps' row block."""
     for k, o in ((2048, 2048), (8192, 2048), (1152, 6912)):
         xq, w = _meta(b, k), _meta(k, o)
         xs, ws, rq = (torch.empty(s, device="meta") for s in ((b, 1), (1, o), ()))
@@ -150,7 +150,10 @@ def test_tile_gemm_int8_launches_its_plan(rec, b):
         rec.calls.clear()
         tk.tile_gemm_masked_int8(xq, w, maps, maps, xs, ws)
         (name, args), = rec.calls
-        assert name == "vg_tile_gemm_masked_int8" and args[-2] == _build.block_rows(b)
+        p = tk.masked_int8_plan(b, k, o)
+        assert p["rows"] == _build.block_rows(b)
+        assert name == "vg_tile_gemm_masked_int8"
+        assert args[-4:-1] == (p["rows"], BODY_CODES[p["body"]], p["split"])
 
 
 @pytest.mark.parametrize("n", [1, 2, 4])

@@ -166,8 +166,8 @@ def _meta(*shape, dtype=torch.int8):
 def test_nm_spmm_int8_launches_its_plan(rec, b, n):
     """vg_nm_spmm_int8 gets (.., out_kind, bm, body, split, stream): bm =
     block_rows(b), body and split int8_plan's, for bf16, fp32, the raw
-    accumulator and the requantized codes; the masked int8 single keeps the
-    shared body's (.., out_kind, bm, stream)."""
+    accumulator and the requantized codes; vg_nm_spmm_masked_int8 the same
+    (.., bm, body, split, stream), its maps' row block being bm."""
     for k, o in ((2048, 2048), (8192, 2048), (1152, 6912)):
         kc = k * n // 4
         xq, values = _meta(b, k), _meta(kc, o)
@@ -191,7 +191,7 @@ def test_nm_spmm_int8_launches_its_plan(rec, b, n):
         rec.calls.clear()
         nk.nm_spmm_masked_int8(xq, values, meta, maps, maps, n, xs, ws)
         (name, args), = rec.calls
-        assert name == "vg_nm_spmm_masked_int8" and args[-2] == _build.block_rows(b)
+        assert name == "vg_nm_spmm_masked_int8" and args[-4:-1] == want
 
 
 @pytest.mark.parametrize("b", [1, 8, 17, 64, 100, 256])

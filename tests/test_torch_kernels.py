@@ -809,9 +809,11 @@ def _own_body(layout, qdtype, b, k, o, n, requant=False):
     """Whether the unmasked kernel of a masked case runs a body of its own
     (summing in another order than the shared body the masked one keeps).
     The bf16 nm_spmm_masked, nm_spmm_masked_fp8, below 256 rows the bf16
-    tile_gemm_masked, tile_gemm_masked_fp8 wherever tile_gemm_fp8 streams and,
-    at 2:4 below 256 rows, the bf16 nm_spmm_gather_bk_masked run their twins'
-    streams at their twins' plans: never there; K1 from 256 rows (its wgmma
+    tile_gemm_masked, tile_gemm_masked_fp8 wherever tile_gemm_fp8 streams,
+    at 2:4 below 256 rows the bf16 nm_spmm_gather_bk_masked, and the int8
+    nm_spmm_masked_int8 (n in {1, 2}, on nm_spmm_int8's s8 stream) and
+    tile_gemm_masked_int8 (on tile_gemm_int8's s8 dense stream at its maps'
+    row block) run their twins' streams at their twins' plans: never there; K1 from 256 rows (its wgmma
     body), tile_gemm_fp8 there too, and the bf16 K8 where its plan's body is
     not masked_plan's (wgmma from 256 rows, its 1:4 stream up to 16 rows):
     yes."""

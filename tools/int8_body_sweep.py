@@ -10,10 +10,16 @@ of internlm2-1.8b on a (1, 2) mesh (wo, w_out), n in {2, 1}, 32-1,024 rows;
 the dense gate-up dual ``tile_gemm_dual_int8`` (``vg_tile_gemm_dual_int8``)
 and the gathered gate-up dual K9 int8 ``nm_spmm_gather_dual_bk_int8``
 (``vg_nm_spmm_gather_dual_bk_int8``, n in {2, 1}) at internlm2-1.8b's and
-qwen3-moe's expert gate-up, 1-256 rows.
+qwen3-moe's expert gate-up, 1-256 rows; and the masked int8 singles
+``tile_gemm_masked_int8`` (``vg_tile_gemm_masked_int8``) and
+``nm_spmm_masked_int8`` (``vg_nm_spmm_masked_int8``, n in {2, 1}) at
+qwen3-moe's expert w_out and internlm2-1.8b's w_out, 1-256 rows, with 0,
+~40% and all of the 64-deep K steps of X live (whole steps zeroed, the maps
+made at each body's row tile).
 
     python3 tools/int8_body_sweep.py                      # one JSON line a shape
     python3 tools/int8_body_sweep.py --kernels tdual,gdual # some of them
+    python3 tools/int8_body_sweep.py --kernels tmask,nmask # the masked singles
 
 ``--kernels`` keeps a call on the card to the kernels whose plans are being
 set (the whole grid takes minutes of chip time, and each kernel's cases
@@ -32,7 +38,7 @@ bodies the plans (``tile_gemm/kernel.py::int8_plan``,
 ``nm_spmm_gather/kernel.py::int8_plan``, ``nm_spmm/kernel.py::
 int8_dual_plan``, ``nm_spmm_gather/kernel.py::kmajor_int8_plan``,
 ``tile_gemm/kernel.py::int8_dual_plan``, ``nm_spmm_gather/kernel.py::
-int8_dual_plan``) pick.
+int8_dual_plan``, ``tile_gemm/kernel.py::masked_int8_plan``) pick.
 It needs a card and exits non-zero without one.
 """
 
@@ -53,6 +59,8 @@ GATHER_ROWS = (8, 17, 33, 48, 64, 65, 128, 256, 1024, 4000)
 DUAL_ROWS = (1, 8, 16, 17, 24, 32, 33, 48, 64, 65, 96, 128, 192, 256)
 K11_ROWS = (32, 64, 128, 256, 512, 1024)   # multiples of 16 (KMAJOR_B)
 K11_MESH = 2
+MASK_ROWS = (1, 8, 16, 17, 33, 64, 65, 128, 256)
+LIVE_SHARES = (0.0, 0.4, 1.0)
 
 
 def bodies(b: int, kc: int, o: int, rows64: bool = True) -> dict:
@@ -70,23 +78,34 @@ def bodies(b: int, kc: int, o: int, rows64: bool = True) -> dict:
     return out
 
 
-def sweep_case(kernel, b, k, o, n, gen, lib, plan):
-    """Time each body of one shape; fail unless all give the same bits."""
+def sweep_case(kernel, b, k, o, n, gen, lib, plan, share=None):
+    """Time each body of one shape (the masked singles: with ``share`` of
+    X's K steps live); fail unless all give the same bits."""
     from repro_torch.core import nm
     from repro_torch.core.quantize import quantize_linear, quantize_rows
     from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
     from repro_torch.kernels import _build
+    from repro_torch.kernels.actsparse import block_maps
 
     dev = "cuda"
     x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+    masked = share is not None
+    if masked:   # whole 64-deep steps zeroed
+        steps = k // _build.BLOCK_K
+        live = torch.zeros(steps, dtype=torch.bool, device=dev)
+        live[torch.randperm(steps, generator=gen, device=dev)[:round(share * steps)]] = True
+        x = x * live.repeat_interleave(_build.BLOCK_K).to(torch.bfloat16)
     xq, xs = quantize_rows(x, torch.int8)
+    # the masked stream reads kmask at its row tile: maps at each body's bm
+    kmasks = {bm: block_maps(xq, bm, _build.BLOCK_K)[1] for bm in _build.BLOCK_ROWS} \
+        if masked else {}
     kc = k * n // 4
     if kernel == "nm_spmm_gather_int8":     # K-major: x_t (K_eff, B), xs (1, B)
         xq, xs = xq.t().contiguous(), xs.reshape(1, -1)
 
     def leaf():
         w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
-        if kernel == "tile_gemm_int8":
+        if kernel in ("tile_gemm_int8", "tile_gemm_masked_int8"):
             lf = quantize_linear({"w": w}, torch.int8)
             return (lf["w"], lf["scale"].reshape(1, -1))
         if kernel in ("tile_gemm_dual_int8", "nm_spmm_gather_dual_bk_int8"):
@@ -101,6 +120,11 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
                     lfs += [lf["values"], lf["gather_idx"], lf["scale"].reshape(1, -1)]
                 w = torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
             return tuple(lfs)
+        if kernel == "nm_spmm_masked_int8":
+            c = nm.compress_nm(nm.prune_nm(w, n, 4)[0], n, 4)
+            lf = quantize_linear({"values": c.values, "meta_packed": nm.pack_meta(c.meta)},
+                                 torch.int8)
+            return (lf["values"], lf["meta_packed"], lf["scale"].reshape(1, -1))
         if kernel == "nm_spmm_dual_int8":
             lfs = []
             for _ in range(2):
@@ -114,7 +138,8 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
                             quantize=torch.int8)
         return (lf["values"], lf["gather_idx"], lf["scale"].reshape(1, -1))
 
-    nbytes = {"tile_gemm_int8": kc * o + 4 * o,
+    nbytes = {"tile_gemm_int8": kc * o + 4 * o, "tile_gemm_masked_int8": kc * o + 4 * o,
+              "nm_spmm_masked_int8": kc * o * 5 // 4 + 4 * o,
               "tile_gemm_dual_int8": 2 * (kc * o + 4 * o),
               "nm_spmm_gather_dual_bk_int8": 2 * (kc * o + 4 * o + 4 * kc),
               "nm_spmm_dual_int8": 2 * (kc * o * 5 // 4 + 4 * o)}.get(kernel,
@@ -131,6 +156,18 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
                 rc = lib.vg_tile_gemm_int8(xq.data_ptr(), w.data_ptr(), xs.data_ptr(),
                                            ws.data_ptr(), None, None, y.data_ptr(), b, k, o,
                                            0, 0, bm, body, split, stream)
+            elif kernel == "tile_gemm_masked_int8":
+                w, ws = lf
+                rc = lib.vg_tile_gemm_masked_int8(xq.data_ptr(), w.data_ptr(),
+                                                  kmasks[bm].data_ptr(), xs.data_ptr(),
+                                                  ws.data_ptr(), None, None, y.data_ptr(), b, k,
+                                                  o, 0, 0, bm, body, split, stream)
+            elif kernel == "nm_spmm_masked_int8":
+                v, m, ws = lf
+                rc = lib.vg_nm_spmm_masked_int8(xq.data_ptr(), v.data_ptr(), m.data_ptr(),
+                                                kmasks[bm].data_ptr(), xs.data_ptr(),
+                                                ws.data_ptr(), None, None, y.data_ptr(), b, k, o,
+                                                n, 0, 0, bm, body, split, stream)
             elif kernel == "nm_spmm_dual_int8":
                 vg, mg, sg, vu, mu, su = lf
                 rc = lib.vg_nm_spmm_dual_int8(xq.data_ptr(), vg.data_ptr(), mg.data_ptr(),
@@ -164,8 +201,9 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
         return call
 
     row = {"kernel": kernel, "B": b, "K": k, "O": o, "n": n, "plan": plan, "ms": {},
-           "bodies": bodies(b, k if kernel == "nm_spmm_dual_int8" else kc, o,
-                            rows64=kernel != "nm_spmm_gather_dual_bk_int8")}
+           **({"live_share": share} if masked else {}),
+           "bodies": bodies(b, k if kernel in ("nm_spmm_dual_int8", "nm_spmm_masked_int8")
+                            else kc, o, rows64=kernel != "nm_spmm_gather_dual_bk_int8")}
     first = None
     for name, (bm, body, split) in row["bodies"].items():
         call = launch(bm, body, split)
@@ -186,22 +224,25 @@ def sweep_case(kernel, b, k, o, n, gen, lib, plan):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="tile,gather,dual,k11,tdual,gdual",
+    ap.add_argument("--kernels", default="tile,gather,dual,k11,tdual,gdual,tmask,nmask",
                     help="comma-separated: tile (tile_gemm_int8), gather (K8 int8), dual "
                          "(nm_spmm_dual_int8), k11 (nm_spmm_gather_int8), tdual "
                          "(tile_gemm_dual_int8), gdual (K9 int8, "
-                         "nm_spmm_gather_dual_bk_int8)")
+                         "nm_spmm_gather_dual_bk_int8), tmask (tile_gemm_masked_int8), "
+                         "nmask (nm_spmm_masked_int8)")
     which = set(ap.parse_args().kernels.split(","))
     if not torch.cuda.is_available():
         chip_smoke.fail("no card: the sweep times CUDA kernels")
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.nm_spmm.kernel import int8_dual_plan
+    from repro_torch.kernels.nm_spmm.kernel import int8_plan as nm_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import int8_dual_plan as gdual_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_int8_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_dual_plan as tdual_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_plan
+    from repro_torch.kernels.tile_gemm.kernel import masked_int8_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.log(f"int8 body sweep on {chip_smoke.card()}")
@@ -238,6 +279,21 @@ def main():
                 for b in DUAL_ROWS:
                     sweep_case("nm_spmm_gather_dual_bk_int8", b, k, o, n, gen, lib,
                                gdual_plan(b, k, o, n))
+    w_outs = ((moe.d_ff, moe.d_model), (il.d_ff, il.d_model))
+    if "tmask" in which:
+        for k, o in w_outs:
+            for b in MASK_ROWS:
+                for share in LIVE_SHARES:
+                    sweep_case("tile_gemm_masked_int8", b, k, o, 4, gen, lib,
+                               masked_int8_plan(b, k, o), share)
+    if "nmask" in which:
+        for k, o in w_outs:
+            for n in (2, 1):
+                for b in MASK_ROWS:
+                    for share in LIVE_SHARES:
+                        sweep_case("nm_spmm_masked_int8", b, k, o, n, gen, lib,
+                                   {**nm_plan(b, k, o, n), "rows": _build.block_rows(b)},
+                                   share)
     if "k11" in which:
         for k, o in ((il.attn_dim // K11_MESH, il.d_model), (il.d_ff // K11_MESH, il.d_model)):
             for n in (2, 1):
