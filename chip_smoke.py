@@ -113,17 +113,19 @@ Phases, each of which fails the run on a miss:
              block's K steps live: BITWISE their unmasked kernels on the
              same masked X (where the unmasked kernel runs a body of its
              own and sums in another order -- K1's and tile_gemm_fp8's
-             wgmma bodies from 256 rows, K8 bf16 and e4m3 where their plans
-             leave the shared body -- BITWISE themselves with every tile
-             live, within 1e-2 of the unmasked kernel; the bf16
+             wgmma bodies from 256 rows, K8 bf16 and e4m3 where their
+             bodies are not the masked plans' -- BITWISE themselves with
+             every tile live, within 1e-2 of the unmasked kernel; the bf16
              nm_spmm_masked, nm_spmm_masked_fp8, the bf16
              tile_gemm_masked below 256 rows, tile_gemm_masked_fp8
-             wherever tile_gemm_fp8 streams, nm_spmm_masked_int8 and
-             tile_gemm_masked_int8 run their twins' streams at their
-             twins' splits, bitwise the twin, and are also timed in
-             turns with their first bodies, ``earlier_ms``; the two int8
-             ones also bitwise their first bodies, in bf16, fp32, the
-             raw int32 and the codes, each launch's plan printed),
+             wherever tile_gemm_fp8 streams, nm_spmm_masked_int8,
+             tile_gemm_masked_int8, nm_spmm_gather_bk_masked_int8 and
+             nm_spmm_gather_bk_masked_fp8 wherever its plan streams run
+             their twins' streams at their twins' splits, bitwise the
+             twin; every one is timed in turns with its first body,
+             ``earlier_ms``; the three int8 ones also bitwise their first
+             bodies, in bf16, fp32, the raw int32 and the codes, each
+             quantized launch's plan printed),
              within the class's limit of
              their plain versions (int8 bitwise); timed beside the unmasked kernel, the
              plain version and the library call on the same masked X, the
@@ -362,8 +364,11 @@ SOURCES = {"float": "src/repro_torch/kernels/csrc/gemm.cu",
            # fp8 compressed, dense and gathered DUAL streams); each
            # gemm_fp8.cu's / gemm_int8.cu's shared body where its plan keeps it;
            # the masked int8 singles' (the s8 sparse and dense streams, MASKED)
+           # and the 8-bit masked gathers' (K8 int8's s8 and K8 fp8's e4m3
+           # gathered streams, MASKED)
            **{name: "src/repro_torch/kernels/csrc/nm_spmm_sp_fp8.cuh"
               for name in ("tile_gemm_masked_fp8", "nm_spmm_masked_int8",
+                           "nm_spmm_gather_bk_masked_int8", "nm_spmm_gather_bk_masked_fp8",
                            "tile_gemm_masked_int8", "nm_spmm_int8", "nm_spmm_int8_requant",
                            "tile_gemm_int8", "tile_gemm_int8_requant",
                            "nm_spmm_gather_bk_int8", "nm_spmm_gather_bk_int8_requant",
@@ -551,7 +556,8 @@ def earlier_kernels():
     (bf16), nm_spmm_gather_dual_bk_fp8 (and _requant), tile_gemm_masked_fp8,
     nm_spmm_int8, tile_gemm_int8, nm_spmm_gather_bk_int8, nm_spmm_dual_int8,
     tile_gemm_dual_int8, nm_spmm_gather_dual_bk_int8 (each and _requant),
-    nm_spmm_gather_int8, nm_spmm_masked_int8 and tile_gemm_masked_int8
+    nm_spmm_gather_int8, nm_spmm_masked_int8, tile_gemm_masked_int8,
+    nm_spmm_gather_bk_masked_int8 and nm_spmm_gather_bk_masked_fp8
     wrappers launch the port's
     first bodies (``flash_attention_wmma.cu``;
     the shared bodies of gemm.cu, gemm_int8.cu and gemm_fp8.cu at every n
@@ -568,7 +574,8 @@ def earlier_kernels():
     / ``vg_nm_spmm_gather_bk_int8`` / ``vg_nm_spmm_dual_int8`` /
     ``vg_nm_spmm_gather_int8`` / ``vg_tile_gemm_dual_int8`` /
     ``vg_nm_spmm_gather_dual_bk_int8`` / ``vg_nm_spmm_masked_int8`` /
-    ``vg_tile_gemm_masked_int8`` at body 0, split 1, at the row block the
+    ``vg_tile_gemm_masked_int8`` / ``vg_nm_spmm_gather_bk_masked_int8`` /
+    ``vg_nm_spmm_gather_bk_masked_fp8`` at body 0, split 1, at the row block the
     first form took: 16 up to 16 rows, else 64; the masked ones at their
     maps' row block) instead of the current
     ones: the ``earlier_ms`` yardstick, through the same wrappers and
@@ -658,6 +665,13 @@ def earlier_kernels():
     def tile_gemm_masked_int8_tiled(*args):
         return int8.vg_tile_gemm_masked_int8(*args[:-3], 0, 1, args[-1])
 
+    # the 8-bit masked gathers likewise, at their maps' row block (the plans')
+    def nm_spmm_gather_bk_masked_int8_tiled(*args):
+        return int8.vg_nm_spmm_gather_bk_masked_int8(*args[:-3], 0, 1, args[-1])
+
+    def nm_spmm_gather_bk_masked_fp8_tiled(*args):
+        return fp8.vg_nm_spmm_gather_bk_masked_fp8(*args[:-3], 0, 1, args[-1])
+
     # tile_gemm_int8 and K8 int8 likewise, at the first form's row block (K8
     # int8's plan runs 16-row tiles past 16 rows; b: args[7] / args[8])
     def tile_gemm_int8_tiled(*args):   # (.., out_kind, bm, body, split, stream)
@@ -710,7 +724,9 @@ def earlier_kernels():
                                               vg_nm_spmm_masked_fp8=nm_spmm_masked_fp8_tiled,
                                               vg_tile_gemm_masked_fp8=tile_gemm_masked_fp8_tiled,
                                               vg_nm_spmm_gather_dual_bk_fp8=(
-                                                  nm_spmm_gather_dual_bk_fp8_tiled))
+                                                  nm_spmm_gather_dual_bk_fp8_tiled),
+                                              vg_nm_spmm_gather_bk_masked_fp8=(
+                                                  nm_spmm_gather_bk_masked_fp8_tiled))
     _build._libs["gemm_int8.cu"] = _EarlierLib(
         int8, vg_nm_spmm_int8=nm_spmm_int8_tiled, vg_tile_gemm_int8=tile_gemm_int8_tiled,
         vg_nm_spmm_gather_bk_int8=nm_spmm_gather_bk_int8_tiled,
@@ -719,7 +735,8 @@ def earlier_kernels():
         vg_tile_gemm_dual_int8=tile_gemm_dual_int8_tiled,
         vg_nm_spmm_gather_dual_bk_int8=nm_spmm_gather_dual_bk_int8_tiled,
         vg_nm_spmm_masked_int8=nm_spmm_masked_int8_tiled,
-        vg_tile_gemm_masked_int8=tile_gemm_masked_int8_tiled)
+        vg_tile_gemm_masked_int8=tile_gemm_masked_int8_tiled,
+        vg_nm_spmm_gather_bk_masked_int8=nm_spmm_gather_bk_masked_int8_tiled)
     _build._libs["flash_attention.cu"] = _EarlierLib(
         flash, vg_flash_attention=wmma.vg_flash_attention_wmma)
     try:
@@ -1951,14 +1968,16 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
     unmasked one) and within the class's limit of the plain version (int8
     bitwise).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
     tile_gemm_masked, tile_gemm_masked_fp8, the bf16
-    nm_spmm_gather_bk_masked, nm_spmm_masked_int8 and tile_gemm_masked_int8
-    run their twins' streams at their twins' plans (K2's, nm_spmm_fp8's,
-    K1's below 256 rows, tile_gemm_fp8's where it streams, K8's where it
-    streams, nm_spmm_int8's, tile_gemm_int8's at the maps' row block) and
-    are held bitwise to the twin, and are timed in turns with their first
-    (shared) bodies (``earlier_ms``); the two int8 ones are held bitwise to
-    their first bodies too (bf16, fp32, the raw int32, and at ~40% live the
-    codes), each row printing its plan.  Timed beside the
+    nm_spmm_gather_bk_masked, nm_spmm_masked_int8, tile_gemm_masked_int8,
+    nm_spmm_gather_bk_masked_int8 and nm_spmm_gather_bk_masked_fp8 run their
+    twins' streams at their twins' splits (K2's, nm_spmm_fp8's, K1's below
+    256 rows, tile_gemm_fp8's where it streams, K8's where it streams,
+    nm_spmm_int8's, tile_gemm_int8's, K8 int8's at the maps' row block, K8
+    fp8's where masked_fp8_plan streams) and are held bitwise to the twin;
+    every one is timed in turns with its first (shared) body
+    (``earlier_ms``); the three int8 ones are held bitwise to their first
+    bodies too (bf16, fp32, the raw int32, and at ~40% live the codes),
+    each quantized row printing its plan.  Timed beside the
     unmasked kernel, the plain version and the class's library call on the
     same masked X (torch.matmul / torch._int_mm / torch._scaled_mm on the
     dense or decompressed weight, the gather's on the pre-gathered X);
@@ -2035,18 +2054,19 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
         return scaled_mm, (pad_rows(xl, rows16), lf["lib"], pad_rows(xs, rows16, 1.0), lf["ws"])
 
     def held_to_first_body(x, xs, lf, maps, bb):
-        """A masked int8 single on its s8 stream: bf16, fp32 and the raw
+        """A masked int8 kernel on its s8 stream: bf16, fp32 and the raw
         int32, each bitwise its first body (``earlier_kernels``), its
         unmasked twin and its plain version on the same masked rows."""
         nn = () if layout == "dense" else (n,)
         w_ops = ops_of(layout, lf)
+        blocks = {"block_b": bb, **({} if layout == "gather" else {"block_k": 64})}
         for scales, kw in (((xs, lf["ws"]), {"out_dtype": bf16}),
                            ((xs, lf["ws"]), {"out_dtype": torch.float32}), ((None, None), {})):
             got = masked_fn(x, *w_ops, *maps, *nn, *scales, **kw)
             with earlier_kernels():
                 first = masked_fn(x, *w_ops, *maps, *nn, *scales, **kw)
             twin = plain_fn(x, *w_ops, *scales, *nn, **kw)
-            want = ref_fn(x, *w_ops, *maps, *nn, *scales, block_b=bb, block_k=64, **kw)
+            want = ref_fn(x, *w_ops, *maps, *nn, *scales, **blocks, **kw)
             torch.cuda.synchronize()
             for what, other in (("first body", first), ("unmasked twin", twin),
                                 ("plain version", want)):
@@ -2065,19 +2085,23 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
             masked one: K1 and tile_gemm_fp8 where they run their wgmma
             bodies (from 256 rows), the bf16 K8 where its plan's body is not
             masked_plan's (its wgmma body from 256 rows, its 1:4 stream up
-            to 16 rows), and K8 fp8 where its plan leaves the shared body.
-            The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the bf16
-            tile_gemm_masked below 256 rows, tile_gemm_masked_fp8 wherever
-            tile_gemm_fp8 streams, the bf16 nm_spmm_gather_bk_masked at 2:4
-            below 256 rows, nm_spmm_masked_int8 (n in {1, 2}) and
-            tile_gemm_masked_int8 run their twins' streams at their twins'
-            plans: bitwise the twin."""
+            to 16 rows), and K8 fp8 where its plan streams and
+            masked_fp8_plan keeps the shared body (the expert's w_out at
+            17-64 rows).  The bf16 nm_spmm_masked, nm_spmm_masked_fp8, the
+            bf16 tile_gemm_masked below 256 rows, tile_gemm_masked_fp8
+            wherever tile_gemm_fp8 streams, the bf16 nm_spmm_gather_bk_masked
+            at 2:4 below 256 rows, nm_spmm_masked_int8 (n in {1, 2}),
+            tile_gemm_masked_int8, nm_spmm_gather_bk_masked_int8 (n in {1,
+            2}) and nm_spmm_gather_bk_masked_fp8 wherever masked_fp8_plan
+            streams run their twins' streams at their twins' splits: bitwise
+            the twin."""
             if layout == "dense" and qdtype is None:
                 return tk.plan(b, k, o)["body"] == "wgmma"
             if layout == "gather" and qdtype is None:
                 return gk.plan(b, k, o, n)["body"] != gk.masked_plan(b, k, o, n)["body"]
             if layout == "gather" and fp8:
-                return gk.fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
+                return (gk.fp8_plan(b, k, o, n, requant=requant)["body"]
+                        != gk.masked_fp8_plan(b, k, o, n, requant=requant)["body"])
             if layout == "dense" and fp8:
                 return (tk.fp8_plan(b, k, o, requant=requant)["body"]
                         != tk.masked_fp8_plan(b, k, o, requant=requant)["body"])
@@ -2131,14 +2155,15 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                     extra = {}
                     masked_call = (lambda x_, xs_, lf_, maps=maps: call(
                         masked_fn, layout, n, x_, xs_, lf_, maps))
-                    if layout != "gather" or qdtype is None:
-                        # the redesigned stream, in turns with its first (shared) body
-                        t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
-                    else:
-                        t_m = time_ms(masked_call, ops)
-                    if int8 and layout != "gather":
-                        extra["plan"] = (tk.masked_int8_plan(b, k, o) if layout == "dense"
-                                         else {**nk.int8_plan(b, k, o, n), "rows": bb})
+                    # the redesigned stream, in turns with its first (shared) body
+                    t_m, extra["earlier_ms"] = in_turns(masked_call, ops)
+                    if layout == "gather" and qdtype is not None:
+                        extra["plan"] = (gk.masked_int8_plan(b, k, o, n) if int8
+                                         else gk.masked_fp8_plan(b, k, o, n))
+                    if int8:
+                        if layout != "gather":
+                            extra["plan"] = (tk.masked_int8_plan(b, k, o) if layout == "dense"
+                                             else {**nk.int8_plan(b, k, o, n), "rows": bb})
                         held_to_first_body(x, xs, lfs[0], maps, bb)
                     if unmasked_ms is None:   # neither depends on the live share
                         unmasked_ms = time_ms(lambda x_, xs_, lf_: call(
@@ -2175,7 +2200,7 @@ def masked_kernel_phase(gen, card_line, rows, qdtype=None):
                                          torch.ones_like(maps[1]), *nn, xs, lfs[0]["ws"],
                                          epilogue=gelu, requant_scale=rq) if own_codes \
                             else unmasked
-                        if int8 and layout != "gather":   # the first body's codes too
+                        if int8:   # the first body's codes too
                             with earlier_kernels():
                                 first = masked_fn(x, *ops_of(layout, lfs[0]), *maps, *nn, xs,
                                                   lfs[0]["ws"], epilogue=gelu, requant_scale=rq)
@@ -2448,8 +2473,10 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     gather model runs them, the int8 gate-up duals nm_spmm_dual_int8,
     tile_gemm_dual_int8 and K9 int8 nm_spmm_gather_dual_bk_int8 (and their
     _requant forms) on an int8 compressed, dense or gather swiglu model (an
-    MoE's expert gate-up), nm_spmm_masked_int8 and tile_gemm_masked_int8 on
-    the spgemm path's int8 2:4 and dense w_out, and K11 int8
+    MoE's expert gate-up), nm_spmm_masked_int8, tile_gemm_masked_int8 and
+    nm_spmm_gather_bk_masked_int8 on the spgemm path's int8 2:4, dense and
+    gather w_out, nm_spmm_gather_bk_masked_fp8 on its fp8 gather w_out, and
+    K11 int8
     (nm_spmm_gather_int8) on a sharded int8 gather model's two row-parallel
     sites, at each of ``rows``."""
     from repro_torch.kernels import _build
@@ -2461,6 +2488,8 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     from repro_torch.kernels.nm_spmm_gather.kernel import (
         int8_dual_plan as gather_int8_dual_plan)
     from repro_torch.kernels.nm_spmm_gather.kernel import kmajor_fp8_plan, kmajor_int8_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import masked_fp8_plan as gather_masked_fp8
+    from repro_torch.kernels.nm_spmm_gather.kernel import masked_int8_plan as gather_masked_int8
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.tile_gemm.kernel import (fp8_dual_plan, masked_fp8_plan,
                                                       masked_int8_plan, masked_plan)
@@ -2479,10 +2508,14 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     if layout == "gather" and qdtype == "fp8" and mesh == 1 and cfg.act == "swiglu":
         n = sparsity[0]
         # one plan for both forms (bf16 / fp32 and the requantized codes)
-        return {"nm_spmm_gather_dual_bk_fp8": {
+        out = {"nm_spmm_gather_dual_bk_fp8": {
             f"B={b} K={cfg.d_model} O={cfg.d_ff}": gather_fp8_dual_plan(b, cfg.d_model,
                                                                          cfg.d_ff, n)
             for b in rows}}
+        if spgemm:
+            out["nm_spmm_gather_bk_masked_fp8"] = {
+                f"B={b} K={k} O={o}": gather_masked_fp8(b, k, o, n) for b in rows[:2]}
+        return out
     if spgemm and layout == "dense" and qdtype == "fp8":
         return {"tile_gemm_masked_fp8": {f"B={b} K={k} O={o}": masked_fp8_plan(b, k, o)
                                          for b in rows[:2]}}
@@ -2520,6 +2553,10 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
         if spgemm and layout == "dense":
             out["tile_gemm_masked_int8"] = {f"B={b} K={k} O={o}": masked_int8_plan(b, k, o)
                                             for b in rows[:2]}
+        if spgemm and layout == "gather":
+            out["nm_spmm_gather_bk_masked_int8"] = {
+                f"B={b} K={k} O={o}": gather_masked_int8(b, k, o, sparsity[0])
+                for b in rows[:2]}
         if spgemm and layout == "compressed":
             out["nm_spmm_masked_int8"] = {
                 f"B={b} K={k} O={o}": {**int8_plan(b, k, o, sparsity[0]),
@@ -3903,8 +3940,10 @@ def main():
               "tile_gemm_masked": (SOURCES["nm_spmm"], SOURCES["float"]),
               "nm_spmm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               "tile_gemm_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
+              "nm_spmm_gather_bk_masked_fp8": (SOURCES["nm_spmm_fp8"], SOURCES["fp8"]),
               **{name: (SOURCES["nm_spmm_fp8"], SOURCES["int8"])
                  for name in ("nm_spmm_masked_int8", "tile_gemm_masked_int8",
+                              "nm_spmm_gather_bk_masked_int8",
                               "nm_spmm_int8", "nm_spmm_int8_requant", "tile_gemm_int8",
                               "tile_gemm_int8_requant", "nm_spmm_gather_bk_int8",
                               "nm_spmm_gather_bk_int8_requant", "nm_spmm_dual_int8",

@@ -73,7 +73,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_gather_dual_bk_int8": (_P,) * 10 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_masked_int8": (_P,) * 8 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_masked_int8": (_P,) * 9 + (_I,) * 9 + (_P,),
-        "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_masked_int8": (_P,) * 9 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_gather_int8": (_P,) * 6 + (_I,) * 8 + (_P,),
     },
     "gemm_fp8.cu": {
@@ -90,7 +90,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "vg_nm_spmm_gather_dual_bk_fp8": (_P,) * 10 + (_I,) * 8 + (_P,),
         "vg_tile_gemm_masked_fp8": (_P,) * 8 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_masked_fp8": (_P,) * 9 + (_I,) * 9 + (_P,),
-        "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "vg_nm_spmm_gather_bk_masked_fp8": (_P,) * 9 + (_I,) * 9 + (_P,),
         "vg_nm_spmm_gather_fp8": (_P,) * 6 + (_I,) * 8 + (_P,),
         "vg_nm_spmm_gather_fp8_tiled": (_P,) * 6 + (_I,) * 6 + (_P,),
     },

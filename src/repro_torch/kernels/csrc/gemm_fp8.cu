@@ -57,13 +57,17 @@
 // fp8_plan gives nm_spmm_fp8 that stream, and the shared body where it
 // keeps the shared one; tile_gemm_masked_fp8 the dense stream in MASKED
 // form wherever tile_gemm/kernel.py::fp8_plan gives tile_gemm_fp8 that
-// stream (tile_gemm/kernel.py::masked_fp8_plan), else the shared body.  vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled,
-// vg_nm_spmm_dual_fp8_tiled, vg_nm_spmm_gather_bk_fp8_tiled,
-// vg_tile_gemm_dual_fp8_tiled and vg_nm_spmm_gather_fp8_tiled keep the
-// shared body for them, the forms the port ran first, as yardsticks
-// (vg_nm_spmm_masked_fp8, vg_tile_gemm_masked_fp8 and
-// vg_nm_spmm_gather_dual_bk_fp8 reach theirs at body 0, split 1); the other
-// masked kernel stays on it.
+// stream (tile_gemm/kernel.py::masked_fp8_plan), else the shared body; and
+// nm_spmm_gather_bk_masked_fp8 at n in {1, 2} K8 fp8's gathered stream in
+// MASKED form wherever nm_spmm_gather/kernel.py::masked_fp8_plan picks it
+// (K8 fp8's tile and split up to 16 rows, its split over 64-row tiles at
+// 17-64 rows where K_c >= 2048), else the shared body.
+// vg_nm_spmm_fp8_tiled, vg_tile_gemm_fp8_tiled, vg_nm_spmm_dual_fp8_tiled,
+// vg_nm_spmm_gather_bk_fp8_tiled, vg_tile_gemm_dual_fp8_tiled and
+// vg_nm_spmm_gather_fp8_tiled keep the shared body for them, the forms the
+// port ran first, as yardsticks (vg_nm_spmm_masked_fp8,
+// vg_tile_gemm_masked_fp8, vg_nm_spmm_gather_bk_masked_fp8 and
+// vg_nm_spmm_gather_dual_bk_fp8 reach theirs at body 0, split 1).
 //
 // ONE templated body serves all ten, as in gemm_int8.cu: the template
 // takes the weight loader (dense e4m3, or N:4 e4m3 values + 2-bit packed
@@ -1137,7 +1141,7 @@ int vg_nm_spmm_gather_bk_fp8(const void* x, const void* values, const void* idx,
   if (!single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
     return static_cast<int>(cudaErrorInvalidValue);
   if (body == 1 && bn == 64)
-    return spf8::launch_gather(n, bm, x, values, idx, flush, b, k, o, split, stream);
+    return spf8::launch_gather(n, bm, x, values, idx, nullptr, flush, b, k, o, split, stream);
   if (body == 2 && bm == tgf8::BM && bn == tgf8::BN && split == 1)
     return gather_then_wgmma(n, x, values, idx, scratch, flush, b, k, o, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1153,12 +1157,29 @@ int vg_nm_spmm_gather_bk_fp8_tiled(const void* x, const void* values, const void
                               nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
 }
 
+// k is K_eff.  nm_spmm_gather/kernel.py::masked_fp8_plan's body: 1, K8
+// fp8's e4m3 gathered stream (nm_spmm_sp_fp8.cuh, G = n, MASKED; n in {1,
+// 2}, bm in {16, 64}, the maps' row block) walking the live steps of each
+// block's span, K_c split over `split` blocks of a cluster, flushed in the
+// gather order, acc * ws * xs (at vg_nm_spmm_gather_bk_fp8's stream tile
+// and split: bitwise it on the same masked X); 0, the shared body at any n,
+// split 1
 int vg_nm_spmm_gather_bk_masked_fp8(const void* x, const void* values, const void* idx,
                                     const void* kmask, const void* xs, const void* ws,
                                     const void* bias, const void* rq, void* y, int b, int k,
-                                    int o, int n, int act, int out_kind, int bm, void* stream) {
-  return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
-                                    nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+                                    int o, int n, int act, int out_kind, int bm, int body,
+                                    int split, void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
+                                      nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  SingleFlushT<true> flush;
+  if (body != 1 || (n != 1 && n != 2) ||
+      !single_flush(xs, ws, bias, rq, y, o, act, out_kind, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_gather(n, bm, x, values, idx, kmask, flush, b, k, o, split, stream);
 }
 
 // k is K_eff.  nm_spmm_gather/kernel.py::fp8_dual_plan's body: 1, the e4m3

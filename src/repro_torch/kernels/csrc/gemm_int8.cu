@@ -51,12 +51,13 @@
 // singles nm_spmm_masked_int8 (at n in {1, 2}) and tile_gemm_masked_int8 the
 // MASKED forms of the sparse and the dense stream (each block walks the
 // live steps of its split's span) wherever nm_spmm/kernel.py::int8_plan and
-// tile_gemm/kernel.py::masked_int8_plan pick them.  Each is flushed by
-// SingleFlushI8 / DualFlushI8T below in this file's order (ws first for the
-// gathers): the same bits as this body, int32 sums being exact in any
-// order.  The masked gather keeps this file's body.  Their entries at body
-// 0, split 1 reach this file's body, the form the port ran first, as its
-// yardstick.
+// tile_gemm/kernel.py::masked_int8_plan pick them; and the masked gather
+// nm_spmm_gather_bk_masked_int8 at n in {1, 2} the MASKED form of K8 int8's
+// gathered stream wherever nm_spmm_gather/kernel.py::masked_int8_plan picks
+// it.  Each is flushed by SingleFlushI8 / DualFlushI8T below in this file's
+// order (ws first for the gathers): the same bits as this body, int32 sums
+// being exact in any order.  Their entries at body 0, split 1 reach this
+// file's body, the form the port ran first, as its yardstick.
 //
 // ONE templated body serves all ten, as in gemm.cu: the template takes the
 // weight loader (dense int8, or N:4 int8 values + 2-bit packed meta), the
@@ -894,17 +895,33 @@ int vg_nm_spmm_gather_bk_int8(const void* x, const void* values, const void* idx
   }
   if (body != 1 || (n != 1 && n != 2) || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
     return static_cast<int>(cudaErrorInvalidValue);
-  return spf8::launch_gather<spf8::S8>(n, bm, x, values, idx,
+  return spf8::launch_gather<spf8::S8>(n, bm, x, values, idx, nullptr,
                                        s8_flush<true>(xs, ws, bias, rq, y, o, act, out_kind), b,
                                        k, o, split, stream);
 }
 
+// k is K_eff.  nm_spmm_gather/kernel.py::masked_int8_plan's body: 1, K8
+// int8's s8 gathered stream (nm_spmm_sp_fp8.cuh, S8, G = n, MASKED; n in {1,
+// 2}, bm in {16, 64}, the maps' row block) walking the live steps of each
+// block's span, K_c split over `split` blocks of a cluster, flushed ws first
+// (bitwise vg_nm_spmm_gather_bk_int8 on the same masked X); 0, this file's
+// body at any n, split 1
 int vg_nm_spmm_gather_bk_masked_int8(const void* x, const void* values, const void* idx,
                                      const void* kmask, const void* xs, const void* ws,
                                      const void* bias, const void* rq, void* y, int b, int k,
-                                     int o, int n, int act, int out_kind, int bm, void* stream) {
-  return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
-                                    nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+                                     int o, int n, int act, int out_kind, int bm, int body,
+                                     int split, void* stream) {
+  if (kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gather<false, true>(n, bm, x, values, idx, nullptr, nullptr, kmask, xs, ws,
+                                      nullptr, bias, rq, y, b, k, o, act, out_kind, stream);
+  }
+  if (body != 1 || (n != 1 && n != 2) || !s8_flush_ok(act, out_kind, xs, ws, bias, rq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spf8::launch_gather<spf8::S8>(n, bm, x, values, idx, kmask,
+                                       s8_flush<true>(xs, ws, bias, rq, y, o, act, out_kind), b,
+                                       k, o, split, stream);
 }
 
 // k is K_eff.  nm_spmm_gather/kernel.py::int8_dual_plan's body: 1, the s8

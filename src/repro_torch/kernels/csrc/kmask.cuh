@@ -2,9 +2,10 @@
 // (K10: tile_gemm_masked, nm_spmm_masked, nm_spmm_gather_bk_masked, in
 // gemm.cu, gemm_int8.cu and gemm_fp8.cu; the bf16 nm_spmm_masked at n in
 // {1, 2} and tile_gemm_masked below 256 rows in nm_spmm_sp.cuh's stream, and
-// nm_spmm_masked_fp8, tile_gemm_masked_fp8, nm_spmm_masked_int8 and
-// tile_gemm_masked_int8 in nm_spmm_sp_fp8.cuh's, each walking the live
-// steps of its split's span).
+// nm_spmm_masked_fp8, tile_gemm_masked_fp8, nm_spmm_masked_int8,
+// tile_gemm_masked_int8 and the 8-bit masked gathers in nm_spmm_sp_fp8.cuh's,
+// each walking the live steps of its split's span; that header's forms end
+// a row block with no live step without the split's exchange).
 //
 // kmask is block_maps' (row blocks, K steps) int32 map over the masked X:
 // kmask[i][s] != 0 iff row block i holds a nonzero in K step s.  A block

@@ -10,8 +10,9 @@
 // tile_gemm_dual_int8 and _requant (N = 4) and K9 int8
 // (nm_spmm_gather_dual_bk_int8 and _requant, G = n in {1, 2}), and with the
 // K-major X K11 int8 (nm_spmm_gather_int8), and with MASKED the masked
-// int8 singles nm_spmm_masked_int8 (n in {1, 2}) and tile_gemm_masked_int8
-// (N = 4); in DUAL
+// int8 singles nm_spmm_masked_int8 (n in {1, 2}), tile_gemm_masked_int8
+// (N = 4) and the masked int8 gather nm_spmm_gather_bk_masked_int8 (G = n
+// in {1, 2}); in DUAL
 // form (two weights, two accumulators, one silu(g) * u flush) the
 // compressed gate-up nm_spmm_dual_fp8 and its requantizing form; and the
 // same streaming body
@@ -20,31 +21,33 @@
 // form the dense gate-up tile_gemm_dual_fp8's (and _requant's) and, with
 // the X side gathered (G = n in {1, 2}), the fp8 lane-aligned gather K8's
 // (nm_spmm_gather_bk_fp8 and _requant) few-row body over its dense values,
-// and in DUAL form K9 fp8's (nm_spmm_gather_dual_bk_fp8 and _requant);
+// with MASKED the masked fp8 gather nm_spmm_gather_bk_masked_fp8's, and in
+// DUAL form K9 fp8's (nm_spmm_gather_dual_bk_fp8 and _requant);
 // with the X side gathered from K-major x_t (KM), K11 fp8's
 // (nm_spmm_gather_fp8).  Included by gemm_fp8.cu, whose vg_nm_spmm_fp8,
 // vg_nm_spmm_masked_fp8, vg_tile_gemm_fp8, vg_tile_gemm_masked_fp8,
 // vg_nm_spmm_dual_fp8, vg_tile_gemm_dual_fp8, vg_nm_spmm_gather_bk_fp8,
-// vg_nm_spmm_gather_dual_bk_fp8 and vg_nm_spmm_gather_fp8 launch it with
-// their flush where nm_spmm/kernel.py::fp8_plan (for both singles),
-// tile_gemm/kernel.py::fp8_plan, ::masked_fp8_plan,
-// nm_spmm/kernel.py::fp8_dual_plan,
+// vg_nm_spmm_gather_bk_masked_fp8, vg_nm_spmm_gather_dual_bk_fp8 and
+// vg_nm_spmm_gather_fp8 launch it with their flush where
+// nm_spmm/kernel.py::fp8_plan (for both singles), tile_gemm/kernel.py::
+// fp8_plan, ::masked_fp8_plan, nm_spmm/kernel.py::fp8_dual_plan,
 // tile_gemm/kernel.py::fp8_dual_plan, nm_spmm_gather/kernel.py::fp8_plan,
-// ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by gemm_int8.cu, whose
-// vg_nm_spmm_int8, vg_tile_gemm_int8, vg_nm_spmm_gather_bk_int8,
-// vg_nm_spmm_dual_int8, vg_tile_gemm_dual_int8, vg_nm_spmm_gather_dual_bk_int8,
-// vg_nm_spmm_gather_int8, vg_nm_spmm_masked_int8 and vg_tile_gemm_masked_int8
-// launch the s8 form where nm_spmm/kernel.py::int8_plan (for both compressed
-// singles), tile_gemm/kernel.py::int8_plan, ::masked_int8_plan,
-// nm_spmm_gather/kernel.py::int8_plan, nm_spmm/kernel.py::int8_dual_plan,
-// tile_gemm/kernel.py::int8_dual_plan, nm_spmm_gather/kernel.py::
-// int8_dual_plan and ::kmajor_int8_plan pick it.  One body
-// serves both 8-bit classes: the header is not
-// copied per class.  n = 4 of the compressed and gathered kernels, wider
-// launches and the masked gathers (e4m3 and int8) keep gemm_fp8.cu's /
-// gemm_int8.cu's shared bodies, and the many-row bodies of tile_gemm_fp8
-// (of K8, after gemm_fp8.cu's gather pass) and of tile_gemm_dual_fp8 are
-// tile_gemm_sm90_fp8.cuh's.
+// ::masked_fp8_plan, ::fp8_dual_plan and ::kmajor_fp8_plan pick it, and by
+// gemm_int8.cu, whose vg_nm_spmm_int8, vg_tile_gemm_int8,
+// vg_nm_spmm_gather_bk_int8, vg_nm_spmm_dual_int8, vg_tile_gemm_dual_int8,
+// vg_nm_spmm_gather_dual_bk_int8, vg_nm_spmm_gather_int8,
+// vg_nm_spmm_masked_int8, vg_tile_gemm_masked_int8 and
+// vg_nm_spmm_gather_bk_masked_int8 launch the s8 form where
+// nm_spmm/kernel.py::int8_plan (for both compressed singles),
+// tile_gemm/kernel.py::int8_plan, ::masked_int8_plan,
+// nm_spmm_gather/kernel.py::int8_plan, ::masked_int8_plan,
+// nm_spmm/kernel.py::int8_dual_plan, tile_gemm/kernel.py::int8_dual_plan,
+// nm_spmm_gather/kernel.py::int8_dual_plan and ::kmajor_int8_plan pick it.
+// One body serves both 8-bit classes: the header is not copied per class.
+// n = 4 of the compressed and gathered kernels and wider launches keep
+// gemm_fp8.cu's / gemm_int8.cu's shared bodies, and the many-row bodies of
+// tile_gemm_fp8 (of K8, after gemm_fp8.cu's gather pass) and of
+// tile_gemm_dual_fp8 are tile_gemm_sm90_fp8.cuh's.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   nm_spmm_fp8    repro/kernels/nm_spmm/kernel.py::nm_spmm_fp8
@@ -107,6 +110,11 @@
 //   tile_gemm_masked_int8  repro/kernels/tile_gemm/kernel.py::tile_gemm_masked
 //                  (_gemm_masked_kernel), scaled-quantized int8, where
 //                  tile_gemm/kernel.py::masked_int8_plan streams
+//   nm_spmm_gather_bk_masked_fp8, nm_spmm_gather_bk_masked_int8
+//                  repro/kernels/nm_spmm_gather/kernel.py::nm_spmm_gather_bk_masked
+//                  (_gather_bk_masked_kernel), scaled-quantized fp8 / int8, n in {1, 2},
+//                  where nm_spmm_gather/kernel.py::masked_fp8_plan / ::masked_int8_plan
+//                  stream
 //
 // Y (B, O) = flush(Xq (B, K) @ dec(values (K*n/4, O), meta_packed (K*n/16,
 // O))), e4m3 x e4m3 into fp32.  The compressed tile goes to the tensor core
@@ -196,10 +204,17 @@
 // would add an exact +0 partial, so the partition and the order of the
 // sums are nm_spmm_fp8's: bitwise nm_spmm_fp8 (and nm_spmm_fp8_requant's
 // codes) on the same masked X at the same split.  A rank with no live step
-// walks none and still stores its zero partial into the owners' inboxes
-// and meets the cluster barrier; a row block with no live step flushes the
-// Flush of a zero sum (bias and activation of zero, or their codes).
-// Bound: the live steps' kept bytes, meta and X bytes.
+// in its span walks none and still stores its zero partial into the
+// owners' inboxes and meets the cluster barrier.  A row block with no live
+// step at all (about 0.6 of qwen3-moe's spgemm w_out launches at decode)
+// skips the ring, the partial store and the split's exchange
+// (splitk::finish_zero): every rank folds the same whole map row, so all
+// of them see it, none writes into a peer's inbox and none waits at the
+// barrier; each flushes the Flush of a zero sum (bias and activation of
+// zero, or their codes) over the slice finish_planes makes it the owner
+// of, the same bits as the exchange of zero partials.  Every MASKED form
+// of this header takes that end.  Bound: the live steps' kept bytes, meta
+// and X bytes.
 //
 // Row tiles.  Past decode rows the plans (fp8_dual_plan, the gather
 // fp8_plan) keep 16-row tiles over several row tiles (up to 2-3 blocks an
@@ -264,6 +279,18 @@
 // the same masked X at the same tile and split.  Bound: the live steps'
 // weight rows and X bytes.
 //
+// The masked gather (MASKED with G = n, nm_spmm_gather_bk_masked_fp8).  A
+// kmask column is one step of 64 compressed rows, the stage's span of 256 /
+// G X bytes a row (the maps are block_maps' at 256 / n columns): a dead
+// step's index slice and X span are neither loaded nor selected, the stage,
+// the select pass and the prefetch take the walked step at(i), and the
+// block keeps the span K8 fp8's split gives it.  A dead step would add an
+// exact +0 partial, so bitwise K8 fp8 (and its requantized codes) on the
+// same masked X at the same split: where the plan's tile is K8 fp8's, and
+// at 64-row tiles where K8 fp8 takes 16-row ones, since the split's spans
+// and the per-step order of each output's sums are the tile's rows'
+// either way.  Bound: the live steps' values, index and X span bytes.
+//
 // The s8 form (element class S8): the singles nm_spmm_int8 and _requant (n
 // in {1, 2}, X contiguous), tile_gemm_int8 and _requant (the dense stream, N
 // = 4, X contiguous), K8 int8, nm_spmm_gather_bk_int8 and _requant (the
@@ -275,13 +302,16 @@
 // (DUAL with G = n in {1, 2}, one span selected twice): two int32
 // accumulator sets, both planes through the split; and with MASKED the
 // masked int8 singles nm_spmm_masked_int8 (n in {1, 2}) and
-// tile_gemm_masked_int8 (N = 4): the e4m3 masked walk unchanged (block_live
-// and SpanWalk do not look at the element class).  A dead step would add an
-// exact int32 zero, so skipping it leaves the sums bitwise the unmasked s8
-// stream's at any tile and split; a rank with no live step still stores its
-// zero int32 partial into the owners' inboxes and meets the cluster
-// barrier, and a row block with no live step flushes SingleFlushI8 of an
-// int32 0 (bias and activation of zero, or their codes).  int8 is one byte like
+// tile_gemm_masked_int8 (N = 4), and the masked int8 gather
+// nm_spmm_gather_bk_masked_int8 (G = n in {1, 2}, SingleFlushI8<true>): the
+// e4m3 masked walk unchanged (block_live and SpanWalk do not look at the
+// element class).  A dead step would add an exact int32 zero, so skipping
+// it leaves the sums bitwise the unmasked s8 stream's at any tile and
+// split; a rank with no live step still stores its zero int32 partial into
+// the owners' inboxes and meets the cluster barrier, and a row block with
+// no live step takes the zero finish (splitk::finish_zero, no exchange):
+// SingleFlushI8 of an int32 0 (bias and activation of zero, or their
+// codes).  int8 is one byte like
 // e4m3 and its zero is the byte 0x00 as e4m3's +0 is, so the stage, the
 // per-warp transpose, the 1:4-as-2:4 +0 slots, the metadata word, the dense
 // A operand (ldmatrix .trans + __byte_perm), select16's +0 for an index
@@ -498,9 +528,10 @@ __device__ __forceinline__ uint32_t pair8_1of4(uint32_t v, uint32_t i) {
 // x_t (K_eff, b), b a multiple of 16, and flush(row, col, sum) gets the
 // batch row and channel in column-major order).  DUAL: v2 and meta2 are
 // the up weight's (v, meta the gate's) and flush(row, col, sums) takes both
-// sums; else flush(row, col, sum).  MASKED (a single over a contiguous X):
-// kmask is block_maps' (row blocks, k / 64) map; the block walks the live
-// steps of its span only.  Elem: E4M3, or S8 (every form; the sums, and
+// sums; else flush(row, col, sum).  MASKED (a single, X contiguous or
+// gathered): kmask is block_maps' (row blocks, k / 64) map; the block walks
+// the live steps of its span only, and a row block with no live step
+// flushes zero sums without the split's exchange.  Elem: E4M3, or S8 (every form; the sums, and
 // what flush receives, are int32).
 template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED, class Elem, class Flush>
 __global__ void __launch_bounds__(NT)
@@ -511,8 +542,8 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   using L = Layout<N, BM, G, DUAL, KM>;
   using Acc = typename Elem::Acc;
   constexpr bool IS_S8 = std::is_same_v<Elem, S8>;
-  static_assert(!MASKED || (G == 0 && !DUAL && !KM),
-                "the masked stream is a single, X contiguous");
+  static_assert(!MASKED || (!DUAL && !KM),
+                "the masked stream is a single, X contiguous or gathered (G = n)");
   constexpr int NW = L::NW, MT = L::MT, NJ = L::NJ, TLD = L::TLD;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -534,9 +565,25 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   int* kidx = reinterpret_cast<int*>(compact + L::COMPACT);   // KM: the span's indices
   Acc* inbox = reinterpret_cast<Acc*>(compact + L::COMPACT + L::idx_bytes(k / BKS, split));
 
+  auto store = [&](int r, int c, const Acc (&sum)[NW]) {
+    if constexpr (DUAL) flush(m0 + r, n0 + c, sum);
+    else flush(m0 + r, n0 + c, sum[0]);
+  };
+
   // The walk: the span's steps, or (MASKED) its live steps only
-  // (kmask.cuh's block_live and SpanWalk).
-  SpanWalk<MASKED, NT> at(block_live<MASKED, NT>(kmask, blockIdx.y, k / BKS, tid), s0, ns);
+  // (kmask.cuh's block_live and SpanWalk).  A kmask column is one step of
+  // 64 compressed rows: with the gathered X, the stage's 256 / G span.
+  const auto* live = block_live<MASKED, NT>(kmask, blockIdx.y, k / BKS, tid);
+  if constexpr (MASKED) {
+    // A row block with no live step at all: every rank folds the same whole
+    // map row, so every rank ends here alike, none stores a partial into a
+    // peer's inbox and none waits at the cluster barrier.
+    if (live->next(0, k / BKS) == k / BKS) {
+      splitk::finish_zero<BM, BO, NT, NW, KM, Acc>(rank, split, rows, store);
+      return;
+    }
+  }
+  SpanWalk<MASKED, NT> at(live, s0, ns);
   ns = at.steps();
 
   auto load_stage = [&](int st, int s) {
@@ -856,11 +903,7 @@ nm_spmm_sp_fp8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
       }
   __syncthreads();
 
-  splitk::finish_planes<BM, BO, PLD, NT, NW, KM>(
-      part, inbox, rank, split, rows, [&](int r, int c, const Acc (&sum)[NW]) {
-        if constexpr (DUAL) flush(m0 + r, n0 + c, sum);
-        else flush(m0 + r, n0 + c, sum[0]);
-      });
+  splitk::finish_planes<BM, BO, PLD, NT, NW, KM>(part, inbox, rank, split, rows, store);
 }
 
 template <int N, int BM, int G, bool DUAL, bool KM, bool MASKED = false, class Elem = E4M3,
@@ -985,21 +1028,32 @@ int launch_dual(int n, int bm, const void* x, const void* vg, const void* mg, co
 // ke) gathered at n in {1, 2} through idx (K_c = ke * n / 4 int32) against
 // values (K_c, O) as a dense weight of the class; bm in {16, 64}, split a
 // power of two up to min(8, K_c / 64); flush(row, col, acc) stores one output
-// from its summed fp32 (s8: int32) accumulator
+// from its summed fp32 (s8: int32) accumulator; kmask: the masked gather
+// (nm_spmm_gather_bk_masked_fp8 / _int8) with block_maps' (ceil(b / bm),
+// K_c / 64) map, else nullptr
 template <class Elem = E4M3, class Flush>
 int launch_gather(int n, int bm, const void* x, const void* values, const void* idx,
-                  const Flush& flush, int b, int ke, int o, int split, void* stream) {
+                  const void* kmask, const Flush& flush, int b, int ke, int o, int split,
+                  void* stream) {
   if (ke <= 0 || (ke * n) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int kc = ke * n / 4;
-  if (!launch_ok(b, kc, o, bm, split)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!launch_ok(b, kc, o, bm, split) || (kmask != nullptr && kc / BKS > MAX_K_STEPS))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VG_SPF8_GATHER(GG, BB)                                                              \
-  return launch<4, BB, GG, false, false, false, Elem>(x, values, idx, nullptr, nullptr,    \
-                                                      nullptr, flush, b, kc, o, split, s)
-  if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16);
-  if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64);
-  if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16);
-  if (n == 1 && bm == 64) VG_SPF8_GATHER(1, 64);
+#define VG_SPF8_GATHER(GG, BB, MM)                                                         \
+  return launch<4, BB, GG, false, false, MM, Elem>(x, values, idx, nullptr, nullptr, kmask, \
+                                                   flush, b, kc, o, split, s)
+  if (kmask != nullptr) {
+    if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16, true);
+    if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64, true);
+    if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16, true);
+    if (n == 1 && bm == 64) VG_SPF8_GATHER(1, 64, true);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 2 && bm == 16) VG_SPF8_GATHER(2, 16, false);
+  if (n == 2 && bm == 64) VG_SPF8_GATHER(2, 64, false);
+  if (n == 1 && bm == 16) VG_SPF8_GATHER(1, 16, false);
+  if (n == 1 && bm == 64) VG_SPF8_GATHER(1, 64, false);
 #undef VG_SPF8_GATHER
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -87,6 +87,18 @@ __device__ __forceinline__ void run_ring(int ns, At&& at, Load&& load, Compute&&
   __syncthreads();       // the ring is drained: the partial tile may alias it
 }
 
+// fn(r, c, at) for each element of the BM x BO tile that block `rank` of
+// `split` owns (row-major, or COLMAJOR column-major) in a live row (r <
+// rows); at is its offset in the slice.
+template <int BM, int BO, int NT, bool COLMAJOR, class Fn>
+__device__ __forceinline__ void owned_slice(int rank, int split, int rows, Fn&& fn) {
+  const int slice = BM * BO / split;   // split is a power of two up to 8: exact
+  for (int q = rank * slice + static_cast<int>(threadIdx.x); q < (rank + 1) * slice; q += NT) {
+    const int r = COLMAJOR ? q % BM : q / BO, c = COLMAJOR ? q / BM : q % BO;
+    if (r < rows) fn(r, c, q - rank * slice);
+  }
+}
+
 // The split's end.  part: this block's NP partials of type T (fp32, or
 // int32: then the sums are exact in any order) (planes p at part
 // + p BM PLD, each [BM][PLD] of the BM x BO tile; written and
@@ -118,10 +130,7 @@ __device__ __forceinline__ void finish_planes(const T* part, T* inbox, int rank,
     }
     cluster.sync();
   }
-  for (int q = rank * slice + tid; q < (rank + 1) * slice; q += NT) {
-    const int r = COLMAJOR ? q % BM : q / BO, c = COLMAJOR ? q / BM : q % BO;
-    const int at = q - rank * slice;
-    if (r >= rows) continue;
+  owned_slice<BM, BO, NT, COLMAJOR>(rank, split, rows, [&](int r, int c, int at) {
     T s[NP];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
@@ -132,7 +141,23 @@ __device__ __forceinline__ void finish_planes(const T* part, T* inbox, int rank,
       }
     }
     flush(r, c, s);
-  }
+  });
+}
+
+// The split's end of a tile that no rank contracted a step of (a masked
+// row block with no live step: every rank folds the same map row, so every
+// rank of the cluster takes this end alike).  No partial is stored, no
+// peer's inbox written, no cluster barrier met: block q flushes the zero
+// sums of the slice finish_planes makes it the owner of, over its live
+// rows.  The same bits as finish_planes on zero partials (+0 summed in any
+// order is +0; int32 0).
+template <int BM, int BO, int NT, int NP, bool COLMAJOR, class T, class Flush>
+__device__ __forceinline__ void finish_zero(int rank, int split, int rows, Flush&& flush) {
+  T s[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) s[p] = T(0);
+  owned_slice<BM, BO, NT, COLMAJOR>(rank, split, rows,
+                                    [&](int r, int c, int) { flush(r, c, s); });
 }
 
 // finish_planes with one partial: flush(r, c, sum)

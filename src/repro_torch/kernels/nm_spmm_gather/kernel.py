@@ -44,9 +44,12 @@ X span a step selected twice, both dense values tiles, two accumulators)
 where :func:`fp8_dual_plan` picks it.  ``nm_spmm_gather_bk_masked`` (bf16)
 at 2:4 runs K8's stream with the activation-sparsity skip (each block
 walking the live steps of its span) wherever K8 streams, as
-:func:`masked_plan` picks.  ``nm_spmm_gather_fp8`` (K11) at n
-in {1, 2} runs that e4m3 stream with a K-major X stage (the step's selected
-x_t rows, then a byte transpose pass), chosen by :func:`kmajor_fp8_plan`,
+:func:`masked_plan` picks; its int8 and fp8 twins at n in {1, 2} run K8
+int8's s8 and K8 fp8's e4m3 streams so, at their maps' row block, as
+:func:`masked_int8_plan` and :func:`masked_fp8_plan` pick.
+``nm_spmm_gather_fp8`` (K11) at n in {1, 2} runs that e4m3 stream with a
+K-major X stage (the step's selected x_t rows, then a byte transpose
+pass), chosen by :func:`kmajor_fp8_plan`,
 and ``nm_spmm_gather_int8`` (K11 int8) its s8 form, chosen by
 :func:`kmajor_int8_plan`.  The int8 twins run the s8 forms of the e4m3
 streams: ``nm_spmm_gather_bk_int8`` and ``_requant`` K8's, chosen by
@@ -84,6 +87,7 @@ from ..tile_gemm.kernel import dual_plan as tile_dual_plan
 from ..tile_gemm.kernel import fp8_dual_plan as tile_fp8_dual_plan
 from ..tile_gemm.kernel import fp8_plan as tile_fp8_plan
 from ..tile_gemm.kernel import int8_plan as tile_int8_plan
+from ..tile_gemm.kernel import masked_int8_plan as tile_masked_int8_plan
 from ..tile_gemm.kernel import plan as tile_plan
 from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
                   nm_spmm_gather_masked_quantized_ref, nm_spmm_gather_masked_ref,
@@ -92,10 +96,11 @@ from .ref import (nm_spmm_gather_dual_quantized_ref, nm_spmm_gather_dual_ref,
 
 __all__ = ["nm_spmm_gather_bk", "plan", "dual_plan", "fp8_plan", "int8_plan", "kmajor_fp8_plan",
            "kmajor_int8_plan",
-           "masked_plan", "fp8_dual_plan", "int8_dual_plan",
+           "masked_plan", "masked_int8_plan", "masked_fp8_plan", "fp8_dual_plan",
+           "int8_dual_plan",
            "DUAL_SHARED_MAX_KC", "FP8_STREAM16_MAX_ROWS", "KMAJOR_STREAM64_MIN_STEPS",
            "INT8_KMAJOR_STREAM16_MAX_STEPS",
-           "KMAJOR_STREAM_MAX_ROWS",
+           "KMAJOR_STREAM_MAX_ROWS", "FP8_MASKED_STREAM64_MIN_KC",
            "nm_spmm_gather_dual_bk", "nm_spmm_gather_bk_int8",
            "nm_spmm_gather_bk_int8_requant", "nm_spmm_gather_dual_bk_int8",
            "nm_spmm_gather_dual_bk_int8_requant", "nm_spmm_gather_bk_fp8",
@@ -120,6 +125,9 @@ KMAJOR_STREAM_MAX_ROWS = 256
 #: K11 int8's 16-row stream takes a launch while each block of its split
 #: walks at most this many 64-deep steps (its 64-row stream the others)
 INT8_KMAJOR_STREAM16_MAX_STEPS = 8
+#: the masked fp8 gather runs its 64-row stream at 17-64 rows where K_c is at
+#: least this (internlm2-1.8b's w_out); else the shared body
+FP8_MASKED_STREAM64_MIN_KC = 2048
 
 def plan(b: int, ke: int, o: int, n: int) -> dict:
     """``nm_spmm_gather_bk``'s (float) body, tile and split for ``gather(X
@@ -182,6 +190,61 @@ def masked_plan(b: int, ke: int, o: int, n: int) -> dict:
     if n == 2 and p["body"] == "stream":
         return p
     return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
+
+
+def masked_int8_plan(b: int, ke: int, o: int, n: int) -> dict:
+    """``nm_spmm_gather_bk_masked_int8``'s (and its requantizing form's)
+    body, tile and split.  n in {1, 2}: ``stream`` (K8 int8's s8 gathered
+    stream of ``csrc/nm_spmm_sp_fp8.cuh`` in ``MASKED`` form: each block
+    walks the live steps of its span, a dead step's index slice and X span
+    neither loaded nor selected) at ``tile_gemm.kernel.masked_int8_plan(b,
+    K_c, o)``, whose rows are ``block_rows(b)``, the row block of the maps
+    dispatch builds and the masked stream reads at ``blockIdx.y``: K8
+    int8's :func:`int8_plan` wherever its tile is that row block (qwen3-moe's
+    expert w_out (1536, 4096) 2:4 at B = 8: 64 tiles of 16 rows, split 4),
+    else the 64-row stream (the expert's w_out at B = 64: split 4, where K8
+    int8 takes 16-row tiles unsplit).  The int32 sums are exact in any
+    order, so every tile and split is bitwise ``nm_spmm_gather_bk_int8``
+    (and its requantized codes) on the same masked X.  n = 4 keeps
+    ``shared`` (gemm_int8.cu's masked body, the form the port ran first) at
+    ``block_rows(b)`` rows, split 1.  Returns ``{"body", "rows", "cols",
+    "split"}``; ``rows`` is the maps' row block."""
+    if n in (1, 2):
+        return tile_masked_int8_plan(b, ke * n // 4, o)
+    return {"body": "shared", "rows": _build.block_rows(b), "cols": _build.BLOCK_O, "split": 1}
+
+
+def masked_fp8_plan(b: int, ke: int, o: int, n: int, requant: bool = False) -> dict:
+    """``nm_spmm_gather_bk_masked_fp8``'s body, tile and split (``requant``:
+    its requantizing form's).  n in {1, 2}, wherever :func:`fp8_plan`
+    (``requant`` as there) streams: ``stream`` (K8 fp8's e4m3 gathered
+    stream of ``csrc/nm_spmm_sp_fp8.cuh`` in ``MASKED`` form: each block
+    walks the live steps of its span) over ``block_rows(b)`` rows, the row
+    block of the maps the masked stream reads at ``blockIdx.y``, at
+    :func:`fp8_plan`'s split.  Up to 16 rows that is :func:`fp8_plan`'s
+    plan (qwen3-moe's expert w_out (1536, 4096) 2:4 at B = 8: 64 tiles of
+    16 rows, split 4); at 17-64 rows, where :func:`fp8_plan` takes 16-row
+    tiles against the maps' 64 rows, the 64-row stream at that same split
+    where K_c is at least ``FP8_MASKED_STREAM64_MIN_KC``: the split's spans,
+    and so each output's e4m3 sums in their order, are K8 fp8's either way,
+    so bitwise ``nm_spmm_gather_bk_fp8`` (and its requantized codes) on the
+    same masked X.  On an H100, 700 W (``tools/int8_body_sweep.py --kernels
+    gmask8``, PERF.md §6) that 64-row stream beat the shared body at every
+    swept point of internlm2-1.8b's w_out (K_c 4,096 / 2,048) at 17-64 rows
+    and 0 / 0.4 / 1 live (at 64 rows 2:4, 0.4 live 28.5 against 38.5 µs),
+    but lost at 5 of the 18 points of qwen3-moe's expert w_out (K_c 768 /
+    384; at 64 rows 2:4 all live 25.7 against 23.1): the shared body there.
+    Everywhere else ``shared`` (gemm_fp8.cu's masked body, the form the
+    port ran first) at ``block_rows(b)`` rows, split 1: where
+    :func:`fp8_plan` takes its wgmma body (there is no masked one) and at n
+    = 4.  Returns ``{"body", "rows", "cols", "split"}``; ``rows`` is the
+    maps' row block."""
+    rows = _build.block_rows(b)
+    p = fp8_plan(b, ke, o, n, requant=requant)
+    if n in (1, 2) and p["body"] == "stream" and (
+            p["rows"] == rows or ke * n // 4 >= FP8_MASKED_STREAM64_MIN_KC):
+        return {**p, "rows": rows}
+    return {"body": "shared", "rows": rows, "cols": _build.BLOCK_O, "split": 1}
 
 
 def fp8_dual_plan(b: int, ke: int, o: int, n: int) -> dict:
@@ -588,8 +651,7 @@ def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, e
     y = torch.empty((b, o), dtype=y_dtype, device=x_q.device)
     # the singles run the body of their plans (block_b only checked; the fp8
     # wgmma plan's gather pass writes the compact X into a scratch); the
-    # masked kernels keep the shared body (no plan)
-    plan = ()
+    # masked ones at their maps' row block, which must be the plan's
     if storage == torch.float8_e4m3fn and maps is None:
         p = fp8_plan(b, ke, o, n, requant=requant_scale is not None)
         xg = (torch.empty((b, values.shape[0]), dtype=storage, device=x_q.device)
@@ -598,6 +660,13 @@ def _gather_quantized(wrapper, storage, x_q, values, idx, x_scale, w_scale, n, e
     elif maps is None:
         p = int8_plan(b, ke, o, n)
         bb, plan = p["rows"], (BODY_CODES[p["body"]], p["split"])
+    else:
+        p = (masked_fp8_plan(b, ke, o, n, requant=requant_scale is not None)
+             if storage == torch.float8_e4m3fn else masked_int8_plan(b, ke, o, n))
+        if bb != p["rows"]:
+            raise ValueError(f"{kernel}: maps at {bb} rows, the plan's row block is "
+                             f"{p['rows']}")
+        plan = (BODY_CODES[p["body"]], p["split"])
     lib = _build.library(source)
     with torch.cuda.device(x_q.device):
         rc = getattr(lib, f"vg_{kernel.removesuffix('_requant')}")(
@@ -691,10 +760,15 @@ def nm_spmm_gather_bk_masked_int8(x_q: torch.Tensor, values: torch.Tensor,
                                   requant_scale: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """:func:`nm_spmm_gather_bk_int8` with the block skip of
-    :func:`nm_spmm_gather_bk_masked` (maps over the int8 rows; the CUDA
-    body ignores ``kmap``).  Bitwise :func:`nm_spmm_gather_bk_int8` on the
-    same rows; with ``requant_scale`` the flush requantizes as
-    :func:`nm_spmm_gather_bk_int8_requant`'s."""
+    :func:`nm_spmm_gather_bk_masked` (maps over the int8 rows at
+    ``block_b`` rows and ``256 / n`` columns; the CUDA bodies ignore
+    ``kmap``).  The body and split are :func:`masked_int8_plan`'s, whose
+    row block must be ``block_b`` (a CUDA launch refuses another): at n in
+    {1, 2} K8 int8's s8 gathered stream, each block walking the live steps
+    of its span; at n = 4 the shared body, split 1.  Either way bitwise
+    :func:`nm_spmm_gather_bk_int8` on the same masked rows; with
+    ``requant_scale`` the flush requantizes, bitwise
+    :func:`nm_spmm_gather_bk_int8_requant`'s codes."""
     return _gather_quantized(nm_spmm_gather_bk_masked_int8, torch.int8, x_q, values, idx,
                              x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
                              maps=(kmap, kmask), requant_scale=requant_scale)
@@ -714,12 +788,19 @@ def nm_spmm_gather_bk_masked_fp8(x_q: torch.Tensor, values: torch.Tensor,
                                  requant_scale: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """:func:`nm_spmm_gather_bk_fp8` with the block skip of
-    :func:`nm_spmm_gather_bk_masked` (maps over the e4m3 rows; the CUDA
-    body ignores ``kmap``).  Bitwise itself with every tile live on the same
-    rows, and :func:`nm_spmm_gather_bk_fp8` where :func:`fp8_plan` leaves it
-    on the shared body (n = 4); elsewhere within the fp8 class's limit of
-    it (its own bodies sum in another order).  With ``requant_scale`` the
-    flush requantizes as :func:`nm_spmm_gather_bk_fp8_requant`'s."""
+    :func:`nm_spmm_gather_bk_masked` (maps over the e4m3 rows at
+    ``block_b`` rows and ``256 / n`` columns; the CUDA bodies ignore
+    ``kmap``).  The body and split are :func:`masked_fp8_plan`'s, whose row
+    block must be ``block_b`` (a CUDA launch refuses another): wherever
+    :func:`fp8_plan` streams, K8 fp8's e4m3 gathered stream at its split,
+    each block walking the live steps of its span, bitwise
+    :func:`nm_spmm_gather_bk_fp8` on the same masked rows (with
+    ``requant_scale``: bitwise :func:`nm_spmm_gather_bk_fp8_requant`'s
+    codes); elsewhere (n = 4, :func:`fp8_plan`'s wgmma rows) the shared
+    body, split 1, bitwise itself with every tile live, and
+    :func:`nm_spmm_gather_bk_fp8` where that keeps the shared body too (n =
+    4), else within the fp8 class's limit of it (its wgmma body sums in
+    another order)."""
     return _gather_quantized(nm_spmm_gather_bk_masked_fp8, torch.float8_e4m3fn, x_q, values,
                              idx, x_scale, w_scale, n, epilogue, bias, out_dtype, block_b,
                              maps=(kmap, kmask), requant_scale=requant_scale)

@@ -162,7 +162,8 @@ def test_gather_int8_launches_its_plan(rec, b, n):
     """vg_nm_spmm_gather_bk_int8 gets (.., out_kind, bm, body, split,
     stream) = int8_plan's (bm 16 past 16 rows where it runs the 16-row
     stream), for the scaled outputs, the raw accumulator and the codes; the
-    masked int8 gather keeps the shared body's (.., out_kind, bm, stream)."""
+    masked int8 gather gets (.., out_kind, bm, body, split, stream) =
+    masked_int8_plan's, bm the maps' row block."""
     for k, o in ((2048, 2048), (8192, 2048), (1280, 5120)):
         kc = k * n // 4
         xq, values = _meta(b, k), _meta(kc, o)
@@ -185,8 +186,10 @@ def test_gather_int8_launches_its_plan(rec, b, n):
         rec.calls.clear()
         gk.nm_spmm_gather_bk_masked_int8(xq, values, idx, maps, maps, n, xs, ws)
         (name, args), = rec.calls
+        q = gk.masked_int8_plan(b, k, o, n)
         assert name == "vg_nm_spmm_gather_bk_masked_int8"
-        assert args[-2] == _build.block_rows(b)
+        assert q["rows"] == _build.block_rows(b)
+        assert args[-4:-1] == (q["rows"], BODY_CODES[q["body"]], q["split"])
 
 
 # ------------------------------------------------- shared memory a block

@@ -810,14 +810,18 @@ def _own_body(layout, qdtype, b, k, o, n, requant=False):
     (summing in another order than the shared body the masked one keeps).
     The bf16 nm_spmm_masked, nm_spmm_masked_fp8, below 256 rows the bf16
     tile_gemm_masked, tile_gemm_masked_fp8 wherever tile_gemm_fp8 streams,
-    at 2:4 below 256 rows the bf16 nm_spmm_gather_bk_masked, and the int8
+    at 2:4 below 256 rows the bf16 nm_spmm_gather_bk_masked, the int8
     nm_spmm_masked_int8 (n in {1, 2}, on nm_spmm_int8's s8 stream) and
     tile_gemm_masked_int8 (on tile_gemm_int8's s8 dense stream at its maps'
-    row block) run their twins' streams at their twins' plans: never there; K1 from 256 rows (its wgmma
-    body), tile_gemm_fp8 there too, and the bf16 K8 where its plan's body is
-    not masked_plan's (wgmma from 256 rows, its 1:4 stream up to 16 rows):
-    yes."""
+    row block), nm_spmm_gather_bk_masked_int8 (n in {1, 2}, on K8 int8's s8
+    gathered stream at its maps' row block) and nm_spmm_gather_bk_masked_fp8
+    wherever K8 fp8 streams (on its e4m3 gathered stream at its split) run
+    their twins' streams at their twins' splits: never there; K1 from 256
+    rows (its wgmma body), tile_gemm_fp8 there too, the bf16 K8 where its
+    plan's body is not masked_plan's (wgmma from 256 rows, its 1:4 stream
+    up to 16 rows), and K8 fp8 where its plan takes its wgmma body: yes."""
     from repro_torch.kernels.nm_spmm_gather.kernel import fp8_plan as gather_fp8_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import masked_fp8_plan as gather_masked_fp8
     from repro_torch.kernels.nm_spmm_gather.kernel import masked_plan as gather_masked_plan
     from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
     from repro_torch.kernels.tile_gemm.kernel import fp8_plan, masked_fp8_plan, plan
@@ -826,7 +830,8 @@ def _own_body(layout, qdtype, b, k, o, n, requant=False):
     if (layout, qdtype) == ("gather", None):
         return gather_plan(b, k, o, n)["body"] != gather_masked_plan(b, k, o, n)["body"]
     if (layout, qdtype) == ("gather", "fp8"):
-        return gather_fp8_plan(b, k, o, n, requant=requant)["body"] != "shared"
+        return (gather_fp8_plan(b, k, o, n, requant=requant)["body"]
+                != gather_masked_fp8(b, k, o, n, requant=requant)["body"])
     if (layout, qdtype) == ("dense", "fp8"):
         return (fp8_plan(b, k, o, requant=requant)["body"]
                 != masked_fp8_plan(b, k, o, requant=requant)["body"])
