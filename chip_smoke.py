@@ -222,6 +222,45 @@ Phases, each of which fails the run on a miss:
              position 600.  Then starcoder2-3b at full width, cut to 2
              layers, static int8 compressed 2:4 (the gelu MLP, no window,
              head_dim 128).
+             Then mamba2-2.7b (ssm) at full width and all 64 layers
+             (d_model 2560, d_inner 5120, 80 SSM heads of 64, ssm_state
+             128, conv 4, vocab 50280), bf16 compressed 2:4 and static int8
+             gather 2:4, on the trace's first 8 requests: every site (wz,
+             wx, w_out) on its layout's single kernel, no dual and no
+             flash_attention (the static run's calibration forward runs the
+             chunked SSD scan on the card; 3 calibrated sites); besides the
+             decode profile, one 64-token prefill chunk profiled (launches
+             per token).  The tiers' rounding grows through a deep Mamba
+             stack past any end-to-end tolerance (0.185 / 0.193 at 64
+             layers against the torch tier's own one-ulp sensitivity
+             0.377 / 0.248), so the bf16 run prints its full-depth gap and
+             holds the end-to-end gate on its first SSM_GATED_DEPTH layers;
+             the static run (against a torch tier that quantizes its
+             activations against the same scales) and jamba's print theirs
+             (SSM_GATED_DEPTH gives the readings).  Every layer of every
+             such run is held teacher-forced: over one prefill chunk and a
+             decode step every layer of the cuda tier takes the torch
+             tier's inputs (the decode the torch tier's caches), and its
+             mixer's and FFN's outputs must be within TIER_TOL /
+             STATIC_TIER_TOL of the torch tier's on every row
+             (``layer_tier_check``).  The bf16 run also holds
+             ``models.forward`` (the chunked scan, two 128-token chunks) on
+             one 256-token prompt against four 64-token
+             ``paged_prefill_chunk`` calls: the last position's logits
+             within TIER_TOL on the first SSM_GATED_DEPTH layers, every
+             layer's mixer within TIER_TOL at full depth, teacher-forced
+             (the full-depth logits printed).  Before
+             the serving phase, both kernels of these runs (K2 bf16 2:4, K8
+             int8 2:4) are held against their plain versions at mamba2's
+             two site shapes and 1 / 8 / 64 / 256 rows.  Then
+             jamba-1.5-large's hybrid layout (one super-block: 3 Mamba +
+             MLP, 4 Mamba + MoE, 1 attention + MLP; 16 experts top-2,
+             head_dim 128, ssm_state 128, ssm_head_dim 64) at reduced
+             widths (d_model 1024, 8 heads over 1 KV head, d_ff 3072: each
+             cut printed), bf16 compressed 2:4 on the gather expert path,
+             the first 8 requests.  A line then gathers the SSM and hybrid
+             runs' tokens/s, p50 / p99, decode step wall / busy / idle
+             share / launches and prefill launches per token.
    prefill — the encoder / vision-prefix path through
              ``models.make_prefill_step`` at full width: hubert-xlarge, all
              48 layers (non-causal, head_dim 80, gelu), on 8 x 500 seeded
@@ -2359,6 +2398,39 @@ GEMMA_SERVE = dict(max_len=1024, long_prompts=True, tier_chunks=9, profile_pos=6
 # no window, at head_dim 128, static int8 compressed 2:4
 STARCODER_ARCH = "starcoder2_3b"
 STARCODER_RUNS = (("compressed", (2, 4), "int8", True, 2),)
+# mamba2-2.7b (ssm: 64 Mamba-2 layers, no attention, no MLP) at full width
+# and depth: bf16 compressed 2:4 and static int8 gather 2:4, on the seeded
+# trace's first MOE_REQUESTS requests (a prefill chunk walks its state
+# recurrence token by token); the bf16 run also holds its paged prefill
+# against the full-sequence forward on one CONSISTENCY_PROMPT-token prompt.
+# (layout, sparsity, qdtype, static, depth)
+MAMBA_ARCH = "mamba2_2_7b"
+MAMBA_RUNS = (("compressed", (2, 4), None, False, 64), ("gather", (2, 4), "int8", True, 64))
+CONSISTENCY_PROMPT = 256
+# The depth of a bf16 Mamba model's end-to-end tier and consistency gates.
+# The tiers' rounding grows through the stack, the torch tier's own
+# one-ulp sensitivity (``layer_tier_check``) about twice as fast (an H100
+# 80GB HBM3 at 700 W): mamba2-2.7b's cuda vs torch tier logits 0.028 /
+# 0.024 (prefill / decode) at 8 layers, 0.049 / 0.043 at 16, 0.185 /
+# 0.193 at 64 (one-ulp 0.064 / 0.039 at 8, 0.377 / 0.248 at 64); forward
+# vs paged 0.019 at 8, 0.047 at 16, 0.136 at 64.  So its 64 layers print
+# their gaps, and every layer is held teacher-forced.  Printed only: the
+# static int8 run (0.95 / 0.66 off the fake-quantized torch tier at 8
+# layers: the tiers' rounding flips codes of w_out's input, one static
+# step 1.65 wide where most values are a few units) and jamba's 8 layers
+# (0.046 / 0.016 on the rows both tiers route alike, one-ulp 0.091 /
+# 0.024: 14% of rows re-route, and the Mamba state carries their gap into
+# every later row).  A whole number of jamba's 8-layer blocks.
+SSM_GATED_DEPTH = 8
+# jamba-1.5-large's hybrid layout -- one super-block: 3 Mamba + MLP, 4 Mamba +
+# MoE, 1 attention + MLP layers; 16 experts top-2, head_dim 128, ssm_state 128,
+# ssm_head_dim 64 as published -- at reduced widths: its four MoE layers of
+# 16 x 3 x 8192 x 24576 bf16 weights alone are 77 GB, past one card.
+# bf16 compressed 2:4 on the gather expert path, the first MOE_REQUESTS
+# requests.  (layout, sparsity, qdtype, static)
+JAMBA_ARCH = "jamba_1_5_large_398b"
+JAMBA_CUTS = dict(num_layers=8, d_model=1024, num_heads=8, num_kv_heads=1, d_ff=3072)
+JAMBA_RUNS = (("compressed", (2, 4), None, False),)
 # the prefill path (models.make_prefill_step) at full width and depth:
 # hubert-xlarge on 8 x 500 frame embeddings (10 s clips at 50 frames a
 # second) and phi-3-vision-4.2b on 2 x (256 patch embeddings + 256 text
@@ -2393,13 +2465,17 @@ def masked_kernel(layout, qdtype):
 
 
 def expected_kernels(layout, qdtype, static, moe_path=None, calibration=False,
-                     act="swiglu"):
+                     act="swiglu", family="dense"):
     """The kernels a run launches: its layout's single and dual (the
     requantizing dual with static scales; dynamic scales and
     flash_attention in a calibration forward), and on the spgemm expert
     path the masked single every expert's w_out runs.  A gelu MLP has no
     dual: its w_in is a single GEMM, with static scales the layout's
-    requantizing single (``*_requant``)."""
+    requantizing single (``*_requant``).  An ssm model (mamba2: no
+    attention, no MLP) runs the layout's single alone, on wz, wx and
+    w_out."""
+    if family == "ssm":
+        return LAYOUT_KERNELS[layout, qdtype, False][:1]
     if act == "gelu":
         single = LAYOUT_KERNELS[layout, qdtype, False][0]
         out = (single,) + ((f"{single}_requant",) if static and not calibration else ())
@@ -2441,6 +2517,82 @@ def quantized_sites(tree, cfg):
     _map_with_path(tree, lambda path, leaf: keys.add(_site_key(path, layer_keys))
                    if is_quantized(leaf) else None)
     return len(keys)
+
+
+# mamba2-2.7b's rows: the tier check's decode (1), the serving decode
+# slots (8), a prefill chunk (64), the calibration and consistency forwards
+# (8 x 32 and 1 x 256)
+SSM_KERNEL_ROWS = (1, 8, 64, 256)
+
+
+def ssm_kernel_phase(cfg, gen, card_line, rows):
+    """The kernels mamba2-2.7b's serving runs launch, at its two site
+    shapes (wz / wx: d_model -> d_inner, w_out: d_inner -> d_model) and the
+    rows its path gives them (SSM_KERNEL_ROWS), against their plain
+    versions: K2 ``nm_spmm`` (bf16 2:4) within TOL, K8 int8
+    ``nm_spmm_gather_bk_int8`` (int8 gather 2:4, x quantized against one
+    static scale as the static run does) bitwise.  Timed beside the plain
+    version and the library call (torch.matmul on the decompressed weight;
+    torch._int_mm on the pre-gathered X), plan printed."""
+    from repro_torch.core import nm
+    from repro_torch.core.quantize import quantize_rows_static
+    from repro_torch.core.sparse_linear import SparsityConfig, convert_layout
+    from repro_torch.kernels.nm_spmm.kernel import nm_spmm, split_k
+    from repro_torch.kernels.nm_spmm.ref import dense_weight, nm_spmm_ref
+    from repro_torch.kernels.nm_spmm_gather import kernel as gk
+    from repro_torch.kernels.nm_spmm_gather import ref as gr
+
+    dev, bf16, n = "cuda", torch.bfloat16, 2
+    record = recorder(rows, card_line)
+    lay = int_mm_layout()[1]
+
+    def run(*a):
+        return gk.nm_spmm_gather_bk_int8(*a, out_dtype=bf16)
+
+    def ref(*a):
+        return gr.nm_spmm_gather_quantized_ref(*a, out_dtype=bf16)
+
+    for k, o in ((cfg.d_model, cfg.d_inner), (cfg.d_inner, cfg.d_model)):
+        kc = k * n // 4
+        ws = [torch.randn((k, o), generator=gen, device=dev) * k ** -0.5
+              for _ in range(copies_for(k * o))]
+        comp = [nm.compress_nm(nm.prune_nm(w.to(bf16), n, 4)[0], n, 4) for w in ws]
+        comp = [(c.values, nm.pack_meta(c.meta)) for c in comp]
+        gat = [convert_layout({"w": w}, SparsityConfig(n=n, m=4, mode="gather"), "gather",
+                              quantize="int8") for w in ws]
+        del ws
+        for b in SSM_KERNEL_ROWS:
+            x = torch.randn((b, k), generator=gen, device=dev).to(bf16)
+            ops = [(x, v, m, n) for v, m in comp]
+            record("nm_spmm", b, k, o, n, nm_spmm(*ops[0]), nm_spmm_ref(*ops[0]),
+                   time_ms(nm_spmm, ops), time_ms(nm_spmm_ref, ops),
+                   time_ms(torch.matmul, [(x, dense_weight(v, m, n)) for v, m in comp[:2]]),
+                   2 * (b * k + kc * o + b * o) + kc * o // 4, 2 * b * kc * o,
+                   split=split_k(b, k, o, n), path=cfg.name)
+            xq, xs = quantize_rows_static(x, x.float().abs().amax() / 127)
+            ops = [(xq, lf["values"], lf["gather_idx"], xs, lf["scale"].reshape(1, -1), n)
+                   for lf in gat]
+            lib = [(gr.gather_columns(xq, lf["gather_idx"], n), lay(lf["values"]))
+                   for lf in gat[:2]]
+            record("nm_spmm_gather_bk_int8", b, k, o, n, run(*ops[0]), ref(*ops[0]),
+                   time_ms(run, ops), time_ms(ref, ops), time_ms(int_mm_padded, lib),
+                   b * k + 4 * b + kc * o + 4 * kc + 4 * o + 2 * b * o, 2 * b * kc * o,
+                   peak=INT8_OPS, exact=True, plan=gk.int8_plan(b, k, o, n),
+                   library="pre-gathered X", path=cfg.name)
+
+
+def calibration_sites(cfg) -> int:
+    """The JAX package's count of calibration sites: one per (stage, slot)
+    key and quantized leaf -- an attention mixer's wq, wk, wv, wo, a Mamba
+    mixer's wz, wx, w_out, a swiglu FFN's w_gate, w_in, w_out and a gelu
+    FFN's w_in, w_out (an MoE layer's expert stacks sharing one scale
+    each)."""
+    from repro_torch.models import build_layout
+
+    ffn = {"none": 0, "mlp": 3 if cfg.act == "swiglu" else 2,
+           "moe": 3 if cfg.act == "swiglu" else 2}
+    return sum((3 if sl.mixer == "mamba" else 4) + ffn[sl.ffn]
+               for st in build_layout(cfg) for sl in st.slots)
 
 
 def long_trace(trace, vocab_size):
@@ -2496,6 +2648,8 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     from repro_torch.kernels.tile_gemm.kernel import int8_dual_plan as tile_int8_dual_plan
     from repro_torch.kernels.tile_gemm.kernel import int8_plan as tile_int8_plan
 
+    if cfg.family == "ssm":
+        return ssm_plans(cfg, layout, sparsity, qdtype, rows)
     spgemm = bool(cfg.num_experts) and cfg.moe_expert_path == "spgemm" and mesh == 1
     k, o = cfg.d_ff, cfg.d_model                # an expert's w_out
     if spgemm and layout == "dense" and qdtype is None:
@@ -2591,14 +2745,46 @@ def redesigned_plans(cfg, layout, sparsity, qdtype, rows, mesh=1) -> dict:
     return {}
 
 
+def ssm_plans(cfg, layout, sparsity, qdtype, rows) -> dict:
+    """A Mamba model's single kernel at its two site shapes, wz / wx (d_model
+    -> d_inner) and w_out (d_inner -> d_model), at each of ``rows``: K2's
+    split (bf16 compressed), K8's plan (bf16 gather), ``int8_plan`` (int8
+    compressed or gather)."""
+    from repro_torch.kernels.nm_spmm.kernel import int8_plan, split_k
+    from repro_torch.kernels.nm_spmm_gather.kernel import int8_plan as gather_int8_plan
+    from repro_torch.kernels.nm_spmm_gather.kernel import plan as gather_plan
+
+    n = sparsity[0] if sparsity else 4
+    plans = {("compressed", None): ("nm_spmm", lambda b, k, o: {"split": split_k(b, k, o, n)}),
+             ("gather", None): ("nm_spmm_gather_bk", lambda b, k, o: gather_plan(b, k, o, n)),
+             ("compressed", "int8"): ("nm_spmm_int8", lambda b, k, o: int8_plan(b, k, o, n)),
+             ("gather", "int8"): ("nm_spmm_gather_bk_int8",
+                                  lambda b, k, o: gather_int8_plan(b, k, o, n))}
+    if (layout, qdtype) not in plans:
+        return {}
+    name, plan_of = plans[layout, qdtype]
+    sites = ((cfg.d_model, cfg.d_inner), (cfg.d_inner, cfg.d_model))
+    return {name: {f"B={b} K={k} O={o}": plan_of(b, k, o) for b in rows for k, o in sites}}
+
+
 def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_path=None,
-                 max_len=512, long_prompts=False, tier_chunks=1, profile_pos=255):
+                 max_len=512, long_prompts=False, tier_chunks=1, profile_pos=255,
+                 requests=None, cuts=None, consistency=False):
+    """Serve ``base_cfg`` (at ``depth`` layers, with the widths in ``cuts``
+    replaced) in one layout and class through the port's Engine, with
+    every check and measurement of the serving phase; ``requests`` cuts the
+    trace to its first requests (an MoE run: MOE_REQUESTS), ``consistency``
+    also holds the paged prefill against the full-sequence forward
+    (``consistency_check``)."""
     import dataclasses
 
     from repro_torch import kernels, serving
-    from repro_torch.models import init_params, layer_site_keys
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import layer_slots
 
-    tag = (f"{base_cfg.name}/" if base_cfg.act == "gelu" else "") + \
+    family = base_cfg.family
+    tag = (f"{base_cfg.name}/" if base_cfg.act == "gelu" or family in ("ssm", "hybrid")
+           else "") + \
         (f"moe-{moe_path}/" if moe_path else "") + \
         ("gather-" if layout == "gather" else "") + \
         (f"{sparsity[0]}:{sparsity[1]}" if sparsity else "dense") + \
@@ -2608,13 +2794,19 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
                                prefill_chunk=64)
     # the JAX package's way to pick the expert path: a field of the config
     cfg = spec.apply_to(dataclasses.replace(
-        base_cfg, num_layers=depth or base_cfg.num_layers,
+        base_cfg, **{"num_layers": depth or base_cfg.num_layers, **(cuts or {})},
         **({"moe_expert_path": moe_path} if moe_path else {})))
+    mamba = family in ("ssm", "hybrid")
     log(f"[{tag}] depth: {cfg.num_layers} layers (d_model {cfg.d_model}, d_ff {cfg.d_ff}"
         + (f", {cfg.num_experts} experts top-{cfg.top_k}, {moe_path} path" if moe_path else "")
         + (f", window {cfg.window} on {cfg.local_global_period - 1} of every "
            f"{cfg.local_global_period} layers" if cfg.window else "")
+        + (f", d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+           f"ssm_state {cfg.ssm_state}, conv {cfg.ssm_conv}" if mamba else "")
         + f", head_dim {cfg.head_dim}, {cfg.act})")
+    if cuts:
+        log(f"[{tag}] cut from the published config ({base_cfg.name}): " + ", ".join(
+            f"{k} {getattr(base_cfg, k)} -> {v}" for k, v in cuts.items()))
     act = cfg.act
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2642,20 +2834,19 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
         log(f"[{tag}] calibration launches: {json.dumps(calib_counts)}")
         check_launches(f"{tag} calibration", calib_counts,
                        expected_kernels(layout, qdtype, static, moe_path, calibration=True,
-                                        act=act))
-        if calib_counts["flash_attention"] != cfg.num_layers:
+                                        act=act, family=family))
+        attn_layers = sum(slot.mixer != "mamba" for slot in layer_slots(cfg))
+        if calib_counts["flash_attention"] != attn_layers:
             fail(f"[{tag}] flash_attention launched {calib_counts['flash_attention']} "
-                 f"times in calibration, not once per layer ({cfg.num_layers})")
-        # the JAX package's unit: one site per stacked leaf (7 for both
-        # families: wq, wk, wv, wo and w_gate, w_in, w_out, an MoE layer's
-        # expert stacks sharing one scale each), counted from the tree;
-        # every quantized leaf of every layer carries its scale
+                 f"times in calibration, not once per attention layer ({attn_layers})")
+        # the JAX package's unit: one site per stacked leaf, counted from the
+        # tree; every quantized leaf of every layer carries its scale
         leaves = count_leaves(prepared.params, "act_scale")
         quantized = count_leaves(prepared.params, "scale")
         sites = quantized_sites(prepared.params, cfg)
-        # one site per (stage, slot) key and leaf: gemma3-1b's 3 keys x 6
-        # leaves (no w_gate) = 18
-        want_sites = len(set(layer_site_keys(cfg))) * (7 if act == "swiglu" else 6)
+        # internlm2-1.8b and qwen3-moe 7, gemma3-1b's 3 keys x 6 leaves (no
+        # w_gate) 18, mamba2's wz, wx, w_out 3
+        want_sites = calibration_sites(cfg)
         calib = {"calibrated_sites": prepared.calibrated_sites, "sites_in_tree": sites,
                  "expected_sites": want_sites,
                  "leaves_with_act_scale": leaves, "quantized_leaves": quantized,
@@ -2690,8 +2881,8 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
     trace = serving.make_poisson_trace(
         seed=0, num_requests=16, rate=1.0, vocab_size=cfg.vocab_size,
         prompt_mix=((128, 1.0), (192, 1.0), (256, 1.0)), new_mix=((32, 1.0),))
-    if moe_path:
-        trace = trace[:MOE_REQUESTS]
+    if moe_path or requests:
+        trace = trace[:requests or MOE_REQUESTS]
     if long_prompts:
         trace = long_trace(trace, cfg.vocab_size)
         log(f"[{tag}] trace: prompt lengths {[len(r.prompt) for r in trace]}, "
@@ -2703,7 +2894,8 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
     counts = kernels.launch_counts()
     log(f"[{tag}] served {rep.describe()}")
     log(f"[{tag}] launches: {json.dumps(counts)}")
-    check_launches(tag, counts, expected_kernels(layout, qdtype, static, moe_path, act=act))
+    check_launches(tag, counts, expected_kernels(layout, qdtype, static, moe_path, act=act,
+                                                 family=family))
     if rep.completed != len(trace):
         fail(f"[{tag}] {rep.completed}/{len(trace)} requests completed")
     for s in rep.stats:
@@ -2731,12 +2923,29 @@ def serve_layout(base_cfg, layout, sparsity, qdtype, static, depth=None, moe_pat
                                               moe=moe_path is not None,
                                               skip=moe_path == "spgemm", position=profile_pos,
                                               unfused=static and act == "gelu")
+    if mamba:
+        result["prefill_profile"] = profile_prefill(prepared, cfg, spec, tag)
     t_prof = time.perf_counter()
     tol = {None: TIER_TOL, "int8": STATIC_TIER_TOL if static else INT8_TIER_TOL,
            "fp8": FP8_TIER_TOL}[qdtype]
-    tiers = tier_check(prepared, cfg, spec, tag, tol, chunks=tier_chunks)
+    # a model with Mamba layers: the end-to-end gate only where the tiers'
+    # rounding leaves it room (SSM_GATED_DEPTH), every layer teacher-forced;
+    # on static scales the torch tier quantizes its activations against
+    # the same scales (the scheme's own error is the layer check's to print)
+    deep = mamba and cfg.num_layers > SSM_GATED_DEPTH
+    tiers = tier_check(prepared, cfg, spec, tag, tol, chunks=tier_chunks, gate=not mamba,
+                       fake_quant=mamba and static)
+    if deep:
+        tiers["gated_depth"] = tier_check(*depth_cut(prepared, cfg, SSM_GATED_DEPTH), spec,
+                                          f"{tag} first {SSM_GATED_DEPTH} layers", tol,
+                                          gate=not static, fake_quant=static)
+    if mamba:
+        tiers["layers"] = layer_tier_check(prepared, cfg, spec, tag, tol)
     if moe_path == "spgemm" and qdtype is None and layout == "dense":
         tiers["spgemm_vs_gather"] = expert_path_gap(prepared, cfg, spec, tag)
+    if consistency:
+        tiers["forward_vs_paged"] = consistency_check(prepared, cfg, spec, tag,
+                                                      min(cfg.num_layers, SSM_GATED_DEPTH))
     log(f"[{tag}] seconds: prepare and checks {t_plan - t0:.1f}, serving "
         f"{t_serve - t_plan:.1f}, profile {t_prof - t_serve:.1f}, tiers "
         f"{time.perf_counter() - t_prof:.1f}")
@@ -2859,27 +3068,32 @@ class CallCounter:
 
 def check_static_sites(cfg, tag, step, narrow_dtype) -> dict:
     """One decode step on static scales: no per-row quantize pass; wq, wk,
-    wv, wo and the gate-up pair (one shared quantize; one per expert in an
-    MoE layer) quantize against their static scales; every w_out (every
-    expert's) contracts the narrow rows (int8 or e4m3) as they came out of
-    the gate-up dual's requantizing flush."""
+    wv, wo (a Mamba layer's wz, wx and w_out) and the gate-up pair (one
+    shared quantize; one per expert in an MoE layer) quantize against their
+    static scales; every FFN w_out (every expert's) contracts the narrow
+    rows (int8 or e4m3) as they came out of the gate-up dual's requantizing
+    flush."""
     from repro_torch.core import quantize
     from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import layer_slots
 
     with CallCounter([(quantize, "quantize_rows"), (quantize, "quantize_rows_static"),
                       (dispatch, "sparse_matmul")]) as cc:
         step()
     torch.cuda.synchronize()
-    layers = cfg.num_layers
-    ffns = max(cfg.num_experts, 1)          # gate-up / w_out pairs per layer
+    slots = layer_slots(cfg)
+    # gate-up / w_out pairs, and the mixers' own static sites
+    pairs = sum(0 if sl.ffn == "none" else cfg.num_experts if sl.ffn == "moe" else 1
+                for sl in slots)
+    mixer_sites = sum(3 if sl.mixer == "mamba" else 4 for sl in slots)
     narrow = [k for dt, k in cc.fed if dt == narrow_dtype]
     res = {"dynamic_quantize_calls": cc.calls.get("quantize_rows", 0),
            "static_quantize_calls": cc.calls.get("quantize_rows_static", 0),
            "w_out_fed_narrow": len(narrow),
            "static_sites": cc.calls.get("quantize_rows_static", 0) + len(narrow)}
     log(f"[{tag}] static sites of one decode step: {json.dumps(res)}")
-    if (res["dynamic_quantize_calls"] or res["static_quantize_calls"] != (4 + ffns) * layers
-            or len(narrow) != ffns * layers or set(narrow) != {cfg.d_ff}):
+    if (res["dynamic_quantize_calls"] or res["static_quantize_calls"] != mixer_sites + pairs
+            or len(narrow) != pairs or set(narrow) != ({cfg.d_ff} if pairs else set())):
         fail(f"[{tag}] decode step not on static scales throughout: {json.dumps(res)}")
     return res
 
@@ -2991,7 +3205,7 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=F
 
     dev = "cuda"
     b, w = spec.slots, spec.table_width
-    caches = init_paged_caches(cfg, b * w + 1, spec.block_len, device=dev)
+    caches = init_paged_caches(cfg, b * w + 1, spec.block_len, b, device=dev)
     table = torch.arange(1, b * w + 1, device=dev).reshape(b, w)
     tokens = torch.randint(1, cfg.vocab_size, (b, 1), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(3))
@@ -3054,6 +3268,45 @@ def profile_decode(prepared, cfg, spec, tag, static=False, steps: int = 3, moe=F
     return res
 
 
+def profile_prefill(prepared, cfg, spec, tag) -> dict:
+    """Where a prefill chunk's time goes on a model with Mamba layers (each
+    walks its state recurrence token by token): one chunk of
+    ``spec.prefill_chunk`` seeded tokens into slot 0 under torch.profiler,
+    the device alone, its trace held to the launch counters
+    (``checked_profile``): launches per chunk and per token, device busy
+    ms, the chunk's wall ms and the device's idle share."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.models import init_paged_caches, paged_prefill_chunk
+
+    dev, c = "cuda", spec.prefill_chunk
+    caches = init_paged_caches(cfg, spec.table_width + 1, spec.block_len, spec.slots,
+                               device=dev)
+    table = torch.arange(1, spec.table_width + 1, device=dev)[None, :]
+    tokens = torch.randint(1, cfg.vocab_size, (1, c), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+
+    def step():
+        return paged_prefill_chunk(prepared.params, caches, tokens, 0, table, c, cfg,
+                                   spec.block_len, slot_idx=0)
+
+    with torch.inference_mode(), prepared.activate():
+        per_step = counted_step(step)
+        _, kern, wall_ms = checked_profile(step, 1, [ProfilerActivity.CUDA], per_step,
+                                           f"{tag} prefill")
+    launches = sum(e.count for e in kern)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    res = {"layout": tag, "chunk_tokens": c, "chunk_wall_ms": wall_ms,
+           "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+           "launches_per_chunk": launches, "launches_per_token": launches / c,
+           "port_kernel_launches_per_chunk": per_step,
+           "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                            "calls": e.count}
+                           for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]]}
+    log(f"[{tag}] prefill chunk profile: {json.dumps(res)}")
+    return res
+
+
 # --------------------------------------------------------------- phase 4
 def kept_experts(weights: torch.Tensor, cap: int) -> torch.Tensor:
     """The (T, E) mask of the experts that take each token: routed to it
@@ -3092,12 +3345,12 @@ def chunk_and_step(prepared, cfg, spec, backend, chunks: int = 1):
     moe._route = spy
     try:
         with torch.inference_mode(), dispatch.use_dispatch(backend=backend):
-            caches = init_paged_caches(cfg, spec.table_width + 1, spec.block_len,
+            caches = init_paged_caches(cfg, spec.table_width + 1, spec.block_len, 1,
                                        device=dev)
             for i in range(chunks):
                 lp, caches = paged_prefill_chunk(prepared.params, caches,
                                                  tokens[:, i * c:(i + 1) * c], i * c, table, c,
-                                                 cfg, spec.block_len)
+                                                 cfg, spec.block_len, slot_idx=0)
             ld, _ = paged_decode_step(prepared.params, caches, tokens[:, chunks * c:],
                                       torch.tensor([chunks * c], device=dev), table,
                                       torch.tensor([True], device=dev), cfg,
@@ -3107,23 +3360,29 @@ def chunk_and_step(prepared, cfg, spec, backend, chunks: int = 1):
     return lp[0].float(), ld[0].float(), routes
 
 
-def tier_check(prepared, cfg, spec, tag, tol, chunks: int = 1):
+def tier_check(prepared, cfg, spec, tag, tol, chunks: int = 1, gate: bool = True,
+               fake_quant: bool = False):
     """The cuda tier's logits against the torch tier's, over ``chunks``
-    prefill chunks (the last one's logits are compared) and a decode step.
+    prefill chunks (the last one's logits are compared) and a decode step
+    (measured and printed, and with ``gate`` held to ``tol``); with
+    ``fake_quant`` the torch tier quantizes its activations against the
+    static scales (``fake_quantized_activations``).
     An MoE tier may route a near-tied token to another expert, or keep it
     over an expert's capacity where the other tier drops it: the rows
     (prefill tokens, then the decode token) whose set of experts taking
     them differs in any layer are counted and left out of the gate."""
     c = spec.prefill_chunk
     pc, dc, rc = chunk_and_step(prepared, cfg, spec, "cuda", chunks)
-    pt, dt, rt = chunk_and_step(prepared, cfg, spec, "torch", chunks)
+    with fake_quantized_activations() if fake_quant else contextlib.nullcontext():
+        pt, dt, rt = chunk_and_step(prepared, cfg, spec, "torch", chunks)
     if not (torch.isfinite(pc).all() and torch.isfinite(dc).all()):
         fail(f"[{tag}] non-finite logits on the cuda tier")
     if pc.shape != (c, cfg.vocab_size) or dc.shape != (1, cfg.vocab_size):
         fail(f"[{tag}] logits shapes {tuple(pc.shape)} {tuple(dc.shape)}")
     same = torch.ones(c + 1, dtype=torch.bool, device=pc.device)
-    if rc:   # MoE calls: each prefill chunk's per layer, then the decode step's
-        n_l = cfg.num_layers
+    if rc:   # MoE calls: each prefill chunk's per MoE layer, then the decode step's
+        from repro_torch.models.transformer import layer_slots
+        n_l = sum(slot.ffn == "moe" for slot in layer_slots(cfg))
         if len(rc) != len(rt) or len(rc) != (chunks + 1) * n_l:
             fail(f"[{tag}] {len(rc)} / {len(rt)} MoE calls in the tiers' runs")
         for a, b in zip(rc[-2 * n_l:-n_l], rt[-2 * n_l:-n_l]):
@@ -3142,9 +3401,259 @@ def tier_check(prepared, cfg, spec, tag, tol, chunks: int = 1):
     if rc:
         res["rerouted_row_share"] = 1 - same.float().mean().item()
         res["rows_gated"] = int(same.sum().item())
+    res["gated"] = gate
+    if fake_quant:
+        res["reference"] = "torch tier, activations quantized against the static scales"
     log(json.dumps(res))
-    if not all(e is None or e <= tol for e in (e_p, e_d)):
+    if gate and not all(e is None or e <= tol for e in (e_p, e_d)):
         fail(f"[{tag}] cuda vs torch tier logits differ: {e_p} / {e_d} > {tol}")
+    return res
+
+
+def traced_layers(run, force=None) -> tuple:
+    """``run()`` with every layer call of the model recorded, in call order:
+    (its input, its mixer's output fp32 -- the Mamba mixer's or the
+    attention's, before the residual add rounds it into the stream -- and,
+    where the layer has one, its FFN's input and output fp32, else None).
+    With ``force``, the i-th layer call takes the input and the FFN input
+    of ``force(i)`` (a record of another run) instead (teacher forcing).
+    Returns (run's result, the records)."""
+    from repro_torch.models import transformer
+
+    real, mlp, moe = transformer._layer, transformer.apply_mlp, transformer.apply_moe
+    seen = []
+
+    def layer(lp, slot, x, cfg, mixer):
+        want = force(len(seen)) if force is not None else None
+        if want is not None:
+            x = want[0].to(x.dtype)
+        rec = [x, None, None, None]
+
+        def recorded(lp_, h):
+            o, aux = mixer(lp_, h)
+            rec[1] = o.float()
+            return o, aux
+
+        def ffn(fn):
+            def run_ffn(p, h, *a):
+                if want is not None:
+                    h = want[2].to(h.dtype)
+                rec[2] = h
+                out = fn(p, h, *a)
+                rec[3] = out.float()
+                return out
+            return run_ffn
+
+        transformer.apply_mlp, transformer.apply_moe = ffn(mlp), ffn(moe)
+        try:
+            out = real(lp, slot, x, cfg, recorded)
+        finally:
+            transformer.apply_mlp, transformer.apply_moe = mlp, moe
+        seen.append(tuple(rec))
+        return out
+
+    transformer._layer = layer
+    try:
+        result = run()
+    finally:
+        transformer._layer = real
+    return result, seen
+
+
+@contextlib.contextmanager
+def fake_quantized_activations():
+    """While active, every linear whose leaf carries a static act_scale
+    contracts its float activation quantized against that scale and
+    dequantized: the torch tier (which dequantizes the weights only) then
+    computes what the static int8 / fp8 kernels compute, up to rounding."""
+    from repro_torch.core import quantize
+    from repro_torch.kernels import dispatch
+
+    real = dispatch.sparse_matmul
+
+    def fake_quantized(x, params, *a, **k):
+        if quantize.has_static_scales(params) and x.dtype in (torch.bfloat16, torch.float32):
+            q, xs = quantize.quantize_rows_static(x.reshape(-1, x.shape[-1]),
+                                                  params["act_scale"],
+                                                  quantize.quant_dtype(params))
+            x = (q.float() * xs).reshape(x.shape).to(x.dtype)
+        return real(x, params, *a, **k)
+
+    dispatch.sparse_matmul = fake_quantized
+    try:
+        yield
+    finally:
+        dispatch.sparse_matmul = real
+
+
+def depth_cut(prepared, cfg, depth: int) -> tuple:
+    """(prepared, cfg) cut to their first ``depth`` layers: the same
+    weights, fewer of them."""
+    import dataclasses
+
+    return (dataclasses.replace(prepared, params={**prepared.params,
+                                                  "layers": prepared.params["layers"][:depth]}),
+            dataclasses.replace(cfg, num_layers=depth))
+
+
+def layer_tier_check(prepared, cfg, spec, tag, tol) -> dict:
+    """The tiers layer by layer, teacher-forced: one prefill chunk and one
+    decode step of seeded tokens, first on the torch tier, then on the cuda
+    tier with every layer taking the torch tier's input to that layer and
+    the decode step starting from the caches the torch tier's prefill left.
+    Each layer's mixer output (before the residual add, whose bf16 rounding
+    of a stream up to 43 times the mixer's size is no kernel's) and FFN
+    output (its input forced too, so an MoE routes alike) must be within
+    ``tol`` of the torch tier's on every row, each row (every prefill
+    position, the decode token) scaled by its own max.  On static scales the
+    torch tier runs with its activations quantized against them
+    (``fake_quantized_activations``), so the gate holds the static path
+    and not the scheme's quantization error; one per-tensor step is there
+    the unit of a flipped code, so the prefill rows are scaled by their
+    max over the chunk (a row of small values spans few steps).  The
+    scheme's own error is printed
+    (``static_quantization_err``: the cuda tier against the plain torch
+    tier).  ``ulp_sensitivity``: the reference tier's own logits moved by
+    one bf16 ulp on 1% of the embedding table's entries, the floor of any
+    end-to-end comparison at this depth."""
+    import dataclasses
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import init_paged_caches, paged_decode_step, paged_prefill_chunk
+
+    dev, c = "cuda", spec.prefill_chunk
+    tokens = torch.randint(1, cfg.vocab_size, (1, c + 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    table = torch.arange(1, spec.table_width + 1, device=dev)[None, :]
+
+    def copied(caches):
+        return [{k: v.clone() for k, v in cache.items()} for cache in caches]
+
+    def tier(backend, want=None, start=None):
+        """(prefill layer records, decode layer records, the caches the
+        prefill left) on ``backend``; with ``want`` (the torch tier's
+        records) teacher-forced, the decode from ``start``."""
+        with torch.inference_mode(), dispatch.use_dispatch(backend=backend):
+            caches = init_paged_caches(cfg, spec.table_width + 1, spec.block_len, 1, device=dev)
+            _, pre = traced_layers(
+                lambda: paged_prefill_chunk(prepared.params, caches, tokens[:, :c], 0, table,
+                                            c, cfg, spec.block_len, slot_idx=0),
+                force=want and (lambda i: want[0][i]))
+            left = copied(caches)
+            _, dec = traced_layers(
+                lambda: paged_decode_step(prepared.params, caches if start is None
+                                          else copied(start), tokens[:, c:],
+                                          torch.tensor([c], device=dev), table,
+                                          torch.tensor([True], device=dev), cfg,
+                                          spec.block_len),
+                force=want and (lambda i: want[1][i]))
+        return pre, dec, left
+
+    def layer_errs(want_pre, want_dec, left):
+        """Per layer: the worst prefill row's scaled error, the decode row's."""
+        got_pre, got_dec, _ = tier("cuda", want=(want_pre, want_dec), start=left)
+        if not len(got_pre) == len(want_pre) == len(got_dec) == len(want_dec) == n_l:
+            fail(f"[{tag}] {len(got_pre)} / {len(want_pre)} / {len(got_dec)} / "
+                 f"{len(want_dec)} layer calls in the tiers' runs")
+        pre_err = scaled_err if static else row_scaled_err
+
+        def err(f, g, w):       # the layer's mixer and FFN (if any), the worse
+            return max(f(g[k], w[k]) for k in (1, 3) if w[k] is not None)
+
+        return ([err(pre_err, g, w) for g, w in zip(got_pre, want_pre)],
+                [err(row_scaled_err, g, w) for g, w in zip(got_dec, want_dec)])
+
+    n_l, static = cfg.num_layers, spec.static_scales
+
+    def reference_tier():
+        return fake_quantized_activations() if static else contextlib.nullcontext()
+
+    with reference_tier():
+        reference = tier("torch")
+    pre, dec = layer_errs(*reference)
+    plain = layer_errs(*tier("torch")) if static else None
+    embed = prepared.params["embed"]
+    nudged = torch.rand(embed.shape, generator=torch.Generator(device=embed.device).manual_seed(7),
+                        device=embed.device) < 0.01
+    bumped = torch.where(nudged, (embed.float() * (1 + 2.0 ** -7)).to(embed.dtype), embed)
+    with reference_tier():
+        pt, dt, _ = chunk_and_step(prepared, cfg, spec, "torch")
+        pn, dn, _ = chunk_and_step(dataclasses.replace(
+            prepared, params={**prepared.params, "embed": bumped}), cfg, spec, "torch")
+    worst = max(range(n_l), key=lambda i: max(pre[i], dec[i]))
+    res = {"layout": tag, "tolerance": tol, "layers": n_l,
+           "prefill_rows_scaled_by": "the chunk's max" if static else "their own max",
+           "prefill_max_scaled_err": max(pre), "decode_max_scaled_err": max(dec),
+           "prefill_median_scaled_err": sorted(pre)[n_l // 2],
+           "decode_median_scaled_err": sorted(dec)[n_l // 2], "worst_layer": worst,
+           "ulp_sensitivity": {"prefill_scaled_err": scaled_err(pn, pt),
+                               "decode_scaled_err": scaled_err(dn, dt)}}
+    if static:
+        res["reference"] = "torch tier, activations quantized against the static scales"
+        res["static_quantization_err"] = {"prefill_max_scaled_err": max(plain[0]),
+                                          "decode_max_scaled_err": max(plain[1])}
+    log(f"[{tag}] tiers layer by layer (teacher-forced): {json.dumps(res)}")
+    if not max(max(pre), max(dec)) <= tol:
+        fail(f"[{tag}] layer {worst} differs between the tiers: "
+             f"{max(pre):.3e} (prefill) / {max(dec):.3e} (decode) > {tol}")
+    return res
+
+
+def consistency_check(prepared, cfg, spec, tag, gated_depth: int) -> dict:
+    """The paged prefill against the full-sequence forward on one seeded
+    CONSISTENCY_PROMPT-token prompt, cuda tier: ``models.forward`` (a Mamba
+    layer's chunked SSD scan, 128-token chunks) against CONSISTENCY_PROMPT /
+    prefill_chunk ``paged_prefill_chunk`` calls (each chunk's recurrence
+    one scan chunk from the cached state).  The last position's logits
+    must be within TIER_TOL of the forward's, scaled (the JAX package's
+    ``test_decode_consistency`` limit), on the model cut to its first
+    ``gated_depth`` layers; at full depth they are printed, and every layer
+    of every chunk, teacher-forced (it takes the forward's inputs to that
+    layer at the chunk's rows), must have its mixer's (and FFN's) output
+    within TIER_TOL of the forward's on every row, each scaled by its own
+    max."""
+    from repro_torch.models import forward, init_paged_caches, paged_prefill_chunk
+
+    dev, c, n_l = "cuda", spec.prefill_chunk, cfg.num_layers
+    chunks = CONSISTENCY_PROMPT // c
+    tokens = torch.randint(1, cfg.vocab_size, (1, CONSISTENCY_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    table = torch.arange(1, spec.table_width + 1, device=dev)[None, :]
+
+    def paged(prep, cf):
+        caches = init_paged_caches(cf, spec.table_width + 1, spec.block_len, 1, device=dev)
+        for i in range(chunks):
+            lp, caches = paged_prefill_chunk(prep.params, caches,
+                                             tokens[:, i * c:(i + 1) * c], i * c, table, c,
+                                             cf, spec.block_len, slot_idx=0)
+        return lp[0, -1].float()
+
+    def rows(i, t):
+        return None if t is None else t[:, i // n_l * c:(i // n_l + 1) * c]
+
+    cut_prep, cut_cfg = depth_cut(prepared, cfg, gated_depth)
+    with torch.inference_mode(), prepared.activate():
+        full, fwd = traced_layers(lambda: forward(prepared.params, cfg, tokens)[0, -1].float())
+        last = paged(prepared, cfg)
+        _, pag = traced_layers(lambda: paged(prepared, cfg),
+                               force=lambda i: [rows(i, t) for t in fwd[i % n_l]])
+        cut_full = forward(cut_prep.params, cut_cfg, tokens)[0, -1].float()
+        cut_last = paged(cut_prep, cut_cfg)
+    if not all(torch.isfinite(t).all() for t in (full, last, cut_full, cut_last)):
+        fail(f"[{tag}] non-finite logits in the forward / paged consistency check")
+    errs = [max(row_scaled_err(got[k], rows(i, fwd[i % n_l][k])) for k in (1, 3)
+                if got[k] is not None) for i, got in enumerate(pag)]
+    res = {"layout": tag, "prompt": CONSISTENCY_PROMPT, "paged_chunks": chunks,
+           "tolerance": TIER_TOL, "layer_row_max_scaled_err": max(errs),
+           "worst_layer": errs.index(max(errs)) % n_l,
+           "gated_depth": gated_depth, "scaled_err_at_gated_depth": scaled_err(cut_last, cut_full),
+           "same_argmax_at_gated_depth": bool(cut_last.argmax() == cut_full.argmax()),
+           "scaled_err_at_full_depth": scaled_err(last, full),
+           "same_argmax_at_full_depth": bool(last.argmax() == full.argmax())}
+    log(f"[{tag}] forward (chunked scan) vs paged prefill: {json.dumps(res)}")
+    if (len(errs) != chunks * n_l or not max(errs) <= TIER_TOL
+            or not res["scaled_err_at_gated_depth"] <= TIER_TOL):
+        fail(f"[{tag}] forward and paged prefill disagree: {json.dumps(res)}")
     return res
 
 
@@ -3838,6 +4347,10 @@ def main():
     for q, dt in QDTYPES.items():
         log(f"activation quantize pass, {q} (one call, B=8, K={cfg.d_model}): "
             f"{json.dumps(quantize_pass(cfg.d_model, dt))}")
+    mamba_cfg, jamba_cfg = get_config(MAMBA_ARCH), get_config(JAMBA_ARCH)
+    t0 = time.perf_counter()
+    ssm_kernel_phase(mamba_cfg, gen, card_line, rows)
+    log(f"SSM kernel phase {time.perf_counter() - t0:.1f}s")
 
     t_serving = time.perf_counter()
     served, tiers, launches = [], [], {}
@@ -3847,6 +4360,9 @@ def main():
              for path, layout, sparsity, qdtype, static in MOE_RUNS]
     runs += [(gemma_cfg, *run, None, GEMMA_SERVE) for run in GEMMA_RUNS]
     runs += [(get_config(STARCODER_ARCH), *run, None, {}) for run in STARCODER_RUNS]
+    runs += [(mamba_cfg, *run, None, {"requests": MOE_REQUESTS, "consistency": run[2] is None})
+             for run in MAMBA_RUNS]
+    runs += [(jamba_cfg, *run, None, "gather", {"cuts": JAMBA_CUTS}) for run in JAMBA_RUNS]
     flash_by_d = {}         # flash_attention launches by head_dim
     for base, layout, sparsity, qdtype, static, depth, path, opts in runs:
         t0 = time.perf_counter()
@@ -3882,6 +4398,15 @@ def main():
         f"static int8 2:4, int8 dense, gather 2:4 and 1:4, qwen3-moe spgemm bf16 2:4, bf16 "
         f"dense, fp8 dense, fp8 2:4, bf16 gather 2:4, fp8 gather 2:4, static int8 2:4, "
         f"dense and gather 2:4): {json.dumps(busy)}")
+    ssm_runs = {res["layout"]: {
+        "tokens_per_s": res["tokens_per_s"], "p50_latency_s": res["p50_latency_s"],
+        "p99_latency_s": res["p99_latency_s"], "weights_gb": res["weights_gb"],
+        **{k: res["decode_profile"][k] for k in ("step_wall_ms", "device_busy_ms",
+                                                  "device_idle_share", "launches_per_step")},
+        **{f"prefill_{k}": res["prefill_profile"][k]
+           for k in ("chunk_wall_ms", "device_busy_ms", "launches_per_token")}}
+        for res in served if res["arch"] in (mamba_cfg.name, jamba_cfg.name)}
+    log(f"SSM and hybrid serving ({card_line}): {json.dumps(ssm_runs)}")
 
     t0 = time.perf_counter()
     prefill_kernel_phase(hubert_cfg, HUBERT_RUNS, HUBERT_BATCH, gen, card_line, rows)
@@ -3981,6 +4506,15 @@ def main():
         if name.endswith("_requant"):
             entry["off_by_one_share"] = max(r["off_by_one_share"] for r in rows
                                             if r["kernel"] == name)
+        if name in ("nm_spmm", "nm_spmm_gather_bk_int8"):
+            # the SSM path's sites: wz, wx (d_model -> d_inner), w_out
+            md, mdi = mamba_cfg.d_model, mamba_cfg.d_inner
+            tot = layer_decode(rows, name, 2, 8, [(md, mdi), (md, mdi), (mdi, md)])
+            entry["mamba2_layer"] = {
+                "measured_as": f"one {mamba_cfg.name} layer's decode launches at B=8 (wz, wx, "
+                               f"w_out), n=2 (2:4)",
+                **{k: tot[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")}}
         pre = [r for r in rows if r["kernel"] == name and "prefill" in r]
         if name in bodies:
             entry["bodies"] = bodies[name]

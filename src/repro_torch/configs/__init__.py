@@ -2,8 +2,9 @@
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family config for CPU tests.
-The dense, MoE, audio (encoder) and vlm (vision-prefix) families are
-ported so far.
+Every architecture of the JAX package is ported: the dense, MoE, SSM
+(mamba2), hybrid (jamba), audio (encoder) and vlm (vision-prefix)
+families.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = ("internlm2_1_8b", "gemma3_1b", "starcoder2_3b", "mistral_large_123b",
-            "qwen3_moe_235b_a22b", "dbrx_132b", "hubert_xlarge", "phi_3_vision_4_2b")
+            "qwen3_moe_235b_a22b", "dbrx_132b", "hubert_xlarge", "phi_3_vision_4_2b",
+            "mamba2_2_7b", "jamba_1_5_large_398b")
 
 
 def _module(arch_id: str):

@@ -9,9 +9,12 @@
         [--prefill-chunk 8] [--rate 1.0] [--seed 0] [--mesh 1xM]
     python -m repro_torch.launch.serve --artifact DIR [--kernel-backend ...]
 
-``ARCH`` is one of ``repro_torch.configs.ARCH_IDS``: internlm2_1_8b,
-gemma3_1b, starcoder2_3b, mistral_large_123b, qwen3_moe_235b_a22b,
-dbrx_132b.  It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
+``ARCH`` is one of ``repro_torch.configs.ARCH_IDS`` with a token
+frontend: internlm2_1_8b, gemma3_1b, starcoder2_3b, mistral_large_123b,
+qwen3_moe_235b_a22b, dbrx_132b, mamba2_2_7b (ssm: Mamba-2 layers, no
+attention, one recurrent state per slot) and jamba_1_5_large_398b
+(hybrid: Mamba + MLP, Mamba + MoE and attention layers; its full width
+does not fit one card, ``--smoke`` runs on the CPU).  It builds a :class:`repro_torch.serving.ServingSpec`, initialises random
 weights from a seeded ``torch.Generator`` on the device, runs
 :func:`repro_torch.serving.prepare` (``--quantize int8|fp8`` quantizes
 every linear per output channel, to int8 or float8_e4m3fn, and the cuda

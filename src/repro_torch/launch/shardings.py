@@ -18,7 +18,8 @@ kernels run on the rank's own shard:
 Rank r's slice of an axis is its r-th contiguous part, so the heads of
 wq / wk / wv and the rows of wo line up: rank r serves query heads
 ``[r H/M, (r+1) H/M)`` and KV heads ``[r KV/M, (r+1) KV/M)``.  What this
-slice leaves to later work refuses here: the MoE family (``_moe_shardmap``),
+slice leaves to later work refuses here: the SSM and hybrid families
+(their Mamba heads over the model axis), the MoE family (``_moe_shardmap``),
 KV heads that do not divide the model axis (the JAX package replicates
 wk / wv then), and any slicing that would split an N:M metadata byte or
 a gather block.
@@ -96,6 +97,9 @@ def shard_leaf(leaf: Dict[str, Any], hint: str, env: AxisEnv, n: int = 4
 def check_config(cfg, model_size: int) -> None:
     """The configurations this slice shards: dense token models whose query
     and KV heads divide the model axis."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: the sharded SSM (Mamba heads over the model axis) "
+                         f"is not ported; see ROADMAP.md Queue 1 item 12")
     if cfg.family == "moe" or cfg.num_experts > 0:
         raise ValueError(f"{cfg.name}: the sharded MoE (experts over the model axis) is "
                          f"not ported; see ROADMAP.md Queue 1 item 12")

@@ -1,10 +1,11 @@
-"""Model configuration for the dense and MoE decoder families, the audio
-encoder and the vision-prefix decoder (port of ``repro.models.config``).
+"""Model configuration for the dense, MoE, SSM (Mamba-2) and hybrid
+(Jamba) decoder families, the audio encoder and the vision-prefix decoder
+(port of ``repro.models.config``).
 
 Field names, defaults and meanings are the JAX package's, for the fields
 the ported families read (the local/global attention pattern of gemma3,
-``causal`` and the modality ``frontend`` stubs included); ``torch_dtype``
-replaces ``jnp_dtype``.
+``causal``, the modality ``frontend`` stubs and the SSM / hybrid fields
+included); ``torch_dtype`` replaces ``jnp_dtype``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ __all__ = ["ModelConfig"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | audio | vlm (the families ported so far)
+    family: str                 # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
-    num_heads: int
+    num_heads: int              # 0 for attn-free
     num_kv_heads: int
     d_ff: int                   # dense MLP or per-expert FFN width
     vocab_size: int
@@ -38,10 +39,17 @@ class ModelConfig:
     # expert FFN as a sparse x sparse contraction (routing holes become
     # activation sparsity the masked kernels skip)
     moe_expert_path: str = "gather"
+    # --- SSM (Mamba-2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
     # --- attention pattern ---
     causal: bool = True
     window: int = 0             # >0: sliding-window size for "local" layers
     local_global_period: int = 0  # e.g. 6 for gemma3's 5:1 (every 6th global)
+    hybrid_period: int = 0      # jamba: 8 (1 attn layer per period)
+    moe_every: int = 0          # jamba: 2 (MoE on every other layer)
     act: str = "swiglu"         # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
@@ -57,6 +65,14 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     @property
     def is_encoder(self) -> bool:

@@ -1,6 +1,6 @@
-"""The dense and MoE decoder stacks, the audio encoder and the
-vision-prefix decoder (port of the serving and prefill parts of
-``repro.models.transformer``).
+"""The dense, MoE, SSM (Mamba-2) and hybrid (Jamba) decoder stacks, the
+audio encoder and the vision-prefix decoder (port of the serving and
+prefill parts of ``repro.models.transformer``).
 
 Parameter layout.  The JAX package stacks each layout slot's layers
 under ``params["stages"][s]["slot{j}"]`` with leading ``(count, repeat)``
@@ -14,8 +14,11 @@ then repeat ``r``)::
 
 A MoE layer's ``ffn`` is ``{"router": (d, E) fp32, "w_in", "w_gate",
 "w_out"}`` with every expert linear stacked along a leading E dim
-(``models.moe``).  An audio encoder (``frontend="audio_frames"``) has a
-``frame_proj`` (d, d) in place of ``embed``.
+(``models.moe``).  A Mamba layer's mixer is ``{"mamba": {wz, wx, wB, wC,
+wdt, dt_bias, A_log, D, conv_w, w_out}}`` (``models.ssm``); a slot whose
+``ffn`` is ``"none"`` (mamba2's) has no ``norm2`` and no ``ffn``.  An
+audio encoder (``frontend="audio_frames"``) has a ``frame_proj`` (d, d)
+in place of ``embed``.
 
 ``repro_torch.interop.params_from_numpy`` maps a JAX tree onto it.
 :func:`layer_site_keys` names each layer's (stage, slot), the unit the
@@ -40,14 +43,15 @@ from .config import ModelConfig
 from .layers import (apply_mlp, embed, init_embedding, init_mlp, init_rms_norm,
                      rms_norm)
 from .moe import apply_moe, init_moe
+from .ssm import init_mamba, mamba_block
 
 Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class Slot:
-    mixer: str            # attn | attn_local
-    ffn: str              # mlp | moe
+    mixer: str            # attn | attn_local | mamba
+    ffn: str              # mlp | moe | none
     repeat: int = 1
 
 
@@ -58,14 +62,28 @@ class Stage:
 
 
 def build_layout(cfg: ModelConfig) -> Tuple[Stage, ...]:
-    """Stage/slot layout; the port runs the dense and MoE families (an
-    MoE config's FFN slot is ``"moe"``) and the audio and vlm families,
-    which take the dense layout, as in the JAX package.  A local/global
-    config (gemma3) repeats ``period - 1`` local layers and one global
-    layer per super-block, then the remaining local layers in a stage of
-    their own, as the JAX package lays them out."""
-    if cfg.family not in ("dense", "moe", "audio", "vlm"):
+    """Stage/slot layout, the JAX package's: an ssm config (mamba2) is one
+    Mamba slot with no FFN; a hybrid config (jamba) repeats a super-block
+    of ``period - 1 - period / moe_every`` Mamba + MLP layers, then
+    ``period / moe_every`` Mamba + MoE layers, then one attention + MLP
+    layer; the dense and MoE families (an MoE config's FFN slot is
+    ``"moe"``) and the audio and vlm families, which take the dense layout,
+    are one attention slot.  A local/global config (gemma3) repeats
+    ``period - 1`` local layers and one global layer per super-block, then
+    the remaining local layers in a stage of their own."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "ssm":
+        return (Stage(cfg.num_layers, (Slot("mamba", "none"),)),)
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_period
+        if cfg.num_layers % period:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a whole number "
+                             f"of {period}-layer super-blocks")
+        n_moe = period // max(cfg.moe_every, 1)
+        return (Stage(cfg.num_layers // period, (Slot("mamba", "mlp", period - 1 - n_moe),
+                                                 Slot("mamba", "moe", n_moe),
+                                                 Slot("attn", "mlp", 1))),)
     if cfg.local_global_period > 0 and cfg.window > 0:
         p = cfg.local_global_period
         full, rem = divmod(cfg.num_layers, p)
@@ -93,14 +111,15 @@ def layer_site_keys(cfg: ModelConfig) -> List[Tuple[int, int]]:
 
 
 def _init_layer(gen: torch.Generator, slot: Slot, cfg: ModelConfig, device) -> Params:
-    return {
-        "norm1": init_rms_norm(cfg.d_model, device),
-        "mixer": init_attention(gen, cfg, device),
-        "norm2": init_rms_norm(cfg.d_model, device),
-        "ffn": (init_moe(gen, cfg, device) if slot.ffn == "moe" else
-                init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.sparsity,
-                         cfg.torch_dtype, device)),
-    }
+    p: Params = {"norm1": init_rms_norm(cfg.d_model, device),
+                 "mixer": ({"mamba": init_mamba(gen, cfg, device)} if slot.mixer == "mamba"
+                           else init_attention(gen, cfg, device))}
+    if slot.ffn != "none":
+        p["norm2"] = init_rms_norm(cfg.d_model, device)
+        p["ffn"] = (init_moe(gen, cfg, device) if slot.ffn == "moe" else
+                    init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.sparsity,
+                             cfg.torch_dtype, device))
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
@@ -127,13 +146,15 @@ MixerFn = Callable[[Slot, Params, Dict[str, torch.Tensor], torch.Tensor],
 
 
 def _layer(lp: Params, slot: Slot, x: torch.Tensor, cfg: ModelConfig, mixer):
-    """One layer's body (the JAX package's ``_apply_slot`` for the dense
-    and MoE families): ``rms_norm -> mixer -> residual -> rms_norm -> MLP
-    or MoE -> residual``.  ``mixer(lp, h) -> (out, aux)``; returns
-    ``(x, aux)``."""
+    """One layer's body (the JAX package's ``_apply_slot``): ``rms_norm ->
+    mixer -> residual``, then, unless the slot's ``ffn`` is ``"none"``,
+    ``rms_norm -> MLP or MoE -> residual``.  ``mixer(lp, h) -> (out,
+    aux)``; returns ``(x, aux)``."""
     h = rms_norm(x, lp["norm1"]["gamma"])
     o, aux = mixer(lp, h)
     x = x + o
+    if slot.ffn == "none":
+        return x, aux
     h = rms_norm(x, lp["norm2"]["gamma"])
     if slot.ffn == "moe":
         return x + apply_moe(lp["ffn"], h, cfg), aux
@@ -157,7 +178,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = N
     Attention runs through the dispatch engine (``flash_attention`` on
     the cuda backend, causal unless ``cfg.causal`` is off), a local
     layer's through the banded ``local_attention`` when its window is
-    shorter than the sequence."""
+    shorter than the sequence; a Mamba layer runs ``models.ssm.mamba_block``
+    (the chunked scan: T a multiple of ``min(128, T)``)."""
     if cfg.frontend == "audio_frames":
         x = embeds @ params["frame_proj"].to(embeds.dtype)
     elif cfg.frontend == "vision_patches":
@@ -165,9 +187,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = N
         x = torch.cat([embeds.to(tok_x.dtype), tok_x], dim=1)
     else:
         x = embed(params["embed"], tokens)
+    def mixer(slot, lp, h):
+        if slot.mixer == "mamba":
+            return mamba_block(lp["mixer"]["mamba"], h, cfg), None
+        return attention_block(lp["mixer"], h, cfg, is_global=slot.mixer == "attn"), None
+
     for slot, lp in zip(layer_slots(cfg), params["layers"]):
-        x, _ = _layer(lp, slot, x, cfg, lambda lp_, h, slot=slot: (
-            attention_block(lp_["mixer"], h, cfg, is_global=slot.mixer == "attn"), None))
+        x, _ = _layer(lp, slot, x, cfg, lambda lp_, h, slot=slot: mixer(slot, lp_, h))
     return _logits(params, x, cfg)
 
 

@@ -117,20 +117,23 @@ class Engine:
                            else self.spec.default_kv_blocks())
 
     def _fresh_caches(self):
+        return self._caches(self.device)
+
+    def _caches(self, device):
         from ..models.paged import init_paged_caches
         # +1: physical block 0 is the scratch target for masked writes; under
-        # the mesh's env the pools hold this rank's KV heads
+        # the mesh's env the pools hold this rank's KV heads; SSM state is
+        # one row per slot
         with self.prepared.activate():
             return init_paged_caches(self.cfg, self.num_blocks + 1, self.spec.block_len,
-                                     device=self.device)
+                                     self.spec.slots, device=device)
 
     def kv_bytes(self) -> int:
-        """Device bytes of this rank's block pools, from the shapes alone."""
-        cfg = self.cfg
-        ranks = self.spec.mesh[1] if self.spec.mesh is not None else 1
-        per_pool = ((self.num_blocks + 1) * self.spec.block_len * cfg.num_kv_heads // ranks
-                    * cfg.head_dim * cfg.torch_dtype.itemsize)
-        return 2 * per_pool * cfg.num_layers
+        """Device bytes of this rank's caches (the attention layers' block
+        pools and the Mamba layers' recurrent state), from the shapes alone:
+        the caches are made on the meta device, which allocates nothing."""
+        return sum(t.numel() * t.element_size()
+                   for cache in self._caches("meta") for t in cache.values())
 
     def dispatch_report(self):
         return self.prepared.dispatch_report()
@@ -196,7 +199,7 @@ class Engine:
                         logits, caches = paged_prefill_chunk(
                             params, caches, tok, st.prefill_off,
                             torch.from_numpy(sched.table[s:s + 1]).to(dev),
-                            c, self.cfg, spec.block_len)
+                            c, self.cfg, spec.block_len, slot_idx=s)
                         prefill_chunks += 1
                         st.prefill_off += c
                         if st.prefill_off == len(st.req.prompt):

@@ -22,7 +22,8 @@
   ``convert_layout`` + quantization of stacked expert leaves bitwise, and
   static-scale calibration with the expert stacks sharing one scale per
   site (7 sites) equal to JAX ``prepare``'s.
-- ``build_layout`` takes the moe family and still refuses the others; the
+- ``build_layout`` takes the moe family, lays out the ssm and hybrid
+  families as the JAX package does and refuses an unknown one; the
   launcher serves ``--arch qwen3_moe_235b_a22b --smoke`` on the CPU.
 """
 
@@ -169,12 +170,25 @@ def test_params_from_numpy_keeps_the_expert_stacks():
             np.asarray(jp["stages"][0]["slot0"]["ffn"]["w_out"]["w"][i, 0]))
 
 
-def test_build_layout_takes_moe_and_refuses_the_other_families():
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "jamba_1_5_large_398b"])
+def test_build_layout_takes_moe_and_the_ssm_families_like_the_reference(arch):
+    """The moe layout, and the ssm and hybrid layouts equal to the JAX
+    package's (stage counts, slots and repeats; the full configs too); an
+    unknown family still raises."""
+    from repro.configs import get_config as jget_config
+    from repro.models import transformer as jtr
+    from repro_torch.configs import get_config as tget_config
     cfg = port_config(_cfg())
     assert [s.ffn for s in ttr.layer_slots(cfg)] == ["moe", "moe"]
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ttr.build_layout(dataclasses.replace(cfg, family=family))
+    for jcfg, tcfg in ((get_smoke_config(arch), port_config(get_smoke_config(arch))),
+                       (jget_config(arch), tget_config(arch))):
+        want = [(st.count, [(sl.mixer, sl.ffn, sl.repeat) for sl in st.slots])
+                for st in jtr.build_layout(jcfg)]
+        assert [(st.count, [(sl.mixer, sl.ffn, sl.repeat) for sl in st.slots])
+                for st in ttr.build_layout(tcfg)] == want
+        assert len(ttr.layer_slots(tcfg)) == jtr.layout_num_layers(jcfg) == jcfg.num_layers
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ttr.build_layout(dataclasses.replace(cfg, family="diffusion"))
 
 
 BLOCK_LEN = 8
